@@ -4,20 +4,35 @@
 
 Phases, each printing one flushed JSON line with its ``phase`` and
 ``elapsed_s``:
-  env          torch / CUDA versions, the card's name and power limit
-  build        nvcc builds the q8q4 decode kernel (csrc/q_decode.cu)
-  kernel       the kernel against its plain PyTorch version on the card, at
-               the flagship per-layer shapes (B=8, Hq=32, Hkv=8, mc=5), with
-               its time beside the plain version's and its bound
-  reference    a tiny f32 model decoded on the card (kernel) and on the CPU
-               (plain path) with the same token stream: logits must agree
-  serve_q8q4   full-width, 32-layer Llama-3-8B with random W8 weights made
-               on the card: Generator.generate, B=8, prompt 300, 300 new
-               tokens, q8q4 compressed cache (one compaction on the way);
-               every decode step must launch the kernel once per layer
-  serve_dense  the same prompts through the dense baseline cache
-  decode_split device time of a decode step's W8 projections, LM head and
-               attention kernel, each timed alone, beside the step's wall time
+  env           torch / CUDA versions, the card's name and power limit
+  build         nvcc builds the three kernel libraries at once (csrc/q_decode.cu,
+                csrc/q_decode_ps.cu, csrc/q_segment.cu)
+  kernel        the uniform decode kernel against its plain PyTorch version on
+                the card, at the flagship per-layer shapes (B=8, Hq=32, Hkv=8,
+                mc=5), with its time beside the plain version's and its bound
+  kernel_ps     the per-slot decode kernel likewise: mixed slots (n_chunks
+                0/1/2/5, win_len 0/1/44/288, an idle slot), groups 1/2/4/8
+  kernel_seg    the segment kernel likewise: Tseg=256, G=4, B = 1 and 2,
+                n_chunks 0/1/4/31; timed at 31 chunks
+  reference     a tiny f32 model decoded on the card (kernel) and on the CPU
+                (plain path) with the same token stream: logits must agree
+  reference_cb  the tiny f32 continuous-batching engine (chunked, interleaved
+                admission, a slot retired and reused) likewise
+  serve_q8q4    full-width, 32-layer Llama-3-8B with random W8 weights made
+                on the card: Generator.generate, B=8, prompt 300, 300 new
+                tokens, q8q4 compressed cache (one compaction on the way);
+                every decode step must launch the kernel once per layer
+  serve_dense   the same prompts through the dense baseline cache
+  decode_split  device time of a decode step's W8 projections, LM head and
+                attention kernel, each timed alone, beside the step's wall time
+  serve_cb      the continuous-batching engine at full width: 8 slots, 17
+                requests (one of 8,000 prompt tokens), chunked interleaved
+                admission; per-slot and segment kernel launches = 32 x decode
+                steps and 32 x segments; first tokens = a batch-1 chunked
+                Generator's
+  serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64
+  host_split    one segment (B=1) and one decode tick (8 slots): host enqueue
+                time, wall time, device time and kernels launched
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 nothing is caught.  With no CUDA card, or run from a directory that holds
@@ -35,8 +50,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 BUDGET_S = 1100            # the run is cut, with a traceback, past this
 H100_BYTES_PER_S = 3.35e12
-H100_F32_FLOPS = 67e12     # f32 outside the tensor cores (the kernel's math)
+H100_F32_FLOPS = 67e12     # f32 outside the tensor cores (the decode kernels' math)
+H100_BF16_FLOPS = 989e12   # bf16 tensor cores, dense (the segment kernel's math)
 KERNEL_TOL_ULPS = 2        # bf16 ulps of the output's scale
+NO_LIBRARY = "no single PyTorch call computes this function"   # library_ms null
 
 
 def emit(phase, **fields):
@@ -88,17 +105,22 @@ def phase_env():
     return smi
 
 
+KERNEL_LIBS = ("q_decode", "q_decode_ps", "q_segment")
+
+
 def phase_build():
+    """nvcc builds the three kernel libraries at once, one process each."""
+    from concurrent.futures import ThreadPoolExecutor
     from mustafar_tpu_torch.ops.kernels import build
-    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
     t = time.perf_counter()
-    qa._library()
-    log = build.BUILD_LOGS.get("q_decode", "")
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    with ThreadPoolExecutor(len(KERNEL_LIBS)) as pool:
+        list(pool.map(build.load, KERNEL_LIBS))
+    ptxas = {name: [ln.strip() for ln in build.BUILD_LOGS.get(name, "").splitlines()
+                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+             for name in KERNEL_LIBS}
     emit("build", seconds=round(time.perf_counter() - t, 3),
-         library=str(build.library_path("q_decode").relative_to(ROOT)),
-         built_now="q_decode" in build.BUILD_LOGS, ptxas=ptxas)
+         libraries=[str(build.library_path(n).relative_to(ROOT)) for n in KERNEL_LIBS],
+         built_now=[n for n in KERNEL_LIBS if n in build.BUILD_LOGS], ptxas=ptxas)
 
 
 def phase_kernel():
@@ -187,10 +209,189 @@ def phase_kernel():
             "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": None}
+            "library_ms": None, "library_note": NO_LIBRARY}
 
 
-def _tiny_engine(mode):
+def _rand_state(g, dev, L, mc, BH, W):
+    """Random stacked q8q4 state: every int16 bit pattern, scales 0.002-0.02."""
+    import torch
+    pool = torch.randint(-32768, 32768, (L, mc, BH, 192, 128), generator=g,
+                         device=dev, dtype=torch.int32).to(torch.int16)
+    scales = (0.002 + 0.018 * torch.rand((L, mc, BH, 2, 128), generator=g,
+                                         device=dev)).to(torch.bfloat16)
+    k_win = torch.randn((L, BH, W, 128), generator=g, device=dev).to(torch.bfloat16)
+    v_win = torch.randn((L, BH, W, 128), generator=g, device=dev).to(torch.bfloat16)
+    return pool, scales, k_win, v_win
+
+
+def phase_kernel_ps():
+    """Per-slot decode kernel vs its plain version: the serving shape (B=8
+    slots, Hkv=8), mixed slots with n_chunks 0/1/2/5 and win_len 0/1/44/288,
+    an idle slot (0, 0) among them, query groups 1/2/4/8, bf16 and f32 q."""
+    import torch
+    from mustafar_tpu_torch.ops import quant_format as qf
+    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    B, Hkv, L, mc, W, D = 8, 8, 4, 5, 288, 128
+    BH = B * Hkv
+    codec = qf.QuantCodec(256, 128, 8, 4)
+    pool, scales, k_win, v_win = _rand_state(g, dev, L, mc, BH, W)
+    slots = [(0, 0), (0, 1), (1, 44), (2, 288), (5, 288), (5, 1), (1, 0), (2, 44)]
+    nc = torch.tensor([c for c, _ in slots], dtype=torch.int32, device=dev)
+    wl = torch.tensor([w for _, w in slots], dtype=torch.int32, device=dev)
+    launches0 = qa.fused_q_decode_attention_ps.launches
+    results, worst = [], 0.0
+    for G in (1, 2, 4, 8):
+        qb = torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(torch.bfloat16)
+        for qq in (qb, qb.float()):
+            for li in (0, L - 1):
+                args = (qq, pool, scales, k_win, v_win, nc, wl, li)
+                got = qa.fused_q_decode_attention_ps(*args, codec)
+                torch.cuda.synchronize()
+                want = qa.fused_q_decode_attention_ps_plain(*args)
+                # each slot is held to its own output scale, so a slot of small
+                # outputs (many chunks) is held as tightly as a one-token slot
+                dims = (1, 2, 3)
+                errs = (got.float() - want.float()).abs().amax(dim=dims)
+                tols = KERNEL_TOL_ULPS * 2.0 ** -8 * want.float().abs().amax(dim=dims)
+                live = (nc > 0) | (wl > 0)
+                idle_zero = bool((got[~live] == 0).all())
+                live_nonzero = bool((got.float().abs().amax(dim=dims)[live] > 0).all())
+                ratio = (errs[live] / tols[live].clamp_min(1e-30)).max().item()
+                results.append({"G": G, "q_dtype": str(qq.dtype).split(".")[-1],
+                                "li": li, "max_abs_err": errs.max().item(),
+                                "slot_err": errs.tolist(), "slot_tol": tols.tolist(),
+                                "worst_err_over_tol": ratio,
+                                "idle_slots_zero": idle_zero,
+                                "live_slots_nonzero": live_nonzero})
+                if not (got.isfinite().all() and ratio <= 1.0 and idle_zero
+                        and live_nonzero):
+                    raise AssertionError(f"per-slot kernel disagrees with its plain "
+                                         f"version: {results[-1]}")
+                worst = max(worst, ratio)
+
+    # time at the serving shape (G=4), the mixed slots above, L2 flushed
+    q = torch.randn((B, 1, Hkv * 4, D), generator=g, device=dev).to(torch.bfloat16)
+    args = (q, pool, scales, k_win, v_win, nc, wl, 0)
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for _ in range(10):
+        qa.fused_q_decode_attention_ps(*args, codec)
+    torch.cuda.synchronize()
+    kernel_ms = cuda_ms(lambda: qa.fused_q_decode_attention_ps(*args, codec), 100,
+                        flush=flush_buf.zero_)
+    plain_ms = cuda_ms(lambda: qa.fused_q_decode_attention_ps_plain(*args), 10,
+                       flush=flush_buf.zero_)
+    n_tok = sum(c * 256 + w for c, w in slots)
+    nbytes = (Hkv * sum(c * (192 * 128 * 2 + 2 * 128 * 2) + 2 * w * 128 * 2
+                        for c, w in slots)                  # pools, scales, windows
+              + 2 * q.numel() * 2 + 2 * B * 4)              # q in, out, counts
+    flops = Hkv * 4 * n_tok * D * 2 * 2                     # scores + p.v, G = 4
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    flops_ms = flops / H100_F32_FLOPS * 1e3
+    qa.fused_q_decode_attention_ps.launches = launches0   # comparisons do not count
+    emit("kernel_ps", shapes={"B": B, "Hq": 4 * Hkv, "Hkv": Hkv, "L": L, "mc": mc, "W": W},
+         slots=slots, cases=results, worst_err_over_tol=worst, kernel_ms=kernel_ms,
+         plain_ms=plain_ms, bytes=nbytes, flops=flops,
+         bound_ms=max(bytes_ms, flops_ms), library_ms=None)
+    return {"name": "fused_q_decode_attention_ps", "route": "cuda",
+            "source": "mustafar_tpu_torch/csrc/q_decode_ps.cu",
+            "replaces": "mustafar_tpu/ops/kernels/quant_attention.py:516",
+            "launches": None, "max_abs_err": max(r["max_abs_err"] for r in results),
+            "tol": "per slot: 2 bf16 ulps of the slot's largest output",
+            "worst_err_over_tol": worst,
+            "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": None, "library_note": NO_LIBRARY}
+
+
+def phase_kernel_seg():
+    """Segment kernel vs its plain version: Tseg=256, Hq=32 over Hkv=8
+    (G=4), B = 1 and 2, n_chunks 0/1/4/31; timed at the serving shape of
+    the longest prompt's last segment (B=1, 31 chunks)."""
+    import torch
+    from mustafar_tpu_torch.ops import quant_format as qf
+    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    Hq, Hkv, T, L, mc, D = 32, 8, 256, 2, 32, 128
+    codec = qf.QuantCodec(256, 128, 8, 4)
+    launches0 = qa.fused_q_segment_attention.launches
+    results, worst = [], 0.0
+    states = {}
+    for B in (1, 2):
+        pool, scales, _, _ = _rand_state(g, dev, L, mc, B * Hkv, 8)
+        states[B] = (pool, scales)
+        qb = torch.randn((B, T, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+        for nc in (0, 1, 4, 31):
+            for qq, li in ((qb, nc % L), (qb.float(), (nc + 1) % L)):
+                args = (qq, pool, scales, nc)
+                acc, m, l = qa.fused_q_segment_attention(*args, nc * 256, li, codec)
+                torch.cuda.synchronize()
+                pa, pm, pl = qa.fused_q_segment_attention_plain(*args, li)
+                if nc == 0:
+                    exact = bool((acc == 0).all() and (m == -1e30).all() and (l == 0).all())
+                    results.append({"B": B, "n_chunks": 0, "li": li, "empty_exact": exact})
+                    if not exact:
+                        raise AssertionError(f"segment kernel, no chunk: {results[-1]}")
+                    continue
+                # normalised output within 2 bf16 ulps of its scale (the bf16
+                # roundings of p may move by one ulp: other summation order);
+                # m and l are f32 sums in another order
+                out, pout = acc / l, pa / pl
+                err = (out - pout).abs().max().item()
+                tol = KERNEL_TOL_ULPS * 2.0 ** -8 * pout.abs().max().item()
+                m_err = (m - pm).abs().max().item()
+                m_tol = 1e-5 * pm.abs().max().item()
+                l_err = ((l - pl).abs() / pl).max().item()
+                l_tol = 1e-4
+                results.append({"B": B, "n_chunks": nc, "li": li,
+                                "q_dtype": str(qq.dtype).split(".")[-1],
+                                "max_abs_err": err, "tol": tol, "m_err": m_err,
+                                "m_tol": m_tol, "l_rel_err": l_err, "l_tol": l_tol})
+                if not (acc.isfinite().all() and err <= tol and m_err <= m_tol
+                        and l_err <= l_tol):
+                    raise AssertionError(f"segment kernel disagrees with its plain "
+                                         f"version: {results[-1]}")
+                worst = max(worst, err / max(tol, 1e-30), m_err / max(m_tol, 1e-30),
+                            l_err / l_tol)
+
+    B, nc = 1, 31
+    pool, scales = states[B]
+    q = torch.randn((B, T, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+    args = (q, pool, scales, nc)
+    for _ in range(3):
+        qa.fused_q_segment_attention(*args, nc * 256, 0, codec)
+    torch.cuda.synchronize()
+    kernel_ms = cuda_ms(lambda: qa.fused_q_segment_attention(*args, nc * 256, 0, codec), 20)
+    plain_ms = cuda_ms(lambda: qa.fused_q_segment_attention_plain(*args, 0), 3)
+    BH, QR = B * Hkv, T * Hq // Hkv
+    flops = 4 * BH * QR * nc * 256 * D                       # scores + p.v, mul + add
+    nbytes = (BH * nc * (192 * 128 * 2 + 2 * 128 * 2)        # pool rows, scales
+              + q.numel() * 2 + B * T * Hq * (D + 2) * 4)    # q in; acc, m, l out
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    flops_ms = flops / H100_BF16_FLOPS * 1e3
+    qa.fused_q_segment_attention.launches = launches0
+    emit("kernel_seg", shapes={"Tseg": T, "Hq": Hq, "Hkv": Hkv, "L": L, "mc": mc},
+         cases=results, worst_err_over_tol=worst, timed_at={"B": B, "n_chunks": nc},
+         kernel_ms=kernel_ms, plain_ms=plain_ms, flops=flops, bytes=nbytes,
+         bound_ms=max(bytes_ms, flops_ms), library_ms=None)
+    return {"name": "fused_q_segment_attention", "route": "cuda",
+            "source": "mustafar_tpu_torch/csrc/q_segment.cu",
+            "replaces": "mustafar_tpu/ops/kernels/quant_attention.py:704",
+            "launches": None,
+            "max_abs_err": max(r.get("max_abs_err", 0.0) for r in results),
+            "tol": max(r.get("tol", 0.0) for r in results), "worst_err_over_tol": worst,
+            "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": None, "library_note": NO_LIBRARY}
+
+
+def _tiny_engine(mode, **kw):
     import dataclasses
     from mustafar_tpu_torch import config as tc
     model = dataclasses.replace(tc.TINY_LLAMA, head_dim=128, num_heads=4,
@@ -199,7 +400,32 @@ def _tiny_engine(mode):
         model=model, cache_mode=mode,
         prune=tc.PruneConfig(method=tc.PruneMethod.KT_MAG_VT_MAG,
                              k_sparsity=0.7, v_sparsity=0.7),
-        max_seq_len=1024, prefill_bucket=256, chunk_size=256, codec="q8q4")
+        max_seq_len=kw.pop("max_seq_len", 1024), prefill_bucket=256, chunk_size=256,
+        codec="q8q4", **kw)
+
+
+def _recording_engine():
+    """The continuous-batching engine with its token choice recorded per
+    request (``logits``), optionally fed given streams (teacher forcing)."""
+    import numpy as np
+    from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
+
+    class Recording(ContinuousBatchingEngine):
+        def __init__(self, *args, streams=None, **kw):
+            super().__init__(*args, **kw)
+            self.streams = streams
+            self.logits = {}
+
+        def _choose(self, logits2d, reqs):
+            picks = super()._choose(logits2d, reqs)
+            for i, req in enumerate(reqs):
+                if req is not None:
+                    self.logits.setdefault(req.uid, []).append(logits2d[i].float().cpu())
+                    if self.streams is not None:
+                        picks[i] = self.streams[req.uid][len(req.out)]
+            return picks
+
+    return Recording, np
 
 
 def phase_reference():
@@ -251,6 +477,52 @@ def phase_reference():
     emit("reference", steps=40, max_abs_err=err, tol=tol, greedy_agreement=agree)
     if not (b.isfinite().all() and err <= tol):
         raise AssertionError("card and CPU logits disagree on the tiny model")
+
+
+def phase_reference_cb():
+    """The tiny f32 continuous-batching engine, chunked prefill with
+    interleaved admission, on the CPU (plain versions) and on the card
+    (kernels), fed the CPU's tokens: the card's logits within 1e-2 of their
+    range, its own greedy picks equal to the CPU's.  The requests make a
+    slot retire while the other decodes (its n_chunks still the old
+    request's) and reuse it."""
+    import torch
+    from mustafar_tpu_torch.config import CacheMode
+    from mustafar_tpu_torch.models import llama
+    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
+    Recording, np = _recording_engine()
+    eng = _tiny_engine(CacheMode.COMPRESSED, max_seq_len=2048, batch_size=2,
+                       chunked_prefill=True)
+    cpu_params = llama.init_params(eng.model, device="cpu", dtype=torch.float32, seed=2)
+    gpu_params = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict)
+                      else v.cuda()) for k, v in cpu_params.items()}
+    rs = np.random.RandomState(2)
+    reqs = [(rs.randint(0, 512, size=n), m)
+            for n, m in ((100, 12), (1000, 6), (280, 30), (530, 20))]
+    counts0 = (qa.fused_q_decode_attention_ps.launches,
+               qa.fused_q_segment_attention.launches)
+    runs = {}
+    for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+        streams = None if dev == "cpu" else runs["cpu"][0]
+        cb = Recording(eng, params, dtype=torch.float32, device=dev, streams=streams)
+        for p, m in reqs:
+            cb.submit(p, m)
+        runs[dev] = (cb.run(), cb.logits, cb.ticks, cb.segments, cb.decode_steps)
+    qa.fused_q_decode_attention_ps.launches, qa.fused_q_segment_attention.launches = counts0
+    toks, lc, ticks, segments, steps = runs["cpu"]
+    _, lg, *_ = runs["cuda"]
+    err, scale, agree, n = 0.0, 0.0, 0, 0
+    for uid in toks:
+        a, b = torch.stack(lc[uid]), torch.stack(lg[uid])
+        err = max(err, (a - b).abs().max().item())
+        scale = max(scale, a.abs().max().item())
+        agree += int((b.argmax(-1) == torch.as_tensor(toks[uid])).sum())
+        n += len(toks[uid])
+    tol = 1e-2 * scale
+    emit("reference_cb", requests=len(reqs), tokens=n, ticks=ticks, segments=segments,
+         decode_steps=steps, max_abs_err=err, tol=tol, greedy_agreement=agree / n)
+    if not (err <= tol and agree == n):
+        raise AssertionError("card and CPU disagree on the tiny continuous-batching run")
 
 
 def serve(label, mode, params, prompt, new_tokens):
@@ -340,12 +612,217 @@ def phase_decode_split(params, kernel_ms, q8q4_s, dense_s, new_tokens):
          dense_wall_ms_per_token=dense_s / new_tokens * 1e3)
 
 
+def phase_serve_cb(params):
+    """Continuous batching at full Llama-3-8B width and depth: 8 slots, 17
+    requests (16 with prompts of 200-1,500 tokens and 32-96 new tokens,
+    plus one of 8,000 prompt tokens submitted third), chunked prefill with
+    interleaved admission, q8q4 at 0.7.  Every decode step must launch the
+    per-slot kernel once a layer, every segment the segment kernel once a
+    layer; every request's first token must equal a batch-1 chunked
+    Generator's on the same prompt."""
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
+                                           PruneConfig, PruneMethod)
+    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
+    from mustafar_tpu_torch.runtime.generate import Generator
+    from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
+    eng = EngineConfig(model=LLAMA3_8B, cache_mode=CacheMode.COMPRESSED,
+                       prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG,
+                                         k_sparsity=0.7, v_sparsity=0.7),
+                       max_seq_len=8448, prefill_bucket=256, chunk_size=256,
+                       codec="q8q4", batch_size=8, chunked_prefill=True)
+    rs = np.random.RandomState(1)
+    reqs = [(rs.randint(1, LLAMA3_8B.vocab_size, size=rs.randint(200, 1501)),
+             int(rs.randint(32, 97))) for _ in range(16)]
+    reqs.insert(2, (rs.randint(1, LLAMA3_8B.vocab_size, size=8000), 64))
+    warm = ContinuousBatchingEngine(eng, params)
+    for p, _ in reqs[:2]:
+        warm.submit(p[:300], 4)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    class Timed(ContinuousBatchingEngine):
+        """Wall time of each tick by what it ran (a tick that decodes ends
+        in the device read of its tokens, so its time includes its work)."""
+        split = {"segment+decode": [], "decode": [], "segment": []}
+
+        def tick(self):
+            seg0, dec0, t0 = self.segments, self.decode_steps, time.perf_counter()
+            super().tick()
+            kind = ("segment+" if self.segments > seg0 else "") + \
+                ("decode" if self.decode_steps > dec0 else "")
+            self.split[kind.rstrip("+")].append(time.perf_counter() - t0)
+
+    cb = Timed(eng, params)
+    uids = [cb.submit(p, m) for p, m in reqs]
+    qa.fused_q_decode_attention.launches = 0
+    qa.fused_q_decode_attention_ps.launches = 0
+    qa.fused_q_segment_attention.launches = 0
+    t = time.perf_counter()
+    outs = cb.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = {"fused_q_decode_attention": qa.fused_q_decode_attention.launches,
+                "fused_q_decode_attention_ps": qa.fused_q_decode_attention_ps.launches,
+                "fused_q_segment_attention": qa.fused_q_segment_attention.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L = LLAMA3_8B.num_layers
+    generated = sum(len(outs[u]) for u in uids)
+    want = {"fused_q_decode_attention": 0,
+            "fused_q_decode_attention_ps": L * cb.decode_steps,
+            "fused_q_segment_attention": L * cb.segments}
+    seg_expected = sum(-(-len(p) // 256) for p, _ in reqs)
+    bad = [u for u, (p, m) in zip(uids, reqs)
+           if len(outs[u]) != m or min(outs[u]) < 0 or max(outs[u]) >= LLAMA3_8B.vocab_size]
+    # first tokens against a batch-1 chunked Generator (not counted above)
+    gen = Generator(eng, params)
+    first_equal = [int(gen.generate(p[None], 1)[0][0]) == int(outs[u][0])
+                   for u, (p, _) in zip(uids, reqs)]
+    counts = {"ticks": cb.ticks, "decode_steps": cb.decode_steps,
+              "segments": cb.segments,
+              "tick_ms": {k: {"n": len(v), "mean": 1e3 * sum(v) / max(len(v), 1),
+                              "total_s": sum(v)} for k, v in Timed.split.items()}}
+    del gen, cb
+    torch.cuda.empty_cache()
+    emit("serve_cb", model="llama-3-8b x32L, W8 (random, seed 0)", slots=8,
+         requests=len(reqs), prompt_tokens=sum(len(p) for p, _ in reqs),
+         generated_tokens=generated, seconds=dt, tok_s=generated / dt,
+         peak_mem_gib=peak, **counts, launches=launches, expected_launches=want,
+         first_token_equal=sum(first_equal))
+    if bad or launches != want or counts["segments"] != seg_expected:
+        raise AssertionError(f"serve_cb: bad outputs {bad}, launches {launches} "
+                             f"(expected {want}), segments {counts['segments']} "
+                             f"(expected {seg_expected})")
+    if not all(first_equal):
+        raise AssertionError(f"serve_cb: first tokens differ from the batch-1 "
+                             f"chunked Generator for requests "
+                             f"{[u for u, ok in zip(uids, first_equal) if not ok]}")
+    return launches
+
+
+def phase_serve_chunked(params):
+    """Generator with chunked prefill at full width: B=4, prompt 2,000 (8
+    segments), 64 new tokens; prefill through the segment kernel, decode
+    through the uniform kernel."""
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
+                                           PruneConfig, PruneMethod)
+    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
+    from mustafar_tpu_torch.runtime.generate import Generator
+    eng = EngineConfig(model=LLAMA3_8B, cache_mode=CacheMode.COMPRESSED,
+                       prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG,
+                                         k_sparsity=0.7, v_sparsity=0.7),
+                       max_seq_len=2304, prefill_bucket=256, chunk_size=256,
+                       codec="q8q4", chunked_prefill=True)
+    prompt = np.random.RandomState(3).randint(1, LLAMA3_8B.vocab_size, (4, 2000))
+    new = 64
+    gen = Generator(eng, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    qa.fused_q_decode_attention.launches = 0
+    qa.fused_q_segment_attention.launches = 0
+    t = time.perf_counter()
+    out = gen.generate(prompt, new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = {"fused_q_decode_attention": qa.fused_q_decode_attention.launches,
+                "fused_q_segment_attention": qa.fused_q_segment_attention.launches}
+    L = LLAMA3_8B.num_layers
+    want = {"fused_q_decode_attention": L * (new - 1),
+            "fused_q_segment_attention": L * 2048 // 256}
+    toks = np.stack(out)
+    emit("serve_chunked", batch=4, prompt=2000, new_tokens=new, seconds=dt,
+         tok_s=toks.size / dt, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         n_chunks_end=gen.last_cache["nc_host"], launches=launches,
+         expected_launches=want)
+    if toks.shape != (4, new) or launches != want or gen.last_cache["nc_host"] != 7:
+        raise AssertionError(f"serve_chunked: tokens {toks.shape}, launches "
+                             f"{launches} (expected {want})")
+    del gen
+    torch.cuda.empty_cache()
+
+
+def phase_host_split(params):
+    """Host or device: one chunked-prefill segment (B=1 after 4 packed
+    chunks; it packs a fifth) and one decode tick of the engine with 8
+    active slots, each timed three ways: the host's time to enqueue it, the
+    wall time until the card is done, and the device time of its kernels
+    with the number of kernels launched (torch.profiler)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mustafar_tpu_torch.cache import make_cache
+    from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
+                                           PruneConfig, PruneMethod)
+    from mustafar_tpu_torch.models import llama
+    from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
+    eng = EngineConfig(model=LLAMA3_8B, cache_mode=CacheMode.COMPRESSED,
+                       prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG,
+                                         k_sparsity=0.7, v_sparsity=0.7),
+                       max_seq_len=2304, prefill_bucket=256, chunk_size=256,
+                       codec="q8q4", batch_size=8, chunked_prefill=True)
+
+    def measure(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        enqueue = time.perf_counter() - t
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # device rows only: an op's row also counts the kernels it launched
+        device_us = sum(e.self_device_time_total for e in events
+                        if e.device_type == DeviceType.CUDA)
+        launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+        return {"enqueue_ms": 1e3 * enqueue, "wall_ms": 1e3 * wall,
+                "device_ms": device_us / 1e3, "kernels_launched": launches}
+
+    impl = make_cache(eng)
+    toks = torch.as_tensor(np.random.RandomState(4).randint(1, 500, (1, 2048)),
+                           device=impl.device)
+    sub = impl.init(1)
+    seg = [0]
+
+    def segment():
+        s = seg[0]
+        llama.prefill_segment(LLAMA3_8B, params, toks[:, s * 256:(s + 1) * 256], sub,
+                              impl, s * 256, 2000)
+        seg[0] += 1
+
+    with torch.inference_mode():
+        for _ in range(4):
+            segment()
+        seg_split = measure(segment)           # segment 4; the profiled one is 5
+        cb = ContinuousBatchingEngine(eng, params)
+        rs = np.random.RandomState(5)
+        for _ in range(8):
+            cb.submit(rs.randint(1, 500, size=300), 64)
+        while cb._admissions or cb.queue:
+            cb.tick()
+        tick_split = measure(cb.tick)
+    del cb, sub
+    torch.cuda.empty_cache()
+    emit("host_split", segment_b1=seg_split, decode_tick_b8=tick_split)
+
+
 def main():
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     smi = phase_env()
     phase_build()
     entry = phase_kernel()
+    entry_ps = phase_kernel_ps()
+    entry_seg = phase_kernel_seg()
     phase_reference()
+    phase_reference_cb()
 
     import numpy as np
     import torch
@@ -382,10 +859,15 @@ def main():
     if not first_equal:
         raise AssertionError("sparse and dense engines disagree on the first token")
     phase_decode_split(params, entry["kernel_ms"], q8q4_s, fields["seconds"], new)
+    cb_launches = phase_serve_cb(params)
+    phase_serve_chunked(params)
+    phase_host_split(params)
 
     entry["launches"] = launches
+    entry_ps["launches"] = cb_launches["fused_q_decode_attention_ps"]
+    entry_seg["launches"] = cb_launches["fused_q_segment_attention"]
     print(smi, flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, entry_ps, entry_seg]}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,24 +1,36 @@
-"""Compressed KV cache, q8q4 codec, uniform batch: port of the served subset
-of ``mustafar_tpu/cache/compressed.py``.
+"""Compressed KV cache, q8q4 codec: port of the served subset of
+``mustafar_tpu/cache/compressed.py`` (uniform batch, per-slot continuous
+batching and chunked prefill).
 
 State (a dict, the JAX package's layouts, updated in place):
   kv_pool   [L, mc, B, Hkv, 192, 128] int16  packed chunks, K rows then V rows
   kv_scales [L, mc, B, Hkv, 2, 128]   bf16   per-channel K and V scales
   k_win / v_win [L, B, Hkv, r+C, 128]        dense residual window
-  n_chunks  [L, B] int32                     active chunks
-  nc_host   int                              host copy of n_chunks (uniform
-                                             batch), so a decode step never
-                                             reads the device to size itself
+  n_chunks  [L, B] int32                     active chunks (device)
+  nc_host   int or None                      host copy of n_chunks while the
+                                             batch is uniform, so a uniform
+                                             decode step never reads the
+                                             device to size itself; None
+                                             once slots hold their own
+                                             counts (``insert_slot``)
 Semantics:
   * prefill: attention over the dense prompt; then the first
     ``((T - r) // C) * C`` tokens are pruned (exact top-|x| per token) and
     packed chunk by chunk, and the rest becomes the dense window.
+  * chunked prefill (``segment_attend``): one C-token segment attends the
+    packed pools (the segment kernel), the window and itself, merged; the
+    window's oldest C tokens are packed as soon as the segment's tokens
+    leave it more than r + C, and the window is rebuilt.
   * decode: the new token goes into the window; attention covers the pool
-    chunks and the window in one online softmax (the q8q4 kernel on the
-    card, its plain version on the CPU).
-  * compaction is a separate call between decode steps: when the window
+    chunks and the window in one online softmax (the q8q4 kernels on the
+    card, their plain versions on the CPU).  ``pos`` is a host int for a
+    uniform batch, or a [B] device tensor with per-slot positions
+    (continuous batching; an idle slot has pos -1 and is neither written
+    nor attended).
+  * compaction is a separate call between decode steps: when a window
     holds r + C tokens the oldest C are pruned and packed into the pool and
-    the window shifts.
+    the window shifts (``compact`` for a uniform batch, ``compact_slots``
+    for chosen slots).
 """
 
 from __future__ import annotations
@@ -29,7 +41,8 @@ from mustafar_tpu_torch.config import EngineConfig
 from mustafar_tpu_torch.device import resolve_device
 from mustafar_tpu_torch.ops import quant_format as qf
 from mustafar_tpu_torch.ops import sparse_format as sf
-from mustafar_tpu_torch.ops.attention import prefill_attention
+from mustafar_tpu_torch.ops.attention import (attention_partials, merge_partials,
+                                              prefill_attention)
 from mustafar_tpu_torch.ops.kernels import quant_attention as qa
 
 
@@ -130,12 +143,33 @@ class CompressedKVCache:
         return out
 
     # -- decode -----------------------------------------------------------
-    def decode_attend(self, state, li: int, q, k, v, pos: int):
+    def _views(self, state, li: int):
+        """Layer li's kernel views (pool, scales, k_win, v_win, layer index):
+        the stacked state flattened to B*Hkv heads; a float32 state (CPU
+        parity runs) casts this layer's windows to bf16, as the JAX package
+        casts its window for the kernel."""
+        L, mc, B, H = state["kv_pool"].shape[:4]
+        D = self.model.head_dim
+        pool = state["kv_pool"].view(L, mc, B * H, *state["kv_pool"].shape[4:])
+        scales = state["kv_scales"].view(L, mc, B * H, 2, D)
+        kw = state["k_win"].view(L, B * H, self.wcap, D)
+        vw = state["v_win"].view(L, B * H, self.wcap, D)
+        if kw.dtype != torch.bfloat16:
+            return (pool[li:li + 1], scales[li:li + 1],
+                    kw[li:li + 1].to(torch.bfloat16), vw[li:li + 1].to(torch.bfloat16), 0)
+        return pool, scales, kw, vw, li
+
+    def decode_attend(self, state, li: int, q, k, v, pos):
         """q [B,1,Hq,D], k/v [B,1,Hkv,D]; appends the token to layer li's
         window and attends pools + window.  ``pos`` is the host index of the
-        token.  Compaction is not done here (see ``compact``)."""
-        B, _, _, D = q.shape
+        token (uniform batch) or a [B] device tensor of per-slot indices.
+        Compaction is not done here (see ``compact``, ``compact_slots``)."""
+        if torch.is_tensor(pos):
+            return self._decode_attend_per_slot(state, li, q, k, v, pos)
         nc = state["nc_host"]
+        if nc is None:
+            raise ValueError("the slots of this cache hold their own counts: "
+                             "decode it with per-slot positions")
         win_len = pos + 1 - nc * self.C
         if not 1 <= win_len <= self.wcap:
             raise ValueError(
@@ -143,20 +177,35 @@ class CompressedKVCache:
                 f"(capacity {self.wcap}): compact() was not called when due")
         state["k_win"][li, :, :, win_len - 1] = k[:, 0]
         state["v_win"][li, :, :, win_len - 1] = v[:, 0]
-        H = self.model.num_kv_heads
-        L, mc = state["kv_pool"].shape[:2]
-        pool = state["kv_pool"].view(L, mc, B * H, *state["kv_pool"].shape[4:])
-        scales = state["kv_scales"].view(L, mc, B * H, 2, D)
-        kw = state["k_win"].view(L, B * H, self.wcap, D)
-        vw = state["v_win"].view(L, B * H, self.wcap, D)
-        lk = li
-        if kw.dtype != torch.bfloat16:
-            # float32 caches (CPU parity runs): the kernel reads bf16 windows,
-            # so cast this layer's slice, as the JAX package casts its window
-            kw, vw = kw[li:li + 1].to(torch.bfloat16), vw[li:li + 1].to(torch.bfloat16)
-            pool, scales, lk = pool[li:li + 1], scales[li:li + 1], 0
+        pool, scales, kw, vw, lk = self._views(state, li)
         return qa.fused_q_decode_attention(q, pool, scales, kw, vw, nc, win_len,
                                            lk, self.qcodec)
+
+    def _decode_attend_per_slot(self, state, li: int, q, k, v, pos):
+        """Per-slot decode (``_decode_attend_per_slot`` of the JAX package):
+        slot b's token lands at window column pos[b] - n_chunks[b]*C and the
+        per-slot kernel attends its own counts, all read on the device.  An
+        idle slot (pos -1) is written nowhere and passed to the kernel as
+        (0 chunks, 0 window tokens): after a retire its n_chunks still holds
+        the old request's count, and the window index it would give may lie
+        far out of range."""
+        B = q.shape[0]
+        nc = state["n_chunks"][li]
+        active = pos >= 0
+        win_len = torch.where(active, pos + 1 - nc * self.C, 0).to(torch.int32)
+        nc = torch.where(active, nc, 0).to(torch.int32)
+        # the clamp (and the kernel's clamp of win_len into [0, W]) can only
+        # bite when a compaction was missed; the schedulers compact on time
+        col = (win_len - 1).clamp(0, self.wcap - 1).long()
+        bidx = torch.arange(B, device=q.device)
+        live = active[:, None, None]
+        for key, tok in (("k_win", k), ("v_win", v)):
+            win = state[key][li]                               # [B, Hkv, W, D]
+            win[bidx, :, col] = torch.where(live, tok[:, 0].to(win.dtype),
+                                            win[bidx, :, col])
+        pool, scales, kw, vw, lk = self._views(state, li)
+        return qa.fused_q_decode_attention_ps(q, pool, scales, kw, vw, nc, win_len,
+                                              lk, self.qcodec)
 
     # -- compaction -------------------------------------------------------
     def needs_compact(self, total: int) -> bool:
@@ -173,6 +222,9 @@ class CompressedKVCache:
         """Pack the oldest C window tokens of every layer into the next pool
         slot and shift the windows (uniform batch, in place)."""
         C, nc = self.C, state["nc_host"]
+        if nc is None:
+            raise ValueError("the slots of this cache hold their own counts: "
+                             "compact it with compact_slots")
         if nc >= self.max_chunks:
             raise ValueError(f"pool full: {nc} of {self.max_chunks} chunks in use")
         for li in range(self.model.num_layers):
@@ -184,4 +236,119 @@ class CompressedKVCache:
                 w[:, :, self.wcap - C:] = 0
         state["n_chunks"] += 1
         state["nc_host"] = nc + 1
+        return state
+
+    def compact_slots(self, state, do) -> dict:
+        """Pack the oldest C window tokens of every layer into the next pool
+        slot, for the slots b with ``do[b]`` (a host sequence of bools; the
+        scheduler knows on the host which windows just filled), and shift
+        their windows (in place).  The chunk index is slot b's n_chunks,
+        read on the device as the JAX package reads it (layer 0's, the
+        layers move in lockstep)."""
+        sel = [b for b, flag in enumerate(do) if flag]
+        if not sel:
+            return state
+        C = self.C
+        b_sel = torch.tensor(sel, device=state["n_chunks"].device)
+        ci = state["n_chunks"][0, b_sel].long()
+        # one host read per compaction (every C steps of a slot), as compact()
+        # refuses a full pool rather than overwrite its last chunk
+        used = int(ci.max())
+        if used >= self.max_chunks:
+            raise ValueError(f"pool full: {used} of {self.max_chunks} chunks in use")
+        for li in range(self.model.num_layers):
+            rows, scales = self._pack_rows_scales(state["k_win"][li, b_sel, :, :C],
+                                                  state["v_win"][li, b_sel, :, :C])
+            state["kv_pool"][li, ci, b_sel] = rows
+            state["kv_scales"][li, ci, b_sel] = scales
+            for key in ("k_win", "v_win"):
+                win = state[key][li]
+                win[b_sel] = torch.cat([win[b_sel, :, C:],
+                                        torch.zeros_like(win[b_sel, :, :C])], dim=2)
+        state["n_chunks"][:, b_sel] += 1
+        return state
+
+    def insert_slot(self, state, sub, slot: int) -> dict:
+        """Copy the batch-1 cache ``sub`` (one request's prefill) into batch
+        slot ``slot`` of ``state``, in place: its whole pool, scales,
+        windows and counts.  The slots then hold their own counts, so
+        ``nc_host`` becomes None."""
+        for key in ("kv_pool", "kv_scales"):
+            state[key][:, :, slot] = sub[key][:, :, 0]
+        for key in ("k_win", "v_win"):
+            state[key][:, slot] = sub[key][:, 0].to(state[key].dtype)
+        state["n_chunks"][:, slot] = sub["n_chunks"][:, 0]
+        state["nc_host"] = None
+        return state
+
+    # -- chunked prefill --------------------------------------------------
+    def _segment_counts(self, nc: int, seg_start: int, true_len: int):
+        """(window length on entry, segment's valid rows, chunks after) of a
+        segment at ``seg_start`` over ``nc`` packed chunks (host ints)."""
+        seg_valid = min(max(true_len - seg_start, 0), self.C)
+        nc_after = max(seg_start + seg_valid - self.r, 0) // self.C
+        return seg_start - nc * self.C, seg_valid, nc_after
+
+    def segment_attend(self, state, li: int, q, k, v, seg_start: int,
+                       true_len: int):
+        """Chunked-prefill step of layer ``li``: the segment q/k/v
+        [B, C, H*, D] (roped) attends the packed pools (the segment kernel),
+        the window and itself (causal), merged -> out [B, C, Hq, D]; then it
+        is absorbed into layer li's state.
+
+        Invariants with seg_start = s*C: on entry n_chunks = max(0, s-1) (the
+        host ``nc_host``, uniform across the batch) and the window holds
+        tokens [n_chunks*C, seg_start) (0 or C of them); on exit they take
+        the same form for s+1, and the last segment leaves the window
+        [comp_len, true_len) exactly as monolithic prefill.
+
+        Where the JAX package stages the pack of the window's first C tokens
+        and applies it to every layer after the layer scan
+        (``finalize_segment``), the port writes it in place right away, into
+        pool slot n_chunks of layer li: a layer reads only its own pools and
+        only chunks below n_chunks, so nothing reads the slot before the
+        segment ends.  ``finalize_segment`` then moves the host count."""
+        B, T, Hq, D = q.shape
+        C, W = self.C, self.wcap
+        if T != C:
+            raise ValueError(f"a segment has {C} tokens, got {T}")
+        nc = state["nc_host"]
+        if nc is None:
+            raise ValueError("chunked prefill needs a uniform batch cache")
+        wl, seg_valid, nc_after = self._segment_counts(nc, seg_start, true_len)
+        kwin = state["k_win"][li]                               # [B, Hkv, W, D]
+        vwin = state["v_win"][li]
+        pool, scales, _, _, lk = self._views(state, li)
+        p_pool = qa.fused_q_segment_attention(q, pool, scales, nc, seg_start, lk,
+                                              self.qcodec)
+        dev = q.device
+        wmask = (torch.arange(W, device=dev) < wl)[None, :].expand(T, W)
+        p_win = attention_partials(q, kwin.transpose(1, 2), vwin.transpose(1, 2),
+                                   wmask)
+        smask = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
+        p_self = attention_partials(q, k, v, smask)
+        out = merge_partials([p_pool, p_win, p_self]).to(q.dtype)
+
+        if nc_after > nc:
+            rows, sc = self._pack_rows_scales(kwin[:, :, :C], vwin[:, :, :C])
+            state["kv_pool"][li, nc] = rows
+            state["kv_scales"][li, nc] = sc
+        shift = C if nc_after > nc else 0
+        seg_rows = (torch.arange(C, device=dev) < seg_valid)[None, None, :, None]
+        for win, seg_kv in ((kwin, k), (vwin, v)):
+            # [old window ++ segment] shifted by the pack, C + W rows so the
+            # slice [shift, shift + W) never runs off the end
+            tmp = torch.zeros((B, win.shape[1], C + W, D), dtype=win.dtype, device=dev)
+            tmp[:, :, :wl] = win[:, :, :wl]
+            tmp[:, :, wl:wl + C] = torch.where(seg_rows, seg_kv.transpose(1, 2),
+                                               0).to(win.dtype)
+            win.copy_(tmp[:, :, shift:shift + W])
+        state["n_chunks"][li] = nc_after
+        return out
+
+    def finalize_segment(self, state, seg_start: int, true_len: int) -> dict:
+        """After every layer's ``segment_attend``: the host count follows
+        the chunk the layers packed (if any)."""
+        state["nc_host"] = self._segment_counts(state["nc_host"], seg_start,
+                                                true_len)[2]
         return state

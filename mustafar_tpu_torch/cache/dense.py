@@ -1,5 +1,6 @@
 """Dense KV cache, the baseline twin of the compressed cache: port of
-``DenseKVCache`` in ``mustafar_tpu/cache/dense.py`` (uniform batch).
+``DenseKVCache`` in ``mustafar_tpu/cache/dense.py`` (uniform batch and
+per-slot continuous batching).
 
 State: k / v [L, B, S, Hkv, D], updated in place.  The JAX package decodes
 this cache through XLA (its Pallas flash-decode kernel is off by default),
@@ -40,9 +41,19 @@ class DenseKVCache:
         state["v"][li, :, :T] = v
         return out
 
-    def decode_attend(self, state, li: int, q, k, v, pos: int):
-        """q [B,1,Hq,D], k/v [B,1,Hkv,D]; the token lands at row ``pos``.
-        Attention over rows [0, pos) and the token itself, merged."""
+    def insert_slot(self, state, sub, slot: int) -> dict:
+        """Copy the batch-1 cache ``sub`` into batch slot ``slot`` (in place)."""
+        for key in ("k", "v"):
+            state[key][:, slot] = sub[key][:, 0].to(state[key].dtype)
+        return state
+
+    def decode_attend(self, state, li: int, q, k, v, pos):
+        """q [B,1,Hq,D], k/v [B,1,Hkv,D]; the token lands at row ``pos`` (a
+        host int, uniform batch) or ``pos[b]`` (a [B] device tensor,
+        per-slot).  Attention over rows [0, pos) and the token itself,
+        merged."""
+        if torch.is_tensor(pos):
+            return self._decode_attend_per_slot(state, li, q, k, v, pos)
         if pos < 1:
             raise ValueError(f"decode needs a prefilled cache, got pos {pos}")
         k_l, v_l = state["k"][li], state["v"][li]
@@ -53,4 +64,23 @@ class DenseKVCache:
         p_self = attention_partials(q, k.to(k_l.dtype), v.to(v_l.dtype),
                                     torch.ones((1, 1), dtype=torch.bool,
                                                device=q.device))
+        return merge_partials([p_cached, p_self]).to(q.dtype)
+
+    def _decode_attend_per_slot(self, state, li: int, q, k, v, pos):
+        """Per-slot positions: slot b attends its rows [0, pos[b]) and its
+        token.  An idle slot (pos -1) writes nothing; the JAX package would
+        wrap its index to the last row, which the next ``insert_slot`` of
+        that slot overwrites anyway."""
+        k_l, v_l = state["k"][li], state["v"][li]
+        B, S = k_l.shape[:2]
+        dev = q.device
+        cached = torch.arange(S, device=dev)[None, None, :] < pos[:, None, None]
+        p_cached = attention_partials(q, k_l, v_l, cached)          # [B, 1, S] mask
+        bidx = torch.arange(B, device=dev)
+        row = pos.clamp(min=0)
+        live = (pos >= 0)[:, None, None]
+        for buf, tok in ((k_l, k), (v_l, v)):
+            buf[bidx, row] = torch.where(live, tok[:, 0].to(buf.dtype), buf[bidx, row])
+        p_self = attention_partials(q, k.to(k_l.dtype), v.to(v_l.dtype),
+                                    torch.ones((1, 1), dtype=torch.bool, device=dev))
         return merge_partials([p_cached, p_self]).to(q.dtype)

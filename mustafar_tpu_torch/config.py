@@ -3,9 +3,9 @@
 The port keeps its own copy of the JAX package's config (``mustafar_tpu/
 config.py``): it imports nothing of that package.  Only what the served path
 reads is carried over: the Llama geometry, the pruning policies, the cache
-modes and the engine settings of the compressed cache.  Fields of the JAX
-config that select paths the port does not have yet (MoE, chunked prefill,
-sharding axes) are left out until those paths land.
+modes, and the engine settings of the compressed cache, continuous batching
+and chunked prefill.  Fields of the JAX config that select paths the port
+does not have yet (MoE, sharding axes) are left out until those paths land.
 """
 
 from __future__ import annotations
@@ -127,7 +127,13 @@ TINY_LLAMA = ModelConfig(
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine settings: cache mode, cache sizing and codec."""
+    """Engine settings: cache mode, cache sizing, batching and codec.
+
+    ``batch_size`` is the number of slots of the continuous-batching engine.
+    ``chunked_prefill`` (compressed cache only) streams a prompt through the
+    stack one chunk-sized segment at a time, attending to the packed past:
+    activation memory O(chunk) instead of O(prompt), and prefill attention
+    then sees the pruned past."""
 
     model: ModelConfig = TINY_LLAMA
     prune: PruneConfig = PruneConfig()
@@ -135,6 +141,8 @@ class EngineConfig:
     max_seq_len: int = 1024
     chunk_size: int = 256
     prefill_bucket: int = 256
+    batch_size: int = 1
+    chunked_prefill: bool = False
     codec: str = "bitmap"
 
     def __post_init__(self):
@@ -149,3 +157,6 @@ class EngineConfig:
                 f"compressed chunk ({self.chunk_size}) plus the residual "
                 f"window ({self.prune.residual_length})")
         assert self.max_seq_len > 0 and self.prefill_bucket > 0
+        if self.chunked_prefill:
+            assert self.cache_mode == CacheMode.COMPRESSED, (
+                "chunked_prefill requires the compressed cache")

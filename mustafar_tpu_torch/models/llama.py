@@ -108,15 +108,30 @@ def _lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
-            cache_impl, positions: torch.Tensor, mode: str, aux: int,
+            cache_impl, positions: torch.Tensor, mode: str, aux,
             last_only: bool = False):
-    """Shared forward, ``mode`` in {"prefill", "decode"}.
+    """Shared forward, ``mode`` in {"prefill", "prefill_segment", "decode"}.
 
-    tokens [B, T] int64; positions [T]; ``aux`` is the host int ``true_len``
-    (prefill) or ``pos`` (decode).  ``last_only`` computes the LM head at
-    position ``aux - 1`` only (prefill's [B, 1, V]).  The cache is updated in
-    place and returned with the f32 logits."""
-    if mode not in ("prefill", "decode"):
+    tokens [B, T] int64; positions [T] (or [B, 1], per-slot decode).
+    ``aux`` is the host int ``true_len`` (prefill), the host ints
+    ``(seg_start, true_len)`` (a chunked-prefill segment) or ``pos`` (decode:
+    a host int, or a [B] device tensor of per-slot positions).  ``last_only``
+    computes the LM head at the prompt's last position only ([B, 1, V]):
+    ``true_len - 1``, or ``true_len - 1 - seg_start`` within a segment.  The
+    cache is updated in place and returned with the f32 logits."""
+    if mode == "prefill":
+        def attend_at(li):
+            return lambda q, k, v: cache_impl.prefill_attend(cache, li, q, k, v, aux)
+    elif mode == "prefill_segment":
+        seg_start, true_len = aux
+
+        def attend_at(li):
+            return lambda q, k, v: cache_impl.segment_attend(
+                cache, li, q, k, v, seg_start, true_len)
+    elif mode == "decode":
+        def attend_at(li):
+            return lambda q, k, v: cache_impl.decode_attend(cache, li, q, k, v, aux)
+    else:
         raise ValueError(f"unsupported forward mode {mode!r}")
     x = embed_lookup(params, tokens, params["final_norm"].dtype)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
@@ -124,16 +139,15 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
     layers = params["layers"]
     for li in range(cfg.num_layers):
         lp = {name: leaf[li] for name, leaf in layers.items()}
-        if mode == "prefill":
-            def attend(q, k, v, li=li):
-                return cache_impl.prefill_attend(cache, li, q, k, v, aux)
-        else:
-            def attend(q, k, v, li=li):
-                return cache_impl.decode_attend(cache, li, q, k, v, aux)
-        x = _layer(cfg, lp, x, cos, sin, attend)
+        x = _layer(cfg, lp, x, cos, sin, attend_at(li))
+    if mode == "prefill_segment":
+        cache_impl.finalize_segment(cache, seg_start, true_len)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if last_only:
-        idx = max(aux - 1, 0)
+        if mode == "prefill_segment":
+            idx = min(max(true_len - 1 - seg_start, 0), tokens.shape[1] - 1)
+        else:
+            idx = max(aux - 1, 0)
         x = x[:, idx:idx + 1]
     return _lm_head(cfg, params, x), cache
 
@@ -146,7 +160,43 @@ def prefill(cfg: ModelConfig, params, tokens, cache, cache_impl, true_len: int,
                    true_len, last_only=last_only)
 
 
-def decode_step(cfg: ModelConfig, params, token, cache, cache_impl, pos: int):
-    """token [B, 1]; pos the host int index of this token (uniform batch)."""
-    positions = torch.full((1,), pos, dtype=torch.int64, device=token.device)
+def prefill_segment(cfg: ModelConfig, params, seg_tokens, cache, cache_impl,
+                    seg_start: int, true_len: int):
+    """One chunked-prefill segment: seg_tokens [B, C] at positions
+    [seg_start, seg_start + C) -> (logits at the prompt's last position
+    within the segment [B, 1, V], cache)."""
+    positions = seg_start + torch.arange(seg_tokens.shape[1], device=seg_tokens.device)
+    return forward(cfg, params, seg_tokens, cache, cache_impl, positions,
+                   "prefill_segment", (seg_start, true_len), last_only=True)
+
+
+def prefill_chunked(cfg: ModelConfig, params, tokens, cache, cache_impl,
+                    true_len: int):
+    """Chunked (segment-streamed) prefill over the compressed cache.
+
+    tokens [B, T] with T a multiple of the cache chunk C: the prompt goes
+    through the whole stack C tokens at a time, each segment attending the
+    packed pools, the window and itself (``segment_attend``), so activation
+    memory is O(B*C), not O(B*T).  Returns (the last segment's logits
+    [B, 1, V], cache); with C-aligned prompt buckets the last segment holds
+    position true_len - 1."""
+    C = cache_impl.C
+    T = tokens.shape[1]
+    if T % C:
+        raise ValueError(f"chunked prefill takes a multiple of {C} tokens, got {T}")
+    logits = None
+    for seg_start in range(0, T, C):
+        logits, cache = prefill_segment(cfg, params, tokens[:, seg_start:seg_start + C],
+                                        cache, cache_impl, seg_start, true_len)
+    return logits, cache
+
+
+def decode_step(cfg: ModelConfig, params, token, cache, cache_impl, pos):
+    """token [B, 1]; pos the host int index of this token (uniform batch) or
+    a [B] device tensor of per-slot indices (continuous batching: RoPE then
+    rotates each row at its own position)."""
+    if torch.is_tensor(pos):
+        positions = pos[:, None]
+    else:
+        positions = torch.full((1,), pos, dtype=torch.int64, device=token.device)
     return forward(cfg, params, token, cache, cache_impl, positions, "decode", pos)

@@ -26,7 +26,7 @@ def _quant_last(w: torch.Tensor):
     """Symmetric int8 over the ``in`` axis; one scale per out-channel."""
     wf = w.to(torch.float32)
     amax = wf.abs().amax(dim=-2, keepdim=True)
-    s = torch.clamp_min(amax * recip_f32(127.0).to(w.device), 1e-12)
+    s = torch.clamp_min(amax * recip_f32(127.0), 1e-12)
     q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
     return q, s.squeeze(-2)
 
@@ -35,7 +35,7 @@ def _quant_rows(w: torch.Tensor):
     """Symmetric int8 per row (embedding table [V, H] -> scale [V])."""
     wf = w.to(torch.float32)
     amax = wf.abs().amax(dim=-1, keepdim=True)
-    s = torch.clamp_min(amax * recip_f32(127.0).to(w.device), 1e-12)
+    s = torch.clamp_min(amax * recip_f32(127.0), 1e-12)
     q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
     return q, s[..., 0]
 

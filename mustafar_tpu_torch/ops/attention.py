@@ -59,15 +59,16 @@ def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        mask: torch.Tensor):
     """Unnormalised flash partials of masked GQA attention.
 
-    q [B,Tq,Hq,D]; k/v [B,S,Hkv,D]; mask [Tq,S] bool.  Returns
-    (acc [B,Tq,Hq,D] f32, m [B,Tq,Hq,1], l [B,Tq,Hq,1]); all-masked rows give
-    m = -1e30, l = 0, acc = 0."""
+    q [B,Tq,Hq,D]; k/v [B,S,Hkv,D]; mask [Tq,S] or [B,Tq,S] bool (a
+    segment's window and causal-self masks are [Tq,S]; per-slot decode's
+    [B,1,S]).  Returns (acc [B,Tq,Hq,D] f32, m [B,Tq,Hq,1], l [B,Tq,Hq,1]);
+    all-masked rows give m = -1e30, l = 0, acc = 0."""
     B, Tq, Hq, D = q.shape
     Hkv = k.shape[2]
     qg = _fold_gqa(q, Hkv).to(torch.float32)
     s = torch.einsum("bthgd,bshd->bthgs", qg, k.to(torch.float32))
     s = s * (1.0 / math.sqrt(D))
-    m_ = mask[None, :, None, None, :]
+    m_ = mask[None, :, None, None, :] if mask.ndim == 2 else mask[:, :, None, None, :]
     s = s.masked_fill(~m_, NEG_INF)
     m = torch.clamp_min(s.amax(dim=-1, keepdim=True), NEG_INF)
     p = torch.exp(s - m).masked_fill(~m_, 0.0)

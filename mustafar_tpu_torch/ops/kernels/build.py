@@ -2,7 +2,8 @@
 library, loaded with ``ctypes``.
 
 Nothing is built at import.  The first call of ``load`` compiles
-``csrc/<name>.cu`` for ``sm_90a`` into ``mustafar_tpu_torch/_build/`` (listed
+``csrc/<name>.cu`` (which may include the shared ``csrc/*.cuh``) for
+``sm_90a`` into ``mustafar_tpu_torch/_build/`` (listed
 in ``.gitignore``) under a name that carries the hash of the source and the
 flags, so a changed source rebuilds and an unchanged one loads at once.
 """
@@ -41,7 +42,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The hashed library name: the source, the shared headers of
+    ``csrc/`` and the flags all go into the hash."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

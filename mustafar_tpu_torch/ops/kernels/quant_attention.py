@@ -1,15 +1,20 @@
-"""Fused q8q4 decode attention: the CUDA kernel, its plain PyTorch version
-and the wrapper that picks between them by device.
+"""Fused q8q4 attention kernels: the CUDA kernels, their plain PyTorch
+versions and the wrappers that pick between them by device.
 
-Port of ``mustafar_tpu/ops/kernels/quant_attention.py``
-``fused_q_decode_attention`` (uniform batch, codec q8q4, options off).  The
-kernel is ``csrc/q_decode.cu``; its header note says what it computes, what
-bounds it and how it is laid out.  The plain version below repeats its
-arithmetic step by step (same casts, same order of scaling, the same
-online-softmax tiles), so the two agree to f32 rounding.
+Ports of ``mustafar_tpu/ops/kernels/quant_attention.py`` for codec q8q4,
+options off:
+  fused_q_decode_attention     uniform-batch decode   csrc/q_decode.cu
+  fused_q_decode_attention_ps  per-slot decode        csrc/q_decode_ps.cu
+  fused_q_segment_attention    chunked-prefill        csrc/q_segment.cu
+                               partials over the pools
+Each kernel's header note says what it computes, what bounds it and how it
+is laid out.  The plain versions below repeat their arithmetic step by step
+(same casts, same order of scaling, the same online-softmax steps), so
+kernel and plain version agree to f32 rounding.
 
 Layouts are the JAX package's stacked ones, indexed at layer ``li``:
   q          [B, 1, Hq, 128]              bf16 or f32 (read as bf16)
+  q_seg      [B, Tseg, Hq, 128]           bf16 or f32 (read as bf16)
   kv_pool    [L, mc, B*Hkv, 192, 128]     int16   (K rows, then V rows)
   kv_scales  [L, mc, B*Hkv, 2, 128]       bf16    (K scale, V scale)
   k_win/v_win [L, B*Hkv, W, 128]          bf16
@@ -29,24 +34,33 @@ from mustafar_tpu_torch.ops.kernels import build
 NEG_INF = -1e30
 SM_SCALE = 0.08838834764831845      # 1 / sqrt(128)
 WINDOW_TILE = 96                    # most window tokens per softmax step
-_GROUPS = (1, 2, 4, 8)              # query heads per kv head the kernel takes
+_GROUPS = (1, 2, 4, 8)              # query heads per kv head the decode kernels take
 
 
-def _check(q, kv_pool, kv_scales, k_win, v_win, n_chunks, win_len, li, codec,
-           window, return_norm, return_win_probs):
-    """Raise on anything the kernel does not take; return (BH, G)."""
+def _check_codec(codec, window, name):
     if (codec.kbits, codec.vbits, codec.chunk, codec.dim) != (8, 4, 256, 128):
         raise NotImplementedError(
-            "fused_q_decode_attention serves codec q8q4 with 256-token chunks; "
-            "q8 and q4q4 are ROADMAP Queue A item 8")
+            f"{name} serves codec q8q4 with 256-token chunks; q8 and q4q4 are "
+            "ROADMAP Queue A item 8")
     if window is not None:
-        raise NotImplementedError("sliding-window decode is ROADMAP Queue A item 14")
-    if return_norm or return_win_probs:
-        raise NotImplementedError(
-            "softmax stats and window probabilities (Opa) are ROADMAP Queue A item 12")
-    if q.dim() != 4 or q.shape[1] != 1 or q.shape[3] != 128:
-        raise ValueError(f"q must be [B, 1, Hq, 128], got {tuple(q.shape)}")
-    B, _, Hq, _ = q.shape
+        raise NotImplementedError("sliding-window attention is ROADMAP Queue A item 14")
+
+
+def _check_tensors(q, named):
+    """dtype, contiguity and device of each (name, tensor, dtype)."""
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
+    for name, t, dt in named:
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def _check_pool(kv_pool, kv_scales, codec, B):
+    """Return (L, mc, BH, Hkv) of the stacked pool."""
     if kv_pool.dim() != 5 or tuple(kv_pool.shape[3:]) != (codec.stream_rows, 128):
         raise ValueError(f"kv_pool must be [L, mc, BH, {codec.stream_rows}, 128], "
                          f"got {tuple(kv_pool.shape)}")
@@ -54,33 +68,53 @@ def _check(q, kv_pool, kv_scales, k_win, v_win, n_chunks, win_len, li, codec,
     if tuple(kv_scales.shape) != (L, mc, BH, 2, 128):
         raise ValueError(f"kv_scales must be {(L, mc, BH, 2, 128)}, "
                          f"got {tuple(kv_scales.shape)}")
+    if B < 1 or BH % B:
+        raise ValueError(f"pool heads {BH} are not a multiple of batch {B}")
+    return L, mc, BH, BH // B
+
+
+def _check_int(name, val, lo, hi):
+    if not isinstance(val, int) or not lo <= val <= hi:
+        raise ValueError(f"{name} must be an int in [{lo}, {hi}], got {val!r}")
+
+
+def _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec, window,
+                  return_norm, return_win_probs, name):
+    """Shapes, types and devices both decode kernels share; returns
+    (BH, G, mc, W)."""
+    _check_codec(codec, window, name)
+    if return_norm or return_win_probs:
+        raise NotImplementedError(
+            "softmax stats and window probabilities (Opa) are ROADMAP Queue A item 12")
+    if q.dim() != 4 or q.shape[1] != 1 or q.shape[3] != 128:
+        raise ValueError(f"q must be [B, 1, Hq, 128], got {tuple(q.shape)}")
+    B, _, Hq, _ = q.shape
+    L, mc, BH, Hkv = _check_pool(kv_pool, kv_scales, codec, B)
     if k_win.dim() != 4 or tuple(k_win.shape[:2]) != (L, BH) or k_win.shape[3] != 128:
         raise ValueError(f"k_win must be [{L}, {BH}, W, 128], got {tuple(k_win.shape)}")
     if v_win.shape != k_win.shape:
         raise ValueError(f"v_win {tuple(v_win.shape)} != k_win {tuple(k_win.shape)}")
-    if B < 1 or BH % B:
-        raise ValueError(f"pool heads {BH} are not a multiple of batch {B}")
-    Hkv = BH // B
     if Hq % Hkv or Hq // Hkv not in _GROUPS:
         raise ValueError(f"{Hq} query heads over {Hkv} kv heads: the kernel "
                          f"takes groups of {_GROUPS}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
-    for name, t, dt in (("q", q, q.dtype), ("kv_pool", kv_pool, torch.int16),
-                        ("kv_scales", kv_scales, torch.bfloat16),
-                        ("k_win", k_win, torch.bfloat16),
-                        ("v_win", v_win, torch.bfloat16)):
-        if t.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    for name, val, hi in (("n_chunks", n_chunks, mc), ("win_len", win_len, k_win.shape[2]),
-                          ("li", li, L - 1)):
-        if not isinstance(val, int) or not 0 <= val <= hi:
-            raise ValueError(f"{name} must be an int in [0, {hi}], got {val!r}")
-    return BH, Hq // Hkv
+    _check_tensors(q, (("q", q, q.dtype), ("kv_pool", kv_pool, torch.int16),
+                       ("kv_scales", kv_scales, torch.bfloat16),
+                       ("k_win", k_win, torch.bfloat16),
+                       ("v_win", v_win, torch.bfloat16)))
+    _check_int("li", li, 0, L - 1)
+    return BH, Hq // Hkv, mc, k_win.shape[2]
+
+
+def _check_aligned(named):
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _stream(t):
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def window_tile(W: int) -> int:
@@ -92,58 +126,67 @@ def window_tile(W: int) -> int:
     return max(cands) if cands else W
 
 
+def _softmax_step(m, l, acc, s, vmat, vscale):
+    """One online-softmax step of the kernels: scores s [..., R, n] (f32)
+    against values vmat [..., n, D]; p rounded to bf16 for the value
+    product, which ``vscale`` [..., D] (a chunk's V scale) multiplies."""
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    p = torch.exp(s - m_new)
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1, keepdim=True)
+    pv = p.to(torch.bfloat16).to(torch.float32) @ vmat
+    if vscale is not None:
+        pv = pv * vscale[:, None, :]
+    return m_new, l, acc * corr + pv
+
+
+def _chunk(kv_pool, kv_scales, li, ci):
+    """Pool chunk ``ci`` of layer ``li`` as f32 codes and scales:
+    (K [BH, 256, 128], V [BH, 256, 128], kscale [BH, 128], vscale [BH, 128])."""
+    rows = kv_pool[li, ci]                                    # [BH, 192, 128]
+    KR = rows.shape[1] * 2 // 3                               # q8q4: 128 K rows
+    kc = qf.unpack_rows(rows[:, :KR], 8).to(torch.float32)
+    vc = qf.unpack_rows(rows[:, KR:], 4).to(torch.float32)
+    return (kc, vc, kv_scales[li, ci, :, 0].to(torch.float32),
+            kv_scales[li, ci, :, 1].to(torch.float32))
+
+
 def fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
                                    n_chunks: int, win_len: int, li: int):
-    """The kernel's arithmetic in PyTorch.  Per (b, kv head) and query head:
-    chunk scores bf16(q * kscale) . codes / sqrt(128), then window scores
-    q . k / sqrt(128), under one online softmax in steps of one chunk or one
-    window tile (``window_tile``); p rounded to bf16 for the value product,
-    which each chunk scales by its V scale.  Out is f32 -> q's dtype."""
+    """The uniform decode kernel's arithmetic in PyTorch.  Per (b, kv head)
+    and query head: chunk scores bf16(q * kscale) . codes / sqrt(128), then
+    window scores q . k / sqrt(128), under one online softmax in steps of
+    one chunk or one window tile (``window_tile``); p rounded to bf16 for
+    the value product, which each chunk scales by its V scale.  Out is f32
+    -> q's dtype."""
     B, _, Hq, D = q.shape
     BH = kv_pool.shape[2]
     G = Hq // (BH // B)
-    KR = kv_pool.shape[3] * 2 // 3          # q8q4: 128 K rows of 192
     f32, bf16 = torch.float32, torch.bfloat16
     qf32 = q.to(bf16).to(f32).reshape(BH, G, D)
     m = torch.full((BH, G, 1), NEG_INF, dtype=f32, device=q.device)
     l = torch.zeros((BH, G, 1), dtype=f32, device=q.device)
     acc = torch.zeros((BH, G, D), dtype=f32, device=q.device)
-
-    def step(s, vmat, vscale):
-        nonlocal m, l, acc
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.exp(s - m_new)
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1, keepdim=True)
-        pv = p.to(bf16).to(f32) @ vmat
-        if vscale is not None:
-            pv = pv * vscale[:, None, :]
-        acc = acc * corr + pv
-        m = m_new
-
     for ci in range(n_chunks):
-        rows = kv_pool[li, ci]                                # [BH, 192, 128]
-        kc = qf.unpack_rows(rows[:, :KR], 8).to(f32)          # [BH, 256, 128]
-        vc = qf.unpack_rows(rows[:, KR:], 4).to(f32)
-        ks = kv_scales[li, ci, :, 0].to(f32)                  # [BH, 128]
-        vs = kv_scales[li, ci, :, 1].to(f32)
+        kc, vc, ks, vs = _chunk(kv_pool, kv_scales, li, ci)
         qk = (qf32 * ks[:, None, :]).to(bf16).to(f32)
-        step((qk @ kc.transpose(1, 2)) * SM_SCALE, vc, vs)
+        m, l, acc = _softmax_step(m, l, acc, (qk @ kc.transpose(1, 2)) * SM_SCALE,
+                                  vc, vs)
     wt = window_tile(k_win.shape[2])
     for t0 in range(0, win_len, wt):
         t1 = min(win_len, t0 + wt)
         kw = k_win[li, :, t0:t1].to(f32)
         vw = v_win[li, :, t0:t1].to(f32)
-        step((qf32 @ kw.transpose(1, 2)) * SM_SCALE, vw, None)
+        m, l, acc = _softmax_step(m, l, acc, (qf32 @ kw.transpose(1, 2)) * SM_SCALE,
+                                  vw, None)
     out = acc / torch.clamp_min(l, 1e-30)
     return out.reshape(B, 1, Hq, D).to(q.dtype)
 
 
-def _library():
-    lib = build.load("q_decode")
-    fn = lib.q8q4_decode
+def _library(name, fn_name, n_ptr, n_int):
+    fn = getattr(build.load(name), fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -160,26 +203,24 @@ def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
     CUDA tensors launch the kernel of ``csrc/q_decode.cu`` (built at first
     use) on the current stream; CPU tensors run the plain version.  A CUDA
     request the kernel cannot serve raises; nothing falls back."""
-    BH, G = _check(q, kv_pool, kv_scales, k_win, v_win, n_chunks, win_len, li,
-                   codec, window, return_norm, return_win_probs)
+    BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec,
+                                 window, return_norm, return_win_probs,
+                                 "fused_q_decode_attention")
+    _check_int("n_chunks", n_chunks, 0, mc)
+    _check_int("win_len", win_len, 0, W)
     if q.device.type == "cpu":
         return fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win,
                                               v_win, n_chunks, win_len, li)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    for name, t in (("q", q), ("kv_pool", kv_pool), ("kv_scales", kv_scales),
-                    ("k_win", k_win), ("v_win", v_win)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    fn = _library()
+    stream = _stream(q)
+    _check_aligned((("q", q), ("kv_pool", kv_pool), ("kv_scales", kv_scales),
+                    ("k_win", k_win), ("v_win", v_win)))
+    fn = _library("q_decode", "q8q4_decode", 6, 10)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    W = k_win.shape[2]
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
             k_win.data_ptr(), v_win.data_ptr(), out.data_ptr(),
             int(out.dtype == torch.float32), q.device.index or 0, BH, G,
-            kv_pool.shape[1], W, window_tile(W), n_chunks, win_len, li, stream)
+            mc, W, window_tile(W), n_chunks, win_len, li, stream)
     if rc != 0:
         raise RuntimeError(f"q8q4_decode launch failed: CUDA error {rc}")
     fused_q_decode_attention.launches += 1
@@ -187,3 +228,164 @@ def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
 
 
 fused_q_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Per-slot decode (continuous batching)
+# ---------------------------------------------------------------------------
+
+def fused_q_decode_attention_ps_plain(q, kv_pool, kv_scales, k_win, v_win,
+                                      n_chunks, win_len, li: int):
+    """The per-slot kernel's arithmetic: slot b is the uniform computation
+    over its own ``n_chunks[b]`` chunks and ``win_len[b]`` window tokens,
+    the counts clamped into [0, mc] and [0, W] as the kernel clamps them.
+    (The TPU kernel loops a block of heads to the largest count among them;
+    the extra steps are fully masked and add exactly zero to a head with
+    something to attend, so looping over a slot's own counts is the same.)
+    A slot with nothing to attend comes out 0."""
+    B = q.shape[0]
+    Hkv = kv_pool.shape[2] // B
+    mc, W = kv_pool.shape[1], k_win.shape[2]
+    outs = []
+    for b, (nc, wl) in enumerate(zip(n_chunks.tolist(), win_len.tolist())):
+        hs = slice(b * Hkv, (b + 1) * Hkv)
+        outs.append(fused_q_decode_attention_plain(
+            q[b:b + 1], kv_pool[:, :, hs], kv_scales[:, :, hs], k_win[:, hs],
+            v_win[:, hs], min(max(nc, 0), mc), min(max(wl, 0), W), li))
+    return torch.cat(outs, dim=0)
+
+
+def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
+                                n_chunks: torch.Tensor, win_len: torch.Tensor,
+                                li: int, codec: qf.QuantCodec, *, window=None,
+                                return_win_probs: bool = False):
+    """Per-slot q8q4 flash-decode of layer ``li``: slot b attends its first
+    ``n_chunks[b]`` pool chunks and ``win_len[b]`` window tokens ->
+    [B, 1, Hq, 128] in q's dtype.
+
+    ``n_chunks`` and ``win_len`` are int32 tensors [B] on q's device; the
+    kernel reads its own slot's counts, so a decode step never syncs with
+    the host to size itself.  Counts it cannot check without a sync are
+    clamped in the kernel to [0, mc] and [0, W]; an idle slot is passed as
+    (0, 0) and comes out 0.
+
+    CUDA tensors launch the kernel of ``csrc/q_decode_ps.cu`` (built at
+    first use) on the current stream; CPU tensors run the plain version.  A
+    CUDA request the kernel cannot serve raises; nothing falls back."""
+    BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec,
+                                 window, False, return_win_probs,
+                                 "fused_q_decode_attention_ps")
+    B = q.shape[0]
+    for name, t in (("n_chunks", n_chunks), ("win_len", win_len)):
+        if not torch.is_tensor(t) or tuple(t.shape) != (B,):
+            raise ValueError(f"{name} must be a tensor [{B}], got {t!r}")
+    _check_tensors(q, (("n_chunks", n_chunks, torch.int32),
+                       ("win_len", win_len, torch.int32)))
+    if q.device.type == "cpu":
+        return fused_q_decode_attention_ps_plain(q, kv_pool, kv_scales, k_win,
+                                                 v_win, n_chunks, win_len, li)
+    stream = _stream(q)
+    _check_aligned((("q", q), ("kv_pool", kv_pool), ("kv_scales", kv_scales),
+                    ("k_win", k_win), ("v_win", v_win)))
+    fn = _library("q_decode_ps", "q8q4_decode_ps", 8, 9)
+    out = torch.empty_like(q)
+    qb = q.to(torch.bfloat16)
+    rc = fn(qb.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
+            k_win.data_ptr(), v_win.data_ptr(), n_chunks.data_ptr(),
+            win_len.data_ptr(), out.data_ptr(),
+            int(out.dtype == torch.float32), q.device.index or 0, BH, BH // B, G,
+            mc, W, window_tile(W), li, stream)
+    if rc != 0:
+        raise RuntimeError(f"q8q4_decode_ps launch failed: CUDA error {rc}")
+    fused_q_decode_attention_ps.launches += 1
+    return out
+
+
+fused_q_decode_attention_ps.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Segment partials over the pools (chunked prefill)
+# ---------------------------------------------------------------------------
+
+def fused_q_segment_attention_plain(q_seg, kv_pool, kv_scales, n_chunks: int,
+                                    li: int):
+    """The segment kernel's arithmetic: every query row (token t, head of
+    kv head h) attends the first ``n_chunks`` pool chunks of its (b, h),
+    one online-softmax step per chunk: scores bf16(bf16(q) * kscale) . codes
+    / sqrt(128), p rounded to bf16 for the value product, which the chunk's
+    V scale multiplies.  Returns the unnormalised partials (acc [B,T,Hq,D]
+    f32, m [B,T,Hq,1], l [B,T,Hq,1]); with no chunk, m = -1e30, l = 0."""
+    B, T, Hq, D = q_seg.shape
+    BH = kv_pool.shape[2]
+    Hkv = BH // B
+    G = Hq // Hkv
+    f32, bf16 = torch.float32, torch.bfloat16
+    qf32 = (q_seg.to(bf16).to(f32).reshape(B, T, Hkv, G, D)
+            .permute(0, 2, 1, 3, 4).reshape(BH, T * G, D))
+    m = torch.full((BH, T * G, 1), NEG_INF, dtype=f32, device=q_seg.device)
+    l = torch.zeros((BH, T * G, 1), dtype=f32, device=q_seg.device)
+    acc = torch.zeros((BH, T * G, D), dtype=f32, device=q_seg.device)
+    for ci in range(n_chunks):
+        kc, vc, ks, vs = _chunk(kv_pool, kv_scales, li, ci)
+        qk = (qf32 * ks[:, None, :]).to(bf16).to(f32)
+        m, l, acc = _softmax_step(m, l, acc, (qk @ kc.transpose(1, 2)) * SM_SCALE,
+                                  vc, vs)
+
+    def unfold(x):
+        return (x.reshape(B, Hkv, T, G, x.shape[-1]).permute(0, 2, 1, 3, 4)
+                .reshape(B, T, Hq, x.shape[-1]))
+
+    return unfold(acc), unfold(m), unfold(l)
+
+
+def fused_q_segment_attention(q_seg, kv_pool, kv_scales, n_chunks: int,
+                              seg_start: int, li: int, codec: qf.QuantCodec, *,
+                              window=None):
+    """Flash partials of a chunked-prefill segment over layer ``li``'s first
+    ``n_chunks`` pool chunks: (acc [B,Tseg,Hq,128] f32, m, l [B,Tseg,Hq,1]
+    f32), unnormalised; ``ops.attention.merge_partials`` merges them with
+    the window and causal-self partials.  ``n_chunks`` is uniform across the
+    batch and known on the host (chunked prefill advances every row in
+    lockstep); ``seg_start`` is the segment's first position, at or past
+    the packed chunks.
+
+    CUDA tensors launch the kernel of ``csrc/q_segment.cu`` (built at first
+    use) on the current stream; CPU tensors run the plain version.  A CUDA
+    request the kernel cannot serve raises; nothing falls back."""
+    _check_codec(codec, window, "fused_q_segment_attention")
+    if q_seg.dim() != 4 or q_seg.shape[3] != 128 or q_seg.shape[1] < 1:
+        raise ValueError(f"q_seg must be [B, Tseg, Hq, 128], got {tuple(q_seg.shape)}")
+    B, T, Hq, _ = q_seg.shape
+    L, mc, BH, Hkv = _check_pool(kv_pool, kv_scales, codec, B)
+    if Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
+    _check_tensors(q_seg, (("q_seg", q_seg, q_seg.dtype),
+                           ("kv_pool", kv_pool, torch.int16),
+                           ("kv_scales", kv_scales, torch.bfloat16)))
+    _check_int("li", li, 0, L - 1)
+    _check_int("n_chunks", n_chunks, 0, mc)
+    if not isinstance(seg_start, int) or seg_start < n_chunks * codec.chunk:
+        raise ValueError(f"seg_start must be an int at or past the {n_chunks} "
+                         f"packed chunks, got {seg_start!r}")
+    if q_seg.device.type == "cpu":
+        return fused_q_segment_attention_plain(q_seg, kv_pool, kv_scales,
+                                               n_chunks, li)
+    stream = _stream(q_seg)
+    _check_aligned((("q_seg", q_seg), ("kv_pool", kv_pool), ("kv_scales", kv_scales)))
+    fn = _library("q_segment", "q8q4_segment", 6, 8)
+    dev = q_seg.device
+    acc = torch.empty((B, T, Hq, 128), dtype=torch.float32, device=dev)
+    m = torch.empty((B, T, Hq, 1), dtype=torch.float32, device=dev)
+    l = torch.empty((B, T, Hq, 1), dtype=torch.float32, device=dev)
+    qb = q_seg.to(torch.bfloat16)
+    rc = fn(qb.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), dev.index or 0, BH, Hkv,
+            Hq // Hkv, T, mc, n_chunks, li, stream)
+    if rc != 0:
+        raise RuntimeError(f"q8q4_segment launch failed: CUDA error {rc}")
+    fused_q_segment_attention.launches += 1
+    return acc, m, l
+
+
+fused_q_segment_attention.launches = 0

@@ -60,11 +60,14 @@ def _to_i16(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 0x8000, v - 0x10000, v).to(torch.int16)
 
 
-def recip_f32(c: float) -> torch.Tensor:
-    """1/c rounded to f32.  The JAX package's served path is jitted, and XLA
-    rewrites a division by a constant into a product with this reciprocal;
-    matching it keeps scales and codes bit-exact with that path."""
-    return torch.tensor(1.0 / c, dtype=torch.float32)
+def recip_f32(c: float) -> float:
+    """1/c rounded to f32 (as a Python float, which an f32 tensor product
+    takes as that f32 value).  The JAX package's served path is jitted, and
+    XLA rewrites a division by a constant into a product with this
+    reciprocal; matching it keeps scales and codes bit-exact with that path.
+    A host scalar, not a tensor: copying a tensor to the card would make
+    every pack wait for the device."""
+    return torch.tensor(1.0 / c, dtype=torch.float32).item()
 
 
 def quantize_chunk(x: torch.Tensor, bits: int):
@@ -75,7 +78,7 @@ def quantize_chunk(x: torch.Tensor, bits: int):
     qmax = float(2 ** (bits - 1) - 1)
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=1)
-    scales = torch.clamp_min(amax * recip_f32(qmax).to(x.device), 1e-8)
+    scales = torch.clamp_min(amax * recip_f32(qmax), 1e-8)
     codes = torch.clamp(torch.round(xf / scales[:, None, :]), -qmax, qmax)
     return codes.to(torch.int32), scales
 

@@ -1,5 +1,5 @@
-"""Greedy generation: port of the greedy, monolithic-prefill path of
-``mustafar_tpu/runtime/generate.py``.
+"""Greedy generation: port of the greedy path of
+``mustafar_tpu/runtime/generate.py``, with monolithic or chunked prefill.
 
 The JAX package runs prefill and the decode loop on the device in one jit;
 here a host loop drives one decode step at a time.  Compaction happens
@@ -7,10 +7,15 @@ between steps, never inside one: after exactly the step at which the JAX
 loop's ``window_full`` fires (the window holds ``total - n_chunks*C`` tokens
 and is full at r + C).  EOS handling follows HF greedy: a finished row keeps
 emitting its EOS and the loop stops once every row is done; EOS is
-suppressed for the first ``min_new_tokens`` tokens.
+suppressed for the first ``min_new_tokens`` tokens.  With
+``EngineConfig.chunked_prefill`` the prompt goes in one C-token segment at a
+time (a host loop over segments, as the JAX package drives it), then the
+same decode loop runs.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -19,6 +24,30 @@ from mustafar_tpu_torch.cache import make_cache
 from mustafar_tpu_torch.config import EngineConfig
 from mustafar_tpu_torch.device import resolve_device
 from mustafar_tpu_torch.models import llama
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """The JAX package's token-choice settings.  temperature == 0 is greedy
+    argmax, the only choice the port makes so far."""
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature == 0.0
+
+
+GREEDY = SamplingParams()
+
+
+def check_greedy(sampling: SamplingParams) -> None:
+    if not sampling.greedy:
+        raise NotImplementedError(
+            "sampled decoding (temperature, top-k, top-p: generate._sample) is "
+            "ROADMAP Queue A item 10; the port decodes greedily")
 
 
 class Generator:
@@ -41,12 +70,13 @@ class Generator:
 
     @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens: int, eos_id=None,
-                 min_new_tokens: int = 0):
+                 min_new_tokens: int = 0, sampling: SamplingParams = GREEDY):
         """input_ids [B, T] ints (uniform length, left-aligned, no padding).
 
         eos_id: an int or a sequence of ints, any of which ends a row.
         Returns a list of B 1-D numpy arrays of generated ids (EOS excluded).
         """
+        check_greedy(sampling)
         ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.int64)
         B, T = ids.shape
         Tpad = self._bucket(T)
@@ -66,8 +96,11 @@ class Generator:
         impl, cfg, params = self.cache_impl, self.cfg, self.params
         self.last_cache = None
         cache = impl.init(B, self.dtype)
-        logits, cache = llama.prefill(cfg, params, toks, cache, impl, T,
-                                      last_only=True)
+        if self.engine.chunked_prefill:
+            logits, cache = llama.prefill_chunked(cfg, params, toks, cache, impl, T)
+        else:
+            logits, cache = llama.prefill(cfg, params, toks, cache, impl, T,
+                                          last_only=True)
 
         def pick(logits2d, step):
             if eos_ids and min_new_tokens > 0 and step <= min_new_tokens:

@@ -1,12 +1,14 @@
-"""Port parity, the q8q4 decode kernel module.
+"""Port parity, the q8q4 kernel module.
 
-(d) The plain version of ``fused_q_decode_attention`` against the JAX
-    kernel run in Pallas interpret mode, on the same stacked int16 pools,
-    bf16 scales and windows.
-(j) The module imports and runs on the CPU with no ``nvcc``; the wrapper
-    refuses what the CUDA kernel cannot serve instead of falling back.
-The CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds it
-against the plain version there.
+(d) The plain versions of ``fused_q_decode_attention``,
+    ``fused_q_decode_attention_ps`` (per-slot counts) and
+    ``fused_q_segment_attention`` (chunked-prefill partials) against the
+    JAX kernels run in Pallas interpret mode, on the same stacked int16
+    pools, bf16 scales and windows.
+(j) The module imports and runs on the CPU with no ``nvcc``; the wrappers
+    refuse what the CUDA kernels cannot serve instead of falling back.
+The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
+them against the plain versions there.
 """
 
 import os
@@ -144,12 +146,13 @@ def test_module_imports_and_builds_nothing_without_nvcc(tmp_path):
         "import mustafar_tpu_torch.ops.kernels.quant_attention as qa\n"
         "from mustafar_tpu_torch.ops.kernels import build\n"
         "assert build._LIBS == {}\n"
-        "try:\n"
-        "    build.load('q_decode')\n"
-        "except RuntimeError as e:\n"
-        "    assert 'nvcc' in str(e), e\n"
-        "else:\n"
-        "    raise SystemExit('built without nvcc')\n")
+        "for name in ('q_decode', 'q_decode_ps', 'q_segment'):\n"
+        "    try:\n"
+        "        build.load(name)\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'nvcc' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('built without nvcc')\n")
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
     build_dir_before = build.BUILD_DIR.exists()
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=os.getcwd(),
@@ -157,3 +160,149 @@ def test_module_imports_and_builds_nothing_without_nvcc(tmp_path):
     assert proc.returncode == 0, proc.stderr
     if not build_dir_before:
         assert not build.BUILD_DIR.exists() or not any(build.BUILD_DIR.iterdir())
+
+
+# -- per-slot decode (kernel 2) ---------------------------------------------
+
+def _run_both_ps(q, pool, scales, k_win, v_win, nc, wl, li, q_dtype):
+    mc = pool.shape[1]
+    jo = jqa.fused_q_decode_attention_ps(
+        jnp.asarray(q, q_dtype), jnp.asarray(pool),
+        jnp.asarray(scales[..., 0, :], jnp.bfloat16),
+        jnp.asarray(scales[..., 1, :], jnp.bfloat16),
+        jnp.asarray(k_win, jnp.bfloat16), jnp.asarray(v_win, jnp.bfloat16),
+        jnp.asarray(nc, jnp.int32), jnp.asarray(wl, jnp.int32), JCODEC, mc,
+        li=jnp.int32(li))
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    tq = torch.from_numpy(q) if q_dtype == jnp.float32 else bf(q)
+    before = tqa.fused_q_decode_attention_ps.launches
+    to = tqa.fused_q_decode_attention_ps(
+        tq, torch.from_numpy(pool), bf(scales), bf(k_win), bf(v_win),
+        torch.tensor(nc, dtype=torch.int32), torch.tensor(wl, dtype=torch.int32),
+        li, TCODEC)
+    assert tqa.fused_q_decode_attention_ps.launches == before   # CPU: no launch
+    assert to.dtype == tq.dtype
+    return np.asarray(jo).astype(np.float32), to.float().numpy()
+
+
+@pytest.mark.parametrize("G,q_dtype", [(1, "bfloat16"), (4, "bfloat16"), (4, "float32")])
+def test_ps_plain_matches_jax_kernel(G, q_dtype):
+    """Mixed slots in one call: n_chunks 0/1/3 and win_len 0/1/44/288, and an
+    idle slot (0, 0), which the port writes as 0; the TPU kernel's block
+    loops every head to the largest counts, and parity is owed on slots with
+    something to attend."""
+    q, pool, scales, k_win, v_win = _inputs(20 + G, 2, 3, 6, 1, G)
+    nc = [0, 1, 3, 1, 3, 0]
+    wl = [1, 44, 288, 0, 1, 0]
+    for li in (0, 1):
+        jo, to = _run_both_ps(q, pool, scales, k_win, v_win, nc, wl, li,
+                              getattr(jnp, q_dtype))
+        for b in range(6):
+            if not (nc[b] or wl[b]):
+                assert (to[b] == 0).all(), f"idle slot {b}, li={li}"
+                continue
+            # same arithmetic and softmax steps: one bf16 ulp of this slot's
+            # own output scale, so a slot with small outputs is held as tightly
+            assert np.abs(to[b]).max() > 0, f"live slot {b} written as 0, li={li}"
+            np.testing.assert_allclose(to[b], jo[b], rtol=0,
+                                       atol=2 ** -8 * np.abs(jo[b]).max(),
+                                       err_msg=f"slot {b}, li={li}")
+
+
+def test_ps_plain_equals_uniform_per_slot():
+    """Slot b of the per-slot version is the uniform computation over its
+    own counts; counts out of range are clamped as the kernel clamps them."""
+    q, pool, scales, k_win, v_win = _inputs(5, 2, 3, 3, 2, 2)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    tq, tp, ts, tk, tv = bf(q), torch.from_numpy(pool), bf(scales), bf(k_win), bf(v_win)
+    nc, wl = [2, 9, 1], [100, 288, -300]
+    got = tqa.fused_q_decode_attention_ps(tq, tp, ts, tk, tv,
+                                          torch.tensor(nc, dtype=torch.int32),
+                                          torch.tensor(wl, dtype=torch.int32), 1, TCODEC)
+    for b, (c, w) in enumerate(((2, 100), (3, 288), (1, 0))):
+        hs = slice(2 * b, 2 * b + 2)
+        want = tqa.fused_q_decode_attention(tq[b:b + 1], tp[:, :, hs].contiguous(),
+                                            ts[:, :, hs].contiguous(),
+                                            tk[:, hs].contiguous(), tv[:, hs].contiguous(),
+                                            c, w, 1, TCODEC)
+        np.testing.assert_array_equal(got[b:b + 1].float().numpy(), want.float().numpy())
+
+
+def test_ps_wrapper_refuses_what_the_kernel_cannot_serve():
+    q, pool, scales, k_win, v_win = _inputs(6, 1, 2, 2, 2, 4)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32)
+    ok = dict(q=bf(q), kv_pool=torch.from_numpy(pool), kv_scales=bf(scales),
+              k_win=bf(k_win), v_win=bf(v_win), n_chunks=i32([1, 0]),
+              win_len=i32([10, 3]), li=0, codec=TCODEC)
+    tqa.fused_q_decode_attention_ps(**ok)
+    bad = [
+        dict(codec=tqf.QuantCodec(256, 128, 4, 4)),          # q4q4: later slice
+        dict(n_chunks=1), dict(win_len=i32([10])),           # host int, wrong shape
+        dict(n_chunks=torch.tensor([1, 0])),                 # int64 counts
+        dict(v_win=bf(v_win).float()), dict(li=1), dict(li=-1),
+        dict(q=bf(np.zeros((2, 1, 6, 128), np.float32))),    # G = 3
+    ]
+    for change in bad:
+        with pytest.raises((ValueError, TypeError, NotImplementedError)):
+            tqa.fused_q_decode_attention_ps(**dict(ok, **change))
+    for opt in (dict(window=512), dict(return_win_probs=True)):
+        with pytest.raises(NotImplementedError):
+            tqa.fused_q_decode_attention_ps(**ok, **opt)
+    meta = {k: (v.to("meta") if torch.is_tensor(v) else v) for k, v in ok.items()}
+    with pytest.raises(ValueError):
+        tqa.fused_q_decode_attention_ps(**meta)
+
+
+# -- segment partials (kernel 3) ----------------------------------------------
+
+@pytest.mark.parametrize("nc,seg_start", [(0, 0), (0, 256), (1, 512), (3, 768), (3, 1024)])
+def test_segment_plain_matches_jax_kernel(nc, seg_start):
+    """acc, m and l of one 256-row segment (B=2, Hkv=2, G=2) over nc chunks of
+    layer 1; with no chunk, m is exactly -1e30 and l exactly 0."""
+    _, pool, scales, _, _ = _inputs(30 + nc, 2, 3, 2, 2, 2)
+    qs = _bf16(np.random.RandomState(nc + seg_start).randn(2, 256, 4, 128))
+    ja, jm, jl = (np.asarray(x) for x in jqa.fused_q_segment_attention(
+        jnp.asarray(qs, jnp.bfloat16), jnp.asarray(pool),
+        jnp.asarray(scales[..., 0, :], jnp.bfloat16),
+        jnp.asarray(scales[..., 1, :], jnp.bfloat16), jnp.int32(nc),
+        jnp.int32(seg_start), JCODEC, 3, li=jnp.int32(1)))
+    before = tqa.fused_q_segment_attention.launches
+    ta, tm, tl = (x.numpy() for x in tqa.fused_q_segment_attention(
+        torch.from_numpy(qs).to(torch.bfloat16), torch.from_numpy(pool),
+        torch.from_numpy(scales).to(torch.bfloat16), nc, seg_start, 1, TCODEC))
+    assert tqa.fused_q_segment_attention.launches == before
+    assert ta.shape == ja.shape == (2, 256, 4, 128) and tm.shape == tl.shape == (2, 256, 4, 1)
+    if nc == 0:
+        assert (tm == -1e30).all() and (tl == 0).all() and (ta == 0).all()
+        assert (jm == -1e30).all() and (jl == 0).all()
+        return
+    # f32 sums in another order: m and l to f32 rounding; acc to one bf16 ulp
+    # of its scale (a bf16(p) may round the other way)
+    np.testing.assert_allclose(tm, jm, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(ta, ja, rtol=0, atol=2 ** -8 * np.abs(ja).max())
+
+
+def test_segment_wrapper_refuses_what_the_kernel_cannot_serve():
+    _, pool, scales, _, _ = _inputs(7, 1, 2, 1, 2, 2)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    ok = dict(q_seg=bf(np.zeros((1, 256, 4, 128), np.float32)),
+              kv_pool=torch.from_numpy(pool), kv_scales=bf(scales), n_chunks=1,
+              seg_start=512, li=0, codec=TCODEC)
+    tqa.fused_q_segment_attention(**ok)
+    bad = [
+        dict(codec=tqf.QuantCodec(256, 128, 8, 8)), dict(n_chunks=3),
+        dict(n_chunks=torch.tensor(1)), dict(seg_start=128), dict(li=1),
+        dict(kv_scales=bf(scales).float()),
+        dict(q_seg=bf(np.zeros((1, 256, 3, 128), np.float32))),   # 3 heads over 2
+        dict(q_seg=bf(np.zeros((1, 256, 4, 64), np.float32))),
+    ]
+    for change in bad:
+        with pytest.raises((ValueError, TypeError, NotImplementedError)):
+            tqa.fused_q_segment_attention(**dict(ok, **change))
+    with pytest.raises(NotImplementedError):
+        tqa.fused_q_segment_attention(**ok, window=512)
+    meta = {k: (v.to("meta") if torch.is_tensor(v) else v) for k, v in ok.items()}
+    with pytest.raises(ValueError):
+        tqa.fused_q_segment_attention(**meta)
