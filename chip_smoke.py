@@ -5,24 +5,36 @@
 Phases, each printing one flushed JSON line with its ``phase`` and
 ``elapsed_s``:
   env           torch / CUDA versions, the card's name and power limit
-  build         nvcc builds the three kernel libraries at once (csrc/q_decode.cu,
-                csrc/q_decode_ps.cu, csrc/q_segment.cu)
+  build         nvcc builds the five kernel libraries at once (csrc/q_decode.cu,
+                csrc/q_decode_ps.cu, csrc/q_segment.cu, csrc/sp_decode.cu: the
+                bitmap uniform and per-slot entries, csrc/sp_segment.cu)
   kernel        the uniform decode kernel against its plain PyTorch version on
                 the card, at the flagship per-layer shapes (B=8, Hq=32, Hkv=8,
                 mc=5), with its time beside the plain version's and its bound
-  kernel_ps     the per-slot decode kernel likewise: mixed slots (n_chunks
-                0/1/2/5, win_len 0/1/44/288, an idle slot), groups 1/2/4/8
+  kernel_ps     the per-slot decode kernel likewise, at the engine's pool
+                (mc=32): mixed slots (n_chunks 0/1/2/5/31, win_len
+                0/1/44/288, an idle slot), groups 1/2/4/8
   kernel_seg    the segment kernel likewise: Tseg=256, G=4, B = 1 and 2,
                 n_chunks 0/1/4/31; timed at 31 chunks
+  kernel_sp, kernel_sp_ps, kernel_sp_seg
+                the bitmap codec's three kernels likewise, at the shapes of
+                the three phases above, over real packed chunks (random bf16
+                K and V pruned and encoded on the card) at sparsity 0.7, and
+                0.5 (zero pads in the rows)
   reference     a tiny f32 model decoded on the card (kernel) and on the CPU
                 (plain path) with the same token stream: logits must agree
   reference_cb  the tiny f32 continuous-batching engine (chunked, interleaved
                 admission, a slot retired and reused) likewise
+  reference_bitmap
+                the two reference runs above with the bitmap codec
   serve_q8q4    full-width, 32-layer Llama-3-8B with random W8 weights made
                 on the card: Generator.generate, B=8, prompt 300, 300 new
                 tokens, q8q4 compressed cache (one compaction on the way);
                 every decode step must launch the kernel once per layer
   serve_dense   the same prompts through the dense baseline cache
+  serve_bitmap  serve_q8q4 with the bitmap codec (the JAX package's default):
+                bitmap decode kernel launches = 32 x 299; first tokens =
+                serve_dense's
   decode_split  device time of a decode step's W8 projections, LM head and
                 attention kernel, each timed alone, beside the step's wall time
   serve_cb      the continuous-batching engine at full width: 8 slots, 17
@@ -30,6 +42,8 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 admission; per-slot and segment kernel launches = 32 x decode
                 steps and 32 x segments; first tokens = a batch-1 chunked
                 Generator's
+  serve_cb_bitmap
+                serve_cb with the bitmap codec
   serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64
   host_split    one segment (B=1) and one decode tick (8 slots): host enqueue
                 time, wall time, device time and kernels launched
@@ -68,22 +82,50 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps, flush=None):
-    """Mean device ms of ``fn`` over ``reps`` launches, CUDA events around
-    each launch; ``flush`` runs between launches, outside the timing."""
+SPIN_CYCLES = 4_000_000   # ~2 ms of the card's clock: longer than a wrapper's host work
+
+
+def cuda_ms(fn, reps, flush=None, spin=True):
+    """Mean ms of ``fn`` over ``reps`` calls between CUDA events, and how
+    many of them the card waited on the host for.  Before each call
+    ``flush`` runs (if given).  With ``spin`` a spin kernel then holds the
+    stream while the host enqueues the start event, ``fn``'s launches and
+    the end event, so the events bracket the card's work and not the
+    wrapper's host time: a kernel's device time.  A call whose start event
+    the card had passed before ``fn`` returned may include host time; the
+    second value counts them (expected 0 with ``spin``).  Without ``spin``
+    the events also hold the host's enqueue wherever the card waits for it,
+    as for a plain version of many small launches: its time as a caller
+    sees it."""
     import torch
-    total = 0.0
+    total, behind = 0.0, 0
     for _ in range(reps):
         if flush is not None:
             flush()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
+        behind += bool(start.query())
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
-    return total / reps
+    return total / reps, behind
+
+
+def host_us(fn, reps):
+    """Mean host microseconds a call of ``fn`` takes to return (its
+    launches enqueued, not run)."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
 
 
 def phase_env():
@@ -105,11 +147,11 @@ def phase_env():
     return smi
 
 
-KERNEL_LIBS = ("q_decode", "q_decode_ps", "q_segment")
+KERNEL_LIBS = ("q_decode", "q_decode_ps", "q_segment", "sp_decode", "sp_segment")
 
 
 def phase_build():
-    """nvcc builds the three kernel libraries at once, one process each."""
+    """nvcc builds the five kernel libraries at once, one process each."""
     from concurrent.futures import ThreadPoolExecutor
     from mustafar_tpu_torch.ops.kernels import build
     t = time.perf_counter()
@@ -123,218 +165,304 @@ def phase_build():
          built_now=[n for n in KERNEL_LIBS if n in build.BUILD_LOGS], ptxas=ptxas)
 
 
-def phase_kernel():
-    """Kernel vs plain at the flagship per-layer shapes; returns the
-    kernels-line entry (launches filled in by the serve phase)."""
+class _Kit:
+    """One codec's kernels over one stacked state, as the kernel phases
+    call them: ``decode(q, n_chunks, win_len, li)`` and ``decode_ps``,
+    ``segment(q_seg, n_chunks, li)`` and the plain versions beside each;
+    ``chunk_bytes`` is what one pool chunk of one kv head holds (rows and,
+    for q8q4, scales)."""
+
+    def __init__(self, codec, g, dev, L, mc, BH, W, sparsity=0.7):
+        import torch
+        from mustafar_tpu_torch.ops import quant_format as qf
+        from mustafar_tpu_torch.ops import sparse_format as sf
+        from mustafar_tpu_torch.ops.kernels import quant_attention as qa
+        from mustafar_tpu_torch.ops.kernels import sparse_attention as ska
+        self.codec, self.sparsity = codec, sparsity
+        self.k_win = torch.randn((L, BH, W, 128), generator=g, device=dev).to(torch.bfloat16)
+        self.v_win = torch.randn((L, BH, W, 128), generator=g, device=dev).to(torch.bfloat16)
+        kw, vw = self.k_win, self.v_win
+        if codec == "q8q4":
+            # every int16 bit pattern is a valid q8q4 code; scales 0.002-0.02
+            pool = torch.randint(-32768, 32768, (L, mc, BH, 192, 128), generator=g,
+                                 device=dev, dtype=torch.int32).to(torch.int16)
+            scales = (0.002 + 0.018 * torch.rand((L, mc, BH, 2, 128), generator=g,
+                                                 device=dev)).to(torch.bfloat16)
+            qc = qf.QuantCodec(256, 128, 8, 4)
+            self.chunk_bytes = 192 * 128 * 2 + 2 * 128 * 2
+            self.fns = {"decode": qa.fused_q_decode_attention,
+                        "decode_ps": qa.fused_q_decode_attention_ps,
+                        "segment": qa.fused_q_segment_attention}
+            self.decode = lambda q, nc, wl, li: qa.fused_q_decode_attention(
+                q, pool, scales, kw, vw, nc, wl, li, qc)
+            self.decode_plain = lambda q, nc, wl, li: qa.fused_q_decode_attention_plain(
+                q, pool, scales, kw, vw, nc, wl, li)
+            self.decode_ps = lambda q, nc, wl, li: qa.fused_q_decode_attention_ps(
+                q, pool, scales, kw, vw, nc, wl, li, qc)
+            self.decode_ps_plain = lambda q, nc, wl, li: \
+                qa.fused_q_decode_attention_ps_plain(q, pool, scales, kw, vw, nc, wl, li)
+            self.segment = lambda q, nc, li: qa.fused_q_segment_attention(
+                q, pool, scales, nc, nc * 256, li, qc)
+            self.segment_plain = lambda q, nc, li: qa.fused_q_segment_attention_plain(
+                q, pool, scales, nc, li)
+            return
+        # bitmap: real packed chunks, random bf16 K and V pruned to the
+        # format's keep and encoded on the card (a stream of random bits
+        # would not hold the format's popcounts)
+        fmt = sf.ChunkFormat(256, 128, 128 - int(sparsity * 128) + 1)
+        pool = torch.empty((L, mc, BH, 2 * fmt.stream_rows, 128), dtype=torch.int16,
+                           device=dev)
+        for li in range(L):
+            x = torch.randn((mc, 2, BH, 256, 128), generator=g, device=dev)
+            rows = sf.prune_and_encode_stream(x.to(torch.bfloat16), fmt)
+            pool[li] = torch.cat([rows[:, 0], rows[:, 1]], dim=-2)
+        self.chunk_bytes = 2 * fmt.stream_rows * 128 * 2
+        self.fns = {"decode": ska.fused_sparse_decode_attention,
+                    "decode_ps": ska.fused_sparse_decode_attention_ps,
+                    "segment": ska.fused_sparse_segment_attention}
+        self.decode = lambda q, nc, wl, li: ska.fused_sparse_decode_attention(
+            q, pool, kw, vw, nc, wl, li, fmt, fmt)
+        self.decode_plain = lambda q, nc, wl, li: ska.fused_sparse_decode_attention_plain(
+            q, pool, kw, vw, nc, wl, li, fmt, fmt)
+        self.decode_ps = lambda q, nc, wl, li: ska.fused_sparse_decode_attention_ps(
+            q, pool, kw, vw, nc, wl, li, fmt, fmt)
+        self.decode_ps_plain = lambda q, nc, wl, li: \
+            ska.fused_sparse_decode_attention_ps_plain(q, pool, kw, vw, nc, wl, li, fmt, fmt)
+        self.segment = lambda q, nc, li: ska.fused_sparse_segment_attention(
+            q, pool, nc, nc * 256, li, fmt, fmt)
+        self.segment_plain = lambda q, nc, li: ska.fused_sparse_segment_attention_plain(
+            q, pool, nc, li, fmt, fmt)
+
+
+# the kernels line's fixed fields, by codec and kernel
+KERNEL_META = {
+    ("q8q4", "decode"): ("fused_q_decode_attention", "q_decode.cu",
+                         "quant_attention.py:223"),
+    ("q8q4", "decode_ps"): ("fused_q_decode_attention_ps", "q_decode_ps.cu",
+                            "quant_attention.py:516"),
+    ("q8q4", "segment"): ("fused_q_segment_attention", "q_segment.cu",
+                          "quant_attention.py:704"),
+    ("bitmap", "decode"): ("fused_sparse_decode_attention", "sp_decode.cu",
+                           "sparse_attention.py:896"),
+    ("bitmap", "decode_ps"): ("fused_sparse_decode_attention_ps", "sp_decode.cu",
+                              "sparse_attention.py:417"),
+    ("bitmap", "segment"): ("fused_sparse_segment_attention", "sp_segment.cu",
+                            "sparse_attention.py:647"),
+}
+
+
+def _entry(codec, kind, results, worst, tol, kernel_ms, plain_ms, bytes_ms, flops_ms):
+    name, src, tpu = KERNEL_META[(codec, kind)]
+    return {"name": name, "route": "cuda", "source": f"mustafar_tpu_torch/csrc/{src}",
+            "replaces": f"mustafar_tpu/ops/kernels/{tpu}", "launches": None,
+            "max_abs_err": max(r.get("max_abs_err", 0.0) for r in results),
+            "tol": tol, "worst_err_over_tol": worst,
+            "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": None, "library_note": NO_LIBRARY}
+
+
+def phase_kernel(codec="q8q4"):
+    """Uniform decode kernel vs plain at the flagship per-layer shapes (B=8,
+    Hq=32, Hkv=8, L=4, mc=5); returns the kernels-line entry (launches
+    filled in by the serve phase).  The bitmap codec is checked at sparsity
+    0.7 and 0.5 and timed at 0.7."""
     import torch
-    from mustafar_tpu_torch.ops import quant_format as qf
-    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     B, Hq, Hkv, L, mc, W, D = 8, 32, 8, 4, 5, 288, 128
     BH = B * Hkv
-    codec = qf.QuantCodec(256, 128, 8, 4)
-    pool = torch.randint(-32768, 32768, (L, mc, BH, 192, D), generator=g,
-                         device=dev, dtype=torch.int32).to(torch.int16)
-    scales = (0.002 + 0.018 * torch.rand((L, mc, BH, 2, D), generator=g,
-                                         device=dev)).to(torch.bfloat16)
-    k_win = torch.randn((L, BH, W, D), generator=g, device=dev).to(torch.bfloat16)
-    v_win = torch.randn((L, BH, W, D), generator=g, device=dev).to(torch.bfloat16)
+    kits = [_Kit(codec, g, dev, L, mc, BH, W, sp)
+            for sp in ((0.7,) if codec == "q8q4" else (0.7, 0.5))]
     q = torch.randn((B, 1, Hq, D), generator=g, device=dev).to(torch.bfloat16)
     cases = [(0, 1, 0), (0, 44, L - 1), (0, 288, 0), (mc, 288, L - 1), (mc, 1, 0),
              (1, 44, 0), (1, 288, L - 1), (2, 88, 0)]
     # the other query-group sizes the kernel is built for (Llama-3-8B has 4)
     other_groups = [torch.randn((B, 1, Hkv * g_, D), generator=g, device=dev
                                 ).to(torch.bfloat16) for g_ in (1, 2, 8)]
-    launches0 = qa.fused_q_decode_attention.launches
+    fn = kits[0].fns["decode"]
+    launches0 = fn.launches
     results, worst = [], 0.0
-    for nc, wl, li in cases:
-        qs = (q, q.float(), *other_groups) if (nc, wl) == (1, 288) else (q,)
-        for qq in qs:
-            args = (qq, pool, scales, k_win, v_win, nc, wl, li)
-            got = qa.fused_q_decode_attention(*args, codec)
-            torch.cuda.synchronize()
-            want = qa.fused_q_decode_attention_plain(*args)
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            # same arithmetic, sums in another order: a bf16(p) or the bf16
-            # output may move by one ulp each
-            tol = KERNEL_TOL_ULPS * 2.0 ** -8 * scale
-            results.append({"n_chunks": nc, "win_len": wl, "li": li,
-                            "q_dtype": str(qq.dtype).split(".")[-1],
-                            "G": qq.shape[2] // Hkv,
-                            "max_abs_err": err, "tol": tol})
-            if not (got.isfinite().all() and err <= tol):
-                raise AssertionError(f"kernel disagrees with its plain version: "
-                                     f"{results[-1]}")
-            worst = max(worst, err / max(tol, 1e-30))
+    for kit in kits:
+        for nc, wl, li in cases:
+            qs = (q, q.float(), *other_groups) if (nc, wl) == (1, 288) else (q,)
+            for qq in qs:
+                got = kit.decode(qq, nc, wl, li)
+                torch.cuda.synchronize()
+                want = kit.decode_plain(qq, nc, wl, li)
+                err = (got.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                # same arithmetic, sums in another order: a bf16(p) or the bf16
+                # output may move by one ulp each
+                tol = KERNEL_TOL_ULPS * 2.0 ** -8 * scale
+                results.append({"sparsity": kit.sparsity, "n_chunks": nc, "win_len": wl,
+                                "li": li, "q_dtype": str(qq.dtype).split(".")[-1],
+                                "G": qq.shape[2] // Hkv, "max_abs_err": err, "tol": tol})
+                if not (got.isfinite().all() and err <= tol):
+                    raise AssertionError(f"kernel disagrees with its plain version: "
+                                         f"{results[-1]}")
+                worst = max(worst, err / max(tol, 1e-30))
 
     # time at the main path's largest pre-compaction shape: one pool chunk
     # and a full 288-token window, L2 flushed before each launch
+    kit = kits[0]
     nc, wl, li = 1, 288, 0
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    args = (q, pool, scales, k_win, v_win, nc, wl, li)
     for _ in range(10):
-        qa.fused_q_decode_attention(*args, codec)
-        qa.fused_q_decode_attention_plain(*args)
+        kit.decode(q, nc, wl, li)
+        kit.decode_plain(q, nc, wl, li)
     torch.cuda.synchronize()
-    kernel_ms = cuda_ms(lambda: qa.fused_q_decode_attention(*args, codec), 100,
-                        flush=flush_buf.zero_)
-    plain_ms = cuda_ms(lambda: qa.fused_q_decode_attention_plain(*args), 20,
-                       flush=flush_buf.zero_)
-    hot_ms = cuda_ms(lambda: qa.fused_q_decode_attention(*args, codec), 100)
-    full_args = (q, pool, scales, k_win, v_win, mc, 288, li)
-    full_ms = cuda_ms(lambda: qa.fused_q_decode_attention(*full_args, codec), 100,
-                      flush=flush_buf.zero_)
+    kernel_ms, behind = cuda_ms(lambda: kit.decode(q, nc, wl, li), 100,
+                                flush=flush_buf.zero_)
+    plain_ms, _ = cuda_ms(lambda: kit.decode_plain(q, nc, wl, li), 20,
+                          flush=flush_buf.zero_, spin=False)
+    hot_ms, _ = cuda_ms(lambda: kit.decode(q, nc, wl, li), 100)
+    full_ms, _ = cuda_ms(lambda: kit.decode(q, mc, 288, li), 100, flush=flush_buf.zero_)
+    wrapper_us = host_us(lambda: kit.decode(q, nc, wl, li), 100)
     G = Hq // Hkv
-    nbytes = (BH * (nc * 192 * 128 * 2 + 2 * wl * 128 * 2)   # pool rows, windows
-              + BH * nc * 2 * 128 * 2                        # scales
+    nbytes = (BH * (nc * kit.chunk_bytes + 2 * wl * 128 * 2)   # pools, windows
               + 2 * B * Hq * D * 2)                          # q in, out
     flops = BH * G * (nc * 256 + wl) * 128 * 2 * 2          # scores + p.v
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     flops_ms = flops / H100_F32_FLOPS * 1e3
-    qa.fused_q_decode_attention.launches = launches0      # comparisons do not count
-    emit("kernel", shapes={"B": B, "Hq": Hq, "Hkv": Hkv, "L": L, "mc": mc, "W": W},
+    fn.launches = launches0                               # comparisons do not count
+    emit("kernel" if codec == "q8q4" else "kernel_sp",
+         shapes={"B": B, "Hq": Hq, "Hkv": Hkv, "L": L, "mc": mc, "W": W},
          cases=results, kernel_ms=kernel_ms, kernel_ms_l2_hot=hot_ms,
-         kernel_ms_full_pool=full_ms, plain_ms=plain_ms,
-         timed_at={"n_chunks": nc, "win_len": wl}, bytes=nbytes, flops=flops,
-         bound_ms=max(bytes_ms, flops_ms), library_ms=None)
-    return {"name": "fused_q_decode_attention", "route": "cuda",
-            "source": "mustafar_tpu_torch/csrc/q_decode.cu",
-            "replaces": "mustafar_tpu/ops/kernels/quant_attention.py:223",
-            "launches": None, "max_abs_err": max(r["max_abs_err"] for r in results),
-            "max_err": max(r["max_abs_err"] for r in results),
-            "tol": max(r["tol"] for r in results), "worst_err_over_tol": worst,
-            "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": None, "library_note": NO_LIBRARY}
+         kernel_ms_full_pool=full_ms, plain_ms=plain_ms, host_behind=behind,
+         wrapper_host_us=wrapper_us,
+         timed_at={"sparsity": kit.sparsity, "n_chunks": nc, "win_len": wl},
+         bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, flops_ms), library_ms=None)
+    entry = _entry(codec, "decode", results, worst, max(r["tol"] for r in results),
+                   kernel_ms, plain_ms, bytes_ms, flops_ms)
+    entry["max_err"] = entry["max_abs_err"]
+    return entry
 
 
-def _rand_state(g, dev, L, mc, BH, W):
-    """Random stacked q8q4 state: every int16 bit pattern, scales 0.002-0.02."""
+def phase_kernel_ps(codec="q8q4"):
+    """Per-slot decode kernel vs its plain version at the engine's pool
+    shape (B=8 slots, Hkv=8, mc=32 as at ``serve_cb``'s max_seq_len 8448):
+    mixed slots with n_chunks 0/1/2/5/31 and win_len 0/1/44/288 (the
+    31-chunk slot is the 8,000-token request's decode), an idle slot (0, 0)
+    among them, query groups 1/2/4/8, bf16 and f32 q (the bitmap codec at
+    sparsity 0.7 and 0.5).  Timed at these slots and, beside them, at the
+    lighter mix of earlier runs (0-5 chunks)."""
     import torch
-    pool = torch.randint(-32768, 32768, (L, mc, BH, 192, 128), generator=g,
-                         device=dev, dtype=torch.int32).to(torch.int16)
-    scales = (0.002 + 0.018 * torch.rand((L, mc, BH, 2, 128), generator=g,
-                                         device=dev)).to(torch.bfloat16)
-    k_win = torch.randn((L, BH, W, 128), generator=g, device=dev).to(torch.bfloat16)
-    v_win = torch.randn((L, BH, W, 128), generator=g, device=dev).to(torch.bfloat16)
-    return pool, scales, k_win, v_win
-
-
-def phase_kernel_ps():
-    """Per-slot decode kernel vs its plain version: the serving shape (B=8
-    slots, Hkv=8), mixed slots with n_chunks 0/1/2/5 and win_len 0/1/44/288,
-    an idle slot (0, 0) among them, query groups 1/2/4/8, bf16 and f32 q."""
-    import torch
-    from mustafar_tpu_torch.ops import quant_format as qf
-    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(2)
-    B, Hkv, L, mc, W, D = 8, 8, 4, 5, 288, 128
+    B, Hkv, L, mc, W, D = 8, 8, 4, 32, 288, 128
     BH = B * Hkv
-    codec = qf.QuantCodec(256, 128, 8, 4)
-    pool, scales, k_win, v_win = _rand_state(g, dev, L, mc, BH, W)
-    slots = [(0, 0), (0, 1), (1, 44), (2, 288), (5, 288), (5, 1), (1, 0), (2, 44)]
-    nc = torch.tensor([c for c, _ in slots], dtype=torch.int32, device=dev)
-    wl = torch.tensor([w for _, w in slots], dtype=torch.int32, device=dev)
-    launches0 = qa.fused_q_decode_attention_ps.launches
+    kits = [_Kit(codec, g, dev, L, mc, BH, W, sp)
+            for sp in ((0.7,) if codec == "q8q4" else (0.7, 0.5))]
+    slots = [(0, 0), (0, 1), (1, 44), (2, 288), (5, 288), (5, 1), (1, 0), (31, 288)]
+    light = slots[:-1] + [(2, 44)]          # the slots timed before mc = 32
+
+    def counts(sl):
+        return (torch.tensor([c for c, _ in sl], dtype=torch.int32, device=dev),
+                torch.tensor([w for _, w in sl], dtype=torch.int32, device=dev))
+
+    nc, wl = counts(slots)
+    fn = kits[0].fns["decode_ps"]
+    launches0 = fn.launches
     results, worst = [], 0.0
-    for G in (1, 2, 4, 8):
-        qb = torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(torch.bfloat16)
-        for qq in (qb, qb.float()):
-            for li in (0, L - 1):
-                args = (qq, pool, scales, k_win, v_win, nc, wl, li)
-                got = qa.fused_q_decode_attention_ps(*args, codec)
-                torch.cuda.synchronize()
-                want = qa.fused_q_decode_attention_ps_plain(*args)
-                # each slot is held to its own output scale, so a slot of small
-                # outputs (many chunks) is held as tightly as a one-token slot
-                dims = (1, 2, 3)
-                errs = (got.float() - want.float()).abs().amax(dim=dims)
-                tols = KERNEL_TOL_ULPS * 2.0 ** -8 * want.float().abs().amax(dim=dims)
-                live = (nc > 0) | (wl > 0)
-                idle_zero = bool((got[~live] == 0).all())
-                live_nonzero = bool((got.float().abs().amax(dim=dims)[live] > 0).all())
-                ratio = (errs[live] / tols[live].clamp_min(1e-30)).max().item()
-                results.append({"G": G, "q_dtype": str(qq.dtype).split(".")[-1],
-                                "li": li, "max_abs_err": errs.max().item(),
-                                "slot_err": errs.tolist(), "slot_tol": tols.tolist(),
-                                "worst_err_over_tol": ratio,
-                                "idle_slots_zero": idle_zero,
-                                "live_slots_nonzero": live_nonzero})
-                if not (got.isfinite().all() and ratio <= 1.0 and idle_zero
-                        and live_nonzero):
-                    raise AssertionError(f"per-slot kernel disagrees with its plain "
-                                         f"version: {results[-1]}")
-                worst = max(worst, ratio)
+    for kit in kits:
+        for G in (1, 2, 4, 8):
+            qb = torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(torch.bfloat16)
+            for qq in (qb, qb.float()):
+                for li in (0, L - 1):
+                    got = kit.decode_ps(qq, nc, wl, li)
+                    torch.cuda.synchronize()
+                    want = kit.decode_ps_plain(qq, nc, wl, li)
+                    # each slot is held to its own output scale, so a slot of
+                    # small outputs (many chunks) is held as tightly as a
+                    # one-token slot
+                    dims = (1, 2, 3)
+                    errs = (got.float() - want.float()).abs().amax(dim=dims)
+                    tols = KERNEL_TOL_ULPS * 2.0 ** -8 * want.float().abs().amax(dim=dims)
+                    live = (nc > 0) | (wl > 0)
+                    idle_zero = bool((got[~live] == 0).all())
+                    live_nonzero = bool((got.float().abs().amax(dim=dims)[live] > 0).all())
+                    ratio = (errs[live] / tols[live].clamp_min(1e-30)).max().item()
+                    results.append({"sparsity": kit.sparsity, "G": G,
+                                    "q_dtype": str(qq.dtype).split(".")[-1],
+                                    "li": li, "max_abs_err": errs.max().item(),
+                                    "slot_err": errs.tolist(), "slot_tol": tols.tolist(),
+                                    "worst_err_over_tol": ratio,
+                                    "idle_slots_zero": idle_zero,
+                                    "live_slots_nonzero": live_nonzero})
+                    if not (got.isfinite().all() and ratio <= 1.0 and idle_zero
+                            and live_nonzero):
+                        raise AssertionError(f"per-slot kernel disagrees with its "
+                                             f"plain version: {results[-1]}")
+                    worst = max(worst, ratio)
 
     # time at the serving shape (G=4), the mixed slots above, L2 flushed
+    kit = kits[0]
     q = torch.randn((B, 1, Hkv * 4, D), generator=g, device=dev).to(torch.bfloat16)
-    args = (q, pool, scales, k_win, v_win, nc, wl, 0)
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     for _ in range(10):
-        qa.fused_q_decode_attention_ps(*args, codec)
+        kit.decode_ps(q, nc, wl, 0)
     torch.cuda.synchronize()
-    kernel_ms = cuda_ms(lambda: qa.fused_q_decode_attention_ps(*args, codec), 100,
-                        flush=flush_buf.zero_)
-    plain_ms = cuda_ms(lambda: qa.fused_q_decode_attention_ps_plain(*args), 10,
-                       flush=flush_buf.zero_)
+    kernel_ms, behind = cuda_ms(lambda: kit.decode_ps(q, nc, wl, 0), 100,
+                                flush=flush_buf.zero_)
+    plain_ms, _ = cuda_ms(lambda: kit.decode_ps_plain(q, nc, wl, 0), 10,
+                          flush=flush_buf.zero_, spin=False)
+    lnc, lwl = counts(light)
+    light_ms, _ = cuda_ms(lambda: kit.decode_ps(q, lnc, lwl, 0), 100,
+                          flush=flush_buf.zero_)
+    wrapper_us = host_us(lambda: kit.decode_ps(q, nc, wl, 0), 100)
     n_tok = sum(c * 256 + w for c, w in slots)
-    nbytes = (Hkv * sum(c * (192 * 128 * 2 + 2 * 128 * 2) + 2 * w * 128 * 2
-                        for c, w in slots)                  # pools, scales, windows
+    nbytes = (Hkv * sum(c * kit.chunk_bytes + 2 * w * 128 * 2
+                        for c, w in slots)                  # pools, windows
               + 2 * q.numel() * 2 + 2 * B * 4)              # q in, out, counts
     flops = Hkv * 4 * n_tok * D * 2 * 2                     # scores + p.v, G = 4
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     flops_ms = flops / H100_F32_FLOPS * 1e3
-    qa.fused_q_decode_attention_ps.launches = launches0   # comparisons do not count
-    emit("kernel_ps", shapes={"B": B, "Hq": 4 * Hkv, "Hkv": Hkv, "L": L, "mc": mc, "W": W},
+    fn.launches = launches0                               # comparisons do not count
+    emit("kernel_ps" if codec == "q8q4" else "kernel_sp_ps",
+         shapes={"B": B, "Hq": 4 * Hkv, "Hkv": Hkv, "L": L, "mc": mc, "W": W},
          slots=slots, cases=results, worst_err_over_tol=worst, kernel_ms=kernel_ms,
-         plain_ms=plain_ms, bytes=nbytes, flops=flops,
-         bound_ms=max(bytes_ms, flops_ms), library_ms=None)
-    return {"name": "fused_q_decode_attention_ps", "route": "cuda",
-            "source": "mustafar_tpu_torch/csrc/q_decode_ps.cu",
-            "replaces": "mustafar_tpu/ops/kernels/quant_attention.py:516",
-            "launches": None, "max_abs_err": max(r["max_abs_err"] for r in results),
-            "tol": "per slot: 2 bf16 ulps of the slot's largest output",
-            "worst_err_over_tol": worst,
-            "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": None, "library_note": NO_LIBRARY}
+         kernel_ms_light_slots=light_ms, light_slots=light, plain_ms=plain_ms,
+         host_behind=behind, wrapper_host_us=wrapper_us, timed_at={"sparsity": kit.sparsity}, bytes=nbytes,
+         flops=flops, bound_ms=max(bytes_ms, flops_ms), library_ms=None)
+    return _entry(codec, "decode_ps", results, worst,
+                  "per slot: 2 bf16 ulps of the slot's largest output",
+                  kernel_ms, plain_ms, bytes_ms, flops_ms)
 
 
-def phase_kernel_seg():
+def phase_kernel_seg(codec="q8q4"):
     """Segment kernel vs its plain version: Tseg=256, Hq=32 over Hkv=8
-    (G=4), B = 1 and 2, n_chunks 0/1/4/31; timed at the serving shape of
-    the longest prompt's last segment (B=1, 31 chunks)."""
+    (G=4), B = 1 and 2, n_chunks 0/1/4/31 (the bitmap codec at sparsity 0.7
+    and, at B=1, 0.5); timed at the serving shape of the longest prompt's
+    last segment (B=1, 31 chunks)."""
     import torch
-    from mustafar_tpu_torch.ops import quant_format as qf
-    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(3)
     Hq, Hkv, T, L, mc, D = 32, 8, 256, 2, 32, 128
-    codec = qf.QuantCodec(256, 128, 8, 4)
-    launches0 = qa.fused_q_segment_attention.launches
+    fn = None
     results, worst = [], 0.0
-    states = {}
-    for B in (1, 2):
-        pool, scales, _, _ = _rand_state(g, dev, L, mc, B * Hkv, 8)
-        states[B] = (pool, scales)
+    kits = {}
+    runs = [(1, 0.7), (2, 0.7)] + ([] if codec == "q8q4" else [(1, 0.5)])
+    for B, sparsity in runs:
+        kit = _Kit(codec, g, dev, L, mc, B * Hkv, 8, sparsity)
+        kits[(B, sparsity)] = kit
+        if fn is None:
+            fn = kit.fns["segment"]
+            launches0 = fn.launches
         qb = torch.randn((B, T, Hq, D), generator=g, device=dev).to(torch.bfloat16)
         for nc in (0, 1, 4, 31):
             for qq, li in ((qb, nc % L), (qb.float(), (nc + 1) % L)):
-                args = (qq, pool, scales, nc)
-                acc, m, l = qa.fused_q_segment_attention(*args, nc * 256, li, codec)
+                acc, m, l = kit.segment(qq, nc, li)
                 torch.cuda.synchronize()
-                pa, pm, pl = qa.fused_q_segment_attention_plain(*args, li)
+                pa, pm, pl = kit.segment_plain(qq, nc, li)
                 if nc == 0:
                     exact = bool((acc == 0).all() and (m == -1e30).all() and (l == 0).all())
-                    results.append({"B": B, "n_chunks": 0, "li": li, "empty_exact": exact})
+                    results.append({"B": B, "sparsity": sparsity, "n_chunks": 0, "li": li,
+                                    "empty_exact": exact})
                     if not exact:
                         raise AssertionError(f"segment kernel, no chunk: {results[-1]}")
                     continue
@@ -348,7 +476,7 @@ def phase_kernel_seg():
                 m_tol = 1e-5 * pm.abs().max().item()
                 l_err = ((l - pl).abs() / pl).max().item()
                 l_tol = 1e-4
-                results.append({"B": B, "n_chunks": nc, "li": li,
+                results.append({"B": B, "sparsity": sparsity, "n_chunks": nc, "li": li,
                                 "q_dtype": str(qq.dtype).split(".")[-1],
                                 "max_abs_err": err, "tol": tol, "m_err": m_err,
                                 "m_tol": m_tol, "l_rel_err": l_err, "l_tol": l_tol})
@@ -360,38 +488,35 @@ def phase_kernel_seg():
                             l_err / l_tol)
 
     B, nc = 1, 31
-    pool, scales = states[B]
+    kit = kits[(B, 0.7)]
     q = torch.randn((B, T, Hq, D), generator=g, device=dev).to(torch.bfloat16)
-    args = (q, pool, scales, nc)
     for _ in range(3):
-        qa.fused_q_segment_attention(*args, nc * 256, 0, codec)
+        kit.segment(q, nc, 0)
     torch.cuda.synchronize()
-    kernel_ms = cuda_ms(lambda: qa.fused_q_segment_attention(*args, nc * 256, 0, codec), 20)
-    plain_ms = cuda_ms(lambda: qa.fused_q_segment_attention_plain(*args, 0), 3)
+    kernel_ms, behind = cuda_ms(lambda: kit.segment(q, nc, 0), 20)
+    plain_ms, _ = cuda_ms(lambda: kit.segment_plain(q, nc, 0), 3, spin=False)
+    wrapper_us = host_us(lambda: kit.segment(q, nc, 0), 20)
     BH, QR = B * Hkv, T * Hq // Hkv
     flops = 4 * BH * QR * nc * 256 * D                       # scores + p.v, mul + add
-    nbytes = (BH * nc * (192 * 128 * 2 + 2 * 128 * 2)        # pool rows, scales
+    nbytes = (BH * nc * kit.chunk_bytes                      # pools
               + q.numel() * 2 + B * T * Hq * (D + 2) * 4)    # q in; acc, m, l out
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     flops_ms = flops / H100_BF16_FLOPS * 1e3
-    qa.fused_q_segment_attention.launches = launches0
-    emit("kernel_seg", shapes={"Tseg": T, "Hq": Hq, "Hkv": Hkv, "L": L, "mc": mc},
-         cases=results, worst_err_over_tol=worst, timed_at={"B": B, "n_chunks": nc},
-         kernel_ms=kernel_ms, plain_ms=plain_ms, flops=flops, bytes=nbytes,
+    fn.launches = launches0
+    emit("kernel_seg" if codec == "q8q4" else "kernel_sp_seg",
+         shapes={"Tseg": T, "Hq": Hq, "Hkv": Hkv, "L": L, "mc": mc},
+         cases=results, worst_err_over_tol=worst,
+         timed_at={"B": B, "n_chunks": nc, "sparsity": kit.sparsity},
+         kernel_ms=kernel_ms, plain_ms=plain_ms, host_behind=behind,
+         wrapper_host_us=wrapper_us,
+         flops=flops, bytes=nbytes,
          bound_ms=max(bytes_ms, flops_ms), library_ms=None)
-    return {"name": "fused_q_segment_attention", "route": "cuda",
-            "source": "mustafar_tpu_torch/csrc/q_segment.cu",
-            "replaces": "mustafar_tpu/ops/kernels/quant_attention.py:704",
-            "launches": None,
-            "max_abs_err": max(r.get("max_abs_err", 0.0) for r in results),
-            "tol": max(r.get("tol", 0.0) for r in results), "worst_err_over_tol": worst,
-            "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": None, "library_note": NO_LIBRARY}
+    return _entry(codec, "segment", results, worst,
+                  max(r.get("tol", 0.0) for r in results),
+                  kernel_ms, plain_ms, bytes_ms, flops_ms)
 
 
-def _tiny_engine(mode, **kw):
+def _tiny_engine(mode, codec="q8q4", **kw):
     import dataclasses
     from mustafar_tpu_torch import config as tc
     model = dataclasses.replace(tc.TINY_LLAMA, head_dim=128, num_heads=4,
@@ -401,7 +526,26 @@ def _tiny_engine(mode, **kw):
         prune=tc.PruneConfig(method=tc.PruneMethod.KT_MAG_VT_MAG,
                              k_sparsity=0.7, v_sparsity=0.7),
         max_seq_len=kw.pop("max_seq_len", 1024), prefill_bucket=256, chunk_size=256,
-        codec="q8q4", **kw)
+        codec=codec, **kw)
+
+
+def _counters():
+    """The launch count of every kernel wrapper, by name."""
+    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
+    from mustafar_tpu_torch.ops.kernels import sparse_attention as ska
+    return {fn.__name__: fn for fn in (
+        qa.fused_q_decode_attention, qa.fused_q_decode_attention_ps,
+        qa.fused_q_segment_attention, ska.fused_sparse_decode_attention,
+        ska.fused_sparse_decode_attention_ps, ska.fused_sparse_segment_attention)}
+
+
+def _launches():
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _set_launches(counts):
+    for name, fn in _counters().items():
+        fn.launches = counts[name]
 
 
 def _recording_engine():
@@ -428,23 +572,24 @@ def _recording_engine():
     return Recording, np
 
 
-def phase_reference():
+def phase_reference(codec="q8q4"):
     """A tiny f32 model, same weights and token stream on the card and on
-    the CPU: the card runs the kernel, the CPU the plain path."""
+    the CPU: the card runs the kernel, the CPU the plain path.  Returns the
+    phase's numbers (``reference_bitmap`` prints them for the bitmap
+    codec)."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.cache import make_cache
     from mustafar_tpu_torch.config import CacheMode
     from mustafar_tpu_torch.models import llama
-    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
-    eng = _tiny_engine(CacheMode.COMPRESSED)
+    eng = _tiny_engine(CacheMode.COMPRESSED, codec)
     cpu_params = llama.init_params(eng.model, device="cpu", dtype=torch.float32, seed=1)
     gpu_params = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict)
                       else v.cuda()) for k, v in cpu_params.items()}
     prompt = np.random.RandomState(1).randint(0, 512, (2, 300))
     toks = torch.zeros((2, 512), dtype=torch.int64)
     toks[:, :300] = torch.from_numpy(prompt)
-    launches0 = qa.fused_q_decode_attention.launches
+    launches0 = _launches()
     logs = {}
     stream = None
     with torch.inference_mode():
@@ -465,7 +610,8 @@ def phase_reference():
             logs[dev] = torch.stack(out, 1)
             if stream is None:
                 stream = logs[dev].argmax(-1)          # the CPU's greedy picks
-    qa.fused_q_decode_attention.launches = launches0
+    launched = {k: v - launches0[k] for k, v in _launches().items() if v > launches0[k]}
+    _set_launches(launches0)
     a, b = logs["cpu"], logs["cuda"]
     err = (a - b).abs().max().item()
     scale = a.abs().max().item()
@@ -474,24 +620,27 @@ def phase_reference():
     # roundings (the CPU parity tests measure < 3e-3 of the logits' range)
     tol = 1e-2 * scale
     agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-    emit("reference", steps=40, max_abs_err=err, tol=tol, greedy_agreement=agree)
+    fields = {"steps": 40, "max_abs_err": err, "tol": tol, "greedy_agreement": agree,
+              "launched": launched}
+    if codec == "q8q4":
+        emit("reference", **fields)
     if not (b.isfinite().all() and err <= tol):
-        raise AssertionError("card and CPU logits disagree on the tiny model")
+        raise AssertionError(f"card and CPU logits disagree on the tiny model: {fields}")
+    return fields
 
 
-def phase_reference_cb():
+def phase_reference_cb(codec="q8q4"):
     """The tiny f32 continuous-batching engine, chunked prefill with
     interleaved admission, on the CPU (plain versions) and on the card
     (kernels), fed the CPU's tokens: the card's logits within 1e-2 of their
     range, its own greedy picks equal to the CPU's.  The requests make a
     slot retire while the other decodes (its n_chunks still the old
-    request's) and reuse it."""
+    request's) and reuse it.  Returns the phase's numbers."""
     import torch
     from mustafar_tpu_torch.config import CacheMode
     from mustafar_tpu_torch.models import llama
-    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
     Recording, np = _recording_engine()
-    eng = _tiny_engine(CacheMode.COMPRESSED, max_seq_len=2048, batch_size=2,
+    eng = _tiny_engine(CacheMode.COMPRESSED, codec, max_seq_len=2048, batch_size=2,
                        chunked_prefill=True)
     cpu_params = llama.init_params(eng.model, device="cpu", dtype=torch.float32, seed=2)
     gpu_params = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict)
@@ -499,8 +648,7 @@ def phase_reference_cb():
     rs = np.random.RandomState(2)
     reqs = [(rs.randint(0, 512, size=n), m)
             for n, m in ((100, 12), (1000, 6), (280, 30), (530, 20))]
-    counts0 = (qa.fused_q_decode_attention_ps.launches,
-               qa.fused_q_segment_attention.launches)
+    counts0 = _launches()
     runs = {}
     for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
         streams = None if dev == "cpu" else runs["cpu"][0]
@@ -508,7 +656,8 @@ def phase_reference_cb():
         for p, m in reqs:
             cb.submit(p, m)
         runs[dev] = (cb.run(), cb.logits, cb.ticks, cb.segments, cb.decode_steps)
-    qa.fused_q_decode_attention_ps.launches, qa.fused_q_segment_attention.launches = counts0
+    launched = {k: v - counts0[k] for k, v in _launches().items() if v > counts0[k]}
+    _set_launches(counts0)
     toks, lc, ticks, segments, steps = runs["cpu"]
     _, lg, *_ = runs["cuda"]
     err, scale, agree, n = 0.0, 0.0, 0, 0
@@ -519,35 +668,54 @@ def phase_reference_cb():
         agree += int((b.argmax(-1) == torch.as_tensor(toks[uid])).sum())
         n += len(toks[uid])
     tol = 1e-2 * scale
-    emit("reference_cb", requests=len(reqs), tokens=n, ticks=ticks, segments=segments,
-         decode_steps=steps, max_abs_err=err, tol=tol, greedy_agreement=agree / n)
+    fields = {"requests": len(reqs), "tokens": n, "ticks": ticks, "segments": segments,
+              "decode_steps": steps, "max_abs_err": err, "tol": tol,
+              "greedy_agreement": agree / n, "launched": launched}
+    if codec == "q8q4":
+        emit("reference_cb", **fields)
     if not (err <= tol and agree == n):
-        raise AssertionError("card and CPU disagree on the tiny continuous-batching run")
+        raise AssertionError(f"card and CPU disagree on the tiny continuous-batching "
+                             f"run: {fields}")
+    return fields
 
 
-def serve(label, mode, params, prompt, new_tokens):
-    """One warm-up generation, then the measured one; returns its tokens and
-    the launches of the kernel during the measured run."""
+def phase_reference_bitmap():
+    """``reference`` and ``reference_cb`` with the bitmap codec: the
+    Generator's decode path and the engine (per-slot decode, segments)
+    through the bitmap kernels on the card, against the plain versions on
+    the CPU.  Each run must have launched the bitmap kernels."""
+    gen, cb = phase_reference("bitmap"), phase_reference_cb("bitmap")
+    emit("reference_bitmap", generator=gen, engine=cb)
+    if set(gen["launched"]) != {"fused_sparse_decode_attention"} or set(
+            cb["launched"]) != {"fused_sparse_decode_attention_ps",
+                                "fused_sparse_segment_attention"}:
+        raise AssertionError(f"reference_bitmap: launched {gen['launched']} and "
+                             f"{cb['launched']}")
+
+
+def serve(label, mode, params, prompt, new_tokens, codec="q8q4"):
+    """One warm-up generation, then the measured one; returns its tokens,
+    the launches of every kernel during the measured run (those launched)
+    and the phase's fields."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import EngineConfig, LLAMA3_8B, PruneConfig, PruneMethod
-    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
     from mustafar_tpu_torch.runtime.generate import Generator
     eng = EngineConfig(model=LLAMA3_8B, cache_mode=mode,
                        prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG,
                                          k_sparsity=0.7, v_sparsity=0.7),
                        max_seq_len=1312, prefill_bucket=256, chunk_size=256,
-                       codec="q8q4")
+                       codec=codec)
     gen = Generator(eng, params, dtype=torch.bfloat16)
     gen.generate(prompt, 4)                                   # warm-up
     gen.last_cache = None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    qa.fused_q_decode_attention.launches = 0
+    _set_launches(dict.fromkeys(_counters(), 0))
     t = time.perf_counter()
     out = gen.generate(prompt, new_tokens)
     dt = time.perf_counter() - t
-    launches = qa.fused_q_decode_attention.launches
+    launches = {k: v for k, v in _launches().items() if v}
     toks = torch.as_tensor(np.stack(out))
     B = toks.shape[0]
     if toks.shape != (B, new_tokens) or toks.min() < 0 or toks.max() >= LLAMA3_8B.vocab_size:
@@ -556,6 +724,8 @@ def serve(label, mode, params, prompt, new_tokens):
               "seconds": dt, "tok_s": B * new_tokens / dt,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
               "kernel_launches": launches}
+    if mode.value == "compressed":
+        fields["codec"] = codec
     cache = gen.last_cache
     if mode.value == "compressed":
         fields["n_chunks_end"] = cache["nc_host"]
@@ -603,8 +773,8 @@ def phase_decode_split(params, kernel_ms, q8q4_s, dense_s, new_tokens):
         all_layers()
         _lm_head(cfg, params, h)
         torch.cuda.synchronize()
-        w8_layer_ms = cuda_ms(all_layers, 3) / cfg.num_layers
-        head_ms = cuda_ms(lambda: _lm_head(cfg, params, h), 5)
+        w8_layer_ms = cuda_ms(all_layers, 3)[0] / cfg.num_layers
+        head_ms = cuda_ms(lambda: _lm_head(cfg, params, h), 5)[0]
     parts_ms = cfg.num_layers * (w8_layer_ms + kernel_ms) + head_ms
     emit("decode_split", w8_layer_ms=w8_layer_ms, lm_head_ms=head_ms,
          attn_kernel_ms=kernel_ms, w8_head_attention_ms_per_step=parts_ms,
@@ -612,26 +782,25 @@ def phase_decode_split(params, kernel_ms, q8q4_s, dense_s, new_tokens):
          dense_wall_ms_per_token=dense_s / new_tokens * 1e3)
 
 
-def phase_serve_cb(params):
+def phase_serve_cb(params, codec="q8q4"):
     """Continuous batching at full Llama-3-8B width and depth: 8 slots, 17
     requests (16 with prompts of 200-1,500 tokens and 32-96 new tokens,
     plus one of 8,000 prompt tokens submitted third), chunked prefill with
-    interleaved admission, q8q4 at 0.7.  Every decode step must launch the
-    per-slot kernel once a layer, every segment the segment kernel once a
-    layer; every request's first token must equal a batch-1 chunked
-    Generator's on the same prompt."""
+    interleaved admission, ``codec`` at 0.7.  Every decode step must launch
+    the codec's per-slot kernel once a layer, every segment its segment
+    kernel once a layer, and no other kernel may run; every request's first
+    token must equal a batch-1 chunked Generator's on the same prompt."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
                                            PruneConfig, PruneMethod)
-    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
     from mustafar_tpu_torch.runtime.generate import Generator
     from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
     eng = EngineConfig(model=LLAMA3_8B, cache_mode=CacheMode.COMPRESSED,
                        prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG,
                                          k_sparsity=0.7, v_sparsity=0.7),
                        max_seq_len=8448, prefill_bucket=256, chunk_size=256,
-                       codec="q8q4", batch_size=8, chunked_prefill=True)
+                       codec=codec, batch_size=8, chunked_prefill=True)
     rs = np.random.RandomState(1)
     reqs = [(rs.randint(1, LLAMA3_8B.vocab_size, size=rs.randint(200, 1501)),
              int(rs.randint(32, 97))) for _ in range(16)]
@@ -659,22 +828,18 @@ def phase_serve_cb(params):
 
     cb = Timed(eng, params)
     uids = [cb.submit(p, m) for p, m in reqs]
-    qa.fused_q_decode_attention.launches = 0
-    qa.fused_q_decode_attention_ps.launches = 0
-    qa.fused_q_segment_attention.launches = 0
+    _set_launches(dict.fromkeys(_counters(), 0))
     t = time.perf_counter()
     outs = cb.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
-    launches = {"fused_q_decode_attention": qa.fused_q_decode_attention.launches,
-                "fused_q_decode_attention_ps": qa.fused_q_decode_attention_ps.launches,
-                "fused_q_segment_attention": qa.fused_q_segment_attention.launches}
+    launches = _launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     L = LLAMA3_8B.num_layers
     generated = sum(len(outs[u]) for u in uids)
-    want = {"fused_q_decode_attention": 0,
-            "fused_q_decode_attention_ps": L * cb.decode_steps,
-            "fused_q_segment_attention": L * cb.segments}
+    want = dict.fromkeys(launches, 0)
+    want[KERNEL_META[(codec, "decode_ps")][0]] = L * cb.decode_steps
+    want[KERNEL_META[(codec, "segment")][0]] = L * cb.segments
     seg_expected = sum(-(-len(p) // 256) for p, _ in reqs)
     bad = [u for u, (p, m) in zip(uids, reqs)
            if len(outs[u]) != m or min(outs[u]) < 0 or max(outs[u]) >= LLAMA3_8B.vocab_size]
@@ -688,17 +853,18 @@ def phase_serve_cb(params):
                               "total_s": sum(v)} for k, v in Timed.split.items()}}
     del gen, cb
     torch.cuda.empty_cache()
-    emit("serve_cb", model="llama-3-8b x32L, W8 (random, seed 0)", slots=8,
+    label = "serve_cb" if codec == "q8q4" else "serve_cb_bitmap"
+    emit(label, model="llama-3-8b x32L, W8 (random, seed 0)", codec=codec, slots=8,
          requests=len(reqs), prompt_tokens=sum(len(p) for p, _ in reqs),
          generated_tokens=generated, seconds=dt, tok_s=generated / dt,
          peak_mem_gib=peak, **counts, launches=launches, expected_launches=want,
          first_token_equal=sum(first_equal))
     if bad or launches != want or counts["segments"] != seg_expected:
-        raise AssertionError(f"serve_cb: bad outputs {bad}, launches {launches} "
+        raise AssertionError(f"{label}: bad outputs {bad}, launches {launches} "
                              f"(expected {want}), segments {counts['segments']} "
                              f"(expected {seg_expected})")
     if not all(first_equal):
-        raise AssertionError(f"serve_cb: first tokens differ from the batch-1 "
+        raise AssertionError(f"{label}: first tokens differ from the batch-1 "
                              f"chunked Generator for requests "
                              f"{[u for u, ok in zip(uids, first_equal) if not ok]}")
     return launches
@@ -818,11 +984,12 @@ def main():
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     smi = phase_env()
     phase_build()
-    entry = phase_kernel()
-    entry_ps = phase_kernel_ps()
-    entry_seg = phase_kernel_seg()
+    entries = {(codec, kind): phase(codec) for codec in ("q8q4", "bitmap")
+               for kind, phase in (("decode", phase_kernel), ("decode_ps", phase_kernel_ps),
+                                   ("segment", phase_kernel_seg))}
     phase_reference()
     phase_reference_cb()
+    phase_reference_bitmap()
 
     import numpy as np
     import torch
@@ -836,21 +1003,22 @@ def main():
     init_s = time.perf_counter() - t
     prompt = np.random.RandomState(0).randint(1, LLAMA3_8B.vocab_size, (8, 300))
     new = 300
+    decode_steps = new - 1
+    expected = LLAMA3_8B.num_layers * decode_steps
     sparse_toks, launches, fields = serve("serve_q8q4", CacheMode.COMPRESSED,
                                           params, prompt, new)
     q8q4_s = fields["seconds"]
-    decode_steps = new - 1
-    expected = LLAMA3_8B.num_layers * decode_steps
     emit("serve_q8q4", model="llama-3-8b x32L, W8 (random, seed 0)",
          weights_gib=weight_bytes(params) / 2 ** 30, weights_init_s=init_s,
          decode_steps=decode_steps, expected_launches=expected, **fields)
-    if launches != expected:
-        raise AssertionError(f"kernel launched {launches} times, expected "
-                             f"{expected} = 32 layers x {decode_steps} steps")
+    if launches != {"fused_q_decode_attention": expected}:
+        raise AssertionError(f"kernels launched {launches}, expected {expected} = "
+                             f"32 layers x {decode_steps} steps of the q8q4 kernel")
+    entries[("q8q4", "decode")]["launches"] = expected
     dense_toks, dense_launches, fields = serve("serve_dense", CacheMode.DENSE,
                                                params, prompt, new)
-    if dense_launches != 0:
-        raise AssertionError("the dense engine launched the q8q4 kernel")
+    if dense_launches:
+        raise AssertionError(f"the dense engine launched {dense_launches}")
     # the first token comes from prefill logits, the same in both engines
     first_equal = bool((sparse_toks[:, 0] == dense_toks[:, 0]).all())
     emit("serve_dense", first_token_equal=first_equal,
@@ -858,16 +1026,32 @@ def main():
          **fields)
     if not first_equal:
         raise AssertionError("sparse and dense engines disagree on the first token")
-    phase_decode_split(params, entry["kernel_ms"], q8q4_s, fields["seconds"], new)
-    cb_launches = phase_serve_cb(params)
+    dense_s = fields["seconds"]
+    bitmap_toks, launches, fields = serve("serve_bitmap", CacheMode.COMPRESSED, params,
+                                          prompt, new, codec="bitmap")
+    first_equal = bool((bitmap_toks[:, 0] == dense_toks[:, 0]).all())
+    emit("serve_bitmap", decode_steps=decode_steps, expected_launches=expected,
+         first_token_equal_dense=first_equal,
+         token_agreement_with_q8q4=(bitmap_toks == sparse_toks).float().mean().item(),
+         token_agreement_with_dense=(bitmap_toks == dense_toks).float().mean().item(),
+         **fields)
+    if launches != {"fused_sparse_decode_attention": expected}:
+        raise AssertionError(f"serve_bitmap: kernels launched {launches}, expected "
+                             f"{expected} of the bitmap decode kernel")
+    if not first_equal:
+        raise AssertionError("bitmap and dense engines disagree on the first token")
+    entries[("bitmap", "decode")]["launches"] = expected
+    phase_decode_split(params, entries[("q8q4", "decode")]["kernel_ms"], q8q4_s,
+                       dense_s, new)
+    for codec in ("q8q4", "bitmap"):
+        cb_launches = phase_serve_cb(params, codec)
+        for kind in ("decode_ps", "segment"):
+            entries[(codec, kind)]["launches"] = cb_launches[KERNEL_META[(codec, kind)][0]]
     phase_serve_chunked(params)
     phase_host_split(params)
 
-    entry["launches"] = launches
-    entry_ps["launches"] = cb_launches["fused_q_decode_attention_ps"]
-    entry_seg["launches"] = cb_launches["fused_q_segment_attention"]
     print(smi, flush=True)
-    print(json.dumps({"kernels": [entry, entry_ps, entry_seg]}), flush=True)
+    print(json.dumps({"kernels": list(entries.values())}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,15 @@
-"""Compressed KV cache, q8q4 codec: port of the served subset of
+"""Compressed KV cache: port of the served subset of
 ``mustafar_tpu/cache/compressed.py`` (uniform batch, per-slot continuous
-batching and chunked prefill).
+batching and chunked prefill) for the codecs "bitmap" (the default: a
+bitmap plus the packed bf16 non-zeros, ``ops/sparse_format.py``) and
+"q8q4" (pruned chunks quantized dense, ``ops/quant_format.py``).
 
 State (a dict, the JAX package's layouts, updated in place):
-  kv_pool   [L, mc, B, Hkv, 192, 128] int16  packed chunks, K rows then V rows
+  kv_pool   [L, mc, B, Hkv, ROWS, 128] int16 packed chunks, K rows then V
+                                             rows (ROWS 192 at sparsity 0.7
+                                             for both codecs)
   kv_scales [L, mc, B, Hkv, 2, 128]   bf16   per-channel K and V scales
+                                             (q8q4 only)
   k_win / v_win [L, B, Hkv, r+C, 128]        dense residual window
   n_chunks  [L, B] int32                     active chunks (device)
   nc_host   int or None                      host copy of n_chunks while the
@@ -22,8 +27,8 @@ Semantics:
     window's oldest C tokens are packed as soon as the segment's tokens
     leave it more than r + C, and the window is rebuilt.
   * decode: the new token goes into the window; attention covers the pool
-    chunks and the window in one online softmax (the q8q4 kernels on the
-    card, their plain versions on the CPU).  ``pos`` is a host int for a
+    chunks and the window in one online softmax (the codec's kernels on
+    the card, their plain versions on the CPU).  ``pos`` is a host int for a
     uniform batch, or a [B] device tensor with per-slot positions
     (continuous batching; an idle slot has pos -1 and is neither written
     nor attended).
@@ -44,6 +49,7 @@ from mustafar_tpu_torch.ops import sparse_format as sf
 from mustafar_tpu_torch.ops.attention import (attention_partials, merge_partials,
                                               prefill_attention)
 from mustafar_tpu_torch.ops.kernels import quant_attention as qa
+from mustafar_tpu_torch.ops.kernels import sparse_attention as ska
 
 
 class CompressedKVCache:
@@ -57,10 +63,10 @@ class CompressedKVCache:
             raise NotImplementedError(
                 f"compressed cache serves KT_MAG_VT_MAG; {p.method} "
                 "(output-aware policies) is ROADMAP Queue A item 12")
-        if engine.codec != "q8q4":
+        if engine.codec not in ("q8q4", "bitmap"):
             raise NotImplementedError(
                 f"codec {engine.codec!r}: q8 and q4q4 are ROADMAP Queue A item 8, "
-                "the bitmap codecs item 11")
+                "bitmap-q8 item 11")
         if m.sliding_window is not None:
             raise NotImplementedError("sliding windows are ROADMAP Queue A item 14")
         assert m.head_dim == 128, (
@@ -73,22 +79,34 @@ class CompressedKVCache:
         self.max_chunks = max(1, (engine.max_seq_len - self.r) // C)
         self.k_keep = p.kept_per_row(m.head_dim, p.k_sparsity)
         self.v_keep = p.kept_per_row(m.head_dim, p.v_sparsity)
-        self.qcodec = qf.QuantCodec(C, m.head_dim, 8, 4)
+        if engine.codec == "q8q4":
+            self.qcodec = qf.QuantCodec(C, m.head_dim, 8, 4)
+            self.kfmt = self.vfmt = None
+            self.rows = self.qcodec.stream_rows
+            self.pool_keys = ("kv_pool", "kv_scales")
+        else:
+            self.qcodec = None
+            self.kfmt = sf.ChunkFormat(C, m.head_dim, self.k_keep)
+            self.vfmt = sf.ChunkFormat(C, m.head_dim, self.v_keep)
+            self.rows = self.kfmt.stream_rows + self.vfmt.stream_rows
+            self.pool_keys = ("kv_pool",)
 
     # -- state ------------------------------------------------------------
     def init(self, batch: int, dtype=torch.bfloat16) -> dict:
         m, mc, dev = self.model, self.max_chunks, self.device
         L, H, D = m.num_layers, m.num_kv_heads, m.head_dim
-        return {
+        state = {
             "k_win": torch.zeros((L, batch, H, self.wcap, D), dtype=dtype, device=dev),
             "v_win": torch.zeros((L, batch, H, self.wcap, D), dtype=dtype, device=dev),
             "n_chunks": torch.zeros((L, batch), dtype=torch.int32, device=dev),
-            "kv_pool": torch.zeros((L, mc, batch, H, self.qcodec.stream_rows, 128),
+            "kv_pool": torch.zeros((L, mc, batch, H, self.rows, 128),
                                    dtype=torch.int16, device=dev),
-            "kv_scales": torch.zeros((L, mc, batch, H, 2, D), dtype=torch.bfloat16,
-                                     device=dev),
             "nc_host": 0,
         }
+        if self.qcodec is not None:
+            state["kv_scales"] = torch.zeros((L, mc, batch, H, 2, D),
+                                             dtype=torch.bfloat16, device=dev)
+        return state
 
     # -- packing ----------------------------------------------------------
     def _pack_chunk_q(self, dense_bhtd: torch.Tensor, kind: str):
@@ -100,22 +118,33 @@ class CompressedKVCache:
         pruned = torch.where(sf.topk_mask(x, keep), x, torch.zeros_like(x))
         return qf.encode_chunk(pruned, self.qcodec, kind)
 
-    def _pack_rows_scales(self, k_chunk, v_chunk):
-        """K and V chunks [B, Hkv, C, D] -> (rows [B, Hkv, ROWS, 128],
-        scales [B, Hkv, 2, D])."""
+    def _pack_chunk_bitmap(self, dense_bhtd: torch.Tensor, fmt: sf.ChunkFormat):
+        """dense [B, Hkv, C, D] -> fused-stream rows [BH, stream_rows, 128]:
+        top-|x| keep per token, then the bitmap and the packed values."""
+        B, H, C, D = dense_bhtd.shape
+        x = dense_bhtd.reshape(B * H, C, D).to(torch.bfloat16)
+        return sf.prune_and_encode_stream(x, fmt)
+
+    def _pack(self, k_chunk, v_chunk) -> dict:
+        """K and V chunks [B, Hkv, C, D] -> the pool entries of one chunk:
+        {"kv_pool": rows [B, Hkv, ROWS, 128]} and, for q8q4, "kv_scales"
+        [B, Hkv, 2, D]."""
         B, H = k_chunk.shape[:2]
+        if self.qcodec is None:
+            rows = torch.cat([self._pack_chunk_bitmap(k_chunk, self.kfmt),
+                              self._pack_chunk_bitmap(v_chunk, self.vfmt)], dim=-2)
+            return {"kv_pool": rows.reshape(B, H, *rows.shape[1:])}
         k_rows, k_sc = self._pack_chunk_q(k_chunk, "k")
         v_rows, v_sc = self._pack_chunk_q(v_chunk, "v")
         rows = torch.cat([k_rows, v_rows], dim=-2)
         scales = torch.stack([k_sc, v_sc], dim=1)
-        return (rows.reshape(B, H, *rows.shape[1:]),
-                scales.reshape(B, H, 2, k_sc.shape[-1]))
+        return {"kv_pool": rows.reshape(B, H, *rows.shape[1:]),
+                "kv_scales": scales.reshape(B, H, 2, k_sc.shape[-1])}
 
     def _append_chunk(self, state, li: int, chunk_idx: int, k_chunk, v_chunk):
         """Prune and pack one dense chunk into pool slot ``chunk_idx`` of layer li."""
-        rows, scales = self._pack_rows_scales(k_chunk, v_chunk)
-        state["kv_pool"][li, chunk_idx] = rows
-        state["kv_scales"][li, chunk_idx] = scales
+        for key, val in self._pack(k_chunk, v_chunk).items():
+            state[key][li, chunk_idx] = val
 
     # -- prefill ----------------------------------------------------------
     def prefill_attend(self, state, li: int, q, k, v, true_len: int):
@@ -144,18 +173,19 @@ class CompressedKVCache:
 
     # -- decode -----------------------------------------------------------
     def _views(self, state, li: int):
-        """Layer li's kernel views (pool, scales, k_win, v_win, layer index):
-        the stacked state flattened to B*Hkv heads; a float32 state (CPU
-        parity runs) casts this layer's windows to bf16, as the JAX package
-        casts its window for the kernel."""
+        """Layer li's kernel views (pool, scales or None, k_win, v_win, layer
+        index): the stacked state flattened to B*Hkv heads; a float32 state
+        (CPU parity runs) casts this layer's windows to bf16, as the JAX
+        package casts its window for the kernel."""
         L, mc, B, H = state["kv_pool"].shape[:4]
         D = self.model.head_dim
         pool = state["kv_pool"].view(L, mc, B * H, *state["kv_pool"].shape[4:])
-        scales = state["kv_scales"].view(L, mc, B * H, 2, D)
+        scales = (state["kv_scales"].view(L, mc, B * H, 2, D)
+                  if self.qcodec is not None else None)
         kw = state["k_win"].view(L, B * H, self.wcap, D)
         vw = state["v_win"].view(L, B * H, self.wcap, D)
         if kw.dtype != torch.bfloat16:
-            return (pool[li:li + 1], scales[li:li + 1],
+            return (pool[li:li + 1], None if scales is None else scales[li:li + 1],
                     kw[li:li + 1].to(torch.bfloat16), vw[li:li + 1].to(torch.bfloat16), 0)
         return pool, scales, kw, vw, li
 
@@ -178,6 +208,9 @@ class CompressedKVCache:
         state["k_win"][li, :, :, win_len - 1] = k[:, 0]
         state["v_win"][li, :, :, win_len - 1] = v[:, 0]
         pool, scales, kw, vw, lk = self._views(state, li)
+        if self.qcodec is None:
+            return ska.fused_sparse_decode_attention(q, pool, kw, vw, nc, win_len, lk,
+                                                     self.kfmt, self.vfmt)
         return qa.fused_q_decode_attention(q, pool, scales, kw, vw, nc, win_len,
                                            lk, self.qcodec)
 
@@ -204,6 +237,9 @@ class CompressedKVCache:
             win[bidx, :, col] = torch.where(live, tok[:, 0].to(win.dtype),
                                             win[bidx, :, col])
         pool, scales, kw, vw, lk = self._views(state, li)
+        if self.qcodec is None:
+            return ska.fused_sparse_decode_attention_ps(q, pool, kw, vw, nc, win_len,
+                                                        lk, self.kfmt, self.vfmt)
         return qa.fused_q_decode_attention_ps(q, pool, scales, kw, vw, nc, win_len,
                                               lk, self.qcodec)
 
@@ -257,10 +293,10 @@ class CompressedKVCache:
         if used >= self.max_chunks:
             raise ValueError(f"pool full: {used} of {self.max_chunks} chunks in use")
         for li in range(self.model.num_layers):
-            rows, scales = self._pack_rows_scales(state["k_win"][li, b_sel, :, :C],
-                                                  state["v_win"][li, b_sel, :, :C])
-            state["kv_pool"][li, ci, b_sel] = rows
-            state["kv_scales"][li, ci, b_sel] = scales
+            packed = self._pack(state["k_win"][li, b_sel, :, :C],
+                                state["v_win"][li, b_sel, :, :C])
+            for key, val in packed.items():
+                state[key][li, ci, b_sel] = val
             for key in ("k_win", "v_win"):
                 win = state[key][li]
                 win[b_sel] = torch.cat([win[b_sel, :, C:],
@@ -270,10 +306,10 @@ class CompressedKVCache:
 
     def insert_slot(self, state, sub, slot: int) -> dict:
         """Copy the batch-1 cache ``sub`` (one request's prefill) into batch
-        slot ``slot`` of ``state``, in place: its whole pool, scales,
+        slot ``slot`` of ``state``, in place: its whole pool (and scales),
         windows and counts.  The slots then hold their own counts, so
         ``nc_host`` becomes None."""
-        for key in ("kv_pool", "kv_scales"):
+        for key in self.pool_keys:
             state[key][:, :, slot] = sub[key][:, :, 0]
         for key in ("k_win", "v_win"):
             state[key][:, slot] = sub[key][:, 0].to(state[key].dtype)
@@ -319,8 +355,12 @@ class CompressedKVCache:
         kwin = state["k_win"][li]                               # [B, Hkv, W, D]
         vwin = state["v_win"][li]
         pool, scales, _, _, lk = self._views(state, li)
-        p_pool = qa.fused_q_segment_attention(q, pool, scales, nc, seg_start, lk,
-                                              self.qcodec)
+        if self.qcodec is None:
+            p_pool = ska.fused_sparse_segment_attention(q, pool, nc, seg_start, lk,
+                                                        self.kfmt, self.vfmt)
+        else:
+            p_pool = qa.fused_q_segment_attention(q, pool, scales, nc, seg_start, lk,
+                                                  self.qcodec)
         dev = q.device
         wmask = (torch.arange(W, device=dev) < wl)[None, :].expand(T, W)
         p_win = attention_partials(q, kwin.transpose(1, 2), vwin.transpose(1, 2),
@@ -330,9 +370,7 @@ class CompressedKVCache:
         out = merge_partials([p_pool, p_win, p_self]).to(q.dtype)
 
         if nc_after > nc:
-            rows, sc = self._pack_rows_scales(kwin[:, :, :C], vwin[:, :, :C])
-            state["kv_pool"][li, nc] = rows
-            state["kv_scales"][li, nc] = sc
+            self._append_chunk(state, li, nc, kwin[:, :, :C], vwin[:, :, :C])
         shift = C if nc_after > nc else 0
         seg_rows = (torch.arange(C, device=dev) < seg_valid)[None, None, :, None]
         for win, seg_kv in ((kwin, k), (vwin, v)):

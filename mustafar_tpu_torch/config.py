@@ -133,7 +133,10 @@ class EngineConfig:
     ``chunked_prefill`` (compressed cache only) streams a prompt through the
     stack one chunk-sized segment at a time, attending to the packed past:
     activation memory O(chunk) instead of O(prompt), and prefill attention
-    then sees the pruned past."""
+    then sees the pruned past.  ``codec`` is the compressed cache's chunk
+    storage: "bitmap" (a bitmap plus the packed bf16 non-zeros) or "q8q4"
+    (int8 K, int4 V, pruned chunks quantized dense); the port refuses
+    "bitmap-q8", "q8" and "q4q4" so far."""
 
     model: ModelConfig = TINY_LLAMA
     prune: PruneConfig = PruneConfig()
@@ -160,3 +163,7 @@ class EngineConfig:
         if self.chunked_prefill:
             assert self.cache_mode == CacheMode.COMPRESSED, (
                 "chunked_prefill requires the compressed cache")
+            assert self.prefill_bucket % self.chunk_size == 0, (
+                f"chunked prefill segments are chunk-sized: prefill_bucket "
+                f"{self.prefill_bucket} must be a multiple of chunk_size "
+                f"{self.chunk_size}")

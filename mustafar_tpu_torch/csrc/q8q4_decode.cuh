@@ -10,7 +10,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "softmax_step.cuh"
+
 namespace q8q4 {
+
+using online_softmax::round_bf16;
+using online_softmax::softmax_step;
+using online_softmax::warp_sum;
 
 constexpr int D = 128;         // head_dim == lane width
 constexpr int CHUNK = 256;     // tokens per packed chunk
@@ -26,29 +32,12 @@ constexpr float SM_SCALE = 0.08838834764831845f;   // 1 / sqrt(128)
 static_assert(THREADS == 2 * D, "value role: one channel, two token halves");
 static_assert(TILE >= CHUNK, "a chunk is one softmax step");
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 __device__ __forceinline__ float bf16_lo(uint32_t w) {
   return __uint_as_float(w << 16);
 }
 
 __device__ __forceinline__ float bf16_hi(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 template <int G>
@@ -60,37 +49,6 @@ struct __align__(16) Smem {
   float l[G];
   float corr[G];
 };
-
-// Online-softmax step over the `ntok` scores in sm.s (written and synced by
-// the caller).  Warp g owns head g: new running max, p = exp(s - m_new)
-// (summed in f32 into l, stored rounded to bf16 for the value product),
-// and the correction factor of the old accumulator.
-template <int G>
-__device__ __forceinline__ void softmax_step(Smem<G>& sm, int ntok, int warp,
-                                             int lane) {
-  if (warp < G) {
-    const int g = warp;
-    float mx = NEG;
-    for (int t = lane; t < ntok; t += 32) mx = fmaxf(mx, sm.s[g][t]);
-    mx = warp_max(mx);
-    const float m_old = sm.m[g];
-    const float m_new = fmaxf(m_old, mx);
-    float sum = 0.f;
-    for (int t = lane; t < ntok; t += 32) {
-      const float p = expf(sm.s[g][t] - m_new);
-      sm.s[g][t] = round_bf16(p);
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      const float c = expf(m_old - m_new);
-      sm.corr[g] = c;
-      sm.l[g] = sm.l[g] * c + sum;
-      sm.m[g] = m_new;
-    }
-  }
-  __syncthreads();
-}
 
 template <int G>
 __global__ void __launch_bounds__(THREADS)

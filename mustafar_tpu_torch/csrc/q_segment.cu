@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int D = 128;                  // head_dim == lane width
@@ -69,15 +71,6 @@ struct __align__(16) Smem {
   float vs[D];
 };
 
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Two K codes of one token, channels d and d+1, from the int16 pair `w` of
 // its row: byte `hi` (0 low, 1 high) of each half, as bf16 (exact).
 __device__ __forceinline__ uint32_t k_pair(uint32_t w, int hi) {
@@ -91,27 +84,6 @@ __device__ __forceinline__ uint32_t k_pair(uint32_t w, int hi) {
 __device__ __forceinline__ float v_code(int16_t x, int nib) {
   const uint32_t w = (uint32_t)(int)x;
   return (float)((int)(w << (28 - 4 * nib)) >> 28);
-}
-
-// d += a . b for one m16n8k16 tile: bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Fragment layouts of mma.m16n8k16 (lane = 4 * gid + tig): A holds rows gid

@@ -1,0 +1,254 @@
+// The bitmap flash-decode kernel body shared by the uniform-batch entry
+// sp_decode and the per-slot entry sp_decode_ps (both in sp_decode.cu);
+// their notes there say what it computes and what bounds it.  With
+// `nc_slot` null the block takes the uniform counts `n_chunks` and
+// `win_len`; otherwise block bh reads slot bh / hkv's counts from the
+// device arrays.
+//
+// Layout of the work: one block of 8 warps per (b, kv head), all G query
+// heads of the kv head in the block, so each packed byte is read once and
+// serves G heads.  Each chunk's stream is copied into shared memory
+// (cp.async, double-buffered: chunk ci + 1 is in flight while chunk ci is
+// attended).  A warp takes token rows t = warp, warp + 8, ...; its lane l
+// holds channels l + 32 i of the row, expanded from the staged stream
+// (bitmap_expand.cuh), so no expanded tile exists in memory:
+//   scores  a row's four channels times q, reduced over the warp;
+//   values  each lane keeps a partial accumulator for its four channels
+//           over the warp's rows, rescaled by every step's correction;
+// the eight partial accumulators are summed once, at the end.  The softmax
+// steps (one per chunk, then window tiles of `wt`) are the q8q4 kernels'
+// (softmax_step.cuh), without scales.
+
+#pragma once
+
+#include "bitmap_expand.cuh"
+#include "softmax_step.cuh"
+
+namespace bitmap_decode {
+
+using bitmap::CHUNK;
+using bitmap::D;
+using bitmap::Fmt;
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE = 256;      // most tokens per online-softmax step
+constexpr float NEG = -1e30f;
+constexpr float SM_SCALE = 0.08838834764831845f;   // 1 / sqrt(128)
+
+template <int G>
+struct __align__(16) Smem {
+  float s[G][TILE];   // one step's scores, then its bf16-rounded probabilities
+  float red[G][D];    // the warps' accumulators, summed at the end
+  float m[G];
+  float l[G];
+  float corr[G];
+};
+
+template <int G>
+__global__ void __launch_bounds__(THREADS)
+sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
+                 const int16_t* __restrict__ pool,         // [L, mc, BH, KR+VR, D]
+                 const __nv_bfloat16* __restrict__ k_win,  // [L, BH, W, D]
+                 const __nv_bfloat16* __restrict__ v_win,  // [L, BH, W, D]
+                 void* __restrict__ out,                   // [B*Hkv, G, D]
+                 int out_f32, int BH, int max_chunks, int W, int wt,
+                 int n_chunks, int win_len, int li, Fmt kf, Fmt vf,
+                 const int* __restrict__ nc_slot,          // [B] or null
+                 const int* __restrict__ wl_slot,          // [B] or null
+                 int hkv) {
+  static_assert(G <= WARPS, "one warp per query head in the softmax step");
+  // dynamic shared memory: Smem, then two buffers of one chunk's stream
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<G>& sm = *reinterpret_cast<Smem<G>*>(smem_raw);
+  int16_t* stage = reinterpret_cast<int16_t*>(smem_raw + sizeof(Smem<G>));
+  const int bh = blockIdx.x;
+  if (nc_slot != nullptr) {
+    // per-slot counts, clamped into range (the host cannot check device
+    // counts without a sync); an idle slot arrives as (0, 0), and the upper
+    // clamps can only bite when a compaction was missed
+    const int b = bh / hkv;
+    n_chunks = min(max(nc_slot[b], 0), max_chunks);
+    win_len = min(max(wl_slot[b], 0), W);
+  }
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  float qr[G][4];                // bf16 q of this lane's four channels
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      qr[g][i] = __bfloat162float(q[((size_t)bh * G + g) * D + lane + 32 * i]);
+  if (tid < G) {
+    sm.m[tid] = NEG;
+    sm.l[tid] = 0.f;
+  }
+  float acc[G][4];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+  __syncthreads();
+
+  // scores of one row (v = its expanded K) for every head, into sm.s[.][t]
+  auto score_row = [&](const float (&v)[4], int t) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s += qr[g][i] * v[i];
+      s = online_softmax::warp_sum(s);
+      if (lane == 0) sm.s[g][t] = s * SM_SCALE;
+    }
+  };
+  // acc = acc * corr + (this warp's share of) bf16(p) . V, after a step
+  auto rescale_add = [&](const float (&pv)[G][4]) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[g][i] = acc[g][i] * sm.corr[g] + pv[g][i];
+  };
+
+  // ---- packed pool chunks -------------------------------------------------
+  const int rows = kf.rows() + vf.rows();
+  auto chunk = [&](int ci) {
+    return pool + (((size_t)li * max_chunks + ci) * BH + bh) * rows * D;
+  };
+  if (n_chunks > 0) bitmap::stage_rows_async(stage, chunk(0), rows, tid, THREADS);
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    if (ci + 1 < n_chunks) {
+      bitmap::stage_rows_async(stage + (size_t)((ci + 1) & 1) * rows * D, chunk(ci + 1),
+                               rows, tid, THREADS);
+      bitmap::cp_async_wait<1>();
+    } else {
+      bitmap::cp_async_wait<0>();
+    }
+    __syncthreads();   // chunk ci is in shared memory for every thread
+    const int16_t* kst = stage + (size_t)(ci & 1) * rows * D;
+    const int16_t* vst = kst + (size_t)kf.rows() * D;
+    // rows t0 + j * WARPS, ROWS_IN_FLIGHT of them back to back
+    constexpr int NR = bitmap::ROWS_IN_FLIGHT;
+    for (int t0 = warp; t0 < CHUNK; t0 += NR * WARPS) {
+      float v[NR][4];
+#pragma unroll
+      for (int j = 0; j < NR; ++j) bitmap::expand_row(kst, kf, t0 + j * WARPS, lane, v[j]);
+#pragma unroll
+      for (int j = 0; j < NR; ++j) score_row(v[j], t0 + j * WARPS);
+    }
+    __syncthreads();
+    online_softmax::softmax_step<G>(sm, CHUNK, warp, lane);
+
+    float pv[G][4];
+#pragma unroll
+    for (int g = 0; g < G; ++g) pv[g][0] = pv[g][1] = pv[g][2] = pv[g][3] = 0.f;
+    for (int t0 = warp; t0 < CHUNK; t0 += NR * WARPS) {
+      float v[NR][4];
+#pragma unroll
+      for (int j = 0; j < NR; ++j) bitmap::expand_row(vst, vf, t0 + j * WARPS, lane, v[j]);
+#pragma unroll
+      for (int j = 0; j < NR; ++j)
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float p = sm.s[g][t0 + j * WARPS];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pv[g][i] += p * v[j][i];
+        }
+    }
+    rescale_add(pv);
+    __syncthreads();   // the next step overwrites sm.s, sm.corr and this buffer
+  }
+
+  // ---- dense residual window ----------------------------------------------
+  const __nv_bfloat16* kw = k_win + ((size_t)li * BH + bh) * W * D;
+  const __nv_bfloat16* vw = v_win + ((size_t)li * BH + bh) * W * D;
+  for (int t0 = 0; t0 < win_len; t0 += wt) {
+    const int nt = min(wt, win_len - t0);
+    for (int t = warp; t < nt; t += WARPS) {
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = __bfloat162float(kw[(size_t)(t0 + t) * D + lane + 32 * i]);
+      score_row(v, t);
+    }
+    __syncthreads();
+    online_softmax::softmax_step<G>(sm, nt, warp, lane);
+
+    float pv[G][4];
+#pragma unroll
+    for (int g = 0; g < G; ++g) pv[g][0] = pv[g][1] = pv[g][2] = pv[g][3] = 0.f;
+    for (int t = warp; t < nt; t += WARPS) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float v = __bfloat162float(vw[(size_t)(t0 + t) * D + lane + 32 * i]);
+#pragma unroll
+        for (int g = 0; g < G; ++g) pv[g][i] += sm.s[g][t] * v;
+      }
+    }
+    rescale_add(pv);
+    __syncthreads();
+  }
+
+  // ---- sum the warps' accumulators and normalise --------------------------
+  for (int w = 0; w < WARPS; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          sm.red[g][lane + 32 * i] = (w ? sm.red[g][lane + 32 * i] : 0.f) + acc[g][i];
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < G * D; i += THREADS) {
+    const int g = i / D;
+    const float o = sm.red[g][i % D] / fmaxf(sm.l[g], 1e-30f);
+    const size_t at = (size_t)bh * G * D + i;
+    if (out_f32)
+      static_cast<float*>(out)[at] = o;
+    else
+      static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16(o);
+  }
+}
+
+// Checks the launch parameters, selects the instance for the group size G
+// and returns cudaGetLastError().
+inline int launch_decode(const void* q, const void* pool, const void* k_win,
+                         const void* v_win, void* out, int out_f32, int device,
+                         int BH, int G, int max_chunks, int W, int wt,
+                         int n_chunks, int win_len, int li, Fmt kf, Fmt vf,
+                         const int* nc_slot, const int* wl_slot, int hkv,
+                         void* stream) {
+  if (wt < 1 || wt > TILE || BH < 1 || max_chunks < 0 || W < 0 || li < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t stage_bytes = 2 * (size_t)(kf.rows() + vf.rows()) * D * sizeof(int16_t);
+  cudaError_t err = cudaSuccess;
+#define SP_LAUNCH(g)                                                          \
+  {                                                                           \
+    const int smem = (int)(sizeof(Smem<g>) + stage_bytes);                    \
+    err = cudaFuncSetAttribute(sp_decode_kernel<g>,                           \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+                               smem);                                         \
+    if (err != cudaSuccess) return (int)err;                                  \
+    sp_decode_kernel<g><<<BH, THREADS, smem, s>>>(                            \
+        static_cast<const __nv_bfloat16*>(q),                                 \
+        static_cast<const int16_t*>(pool),                                    \
+        static_cast<const __nv_bfloat16*>(k_win),                             \
+        static_cast<const __nv_bfloat16*>(v_win), out, out_f32, BH,           \
+        max_chunks, W, wt, n_chunks, win_len, li, kf, vf, nc_slot, wl_slot,   \
+        hkv);                                                                 \
+  }
+  switch (G) {
+    case 1: SP_LAUNCH(1); break;
+    case 2: SP_LAUNCH(2); break;
+    case 4: SP_LAUNCH(4); break;
+    case 8: SP_LAUNCH(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SP_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bitmap_decode

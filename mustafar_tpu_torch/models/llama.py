@@ -170,6 +170,11 @@ def prefill_segment(cfg: ModelConfig, params, seg_tokens, cache, cache_impl,
                    "prefill_segment", (seg_start, true_len), last_only=True)
 
 
+def n_segments(true_len: int, C: int) -> int:
+    """Chunked-prefill segments of a prompt of ``true_len`` tokens."""
+    return -(-true_len // C)
+
+
 def prefill_chunked(cfg: ModelConfig, params, tokens, cache, cache_impl,
                     true_len: int):
     """Chunked (segment-streamed) prefill over the compressed cache.
@@ -177,15 +182,20 @@ def prefill_chunked(cfg: ModelConfig, params, tokens, cache, cache_impl,
     tokens [B, T] with T a multiple of the cache chunk C: the prompt goes
     through the whole stack C tokens at a time, each segment attending the
     packed pools, the window and itself (``segment_attend``), so activation
-    memory is O(B*C), not O(B*T).  Returns (the last segment's logits
-    [B, 1, V], cache); with C-aligned prompt buckets the last segment holds
-    position true_len - 1."""
+    memory is O(B*C), not O(B*T).  Only the ``ceil(true_len / C)`` segments
+    that hold prompt tokens run: the last of them holds position
+    true_len - 1, whose logits it returns ([B, 1, V], with the cache).  A
+    segment of padding only would take its logits from a pad and leave a
+    window longer than the cache's.  (The JAX package runs every segment of
+    the bucket, and so differs from this at a bucket past C.)"""
     C = cache_impl.C
     T = tokens.shape[1]
     if T % C:
         raise ValueError(f"chunked prefill takes a multiple of {C} tokens, got {T}")
+    if not 1 <= true_len <= T:
+        raise ValueError(f"true_len {true_len} outside the {T} prompt tokens")
     logits = None
-    for seg_start in range(0, T, C):
+    for seg_start in range(0, n_segments(true_len, C) * C, C):
         logits, cache = prefill_segment(cfg, params, tokens[:, seg_start:seg_start + C],
                                         cache, cache_impl, seg_start, true_len)
     return logits, cache

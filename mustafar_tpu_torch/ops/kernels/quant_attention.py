@@ -151,27 +151,24 @@ def _chunk(kv_pool, kv_scales, li, ci):
             kv_scales[li, ci, :, 1].to(torch.float32))
 
 
-def fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
-                                   n_chunks: int, win_len: int, li: int):
-    """The uniform decode kernel's arithmetic in PyTorch.  Per (b, kv head)
-    and query head: chunk scores bf16(q * kscale) . codes / sqrt(128), then
-    window scores q . k / sqrt(128), under one online softmax in steps of
-    one chunk or one window tile (``window_tile``); p rounded to bf16 for
-    the value product, which each chunk scales by its V scale.  Out is f32
+def decode_steps(q, BH: int, n_chunks: int, chunk_step, k_win, v_win,
+                 win_len: int, li: int):
+    """The decode kernels' softmax steps, shared by every codec's plain
+    version.  Per (b, kv head) and query head: ``chunk_step(qf32, ci)``
+    gives chunk ci's scores [BH, G, 256], its values [BH, 256, D] (f32) and
+    its V scale [BH, D] or None; then window scores q . k / sqrt(128).  One
+    online softmax in steps of one chunk or one window tile
+    (``window_tile``); p rounded to bf16 for the value product.  Out is f32
     -> q's dtype."""
     B, _, Hq, D = q.shape
-    BH = kv_pool.shape[2]
     G = Hq // (BH // B)
-    f32, bf16 = torch.float32, torch.bfloat16
-    qf32 = q.to(bf16).to(f32).reshape(BH, G, D)
+    f32 = torch.float32
+    qf32 = q.to(torch.bfloat16).to(f32).reshape(BH, G, D)
     m = torch.full((BH, G, 1), NEG_INF, dtype=f32, device=q.device)
     l = torch.zeros((BH, G, 1), dtype=f32, device=q.device)
     acc = torch.zeros((BH, G, D), dtype=f32, device=q.device)
     for ci in range(n_chunks):
-        kc, vc, ks, vs = _chunk(kv_pool, kv_scales, li, ci)
-        qk = (qf32 * ks[:, None, :]).to(bf16).to(f32)
-        m, l, acc = _softmax_step(m, l, acc, (qk @ kc.transpose(1, 2)) * SM_SCALE,
-                                  vc, vs)
+        m, l, acc = _softmax_step(m, l, acc, *chunk_step(qf32, ci))
     wt = window_tile(k_win.shape[2])
     for t0 in range(0, win_len, wt):
         t1 = min(win_len, t0 + wt)
@@ -181,6 +178,60 @@ def fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
                                   vw, None)
     out = acc / torch.clamp_min(l, 1e-30)
     return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def slots(B: int, BH: int, n_chunks, win_len, mc: int, W: int):
+    """(slot b, its kv heads' slice, n_chunks, win_len) of each slot of a
+    per-slot call, the counts clamped into [0, mc] and [0, W] as the
+    kernels clamp them."""
+    Hkv = BH // B
+    for b, (nc, wl) in enumerate(zip(n_chunks.tolist(), win_len.tolist())):
+        yield b, slice(b * Hkv, (b + 1) * Hkv), min(max(nc, 0), mc), min(max(wl, 0), W)
+
+
+def segment_steps(q_seg, BH: int, n_chunks: int, chunk_step):
+    """The segment kernels' steps, shared by every codec's plain version:
+    every query row (token t, head of kv head h; row t*G + g) attends the
+    first ``n_chunks`` pool chunks of its (b, h), one online-softmax step a
+    chunk (``chunk_step`` as in ``decode_steps``), p rounded to bf16.
+    Returns the unnormalised partials (acc [B,T,Hq,D] f32, m [B,T,Hq,1],
+    l [B,T,Hq,1]); with no chunk, m = -1e30, l = 0."""
+    B, T, Hq, D = q_seg.shape
+    Hkv = BH // B
+    G = Hq // Hkv
+    f32 = torch.float32
+    qf32 = (q_seg.to(torch.bfloat16).to(f32).reshape(B, T, Hkv, G, D)
+            .permute(0, 2, 1, 3, 4).reshape(BH, T * G, D))
+    m = torch.full((BH, T * G, 1), NEG_INF, dtype=f32, device=q_seg.device)
+    l = torch.zeros((BH, T * G, 1), dtype=f32, device=q_seg.device)
+    acc = torch.zeros((BH, T * G, D), dtype=f32, device=q_seg.device)
+    for ci in range(n_chunks):
+        m, l, acc = _softmax_step(m, l, acc, *chunk_step(qf32, ci))
+
+    def unfold(x):
+        return (x.reshape(B, Hkv, T, G, x.shape[-1]).permute(0, 2, 1, 3, 4)
+                .reshape(B, T, Hq, x.shape[-1]))
+
+    return unfold(acc), unfold(m), unfold(l)
+
+
+def _q_chunk_step(kv_pool, kv_scales, li):
+    """q8q4 chunk step: scores bf16(q * kscale) . codes / sqrt(128); the
+    chunk's V scale multiplies the value product."""
+    def step(qf32, ci):
+        kc, vc, ks, vs = _chunk(kv_pool, kv_scales, li, ci)
+        qk = (qf32 * ks[:, None, :]).to(torch.bfloat16).to(torch.float32)
+        return (qk @ kc.transpose(1, 2)) * SM_SCALE, vc, vs
+    return step
+
+
+def fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
+                                   n_chunks: int, win_len: int, li: int):
+    """The uniform q8q4 decode kernel's arithmetic in PyTorch
+    (``decode_steps`` with the q8q4 chunk step)."""
+    return decode_steps(q, kv_pool.shape[2], n_chunks,
+                        _q_chunk_step(kv_pool, kv_scales, li), k_win, v_win,
+                        win_len, li)
 
 
 def _library(name, fn_name, n_ptr, n_int):
@@ -237,22 +288,18 @@ fused_q_decode_attention.launches = 0
 def fused_q_decode_attention_ps_plain(q, kv_pool, kv_scales, k_win, v_win,
                                       n_chunks, win_len, li: int):
     """The per-slot kernel's arithmetic: slot b is the uniform computation
-    over its own ``n_chunks[b]`` chunks and ``win_len[b]`` window tokens,
-    the counts clamped into [0, mc] and [0, W] as the kernel clamps them.
-    (The TPU kernel loops a block of heads to the largest count among them;
-    the extra steps are fully masked and add exactly zero to a head with
-    something to attend, so looping over a slot's own counts is the same.)
-    A slot with nothing to attend comes out 0."""
-    B = q.shape[0]
-    Hkv = kv_pool.shape[2] // B
-    mc, W = kv_pool.shape[1], k_win.shape[2]
-    outs = []
-    for b, (nc, wl) in enumerate(zip(n_chunks.tolist(), win_len.tolist())):
-        hs = slice(b * Hkv, (b + 1) * Hkv)
-        outs.append(fused_q_decode_attention_plain(
-            q[b:b + 1], kv_pool[:, :, hs], kv_scales[:, :, hs], k_win[:, hs],
-            v_win[:, hs], min(max(nc, 0), mc), min(max(wl, 0), W), li))
-    return torch.cat(outs, dim=0)
+    over its own ``n_chunks[b]`` chunks and ``win_len[b]`` window tokens
+    (clamped, ``slots``).  (The TPU kernel loops a block of heads to the
+    largest counts among them; the extra steps are fully masked and add
+    exactly zero to a head with something to attend, so looping over a
+    slot's own counts is the same.)  A slot with nothing to attend comes
+    out 0."""
+    return torch.cat([
+        fused_q_decode_attention_plain(q[b:b + 1], kv_pool[:, :, hs],
+                                       kv_scales[:, :, hs], k_win[:, hs],
+                                       v_win[:, hs], nc, wl, li)
+        for b, hs, nc, wl in slots(q.shape[0], kv_pool.shape[2], n_chunks,
+                                   win_len, kv_pool.shape[1], k_win.shape[2])])
 
 
 def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
@@ -310,33 +357,11 @@ fused_q_decode_attention_ps.launches = 0
 
 def fused_q_segment_attention_plain(q_seg, kv_pool, kv_scales, n_chunks: int,
                                     li: int):
-    """The segment kernel's arithmetic: every query row (token t, head of
-    kv head h) attends the first ``n_chunks`` pool chunks of its (b, h),
-    one online-softmax step per chunk: scores bf16(bf16(q) * kscale) . codes
-    / sqrt(128), p rounded to bf16 for the value product, which the chunk's
-    V scale multiplies.  Returns the unnormalised partials (acc [B,T,Hq,D]
-    f32, m [B,T,Hq,1], l [B,T,Hq,1]); with no chunk, m = -1e30, l = 0."""
-    B, T, Hq, D = q_seg.shape
-    BH = kv_pool.shape[2]
-    Hkv = BH // B
-    G = Hq // Hkv
-    f32, bf16 = torch.float32, torch.bfloat16
-    qf32 = (q_seg.to(bf16).to(f32).reshape(B, T, Hkv, G, D)
-            .permute(0, 2, 1, 3, 4).reshape(BH, T * G, D))
-    m = torch.full((BH, T * G, 1), NEG_INF, dtype=f32, device=q_seg.device)
-    l = torch.zeros((BH, T * G, 1), dtype=f32, device=q_seg.device)
-    acc = torch.zeros((BH, T * G, D), dtype=f32, device=q_seg.device)
-    for ci in range(n_chunks):
-        kc, vc, ks, vs = _chunk(kv_pool, kv_scales, li, ci)
-        qk = (qf32 * ks[:, None, :]).to(bf16).to(f32)
-        m, l, acc = _softmax_step(m, l, acc, (qk @ kc.transpose(1, 2)) * SM_SCALE,
-                                  vc, vs)
-
-    def unfold(x):
-        return (x.reshape(B, Hkv, T, G, x.shape[-1]).permute(0, 2, 1, 3, 4)
-                .reshape(B, T, Hq, x.shape[-1]))
-
-    return unfold(acc), unfold(m), unfold(l)
+    """The q8q4 segment kernel's arithmetic (``segment_steps`` with the q8q4
+    chunk step: scores bf16(bf16(q) * kscale) . codes / sqrt(128), the V
+    scale after the value product)."""
+    return segment_steps(q_seg, kv_pool.shape[2], n_chunks,
+                         _q_chunk_step(kv_pool, kv_scales, li))
 
 
 def fused_q_segment_attention(q_seg, kv_pool, kv_scales, n_chunks: int,

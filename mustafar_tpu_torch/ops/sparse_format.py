@@ -1,13 +1,30 @@
-"""Exact top-keep masks by magnitude, port of the pruning pieces of
-``mustafar_tpu/ops/sparse_format.py`` (``_mag_key`` .. ``topk_mask``).
+"""Exact top-keep pruning and the bitmap chunk format, port of
+``mustafar_tpu/ops/sparse_format.py`` (the pruning pieces and the bf16
+fused-stream codec, ``qbits=16``).
 
 The mask keeps exactly ``keep`` entries per row, the largest |x|, with ties
 going to the lower channel.  ``torch.topk`` promises no order among ties, so
 it would pack other rows than the JAX package; this is the same sort-free
 bisection on an integer magnitude key.
+
+**The bitmap codec** (``codec="bitmap"``).  A pruned chunk of C tokens x D
+channels keeps exactly ``keep`` values per token row.  ``keep`` is stored
+as at most two power-of-two segments (0.7 sparsity: 40 = 32 + 8; 0.5: 65
+stored as 68 = 64 + 4, with zero pads).  A width-k segment is ``[R, 128]``
+with ``R = C*k/128``: token t's k values lie in row ``t % R`` at lanes
+``(t // R)*k ..``.  The bitmap is C/16 uint16 word planes carried in int16:
+the bit of (token t, channel d) is bit ``t // (C/16)`` of word
+``[t % (C/16), d]``.  One chunk's fused stream is the segments' rows, then
+the word planes: 96 int16 rows of 128 at C=256, keep 40.  The j-th set
+channel of row t (its rank) reads segment 0 while j < k0, else segment 1
+at j - k0.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
+import math
 
 import torch
 
@@ -48,3 +65,171 @@ def topk_mask(x: torch.Tensor, keep: int) -> torch.Tensor:
         return torch.ones(x.shape, dtype=torch.bool, device=x.device)
     key, bits = _mag_key(x)
     return _mask_from_key(key, keep, bits)
+
+
+# ---------------------------------------------------------------------------
+# The bitmap chunk format (bf16 values)
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def decompose_keep(keep: int, sum_multiple: int = 1) -> tuple[int, ...]:
+    """Smallest sum of at most two powers of two that is >= keep and a
+    multiple of ``sum_multiple``; a single segment breaks ties.  Cached:
+    ``ChunkFormat.segs`` asks for it on every kernel call."""
+    assert 1 <= keep <= 128, keep
+    pows = [1, 2, 4, 8, 16, 32, 64, 128]
+    candidates = [(a,) for a in pows if a >= keep] + \
+        [(a, b) for a in pows for b in pows if b <= a and keep <= a + b <= 128]
+    candidates = [c for c in candidates if sum(c) % sum_multiple == 0]
+    return min(candidates, key=lambda c: (sum(c), len(c)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkFormat:
+    """Geometry of one bitmap-coded chunk (bf16 values, ``qbits=16``).  The
+    JAX format's ``qbits=8`` variant (codec "bitmap-q8", int8 codes with
+    per-channel scales) is ROADMAP Queue A item 11."""
+
+    chunk: int          # C, tokens per chunk
+    dim: int            # D, head_dim (128)
+    keep: int           # survivors per token row
+    qbits: int = 16
+
+    def __post_init__(self):
+        if self.qbits != 16:
+            raise NotImplementedError(
+                f"bitmap chunks of {self.qbits}-bit values (codec bitmap-q8) are "
+                "ROADMAP Queue A item 11; the port stores bf16 values")
+        assert self.chunk % 32 == 0
+        for k in self.segs:
+            assert (self.chunk * k) % 128 == 0, (self.chunk, k)
+
+    @property
+    def segs(self) -> tuple[int, ...]:
+        # the value rows, sum(segs) * C/128, land on a multiple of 8 (the
+        # TPU's sublane tiling, kept so the pools match byte for byte)
+        rpt = self.chunk // 128
+        return decompose_keep(self.keep, 8 // math.gcd(rpt, 8))
+
+    @property
+    def keep_stored(self) -> int:
+        return sum(self.segs)
+
+    def seg_rows(self, k: int) -> int:
+        """int16 rows of a width-k segment."""
+        return self.chunk * k // 128
+
+    @property
+    def total_rows(self) -> int:
+        return sum(self.seg_rows(k) for k in self.segs)
+
+    @property
+    def bmp16_rows(self) -> int:
+        return self.chunk // 16
+
+    @property
+    def stream_rows(self) -> int:
+        """int16 rows of one chunk's fused stream (values, then bitmap)."""
+        return self.total_rows + self.bmp16_rows
+
+
+def _stored_slots(dense: torch.Tensor, keep: int) -> torch.Tensor:
+    """Exactly ``keep`` stored slots per row: every nonzero (ties to the
+    lower channel), then the lowest zero channels as pads."""
+    key, bits = _mag_key(dense)
+    key = torch.where(dense != 0, key, 0)
+    return _mask_from_key(key, keep, bits)
+
+
+def _compact_rows(dense: torch.Tensor, mask: torch.Tensor, keep: int):
+    """The ``keep`` masked values of each row in channel order -> (vals
+    [..., keep] in dense.dtype, bits [..., D] int32).  Each slot is placed
+    by its rank (a scatter, where the JAX package sums a [..., D, keep]
+    select); every output takes exactly one input, and ``+ 0`` turns a
+    -0.0 pad into the +0.0 the JAX sum gives."""
+    bits = mask.to(torch.int32)
+    rank = torch.cumsum(bits, dim=-1) - 1
+    slot = torch.where(mask, rank, keep).to(torch.int64)      # unmasked: spare column
+    vals = torch.zeros((*dense.shape[:-1], keep + 1), dtype=dense.dtype,
+                       device=dense.device)
+    vals.scatter_(-1, slot, dense)
+    return vals[..., :keep] + 0, bits
+
+
+def _interleave_vals(vals_ck: torch.Tensor, C: int, k: int) -> torch.Tensor:
+    """[..., C, k] -> [..., R, 128]: token t -> row t % R, lanes (t//R)*k.."""
+    R = C * k // 128
+    arr = vals_ck.reshape(*vals_ck.shape[:-2], C // R, R, k).transpose(-3, -2)
+    return arr.reshape(*vals_ck.shape[:-2], R, 128)
+
+
+def _deinterleave_vals(seg: torch.Tensor, C: int, k: int) -> torch.Tensor:
+    R = C * k // 128
+    arr = seg.reshape(*seg.shape[:-2], R, C // R, k).transpose(-3, -2)
+    return arr.reshape(*seg.shape[:-2], C, k)
+
+
+def _to_i16(v: torch.Tensor) -> torch.Tensor:
+    """int32 holding a 16-bit pattern -> int16 with the same bits."""
+    v = v & 0xFFFF
+    return torch.where(v >= 0x8000, v - 0x10000, v).to(torch.int16)
+
+
+def bitmap16(bits: torch.Tensor, C: int) -> torch.Tensor:
+    """bits [..., C, D] (0/1) -> word planes [..., C//16, D], uint16 patterns
+    in int16 carriers."""
+    rows16 = C // 16
+    planes = bits.reshape(*bits.shape[:-2], 16, rows16, bits.shape[-1]).to(torch.int32)
+    shifts = (1 << torch.arange(16, dtype=torch.int32, device=bits.device))[:, None, None]
+    return _to_i16((planes * shifts).sum(dim=-3))
+
+
+def unpack_bitmap16(words: torch.Tensor, C: int) -> torch.Tensor:
+    """Word planes [..., C//16, D] int16 -> int32 bits [..., C, D].  The
+    words widen to int32 and are masked to 16 bits before the shift: an
+    int16 shift would be arithmetic."""
+    rows16 = C // 16
+    w = words.to(torch.int32) & 0xFFFF
+    tiled = torch.cat([w] * 16, dim=-2)                         # row t = word t % rows16
+    shift = (torch.arange(C, dtype=torch.int32, device=words.device) // rows16)[:, None]
+    return (tiled >> shift) & 1
+
+
+def encode_stream(dense: torch.Tensor, fmt: ChunkFormat) -> torch.Tensor:
+    """Pack a pruned chunk [..., C, D] (at most ``fmt.keep`` nonzeros a row)
+    into fused int16 rows [..., fmt.stream_rows, 128]; values are stored as
+    bf16."""
+    C = fmt.chunk
+    keep = fmt.keep_stored
+    mask = _stored_slots(dense, keep)
+    vals, bits = _compact_rows(dense, mask, keep)
+    vals = vals.to(torch.bfloat16)
+    rows, off = [], 0
+    for k in fmt.segs:
+        rows.append(_interleave_vals(vals[..., off:off + k], C, k).view(torch.int16))
+        off += k
+    rows.append(bitmap16(bits, C))
+    return torch.cat(rows, dim=-2)
+
+
+def decode_stream(rows: torch.Tensor, fmt: ChunkFormat) -> torch.Tensor:
+    """Inverse of ``encode_stream`` -> dense bf16 [..., C, D]."""
+    C = fmt.chunk
+    segs, off = [], 0
+    for k in fmt.segs:
+        R = fmt.seg_rows(k)
+        segs.append(_deinterleave_vals(rows[..., off:off + R, :].contiguous()
+                                       .view(torch.bfloat16), C, k))
+        off += R
+    vals = torch.cat(segs, dim=-1)                              # [..., C, keep]
+    bits = unpack_bitmap16(rows[..., off:off + C // 16, :], C)
+    rank = torch.cumsum(bits, dim=-1) - 1
+    take = rank.clamp(0, fmt.keep_stored - 1).to(torch.int64)
+    dense = torch.gather(vals, -1, take)
+    return torch.where(bits > 0, dense, torch.zeros_like(dense))
+
+
+def prune_and_encode_stream(dense: torch.Tensor, fmt: ChunkFormat) -> torch.Tensor:
+    """Keep the ``fmt.keep`` largest |x| of each token row, then pack."""
+    mask = topk_mask(dense, fmt.keep)
+    return encode_stream(torch.where(mask, dense, torch.zeros_like(dense)), fmt)

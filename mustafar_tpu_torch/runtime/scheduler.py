@@ -147,7 +147,7 @@ class ContinuousBatchingEngine:
         Tpad = self._bucket(T)
         toks = torch.zeros((1, Tpad), dtype=torch.int64)
         toks[0, :T] = torch.from_numpy(req.tokens)
-        return toks.to(self.device), T, Tpad
+        return toks.to(self.device), T
 
     def _start_slot(self, req: Request, slot: int, true_len: int, logits, sub):
         """Pick the first token from prefill logits, insert the request's
@@ -165,12 +165,12 @@ class ContinuousBatchingEngine:
     def _prefill_into_slot(self, req: Request, slot: int):
         """Blocking admission: the whole prefill (monolithic, or every
         segment when chunked) runs now."""
-        toks, T, _ = self._padded(req)
+        toks, T = self._padded(req)
         sub = self.impl.init(1, self.dtype)
         if self.engine.chunked_prefill:
             logits, sub = llama.prefill_chunked(self.cfg, self.params, toks, sub,
                                                 self.impl, T)
-            self.segments += toks.shape[1] // self.impl.C
+            self.segments += llama.n_segments(T, self.impl.C)
         else:
             logits, sub = llama.prefill(self.cfg, self.params, toks, sub, self.impl,
                                         T, last_only=True)
@@ -188,14 +188,12 @@ class ContinuousBatchingEngine:
 
     # -- interleaved (segment-per-tick) admission ---------------------------
     def _start_admission(self, req: Request, slot: int):
-        toks, T, Tpad = self._padded(req)
-        C = self.impl.C
-        if Tpad % C:
-            raise ValueError(f"prefill_bucket {self.engine.prefill_bucket} must be "
-                             f"a multiple of the chunk size {C}")
+        """Reserve ``slot`` for ``req``; its prompt's segments (those that
+        hold prompt tokens, ``llama.n_segments``) then run one a tick."""
+        toks, T = self._padded(req)
         self._admissions.append(_Admission(
-            req=req, slot=slot, toks=toks, true_len=T, n_seg=Tpad // C,
-            sub=self.impl.init(1, self.dtype)))
+            req=req, slot=slot, toks=toks, true_len=T,
+            n_seg=llama.n_segments(T, self.impl.C), sub=self.impl.init(1, self.dtype)))
 
     def _admission_tick(self):
         """Advance the head admission by one C-token segment; once its

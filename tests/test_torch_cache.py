@@ -4,7 +4,8 @@
     (int16 pool, bf16 scales, windows, n_chunks) equals the JAX package's
     exactly; so does the state after ``compact``.  Decode outputs on the
     same state match the JAX kernel (interpret mode).  The dense cache's
-    prefill and decode match the JAX dense cache.
+    prefill and decode match the JAX dense cache.  Both codecs the port
+    serves: q8q4 and bitmap (whose state has no scales).
 Tiny geometry: head_dim 128 (the compressed format's row width), 4 query
 heads over 2 kv heads, 2 layers.
 """
@@ -25,14 +26,18 @@ from mustafar_tpu_torch.cache import make_cache as t_make_cache
 torch.set_num_threads(2)
 
 
-def _engine(mod, mode, max_seq=1024):
+def _engine(mod, mode, max_seq=1024, codec="q8q4"):
     model = dataclasses.replace(mod.TINY_LLAMA, head_dim=128, num_heads=4,
                                 num_kv_heads=2, hidden_size=256)
     return mod.EngineConfig(
         model=model, cache_mode=getattr(mod.CacheMode, mode),
         prune=mod.PruneConfig(method=mod.PruneMethod.KT_MAG_VT_MAG,
                               k_sparsity=0.7, v_sparsity=0.7),
-        max_seq_len=max_seq, prefill_bucket=256, chunk_size=256, codec="q8q4")
+        max_seq_len=max_seq, prefill_bucket=256, chunk_size=256, codec=codec)
+
+
+def _state_keys(timpl):
+    return timpl.pool_keys + ("k_win", "v_win", "n_chunks")
 
 
 def _np(x):
@@ -61,12 +66,16 @@ def _to(x, dtype):
     return torch.from_numpy(x).to(getattr(torch, dtype))
 
 
-@pytest.mark.parametrize("dtype,true_len,T", [("bfloat16", 300, 512),
-                                              ("float32", 600, 768),
-                                              ("bfloat16", 20, 256)])
-def test_compressed_prefill_state_bit_exact(dtype, true_len, T):
-    jimpl = j_make_cache(_engine(jc, "COMPRESSED"))
-    timpl = t_make_cache(_engine(tc, "COMPRESSED"), device="cpu")
+_PREFILL_CASES = [("bfloat16", 300, 512), ("float32", 600, 768), ("bfloat16", 20, 256)]
+
+
+@pytest.mark.parametrize("dtype,true_len,T,codec", [
+    *(pytest.param(*c, "q8q4", id="-".join(map(str, c))) for c in _PREFILL_CASES),
+    *(pytest.param(*c, "bitmap", id="-".join(map(str, c)) + "-bitmap")
+      for c in _PREFILL_CASES[:2])])
+def test_compressed_prefill_state_bit_exact(dtype, true_len, T, codec):
+    jimpl = j_make_cache(_engine(jc, "COMPRESSED", codec=codec))
+    timpl = t_make_cache(_engine(tc, "COMPRESSED", codec=codec), device="cpu")
     B = 2
     q, k, v = _qkv(np.random.RandomState(true_len), B, T, dtype)
     jdt = getattr(jnp, dtype)
@@ -77,8 +86,8 @@ def test_compressed_prefill_state_bit_exact(dtype, true_len, T):
                                     jnp.asarray(v, jdt), jnp.int32(true_len))
     tout = timpl.prefill_attend(tstate, 1, _to(q, dtype), _to(k, dtype),
                                 _to(v, dtype), true_len)
-    _assert_state_equal(tstate, lc, 1,
-                        ("kv_pool", "kv_scales", "k_win", "v_win", "n_chunks"))
+    assert set(tstate) - {"nc_host"} == set(lc)
+    _assert_state_equal(tstate, lc, 1, _state_keys(timpl))
     n_pre = max(true_len - 32, 0) // 256
     assert tstate["nc_host"] == n_pre and int(np.asarray(lc["n_chunks"])[0]) == n_pre
     assert (tstate["kv_pool"][0] == 0).all()                 # layer 0 untouched
@@ -91,9 +100,18 @@ def test_compressed_prefill_state_bit_exact(dtype, true_len, T):
 def test_compressed_decode_and_compact_match():
     """Decode steps over the same state agree with the JAX kernel (interpret
     mode); a compaction of a full window leaves bit-identical state."""
-    jimpl = j_make_cache(_engine(jc, "COMPRESSED"))
+    _decode_and_compact("q8q4")
+
+
+def test_compressed_decode_and_compact_match_bitmap():
+    """As above for the bitmap codec (TPU kernel v7 in interpret mode)."""
+    _decode_and_compact("bitmap")
+
+
+def _decode_and_compact(codec):
+    jimpl = j_make_cache(_engine(jc, "COMPRESSED", codec=codec))
     jimpl.use_pallas = True
-    timpl = t_make_cache(_engine(tc, "COMPRESSED"), device="cpu")
+    timpl = t_make_cache(_engine(tc, "COMPRESSED", codec=codec), device="cpu")
     B, true_len = 2, 300
     rs = np.random.RandomState(7)
     q, k, v = _qkv(rs, B, 512, "bfloat16")
@@ -126,7 +144,7 @@ def test_compressed_decode_and_compact_match():
     jfull = jimpl.compact(jfull, True)
     timpl.compact(tstate)              # layer 1 holds an all-zero window
     _assert_state_equal(tstate, {key: val[0] for key, val in jfull.items()}, 0,
-                        ("kv_pool", "kv_scales", "k_win", "v_win", "n_chunks"))
+                        _state_keys(timpl))
     assert tstate["nc_host"] == 2
 
 
@@ -163,13 +181,17 @@ def test_make_cache_modes():
     with pytest.raises(NotImplementedError):
         t_make_cache(dataclasses.replace(_engine(tc, "DENSE"),
                                          cache_mode=tc.CacheMode.MASKED), device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_make_cache(dataclasses.replace(_engine(tc, "COMPRESSED"), codec="q8"),
-                     device="cpu")
-    impl = t_make_cache(_engine(tc, "COMPRESSED"), device="cpu")
-    jimpl = j_make_cache(_engine(jc, "COMPRESSED"))
-    assert (impl.max_chunks, impl.wcap, impl.k_keep, impl.v_keep) == \
-        (jimpl.max_chunks, jimpl.wcap, jimpl.k_keep, jimpl.v_keep) == (3, 288, 40, 40)
-    shapes = {k: tuple(v.shape) for k, v in impl.init(2).items() if torch.is_tensor(v)}
-    jshapes = {k: tuple(v.shape) for k, v in jimpl.init(2).items()}
-    assert shapes == jshapes
+    for codec, item in (("q8", "item 8"), ("q4q4", "item 8"), ("bitmap-q8", "item 11")):
+        with pytest.raises(NotImplementedError, match=item):
+            t_make_cache(dataclasses.replace(_engine(tc, "COMPRESSED"), codec=codec),
+                         device="cpu")
+    for codec in ("q8q4", "bitmap"):
+        impl = t_make_cache(_engine(tc, "COMPRESSED", codec=codec), device="cpu")
+        jimpl = j_make_cache(_engine(jc, "COMPRESSED", codec=codec))
+        assert (impl.max_chunks, impl.wcap, impl.k_keep, impl.v_keep) == \
+            (jimpl.max_chunks, jimpl.wcap, jimpl.k_keep, jimpl.v_keep) == (3, 288, 40, 40)
+        shapes = {k: tuple(v.shape) for k, v in impl.init(2).items() if torch.is_tensor(v)}
+        jshapes = {k: tuple(v.shape) for k, v in jimpl.init(2).items()}
+        assert shapes == jshapes
+        # at sparsity 0.7 both codecs store 192 int16 rows a chunk and head
+        assert shapes["kv_pool"] == (2, 3, 2, 2, 192, 128)

@@ -3,20 +3,26 @@ JAX package's, in float32, on the same weights and prompts, across one
 compaction boundary (prompt 300, 260 new tokens, max_seq_len 1024: the
 window fills at total length 544, after decode step 244).
 
-The JAX compressed cache decodes through its q8q4 kernel in Pallas
-interpret mode (``cache_impl.use_pallas = True``), the path whose arithmetic
-the port's kernel repeats; its dense cache decodes through XLA, as in
-production.
+The JAX compressed cache decodes through its kernel in Pallas interpret
+mode (``cache_impl.use_pallas = True``), the path whose arithmetic the
+port's kernel repeats: the q8q4 kernel, or v7 for the bitmap codec; its
+dense cache decodes through XLA, as in production.
 
-Where the two streams may part: the q8q4 kernel reads q and the window as
-bf16 and rounds p to bf16, and packing rounds the window to bf16 and to
-int8/int4 codes, so last-bit differences of the f32 activations (summation
-order in the two frameworks' matmuls) can flip a rounding and move a logit
-by up to a few 1e-3 (measured below 3e-3 over these 260 steps).  Greedy
+Where the two streams may part: the kernels read q and the window as bf16
+and round p to bf16, and packing rounds the window to bf16 (and, for q8q4,
+to int8/int4 codes), so last-bit differences of the f32 activations
+(summation order in the two frameworks' matmuls) can flip a rounding and
+move a logit by up to a few 1e-3 (measured below 3e-3 over these 260 steps
+with q8q4).  Greedy
 picks are therefore checked by teacher forcing on the JAX stream: at every
 step the port's pick must be JAX's token or tie with it within that noise;
 and the free-running streams must agree up to the first such near-tie
 (measured on these seeds: there is none, and all 260 tokens agree).
+
+(r) Chunked prefill at a prompt bucket past the chunk (ROADMAP Queue C
+    fault 1): at buckets 2C and 3C the chunked ``Generator``'s tokens and
+    cache state equal the bucket-C run's, and a prompt that packs no chunk
+    decodes as monolithic prefill does, for both codecs.
 """
 
 import dataclasses
@@ -32,6 +38,7 @@ from mustafar_tpu.models.llama import init_params as j_init_params
 from mustafar_tpu.runtime.generate import Generator as JGenerator
 from mustafar_tpu_torch import config as tc
 from mustafar_tpu_torch.models import llama as tl
+from mustafar_tpu_torch.models.llama import init_params as t_init_params
 from mustafar_tpu_torch.runtime.generate import Generator as TGenerator
 from mustafar_tpu_torch.weights import params_from_jax
 
@@ -43,14 +50,14 @@ PROMPT, NEW, MAX_SEQ = 300, 260, 1024
 TIE_TOL = {"COMPRESSED": 1e-2, "DENSE": 1e-4}
 
 
-def _engine(mod, mode):
+def _engine(mod, mode, codec="q8q4"):
     model = dataclasses.replace(mod.TINY_LLAMA, head_dim=128, num_heads=4,
                                 num_kv_heads=1, hidden_size=256)
     return mod.EngineConfig(
         model=model, cache_mode=getattr(mod.CacheMode, mode),
         prune=mod.PruneConfig(method=mod.PruneMethod.KT_MAG_VT_MAG,
                               k_sparsity=0.7, v_sparsity=0.7),
-        max_seq_len=MAX_SEQ, prefill_bucket=256, chunk_size=256, codec="q8q4")
+        max_seq_len=MAX_SEQ, prefill_bucket=256, chunk_size=256, codec=codec)
 
 
 def _teacher_forced_logits(gen, prompt, stream):
@@ -76,9 +83,12 @@ def _teacher_forced_logits(gen, prompt, stream):
     return torch.stack(out, 1).numpy(), compacted_after, cache
 
 
-@pytest.mark.parametrize("mode", ["COMPRESSED", "DENSE"])
-def test_greedy_tokens_match_jax_across_compaction(mode):
-    jeng, teng = _engine(jc, mode), _engine(tc, mode)
+@pytest.mark.parametrize("mode,codec", [
+    pytest.param("COMPRESSED", "q8q4", id="COMPRESSED"),
+    pytest.param("DENSE", "q8q4", id="DENSE"),
+    pytest.param("COMPRESSED", "bitmap", id="COMPRESSED-bitmap")])
+def test_greedy_tokens_match_jax_across_compaction(mode, codec):
+    jeng, teng = _engine(jc, mode, codec), _engine(tc, mode, codec)
     jp = j_init_params(jeng.model, jax.random.PRNGKey(0), dtype=jnp.float32)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     prompt = np.random.RandomState(0).randint(0, 512, size=(2, PROMPT))
@@ -132,3 +142,36 @@ def test_eos_and_min_new_tokens_match_jax():
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, np.asarray(w))
         assert min(len(r) for r in got) < 40
+
+
+@pytest.mark.parametrize("codec", ["q8q4", "bitmap"])
+def test_chunked_prefill_bucket_past_chunk(codec):
+    """Buckets 512 and 768 over chunks of 256: a 300-token prompt runs its two
+    segments only (not the bucket's 2 or 3), so tokens and the whole cache
+    state equal the bucket-256 run's; a 100-token prompt (no chunk packed)
+    gives monolithic prefill's tokens at every bucket."""
+    teng = _engine(tc, "COMPRESSED", codec)
+    params = t_init_params(teng.model, device="cpu", dtype=torch.float32, seed=3)
+    rs = np.random.RandomState(8)
+    long, short = rs.randint(0, 512, size=(2, PROMPT)), rs.randint(0, 512, size=(2, 100))
+    runs = {}
+    for bucket in (256, 512, 768):
+        eng = dataclasses.replace(teng, chunked_prefill=True, prefill_bucket=bucket)
+        gen = TGenerator(eng, params, dtype=torch.float32, device="cpu")
+        runs[bucket] = (np.stack(gen.generate(long, 12)), gen.last_cache)
+        mono = TGenerator(dataclasses.replace(teng, prefill_bucket=bucket), params,
+                          dtype=torch.float32, device="cpu")
+        np.testing.assert_array_equal(np.stack(gen.generate(short, 8)),
+                                      np.stack(mono.generate(short, 8)),
+                                      err_msg=f"bucket {bucket}")
+    want_toks, want_state = runs[256]
+    assert want_state["nc_host"] == 1
+    for bucket in (512, 768):
+        toks, state = runs[bucket]
+        np.testing.assert_array_equal(toks, want_toks, err_msg=f"bucket {bucket}")
+        assert state.keys() == want_state.keys()
+        for key, val in want_state.items():
+            assert (torch.equal(state[key], val) if torch.is_tensor(val)
+                    else state[key] == val), (bucket, key)
+    with pytest.raises(AssertionError, match="multiple of chunk_size"):
+        dataclasses.replace(teng, chunked_prefill=True, prefill_bucket=384)

@@ -14,6 +14,12 @@
     one compaction.
 (n) Entry points raise without a card unless given ``device="cpu"``, and
     refuse sampled decoding.
+(k) and (m) run for the bitmap codec too (the JAX kernels v6ps, v7 and the
+    segment kernel in interpret mode), (k) on the request mix of the verify
+    recipe.
+(s) At a prompt bucket past the chunk (ROADMAP Queue C fault 1) the engine
+    runs each prompt's segments only and gives the bucket-C tokens, for
+    both codecs.
 
 Tokens are checked by teacher forcing, as ``test_torch_generate.py`` does:
 the port is fed the JAX stream, its pick at every step must be JAX's token
@@ -52,17 +58,19 @@ MIXES = {
     # tests/test_scheduler.py: a short request decodes while a long prompt
     # (4 segments) is admitted one segment per tick
     "interleaved": [(100, 12), (1000, 6), (300, 24)],
+    # the continuous-batching mix of the repository's verification recipe
+    "verify": [(100, 12), (1000, 6), (280, 30)],
 }
 
 
-def _engine(mod, mode, chunked=True, max_seq=2048, B=2):
+def _engine(mod, mode, chunked=True, max_seq=2048, B=2, codec="q8q4", bucket=256):
     model = dataclasses.replace(mod.TINY_LLAMA, head_dim=128, num_heads=4,
                                 num_kv_heads=1, hidden_size=256)
     return mod.EngineConfig(
         model=model, cache_mode=getattr(mod.CacheMode, mode),
         prune=mod.PruneConfig(method=mod.PruneMethod.KT_MAG_VT_MAG,
                               k_sparsity=0.5, v_sparsity=0.5),
-        max_seq_len=max_seq, prefill_bucket=256, chunk_size=256, codec="q8q4",
+        max_seq_len=max_seq, prefill_bucket=bucket, chunk_size=256, codec=codec,
         batch_size=B, chunked_prefill=chunked)
 
 
@@ -115,8 +123,9 @@ def _check_streams(want, got, logits, tol):
             f"request {uid}: streams part with no near-tie before")
 
 
-def _run_pair(mode, chunked, mix, seed):
-    jeng, teng = _engine(jc, mode, chunked), _engine(tc, mode, chunked)
+def _run_pair(mode, chunked, mix, seed, codec="q8q4"):
+    jeng = _engine(jc, mode, chunked, codec=codec)
+    teng = _engine(tc, mode, chunked, codec=codec)
     jp, tp = _params(jeng, seed)
     rs = np.random.RandomState(seed)
     reqs = [(rs.randint(0, 512, size=n), m) for n, m in mix]
@@ -137,9 +146,12 @@ def _run_pair(mode, chunked, mix, seed):
     return tcb, forced, reqs, got
 
 
-@pytest.mark.parametrize("mix", sorted(MIXES))
-def test_compressed_engine_matches_jax(mix):
-    tcb, forced, reqs, got = _run_pair("COMPRESSED", True, MIXES[mix], 3)
+@pytest.mark.parametrize("mix,codec", [
+    pytest.param("compaction", "q8q4", id="compaction"),
+    pytest.param("interleaved", "q8q4", id="interleaved"),
+    pytest.param("verify", "bitmap", id="verify-bitmap")])
+def test_compressed_engine_matches_jax(mix, codec):
+    tcb, forced, reqs, got = _run_pair("COMPRESSED", True, MIXES[mix], 3, codec)
     # a retired request's slot idled with its old chunk count while the
     # other slot decoded: the idle-slot hazard was exercised
     assert forced.idle_with_chunks > 0
@@ -227,8 +239,17 @@ def _teacher_forced_chunked(gen, prompt, stream):
 def test_chunked_generator_matches_jax():
     """Chunked prefill of 600 tokens (3 segments, 2 chunks packed), then 220
     greedy steps across one compaction (the window fills at total 800)."""
-    jeng = _engine(jc, "COMPRESSED", max_seq=1024)
-    teng = _engine(tc, "COMPRESSED", max_seq=1024)
+    _chunked_generator("q8q4")
+
+
+def test_chunked_generator_matches_jax_bitmap():
+    """As above for the bitmap codec."""
+    _chunked_generator("bitmap")
+
+
+def _chunked_generator(codec):
+    jeng = _engine(jc, "COMPRESSED", max_seq=1024, codec=codec)
+    teng = _engine(tc, "COMPRESSED", max_seq=1024, codec=codec)
     jp, tp = _params(jeng, 6)
     prompt = np.random.RandomState(6).randint(0, 512, size=(2, 600))
     jgen = JGenerator(jeng, jp, dtype=jnp.float32)
@@ -265,3 +286,24 @@ def test_entry_points_need_a_device_and_greedy():
         cb.submit(np.zeros(2000, np.int64), 100)          # past max_seq_len
     with pytest.raises(AssertionError):                   # dense + chunked
         _engine(tc, "DENSE", chunked=True)
+
+
+@pytest.mark.parametrize("codec", ["q8q4", "bitmap"])
+def test_engine_bucket_past_chunk(codec):
+    """Buckets 512 and 768 over chunks of 256: interleaved admission runs
+    ceil(n / 256) segments a prompt, not the bucket's, and every request's
+    tokens equal the bucket-256 run's."""
+    _, tp = _params(_engine(jc, "COMPRESSED"), 9)
+    rs = np.random.RandomState(9)
+    reqs = [(rs.randint(0, 512, size=n), m) for n, m in ((100, 8), (300, 10), (600, 6))]
+    runs = {}
+    for bucket in (256, 512, 768):
+        cb = TEngine(_engine(tc, "COMPRESSED", codec=codec, bucket=bucket), tp,
+                     dtype=torch.float32, device="cpu")
+        uids = [cb.submit(p, m) for p, m in reqs]
+        out = cb.run()
+        assert cb.segments == 1 + 2 + 3, (bucket, cb.segments)
+        runs[bucket] = [np.asarray(out[u]) for u in uids]
+    for bucket in (512, 768):
+        for want, got in zip(runs[256], runs[bucket]):
+            np.testing.assert_array_equal(got, want, err_msg=f"bucket {bucket}")

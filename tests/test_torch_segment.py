@@ -11,6 +11,7 @@
     slot's own position; an idle slot at pos -1 written nowhere) and
     ``compact_slots`` against the JAX package's, for the compressed cache
     and, where it applies, the dense one.
+Both codecs the port serves, q8q4 and bitmap (whose state has no scales).
 The JAX side runs jitted, as it serves: jitted XLA rounds the quantisation
 scale as the port does (``quant_format.recip_f32``).  Tiny geometry:
 head_dim 128, 4 query heads over 2 kv heads, 2 layers, chunk 256, residual
@@ -36,14 +37,18 @@ L, HQ, HKV, D = 2, 4, 2, 128
 STATE_KEYS = ("kv_pool", "kv_scales", "k_win", "v_win", "n_chunks")
 
 
-def _engine(mod, mode, max_seq=1024):
+def _state_keys(codec):
+    return tuple(k for k in STATE_KEYS if codec != "bitmap" or k != "kv_scales")
+
+
+def _engine(mod, mode, max_seq=1024, codec="q8q4"):
     model = dataclasses.replace(mod.TINY_LLAMA, head_dim=128, num_heads=HQ,
                                 num_kv_heads=HKV, hidden_size=256)
     return mod.EngineConfig(
         model=model, cache_mode=getattr(mod.CacheMode, mode),
         prune=mod.PruneConfig(method=mod.PruneMethod.KT_MAG_VT_MAG,
                               k_sparsity=0.7, v_sparsity=0.7),
-        max_seq_len=max_seq, prefill_bucket=256, chunk_size=256, codec="q8q4")
+        max_seq_len=max_seq, prefill_bucket=256, chunk_size=256, codec=codec)
 
 
 def _np(x):
@@ -82,8 +87,10 @@ def _j_segment(jimpl):
     """One segment over every layer through the JAX package's stacked
     protocol (what its ``models/llama.forward`` does around
     ``segment_attend``), then ``finalize_segment``; jitted."""
+    pools = [key for key in ("kv_pool", "kv_scales") if key in jimpl.decode_stacked_ro]
+
     def seg(cache, qs, ks, vs, seg_start, true_len):
-        full = {key: cache[key] for key in ("kv_pool", "kv_scales", "k_win", "v_win")}
+        full = {key: cache[key] for key in (*pools, "k_win", "v_win")}
         outs, lcs = [], []
         for li in range(L):
             out, lc, upd = jimpl.segment_attend(
@@ -94,22 +101,23 @@ def _j_segment(jimpl):
             lcs.append(lc)
         new = {key: jnp.stack([lc[key] for lc in lcs]) for key in lcs[0]}
         new.update(k_win=full["k_win"], v_win=full["v_win"],
-                   kv_pool=cache["kv_pool"], kv_scales=cache["kv_scales"])
+                   **{key: cache[key] for key in pools})
         return jnp.stack(outs), jimpl.finalize_segment(cache, new)
     return jax.jit(seg)
 
 
-@pytest.mark.parametrize("dtype,true_len", [("float32", 700), ("float32", 530),
-                                            ("float32", 200)])
-def test_segments_state_bit_exact(dtype, true_len):
+@pytest.mark.parametrize("dtype,true_len,codec", [
+    *(pytest.param("float32", n, "q8q4", id=f"float32-{n}") for n in (700, 530, 200)),
+    *(pytest.param("float32", n, "bitmap", id=f"float32-{n}-bitmap") for n in (700, 200))])
+def test_segments_state_bit_exact(dtype, true_len, codec):
     """Every segment of a chunked prefill at B=2: 700 tokens (3 segments, a
     chunk packed at segments 1 and 2, the last one partial), 530 (3
     segments; the last packs nothing, as 530 - 32 < 2 x 256) and 200 (one
     segment, no chunk).  In float32: the JAX package's CPU runtime has no
     bf16 x bf16 -> f32 dot for the window and self partials."""
-    jimpl = j_make_cache(_engine(jc, "COMPRESSED"))
+    jimpl = j_make_cache(_engine(jc, "COMPRESSED", codec=codec))
     jimpl.use_pallas = True
-    timpl = t_make_cache(_engine(tc, "COMPRESSED"), device="cpu")
+    timpl = t_make_cache(_engine(tc, "COMPRESSED", codec=codec), device="cpu")
     B, C = 2, 256
     n_seg = -(-true_len // C)
     jdt = getattr(jnp, dtype)
@@ -124,7 +132,7 @@ def test_segments_state_bit_exact(dtype, true_len):
                                       _t(v[li], dtype), s * C, true_len)
                  for li in range(L)]
         timpl.finalize_segment(tstate, s * C, true_len)
-        _assert_equal(tstate, jstate)
+        _assert_equal(tstate, jstate, _state_keys(codec))
         nc = max(min(true_len, (s + 1) * C) - 32, 0) // C
         assert tstate["nc_host"] == nc == int(np.asarray(jstate["n_chunks"])[0, 0])
         valid = min(true_len - s * C, C)
@@ -142,8 +150,10 @@ def test_segments_state_bit_exact(dtype, true_len):
 
 
 def _j_decode_per_slot(jimpl):
+    pools = [key for key in ("kv_pool", "kv_scales") if key in jimpl.decode_stacked_ro]
+
     def step(cache, qs, ks, vs, pos):
-        full = {key: cache[key] for key in ("kv_pool", "kv_scales", "k_win", "v_win")}
+        full = {key: cache[key] for key in (*pools, "k_win", "v_win")}
         outs = []
         for li in range(L):
             out, _, upd = jimpl.decode_attend({"n_chunks": cache["n_chunks"][li]},
@@ -162,9 +172,19 @@ def test_insert_decode_compact_per_slot():
     slot 0, then 4 steps more.  State after insert and compaction and the
     active slots' windows after every step equal JAX's; outputs agree
     (JAX's per-slot kernel in Pallas interpret mode)."""
-    jimpl = j_make_cache(_engine(jc, "COMPRESSED"))
+    _insert_decode_compact("q8q4")
+
+
+def test_insert_decode_compact_per_slot_bitmap():
+    """As above for the bitmap codec (JAX's v6ps kernel in interpret mode)."""
+    _insert_decode_compact("bitmap")
+
+
+def _insert_decode_compact(codec):
+    keys = _state_keys(codec)
+    jimpl = j_make_cache(_engine(jc, "COMPRESSED", codec=codec))
     jimpl.use_pallas = True
-    timpl = t_make_cache(_engine(tc, "COMPRESSED"), device="cpu")
+    timpl = t_make_cache(_engine(tc, "COMPRESSED", codec=codec), device="cpu")
     rs = np.random.RandomState(11)
     jstate, tstate = jimpl.init(3, jnp.bfloat16), timpl.init(3, torch.bfloat16)
     jinsert = jax.jit(jimpl.insert_slot)
@@ -182,7 +202,7 @@ def test_insert_decode_compact_per_slot():
                                  _t(v[li], "bfloat16"), true_len)
         jstate = jinsert(jstate, jsub, jnp.int32(slot))
         timpl.insert_slot(tstate, tsub, slot)
-        _assert_equal(tstate, jstate)
+        _assert_equal(tstate, jstate, keys)
     assert tstate["nc_host"] is None
     with pytest.raises(ValueError):          # uniform decode refuses per-slot state
         timpl.decode_attend(tstate, 0, *(_t(x[0], "bfloat16") for x in _qkv(rs, 3, 1, "bfloat16")), 600)
@@ -210,7 +230,7 @@ def test_insert_decode_compact_per_slot():
             assert step == 7 and do == [True, False, False]
             jstate = jcompact(jstate, jnp.asarray(do))
             timpl.compact_slots(tstate, do)
-            _assert_equal(tstate, jstate, slots=[0, 2])
+            _assert_equal(tstate, jstate, keys, slots=[0, 2])
             assert tstate["n_chunks"][:, 0].tolist() == [1, 1]
     assert torch.equal(tstate["k_win"][:, 1], idle_win)     # idle slot never written
     assert (tstate["kv_pool"][:, :, 1] == 0).all()

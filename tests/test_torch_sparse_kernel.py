@@ -1,0 +1,237 @@
+"""Port parity, the bitmap kernel module (``ops/kernels/sparse_attention.py``).
+
+(p) The plain versions of ``fused_sparse_decode_attention`` (TPU kernel
+    v7), ``fused_sparse_decode_attention_ps`` (v6ps, per-slot counts) and
+    ``fused_sparse_segment_attention`` (chunked-prefill partials) against
+    the JAX kernels run in Pallas interpret mode, on the same stacked int16
+    pools of real packed chunks (random bf16 K and V pruned and encoded by
+    the JAX codec) and bf16 windows, at sparsity 0.7 and 0.5 (pads).
+(q) The wrappers refuse what the CUDA kernels cannot serve (bitmap-q8,
+    the sliding window, softmax stats and window probabilities, bad shapes,
+    types and devices) instead of falling back, and on the CPU nothing
+    launches.
+The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
+them against the plain versions there.
+
+Tolerances: the plain versions take the TPU kernels' arithmetic and softmax
+steps; f32 sums run in another order, which can move a bf16(p) or the bf16
+output by one ulp: 2^-8 of the output's largest magnitude (per slot for
+the per-slot kernel); the segment partials m to rtol 1e-6, l to 1e-5.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from mustafar_tpu.ops import sparse_format as jsf
+from mustafar_tpu.ops.kernels import sparse_attention as jska
+from mustafar_tpu_torch.ops import sparse_format as tsf
+from mustafar_tpu_torch.ops.kernels import sparse_attention as tska
+
+torch.set_num_threads(2)
+
+W = 288                                   # residual 32 + chunk 256
+ULP = 2.0 ** -8
+
+
+def _fmts(sparsity):
+    keep = 128 - int(sparsity * 128) + 1
+    return jsf.ChunkFormat(256, 128, keep), tsf.ChunkFormat(256, 128, keep)
+
+
+def _inputs(seed, L, mc, B, Hkv, G, sparsity):
+    """Stacked bitmap pool of real packed chunks (K stream, then V stream),
+    bf16 windows and a bf16 q, as float32 / int16 numpy arrays."""
+    jf, _ = _fmts(sparsity)
+    rs = np.random.RandomState(seed)
+    BH = B * Hkv
+    x = jnp.asarray(rs.randn(L, mc, 2, BH, 256, 128) * 0.5, jnp.bfloat16)
+    rows = np.asarray(jax.jit(lambda a: jsf.prune_and_encode_stream(a, jf))(x))
+    pool = np.concatenate([rows[:, :, 0], rows[:, :, 1]], axis=-2)
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)).astype(np.float32)
+    k_win = bf(rs.randn(L, BH, W, 128))
+    v_win = bf(rs.randn(L, BH, W, 128))
+    q = bf(rs.randn(B, 1, Hkv * G, 128))
+    return q, pool, k_win, v_win
+
+
+def _t(a, dtype=torch.bfloat16):
+    return torch.from_numpy(a).to(dtype)
+
+
+@pytest.mark.parametrize("G,sparsity", [(1, 0.7), (4, 0.7), (8, 0.5)])
+def test_decode_plain_matches_jax_kernel(G, sparsity):
+    """n_chunks 0, 1 and 3 (= mc); window lengths 0 (with chunks), 1, 44 and
+    the full 288; layers 0 and 1 of L = 2; nothing to attend gives 0."""
+    jf, tf = _fmts(sparsity)
+    q, pool, k_win, v_win = _inputs(10 + G, 2, 3, 2, 2, G, sparsity)
+    jargs = (jnp.asarray(q, jnp.bfloat16), jnp.asarray(pool),
+             jnp.asarray(k_win, jnp.bfloat16), jnp.asarray(v_win, jnp.bfloat16))
+    targs = (_t(q), torch.from_numpy(pool), _t(k_win), _t(v_win))
+    before = tska.fused_sparse_decode_attention.launches
+    for nc, wl, li in [(0, 44, 1), (1, 0, 0), (1, 288, 1), (3, 1, 0), (3, 288, 1)]:
+        jo = np.asarray(jska.fused_sparse_decode_attention_v7(
+            *jargs, jnp.int32(nc), jnp.int32(wl), jf, jf, 3,
+            li=jnp.int32(li))).astype(np.float32)
+        to = tska.fused_sparse_decode_attention(*targs, nc, wl, li, tf, tf)
+        assert to.dtype == torch.bfloat16 and to.shape == (2, 1, 2 * G, 128)
+        np.testing.assert_allclose(to.float().numpy(), jo, rtol=0,
+                                   atol=ULP * np.abs(jo).max(),
+                                   err_msg=f"nc={nc} wl={wl} li={li}")
+    assert (tska.fused_sparse_decode_attention(*targs, 0, 0, 0, tf, tf) == 0).all()
+    assert tska.fused_sparse_decode_attention.launches == before   # CPU: no launch
+
+
+@pytest.mark.parametrize("G,q_dtype,sparsity", [(2, "bfloat16", 0.7),
+                                                (4, "float32", 0.7),
+                                                (4, "bfloat16", 0.5)])
+def test_ps_plain_matches_jax_kernel(G, q_dtype, sparsity):
+    """Mixed slots in one call: n_chunks 0/1/3 and win_len 0/1/44/288, and
+    an idle slot (0, 0), which must come out exactly 0 while every live slot
+    is non-zero; the TPU kernel's block loops every head to the largest
+    counts, and parity is owed on slots with something to attend."""
+    jf, tf = _fmts(sparsity)
+    q, pool, k_win, v_win = _inputs(20 + G, 2, 3, 6, 1, G, sparsity)
+    nc = [0, 1, 3, 1, 3, 0]
+    wl = [1, 44, 288, 0, 1, 0]
+    tq = torch.from_numpy(q) if q_dtype == "float32" else _t(q)
+    before = tska.fused_sparse_decode_attention_ps.launches
+    for li in (0, 1):
+        jo = np.asarray(jska.fused_sparse_decode_attention_v6ps(
+            jnp.asarray(q, getattr(jnp, q_dtype)), jnp.asarray(pool),
+            jnp.asarray(k_win, jnp.bfloat16), jnp.asarray(v_win, jnp.bfloat16),
+            jnp.asarray(nc, jnp.int32), jnp.asarray(wl, jnp.int32), jf, jf, 3,
+            li=jnp.int32(li))).astype(np.float32)
+        to = tska.fused_sparse_decode_attention_ps(
+            tq, torch.from_numpy(pool), _t(k_win), _t(v_win),
+            torch.tensor(nc, dtype=torch.int32), torch.tensor(wl, dtype=torch.int32),
+            li, tf, tf)
+        assert to.dtype == tq.dtype
+        to = to.float().numpy()
+        for b in range(6):
+            if not (nc[b] or wl[b]):
+                assert (to[b] == 0).all(), f"idle slot {b}, li={li}"
+                continue
+            assert np.abs(to[b]).max() > 0, f"live slot {b} written as 0, li={li}"
+            np.testing.assert_allclose(to[b], jo[b], rtol=0,
+                                       atol=ULP * np.abs(jo[b]).max(),
+                                       err_msg=f"slot {b}, li={li}")
+    assert tska.fused_sparse_decode_attention_ps.launches == before
+
+
+def test_ps_plain_equals_uniform_per_slot():
+    """Slot b of the per-slot version is the uniform computation over its
+    own counts; counts out of range are clamped as the kernel clamps them."""
+    _, tf = _fmts(0.7)
+    q, pool, k_win, v_win = _inputs(5, 2, 3, 3, 2, 2, 0.7)
+    tq, tp, tk, tv = _t(q), torch.from_numpy(pool), _t(k_win), _t(v_win)
+    got = tska.fused_sparse_decode_attention_ps(
+        tq, tp, tk, tv, torch.tensor([2, 9, 1], dtype=torch.int32),
+        torch.tensor([100, 288, -300], dtype=torch.int32), 1, tf, tf)
+    for b, (c, w) in enumerate(((2, 100), (3, 288), (1, 0))):
+        hs = slice(2 * b, 2 * b + 2)
+        want = tska.fused_sparse_decode_attention(
+            tq[b:b + 1], tp[:, :, hs].contiguous(), tk[:, hs].contiguous(),
+            tv[:, hs].contiguous(), c, w, 1, tf, tf)
+        np.testing.assert_array_equal(got[b:b + 1].float().numpy(), want.float().numpy())
+
+
+@pytest.mark.parametrize("nc,seg_start,sparsity", [(0, 256, 0.7), (1, 512, 0.7),
+                                                   (3, 768, 0.7), (3, 1024, 0.5)])
+def test_segment_plain_matches_jax_kernel(nc, seg_start, sparsity):
+    """acc, m and l of one 256-row segment (B=2, Hkv=2, G=2) over nc chunks
+    of layer 1; with no chunk, m is exactly -1e30 and l exactly 0."""
+    jf, tf = _fmts(sparsity)
+    _, pool, _, _ = _inputs(30 + nc, 2, 3, 2, 2, 2, sparsity)
+    qs = np.asarray(jnp.asarray(np.random.RandomState(nc + seg_start)
+                                .randn(2, 256, 4, 128), jnp.bfloat16)).astype(np.float32)
+    ja, jm, jl = (np.asarray(x) for x in jska.fused_sparse_segment_attention(
+        jnp.asarray(qs, jnp.bfloat16), jnp.asarray(pool), jnp.int32(nc),
+        jnp.int32(seg_start), jf, jf, 3, li=jnp.int32(1)))
+    before = tska.fused_sparse_segment_attention.launches
+    ta, tm, tl = (x.numpy() for x in tska.fused_sparse_segment_attention(
+        _t(qs), torch.from_numpy(pool), nc, seg_start, 1, tf, tf))
+    assert tska.fused_sparse_segment_attention.launches == before
+    assert ta.shape == ja.shape == (2, 256, 4, 128) and tm.shape == tl.shape == (2, 256, 4, 1)
+    if nc == 0:
+        assert (tm == -1e30).all() and (tl == 0).all() and (ta == 0).all()
+        assert (jm == -1e30).all() and (jl == 0).all()
+        return
+    np.testing.assert_allclose(tm, jm, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(ta, ja, rtol=0, atol=ULP * np.abs(ja).max())
+
+
+def test_wrappers_refuse_what_the_kernels_cannot_serve():
+    _, tf = _fmts(0.7)
+    _, tf5 = _fmts(0.5)
+    q, pool, k_win, v_win = _inputs(4, 1, 2, 2, 2, 4, 0.7)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32)
+    dec = dict(q=_t(q), kv_pool=torch.from_numpy(pool), k_win=_t(k_win),
+               v_win=_t(v_win), n_chunks=1, win_len=10, li=0, kfmt=tf, vfmt=tf)
+    ps = dict(dec, n_chunks=i32([1, 0]), win_len=i32([10, 3]))
+    seg = dict(q_seg=_t(np.zeros((2, 256, 8, 128), np.float32)),
+               kv_pool=torch.from_numpy(pool), n_chunks=1, seg_start=512, li=0,
+               kfmt=tf, vfmt=tf)
+    calls = ((tska.fused_sparse_decode_attention, dec),
+             (tska.fused_sparse_decode_attention_ps, ps),
+             (tska.fused_sparse_segment_attention, seg))
+    for fn, ok in calls:
+        fn(**ok)
+        bad = [dict(kfmt=tf5), dict(kfmt=tsf.ChunkFormat(128, 128, 40)),
+               dict(kv_pool=torch.from_numpy(pool).to(torch.int32)), dict(li=1)]
+        if fn is tska.fused_sparse_decode_attention:
+            bad += [dict(n_chunks=3), dict(win_len=W + 1), dict(n_chunks=1.0),
+                    dict(k_win=_t(k_win).float()),
+                    dict(q=_t(np.zeros((2, 1, 6, 128), np.float32)))]   # G = 3
+        if fn is tska.fused_sparse_decode_attention_ps:
+            bad += [dict(n_chunks=1), dict(win_len=i32([10])),
+                    dict(n_chunks=torch.tensor([1, 0]))]                 # int64
+        if fn is tska.fused_sparse_segment_attention:
+            bad += [dict(n_chunks=3), dict(seg_start=128),
+                    dict(q_seg=_t(np.zeros((2, 256, 3, 128), np.float32)))]
+        for change in bad:
+            with pytest.raises((ValueError, TypeError, NotImplementedError)):
+                fn(**dict(ok, **change))
+        with pytest.raises(NotImplementedError, match="item 14"):
+            fn(**ok, window=512)
+        # a device the kernel does not run on is refused, never computed on the CPU
+        meta = {k: (v.to("meta") if torch.is_tensor(v) else v) for k, v in ok.items()}
+        with pytest.raises(ValueError):
+            fn(**meta)
+    for opt in (dict(return_norm=True), dict(return_win_probs=True)):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            tska.fused_sparse_decode_attention(**dec, **opt)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tska.fused_sparse_decode_attention_ps(**ps, return_win_probs=True)
+    with pytest.raises(NotImplementedError, match="item 11"):       # bitmap-q8
+        tsf.ChunkFormat(256, 128, 40, qbits=8)
+    assert (tska.fused_sparse_decode_attention.launches,
+            tska.fused_sparse_decode_attention_ps.launches,
+            tska.fused_sparse_segment_attention.launches) == (0, 0, 0)
+
+
+def test_module_imports_and_builds_nothing_without_nvcc(tmp_path):
+    """Importing the module needs no nvcc and builds nothing; asking for a
+    bitmap kernel's library where there is no nvcc raises (no fallback)."""
+    code = (
+        "import mustafar_tpu_torch.ops.kernels.sparse_attention as ska\n"
+        "from mustafar_tpu_torch.ops.kernels import build\n"
+        "assert build._LIBS == {}\n"
+        "for name in ('sp_decode', 'sp_segment'):\n"
+        "    try:\n"
+        "        build.load(name)\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'nvcc' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('built without nvcc')\n")
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=os.getcwd(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
