@@ -5,9 +5,10 @@
 Phases, each printing one flushed JSON line with its ``phase`` and
 ``elapsed_s``:
   env           torch / CUDA versions, the card's name and power limit
-  build         nvcc builds the five kernel libraries at once (csrc/q_decode.cu,
+  build         nvcc builds the seven kernel libraries at once (csrc/q_decode.cu,
                 csrc/q_decode_ps.cu, csrc/q_segment.cu, csrc/sp_decode.cu: the
-                bitmap uniform and per-slot entries, csrc/sp_segment.cu)
+                bitmap uniform and per-slot entries, csrc/sp_segment.cu,
+                csrc/w4_matmul.cu, csrc/dense_decode.cu)
   kernel        the uniform decode kernel against its plain PyTorch version on
                 the card, at the flagship per-layer shapes (B=8, Hq=32, Hkv=8,
                 mc=5), with its time beside the plain version's and its bound
@@ -21,12 +22,21 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 the three phases above, over real packed chunks (random bf16
                 K and V pruned and encoded on the card) at sparsity 0.7, and
                 0.5 (zero pads in the rows)
+  kernel_w4     the W4 matmul kernel against its plain version at every
+                Llama-3-8B projection shape and the fused wqkv / w_gateup, T = 8
+                and 32 (and 1, 13, 100, 128 at one shape), timed beside its byte
+                bound, the W8 proj and a bf16 matmul of the same shape
+  kernel_dense  the dense flash-decode kernel against its plain version: B=8,
+                S=1,312, pos 599 and per slot at S=8,448 (a slot at 8,000, an
+                idle one), timed beside scaled_dot_product_attention
   reference     a tiny f32 model decoded on the card (kernel) and on the CPU
                 (plain path) with the same token stream: logits must agree
   reference_cb  the tiny f32 continuous-batching engine (chunked, interleaved
                 admission, a slot retired and reused) likewise
   reference_bitmap
                 the two reference runs above with the bitmap codec
+  reference_w4  a tiny W4 model, card (kernel 5, and kernel 4 for the dense
+                cache with use_pallas, or the q8q4 kernel) against CPU
   serve_q8q4    full-width, 32-layer Llama-3-8B with random W8 weights made
                 on the card: Generator.generate, B=8, prompt 300, 300 new
                 tokens, q8q4 compressed cache (one compaction on the way);
@@ -34,6 +44,10 @@ Phases, each printing one flushed JSON line with its ``phase`` and
   serve_dense   the same prompts through the dense baseline cache
   serve_bitmap  serve_q8q4 with the bitmap codec (the JAX package's default):
                 bitmap decode kernel launches = 32 x 299; first tokens =
+                serve_dense's
+  serve_dense_kernel
+                serve_dense with use_pallas: the dense cache through its
+                flash-decode kernel, 32 launches a step; first tokens =
                 serve_dense's
   decode_split  device time of a decode step's W8 projections, LM head and
                 attention kernel, each timed alone, beside the step's wall time
@@ -47,6 +61,15 @@ Phases, each printing one flushed JSON line with its ``phase`` and
   serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64
   host_split    one segment (B=1) and one decode tick (8 slots): host enqueue
                 time, wall time, device time and kernels launched
+  serve_w4_dense, serve_w4_q8q4, serve_w4_bitmap
+                the Generator at full width and depth with W4 weights
+                (init_params_w4, seed 0), B=8, 300 + 300: W4 kernel 7 x 32 and
+                the cache's decode kernel 32 a step (the dense cache through
+                its kernel); first tokens = serve_w4_dense's
+  decode_split_w4
+                decode_split for the W4 step, per cache
+  serve_cb_w4   serve_cb with W4 weights on the bitmap codec: its first 8
+                requests without the 8,000-token one
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 nothing is caught.  With no CUDA card, or run from a directory that holds
@@ -147,11 +170,12 @@ def phase_env():
     return smi
 
 
-KERNEL_LIBS = ("q_decode", "q_decode_ps", "q_segment", "sp_decode", "sp_segment")
+KERNEL_LIBS = ("q_decode", "q_decode_ps", "q_segment", "sp_decode", "sp_segment",
+               "w4_matmul", "dense_decode")
 
 
 def phase_build():
-    """nvcc builds the five kernel libraries at once, one process each."""
+    """nvcc builds the seven kernel libraries at once, one process each."""
     from concurrent.futures import ThreadPoolExecutor
     from mustafar_tpu_torch.ops.kernels import build
     t = time.perf_counter()
@@ -248,6 +272,8 @@ KERNEL_META = {
                               "sparse_attention.py:417"),
     ("bitmap", "segment"): ("fused_sparse_segment_attention", "sp_segment.cu",
                             "sparse_attention.py:647"),
+    ("w4", "matmul"): ("w4_matmul", "w4_matmul.cu", "w4_matmul.py:87"),
+    ("dense", "decode"): ("flash_decode_attention", "dense_decode.cu", "dense_decode.py:92"),
 }
 
 
@@ -516,6 +542,199 @@ def phase_kernel_seg(codec="q8q4"):
                   kernel_ms, plain_ms, bytes_ms, flops_ms)
 
 
+# every Llama-3-8B projection (wk and wv share 4096 -> 1024, w_gate and w_up
+# 4096 -> 14336) and the fused wqkv and w_gateup
+W4_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024), "w_gate_up": (4096, 14336),
+             "w_down": (14336, 4096), "wqkv": (4096, 6144), "w_gateup": (4096, 28672)}
+W4_NO_LIBRARY = ("no PyTorch call takes these carriers: torch._weight_int4pack_mm "
+                 "wants its own tile layout and zero points")
+
+
+def phase_kernel_w4():
+    """The W4 kernel against its plain version on the card at every
+    projection shape of the 8B (and the fused ones), T = 8 and 32, layer 1
+    of 2-layer stacks of random carriers (every int16 is a valid code set)
+    and bf16 scales 0.001-0.021; also T = 1, 13, 100, 128 and f32 x at one
+    shape.  Each timed L2-flushed (a layer's weights are read once a
+    step) beside its byte bound, the plain version, the wrapper's host
+    time, the W8 ``proj`` and a bf16 ``torch.matmul`` at the same shape."""
+    import torch
+    from mustafar_tpu_torch.models.quant import proj
+    from mustafar_tpu_torch.ops.kernels import w4_matmul as w4
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    launches0 = w4.w4_matmul.launches
+    results, worst, timed = [], 0.0, {}
+
+    def check(label, x, c, s, T):
+        got = w4.w4_matmul(x, c[1], s[1])
+        torch.cuda.synchronize()
+        want = w4.w4_matmul_plain(x, c[1], s[1])
+        err = (got.float() - want.float()).abs().max().item()
+        # f32 sums of the same exact products in another order; each rounds
+        # once to the output's type: 2 bf16 ulps of the output's scale
+        tol = KERNEL_TOL_ULPS * 2.0 ** -8 * want.float().abs().max().item()
+        results.append({"shape": label, "T": T, "x_dtype": str(x.dtype).split(".")[-1],
+                        "max_abs_err": err, "tol": tol})
+        if not (got.isfinite().all() and got.dtype == x.dtype and err <= tol):
+            raise AssertionError(f"w4_matmul disagrees with its plain version: {results[-1]}")
+        return err / max(tol, 1e-30)
+
+    for label, (din, dout) in W4_SHAPES.items():
+        c = torch.randint(-32768, 32768, (2, din // 4, dout), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.int16)
+        s = (0.001 + 0.02 * torch.rand((2, din // 128, dout), generator=g,
+                                       device=dev)).to(torch.bfloat16)
+        ts = (8, 32) + ((1, 13, 100, 128) if label == "wq_wo" else ())
+        for T in ts:
+            x = torch.randn((T, din), generator=g, device=dev).to(torch.bfloat16)
+            worst = max(worst, check(label, x, c, s, T))
+            if label == "wq_wo" and T == 13:
+                worst = max(worst, check(label, x.float(), c, s, T))
+        # W8 and bf16 weights of the same shape, for context
+        w8 = {"w": torch.randint(-127, 128, (din, dout), generator=g, device=dev,
+                                 dtype=torch.int32).to(torch.int8),
+              "w_scale": torch.rand((dout,), generator=g, device=dev) * 0.01}
+        wbf = torch.randn((din, dout), generator=g, device=dev).to(torch.bfloat16)
+        for T in (8, 32):
+            x = torch.randn((T, din), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(3):
+                w4.w4_matmul(x, c[1], s[1])
+                proj(x, w8, "w")
+            torch.cuda.synchronize()
+            kernel_ms, behind = cuda_ms(lambda: w4.w4_matmul(x, c[1], s[1]), 30,
+                                        flush=flush_buf.zero_)
+            plain_ms, _ = cuda_ms(lambda: w4.w4_matmul_plain(x, c[1], s[1]), 3,
+                                  flush=flush_buf.zero_, spin=False)
+            w8_ms, _ = cuda_ms(lambda: proj(x, w8, "w"), 10, flush=flush_buf.zero_)
+            bf16_ms, _ = cuda_ms(lambda: x @ wbf, 10, flush=flush_buf.zero_)
+            nbytes = din * dout // 2 + din // 128 * dout * 2 + T * (din + dout) * 2
+            flops = 2 * T * din * dout                      # bf16 tensor-core products
+            bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+            flops_ms = flops / H100_BF16_FLOPS * 1e3
+            timed[f"{label}_T{T}"] = {
+                "din": din, "dout": dout, "T": T, "kernel_ms": kernel_ms,
+                "bound_ms": max(bytes_ms, flops_ms), "bytes_ms": bytes_ms,
+                "flops_ms": flops_ms, "bytes": nbytes, "plain_ms": plain_ms, "w8_proj_ms": w8_ms,
+                "bf16_matmul_ms": bf16_ms, "host_behind": behind,
+                "wrapper_host_us": host_us(lambda: w4.w4_matmul(x, c[1], s[1]), 50),
+                "split": w4.split(T, din, dout)}
+        del c, s, w8, wbf
+    w4.w4_matmul.launches = launches0                    # comparisons do not count
+    emit("kernel_w4", cases=results, worst_err_over_tol=worst, timed=timed,
+         library_ms=None, library_note=W4_NO_LIBRARY)
+    # the kernels line: the decode shape of the largest projection (w_gate / w_up, T=8)
+    t = timed["w_gate_up_T8"]
+    entry = _entry("w4", "matmul", results, worst, max(r["tol"] for r in results),
+                   t["kernel_ms"], t["plain_ms"], t["bytes_ms"], t["flops_ms"])
+    entry.update(timed_at="4096 x 14336, T=8", library_note=W4_NO_LIBRARY)
+    return entry
+
+
+def _sdpa_ms(q, k, v, pos, flush):
+    """The library call for the same function: ``scaled_dot_product_attention``
+    with GQA and a boolean mask of each slot's rows [0, pos[b]]; returns
+    (its device ms, the backend PyTorch picked, its output)."""
+    import torch
+    import torch.nn.functional as F
+    B, S = k.shape[:2]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(S, device=q.device)[None, :] <= pos[:, None])[:, None, None, :]
+    backend = "unknown"
+    if hasattr(torch, "_fused_sdp_choice"):
+        from torch.nn.attention import SDPBackend
+        backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, mask, 0.0, False,
+                                                     enable_gqa=True)).name
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    out = call()
+    torch.cuda.synchronize()
+    return cuda_ms(call, 20, flush=flush)[0], backend, out.transpose(1, 2)
+
+
+def phase_kernel_dense():
+    """The dense flash-decode kernel against its plain version: uniform at
+    ``serve_dense``'s shape (B=8, S=1,312, pos 599, Hkv=8, G=4) and per slot
+    at ``serve_cb``'s cache (S=8,448) with a slot at pos 8,000, an idle slot
+    and six of 45-1,499; also G = 1, 2, 8 and f32 q.  Timed L2-flushed
+    beside its byte bound, the plain version and
+    ``scaled_dot_product_attention`` (GQA, boolean mask)."""
+    import torch
+    from mustafar_tpu_torch.ops.kernels import dense_decode as dd
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    fn = dd.flash_decode_attention
+    launches0 = fn.launches
+    B, Hkv, D = 8, 8, 128
+    shapes, results, worst = {}, [], 0.0
+    cases = {"uniform": (1312, 599),
+             "per_slot": (8448, [8000, 1210, 300, -1, 640, 1499, 45, 950])}
+    for label, (S, pos) in cases.items():
+        k = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(torch.bfloat16)
+        kpos = (torch.tensor(pos, dtype=torch.int32, device=dev) if isinstance(pos, list)
+                else pos)
+        slot_pos = kpos if torch.is_tensor(kpos) else torch.full((B,), pos, device=dev)
+        for G in (4, 1, 2, 8):
+            qb = torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(torch.bfloat16)
+            for q in ((qb, qb.float()) if G == 4 else (qb,)):
+                got = fn(q, k, v, kpos)
+                torch.cuda.synchronize()
+                want = dd.flash_decode_attention_plain(q, k, v, kpos)
+                # each slot held to 2 bf16 ulps of its own output's scale
+                dims = (1, 2, 3)
+                errs = (got.float() - want.float()).abs().amax(dim=dims)
+                tols = KERNEL_TOL_ULPS * 2.0 ** -8 * want.float().abs().amax(dim=dims)
+                live = slot_pos >= 0
+                ratio = (errs[live] / tols[live].clamp_min(1e-30)).max().item()
+                idle_zero = bool((got[~live] == 0).all())
+                results.append({"case": label, "G": G, "q_dtype": str(q.dtype).split(".")[-1],
+                                "max_abs_err": errs.max().item(),
+                                "worst_err_over_tol": ratio, "idle_slots_zero": idle_zero})
+                if not (got.isfinite().all() and ratio <= 1.0 and idle_zero):
+                    raise AssertionError(f"dense decode kernel disagrees with its plain "
+                                         f"version: {results[-1]}")
+                worst = max(worst, ratio)
+        q = torch.randn((B, 1, Hkv * 4, D), generator=g, device=dev).to(torch.bfloat16)
+        for _ in range(5):
+            fn(q, k, v, kpos)
+        torch.cuda.synchronize()
+        kernel_ms, behind = cuda_ms(lambda: fn(q, k, v, kpos), 50, flush=flush_buf.zero_)
+        plain_ms, _ = cuda_ms(lambda: dd.flash_decode_attention_plain(q, k, v, kpos), 3,
+                              flush=flush_buf.zero_, spin=False)
+        lib_ms, backend, lib_out = _sdpa_ms(q, k, v, slot_pos, flush_buf.zero_)
+        live = slot_pos >= 0
+        lib_err = (lib_out[live].float() - fn(q, k, v, kpos)[live].float()).abs().max().item()
+        n_tok = int((slot_pos + 1).clamp(min=0).sum())
+        nbytes = n_tok * Hkv * D * 2 * 2 + 2 * q.numel() * 2 + (4 * B if label == "per_slot" else 0)
+        flops = n_tok * Hkv * 4 * D * 2 * 2                 # scores + p.v, G = 4
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        flops_ms = flops / H100_F32_FLOPS * 1e3
+        shapes[label] = {"S": S, "pos": pos, "kernel_ms": kernel_ms, "host_behind": behind,
+                         "bound_ms": max(bytes_ms, flops_ms), "bytes_ms": bytes_ms,
+                         "flops_ms": flops_ms, "bytes": nbytes, "flops": flops, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "library_backend": backend,
+                         "library_max_abs_diff": lib_err, "tile": dd.decode_tile(S),
+                         "wrapper_host_us": host_us(lambda: fn(q, k, v, kpos), 50)}
+        del k, v
+    fn.launches = launches0                                # comparisons do not count
+    emit("kernel_dense", B=B, Hkv=Hkv, cases=results, worst_err_over_tol=worst, timed=shapes)
+    t = shapes["uniform"]
+    entry = _entry("dense", "decode", results, worst,
+                   "per slot: 2 bf16 ulps of the slot's largest output", t["kernel_ms"],
+                   t["plain_ms"], t["bytes_ms"], t["flops_ms"])
+    entry.update(timed_at="B=8, S=1312, pos 599, Hkv=8, G=4", library_ms=t["library_ms"],
+                 library_note=f"scaled_dot_product_attention, GQA, boolean mask "
+                              f"({t['library_backend']} backend)")
+    return entry
+
+
 def _tiny_engine(mode, codec="q8q4", **kw):
     import dataclasses
     from mustafar_tpu_torch import config as tc
@@ -531,12 +750,15 @@ def _tiny_engine(mode, codec="q8q4", **kw):
 
 def _counters():
     """The launch count of every kernel wrapper, by name."""
+    from mustafar_tpu_torch.ops.kernels import dense_decode as dd
     from mustafar_tpu_torch.ops.kernels import quant_attention as qa
     from mustafar_tpu_torch.ops.kernels import sparse_attention as ska
+    from mustafar_tpu_torch.ops.kernels import w4_matmul as w4
     return {fn.__name__: fn for fn in (
         qa.fused_q_decode_attention, qa.fused_q_decode_attention_ps,
         qa.fused_q_segment_attention, ska.fused_sparse_decode_attention,
-        ska.fused_sparse_decode_attention_ps, ska.fused_sparse_segment_attention)}
+        ska.fused_sparse_decode_attention_ps, ska.fused_sparse_segment_attention,
+        w4.w4_matmul, dd.flash_decode_attention)}
 
 
 def _launches():
@@ -693,10 +915,118 @@ def phase_reference_bitmap():
                              f"{cb['launched']}")
 
 
-def serve(label, mode, params, prompt, new_tokens, codec="q8q4"):
+REFERENCE_W4_TOL = 3e-2   # of the logits' range (see phase_reference_w4)
+
+
+def phase_reference_w4():
+    """A tiny model with W4 weights (f32 activations; the same params on the
+    card and on the CPU), fed the CPU's greedy tokens on the card: the card
+    runs kernel 5 for every projection of at most 128 tokens and the dense
+    cache's kernel 4 (``use_pallas``) or the q8q4 kernel; the CPU runs the
+    dequant route and the plain versions.  Runs: the dense cache at a
+    batch-1 prompt of 100 tokens in a 128-token bucket (kernel 5 at
+    prefill too) and at B=2, prompt 300 (a 384-token prefill: the dequant
+    route); q8q4 at B=2, prompt 300; the dense engine (per-slot ticks
+    through kernel 4), fed the CPU's tokens.  The kernel route reads each
+    projection's input as bf16, the CPU's dequant route keeps it in f32:
+    simulated on the CPU (the kernel's plain version for <= 128 tokens)
+    that moves these logits by 7.7e-3 of their range, so they are held to
+    3e-2 of it."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.cache import make_cache
+    from mustafar_tpu_torch.config import CacheMode
+    from mustafar_tpu_torch.models import llama
+    from mustafar_tpu_torch.models.quant import quantize_params_w4
+    base = _tiny_engine(CacheMode.DENSE)
+    cpu_params = quantize_params_w4(llama.init_params(base.model, device="cpu",
+                                                      dtype=torch.float32, seed=3))
+    gpu_params = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict)
+                      else v.cuda()) for k, v in cpu_params.items()}
+    runs = {"dense_b1_prompt100": (CacheMode.DENSE, 1, 100, 128),
+            "dense_b2_prompt300": (CacheMode.DENSE, 2, 300, 128),
+            "q8q4_b2_prompt300": (CacheMode.COMPRESSED, 2, 300, 256)}
+    results, ok = {}, True
+    for label, (mode, B, T, bucket) in runs.items():
+        eng = dataclasses.replace(_tiny_engine(mode), prefill_bucket=bucket)
+        prompt = np.random.RandomState(B + T).randint(0, 512, (B, T))
+        Tpad = -(-T // bucket) * bucket
+        toks = torch.zeros((B, Tpad), dtype=torch.int64)
+        toks[:, :T] = torch.from_numpy(prompt)
+        logs, stream = {}, None
+        counts0 = _launches()
+        with torch.inference_mode():
+            for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+                impl = make_cache(eng, device=dev)
+                impl.use_pallas = True
+                cache = impl.init(B, torch.float32)
+                logit, cache = llama.prefill(eng.model, params, toks.to(dev), cache, impl,
+                                             T, last_only=True)
+                prefill_w4 = _launches()["w4_matmul"] - counts0["w4_matmul"]
+                out = [logit[:, 0].cpu()]
+                tok = logit[:, 0].argmax(-1)
+                for i in range(1, 30):
+                    if stream is not None:
+                        tok = stream[:, i - 1].to(dev)
+                    logit, cache = llama.decode_step(eng.model, params, tok[:, None],
+                                                     cache, impl, T + i - 1)
+                    out.append(logit[:, 0].cpu())
+                    tok = logit[:, 0].argmax(-1)
+                logs[dev] = torch.stack(out, 1)
+                if stream is None:
+                    stream = logs[dev].argmax(-1)          # the CPU's greedy picks
+        launched = {k: v - counts0[k] for k, v in _launches().items() if v > counts0[k]}
+        _set_launches(counts0)
+        a, b = logs["cpu"], logs["cuda"]
+        err, scale = (a - b).abs().max().item(), a.abs().max().item()
+        L = eng.model.num_layers
+        attn = "flash_decode_attention" if mode == CacheMode.DENSE else "fused_q_decode_attention"
+        want = {"w4_matmul": 7 * L * (29 + (B * Tpad <= 128)), attn: L * 29}
+        results[label] = {"max_abs_err": err, "tol": REFERENCE_W4_TOL * scale,
+                          "greedy_agreement": (a.argmax(-1) == b.argmax(-1)).float().mean().item(),
+                          "launched": launched, "expected_launches": want,
+                          "prefill_w4_launches": prefill_w4}
+        ok &= bool(b.isfinite().all()) and err <= REFERENCE_W4_TOL * scale and launched == want
+    # the engine's per-slot ticks on the dense cache through kernel 4: three
+    # requests over two slots (one waits, a slot idles at -1), each prompt
+    # prefilled alone in a 128-token bucket (kernel 5 at prefill)
+    Recording, _ = _recording_engine()
+    eng = dataclasses.replace(_tiny_engine(CacheMode.DENSE, batch_size=2), prefill_bucket=128)
+    rs = np.random.RandomState(5)
+    reqs = [(rs.randint(0, 512, size=n), m) for n, m in ((40, 8), (100, 12), (70, 6))]
+    counts0 = _launches()
+    cb_runs = {}
+    for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+        cb = Recording(eng, params, dtype=torch.float32, device=dev,
+                       streams=cb_runs["cpu"][0] if dev == "cuda" else None)
+        cb.impl.use_pallas = True
+        for prompt, m in reqs:
+            cb.submit(prompt, m)
+        cb_runs[dev] = (cb.run(), cb.logits, cb.decode_steps)
+    launched = {k: v - counts0[k] for k, v in _launches().items() if v > counts0[k]}
+    _set_launches(counts0)
+    toks, lc, steps = cb_runs["cpu"]
+    lg = cb_runs["cuda"][1]
+    err = max((torch.stack(lc[u]) - torch.stack(lg[u])).abs().max().item() for u in toks)
+    scale = max(torch.stack(lc[u]).abs().max().item() for u in toks)
+    L = eng.model.num_layers
+    want = {"w4_matmul": 7 * L * (steps + len(reqs)), "flash_decode_attention": L * steps}
+    results["dense_engine"] = {"requests": len(reqs), "decode_steps": steps,
+                               "max_abs_err": err, "tol": REFERENCE_W4_TOL * scale,
+                               "launched": launched, "expected_launches": want}
+    ok &= err <= REFERENCE_W4_TOL * scale and launched == want
+    emit("reference_w4", steps=30, runs=results)
+    if not ok:
+        raise AssertionError(f"reference_w4: card and CPU disagree or the kernels were "
+                             f"not launched as expected: {results}")
+
+
+def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=False):
     """One warm-up generation, then the measured one; returns its tokens,
     the launches of every kernel during the measured run (those launched)
-    and the phase's fields."""
+    and the phase's fields.  ``use_pallas`` decodes the dense cache through
+    its flash-decode kernel."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import EngineConfig, LLAMA3_8B, PruneConfig, PruneMethod
@@ -707,6 +1037,7 @@ def serve(label, mode, params, prompt, new_tokens, codec="q8q4"):
                        max_seq_len=1312, prefill_bucket=256, chunk_size=256,
                        codec=codec)
     gen = Generator(eng, params, dtype=torch.bfloat16)
+    gen.cache_impl.use_pallas = use_pallas
     gen.generate(prompt, 4)                                   # warm-up
     gen.last_cache = None
     torch.cuda.synchronize()
@@ -726,6 +1057,8 @@ def serve(label, mode, params, prompt, new_tokens, codec="q8q4"):
               "kernel_launches": launches}
     if mode.value == "compressed":
         fields["codec"] = codec
+    else:
+        fields["use_pallas"] = use_pallas
     cache = gen.last_cache
     if mode.value == "compressed":
         fields["n_chunks_end"] = cache["nc_host"]
@@ -745,12 +1078,13 @@ def serve(label, mode, params, prompt, new_tokens, codec="q8q4"):
     return toks, launches, fields
 
 
-def phase_decode_split(params, kernel_ms, q8q4_s, dense_s, new_tokens):
-    """Device time of the decode step's big parts, each timed alone with
-    CUDA events at B=8 (a GPU-bound stream of launches, so the events read
-    device time): the seven W8 projections of a layer (int8 widened to bf16,
-    then matmul and scale), the LM head, and the attention kernel, beside
-    the wall time per generated token of the two serve runs."""
+def _step_parts(params):
+    """At B=8: the device ms of one layer's seven projections (``proj``: W8
+    widened to bf16, then matmul and scale; W4 through its kernel), each
+    layer timed alone under the spin kernel (a layer's launches enqueue
+    within it, so the events read device time) and averaged over the 32
+    layers; the host us to enqueue one layer's projections; the LM head's
+    device ms."""
     import torch
     from mustafar_tpu_torch.config import LLAMA3_8B as cfg
     from mustafar_tpu_torch.models.llama import _lm_head
@@ -760,36 +1094,67 @@ def phase_decode_split(params, kernel_ms, q8q4_s, dense_s, new_tokens):
     h = torch.randn((8, 1, cfg.hidden_size), generator=g, device="cuda").to(torch.bfloat16)
     hi = torch.randn((8, 1, cfg.intermediate_size), generator=g,
                      device="cuda").to(torch.bfloat16)
+    hq = torch.randn((8, 1, cfg.q_dim), generator=g, device="cuda").to(torch.bfloat16)
     layers = params["layers"]
 
-    def all_layers():
-        for li in range(cfg.num_layers):
-            lp = {name: leaf[li] for name, leaf in layers.items()}
-            for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up"):
-                proj(h, lp, name)
-            proj(hi, lp, "w_down")
+    def layer(li):
+        lp = {name: leaf[li] for name, leaf in layers.items()}
+        for name in ("wq", "wk", "wv", "w_gate", "w_up"):
+            proj(h, lp, name)
+        proj(hq, lp, "wo")
+        proj(hi, lp, "w_down")
 
     with torch.inference_mode():
-        all_layers()
+        layer(0)
         _lm_head(cfg, params, h)
         torch.cuda.synchronize()
-        w8_layer_ms = cuda_ms(all_layers, 3)[0] / cfg.num_layers
+        layer_ms = sum(cuda_ms(lambda li=li: layer(li), 2)[0]
+                       for li in range(cfg.num_layers)) / cfg.num_layers
+        layer_host_us = host_us(lambda: layer(0), 10)
         head_ms = cuda_ms(lambda: _lm_head(cfg, params, h), 5)[0]
+    return layer_ms, layer_host_us, head_ms
+
+
+def phase_decode_split(params, kernel_ms, q8q4_s, dense_s, new_tokens):
+    """Device time of the W8 decode step's big parts, each timed alone: the
+    seven projections of a layer, the LM head and the attention kernel,
+    beside the wall time per generated token of the two serve runs."""
+    from mustafar_tpu_torch.config import LLAMA3_8B as cfg
+    w8_layer_ms, layer_host_us, head_ms = _step_parts(params)
     parts_ms = cfg.num_layers * (w8_layer_ms + kernel_ms) + head_ms
-    emit("decode_split", w8_layer_ms=w8_layer_ms, lm_head_ms=head_ms,
+    emit("decode_split", w8_layer_ms=w8_layer_ms, w8_layer_host_us=layer_host_us,
+         lm_head_ms=head_ms,
          attn_kernel_ms=kernel_ms, w8_head_attention_ms_per_step=parts_ms,
          q8q4_wall_ms_per_token=q8q4_s / new_tokens * 1e3,
          dense_wall_ms_per_token=dense_s / new_tokens * 1e3)
 
 
-def phase_serve_cb(params, codec="q8q4"):
+def phase_decode_split_w4(params, attn_ms, wall_s, new_tokens):
+    """The W4 decode step's parts, as ``decode_split``: a layer's seven W4
+    projections through kernel 5, the W8 LM head, and per cache its
+    attention kernel (q8q4 kernel 1 and bitmap kernel 6 at one chunk and a
+    full window; the dense twin's kernel 4 at pos 599, the run's last
+    step), beside each ``serve_w4_*`` run's wall time per token."""
+    from mustafar_tpu_torch.config import LLAMA3_8B as cfg
+    w4_layer_ms, layer_host_us, head_ms = _step_parts(params)
+    parts = {c: cfg.num_layers * (w4_layer_ms + ms) + head_ms for c, ms in attn_ms.items()}
+    emit("decode_split_w4", w4_layer_ms=w4_layer_ms, w4_layer_host_us=layer_host_us,
+         lm_head_ms=head_ms,
+         attn_kernel_ms=attn_ms, w4_head_attention_ms_per_step=parts,
+         wall_ms_per_token={c: t / new_tokens * 1e3 for c, t in wall_s.items()})
+
+
+def phase_serve_cb(params, codec="q8q4", w4=False):
     """Continuous batching at full Llama-3-8B width and depth: 8 slots, 17
     requests (16 with prompts of 200-1,500 tokens and 32-96 new tokens,
     plus one of 8,000 prompt tokens submitted third), chunked prefill with
     interleaved admission, ``codec`` at 0.7.  Every decode step must launch
     the codec's per-slot kernel once a layer, every segment its segment
     kernel once a layer, and no other kernel may run; every request's first
-    token must equal a batch-1 chunked Generator's on the same prompt."""
+    token must equal a batch-1 chunked Generator's on the same prompt.
+    With ``w4`` (W4 params): the first 8 requests of that stream without
+    the 8,000-token one, and the W4 kernel 7 times a layer in every decode
+    step (a segment's 256 tokens take the dequant route)."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
@@ -805,6 +1170,8 @@ def phase_serve_cb(params, codec="q8q4"):
     reqs = [(rs.randint(1, LLAMA3_8B.vocab_size, size=rs.randint(200, 1501)),
              int(rs.randint(32, 97))) for _ in range(16)]
     reqs.insert(2, (rs.randint(1, LLAMA3_8B.vocab_size, size=8000), 64))
+    if w4:
+        reqs = [r for r in reqs if len(r[0]) != 8000][:8]
     warm = ContinuousBatchingEngine(eng, params)
     for p, _ in reqs[:2]:
         warm.submit(p[:300], 4)
@@ -840,6 +1207,8 @@ def phase_serve_cb(params, codec="q8q4"):
     want = dict.fromkeys(launches, 0)
     want[KERNEL_META[(codec, "decode_ps")][0]] = L * cb.decode_steps
     want[KERNEL_META[(codec, "segment")][0]] = L * cb.segments
+    if w4:
+        want["w4_matmul"] = 7 * L * cb.decode_steps
     seg_expected = sum(-(-len(p) // 256) for p, _ in reqs)
     bad = [u for u, (p, m) in zip(uids, reqs)
            if len(outs[u]) != m or min(outs[u]) < 0 or max(outs[u]) >= LLAMA3_8B.vocab_size]
@@ -853,8 +1222,9 @@ def phase_serve_cb(params, codec="q8q4"):
                               "total_s": sum(v)} for k, v in Timed.split.items()}}
     del gen, cb
     torch.cuda.empty_cache()
-    label = "serve_cb" if codec == "q8q4" else "serve_cb_bitmap"
-    emit(label, model="llama-3-8b x32L, W8 (random, seed 0)", codec=codec, slots=8,
+    label = "serve_cb_w4" if w4 else "serve_cb" if codec == "q8q4" else "serve_cb_bitmap"
+    emit(label, model=f"llama-3-8b x32L, {'W4' if w4 else 'W8'} (random, seed 0)",
+         codec=codec, slots=8,
          requests=len(reqs), prompt_tokens=sum(len(p) for p, _ in reqs),
          generated_tokens=generated, seconds=dt, tok_s=generated / dt,
          peak_mem_gib=peak, **counts, launches=launches, expected_launches=want,
@@ -980,6 +1350,57 @@ def phase_host_split(params):
     emit("host_split", segment_b1=seg_split, decode_tick_b8=tick_split)
 
 
+def serve_w4(entries, prompt, new):
+    """The W4 path at full Llama-3-8B width and depth (``init_params_w4``,
+    seed 0): ``serve_w4_dense`` (the dense cache through kernel 4),
+    ``serve_w4_q8q4`` and ``serve_w4_bitmap``, B=8, 300 + 300 tokens; every
+    decode step launches kernel 5 seven times a layer and the cache's
+    decode kernel once a layer, prefill (4,096 tokens) takes the dequant
+    route; first tokens equal the dense run's.  Then ``decode_split_w4`` and
+    ``serve_cb_w4``."""
+    import torch
+    from mustafar_tpu_torch.config import CacheMode, LLAMA3_8B
+    from mustafar_tpu_torch.models.quant import init_params_w4, weight_bytes
+    t = time.perf_counter()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    params = init_params_w4(LLAMA3_8B, g, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    L = LLAMA3_8B.num_layers
+    steps = new - 1
+    runs = (("serve_w4_dense", CacheMode.DENSE, "q8q4", "flash_decode_attention"),
+            ("serve_w4_q8q4", CacheMode.COMPRESSED, "q8q4", "fused_q_decode_attention"),
+            ("serve_w4_bitmap", CacheMode.COMPRESSED, "bitmap", "fused_sparse_decode_attention"))
+    dense_toks, wall = None, {}
+    for label, mode, codec, attn in runs:
+        toks, launches, fields = serve(label, mode, params, prompt, new, codec=codec,
+                                       use_pallas=mode == CacheMode.DENSE)
+        if dense_toks is None:
+            dense_toks = toks
+        want = {"w4_matmul": 7 * L * steps, attn: L * steps}
+        first_equal = bool((toks[:, 0] == dense_toks[:, 0]).all())
+        emit(label, model="llama-3-8b x32L, W4 (random, seed 0)",
+             weights_gib=weight_bytes(params) / 2 ** 30, weights_init_s=init_s,
+             decode_steps=steps, expected_launches=want, first_token_equal_dense=first_equal,
+             token_agreement_with_dense=(toks == dense_toks).float().mean().item(), **fields)
+        if launches != want or not first_equal:
+            raise AssertionError(f"{label}: launched {launches} (expected {want}), first "
+                                 f"tokens equal the dense run's: {first_equal}")
+        wall[label.removeprefix("serve_w4_")] = fields["seconds"]
+        if mode == CacheMode.DENSE:
+            entries[("dense", "decode")]["launches"] = launches[attn]
+        elif codec == "q8q4":
+            entries[("w4", "matmul")]["launches"] = launches["w4_matmul"]
+    phase_decode_split_w4(params, {"q8q4": entries[("q8q4", "decode")]["kernel_ms"],
+                                   "bitmap": entries[("bitmap", "decode")]["kernel_ms"],
+                                   "dense": entries[("dense", "decode")]["kernel_ms"]},
+                          wall, new)
+    phase_serve_cb(params, "bitmap", w4=True)
+    del params
+    torch.cuda.empty_cache()
+
+
 def main():
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     smi = phase_env()
@@ -987,9 +1408,12 @@ def main():
     entries = {(codec, kind): phase(codec) for codec in ("q8q4", "bitmap")
                for kind, phase in (("decode", phase_kernel), ("decode_ps", phase_kernel_ps),
                                    ("segment", phase_kernel_seg))}
+    entries[("w4", "matmul")] = phase_kernel_w4()
+    entries[("dense", "decode")] = phase_kernel_dense()
     phase_reference()
     phase_reference_cb()
     phase_reference_bitmap()
+    phase_reference_w4()
 
     import numpy as np
     import torch
@@ -1041,6 +1465,16 @@ def main():
     if not first_equal:
         raise AssertionError("bitmap and dense engines disagree on the first token")
     entries[("bitmap", "decode")]["launches"] = expected
+    kernel_toks, launches, fields = serve("serve_dense_kernel", CacheMode.DENSE, params,
+                                          prompt, new, use_pallas=True)
+    first_equal = bool((kernel_toks[:, 0] == dense_toks[:, 0]).all())
+    emit("serve_dense_kernel", decode_steps=decode_steps, expected_launches=expected,
+         first_token_equal_dense=first_equal,
+         token_agreement_with_dense=(kernel_toks == dense_toks).float().mean().item(),
+         **fields)
+    if launches != {"flash_decode_attention": expected} or not first_equal:
+        raise AssertionError(f"serve_dense_kernel: launched {launches} (expected {expected} "
+                             f"of the dense decode kernel), first tokens equal: {first_equal}")
     phase_decode_split(params, entries[("q8q4", "decode")]["kernel_ms"], q8q4_s,
                        dense_s, new)
     for codec in ("q8q4", "bitmap"):
@@ -1049,6 +1483,9 @@ def main():
             entries[(codec, kind)]["launches"] = cb_launches[KERNEL_META[(codec, kind)][0]]
     phase_serve_chunked(params)
     phase_host_split(params)
+    del params
+    torch.cuda.empty_cache()
+    serve_w4(entries, prompt, new)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)

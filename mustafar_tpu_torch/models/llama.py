@@ -74,19 +74,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 
 def _mlp(lp: dict, h: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP.  (The JAX package cuts long prefills into 512-token
-    segments to bound XLA temporaries; the math is per token, so one pass
-    gives the same values.)"""
-    return proj(F.silu(proj(h, lp, "w_gate")) * proj(h, lp, "w_up"), lp, "w_down")
+    """SwiGLU MLP, on the fused ``w_gateup`` when ``quant.fuse_projections``
+    made one.  (The JAX package cuts long prefills into 512-token segments
+    to bound XLA temporaries; the math is per token, so one pass gives the
+    same values.)"""
+    if "w_gateup" in lp:
+        gate, up = proj(h, lp, "w_gateup").chunk(2, dim=-1)
+    else:
+        gate, up = proj(h, lp, "w_gate"), proj(h, lp, "w_up")
+    return proj(F.silu(gate) * up, lp, "w_down")
 
 
 def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin, attend):
     """One decoder layer.  x [B, T, H]; attend(q, k, v) -> out [B, T, Hq, D]."""
     B, T, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-    q = proj(h, lp, "wq").reshape(B, T, cfg.num_heads, cfg.head_dim)
-    k = proj(h, lp, "wk").reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = proj(h, lp, "wv").reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    if "wqkv" in lp:                # fused layout (quant.fuse_projections)
+        q, k, v = proj(h, lp, "wqkv").split([cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
+    else:
+        q, k, v = proj(h, lp, "wq"), proj(h, lp, "wk"), proj(h, lp, "wv")
+    q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = attend(q, k, v)

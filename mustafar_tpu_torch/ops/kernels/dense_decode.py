@@ -1,0 +1,128 @@
+"""Dense flash-decode attention: the CUDA kernel, its plain PyTorch version
+and the wrapper that picks between them by device.
+
+Port of ``mustafar_tpu/ops/kernels/dense_decode.py`` ``flash_decode_attention``
+(Pallas body ``_flash_decode_kernel``), kernel ``csrc/dense_decode.cu``,
+with its options (sliding window, final (m, l)) off.  Each query head
+attends its kv head's cached rows [0, pos] inclusive: the newest token is
+already written.  q, K and V are read as bf16; scores q . k / sqrt(D) in f32;
+one online softmax in steps of ``decode_tile(S)`` tokens, the TPU kernel's
+tiles, so the running max and with it the bf16 rounding of p are those of
+the TPU kernel; p rounded to bf16 for the value product, accumulated in f32,
+out = acc / max(l, 1e-30) in q's dtype.  A slot at pos -1 attends nothing
+and comes out 0.  Layouts: q [B, 1, Hq, D], k/v [B, S, Hkv, D].
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from mustafar_tpu_torch.ops.kernels import quant_attention as qa
+
+MAX_TILE = 512
+
+
+def decode_tile(S: int) -> int:
+    """Tokens per online-softmax step: the TPU kernel's tile (512, halved
+    until it divides S; 32 at S = 1,312, 256 at 8,448)."""
+    ts = min(MAX_TILE, S)
+    while S % ts:
+        ts //= 2
+    return ts
+
+
+def flash_decode_attention_plain(q, k_cache, v_cache, pos):
+    """The kernel's arithmetic in PyTorch, slot by slot and tile by tile
+    (``quant_attention._softmax_step``)."""
+    B, _, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    f32 = torch.float32
+    ts = decode_tile(S)
+    scale = 1.0 / math.sqrt(D)
+    outs = []
+    for b, p in enumerate([pos] * B if isinstance(pos, int) else pos.tolist()):
+        qf = q[b, 0].to(torch.bfloat16).to(f32).reshape(Hkv, G, D)
+        m = torch.full((Hkv, G, 1), qa.NEG_INF, dtype=f32, device=q.device)
+        l = torch.zeros((Hkv, G, 1), dtype=f32, device=q.device)
+        acc = torch.zeros((Hkv, G, D), dtype=f32, device=q.device)
+        n = min(p + 1, S)
+        for t0 in range(0, n, ts):
+            t1 = min(t0 + ts, n)
+            k = k_cache[b, t0:t1].to(torch.bfloat16).to(f32).transpose(0, 1)
+            v = v_cache[b, t0:t1].to(torch.bfloat16).to(f32).transpose(0, 1)
+            m, l, acc = qa._softmax_step(m, l, acc, (qf @ k.transpose(1, 2)) * scale,
+                                         v, None)
+        outs.append((acc / torch.clamp_min(l, 1e-30)).reshape(1, 1, Hq, D))
+    return torch.cat(outs).to(q.dtype)
+
+
+def flash_decode_attention(q, k_cache, v_cache, pos, *, window=None,
+                           return_norm: bool = False):
+    """Dense flash-decode over the post-append cache -> [B, 1, Hq, D] in q's
+    dtype (module note).  ``pos`` is the newest token's index: a host int
+    (uniform batch, -1..S-1) or an int32 tensor [B] on q's device (per
+    slot, read by the kernel, -1 for an idle slot).
+
+    CUDA tensors launch the kernel of ``csrc/dense_decode.cu`` (built at
+    first use) on the current stream, for D = 128 and 1, 2, 4 or 8 query
+    heads a kv head; K and V that are not bf16 are cast first, as the TPU
+    wrapper casts them.  CPU tensors run the plain version.  A CUDA request
+    the kernel cannot serve raises; nothing falls back."""
+    if window is not None:
+        raise NotImplementedError("sliding-window attention is ROADMAP Queue A item 14")
+    if return_norm:
+        raise NotImplementedError("the final softmax stats (m, l) for Opa scoring are "
+                                  "ROADMAP Queue A item 12")
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be [B, 1, Hq, D], got {tuple(q.shape)}")
+    B, _, Hq, D = q.shape
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape or k_cache.shape[0] != B \
+            or k_cache.shape[3] != D:
+        raise ValueError(f"k_cache and v_cache must be [{B}, S, Hkv, {D}], got "
+                         f"{tuple(k_cache.shape)} and {tuple(v_cache.shape)}")
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    if D % 128 or Hq % Hkv:
+        raise ValueError(f"head_dim {D} must be a multiple of 128 and {Hq} query "
+                         f"heads must group over {Hkv} kv heads")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if torch.is_tensor(pos):
+        if tuple(pos.shape) != (B,) or pos.dtype != torch.int32 or pos.device != q.device:
+            raise ValueError(f"per-slot pos must be an int32 tensor [{B}] on {q.device}, "
+                             f"got {pos.dtype} {tuple(pos.shape)} on {pos.device}")
+    else:
+        qa._check_int("pos", pos, -1, S - 1)
+    if q.device.type == "cpu":
+        return flash_decode_attention_plain(q, k_cache, v_cache, pos)
+    stream = qa._stream(q)
+    G = Hq // Hkv
+    if D != 128 or G not in qa._GROUPS:
+        raise NotImplementedError(f"the dense decode kernel takes head_dim 128 and "
+                                  f"{qa._GROUPS} query heads a kv head, got {D}, {G}")
+    qb = q.to(torch.bfloat16).contiguous()
+    kb = k_cache.to(torch.bfloat16)
+    vb = v_cache.to(torch.bfloat16)
+    for name, t in (("k_cache", kb), ("v_cache", vb)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    qa._check_aligned((("q", qb), ("k_cache", kb), ("v_cache", vb)))
+    fn = qa._library("dense_decode", "dense_decode", 5, 8)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    per_slot = torch.is_tensor(pos)
+    rc = fn(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
+            pos.data_ptr() if per_slot else None, int(out.dtype == torch.float32),
+            q.device.index or 0, B * Hkv, Hkv, G, S, decode_tile(S),
+            0 if per_slot else pos, stream)
+    if rc != 0:
+        raise RuntimeError(f"dense_decode launch failed: CUDA error {rc}")
+    flash_decode_attention.launches += 1
+    return out
+
+
+flash_decode_attention.launches = 0

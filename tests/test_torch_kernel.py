@@ -144,9 +144,11 @@ def test_module_imports_and_builds_nothing_without_nvcc(tmp_path):
     for the library where there is no nvcc raises (no fallback)."""
     code = (
         "import mustafar_tpu_torch.ops.kernels.quant_attention as qa\n"
+        "import mustafar_tpu_torch.ops.kernels.w4_matmul\n"
+        "import mustafar_tpu_torch.ops.kernels.dense_decode\n"
         "from mustafar_tpu_torch.ops.kernels import build\n"
         "assert build._LIBS == {}\n"
-        "for name in ('q_decode', 'q_decode_ps', 'q_segment'):\n"
+        "for name in ('q_decode', 'q_decode_ps', 'q_segment', 'w4_matmul', 'dense_decode'):\n"
         "    try:\n"
         "        build.load(name)\n"
         "    except RuntimeError as e:\n"
