@@ -5,10 +5,11 @@
 Phases, each printing one flushed JSON line with its ``phase`` and
 ``elapsed_s``:
   env           torch / CUDA versions, the card's name and power limit
-  build         nvcc builds the seven kernel libraries at once (csrc/q_decode.cu,
+  build         nvcc builds the eight kernel libraries at once (csrc/q_decode.cu,
                 csrc/q_decode_ps.cu, csrc/q_segment.cu, csrc/sp_decode.cu: the
                 bitmap uniform and per-slot entries, csrc/sp_segment.cu,
-                csrc/w4_matmul.cu, csrc/dense_decode.cu)
+                csrc/w4_matmul.cu, csrc/dense_decode.cu,
+                csrc/prune_quant_pack.cu) and prints ptxas per instance
   kernel        the uniform decode kernel against its plain PyTorch version on
                 the card, at the flagship per-layer shapes (B=8, Hq=32, Hkv=8,
                 mc=5), with its time beside the plain version's and its bound
@@ -17,11 +18,18 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 0/1/44/288, an idle slot), groups 1/2/4/8
   kernel_seg    the segment kernel likewise: Tseg=256, G=4, B = 1 and 2,
                 n_chunks 0/1/4/31; timed at 31 chunks
+  kernel_q8, kernel_ps_q8, kernel_seg_q8, and the same for q4q4
+                the three phases above at the codecs q8 and q4q4
   kernel_sp, kernel_sp_ps, kernel_sp_seg
                 the bitmap codec's three kernels likewise, at the shapes of
                 the three phases above, over real packed chunks (random bf16
                 K and V pruned and encoded on the card) at sparsity 0.7, and
                 0.5 (zero pads in the rows)
+  kernel_pack   the prune + quantize + pack kernel (TPU kernel 9) against its
+                plain version, bit-equal: 64 and 8 head-chunks of 256 tokens,
+                bits 8 and 4, keep 40/14/128, ties, a zero row, the score
+                option and the cache's strided views; timed beside its byte
+                bound and the plain chain
   kernel_w4     the W4 matmul kernel against its plain version at every
                 Llama-3-8B projection shape and the fused wqkv / w_gateup, T = 8
                 and 32 (and 1, 13, 100, 128 at one shape), timed beside its byte
@@ -35,12 +43,15 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 admission, a slot retired and reused) likewise
   reference_bitmap
                 the two reference runs above with the bitmap codec
+  reference_q   the two reference runs above with the codecs q8 and q4q4
   reference_w4  a tiny W4 model, card (kernel 5, and kernel 4 for the dense
                 cache with use_pallas, or the q8q4 kernel) against CPU
   serve_q8q4    full-width, 32-layer Llama-3-8B with random W8 weights made
                 on the card: Generator.generate, B=8, prompt 300, 300 new
                 tokens, q8q4 compressed cache (one compaction on the way);
-                every decode step must launch the kernel once per layer
+                every decode step must launch the kernel once per layer, and
+                kernel 9 twice a layer (K and V) for prefill's chunk and the
+                compaction's: 128 launches
   serve_dense   the same prompts through the dense baseline cache
   serve_bitmap  serve_q8q4 with the bitmap codec (the JAX package's default):
                 bitmap decode kernel launches = 32 x 299; first tokens =
@@ -49,6 +60,9 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 serve_dense with use_pallas: the dense cache through its
                 flash-decode kernel, 32 launches a step; first tokens =
                 serve_dense's
+  serve_q8, serve_q4q4
+                serve_q8q4 with the codecs q8 and q4q4 (the same launch
+                counts); first tokens = serve_dense's
   decode_split  device time of a decode step's W8 projections, LM head and
                 attention kernel, each timed alone, beside the step's wall time
   serve_cb      the continuous-batching engine at full width: 8 slots, 17
@@ -58,6 +72,9 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 Generator's
   serve_cb_bitmap
                 serve_cb with the bitmap codec
+  serve_cb_q4q4 serve_cb with the q4q4 codec on its first 8 requests
+                without the 8,000-token one; kernel 9 twice a layer for every
+                chunk a prompt packs and every compaction (q8q4 and q4q4)
   serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64
   host_split    one segment (B=1) and one decode tick (8 slots): host enqueue
                 time, wall time, device time and kernels launched
@@ -171,11 +188,13 @@ def phase_env():
 
 
 KERNEL_LIBS = ("q_decode", "q_decode_ps", "q_segment", "sp_decode", "sp_segment",
-               "w4_matmul", "dense_decode")
+               "w4_matmul", "dense_decode", "prune_quant_pack")
+# (kbits, vbits) of the quant codecs, which kernels 1-3 and 9 serve
+QUANT_BITS = {"q8": (8, 8), "q8q4": (8, 4), "q4q4": (4, 4)}
 
 
 def phase_build():
-    """nvcc builds the seven kernel libraries at once, one process each."""
+    """nvcc builds the eight kernel libraries at once, one process each."""
     from concurrent.futures import ThreadPoolExecutor
     from mustafar_tpu_torch.ops.kernels import build
     t = time.perf_counter()
@@ -194,7 +213,7 @@ class _Kit:
     call them: ``decode(q, n_chunks, win_len, li)`` and ``decode_ps``,
     ``segment(q_seg, n_chunks, li)`` and the plain versions beside each;
     ``chunk_bytes`` is what one pool chunk of one kv head holds (rows and,
-    for q8q4, scales)."""
+    for the quant codecs, scales)."""
 
     def __init__(self, codec, g, dev, L, mc, BH, W, sparsity=0.7):
         import torch
@@ -206,29 +225,32 @@ class _Kit:
         self.k_win = torch.randn((L, BH, W, 128), generator=g, device=dev).to(torch.bfloat16)
         self.v_win = torch.randn((L, BH, W, 128), generator=g, device=dev).to(torch.bfloat16)
         kw, vw = self.k_win, self.v_win
-        if codec == "q8q4":
-            # every int16 bit pattern is a valid q8q4 code; scales 0.002-0.02
-            pool = torch.randint(-32768, 32768, (L, mc, BH, 192, 128), generator=g,
+        if codec in QUANT_BITS:
+            # every int16 bit pattern is a valid set of int8 or int4 codes;
+            # scales 0.002-0.02
+            qc = qf.QuantCodec(256, 128, *QUANT_BITS[codec])
+            rows = qc.stream_rows
+            pool = torch.randint(-32768, 32768, (L, mc, BH, rows, 128), generator=g,
                                  device=dev, dtype=torch.int32).to(torch.int16)
             scales = (0.002 + 0.018 * torch.rand((L, mc, BH, 2, 128), generator=g,
                                                  device=dev)).to(torch.bfloat16)
-            qc = qf.QuantCodec(256, 128, 8, 4)
-            self.chunk_bytes = 192 * 128 * 2 + 2 * 128 * 2
+            self.chunk_bytes = rows * 128 * 2 + 2 * 128 * 2
             self.fns = {"decode": qa.fused_q_decode_attention,
                         "decode_ps": qa.fused_q_decode_attention_ps,
                         "segment": qa.fused_q_segment_attention}
             self.decode = lambda q, nc, wl, li: qa.fused_q_decode_attention(
                 q, pool, scales, kw, vw, nc, wl, li, qc)
             self.decode_plain = lambda q, nc, wl, li: qa.fused_q_decode_attention_plain(
-                q, pool, scales, kw, vw, nc, wl, li)
+                q, pool, scales, kw, vw, nc, wl, li, qc)
             self.decode_ps = lambda q, nc, wl, li: qa.fused_q_decode_attention_ps(
                 q, pool, scales, kw, vw, nc, wl, li, qc)
             self.decode_ps_plain = lambda q, nc, wl, li: \
-                qa.fused_q_decode_attention_ps_plain(q, pool, scales, kw, vw, nc, wl, li)
+                qa.fused_q_decode_attention_ps_plain(q, pool, scales, kw, vw, nc, wl, li,
+                                                     qc)
             self.segment = lambda q, nc, li: qa.fused_q_segment_attention(
                 q, pool, scales, nc, nc * 256, li, qc)
             self.segment_plain = lambda q, nc, li: qa.fused_q_segment_attention_plain(
-                q, pool, scales, nc, li)
+                q, pool, scales, nc, li, qc)
             return
         # bitmap: real packed chunks, random bf16 K and V pruned to the
         # format's keep and encoded on the card (a stream of random bits
@@ -258,14 +280,15 @@ class _Kit:
             q, pool, nc, li, fmt, fmt)
 
 
-# the kernels line's fixed fields, by codec and kernel
+# the kernels line's fixed fields, by codec family and kernel
 KERNEL_META = {
-    ("q8q4", "decode"): ("fused_q_decode_attention", "q_decode.cu",
-                         "quant_attention.py:223"),
-    ("q8q4", "decode_ps"): ("fused_q_decode_attention_ps", "q_decode_ps.cu",
-                            "quant_attention.py:516"),
-    ("q8q4", "segment"): ("fused_q_segment_attention", "q_segment.cu",
-                          "quant_attention.py:704"),
+    ("quant", "decode"): ("fused_q_decode_attention", "q_decode.cu",
+                          "quant_attention.py:223"),
+    ("quant", "decode_ps"): ("fused_q_decode_attention_ps", "q_decode_ps.cu",
+                             "quant_attention.py:516"),
+    ("quant", "segment"): ("fused_q_segment_attention", "q_segment.cu",
+                           "quant_attention.py:704"),
+    ("quant", "pack"): ("prune_quant_pack", "prune_quant_pack.cu", "pack_kernel.py:101"),
     ("bitmap", "decode"): ("fused_sparse_decode_attention", "sp_decode.cu",
                            "sparse_attention.py:896"),
     ("bitmap", "decode_ps"): ("fused_sparse_decode_attention_ps", "sp_decode.cu",
@@ -277,8 +300,22 @@ KERNEL_META = {
 }
 
 
+def _meta(codec, kind):
+    return KERNEL_META[("quant" if codec in QUANT_BITS else codec, kind)]
+
+
+def _phase_label(base, codec):
+    """The phase's name: ``kernel``... for q8q4 (the names of earlier runs),
+    ``kernel_sp``... for bitmap, ``kernel..._q8`` / ``_q4q4`` else."""
+    if codec == "q8q4":
+        return base
+    if codec == "bitmap":
+        return base.replace("kernel", "kernel_sp", 1)
+    return f"{base}_{codec}"
+
+
 def _entry(codec, kind, results, worst, tol, kernel_ms, plain_ms, bytes_ms, flops_ms):
-    name, src, tpu = KERNEL_META[(codec, kind)]
+    name, src, tpu = _meta(codec, kind)
     return {"name": name, "route": "cuda", "source": f"mustafar_tpu_torch/csrc/{src}",
             "replaces": f"mustafar_tpu/ops/kernels/{tpu}", "launches": None,
             "max_abs_err": max(r.get("max_abs_err", 0.0) for r in results),
@@ -301,7 +338,7 @@ def phase_kernel(codec="q8q4"):
     B, Hq, Hkv, L, mc, W, D = 8, 32, 8, 4, 5, 288, 128
     BH = B * Hkv
     kits = [_Kit(codec, g, dev, L, mc, BH, W, sp)
-            for sp in ((0.7,) if codec == "q8q4" else (0.7, 0.5))]
+            for sp in ((0.7,) if codec in QUANT_BITS else (0.7, 0.5))]
     q = torch.randn((B, 1, Hq, D), generator=g, device=dev).to(torch.bfloat16)
     cases = [(0, 1, 0), (0, 44, L - 1), (0, 288, 0), (mc, 288, L - 1), (mc, 1, 0),
              (1, 44, 0), (1, 288, L - 1), (2, 88, 0)]
@@ -354,7 +391,7 @@ def phase_kernel(codec="q8q4"):
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     flops_ms = flops / H100_F32_FLOPS * 1e3
     fn.launches = launches0                               # comparisons do not count
-    emit("kernel" if codec == "q8q4" else "kernel_sp",
+    emit(_phase_label("kernel", codec), codec=codec,
          shapes={"B": B, "Hq": Hq, "Hkv": Hkv, "L": L, "mc": mc, "W": W},
          cases=results, kernel_ms=kernel_ms, kernel_ms_l2_hot=hot_ms,
          kernel_ms_full_pool=full_ms, plain_ms=plain_ms, host_behind=behind,
@@ -382,7 +419,7 @@ def phase_kernel_ps(codec="q8q4"):
     B, Hkv, L, mc, W, D = 8, 8, 4, 32, 288, 128
     BH = B * Hkv
     kits = [_Kit(codec, g, dev, L, mc, BH, W, sp)
-            for sp in ((0.7,) if codec == "q8q4" else (0.7, 0.5))]
+            for sp in ((0.7,) if codec in QUANT_BITS else (0.7, 0.5))]
     slots = [(0, 0), (0, 1), (1, 44), (2, 288), (5, 288), (5, 1), (1, 0), (31, 288)]
     light = slots[:-1] + [(2, 44)]          # the slots timed before mc = 32
 
@@ -448,7 +485,7 @@ def phase_kernel_ps(codec="q8q4"):
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     flops_ms = flops / H100_F32_FLOPS * 1e3
     fn.launches = launches0                               # comparisons do not count
-    emit("kernel_ps" if codec == "q8q4" else "kernel_sp_ps",
+    emit(_phase_label("kernel_ps", codec), codec=codec,
          shapes={"B": B, "Hq": 4 * Hkv, "Hkv": Hkv, "L": L, "mc": mc, "W": W},
          slots=slots, cases=results, worst_err_over_tol=worst, kernel_ms=kernel_ms,
          kernel_ms_light_slots=light_ms, light_slots=light, plain_ms=plain_ms,
@@ -472,7 +509,7 @@ def phase_kernel_seg(codec="q8q4"):
     fn = None
     results, worst = [], 0.0
     kits = {}
-    runs = [(1, 0.7), (2, 0.7)] + ([] if codec == "q8q4" else [(1, 0.5)])
+    runs = [(1, 0.7), (2, 0.7)] + ([] if codec in QUANT_BITS else [(1, 0.5)])
     for B, sparsity in runs:
         kit = _Kit(codec, g, dev, L, mc, B * Hkv, 8, sparsity)
         kits[(B, sparsity)] = kit
@@ -529,7 +566,7 @@ def phase_kernel_seg(codec="q8q4"):
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     flops_ms = flops / H100_BF16_FLOPS * 1e3
     fn.launches = launches0
-    emit("kernel_seg" if codec == "q8q4" else "kernel_sp_seg",
+    emit(_phase_label("kernel_seg", codec), codec=codec,
          shapes={"Tseg": T, "Hq": Hq, "Hkv": Hkv, "L": L, "mc": mc},
          cases=results, worst_err_over_tol=worst,
          timed_at={"B": B, "n_chunks": nc, "sparsity": kit.sparsity},
@@ -540,6 +577,102 @@ def phase_kernel_seg(codec="q8q4"):
     return _entry(codec, "segment", results, worst,
                   max(r.get("tol", 0.0) for r in results),
                   kernel_ms, plain_ms, bytes_ms, flops_ms)
+
+
+PACK_NO_LIBRARY = ("no single PyTorch call computes an exact top-k with ties to the "
+                   "lower channel plus quantize plus pack (torch.topk orders ties "
+                   "arbitrarily)")
+
+
+def phase_kernel_pack():
+    """Kernel 9 against its plain version on the card, bit-equal (rows and
+    scales, zero tolerance): B*Hkv = 64 and 8 head-chunks of C = 256, bits 8
+    and 4, keep 40 (sparsity 0.7), 14 and 128, with injected ties (channel
+    10 = channel 90, a row of equal magnitudes, a row of two values), an
+    all-zero row and, at 64, the f32 score option; also the cache's strided
+    case (a [B, T, Hkv, 128] prompt slice in, the pool slot's K rows and the
+    scales' K column out).  Timed L2-flushed at the serving shapes (64
+    head-chunks, K at 8 bits and V at 4, keep 40; 8 head-chunks for the
+    engine's B=1 segment; and at keep 128, which skips the bisection) beside
+    the byte bound and the plain chain."""
+    import torch
+    from mustafar_tpu_torch.ops.kernels import pack_kernel as pk
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    C, D = 256, 128
+    fn = pk.prune_quant_pack
+    launches0 = fn.launches
+
+    def chunk(BH):
+        x = (0.3 * torch.randn((BH, C, D), generator=g, device=dev)).to(torch.bfloat16)
+        x[:, :, 10] = x[:, :, 90]                    # ties across channels
+        x[:, 5, :] = 0                                # an all-zero row
+        x[:, 7, :] = 0.5                              # a row of equal magnitudes
+        x[:, 9, :] = torch.where(torch.arange(D, device=dev) % 2 == 0, 0.25, -0.75)
+        return x
+
+    results = []
+
+    def check(label, x, keep, bits, score=None, rows_out=None, scales_out=None):
+        got = fn(x, keep, bits, score, rows_out=rows_out, scales_out=scales_out)
+        torch.cuda.synchronize()
+        want = pk.prune_quant_pack_plain(x, keep, bits, score)
+        rows_eq = torch.equal(got[0], want[0])
+        sc_eq = torch.equal(got[1].view(torch.int16), want[1].view(torch.int16))
+        diff = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
+        results.append({"case": label, "keep": keep, "bits": bits,
+                        "score": score is not None, "rows_equal": rows_eq,
+                        "scales_equal": sc_eq, "elements_differing": diff})
+        if not (rows_eq and sc_eq):
+            raise AssertionError(f"prune_quant_pack disagrees with its plain version: "
+                                 f"{results[-1]}")
+
+    for BH in (64, 8):
+        x = chunk(BH)
+        score = torch.rand((BH, C, D), generator=g, device=dev)
+        for bits in (8, 4):
+            for keep in (40, 14, 128):
+                check(f"BH={BH}", x, keep, bits)
+            if BH == 64:
+                check(f"BH={BH}", x, 40, bits, score)
+    # the cache's layouts: a prompt slice [B, Hkv, C, D] (strides of
+    # [B, T, Hkv, D]) into the pool slot's K rows and the scales' K column
+    B, Hkv, T = 8, 8, 512
+    k = (0.3 * torch.randn((B, T, Hkv, D), generator=g, device=dev)).to(torch.bfloat16)
+    kh = k.transpose(1, 2)[:, :, 256:512]
+    pool = torch.zeros((B, Hkv, 192, D), dtype=torch.int16, device=dev)
+    sc = torch.zeros((B, Hkv, 2, D), dtype=torch.bfloat16, device=dev)
+    check("strided", kh, 40, 8, rows_out=pool[:, :, :128], scales_out=sc[:, :, 0])
+    if not ((pool[:, :, 128:] == 0).all() and (sc[:, :, 1] == 0).all()):
+        raise AssertionError("prune_quant_pack wrote outside its output views")
+
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timed = {}
+    # keep 128 skips the bisection: the difference is its share
+    for BH, bits, keep in ((64, 8, 40), (64, 4, 40), (8, 8, 40), (64, 8, 128)):
+        x = chunk(BH)
+        for _ in range(5):
+            fn(x, keep, bits)
+        torch.cuda.synchronize()
+        kernel_ms, behind = cuda_ms(lambda: fn(x, keep, bits), 50, flush=flush_buf.zero_)
+        plain_ms, _ = cuda_ms(lambda: pk.prune_quant_pack_plain(x, keep, bits), 5,
+                              flush=flush_buf.zero_, spin=False)
+        nbytes = BH * C * D * 2 + BH * (C * bits // 16) * D * 2 + BH * D * 2
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        timed[f"BH{BH}_bits{bits}" + ("" if keep == 40 else f"_keep{keep}")] = {
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bytes_ms,
+            "bytes": nbytes, "host_behind": behind,
+            "wrapper_host_us": host_us(lambda: fn(x, keep, bits), 50)}
+    fn.launches = launches0                               # comparisons do not count
+    emit("kernel_pack", C=C, cases=results, timed=timed, library_ms=None,
+         library_note=PACK_NO_LIBRARY)
+    t = timed["BH64_bits8"]
+    entry = _entry("q8q4", "pack", results, 0.0, "bit-equal (rows and scales)",
+                   t["kernel_ms"], t["plain_ms"], t["bound_ms"], 0.0)
+    entry.update(max_abs_err=0.0, timed_at="B*Hkv=64, C=256, K at 8 bits, keep 40",
+                 library_note=PACK_NO_LIBRARY)
+    return entry
 
 
 # every Llama-3-8B projection (wk and wv share 4096 -> 1024, w_gate and w_up
@@ -751,6 +884,7 @@ def _tiny_engine(mode, codec="q8q4", **kw):
 def _counters():
     """The launch count of every kernel wrapper, by name."""
     from mustafar_tpu_torch.ops.kernels import dense_decode as dd
+    from mustafar_tpu_torch.ops.kernels import pack_kernel as pk
     from mustafar_tpu_torch.ops.kernels import quant_attention as qa
     from mustafar_tpu_torch.ops.kernels import sparse_attention as ska
     from mustafar_tpu_torch.ops.kernels import w4_matmul as w4
@@ -758,7 +892,7 @@ def _counters():
         qa.fused_q_decode_attention, qa.fused_q_decode_attention_ps,
         qa.fused_q_segment_attention, ska.fused_sparse_decode_attention,
         ska.fused_sparse_decode_attention_ps, ska.fused_sparse_segment_attention,
-        w4.w4_matmul, dd.flash_decode_attention)}
+        w4.w4_matmul, dd.flash_decode_attention, pk.prune_quant_pack)}
 
 
 def _launches():
@@ -915,6 +1049,26 @@ def phase_reference_bitmap():
                              f"{cb['launched']}")
 
 
+def phase_reference_q():
+    """``reference`` and ``reference_cb`` with the codecs q8 and q4q4: the
+    Generator's decode path (kernel 1, and kernel 9 at prefill) and the
+    engine (kernels 2, 3 and 9) on the card against the plain versions on
+    the CPU, logits within 1e-2 of their range.  Each run must have
+    launched exactly its codec's kernels.  Returns the engine runs'
+    launches by codec."""
+    runs = {codec: (phase_reference(codec), phase_reference_cb(codec))
+            for codec in ("q8", "q4q4")}
+    emit("reference_q", **{c: {"generator": gen, "engine": cb}
+                           for c, (gen, cb) in runs.items()})
+    for codec, (gen, cb) in runs.items():
+        if set(gen["launched"]) != {"fused_q_decode_attention", "prune_quant_pack"} or set(
+                cb["launched"]) != {"fused_q_decode_attention_ps",
+                                    "fused_q_segment_attention", "prune_quant_pack"}:
+            raise AssertionError(f"reference_q ({codec}): launched {gen['launched']} and "
+                                 f"{cb['launched']}")
+    return {codec: cb["launched"] for codec, (_, cb) in runs.items()}
+
+
 REFERENCE_W4_TOL = 3e-2   # of the logits' range (see phase_reference_w4)
 
 
@@ -983,6 +1137,8 @@ def phase_reference_w4():
         L = eng.model.num_layers
         attn = "flash_decode_attention" if mode == CacheMode.DENSE else "fused_q_decode_attention"
         want = {"w4_matmul": 7 * L * (29 + (B * Tpad <= 128)), attn: L * 29}
+        if mode == CacheMode.COMPRESSED:
+            want["prune_quant_pack"] = 2 * L      # prefill's one chunk, K and V
         results[label] = {"max_abs_err": err, "tol": REFERENCE_W4_TOL * scale,
                           "greedy_agreement": (a.argmax(-1) == b.argmax(-1)).float().mean().item(),
                           "launched": launched, "expected_launches": want,
@@ -1144,7 +1300,7 @@ def phase_decode_split_w4(params, attn_ms, wall_s, new_tokens):
          wall_ms_per_token={c: t / new_tokens * 1e3 for c, t in wall_s.items()})
 
 
-def phase_serve_cb(params, codec="q8q4", w4=False):
+def phase_serve_cb(params, codec="q8q4", w4=False, first8=False):
     """Continuous batching at full Llama-3-8B width and depth: 8 slots, 17
     requests (16 with prompts of 200-1,500 tokens and 32-96 new tokens,
     plus one of 8,000 prompt tokens submitted third), chunked prefill with
@@ -1152,9 +1308,12 @@ def phase_serve_cb(params, codec="q8q4", w4=False):
     the codec's per-slot kernel once a layer, every segment its segment
     kernel once a layer, and no other kernel may run; every request's first
     token must equal a batch-1 chunked Generator's on the same prompt.
-    With ``w4`` (W4 params): the first 8 requests of that stream without
-    the 8,000-token one, and the W4 kernel 7 times a layer in every decode
-    step (a segment's 256 tokens take the dequant route)."""
+    A quant codec's engine packs through kernel 9: twice a layer (K and V)
+    for every chunk a prompt packs and every compaction (one
+    ``compact_slots`` call packs all the slots it names).  With ``first8``:
+    the first 8 requests of that stream without the 8,000-token one.  With
+    ``w4`` (W4 params; implies ``first8``): the W4 kernel 7 times a layer in
+    every decode step (a segment's 256 tokens take the dequant route)."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
@@ -1170,7 +1329,7 @@ def phase_serve_cb(params, codec="q8q4", w4=False):
     reqs = [(rs.randint(1, LLAMA3_8B.vocab_size, size=rs.randint(200, 1501)),
              int(rs.randint(32, 97))) for _ in range(16)]
     reqs.insert(2, (rs.randint(1, LLAMA3_8B.vocab_size, size=8000), 64))
-    if w4:
+    if w4 or first8:
         reqs = [r for r in reqs if len(r[0]) != 8000][:8]
     warm = ContinuousBatchingEngine(eng, params)
     for p, _ in reqs[:2]:
@@ -1194,6 +1353,14 @@ def phase_serve_cb(params, codec="q8q4", w4=False):
             self.split[kind.rstrip("+")].append(time.perf_counter() - t0)
 
     cb = Timed(eng, params)
+    compactions = [0]
+    compact_slots = cb.impl.compact_slots
+
+    def counted(state, do):
+        compactions[0] += any(do)
+        return compact_slots(state, do)
+
+    cb.impl.compact_slots = counted
     uids = [cb.submit(p, m) for p, m in reqs]
     _set_launches(dict.fromkeys(_counters(), 0))
     t = time.perf_counter()
@@ -1205,8 +1372,11 @@ def phase_serve_cb(params, codec="q8q4", w4=False):
     L = LLAMA3_8B.num_layers
     generated = sum(len(outs[u]) for u in uids)
     want = dict.fromkeys(launches, 0)
-    want[KERNEL_META[(codec, "decode_ps")][0]] = L * cb.decode_steps
-    want[KERNEL_META[(codec, "segment")][0]] = L * cb.segments
+    want[_meta(codec, "decode_ps")[0]] = L * cb.decode_steps
+    want[_meta(codec, "segment")[0]] = L * cb.segments
+    prompt_chunks = sum(max(len(p) - 32, 0) // 256 for p, _ in reqs)
+    if codec in QUANT_BITS:
+        want["prune_quant_pack"] = 2 * L * (prompt_chunks + compactions[0])
     if w4:
         want["w4_matmul"] = 7 * L * cb.decode_steps
     seg_expected = sum(-(-len(p) // 256) for p, _ in reqs)
@@ -1217,12 +1387,14 @@ def phase_serve_cb(params, codec="q8q4", w4=False):
     first_equal = [int(gen.generate(p[None], 1)[0][0]) == int(outs[u][0])
                    for u, (p, _) in zip(uids, reqs)]
     counts = {"ticks": cb.ticks, "decode_steps": cb.decode_steps,
-              "segments": cb.segments,
+              "segments": cb.segments, "prompt_chunks": prompt_chunks,
+              "compactions": compactions[0],
               "tick_ms": {k: {"n": len(v), "mean": 1e3 * sum(v) / max(len(v), 1),
                               "total_s": sum(v)} for k, v in Timed.split.items()}}
     del gen, cb
     torch.cuda.empty_cache()
-    label = "serve_cb_w4" if w4 else "serve_cb" if codec == "q8q4" else "serve_cb_bitmap"
+    label = ("serve_cb_w4" if w4 else "serve_cb" if codec == "q8q4"
+             else f"serve_cb_{codec}")
     emit(label, model=f"llama-3-8b x32L, {'W4' if w4 else 'W8'} (random, seed 0)",
          codec=codec, slots=8,
          requests=len(reqs), prompt_tokens=sum(len(p) for p, _ in reqs),
@@ -1379,6 +1551,8 @@ def serve_w4(entries, prompt, new):
         if dense_toks is None:
             dense_toks = toks
         want = {"w4_matmul": 7 * L * steps, attn: L * steps}
+        if mode == CacheMode.COMPRESSED and codec in QUANT_BITS:
+            want["prune_quant_pack"] = serve_packs()
         first_equal = bool((toks[:, 0] == dense_toks[:, 0]).all())
         emit(label, model="llama-3-8b x32L, W4 (random, seed 0)",
              weights_gib=weight_bytes(params) / 2 ** 30, weights_init_s=init_s,
@@ -1401,18 +1575,50 @@ def serve_w4(entries, prompt, new):
     torch.cuda.empty_cache()
 
 
+def serve_packs():
+    """Kernel 9 launches of a ``serve`` run of a quant codec: K and V of
+    every layer for prefill's one chunk (300 - 32 tokens) and the one
+    compaction (after decode step 244)."""
+    from mustafar_tpu_torch.config import LLAMA3_8B
+    return 2 * LLAMA3_8B.num_layers * 2
+
+
+QUANT_KINDS = ("decode", "decode_ps", "segment")
+
+
+def _merge_codecs(entries, other, note):
+    """The kernels line keeps one entry per kernel: kernels 1-3 carry q8q4's
+    numbers at the top and each codec's under ``codecs``."""
+    keys = ("launches", "max_abs_err", "worst_err_over_tol", "ms", "plain_ms",
+            "bound_ms", "bound_by")
+    for kind in QUANT_KINDS:
+        e = entries[("q8q4", kind)]
+        e["codecs"] = {c: {k: x[k] for k in keys}
+                       for c, x in (("q8q4", e), ("q8", other[("q8", kind)]),
+                                    ("q4q4", other[("q4q4", kind)]))}
+        e["max_abs_err"] = max(v["max_abs_err"] for v in e["codecs"].values())
+        e["worst_err_over_tol"] = max(v["worst_err_over_tol"] for v in e["codecs"].values())
+        e["timed_at"] = "q8q4 at the top; each codec under codecs"
+        e["launches_note"] = note
+
+
 def main():
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     smi = phase_env()
     phase_build()
+    kinds = (("decode", phase_kernel), ("decode_ps", phase_kernel_ps),
+             ("segment", phase_kernel_seg))
     entries = {(codec, kind): phase(codec) for codec in ("q8q4", "bitmap")
-               for kind, phase in (("decode", phase_kernel), ("decode_ps", phase_kernel_ps),
-                                   ("segment", phase_kernel_seg))}
+               for kind, phase in kinds}
+    other = {(codec, kind): phase(codec) for codec in ("q8", "q4q4")
+             for kind, phase in kinds}
+    entries[("q8q4", "pack")] = phase_kernel_pack()
     entries[("w4", "matmul")] = phase_kernel_w4()
     entries[("dense", "decode")] = phase_kernel_dense()
     phase_reference()
     phase_reference_cb()
     phase_reference_bitmap()
+    q_engine_launches = phase_reference_q()
     phase_reference_w4()
 
     import numpy as np
@@ -1432,13 +1638,15 @@ def main():
     sparse_toks, launches, fields = serve("serve_q8q4", CacheMode.COMPRESSED,
                                           params, prompt, new)
     q8q4_s = fields["seconds"]
+    want = {"fused_q_decode_attention": expected, "prune_quant_pack": serve_packs()}
     emit("serve_q8q4", model="llama-3-8b x32L, W8 (random, seed 0)",
          weights_gib=weight_bytes(params) / 2 ** 30, weights_init_s=init_s,
-         decode_steps=decode_steps, expected_launches=expected, **fields)
-    if launches != {"fused_q_decode_attention": expected}:
-        raise AssertionError(f"kernels launched {launches}, expected {expected} = "
-                             f"32 layers x {decode_steps} steps of the q8q4 kernel")
+         decode_steps=decode_steps, expected_launches=want, **fields)
+    if launches != want:
+        raise AssertionError(f"kernels launched {launches}, expected {want}: 32 layers x "
+                             f"{decode_steps} steps of the decode kernel, and kernel 9")
     entries[("q8q4", "decode")]["launches"] = expected
+    entries[("q8q4", "pack")]["launches"] = launches["prune_quant_pack"]
     dense_toks, dense_launches, fields = serve("serve_dense", CacheMode.DENSE,
                                                params, prompt, new)
     if dense_launches:
@@ -1475,12 +1683,35 @@ def main():
     if launches != {"flash_decode_attention": expected} or not first_equal:
         raise AssertionError(f"serve_dense_kernel: launched {launches} (expected {expected} "
                              f"of the dense decode kernel), first tokens equal: {first_equal}")
+    for codec in ("q8", "q4q4"):
+        label = f"serve_{codec}"
+        toks, launches, fields = serve(label, CacheMode.COMPRESSED, params, prompt, new,
+                                       codec=codec)
+        want = {"fused_q_decode_attention": expected, "prune_quant_pack": serve_packs()}
+        first_equal = bool((toks[:, 0] == dense_toks[:, 0]).all())
+        emit(label, decode_steps=decode_steps, expected_launches=want,
+             first_token_equal_dense=first_equal,
+             token_agreement_with_q8q4=(toks == sparse_toks).float().mean().item(),
+             token_agreement_with_dense=(toks == dense_toks).float().mean().item(),
+             **fields)
+        if launches != want or not first_equal:
+            raise AssertionError(f"{label}: launched {launches} (expected {want}), first "
+                                 f"tokens equal the dense run's: {first_equal}")
+        other[(codec, "decode")]["launches"] = expected
     phase_decode_split(params, entries[("q8q4", "decode")]["kernel_ms"], q8q4_s,
                        dense_s, new)
     for codec in ("q8q4", "bitmap"):
         cb_launches = phase_serve_cb(params, codec)
         for kind in ("decode_ps", "segment"):
-            entries[(codec, kind)]["launches"] = cb_launches[KERNEL_META[(codec, kind)][0]]
+            entries[(codec, kind)]["launches"] = cb_launches[_meta(codec, kind)[0]]
+    cb_launches = phase_serve_cb(params, "q4q4", first8=True)
+    for kind in ("decode_ps", "segment"):
+        name = _meta("q4q4", kind)[0]
+        other[("q4q4", kind)]["launches"] = cb_launches[name]
+        other[("q8", kind)]["launches"] = q_engine_launches["q8"][name]
+    _merge_codecs(entries, other, "q8q4 and q4q4 from serve_q8q4 / serve_q4q4 and "
+                  "serve_cb / serve_cb_q4q4; q8's per-slot and segment launches from "
+                  "reference_q's engine run on the card (tiny model)")
     phase_serve_chunked(params)
     phase_host_split(params)
     del params

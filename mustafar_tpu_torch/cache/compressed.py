@@ -1,15 +1,17 @@
 """Compressed KV cache: port of the served subset of
 ``mustafar_tpu/cache/compressed.py`` (uniform batch, per-slot continuous
 batching and chunked prefill) for the codecs "bitmap" (the default: a
-bitmap plus the packed bf16 non-zeros, ``ops/sparse_format.py``) and
-"q8q4" (pruned chunks quantized dense, ``ops/quant_format.py``).
+bitmap plus the packed bf16 non-zeros, ``ops/sparse_format.py``) and the
+quant codecs "q8", "q8q4" and "q4q4" (pruned chunks quantized dense, int8
+or int4 K and V, ``ops/quant_format.py``).
 
 State (a dict, the JAX package's layouts, updated in place):
   kv_pool   [L, mc, B, Hkv, ROWS, 128] int16 packed chunks, K rows then V
-                                             rows (ROWS 192 at sparsity 0.7
-                                             for both codecs)
+                                             rows (ROWS 256 / 192 / 128 for
+                                             q8 / q8q4 / q4q4; 192 for
+                                             bitmap at sparsity 0.7)
   kv_scales [L, mc, B, Hkv, 2, 128]   bf16   per-channel K and V scales
-                                             (q8q4 only)
+                                             (quant codecs only)
   k_win / v_win [L, B, Hkv, r+C, 128]        dense residual window
   n_chunks  [L, B] int32                     active chunks (device)
   nc_host   int or None                      host copy of n_chunks while the
@@ -21,7 +23,9 @@ State (a dict, the JAX package's layouts, updated in place):
 Semantics:
   * prefill: attention over the dense prompt; then the first
     ``((T - r) // C) * C`` tokens are pruned (exact top-|x| per token) and
-    packed chunk by chunk, and the rest becomes the dense window.
+    packed chunk by chunk, and the rest becomes the dense window.  The
+    quant codecs prune, quantize and pack in one kernel on the card
+    (``ops/kernels/pack_kernel.py``), writing into the pool slot.
   * chunked prefill (``segment_attend``): one C-token segment attends the
     packed pools (the segment kernel), the window and itself, merged; the
     window's oldest C tokens are packed as soon as the segment's tokens
@@ -50,6 +54,7 @@ from mustafar_tpu_torch.ops.attention import (attention_partials, merge_partials
                                               prefill_attention)
 from mustafar_tpu_torch.ops.kernels import quant_attention as qa
 from mustafar_tpu_torch.ops.kernels import sparse_attention as ska
+from mustafar_tpu_torch.ops.kernels.pack_kernel import prune_quant_pack
 
 
 class CompressedKVCache:
@@ -63,10 +68,9 @@ class CompressedKVCache:
             raise NotImplementedError(
                 f"compressed cache serves KT_MAG_VT_MAG; {p.method} "
                 "(output-aware policies) is ROADMAP Queue A item 12")
-        if engine.codec not in ("q8q4", "bitmap"):
+        if engine.codec not in ("bitmap", *qf.CODECS):
             raise NotImplementedError(
-                f"codec {engine.codec!r}: q8 and q4q4 are ROADMAP Queue A item 8, "
-                "bitmap-q8 item 11")
+                f"codec {engine.codec!r}: bitmap-q8 is ROADMAP Queue A item 11")
         if m.sliding_window is not None:
             raise NotImplementedError("sliding windows are ROADMAP Queue A item 14")
         assert m.head_dim == 128, (
@@ -79,8 +83,8 @@ class CompressedKVCache:
         self.max_chunks = max(1, (engine.max_seq_len - self.r) // C)
         self.k_keep = p.kept_per_row(m.head_dim, p.k_sparsity)
         self.v_keep = p.kept_per_row(m.head_dim, p.v_sparsity)
-        if engine.codec == "q8q4":
-            self.qcodec = qf.QuantCodec(C, m.head_dim, 8, 4)
+        if engine.codec in qf.CODECS:
+            self.qcodec = qf.QuantCodec(C, m.head_dim, *qf.CODECS[engine.codec])
             self.kfmt = self.vfmt = None
             self.rows = self.qcodec.stream_rows
             self.pool_keys = ("kv_pool", "kv_scales")
@@ -109,14 +113,18 @@ class CompressedKVCache:
         return state
 
     # -- packing ----------------------------------------------------------
-    def _pack_chunk_q(self, dense_bhtd: torch.Tensor, kind: str):
-        """dense [B, Hkv, C, D] -> (rows [BH, R, 128] int16, scales [BH, D]
-        bf16): top-|x| keep per token, then quantize the survivors."""
-        B, H, C, D = dense_bhtd.shape
-        x = dense_bhtd.reshape(B * H, C, D).to(torch.bfloat16)
-        keep = self.k_keep if kind == "k" else self.v_keep
-        pruned = torch.where(sf.topk_mask(x, keep), x, torch.zeros_like(x))
-        return qf.encode_chunk(pruned, self.qcodec, kind)
+    def _pack_chunk_q(self, dense_bhtd: torch.Tensor, kind: str, rows_out=None,
+                      scales_out=None):
+        """dense [B, Hkv, C, D] -> (rows [B, Hkv, R, 128] int16, scales
+        [B, Hkv, D] bf16): top-|x| keep per token, then quantize the
+        survivors, through ``prune_quant_pack`` (kernel 9 on the card, which
+        reads the chunk through its strides: a bf16 window or prompt slice
+        is not copied; an f32 one is cast to bf16 first), written into
+        ``rows_out`` / ``scales_out`` when given."""
+        keep, bits = ((self.k_keep, self.qcodec.kbits) if kind == "k"
+                      else (self.v_keep, self.qcodec.vbits))
+        return prune_quant_pack(dense_bhtd.to(torch.bfloat16), keep, bits,
+                                rows_out=rows_out, scales_out=scales_out)
 
     def _pack_chunk_bitmap(self, dense_bhtd: torch.Tensor, fmt: sf.ChunkFormat):
         """dense [B, Hkv, C, D] -> fused-stream rows [BH, stream_rows, 128]:
@@ -127,22 +135,34 @@ class CompressedKVCache:
 
     def _pack(self, k_chunk, v_chunk) -> dict:
         """K and V chunks [B, Hkv, C, D] -> the pool entries of one chunk:
-        {"kv_pool": rows [B, Hkv, ROWS, 128]} and, for q8q4, "kv_scales"
-        [B, Hkv, 2, D]."""
+        {"kv_pool": rows [B, Hkv, ROWS, 128]} and, for the quant codecs,
+        "kv_scales" [B, Hkv, 2, D]."""
         B, H = k_chunk.shape[:2]
         if self.qcodec is None:
             rows = torch.cat([self._pack_chunk_bitmap(k_chunk, self.kfmt),
                               self._pack_chunk_bitmap(v_chunk, self.vfmt)], dim=-2)
             return {"kv_pool": rows.reshape(B, H, *rows.shape[1:])}
-        k_rows, k_sc = self._pack_chunk_q(k_chunk, "k")
-        v_rows, v_sc = self._pack_chunk_q(v_chunk, "v")
-        rows = torch.cat([k_rows, v_rows], dim=-2)
-        scales = torch.stack([k_sc, v_sc], dim=1)
-        return {"kv_pool": rows.reshape(B, H, *rows.shape[1:]),
-                "kv_scales": scales.reshape(B, H, 2, k_sc.shape[-1])}
+        entry = {"kv_pool": torch.empty((B, H, self.rows, 128), dtype=torch.int16,
+                                        device=k_chunk.device),
+                 "kv_scales": torch.empty((B, H, 2, 128), dtype=torch.bfloat16,
+                                          device=k_chunk.device)}
+        self._pack_q_into(entry["kv_pool"], entry["kv_scales"], k_chunk, v_chunk)
+        return entry
+
+    def _pack_q_into(self, rows, scales, k_chunk, v_chunk):
+        """Quant codecs: pack K and V chunks [B, Hkv, C, D] straight into
+        ``rows`` [B, Hkv, ROWS, 128] (K rows, then V rows) and ``scales``
+        [B, Hkv, 2, D]: one kernel launch each for K and V, no copy."""
+        KR = self.qcodec.k_rows
+        self._pack_chunk_q(k_chunk, "k", rows[:, :, :KR], scales[:, :, 0])
+        self._pack_chunk_q(v_chunk, "v", rows[:, :, KR:], scales[:, :, 1])
 
     def _append_chunk(self, state, li: int, chunk_idx: int, k_chunk, v_chunk):
         """Prune and pack one dense chunk into pool slot ``chunk_idx`` of layer li."""
+        if self.qcodec is not None:
+            self._pack_q_into(state["kv_pool"][li, chunk_idx],
+                              state["kv_scales"][li, chunk_idx], k_chunk, v_chunk)
+            return
         for key, val in self._pack(k_chunk, v_chunk).items():
             state[key][li, chunk_idx] = val
 

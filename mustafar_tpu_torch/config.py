@@ -134,9 +134,10 @@ class EngineConfig:
     stack one chunk-sized segment at a time, attending to the packed past:
     activation memory O(chunk) instead of O(prompt), and prefill attention
     then sees the pruned past.  ``codec`` is the compressed cache's chunk
-    storage: "bitmap" (a bitmap plus the packed bf16 non-zeros) or "q8q4"
-    (int8 K, int4 V, pruned chunks quantized dense); the port refuses
-    "bitmap-q8", "q8" and "q4q4" so far."""
+    storage: "bitmap" (a bitmap plus the packed bf16 non-zeros) or a quant
+    codec, pruned chunks quantized dense: "q8" (int8 K and V), "q8q4" (int8
+    K, int4 V) or "q4q4" (int4 K and V); the port refuses "bitmap-q8" so
+    far."""
 
     model: ModelConfig = TINY_LLAMA
     prune: PruneConfig = PruneConfig()

@@ -17,8 +17,8 @@
 // * 2 bytes of K and as many of V for each batch row: 19.7 MB at B=8,
 // Hkv=8, pos 599 (5.9 us at 3.35 TB/s), against 4 flops a byte for G=4.
 //
-// Design (first, simple version), the window loop of the q8q4 decode
-// kernel (q8q4_decode.cuh) over the dense cache: one block of 256 threads
+// Design (first, simple version), the window loop of the quant decode
+// kernel (quant_decode.cuh) over the dense cache: one block of 256 threads
 // per (b, kv head), all G query heads in the block, so each K and V byte is
 // read once from device memory and used for G heads; a loop over tiles
 // takes the place of the TPU's sequential grid.  For scores a warp reads

@@ -1,16 +1,17 @@
-// q8q4 segment attention for Hopper (sm_90a): the chunked-prefill partials
-// of one segment of query rows over the packed pools.
+// Quant-codec segment attention for Hopper (sm_90a): the chunked-prefill
+// partials of one segment of query rows over the packed pools.
 //
 // Replaces the TPU kernel mustafar_tpu/ops/kernels/quant_attention.py
-// fused_q_segment_attention (Pallas body _q_seg_kernel) for the q8q4 codec,
-// without its sliding-window option.  For one layer `li` of the stacked
+// fused_q_segment_attention (Pallas body _q_seg_kernel) for the codecs q8,
+// q8q4 and q4q4, without its sliding-window option.  For one layer `li` of the stacked
 // cache and each (batch row b, kv head h) it attends the QR = T*G query
 // rows of that kv head (segment token t, query head h*G + g; row t*G + g)
 // over the first `n_chunks` packed pool chunks of 256 tokens:
 //   scores = bf16(bf16(q) * kscale) . codes / sqrt(128),
-// K as int8 codes (token t in the low byte of row t, token t+128 in the
-// high byte), V as int4 codes (token t + 64 j in nibble j of row t), one
-// online softmax step per chunk in f32 (mask value -1e30), p rounded to
+// K and V as codes of KB and VB bits, 16/bits tokens per int16 row (token
+// t + ROWS j in field j of row t: at 8 bits t and t+128 in the low and high
+// byte, at 4 bits t + 64 j in nibble j), one online softmax step per chunk
+// in f32 (mask value -1e30), p rounded to
 // bf16 before the value product, the chunk's V scale applied after it:
 //   acc = acc * corr + (bf16(p) . vcodes) * vscale.
 // It writes the unnormalised partials acc [B,T,Hq,128] f32, m and l
@@ -21,8 +22,9 @@
 // What bounds it on this card: operations.  A segment of a layer does
 // 4 * B*Hkv * QR * n_chunks * 256 * 128 operations (scores and values,
 // multiply and add), about n_chunks x 1.07 GFLOP at B=1, Hkv=8, QR=1024:
-// some 1.1 us a chunk at the card's bf16 tensor rate, against 0.12 us for
-// the chunk's 48 KB of pool rows per head.  Every product is exact in
+// some 1.1 us a chunk at the card's bf16 tensor rate (989 TFLOP/s, NVIDIA
+// H100 SXM at 700 W), against 0.12 us for the chunk's 48 KB (q8q4) of
+// pool rows per head.  Every product is exact in
 // bf16 x bf16 -> f32 (codes are small integers, q*kscale and p are rounded
 // to bf16 first), so the tensor cores compute what the TPU's MXU does.
 //
@@ -30,7 +32,8 @@
 // head) over all QR rows; at B=1 that is 8 programs, so here the rows are
 // cut into tiles of 64 (grid: row tiles x B*Hkv, 128 blocks at B=1,
 // Hkv=8, T=256, G=4), with nothing carried between blocks.  A block of 4
-// warps loads each chunk's int16 rows (48 KB) and scales into shared
+// warps loads each chunk's int16 rows (64 / 48 / 32 KB at q8 / q8q4 /
+// q4q4) and scales into shared
 // memory, forms bf16(q * kscale) for its 64 rows, and each warp owns 16
 // rows: the 16 x 256 scores with mma.sync m16n8k16 (bf16 in, f32 out) from
 // K codes unpacked in registers, the online softmax on the accumulator
@@ -39,7 +42,8 @@
 // unpacked in registers too.  Dequantised chunks never exist in memory.
 // Double-buffered loads (cp.async or TMA), wgmma and a persistent grid are
 // later work; the unpacking in registers costs more instructions than the
-// products.
+// products.  One source, templated on (KB, VB): three instances, each with
+// its own shared-memory size.
 //
 // Interface: plain C, no PyTorch headers, bound with ctypes.  Launches on
 // the caller's stream, synchronises nothing and returns cudaGetLastError().
@@ -53,9 +57,7 @@
 namespace {
 
 constexpr int D = 128;                  // head_dim == lane width
-constexpr int K_ROWS = 128;             // int8 K: two tokens per int16 row
-constexpr int V_ROWS = 64;              // int4 V: four tokens per int16 row
-constexpr int ROWS = K_ROWS + V_ROWS;
+constexpr int CHUNK = 256;              // tokens per packed chunk
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int BLOCK_ROWS = 16 * WARPS;  // query rows per block, 16 per warp
@@ -63,8 +65,14 @@ constexpr int LD = D + 8;               // padded shared row: no bank conflicts
 constexpr float NEG = -1e30f;
 constexpr float SM_SCALE = 0.08838834764831845f;   // 1 / sqrt(128)
 
+// A chunk at BITS bits a code: 16 / BITS tokens per int16 carrier, so
+// CHUNK * BITS / 16 rows; token t lies in row t % ROWS, field t / ROWS.
+template <int BITS>
+constexpr int ROWS_OF = CHUNK * BITS / 16;
+
+template <int KB, int VB>
 struct __align__(16) Smem {
-  int16_t rows[ROWS][LD];               // this chunk's K rows, then V rows
+  int16_t rows[ROWS_OF<KB> + ROWS_OF<VB>][LD];   // K rows, then V rows
   __nv_bfloat16 q[BLOCK_ROWS][LD];      // the block's query rows (bf16)
   __nv_bfloat16 qk[BLOCK_ROWS][LD];     // bf16(q * kscale) for this chunk
   float ks[D];
@@ -72,18 +80,19 @@ struct __align__(16) Smem {
 };
 
 // Two K codes of one token, channels d and d+1, from the int16 pair `w` of
-// its row: byte `hi` (0 low, 1 high) of each half, as bf16 (exact).
-__device__ __forceinline__ uint32_t k_pair(uint32_t w, int hi) {
-  const int sh = 8 * hi;
-  const float c0 = (float)(int8_t)((w >> sh) & 0xffu);
-  const float c1 = (float)(int8_t)((w >> (16 + sh)) & 0xffu);
-  return pack_bf16(c0, c1);
+// its row: field `f` of each half, as bf16 (exact).
+template <int KB>
+__device__ __forceinline__ uint32_t k_pair(uint32_t w, int f) {
+  const int lo = (int)((w & 0xffffu) << (32 - KB * (f + 1))) >> (32 - KB);
+  const int hi = (int)(w << (16 - KB * (f + 1))) >> (32 - KB);
+  return pack_bf16((float)lo, (float)hi);
 }
 
-// The int4 V code in nibble `nib` of the int16 carrier `x` (sign-extended).
-__device__ __forceinline__ float v_code(int16_t x, int nib) {
+// The V code in field `f` of the int16 carrier `x` (sign-extended).
+template <int VB>
+__device__ __forceinline__ float v_code(int16_t x, int f) {
   const uint32_t w = (uint32_t)(int)x;
-  return (float)((int)(w << (28 - 4 * nib)) >> 28);
+  return (float)((int)(w << (32 - VB * (f + 1))) >> (32 - VB));
 }
 
 // Fragment layouts of mma.m16n8k16 (lane = 4 * gid + tig): A holds rows gid
@@ -92,8 +101,9 @@ __device__ __forceinline__ float v_code(int16_t x, int nib) {
 // gid + 8 (c2, c3), columns 2 tig and 2 tig + 1.  The score accumulators of
 // tokens 16 j .. 16 j + 15 are therefore, packed to bf16 pairs, exactly the
 // A fragment of the value product's k-step j.
+template <int KB, int VB>
 __global__ void __launch_bounds__(THREADS)
-q8q4_segment_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, Hq, D]
+q_segment_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, Hq, D]
                     const int16_t* __restrict__ pool,         // [L, mc, BH, ROWS, D]
                     const __nv_bfloat16* __restrict__ scales, // [L, mc, BH, 2, D]
                     float* __restrict__ acc_out,              // [B, T, Hq, D]
@@ -101,8 +111,11 @@ q8q4_segment_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, Hq, D]
                     float* __restrict__ l_out,                // [B, T, Hq]
                     int BH, int hkv, int G, int T, int max_chunks,
                     int n_chunks, int li) {
+  constexpr int K_ROWS = ROWS_OF<KB>;
+  constexpr int V_ROWS = ROWS_OF<VB>;
+  constexpr int ROWS = K_ROWS + V_ROWS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<KB, VB>& sm = *reinterpret_cast<Smem<KB, VB>*>(smem_raw);
   const int bh = blockIdx.y;
   const int b = bh / hkv;
   const int h = bh - b * hkv;
@@ -177,10 +190,10 @@ q8q4_segment_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, Hq, D]
 #pragma unroll
       for (int nt = 0; nt < 32; ++nt) {
         const int tok = 8 * nt + gid;                 // this lane's B column
-        const int16_t* kr = &sm.rows[tok & (K_ROWS - 1)][0];
-        const int hi = nt >= 16;                      // token >= 128: high byte
-        mma_bf16(s[nt], a0, a1, a2, a3, k_pair(ld32(kr + k0), hi),
-                 k_pair(ld32(kr + k0 + 8), hi));
+        const int16_t* kr = &sm.rows[tok % K_ROWS][0];
+        const int f = nt / (K_ROWS / 8);              // tok / K_ROWS: its field
+        mma_bf16(s[nt], a0, a1, a2, a3, k_pair<KB>(ld32(kr + k0), f),
+                 k_pair<KB>(ld32(kr + k0 + 8), f));
       }
     }
 
@@ -223,15 +236,16 @@ q8q4_segment_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, Hq, D]
       for (int nt = 0; nt < 8; ++nt) pv[nt][0] = pv[nt][1] = pv[nt][2] = pv[nt][3] = 0.f;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {                  // tokens 16 j .. 16 j + 15
-        const int nib = j >> 2;                       // token / 64
-        const int t0 = K_ROWS + 16 * (j & 3) + 2 * tig;   // V row of token 16 j + 2 tig
+        constexpr int JR = V_ROWS / 16;               // 16-token groups a field
+        const int f = j / JR;                         // token / V_ROWS
+        const int t0 = K_ROWS + 16 * (j % JR) + 2 * tig;  // V row of token 16 j + 2 tig
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
           const int d = 64 * dh + 8 * nt + gid;
-          const uint32_t b0 = pack_bf16(v_code(sm.rows[t0][d], nib),
-                                        v_code(sm.rows[t0 + 1][d], nib));
-          const uint32_t b1 = pack_bf16(v_code(sm.rows[t0 + 8][d], nib),
-                                        v_code(sm.rows[t0 + 9][d], nib));
+          const uint32_t b0 = pack_bf16(v_code<VB>(sm.rows[t0][d], f),
+                                        v_code<VB>(sm.rows[t0 + 1][d], f));
+          const uint32_t b1 = pack_bf16(v_code<VB>(sm.rows[t0 + 8][d], f),
+                                        v_code<VB>(sm.rows[t0 + 9][d], f));
           mma_bf16(pv[nt], p[2 * j][0], p[2 * j][1], p[2 * j + 1][0],
                    p[2 * j + 1][1], b0, b1);
         }
@@ -268,31 +282,49 @@ q8q4_segment_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, Hq, D]
   }
 }
 
-}  // namespace
-
-// q [B, T, Hkv*G, 128] bf16; pool [L, mc, B*Hkv, 192, 128] int16; scales
-// [L, mc, B*Hkv, 2, 128] bf16; acc [B, T, Hkv*G, 128] f32; m, l
-// [B, T, Hkv*G, 1] f32.  All contiguous and 16-byte aligned; shapes checked
-// by the caller.  `device` is the ordinal the tensors and the stream belong
-// to; BH = B * hkv.
-extern "C" int q8q4_segment(const void* q, const void* pool, const void* scales,
-                            void* acc, void* m, void* l, int device, int BH,
-                            int hkv, int G, int T, int max_chunks, int n_chunks,
-                            int li, void* stream) {
-  if (hkv < 1 || BH % hkv || G < 1 || T < 1 || n_chunks < 0 ||
-      n_chunks > max_chunks || li < 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int smem = (int)sizeof(Smem);
-  err = cudaFuncSetAttribute(q8q4_segment_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int KB, int VB>
+int launch(const void* q, const void* pool, const void* scales, void* acc, void* m,
+           void* l, int BH, int hkv, int G, int T, int max_chunks, int n_chunks,
+           int li, cudaStream_t stream) {
+  const int smem = (int)sizeof(Smem<KB, VB>);
+  const cudaError_t err = cudaFuncSetAttribute(
+      q_segment_kernel<KB, VB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T * G + BLOCK_ROWS - 1) / BLOCK_ROWS, BH);
-  q8q4_segment_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  q_segment_kernel<KB, VB><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const int16_t*>(pool),
       static_cast<const __nv_bfloat16*>(scales), static_cast<float*>(acc),
       static_cast<float*>(m), static_cast<float*>(l), BH, hkv, G, T, max_chunks,
       n_chunks, li);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q [B, T, Hkv*G, 128] bf16; pool [L, mc, B*Hkv, ROWS, 128] int16 (ROWS =
+// 256 * (kbits + vbits) / 16; (kbits, vbits) one of (8, 8), (8, 4), (4, 4));
+// scales [L, mc, B*Hkv, 2, 128] bf16; acc [B, T, Hkv*G, 128] f32; m, l
+// [B, T, Hkv*G, 1] f32.  All contiguous and 16-byte aligned; shapes checked
+// by the caller.  `device` is the ordinal the tensors and the stream belong
+// to; BH = B * hkv.
+extern "C" int q_segment_attention(const void* q, const void* pool, const void* scales,
+                                   void* acc, void* m, void* l, int device, int kbits,
+                                   int vbits, int BH, int hkv, int G, int T,
+                                   int max_chunks, int n_chunks, int li, void* stream) {
+  if (hkv < 1 || BH % hkv || G < 1 || T < 1 || n_chunks < 0 ||
+      n_chunks > max_chunks || li < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kbits == 8 && vbits == 8)
+    return launch<8, 8>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks,
+                        n_chunks, li, s);
+  if (kbits == 8 && vbits == 4)
+    return launch<8, 4>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks,
+                        n_chunks, li, s);
+  if (kbits == 4 && vbits == 4)
+    return launch<4, 4>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks,
+                        n_chunks, li, s);
+  return (int)cudaErrorInvalidValue;
 }

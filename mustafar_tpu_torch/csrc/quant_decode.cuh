@@ -1,8 +1,10 @@
-// The q8q4 flash-decode kernel body shared by the uniform-batch entry
-// (q_decode.cu) and the per-slot entry (q_decode_ps.cu); their header notes
-// say what it computes and what bounds it.  With `nc_slot` null the block
-// takes the uniform counts `n_chunks` and `win_len`; otherwise block bh
-// reads slot bh / hkv's counts from the device arrays.
+// The quant-codec flash-decode kernel body shared by the uniform-batch
+// entry (q_decode.cu) and the per-slot entry (q_decode_ps.cu); their header
+// notes say what it computes and what bounds it.  It is templated on the
+// codec's bit widths (KB, VB) in {(8, 8), (8, 4), (4, 4)}: codecs q8, q8q4
+// and q4q4.  With `nc_slot` null the block takes the uniform counts
+// `n_chunks` and `win_len`; otherwise block bh reads slot bh / hkv's counts
+// from the device arrays.
 
 #pragma once
 
@@ -12,7 +14,7 @@
 
 #include "softmax_step.cuh"
 
-namespace q8q4 {
+namespace qdec {
 
 using online_softmax::round_bf16;
 using online_softmax::softmax_step;
@@ -20,9 +22,6 @@ using online_softmax::warp_sum;
 
 constexpr int D = 128;         // head_dim == lane width
 constexpr int CHUNK = 256;     // tokens per packed chunk
-constexpr int K_ROWS = 128;    // int8 K: two tokens per int16 row
-constexpr int V_ROWS = 64;     // int4 V: four tokens per int16 row
-constexpr int ROWS = K_ROWS + V_ROWS;
 constexpr int TILE = 256;      // most tokens per online-softmax step
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -31,6 +30,20 @@ constexpr float SM_SCALE = 0.08838834764831845f;   // 1 / sqrt(128)
 
 static_assert(THREADS == 2 * D, "value role: one channel, two token halves");
 static_assert(TILE >= CHUNK, "a chunk is one softmax step");
+
+// A chunk at BITS bits a code: 16 / BITS tokens per int16 carrier, token
+// t + ROWS * j in field j of row t, so ROWS = CHUNK * BITS / 16 rows.
+template <int BITS>
+struct Stream {
+  static constexpr int FIELDS = 16 / BITS;
+  static constexpr int ROWS = CHUNK / FIELDS;
+};
+
+// Field j of the int16 carrier `x` (sign-extended to int32), sign-extended.
+template <int BITS>
+__device__ __forceinline__ float code(int x, int j) {
+  return (float)((int)((uint32_t)x << (32 - BITS * (j + 1))) >> (32 - BITS));
+}
 
 __device__ __forceinline__ float bf16_lo(uint32_t w) {
   return __uint_as_float(w << 16);
@@ -50,9 +63,9 @@ struct __align__(16) Smem {
   float corr[G];
 };
 
-template <int G>
+template <int G, int KB, int VB>
 __global__ void __launch_bounds__(THREADS)
-q8q4_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
+quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                    const int16_t* __restrict__ pool,         // [L, mc, BH, ROWS, D]
                    const __nv_bfloat16* __restrict__ scales, // [L, mc, BH, 2, D]
                    const __nv_bfloat16* __restrict__ k_win,  // [L, BH, W, D]
@@ -64,6 +77,11 @@ q8q4_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                    const int* __restrict__ wl_slot,          // [B] or null
                    int hkv) {
   static_assert(G <= WARPS, "one warp per query head in the softmax step");
+  constexpr int KF = Stream<KB>::FIELDS;
+  constexpr int K_ROWS = Stream<KB>::ROWS;
+  constexpr int VF = Stream<VB>::FIELDS;
+  constexpr int V_ROWS = Stream<VB>::ROWS;
+  constexpr int ROWS = K_ROWS + V_ROWS;
   __shared__ Smem<G> sm;
   const int bh = blockIdx.x;
   if (nc_slot != nullptr) {
@@ -110,27 +128,27 @@ q8q4_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     for (int r = warp; r < K_ROWS; r += WARPS) {
       const uint2 raw = *reinterpret_cast<const uint2*>(rows + r * D + 4 * lane);
       const uint32_t words[2] = {raw.x, raw.y};
-      float lo[G], hi[G];
+      float part[G][KF];   // token r + K_ROWS * f, this lane's four channels
 #pragma unroll
-      for (int g = 0; g < G; ++g) lo[g] = hi[g] = 0.f;
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int f = 0; f < KF; ++f) part[g][f] = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int x = (int)(int16_t)(words[j >> 1] >> (16 * (j & 1)));
-        const float c_lo = (float)(int8_t)(x & 0xff);   // token r
-        const float c_hi = (float)(x >> 8);             // token r + 128
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          lo[g] += qk[g][j] * c_lo;
-          hi[g] += qk[g][j] * c_hi;
+        for (int f = 0; f < KF; ++f) {
+          const float c = code<KB>(x, f);
+#pragma unroll
+          for (int g = 0; g < G; ++g) part[g][f] += qk[g][j] * c;
         }
       }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float a = warp_sum(lo[g]);
-        const float b = warp_sum(hi[g]);
-        if (lane == 0) {
-          sm.s[g][r] = a * SM_SCALE;
-          sm.s[g][r + K_ROWS] = b * SM_SCALE;
+#pragma unroll
+        for (int f = 0; f < KF; ++f) {
+          const float a = warp_sum(part[g][f]);
+          if (lane == 0) sm.s[g][r + K_ROWS * f] = a * SM_SCALE;
         }
       }
     }
@@ -143,12 +161,12 @@ q8q4_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
 #pragma unroll
     for (int g = 0; g < G; ++g) pv[g] = 0.f;
     for (int r = half * (V_ROWS / 2); r < (half + 1) * (V_ROWS / 2); ++r) {
-      const uint32_t w = (uint32_t)(int)vrows[r * D + d];
+      const int x = (int)vrows[r * D + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float c = (float)((int)(w << (28 - 4 * j)) >> 28);   // token r + 64 j
+      for (int f = 0; f < VF; ++f) {
+        const float c = code<VB>(x, f);   // token r + V_ROWS f
 #pragma unroll
-        for (int g = 0; g < G; ++g) pv[g] += sm.s[g][r + V_ROWS * j] * c;
+        for (int g = 0; g < G; ++g) pv[g] += sm.s[g][r + V_ROWS * f] * c;
       }
     }
 #pragma unroll
@@ -222,13 +240,13 @@ q8q4_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   }
 }
 
-template <int G>
+template <int G, int KB, int VB>
 void launch(const void* q, const void* pool, const void* scales,
             const void* k_win, const void* v_win, void* out, int out_f32,
             int BH, int max_chunks, int W, int wt, int n_chunks, int win_len,
             int li, const int* nc_slot, const int* wl_slot, int hkv,
             cudaStream_t stream) {
-  q8q4_decode_kernel<G><<<BH, THREADS, 0, stream>>>(
+  quant_decode_kernel<G, KB, VB><<<BH, THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const int16_t*>(pool),
       static_cast<const __nv_bfloat16*>(scales),
       static_cast<const __nv_bfloat16*>(k_win),
@@ -237,30 +255,49 @@ void launch(const void* q, const void* pool, const void* scales,
       wl_slot, hkv);
 }
 
-// Checks the launch parameters, selects the instance for the group size G
-// and returns cudaGetLastError().
+template <int KB, int VB>
+int launch_groups(int G, const void* q, const void* pool, const void* scales,
+                  const void* k_win, const void* v_win, void* out, int out_f32,
+                  int BH, int max_chunks, int W, int wt, int n_chunks, int win_len,
+                  int li, const int* nc_slot, const int* wl_slot, int hkv,
+                  cudaStream_t s) {
+#define QDEC_LAUNCH(g)                                                          \
+  launch<g, KB, VB>(q, pool, scales, k_win, v_win, out, out_f32, BH,           \
+                    max_chunks, W, wt, n_chunks, win_len, li, nc_slot, wl_slot, \
+                    hkv, s)
+  switch (G) {
+    case 1: QDEC_LAUNCH(1); break;
+    case 2: QDEC_LAUNCH(2); break;
+    case 4: QDEC_LAUNCH(4); break;
+    case 8: QDEC_LAUNCH(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef QDEC_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// Checks the launch parameters, selects the instance for the codec's bit
+// widths (kbits, vbits) and the group size G, and returns
+// cudaGetLastError().
 inline int launch_decode(const void* q, const void* pool, const void* scales,
                          const void* k_win, const void* v_win, void* out,
-                         int out_f32, int device, int BH, int G, int max_chunks,
-                         int W, int wt, int n_chunks, int win_len, int li,
-                         const int* nc_slot, const int* wl_slot, int hkv,
-                         void* stream) {
+                         int out_f32, int device, int kbits, int vbits, int BH,
+                         int G, int max_chunks, int W, int wt, int n_chunks,
+                         int win_len, int li, const int* nc_slot,
+                         const int* wl_slot, int hkv, void* stream) {
   if (wt < 1 || wt > TILE) return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define Q8Q4_LAUNCH(g)                                                        \
-  launch<g>(q, pool, scales, k_win, v_win, out, out_f32, BH, max_chunks, W,  \
-            wt, n_chunks, win_len, li, nc_slot, wl_slot, hkv, s)
-  switch (G) {
-    case 1: Q8Q4_LAUNCH(1); break;
-    case 2: Q8Q4_LAUNCH(2); break;
-    case 4: Q8Q4_LAUNCH(4); break;
-    case 8: Q8Q4_LAUNCH(8); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef Q8Q4_LAUNCH
-  return (int)cudaGetLastError();
+#define QDEC_CODEC(kb, vb)                                                       \
+  launch_groups<kb, vb>(G, q, pool, scales, k_win, v_win, out, out_f32, BH,     \
+                        max_chunks, W, wt, n_chunks, win_len, li, nc_slot,      \
+                        wl_slot, hkv, s)
+  if (kbits == 8 && vbits == 8) return QDEC_CODEC(8, 8);
+  if (kbits == 8 && vbits == 4) return QDEC_CODEC(8, 4);
+  if (kbits == 4 && vbits == 4) return QDEC_CODEC(4, 4);
+#undef QDEC_CODEC
+  return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace q8q4
+}  // namespace qdec

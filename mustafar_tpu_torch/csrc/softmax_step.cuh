@@ -1,5 +1,5 @@
-// The online-softmax step of the decode kernels (q8q4_decode.cuh for the
-// q8q4 codec, sp_decode.cuh for the bitmap codec) and the warp reductions
+// The online-softmax step of the decode kernels (quant_decode.cuh for the
+// quant codecs, sp_decode.cuh for the bitmap codec) and the warp reductions
 // it uses.  The step is the TPU kernels': f32 scores, a running max per
 // query head, p = exp(s - m) summed in f32 and rounded to bf16 for the
 // value product.

@@ -1,8 +1,9 @@
-"""Fused q8q4 attention kernels: the CUDA kernels, their plain PyTorch
-versions and the wrappers that pick between them by device.
+"""Fused quant-codec attention kernels: the CUDA kernels, their plain
+PyTorch versions and the wrappers that pick between them by device.
 
-Ports of ``mustafar_tpu/ops/kernels/quant_attention.py`` for codec q8q4,
-options off:
+Ports of ``mustafar_tpu/ops/kernels/quant_attention.py`` for the codecs q8
+(int8 K, int8 V), q8q4 (int8 K, int4 V) and q4q4 (int4 K, int4 V) at
+256-token chunks, options off:
   fused_q_decode_attention     uniform-batch decode   csrc/q_decode.cu
   fused_q_decode_attention_ps  per-slot decode        csrc/q_decode_ps.cu
   fused_q_segment_attention    chunked-prefill        csrc/q_segment.cu
@@ -15,7 +16,9 @@ kernel and plain version agree to f32 rounding.
 Layouts are the JAX package's stacked ones, indexed at layer ``li``:
   q          [B, 1, Hq, 128]              bf16 or f32 (read as bf16)
   q_seg      [B, Tseg, Hq, 128]           bf16 or f32 (read as bf16)
-  kv_pool    [L, mc, B*Hkv, 192, 128]     int16   (K rows, then V rows)
+  kv_pool    [L, mc, B*Hkv, ROWS, 128]    int16   (K rows, then V rows:
+                                                   ROWS 256 / 192 / 128 at
+                                                   q8 / q8q4 / q4q4)
   kv_scales  [L, mc, B*Hkv, 2, 128]       bf16    (K scale, V scale)
   k_win/v_win [L, B*Hkv, W, 128]          bf16
 The cache keeps [L, mc, B, Hkv, ...] and [L, B, Hkv, W, D]; both flatten to
@@ -38,10 +41,11 @@ _GROUPS = (1, 2, 4, 8)              # query heads per kv head the decode kernels
 
 
 def _check_codec(codec, window, name):
-    if (codec.kbits, codec.vbits, codec.chunk, codec.dim) != (8, 4, 256, 128):
+    if ((codec.kbits, codec.vbits) not in qf.CODECS.values()
+            or (codec.chunk, codec.dim) != (256, 128)):
         raise NotImplementedError(
-            f"{name} serves codec q8q4 with 256-token chunks; q8 and q4q4 are "
-            "ROADMAP Queue A item 8")
+            f"{name} serves the codecs q8, q8q4 and q4q4 with 256-token chunks, "
+            f"got {codec!r}")
     if window is not None:
         raise NotImplementedError("sliding-window attention is ROADMAP Queue A item 14")
 
@@ -140,13 +144,13 @@ def _softmax_step(m, l, acc, s, vmat, vscale):
     return m_new, l, acc * corr + pv
 
 
-def _chunk(kv_pool, kv_scales, li, ci):
+def _chunk(kv_pool, kv_scales, li, ci, codec):
     """Pool chunk ``ci`` of layer ``li`` as f32 codes and scales:
     (K [BH, 256, 128], V [BH, 256, 128], kscale [BH, 128], vscale [BH, 128])."""
-    rows = kv_pool[li, ci]                                    # [BH, 192, 128]
-    KR = rows.shape[1] * 2 // 3                               # q8q4: 128 K rows
-    kc = qf.unpack_rows(rows[:, :KR], 8).to(torch.float32)
-    vc = qf.unpack_rows(rows[:, KR:], 4).to(torch.float32)
+    rows = kv_pool[li, ci]                                    # [BH, ROWS, 128]
+    KR = codec.k_rows
+    kc = qf.unpack_rows(rows[:, :KR], codec.kbits).to(torch.float32)
+    vc = qf.unpack_rows(rows[:, KR:], codec.vbits).to(torch.float32)
     return (kc, vc, kv_scales[li, ci, :, 0].to(torch.float32),
             kv_scales[li, ci, :, 1].to(torch.float32))
 
@@ -215,22 +219,23 @@ def segment_steps(q_seg, BH: int, n_chunks: int, chunk_step):
     return unfold(acc), unfold(m), unfold(l)
 
 
-def _q_chunk_step(kv_pool, kv_scales, li):
-    """q8q4 chunk step: scores bf16(q * kscale) . codes / sqrt(128); the
-    chunk's V scale multiplies the value product."""
+def _q_chunk_step(kv_pool, kv_scales, li, codec):
+    """Quant-codec chunk step: scores bf16(q * kscale) . codes / sqrt(128);
+    the chunk's V scale multiplies the value product."""
     def step(qf32, ci):
-        kc, vc, ks, vs = _chunk(kv_pool, kv_scales, li, ci)
+        kc, vc, ks, vs = _chunk(kv_pool, kv_scales, li, ci, codec)
         qk = (qf32 * ks[:, None, :]).to(torch.bfloat16).to(torch.float32)
         return (qk @ kc.transpose(1, 2)) * SM_SCALE, vc, vs
     return step
 
 
 def fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
-                                   n_chunks: int, win_len: int, li: int):
-    """The uniform q8q4 decode kernel's arithmetic in PyTorch
-    (``decode_steps`` with the q8q4 chunk step)."""
+                                   n_chunks: int, win_len: int, li: int,
+                                   codec: qf.QuantCodec):
+    """The uniform decode kernel's arithmetic in PyTorch (``decode_steps``
+    with the codec's chunk step)."""
     return decode_steps(q, kv_pool.shape[2], n_chunks,
-                        _q_chunk_step(kv_pool, kv_scales, li), k_win, v_win,
+                        _q_chunk_step(kv_pool, kv_scales, li, codec), k_win, v_win,
                         win_len, li)
 
 
@@ -247,7 +252,7 @@ def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
                              codec: qf.QuantCodec, *, window=None,
                              return_norm: bool = False,
                              return_win_probs: bool = False):
-    """q8q4 flash-decode of layer ``li`` over ``n_chunks`` pool chunks and the
+    """Quant-codec flash-decode of layer ``li`` over ``n_chunks`` pool chunks and the
     first ``win_len`` window tokens -> [B, 1, Hq, 128] in q's dtype (q is
     read as bf16, the output is computed in f32, as on the TPU).
 
@@ -261,19 +266,19 @@ def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
     _check_int("win_len", win_len, 0, W)
     if q.device.type == "cpu":
         return fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win,
-                                              v_win, n_chunks, win_len, li)
+                                              v_win, n_chunks, win_len, li, codec)
     stream = _stream(q)
     _check_aligned((("q", q), ("kv_pool", kv_pool), ("kv_scales", kv_scales),
                     ("k_win", k_win), ("v_win", v_win)))
-    fn = _library("q_decode", "q8q4_decode", 6, 10)
+    fn = _library("q_decode", "q_decode_attention", 6, 12)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
             k_win.data_ptr(), v_win.data_ptr(), out.data_ptr(),
-            int(out.dtype == torch.float32), q.device.index or 0, BH, G,
-            mc, W, window_tile(W), n_chunks, win_len, li, stream)
+            int(out.dtype == torch.float32), q.device.index or 0, codec.kbits,
+            codec.vbits, BH, G, mc, W, window_tile(W), n_chunks, win_len, li, stream)
     if rc != 0:
-        raise RuntimeError(f"q8q4_decode launch failed: CUDA error {rc}")
+        raise RuntimeError(f"q_decode_attention launch failed: CUDA error {rc}")
     fused_q_decode_attention.launches += 1
     return out
 
@@ -286,7 +291,8 @@ fused_q_decode_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 def fused_q_decode_attention_ps_plain(q, kv_pool, kv_scales, k_win, v_win,
-                                      n_chunks, win_len, li: int):
+                                      n_chunks, win_len, li: int,
+                                      codec: qf.QuantCodec):
     """The per-slot kernel's arithmetic: slot b is the uniform computation
     over its own ``n_chunks[b]`` chunks and ``win_len[b]`` window tokens
     (clamped, ``slots``).  (The TPU kernel loops a block of heads to the
@@ -297,7 +303,7 @@ def fused_q_decode_attention_ps_plain(q, kv_pool, kv_scales, k_win, v_win,
     return torch.cat([
         fused_q_decode_attention_plain(q[b:b + 1], kv_pool[:, :, hs],
                                        kv_scales[:, :, hs], k_win[:, hs],
-                                       v_win[:, hs], nc, wl, li)
+                                       v_win[:, hs], nc, wl, li, codec)
         for b, hs, nc, wl in slots(q.shape[0], kv_pool.shape[2], n_chunks,
                                    win_len, kv_pool.shape[1], k_win.shape[2])])
 
@@ -306,7 +312,7 @@ def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
                                 n_chunks: torch.Tensor, win_len: torch.Tensor,
                                 li: int, codec: qf.QuantCodec, *, window=None,
                                 return_win_probs: bool = False):
-    """Per-slot q8q4 flash-decode of layer ``li``: slot b attends its first
+    """Per-slot quant-codec flash-decode of layer ``li``: slot b attends its first
     ``n_chunks[b]`` pool chunks and ``win_len[b]`` window tokens ->
     [B, 1, Hq, 128] in q's dtype.
 
@@ -330,20 +336,20 @@ def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
                        ("win_len", win_len, torch.int32)))
     if q.device.type == "cpu":
         return fused_q_decode_attention_ps_plain(q, kv_pool, kv_scales, k_win,
-                                                 v_win, n_chunks, win_len, li)
+                                                 v_win, n_chunks, win_len, li, codec)
     stream = _stream(q)
     _check_aligned((("q", q), ("kv_pool", kv_pool), ("kv_scales", kv_scales),
                     ("k_win", k_win), ("v_win", v_win)))
-    fn = _library("q_decode_ps", "q8q4_decode_ps", 8, 9)
+    fn = _library("q_decode_ps", "q_decode_attention_ps", 8, 11)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
             k_win.data_ptr(), v_win.data_ptr(), n_chunks.data_ptr(),
             win_len.data_ptr(), out.data_ptr(),
-            int(out.dtype == torch.float32), q.device.index or 0, BH, BH // B, G,
-            mc, W, window_tile(W), li, stream)
+            int(out.dtype == torch.float32), q.device.index or 0, codec.kbits,
+            codec.vbits, BH, BH // B, G, mc, W, window_tile(W), li, stream)
     if rc != 0:
-        raise RuntimeError(f"q8q4_decode_ps launch failed: CUDA error {rc}")
+        raise RuntimeError(f"q_decode_attention_ps launch failed: CUDA error {rc}")
     fused_q_decode_attention_ps.launches += 1
     return out
 
@@ -356,12 +362,12 @@ fused_q_decode_attention_ps.launches = 0
 # ---------------------------------------------------------------------------
 
 def fused_q_segment_attention_plain(q_seg, kv_pool, kv_scales, n_chunks: int,
-                                    li: int):
-    """The q8q4 segment kernel's arithmetic (``segment_steps`` with the q8q4
+                                    li: int, codec: qf.QuantCodec):
+    """The segment kernel's arithmetic (``segment_steps`` with the codec's
     chunk step: scores bf16(bf16(q) * kscale) . codes / sqrt(128), the V
     scale after the value product)."""
     return segment_steps(q_seg, kv_pool.shape[2], n_chunks,
-                         _q_chunk_step(kv_pool, kv_scales, li))
+                         _q_chunk_step(kv_pool, kv_scales, li, codec))
 
 
 def fused_q_segment_attention(q_seg, kv_pool, kv_scales, n_chunks: int,
@@ -395,20 +401,20 @@ def fused_q_segment_attention(q_seg, kv_pool, kv_scales, n_chunks: int,
                          f"packed chunks, got {seg_start!r}")
     if q_seg.device.type == "cpu":
         return fused_q_segment_attention_plain(q_seg, kv_pool, kv_scales,
-                                               n_chunks, li)
+                                               n_chunks, li, codec)
     stream = _stream(q_seg)
     _check_aligned((("q_seg", q_seg), ("kv_pool", kv_pool), ("kv_scales", kv_scales)))
-    fn = _library("q_segment", "q8q4_segment", 6, 8)
+    fn = _library("q_segment", "q_segment_attention", 6, 10)
     dev = q_seg.device
     acc = torch.empty((B, T, Hq, 128), dtype=torch.float32, device=dev)
     m = torch.empty((B, T, Hq, 1), dtype=torch.float32, device=dev)
     l = torch.empty((B, T, Hq, 1), dtype=torch.float32, device=dev)
     qb = q_seg.to(torch.bfloat16)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
-            acc.data_ptr(), m.data_ptr(), l.data_ptr(), dev.index or 0, BH, Hkv,
-            Hq // Hkv, T, mc, n_chunks, li, stream)
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), dev.index or 0, codec.kbits,
+            codec.vbits, BH, Hkv, Hq // Hkv, T, mc, n_chunks, li, stream)
     if rc != 0:
-        raise RuntimeError(f"q8q4_segment launch failed: CUDA error {rc}")
+        raise RuntimeError(f"q_segment_attention launch failed: CUDA error {rc}")
     fused_q_segment_attention.launches += 1
     return acc, m, l
 

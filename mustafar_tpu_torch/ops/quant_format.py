@@ -11,8 +11,8 @@ channel):
   * scales: bf16 per channel.  Codes are computed with the f32 scale; only
     the stored scale is rounded to bf16.
 
-At kbits=8 / vbits=4 (codec "q8q4") a 256-token chunk is 192 int16 rows
-per head.  The int16 rows are raw bit carriers, so packing and unpacking
+A 256-token chunk is 256, 192 or 128 int16 rows per head at codec "q8"
+(int8 K and V), "q8q4" (int8 K, int4 V) or "q4q4" (int4 K and V).  The int16 rows are raw bit carriers, so packing and unpacking
 here work on explicit masks and sign fixes rather than on shifts that
 overflow.
 """
@@ -22,6 +22,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+
+# (kbits, vbits) of each quant codec by name (the JAX package's map)
+CODECS = {"q8": (8, 8), "q8q4": (8, 4), "q4q4": (4, 4)}
 
 
 @dataclasses.dataclass(frozen=True)

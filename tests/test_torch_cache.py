@@ -4,8 +4,9 @@
     (int16 pool, bf16 scales, windows, n_chunks) equals the JAX package's
     exactly; so does the state after ``compact``.  Decode outputs on the
     same state match the JAX kernel (interpret mode).  The dense cache's
-    prefill and decode match the JAX dense cache.  Both codecs the port
-    serves: q8q4 and bitmap (whose state has no scales).
+    prefill and decode match the JAX dense cache.  Every codec the port
+    serves: the quant codecs q8, q8q4 and q4q4, and bitmap (whose state has
+    no scales).
 Tiny geometry: head_dim 128 (the compressed format's row width), 4 query
 heads over 2 kv heads, 2 layers.
 """
@@ -72,7 +73,9 @@ _PREFILL_CASES = [("bfloat16", 300, 512), ("float32", 600, 768), ("bfloat16", 20
 @pytest.mark.parametrize("dtype,true_len,T,codec", [
     *(pytest.param(*c, "q8q4", id="-".join(map(str, c))) for c in _PREFILL_CASES),
     *(pytest.param(*c, "bitmap", id="-".join(map(str, c)) + "-bitmap")
-      for c in _PREFILL_CASES[:2])])
+      for c in _PREFILL_CASES[:2]),
+    pytest.param(*_PREFILL_CASES[0], "q8", id="bfloat16-300-512-q8"),
+    pytest.param(*_PREFILL_CASES[1], "q4q4", id="float32-600-768-q4q4")])
 def test_compressed_prefill_state_bit_exact(dtype, true_len, T, codec):
     jimpl = j_make_cache(_engine(jc, "COMPRESSED", codec=codec))
     timpl = t_make_cache(_engine(tc, "COMPRESSED", codec=codec), device="cpu")
@@ -106,6 +109,12 @@ def test_compressed_decode_and_compact_match():
 def test_compressed_decode_and_compact_match_bitmap():
     """As above for the bitmap codec (TPU kernel v7 in interpret mode)."""
     _decode_and_compact("bitmap")
+
+
+@pytest.mark.parametrize("codec", ["q8", "q4q4"])
+def test_compressed_decode_and_compact_match_quant(codec):
+    """As above for the other quant codecs (int8 K and V; int4 K and V)."""
+    _decode_and_compact(codec)
 
 
 def _decode_and_compact(codec):
@@ -181,11 +190,11 @@ def test_make_cache_modes():
     with pytest.raises(NotImplementedError):
         t_make_cache(dataclasses.replace(_engine(tc, "DENSE"),
                                          cache_mode=tc.CacheMode.MASKED), device="cpu")
-    for codec, item in (("q8", "item 8"), ("q4q4", "item 8"), ("bitmap-q8", "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_make_cache(dataclasses.replace(_engine(tc, "COMPRESSED"), codec=codec),
-                         device="cpu")
-    for codec in ("q8q4", "bitmap"):
+    with pytest.raises(NotImplementedError, match="item 11"):
+        t_make_cache(dataclasses.replace(_engine(tc, "COMPRESSED"), codec="bitmap-q8"),
+                     device="cpu")
+    rows = {"q8": 256, "q8q4": 192, "q4q4": 128, "bitmap": 192}
+    for codec in ("q8", "q8q4", "q4q4", "bitmap"):
         impl = t_make_cache(_engine(tc, "COMPRESSED", codec=codec), device="cpu")
         jimpl = j_make_cache(_engine(jc, "COMPRESSED", codec=codec))
         assert (impl.max_chunks, impl.wcap, impl.k_keep, impl.v_keep) == \
@@ -193,5 +202,7 @@ def test_make_cache_modes():
         shapes = {k: tuple(v.shape) for k, v in impl.init(2).items() if torch.is_tensor(v)}
         jshapes = {k: tuple(v.shape) for k, v in jimpl.init(2).items()}
         assert shapes == jshapes
-        # at sparsity 0.7 both codecs store 192 int16 rows a chunk and head
-        assert shapes["kv_pool"] == (2, 3, 2, 2, 192, 128)
+        # int16 rows a chunk and head: q8 256, q8q4 192, q4q4 128, and 192
+        # for bitmap at sparsity 0.7
+        assert shapes["kv_pool"] == (2, 3, 2, 2, rows[codec], 128)
+        assert ("kv_scales" in shapes) == (codec != "bitmap")

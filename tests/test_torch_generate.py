@@ -5,8 +5,9 @@ window fills at total length 544, after decode step 244).
 
 The JAX compressed cache decodes through its kernel in Pallas interpret
 mode (``cache_impl.use_pallas = True``), the path whose arithmetic the
-port's kernel repeats: the q8q4 kernel, or v7 for the bitmap codec; its
-dense cache decodes through XLA, as in production.
+port's kernel repeats: the quant kernel (codecs q8q4, q8 and q4q4), or v7
+for the bitmap codec; its dense cache decodes through XLA, as in
+production.
 
 Where the two streams may part: the kernels read q and the window as bf16
 and round p to bf16, and packing rounds the window to bf16 (and, for q8q4,
@@ -86,7 +87,9 @@ def _teacher_forced_logits(gen, prompt, stream):
 @pytest.mark.parametrize("mode,codec", [
     pytest.param("COMPRESSED", "q8q4", id="COMPRESSED"),
     pytest.param("DENSE", "q8q4", id="DENSE"),
-    pytest.param("COMPRESSED", "bitmap", id="COMPRESSED-bitmap")])
+    pytest.param("COMPRESSED", "bitmap", id="COMPRESSED-bitmap"),
+    pytest.param("COMPRESSED", "q8", id="COMPRESSED-q8"),
+    pytest.param("COMPRESSED", "q4q4", id="COMPRESSED-q4q4")])
 def test_greedy_tokens_match_jax_across_compaction(mode, codec):
     jeng, teng = _engine(jc, mode, codec), _engine(tc, mode, codec)
     jp = j_init_params(jeng.model, jax.random.PRNGKey(0), dtype=jnp.float32)

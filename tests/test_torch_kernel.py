@@ -1,10 +1,10 @@
-"""Port parity, the q8q4 kernel module.
+"""Port parity, the quant-codec kernel module.
 
 (d) The plain versions of ``fused_q_decode_attention``,
     ``fused_q_decode_attention_ps`` (per-slot counts) and
     ``fused_q_segment_attention`` (chunked-prefill partials) against the
     JAX kernels run in Pallas interpret mode, on the same stacked int16
-    pools, bf16 scales and windows.
+    pools, bf16 scales and windows, for the codecs q8, q8q4 and q4q4.
 (j) The module imports and runs on the CPU with no ``nvcc``; the wrappers
     refuse what the CUDA kernels cannot serve instead of falling back.
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
@@ -29,8 +29,10 @@ from mustafar_tpu_torch.ops.kernels import quant_attention as tqa
 
 torch.set_num_threads(2)
 
-JCODEC = jqf.QuantCodec(256, 128, 8, 4)
-TCODEC = tqf.QuantCodec(256, 128, 8, 4)
+BITS = {"q8": (8, 8), "q8q4": (8, 4), "q4q4": (4, 4)}
+JCODECS = {c: jqf.QuantCodec(256, 128, *b) for c, b in BITS.items()}
+TCODECS = {c: tqf.QuantCodec(256, 128, *b) for c, b in BITS.items()}
+JCODEC, TCODEC = JCODECS["q8q4"], TCODECS["q8q4"]
 W = 288                                   # residual 32 + chunk 256
 
 
@@ -38,12 +40,13 @@ def _bf16(x):
     return np.asarray(jnp.asarray(x, jnp.bfloat16)).astype(np.float32)
 
 
-def _inputs(seed, L, mc, B, Hkv, G):
-    """Stacked q8q4 state from real packed chunks (random bf16 K/V pruned to
-    keep 40 of 128, then encoded), plus windows and q."""
+def _inputs(seed, L, mc, B, Hkv, G, codec="q8q4"):
+    """Stacked state of ``codec`` from real packed chunks (random bf16 K/V
+    pruned to keep 40 of 128, then encoded), plus windows and q."""
     rs = np.random.RandomState(seed)
     BH = B * Hkv
-    pool = np.zeros((L, mc, BH, 192, 128), np.int16)
+    jcodec = JCODECS[codec]
+    pool = np.zeros((L, mc, BH, jcodec.stream_rows, 128), np.int16)
     scales = np.zeros((L, mc, BH, 2, 128), np.float32)
     for li in range(L):
         for ci in range(mc):
@@ -51,7 +54,7 @@ def _inputs(seed, L, mc, B, Hkv, G):
             for kind in ("k", "v"):
                 x = jnp.asarray(rs.randn(BH, 256, 128) * 0.5, jnp.bfloat16)
                 x = jnp.where(jsf.topk_mask(x, 40), x, 0).astype(jnp.bfloat16)
-                r, s = jqf.encode_chunk(x, JCODEC, kind)
+                r, s = jqf.encode_chunk(x, jcodec, kind)
                 rows.append(np.asarray(r))
                 scs.append(np.asarray(s).astype(np.float32))
             pool[li, ci] = np.concatenate(rows, axis=1)
@@ -62,37 +65,43 @@ def _inputs(seed, L, mc, B, Hkv, G):
     return q, pool, scales, k_win, v_win
 
 
-def _run_both(q, pool, scales, k_win, v_win, nc, wl, li):
+def _run_both(q, pool, scales, k_win, v_win, nc, wl, li, codec="q8q4"):
     mc = pool.shape[1]
     jo = jqa.fused_q_decode_attention(
         jnp.asarray(q, jnp.bfloat16), jnp.asarray(pool),
         jnp.asarray(scales[..., 0, :], jnp.bfloat16),
         jnp.asarray(scales[..., 1, :], jnp.bfloat16),
         jnp.asarray(k_win, jnp.bfloat16), jnp.asarray(v_win, jnp.bfloat16),
-        jnp.int32(nc), jnp.int32(wl), JCODEC, mc, li=jnp.int32(li))
+        jnp.int32(nc), jnp.int32(wl), JCODECS[codec], mc, li=jnp.int32(li))
     bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
     before = tqa.fused_q_decode_attention.launches
     to = tqa.fused_q_decode_attention(bf(q), torch.from_numpy(pool), bf(scales),
-                                      bf(k_win), bf(v_win), nc, wl, li, TCODEC)
+                                      bf(k_win), bf(v_win), nc, wl, li, TCODECS[codec])
     assert tqa.fused_q_decode_attention.launches == before   # CPU: no launch
     return np.asarray(jo).astype(np.float32), to.float().numpy()
 
 
-@pytest.mark.parametrize("G", [1, 4])
-def test_plain_matches_jax_kernel(G):
+def _cases(*cases):
+    """pytest params; a q8q4 case keeps the id it had before the codec was a
+    parameter, another codec's case adds the codec to it."""
+    return [pytest.param(*c, id="-".join(str(x) for x in c if x != "q8q4")) for c in cases]
+
+
+@pytest.mark.parametrize("G,codec", _cases((1, "q8q4"), (4, "q8q4"), (4, "q8"), (1, "q4q4")))
+def test_plain_matches_jax_kernel(G, codec):
     """Cases: n_chunks 0, 1 and mc; window lengths 0 (with chunks), 1, 44,
     200 and the full 288; layer 0 and the last of L = 2."""
-    q, pool, scales, k_win, v_win = _inputs(10 + G, 2, 3, 2, 2, G)
+    q, pool, scales, k_win, v_win = _inputs(10 + G, 2, 3, 2, 2, G, codec)
     cases = [(0, 1, 0), (0, 44, 1), (1, 44, 0), (1, 0, 1), (3, 288, 1), (3, 200, 0),
              (1, 288, 0)]
     for nc, wl, li in cases:
-        jo, to = _run_both(q, pool, scales, k_win, v_win, nc, wl, li)
+        jo, to = _run_both(q, pool, scales, k_win, v_win, nc, wl, li, codec)
         # same arithmetic and the same softmax steps; the f32 sums run in
         # another order, which can move a bf16(p) or the bf16 output by one
         # ulp: 2^-8 of the output's magnitude
         np.testing.assert_allclose(to, jo, rtol=0, atol=2 ** -8 * np.abs(jo).max(),
                                    err_msg=f"nc={nc} wl={wl} li={li}")
-    jo, to = _run_both(q, pool, scales, k_win, v_win, 0, 0, 0)
+    jo, to = _run_both(q, pool, scales, k_win, v_win, 0, 0, 0, codec)
     assert (to == 0).all() and (jo == 0).all()               # nothing to attend
 
 
@@ -120,7 +129,7 @@ def test_wrapper_refuses_what_the_kernel_cannot_serve():
               codec=TCODEC)
     tqa.fused_q_decode_attention(**ok)
     bad = [
-        dict(codec=tqf.QuantCodec(256, 128, 8, 8)),          # q8: later slice
+        dict(codec=tqf.QuantCodec(128, 128, 8, 4)),          # 128-token chunks
         dict(k_win=bf(k_win).float()),                       # f32 window
         dict(kv_pool=torch.from_numpy(pool).to(torch.int32)),
         dict(k_win=bf(k_win).transpose(2, 3).contiguous().transpose(2, 3)),
@@ -146,9 +155,11 @@ def test_module_imports_and_builds_nothing_without_nvcc(tmp_path):
         "import mustafar_tpu_torch.ops.kernels.quant_attention as qa\n"
         "import mustafar_tpu_torch.ops.kernels.w4_matmul\n"
         "import mustafar_tpu_torch.ops.kernels.dense_decode\n"
+        "import mustafar_tpu_torch.ops.kernels.pack_kernel\n"
         "from mustafar_tpu_torch.ops.kernels import build\n"
         "assert build._LIBS == {}\n"
-        "for name in ('q_decode', 'q_decode_ps', 'q_segment', 'w4_matmul', 'dense_decode'):\n"
+        "for name in ('q_decode', 'q_decode_ps', 'q_segment', 'w4_matmul', 'dense_decode',\n"
+        "             'prune_quant_pack'):\n"
         "    try:\n"
         "        build.load(name)\n"
         "    except RuntimeError as e:\n"
@@ -166,14 +177,14 @@ def test_module_imports_and_builds_nothing_without_nvcc(tmp_path):
 
 # -- per-slot decode (kernel 2) ---------------------------------------------
 
-def _run_both_ps(q, pool, scales, k_win, v_win, nc, wl, li, q_dtype):
+def _run_both_ps(q, pool, scales, k_win, v_win, nc, wl, li, q_dtype, codec="q8q4"):
     mc = pool.shape[1]
     jo = jqa.fused_q_decode_attention_ps(
         jnp.asarray(q, q_dtype), jnp.asarray(pool),
         jnp.asarray(scales[..., 0, :], jnp.bfloat16),
         jnp.asarray(scales[..., 1, :], jnp.bfloat16),
         jnp.asarray(k_win, jnp.bfloat16), jnp.asarray(v_win, jnp.bfloat16),
-        jnp.asarray(nc, jnp.int32), jnp.asarray(wl, jnp.int32), JCODEC, mc,
+        jnp.asarray(nc, jnp.int32), jnp.asarray(wl, jnp.int32), JCODECS[codec], mc,
         li=jnp.int32(li))
     bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
     tq = torch.from_numpy(q) if q_dtype == jnp.float32 else bf(q)
@@ -181,24 +192,26 @@ def _run_both_ps(q, pool, scales, k_win, v_win, nc, wl, li, q_dtype):
     to = tqa.fused_q_decode_attention_ps(
         tq, torch.from_numpy(pool), bf(scales), bf(k_win), bf(v_win),
         torch.tensor(nc, dtype=torch.int32), torch.tensor(wl, dtype=torch.int32),
-        li, TCODEC)
+        li, TCODECS[codec])
     assert tqa.fused_q_decode_attention_ps.launches == before   # CPU: no launch
     assert to.dtype == tq.dtype
     return np.asarray(jo).astype(np.float32), to.float().numpy()
 
 
-@pytest.mark.parametrize("G,q_dtype", [(1, "bfloat16"), (4, "bfloat16"), (4, "float32")])
-def test_ps_plain_matches_jax_kernel(G, q_dtype):
+@pytest.mark.parametrize("G,q_dtype,codec", _cases(
+    (1, "bfloat16", "q8q4"), (4, "bfloat16", "q8q4"), (4, "float32", "q8q4"),
+    (4, "bfloat16", "q8"), (2, "bfloat16", "q4q4")))
+def test_ps_plain_matches_jax_kernel(G, q_dtype, codec):
     """Mixed slots in one call: n_chunks 0/1/3 and win_len 0/1/44/288, and an
     idle slot (0, 0), which the port writes as 0; the TPU kernel's block
     loops every head to the largest counts, and parity is owed on slots with
     something to attend."""
-    q, pool, scales, k_win, v_win = _inputs(20 + G, 2, 3, 6, 1, G)
+    q, pool, scales, k_win, v_win = _inputs(20 + G, 2, 3, 6, 1, G, codec)
     nc = [0, 1, 3, 1, 3, 0]
     wl = [1, 44, 288, 0, 1, 0]
     for li in (0, 1):
         jo, to = _run_both_ps(q, pool, scales, k_win, v_win, nc, wl, li,
-                              getattr(jnp, q_dtype))
+                              getattr(jnp, q_dtype), codec)
         for b in range(6):
             if not (nc[b] or wl[b]):
                 assert (to[b] == 0).all(), f"idle slot {b}, li={li}"
@@ -239,7 +252,8 @@ def test_ps_wrapper_refuses_what_the_kernel_cannot_serve():
               win_len=i32([10, 3]), li=0, codec=TCODEC)
     tqa.fused_q_decode_attention_ps(**ok)
     bad = [
-        dict(codec=tqf.QuantCodec(256, 128, 4, 4)),          # q4q4: later slice
+        dict(codec=tqf.QuantCodec(128, 128, 4, 4)),          # 128-token chunks
+        dict(codec=tqf.QuantCodec(256, 128, 4, 8)),          # no codec has these widths
         dict(n_chunks=1), dict(win_len=i32([10])),           # host int, wrong shape
         dict(n_chunks=torch.tensor([1, 0])),                 # int64 counts
         dict(v_win=bf(v_win).float()), dict(li=1), dict(li=-1),
@@ -258,21 +272,23 @@ def test_ps_wrapper_refuses_what_the_kernel_cannot_serve():
 
 # -- segment partials (kernel 3) ----------------------------------------------
 
-@pytest.mark.parametrize("nc,seg_start", [(0, 0), (0, 256), (1, 512), (3, 768), (3, 1024)])
-def test_segment_plain_matches_jax_kernel(nc, seg_start):
+@pytest.mark.parametrize("nc,seg_start,codec", _cases(
+    (0, 0, "q8q4"), (0, 256, "q8q4"), (1, 512, "q8q4"), (3, 768, "q8q4"), (3, 1024, "q8q4"),
+    (3, 768, "q8"), (1, 512, "q4q4"), (3, 1024, "q4q4")))
+def test_segment_plain_matches_jax_kernel(nc, seg_start, codec):
     """acc, m and l of one 256-row segment (B=2, Hkv=2, G=2) over nc chunks of
     layer 1; with no chunk, m is exactly -1e30 and l exactly 0."""
-    _, pool, scales, _, _ = _inputs(30 + nc, 2, 3, 2, 2, 2)
+    _, pool, scales, _, _ = _inputs(30 + nc, 2, 3, 2, 2, 2, codec)
     qs = _bf16(np.random.RandomState(nc + seg_start).randn(2, 256, 4, 128))
     ja, jm, jl = (np.asarray(x) for x in jqa.fused_q_segment_attention(
         jnp.asarray(qs, jnp.bfloat16), jnp.asarray(pool),
         jnp.asarray(scales[..., 0, :], jnp.bfloat16),
         jnp.asarray(scales[..., 1, :], jnp.bfloat16), jnp.int32(nc),
-        jnp.int32(seg_start), JCODEC, 3, li=jnp.int32(1)))
+        jnp.int32(seg_start), JCODECS[codec], 3, li=jnp.int32(1)))
     before = tqa.fused_q_segment_attention.launches
     ta, tm, tl = (x.numpy() for x in tqa.fused_q_segment_attention(
         torch.from_numpy(qs).to(torch.bfloat16), torch.from_numpy(pool),
-        torch.from_numpy(scales).to(torch.bfloat16), nc, seg_start, 1, TCODEC))
+        torch.from_numpy(scales).to(torch.bfloat16), nc, seg_start, 1, TCODECS[codec]))
     assert tqa.fused_q_segment_attention.launches == before
     assert ta.shape == ja.shape == (2, 256, 4, 128) and tm.shape == tl.shape == (2, 256, 4, 1)
     if nc == 0:
@@ -294,7 +310,7 @@ def test_segment_wrapper_refuses_what_the_kernel_cannot_serve():
               seg_start=512, li=0, codec=TCODEC)
     tqa.fused_q_segment_attention(**ok)
     bad = [
-        dict(codec=tqf.QuantCodec(256, 128, 8, 8)), dict(n_chunks=3),
+        dict(codec=tqf.QuantCodec(128, 128, 8, 4)), dict(n_chunks=3),
         dict(n_chunks=torch.tensor(1)), dict(seg_start=128), dict(li=1),
         dict(kv_scales=bf(scales).float()),
         dict(q_seg=bf(np.zeros((1, 256, 3, 128), np.float32))),   # 3 heads over 2

@@ -105,6 +105,23 @@ def test_encode_decode_chunk_bit_exact(kind, vbits):
     assert tcod.stream_rows == jcod.stream_rows
 
 
+@pytest.mark.parametrize("codec", ["q8", "q8q4", "q4q4"])
+def test_codec_rows_and_k_encode_bit_exact(codec):
+    """Each quant codec's row counts (q8 K 128 + V 128 = 256 rows a chunk,
+    q8q4 128 + 64, q4q4 64 + 64) are the JAX package's, and its K stream
+    (int4 at q4q4) encodes bit-exact."""
+    bits = tqf.CODECS[codec]
+    jcod, tcod = jqf.QuantCodec(256, 128, *bits), tqf.QuantCodec(256, 128, *bits)
+    assert (tcod.k_rows, tcod.v_rows, tcod.stream_rows) == \
+        (jcod.k_rows, jcod.v_rows, jcod.stream_rows) == \
+        {"q8": (128, 128, 256), "q8q4": (128, 64, 192), "q4q4": (64, 64, 128)}[codec]
+    x = _bf16_np(np.random.RandomState(3).randn(2, 256, 128) * 0.3)
+    jrows, jsc = j_encode_chunk(jnp.asarray(x, jnp.bfloat16), jcod, "k")
+    trows, tsc = tqf.encode_chunk(_t(x, torch.bfloat16), tcod, "k")
+    np.testing.assert_array_equal(trows.numpy(), np.asarray(jrows))
+    np.testing.assert_array_equal(tsc.float().numpy(), np.asarray(jsc).astype(np.float32))
+
+
 # ---------------------------------------------------------------------------
 # (b) topk_mask: bit-exact keep masks, ties to the lower channel
 # ---------------------------------------------------------------------------

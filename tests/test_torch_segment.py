@@ -11,7 +11,8 @@
     slot's own position; an idle slot at pos -1 written nowhere) and
     ``compact_slots`` against the JAX package's, for the compressed cache
     and, where it applies, the dense one.
-Both codecs the port serves, q8q4 and bitmap (whose state has no scales).
+The codecs q8q4 and bitmap (whose state has no scales), and q4q4 for the
+segments.
 The JAX side runs jitted, as it serves: jitted XLA rounds the quantisation
 scale as the port does (``quant_format.recip_f32``).  Tiny geometry:
 head_dim 128, 4 query heads over 2 kv heads, 2 layers, chunk 256, residual
@@ -108,7 +109,8 @@ def _j_segment(jimpl):
 
 @pytest.mark.parametrize("dtype,true_len,codec", [
     *(pytest.param("float32", n, "q8q4", id=f"float32-{n}") for n in (700, 530, 200)),
-    *(pytest.param("float32", n, "bitmap", id=f"float32-{n}-bitmap") for n in (700, 200))])
+    *(pytest.param("float32", n, "bitmap", id=f"float32-{n}-bitmap") for n in (700, 200)),
+    pytest.param("float32", 700, "q4q4", id="float32-700-q4q4")])
 def test_segments_state_bit_exact(dtype, true_len, codec):
     """Every segment of a chunked prefill at B=2: 700 tokens (3 segments, a
     chunk packed at segments 1 and 2, the last one partial), 530 (3
