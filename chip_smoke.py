@@ -7,7 +7,8 @@ Phases, each printing one flushed JSON line with its ``phase`` and
   env           torch / CUDA versions, the card's name and power limit
   build         nvcc builds the eight kernel libraries at once (csrc/q_decode.cu,
                 csrc/q_decode_ps.cu, csrc/q_segment.cu, csrc/sp_decode.cu: the
-                bitmap uniform and per-slot entries, csrc/sp_segment.cu,
+                bitmap uniform and per-slot entries, csrc/sp_segment.cu, both
+                with an instance per value width (16 and 8 bits),
                 csrc/w4_matmul.cu, csrc/dense_decode.cu,
                 csrc/prune_quant_pack.cu) and prints ptxas per instance
   kernel        the uniform decode kernel against its plain PyTorch version on
@@ -25,6 +26,10 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 the three phases above, over real packed chunks (random bf16
                 K and V pruned and encoded on the card) at sparsity 0.7, and
                 0.5 (zero pads in the rows)
+  kernel_sp_q8, kernel_sp_ps_q8, kernel_sp_seg_q8
+                the same for the bitmap-q8 codec: the kernels' 8-bit
+                instances over chunks pruned, quantized and encoded on the
+                card, with their bf16 scales
   kernel_pack   the prune + quantize + pack kernel (TPU kernel 9) against its
                 plain version, bit-equal: 64 and 8 head-chunks of 256 tokens,
                 bits 8 and 4, keep 40/14/128, ties, a zero row, the score
@@ -41,8 +46,9 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 (plain path) with the same token stream: logits must agree
   reference_cb  the tiny f32 continuous-batching engine (chunked, interleaved
                 admission, a slot retired and reused) likewise
-  reference_bitmap
-                the two reference runs above with the bitmap codec
+  reference_bitmap, reference_bitmap_q8
+                the two reference runs above with the bitmap and bitmap-q8
+                codecs
   reference_q   the two reference runs above with the codecs q8 and q4q4
   reference_w4  a tiny W4 model, card (kernel 5, and kernel 4 for the dense
                 cache with use_pallas, or the q8q4 kernel) against CPU
@@ -56,6 +62,10 @@ Phases, each printing one flushed JSON line with its ``phase`` and
   serve_bitmap  serve_q8q4 with the bitmap codec (the JAX package's default):
                 bitmap decode kernel launches = 32 x 299; first tokens =
                 serve_dense's
+  serve_bitmap_q8
+                serve_bitmap with the bitmap-q8 codec (the capacity codec):
+                the same launches; first tokens = serve_dense's; its peak
+                memory and pool bytes beside serve_bitmap's
   serve_dense_kernel
                 serve_dense with use_pallas: the dense cache through its
                 flash-decode kernel, 32 launches a step; first tokens =
@@ -70,14 +80,17 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 admission; per-slot and segment kernel launches = 32 x decode
                 steps and 32 x segments; first tokens = a batch-1 chunked
                 Generator's
-  serve_cb_bitmap
-                serve_cb with the bitmap codec
+  serve_cb_bitmap, serve_cb_bitmap_q8
+                serve_cb with the bitmap and bitmap-q8 codecs (peak memory
+                and pool bytes side by side)
   serve_cb_q4q4 serve_cb with the q4q4 codec on its first 8 requests
                 without the 8,000-token one; kernel 9 twice a layer for every
                 chunk a prompt packs and every compaction (q8q4 and q4q4)
   serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64
-  host_split    one segment (B=1) and one decode tick (8 slots): host enqueue
-                time, wall time, device time and kernels launched
+  host_split    one segment (B=1) at q8q4, bitmap and bitmap-q8, one K and V
+                pack of a chunk at each, and one decode tick (8 slots):
+                host enqueue time, wall time, device time and kernels
+                launched
   serve_w4_dense, serve_w4_q8q4, serve_w4_bitmap
                 the Generator at full width and depth with W4 weights
                 (init_params_w4, seed 0), B=8, 300 + 300: W4 kernel 7 x 32 and
@@ -107,7 +120,17 @@ H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12     # f32 outside the tensor cores (the decode kernels' math)
 H100_BF16_FLOPS = 989e12   # bf16 tensor cores, dense (the segment kernel's math)
 KERNEL_TOL_ULPS = 2        # bf16 ulps of the output's scale
-NO_LIBRARY = "no single PyTorch call computes this function"   # library_ms null
+# why library_ms is null for the attention kernels over compressed pools:
+# scaled_dot_product_attention (the one PyTorch attention call) takes
+# dense K and V, so it would first need the pool decoded, another function
+NO_LIBRARY = {
+    "quant": ("no single PyTorch call attends over int8 / int4 codes in int16 "
+              "carriers with per-chunk scales; scaled_dot_product_attention "
+              "needs dense K and V"),
+    "bitmap": ("no single PyTorch call attends over bitmap streams (bf16 values "
+               "or int8 codes with scales); scaled_dot_product_attention needs "
+               "dense K and V"),
+}
 
 
 def emit(phase, **fields):
@@ -213,7 +236,7 @@ class _Kit:
     call them: ``decode(q, n_chunks, win_len, li)`` and ``decode_ps``,
     ``segment(q_seg, n_chunks, li)`` and the plain versions beside each;
     ``chunk_bytes`` is what one pool chunk of one kv head holds (rows and,
-    for the quant codecs, scales)."""
+    for the quant codecs and bitmap-q8, scales)."""
 
     def __init__(self, codec, g, dev, L, mc, BH, W, sparsity=0.7):
         import torch
@@ -252,32 +275,41 @@ class _Kit:
             self.segment_plain = lambda q, nc, li: qa.fused_q_segment_attention_plain(
                 q, pool, scales, nc, li, qc)
             return
-        # bitmap: real packed chunks, random bf16 K and V pruned to the
-        # format's keep and encoded on the card (a stream of random bits
-        # would not hold the format's popcounts)
-        fmt = sf.ChunkFormat(256, 128, 128 - int(sparsity * 128) + 1)
+        # bitmap codecs: real packed chunks, random bf16 K and V pruned to
+        # the format's keep (and quantized, bitmap-q8) and encoded on the
+        # card (a stream of random bits would not hold the format's popcounts)
+        qbits = 8 if codec == "bitmap-q8" else 16
+        fmt = sf.ChunkFormat(256, 128, 128 - int(sparsity * 128) + 1, qbits=qbits)
         pool = torch.empty((L, mc, BH, 2 * fmt.stream_rows, 128), dtype=torch.int16,
                            device=dev)
+        scales = (torch.empty((L, mc, BH, 2, 128), dtype=torch.bfloat16, device=dev)
+                  if qbits == 8 else None)
         for li in range(L):
             x = torch.randn((mc, 2, BH, 256, 128), generator=g, device=dev)
-            rows = sf.prune_and_encode_stream(x.to(torch.bfloat16), fmt)
+            if qbits == 8:
+                rows, sc = sf.prune_and_encode_stream_q8(x.to(torch.bfloat16), fmt)
+                scales[li] = sc.to(torch.bfloat16).transpose(1, 2)   # [mc, BH, 2, 128]
+            else:
+                rows = sf.prune_and_encode_stream(x.to(torch.bfloat16), fmt)
             pool[li] = torch.cat([rows[:, 0], rows[:, 1]], dim=-2)
-        self.chunk_bytes = 2 * fmt.stream_rows * 128 * 2
+        self.chunk_bytes = 2 * fmt.stream_rows * 128 * 2 + (2 * 128 * 2 if qbits == 8 else 0)
         self.fns = {"decode": ska.fused_sparse_decode_attention,
                     "decode_ps": ska.fused_sparse_decode_attention_ps,
                     "segment": ska.fused_sparse_segment_attention}
+        sc = {"kv_scales": scales}
         self.decode = lambda q, nc, wl, li: ska.fused_sparse_decode_attention(
-            q, pool, kw, vw, nc, wl, li, fmt, fmt)
+            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc)
         self.decode_plain = lambda q, nc, wl, li: ska.fused_sparse_decode_attention_plain(
-            q, pool, kw, vw, nc, wl, li, fmt, fmt)
+            q, pool, kw, vw, nc, wl, li, fmt, fmt, scales)
         self.decode_ps = lambda q, nc, wl, li: ska.fused_sparse_decode_attention_ps(
-            q, pool, kw, vw, nc, wl, li, fmt, fmt)
+            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc)
         self.decode_ps_plain = lambda q, nc, wl, li: \
-            ska.fused_sparse_decode_attention_ps_plain(q, pool, kw, vw, nc, wl, li, fmt, fmt)
+            ska.fused_sparse_decode_attention_ps_plain(q, pool, kw, vw, nc, wl, li, fmt,
+                                                       fmt, scales)
         self.segment = lambda q, nc, li: ska.fused_sparse_segment_attention(
-            q, pool, nc, nc * 256, li, fmt, fmt)
+            q, pool, nc, nc * 256, li, fmt, fmt, **sc)
         self.segment_plain = lambda q, nc, li: ska.fused_sparse_segment_attention_plain(
-            q, pool, nc, li, fmt, fmt)
+            q, pool, nc, li, fmt, fmt, scales)
 
 
 # the kernels line's fixed fields, by codec family and kernel
@@ -301,16 +333,20 @@ KERNEL_META = {
 
 
 def _meta(codec, kind):
-    return KERNEL_META[("quant" if codec in QUANT_BITS else codec, kind)]
+    family = ("quant" if codec in QUANT_BITS
+              else "bitmap" if codec.startswith("bitmap") else codec)
+    return KERNEL_META[(family, kind)]
 
 
 def _phase_label(base, codec):
     """The phase's name: ``kernel``... for q8q4 (the names of earlier runs),
-    ``kernel_sp``... for bitmap, ``kernel..._q8`` / ``_q4q4`` else."""
+    ``kernel_sp``... for bitmap (``_q8`` after it for bitmap-q8),
+    ``kernel..._q8`` / ``_q4q4`` else."""
     if codec == "q8q4":
         return base
-    if codec == "bitmap":
-        return base.replace("kernel", "kernel_sp", 1)
+    if codec.startswith("bitmap"):
+        return base.replace("kernel", "kernel_sp", 1) + ("_q8" if codec == "bitmap-q8"
+                                                         else "")
     return f"{base}_{codec}"
 
 
@@ -323,7 +359,8 @@ def _entry(codec, kind, results, worst, tol, kernel_ms, plain_ms, bytes_ms, flop
             "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": None, "library_note": NO_LIBRARY}
+            "library_ms": None,
+            "library_note": NO_LIBRARY["quant" if codec in QUANT_BITS else "bitmap"]}
 
 
 def phase_kernel(codec="q8q4"):
@@ -1035,18 +1072,19 @@ def phase_reference_cb(codec="q8q4"):
     return fields
 
 
-def phase_reference_bitmap():
-    """``reference`` and ``reference_cb`` with the bitmap codec: the
-    Generator's decode path and the engine (per-slot decode, segments)
-    through the bitmap kernels on the card, against the plain versions on
-    the CPU.  Each run must have launched the bitmap kernels."""
-    gen, cb = phase_reference("bitmap"), phase_reference_cb("bitmap")
-    emit("reference_bitmap", generator=gen, engine=cb)
+def phase_reference_bitmap(codec="bitmap"):
+    """``reference`` and ``reference_cb`` with a bitmap codec (bitmap, or
+    bitmap-q8 as ``reference_bitmap_q8``): the Generator's decode path and
+    the engine (per-slot decode, segments) through the bitmap kernels on
+    the card, against the plain versions on the CPU.  Each run must have
+    launched exactly the bitmap kernels."""
+    gen, cb = phase_reference(codec), phase_reference_cb(codec)
+    label = "reference_" + codec.replace("-", "_")
+    emit(label, generator=gen, engine=cb)
     if set(gen["launched"]) != {"fused_sparse_decode_attention"} or set(
             cb["launched"]) != {"fused_sparse_decode_attention_ps",
                                 "fused_sparse_segment_attention"}:
-        raise AssertionError(f"reference_bitmap: launched {gen['launched']} and "
-                             f"{cb['launched']}")
+        raise AssertionError(f"{label}: launched {gen['launched']} and {cb['launched']}")
 
 
 def phase_reference_q():
@@ -1178,6 +1216,12 @@ def phase_reference_w4():
                              f"not launched as expected: {results}")
 
 
+def _pool_bytes(cache):
+    """Bytes of a compressed cache's pool and scales (allocated at
+    ``max_seq_len``'s chunks)."""
+    return sum(cache[k].nbytes for k in ("kv_pool", "kv_scales") if k in cache)
+
+
 def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=False):
     """One warm-up generation, then the measured one; returns its tokens,
     the launches of every kernel during the measured run (those launched)
@@ -1218,6 +1262,7 @@ def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=Fals
     cache = gen.last_cache
     if mode.value == "compressed":
         fields["n_chunks_end"] = cache["nc_host"]
+        fields["pool_bytes"] = _pool_bytes(cache)
         if not (cache["nc_host"] == 2 and bool((cache["n_chunks"] == 2).all())):
             raise AssertionError(f"{label}: expected 2 pool chunks at the end, "
                                  f"got {cache['nc_host']}")
@@ -1300,7 +1345,7 @@ def phase_decode_split_w4(params, attn_ms, wall_s, new_tokens):
          wall_ms_per_token={c: t / new_tokens * 1e3 for c, t in wall_s.items()})
 
 
-def phase_serve_cb(params, codec="q8q4", w4=False, first8=False):
+def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None):
     """Continuous batching at full Llama-3-8B width and depth: 8 slots, 17
     requests (16 with prompts of 200-1,500 tokens and 32-96 new tokens,
     plus one of 8,000 prompt tokens submitted third), chunked prefill with
@@ -1313,7 +1358,9 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False):
     ``compact_slots`` call packs all the slots it names).  With ``first8``:
     the first 8 requests of that stream without the 8,000-token one.  With
     ``w4`` (W4 params; implies ``first8``): the W4 kernel 7 times a layer in
-    every decode step (a segment's 256 tokens take the dequant route)."""
+    every decode step (a segment's 256 tokens take the dequant route).
+    ``beside``: fields of another run printed with this one.  Returns the
+    launches and the run's peak memory and pool bytes."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
@@ -1339,6 +1386,7 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated() / 2 ** 30     # the weights, no engine
 
     class Timed(ContinuousBatchingEngine):
         """Wall time of each tick by what it ran (a tick that decodes ends
@@ -1369,6 +1417,7 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False):
     dt = time.perf_counter() - t
     launches = _launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pool_bytes = _pool_bytes(cb.cache)
     L = LLAMA3_8B.num_layers
     generated = sum(len(outs[u]) for u in uids)
     want = dict.fromkeys(launches, 0)
@@ -1394,13 +1443,14 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False):
     del gen, cb
     torch.cuda.empty_cache()
     label = ("serve_cb_w4" if w4 else "serve_cb" if codec == "q8q4"
-             else f"serve_cb_{codec}")
+             else "serve_cb_" + codec.replace("-", "_"))
     emit(label, model=f"llama-3-8b x32L, {'W4' if w4 else 'W8'} (random, seed 0)",
          codec=codec, slots=8,
          requests=len(reqs), prompt_tokens=sum(len(p) for p, _ in reqs),
          generated_tokens=generated, seconds=dt, tok_s=generated / dt,
-         peak_mem_gib=peak, **counts, launches=launches, expected_launches=want,
-         first_token_equal=sum(first_equal))
+         peak_mem_gib=peak, mem_before_gib=mem_before, pool_bytes=pool_bytes, **counts,
+         launches=launches,
+         expected_launches=want, first_token_equal=sum(first_equal), **(beside or {}))
     if bad or launches != want or counts["segments"] != seg_expected:
         raise AssertionError(f"{label}: bad outputs {bad}, launches {launches} "
                              f"(expected {want}), segments {counts['segments']} "
@@ -1409,7 +1459,7 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False):
         raise AssertionError(f"{label}: first tokens differ from the batch-1 "
                              f"chunked Generator for requests "
                              f"{[u for u, ok in zip(uids, first_equal) if not ok]}")
-    return launches
+    return launches, {"peak_mem_gib": peak, "pool_bytes": pool_bytes}
 
 
 def phase_serve_chunked(params):
@@ -1457,10 +1507,13 @@ def phase_serve_chunked(params):
 
 def phase_host_split(params):
     """Host or device: one chunked-prefill segment (B=1 after 4 packed
-    chunks; it packs a fifth) and one decode tick of the engine with 8
-    active slots, each timed three ways: the host's time to enqueue it, the
-    wall time until the card is done, and the device time of its kernels
-    with the number of kernels launched (torch.profiler)."""
+    chunks; it packs a fifth) at q8q4, bitmap and bitmap-q8, one pack of a
+    chunk's K and V (B=1, 8 kv heads: what a segment does per layer) at
+    each, and one decode tick of the engine with 8 active slots (q8q4),
+    each timed three ways: the host's time to enqueue it, the wall time
+    until the card is done, and the device time of its kernels with the
+    number of kernels launched (torch.profiler)."""
+    import dataclasses
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1494,22 +1547,29 @@ def phase_host_split(params):
         return {"enqueue_ms": 1e3 * enqueue, "wall_ms": 1e3 * wall,
                 "device_ms": device_us / 1e3, "kernels_launched": launches}
 
-    impl = make_cache(eng)
     toks = torch.as_tensor(np.random.RandomState(4).randint(1, 500, (1, 2048)),
-                           device=impl.device)
-    sub = impl.init(1)
-    seg = [0]
-
-    def segment():
-        s = seg[0]
-        llama.prefill_segment(LLAMA3_8B, params, toks[:, s * 256:(s + 1) * 256], sub,
-                              impl, s * 256, 2000)
-        seg[0] += 1
-
+                           device="cuda")
+    kv = torch.randn((1, LLAMA3_8B.num_kv_heads, 256, 128), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(4))
+    kv = kv.to(torch.bfloat16)
+    segments, packs = {}, {}
     with torch.inference_mode():
-        for _ in range(4):
-            segment()
-        seg_split = measure(segment)           # segment 4; the profiled one is 5
+        for codec in ("q8q4", "bitmap", "bitmap-q8"):
+            impl = make_cache(dataclasses.replace(eng, codec=codec))
+            sub = impl.init(1)
+            seg = [0]
+
+            def segment():
+                s = seg[0]
+                llama.prefill_segment(LLAMA3_8B, params, toks[:, s * 256:(s + 1) * 256],
+                                      sub, impl, s * 256, 2000)
+                seg[0] += 1
+
+            for _ in range(4):
+                segment()
+            segments[codec] = measure(segment)   # segment 4; the profiled one is 5
+            packs[codec] = measure(lambda: impl._pack(kv, kv))
+            del sub
         cb = ContinuousBatchingEngine(eng, params)
         rs = np.random.RandomState(5)
         for _ in range(8):
@@ -1517,9 +1577,11 @@ def phase_host_split(params):
         while cb._admissions or cb.queue:
             cb.tick()
         tick_split = measure(cb.tick)
-    del cb, sub
+    del cb
     torch.cuda.empty_cache()
-    emit("host_split", segment_b1=seg_split, decode_tick_b8=tick_split)
+    emit("host_split", segment_b1=segments["q8q4"], segment_b1_bitmap=segments["bitmap"],
+         segment_b1_bitmap_q8=segments["bitmap-q8"], pack_kv_b1=packs,
+         decode_tick_b8=tick_split)
 
 
 def serve_w4(entries, prompt, new):
@@ -1586,19 +1648,19 @@ def serve_packs():
 QUANT_KINDS = ("decode", "decode_ps", "segment")
 
 
-def _merge_codecs(entries, other, note):
-    """The kernels line keeps one entry per kernel: kernels 1-3 carry q8q4's
-    numbers at the top and each codec's under ``codecs``."""
+def _merge_codecs(entries, other, top, rest, note):
+    """The kernels line keeps one entry per kernel: the decode, per-slot and
+    segment kernels of a codec family carry codec ``top``'s numbers at the
+    top and each codec's (``top`` and ``rest``) under ``codecs``."""
     keys = ("launches", "max_abs_err", "worst_err_over_tol", "ms", "plain_ms",
             "bound_ms", "bound_by")
     for kind in QUANT_KINDS:
-        e = entries[("q8q4", kind)]
+        e = entries[(top, kind)]
         e["codecs"] = {c: {k: x[k] for k in keys}
-                       for c, x in (("q8q4", e), ("q8", other[("q8", kind)]),
-                                    ("q4q4", other[("q4q4", kind)]))}
+                       for c, x in ((top, e), *((c, other[(c, kind)]) for c in rest))}
         e["max_abs_err"] = max(v["max_abs_err"] for v in e["codecs"].values())
         e["worst_err_over_tol"] = max(v["worst_err_over_tol"] for v in e["codecs"].values())
-        e["timed_at"] = "q8q4 at the top; each codec under codecs"
+        e["timed_at"] = f"{top} at the top; each codec under codecs"
         e["launches_note"] = note
 
 
@@ -1610,7 +1672,7 @@ def main():
              ("segment", phase_kernel_seg))
     entries = {(codec, kind): phase(codec) for codec in ("q8q4", "bitmap")
                for kind, phase in kinds}
-    other = {(codec, kind): phase(codec) for codec in ("q8", "q4q4")
+    other = {(codec, kind): phase(codec) for codec in ("q8", "q4q4", "bitmap-q8")
              for kind, phase in kinds}
     entries[("q8q4", "pack")] = phase_kernel_pack()
     entries[("w4", "matmul")] = phase_kernel_w4()
@@ -1618,6 +1680,7 @@ def main():
     phase_reference()
     phase_reference_cb()
     phase_reference_bitmap()
+    phase_reference_bitmap("bitmap-q8")
     q_engine_launches = phase_reference_q()
     phase_reference_w4()
 
@@ -1673,6 +1736,21 @@ def main():
     if not first_equal:
         raise AssertionError("bitmap and dense engines disagree on the first token")
     entries[("bitmap", "decode")]["launches"] = expected
+    bitmap_fields = fields
+    toks, launches, fields = serve("serve_bitmap_q8", CacheMode.COMPRESSED, params,
+                                   prompt, new, codec="bitmap-q8")
+    first_equal = bool((toks[:, 0] == dense_toks[:, 0]).all())
+    emit("serve_bitmap_q8", decode_steps=decode_steps, expected_launches=expected,
+         first_token_equal_dense=first_equal,
+         token_agreement_with_bitmap=(toks == bitmap_toks).float().mean().item(),
+         token_agreement_with_dense=(toks == dense_toks).float().mean().item(),
+         serve_bitmap={k: bitmap_fields[k] for k in ("peak_mem_gib", "pool_bytes")},
+         **fields)
+    if launches != {"fused_sparse_decode_attention": expected} or not first_equal:
+        raise AssertionError(f"serve_bitmap_q8: launched {launches} (expected {expected} "
+                             f"of the bitmap decode kernel), first tokens equal the "
+                             f"dense run's: {first_equal}")
+    other[("bitmap-q8", "decode")]["launches"] = expected
     kernel_toks, launches, fields = serve("serve_dense_kernel", CacheMode.DENSE, params,
                                           prompt, new, use_pallas=True)
     first_equal = bool((kernel_toks[:, 0] == dense_toks[:, 0]).all())
@@ -1700,18 +1778,27 @@ def main():
         other[(codec, "decode")]["launches"] = expected
     phase_decode_split(params, entries[("q8q4", "decode")]["kernel_ms"], q8q4_s,
                        dense_s, new)
+    cb_runs = {}
     for codec in ("q8q4", "bitmap"):
-        cb_launches = phase_serve_cb(params, codec)
+        cb_launches, cb_runs[codec] = phase_serve_cb(params, codec)
         for kind in ("decode_ps", "segment"):
             entries[(codec, kind)]["launches"] = cb_launches[_meta(codec, kind)[0]]
-    cb_launches = phase_serve_cb(params, "q4q4", first8=True)
+    cb_launches, _ = phase_serve_cb(params, "bitmap-q8",
+                                    beside={"serve_cb_bitmap": cb_runs["bitmap"]})
+    for kind in ("decode_ps", "segment"):
+        other[("bitmap-q8", kind)]["launches"] = cb_launches[_meta("bitmap-q8", kind)[0]]
+    cb_launches, _ = phase_serve_cb(params, "q4q4", first8=True)
     for kind in ("decode_ps", "segment"):
         name = _meta("q4q4", kind)[0]
         other[("q4q4", kind)]["launches"] = cb_launches[name]
         other[("q8", kind)]["launches"] = q_engine_launches["q8"][name]
-    _merge_codecs(entries, other, "q8q4 and q4q4 from serve_q8q4 / serve_q4q4 and "
+    _merge_codecs(entries, other, "q8q4", ("q8", "q4q4"),
+                  "q8q4 and q4q4 from serve_q8q4 / serve_q4q4 and "
                   "serve_cb / serve_cb_q4q4; q8's per-slot and segment launches from "
                   "reference_q's engine run on the card (tiny model)")
+    _merge_codecs(entries, other, "bitmap", ("bitmap-q8",),
+                  "bitmap and bitmap-q8 from serve_bitmap / serve_bitmap_q8 and "
+                  "serve_cb_bitmap / serve_cb_bitmap_q8")
     phase_serve_chunked(params)
     phase_host_split(params)
     del params

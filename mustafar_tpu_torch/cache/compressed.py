@@ -1,17 +1,19 @@
 """Compressed KV cache: port of the served subset of
 ``mustafar_tpu/cache/compressed.py`` (uniform batch, per-slot continuous
 batching and chunked prefill) for the codecs "bitmap" (the default: a
-bitmap plus the packed bf16 non-zeros, ``ops/sparse_format.py``) and the
-quant codecs "q8", "q8q4" and "q4q4" (pruned chunks quantized dense, int8
-or int4 K and V, ``ops/quant_format.py``).
+bitmap plus the packed bf16 non-zeros, ``ops/sparse_format.py``),
+"bitmap-q8" (the same bitmap, the non-zeros as int8 codes with per-channel
+scales) and the quant codecs "q8", "q8q4" and "q4q4" (pruned chunks
+quantized dense, int8 or int4 K and V, ``ops/quant_format.py``).
 
 State (a dict, the JAX package's layouts, updated in place):
   kv_pool   [L, mc, B, Hkv, ROWS, 128] int16 packed chunks, K rows then V
                                              rows (ROWS 256 / 192 / 128 for
                                              q8 / q8q4 / q4q4; 192 for
-                                             bitmap at sparsity 0.7)
+                                             bitmap and 112 for bitmap-q8
+                                             at sparsity 0.7)
   kv_scales [L, mc, B, Hkv, 2, 128]   bf16   per-channel K and V scales
-                                             (quant codecs only)
+                                             (quant codecs and bitmap-q8)
   k_win / v_win [L, B, Hkv, r+C, 128]        dense residual window
   n_chunks  [L, B] int32                     active chunks (device)
   nc_host   int or None                      host copy of n_chunks while the
@@ -25,7 +27,8 @@ Semantics:
     ``((T - r) // C) * C`` tokens are pruned (exact top-|x| per token) and
     packed chunk by chunk, and the rest becomes the dense window.  The
     quant codecs prune, quantize and pack in one kernel on the card
-    (``ops/kernels/pack_kernel.py``), writing into the pool slot.
+    (``ops/kernels/pack_kernel.py``), writing into the pool slot; the
+    bitmap codecs pack with eager torch ops (``sparse_format``).
   * chunked prefill (``segment_attend``): one C-token segment attends the
     packed pools (the segment kernel), the window and itself, merged; the
     window's oldest C tokens are packed as soon as the segment's tokens
@@ -68,9 +71,6 @@ class CompressedKVCache:
             raise NotImplementedError(
                 f"compressed cache serves KT_MAG_VT_MAG; {p.method} "
                 "(output-aware policies) is ROADMAP Queue A item 12")
-        if engine.codec not in ("bitmap", *qf.CODECS):
-            raise NotImplementedError(
-                f"codec {engine.codec!r}: bitmap-q8 is ROADMAP Queue A item 11")
         if m.sliding_window is not None:
             raise NotImplementedError("sliding windows are ROADMAP Queue A item 14")
         assert m.head_dim == 128, (
@@ -89,11 +89,13 @@ class CompressedKVCache:
             self.rows = self.qcodec.stream_rows
             self.pool_keys = ("kv_pool", "kv_scales")
         else:
+            # bitmap streams: bf16 values, or int8 codes with scales (bitmap-q8)
             self.qcodec = None
-            self.kfmt = sf.ChunkFormat(C, m.head_dim, self.k_keep)
-            self.vfmt = sf.ChunkFormat(C, m.head_dim, self.v_keep)
+            qbits = 8 if engine.codec == "bitmap-q8" else 16
+            self.kfmt = sf.ChunkFormat(C, m.head_dim, self.k_keep, qbits=qbits)
+            self.vfmt = sf.ChunkFormat(C, m.head_dim, self.v_keep, qbits=qbits)
             self.rows = self.kfmt.stream_rows + self.vfmt.stream_rows
-            self.pool_keys = ("kv_pool",)
+            self.pool_keys = ("kv_pool", "kv_scales") if qbits == 8 else ("kv_pool",)
 
     # -- state ------------------------------------------------------------
     def init(self, batch: int, dtype=torch.bfloat16) -> dict:
@@ -107,7 +109,7 @@ class CompressedKVCache:
                                    dtype=torch.int16, device=dev),
             "nc_host": 0,
         }
-        if self.qcodec is not None:
+        if "kv_scales" in self.pool_keys:
             state["kv_scales"] = torch.zeros((L, mc, batch, H, 2, D),
                                              dtype=torch.bfloat16, device=dev)
         return state
@@ -127,21 +129,30 @@ class CompressedKVCache:
                                 rows_out=rows_out, scales_out=scales_out)
 
     def _pack_chunk_bitmap(self, dense_bhtd: torch.Tensor, fmt: sf.ChunkFormat):
-        """dense [B, Hkv, C, D] -> fused-stream rows [BH, stream_rows, 128]:
-        top-|x| keep per token, then the bitmap and the packed values."""
+        """dense [B, Hkv, C, D] -> (fused-stream rows [BH, stream_rows, 128],
+        scales [BH, D] bf16 or None): top-|x| keep per token, then the
+        bitmap and the packed values; at ``qbits=8`` the survivors are
+        quantized first (codes from the f32 scales, stored as bf16)."""
         B, H, C, D = dense_bhtd.shape
         x = dense_bhtd.reshape(B * H, C, D).to(torch.bfloat16)
-        return sf.prune_and_encode_stream(x, fmt)
+        if fmt.qbits == 16:
+            return sf.prune_and_encode_stream(x, fmt), None
+        rows, scales = sf.prune_and_encode_stream_q8(x, fmt)
+        return rows, scales.to(torch.bfloat16)
 
     def _pack(self, k_chunk, v_chunk) -> dict:
         """K and V chunks [B, Hkv, C, D] -> the pool entries of one chunk:
-        {"kv_pool": rows [B, Hkv, ROWS, 128]} and, for the quant codecs,
-        "kv_scales" [B, Hkv, 2, D]."""
+        {"kv_pool": rows [B, Hkv, ROWS, 128]} and, for the quant codecs and
+        bitmap-q8, "kv_scales" [B, Hkv, 2, D]."""
         B, H = k_chunk.shape[:2]
         if self.qcodec is None:
-            rows = torch.cat([self._pack_chunk_bitmap(k_chunk, self.kfmt),
-                              self._pack_chunk_bitmap(v_chunk, self.vfmt)], dim=-2)
-            return {"kv_pool": rows.reshape(B, H, *rows.shape[1:])}
+            (k_rows, k_sc), (v_rows, v_sc) = (self._pack_chunk_bitmap(k_chunk, self.kfmt),
+                                              self._pack_chunk_bitmap(v_chunk, self.vfmt))
+            rows = torch.cat([k_rows, v_rows], dim=-2)
+            entry = {"kv_pool": rows.reshape(B, H, *rows.shape[1:])}
+            if k_sc is not None:
+                entry["kv_scales"] = torch.stack([k_sc, v_sc], dim=1).reshape(B, H, 2, -1)
+            return entry
         entry = {"kv_pool": torch.empty((B, H, self.rows, 128), dtype=torch.int16,
                                         device=k_chunk.device),
                  "kv_scales": torch.empty((B, H, 2, 128), dtype=torch.bfloat16,
@@ -201,7 +212,7 @@ class CompressedKVCache:
         D = self.model.head_dim
         pool = state["kv_pool"].view(L, mc, B * H, *state["kv_pool"].shape[4:])
         scales = (state["kv_scales"].view(L, mc, B * H, 2, D)
-                  if self.qcodec is not None else None)
+                  if "kv_scales" in state else None)
         kw = state["k_win"].view(L, B * H, self.wcap, D)
         vw = state["v_win"].view(L, B * H, self.wcap, D)
         if kw.dtype != torch.bfloat16:
@@ -230,7 +241,8 @@ class CompressedKVCache:
         pool, scales, kw, vw, lk = self._views(state, li)
         if self.qcodec is None:
             return ska.fused_sparse_decode_attention(q, pool, kw, vw, nc, win_len, lk,
-                                                     self.kfmt, self.vfmt)
+                                                     self.kfmt, self.vfmt,
+                                                     kv_scales=scales)
         return qa.fused_q_decode_attention(q, pool, scales, kw, vw, nc, win_len,
                                            lk, self.qcodec)
 
@@ -259,7 +271,8 @@ class CompressedKVCache:
         pool, scales, kw, vw, lk = self._views(state, li)
         if self.qcodec is None:
             return ska.fused_sparse_decode_attention_ps(q, pool, kw, vw, nc, win_len,
-                                                        lk, self.kfmt, self.vfmt)
+                                                        lk, self.kfmt, self.vfmt,
+                                                        kv_scales=scales)
         return qa.fused_q_decode_attention_ps(q, pool, scales, kw, vw, nc, win_len,
                                               lk, self.qcodec)
 
@@ -377,7 +390,8 @@ class CompressedKVCache:
         pool, scales, _, _, lk = self._views(state, li)
         if self.qcodec is None:
             p_pool = ska.fused_sparse_segment_attention(q, pool, nc, seg_start, lk,
-                                                        self.kfmt, self.vfmt)
+                                                        self.kfmt, self.vfmt,
+                                                        kv_scales=scales)
         else:
             p_pool = qa.fused_q_segment_attention(q, pool, scales, nc, seg_start, lk,
                                                   self.qcodec)

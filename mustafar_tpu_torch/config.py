@@ -134,10 +134,12 @@ class EngineConfig:
     stack one chunk-sized segment at a time, attending to the packed past:
     activation memory O(chunk) instead of O(prompt), and prefill attention
     then sees the pruned past.  ``codec`` is the compressed cache's chunk
-    storage: "bitmap" (a bitmap plus the packed bf16 non-zeros) or a quant
-    codec, pruned chunks quantized dense: "q8" (int8 K and V), "q8q4" (int8
-    K, int4 V) or "q4q4" (int4 K and V); the port refuses "bitmap-q8" so
-    far."""
+    storage: "bitmap" (a bitmap plus the packed bf16 non-zeros), "bitmap-q8"
+    (the same bitmap, the non-zeros as int8 codes with per-channel scales:
+    the capacity codec, 112 int16 rows a chunk and kv head at sparsity 0.7
+    against bitmap's 192) or a quant codec, pruned chunks quantized dense:
+    "q8" (int8 K and V), "q8q4" (int8 K, int4 V) or "q4q4" (int4 K and
+    V)."""
 
     model: ModelConfig = TINY_LLAMA
     prune: PruneConfig = PruneConfig()

@@ -1,23 +1,33 @@
 // Expansion of one bitmap-coded chunk row, shared by the bitmap attention
-// kernels (sp_decode.cu, sp_segment.cu).
+// kernels (sp_decode.cu, sp_segment.cu), templated on the value width
+// QBITS: 16 (codec bitmap, bf16 values) or 8 (codec bitmap-q8, int8 codes).
 //
-// A chunk's fused stream (ops/sparse_format.py encode_stream) is, for C=256
-// tokens and D=128 channels, int16 rows of 128 lanes:
-//   rows [0, r0)             segment 0: bf16 values, width k0 per token;
-//                            token t's in row t % r0, lanes (t / r0)*k0 ..
-//   rows [r0, r0 + r1)       segment 1 (if k1 > 0), width k1, same rule
-//   rows [r0 + r1, +16)      the bitmap as uint16 word planes: the bit of
+// A chunk's fused stream (ops/sparse_format.py encode_stream and
+// encode_stream_q8) is, for C=256 tokens and D=128 channels, int16 rows of
+// 128 lanes:
+//   rows [0, p0)             segment 0, width k0 per token
+//   rows [p0, p0 + p1)       segment 1 (if k1 > 0), width k1
+//   rows [p0 + p1, +16)      the bitmap as uint16 word planes: the bit of
 //                            (token t, channel d) is bit t / 16 of word
 //                            [t % 16, d]
-// with r = C*k/128.  Every row has exactly k0 + k1 set bits (zero-valued
-// pads included), and its j-th set channel (rank j) holds value j of the
-// token: segment 0 while j < k0, else segment 1 at j - k0.
+// A width-k segment has r = C*k/128 logical rows of 128 values: token t's
+// values lie in logical row t % r, lanes (t / r)*k ..  At 16 bits a logical
+// row is a stream row (p = r, bf16 bit patterns).  At 8 bits two logical
+// rows share one (p = r / 2): stream row j holds logical row j in its low
+// byte and logical row j + r/2 in its high byte, each a sign-extended int8
+// code; the chunk's per-channel scales are applied by the kernels, not
+// here.  Every row has exactly k0 + k1 set bits (zero-valued pads
+// included), and its j-th set channel (rank j) holds value j of the token:
+// segment 0 while j < k0, else segment 1 at j - k0.  Values are placed by
+// the bitmap: a kept value smaller than half its scale has code 0 and its
+// bit set.
 //
 // The kernels first copy a chunk's whole stream (K and V: 192 rows, 48 KB
-// at sparsity 0.7) into shared memory with cp.async, 16 bytes a thread,
-// every copy in flight at once (stage_rows_async), and expand from there:
-// reading the rows straight from device memory made every row wait on two
-// dependent loads (its words, then its values).
+// at sparsity 0.7 and 16 bits; 112 rows, 28 KB at 8 bits) into shared
+// memory with cp.async, 16 bytes a thread, every copy in flight at once
+// (stage_rows_async), and expand from there: reading the rows straight
+// from device memory made every row wait on two dependent loads (its
+// words, then its values).
 //
 // The TPU kernel computes the ranks with a triangular matmul over the whole
 // tile.  Here one warp expands one token row: lane l owns channels l + 32 i
@@ -42,14 +52,17 @@ constexpr int WORD_ROWS = CHUNK / 16;  // bitmap word planes of one stream
 constexpr int ROWS_IN_FLIGHT = 4;      // rows a warp expands back to back
 
 // One stream's value segments: widths k0 and k1 (k1 = 0: one segment), and
-// the log2 of their row counts r = C*k/128 (powers of two), so that a token's
-// row and lane come from shifts and masks, not divisions.
+// the log2 of their logical row counts r = C*k/128 (powers of two), so that
+// a token's row and lane come from shifts and masks, not divisions.  The
+// stream rows a segment takes, p0 and p1, are r at 16 bits and r / 2 at 8.
+template <int QBITS>
 struct Fmt {
+  static_assert(QBITS == 16 || QBITS == 8, "bf16 values or int8 codes");
   int k0, k1;
   int lr0, lr1;
-  __host__ __device__ int r0() const { return CHUNK * k0 / D; }
-  __host__ __device__ int r1() const { return CHUNK * k1 / D; }
-  __host__ __device__ int val_rows() const { return r0() + r1(); }
+  __host__ __device__ int p0() const { return (CHUNK * k0 / D) * QBITS / 16; }
+  __host__ __device__ int p1() const { return (CHUNK * k1 / D) * QBITS / 16; }
+  __host__ __device__ int val_rows() const { return p0() + p1(); }
   __host__ __device__ int rows() const { return val_rows() + WORD_ROWS; }
 };
 
@@ -60,15 +73,18 @@ inline int log2_exact(int x) {
 }
 
 // The format of widths (k0, k1); ok is false unless they are what the codec
-// produces: powers of two, k1 <= k0, k0 + k1 <= 128, whole rows.
-inline Fmt make_fmt(int k0, int k1, bool* ok) {
-  Fmt f{k0, k1, 0, 0};
+// produces: powers of two, k1 <= k0, k0 + k1 <= 128, whole rows (and at 8
+// bits an even number of logical rows a segment, to pair them).
+template <int QBITS>
+inline Fmt<QBITS> make_fmt(int k0, int k1, bool* ok) {
+  Fmt<QBITS> f{k0, k1, 0, 0};
   *ok = k0 >= 1 && k1 >= 0 && k1 <= k0 && k0 + k1 <= D &&
         (CHUNK * k0) % D == 0 && (CHUNK * k1) % D == 0;
   if (!*ok) return f;
-  f.lr0 = log2_exact(f.r0());
-  f.lr1 = k1 ? log2_exact(f.r1()) : 0;
-  *ok = f.lr0 >= 0 && f.lr1 >= 0;
+  f.lr0 = log2_exact(CHUNK * k0 / D);
+  f.lr1 = k1 ? log2_exact(CHUNK * k1 / D) : 0;
+  const int min_lr = QBITS == 8 ? 1 : 0;
+  *ok = f.lr0 >= min_lr && (k1 == 0 || f.lr1 >= min_lr);
   return f;
 }
 
@@ -76,13 +92,43 @@ __device__ __forceinline__ float bf16_bits(uint16_t x) {
   return __uint_as_float((uint32_t)x << 16);
 }
 
+// The value of rank `rank` in token row t (its bit set): the bf16 value as
+// f32, or the int8 code as an exact f32 integer.
+template <int QBITS>
+__device__ __forceinline__ float stored_value(const uint16_t* s, const Fmt<QBITS> f,
+                                              int t, int rank) {
+  int lr, row, at, base;   // log2 of the segment's logical rows, the token's
+  if (rank < f.k0) {       // logical row, its lane, the segment's first row
+    lr = f.lr0;
+    row = t & ((1 << f.lr0) - 1);
+    at = (t >> f.lr0) * f.k0 + rank;
+    base = 0;
+  } else {
+    lr = f.lr1;
+    row = t & ((1 << f.lr1) - 1);
+    at = (t >> f.lr1) * f.k1 + (rank - f.k0);
+    base = (1 << f.lr0) * QBITS / 16;
+  }
+  if constexpr (QBITS == 16) {
+    return bf16_bits(s[(base + row) * D + at]);
+  } else {
+    // logical row `row` is stream row row % (r/2), in the low byte in the
+    // first half of the logical rows, in the high byte in the second
+    const int lp = lr - 1;
+    const int w = s[(base + (row & ((1 << lp) - 1))) * D + at];
+    const int byte = (row >> lp) ? (w >> 8) : (w & 0xff);
+    return (float)((byte ^ 0x80) - 0x80);       // sign-extended int8
+  }
+}
+
 // Token row t of the stream at `stream`, expanded by the calling warp into
-// v[i] = channel lane + 32 i (bf16 values as f32; 0 where the bit is unset).
-// All 32 lanes must call it together.  Callers expand a few rows back to
-// back (ROWS_IN_FLIGHT), so that their independent chains of shared-memory
-// loads, ballots and popcounts overlap.
+// v[i] = channel lane + 32 i (bf16 values or int8 codes as f32; 0 where the
+// bit is unset).  All 32 lanes must call it together.  Callers expand a few
+// rows back to back (ROWS_IN_FLIGHT), so that their independent chains of
+// shared-memory loads, ballots and popcounts overlap.
+template <int QBITS>
 __device__ __forceinline__ void expand_row(const int16_t* __restrict__ stream,
-                                           const Fmt f, int t, int lane,
+                                           const Fmt<QBITS> f, int t, int lane,
                                            float (&v)[4]) {
   const uint16_t* s = reinterpret_cast<const uint16_t*>(stream);
   const uint16_t* words = s + (size_t)(f.val_rows() + t % WORD_ROWS) * D;
@@ -98,15 +144,7 @@ __device__ __forceinline__ void expand_row(const int16_t* __restrict__ stream,
     const int rank = min(base + __popc(set & below), keep - 1);
     base += __popc(set);
     float x = 0.f;
-    if (bit) {
-      int at;
-      if (rank < f.k0)
-        at = (t & ((1 << f.lr0) - 1)) * D + (t >> f.lr0) * f.k0 + rank;
-      else
-        at = ((1 << f.lr0) + (t & ((1 << f.lr1) - 1))) * D + (t >> f.lr1) * f.k1 +
-             (rank - f.k0);
-      x = bf16_bits(s[at]);
-    }
+    if (bit) x = stored_value<QBITS>(s, f, t, rank);
     v[i] = x;
   }
 }

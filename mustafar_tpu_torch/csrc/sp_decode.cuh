@@ -3,7 +3,11 @@
 // their notes there say what it computes and what bounds it.  With
 // `nc_slot` null the block takes the uniform counts `n_chunks` and
 // `win_len`; otherwise block bh reads slot bh / hkv's counts from the
-// device arrays.
+// device arrays.  Templated on the value width QBITS (bitmap_expand.cuh):
+// at 8 bits the expanded values are int8 codes, and each chunk's scales
+// fold in as in the quant kernels (quant_decode.cuh): the scores' q is
+// bf16(q * kscale), and a warp's value product is multiplied by the V
+// scale before it joins the accumulator.
 //
 // Layout of the work: one block of 8 warps per (b, kv head), all G query
 // heads of the kv head in the block, so each packed byte is read once and
@@ -16,8 +20,8 @@
 //   values  each lane keeps a partial accumulator for its four channels
 //           over the warp's rows, rescaled by every step's correction;
 // the eight partial accumulators are summed once, at the end.  The softmax
-// steps (one per chunk, then window tiles of `wt`) are the q8q4 kernels'
-// (softmax_step.cuh), without scales.
+// steps (one per chunk, then window tiles of `wt`) are the quant kernels'
+// (softmax_step.cuh).
 
 #pragma once
 
@@ -45,15 +49,16 @@ struct __align__(16) Smem {
   float corr[G];
 };
 
-template <int G>
+template <int G, int QBITS>
 __global__ void __launch_bounds__(THREADS)
 sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                  const int16_t* __restrict__ pool,         // [L, mc, BH, KR+VR, D]
+                 const __nv_bfloat16* __restrict__ scales, // [L, mc, BH, 2, D] (8 bits)
                  const __nv_bfloat16* __restrict__ k_win,  // [L, BH, W, D]
                  const __nv_bfloat16* __restrict__ v_win,  // [L, BH, W, D]
                  void* __restrict__ out,                   // [B*Hkv, G, D]
                  int out_f32, int BH, int max_chunks, int W, int wt,
-                 int n_chunks, int win_len, int li, Fmt kf, Fmt vf,
+                 int n_chunks, int win_len, int li, Fmt<QBITS> kf, Fmt<QBITS> vf,
                  const int* __restrict__ nc_slot,          // [B] or null
                  const int* __restrict__ wl_slot,          // [B] or null
                  int hkv) {
@@ -90,13 +95,14 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
   __syncthreads();
 
-  // scores of one row (v = its expanded K) for every head, into sm.s[.][t]
-  auto score_row = [&](const float (&v)[4], int t) {
+  // scores of one row (v = its expanded K) against the query rows qv, for
+  // every head, into sm.s[.][t]
+  auto score_row = [&](const float (&qv)[G][4], const float (&v)[4], int t) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s += qr[g][i] * v[i];
+      for (int i = 0; i < 4; ++i) s += qv[g][i] * v[i];
       s = online_softmax::warp_sum(s);
       if (lane == 0) sm.s[g][t] = s * SM_SCALE;
     }
@@ -126,6 +132,19 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     __syncthreads();   // chunk ci is in shared memory for every thread
     const int16_t* kst = stage + (size_t)(ci & 1) * rows * D;
     const int16_t* vst = kst + (size_t)kf.rows() * D;
+    // 8 bits: the chunk's scales of this lane's four channels, and the
+    // scores' q rounded to bf16 after the K scale
+    float qk[G][4], vsc[4];
+    if constexpr (QBITS == 8) {
+      const __nv_bfloat16* ks = scales + (((size_t)li * max_chunks + ci) * BH + bh) * 2 * D;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ksc = __bfloat162float(ks[lane + 32 * i]);
+        vsc[i] = __bfloat162float(ks[D + lane + 32 * i]);
+#pragma unroll
+        for (int g = 0; g < G; ++g) qk[g][i] = online_softmax::round_bf16(qr[g][i] * ksc);
+      }
+    }
     // rows t0 + j * WARPS, ROWS_IN_FLIGHT of them back to back
     constexpr int NR = bitmap::ROWS_IN_FLIGHT;
     for (int t0 = warp; t0 < CHUNK; t0 += NR * WARPS) {
@@ -133,7 +152,7 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
 #pragma unroll
       for (int j = 0; j < NR; ++j) bitmap::expand_row(kst, kf, t0 + j * WARPS, lane, v[j]);
 #pragma unroll
-      for (int j = 0; j < NR; ++j) score_row(v[j], t0 + j * WARPS);
+      for (int j = 0; j < NR; ++j) score_row(QBITS == 8 ? qk : qr, v[j], t0 + j * WARPS);
     }
     __syncthreads();
     online_softmax::softmax_step<G>(sm, CHUNK, warp, lane);
@@ -154,6 +173,12 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
           for (int i = 0; i < 4; ++i) pv[g][i] += p * v[j][i];
         }
     }
+    if constexpr (QBITS == 8) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[g][i] *= vsc[i];
+    }
     rescale_add(pv);
     __syncthreads();   // the next step overwrites sm.s, sm.corr and this buffer
   }
@@ -168,7 +193,7 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         v[i] = __bfloat162float(kw[(size_t)(t0 + t) * D + lane + 32 * i]);
-      score_row(v, t);
+      score_row(qr, v, t);
     }
     __syncthreads();
     online_softmax::softmax_step<G>(sm, nt, warp, lane);
@@ -212,13 +237,14 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
 
 // Checks the launch parameters, selects the instance for the group size G
 // and returns cudaGetLastError().
-inline int launch_decode(const void* q, const void* pool, const void* k_win,
-                         const void* v_win, void* out, int out_f32, int device,
-                         int BH, int G, int max_chunks, int W, int wt,
-                         int n_chunks, int win_len, int li, Fmt kf, Fmt vf,
-                         const int* nc_slot, const int* wl_slot, int hkv,
-                         void* stream) {
-  if (wt < 1 || wt > TILE || BH < 1 || max_chunks < 0 || W < 0 || li < 0)
+template <int QBITS>
+int launch_decode(const void* q, const void* pool, const void* scales,
+                  const void* k_win, const void* v_win, void* out, int out_f32,
+                  int device, int BH, int G, int max_chunks, int W, int wt,
+                  int n_chunks, int win_len, int li, Fmt<QBITS> kf, Fmt<QBITS> vf,
+                  const int* nc_slot, const int* wl_slot, int hkv, void* stream) {
+  if (wt < 1 || wt > TILE || BH < 1 || max_chunks < 0 || W < 0 || li < 0 ||
+      (QBITS == 8) != (scales != nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
@@ -228,13 +254,14 @@ inline int launch_decode(const void* q, const void* pool, const void* k_win,
 #define SP_LAUNCH(g)                                                          \
   {                                                                           \
     const int smem = (int)(sizeof(Smem<g>) + stage_bytes);                    \
-    err = cudaFuncSetAttribute(sp_decode_kernel<g>,                           \
+    err = cudaFuncSetAttribute(sp_decode_kernel<g, QBITS>,                    \
                                cudaFuncAttributeMaxDynamicSharedMemorySize,   \
                                smem);                                         \
     if (err != cudaSuccess) return (int)err;                                  \
-    sp_decode_kernel<g><<<BH, THREADS, smem, s>>>(                            \
+    sp_decode_kernel<g, QBITS><<<BH, THREADS, smem, s>>>(                     \
         static_cast<const __nv_bfloat16*>(q),                                 \
         static_cast<const int16_t*>(pool),                                    \
+        static_cast<const __nv_bfloat16*>(scales),                            \
         static_cast<const __nv_bfloat16*>(k_win),                             \
         static_cast<const __nv_bfloat16*>(v_win), out, out_f32, BH,           \
         max_chunks, W, wt, n_chunks, win_len, li, kf, vf, nc_slot, wl_slot,   \
@@ -249,6 +276,30 @@ inline int launch_decode(const void* q, const void* pool, const void* k_win,
   }
 #undef SP_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// The formats (k0, k1) and (vk0, vk1) at `qbits` bits, checked, and the
+// instance of that width: the entries' common path.
+inline int launch_bits(int qbits, int k0, int k1, int vk0, int vk1, const void* q,
+                       const void* pool, const void* scales, const void* k_win,
+                       const void* v_win, void* out, int out_f32, int device, int BH,
+                       int G, int max_chunks, int W, int wt, int n_chunks,
+                       int win_len, int li, const int* nc_slot, const int* wl_slot,
+                       int hkv, void* stream) {
+#define SP_BITS(b)                                                                 \
+  {                                                                                \
+    bool k_ok, v_ok;                                                               \
+    const Fmt<b> kf = bitmap::make_fmt<b>(k0, k1, &k_ok);                          \
+    const Fmt<b> vf = bitmap::make_fmt<b>(vk0, vk1, &v_ok);                         \
+    if (!k_ok || !v_ok) return (int)cudaErrorInvalidValue;                         \
+    return launch_decode<b>(q, pool, scales, k_win, v_win, out, out_f32, device,  \
+                            BH, G, max_chunks, W, wt, n_chunks, win_len, li, kf,  \
+                            vf, nc_slot, wl_slot, hkv, stream);                    \
+  }
+  if (qbits == 16) SP_BITS(16);
+  if (qbits == 8) SP_BITS(8);
+#undef SP_BITS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace bitmap_decode

@@ -219,13 +219,19 @@ def segment_steps(q_seg, BH: int, n_chunks: int, chunk_step):
     return unfold(acc), unfold(m), unfold(l)
 
 
+def scaled_chunk_step(qf32, kc, vc, ks, vs):
+    """One chunk of int codes with per-channel scales, as the kernels fold
+    them: scores bf16(q * kscale) . K codes / sqrt(128); the V scale ``vs``
+    multiplies the value product (``_softmax_step``).  Shared with the
+    bitmap-q8 codec (``sparse_attention``)."""
+    qk = (qf32 * ks[:, None, :]).to(torch.bfloat16).to(torch.float32)
+    return (qk @ kc.transpose(1, 2)) * SM_SCALE, vc, vs
+
+
 def _q_chunk_step(kv_pool, kv_scales, li, codec):
-    """Quant-codec chunk step: scores bf16(q * kscale) . codes / sqrt(128);
-    the chunk's V scale multiplies the value product."""
+    """Quant-codec chunk step (``scaled_chunk_step``)."""
     def step(qf32, ci):
-        kc, vc, ks, vs = _chunk(kv_pool, kv_scales, li, ci, codec)
-        qk = (qf32 * ks[:, None, :]).to(torch.bfloat16).to(torch.float32)
-        return (qk @ kc.transpose(1, 2)) * SM_SCALE, vc, vs
+        return scaled_chunk_step(qf32, *_chunk(kv_pool, kv_scales, li, ci, codec))
     return step
 
 

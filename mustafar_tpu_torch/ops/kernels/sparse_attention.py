@@ -1,8 +1,10 @@
 """Fused bitmap-codec attention kernels: the CUDA kernels, their plain
 PyTorch versions and the wrappers that pick between them by device.
 
-Ports of ``mustafar_tpu/ops/kernels/sparse_attention.py`` for codec
-"bitmap" (bf16 values, ``ops/sparse_format.ChunkFormat``), options off:
+Ports of ``mustafar_tpu/ops/kernels/sparse_attention.py`` for the codecs
+"bitmap" (bf16 values, ``ops/sparse_format.ChunkFormat`` at ``qbits=16``)
+and "bitmap-q8" (int8 codes with per-channel scales, ``qbits=8``), options
+off:
   fused_sparse_decode_attention     uniform-batch decode  csrc/sp_decode.cu
                                     (TPU kernel v7)
   fused_sparse_decode_attention_ps  per-slot decode       csrc/sp_decode.cu
@@ -11,9 +13,12 @@ Ports of ``mustafar_tpu/ops/kernels/sparse_attention.py`` for codec
                                     partials over the pools
 Each chunk's K and V are expanded from the bitmap word planes and the
 interleaved value segments (``csrc/bitmap_expand.cuh``), then attended as
-dense bf16 tiles.  No scale applies: scores are bf16(q) . K / sqrt(128) in
-f32, p is rounded to bf16 for the value product, and the softmax steps are
-those of the q8q4 kernels (one per chunk, then window tiles of
+dense tiles.  At ``qbits=16`` no scale applies: scores are bf16(q) . K /
+sqrt(128) in f32, p is rounded to bf16 for the value product.  At
+``qbits=8`` the tiles hold the int8 codes and the chunk's scales fold in as
+the quant codecs fold theirs: scores bf16(bf16(q) * kscale) . codes /
+sqrt(128), the V scale times the value product.  The softmax steps are
+those of the quant kernels (one per chunk, then window tiles of
 ``quant_attention.window_tile``); the plain versions below take them with
 ``quant_attention.decode_steps`` / ``segment_steps`` over chunks expanded by
 ``sparse_format.decode_stream``.
@@ -23,7 +28,9 @@ Layouts are the JAX package's stacked ones, indexed at layer ``li``:
   q_seg       [B, Tseg, Hq, 128]           bf16 or f32 (read as bf16)
   kv_pool     [L, mc, B*Hkv, KR + VR, 128] int16  (K stream, then V stream;
                                            KR = kfmt.stream_rows, 96 at
-                                           keep 40)
+                                           keep 40, 56 at qbits=8)
+  kv_scales   [L, mc, B*Hkv, 2, 128]       bf16   (K scale, V scale;
+                                           qbits=8 only, else None)
   k_win/v_win [L, B*Hkv, W, 128]           bf16
 """
 
@@ -35,39 +42,58 @@ from mustafar_tpu_torch.ops import sparse_format as sf
 from mustafar_tpu_torch.ops.kernels import quant_attention as qa
 
 
-def _check_formats(kfmt, vfmt, window, name):
+def _check_formats(kfmt, vfmt, kv_scales, window, name):
     for fmt in (kfmt, vfmt):
         if not isinstance(fmt, sf.ChunkFormat) or (fmt.chunk, fmt.dim) != (256, 128):
             raise NotImplementedError(
                 f"{name} serves bitmap chunks of 256 tokens x 128 channels, got {fmt!r}")
+    if kfmt.qbits != vfmt.qbits:
+        raise ValueError(f"K and V streams of {kfmt.qbits} and {vfmt.qbits} bits")
+    if (kfmt.qbits == 8) != (kv_scales is not None):
+        raise ValueError("kv_scales go with qbits=8 chunks (bitmap-q8) and only "
+                         f"with them; got qbits={kfmt.qbits} and "
+                         f"kv_scales={'None' if kv_scales is None else 'a tensor'}")
     if window is not None:
         raise NotImplementedError("sliding-window attention is ROADMAP Queue A item 14")
 
 
-def _check_pool(kv_pool, kfmt, vfmt, B):
+def _check_pool(kv_pool, kv_scales, kfmt, vfmt, B):
     """Return (L, mc, BH, Hkv) of the stacked pool."""
     rows = kfmt.stream_rows + vfmt.stream_rows
     if kv_pool.dim() != 5 or tuple(kv_pool.shape[3:]) != (rows, 128):
         raise ValueError(f"kv_pool must be [L, mc, BH, {rows}, 128], "
                          f"got {tuple(kv_pool.shape)}")
     L, mc, BH = kv_pool.shape[:3]
+    if kv_scales is not None and tuple(kv_scales.shape) != (L, mc, BH, 2, 128):
+        raise ValueError(f"kv_scales must be {(L, mc, BH, 2, 128)}, "
+                         f"got {tuple(kv_scales.shape)}")
     if B < 1 or BH % B:
         raise ValueError(f"pool heads {BH} are not a multiple of batch {B}")
     return L, mc, BH, BH // B
 
 
-def _check_decode(q, kv_pool, k_win, v_win, li, kfmt, vfmt, window,
+def _scales(kv_scales):
+    """The scales as a (name, tensor) pair for the checks, if given."""
+    return () if kv_scales is None else (("kv_scales", kv_scales),)
+
+
+def _ptr(t):
+    """A tensor's address for ctypes, None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt, window,
                   return_norm, return_win_probs, name):
     """Shapes, types and devices both decode kernels share; returns
     (BH, G, mc, W)."""
-    _check_formats(kfmt, vfmt, window, name)
+    _check_formats(kfmt, vfmt, kv_scales, window, name)
     if return_norm or return_win_probs:
         raise NotImplementedError(
             "softmax stats and window probabilities (Opa) are ROADMAP Queue A item 12")
     if q.dim() != 4 or q.shape[1] != 1 or q.shape[3] != 128:
         raise ValueError(f"q must be [B, 1, Hq, 128], got {tuple(q.shape)}")
     B, _, Hq, _ = q.shape
-    L, mc, BH, Hkv = _check_pool(kv_pool, kfmt, vfmt, B)
+    L, mc, BH, Hkv = _check_pool(kv_pool, kv_scales, kfmt, vfmt, B)
     if k_win.dim() != 4 or tuple(k_win.shape[:2]) != (L, BH) or k_win.shape[3] != 128:
         raise ValueError(f"k_win must be [{L}, {BH}, W, 128], got {tuple(k_win.shape)}")
     if v_win.shape != k_win.shape:
@@ -76,6 +102,7 @@ def _check_decode(q, kv_pool, k_win, v_win, li, kfmt, vfmt, window,
         raise ValueError(f"{Hq} query heads over {Hkv} kv heads: the kernel "
                          f"takes groups of {qa._GROUPS}")
     qa._check_tensors(q, (("q", q, q.dtype), ("kv_pool", kv_pool, torch.int16),
+                          *((n, t, torch.bfloat16) for n, t in _scales(kv_scales)),
                           ("k_win", k_win, torch.bfloat16),
                           ("v_win", v_win, torch.bfloat16)))
     qa._check_int("li", li, 0, L - 1)
@@ -87,57 +114,65 @@ def _segs(fmt):
     return (*fmt.segs, 0)[:2]
 
 
-def _sp_chunk_step(kv_pool, li, kfmt, vfmt):
-    """Bitmap chunk step: chunk ci's K and V expanded to bf16
-    (``decode_stream``), scores bf16(q) . K / sqrt(128), no V scale."""
+def _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt):
+    """Bitmap chunk step: chunk ci's K and V expanded (``decode_stream``).
+    bf16 values: scores bf16(q) . K / sqrt(128), no V scale.  int8 codes
+    (``kv_scales`` given): the quant codecs' step on the codes
+    (``quant_attention.scaled_chunk_step``)."""
     KR = kfmt.stream_rows
 
     def step(qf32, ci):
         rows = kv_pool[li, ci]                                  # [BH, KR + VR, 128]
         kd = sf.decode_stream(rows[:, :KR], kfmt).to(torch.float32)
         vd = sf.decode_stream(rows[:, KR:], vfmt).to(torch.float32)
-        return (qf32 @ kd.transpose(1, 2)) * qa.SM_SCALE, vd, None
+        if kv_scales is None:
+            return (qf32 @ kd.transpose(1, 2)) * qa.SM_SCALE, vd, None
+        sc = kv_scales[li, ci].to(torch.float32)                # [BH, 2, 128]
+        return qa.scaled_chunk_step(qf32, kd, vd, sc[:, 0], sc[:, 1])
     return step
 
 
 def fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win, n_chunks: int,
-                                        win_len: int, li: int, kfmt, vfmt):
+                                        win_len: int, li: int, kfmt, vfmt,
+                                        kv_scales=None):
     """The uniform bitmap decode kernel's arithmetic in PyTorch."""
     return qa.decode_steps(q, kv_pool.shape[2], n_chunks,
-                           _sp_chunk_step(kv_pool, li, kfmt, vfmt), k_win, v_win,
-                           win_len, li)
+                           _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt), k_win,
+                           v_win, win_len, li)
 
 
 def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
                                   win_len: int, li: int, kfmt: sf.ChunkFormat,
-                                  vfmt: sf.ChunkFormat, *, window=None,
-                                  return_norm: bool = False,
+                                  vfmt: sf.ChunkFormat, *, kv_scales=None,
+                                  window=None, return_norm: bool = False,
                                   return_win_probs: bool = False):
     """Bitmap flash-decode of layer ``li`` over ``n_chunks`` pool chunks and
     the first ``win_len`` window tokens -> [B, 1, Hq, 128] in q's dtype (q
     is read as bf16, the output is computed in f32, as on the TPU).
+    ``kv_scales`` is required for ``qbits=8`` formats and refused otherwise.
 
     CUDA tensors launch the kernel of ``csrc/sp_decode.cu`` (built at first
-    use) on the current stream; CPU tensors run the plain version.  A CUDA
-    request the kernel cannot serve raises; nothing falls back."""
-    BH, G, mc, W = _check_decode(q, kv_pool, k_win, v_win, li, kfmt, vfmt, window,
-                                 return_norm, return_win_probs,
+    use; the instance of the formats' value width) on the current stream;
+    CPU tensors run the plain version.  A CUDA request the kernel cannot
+    serve raises; nothing falls back."""
+    BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt,
+                                 window, return_norm, return_win_probs,
                                  "fused_sparse_decode_attention")
     qa._check_int("n_chunks", n_chunks, 0, mc)
     qa._check_int("win_len", win_len, 0, W)
     if q.device.type == "cpu":
-        return fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win,
-                                                   n_chunks, win_len, li, kfmt, vfmt)
+        return fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win, n_chunks,
+                                                   win_len, li, kfmt, vfmt, kv_scales)
     stream = qa._stream(q)
     qa._check_aligned((("q", q), ("kv_pool", kv_pool), ("k_win", k_win),
-                       ("v_win", v_win)))
-    fn = qa._library("sp_decode", "sp_decode", 5, 14)
+                       ("v_win", v_win), *_scales(kv_scales)))
+    fn = qa._library("sp_decode", "sp_decode", 6, 15)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
-    rc = fn(qb.data_ptr(), kv_pool.data_ptr(), k_win.data_ptr(), v_win.data_ptr(),
-            out.data_ptr(), int(out.dtype == torch.float32), q.device.index or 0,
-            BH, G, mc, W, qa.window_tile(W), n_chunks, win_len, li,
-            *_segs(kfmt), *_segs(vfmt), stream)
+    rc = fn(qb.data_ptr(), kv_pool.data_ptr(), _ptr(kv_scales), k_win.data_ptr(),
+            v_win.data_ptr(), out.data_ptr(), int(out.dtype == torch.float32),
+            q.device.index or 0, kfmt.qbits, BH, G, mc, W, qa.window_tile(W), n_chunks,
+            win_len, li, *_segs(kfmt), *_segs(vfmt), stream)
     if rc != 0:
         raise RuntimeError(f"sp_decode launch failed: CUDA error {rc}")
     fused_sparse_decode_attention.launches += 1
@@ -152,7 +187,8 @@ fused_sparse_decode_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 def fused_sparse_decode_attention_ps_plain(q, kv_pool, k_win, v_win, n_chunks,
-                                           win_len, li: int, kfmt, vfmt):
+                                           win_len, li: int, kfmt, vfmt,
+                                           kv_scales=None):
     """The per-slot kernel's arithmetic: slot b is the uniform computation
     over its own clamped counts (``quant_attention.slots``).  The TPU
     kernel loops a block of 16 heads to the largest counts among them and
@@ -160,9 +196,9 @@ def fused_sparse_decode_attention_ps_plain(q, kv_pool, k_win, v_win, n_chunks,
     something to attend, so looping over a slot's own counts is the same.
     A slot with nothing to attend comes out 0."""
     return torch.cat([
-        fused_sparse_decode_attention_plain(q[b:b + 1], kv_pool[:, :, hs],
-                                            k_win[:, hs], v_win[:, hs], nc, wl,
-                                            li, kfmt, vfmt)
+        fused_sparse_decode_attention_plain(
+            q[b:b + 1], kv_pool[:, :, hs], k_win[:, hs], v_win[:, hs], nc, wl, li,
+            kfmt, vfmt, None if kv_scales is None else kv_scales[:, :, hs])
         for b, hs, nc, wl in qa.slots(q.shape[0], kv_pool.shape[2], n_chunks,
                                       win_len, kv_pool.shape[1], k_win.shape[2])])
 
@@ -170,11 +206,12 @@ def fused_sparse_decode_attention_ps_plain(q, kv_pool, k_win, v_win, n_chunks,
 def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
                                      n_chunks: torch.Tensor, win_len: torch.Tensor,
                                      li: int, kfmt: sf.ChunkFormat,
-                                     vfmt: sf.ChunkFormat, *, window=None,
-                                     return_win_probs: bool = False):
+                                     vfmt: sf.ChunkFormat, *, kv_scales=None,
+                                     window=None, return_win_probs: bool = False):
     """Per-slot bitmap flash-decode of layer ``li``: slot b attends its first
     ``n_chunks[b]`` pool chunks and ``win_len[b]`` window tokens ->
-    [B, 1, Hq, 128] in q's dtype.
+    [B, 1, Hq, 128] in q's dtype.  ``kv_scales`` as for
+    ``fused_sparse_decode_attention``.
 
     ``n_chunks`` and ``win_len`` are int32 tensors [B] on q's device, read
     per slot by the kernel (no host sync) and clamped there to [0, mc] and
@@ -184,8 +221,8 @@ def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
     ``sp_decode_ps``, built at first use) on the current stream; CPU
     tensors run the plain version.  A CUDA request the kernel cannot serve
     raises; nothing falls back."""
-    BH, G, mc, W = _check_decode(q, kv_pool, k_win, v_win, li, kfmt, vfmt, window,
-                                 False, return_win_probs,
+    BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt,
+                                 window, False, return_win_probs,
                                  "fused_sparse_decode_attention_ps")
     B = q.shape[0]
     for name, t in (("n_chunks", n_chunks), ("win_len", win_len)):
@@ -196,17 +233,17 @@ def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
     if q.device.type == "cpu":
         return fused_sparse_decode_attention_ps_plain(q, kv_pool, k_win, v_win,
                                                       n_chunks, win_len, li, kfmt,
-                                                      vfmt)
+                                                      vfmt, kv_scales)
     stream = qa._stream(q)
     qa._check_aligned((("q", q), ("kv_pool", kv_pool), ("k_win", k_win),
-                       ("v_win", v_win)))
-    fn = qa._library("sp_decode", "sp_decode_ps", 7, 13)
+                       ("v_win", v_win), *_scales(kv_scales)))
+    fn = qa._library("sp_decode", "sp_decode_ps", 8, 14)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
-    rc = fn(qb.data_ptr(), kv_pool.data_ptr(), k_win.data_ptr(), v_win.data_ptr(),
-            n_chunks.data_ptr(), win_len.data_ptr(), out.data_ptr(),
-            int(out.dtype == torch.float32), q.device.index or 0, BH, BH // B, G,
-            mc, W, qa.window_tile(W), li, *_segs(kfmt), *_segs(vfmt), stream)
+    rc = fn(qb.data_ptr(), kv_pool.data_ptr(), _ptr(kv_scales), k_win.data_ptr(),
+            v_win.data_ptr(), n_chunks.data_ptr(), win_len.data_ptr(), out.data_ptr(),
+            int(out.dtype == torch.float32), q.device.index or 0, kfmt.qbits, BH,
+            BH // B, G, mc, W, qa.window_tile(W), li, *_segs(kfmt), *_segs(vfmt), stream)
     if rc != 0:
         raise RuntimeError(f"sp_decode_ps launch failed: CUDA error {rc}")
     fused_sparse_decode_attention_ps.launches += 1
@@ -221,35 +258,39 @@ fused_sparse_decode_attention_ps.launches = 0
 # ---------------------------------------------------------------------------
 
 def fused_sparse_segment_attention_plain(q_seg, kv_pool, n_chunks: int, li: int,
-                                         kfmt, vfmt):
+                                         kfmt, vfmt, kv_scales=None):
     """The bitmap segment kernel's arithmetic: one online-softmax step a
     chunk over the expanded K and V (``quant_attention.segment_steps``)."""
     return qa.segment_steps(q_seg, kv_pool.shape[2], n_chunks,
-                            _sp_chunk_step(kv_pool, li, kfmt, vfmt))
+                            _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt))
 
 
 def fused_sparse_segment_attention(q_seg, kv_pool, n_chunks: int, seg_start: int,
                                    li: int, kfmt: sf.ChunkFormat,
-                                   vfmt: sf.ChunkFormat, *, window=None):
+                                   vfmt: sf.ChunkFormat, *, kv_scales=None,
+                                   window=None):
     """Flash partials of a chunked-prefill segment over layer ``li``'s first
     ``n_chunks`` bitmap pool chunks: (acc [B,Tseg,Hq,128] f32, m, l
     [B,Tseg,Hq,1] f32), unnormalised, for ``ops.attention.merge_partials``.
     ``n_chunks`` is uniform across the batch and known on the host;
     ``seg_start`` is the segment's first position, at or past the packed
-    chunks.  Chunks at or past ``n_chunks`` are never read.
+    chunks.  Chunks at or past ``n_chunks`` are never read.  ``kv_scales``
+    as for ``fused_sparse_decode_attention``.
 
     CUDA tensors launch the kernel of ``csrc/sp_segment.cu`` (built at first
-    use) on the current stream; CPU tensors run the plain version.  A CUDA
-    request the kernel cannot serve raises; nothing falls back."""
-    _check_formats(kfmt, vfmt, window, "fused_sparse_segment_attention")
+    use; the instance of the formats' value width) on the current stream;
+    CPU tensors run the plain version.  A CUDA request the kernel cannot
+    serve raises; nothing falls back."""
+    _check_formats(kfmt, vfmt, kv_scales, window, "fused_sparse_segment_attention")
     if q_seg.dim() != 4 or q_seg.shape[3] != 128 or q_seg.shape[1] < 1:
         raise ValueError(f"q_seg must be [B, Tseg, Hq, 128], got {tuple(q_seg.shape)}")
     B, T, Hq, _ = q_seg.shape
-    L, mc, BH, Hkv = _check_pool(kv_pool, kfmt, vfmt, B)
+    L, mc, BH, Hkv = _check_pool(kv_pool, kv_scales, kfmt, vfmt, B)
     if Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
     qa._check_tensors(q_seg, (("q_seg", q_seg, q_seg.dtype),
-                              ("kv_pool", kv_pool, torch.int16)))
+                              ("kv_pool", kv_pool, torch.int16),
+                              *((n, t, torch.bfloat16) for n, t in _scales(kv_scales))))
     qa._check_int("li", li, 0, L - 1)
     qa._check_int("n_chunks", n_chunks, 0, mc)
     if not isinstance(seg_start, int) or seg_start < n_chunks * kfmt.chunk:
@@ -257,18 +298,18 @@ def fused_sparse_segment_attention(q_seg, kv_pool, n_chunks: int, seg_start: int
                          f"packed chunks, got {seg_start!r}")
     if q_seg.device.type == "cpu":
         return fused_sparse_segment_attention_plain(q_seg, kv_pool, n_chunks, li,
-                                                    kfmt, vfmt)
+                                                    kfmt, vfmt, kv_scales)
     stream = qa._stream(q_seg)
-    qa._check_aligned((("q_seg", q_seg), ("kv_pool", kv_pool)))
-    fn = qa._library("sp_segment", "sp_segment", 5, 12)
+    qa._check_aligned((("q_seg", q_seg), ("kv_pool", kv_pool), *_scales(kv_scales)))
+    fn = qa._library("sp_segment", "sp_segment", 6, 13)
     dev = q_seg.device
     acc = torch.empty((B, T, Hq, 128), dtype=torch.float32, device=dev)
     m = torch.empty((B, T, Hq, 1), dtype=torch.float32, device=dev)
     l = torch.empty((B, T, Hq, 1), dtype=torch.float32, device=dev)
     qb = q_seg.to(torch.bfloat16)
-    rc = fn(qb.data_ptr(), kv_pool.data_ptr(), acc.data_ptr(), m.data_ptr(),
-            l.data_ptr(), dev.index or 0, BH, Hkv, Hq // Hkv, T, mc, n_chunks, li,
-            *_segs(kfmt), *_segs(vfmt), stream)
+    rc = fn(qb.data_ptr(), kv_pool.data_ptr(), _ptr(kv_scales), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), dev.index or 0, kfmt.qbits, BH, Hkv, Hq // Hkv,
+            T, mc, n_chunks, li, *_segs(kfmt), *_segs(vfmt), stream)
     if rc != 0:
         raise RuntimeError(f"sp_segment launch failed: CUDA error {rc}")
     fused_sparse_segment_attention.launches += 1

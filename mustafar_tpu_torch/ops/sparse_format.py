@@ -1,6 +1,7 @@
 """Exact top-keep pruning and the bitmap chunk format, port of
-``mustafar_tpu/ops/sparse_format.py`` (the pruning pieces and the bf16
-fused-stream codec, ``qbits=16``).
+``mustafar_tpu/ops/sparse_format.py`` (the pruning pieces and the
+fused-stream codecs: bf16 values, ``qbits=16``, and int8 codes with
+per-channel scales, ``qbits=8``).
 
 The mask keeps exactly ``keep`` entries per row, the largest |x|, with ties
 going to the lower channel.  ``torch.topk`` promises no order among ties, so
@@ -27,6 +28,8 @@ import functools
 import math
 
 import torch
+
+from mustafar_tpu_torch.ops.quant_format import recip_f32
 
 
 def _mag_key(x: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -68,7 +71,7 @@ def topk_mask(x: torch.Tensor, keep: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The bitmap chunk format (bf16 values)
+# The bitmap chunk format
 # ---------------------------------------------------------------------------
 
 @functools.cache
@@ -86,9 +89,8 @@ def decompose_keep(keep: int, sum_multiple: int = 1) -> tuple[int, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class ChunkFormat:
-    """Geometry of one bitmap-coded chunk (bf16 values, ``qbits=16``).  The
-    JAX format's ``qbits=8`` variant (codec "bitmap-q8", int8 codes with
-    per-channel scales) is ROADMAP Queue A item 11."""
+    """Geometry of one bitmap-coded chunk: bf16 values (``qbits=16``) or
+    int8 codes two to an int16 row (``qbits=8``, codec "bitmap-q8")."""
 
     chunk: int          # C, tokens per chunk
     dim: int            # D, head_dim (128)
@@ -96,28 +98,37 @@ class ChunkFormat:
     qbits: int = 16
 
     def __post_init__(self):
-        if self.qbits != 16:
-            raise NotImplementedError(
-                f"bitmap chunks of {self.qbits}-bit values (codec bitmap-q8) are "
-                "ROADMAP Queue A item 11; the port stores bf16 values")
         assert self.chunk % 32 == 0
+        assert self.qbits in (16, 8), self.qbits
         for k in self.segs:
             assert (self.chunk * k) % 128 == 0, (self.chunk, k)
+            if self.qbits == 8:
+                # the byte pairing splits each segment's logical rows in halves
+                assert self.seg_logical_rows(k) % 2 == 0, \
+                    f"qbits=8 needs even seg rows (chunk {self.chunk}, k {k})"
 
     @property
     def segs(self) -> tuple[int, ...]:
-        # the value rows, sum(segs) * C/128, land on a multiple of 8 (the
-        # TPU's sublane tiling, kept so the pools match byte for byte)
+        # the physical value rows land on a multiple of 8 (the TPU's sublane
+        # tiling, kept so the pools match byte for byte): sum(segs) * C/128
+        # rows at qbits=16, half that at qbits=8
         rpt = self.chunk // 128
+        if self.qbits == 8:
+            return decompose_keep(self.keep, 16 // math.gcd(rpt, 16))
         return decompose_keep(self.keep, 8 // math.gcd(rpt, 8))
 
     @property
     def keep_stored(self) -> int:
         return sum(self.segs)
 
-    def seg_rows(self, k: int) -> int:
-        """int16 rows of a width-k segment."""
+    def seg_logical_rows(self, k: int) -> int:
+        """Rows of 128 values of a width-k segment."""
         return self.chunk * k // 128
+
+    def seg_rows(self, k: int) -> int:
+        """int16 rows of a width-k segment (two logical rows each at qbits=8)."""
+        r = self.seg_logical_rows(k)
+        return r // 2 if self.qbits == 8 else r
 
     @property
     def total_rows(self) -> int:
@@ -198,7 +209,8 @@ def unpack_bitmap16(words: torch.Tensor, C: int) -> torch.Tensor:
 def encode_stream(dense: torch.Tensor, fmt: ChunkFormat) -> torch.Tensor:
     """Pack a pruned chunk [..., C, D] (at most ``fmt.keep`` nonzeros a row)
     into fused int16 rows [..., fmt.stream_rows, 128]; values are stored as
-    bf16."""
+    bf16 (``qbits=16``; ``encode_stream_q8`` packs ``qbits=8``)."""
+    assert fmt.qbits == 16, fmt
     C = fmt.chunk
     keep = fmt.keep_stored
     mask = _stored_slots(dense, keep)
@@ -213,13 +225,20 @@ def encode_stream(dense: torch.Tensor, fmt: ChunkFormat) -> torch.Tensor:
 
 
 def decode_stream(rows: torch.Tensor, fmt: ChunkFormat) -> torch.Tensor:
-    """Inverse of ``encode_stream`` -> dense bf16 [..., C, D]."""
+    """Inverse of ``encode_stream`` -> dense [..., C, D]: the bf16 values at
+    ``qbits=16``; at ``qbits=8`` the int8 codes as exact f32 integers (0
+    where the bit is unset), the tile the kernels attend before a scale is
+    applied (``decode_stream_q8`` dequantizes)."""
     C = fmt.chunk
     segs, off = [], 0
     for k in fmt.segs:
         R = fmt.seg_rows(k)
-        segs.append(_deinterleave_vals(rows[..., off:off + R, :].contiguous()
-                                       .view(torch.bfloat16), C, k))
+        seg = rows[..., off:off + R, :]
+        if fmt.qbits == 8:
+            seg = _unpack_bytes_rows(seg).to(torch.float32)
+        else:
+            seg = seg.contiguous().view(torch.bfloat16)
+        segs.append(_deinterleave_vals(seg, C, k))
         off += R
     vals = torch.cat(segs, dim=-1)                              # [..., C, keep]
     bits = unpack_bitmap16(rows[..., off:off + C // 16, :], C)
@@ -233,3 +252,65 @@ def prune_and_encode_stream(dense: torch.Tensor, fmt: ChunkFormat) -> torch.Tens
     """Keep the ``fmt.keep`` largest |x| of each token row, then pack."""
     mask = topk_mask(dense, fmt.keep)
     return encode_stream(torch.where(mask, dense, torch.zeros_like(dense)), fmt)
+
+
+# ---------------------------------------------------------------------------
+# bitmap-q8: int8 codes, two logical rows to an int16 row
+# ---------------------------------------------------------------------------
+
+def _pack_bytes_rows(codes_rows: torch.Tensor) -> torch.Tensor:
+    """Logical int32 code rows [..., R, 128] -> int16 rows [..., R/2, 128]:
+    row r's low byte is logical row r, its high byte logical row r + R/2."""
+    R = codes_rows.shape[-2]
+    low = codes_rows[..., :R // 2, :] & 0xFF
+    high = codes_rows[..., R // 2:, :] & 0xFF
+    return _to_i16(low | (high << 8))
+
+
+def _unpack_bytes_rows(phys: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``_pack_bytes_rows`` -> int32 [..., R, 128], each byte
+    sign-extended (JAX's ``(w << 24) >> 24`` and ``(w << 16) >> 24`` on the
+    int16 widened to int32)."""
+    w = phys.to(torch.int32)
+    return torch.cat([(w << 24) >> 24, (w << 16) >> 24], dim=-2)
+
+
+def encode_stream_q8(dense: torch.Tensor, fmt: ChunkFormat):
+    """Pack a pruned chunk [..., C, D] (at most ``fmt.keep`` nonzeros a row)
+    into int8-code fused rows -> (rows [..., fmt.stream_rows, 128] int16,
+    scales [..., D] f32; the cache stores them as bf16).
+
+    The scale multiplies amax by the f32 reciprocal of 127, as XLA computes
+    the JAX package's jitted ``amax / 127.0`` (``quant_format.recip_f32``);
+    the codes divide by the f32 scale."""
+    assert fmt.qbits == 8, fmt
+    C = fmt.chunk
+    keep = fmt.keep_stored
+    xf = dense.to(torch.float32)
+    amax = xf.abs().amax(dim=-2)                                 # [..., D]
+    scales = torch.clamp_min(amax * recip_f32(127.0), 1e-8)
+    codes = torch.clamp(torch.round(xf / scales[..., None, :]), -127, 127).to(torch.int32)
+    mask = _stored_slots(dense, keep)
+    vals, bits = _compact_rows(codes * mask, mask, keep)         # int32 [..., C, keep]
+    rows, off = [], 0
+    for k in fmt.segs:
+        rows.append(_pack_bytes_rows(_interleave_vals(vals[..., off:off + k], C, k)))
+        off += k
+    rows.append(bitmap16(bits, C))
+    return torch.cat(rows, dim=-2), scales
+
+
+def decode_stream_q8(rows: torch.Tensor, scales: torch.Tensor,
+                     fmt: ChunkFormat) -> torch.Tensor:
+    """Inverse of ``encode_stream_q8`` -> dense bf16 [..., C, D]: the codes
+    times the f32 of ``scales`` [..., D]."""
+    assert fmt.qbits == 8, fmt
+    codes = decode_stream(rows, fmt)
+    return (codes * scales.to(torch.float32)[..., None, :]).to(torch.bfloat16)
+
+
+def prune_and_encode_stream_q8(dense: torch.Tensor, fmt: ChunkFormat):
+    """Keep the ``fmt.keep`` largest |x| of each token row, then quantize
+    and pack -> (rows, f32 scales)."""
+    mask = topk_mask(dense, fmt.keep)
+    return encode_stream_q8(torch.where(mask, dense, torch.zeros_like(dense)), fmt)

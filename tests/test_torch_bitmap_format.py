@@ -7,6 +7,15 @@
     carry zero pads), from bf16 and from f32 input.  The rows hold exact
     zeros (whole rows, most of a row, -0.0) and magnitude ties, where the
     keep rule and the pads must pick the same channels as JAX.
+(o8) The bitmap-q8 codec (``qbits=8``): the geometry for every keep; the
+    byte pairing of logical rows; ``encode_stream_q8``,
+    ``decode_stream_q8`` and ``prune_and_encode_stream_q8`` bit-exact with
+    the jitted JAX package (rows, scales and the decoded tile) at sparsity
+    0.7 and 0.5 from bf16 and f32 input, with ties, an all-zero channel
+    (scale 1e-8, codes 0), +-127 codes and kept values whose code is 0
+    (their bits stay set).  The JAX package serves the codec jitted, where
+    XLA turns ``amax / 127.0`` into a product with the f32 reciprocal; eager
+    JAX divides, and differs from the served path in some scales.
 """
 
 import numpy as np
@@ -40,6 +49,10 @@ def _chunks(seed):
     return np.asarray(jnp.asarray(x, jnp.bfloat16)).astype(np.float32)
 
 
+def _np32(a):
+    return np.asarray(a).astype(np.float32)
+
+
 def _both(x, dtype):
     jx = jnp.asarray(x, getattr(jnp, dtype))
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
@@ -55,8 +68,129 @@ def test_format_geometry_matches_jax(sparsity):
     assert tf.stream_rows == {0.7: 96, 0.5: 152}[sparsity]
     for keep in range(1, 129):
         assert tsf.decompose_keep(keep, 4) == jsf.decompose_keep(keep, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 11"):
-        tsf.ChunkFormat(C, D, 40, qbits=8)
+    # the qbits=8 format (codec bitmap-q8) is served: int8 codes, two
+    # logical rows to a stream row
+    q8 = tsf.ChunkFormat(C, D, _keep(sparsity), qbits=8)
+    assert (q8.segs, q8.stream_rows) == {0.7: ((32, 8), 56), 0.5: ((64, 8), 88)}[sparsity]
+
+
+def test_q8_format_geometry_matches_jax():
+    """Segments, stored count, logical and physical rows of every keep at
+    ``qbits=8``: the multiple of the stored count is 16 // gcd(C/128, 16),
+    and each segment's rows are half its logical rows."""
+    for keep in range(1, 129):
+        jf = jsf.ChunkFormat(C, D, keep, qbits=8)
+        tf = tsf.ChunkFormat(C, D, keep, qbits=8)
+        assert (tf.segs, tf.keep_stored, tf.total_rows, tf.stream_rows) == \
+            (jf.segs, jf.keep_stored, jf.total_rows, jf.stream_rows), keep
+        for k in tf.segs:
+            assert tf.seg_rows(k) == jf.seg_rows(k) == tf.seg_logical_rows(k) // 2
+        assert tsf.decompose_keep(keep, 8) == jsf.decompose_keep(keep, 8)
+    with pytest.raises(AssertionError):
+        tsf.ChunkFormat(C, D, 40, qbits=4)
+
+
+def test_bytes_rows_round_trip():
+    """Logical int8 code rows pack two to an int16 row (row r low, r + R/2
+    high) as in JAX, and unpack with each byte sign-extended."""
+    codes = np.random.RandomState(6).randint(-128, 128, (2, 64, 128)).astype(np.int32)
+    codes[0, 0, :4] = [127, -127, -128, 0]
+    codes[0, 32, :4] = [-1, 1, 127, -128]              # the high bytes of row 0
+    jrows = np.asarray(jsf._pack_bytes_rows(jnp.asarray(codes)))
+    trows = tsf._pack_bytes_rows(torch.from_numpy(codes))
+    assert trows.dtype == torch.int16 and trows.shape == (2, 32, 128)
+    np.testing.assert_array_equal(trows.numpy(), jrows)
+    np.testing.assert_array_equal(tsf._unpack_bytes_rows(trows).numpy(), codes)
+    np.testing.assert_array_equal(
+        np.asarray(jsf._unpack_bytes_rows(jnp.asarray(jrows))), codes)
+
+
+def _q8_chunks(seed):
+    """``_chunks`` plus the codec's edges: an all-zero channel, and in
+    chunk 2 a channel whose largest value is 1000x the rest, so its other
+    kept values quantize to code 0."""
+    x = _chunks(seed)
+    x[:, :, 9] = 0.0
+    x[2, :, 17] = np.where(np.arange(C) == 3, 1000.0, x[2, :, 17] * 1e-3)
+    x[2, :, 17] = np.asarray(jnp.asarray(x[2, :, 17], jnp.bfloat16)).astype(np.float32)
+    return x
+
+
+@pytest.mark.parametrize("sparsity,dtype", [(0.7, "bfloat16"), (0.7, "float32"),
+                                            (0.5, "bfloat16"), (0.5, "float32")])
+def test_prune_and_encode_stream_q8_bit_exact(sparsity, dtype):
+    x = _q8_chunks(int(sparsity * 10) + 1)
+    jf = jsf.ChunkFormat(C, D, _keep(sparsity), qbits=8)
+    tf = tsf.ChunkFormat(C, D, _keep(sparsity), qbits=8)
+    jx, tx = _both(x, dtype)
+    jrows, jscales = (np.asarray(a) for a in
+                      jax.jit(lambda a: jsf.prune_and_encode_stream_q8(a, jf))(jx))
+    trows, tscales = tsf.prune_and_encode_stream_q8(tx, tf)
+    assert trows.dtype == torch.int16 and trows.shape == (3, tf.stream_rows, 128)
+    assert tscales.dtype == torch.float32 and tscales.shape == (3, 128)
+    np.testing.assert_array_equal(trows.numpy(), jrows)
+    np.testing.assert_array_equal(tscales.numpy(), jscales)
+    # what the cache stores: the scales rounded to bf16
+    np.testing.assert_array_equal(tscales.to(torch.bfloat16).float().numpy(),
+                                  _np32(jnp.asarray(jscales).astype(jnp.bfloat16)))
+    assert (tscales[:, 9] == 1e-8).all()                         # the all-zero channel
+    codes = tsf.decode_stream(trows, tf)                         # int8 codes as f32
+    assert (codes.abs() <= 127).all() and (codes.abs() == 127).any()
+    assert (codes[:, :, 9] == 0).all()
+    # every row stores exactly keep_stored slots, and the kept channels of
+    # code 0 (channel 17 of chunk 2 but its largest) keep their bits
+    bits = tsf.unpack_bitmap16(trows[:, tf.total_rows:], C)
+    assert (bits.sum(-1) == tf.keep_stored).all()
+    kept = tsf.topk_mask(tx, tf.keep)
+    assert (bits.bool() >= kept).all()
+    zero_kept = kept[2, :, 17] & (codes[2, :, 17] == 0)
+    assert zero_kept.sum() > 0 and bits[2, :, 17][zero_kept].all()
+    # the dequantized tile, bit for bit, against the jitted JAX decode
+    jdec = np.asarray(jax.jit(lambda r, s: jsf.decode_stream_q8(r, s, jf))(
+        jnp.asarray(jrows), jnp.asarray(jscales).astype(jnp.bfloat16)))
+    tdec = tsf.decode_stream_q8(trows, tscales.to(torch.bfloat16), tf)
+    assert tdec.dtype == torch.bfloat16
+    np.testing.assert_array_equal(tdec.view(torch.int16).numpy(), jdec.view(np.int16))
+
+
+def test_q8_scale_is_the_jitted_reciprocal_product():
+    """The scale is amax * f32(1/127), as the served (jitted) JAX path
+    computes it; a true division differs from it in some channels (and is
+    what eager JAX gives)."""
+    x = np.random.RandomState(12).randn(64, C, D).astype(np.float32)
+    tf = tsf.ChunkFormat(C, D, 40, qbits=8)
+    _, tscales = tsf.encode_stream_q8(torch.from_numpy(x), tf)
+    amax = np.abs(x).max(axis=-2)
+    divided = np.maximum(amax / np.float32(127.0), np.float32(1e-8))
+    assert (tscales.numpy() != divided).any()
+    jf = jsf.ChunkFormat(C, D, 40, qbits=8)
+    _, jscales = jax.jit(lambda a: jsf.encode_stream_q8(a, jf))(jnp.asarray(x))
+    np.testing.assert_array_equal(tscales.numpy(), np.asarray(jscales))
+
+
+@pytest.mark.parametrize("sparsity", [0.7, 0.5])
+def test_encode_and_decode_stream_q8_bit_exact(sparsity):
+    """``encode_stream_q8`` of an already pruned chunk, and the decode of
+    arbitrary int16 rows with arbitrary bf16 scales (random words and
+    bytes: ranks past the stored count are clamped, as in JAX)."""
+    jf = jsf.ChunkFormat(C, D, _keep(sparsity), qbits=8)
+    tf = tsf.ChunkFormat(C, D, _keep(sparsity), qbits=8)
+    x = _q8_chunks(4)
+    keep = tsf.topk_mask(torch.from_numpy(x), tf.keep).numpy()
+    pruned = np.where(keep, x, 0).astype(np.float32)
+    jx, tx = _both(pruned, "bfloat16")
+    jrows, jscales = jax.jit(lambda a: jsf.encode_stream_q8(a, jf))(jx)
+    trows, tscales = tsf.encode_stream_q8(tx, tf)
+    np.testing.assert_array_equal(trows.numpy(), np.asarray(jrows))
+    np.testing.assert_array_equal(tscales.numpy(), np.asarray(jscales))
+    rs = np.random.RandomState(5)
+    junk = rs.randint(-32768, 32768, (2, tf.stream_rows, 128)).astype(np.int16)
+    scales = _np32(jnp.asarray(rs.rand(2, 128) * 0.05, jnp.bfloat16))
+    jdec = np.asarray(jax.jit(lambda r, s: jsf.decode_stream_q8(r, s, jf))(
+        jnp.asarray(junk), jnp.asarray(scales, jnp.bfloat16)))
+    tdec = tsf.decode_stream_q8(torch.from_numpy(junk),
+                                torch.from_numpy(scales).to(torch.bfloat16), tf)
+    np.testing.assert_array_equal(tdec.view(torch.int16).numpy(), jdec.view(np.int16))
 
 
 @pytest.mark.parametrize("sparsity,dtype", [(0.7, "bfloat16"), (0.7, "float32"),

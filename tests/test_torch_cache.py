@@ -5,8 +5,8 @@
     exactly; so does the state after ``compact``.  Decode outputs on the
     same state match the JAX kernel (interpret mode).  The dense cache's
     prefill and decode match the JAX dense cache.  Every codec the port
-    serves: the quant codecs q8, q8q4 and q4q4, and bitmap (whose state has
-    no scales).
+    serves: the quant codecs q8, q8q4 and q4q4, bitmap (whose state has no
+    scales) and bitmap-q8 (int8 codes in the bitmap streams, bf16 scales).
 Tiny geometry: head_dim 128 (the compressed format's row width), 4 query
 heads over 2 kv heads, 2 layers.
 """
@@ -74,6 +74,8 @@ _PREFILL_CASES = [("bfloat16", 300, 512), ("float32", 600, 768), ("bfloat16", 20
     *(pytest.param(*c, "q8q4", id="-".join(map(str, c))) for c in _PREFILL_CASES),
     *(pytest.param(*c, "bitmap", id="-".join(map(str, c)) + "-bitmap")
       for c in _PREFILL_CASES[:2]),
+    *(pytest.param(*c, "bitmap-q8", id="-".join(map(str, c)) + "-bitmap-q8")
+      for c in _PREFILL_CASES[:2]),
     pytest.param(*_PREFILL_CASES[0], "q8", id="bfloat16-300-512-q8"),
     pytest.param(*_PREFILL_CASES[1], "q4q4", id="float32-600-768-q4q4")])
 def test_compressed_prefill_state_bit_exact(dtype, true_len, T, codec):
@@ -109,6 +111,12 @@ def test_compressed_decode_and_compact_match():
 def test_compressed_decode_and_compact_match_bitmap():
     """As above for the bitmap codec (TPU kernel v7 in interpret mode)."""
     _decode_and_compact("bitmap")
+
+
+def test_compressed_decode_and_compact_match_bitmap_q8():
+    """As above for the bitmap-q8 codec (TPU kernel v7 with its scales in
+    interpret mode): pool rows and scales bit-exact after the compaction."""
+    _decode_and_compact("bitmap-q8")
 
 
 @pytest.mark.parametrize("codec", ["q8", "q4q4"])
@@ -190,11 +198,8 @@ def test_make_cache_modes():
     with pytest.raises(NotImplementedError):
         t_make_cache(dataclasses.replace(_engine(tc, "DENSE"),
                                          cache_mode=tc.CacheMode.MASKED), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_make_cache(dataclasses.replace(_engine(tc, "COMPRESSED"), codec="bitmap-q8"),
-                     device="cpu")
-    rows = {"q8": 256, "q8q4": 192, "q4q4": 128, "bitmap": 192}
-    for codec in ("q8", "q8q4", "q4q4", "bitmap"):
+    rows = {"q8": 256, "q8q4": 192, "q4q4": 128, "bitmap": 192, "bitmap-q8": 112}
+    for codec in ("q8", "q8q4", "q4q4", "bitmap", "bitmap-q8"):
         impl = t_make_cache(_engine(tc, "COMPRESSED", codec=codec), device="cpu")
         jimpl = j_make_cache(_engine(jc, "COMPRESSED", codec=codec))
         assert (impl.max_chunks, impl.wcap, impl.k_keep, impl.v_keep) == \
@@ -203,6 +208,6 @@ def test_make_cache_modes():
         jshapes = {k: tuple(v.shape) for k, v in jimpl.init(2).items()}
         assert shapes == jshapes
         # int16 rows a chunk and head: q8 256, q8q4 192, q4q4 128, and 192
-        # for bitmap at sparsity 0.7
+        # for bitmap and 112 for bitmap-q8 at sparsity 0.7
         assert shapes["kv_pool"] == (2, 3, 2, 2, rows[codec], 128)
         assert ("kv_scales" in shapes) == (codec != "bitmap")

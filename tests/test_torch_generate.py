@@ -6,7 +6,7 @@ window fills at total length 544, after decode step 244).
 The JAX compressed cache decodes through its kernel in Pallas interpret
 mode (``cache_impl.use_pallas = True``), the path whose arithmetic the
 port's kernel repeats: the quant kernel (codecs q8q4, q8 and q4q4), or v7
-for the bitmap codec; its dense cache decodes through XLA, as in
+for the bitmap codecs (bitmap, and bitmap-q8 with its scales); its dense cache decodes through XLA, as in
 production.
 
 Where the two streams may part: the kernels read q and the window as bf16
@@ -89,7 +89,8 @@ def _teacher_forced_logits(gen, prompt, stream):
     pytest.param("DENSE", "q8q4", id="DENSE"),
     pytest.param("COMPRESSED", "bitmap", id="COMPRESSED-bitmap"),
     pytest.param("COMPRESSED", "q8", id="COMPRESSED-q8"),
-    pytest.param("COMPRESSED", "q4q4", id="COMPRESSED-q4q4")])
+    pytest.param("COMPRESSED", "q4q4", id="COMPRESSED-q4q4"),
+    pytest.param("COMPRESSED", "bitmap-q8", id="COMPRESSED-bitmap-q8")])
 def test_greedy_tokens_match_jax_across_compaction(mode, codec):
     jeng, teng = _engine(jc, mode, codec), _engine(tc, mode, codec)
     jp = j_init_params(jeng.model, jax.random.PRNGKey(0), dtype=jnp.float32)

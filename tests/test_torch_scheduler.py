@@ -16,8 +16,9 @@
     refuse sampled decoding.
 (k) and (m) run for the bitmap codec too (the JAX kernels v6ps, v7 and the
     segment kernel in interpret mode), (k) on the request mix of the verify
-    recipe, and for the q4q4 codec (int4 K and V), (k) on the interleaved
-    mix.
+    recipe, for the bitmap-q8 codec (the same kernels with their scales),
+    (k) on the compaction mix, and for the q4q4 codec (int4 K and V), (k)
+    on the interleaved mix.
 (s) At a prompt bucket past the chunk (ROADMAP Queue C fault 1) the engine
     runs each prompt's segments only and gives the bucket-C tokens, for
     both codecs.
@@ -151,7 +152,8 @@ def _run_pair(mode, chunked, mix, seed, codec="q8q4"):
     pytest.param("compaction", "q8q4", id="compaction"),
     pytest.param("interleaved", "q8q4", id="interleaved"),
     pytest.param("verify", "bitmap", id="verify-bitmap"),
-    pytest.param("interleaved", "q4q4", id="interleaved-q4q4")])
+    pytest.param("interleaved", "q4q4", id="interleaved-q4q4"),
+    pytest.param("compaction", "bitmap-q8", id="compaction-bitmap-q8")])
 def test_compressed_engine_matches_jax(mix, codec):
     tcb, forced, reqs, got = _run_pair("COMPRESSED", True, MIXES[mix], 3, codec)
     # a retired request's slot idled with its old chunk count while the
@@ -252,6 +254,11 @@ def test_chunked_generator_matches_jax_bitmap():
 def test_chunked_generator_matches_jax_q4q4():
     """As above for the q4q4 codec."""
     _chunked_generator("q4q4")
+
+
+def test_chunked_generator_matches_jax_bitmap_q8():
+    """As above for the bitmap-q8 codec."""
+    _chunked_generator("bitmap-q8")
 
 
 def _chunked_generator(codec):

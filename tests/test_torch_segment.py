@@ -11,8 +11,8 @@
     slot's own position; an idle slot at pos -1 written nowhere) and
     ``compact_slots`` against the JAX package's, for the compressed cache
     and, where it applies, the dense one.
-The codecs q8q4 and bitmap (whose state has no scales), and q4q4 for the
-segments.
+The codecs q8q4, bitmap (whose state has no scales) and bitmap-q8 (its
+int8 streams with bf16 scales), and q4q4 for the segments.
 The JAX side runs jitted, as it serves: jitted XLA rounds the quantisation
 scale as the port does (``quant_format.recip_f32``).  Tiny geometry:
 head_dim 128, 4 query heads over 2 kv heads, 2 layers, chunk 256, residual
@@ -110,7 +110,8 @@ def _j_segment(jimpl):
 @pytest.mark.parametrize("dtype,true_len,codec", [
     *(pytest.param("float32", n, "q8q4", id=f"float32-{n}") for n in (700, 530, 200)),
     *(pytest.param("float32", n, "bitmap", id=f"float32-{n}-bitmap") for n in (700, 200)),
-    pytest.param("float32", 700, "q4q4", id="float32-700-q4q4")])
+    pytest.param("float32", 700, "q4q4", id="float32-700-q4q4"),
+    pytest.param("float32", 700, "bitmap-q8", id="float32-700-bitmap-q8")])
 def test_segments_state_bit_exact(dtype, true_len, codec):
     """Every segment of a chunked prefill at B=2: 700 tokens (3 segments, a
     chunk packed at segments 1 and 2, the last one partial), 530 (3
@@ -180,6 +181,12 @@ def test_insert_decode_compact_per_slot():
 def test_insert_decode_compact_per_slot_bitmap():
     """As above for the bitmap codec (JAX's v6ps kernel in interpret mode)."""
     _insert_decode_compact("bitmap")
+
+
+def test_insert_decode_compact_per_slot_bitmap_q8():
+    """As above for the bitmap-q8 codec: its scales inserted and compacted
+    with the pool, and folded into the per-slot kernel."""
+    _insert_decode_compact("bitmap-q8")
 
 
 def _insert_decode_compact(codec):

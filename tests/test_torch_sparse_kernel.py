@@ -6,8 +6,12 @@
     the JAX kernels run in Pallas interpret mode, on the same stacked int16
     pools of real packed chunks (random bf16 K and V pruned and encoded by
     the JAX codec) and bf16 windows, at sparsity 0.7 and 0.5 (pads).
-(q) The wrappers refuse what the CUDA kernels cannot serve (bitmap-q8,
-    the sliding window, softmax stats and window probabilities, bad shapes,
+(p8) The same at ``qbits=8`` (codec bitmap-q8): pools of int8 codes packed
+    by the JAX codec and their bf16 scales, which the kernels fold into q
+    and the value product.
+(q) The wrappers refuse what the CUDA kernels cannot serve (the sliding
+    window, softmax stats and window probabilities, scales without
+    ``qbits=8`` chunks or ``qbits=8`` chunks without scales, bad shapes,
     types and devices) instead of falling back, and on the CPU nothing
     launches.
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
@@ -40,25 +44,39 @@ W = 288                                   # residual 32 + chunk 256
 ULP = 2.0 ** -8
 
 
-def _fmts(sparsity):
+def _fmts(sparsity, qbits=16):
     keep = 128 - int(sparsity * 128) + 1
-    return jsf.ChunkFormat(256, 128, keep), tsf.ChunkFormat(256, 128, keep)
+    return (jsf.ChunkFormat(256, 128, keep, qbits=qbits),
+            tsf.ChunkFormat(256, 128, keep, qbits=qbits))
 
 
-def _inputs(seed, L, mc, B, Hkv, G, sparsity):
+def _inputs(seed, L, mc, B, Hkv, G, sparsity, qbits=16):
     """Stacked bitmap pool of real packed chunks (K stream, then V stream),
-    bf16 windows and a bf16 q, as float32 / int16 numpy arrays."""
-    jf, _ = _fmts(sparsity)
+    bf16 windows and a bf16 q, as float32 / int16 numpy arrays; with
+    ``qbits=8`` also the scales [L, mc, BH, 2, 128] (bf16 values as f32)."""
+    jf, _ = _fmts(sparsity, qbits)
     rs = np.random.RandomState(seed)
     BH = B * Hkv
     x = jnp.asarray(rs.randn(L, mc, 2, BH, 256, 128) * 0.5, jnp.bfloat16)
-    rows = np.asarray(jax.jit(lambda a: jsf.prune_and_encode_stream(a, jf))(x))
-    pool = np.concatenate([rows[:, :, 0], rows[:, :, 1]], axis=-2)
     bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)).astype(np.float32)
+    if qbits == 8:
+        rows, scales = jax.jit(lambda a: jsf.prune_and_encode_stream_q8(a, jf))(x)
+        rows, scales = np.asarray(rows), bf(np.moveaxis(np.asarray(scales), 2, 3))
+    else:
+        rows = np.asarray(jax.jit(lambda a: jsf.prune_and_encode_stream(a, jf))(x))
+    pool = np.concatenate([rows[:, :, 0], rows[:, :, 1]], axis=-2)
     k_win = bf(rs.randn(L, BH, W, 128))
     v_win = bf(rs.randn(L, BH, W, 128))
     q = bf(rs.randn(B, 1, Hkv * G, 128))
+    if qbits == 8:
+        return q, pool, scales, k_win, v_win
     return q, pool, k_win, v_win
+
+
+def _jscales(scales):
+    """[L, mc, BH, 2, 128] -> the JAX kernels' kscales, vscales (bf16)."""
+    return {"kscales": jnp.asarray(scales[..., 0, :], jnp.bfloat16),
+            "vscales": jnp.asarray(scales[..., 1, :], jnp.bfloat16)}
 
 
 def _t(a, dtype=torch.bfloat16):
@@ -168,6 +186,71 @@ def test_segment_plain_matches_jax_kernel(nc, seg_start, sparsity):
     np.testing.assert_allclose(ta, ja, rtol=0, atol=ULP * np.abs(ja).max())
 
 
+@pytest.mark.parametrize("G,sparsity", [(4, 0.7), (8, 0.5)])
+def test_decode_plain_matches_jax_kernel_q8(G, sparsity):
+    """``qbits=8``: the uniform decode's plain version against JAX's v7 with
+    kscales / vscales, n_chunks 0, 1 and 3 with windows 0-288."""
+    jf, tf = _fmts(sparsity, 8)
+    q, pool, scales, k_win, v_win = _inputs(40 + G, 2, 3, 2, 2, G, sparsity, 8)
+    jargs = (jnp.asarray(q, jnp.bfloat16), jnp.asarray(pool),
+             jnp.asarray(k_win, jnp.bfloat16), jnp.asarray(v_win, jnp.bfloat16))
+    targs = (_t(q), torch.from_numpy(pool), _t(k_win), _t(v_win))
+    for nc, wl, li in [(0, 44, 1), (1, 0, 0), (3, 1, 0), (3, 288, 1)]:
+        jo = np.asarray(jska.fused_sparse_decode_attention_v7(
+            *jargs, jnp.int32(nc), jnp.int32(wl), jf, jf, 3, li=jnp.int32(li),
+            **_jscales(scales))).astype(np.float32)
+        to = tska.fused_sparse_decode_attention(*targs, nc, wl, li, tf, tf,
+                                                kv_scales=_t(scales))
+        assert to.dtype == torch.bfloat16 and to.shape == (2, 1, 2 * G, 128)
+        np.testing.assert_allclose(to.float().numpy(), jo, rtol=0,
+                                   atol=ULP * np.abs(jo).max(),
+                                   err_msg=f"nc={nc} wl={wl} li={li}")
+    assert tska.fused_sparse_decode_attention.launches == 0
+
+
+def test_ps_plain_matches_jax_kernel_q8():
+    """``qbits=8``: per-slot decode against JAX's v6ps with scales, mixed
+    slots and an idle one (exactly 0), f32 q."""
+    jf, tf = _fmts(0.7, 8)
+    q, pool, scales, k_win, v_win = _inputs(50, 2, 3, 6, 1, 2, 0.7, 8)
+    nc = [0, 1, 3, 1, 3, 0]
+    wl = [1, 44, 288, 0, 1, 0]
+    jo = np.asarray(jska.fused_sparse_decode_attention_v6ps(
+        jnp.asarray(q), jnp.asarray(pool), jnp.asarray(k_win, jnp.bfloat16),
+        jnp.asarray(v_win, jnp.bfloat16), jnp.asarray(nc, jnp.int32),
+        jnp.asarray(wl, jnp.int32), jf, jf, 3, li=jnp.int32(1), **_jscales(scales)))
+    to = tska.fused_sparse_decode_attention_ps(
+        torch.from_numpy(q), torch.from_numpy(pool), _t(k_win), _t(v_win),
+        torch.tensor(nc, dtype=torch.int32), torch.tensor(wl, dtype=torch.int32), 1,
+        tf, tf, kv_scales=_t(scales)).numpy()
+    for b in range(6):
+        if not (nc[b] or wl[b]):
+            assert (to[b] == 0).all(), f"idle slot {b}"
+            continue
+        np.testing.assert_allclose(to[b], jo[b], rtol=0, atol=ULP * np.abs(jo[b]).max(),
+                                   err_msg=f"slot {b}")
+    assert tska.fused_sparse_decode_attention_ps.launches == 0
+
+
+@pytest.mark.parametrize("nc,seg_start,sparsity", [(1, 512, 0.7), (3, 1024, 0.5)])
+def test_segment_plain_matches_jax_kernel_q8(nc, seg_start, sparsity):
+    """``qbits=8``: segment partials against JAX's segment kernel with
+    scales (B=2, Hkv=2, G=2, layer 1)."""
+    jf, tf = _fmts(sparsity, 8)
+    _, pool, scales, _, _ = _inputs(60 + nc, 2, 3, 2, 2, 2, sparsity, 8)
+    qs = np.asarray(jnp.asarray(np.random.RandomState(nc).randn(2, 256, 4, 128),
+                                jnp.bfloat16)).astype(np.float32)
+    ja, jm, jl = (np.asarray(x) for x in jska.fused_sparse_segment_attention(
+        jnp.asarray(qs, jnp.bfloat16), jnp.asarray(pool), jnp.int32(nc),
+        jnp.int32(seg_start), jf, jf, 3, li=jnp.int32(1), **_jscales(scales)))
+    ta, tm, tl = (x.numpy() for x in tska.fused_sparse_segment_attention(
+        _t(qs), torch.from_numpy(pool), nc, seg_start, 1, tf, tf, kv_scales=_t(scales)))
+    assert tska.fused_sparse_segment_attention.launches == 0
+    np.testing.assert_allclose(tm, jm, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(ta, ja, rtol=0, atol=ULP * np.abs(ja).max())
+
+
 def test_wrappers_refuse_what_the_kernels_cannot_serve():
     _, tf = _fmts(0.7)
     _, tf5 = _fmts(0.5)
@@ -210,8 +293,25 @@ def test_wrappers_refuse_what_the_kernels_cannot_serve():
             tska.fused_sparse_decode_attention(**dec, **opt)
     with pytest.raises(NotImplementedError, match="item 12"):
         tska.fused_sparse_decode_attention_ps(**ps, return_win_probs=True)
-    with pytest.raises(NotImplementedError, match="item 11"):       # bitmap-q8
-        tsf.ChunkFormat(256, 128, 40, qbits=8)
+    # bitmap-q8: qbits=8 chunks take the scales, bf16 chunks refuse them
+    _, tf8 = _fmts(0.7, 8)
+    q8, pool8, scales8, kw8, vw8 = _inputs(4, 1, 2, 2, 2, 4, 0.7, 8)
+    dec8 = dict(dec, q=_t(q8), kv_pool=torch.from_numpy(pool8), k_win=_t(kw8),
+                v_win=_t(vw8), kfmt=tf8, vfmt=tf8, kv_scales=_t(scales8))
+    seg8 = dict(seg, kv_pool=torch.from_numpy(pool8), kfmt=tf8, vfmt=tf8,
+                kv_scales=_t(scales8))
+    for fn, ok in ((tska.fused_sparse_decode_attention, dec8),
+                   (tska.fused_sparse_decode_attention_ps,
+                    dict(dec8, n_chunks=i32([1, 0]), win_len=i32([10, 3]))),
+                   (tska.fused_sparse_segment_attention, seg8)):
+        assert torch.isfinite(torch.as_tensor(fn(**ok)[0])).all()
+        for change in (dict(kv_scales=None), dict(vfmt=tf),
+                       dict(kv_scales=_t(scales8).float()),
+                       dict(kv_scales=_t(scales8)[:, :1])):
+            with pytest.raises((ValueError, TypeError)):
+                fn(**dict(ok, **change))
+    with pytest.raises(ValueError, match="kv_scales"):
+        tska.fused_sparse_decode_attention(**dec, kv_scales=_t(scales8))
     assert (tska.fused_sparse_decode_attention.launches,
             tska.fused_sparse_decode_attention_ps.launches,
             tska.fused_sparse_segment_attention.launches) == (0, 0, 0)
