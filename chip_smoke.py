@@ -5,12 +5,14 @@
 Phases, each printing one flushed JSON line with its ``phase`` and
 ``elapsed_s``:
   env           torch / CUDA versions, the card's name and power limit
-  build         nvcc builds the eight kernel libraries at once (csrc/q_decode.cu,
+  build         nvcc builds the ten kernel libraries at once (csrc/q_decode.cu,
                 csrc/q_decode_ps.cu, csrc/q_segment.cu, csrc/sp_decode.cu: the
                 bitmap uniform and per-slot entries, csrc/sp_segment.cu, both
                 with an instance per value width (16 and 8 bits),
                 csrc/w4_matmul.cu, csrc/dense_decode.cu,
-                csrc/prune_quant_pack.cu) and prints ptxas per instance
+                csrc/prune_quant_pack.cu, and the archive's
+                csrc/sp_archive_spmv.cu and csrc/sp_archive_fused.cu) and
+                prints ptxas per instance
   kernel        the uniform decode kernel against its plain PyTorch version on
                 the card, at the flagship per-layer shapes (B=8, Hq=32, Hkv=8,
                 mc=5), with its time beside the plain version's and its bound
@@ -42,6 +44,19 @@ Phases, each printing one flushed JSON line with its ``phase`` and
   kernel_dense  the dense flash-decode kernel against its plain version: B=8,
                 S=1,312, pos 599 and per slot at S=8,448 (a slot at 8,000, an
                 idle one), timed beside scaled_dot_product_attention
+  kernel_archive
+                the archive's generations over split pools (TPU kernels
+                10-13: the v1 pair sparse_key_scores / sparse_value_combine,
+                v2, v3) against their plain versions, and the v1 chain
+                against its plain chain, on random chunks pruned and packed
+                on the card (prune_and_encode_chunk; v3's pools a chunk-major
+                copy): B=8, Hkv=8, mc=5, W=288, sparsity 0.7 and 0.5, G
+                1/2/4/8, (n_chunks, win_len) (0, 44), (1, 288), (2, 1),
+                (5, 288), (5, 0), and nothing to attend (v1 NaN, v2 and v3
+                the window's mean); then the ladder: device ms of kernels 10
+                and 11, the v1 chain, v2, v3 and kernel 6 beside their
+                bounds and plain versions at (a) B=8, 1 chunk + 288 window
+                and (b) B=32, 3 chunks + 132 window (G=4)
   reference     a tiny f32 model decoded on the card (kernel) and on the CPU
                 (plain path) with the same token stream: logits must agree
   reference_cb  the tiny f32 continuous-batching engine (chunked, interleaved
@@ -59,6 +74,12 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 kernel 9 twice a layer (K and V) for prefill's chunk and the
                 compaction's: 128 launches
   serve_dense   the same prompts through the dense baseline cache
+  kernel_archive_cache
+                the archive's main path on serve_dense's own cache: K and V
+                of all 32 layers, rows 0-511 as two chunks (split pools and
+                fused streams), rows 512-598 the window; per layer v1, v2, v3
+                and kernel 6 must agree (3e-2 v2 against v1, 2e-2 v3 and
+                kernel 6 against v2), each launched once a layer
   serve_bitmap  serve_q8q4 with the bitmap codec (the JAX package's default):
                 bitmap decode kernel launches = 32 x 299; first tokens =
                 serve_dense's
@@ -130,6 +151,10 @@ NO_LIBRARY = {
     "bitmap": ("no single PyTorch call attends over bitmap streams (bf16 values "
                "or int8 codes with scales); scaled_dot_product_attention needs "
                "dense K and V"),
+    "archive": ("no single PyTorch call reads the split-pool bitmap format (bf16 value "
+                "segments, uint32 word planes): torch.sparse products take COO / CSR / "
+                "BSR layouts and scaled_dot_product_attention dense K and V, so the "
+                "pools would first be converted (another function)"),
 }
 
 
@@ -211,13 +236,14 @@ def phase_env():
 
 
 KERNEL_LIBS = ("q_decode", "q_decode_ps", "q_segment", "sp_decode", "sp_segment",
-               "w4_matmul", "dense_decode", "prune_quant_pack")
+               "w4_matmul", "dense_decode", "prune_quant_pack", "sp_archive_spmv",
+               "sp_archive_fused")
 # (kbits, vbits) of the quant codecs, which kernels 1-3 and 9 serve
 QUANT_BITS = {"q8": (8, 8), "q8q4": (8, 4), "q4q4": (4, 4)}
 
 
 def phase_build():
-    """nvcc builds the eight kernel libraries at once, one process each."""
+    """nvcc builds the ten kernel libraries at once, one process each."""
     from concurrent.futures import ThreadPoolExecutor
     from mustafar_tpu_torch.ops.kernels import build
     t = time.perf_counter()
@@ -329,13 +355,25 @@ KERNEL_META = {
                             "sparse_attention.py:647"),
     ("w4", "matmul"): ("w4_matmul", "w4_matmul.cu", "w4_matmul.py:87"),
     ("dense", "decode"): ("flash_decode_attention", "dense_decode.cu", "dense_decode.py:92"),
+    # the archive's names are prefixed: its v2 shares the production name
+    ("archive", "key_scores"): ("archive.sparse_key_scores", "sp_archive_spmv.cu",
+                                "sparse_attention_archive.py:98"),
+    ("archive", "value_combine"): ("archive.sparse_value_combine", "sp_archive_spmv.cu",
+                                   "sparse_attention_archive.py:158"),
+    ("archive", "v2"): ("archive.fused_sparse_decode_attention", "sp_archive_fused.cu",
+                        "sparse_attention_archive.py:314"),
+    ("archive", "v3"): ("archive.fused_sparse_decode_attention_v3", "sp_archive_fused.cu",
+                        "sparse_attention_archive.py:491"),
 }
 
 
+def _family(codec):
+    return ("quant" if codec in QUANT_BITS
+            else "bitmap" if codec.startswith("bitmap") else codec)
+
+
 def _meta(codec, kind):
-    family = ("quant" if codec in QUANT_BITS
-              else "bitmap" if codec.startswith("bitmap") else codec)
-    return KERNEL_META[(family, kind)]
+    return KERNEL_META[(_family(codec), kind)]
 
 
 def _phase_label(base, codec):
@@ -359,8 +397,7 @@ def _entry(codec, kind, results, worst, tol, kernel_ms, plain_ms, bytes_ms, flop
             "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": None,
-            "library_note": NO_LIBRARY["quant" if codec in QUANT_BITS else "bitmap"]}
+            "library_ms": None, "library_note": NO_LIBRARY.get(_family(codec))}
 
 
 def phase_kernel(codec="q8q4"):
@@ -905,6 +942,270 @@ def phase_kernel_dense():
     return entry
 
 
+# ---------------------------------------------------------------------------
+# The archived generations v1-v3 over split pools (TPU kernels 10-13)
+# ---------------------------------------------------------------------------
+
+ARCHIVE_KINDS = ("key_scores", "value_combine", "v2", "v3")
+ARCHIVE_CASES = ((0, 44), (1, 288), (2, 1), (5, 288), (5, 0))   # (n_chunks, win_len)
+SCORES_RTOL = 1e-5   # kernel 10: f32 sums of 128 exact bf16 products in two orders
+
+
+def _archive_pools(x, fmt):
+    """Dense chunks x [2 (K, V), BH, mc, 256, 128] pruned and packed on the
+    card: "head" ((k_segs, k_bmp), (v_segs, v_bmp)) head-major for v1 and
+    v2, "chunk" the chunk-major copy for v3, "stream" the same chunks as
+    kernel 6's fused pool [1, mc, BH, KR + VR, 128]."""
+    import torch
+    from mustafar_tpu_torch.ops import sparse_format as sf
+    BH = x.shape[1]
+    segs, bmp = sf.prune_and_encode_chunk(x, fmt)     # [2, BH, mc, R_i | 8, 128]
+    head = tuple(([s[st].reshape(BH, -1, 128) for s in segs], bmp[st].reshape(BH, -1, 128))
+                 for st in range(2))
+    chunk = tuple(([s[st].transpose(0, 1).contiguous() for s in segs],
+                   bmp[st].transpose(0, 1).contiguous()) for st in range(2))
+    rows = sf.prune_and_encode_stream(x, fmt)         # [2, BH, mc, SR, 128]
+    stream = torch.cat([rows[0], rows[1]], dim=-2).transpose(0, 1).contiguous()[None]
+    return {"head": head, "chunk": chunk, "stream": stream}
+
+
+def _archive_calls(pools, q, kw, vw, nc, wl, fmt, mc):
+    """The four generations' wrappers (v1, v2, v3 and kernel 6) on one set
+    of pools and windows [B, W, Hkv, 128], and their plain versions."""
+    from mustafar_tpu_torch.ops.kernels import sparse_attention as ska
+    from mustafar_tpu_torch.ops.kernels import sparse_attention_archive as sar
+    (ks, kb), (vs, vb) = pools["head"]
+    (cks, ckb), (cvs, cvb) = pools["chunk"]
+    B, W, Hkv, D = kw.shape
+    kw6 = kw.permute(0, 2, 1, 3).reshape(1, B * Hkv, W, D).contiguous()
+    vw6 = vw.permute(0, 2, 1, 3).reshape(1, B * Hkv, W, D).contiguous()
+    head = (ks, kb, vs, vb, kw, vw, nc, wl, fmt, fmt, mc)
+    chunk = (cks, ckb, cvs, cvb, kw, vw, nc, wl, fmt, fmt, mc)
+    k6 = (pools["stream"], kw6, vw6, nc, wl, 0, fmt, fmt)
+    return {
+        "v1": (lambda: sar.sparse_decode_attention(q, *head),
+               lambda: sar.sparse_decode_attention_plain(q, *head)),
+        "v2": (lambda: sar.fused_sparse_decode_attention(q, *head),
+               lambda: sar.fused_sparse_decode_attention_plain(q, *head)),
+        "v3": (lambda: sar.fused_sparse_decode_attention_v3(q, *chunk),
+               lambda: sar.fused_sparse_decode_attention_v3_plain(q, *chunk)),
+        "kernel6": (lambda: ska.fused_sparse_decode_attention(q, *k6),
+                    lambda: ska.fused_sparse_decode_attention_plain(q, *k6)),
+    }
+
+
+def _check(results, worst, kind, got, want, tol, **case):
+    """Record one kernel-against-plain comparison; raise past ``tol``."""
+    err = (got.float() - want.float()).abs().max().item()
+    results.append({"kernel": kind, **case, "max_abs_err": err, "tol": tol})
+    if not (got.isfinite().all() and err <= tol):
+        raise AssertionError(f"archive kernel disagrees with its plain version: "
+                             f"{results[-1]}")
+    worst[kind] = max(worst[kind], err / max(tol, 1e-30))
+
+
+def _archive_ladder(g, dev, flush, B, mc, nc, W, wl, G):
+    """Device ms (L2 flushed) of kernels 10 and 11, the v1 chain, v2, v3 and
+    kernel 6 at one shape, Hkv=8, sparsity 0.7, each beside its plain
+    version's ms and its bound from these inputs' bytes and operations."""
+    import torch
+    from mustafar_tpu_torch.ops import sparse_format as sf
+    from mustafar_tpu_torch.ops.kernels import sparse_attention_archive as sar
+    Hkv, D = 8, 128
+    BH = B * Hkv
+    fmt = sf.ChunkFormat(256, 128, 40)
+    bf = torch.bfloat16
+    pools = _archive_pools(torch.randn((2, BH, mc, 256, D), generator=g, device=dev).to(bf),
+                           fmt)
+    q = torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(bf)
+    kw = torch.randn((B, W, Hkv, D), generator=g, device=dev).to(bf)
+    vw = torch.randn((B, W, Hkv, D), generator=g, device=dev).to(bf)
+    qpad = torch.zeros((BH, 8, D), dtype=bf, device=dev)
+    qpad[:, :G] = q.reshape(BH, G, D)
+    w = torch.zeros((BH, 8, mc * 256), dtype=bf, device=dev)
+    w[:, :G, :nc * 256] = torch.rand((BH, G, nc * 256), generator=g, device=dev) / (nc * 256)
+    (ks, kb), (vs, vb) = pools["head"]
+    calls = {"key_scores": (lambda: sar.sparse_key_scores(qpad, ks, kb, nc, fmt, mc),
+                            lambda: sar.sparse_key_scores_plain(qpad, ks, kb, nc, fmt, mc)),
+             "value_combine": (lambda: sar.sparse_value_combine(w, vs, vb, nc, fmt, mc),
+                               lambda: sar.sparse_value_combine_plain(w, vs, vb, nc, fmt,
+                                                                      mc)),
+             **_archive_calls(pools, q, kw, vw, nc, wl, fmt, mc)}
+    chunk_bytes = BH * nc * fmt.bytes_per_chunk                   # one stream
+    spmv_flops = BH * 8 * nc * 256 * D * 2
+    decode = (2 * chunk_bytes + BH * 2 * wl * D * 2 + 2 * q.numel() * 2,
+              BH * G * (nc * 256 + wl) * D * 2 * 2)
+    work = {"key_scores": (chunk_bytes + qpad.numel() * 2 + BH * 8 * mc * 256 * 4, spmv_flops),
+            "value_combine": (chunk_bytes + BH * 8 * nc * 256 * 2 + BH * 8 * D * 4,
+                              spmv_flops),
+            "v1": decode, "v2": decode, "v3": decode, "kernel6": decode}
+    out = {}
+    for name, (fn, plain) in calls.items():
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        ms, behind = cuda_ms(fn, 50, flush=flush)
+        plain_ms, _ = cuda_ms(plain, 5, flush=flush, spin=False)
+        nbytes, flops = work[name]
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        flops_ms = flops / H100_F32_FLOPS * 1e3
+        out[name] = {"cuda_ms": ms, "host_behind": behind, "plain_ms": plain_ms,
+                     "bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+                     "flops_ms": flops_ms, "bound_ms": max(bytes_ms, flops_ms)}
+    return {"shape": {"B": B, "Hkv": Hkv, "G": G, "mc": mc, "n_chunks": nc, "W": W,
+                      "win_len": wl, "sparsity": 0.7}, "timed": out}
+
+
+def phase_kernel_archive():
+    """Kernels 10-13 against their plain versions on random chunks pruned
+    and packed on the card (B=8, Hkv=8, mc=5, W=288; sparsity 0.7 and 0.5;
+    G 1/2/4/8; (n_chunks, win_len) of ``ARCHIVE_CASES``), the v1 chain
+    against its plain chain, nothing to attend (v1 NaN, v2 and v3 the
+    window's mean), then the ladder at kernel 6's phase shape and at
+    docs/PERFORMANCE.md's.  Returns the kernels-line entries (launches
+    filled in by ``phase_kernel_archive_cache``)."""
+    import torch
+    from mustafar_tpu_torch.ops import sparse_format as sf
+    from mustafar_tpu_torch.ops.kernels import sparse_attention_archive as sar
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    counts0 = _launches()
+    bf = torch.bfloat16
+    B, Hkv, mc, W, D = 8, 8, 5, 288, 128
+    BH = B * Hkv
+    results = []
+    worst = dict.fromkeys(("key_scores", "value_combine", "v1", "v2", "v3"), 0.0)
+    for sparsity in (0.7, 0.5):
+        fmt = sf.ChunkFormat(256, 128, 128 - int(sparsity * 128) + 1)
+        pools = _archive_pools(
+            torch.randn((2, BH, mc, 256, D), generator=g, device=dev).to(bf), fmt)
+        (ks, kb), (vs, vb) = pools["head"]
+        kw = torch.randn((B, W, Hkv, D), generator=g, device=dev).to(bf)
+        vw = torch.randn((B, W, Hkv, D), generator=g, device=dev).to(bf)
+        for G in (1, 2, 4, 8):
+            q = torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(bf)
+            qpad = torch.zeros((BH, 8, D), dtype=bf, device=dev)
+            qpad[:, :G] = q.reshape(BH, G, D)
+            for nc, wl in ARCHIVE_CASES:
+                case = {"sparsity": sparsity, "G": G, "n_chunks": nc, "win_len": wl}
+                got = sar.sparse_key_scores(qpad, ks, kb, nc, fmt, mc)
+                torch.cuda.synchronize()
+                want = sar.sparse_key_scores_plain(qpad, ks, kb, nc, fmt, mc)
+                if not (got[:, :, nc * 256:] == 0).all():
+                    raise AssertionError(f"kernel 10 wrote non-zero scores past "
+                                         f"n_chunks: {case}")
+                _check(results, worst, "key_scores", got, want,
+                       SCORES_RTOL * want.abs().max().item(), **case)
+                w = torch.zeros((BH, 8, mc * 256), dtype=bf, device=dev)
+                w[:, :G, :nc * 256] = torch.softmax(
+                    torch.randn((BH, G, nc * 256), generator=g, device=dev), -1).to(bf)
+                got = sar.sparse_value_combine(w, vs, vb, nc, fmt, mc)
+                torch.cuda.synchronize()
+                want = sar.sparse_value_combine_plain(w, vs, vb, nc, fmt, mc)
+                _check(results, worst, "value_combine", got, want,
+                       KERNEL_TOL_ULPS * 2.0 ** -8 * want.abs().max().item(), **case)
+                for gen, (fn, plain) in _archive_calls(pools, q, kw, vw, nc, wl, fmt,
+                                                       mc).items():
+                    if gen == "kernel6":
+                        continue
+                    got = fn()
+                    torch.cuda.synchronize()
+                    want = plain()
+                    # same arithmetic, sums in another order: a bf16(p) or the
+                    # bf16 output may move by one ulp each
+                    _check(results, worst, gen, got, want,
+                           KERNEL_TOL_ULPS * 2.0 ** -8 * want.float().abs().max().item(),
+                           **case)
+        # nothing to attend: v1 NaN, v2 and v3 the mean of the whole window
+        q = torch.randn((B, 1, Hkv * 4, D), generator=g, device=dev).to(bf)
+        calls = _archive_calls(pools, q, kw, vw, 0, 0, fmt, mc)
+        v1, v1_plain = calls["v1"][0](), calls["v1"][1]()
+        mean = vw.float().mean(dim=1).repeat_interleave(4, dim=1)[:, None]   # G = 4
+        for gen in ("v2", "v3"):
+            got = calls[gen][0]().float()
+            err = (got - mean).abs().max().item()
+            if err > KERNEL_TOL_ULPS * 2.0 ** -8 * mean.abs().max().item():
+                raise AssertionError(f"{gen} with nothing to attend is not the window's "
+                                     f"mean: {err}")
+        if not (v1.isnan().all() and v1_plain.isnan().all()):
+            raise AssertionError("v1 with nothing to attend is not NaN")
+    nothing = "v1 NaN (kernel and plain), v2 and v3 the mean of the 288 window rows"
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    ladder = {"a": _archive_ladder(g, dev, flush_buf.zero_, 8, 5, 1, 288, 288, 4),
+              "b": _archive_ladder(g, dev, flush_buf.zero_, 32, 3, 3, 288, 132, 4)}
+    _set_launches(counts0)                                 # comparisons do not count
+    by_kind = {k: [r for r in results if r["kernel"] == k] for k in worst}
+    emit("kernel_archive", shapes={"B": B, "Hkv": Hkv, "mc": mc, "W": W},
+         cases={"sparsity": (0.7, 0.5), "G": (1, 2, 4, 8), "n_chunks_win_len": ARCHIVE_CASES},
+         n_cases={k: len(v) for k, v in by_kind.items()},
+         max_abs_err={k: max(r["max_abs_err"] for r in v) for k, v in by_kind.items()},
+         worst_err_over_tol=worst, nothing_to_attend=nothing, ladder=ladder)
+    entries = {}
+    for kind in ARCHIVE_KINDS:
+        t = ladder["a"]["timed"][kind]
+        tol = ("1e-5 of the largest score" if kind == "key_scores"
+               else "2 bf16 ulps of the output's largest magnitude")
+        e = _entry("archive", kind, by_kind[kind], worst[kind], tol, t["cuda_ms"], t["plain_ms"],
+                   t["bytes_ms"], t["flops_ms"])
+        e.update(timed_at="ladder (a): B=8, Hkv=8, G=4, mc=5, 1 chunk + 288 window",
+                 ladder={s: ladder[s]["timed"][kind] for s in ladder})
+        entries[("archive", kind)] = e
+    return entries
+
+
+def phase_kernel_archive_cache(k, v):
+    """The archive's main path: v1, v2, v3 and kernel 6 on every layer of
+    the model's own cache (``serve_dense``'s K and V [L, B=8, S, Hkv, 128],
+    599 rows written).  Rows 0-511 become two chunks, pruned at sparsity
+    0.7 and packed as split pools and as fused streams; rows 512-598 are the
+    window (W=288); q is seeded.  Per layer v2 agrees with v1 to 3e-2, v3
+    and kernel 6 with v2 to 2e-2 (the JAX chain's tolerances,
+    tests/test_kernels_archive.py).  Returns the launches of the run, one
+    of each kernel a layer."""
+    import torch
+    from mustafar_tpu_torch.ops import sparse_format as sf
+    L, B, S, Hkv, D = k.shape
+    if S != 800 or bool((k[:, :, 599:] != 0).any()) or bool((k[:, :, 598] == 0).all()):
+        raise AssertionError("expected serve_dense's cache with 599 written rows")
+    BH, G, W, nc, wl = B * Hkv, 4, 288, 2, 599 - 512
+    fmt = sf.ChunkFormat(256, 128, 40)
+    g = torch.Generator(device=k.device)
+    g.manual_seed(11)
+    before = _launches()
+    _set_launches(dict.fromkeys(before, 0))
+    worst = {"v2_vs_v1": 0.0, "v3_vs_v2": 0.0, "kernel6_vs_v2": 0.0}
+    tols = {"v2_vs_v1": 3e-2, "v3_vs_v2": 2e-2, "kernel6_vs_v2": 2e-2}
+    for li in range(L):
+        x = torch.stack([k[li, :, :512], v[li, :, :512]])          # [2, B, 512, Hkv, D]
+        x = x.reshape(2, B, 2, 256, Hkv, D).permute(0, 1, 4, 2, 3, 5).reshape(2, BH, 2, 256, D)
+        pools = _archive_pools(x.contiguous(), fmt)
+        q = torch.randn((B, 1, Hkv * G, D), generator=g, device=k.device).to(torch.bfloat16)
+        calls = _archive_calls(pools, q, k[li, :, 512:].contiguous(),
+                               v[li, :, 512:].contiguous(), nc, wl, fmt, nc)
+        outs = {gen: fn().float() for gen, (fn, _) in calls.items()}
+        for name, a, b in (("v2_vs_v1", "v2", "v1"), ("v3_vs_v2", "v3", "v2"),
+                           ("kernel6_vs_v2", "kernel6", "v2")):
+            # allclose(a, b, rtol=tol, atol=tol): the worst of |a - b| / (tol + tol |b|)
+            ratio = ((outs[a] - outs[b]).abs() / (tols[name] * (1 + outs[b].abs()))).max()
+            if not (outs[a].isfinite().all() and ratio.item() <= 1.0):
+                raise AssertionError(f"layer {li}: {name} off by {ratio.item():.3g} of "
+                                     f"its tolerance {tols[name]}")
+            worst[name] = max(worst[name], ratio.item())
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in _launches().items() if c}
+    want = {f"archive.{n}": L for n in ("sparse_key_scores", "sparse_value_combine",
+                                        "fused_sparse_decode_attention",
+                                        "fused_sparse_decode_attention_v3")}
+    want["fused_sparse_decode_attention"] = L
+    _set_launches(before)
+    emit("kernel_archive_cache", layers=L, B=B, Hkv=Hkv, G=G, n_chunks=nc, win_len=wl, W=W,
+         sparsity=0.7, worst_over_tol=worst, tolerances=tols, kernel_launches=launches)
+    if launches != want:
+        raise AssertionError(f"kernel_archive_cache launched {launches}, expected {want}")
+    return launches
+
+
 def _tiny_engine(mode, codec="q8q4", **kw):
     import dataclasses
     from mustafar_tpu_torch import config as tc
@@ -924,12 +1225,18 @@ def _counters():
     from mustafar_tpu_torch.ops.kernels import pack_kernel as pk
     from mustafar_tpu_torch.ops.kernels import quant_attention as qa
     from mustafar_tpu_torch.ops.kernels import sparse_attention as ska
+    from mustafar_tpu_torch.ops.kernels import sparse_attention_archive as sar
     from mustafar_tpu_torch.ops.kernels import w4_matmul as w4
-    return {fn.__name__: fn for fn in (
+    counters = {fn.__name__: fn for fn in (
         qa.fused_q_decode_attention, qa.fused_q_decode_attention_ps,
         qa.fused_q_segment_attention, ska.fused_sparse_decode_attention,
         ska.fused_sparse_decode_attention_ps, ska.fused_sparse_segment_attention,
         w4.w4_matmul, dd.flash_decode_attention, pk.prune_quant_pack)}
+    # the archive's v2 has the production kernel's name: its keys are prefixed
+    counters.update({f"archive.{fn.__name__}": fn for fn in (
+        sar.sparse_key_scores, sar.sparse_value_combine,
+        sar.fused_sparse_decode_attention, sar.fused_sparse_decode_attention_v3)})
+    return counters
 
 
 def _launches():
@@ -1222,11 +1529,13 @@ def _pool_bytes(cache):
     return sum(cache[k].nbytes for k in ("kv_pool", "kv_scales") if k in cache)
 
 
-def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=False):
+def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=False,
+          on_cache=None):
     """One warm-up generation, then the measured one; returns its tokens,
     the launches of every kernel during the measured run (those launched)
     and the phase's fields.  ``use_pallas`` decodes the dense cache through
-    its flash-decode kernel."""
+    its flash-decode kernel; ``on_cache`` is handed the cache state the
+    measured run left."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import EngineConfig, LLAMA3_8B, PruneConfig, PruneMethod
@@ -1274,6 +1583,8 @@ def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=Fals
                                   gen.cache_impl, 256, last_only=True)
     if not bool(logits.isfinite().all()):
         raise AssertionError(f"{label}: non-finite logits")
+    if on_cache is not None:
+        on_cache(cache)
     del gen, cache
     torch.cuda.empty_cache()
     return toks, launches, fields
@@ -1677,6 +1988,7 @@ def main():
     entries[("q8q4", "pack")] = phase_kernel_pack()
     entries[("w4", "matmul")] = phase_kernel_w4()
     entries[("dense", "decode")] = phase_kernel_dense()
+    entries.update(phase_kernel_archive())
     phase_reference()
     phase_reference_cb()
     phase_reference_bitmap()
@@ -1710,8 +2022,11 @@ def main():
                              f"{decode_steps} steps of the decode kernel, and kernel 9")
     entries[("q8q4", "decode")]["launches"] = expected
     entries[("q8q4", "pack")]["launches"] = launches["prune_quant_pack"]
-    dense_toks, dense_launches, fields = serve("serve_dense", CacheMode.DENSE,
-                                               params, prompt, new)
+    kept = {}          # K and V rows 0-799 of the dense cache, for the archive
+    dense_toks, dense_launches, fields = serve(
+        "serve_dense", CacheMode.DENSE, params, prompt, new,
+        on_cache=lambda c: kept.update(k=c["k"][:, :, :800].clone(),
+                                       v=c["v"][:, :, :800].clone()))
     if dense_launches:
         raise AssertionError(f"the dense engine launched {dense_launches}")
     # the first token comes from prefill logits, the same in both engines
@@ -1722,6 +2037,9 @@ def main():
     if not first_equal:
         raise AssertionError("sparse and dense engines disagree on the first token")
     dense_s = fields["seconds"]
+    archive_launches = phase_kernel_archive_cache(kept.pop("k"), kept.pop("v"))
+    for kind in ARCHIVE_KINDS:
+        entries[("archive", kind)]["launches"] = archive_launches[_meta("archive", kind)[0]]
     bitmap_toks, launches, fields = serve("serve_bitmap", CacheMode.COMPRESSED, params,
                                           prompt, new, codec="bitmap")
     first_equal = bool((bitmap_toks[:, 0] == dense_toks[:, 0]).all())

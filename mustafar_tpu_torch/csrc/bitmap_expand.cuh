@@ -1,6 +1,8 @@
 // Expansion of one bitmap-coded chunk row, shared by the bitmap attention
-// kernels (sp_decode.cu, sp_segment.cu), templated on the value width
-// QBITS: 16 (codec bitmap, bf16 values) or 8 (codec bitmap-q8, int8 codes).
+// kernels (sp_decode.cu, sp_segment.cu) and the archived generations over
+// split pools (sp_archive_spmv.cu, sp_archive_fused.cu), templated on the
+// value width QBITS: 16 (codec bitmap, bf16 values) or 8 (codec bitmap-q8,
+// int8 codes), and on the bitmap's word width WORD_BITS (16 or 32).
 //
 // A chunk's fused stream (ops/sparse_format.py encode_stream and
 // encode_stream_q8) is, for C=256 tokens and D=128 channels, int16 rows of
@@ -21,6 +23,14 @@
 // segment 0 while j < k0, else segment 1 at j - k0.  Values are placed by
 // the bitmap: a kept value smaller than half its scale has code 0 and its
 // bit set.
+//
+// The archive's split pools (ops/sparse_format.py encode_chunk) keep the
+// same segments apart from a bitmap of C/32 = 8 uint32 word planes [8, 128]:
+// the bit of (token t, channel d) is bit t / 8 of word [t % 8, d].  Its
+// kernels stage a chunk's pieces into shared memory in the stream's order,
+// segment 0 rows, segment 1 rows, then the words (8 planes of 512 bytes
+// take the 16 rows of the uint16 planes), so stored_value addresses the
+// values as in a stream and only the word read differs (WORD_BITS = 32).
 //
 // The kernels first copy a chunk's whole stream (K and V: 192 rows, 48 KB
 // at sparsity 0.7 and 16 bits; 112 rows, 28 KB at 8 bits) into shared
@@ -48,7 +58,8 @@ namespace bitmap {
 
 constexpr int D = 128;                 // head_dim == lane width
 constexpr int CHUNK = 256;             // tokens per packed chunk
-constexpr int WORD_ROWS = CHUNK / 16;  // bitmap word planes of one stream
+constexpr int WORD_ROWS = CHUNK / 16;  // bitmap rows of one stream (uint16 planes;
+                                       // the 8 uint32 planes take as many bytes)
 constexpr int ROWS_IN_FLIGHT = 4;      // rows a warp expands back to back
 
 // One stream's value segments: widths k0 and k1 (k1 = 0: one segment), and
@@ -125,21 +136,32 @@ __device__ __forceinline__ float stored_value(const uint16_t* s, const Fmt<QBITS
 // v[i] = channel lane + 32 i (bf16 values or int8 codes as f32; 0 where the
 // bit is unset).  All 32 lanes must call it together.  Callers expand a few
 // rows back to back (ROWS_IN_FLIGHT), so that their independent chains of
-// shared-memory loads, ballots and popcounts overlap.
-template <int QBITS>
+// shared-memory loads, ballots and popcounts overlap.  WORD_BITS is the
+// bitmap's word width: 16 for a fused stream, 32 for staged split pools.
+template <int QBITS, int WORD_BITS = 16>
 __device__ __forceinline__ void expand_row(const int16_t* __restrict__ stream,
                                            const Fmt<QBITS> f, int t, int lane,
                                            float (&v)[4]) {
+  static_assert(WORD_BITS == 16 || (WORD_BITS == 32 && QBITS == 16),
+                "uint16 word planes, or the split pools' uint32 planes (bf16 values)");
+  constexpr int PLANES = CHUNK / WORD_BITS;
   const uint16_t* s = reinterpret_cast<const uint16_t*>(stream);
-  const uint16_t* words = s + (size_t)(f.val_rows() + t % WORD_ROWS) * D;
-  const int sh = t / WORD_ROWS;
+  const uint16_t* words = s + (size_t)(f.val_rows() + t % PLANES) * D;
+  const uint32_t* words32 =
+      reinterpret_cast<const uint32_t*>(s + (size_t)f.val_rows() * D) + (t % PLANES) * D;
+  const int sh = t / PLANES;
   const unsigned below = (1u << lane) - 1u;
   const int keep = f.k0 + f.k1;
   int base = 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    // uint16 widens to a non-negative int, so the shift is logical
-    const int bit = (words[lane + 32 * i] >> sh) & 1;
+    // unsigned words (uint16 widens to a non-negative int), so the shift is
+    // logical
+    int bit;
+    if constexpr (WORD_BITS == 16)
+      bit = (words[lane + 32 * i] >> sh) & 1;
+    else
+      bit = (int)((words32[lane + 32 * i] >> sh) & 1u);
     const unsigned set = __ballot_sync(0xffffffffu, bit);
     const int rank = min(base + __popc(set & below), keep - 1);
     base += __popc(set);
@@ -149,18 +171,63 @@ __device__ __forceinline__ void expand_row(const int16_t* __restrict__ stream,
   }
 }
 
-// Starts the copy of `rows` stream rows (rows * 256 bytes, 16-byte aligned)
-// from device memory to shared memory, 16 bytes a thread, as one cp.async
-// group; cp_async_wait<N>() then waits until at most N groups are pending.
-__device__ __forceinline__ void stage_rows_async(int16_t* dst, const int16_t* src,
-                                                 int rows, int tid, int nthreads) {
+// Issues the copy of `rows` rows of 256 bytes (16-byte aligned) from device
+// memory to shared memory with cp.async, 16 bytes a thread, without closing
+// the group: a split-pool chunk's pieces join one group.
+__device__ __forceinline__ void copy_rows_async(void* dst, const void* src, int rows,
+                                                int tid, int nthreads) {
   const int n = rows * (D * 2 / 16);
   const unsigned base = (unsigned)__cvta_generic_to_shared(dst);
   const char* from = reinterpret_cast<const char*>(src);
   for (int i = tid; i < n; i += nthreads)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                  :: "r"(base + 16u * i), "l"(from + 16 * (size_t)i) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Starts the copy of `rows` stream rows (rows * 256 bytes, 16-byte aligned)
+// from device memory to shared memory, 16 bytes a thread, as one cp.async
+// group; cp_async_wait<N>() then waits until at most N groups are pending.
+__device__ __forceinline__ void stage_rows_async(int16_t* dst, const int16_t* src,
+                                                 int rows, int tid, int nthreads) {
+  copy_rows_async(dst, src, rows, tid, nthreads);
+  cp_async_commit();
+}
+
+// Copies `rows` rows of 256 bytes from device memory to shared memory with
+// plain 16-byte loads and stores; the caller syncs before reading them.
+__device__ __forceinline__ void copy_rows(void* dst, const void* src, int rows, int tid,
+                                          int nthreads) {
+  const int n = rows * (D * 2 / 16);
+  uint4* to = reinterpret_cast<uint4*>(dst);
+  const uint4* from = reinterpret_cast<const uint4*>(src);
+  for (int i = tid; i < n; i += nthreads) to[i] = from[i];
+}
+
+// Stages chunk `piece` of one stream's split pools (segments [p0 | p1, 128]
+// bf16 and words [8, 128] uint32, each pool a run of such pieces) into
+// `dst` in the stream's order, for expand_row<16, 32>: with ASYNC as
+// cp.async copies of the caller's open group, else with plain loads.
+template <bool ASYNC>
+__device__ __forceinline__ void stage_split(int16_t* dst, const int16_t* seg0,
+                                            const int16_t* seg1, const uint32_t* words,
+                                            const Fmt<16> f, size_t piece, int tid,
+                                            int nthreads) {
+  const int16_t* from[3] = {seg0 + piece * f.p0() * D, seg1 + piece * f.p1() * D,
+                            reinterpret_cast<const int16_t*>(words + piece * (CHUNK / 32) * D)};
+  const int rows[3] = {f.p0(), f.k1 ? f.p1() : 0, WORD_ROWS};
+  int16_t* to = dst;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    if (ASYNC)
+      copy_rows_async(to, from[j], rows[j], tid, nthreads);
+    else
+      copy_rows(to, from[j], rows[j], tid, nthreads);
+    to += (size_t)rows[j] * D;
+  }
 }
 
 template <int N>

@@ -1,7 +1,7 @@
 """Exact top-keep pruning and the bitmap chunk format, port of
-``mustafar_tpu/ops/sparse_format.py`` (the pruning pieces and the
-fused-stream codecs: bf16 values, ``qbits=16``, and int8 codes with
-per-channel scales, ``qbits=8``).
+``mustafar_tpu/ops/sparse_format.py`` (the pruning pieces, the fused-stream
+codecs: bf16 values, ``qbits=16``, and int8 codes with per-channel scales,
+``qbits=8``, and the split pools the archived decode kernels read).
 
 The mask keeps exactly ``keep`` entries per row, the largest |x|, with ties
 going to the lower channel.  ``torch.topk`` promises no order among ties, so
@@ -19,6 +19,14 @@ the bit of (token t, channel d) is bit ``t // (C/16)`` of word
 the word planes: 96 int16 rows of 128 at C=256, keep 40.  The j-th set
 channel of row t (its rank) reads segment 0 while j < k0, else segment 1
 at j - k0.
+
+**Split pools** (``encode_chunk``, read by the archived kernels of
+``ops/kernels/sparse_attention_archive.py``).  The same segments, kept in
+the dense dtype as separate tensors, and a bitmap of ``P = C/32`` uint32
+word planes ``[P, D]``: the bit of (token t, channel d) is bit ``t // P``
+of word ``[t % P, d]``.  The words are carried in int32 (torch's uint32
+lacks shifts and sums on the CPU): bit 31 makes the carrier negative, and
+every right shift is masked.
 """
 
 from __future__ import annotations
@@ -121,6 +129,11 @@ class ChunkFormat:
     def keep_stored(self) -> int:
         return sum(self.segs)
 
+    @property
+    def planes(self) -> int:
+        """uint32 word planes of one chunk's split-pool bitmap."""
+        return self.chunk // 32
+
     def seg_logical_rows(self, k: int) -> int:
         """Rows of 128 values of a width-k segment."""
         return self.chunk * k // 128
@@ -142,6 +155,19 @@ class ChunkFormat:
     def stream_rows(self) -> int:
         """int16 rows of one chunk's fused stream (values, then bitmap)."""
         return self.total_rows + self.bmp16_rows
+
+    @property
+    def bytes_per_chunk(self) -> int:
+        """Bytes of one chunk of one stream: value rows and bitmap words."""
+        return self.total_rows * 128 * 2 + self.planes * self.dim * 4
+
+    @property
+    def dense_bytes(self) -> int:
+        return self.chunk * self.dim * 2
+
+    @property
+    def compression_ratio(self) -> float:
+        return self.dense_bytes / self.bytes_per_chunk
 
 
 def _stored_slots(dense: torch.Tensor, keep: int) -> torch.Tensor:
@@ -314,3 +340,65 @@ def prune_and_encode_stream_q8(dense: torch.Tensor, fmt: ChunkFormat):
     and pack -> (rows, f32 scales)."""
     mask = topk_mask(dense, fmt.keep)
     return encode_stream_q8(torch.where(mask, dense, torch.zeros_like(dense)), fmt)
+
+
+# ---------------------------------------------------------------------------
+# Split pools: separate value segments and a [P, D] uint32 bitmap
+# ---------------------------------------------------------------------------
+
+def _to_i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 holding a 32-bit pattern -> int32 with the same bits."""
+    v = v & 0xFFFFFFFF
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+def encode_chunk(dense: torch.Tensor, fmt: ChunkFormat):
+    """Pack a pruned chunk [..., C, D] (at most ``fmt.keep`` nonzeros a row)
+    -> (segs: list of [..., R_i, 128] in dense.dtype, bitmap [..., P, D]:
+    uint32 patterns in int32 carriers).  The bitmap marks the stored slots,
+    zero-valued pads included, so every row has ``keep_stored`` bits."""
+    C, D = fmt.chunk, fmt.dim
+    keep = fmt.keep_stored
+    assert tuple(dense.shape[-2:]) == (C, D), (tuple(dense.shape), fmt)
+    lead = dense.shape[:-2]
+    mask = _stored_slots(dense, keep)
+    vals, bits = _compact_rows(dense, mask, keep)
+    P = fmt.planes
+    planes = bits.reshape(*lead, 32, P, D).to(torch.int64)          # t = b*P + r
+    shifts = torch.arange(32, dtype=torch.int64, device=dense.device)[:, None, None]
+    bitmap = _to_i32((planes << shifts).sum(dim=-3))
+    segs, off = [], 0
+    for k in fmt.segs:
+        segs.append(_interleave_vals(vals[..., off:off + k], C, k).to(dense.dtype))
+        off += k
+    return segs, bitmap
+
+
+def unpack_bitmap(bitmap: torch.Tensor, fmt: ChunkFormat) -> torch.Tensor:
+    """bitmap [..., P, D] (int32 carriers) -> int32 bits [..., C, D]; the
+    shift is arithmetic on a negative carrier, so its result is masked."""
+    C, P = fmt.chunk, fmt.planes
+    words = torch.cat([bitmap.to(torch.int32)] * (C // P), dim=-2)   # row t = word t % P
+    shift = (torch.arange(C, dtype=torch.int32, device=bitmap.device) // P)[:, None]
+    return (words >> shift) & 1
+
+
+def decode_chunk(segs: list[torch.Tensor], bitmap: torch.Tensor,
+                 fmt: ChunkFormat) -> torch.Tensor:
+    """Inverse of ``encode_chunk`` -> dense [..., C, D] in the segments'
+    dtype; a rank past the stored count is clamped, as in JAX."""
+    C = fmt.chunk
+    bits = unpack_bitmap(bitmap, fmt)
+    rank = torch.cumsum(bits, dim=-1) - 1
+    vals = torch.cat([_deinterleave_vals(s, C, k) for s, k in zip(segs, fmt.segs)],
+                     dim=-1)                                         # [..., C, keep]
+    take = rank.clamp(0, fmt.keep_stored - 1).to(torch.int64)
+    dense = torch.gather(vals, -1, take)
+    return torch.where(bits > 0, dense, torch.zeros_like(dense))
+
+
+def prune_and_encode_chunk(dense: torch.Tensor, fmt: ChunkFormat):
+    """Keep the ``fmt.keep`` largest |x| of each token row, then pack into
+    split pools (``encode_chunk``)."""
+    mask = topk_mask(dense, fmt.keep)
+    return encode_chunk(torch.where(mask, dense, torch.zeros_like(dense)), fmt)

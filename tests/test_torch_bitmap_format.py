@@ -252,3 +252,85 @@ def test_bitmap16_words_match_jax():
     assert tw.dtype == torch.int16 and (tw < 0).any()
     np.testing.assert_array_equal(tw.numpy(), jw)
     np.testing.assert_array_equal(tsf.unpack_bitmap16(tw, C).numpy(), bits)
+
+
+# ---------------------------------------------------------------------------
+# (s) Split pools (the archived kernels' format): value segments in the
+# dense dtype and a [C/32, D] uint32 bitmap, carried in int32 by the port.
+# ---------------------------------------------------------------------------
+
+def test_split_format_geometry_matches_jax():
+    """planes, bytes_per_chunk, dense_bytes and compression_ratio for every
+    keep, at both value widths."""
+    for qbits in (16, 8):
+        for keep in range(1, 129):
+            jf = jsf.ChunkFormat(C, D, keep, qbits=qbits)
+            tf = tsf.ChunkFormat(C, D, keep, qbits=qbits)
+            assert (tf.planes, tf.bytes_per_chunk, tf.dense_bytes, tf.compression_ratio) == \
+                (jf.planes, jf.bytes_per_chunk, jf.dense_bytes, jf.compression_ratio), keep
+    tf = tsf.ChunkFormat(C, D, 40)
+    assert (tf.planes, tf.bytes_per_chunk, tf.dense_bytes) == (8, 24_576, 65_536)
+    assert tsf.ChunkFormat(C, D, 65).bytes_per_chunk == 38_912
+
+
+def _words_i32(jbmp):
+    """The JAX bitmap's uint32 words as the port's int32 carriers."""
+    return np.asarray(jbmp).view(np.int32)
+
+
+@pytest.mark.parametrize("sparsity,dtype", [(0.7, "bfloat16"), (0.7, "float32"),
+                                            (0.5, "bfloat16"), (0.5, "float32")])
+def test_prune_and_encode_chunk_bit_exact(sparsity, dtype):
+    """Segments, words, unpacked bits and the decoded chunk, with ties, an
+    all-zero row, -0.0 and words whose bit 31 is set (negative carriers)."""
+    x = _chunks(int(sparsity * 10) + 5)
+    jf = jsf.ChunkFormat(C, D, _keep(sparsity))
+    tf = tsf.ChunkFormat(C, D, _keep(sparsity))
+    jx, tx = _both(x, dtype)
+    jsegs, jbmp = jax.jit(lambda a: jsf.prune_and_encode_chunk(a, jf))(jx)
+    tsegs, tbmp = tsf.prune_and_encode_chunk(tx, tf)
+    assert len(tsegs) == len(jf.segs)
+    for ts, js, k in zip(tsegs, jsegs, jf.segs):
+        assert ts.dtype == tx.dtype and ts.shape == (3, jf.seg_rows(k), 128)
+        np.testing.assert_array_equal(ts.float().numpy(), _np32(js))
+        assert (np.signbit(ts.float().numpy()) == np.signbit(_np32(js))).all()
+    assert tbmp.dtype == torch.int32 and tbmp.shape == (3, tf.planes, D)
+    np.testing.assert_array_equal(tbmp.numpy(), _words_i32(jbmp))
+    assert (tbmp < 0).any()                                    # bit 31 set
+    bits = tsf.unpack_bitmap(tbmp, tf)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(jsf.unpack_bitmap(jbmp, jf)))
+    assert (bits.sum(-1) == tf.keep_stored).all()              # pads included
+    jdec = jax.jit(lambda s, b: jsf.decode_chunk(s, b, jf))(jsegs, jbmp)
+    tdec = tsf.decode_chunk(tsegs, tbmp, tf)
+    assert tdec.dtype == tx.dtype
+    np.testing.assert_array_equal(tdec.float().numpy(), _np32(jdec))
+    # decode inverts the prune: the kept values at their channels, 0 elsewhere
+    kept = tx * tsf.topk_mask(tx, tf.keep)
+    np.testing.assert_array_equal(tdec.float().numpy(), kept.float().numpy())
+
+
+@pytest.mark.parametrize("sparsity", [0.7, 0.5])
+def test_encode_and_decode_chunk_bit_exact(sparsity):
+    """``encode_chunk`` of an already pruned chunk, and ``decode_chunk`` of
+    arbitrary words and values (ranks past the stored count are clamped, as
+    in JAX)."""
+    jf = jsf.ChunkFormat(C, D, _keep(sparsity))
+    tf = tsf.ChunkFormat(C, D, _keep(sparsity))
+    x = _chunks(13)
+    keep = tsf.topk_mask(torch.from_numpy(x), tf.keep).numpy()
+    jx, tx = _both(np.where(keep, x, 0).astype(np.float32), "bfloat16")
+    jsegs, jbmp = jax.jit(lambda a: jsf.encode_chunk(a, jf))(jx)
+    tsegs, tbmp = tsf.encode_chunk(tx, tf)
+    for ts, js in zip(tsegs, jsegs):
+        np.testing.assert_array_equal(ts.view(torch.int16).numpy(),
+                                      np.asarray(js).view(np.int16))
+    np.testing.assert_array_equal(tbmp.numpy(), _words_i32(jbmp))
+    rs = np.random.RandomState(14)
+    words = rs.randint(-2 ** 31, 2 ** 31, (2, tf.planes, D), dtype=np.int64).astype(np.int32)
+    segs = [_np32(jnp.asarray(rs.randn(2, tf.seg_rows(k), 128), jnp.bfloat16))
+            for k in tf.segs]
+    jdec = np.asarray(jax.jit(lambda s, b: jsf.decode_chunk(s, b, jf))(
+        [jnp.asarray(s, jnp.bfloat16) for s in segs], jnp.asarray(words.view(np.uint32))))
+    tdec = tsf.decode_chunk([torch.from_numpy(s).to(torch.bfloat16) for s in segs],
+                            torch.from_numpy(words), tf)
+    np.testing.assert_array_equal(tdec.view(torch.int16).numpy(), jdec.view(np.int16))
