@@ -5,14 +5,14 @@
 Phases, each printing one flushed JSON line with its ``phase`` and
 ``elapsed_s``:
   env           torch / CUDA versions, the card's name and power limit
-  build         nvcc builds the ten kernel libraries at once (csrc/q_decode.cu,
+  build         nvcc builds the eleven kernel libraries at once (csrc/q_decode.cu,
                 csrc/q_decode_ps.cu, csrc/q_segment.cu, csrc/sp_decode.cu: the
                 bitmap uniform and per-slot entries, csrc/sp_segment.cu, both
                 with an instance per value width (16 and 8 bits),
                 csrc/w4_matmul.cu, csrc/dense_decode.cu,
                 csrc/prune_quant_pack.cu, and the archive's
-                csrc/sp_archive_spmv.cu and csrc/sp_archive_fused.cu) and
-                prints ptxas per instance
+                csrc/sp_archive_spmv.cu, csrc/sp_archive_fused.cu and
+                csrc/sp_archive_stream.cu) and prints ptxas per instance
   kernel        the uniform decode kernel against its plain PyTorch version on
                 the card, at the flagship per-layer shapes (B=8, Hq=32, Hkv=8,
                 mc=5), with its time beside the plain version's and its bound
@@ -45,18 +45,22 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 S=1,312, pos 599 and per slot at S=8,448 (a slot at 8,000, an
                 idle one), timed beside scaled_dot_product_attention
   kernel_archive
-                the archive's generations over split pools (TPU kernels
-                10-13: the v1 pair sparse_key_scores / sparse_value_combine,
-                v2, v3) against their plain versions, and the v1 chain
-                against its plain chain, on random chunks pruned and packed
-                on the card (prune_and_encode_chunk; v3's pools a chunk-major
-                copy): B=8, Hkv=8, mc=5, W=288, sparsity 0.7 and 0.5, G
-                1/2/4/8, (n_chunks, win_len) (0, 44), (1, 288), (2, 1),
-                (5, 288), (5, 0), and nothing to attend (v1 NaN, v2 and v3
-                the window's mean); then the ladder: device ms of kernels 10
-                and 11, the v1 chain, v2, v3 and kernel 6 beside their
-                bounds and plain versions at (a) B=8, 1 chunk + 288 window
-                and (b) B=32, 3 chunks + 132 window (G=4)
+                the archive's generations (TPU kernels 10-16: over split
+                pools the v1 pair sparse_key_scores / sparse_value_combine,
+                v2, v3; over the fused stream v4, v5, v6) against their plain
+                versions, and the v1 chain against its plain chain, on random
+                chunks pruned and packed on the card (prune_and_encode_chunk
+                and _stream; v3's pools a chunk-major copy): B=8, Hkv=8,
+                mc=5, W=288, sparsity 0.7 and 0.5, G 1/2/4/8, (n_chunks,
+                win_len) (0, 44), (1, 288), (2, 1), (5, 288), (5, 0); v6's
+                partials (acc, m, l) against the plain partials, v6 with
+                window 300 and 600 at 5 chunks, v5 at hpb 8 and 2; nothing
+                to attend (v1 and v6 NaN, v2-v4 the head's window mean, v5
+                the mean over its TPU grid step's hpb heads, at hpb 8 and
+                2); then the ladder: device ms of kernels 10 and 11, the v1
+                chain, v2-v5, kernel 16 alone, the whole v6 and kernel 6
+                beside their bounds and plain versions at (a) B=8, 1 chunk +
+                288 window and (b) B=32, 3 chunks + 132 window (G=4)
   reference     a tiny f32 model decoded on the card (kernel) and on the CPU
                 (plain path) with the same token stream: logits must agree
   reference_cb  the tiny f32 continuous-batching engine (chunked, interleaved
@@ -77,9 +81,11 @@ Phases, each printing one flushed JSON line with its ``phase`` and
   kernel_archive_cache
                 the archive's main path on serve_dense's own cache: K and V
                 of all 32 layers, rows 0-511 as two chunks (split pools and
-                fused streams), rows 512-598 the window; per layer v1, v2, v3
-                and kernel 6 must agree (3e-2 v2 against v1, 2e-2 v3 and
-                kernel 6 against v2), each launched once a layer
+                fused streams, the streams one stacked pool read a layer view
+                at a time), rows 512-598 the window; per layer v1-v6 and
+                kernel 6 must agree (3e-2 v2 against v1 and v4 against v2,
+                2e-2 v3 and kernel 6 against v2, v5 and v6 against v4), each
+                launched once a layer
   serve_bitmap  serve_q8q4 with the bitmap codec (the JAX package's default):
                 bitmap decode kernel launches = 32 x 299; first tokens =
                 serve_dense's
@@ -151,10 +157,11 @@ NO_LIBRARY = {
     "bitmap": ("no single PyTorch call attends over bitmap streams (bf16 values "
                "or int8 codes with scales); scaled_dot_product_attention needs "
                "dense K and V"),
-    "archive": ("no single PyTorch call reads the split-pool bitmap format (bf16 value "
-                "segments, uint32 word planes): torch.sparse products take COO / CSR / "
-                "BSR layouts and scaled_dot_product_attention dense K and V, so the "
-                "pools would first be converted (another function)"),
+    "archive": ("no single PyTorch call reads the archive's bitmap formats (split pools "
+                "of bf16 value segments and uint32 word planes, or the fused int16 "
+                "stream): torch.sparse products take COO / CSR / BSR layouts and "
+                "scaled_dot_product_attention dense K and V, so the pools would first "
+                "be converted (another function)"),
 }
 
 
@@ -237,13 +244,13 @@ def phase_env():
 
 KERNEL_LIBS = ("q_decode", "q_decode_ps", "q_segment", "sp_decode", "sp_segment",
                "w4_matmul", "dense_decode", "prune_quant_pack", "sp_archive_spmv",
-               "sp_archive_fused")
+               "sp_archive_fused", "sp_archive_stream")
 # (kbits, vbits) of the quant codecs, which kernels 1-3 and 9 serve
 QUANT_BITS = {"q8": (8, 8), "q8q4": (8, 4), "q4q4": (4, 4)}
 
 
 def phase_build():
-    """nvcc builds the ten kernel libraries at once, one process each."""
+    """nvcc builds the eleven kernel libraries at once, one process each."""
     from concurrent.futures import ThreadPoolExecutor
     from mustafar_tpu_torch.ops.kernels import build
     t = time.perf_counter()
@@ -364,6 +371,12 @@ KERNEL_META = {
                         "sparse_attention_archive.py:314"),
     ("archive", "v3"): ("archive.fused_sparse_decode_attention_v3", "sp_archive_fused.cu",
                         "sparse_attention_archive.py:491"),
+    ("archive", "v4"): ("archive.fused_sparse_decode_attention_v4", "sp_archive_stream.cu",
+                        "sparse_attention_archive.py:630"),
+    ("archive", "v5"): ("archive.fused_sparse_decode_attention_v5", "sp_archive_stream.cu",
+                        "sparse_attention_archive.py:785"),
+    ("archive", "v6"): ("archive.fused_sparse_decode_attention_v6", "sp_archive_stream.cu",
+                        "sparse_attention_archive.py:916"),
 }
 
 
@@ -943,10 +956,12 @@ def phase_kernel_dense():
 
 
 # ---------------------------------------------------------------------------
-# The archived generations v1-v3 over split pools (TPU kernels 10-13)
+# The archived generations: v1-v3 over split pools (TPU kernels 10-13), v4-v6
+# over the fused stream (kernels 14-16)
 # ---------------------------------------------------------------------------
 
-ARCHIVE_KINDS = ("key_scores", "value_combine", "v2", "v3")
+ARCHIVE_KINDS = ("key_scores", "value_combine", "v2", "v3", "v4", "v5", "v6")
+ARCHIVE_WINDOWS = (300, 600)     # v6's sliding windows, checked at 5 chunks
 ARCHIVE_CASES = ((0, 44), (1, 288), (2, 1), (5, 288), (5, 0))   # (n_chunks, win_len)
 SCORES_RTOL = 1e-5   # kernel 10: f32 sums of 128 exact bf16 products in two orders
 
@@ -970,8 +985,9 @@ def _archive_pools(x, fmt):
 
 
 def _archive_calls(pools, q, kw, vw, nc, wl, fmt, mc):
-    """The four generations' wrappers (v1, v2, v3 and kernel 6) on one set
-    of pools and windows [B, W, Hkv, 128], and their plain versions."""
+    """The generations' wrappers (v1-v6 and kernel 6) on one set of pools
+    and windows [B, W, Hkv, 128], and their plain versions; v4-v6 read the
+    stream pool's layer view ``pools["stream"][0]``."""
     from mustafar_tpu_torch.ops.kernels import sparse_attention as ska
     from mustafar_tpu_torch.ops.kernels import sparse_attention_archive as sar
     (ks, kb), (vs, vb) = pools["head"]
@@ -982,6 +998,7 @@ def _archive_calls(pools, q, kw, vw, nc, wl, fmt, mc):
     head = (ks, kb, vs, vb, kw, vw, nc, wl, fmt, fmt, mc)
     chunk = (cks, ckb, cvs, cvb, kw, vw, nc, wl, fmt, fmt, mc)
     k6 = (pools["stream"], kw6, vw6, nc, wl, 0, fmt, fmt)
+    st = (pools["stream"][0], kw, vw, nc, wl, fmt, fmt, mc)
     return {
         "v1": (lambda: sar.sparse_decode_attention(q, *head),
                lambda: sar.sparse_decode_attention_plain(q, *head)),
@@ -989,6 +1006,12 @@ def _archive_calls(pools, q, kw, vw, nc, wl, fmt, mc):
                lambda: sar.fused_sparse_decode_attention_plain(q, *head)),
         "v3": (lambda: sar.fused_sparse_decode_attention_v3(q, *chunk),
                lambda: sar.fused_sparse_decode_attention_v3_plain(q, *chunk)),
+        "v4": (lambda: sar.fused_sparse_decode_attention_v4(q, *st),
+               lambda: sar.fused_sparse_decode_attention_v4_plain(q, *st)),
+        "v5": (lambda: sar.fused_sparse_decode_attention_v5(q, *st),
+               lambda: sar.fused_sparse_decode_attention_v5_plain(q, *st)),
+        "v6": (lambda: sar.fused_sparse_decode_attention_v6(q, *st),
+               lambda: sar.fused_sparse_decode_attention_v6_plain(q, *st)),
         "kernel6": (lambda: ska.fused_sparse_decode_attention(q, *k6),
                     lambda: ska.fused_sparse_decode_attention_plain(q, *k6)),
     }
@@ -1004,10 +1027,29 @@ def _check(results, worst, kind, got, want, tol, **case):
     worst[kind] = max(worst[kind], err / max(tol, 1e-30))
 
 
+def _check_partials(results, worst, got, want, **case):
+    """Kernel 16's partials (acc, m, l) against the plain ones: each within
+    2 bf16 ulps of its largest magnitude, or exactly (0, -1e30, 0) where no
+    chunk column is live."""
+    if not bool((want[2] > 0).any()):
+        exact = all(bool((t[0] == 0).all() and (t[1] == -1e30).all() and (t[2] == 0).all())
+                    for t in (got, want))
+        results.append({"kernel": "v6_partials", **case, "part": "none live",
+                        "max_abs_err": 0.0, "tol": 0.0})
+        if not exact:
+            raise AssertionError(f"v6 partials with no live column are not (0, -1e30, 0): "
+                                 f"{case}")
+        return
+    for part, a, b in zip(("acc", "m", "l"), got, want):
+        _check(results, worst, "v6_partials", a, b,
+               KERNEL_TOL_ULPS * 2.0 ** -8 * b.abs().max().item(), part=part, **case)
+
+
 def _archive_ladder(g, dev, flush, B, mc, nc, W, wl, G):
-    """Device ms (L2 flushed) of kernels 10 and 11, the v1 chain, v2, v3 and
-    kernel 6 at one shape, Hkv=8, sparsity 0.7, each beside its plain
-    version's ms and its bound from these inputs' bytes and operations."""
+    """Device ms (L2 flushed) of kernels 10 and 11, the v1 chain, v2-v5,
+    kernel 16 alone, the whole v6 and kernel 6 at one shape, Hkv=8,
+    sparsity 0.7, each beside its plain version's ms and its bound from
+    these inputs' bytes and operations."""
     import torch
     from mustafar_tpu_torch.ops import sparse_format as sf
     from mustafar_tpu_torch.ops.kernels import sparse_attention_archive as sar
@@ -1031,6 +1073,10 @@ def _archive_ladder(g, dev, flush, B, mc, nc, W, wl, G):
                                lambda: sar.sparse_value_combine_plain(w, vs, vb, nc, fmt,
                                                                       mc)),
              **_archive_calls(pools, q, kw, vw, nc, wl, fmt, mc)}
+    sp = pools["stream"][0]
+    calls["v6_kernel"] = (
+        lambda: sar.fused_sparse_decode_attention_v6_partials(q, sp, nc, wl, fmt, fmt, mc),
+        lambda: sar.fused_sparse_decode_attention_v6_partials_plain(q, sp, nc, wl, fmt, fmt))
     chunk_bytes = BH * nc * fmt.bytes_per_chunk                   # one stream
     spmv_flops = BH * 8 * nc * 256 * D * 2
     decode = (2 * chunk_bytes + BH * 2 * wl * D * 2 + 2 * q.numel() * 2,
@@ -1038,7 +1084,11 @@ def _archive_ladder(g, dev, flush, B, mc, nc, W, wl, G):
     work = {"key_scores": (chunk_bytes + qpad.numel() * 2 + BH * 8 * mc * 256 * 4, spmv_flops),
             "value_combine": (chunk_bytes + BH * 8 * nc * 256 * 2 + BH * 8 * D * 4,
                               spmv_flops),
-            "v1": decode, "v2": decode, "v3": decode, "kernel6": decode}
+            "v1": decode, "v2": decode, "v3": decode, "v4": decode, "v5": decode,
+            "v6": decode, "kernel6": decode,
+            # the pools, q and the partials acc, m, l
+            "v6_kernel": (2 * chunk_bytes + q.numel() * 2 + BH * G * (D + 2) * 4,
+                          BH * G * nc * 256 * D * 2 * 2)}
     out = {}
     for name, (fn, plain) in calls.items():
         for _ in range(5):
@@ -1057,13 +1107,14 @@ def _archive_ladder(g, dev, flush, B, mc, nc, W, wl, G):
 
 
 def phase_kernel_archive():
-    """Kernels 10-13 against their plain versions on random chunks pruned
+    """Kernels 10-16 against their plain versions on random chunks pruned
     and packed on the card (B=8, Hkv=8, mc=5, W=288; sparsity 0.7 and 0.5;
     G 1/2/4/8; (n_chunks, win_len) of ``ARCHIVE_CASES``), the v1 chain
-    against its plain chain, nothing to attend (v1 NaN, v2 and v3 the
-    window's mean), then the ladder at kernel 6's phase shape and at
-    docs/PERFORMANCE.md's.  Returns the kernels-line entries (launches
-    filled in by ``phase_kernel_archive_cache``)."""
+    against its plain chain, v6's partials, v6's sliding windows at 5
+    chunks, v5 at hpb 8 and 2, nothing to attend (v1 and v6 NaN, v2-v4 the
+    head's window mean, v5 its grid step's), then the ladder at kernel 6's
+    phase shape and at docs/PERFORMANCE.md's.  Returns the kernels-line
+    entries (launches filled in by ``phase_kernel_archive_cache``)."""
     import torch
     from mustafar_tpu_torch.ops import sparse_format as sf
     from mustafar_tpu_torch.ops.kernels import sparse_attention_archive as sar
@@ -1074,13 +1125,16 @@ def phase_kernel_archive():
     bf = torch.bfloat16
     B, Hkv, mc, W, D = 8, 8, 5, 288, 128
     BH = B * Hkv
+    ulps = KERNEL_TOL_ULPS * 2.0 ** -8
     results = []
-    worst = dict.fromkeys(("key_scores", "value_combine", "v1", "v2", "v3"), 0.0)
+    worst = dict.fromkeys(("key_scores", "value_combine", "v1", "v2", "v3", "v4", "v5", "v6",
+                           "v6_partials"), 0.0)
     for sparsity in (0.7, 0.5):
         fmt = sf.ChunkFormat(256, 128, 128 - int(sparsity * 128) + 1)
         pools = _archive_pools(
             torch.randn((2, BH, mc, 256, D), generator=g, device=dev).to(bf), fmt)
         (ks, kb), (vs, vb) = pools["head"]
+        sp = pools["stream"][0]
         kw = torch.randn((B, W, Hkv, D), generator=g, device=dev).to(bf)
         vw = torch.randn((B, W, Hkv, D), generator=g, device=dev).to(bf)
         for G in (1, 2, 4, 8):
@@ -1104,7 +1158,7 @@ def phase_kernel_archive():
                 torch.cuda.synchronize()
                 want = sar.sparse_value_combine_plain(w, vs, vb, nc, fmt, mc)
                 _check(results, worst, "value_combine", got, want,
-                       KERNEL_TOL_ULPS * 2.0 ** -8 * want.abs().max().item(), **case)
+                       ulps * want.abs().max().item(), **case)
                 for gen, (fn, plain) in _archive_calls(pools, q, kw, vw, nc, wl, fmt,
                                                        mc).items():
                     if gen == "kernel6":
@@ -1115,54 +1169,94 @@ def phase_kernel_archive():
                     # same arithmetic, sums in another order: a bf16(p) or the
                     # bf16 output may move by one ulp each
                     _check(results, worst, gen, got, want,
-                           KERNEL_TOL_ULPS * 2.0 ** -8 * want.float().abs().max().item(),
-                           **case)
-        # nothing to attend: v1 NaN, v2 and v3 the mean of the whole window
-        q = torch.randn((B, 1, Hkv * 4, D), generator=g, device=dev).to(bf)
+                           ulps * want.float().abs().max().item(), **case)
+                got = sar.fused_sparse_decode_attention_v5(q, sp, kw, vw, nc, wl, fmt, fmt,
+                                                           mc, hpb=2)
+                want = sar.fused_sparse_decode_attention_v5_plain(q, sp, kw, vw, nc, wl, fmt,
+                                                                  fmt, mc, hpb=2)
+                _check(results, worst, "v5", got, want,
+                       ulps * want.float().abs().max().item(), hpb=2, **case)
+                for window in (None,) + (ARCHIVE_WINDOWS if nc == mc else ()):
+                    opt = {"window": window}
+                    _check_partials(results, worst, sar.fused_sparse_decode_attention_v6_partials(
+                        q, sp, nc, wl, fmt, fmt, mc, **opt),
+                        sar.fused_sparse_decode_attention_v6_partials_plain(
+                            q, sp, nc, wl, fmt, fmt, **opt), **case, **opt)
+                    if window is not None:
+                        got = sar.fused_sparse_decode_attention_v6(q, sp, kw, vw, nc, wl, fmt,
+                                                                   fmt, mc, **opt)
+                        want = sar.fused_sparse_decode_attention_v6_plain(
+                            q, sp, kw, vw, nc, wl, fmt, fmt, mc, **opt)
+                        _check(results, worst, "v6", got, want,
+                               ulps * want.float().abs().max().item(), **case, **opt)
+        # nothing to attend: v1 and v6 NaN, v2-v4 the mean of the head's
+        # whole window, v5 the mean over the hpb heads of its grid step
+        G = 4
+        q = torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(bf)
         calls = _archive_calls(pools, q, kw, vw, 0, 0, fmt, mc)
-        v1, v1_plain = calls["v1"][0](), calls["v1"][1]()
-        mean = vw.float().mean(dim=1).repeat_interleave(4, dim=1)[:, None]   # G = 4
-        for gen in ("v2", "v3"):
-            got = calls[gen][0]().float()
-            err = (got - mean).abs().max().item()
-            if err > KERNEL_TOL_ULPS * 2.0 ** -8 * mean.abs().max().item():
-                raise AssertionError(f"{gen} with nothing to attend is not the window's "
-                                     f"mean: {err}")
-        if not (v1.isnan().all() and v1_plain.isnan().all()):
-            raise AssertionError("v1 with nothing to attend is not NaN")
-    nothing = "v1 NaN (kernel and plain), v2 and v3 the mean of the 288 window rows"
+        heads = vw.float().permute(0, 2, 1, 3).reshape(BH, W, D)
+        for gen, hpb in (("v2", 1), ("v3", 1), ("v4", 1), ("v5", 8), ("v5", 2)):
+            # the mean over groups of hpb heads (one head: v2-v4)
+            mean = heads.reshape(BH // hpb, hpb * W, D).mean(dim=1).repeat_interleave(
+                hpb, dim=0)[:, None].expand(BH, G, D).reshape(B, 1, Hkv * G, D)
+            got = (calls[gen][0]() if gen != "v5" else sar.fused_sparse_decode_attention_v5(
+                q, sp, kw, vw, 0, 0, fmt, fmt, mc, hpb=hpb)).float()
+            want = (calls[gen][1]() if gen != "v5" else
+                    sar.fused_sparse_decode_attention_v5_plain(q, sp, kw, vw, 0, 0, fmt, fmt,
+                                                               mc, hpb=hpb)).float()
+            tol = ulps * mean.abs().max().item()
+            err = max((got - mean).abs().max().item(), (want - mean).abs().max().item())
+            if err > tol:
+                raise AssertionError(f"{gen} (hpb {hpb}) with nothing to attend is not the "
+                                     f"mean of its heads' windows: {err} > {tol}")
+        nan = [calls[gen][k]() for gen in ("v1", "v6") for k in (0, 1)]
+        if not all(bool(x.isnan().all()) for x in nan):
+            raise AssertionError("v1 or v6 with nothing to attend is not NaN")
+    nothing = ("v1 and v6 NaN (kernels and plain); v2, v3 and v4 the mean of the head's 288 "
+               "window rows; v5 the mean of the windows of the 8 (hpb 8) or 2 (hpb 2) "
+               "heads of its grid step")
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     ladder = {"a": _archive_ladder(g, dev, flush_buf.zero_, 8, 5, 1, 288, 288, 4),
               "b": _archive_ladder(g, dev, flush_buf.zero_, 32, 3, 3, 288, 132, 4)}
     _set_launches(counts0)                                 # comparisons do not count
     by_kind = {k: [r for r in results if r["kernel"] == k] for k in worst}
     emit("kernel_archive", shapes={"B": B, "Hkv": Hkv, "mc": mc, "W": W},
-         cases={"sparsity": (0.7, 0.5), "G": (1, 2, 4, 8), "n_chunks_win_len": ARCHIVE_CASES},
+         cases={"sparsity": (0.7, 0.5), "G": (1, 2, 4, 8), "n_chunks_win_len": ARCHIVE_CASES,
+                "v6_windows_at_5_chunks": ARCHIVE_WINDOWS, "v5_hpb": (8, 2)},
          n_cases={k: len(v) for k, v in by_kind.items()},
          max_abs_err={k: max(r["max_abs_err"] for r in v) for k, v in by_kind.items()},
          worst_err_over_tol=worst, nothing_to_attend=nothing, ladder=ladder)
     entries = {}
     for kind in ARCHIVE_KINDS:
-        t = ladder["a"]["timed"][kind]
+        # v6's kernel is kernel 16 alone (the partials); the whole function
+        # (kernel, torch window and merge) stands beside it
+        t = ladder["a"]["timed"]["v6_kernel" if kind == "v6" else kind]
         tol = ("1e-5 of the largest score" if kind == "key_scores"
+               else "2 bf16 ulps of the output's largest magnitude (v6: of the whole "
+                    "function's output, and of each partial's)" if kind == "v6"
                else "2 bf16 ulps of the output's largest magnitude")
         e = _entry("archive", kind, by_kind[kind], worst[kind], tol, t["cuda_ms"], t["plain_ms"],
                    t["bytes_ms"], t["flops_ms"])
         e.update(timed_at="ladder (a): B=8, Hkv=8, G=4, mc=5, 1 chunk + 288 window",
                  ladder={s: ladder[s]["timed"][kind] for s in ladder})
+        if kind == "v6":
+            e.update(partials_max_abs_err=max(r["max_abs_err"] for r in by_kind["v6_partials"]),
+                     partials_worst_err_over_tol=worst["v6_partials"],
+                     kernel_alone={s: ladder[s]["timed"]["v6_kernel"] for s in ladder})
         entries[("archive", kind)] = e
     return entries
 
 
 def phase_kernel_archive_cache(k, v):
-    """The archive's main path: v1, v2, v3 and kernel 6 on every layer of
-    the model's own cache (``serve_dense``'s K and V [L, B=8, S, Hkv, 128],
-    599 rows written).  Rows 0-511 become two chunks, pruned at sparsity
-    0.7 and packed as split pools and as fused streams; rows 512-598 are the
-    window (W=288); q is seeded.  Per layer v2 agrees with v1 to 3e-2, v3
-    and kernel 6 with v2 to 2e-2 (the JAX chain's tolerances,
-    tests/test_kernels_archive.py).  Returns the launches of the run, one
-    of each kernel a layer."""
+    """The archive's main path: v1-v6 and kernel 6 on every layer of the
+    model's own cache (``serve_dense``'s K and V [L, B=8, S, Hkv, 128], 599
+    rows written).  Rows 0-511 become two chunks, pruned at sparsity 0.7
+    and packed as split pools and as fused streams (one stacked pool [L, 2,
+    BH, rows, 128], read a layer view at a time); rows 512-598 are the
+    window (W=288); q is seeded.  Per layer v2 agrees with v1 and v4 with
+    v2 to 3e-2, v3 and kernel 6 with v2 and v5 and v6 with v4 to 2e-2 (the
+    JAX chain's tolerances, tests/test_kernels_archive.py).  Returns the
+    launches of the run, one of each kernel a layer."""
     import torch
     from mustafar_tpu_torch.ops import sparse_format as sf
     L, B, S, Hkv, D = k.shape
@@ -1174,29 +1268,36 @@ def phase_kernel_archive_cache(k, v):
     g.manual_seed(11)
     before = _launches()
     _set_launches(dict.fromkeys(before, 0))
-    worst = {"v2_vs_v1": 0.0, "v3_vs_v2": 0.0, "kernel6_vs_v2": 0.0}
-    tols = {"v2_vs_v1": 3e-2, "v3_vs_v2": 2e-2, "kernel6_vs_v2": 2e-2}
+    pairs = (("v2_vs_v1", "v2", "v1", 3e-2), ("v3_vs_v2", "v3", "v2", 2e-2),
+             ("kernel6_vs_v2", "kernel6", "v2", 2e-2), ("v4_vs_v2", "v4", "v2", 3e-2),
+             ("v5_vs_v4", "v5", "v4", 2e-2), ("v6_vs_v4", "v6", "v4", 2e-2))
+    worst = {name: 0.0 for name, *_ in pairs}
+    tols = {name: tol for name, _, _, tol in pairs}
+    stacked = torch.empty((L, nc, BH, 2 * fmt.stream_rows, D), dtype=torch.int16,
+                          device=k.device)
     for li in range(L):
         x = torch.stack([k[li, :, :512], v[li, :, :512]])          # [2, B, 512, Hkv, D]
         x = x.reshape(2, B, 2, 256, Hkv, D).permute(0, 1, 4, 2, 3, 5).reshape(2, BH, 2, 256, D)
         pools = _archive_pools(x.contiguous(), fmt)
+        stacked[li] = pools["stream"][0]
+        pools["stream"] = stacked[li:li + 1]           # v4-v6 read stacked[li], a view
         q = torch.randn((B, 1, Hkv * G, D), generator=g, device=k.device).to(torch.bfloat16)
         calls = _archive_calls(pools, q, k[li, :, 512:].contiguous(),
                                v[li, :, 512:].contiguous(), nc, wl, fmt, nc)
         outs = {gen: fn().float() for gen, (fn, _) in calls.items()}
-        for name, a, b in (("v2_vs_v1", "v2", "v1"), ("v3_vs_v2", "v3", "v2"),
-                           ("kernel6_vs_v2", "kernel6", "v2")):
+        for name, a, b, tol in pairs:
             # allclose(a, b, rtol=tol, atol=tol): the worst of |a - b| / (tol + tol |b|)
-            ratio = ((outs[a] - outs[b]).abs() / (tols[name] * (1 + outs[b].abs()))).max()
+            ratio = ((outs[a] - outs[b]).abs() / (tol * (1 + outs[b].abs()))).max()
             if not (outs[a].isfinite().all() and ratio.item() <= 1.0):
                 raise AssertionError(f"layer {li}: {name} off by {ratio.item():.3g} of "
-                                     f"its tolerance {tols[name]}")
+                                     f"its tolerance {tol}")
             worst[name] = max(worst[name], ratio.item())
     torch.cuda.synchronize()
     launches = {n: c for n, c in _launches().items() if c}
-    want = {f"archive.{n}": L for n in ("sparse_key_scores", "sparse_value_combine",
-                                        "fused_sparse_decode_attention",
-                                        "fused_sparse_decode_attention_v3")}
+    want = {f"archive.{n}": L for n in (
+        "sparse_key_scores", "sparse_value_combine", "fused_sparse_decode_attention",
+        "fused_sparse_decode_attention_v3", "fused_sparse_decode_attention_v4",
+        "fused_sparse_decode_attention_v5", "fused_sparse_decode_attention_v6")}
     want["fused_sparse_decode_attention"] = L
     _set_launches(before)
     emit("kernel_archive_cache", layers=L, B=B, Hkv=Hkv, G=G, n_chunks=nc, win_len=wl, W=W,
@@ -1235,7 +1336,9 @@ def _counters():
     # the archive's v2 has the production kernel's name: its keys are prefixed
     counters.update({f"archive.{fn.__name__}": fn for fn in (
         sar.sparse_key_scores, sar.sparse_value_combine,
-        sar.fused_sparse_decode_attention, sar.fused_sparse_decode_attention_v3)})
+        sar.fused_sparse_decode_attention, sar.fused_sparse_decode_attention_v3,
+        sar.fused_sparse_decode_attention_v4, sar.fused_sparse_decode_attention_v5,
+        sar.fused_sparse_decode_attention_v6)})
     return counters
 
 
