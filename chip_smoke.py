@@ -18,7 +18,9 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 mc=5), with its time beside the plain version's and its bound
   kernel_ps     the per-slot decode kernel likewise, at the engine's pool
                 (mc=32): mixed slots (n_chunks 0/1/2/5/31, win_len
-                0/1/44/288, an idle slot), groups 1/2/4/8
+                0/1/44/288, an idle slot), groups 1/2/4/8; the bitmap
+                codecs' per-slot kernel (split-K) also against its split
+                plain version, and refusing short scratch
   kernel_seg    the segment kernel likewise: Tseg=256, G=4, B = 1 and 2,
                 n_chunks 0/1/4/31; timed at 31 chunks
   kernel_q8, kernel_ps_q8, kernel_seg_q8, and the same for q4q4
@@ -41,9 +43,11 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 Llama-3-8B projection shape and the fused wqkv / w_gateup, T = 8
                 and 32 (and 1, 13, 100, 128 at one shape), timed beside its byte
                 bound, the W8 proj and a bf16 matmul of the same shape
-  kernel_dense  the dense flash-decode kernel against its plain version: B=8,
-                S=1,312, pos 599 and per slot at S=8,448 (a slot at 8,000, an
-                idle one), timed beside scaled_dot_product_attention
+  kernel_dense  the dense flash-decode kernel (split-K) against its plain
+                version and its split plain version (a tighter gate: see
+                split_gate), refusing short scratch: B=8, S=1,312, pos 599
+                and per slot at S=8,448 (a slot at 8,000, an idle one), both
+                timed beside scaled_dot_product_attention
   kernel_archive
                 the archive's generations (TPU kernels 10-16: over split
                 pools the v1 pair sparse_key_scores / sparse_value_combine,
@@ -115,9 +119,9 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 chunk a prompt packs and every compaction (q8q4 and q4q4)
   serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64
   host_split    one segment (B=1) at q8q4, bitmap and bitmap-q8, one K and V
-                pack of a chunk at each, and one decode tick (8 slots):
-                host enqueue time, wall time, device time and kernels
-                launched
+                pack of a chunk at each, one decode tick (8 slots, q8q4) and
+                one of bitmap with an 8,000-token slot: host enqueue time,
+                wall time, device time and kernels launched
   serve_w4_dense, serve_w4_q8q4, serve_w4_bitmap
                 the Generator at full width and depth with W4 weights
                 (init_params_w4, seed 0), B=8, 300 + 300: W4 kernel 7 x 32 and
@@ -147,6 +151,9 @@ H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12     # f32 outside the tensor cores (the decode kernels' math)
 H100_BF16_FLOPS = 989e12   # bf16 tensor cores, dense (the segment kernel's math)
 KERNEL_TOL_ULPS = 2        # bf16 ulps of the output's scale
+SPLIT_TOL = 2.0 ** -10     # of the slot's scale, against the kernel's own arithmetic
+SPLIT_TOL_NOTE = ("against the split plain version: its f32 result rounded to the "
+                  "output's dtype, within 2^-10 of the slot's largest output")
 # why library_ms is null for the attention kernels over compressed pools:
 # scaled_dot_product_attention (the one PyTorch attention call) takes
 # dense K and V, so it would first need the pool decoded, another function
@@ -210,6 +217,40 @@ def cuda_ms(fn, reps, flush=None, spin=True):
     return total / reps, behind
 
 
+def split_gate(got, want32, live):
+    """Worst error over tolerance, over the ``live`` slots, of a split
+    kernel's output ``got`` [B, 1, Hq, D] against its split plain version's
+    f32 result ``want32`` on the same inputs: ``got`` must be ``want32``
+    rounded to its dtype (half a bf16 ulp of each bf16 element) within
+    SPLIT_TOL of the slot's largest output.  Tighter than the gate against
+    the TPU order, which allows 2 bf16 ulps of the scale."""
+    import torch
+    dims = (1, 2, 3)
+    err = (got.float() - want32).abs()
+    tol = SPLIT_TOL * want32.abs().amax(dim=dims, keepdim=True)
+    if got.dtype == torch.bfloat16:
+        exp = torch.frexp(got.float()).exponent
+        half_ulp = torch.ldexp(torch.ones_like(err), exp - 9)   # 8 significant bits
+        tol = tol + torch.where(got == 0, torch.zeros_like(err), half_ulp)
+    return (err / tol.clamp_min(1e-30)).amax(dim=dims)[live].max().item()
+
+
+def refuses_short_scratch(call):
+    """Whether a split kernel's C entry refuses scratch one float short of
+    what its grid needs (``call`` launches it through its wrapper)."""
+    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
+    kept = qa._split_scratch
+    qa._split_scratch = lambda BH, n_splits, G, *a: \
+        kept(BH, n_splits, G, *a)[:BH * n_splits * G * 130 - 1]
+    try:
+        call()
+    except RuntimeError as e:
+        return "CUDA error 1" in str(e)          # cudaErrorInvalidValue
+    finally:
+        qa._split_scratch = kept
+    return False
+
+
 def host_us(fn, reps):
     """Mean host microseconds a call of ``fn`` takes to return (its
     launches enqueued, not run)."""
@@ -267,7 +308,9 @@ def phase_build():
 class _Kit:
     """One codec's kernels over one stacked state, as the kernel phases
     call them: ``decode(q, n_chunks, win_len, li)`` and ``decode_ps``,
-    ``segment(q_seg, n_chunks, li)`` and the plain versions beside each;
+    ``segment(q_seg, n_chunks, li)`` and the plain versions beside each
+    (for the bitmap codecs also ``decode_ps_split_plain``, the per-slot
+    kernel's split arithmetic);
     ``chunk_bytes`` is what one pool chunk of one kv head holds (rows and,
     for the quant codecs and bitmap-q8, scales)."""
 
@@ -339,6 +382,9 @@ class _Kit:
         self.decode_ps_plain = lambda q, nc, wl, li: \
             ska.fused_sparse_decode_attention_ps_plain(q, pool, kw, vw, nc, wl, li, fmt,
                                                        fmt, scales)
+        self.decode_ps_split_plain = lambda q, nc, wl, li: \
+            ska.fused_sparse_decode_attention_ps_split_plain(q, pool, kw, vw, nc, wl, li,
+                                                             fmt, fmt, scales)
         self.segment = lambda q, nc, li: ska.fused_sparse_segment_attention(
             q, pool, nc, nc * 256, li, fmt, fmt, **sc)
         self.segment_plain = lambda q, nc, li: ska.fused_sparse_segment_attention_plain(
@@ -498,7 +544,9 @@ def phase_kernel_ps(codec="q8q4"):
     31-chunk slot is the 8,000-token request's decode), an idle slot (0, 0)
     among them, query groups 1/2/4/8, bf16 and f32 q (the bitmap codec at
     sparsity 0.7 and 0.5).  Timed at these slots and, beside them, at the
-    lighter mix of earlier runs (0-5 chunks)."""
+    lighter mix of earlier runs (0-5 chunks).  The bitmap codecs' kernel
+    (split-K) is also held to its split plain version (``split_gate``) and
+    must refuse short scratch."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -517,7 +565,8 @@ def phase_kernel_ps(codec="q8q4"):
     nc, wl = counts(slots)
     fn = kits[0].fns["decode_ps"]
     launches0 = fn.launches
-    results, worst = [], 0.0
+    results, worst, worst_split = [], 0.0, 0.0
+    split = hasattr(kits[0], "decode_ps_split_plain")
     for kit in kits:
         for G in (1, 2, 4, 8):
             qb = torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(torch.bfloat16)
@@ -548,10 +597,21 @@ def phase_kernel_ps(codec="q8q4"):
                         raise AssertionError(f"per-slot kernel disagrees with its "
                                              f"plain version: {results[-1]}")
                     worst = max(worst, ratio)
+                    if split:
+                        # the kernel's own arithmetic: splits merged
+                        ratio = split_gate(got, kit.decode_ps_split_plain(
+                            qq.float(), nc, wl, li), live)
+                        results[-1]["worst_err_over_tol_split"] = ratio
+                        if not ratio <= 1.0:
+                            raise AssertionError(f"per-slot kernel disagrees with its "
+                                                 f"split plain version: {results[-1]}")
+                        worst_split = max(worst_split, ratio)
 
     # time at the serving shape (G=4), the mixed slots above, L2 flushed
     kit = kits[0]
     q = torch.randn((B, 1, Hkv * 4, D), generator=g, device=dev).to(torch.bfloat16)
+    if split and not refuses_short_scratch(lambda: kit.decode_ps(q, nc, wl, 0)):
+        raise AssertionError("per-slot kernel took scratch shorter than its grid needs")
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     for _ in range(10):
         kit.decode_ps(q, nc, wl, 0)
@@ -574,13 +634,17 @@ def phase_kernel_ps(codec="q8q4"):
     fn.launches = launches0                               # comparisons do not count
     emit(_phase_label("kernel_ps", codec), codec=codec,
          shapes={"B": B, "Hq": 4 * Hkv, "Hkv": Hkv, "L": L, "mc": mc, "W": W},
-         slots=slots, cases=results, worst_err_over_tol=worst, kernel_ms=kernel_ms,
+         slots=slots, cases=results, worst_err_over_tol=worst,
+         worst_err_over_tol_split=worst_split if split else None, kernel_ms=kernel_ms,
          kernel_ms_light_slots=light_ms, light_slots=light, plain_ms=plain_ms,
          host_behind=behind, wrapper_host_us=wrapper_us, timed_at={"sparsity": kit.sparsity}, bytes=nbytes,
          flops=flops, bound_ms=max(bytes_ms, flops_ms), library_ms=None)
-    return _entry(codec, "decode_ps", results, worst,
-                  "per slot: 2 bf16 ulps of the slot's largest output",
-                  kernel_ms, plain_ms, bytes_ms, flops_ms)
+    entry = _entry(codec, "decode_ps", results, worst,
+                   "per slot: 2 bf16 ulps of the slot's largest output",
+                   kernel_ms, plain_ms, bytes_ms, flops_ms)
+    if split:
+        entry.update(worst_err_over_tol_split=worst_split, tol_split=SPLIT_TOL_NOTE)
+    return entry
 
 
 def phase_kernel_seg(codec="q8q4"):
@@ -880,9 +944,12 @@ def phase_kernel_dense():
     """The dense flash-decode kernel against its plain version: uniform at
     ``serve_dense``'s shape (B=8, S=1,312, pos 599, Hkv=8, G=4) and per slot
     at ``serve_cb``'s cache (S=8,448) with a slot at pos 8,000, an idle slot
-    and six of 45-1,499; also G = 1, 2, 8 and f32 q.  Timed L2-flushed
-    beside its byte bound, the plain version and
-    ``scaled_dot_product_attention`` (GQA, boolean mask)."""
+    and six of 45-1,499; also G = 1, 2, 8 and f32 q; held to the TPU-order
+    plain version at 2 bf16 ulps of each slot's largest output and to the
+    split plain version (the kernel's own arithmetic) by ``split_gate``;
+    short scratch must be refused.  Timed
+    L2-flushed beside its byte bound, the plain version and
+    ``scaled_dot_product_attention`` (GQA, boolean mask), both cases."""
     import torch
     from mustafar_tpu_torch.ops.kernels import dense_decode as dd
     dev = torch.device("cuda")
@@ -892,7 +959,7 @@ def phase_kernel_dense():
     fn = dd.flash_decode_attention
     launches0 = fn.launches
     B, Hkv, D = 8, 8, 128
-    shapes, results, worst = {}, [], 0.0
+    shapes, results, worst, worst_split = {}, [], 0.0, 0.0
     cases = {"uniform": (1312, 599),
              "per_slot": (8448, [8000, 1210, 300, -1, 640, 1499, 45, 950])}
     for label, (S, pos) in cases.items():
@@ -921,7 +988,17 @@ def phase_kernel_dense():
                     raise AssertionError(f"dense decode kernel disagrees with its plain "
                                          f"version: {results[-1]}")
                 worst = max(worst, ratio)
+                ratio = split_gate(got, dd.flash_decode_attention_split_plain(
+                    q.float(), k, v, kpos), live)
+                results[-1]["worst_err_over_tol_split"] = ratio
+                if not ratio <= 1.0:
+                    raise AssertionError(f"dense decode kernel disagrees with its split "
+                                         f"plain version: {results[-1]}")
+                worst_split = max(worst_split, ratio)
         q = torch.randn((B, 1, Hkv * 4, D), generator=g, device=dev).to(torch.bfloat16)
+        if not refuses_short_scratch(lambda: fn(q, k, v, kpos)):
+            raise AssertionError(f"dense decode kernel took scratch shorter than its "
+                                 f"grid needs ({label})")
         for _ in range(5):
             fn(q, k, v, kpos)
         torch.cuda.synchronize()
@@ -941,17 +1018,26 @@ def phase_kernel_dense():
                          "flops_ms": flops_ms, "bytes": nbytes, "flops": flops, "plain_ms": plain_ms,
                          "library_ms": lib_ms, "library_backend": backend,
                          "library_max_abs_diff": lib_err, "tile": dd.decode_tile(S),
+                         "split_len": dd.split_len(dd._covered(kpos, S), B * Hkv,
+                                                   dd._sms(q.device)),
                          "wrapper_host_us": host_us(lambda: fn(q, k, v, kpos), 50)}
         del k, v
     fn.launches = launches0                                # comparisons do not count
-    emit("kernel_dense", B=B, Hkv=Hkv, cases=results, worst_err_over_tol=worst, timed=shapes)
+    emit("kernel_dense", B=B, Hkv=Hkv, cases=results, worst_err_over_tol=worst,
+         worst_err_over_tol_split=worst_split, timed=shapes)
     t = shapes["uniform"]
     entry = _entry("dense", "decode", results, worst,
                    "per slot: 2 bf16 ulps of the slot's largest output", t["kernel_ms"],
                    t["plain_ms"], t["bytes_ms"], t["flops_ms"])
+    p = shapes["per_slot"]
     entry.update(timed_at="B=8, S=1312, pos 599, Hkv=8, G=4", library_ms=t["library_ms"],
                  library_note=f"scaled_dot_product_attention, GQA, boolean mask "
-                              f"({t['library_backend']} backend)")
+                              f"({t['library_backend']} backend)",
+                 worst_err_over_tol_split=worst_split, tol_split=SPLIT_TOL_NOTE,
+                 per_slot={"timed_at": "B=8, S=8448, pos 8000 / 1210 / 300 / -1 / 640 / "
+                                       "1499 / 45 / 950, Hkv=8, G=4",
+                           **{k: p[k] for k in ("kernel_ms", "bound_ms", "plain_ms",
+                                                "library_ms")}})
     return entry
 
 
@@ -1923,10 +2009,12 @@ def phase_host_split(params):
     """Host or device: one chunked-prefill segment (B=1 after 4 packed
     chunks; it packs a fifth) at q8q4, bitmap and bitmap-q8, one pack of a
     chunk's K and V (B=1, 8 kv heads: what a segment does per layer) at
-    each, and one decode tick of the engine with 8 active slots (q8q4),
-    each timed three ways: the host's time to enqueue it, the wall time
-    until the card is done, and the device time of its kernels with the
-    number of kernels launched (torch.profiler)."""
+    each, one decode tick of the engine with 8 active slots (q8q4), and one
+    of the bitmap engine with 8 active slots, one of them 8,000 tokens long
+    (31 pool chunks: the per-slot kernel's longest slot), each timed three
+    ways: the host's time to enqueue it, the wall time until the card is
+    done, and the device time of its kernels with the number of kernels
+    launched (torch.profiler)."""
     import dataclasses
     import numpy as np
     import torch
@@ -1991,11 +2079,21 @@ def phase_host_split(params):
         while cb._admissions or cb.queue:
             cb.tick()
         tick_split = measure(cb.tick)
+        del cb
+        cb = ContinuousBatchingEngine(dataclasses.replace(eng, codec="bitmap",
+                                                          max_seq_len=8448), params)
+        rs = np.random.RandomState(6)
+        for n in (8000, 300, 700, 1500, 450, 1000, 1200, 600):
+            cb.submit(rs.randint(1, 500, size=n), 200)
+        while cb._admissions or cb.queue:
+            cb.tick()
+        cb.tick()
+        tick_long = measure(cb.tick)
     del cb
     torch.cuda.empty_cache()
     emit("host_split", segment_b1=segments["q8q4"], segment_b1_bitmap=segments["bitmap"],
          segment_b1_bitmap_q8=segments["bitmap-q8"], pack_kv_b1=packs,
-         decode_tick_b8=tick_split)
+         decode_tick_b8=tick_split, decode_tick_b8_bitmap_long=tick_long)
 
 
 def serve_w4(entries, prompt, new):

@@ -54,7 +54,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_stage.cuh"
+
 namespace bitmap {
+
+using smem::cp_async_commit;
+using smem::cp_async_wait;
 
 constexpr int D = 128;                 // head_dim == lane width
 constexpr int CHUNK = 256;             // tokens per packed chunk
@@ -180,12 +185,7 @@ __device__ __forceinline__ void copy_rows_async(void* dst, const void* src, int 
   const unsigned base = (unsigned)__cvta_generic_to_shared(dst);
   const char* from = reinterpret_cast<const char*>(src);
   for (int i = tid; i < n; i += nthreads)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(base + 16u * i), "l"(from + 16 * (size_t)i) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+    smem::cp_async16(base + 16u * i, from + 16 * (size_t)i);
 }
 
 // Starts the copy of `rows` stream rows (rows * 256 bytes, 16-byte aligned)
@@ -228,11 +228,6 @@ __device__ __forceinline__ void stage_split(int16_t* dst, const int16_t* seg0,
       copy_rows(to, from[j], rows[j], tid, nthreads);
     to += (size_t)rows[j] * D;
   }
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 }  // namespace bitmap

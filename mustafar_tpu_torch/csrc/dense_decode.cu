@@ -1,4 +1,4 @@
-// Dense flash-decode attention for Hopper (sm_90a).
+// Dense flash-decode attention for Hopper (sm_90a), split-K.
 //
 // Replaces the TPU kernel mustafar_tpu/ops/kernels/dense_decode.py
 // flash_decode_attention (Pallas body _flash_decode_kernel), with its
@@ -7,26 +7,47 @@
 // post-append cache rows [0, pos] (pos the newest token's index: one
 // scalar, or read per slot from a device array; a slot at -1 attends
 // nothing and comes out 0).  Scores q . k / sqrt(128) in f32 from bf16 q
-// and K; one online softmax (mask value -1e30, final l clamped at 1e-30)
-// in steps of `ts` tokens, the TPU kernel's tiles, so the running max, and
-// with it the bf16 rounding of p before the value product, is the same at
-// every step.  Tokens past pos in the last tile are not read: on the TPU
-// they are masked to p = 0, which adds nothing.
+// and K; softmax in f32 (mask value -1e30, final l clamped at 1e-30), p
+// rounded to bf16 before the value product, accumulated in f32.
 //
 // What bounds it on this card: bytes.  It must read (pos + 1) * Hkv * 128
 // * 2 bytes of K and as many of V for each batch row: 19.7 MB at B=8,
-// Hkv=8, pos 599 (5.9 us at 3.35 TB/s), against 4 flops a byte for G=4.
+// Hkv=8, pos 599 (5.9 us at 3.35 TB/s), against 4 flops a byte for G=4,
+// so the products stay on the CUDA cores.
 //
-// Design (first, simple version), the window loop of the quant decode
-// kernel (quant_decode.cuh) over the dense cache: one block of 256 threads
-// per (b, kv head), all G query heads in the block, so each K and V byte is
-// read once from device memory and used for G heads; a loop over tiles
-// takes the place of the TPU's sequential grid.  For scores a warp reads
-// one 256-byte K row with an 8-byte load per lane and reduces with
-// shuffles; for values each thread owns one channel and one half of the
-// tile's tokens, so a warp's loads are 64 contiguous bytes a token.  The
-// softmax step is softmax_step.cuh's.  Split-K over tiles (64 blocks fill
-// half the card at B=8), TMA and tensor-core products are later work.
+// Design.  The TPU walks a row's tiles in order on one core; a first port
+// did the same with one block per (b, kv head), 64 blocks for 132 SMs at
+// B=8, each walking 19 softmax steps of 32 tokens in series.  Here the
+// tokens are cut into splits of `split_len` consecutive rows and the grid
+// covers (b, kv head, split):
+//   - The rule (ops/kernels/dense_decode.py split_len): 128 tokens a split
+//     where the grid then holds at least four blocks an SM, else 64.  A
+//     uniform call sizes the grid from the host's pos (600 tokens: 10
+//     splits of 64, 640 blocks); a per-slot call from S, with no host sync
+//     (S = 8,448: 66 splits of 128), and blocks past the slot's pos exit
+//     at once.  A block of 128 tokens stages 64 KB, three an SM, so a grid
+//     under four an SM runs in about one wave, and halving the splits puts
+//     twice the blocks, six an SM, in flight; a longer grid keeps 128,
+//     half the partials to write and merge.  Measured on an H100 (PERF.md
+//     §6): 64 took 5 % off the uniform case, 128 3 % off the per-slot.
+//   - A block stages its K rows and then its V rows into shared memory with
+//     16-byte cp.async copies (rows are 256 bytes at a stride of Hkv * 256),
+//     both in flight at once, so V arrives while the scores are computed.
+//   - Scores for all G heads of the kv head (each byte read once for G
+//     heads): warp w takes rows w, w + 8, ..., lane l channels 4l..4l+3,
+//     reduced over the warp.  One softmax step over the split
+//     (softmax_step.cuh).  The value product in the same layout, each warp
+//     over its rows; the eight warps' sums are added in a tree in the (now
+//     free) K tile.
+//   - The block writes its partials (acc[G][128], m[G], l[G]) in f32 to the
+//     scratch the wrapper passes (kept from call to call, its size checked
+//     here); a second kernel, launched on the same
+//     stream by the same entry, merges each (b, kv head)'s live splits in
+//     split order (split_merge.cuh).
+// Each split rounds p at its own running max, and the merge rescales in
+// f32, so the kernel no longer repeats the TPU's step-by-step arithmetic;
+// flash_decode_attention_split_plain is its plain version.  TMA and
+// programmatic dependent launch of the merge are later work.
 //
 // Interface: plain C, no PyTorch headers, bound with ctypes.  Launches on
 // the caller's stream, synchronises nothing and returns cudaGetLastError().
@@ -35,7 +56,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_stage.cuh"
 #include "softmax_step.cuh"
+#include "split_merge.cuh"
 
 namespace dense {
 
@@ -43,160 +66,219 @@ using online_softmax::softmax_step;
 using online_softmax::warp_sum;
 
 constexpr int D = 128;
-constexpr int TILE = 512;      // most tokens per online-softmax step
+constexpr int MIN_SPLIT = 64;      // the red tree below needs 64 K rows at G = 8
+constexpr int MAX_SPLIT = 128;     // most tokens a block stages
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr float NEG = -1e30f;
 constexpr float SM_SCALE = 0.08838834764831845f;   // 1 / sqrt(128)
-
-static_assert(THREADS == 2 * D, "value role: one channel, two token halves");
 
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
 template <int G>
 struct __align__(16) Smem {
-  float q[G][D];      // query rows (bf16 values)
-  float s[G][TILE];   // one tile's scores, then its bf16-rounded probabilities
-  float acc[G][D];    // the second token half's accumulator, for the combine
+  float s[G][MAX_SPLIT];   // the split's scores, then its bf16-rounded probabilities
   float m[G];
   float l[G];
   float corr[G];
 };
 
+// Which splits row bh attends: [0, ceil(n_tok / split_len)), for the merge.
+struct Live {
+  const int* pos_slot;
+  int pos, hkv, S, split_len;
+  __device__ void operator()(int bh, int& a, int& c, int& n) const {
+    const int p = pos_slot != nullptr ? pos_slot[bh / hkv] : pos;
+    const int n_tok = min(max(p + 1, 0), S);
+    a = (n_tok + split_len - 1) / split_len;
+    c = 0;
+    n = 0;
+  }
+};
+
+// Copies `nt` token rows of 256 bytes, `stride` elements apart in device
+// memory, into consecutive rows of shared memory: 16 bytes a thread.
+__device__ __forceinline__ void stage_tokens(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                             int nt, size_t stride, int tid) {
+  const unsigned base = (unsigned)__cvta_generic_to_shared(dst);
+  for (int i = tid; i < nt * (D / 8); i += THREADS) {
+    const int r = i / (D / 8), c = i % (D / 8);
+    smem::cp_async16(base + 16u * i, src + r * stride + 8 * c);
+  }
+  smem::cp_async_commit();
+}
+
 template <int G>
 __global__ void __launch_bounds__(THREADS)
-dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B*Hkv, G, D]
-                    const __nv_bfloat16* __restrict__ k,   // [B, S, Hkv, D]
-                    const __nv_bfloat16* __restrict__ v,   // [B, S, Hkv, D]
-                    void* __restrict__ out,                // [B*Hkv, G, D]
-                    const int* __restrict__ pos_slot,      // [B] or null
-                    int out_f32, int hkv, int S, int ts, int pos) {
+dense_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B*Hkv, G, D]
+                   const __nv_bfloat16* __restrict__ k,   // [B, S, Hkv, D]
+                   const __nv_bfloat16* __restrict__ v,   // [B, S, Hkv, D]
+                   float* __restrict__ part,              // split_merge layout
+                   const int* __restrict__ pos_slot,      // [B] or null
+                   int BH, int hkv, int S, int split_len, int n_splits, int pos) {
   static_assert(G <= WARPS, "one warp per query head in the softmax step");
-  __shared__ Smem<G> sm;
+  // dynamic shared memory: Smem, then the K tile and the V tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<G>& sm = *reinterpret_cast<Smem<G>*>(smem_raw);
+  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(smem_raw + sizeof(Smem<G>));
+  __nv_bfloat16* vt = kt + (size_t)split_len * D;
   const int bh = blockIdx.x;
+  const int split = blockIdx.y;
   const int b = bh / hkv;
   const int h = bh % hkv;
   if (pos_slot != nullptr) pos = pos_slot[b];
   const int n_tok = min(max(pos + 1, 0), S);   // rows [0, pos]; an idle slot none
+  const int t0 = split * split_len;
+  if (t0 >= n_tok) return;                     // not live: the merge skips it
+  const int nt = min(split_len, n_tok - t0);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int d = tid & (D - 1);   // value role: this thread's channel ...
-  const int half = tid >> 7;     // ... and half of the tile's tokens
-  const size_t row = (size_t)hkv * D;   // elements from one token to the next
+  const size_t row = (size_t)hkv * D;          // elements from one token to the next
+  const size_t at = ((size_t)b * S + t0) * row + (size_t)h * D;
+  stage_tokens(kt, k + at, nt, row, tid);
+  stage_tokens(vt, v + at, nt, row, tid);
 
-  for (int i = tid; i < G * D; i += THREADS)
-    sm.q[i / D][i % D] = __bfloat162float(q[(size_t)bh * G * D + i]);
+  float qr[G][4];                              // bf16 q of this lane's channels
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const uint2 raw =
+        __ldg(reinterpret_cast<const uint2*>(q + ((size_t)bh * G + g) * D + 4 * lane));
+    qr[g][0] = bf16_lo(raw.x);
+    qr[g][1] = bf16_hi(raw.x);
+    qr[g][2] = bf16_lo(raw.y);
+    qr[g][3] = bf16_hi(raw.y);
+  }
   if (tid < G) {
     sm.m[tid] = NEG;
     sm.l[tid] = 0.f;
   }
-  float acc[G];
+  smem::cp_async_wait<1>();     // this thread's K copies have landed
+  __syncthreads();              // ... and every thread's
+
+#pragma unroll 4
+  for (int t = warp; t < nt; t += WARPS) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(kt + (size_t)t * D + 4 * lane);
+    const float kf[4] = {bf16_lo(raw.x), bf16_hi(raw.x), bf16_lo(raw.y), bf16_hi(raw.y)};
 #pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.f;
+    for (int g = 0; g < G; ++g) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s += qr[g][j] * kf[j];
+      s = warp_sum(s);
+      if (lane == 0) sm.s[g][t] = s * SM_SCALE;
+    }
+  }
+  __syncthreads();
+  softmax_step<G>(sm, nt, warp, lane);   // ends in __syncthreads
+  smem::cp_async_wait<0>();
   __syncthreads();
 
-  float qr[G][4];
+  float acc[G][4];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float4 v4 = *reinterpret_cast<const float4*>(&sm.q[g][4 * lane]);
-    qr[g][0] = v4.x;
-    qr[g][1] = v4.y;
-    qr[g][2] = v4.z;
-    qr[g][3] = v4.w;
-  }
-  const __nv_bfloat16* kb = k + (size_t)b * S * row + (size_t)h * D;
-  const __nv_bfloat16* vb = v + (size_t)b * S * row + (size_t)h * D;
-
-  for (int t0 = 0; t0 < n_tok; t0 += ts) {
-    const int nt = min(ts, n_tok - t0);
+  for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
 #pragma unroll 4
-    for (int t = warp; t < nt; t += WARPS) {
-      const uint2 raw =
-          __ldg(reinterpret_cast<const uint2*>(kb + (size_t)(t0 + t) * row + 4 * lane));
-      const float kf[4] = {bf16_lo(raw.x), bf16_hi(raw.x), bf16_lo(raw.y),
-                           bf16_hi(raw.y)};
+  for (int t = warp; t < nt; t += WARPS) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(vt + (size_t)t * D + 4 * lane);
+    const float vf[4] = {bf16_lo(raw.x), bf16_hi(raw.x), bf16_lo(raw.y), bf16_hi(raw.y)};
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float p = sm.s[g][t];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[g][j] += p * vf[j];
+    }
+  }
+
+  // ---- sum the eight warps' accumulators: a tree in the K tile ------------
+  float4* red = reinterpret_cast<float4*>(kt);   // [WARPS / 2][G][D / 4]
+  for (int half = WARPS / 2; half > 0; half >>= 1) {
+    if (warp >= half && warp < 2 * half) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        red[((warp - half) * G + g) * (D / 4) + lane] =
+            make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+    }
+    __syncthreads();
+    if (warp < half) {
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s += qr[g][j] * kf[j];
-        s = warp_sum(s);
-        if (lane == 0) sm.s[g][t] = s * SM_SCALE;
+        const float4 o = red[(warp * G + g) * (D / 4) + lane];
+        acc[g][0] += o.x;
+        acc[g][1] += o.y;
+        acc[g][2] += o.z;
+        acc[g][3] += o.w;
       }
     }
     __syncthreads();
-    softmax_step<G>(sm, nt, warp, lane);
-
-    float pv[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) pv[g] = 0.f;
-    const int hn = (nt + 1) / 2;
-    const int tb = half * hn;
-    const int te = min(nt, tb + hn);
-#pragma unroll 4
-    for (int t = tb; t < te; ++t) {
-      const float vv = __bfloat162float(vb[(size_t)(t0 + t) * row + d]);
-#pragma unroll
-      for (int g = 0; g < G; ++g) pv[g] += sm.s[g][t] * vv;
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] = acc[g] * sm.corr[g] + pv[g];
-    __syncthreads();   // the next step overwrites sm.s and sm.corr
   }
-
-  // ---- combine the two token halves and normalise -------------------------
-  if (half == 1) {
+  if (warp == 0) {
+    float4* pa =
+        reinterpret_cast<float4*>(part + split_merge::acc_at(bh, split, G, n_splits));
 #pragma unroll
-    for (int g = 0; g < G; ++g) sm.acc[g][d] = acc[g];
+    for (int g = 0; g < G; ++g)
+      pa[g * (D / 4) + lane] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
   }
-  __syncthreads();
-  if (half == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float o = (acc[g] + sm.acc[g][d]) / fmaxf(sm.l[g], 1e-30f);
-      const size_t at = ((size_t)bh * G + g) * D + d;
-      if (out_f32)
-        static_cast<float*>(out)[at] = o;
-      else
-        static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16(o);
-    }
+  if (tid < G) {
+    float* ml = part + split_merge::ml_at(bh, split, G, n_splits, BH) + 2 * tid;
+    ml[0] = sm.m[tid];
+    ml[1] = sm.l[tid];
   }
 }
 
 template <int G>
-void launch(const void* q, const void* k, const void* v, void* out, const int* pos_slot,
-            int out_f32, int BH, int hkv, int S, int ts, int pos, cudaStream_t stream) {
-  dense_decode_kernel<G><<<BH, THREADS, 0, stream>>>(
+int launch(const void* q, const void* k, const void* v, void* out, const int* pos_slot,
+           float* part, int out_f32, int device, int BH, int hkv, int S, int split_len,
+           int n_splits, int pos, cudaStream_t stream) {
+  const int bytes =
+      (int)(sizeof(Smem<G>) + 2 * (size_t)split_len * D * sizeof(__nv_bfloat16));
+  cudaError_t err = smem::allow_dynamic_smem<dense_split_kernel<G>>(bytes, device);
+  if (err != cudaSuccess) return (int)err;
+  dense_split_kernel<G><<<dim3(BH, n_splits), THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), out, pos_slot, out_f32, hkv, S, ts, pos);
+      static_cast<const __nv_bfloat16*>(v), part, pos_slot, BH, hkv, S, split_len,
+      n_splits, pos);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)split_merge::launch_merge(part, out, out_f32, BH, G, n_splits,
+                                        Live{pos_slot, pos, hkv, S, split_len}, stream);
 }
 
 }  // namespace dense
 
 // q [B, 1, Hkv*G, 128] bf16; k / v [B, S, Hkv, 128] bf16; out like q, f32 if
 // `out_f32`, else bf16; pos_slot [B] int32 on the card, or null for the
-// scalar `pos`.  All contiguous; shapes checked by the caller.  `device` is
-// the ordinal the tensors and the stream belong to; `ts` the tokens per
-// softmax step (1..512).
+// scalar `pos`; scratch f32, `scratch_floats` of them, refused if fewer
+// than split_merge::scratch_floats(BH, G, n_splits).  All contiguous;
+// shapes checked by the caller.  `device` is the ordinal
+// the tensors and the stream belong to; `split_len` the tokens a split
+// (64..128); `n_splits` the grid's splits: at least ceil(S / split_len) per
+// slot, ceil((pos + 1) / split_len) (and 1) for a scalar pos.
 extern "C" int dense_decode(const void* q, const void* k, const void* v, void* out,
-                            const void* pos_slot, int out_f32, int device, int BH,
-                            int hkv, int G, int S, int ts, int pos, void* stream) {
+                            const void* pos_slot, void* scratch, int scratch_floats,
+                            int out_f32, int device, int BH, int hkv, int G, int S,
+                            int split_len, int n_splits, int pos, void* stream) {
   using namespace dense;
-  if (ts < 1 || ts > TILE || hkv < 1 || BH % hkv) return (int)cudaErrorInvalidValue;
+  const int covered = pos_slot != nullptr ? S : pos + 1 < 0 ? 0 : pos + 1 > S ? S : pos + 1;
+  if (split_len < MIN_SPLIT || split_len > MAX_SPLIT || hkv < 1 || BH % hkv ||
+      n_splits < 1 || (long long)n_splits * split_len < covered || scratch == nullptr ||
+      G < 1 || scratch_floats < 0 ||
+      (size_t)scratch_floats < split_merge::scratch_floats(BH, G, n_splits))
+    return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ps = static_cast<const int*>(pos_slot);
-#define DENSE_LAUNCH(g) launch<g>(q, k, v, out, ps, out_f32, BH, hkv, S, ts, pos, s)
+  float* part = static_cast<float*>(scratch);
+#define DENSE_LAUNCH(g) \
+  return launch<g>(q, k, v, out, ps, part, out_f32, device, BH, hkv, S, split_len, \
+                   n_splits, pos, s)
   switch (G) {
-    case 1: DENSE_LAUNCH(1); break;
-    case 2: DENSE_LAUNCH(2); break;
-    case 4: DENSE_LAUNCH(4); break;
-    case 8: DENSE_LAUNCH(8); break;
+    case 1: DENSE_LAUNCH(1);
+    case 2: DENSE_LAUNCH(2);
+    case 4: DENSE_LAUNCH(4);
+    case 8: DENSE_LAUNCH(8);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DENSE_LAUNCH
-  return (int)cudaGetLastError();
 }

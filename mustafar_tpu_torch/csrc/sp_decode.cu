@@ -36,13 +36,14 @@
 // lane.
 //
 // Design (first, simple version): sp_decode.cuh.  One block per (b, kv
-// head); each chunk's stream is copied into shared memory with cp.async
-// (the next chunk's copy in flight while this one is attended; the buffers
-// are sized for the instance's width), and warps own token rows and expand
+// head), no split (the per-slot entry below splits); each chunk's stream
+// is copied into shared memory with cp.async (the next chunk's copy in
+// flight while this one is attended; the buffers are sized for the
+// instance's width), and warps own token rows and expand
 // them there with warp ballots (the counterpart of the CUDA reference's
 // __clzll decompression), so each packed byte is read once from device
-// memory and expanded chunks never exist in memory.  Split-K over chunks,
-// TMA and CUDA graphs are later work.
+// memory and expanded chunks never exist in memory.  Split-K for this
+// entry, TMA and CUDA graphs are later work.
 //
 // Interface: plain C, no PyTorch headers, bound with ctypes.  Launches on
 // the caller's stream, synchronises nothing and returns cudaGetLastError().
@@ -66,7 +67,7 @@ extern "C" int sp_decode(const void* q, const void* pool, const void* scales,
   return bitmap_decode::launch_bits(qbits, k0, k1, vk0, vk1, q, pool, scales, k_win,
                                     v_win, out, out_f32, device, BH, G, max_chunks, W,
                                     wt, n_chunks, win_len, li, nullptr, nullptr, 1,
-                                    stream);
+                                    nullptr, 0, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -76,39 +77,79 @@ extern "C" int sp_decode(const void* q, const void* pool, const void* scales,
 // mustafar_tpu/ops/kernels/sparse_attention.py
 // fused_sparse_decode_attention_v6ps (Pallas body _fused_v6ps_kernel) for
 // the codecs bitmap and bitmap-q8, with its options (sliding window, window
-// probabilities) off.  It is sp_decode with the
-// counts read per slot: block (b, kv head h) attends
-// its G query heads over slot b's first n_chunks[b] pool chunks and
-// win_len[b] window tokens, taken from int32 device arrays, so the
-// continuous-batching decode step never syncs with the host to size itself.
-// Counts are clamped into [0, mc] and [0, W] in the kernel; an idle slot is
-// passed as (0, 0) and writes 0.
+// probabilities) off.  It is sp_decode with the counts read per slot: the
+// G query heads of (b, kv head h) attend slot b's first n_chunks[b] pool
+// chunks and win_len[b] window tokens, taken from int32 device arrays, so
+// the continuous-batching decode step never syncs with the host to size
+// itself.  Counts are clamped into [0, mc] and [0, W] in the kernel; an
+// idle slot is passed as (0, 0) and writes 0.
 //
 // Softmax steps: the TPU block spans 16 heads, trips to the block's largest
 // chunk count and window length, and masks each head's columns by its own
 // counts.  A masked step adds exactly zero to a head once it has a live
 // column (p = exp(-1e30 - m) = 0, correction 1); masked steps before its
 // first live one are wiped by that step's correction exp(-1e30 - m) = 0.
-// So a block that loops over its own slot's counts, one step per chunk and
-// then window tiles of `wt` tokens, takes the TPU's steps.
+// So the TPU takes one step per chunk of the slot, then window tiles of
+// `wt` tokens (fused_sparse_decode_attention_ps_plain); the splits below
+// take the same steps' ranges, each from its own running max.
 //
 // What bounds it on this card: bytes, as for the uniform kernel: per layer
 // the sum over slots of Hkv*(n_chunks[b]*((KR+VR)*128*2 + S) +
-// 2*win_len[b]*128*2) bytes of pools, scales and windows.  Slots with long caches keep their blocks
-// longest; split-K over chunks would even that out and is later work.
+// 2*win_len[b]*128*2) bytes of pools, scales and windows: 21.6 MB at the
+// engine's mixed slots (45 chunks and 910 window tokens over 8 slots, 8 kv
+// heads, 16 bits), 6.4 us.
+//
+// Design: split-K.  With one block per (b, kv head) a call waits on its
+// longest slot: at those slots the 8 blocks of a 31-chunk slot walked 31
+// chunks in series (~0.031 ms a chunk) while the other 56 sat done, 1.0 ms
+// in all.  So the grid covers (b, kv head, split), sized on the host from
+// mc and W with no sync: split s < mc takes pool chunk s, split mc + j
+// window tile j of `wt` tokens (3 at W = 288).  Each split does the
+// uniform kernel's per-chunk (or per-tile) work and softmax step
+// (sp_decode.cuh) from a fresh state; a block past its slot's clamped
+// counts exits at once and writes nothing.  Its partials go to scratch and
+// a second kernel merges each row's live splits in split order
+// (split_merge.cuh); an idle slot comes out 0, a slot with chunks but no
+// window (or the reverse) merges what it has.  A split rounds p at its own
+// running max, so the kernel's plain version is
+// fused_sparse_decode_attention_ps_split_plain.
+//
+// One chunk a split, and three blocks an SM.  The work is the chunks: 45
+// per kv head at the mixed slots, 360 chunk blocks beside 24 window ones.
+// A one-chunk block stages one chunk, one stage buffer of 48 KB at 16 bits
+// (28 at 8) beside 6 KB of Smem at G = 4, and takes one softmax step, so
+// its accumulator needs no second copy: built for three blocks an SM (80
+// registers, no spills), 396 resident blocks hold the mixed slots' 384 in
+// one wave.  Measured on an H100 (PERF.md §6): two chunks a split with
+// a double buffer (102 KB, two blocks an SM) took 0.100 ms there against
+// 0.075; one chunk a split built for two blocks an SM (107-116 registers)
+// 0.096, two waves, though it takes the light slots (128 chunk blocks) in
+// 0.054 ms against 0.066.  The blocks past the counts (most of the 35 x 64
+// at mc = 32) cost a read of two counts each.
+//
+// Splits need (acc, m, l) scratch of BH * n_splits * G * 130 floats (4.7 MB
+// at mc = 32, G = 4): the wrapper passes an uninitialised buffer, kept from
+// call to call, and its size, which the entry checks.
 
 // As sp_decode, with the counts in device arrays:
-// n_chunks[B], win_len[B] int32; `hkv` the kv heads per slot (BH = B*hkv).
+// n_chunks[B], win_len[B] int32; `hkv` the kv heads per slot (BH = B*hkv);
+// scratch f32, `scratch_floats` of them, refused if fewer than
+// split_merge::scratch_floats(BH, G, n_splits), with n_splits = max_chunks +
+// ceil(W / wt).
 extern "C" int sp_decode_ps(const void* q, const void* pool, const void* scales,
                             const void* k_win, const void* v_win, const void* n_chunks,
-                            const void* win_len, void* out, int out_f32, int device,
-                            int qbits, int BH, int hkv, int G, int max_chunks, int W,
-                            int wt, int li, int k0, int k1, int vk0, int vk1,
-                            void* stream) {
-  if (n_chunks == nullptr || win_len == nullptr || hkv < 1 || BH % hkv)
+                            const void* win_len, void* out, void* scratch,
+                            int scratch_floats, int out_f32, int device, int qbits,
+                            int BH, int hkv, int G,
+                            int max_chunks, int W, int wt, int li, int k0, int k1,
+                            int vk0, int vk1, int n_splits, void* stream) {
+  if (n_chunks == nullptr || win_len == nullptr || scratch == nullptr || hkv < 1 ||
+      BH % hkv || G < 1 || n_splits < 1 || scratch_floats < 0 ||
+      (size_t)scratch_floats < split_merge::scratch_floats(BH, G, n_splits))
     return (int)cudaErrorInvalidValue;
   return bitmap_decode::launch_bits(qbits, k0, k1, vk0, vk1, q, pool, scales, k_win,
                                     v_win, out, out_f32, device, BH, G, max_chunks, W,
                                     wt, 0, 0, li, static_cast<const int*>(n_chunks),
-                                    static_cast<const int*>(win_len), hkv, stream);
+                                    static_cast<const int*>(win_len), hkv,
+                                    static_cast<float*>(scratch), n_splits, stream);
 }

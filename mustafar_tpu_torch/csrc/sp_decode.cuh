@@ -7,15 +7,25 @@
 // at 8 bits the expanded values are int8 codes, and each chunk's scales
 // fold in as in the quant kernels (quant_decode.cuh): the scores' q is
 // bf16(q * kscale), and a warp's value product is multiplied by the V
-// scale before it joins the accumulator.
+// scale before it joins the accumulator.  And on SPLIT:
+//   false  one block per (b, kv head) over all its chunks and window tiles,
+//          normalised and written as the output (sp_decode);
+//   true   the grid's y dimension is the split: split s < mc takes pool
+//          chunk s, split mc + j window tile j; so each block takes one
+//          softmax step, from a fresh state, and its accumulator is that
+//          step's value product (acc * 0 + pv, bit for bit).  A block
+//          writes its unnormalised partials to scratch (split_merge.cuh),
+//          or nothing if its chunk or tile lies past the slot's counts, and
+//          merge_kernel combines them (sp_decode_ps).
 //
-// Layout of the work: one block of 8 warps per (b, kv head), all G query
-// heads of the kv head in the block, so each packed byte is read once and
-// serves G heads.  Each chunk's stream is copied into shared memory
-// (cp.async, double-buffered: chunk ci + 1 is in flight while chunk ci is
-// attended).  A warp takes token rows t = warp, warp + 8, ...; its lane l
-// holds channels l + 32 i of the row, expanded from the staged stream
-// (bitmap_expand.cuh), so no expanded tile exists in memory:
+// Layout of the work: one block of 8 warps per (b, kv head) and split, all
+// G query heads of the kv head in the block, so each packed byte is read
+// once and serves G heads.  Each chunk's stream is copied into shared
+// memory (cp.async; with more than one chunk a block, double-buffered:
+// chunk ci + 1 is in flight while chunk ci is attended).  A warp takes
+// token rows t = warp, warp + 8, ...; its lane l holds channels l + 32 i of
+// the row, expanded from the staged stream (bitmap_expand.cuh), so no
+// expanded tile exists in memory:
 //   scores  a row's four channels times q, reduced over the warp;
 //   values  each lane keeps a partial accumulator for its four channels
 //           over the warp's rows, rescaled by every step's correction;
@@ -27,6 +37,7 @@
 
 #include "bitmap_expand.cuh"
 #include "softmax_step.cuh"
+#include "split_merge.cuh"
 
 namespace bitmap_decode {
 
@@ -49,8 +60,13 @@ struct __align__(16) Smem {
   float corr[G];
 };
 
-template <int G, int QBITS>
-__global__ void __launch_bounds__(THREADS)
+// Blocks an SM the split instance is built for (80 registers a thread): its
+// blocks are many and one step long, so residency is what fills the card
+// (sp_decode.cu's note).  G = 8 keeps what it needs (142-168 registers).
+constexpr int split_min_blocks(int G) { return G <= 4 ? 3 : 1; }
+
+template <int G, int QBITS, bool SPLIT>
+__global__ void __launch_bounds__(THREADS, SPLIT ? split_min_blocks(G) : 1)
 sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                  const int16_t* __restrict__ pool,         // [L, mc, BH, KR+VR, D]
                  const __nv_bfloat16* __restrict__ scales, // [L, mc, BH, 2, D] (8 bits)
@@ -61,9 +77,12 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                  int n_chunks, int win_len, int li, Fmt<QBITS> kf, Fmt<QBITS> vf,
                  const int* __restrict__ nc_slot,          // [B] or null
                  const int* __restrict__ wl_slot,          // [B] or null
-                 int hkv) {
+                 int hkv,
+                 float* __restrict__ part,                 // SPLIT: split_merge layout
+                 int n_splits) {
   static_assert(G <= WARPS, "one warp per query head in the softmax step");
-  // dynamic shared memory: Smem, then two buffers of one chunk's stream
+  // dynamic shared memory: Smem, then one or two buffers of one chunk's
+  // stream (two where a block attends more than one chunk)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<G>& sm = *reinterpret_cast<Smem<G>*>(smem_raw);
   int16_t* stage = reinterpret_cast<int16_t*>(smem_raw + sizeof(Smem<G>));
@@ -75,6 +94,21 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     const int b = bh / hkv;
     n_chunks = min(max(nc_slot[b], 0), max_chunks);
     win_len = min(max(wl_slot[b], 0), W);
+  }
+  // this block's chunks [c0, c1) and window tokens [w0, w1)
+  int c0 = 0, c1 = n_chunks, w0 = 0, w1 = win_len;
+  const int split = SPLIT ? (int)blockIdx.y : 0;
+  if constexpr (SPLIT) {
+    if (split < max_chunks) {
+      c0 = split;
+      c1 = min(c0 + 1, n_chunks);
+      w1 = 0;
+    } else {
+      c1 = 0;
+      w0 = (split - max_chunks) * wt;
+      w1 = min(w0 + wt, win_len);
+    }
+    if (c0 >= c1 && w0 >= w1) return;   // not live: the merge skips it
   }
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -107,12 +141,14 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
       if (lane == 0) sm.s[g][t] = s * SM_SCALE;
     }
   };
-  // acc = acc * corr + (this warp's share of) bf16(p) . V, after a step
+  // acc = acc * corr + (this warp's share of) bf16(p) . V, after a step; a
+  // split block takes one step, so acc * corr is 0 and acc = pv
   auto rescale_add = [&](const float (&pv)[G][4]) {
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[g][i] = acc[g][i] * sm.corr[g] + pv[g][i];
+      for (int i = 0; i < 4; ++i)
+        acc[g][i] = SPLIT ? pv[g][i] : acc[g][i] * sm.corr[g] + pv[g][i];
   };
 
   // ---- packed pool chunks -------------------------------------------------
@@ -120,17 +156,17 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   auto chunk = [&](int ci) {
     return pool + (((size_t)li * max_chunks + ci) * BH + bh) * rows * D;
   };
-  if (n_chunks > 0) bitmap::stage_rows_async(stage, chunk(0), rows, tid, THREADS);
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    if (ci + 1 < n_chunks) {
-      bitmap::stage_rows_async(stage + (size_t)((ci + 1) & 1) * rows * D, chunk(ci + 1),
-                               rows, tid, THREADS);
+  if (c0 < c1) bitmap::stage_rows_async(stage, chunk(c0), rows, tid, THREADS);
+  for (int ci = c0; ci < c1; ++ci) {
+    if (ci + 1 < c1) {
+      bitmap::stage_rows_async(stage + (size_t)((ci + 1 - c0) & 1) * rows * D,
+                               chunk(ci + 1), rows, tid, THREADS);
       bitmap::cp_async_wait<1>();
     } else {
       bitmap::cp_async_wait<0>();
     }
     __syncthreads();   // chunk ci is in shared memory for every thread
-    const int16_t* kst = stage + (size_t)(ci & 1) * rows * D;
+    const int16_t* kst = stage + (size_t)((ci - c0) & 1) * rows * D;
     const int16_t* vst = kst + (size_t)kf.rows() * D;
     // 8 bits: the chunk's scales of this lane's four channels, and the
     // scores' q rounded to bf16 after the K scale
@@ -186,8 +222,8 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   // ---- dense residual window ----------------------------------------------
   const __nv_bfloat16* kw = k_win + ((size_t)li * BH + bh) * W * D;
   const __nv_bfloat16* vw = v_win + ((size_t)li * BH + bh) * W * D;
-  for (int t0 = 0; t0 < win_len; t0 += wt) {
-    const int nt = min(wt, win_len - t0);
+  for (int t0 = w0; t0 < w1; t0 += wt) {
+    const int nt = min(wt, w1 - t0);
     for (int t = warp; t < nt; t += WARPS) {
       float v[4];
 #pragma unroll
@@ -224,6 +260,16 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     }
     __syncthreads();
   }
+  if constexpr (SPLIT) {
+    float* pa = part + split_merge::acc_at(bh, split, G, n_splits);
+    for (int i = tid; i < G * D; i += THREADS) pa[i] = sm.red[i / D][i % D];
+    if (tid < G) {
+      float* ml = part + split_merge::ml_at(bh, split, G, n_splits, BH) + 2 * tid;
+      ml[0] = sm.m[tid];
+      ml[1] = sm.l[tid];
+    }
+    return;
+  }
   for (int i = tid; i < G * D; i += THREADS) {
     const int g = i / D;
     const float o = sm.red[g][i % D] / fmaxf(sm.l[g], 1e-30f);
@@ -235,38 +281,66 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   }
 }
 
+// Which splits row bh of a per-slot call attends, for the merge: the chunk
+// splits [0, n_chunks) and the window splits [mc, mc + ceil(win_len / wt)),
+// the slot's counts clamped as the kernel clamps them.
+struct SplitLive {
+  const int* nc_slot;
+  const int* wl_slot;
+  int hkv, max_chunks, W, wt;
+  __device__ void operator()(int bh, int& a, int& c, int& n) const {
+    const int b = bh / hkv;
+    a = min(max(nc_slot[b], 0), max_chunks);
+    c = max_chunks;
+    n = (min(max(wl_slot[b], 0), W) + wt - 1) / wt;
+  }
+};
+
 // Checks the launch parameters, selects the instance for the group size G
-// and returns cudaGetLastError().
+// and returns cudaGetLastError().  With `part` null one block per row,
+// normalised (SPLIT false); else a grid of max_chunks chunk splits and
+// ceil(W / wt) window splits per row, its partials in `part`, then the merge.
 template <int QBITS>
 int launch_decode(const void* q, const void* pool, const void* scales,
                   const void* k_win, const void* v_win, void* out, int out_f32,
                   int device, int BH, int G, int max_chunks, int W, int wt,
                   int n_chunks, int win_len, int li, Fmt<QBITS> kf, Fmt<QBITS> vf,
-                  const int* nc_slot, const int* wl_slot, int hkv, void* stream) {
+                  const int* nc_slot, const int* wl_slot, int hkv, float* part,
+                  int n_splits, void* stream) {
   if (wt < 1 || wt > TILE || BH < 1 || max_chunks < 0 || W < 0 || li < 0 ||
       (QBITS == 8) != (scales != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool split = part != nullptr;
+  if (split && (nc_slot == nullptr || n_splits != max_chunks + (W + wt - 1) / wt))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t stage_bytes = 2 * (size_t)(kf.rows() + vf.rows()) * D * sizeof(int16_t);
+  const int buffers = split ? 1 : 2;   // a split block stages one chunk
+  const size_t stage_bytes =
+      buffers * (size_t)(kf.rows() + vf.rows()) * D * sizeof(int16_t);
+  const dim3 grid(BH, split ? n_splits : 1);
   cudaError_t err = cudaSuccess;
-#define SP_LAUNCH(g)                                                          \
+#define SP_INSTANCE(g, sp)                                                    \
   {                                                                           \
-    const int smem = (int)(sizeof(Smem<g>) + stage_bytes);                    \
-    err = cudaFuncSetAttribute(sp_decode_kernel<g, QBITS>,                    \
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,   \
-                               smem);                                         \
+    const int bytes = (int)(sizeof(Smem<g>) + stage_bytes);                   \
+    err = smem::allow_dynamic_smem<sp_decode_kernel<g, QBITS, sp>>(bytes,     \
+                                                                  device);    \
     if (err != cudaSuccess) return (int)err;                                  \
-    sp_decode_kernel<g, QBITS><<<BH, THREADS, smem, s>>>(                     \
+    sp_decode_kernel<g, QBITS, sp><<<grid, THREADS, bytes, s>>>(              \
         static_cast<const __nv_bfloat16*>(q),                                 \
         static_cast<const int16_t*>(pool),                                    \
         static_cast<const __nv_bfloat16*>(scales),                            \
         static_cast<const __nv_bfloat16*>(k_win),                             \
         static_cast<const __nv_bfloat16*>(v_win), out, out_f32, BH,           \
         max_chunks, W, wt, n_chunks, win_len, li, kf, vf, nc_slot, wl_slot,   \
-        hkv);                                                                 \
+        hkv, part, n_splits);                                                 \
   }
+#define SP_LAUNCH(g)          \
+  if (split)                  \
+    SP_INSTANCE(g, true)      \
+  else                        \
+    SP_INSTANCE(g, false)
   switch (G) {
     case 1: SP_LAUNCH(1); break;
     case 2: SP_LAUNCH(2); break;
@@ -275,7 +349,12 @@ int launch_decode(const void* q, const void* pool, const void* scales,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SP_LAUNCH
-  return (int)cudaGetLastError();
+#undef SP_INSTANCE
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !split) return (int)err;
+  return (int)split_merge::launch_merge(
+      part, out, out_f32, BH, G, n_splits,
+      SplitLive{nc_slot, wl_slot, hkv, max_chunks, W, wt}, s);
 }
 
 // The formats (k0, k1) and (vk0, vk1) at `qbits` bits, checked, and the
@@ -285,7 +364,7 @@ inline int launch_bits(int qbits, int k0, int k1, int vk0, int vk1, const void* 
                        const void* v_win, void* out, int out_f32, int device, int BH,
                        int G, int max_chunks, int W, int wt, int n_chunks,
                        int win_len, int li, const int* nc_slot, const int* wl_slot,
-                       int hkv, void* stream) {
+                       int hkv, float* part, int n_splits, void* stream) {
 #define SP_BITS(b)                                                                 \
   {                                                                                \
     bool k_ok, v_ok;                                                               \
@@ -294,7 +373,8 @@ inline int launch_bits(int qbits, int k0, int k1, int vk0, int vk1, const void* 
     if (!k_ok || !v_ok) return (int)cudaErrorInvalidValue;                         \
     return launch_decode<b>(q, pool, scales, k_win, v_win, out, out_f32, device,  \
                             BH, G, max_chunks, W, wt, n_chunks, win_len, li, kf,  \
-                            vf, nc_slot, wl_slot, hkv, stream);                    \
+                            vf, nc_slot, wl_slot, hkv, part, n_splits,            \
+                            stream);                                               \
   }
   if (qbits == 16) SP_BITS(16);
   if (qbits == 8) SP_BITS(8);

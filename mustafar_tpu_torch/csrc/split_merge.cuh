@@ -1,0 +1,105 @@
+// The merge of split-K flash-decode partials, shared by the split decode
+// kernels (dense_decode.cu, and sp_decode.cu's per-slot entry).
+//
+// A split kernel's block (row bh = b * Hkv + h, split s) attends its G query
+// heads over one run of tokens and writes the unnormalised partials, f32,
+// into scratch laid out as
+//   acc [BH, n_splits, G, 128], then ml [BH, n_splits, G, 2] (m, l)
+// (acc_at / ml_at below).  A block with nothing to attend writes nothing,
+// and the scratch is not initialised (the wrappers keep one buffer from
+// call to call), so merge_kernel reads only the splits its row attends:
+// the caller's Live functor names them as two runs of split indices,
+// [0, a) and [c, c + n).  For each (bh, g) it combines them in split
+// order as ops/attention.py merge_partials does:
+//   M = max_s m_s,  w_s = exp(m_s - M),
+//   out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30)
+// in f32, written in the caller's dtype.  A row with no live split comes
+// out exactly 0 (M = -1e30, both sums 0).
+//
+// Layout: one block of 128 threads per (bh, g), one thread a channel.  The
+// live splits' m and l go to shared memory first (all loads in flight at
+// once), so each thread's pass over the splits waits only on its own acc
+// loads, which the unrolled loop keeps several of in flight.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+#include "softmax_step.cuh"
+
+namespace split_merge {
+
+constexpr int D = 128;
+constexpr float NEG = -1e30f;
+constexpr int MAX_SPLITS = 4096;   // 32 KB of m and l in shared memory
+
+// f32 offsets of split s's partials in row bh, and the scratch's size
+__host__ __device__ inline size_t acc_at(int bh, int s, int G, int n_splits) {
+  return ((size_t)bh * n_splits + s) * G * D;
+}
+__host__ __device__ inline size_t ml_at(int bh, int s, int G, int n_splits, int BH) {
+  return (size_t)BH * n_splits * G * D + ((size_t)bh * n_splits + s) * G * 2;
+}
+inline size_t scratch_floats(int BH, int G, int n_splits) {
+  return (size_t)BH * n_splits * G * (D + 2);
+}
+
+template <class Live>
+__global__ void __launch_bounds__(D)
+merge_kernel(const float* __restrict__ part, void* __restrict__ out, int out_f32,
+             int BH, int G, int n_splits, Live live) {
+  extern __shared__ float w_l[];      // [2][n_splits]: m_s, then exp(m_s - M); l_s
+  __shared__ float warp_mx[D / 32];
+  const int bh = blockIdx.x;
+  const int g = blockIdx.y;
+  const int d = threadIdx.x;
+  int a, c, n;
+  live(bh, a, c, n);
+  const int n_live = a + n;
+  auto split = [&](int i) { return i < a ? i : c + i - a; };
+
+  float mx = NEG;
+  for (int i = d; i < n_live; i += D) {
+    const float* ml = part + ml_at(bh, split(i), G, n_splits, BH) + 2 * g;
+    w_l[i] = ml[0];
+    w_l[n_splits + i] = ml[1];
+    mx = fmaxf(mx, ml[0]);
+  }
+  mx = online_softmax::warp_max(mx);
+  if ((d & 31) == 0) warp_mx[d >> 5] = mx;
+  __syncthreads();
+  float M = warp_mx[0];
+#pragma unroll
+  for (int w = 1; w < D / 32; ++w) M = fmaxf(M, warp_mx[w]);
+  for (int i = d; i < n_live; i += D) w_l[i] = expf(w_l[i] - M);
+  __syncthreads();
+
+  float num = 0.f, den = 0.f;
+#pragma unroll 8
+  for (int i = 0; i < n_live; ++i) {
+    const float w = w_l[i];
+    num += part[acc_at(bh, split(i), G, n_splits) + (size_t)g * D + d] * w;
+    den += w_l[n_splits + i] * w;
+  }
+  const float o = num / fmaxf(den, 1e-30f);
+  const size_t at = ((size_t)bh * G + g) * D + d;
+  if (out_f32)
+    static_cast<float*>(out)[at] = o;
+  else
+    static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16(o);
+}
+
+// Launches merge_kernel over BH rows of G heads on `stream`.
+template <class Live>
+cudaError_t launch_merge(const float* part, void* out, int out_f32, int BH, int G,
+                         int n_splits, Live live, cudaStream_t stream) {
+  if (n_splits < 1 || n_splits > MAX_SPLITS) return cudaErrorInvalidValue;
+  const int smem = (int)(2 * sizeof(float) * n_splits);
+  merge_kernel<Live><<<dim3(BH, G), D, smem, stream>>>(part, out, out_f32, BH, G,
+                                                       n_splits, live);
+  return cudaGetLastError();
+}
+
+}  // namespace split_merge

@@ -1,4 +1,4 @@
-"""Dense flash-decode attention: the CUDA kernel, its plain PyTorch version
+"""Dense flash-decode attention: the CUDA kernel, its plain PyTorch versions
 and the wrapper that picks between them by device.
 
 Port of ``mustafar_tpu/ops/kernels/dense_decode.py`` ``flash_decode_attention``
@@ -6,22 +6,36 @@ Port of ``mustafar_tpu/ops/kernels/dense_decode.py`` ``flash_decode_attention``
 with its options (sliding window, final (m, l)) off.  Each query head
 attends its kv head's cached rows [0, pos] inclusive: the newest token is
 already written.  q, K and V are read as bf16; scores q . k / sqrt(D) in f32;
-one online softmax in steps of ``decode_tile(S)`` tokens, the TPU kernel's
-tiles, so the running max and with it the bf16 rounding of p are those of
-the TPU kernel; p rounded to bf16 for the value product, accumulated in f32,
-out = acc / max(l, 1e-30) in q's dtype.  A slot at pos -1 attends nothing
-and comes out 0.  Layouts: q [B, 1, Hq, D], k/v [B, S, Hkv, D].
+p rounded to bf16 for the value product, accumulated in f32, out = acc /
+max(l, 1e-30) in q's dtype.  A slot at pos -1 attends nothing and comes out
+0.  Layouts: q [B, 1, Hq, D], k/v [B, S, Hkv, D].
+
+Two plain versions:
+  flash_decode_attention_plain        the TPU kernel's arithmetic: one
+      online softmax in steps of ``decode_tile(S)`` tokens, so the running
+      max, and with it the bf16 rounding of p, is the TPU's at every step;
+      the CPU path, held against JAX;
+  flash_decode_attention_split_plain  the CUDA kernel's: the tokens cut
+      into splits of ``split_len`` (the rule below), one softmax step per
+      split from a fresh state, the partials merged in split order with
+      ``ops.attention.merge_partials``.
+The two differ only in where p is rounded, well within 2 bf16 ulps of the
+output's scale.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from mustafar_tpu_torch.ops.attention import merge_partials
 from mustafar_tpu_torch.ops.kernels import quant_attention as qa
 
 MAX_TILE = 512
+H100_SMS = 132          # streaming multiprocessors of an H100 SXM
+MIN_SPLIT, MAX_SPLIT = 64, 128   # the tokens a split the CUDA kernel takes
 
 
 def decode_tile(S: int) -> int:
@@ -31,6 +45,33 @@ def decode_tile(S: int) -> int:
     while S % ts:
         ts //= 2
     return ts
+
+
+def split_len(n: int, BH: int, sms: int = H100_SMS) -> int:
+    """Tokens per split of the CUDA kernel's grid: 128 where the grid then
+    holds at least four blocks an SM, else 64 (csrc/dense_decode.cu's
+    note).  ``n`` is the tokens the grid covers (pos + 1 for a scalar pos,
+    S per slot) and ``BH`` the (batch row, kv head) pairs: 600 tokens at
+    B=8, Hkv=8 give 10 splits of 64, 640 blocks; a per-slot grid at S=8,448
+    66 of 128."""
+    return MAX_SPLIT if BH * -(-n // MAX_SPLIT) >= 4 * sms else MIN_SPLIT
+
+
+def _sms(device) -> int:
+    """SMs of the card the tensors lie on; an H100's for the CPU."""
+    if device.type == "cuda":
+        return _card_sms(device.index or 0)
+    return H100_SMS
+
+
+@functools.lru_cache(maxsize=None)
+def _card_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _covered(pos, S: int) -> int:
+    """Tokens the kernel's grid covers: pos + 1 for a scalar pos, S per slot."""
+    return S if torch.is_tensor(pos) else max(pos + 1, 0)
 
 
 def flash_decode_attention_plain(q, k_cache, v_cache, pos):
@@ -59,6 +100,42 @@ def flash_decode_attention_plain(q, k_cache, v_cache, pos):
     return torch.cat(outs).to(q.dtype)
 
 
+def flash_decode_attention_split_plain(q, k_cache, v_cache, pos, split=None):
+    """The CUDA kernel's arithmetic in PyTorch: per slot, the partials
+    (acc, m, l) of each split of ``split`` tokens (default: ``split_len``'s
+    rule for the card the tensors lie on; the kernel takes 64 to 128), one
+    softmax step each from a fresh state (``quant_attention._softmax_step``),
+    merged in split order (``merge_partials``).  A slot with nothing to
+    attend comes out 0."""
+    B, _, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    f32 = torch.float32
+    if split is None:
+        split = split_len(_covered(pos, S), B * Hkv, _sms(q.device))
+    if not MIN_SPLIT <= split <= MAX_SPLIT:
+        raise ValueError(f"the kernel takes {MIN_SPLIT} to {MAX_SPLIT} tokens a split, "
+                         f"got {split}")
+    scale = 1.0 / math.sqrt(D)
+    outs = []
+    for b, p in enumerate([pos] * B if isinstance(pos, int) else pos.tolist()):
+        qf = q[b, 0].to(torch.bfloat16).to(f32).reshape(Hkv, G, D)
+        fresh = (torch.full((Hkv, G, 1), qa.NEG_INF, dtype=f32, device=q.device),
+                 torch.zeros((Hkv, G, 1), dtype=f32, device=q.device),
+                 torch.zeros((Hkv, G, D), dtype=f32, device=q.device))
+        parts = []
+        n = min(p + 1, S)
+        for t0 in range(0, n, split):
+            t1 = min(t0 + split, n)
+            k = k_cache[b, t0:t1].to(torch.bfloat16).to(f32).transpose(0, 1)
+            v = v_cache[b, t0:t1].to(torch.bfloat16).to(f32).transpose(0, 1)
+            m, l, acc = qa._softmax_step(*fresh, (qf @ k.transpose(1, 2)) * scale, v, None)
+            parts.append((acc, m, l))
+        out = merge_partials(parts) if parts else fresh[2]
+        outs.append(out.reshape(1, 1, Hq, D))
+    return torch.cat(outs).to(q.dtype)
+
+
 def flash_decode_attention(q, k_cache, v_cache, pos, *, window=None,
                            return_norm: bool = False):
     """Dense flash-decode over the post-append cache -> [B, 1, Hq, D] in q's
@@ -66,11 +143,13 @@ def flash_decode_attention(q, k_cache, v_cache, pos, *, window=None,
     (uniform batch, -1..S-1) or an int32 tensor [B] on q's device (per
     slot, read by the kernel, -1 for an idle slot).
 
-    CUDA tensors launch the kernel of ``csrc/dense_decode.cu`` (built at
-    first use) on the current stream, for D = 128 and 1, 2, 4 or 8 query
-    heads a kv head; K and V that are not bf16 are cast first, as the TPU
-    wrapper casts them.  CPU tensors run the plain version.  A CUDA request
-    the kernel cannot serve raises; nothing falls back."""
+    CUDA tensors launch the kernels of ``csrc/dense_decode.cu`` (built at
+    first use; the split kernel, then its merge, from one C call) on the
+    current stream, for D = 128 and 1, 2, 4 or 8 query heads a kv head,
+    with the stream's split scratch (``quant_attention._split_scratch``);
+    K and V that are not bf16 are cast first, as the TPU wrapper casts
+    them.  CPU tensors run the plain version.  A CUDA request the kernel
+    cannot serve raises; nothing falls back."""
     if window is not None:
         raise NotImplementedError("sliding-window attention is ROADMAP Queue A item 14")
     if return_norm:
@@ -112,13 +191,17 @@ def flash_decode_attention(q, k_cache, v_cache, pos, *, window=None,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     qa._check_aligned((("q", qb), ("k_cache", kb), ("v_cache", vb)))
-    fn = qa._library("dense_decode", "dense_decode", 5, 8)
+    fn = qa._library("dense_decode", "dense_decode", 6, 10)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     per_slot = torch.is_tensor(pos)
+    n = _covered(pos, S)
+    split = split_len(n, B * Hkv, _sms(q.device))
+    n_splits = max(1, -(-n // split))
+    scratch = qa._split_scratch(B * Hkv, n_splits, G, q.device, stream)
     rc = fn(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
-            pos.data_ptr() if per_slot else None, int(out.dtype == torch.float32),
-            q.device.index or 0, B * Hkv, Hkv, G, S, decode_tile(S),
-            0 if per_slot else pos, stream)
+            pos.data_ptr() if per_slot else None, scratch.data_ptr(), scratch.numel(),
+            int(out.dtype == torch.float32), q.device.index or 0, B * Hkv, Hkv, G, S,
+            split, n_splits, 0 if per_slot else pos, stream)
     if rc != 0:
         raise RuntimeError(f"dense_decode launch failed: CUDA error {rc}")
     flash_decode_attention.launches += 1

@@ -28,6 +28,7 @@ these views for free.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -121,6 +122,7 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
 def window_tile(W: int) -> int:
     """Window tokens per online-softmax step: the largest multiple of 8 that
     divides the window capacity W and is at most 96, the TPU kernel's rule
@@ -243,6 +245,27 @@ def fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
     return decode_steps(q, kv_pool.shape[2], n_chunks,
                         _q_chunk_step(kv_pool, kv_scales, li, codec), k_win, v_win,
                         win_len, li)
+
+
+_SCRATCH: dict = {}
+INT_MAX = 2 ** 31 - 1
+
+
+def _split_scratch(BH: int, n_splits: int, G: int, device, stream):
+    """Scratch for a split kernel's partials (``csrc/split_merge.cuh``): per
+    row, split and query head acc [128], m and l in f32, BH * n_splits * G
+    * 130 floats; the C entry is given its size and refuses a short one.
+    One buffer per (device, stream), grown when a call needs more and kept,
+    not initialised: calls on one stream run in order, and the merge reads
+    only the splits that were written.  Pass its ``numel()`` as the size."""
+    n = BH * n_splits * G * 130
+    if n > INT_MAX:
+        raise ValueError(f"split scratch of {n} floats exceeds the kernels' int sizes")
+    key = (device.index or 0, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _SCRATCH[key] = torch.empty(n, dtype=torch.float32, device=device)
+    return buf
 
 
 def _library(name, fn_name, n_ptr, n_int):

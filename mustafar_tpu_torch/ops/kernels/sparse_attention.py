@@ -21,7 +21,10 @@ sqrt(128), the V scale times the value product.  The softmax steps are
 those of the quant kernels (one per chunk, then window tiles of
 ``quant_attention.window_tile``); the plain versions below take them with
 ``quant_attention.decode_steps`` / ``segment_steps`` over chunks expanded by
-``sparse_format.decode_stream``.
+``sparse_format.decode_stream``.  The per-slot kernel splits each slot's
+work (one chunk, or one window tile, a split) and merges the splits'
+partials; ``fused_sparse_decode_attention_ps_split_plain`` is its
+arithmetic, ``fused_sparse_decode_attention_ps_plain`` the TPU's.
 
 Layouts are the JAX package's stacked ones, indexed at layer ``li``:
   q           [B, 1, Hq, 128]              bf16 or f32 (read as bf16)
@@ -39,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from mustafar_tpu_torch.ops import sparse_format as sf
+from mustafar_tpu_torch.ops.attention import merge_partials
 from mustafar_tpu_torch.ops.kernels import quant_attention as qa
 
 
@@ -203,6 +207,50 @@ def fused_sparse_decode_attention_ps_plain(q, kv_pool, k_win, v_win, n_chunks,
                                       win_len, kv_pool.shape[1], k_win.shape[2])])
 
 
+def ps_splits(mc: int, W: int) -> int:
+    """Splits a row of the per-slot kernel's grid has: one a pool chunk,
+    then one a window tile (``quant_attention.window_tile``)."""
+    return mc + (-(-W // qa.window_tile(W)) if W else 0)
+
+
+def fused_sparse_decode_attention_ps_split_plain(q, kv_pool, k_win, v_win, n_chunks,
+                                                 win_len, li: int, kfmt, vfmt,
+                                                 kv_scales=None):
+    """The per-slot CUDA kernel's arithmetic: per slot, the partials (acc,
+    m, l) of each of its chunks and of each window tile, one softmax step
+    each from a fresh state, merged in split order (``merge_partials``).
+    Counts clamped as the kernel clamps them; a slot with nothing to attend
+    comes out 0."""
+    B, _, Hq, D = q.shape
+    BH = kv_pool.shape[2]
+    Hkv = BH // B
+    G = Hq // Hkv
+    f32 = torch.float32
+    wt = qa.window_tile(k_win.shape[2])
+    outs = []
+    for b, hs, nc, wl in qa.slots(B, BH, n_chunks, win_len, kv_pool.shape[1],
+                                  k_win.shape[2]):
+        step = _sp_chunk_step(kv_pool[:, :, hs], None if kv_scales is None
+                              else kv_scales[:, :, hs], li, kfmt, vfmt)
+        qf32 = q[b].to(torch.bfloat16).to(f32).reshape(Hkv, G, D)
+        fresh = (torch.full((Hkv, G, 1), qa.NEG_INF, dtype=f32, device=q.device),
+                 torch.zeros((Hkv, G, 1), dtype=f32, device=q.device),
+                 torch.zeros((Hkv, G, D), dtype=f32, device=q.device))
+        parts = []
+        for ci in range(nc):
+            m, l, acc = qa._softmax_step(*fresh, *step(qf32, ci))
+            parts.append((acc, m, l))
+        for t0 in range(0, wl, wt):
+            kw = k_win[li, hs, t0:min(wl, t0 + wt)].to(f32)
+            vw = v_win[li, hs, t0:min(wl, t0 + wt)].to(f32)
+            m, l, acc = qa._softmax_step(*fresh, (qf32 @ kw.transpose(1, 2)) * qa.SM_SCALE,
+                                         vw, None)
+            parts.append((acc, m, l))
+        out = merge_partials(parts) if parts else fresh[2]
+        outs.append(out.reshape(1, 1, Hq, D))
+    return torch.cat(outs).to(q.dtype)
+
+
 def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
                                      n_chunks: torch.Tensor, win_len: torch.Tensor,
                                      li: int, kfmt: sf.ChunkFormat,
@@ -217,8 +265,10 @@ def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
     per slot by the kernel (no host sync) and clamped there to [0, mc] and
     [0, W]; an idle slot is passed as (0, 0) and comes out 0.
 
-    CUDA tensors launch the kernel of ``csrc/sp_decode.cu`` (entry
-    ``sp_decode_ps``, built at first use) on the current stream; CPU
+    CUDA tensors launch the kernels of ``csrc/sp_decode.cu`` (entry
+    ``sp_decode_ps``, built at first use: the split kernel, then its merge)
+    on the current stream, with the stream's split scratch
+    (``quant_attention._split_scratch``); CPU
     tensors run the plain version.  A CUDA request the kernel cannot serve
     raises; nothing falls back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt,
@@ -237,13 +287,16 @@ def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
     stream = qa._stream(q)
     qa._check_aligned((("q", q), ("kv_pool", kv_pool), ("k_win", k_win),
                        ("v_win", v_win), *_scales(kv_scales)))
-    fn = qa._library("sp_decode", "sp_decode_ps", 8, 14)
+    fn = qa._library("sp_decode", "sp_decode_ps", 9, 16)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
+    n_splits = ps_splits(mc, W)
+    scratch = qa._split_scratch(BH, n_splits, G, q.device, stream)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), _ptr(kv_scales), k_win.data_ptr(),
             v_win.data_ptr(), n_chunks.data_ptr(), win_len.data_ptr(), out.data_ptr(),
-            int(out.dtype == torch.float32), q.device.index or 0, kfmt.qbits, BH,
-            BH // B, G, mc, W, qa.window_tile(W), li, *_segs(kfmt), *_segs(vfmt), stream)
+            scratch.data_ptr(), scratch.numel(), int(out.dtype == torch.float32),
+            q.device.index or 0, kfmt.qbits, BH, BH // B, G, mc, W, qa.window_tile(W), li,
+            *_segs(kfmt), *_segs(vfmt), n_splits, stream)
     if rc != 0:
         raise RuntimeError(f"sp_decode_ps launch failed: CUDA error {rc}")
     fused_sparse_decode_attention_ps.launches += 1

@@ -7,6 +7,12 @@
     to 32-token tiles, which the port takes too); its tile rule is the TPU
     kernel's; the wrapper refuses the options and what the CUDA kernel
     cannot take.
+(s) The CUDA kernel's split arithmetic (``flash_decode_attention_split_plain``:
+    per-split partials from fresh softmax states, merged in split order)
+    against the same JAX kernel and against the TPU-order plain version, at
+    the kernel's split lengths (64, 128 and the wrapper's rule): one split,
+    two, and lengths that do not divide the tokens; bf16 and f32 q; an idle
+    slot comes out 0.
 (y) ``DenseKVCache(use_pallas=True)`` on the CPU against the JAX dense
     cache's stacked decode with ``use_pallas``: outputs and cache state,
     uniform and per slot.
@@ -21,6 +27,7 @@ move a bf16 rounding of p by one ulp now and then, so outputs are held to
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -36,6 +43,7 @@ from mustafar_tpu.runtime.scheduler import ContinuousBatchingEngine as JEngine
 from mustafar_tpu_torch import config as tc
 from mustafar_tpu_torch.cache.dense import DenseKVCache as TDense
 from mustafar_tpu_torch.ops.kernels import dense_decode as tdd
+from mustafar_tpu_torch.ops.kernels import quant_attention as qa
 from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine as TEngine
 from mustafar_tpu_torch.weights import params_from_jax
 
@@ -82,6 +90,66 @@ def test_plain_matches_jax_kernel(G, per_slot):
                                   got.to(torch.bfloat16).float().numpy())
 
 
+SPLIT_CASES = {"scalar": 599, "short": 127, "per_slot": [-1, 1000, 37, 200]}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_case(mode):
+    """Inputs (Hkv=2, G=4) and the JAX kernel's output, once a mode."""
+    pos = SPLIT_CASES[mode]
+    per_slot = isinstance(pos, list)
+    q, k, v = _inputs(40 + len(mode), len(pos) if per_slot else 3, 2, 4)
+    pos = np.array(pos, np.int32) if per_slot else pos
+    want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(pos, jnp.int32)))
+    return q, k, v, pos, want
+
+
+@pytest.mark.parametrize("mode", list(SPLIT_CASES))
+@pytest.mark.parametrize("split", [None, 64, 128], ids=["rule", "64", "128"])
+def test_split_plain_matches_jax_kernel(split, mode):
+    """The kernel's split lengths, 64 and 128, and the rule's own (64 at
+    these B * Hkv <= 8 rows): 600 tokens as 5 splits of 128 (4 x 128 + 88)
+    or 10 of 64 (9 x 64 + 24); 128 tokens as one split of 128 or two of 64;
+    per slot also 1,001, 38 (one split) and 201 tokens (two splits of 128)
+    and an idle slot, which comes out exactly 0.  Held to the JAX kernel at
+    the file's tolerance and to the TPU-order plain version at 2 bf16 ulps
+    of each slot's scale; a bf16 q gives the f32 q's output rounded."""
+    q, k, v, pos, want = _jax_case(mode)
+    per_slot = mode == "per_slot"
+    tpos = torch.from_numpy(pos) if per_slot else pos
+    tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    got = tdd.flash_decode_attention_split_plain(torch.from_numpy(q), tk, tv, tpos, split)
+    assert got.dtype == torch.float32 and tuple(got.shape) == q.shape
+    _close(got.numpy(), want)
+    tpu = tdd.flash_decode_attention_plain(torch.from_numpy(q), tk, tv, tpos).numpy()
+    for b in range(q.shape[0]):
+        _close(got[b].numpy(), tpu[b])
+    if per_slot:
+        assert (got[0] == 0).all()
+    got16 = tdd.flash_decode_attention_split_plain(torch.from_numpy(q).to(torch.bfloat16),
+                                                   tk, tv, tpos, split)
+    assert got16.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got16.float().numpy(),
+                                  got.to(torch.bfloat16).float().numpy())
+
+
+def test_split_rule():
+    """128 tokens a split where the grid then holds at least four blocks an
+    SM (132 on an H100), else 64: 600 tokens at 64 rows would give 5 x 64 =
+    320 blocks of 128, so 64; 8,448 (a per-slot grid sized from S) 66 x 64
+    of 128.  The split plain version refuses a length the kernel cannot
+    take."""
+    assert tdd.split_len(600, 64) == 64 and tdd.split_len(8448, 64) == 128
+    assert tdd.split_len(600, 8) == 64 and tdd.split_len(0, 64) == 64
+    assert tdd.split_len(1024, 64) == 64 and tdd.split_len(1025, 64) == 128
+    assert tdd.split_len(1100, 64, sms=200) == 64
+    q, k, v = (torch.from_numpy(a) for a in _inputs(0, 1, 1, 1, S=256))
+    for split in (32, 63, 129, 256):
+        with pytest.raises(ValueError, match="tokens a split"):
+            tdd.flash_decode_attention_split_plain(q, k, v, 200, split)
+
+
 def test_tile_is_the_tpu_rule():
     """The TPU wrapper's tile: 512 halved until it divides S (32 at 1,312,
     256 at 8,448), S itself below 512."""
@@ -120,6 +188,9 @@ def test_wrapper_refuses_what_the_kernel_cannot_serve():
     with pytest.raises(ValueError, match="unsupported device"):
         tdd.flash_decode_attention(**{k_: (t.to("meta") if torch.is_tensor(t) else t)
                                       for k_, t in ok.items()})
+    # split scratch the C entries could not be told the size of (int floats)
+    with pytest.raises(ValueError, match="int sizes"):
+        qa._split_scratch(2048, 2048, 8, torch.device("meta"), 0)
 
 
 def _engine(mod, B=2, max_seq=1024):

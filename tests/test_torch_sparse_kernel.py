@@ -9,6 +9,12 @@
 (p8) The same at ``qbits=8`` (codec bitmap-q8): pools of int8 codes packed
     by the JAX codec and their bf16 scales, which the kernels fold into q
     and the value product.
+(s) The per-slot CUDA kernel's split arithmetic
+    (``fused_sparse_decode_attention_ps_split_plain``: partials of single
+    chunks and single window tiles from fresh softmax states, merged in
+    split order) against the same JAX kernel and against the TPU-order
+    plain version, at 16 and 8 bits, groups 1 and 4, f32 and bf16 q, with
+    slots that have chunks but no window, a window but no chunks, and none.
 (q) The wrappers refuse what the CUDA kernels cannot serve (the sliding
     window, softmax stats and window probabilities, scales without
     ``qbits=8`` chunks or ``qbits=8`` chunks without scales, bad shapes,
@@ -23,6 +29,7 @@ output by one ulp: 2^-8 of the output's largest magnitude (per slot for
 the per-slot kernel); the segment partials m to rtol 1e-6, l to 1e-5.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -141,6 +148,68 @@ def test_ps_plain_matches_jax_kernel(G, q_dtype, sparsity):
                                        atol=ULP * np.abs(jo[b]).max(),
                                        err_msg=f"slot {b}, li={li}")
     assert tska.fused_sparse_decode_attention_ps.launches == before
+
+
+SPLIT_NC = [0, 1, 3, 2, 3, 0]
+SPLIT_WL = [1, 44, 288, 0, 1, 0]
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(qbits, G):
+    """Per-slot inputs (6 slots of one kv head, mc=3, layer 1) and JAX's
+    v6ps output on them (f32 q), once a value width and group."""
+    jf, tf = _fmts(0.7, qbits)
+    ins = _inputs(70 + qbits + G, 2, 3, 6, 1, G, 0.7, qbits)
+    q, pool, k_win, v_win = ins[0], ins[1], ins[-2], ins[-1]
+    scales = ins[2] if qbits == 8 else None
+    jo = np.asarray(jska.fused_sparse_decode_attention_v6ps(
+        jnp.asarray(q), jnp.asarray(pool), jnp.asarray(k_win, jnp.bfloat16),
+        jnp.asarray(v_win, jnp.bfloat16), jnp.asarray(SPLIT_NC, jnp.int32),
+        jnp.asarray(SPLIT_WL, jnp.int32), jf, jf, 3, li=jnp.int32(1),
+        **(_jscales(scales) if qbits == 8 else {})))
+    targs = (torch.from_numpy(pool), _t(k_win), _t(v_win),
+             torch.tensor(SPLIT_NC, dtype=torch.int32),
+             torch.tensor(SPLIT_WL, dtype=torch.int32), 1, tf, tf,
+             None if scales is None else _t(scales))
+    return q, targs, jo
+
+
+@pytest.mark.parametrize("qbits", [16, 8])
+@pytest.mark.parametrize("G", [1, 4])
+def test_ps_split_plain_matches_jax_kernel(G, qbits):
+    """The kernel's splits: one a chunk (3 splits at 3 chunks, 2 at 2, 1 at
+    1), one a window tile (3 at 288 tokens, 1 at 44 and at 1); slots with
+    chunks and no window, a window and no chunks, both, and none.  Held to
+    JAX's v6ps at the file's tolerance and to the TPU-order plain version at
+    2 bf16 ulps, slot by slot; the idle slot comes out exactly 0, a bf16 q
+    gives the f32 q's output rounded."""
+    q, targs, jo = _split_case(qbits, G)
+    got = tska.fused_sparse_decode_attention_ps_split_plain(torch.from_numpy(q), *targs)
+    assert got.dtype == torch.float32
+    tpu = tska.fused_sparse_decode_attention_ps_plain(torch.from_numpy(q), *targs).numpy()
+    got = got.numpy()
+    for b in range(6):
+        if not (SPLIT_NC[b] or SPLIT_WL[b]):
+            assert (got[b] == 0).all(), f"idle slot {b}"
+            continue
+        assert np.abs(got[b]).max() > 0, f"live slot {b} written as 0"
+        np.testing.assert_allclose(got[b], jo[b], rtol=0, atol=ULP * np.abs(jo[b]).max(),
+                                   err_msg=f"slot {b} against JAX")
+        np.testing.assert_allclose(got[b], tpu[b], rtol=0,
+                                   atol=2 * ULP * np.abs(tpu[b]).max(),
+                                   err_msg=f"slot {b} against the TPU order")
+    got16 = tska.fused_sparse_decode_attention_ps_split_plain(_t(q), *targs)
+    assert got16.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got16.float().numpy(),
+                                  torch.from_numpy(got).to(torch.bfloat16).float().numpy())
+
+
+def test_ps_splits_of_the_grid():
+    """A row of the per-slot grid: one split a pool chunk, then one a window
+    tile (96 tokens at W=288, 40 at W=40 and at W=200)."""
+    assert tska.ps_splits(32, 288) == 32 + 3
+    assert tska.ps_splits(5, 40) == 5 + 1
+    assert tska.ps_splits(3, 200) == 3 + 5
 
 
 def test_ps_plain_equals_uniform_per_slot():
