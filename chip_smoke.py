@@ -18,11 +18,12 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 mc=5), with its time beside the plain version's and its bound
   kernel_ps     the per-slot decode kernel likewise, at the engine's pool
                 (mc=32): mixed slots (n_chunks 0/1/2/5/31, win_len
-                0/1/44/288, an idle slot), groups 1/2/4/8; the bitmap
-                codecs' per-slot kernel (split-K) also against its split
-                plain version, and refusing short scratch
+                0/1/44/288, an idle slot), groups 1/2/4/8; the kernel
+                (split-K, every codec) also against its split plain
+                version, and refusing short scratch
   kernel_seg    the segment kernel likewise: Tseg=256, G=4, B = 1 and 2,
-                n_chunks 0/1/4/31; timed at 31 chunks
+                n_chunks 0/1/4/31; timed at 31 chunks (the bitmap codecs'
+                with their cluster size and the clusters the card holds)
   kernel_q8, kernel_ps_q8, kernel_seg_q8, and the same for q4q4
                 the three phases above at the codecs q8 and q4q4
   kernel_sp, kernel_sp_ps, kernel_sp_seg
@@ -120,8 +121,8 @@ Phases, each printing one flushed JSON line with its ``phase`` and
   serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64
   host_split    one segment (B=1) at q8q4, bitmap and bitmap-q8, one K and V
                 pack of a chunk at each, one decode tick (8 slots, q8q4) and
-                one of bitmap with an 8,000-token slot: host enqueue time,
-                wall time, device time and kernels launched
+                one each of q8q4 and bitmap with an 8,000-token slot: host
+                enqueue time, wall time, device time and kernels launched
   serve_w4_dense, serve_w4_q8q4, serve_w4_bitmap
                 the Generator at full width and depth with W4 weights
                 (init_params_w4, seed 0), B=8, 300 + 300: W4 kernel 7 x 32 and
@@ -309,8 +310,8 @@ class _Kit:
     """One codec's kernels over one stacked state, as the kernel phases
     call them: ``decode(q, n_chunks, win_len, li)`` and ``decode_ps``,
     ``segment(q_seg, n_chunks, li)`` and the plain versions beside each
-    (for the bitmap codecs also ``decode_ps_split_plain``, the per-slot
-    kernel's split arithmetic);
+    (and ``decode_ps_split_plain``, the per-slot kernel's split
+    arithmetic);
     ``chunk_bytes`` is what one pool chunk of one kv head holds (rows and,
     for the quant codecs and bitmap-q8, scales)."""
 
@@ -346,6 +347,9 @@ class _Kit:
             self.decode_ps_plain = lambda q, nc, wl, li: \
                 qa.fused_q_decode_attention_ps_plain(q, pool, scales, kw, vw, nc, wl, li,
                                                      qc)
+            self.decode_ps_split_plain = lambda q, nc, wl, li: \
+                qa.fused_q_decode_attention_ps_split_plain(q, pool, scales, kw, vw, nc, wl,
+                                                           li, qc)
             self.segment = lambda q, nc, li: qa.fused_q_segment_attention(
                 q, pool, scales, nc, nc * 256, li, qc)
             self.segment_plain = lambda q, nc, li: qa.fused_q_segment_attention_plain(
@@ -355,7 +359,8 @@ class _Kit:
         # the format's keep (and quantized, bitmap-q8) and encoded on the
         # card (a stream of random bits would not hold the format's popcounts)
         qbits = 8 if codec == "bitmap-q8" else 16
-        fmt = sf.ChunkFormat(256, 128, 128 - int(sparsity * 128) + 1, qbits=qbits)
+        fmt = self.fmt = sf.ChunkFormat(256, 128, 128 - int(sparsity * 128) + 1,
+                                        qbits=qbits)
         pool = torch.empty((L, mc, BH, 2 * fmt.stream_rows, 128), dtype=torch.int16,
                            device=dev)
         scales = (torch.empty((L, mc, BH, 2, 128), dtype=torch.bfloat16, device=dev)
@@ -544,7 +549,7 @@ def phase_kernel_ps(codec="q8q4"):
     31-chunk slot is the 8,000-token request's decode), an idle slot (0, 0)
     among them, query groups 1/2/4/8, bf16 and f32 q (the bitmap codec at
     sparsity 0.7 and 0.5).  Timed at these slots and, beside them, at the
-    lighter mix of earlier runs (0-5 chunks).  The bitmap codecs' kernel
+    lighter mix of earlier runs (0-5 chunks).  Every codec's kernel
     (split-K) is also held to its split plain version (``split_gate``) and
     must refuse short scratch."""
     import torch
@@ -566,7 +571,6 @@ def phase_kernel_ps(codec="q8q4"):
     fn = kits[0].fns["decode_ps"]
     launches0 = fn.launches
     results, worst, worst_split = [], 0.0, 0.0
-    split = hasattr(kits[0], "decode_ps_split_plain")
     for kit in kits:
         for G in (1, 2, 4, 8):
             qb = torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(torch.bfloat16)
@@ -597,20 +601,19 @@ def phase_kernel_ps(codec="q8q4"):
                         raise AssertionError(f"per-slot kernel disagrees with its "
                                              f"plain version: {results[-1]}")
                     worst = max(worst, ratio)
-                    if split:
-                        # the kernel's own arithmetic: splits merged
-                        ratio = split_gate(got, kit.decode_ps_split_plain(
-                            qq.float(), nc, wl, li), live)
-                        results[-1]["worst_err_over_tol_split"] = ratio
-                        if not ratio <= 1.0:
-                            raise AssertionError(f"per-slot kernel disagrees with its "
-                                                 f"split plain version: {results[-1]}")
-                        worst_split = max(worst_split, ratio)
+                    # the kernel's own arithmetic: splits merged
+                    ratio = split_gate(got, kit.decode_ps_split_plain(
+                        qq.float(), nc, wl, li), live)
+                    results[-1]["worst_err_over_tol_split"] = ratio
+                    if not ratio <= 1.0:
+                        raise AssertionError(f"per-slot kernel disagrees with its "
+                                             f"split plain version: {results[-1]}")
+                    worst_split = max(worst_split, ratio)
 
     # time at the serving shape (G=4), the mixed slots above, L2 flushed
     kit = kits[0]
     q = torch.randn((B, 1, Hkv * 4, D), generator=g, device=dev).to(torch.bfloat16)
-    if split and not refuses_short_scratch(lambda: kit.decode_ps(q, nc, wl, 0)):
+    if not refuses_short_scratch(lambda: kit.decode_ps(q, nc, wl, 0)):
         raise AssertionError("per-slot kernel took scratch shorter than its grid needs")
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     for _ in range(10):
@@ -635,23 +638,44 @@ def phase_kernel_ps(codec="q8q4"):
     emit(_phase_label("kernel_ps", codec), codec=codec,
          shapes={"B": B, "Hq": 4 * Hkv, "Hkv": Hkv, "L": L, "mc": mc, "W": W},
          slots=slots, cases=results, worst_err_over_tol=worst,
-         worst_err_over_tol_split=worst_split if split else None, kernel_ms=kernel_ms,
+         worst_err_over_tol_split=worst_split, kernel_ms=kernel_ms,
          kernel_ms_light_slots=light_ms, light_slots=light, plain_ms=plain_ms,
          host_behind=behind, wrapper_host_us=wrapper_us, timed_at={"sparsity": kit.sparsity}, bytes=nbytes,
          flops=flops, bound_ms=max(bytes_ms, flops_ms), library_ms=None)
     entry = _entry(codec, "decode_ps", results, worst,
                    "per slot: 2 bf16 ulps of the slot's largest output",
                    kernel_ms, plain_ms, bytes_ms, flops_ms)
-    if split:
-        entry.update(worst_err_over_tol_split=worst_split, tol_split=SPLIT_TOL_NOTE)
+    entry.update(worst_err_over_tol_split=worst_split, tol_split=SPLIT_TOL_NOTE)
     return entry
+
+
+def segment_clusters(fmt, T, G):
+    """The bitmap segment kernel's clusters at T query tokens of G heads a
+    kv head (``segment_grid``) and how many of them the card holds at once
+    (``cudaOccupancyMaxActiveClusters`` for the format's shared memory)."""
+    import ctypes
+    import torch
+    from mustafar_tpu_torch.ops.kernels import build
+    from mustafar_tpu_torch.ops.kernels import sparse_attention as ska
+    cluster, tiles = ska.segment_grid(T, G)
+    fn = build.load("sp_segment").sp_segment_max_clusters
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(-1)
+    rc = fn(ctypes.byref(n), torch.cuda.current_device(), fmt.qbits, *ska._segs(fmt),
+            *ska._segs(fmt), cluster)
+    if rc != 0:
+        raise RuntimeError(f"sp_segment_max_clusters failed: CUDA error {rc}")
+    return {"cluster": cluster, "row_tiles": tiles, "max_active_clusters": n.value}
 
 
 def phase_kernel_seg(codec="q8q4"):
     """Segment kernel vs its plain version: Tseg=256, Hq=32 over Hkv=8
     (G=4), B = 1 and 2, n_chunks 0/1/4/31 (the bitmap codec at sparsity 0.7
     and, at B=1, 0.5); timed at the serving shape of the longest prompt's
-    last segment (B=1, 31 chunks)."""
+    last segment (B=1, 31 chunks).  The bitmap codecs' kernel runs as
+    thread block clusters: their size and how many the card holds at once
+    go beside its time."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -717,17 +741,22 @@ def phase_kernel_seg(codec="q8q4"):
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     flops_ms = flops / H100_BF16_FLOPS * 1e3
     fn.launches = launches0
+    clusters = (segment_clusters(kit.fmt, T, Hq // Hkv) if _family(codec) == "bitmap"
+                else None)
     emit(_phase_label("kernel_seg", codec), codec=codec,
          shapes={"Tseg": T, "Hq": Hq, "Hkv": Hkv, "L": L, "mc": mc},
-         cases=results, worst_err_over_tol=worst,
+         cases=results, worst_err_over_tol=worst, clusters=clusters,
          timed_at={"B": B, "n_chunks": nc, "sparsity": kit.sparsity},
          kernel_ms=kernel_ms, plain_ms=plain_ms, host_behind=behind,
          wrapper_host_us=wrapper_us,
          flops=flops, bytes=nbytes,
          bound_ms=max(bytes_ms, flops_ms), library_ms=None)
-    return _entry(codec, "segment", results, worst,
-                  max(r.get("tol", 0.0) for r in results),
-                  kernel_ms, plain_ms, bytes_ms, flops_ms)
+    entry = _entry(codec, "segment", results, worst,
+                   max(r.get("tol", 0.0) for r in results),
+                   kernel_ms, plain_ms, bytes_ms, flops_ms)
+    if clusters is not None:
+        entry["clusters"] = clusters
+    return entry
 
 
 PACK_NO_LIBRARY = ("no single PyTorch call computes an exact top-k with ties to the "
@@ -2010,11 +2039,11 @@ def phase_host_split(params):
     chunks; it packs a fifth) at q8q4, bitmap and bitmap-q8, one pack of a
     chunk's K and V (B=1, 8 kv heads: what a segment does per layer) at
     each, one decode tick of the engine with 8 active slots (q8q4), and one
-    of the bitmap engine with 8 active slots, one of them 8,000 tokens long
-    (31 pool chunks: the per-slot kernel's longest slot), each timed three
-    ways: the host's time to enqueue it, the wall time until the card is
-    done, and the device time of its kernels with the number of kernels
-    launched (torch.profiler)."""
+    of the q8q4 and of the bitmap engine with 8 active slots, one of them
+    8,000 tokens long (31 pool chunks: the per-slot kernels' longest slot),
+    each timed three ways: the host's time to enqueue it, the wall time
+    until the card is done, and the device time of its kernels with the
+    number of kernels launched (torch.profiler)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2045,7 +2074,8 @@ def phase_host_split(params):
         # device rows only: an op's row also counts the kernels it launched
         device_us = sum(e.self_device_time_total for e in events
                         if e.device_type == DeviceType.CUDA)
-        launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+        # cudaLaunchKernel, and cudaLaunchKernelExC for cluster launches
+        launches = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
         return {"enqueue_ms": 1e3 * enqueue, "wall_ms": 1e3 * wall,
                 "device_ms": device_us / 1e3, "kernels_launched": launches}
 
@@ -2080,20 +2110,23 @@ def phase_host_split(params):
             cb.tick()
         tick_split = measure(cb.tick)
         del cb
-        cb = ContinuousBatchingEngine(dataclasses.replace(eng, codec="bitmap",
-                                                          max_seq_len=8448), params)
-        rs = np.random.RandomState(6)
-        for n in (8000, 300, 700, 1500, 450, 1000, 1200, 600):
-            cb.submit(rs.randint(1, 500, size=n), 200)
-        while cb._admissions or cb.queue:
+        ticks_long = {}
+        for codec in ("q8q4", "bitmap"):
+            cb = ContinuousBatchingEngine(dataclasses.replace(eng, codec=codec,
+                                                              max_seq_len=8448), params)
+            rs = np.random.RandomState(6)
+            for n in (8000, 300, 700, 1500, 450, 1000, 1200, 600):
+                cb.submit(rs.randint(1, 500, size=n), 200)
+            while cb._admissions or cb.queue:
+                cb.tick()
             cb.tick()
-        cb.tick()
-        tick_long = measure(cb.tick)
-    del cb
+            ticks_long[codec] = measure(cb.tick)
+            del cb
     torch.cuda.empty_cache()
     emit("host_split", segment_b1=segments["q8q4"], segment_b1_bitmap=segments["bitmap"],
          segment_b1_bitmap_q8=segments["bitmap-q8"], pack_kv_b1=packs,
-         decode_tick_b8=tick_split, decode_tick_b8_bitmap_long=tick_long)
+         decode_tick_b8=tick_split, decode_tick_b8_long=ticks_long["q8q4"],
+         decode_tick_b8_bitmap_long=ticks_long["bitmap"])
 
 
 def serve_w4(entries, prompt, new):

@@ -39,8 +39,9 @@
 // int16 carrier column, so the loads of a warp are contiguous.  Codes are
 // unpacked with sign-extending shifts in registers; dequantized chunks
 // never exist in memory.  One source, templated on the bit widths: each
-// library holds the 3 codecs x G in {1, 2, 4, 8}.  Split-K over chunks, TMA, wgmma and CUDA graphs
-// are later work.
+// library holds the 3 codecs x G in {1, 2, 4, 8}.  Split-K over chunks (the
+// per-slot entry's design, q_decode_ps.cu), TMA, wgmma and CUDA graphs are
+// later work.
 //
 // The kernel body lives in quant_decode.cuh, shared with the per-slot entry
 // (q_decode_ps.cu).  Interface: plain C, no PyTorch headers, bound with
@@ -60,7 +61,7 @@ extern "C" int q_decode_attention(const void* q, const void* pool, const void* s
                                   int out_f32, int device, int kbits, int vbits, int BH,
                                   int G, int max_chunks, int W, int wt, int n_chunks,
                                   int win_len, int li, void* stream) {
-  return qdec::launch_decode(q, pool, scales, k_win, v_win, out, out_f32, device,
-                             kbits, vbits, BH, G, max_chunks, W, wt, n_chunks,
-                             win_len, li, nullptr, nullptr, 1, stream);
+  const qdec::Args a{q, pool, scales, k_win, v_win, out, out_f32, BH, max_chunks,
+                     W, wt, n_chunks, win_len, li, nullptr, nullptr, 1, nullptr, 0};
+  return qdec::launch_decode<false>(a, device, kbits, vbits, G, stream);
 }

@@ -3,13 +3,13 @@
 // Replaces the TPU kernel mustafar_tpu/ops/kernels/quant_attention.py
 // fused_q_decode_attention_ps (Pallas body _q_ps_kernel) for the codecs
 // q8, q8q4 and q4q4, with its options (sliding window, window
-// probabilities) off.  It
-// is the uniform kernel of q_decode.cu with the counts read per slot:
-// block (b, kv head h) attends its G query heads over slot b's first
-// n_chunks[b] pool chunks and win_len[b] window tokens, the counts taken
-// from int32 device arrays, so the continuous-batching decode step never
-// syncs with the host to size itself.  Counts are clamped into [0, mc] and
-// [0, W] in the kernel; an idle slot is passed as (0, 0) and writes 0.
+// probabilities) off.  The G query heads of (slot b, kv head h) attend
+// slot b's first n_chunks[b] pool chunks and win_len[b] window tokens, the
+// counts taken from int32 device arrays, so the continuous-batching decode
+// step never syncs with the host to size itself.  Counts are clamped into
+// [0, mc] and [0, W] in the kernel; an idle slot is passed as (0, 0) and
+// comes out 0.  Per chunk and window token the arithmetic is the uniform
+// kernel's (q_decode.cu).
 //
 // Softmax steps: the TPU kernel runs a block of up to 16 heads, and loops
 // every head to the largest chunk count and window length among them; the
@@ -18,36 +18,76 @@
 // finite, p = exp(-1e30 - m) = 0 and the correction exp(m - m) = 1.  (A
 // head whose first real step comes after such masked steps starts from
 // m = -1e30; its first real step multiplies whatever was summed by
-// exp(-1e30 - m) = 0.)  So a block that loops only over its own slot's
-// counts, one step per chunk and then window tiles of `wt` tokens, takes
-// the same steps and rounds p to bf16 at the same running max.
+// exp(-1e30 - m) = 0.)  So the TPU takes one step per chunk of the slot,
+// then window tiles of `wt` tokens (fused_q_decode_attention_ps_plain);
+// the splits below take the same steps' ranges, each from its own running
+// max.
 //
-// What bounds it on this card: bytes, as for the uniform kernel: per layer
-// B*Hkv*(n_chunks*ROWS*128*2 + 2*win_len*128*2) bytes of pools and windows.
-// At the serving shape (B=8, Hkv=8, a few chunks) that is some 2-8 us of
-// device memory time; one block per (slot, kv head) is 64 blocks for 132
-// SMs, and slots with long caches keep their blocks longest.  Split-K over
-// chunks would even that out and is later work.
+// What bounds it on this card: bytes.  Per layer it must read the sum over
+// slots of Hkv*(n_chunks[b]*(ROWS*128*2 + 512) + 2*win_len[b]*128*2) bytes
+// of pools, scales and windows (ROWS = 256 / 192 / 128 at q8 / q8q4 /
+// q4q4): 21.7 MB at q8q4 at the engine's mixed slots (45 chunks and 910
+// window tokens over 8 slots, 8 kv heads), 6.5 us at 3.35 TB/s.
 //
-// Design and interface: the kernel body of quant_decode.cuh (see
-// q_decode.cu), plain C entry bound with ctypes, launched on the caller's
-// stream, returning cudaGetLastError().
+// Design: split-K.  With one block per (b, kv head) a call waited on its
+// longest slot: at those slots the 8 blocks of the 31-chunk slot walked 31
+// chunks in series while the other 56 sat done, 0.631 ms at q8q4 (NVIDIA
+// H100 80GB HBM3, 700.00 W).  So the grid covers (b, kv head, split),
+// sized on the host from mc and W with no sync: split s < mc takes pool
+// chunk s, split mc + j window tile j (3 at W = 288).  Each split does the
+// uniform kernel's per-chunk (or per-tile) work and softmax step
+// (quant_decode.cuh) from a fresh state; a block past its slot's clamped
+// counts exits at once and writes nothing.  Its partials go to scratch and
+// a second kernel merges each row's live splits in split order
+// (split_merge.cuh, split_merge::SlotLive); an idle slot comes out 0, a
+// slot with chunks but no window (or the reverse) merges what it has.  A
+// split rounds p at its own running max, so the kernel's plain version is
+// fused_q_decode_attention_ps_split_plain.
+//
+// One chunk a split, and four blocks an SM.  The work is the chunks: 45
+// per kv head at the mixed slots, 360 chunk blocks beside 96 window ones
+// at G = 4.  A block of 256 threads keeps no stage buffer (its loads go
+// straight to registers) and 8 KB of shared memory at G = 4; built for four
+// blocks an SM (64 registers, no spills), 528 resident blocks hold the
+// mixed slots' 456 in one wave.  The blocks past the counts (most of the
+// 35 x 64 at mc = 32) cost a read of two counts each.  Measured on an
+// NVIDIA H100 80GB HBM3 at 700.00 W (tools/kernel_ab.py, PERF.md §6): at
+// the mixed slots 0.0447 ms at q8q4, 0.0449 at q8, 0.0434 at q4q4 (one
+// block per (b, kv head): 0.632 / 0.650 / 0.538), at the light slots (0-5
+// chunks) 0.035 (0.138); built for three blocks an SM 0.0475 at the mixed
+// slots, for two 0.059 (two waves), though two take the light slots in
+// 0.033.
+//
+// Splits need (acc, m, l) scratch of BH * n_splits * G * 130 floats (4.7 MB
+// at mc = 32, G = 4): the wrapper passes an uninitialised buffer, kept from
+// call to call, and its size, which the entry checks.
+//
+// Interface: plain C, no PyTorch headers, bound with ctypes.  Launches the
+// split kernel and the merge on the caller's stream, synchronises nothing
+// and returns cudaGetLastError().
 
 #include "quant_decode.cuh"
 
 // As q_decode_attention (q_decode.cu), with the counts in device arrays:
-// n_chunks[B], win_len[B] int32; `hkv` the kv heads per slot (BH = B*hkv).
+// n_chunks[B], win_len[B] int32; `hkv` the kv heads per slot (BH = B*hkv);
+// scratch f32, `scratch_floats` of them, refused if fewer than
+// split_merge::scratch_floats(BH, G, n_splits), with n_splits = max_chunks +
+// ceil(W / wt).
 extern "C" int q_decode_attention_ps(const void* q, const void* pool,
                                      const void* scales, const void* k_win,
                                      const void* v_win, const void* n_chunks,
-                                     const void* win_len, void* out, int out_f32,
-                                     int device, int kbits, int vbits, int BH, int hkv,
-                                     int G, int max_chunks, int W, int wt, int li,
+                                     const void* win_len, void* out, void* scratch,
+                                     int scratch_floats, int out_f32, int device,
+                                     int kbits, int vbits, int BH, int hkv, int G,
+                                     int max_chunks, int W, int wt, int li, int n_splits,
                                      void* stream) {
-  if (n_chunks == nullptr || win_len == nullptr || hkv < 1 || BH % hkv)
+  if (n_chunks == nullptr || win_len == nullptr || scratch == nullptr || hkv < 1 ||
+      BH % hkv || G < 1 || n_splits < 1 || scratch_floats < 0 ||
+      (size_t)scratch_floats < split_merge::scratch_floats(BH, G, n_splits))
     return (int)cudaErrorInvalidValue;
-  return qdec::launch_decode(q, pool, scales, k_win, v_win, out, out_f32, device,
-                             kbits, vbits, BH, G, max_chunks, W, wt, 0, 0, li,
-                             static_cast<const int*>(n_chunks),
-                             static_cast<const int*>(win_len), hkv, stream);
+  const qdec::Args a{q, pool, scales, k_win, v_win, out, out_f32, BH, max_chunks, W, wt,
+                     0, 0, li, static_cast<const int*>(n_chunks),
+                     static_cast<const int*>(win_len), hkv, static_cast<float*>(scratch),
+                     n_splits};
+  return qdec::launch_decode<true>(a, device, kbits, vbits, G, stream);
 }

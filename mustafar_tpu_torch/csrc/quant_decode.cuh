@@ -4,7 +4,17 @@
 // codec's bit widths (KB, VB) in {(8, 8), (8, 4), (4, 4)}: codecs q8, q8q4
 // and q4q4.  With `nc_slot` null the block takes the uniform counts
 // `n_chunks` and `win_len`; otherwise block bh reads slot bh / hkv's counts
-// from the device arrays.
+// from the device arrays.  And on SPLIT:
+//   false  one block per (b, kv head) over all its chunks and window tiles,
+//          normalised and written as the output (q_decode.cu);
+//   true   the grid's y dimension is the split: split s < mc takes pool
+//          chunk s, split mc + j window tile j; so each block takes one
+//          softmax step, from a fresh state, and its accumulator is that
+//          step's value product (acc * 0 + pv, bit for bit).  A block
+//          writes its unnormalised partials to scratch (split_merge.cuh),
+//          or nothing if its chunk or tile lies past the slot's counts, and
+//          merge_kernel combines them (q_decode_ps.cu).
+// Each library instantiates only the flag its entry launches.
 
 #pragma once
 
@@ -13,6 +23,7 @@
 #include <stdint.h>
 
 #include "softmax_step.cuh"
+#include "split_merge.cuh"
 
 namespace qdec {
 
@@ -63,8 +74,15 @@ struct __align__(16) Smem {
   float corr[G];
 };
 
-template <int G, int KB, int VB>
-__global__ void __launch_bounds__(THREADS)
+// Blocks an SM the split instance is built for (64 registers a thread at
+// G <= 4, no spills): its blocks are many and one step long, so residency
+// is what fills the card.  At the engine's mixed slots four blocks an SM
+// took 0.0447 ms (q8q4), three 0.0475, two 0.059 (NVIDIA H100 80GB HBM3,
+// 700.00 W; q_decode_ps.cu's note).  G = 8 keeps what it needs.
+constexpr int split_min_blocks(int G) { return G <= 4 ? 4 : 2; }
+
+template <int G, int KB, int VB, bool SPLIT>
+__global__ void __launch_bounds__(THREADS, SPLIT ? split_min_blocks(G) : 1)
 quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                    const int16_t* __restrict__ pool,         // [L, mc, BH, ROWS, D]
                    const __nv_bfloat16* __restrict__ scales, // [L, mc, BH, 2, D]
@@ -75,7 +93,9 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                    int n_chunks, int win_len, int li,
                    const int* __restrict__ nc_slot,          // [B] or null
                    const int* __restrict__ wl_slot,          // [B] or null
-                   int hkv) {
+                   int hkv,
+                   float* __restrict__ part,                 // SPLIT: split_merge layout
+                   int n_splits) {
   static_assert(G <= WARPS, "one warp per query head in the softmax step");
   constexpr int KF = Stream<KB>::FIELDS;
   constexpr int K_ROWS = Stream<KB>::ROWS;
@@ -92,6 +112,21 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     const int b = bh / hkv;
     n_chunks = min(max(nc_slot[b], 0), max_chunks);
     win_len = min(max(wl_slot[b], 0), W);
+  }
+  // this block's chunks [c0, c1) and window tokens [w0, w1)
+  int c0 = 0, c1 = n_chunks, w0 = 0, w1 = win_len;
+  const int split = SPLIT ? (int)blockIdx.y : 0;
+  if constexpr (SPLIT) {
+    if (split < max_chunks) {
+      c0 = split;
+      c1 = min(c0 + 1, n_chunks);
+      w1 = 0;
+    } else {
+      c1 = 0;
+      w0 = (split - max_chunks) * wt;
+      w1 = min(w0 + wt, win_len);
+    }
+    if (c0 >= c1 && w0 >= w1) return;   // not live: the merge skips it
   }
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -111,7 +146,7 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   __syncthreads();
 
   // ---- packed pool chunks -------------------------------------------------
-  for (int ci = 0; ci < n_chunks; ++ci) {
+  for (int ci = c0; ci < c1; ++ci) {
     const size_t slot = ((size_t)li * max_chunks + ci) * BH + bh;
     const int16_t* rows = pool + slot * ROWS * D;
     const __nv_bfloat16* ks = scales + slot * 2 * D;
@@ -169,8 +204,10 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
         for (int g = 0; g < G; ++g) pv[g] += sm.s[g][r + V_ROWS * f] * c;
       }
     }
+    // a split block takes one step: acc * corr is 0 and acc = pv * vsc
 #pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] = acc[g] * sm.corr[g] + pv[g] * vsc;
+    for (int g = 0; g < G; ++g)
+      acc[g] = SPLIT ? pv[g] * vsc : acc[g] * sm.corr[g] + pv[g] * vsc;
     __syncthreads();   // the next step overwrites sm.s and sm.corr
   }
 
@@ -186,8 +223,8 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     qr[g][2] = v4.z;
     qr[g][3] = v4.w;
   }
-  for (int t0 = 0; t0 < win_len; t0 += wt) {
-    const int nt = min(wt, win_len - t0);
+  for (int t0 = w0; t0 < w1; t0 += wt) {
+    const int nt = min(wt, w1 - t0);
     for (int t = warp; t < nt; t += WARPS) {
       const uint2 raw =
           *reinterpret_cast<const uint2*>(kw + (size_t)(t0 + t) * D + 4 * lane);
@@ -217,7 +254,7 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
       for (int g = 0; g < G; ++g) pv[g] += sm.s[g][t] * vv;
     }
 #pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] = acc[g] * sm.corr[g] + pv[g];
+    for (int g = 0; g < G; ++g) acc[g] = SPLIT ? pv[g] : acc[g] * sm.corr[g] + pv[g];
     __syncthreads();
   }
 
@@ -227,6 +264,20 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     for (int g = 0; g < G; ++g) sm.acc[g][d] = acc[g];
   }
   __syncthreads();
+  if constexpr (SPLIT) {
+    // unnormalised partials: the halves' sum, the step's m and l
+    if (half == 0) {
+      float* pa = part + split_merge::acc_at(bh, split, G, n_splits);
+#pragma unroll
+      for (int g = 0; g < G; ++g) pa[g * D + d] = acc[g] + sm.acc[g][d];
+    }
+    if (tid < G) {
+      float* ml = part + split_merge::ml_at(bh, split, G, n_splits, BH) + 2 * tid;
+      ml[0] = sm.m[tid];
+      ml[1] = sm.l[tid];
+    }
+    return;
+  }
   if (half == 0) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -240,64 +291,63 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   }
 }
 
-template <int G, int KB, int VB>
-void launch(const void* q, const void* pool, const void* scales,
-            const void* k_win, const void* v_win, void* out, int out_f32,
-            int BH, int max_chunks, int W, int wt, int n_chunks, int win_len,
-            int li, const int* nc_slot, const int* wl_slot, int hkv,
-            cudaStream_t stream) {
-  quant_decode_kernel<G, KB, VB><<<BH, THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int16_t*>(pool),
-      static_cast<const __nv_bfloat16*>(scales),
-      static_cast<const __nv_bfloat16*>(k_win),
-      static_cast<const __nv_bfloat16*>(v_win),
-      out, out_f32, BH, max_chunks, W, wt, n_chunks, win_len, li, nc_slot,
-      wl_slot, hkv);
+// The launch parameters both entries share.
+struct Args {
+  const void *q, *pool, *scales, *k_win, *v_win;
+  void* out;
+  int out_f32, BH, max_chunks, W, wt, n_chunks, win_len, li;
+  const int *nc_slot, *wl_slot;   // null: uniform counts
+  int hkv;
+  float* part;                    // SPLIT: scratch of n_splits splits a row
+  int n_splits;
+};
+
+template <int G, int KB, int VB, bool SPLIT>
+void launch(const Args& a, cudaStream_t stream) {
+  quant_decode_kernel<G, KB, VB, SPLIT>
+      <<<dim3(a.BH, SPLIT ? a.n_splits : 1), THREADS, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(a.q), static_cast<const int16_t*>(a.pool),
+          static_cast<const __nv_bfloat16*>(a.scales),
+          static_cast<const __nv_bfloat16*>(a.k_win),
+          static_cast<const __nv_bfloat16*>(a.v_win), a.out, a.out_f32, a.BH,
+          a.max_chunks, a.W, a.wt, a.n_chunks, a.win_len, a.li, a.nc_slot, a.wl_slot,
+          a.hkv, a.part, a.n_splits);
 }
 
-template <int KB, int VB>
-int launch_groups(int G, const void* q, const void* pool, const void* scales,
-                  const void* k_win, const void* v_win, void* out, int out_f32,
-                  int BH, int max_chunks, int W, int wt, int n_chunks, int win_len,
-                  int li, const int* nc_slot, const int* wl_slot, int hkv,
-                  cudaStream_t s) {
-#define QDEC_LAUNCH(g)                                                          \
-  launch<g, KB, VB>(q, pool, scales, k_win, v_win, out, out_f32, BH,           \
-                    max_chunks, W, wt, n_chunks, win_len, li, nc_slot, wl_slot, \
-                    hkv, s)
+template <bool SPLIT, int KB, int VB>
+int launch_groups(int G, const Args& a, cudaStream_t s) {
   switch (G) {
-    case 1: QDEC_LAUNCH(1); break;
-    case 2: QDEC_LAUNCH(2); break;
-    case 4: QDEC_LAUNCH(4); break;
-    case 8: QDEC_LAUNCH(8); break;
+    case 1: launch<1, KB, VB, SPLIT>(a, s); break;
+    case 2: launch<2, KB, VB, SPLIT>(a, s); break;
+    case 4: launch<4, KB, VB, SPLIT>(a, s); break;
+    case 8: launch<8, KB, VB, SPLIT>(a, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef QDEC_LAUNCH
   return (int)cudaGetLastError();
 }
 
 // Checks the launch parameters, selects the instance for the codec's bit
 // widths (kbits, vbits) and the group size G, and returns
-// cudaGetLastError().
-inline int launch_decode(const void* q, const void* pool, const void* scales,
-                         const void* k_win, const void* v_win, void* out,
-                         int out_f32, int device, int kbits, int vbits, int BH,
-                         int G, int max_chunks, int W, int wt, int n_chunks,
-                         int win_len, int li, const int* nc_slot,
-                         const int* wl_slot, int hkv, void* stream) {
-  if (wt < 1 || wt > TILE) return (int)cudaErrorInvalidValue;
+// cudaGetLastError().  With SPLIT a grid of max_chunks chunk splits and
+// ceil(W / wt) window splits per row, its partials in `a.part`, then the
+// merge of each row's live splits (split_merge::SlotLive).
+template <bool SPLIT>
+int launch_decode(const Args& a, int device, int kbits, int vbits, int G, void* stream) {
+  if (a.wt < 1 || a.wt > TILE) return (int)cudaErrorInvalidValue;
+  if (SPLIT && (a.nc_slot == nullptr || a.part == nullptr ||
+                a.n_splits != a.max_chunks + (a.W + a.wt - 1) / a.wt))
+    return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QDEC_CODEC(kb, vb)                                                       \
-  launch_groups<kb, vb>(G, q, pool, scales, k_win, v_win, out, out_f32, BH,     \
-                        max_chunks, W, wt, n_chunks, win_len, li, nc_slot,      \
-                        wl_slot, hkv, s)
-  if (kbits == 8 && vbits == 8) return QDEC_CODEC(8, 8);
-  if (kbits == 8 && vbits == 4) return QDEC_CODEC(8, 4);
-  if (kbits == 4 && vbits == 4) return QDEC_CODEC(4, 4);
-#undef QDEC_CODEC
-  return (int)cudaErrorInvalidValue;
+  int err = (int)cudaErrorInvalidValue;
+  if (kbits == 8 && vbits == 8) err = launch_groups<SPLIT, 8, 8>(G, a, s);
+  if (kbits == 8 && vbits == 4) err = launch_groups<SPLIT, 8, 4>(G, a, s);
+  if (kbits == 4 && vbits == 4) err = launch_groups<SPLIT, 4, 4>(G, a, s);
+  if (err != (int)cudaSuccess || !SPLIT) return err;
+  return (int)split_merge::launch_merge(
+      a.part, a.out, a.out_f32, a.BH, G, a.n_splits,
+      split_merge::SlotLive{a.nc_slot, a.wl_slot, a.hkv, a.max_chunks, a.W, a.wt}, s);
 }
 
 }  // namespace qdec

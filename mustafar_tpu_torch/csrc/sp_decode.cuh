@@ -281,21 +281,6 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   }
 }
 
-// Which splits row bh of a per-slot call attends, for the merge: the chunk
-// splits [0, n_chunks) and the window splits [mc, mc + ceil(win_len / wt)),
-// the slot's counts clamped as the kernel clamps them.
-struct SplitLive {
-  const int* nc_slot;
-  const int* wl_slot;
-  int hkv, max_chunks, W, wt;
-  __device__ void operator()(int bh, int& a, int& c, int& n) const {
-    const int b = bh / hkv;
-    a = min(max(nc_slot[b], 0), max_chunks);
-    c = max_chunks;
-    n = (min(max(wl_slot[b], 0), W) + wt - 1) / wt;
-  }
-};
-
 // Checks the launch parameters, selects the instance for the group size G
 // and returns cudaGetLastError().  With `part` null one block per row,
 // normalised (SPLIT false); else a grid of max_chunks chunk splits and
@@ -354,7 +339,7 @@ int launch_decode(const void* q, const void* pool, const void* scales,
   if (err != cudaSuccess || !split) return (int)err;
   return (int)split_merge::launch_merge(
       part, out, out_f32, BH, G, n_splits,
-      SplitLive{nc_slot, wl_slot, hkv, max_chunks, W, wt}, s);
+      split_merge::SlotLive{nc_slot, wl_slot, hkv, max_chunks, W, wt}, s);
 }
 
 // The formats (k0, k1) and (vk0, vk1) at `qbits` bits, checked, and the

@@ -34,25 +34,51 @@
 // codes, bf16(q * kscale), bf16(p)), so the tensor cores compute what the
 // TPU's MXU does.
 //
-// Design (first, simple version): the TPU runs one program per (b, kv
-// head) over all QR rows; here the rows are cut into tiles of 128 (grid: row
-// tiles x B*Hkv, 64 blocks at B=1, Hkv=8, T=256, G=4).  A block of 8 warps
-// copies each chunk's stream into shared memory (cp.async; the next chunk's
-// copy runs while the block computes on this one), expands its K and V
-// from there into bf16 tiles in shared memory (2 x 68 KB with padded rows,
-// plus up to 76 KB of stream: the dynamic-shared-memory opt-in above
-// 48 KB), one warp per token row with ballots and popcounts, and each warp
-// owns 16 query rows through mma.sync m16n8k16, its bf16 q fragments held
-// in registers (at 8 bits formed anew for each chunk from the block's q
-// rows and K scale in shared memory).  To keep the register budget small
-// (the quant segment kernel holds a whole chunk's scores and spills), the
-// scores are taken in sub-tiles of 64 tokens, twice: a first pass finds
-// the chunk's row max, the second recomputes each sub-tile (the same mma,
-// the same values), forms bf16(p) in registers as the A operand of the
-// value product, and accumulates.  Every row tile expands the chunk anew;
-// TMA, wgmma, a shared expansion across row tiles and a persistent grid
-// are later work.  One source, templated on the value width: an instance
-// each, with its own shared-memory size.
+// Design: the TPU runs one program per (b, kv head) over all QR rows;
+// here the rows are cut into tiles of 128, one CTA of 8 warps each (grid:
+// row tiles x B*Hkv), and each warp owns 16 query rows through mma.sync
+// m16n8k16, its bf16 q fragments held in registers (at 8 bits formed anew
+// for each chunk from the CTA's q rows and K scale in shared memory).  To
+// keep the register budget small (the quant segment kernel holds a whole
+// chunk's scores and spills), the scores are taken in sub-tiles of 64
+// tokens, twice: a first pass finds the chunk's row max, the second
+// recomputes each sub-tile (the same mma, the same values), forms bf16(p)
+// in registers as the A operand of the value product, and accumulates.
+//
+// The expansion is shared: a kv head's row tiles form a thread block
+// cluster (Hopper's CTAs on neighbouring SMs that can write each other's
+// shared memory; 8 CTAs at T = 256, G = 4, the portable most;
+// segment_grid in ops/kernels/sparse_attention.py pads the tiles to a
+// multiple of the cluster, and a padding tile expands its share but
+// computes and writes nothing).  For each chunk every CTA copies the
+// chunk's stream into shared memory (cp.async, 48 KB at 16 bits, 28 KB at
+// 8: its peers' copies hit L2; the next chunk's copy runs while the CTA
+// computes on this one), expands its 1/cluster share of the K rows and V
+// rows with ballots and popcounts, one warp per token row, into bf16 tiles
+// in its own shared memory (2 x 68 KB with padded rows: the
+// dynamic-shared-memory opt-in above 48 KB, set once an instance), and
+// copies each expanded row into every peer's tiles through distributed
+// shared memory, 16 bytes a lane.  A cluster.sync() before the passes
+// reads the tiles and another before the next chunk's expansion overwrites
+// them; every CTA runs the same chunk loop and meets a final one, so no
+// CTA leaves while a peer may write to it.  The passes take their B
+// fragments from the tiles with ldmatrix (x4; .trans for V): the values
+// and the mma order of element-wise loads, so the output is the unshared
+// kernel's bit for bit.
+//
+// Measured for 31 chunks (B=1, T=256, G=4; NVIDIA H100 80GB HBM3, 700.00
+// W; tools/kernel_ab.py, PERF.md §6): 0.574 ms at 16 bits and 0.638 at 8,
+// where each of the 8 row tiles expanding the whole chunk itself took
+// 1.257 / 1.378 (the expansion set the pace: some 40 us a chunk).  Now the
+// passes do: without them 0.255, without the copies to the peers 0.490;
+// element-wise fragment loads 0.606.  At B=1 the grid is 64 CTAs of
+// ~184 KB (one an SM) in 8 clusters, which must each find 8 SMs of one
+// GPC; the card holds 15 such clusters at once
+// (cudaOccupancyMaxActiveClusters), so splitting the chunks over two
+// cluster sets (16 clusters, two waves) took 0.578 before its merge and
+// is not done.  A launch the card refuses returns its error.  TMA, wgmma
+// and a persistent grid are later work.  One source, templated on the
+// value width: an instance each, with its own shared-memory size.
 //
 // Interface: plain C, no PyTorch headers, bound with ctypes.  Launches on
 // the caller's stream, synchronises nothing and returns cudaGetLastError().
@@ -63,10 +89,14 @@
 
 #include <type_traits>
 
+#include <cooperative_groups.h>
+
 #include "bitmap_expand.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using bitmap::CHUNK;
 using bitmap::D;
@@ -77,6 +107,7 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int BLOCK_ROWS = 16 * WARPS;  // query rows per block, 16 per warp
 constexpr int SUB = 64;                 // tokens per score sub-tile
 constexpr int LD = D + 8;               // padded shared row: no bank conflicts
+constexpr int MAX_CLUSTER = 8;          // the portable thread block cluster size
 constexpr float NEG = -1e30f;
 constexpr float SM_SCALE = 0.08838834764831845f;   // 1 / sqrt(128)
 
@@ -94,14 +125,21 @@ template <int QBITS>
 using Smem = std::conditional_t<QBITS == 8, ScaledTiles, Tiles>;
 // (then one chunk's stream, KR + VR rows)
 
-// One stream's 256 rows expanded into a shared tile by the block's warps,
-// ROWS_IN_FLIGHT rows back to back.
+// This CTA's share of one stream's 256 rows (rows [rank, rank + 1) * 256 /
+// csize of the cluster's csize CTAs), expanded by its warps, ROWS_IN_FLIGHT
+// rows back to back, into the tile `dst` of every CTA of the cluster: each
+// warp writes its rows into its own tile, then copies them, 16 bytes a
+// lane, into each peer's tile through distributed shared memory.
 template <int QBITS>
-__device__ __forceinline__ void expand_chunk(const int16_t* __restrict__ stream,
+__device__ __forceinline__ void expand_share(const int16_t* __restrict__ stream,
                                              const Fmt<QBITS> f, __nv_bfloat16 (*dst)[LD],
-                                             int warp, int lane) {
+                                             cg::cluster_group& cluster, int csize,
+                                             int rank, int warp, int lane) {
   constexpr int NR = bitmap::ROWS_IN_FLIGHT;
-  for (int t0 = warp; t0 < CHUNK; t0 += NR * WARPS) {
+  static_assert(NR % 2 == 0, "a 16-byte copy takes two rows a warp");
+  const int share = CHUNK / csize;          // a multiple of NR * WARPS = 32
+  const int first = rank * share;
+  for (int t0 = first + warp; t0 < first + share; t0 += NR * WARPS) {
     float x[NR][4];
 #pragma unroll
     for (int j = 0; j < NR; ++j) bitmap::expand_row(stream, f, t0 + j * WARPS, lane, x[j]);
@@ -110,6 +148,20 @@ __device__ __forceinline__ void expand_chunk(const int16_t* __restrict__ stream,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         dst[t0 + j * WARPS][lane + 32 * i] = __float2bfloat16(x[j][i]);
+    if (csize == 1) continue;
+    __syncwarp();
+    // lanes 0-15 copy one of the rows, lanes 16-31 the next; each peer in
+    // turn from this CTA's rank on, so the CTAs write to different peers
+#pragma unroll
+    for (int p = 0; p < NR / 2; ++p) {
+      const int t = t0 + (2 * p + (lane >> 4)) * WARPS;
+      __nv_bfloat16* row = &dst[t][(lane & 15) * 8];
+      const uint4 v = *reinterpret_cast<const uint4*>(row);
+      for (int r = 1; r < csize; ++r) {
+        const int peer = rank + r < csize ? rank + r : rank + r - csize;
+        *reinterpret_cast<uint4*>(cluster.map_shared_rank(row, peer)) = v;
+      }
+    }
   }
 }
 
@@ -117,29 +169,28 @@ __device__ __forceinline__ void expand_chunk(const int16_t* __restrict__ stream,
 // Fragment layouts of mma.m16n8k16 (lane = 4 * gid + tig): A holds rows gid
 // and gid + 8, columns 2 tig (+1) and 2 tig + 8 (+1); B column gid, rows
 // 2 tig (+1) and 2 tig + 8 (+1); the f32 accumulator rows gid (c0, c1) and
-// gid + 8 (c2, c3), columns 2 tig and 2 tig + 1.
+// gid + 8 (c2, c3), columns 2 tig and 2 tig + 1.  The B fragments of two
+// 8-token tiles (K rows tok .. tok + 15, channels 16 kk .. 16 kk + 15) come
+// from one ldmatrix.x4: b[0], b[1] tile nt's, b[2], b[3] tile nt + 1's.
 __device__ __forceinline__ void sub_scores(const Tiles& sm, const uint32_t (&qa)[8][4],
-                                           int gid, int tig, int tok0, float (&s)[8][4]) {
+                                           int lane, int tok0, float (&s)[8][4]) {
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const int k0 = 16 * kk + 2 * tig;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const __nv_bfloat16* kr = &sm.k[tok0 + 8 * nt + gid][0];
-      mma_bf16(s[nt], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], ld32(kr + k0),
-               ld32(kr + k0 + 8));
+    for (int nt = 0; nt < 8; nt += 2) {
+      uint32_t b[4];
+      ldmatrix_x4<false>(b, &sm.k[tok0 + 8 * nt + 8 * (lane >> 4) + (lane & 7)]
+                                 [16 * kk + 8 * ((lane >> 3) & 1)]);
+      mma_bf16(s[nt], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b[0], b[1]);
+      mma_bf16(s[nt + 1], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b[2], b[3]);
     }
   }
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[nt][e] *= SM_SCALE;
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 // bf16(q * kscale) of two neighbouring channels, packed
@@ -160,6 +211,10 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<QBITS>& sm = *reinterpret_cast<Smem<QBITS>*>(smem_raw);
   int16_t* stage = reinterpret_cast<int16_t*>(smem_raw + sizeof(Smem<QBITS>));
+  // the cluster: this kv head's row tiles (blockIdx.x), csize of them
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int bh = blockIdx.y;
   const int b = bh / hkv;
   const int h = bh - b * hkv;
@@ -172,6 +227,9 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
   const int gid = lane >> 2;
   const int tig = lane & 3;
   const int wr = warp * 16;          // this warp's first row in the block
+  // a warp whose 16 rows all lie past QR (a padding tile's, or the last
+  // tile's tail) expands and syncs with the others but computes nothing
+  const bool computes = row0 + wr < QR;
 
   // (b, t, h*G + g) offset of query row r = t*G + g of this kv head
   auto row_off = [&](int r) -> size_t {
@@ -219,9 +277,11 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
   if (n_chunks > 0) bitmap::stage_rows_async(stage, chunk(0), rows, tid, THREADS);
   for (int ci = 0; ci < n_chunks; ++ci) {
     bitmap::cp_async_wait<0>();
-    __syncthreads();                 // chunk ci staged; the last chunk's readers are done
-    expand_chunk(stage, kf, sm.k, warp, lane);
-    expand_chunk(stage + (size_t)kf.rows() * D, vf, sm.v, warp, lane);
+    // chunk ci staged in every CTA; every CTA's tiles free (the last
+    // chunk's passes done), and at ci = 0 every CTA of the cluster running
+    cluster.sync();
+    expand_share(stage, kf, sm.k, cluster, csize, rank, warp, lane);
+    expand_share(stage + (size_t)kf.rows() * D, vf, sm.v, cluster, csize, rank, warp, lane);
     if constexpr (QBITS == 8) {
       const __nv_bfloat16* sc = scales + (((size_t)li * max_chunks + ci) * BH + bh) * 2 * D;
       for (int i = tid; i < 2 * D; i += THREADS) {
@@ -232,9 +292,10 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
           sm.vs[i - D] = x;
       }
     }
-    __syncthreads();                 // tiles (and scales) ready, the stage buffer free
+    cluster.sync();                  // tiles (and scales) whole in every CTA; the stage free
     if (ci + 1 < n_chunks)
       bitmap::stage_rows_async(stage, chunk(ci + 1), rows, tid, THREADS);
+    if (!computes) continue;
     if constexpr (QBITS == 8) {      // scale_q: this chunk's bf16(q * kscale)
       const __nv_bfloat16* q0 = &sm.q[wr + gid][0];
       const __nv_bfloat16* q1 = &sm.q[wr + gid + 8][0];
@@ -253,7 +314,7 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
 #pragma unroll 1
     for (int tok0 = 0; tok0 < CHUNK; tok0 += SUB) {
       float s[8][4];
-      sub_scores(sm, qa, gid, tig, tok0, s);
+      sub_scores(sm, qa, lane, tok0, s);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
@@ -277,7 +338,7 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
 #pragma unroll 1
     for (int tok0 = 0; tok0 < CHUNK; tok0 += SUB) {
       float s[8][4];
-      sub_scores(sm, qa, gid, tig, tok0, s);
+      sub_scores(sm, qa, lane, tok0, s);
       uint32_t p[8][2];              // bf16(p) pairs: row gid, row gid + 8
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
@@ -291,23 +352,20 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
         p[nt][1] = pack_bf16(e2, e3);
       }
       // the score fragments of tokens 16 j .. 16 j + 15, packed to bf16
-      // pairs, are the A fragment of the value product's k-step j (b: the
-      // B fragment of k-step j for channel tile nt)
-      auto b_frag = [&](int j, int nt, uint32_t& b0, uint32_t& b1) {
-        const int tk = tok0 + 16 * j + 2 * tig;
-        const int d = 8 * nt + gid;
-        b0 = pack_raw(sm.v[tk][d], sm.v[tk + 1][d]);
-        b1 = pack_raw(sm.v[tk + 8][d], sm.v[tk + 9][d]);
-      };
+      // pairs, are the A fragment of the value product's k-step j; its B
+      // fragments (V rows tok0 + 16 j + 2 tig (+1, +8, +9), channel 8 nt +
+      // gid) come transposed from ldmatrix.x4.trans, two of them at once
       if constexpr (QBITS == 16) {
 #pragma unroll
         for (int j = 0; j < SUB / 16; ++j)
 #pragma unroll
-          for (int nt = 0; nt < 16; ++nt) {
-            uint32_t b0, b1;
-            b_frag(j, nt, b0, b1);
+          for (int nt = 0; nt < 16; nt += 2) {
+            uint32_t b[4];   // tiles nt and nt + 1
+            ldmatrix_x4<true>(b, &sm.v[tok0 + 16 * j + (lane & 15)][8 * (nt + (lane >> 4))]);
             mma_bf16(o[nt], p[2 * j][0], p[2 * j][1], p[2 * j + 1][0], p[2 * j + 1][1],
-                     b0, b1);
+                     b[0], b[1]);
+            mma_bf16(o[nt + 1], p[2 * j][0], p[2 * j][1], p[2 * j + 1][0],
+                     p[2 * j + 1][1], b[2], b[3]);
           }
       } else {
         // each 8-channel tile's product over the sub-tile is multiplied by
@@ -316,11 +374,13 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
         for (int nt = 0; nt < 16; ++nt) {
           float pv[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-          for (int j = 0; j < SUB / 16; ++j) {
-            uint32_t b0, b1;
-            b_frag(j, nt, b0, b1);
-            mma_bf16(pv, p[2 * j][0], p[2 * j][1], p[2 * j + 1][0], p[2 * j + 1][1], b0,
-                     b1);
+          for (int j = 0; j < SUB / 16; j += 2) {
+            uint32_t b[4];   // k-steps j and j + 1
+            ldmatrix_x4<true>(b, &sm.v[tok0 + 16 * j + lane][8 * nt]);
+            mma_bf16(pv, p[2 * j][0], p[2 * j][1], p[2 * j + 1][0], p[2 * j + 1][1], b[0],
+                     b[1]);
+            mma_bf16(pv, p[2 * j + 2][0], p[2 * j + 2][1], p[2 * j + 3][0],
+                     p[2 * j + 3][1], b[2], b[3]);
           }
           const float vs0 = sm.vs[8 * nt + 2 * tig];
           const float vs1 = sm.vs[8 * nt + 2 * tig + 1];
@@ -336,6 +396,7 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
     m0 = mn0;
     m1 = mn1;
   }
+  cluster.sync();                    // no CTA leaves while a peer may write to it
 
   // ---- unnormalised partials out --------------------------------------------
 #pragma unroll
@@ -356,25 +417,65 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
 }
 
 template <int QBITS>
-int launch(const void* q, const void* pool, const void* scales, void* acc, void* m,
-           void* l, int BH, int hkv, int G, int T, int max_chunks, int n_chunks, int li,
-           int k0, int k1, int vk0, int vk1, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* pool, const void* scales, void* acc, void* m,
+                   void* l, int BH, int hkv, int G, int T, int max_chunks, int n_chunks,
+                   int li, int k0, int k1, int vk0, int vk1, int cluster, int tiles,
+                   int device, cudaStream_t stream) {
   bool k_ok, v_ok;
   const Fmt<QBITS> kf = bitmap::make_fmt<QBITS>(k0, k1, &k_ok);
   const Fmt<QBITS> vf = bitmap::make_fmt<QBITS>(vk0, vk1, &v_ok);
-  if (!k_ok || !v_ok || (QBITS == 8) != (scales != nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (!k_ok || !v_ok || (QBITS == 8) != (scales != nullptr)) return cudaErrorInvalidValue;
   const int smem = (int)(sizeof(Smem<QBITS>) + (size_t)(kf.rows() + vf.rows()) * D * 2);
-  const cudaError_t err = cudaFuncSetAttribute(
-      sp_segment_kernel<QBITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T * G + BLOCK_ROWS - 1) / BLOCK_ROWS, BH);
-  sp_segment_kernel<QBITS><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int16_t*>(pool),
-      static_cast<const __nv_bfloat16*>(scales), static_cast<float*>(acc),
-      static_cast<float*>(m), static_cast<float*>(l), BH, hkv, G, T, max_chunks,
-      n_chunks, li, kf, vf);
-  return (int)cudaGetLastError();
+  cudaError_t err = smem::allow_dynamic_smem<sp_segment_kernel<QBITS>>(smem, device);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, BH);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, sp_segment_kernel<QBITS>,
+                           static_cast<const __nv_bfloat16*>(q),
+                           static_cast<const int16_t*>(pool),
+                           static_cast<const __nv_bfloat16*>(scales),
+                           static_cast<float*>(acc), static_cast<float*>(m),
+                           static_cast<float*>(l), BH, hkv, G, T, max_chunks, n_chunks, li,
+                           kf, vf);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// How many clusters of `cluster` CTAs of the instance at `qbits` can be
+// resident on the card at once (cudaOccupancyMaxActiveClusters), for the
+// formats' shared-memory size.
+template <int QBITS>
+cudaError_t max_clusters(int k0, int k1, int vk0, int vk1, int cluster, int device,
+                         int* out) {
+  bool k_ok, v_ok;
+  const Fmt<QBITS> kf = bitmap::make_fmt<QBITS>(k0, k1, &k_ok);
+  const Fmt<QBITS> vf = bitmap::make_fmt<QBITS>(vk0, vk1, &v_ok);
+  if (!k_ok || !v_ok) return cudaErrorInvalidValue;
+  const int smem = (int)(sizeof(Smem<QBITS>) + (size_t)(kf.rows() + vf.rows()) * D * 2);
+  cudaError_t err = smem::allow_dynamic_smem<sp_segment_kernel<QBITS>>(smem, device);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, sp_segment_kernel<QBITS>, &cfg);
 }
 
 }  // namespace
@@ -384,22 +485,45 @@ int launch(const void* q, const void* pool, const void* scales, void* acc, void*
 // [B, T, Hkv*G, 128] f32; m, l [B, T, Hkv*G, 1] f32.  All contiguous and
 // 16-byte aligned; shapes checked by the caller.  `device` is the ordinal
 // the tensors and the stream belong to; BH = B * hkv; (k0, k1) and
-// (vk0, vk1) the K and V streams' segment widths (k1 = 0: one segment).
+// (vk0, vk1) the K and V streams' segment widths (k1 = 0: one segment);
+// `tiles` row tiles of 128 query rows a kv head in clusters of `cluster`
+// (1, 2, 4 or 8; `tiles` a multiple of it), covering the T*G rows with no
+// cluster wholly past them.  A cluster launch the card refuses returns its
+// error.
 extern "C" int sp_segment(const void* q, const void* pool, const void* scales, void* acc,
                           void* m, void* l, int device, int qbits, int BH, int hkv, int G,
                           int T, int max_chunks, int n_chunks, int li, int k0, int k1,
-                          int vk0, int vk1, void* stream) {
+                          int vk0, int vk1, int cluster, int tiles, void* stream) {
   if (hkv < 1 || BH % hkv || G < 1 || T < 1 || n_chunks < 0 ||
-      n_chunks > max_chunks || li < 0)
+      n_chunks > max_chunks || li < 0 || cluster < 1 || cluster > MAX_CLUSTER ||
+      (cluster & (cluster - 1)) || tiles < cluster || tiles % cluster ||
+      (long long)tiles * BLOCK_ROWS < (long long)T * G ||
+      (long long)(tiles - cluster) * BLOCK_ROWS >= (long long)T * G)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (qbits == 16)
-    return launch<16>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks, n_chunks,
-                      li, k0, k1, vk0, vk1, s);
-  if (qbits == 8)
-    return launch<8>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks, n_chunks,
-                     li, k0, k1, vk0, vk1, s);
+    err = launch<16>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks, n_chunks, li,
+                     k0, k1, vk0, vk1, cluster, tiles, device, s);
+  else if (qbits == 8)
+    err = launch<8>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks, n_chunks, li,
+                    k0, k1, vk0, vk1, cluster, tiles, device, s);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// Writes to *out the clusters of `cluster` CTAs of the instance at `qbits`
+// for formats (k0, k1), (vk0, vk1) that the card holds at once; returns the
+// CUDA error.
+extern "C" int sp_segment_max_clusters(void* out, int device, int qbits, int k0, int k1,
+                                       int vk0, int vk1, int cluster) {
+  if (out == nullptr || cluster < 1 || cluster > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int* n = static_cast<int*>(out);
+  if (qbits == 16) return (int)max_clusters<16>(k0, k1, vk0, vk1, cluster, device, n);
+  if (qbits == 8) return (int)max_clusters<8>(k0, k1, vk0, vk1, cluster, device, n);
   return (int)cudaErrorInvalidValue;
 }

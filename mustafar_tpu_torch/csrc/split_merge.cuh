@@ -1,5 +1,6 @@
 // The merge of split-K flash-decode partials, shared by the split decode
-// kernels (dense_decode.cu, and sp_decode.cu's per-slot entry).
+// kernels (dense_decode.cu, and the per-slot entries of sp_decode.cu and
+// q_decode_ps.cu).
 //
 // A split kernel's block (row bh = b * Hkv + h, split s) attends its G query
 // heads over one run of tokens and writes the unnormalised partials, f32,
@@ -90,6 +91,23 @@ merge_kernel(const float* __restrict__ part, void* __restrict__ out, int out_f32
   else
     static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16(o);
 }
+
+// Which splits row bh of a per-slot call attends, for the per-slot decode
+// kernels (one split a pool chunk, then one a window tile of `wt` tokens):
+// the chunk splits [0, n_chunks) and the window splits
+// [mc, mc + ceil(win_len / wt)), the slot's counts clamped as the kernels
+// clamp them.
+struct SlotLive {
+  const int* nc_slot;
+  const int* wl_slot;
+  int hkv, max_chunks, W, wt;
+  __device__ void operator()(int bh, int& a, int& c, int& n) const {
+    const int b = bh / hkv;
+    a = min(max(nc_slot[b], 0), max_chunks);
+    c = max_chunks;
+    n = (min(max(wl_slot[b], 0), W) + wt - 1) / wt;
+  }
+};
 
 // Launches merge_kernel over BH rows of G heads on `stream`.
 template <class Live>

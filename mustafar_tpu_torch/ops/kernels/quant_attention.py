@@ -6,12 +6,16 @@ Ports of ``mustafar_tpu/ops/kernels/quant_attention.py`` for the codecs q8
 256-token chunks, options off:
   fused_q_decode_attention     uniform-batch decode   csrc/q_decode.cu
   fused_q_decode_attention_ps  per-slot decode        csrc/q_decode_ps.cu
+                               (split-K: a split kernel, then its merge)
   fused_q_segment_attention    chunked-prefill        csrc/q_segment.cu
                                partials over the pools
 Each kernel's header note says what it computes, what bounds it and how it
 is laid out.  The plain versions below repeat their arithmetic step by step
 (same casts, same order of scaling, the same online-softmax steps), so
-kernel and plain version agree to f32 rounding.
+kernel and plain version agree to f32 rounding.  The per-slot kernel splits
+each slot's work (one chunk, or one window tile, a split) and merges the
+splits' partials: ``fused_q_decode_attention_ps_split_plain`` is its
+arithmetic, ``fused_q_decode_attention_ps_plain`` the TPU's.
 
 Layouts are the JAX package's stacked ones, indexed at layer ``li``:
   q          [B, 1, Hq, 128]              bf16 or f32 (read as bf16)
@@ -33,6 +37,7 @@ import functools
 import torch
 
 from mustafar_tpu_torch.ops import quant_format as qf
+from mustafar_tpu_torch.ops.attention import merge_partials
 from mustafar_tpu_torch.ops.kernels import build
 
 NEG_INF = -1e30
@@ -195,6 +200,45 @@ def slots(B: int, BH: int, n_chunks, win_len, mc: int, W: int):
         yield b, slice(b * Hkv, (b + 1) * Hkv), min(max(nc, 0), mc), min(max(wl, 0), W)
 
 
+def ps_splits(mc: int, W: int) -> int:
+    """Splits a row of a per-slot kernel's grid has: one a pool chunk, then
+    one a window tile (``window_tile``)."""
+    return mc + (-(-W // window_tile(W)) if W else 0)
+
+
+def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_win,
+                   li: int):
+    """The per-slot split kernels' arithmetic, shared by every codec's split
+    plain version: per slot (counts clamped, ``slots``), the partials (acc,
+    m, l) of each of its chunks (``slot_step(hs)`` is the chunk step, as in
+    ``decode_steps``, of the slot's kv heads ``hs``) and of each window
+    tile, one softmax step each from a fresh state, merged in split order
+    (``merge_partials``).  A slot with nothing to attend comes out 0.  Out
+    is f32 -> q's dtype."""
+    B, _, Hq, D = q.shape
+    Hkv = BH // B
+    G = Hq // Hkv
+    f32 = torch.float32
+    W = k_win.shape[2]
+    wt = window_tile(W)
+    outs = []
+    for b, hs, nc, wl in slots(B, BH, n_chunks, win_len, mc, W):
+        step = slot_step(hs)
+        qf32 = q[b].to(torch.bfloat16).to(f32).reshape(Hkv, G, D)
+        fresh = (torch.full((Hkv, G, 1), NEG_INF, dtype=f32, device=q.device),
+                 torch.zeros((Hkv, G, 1), dtype=f32, device=q.device),
+                 torch.zeros((Hkv, G, D), dtype=f32, device=q.device))
+        parts = [_softmax_step(*fresh, *step(qf32, ci)) for ci in range(nc)]
+        for t0 in range(0, wl, wt):
+            kw = k_win[li, hs, t0:min(wl, t0 + wt)].to(f32)
+            vw = v_win[li, hs, t0:min(wl, t0 + wt)].to(f32)
+            parts.append(_softmax_step(*fresh, (qf32 @ kw.transpose(1, 2)) * SM_SCALE,
+                                       vw, None))
+        out = merge_partials([(acc, m, l) for m, l, acc in parts]) if parts else fresh[2]
+        outs.append(out.reshape(1, 1, Hq, D))
+    return torch.cat(outs).to(q.dtype)
+
+
 def segment_steps(q_seg, BH: int, n_chunks: int, chunk_step):
     """The segment kernels' steps, shared by every codec's plain version:
     every query row (token t, head of kv head h; row t*G + g) attends the
@@ -251,16 +295,23 @@ _SCRATCH: dict = {}
 INT_MAX = 2 ** 31 - 1
 
 
-def _split_scratch(BH: int, n_splits: int, G: int, device, stream):
-    """Scratch for a split kernel's partials (``csrc/split_merge.cuh``): per
-    row, split and query head acc [128], m and l in f32, BH * n_splits * G
-    * 130 floats; the C entry is given its size and refuses a short one.
-    One buffer per (device, stream), grown when a call needs more and kept,
-    not initialised: calls on one stream run in order, and the merge reads
-    only the splits that were written.  Pass its ``numel()`` as the size."""
+def split_scratch_floats(BH: int, n_splits: int, G: int) -> int:
+    """Floats of a split kernel's partials (``csrc/split_merge.cuh``): per
+    row, split and query head acc [128], m and l in f32.  Refused past the
+    int range, in which the C entries are told the size."""
     n = BH * n_splits * G * 130
     if n > INT_MAX:
         raise ValueError(f"split scratch of {n} floats exceeds the kernels' int sizes")
+    return n
+
+
+def _split_scratch(BH: int, n_splits: int, G: int, device, stream):
+    """Scratch for a split kernel's partials, ``split_scratch_floats`` of
+    them; the C entry is given its size and refuses a short one.  One
+    buffer per (device, stream), grown when a call needs more and kept, not
+    initialised: calls on one stream run in order, and the merge reads only
+    the splits that were written.  Pass its ``numel()`` as the size."""
+    n = split_scratch_floats(BH, n_splits, G)
     key = (device.index or 0, stream)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < n:
@@ -337,6 +388,18 @@ def fused_q_decode_attention_ps_plain(q, kv_pool, kv_scales, k_win, v_win,
                                    win_len, kv_pool.shape[1], k_win.shape[2])])
 
 
+def fused_q_decode_attention_ps_split_plain(q, kv_pool, kv_scales, k_win, v_win,
+                                            n_chunks, win_len, li: int,
+                                            codec: qf.QuantCodec):
+    """The per-slot CUDA kernel's arithmetic (``ps_split_steps`` with the
+    codec's chunk step): each chunk and each window tile of a slot one
+    split from a fresh softmax state, merged in split order."""
+    return ps_split_steps(
+        q, kv_pool.shape[2], n_chunks, win_len, kv_pool.shape[1],
+        lambda hs: _q_chunk_step(kv_pool[:, :, hs], kv_scales[:, :, hs], li, codec),
+        k_win, v_win, li)
+
+
 def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
                                 n_chunks: torch.Tensor, win_len: torch.Tensor,
                                 li: int, codec: qf.QuantCodec, *, window=None,
@@ -351,9 +414,11 @@ def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
     clamped in the kernel to [0, mc] and [0, W]; an idle slot is passed as
     (0, 0) and comes out 0.
 
-    CUDA tensors launch the kernel of ``csrc/q_decode_ps.cu`` (built at
-    first use) on the current stream; CPU tensors run the plain version.  A
-    CUDA request the kernel cannot serve raises; nothing falls back."""
+    CUDA tensors launch the kernels of ``csrc/q_decode_ps.cu`` (built at
+    first use: the split kernel, then its merge) on the current stream,
+    with the stream's split scratch (``_split_scratch``); CPU tensors run
+    the plain version.  A CUDA request the kernel cannot serve raises;
+    nothing falls back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec,
                                  window, False, return_win_probs,
                                  "fused_q_decode_attention_ps")
@@ -366,17 +431,20 @@ def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
     if q.device.type == "cpu":
         return fused_q_decode_attention_ps_plain(q, kv_pool, kv_scales, k_win,
                                                  v_win, n_chunks, win_len, li, codec)
+    n_splits = ps_splits(mc, W)
+    split_scratch_floats(BH, n_splits, G)        # a grid too large: refused up front
     stream = _stream(q)
     _check_aligned((("q", q), ("kv_pool", kv_pool), ("kv_scales", kv_scales),
                     ("k_win", k_win), ("v_win", v_win)))
-    fn = _library("q_decode_ps", "q_decode_attention_ps", 8, 11)
+    fn = _library("q_decode_ps", "q_decode_attention_ps", 9, 13)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
+    scratch = _split_scratch(BH, n_splits, G, q.device, stream)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
             k_win.data_ptr(), v_win.data_ptr(), n_chunks.data_ptr(),
-            win_len.data_ptr(), out.data_ptr(),
+            win_len.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.numel(),
             int(out.dtype == torch.float32), q.device.index or 0, codec.kbits,
-            codec.vbits, BH, BH // B, G, mc, W, window_tile(W), li, stream)
+            codec.vbits, BH, BH // B, G, mc, W, window_tile(W), li, n_splits, stream)
     if rc != 0:
         raise RuntimeError(f"q_decode_attention_ps launch failed: CUDA error {rc}")
     fused_q_decode_attention_ps.launches += 1

@@ -10,7 +10,9 @@ off:
   fused_sparse_decode_attention_ps  per-slot decode       csrc/sp_decode.cu
                                     (TPU kernel v6ps)     (entry sp_decode_ps)
   fused_sparse_segment_attention    chunked-prefill       csrc/sp_segment.cu
-                                    partials over the pools
+                                    partials over the pools (thread block
+                                    clusters that share each chunk's
+                                    expansion: ``segment_grid``)
 Each chunk's K and V are expanded from the bitmap word planes and the
 interleaved value segments (``csrc/bitmap_expand.cuh``), then attended as
 dense tiles.  At ``qbits=16`` no scale applies: scores are bf16(q) . K /
@@ -42,7 +44,6 @@ from __future__ import annotations
 import torch
 
 from mustafar_tpu_torch.ops import sparse_format as sf
-from mustafar_tpu_torch.ops.attention import merge_partials
 from mustafar_tpu_torch.ops.kernels import quant_attention as qa
 
 
@@ -207,48 +208,20 @@ def fused_sparse_decode_attention_ps_plain(q, kv_pool, k_win, v_win, n_chunks,
                                       win_len, kv_pool.shape[1], k_win.shape[2])])
 
 
-def ps_splits(mc: int, W: int) -> int:
-    """Splits a row of the per-slot kernel's grid has: one a pool chunk,
-    then one a window tile (``quant_attention.window_tile``)."""
-    return mc + (-(-W // qa.window_tile(W)) if W else 0)
+ps_splits = qa.ps_splits
 
 
 def fused_sparse_decode_attention_ps_split_plain(q, kv_pool, k_win, v_win, n_chunks,
                                                  win_len, li: int, kfmt, vfmt,
                                                  kv_scales=None):
-    """The per-slot CUDA kernel's arithmetic: per slot, the partials (acc,
-    m, l) of each of its chunks and of each window tile, one softmax step
-    each from a fresh state, merged in split order (``merge_partials``).
-    Counts clamped as the kernel clamps them; a slot with nothing to attend
-    comes out 0."""
-    B, _, Hq, D = q.shape
-    BH = kv_pool.shape[2]
-    Hkv = BH // B
-    G = Hq // Hkv
-    f32 = torch.float32
-    wt = qa.window_tile(k_win.shape[2])
-    outs = []
-    for b, hs, nc, wl in qa.slots(B, BH, n_chunks, win_len, kv_pool.shape[1],
-                                  k_win.shape[2]):
-        step = _sp_chunk_step(kv_pool[:, :, hs], None if kv_scales is None
-                              else kv_scales[:, :, hs], li, kfmt, vfmt)
-        qf32 = q[b].to(torch.bfloat16).to(f32).reshape(Hkv, G, D)
-        fresh = (torch.full((Hkv, G, 1), qa.NEG_INF, dtype=f32, device=q.device),
-                 torch.zeros((Hkv, G, 1), dtype=f32, device=q.device),
-                 torch.zeros((Hkv, G, D), dtype=f32, device=q.device))
-        parts = []
-        for ci in range(nc):
-            m, l, acc = qa._softmax_step(*fresh, *step(qf32, ci))
-            parts.append((acc, m, l))
-        for t0 in range(0, wl, wt):
-            kw = k_win[li, hs, t0:min(wl, t0 + wt)].to(f32)
-            vw = v_win[li, hs, t0:min(wl, t0 + wt)].to(f32)
-            m, l, acc = qa._softmax_step(*fresh, (qf32 @ kw.transpose(1, 2)) * qa.SM_SCALE,
-                                         vw, None)
-            parts.append((acc, m, l))
-        out = merge_partials(parts) if parts else fresh[2]
-        outs.append(out.reshape(1, 1, Hq, D))
-    return torch.cat(outs).to(q.dtype)
+    """The per-slot CUDA kernel's arithmetic (``quant_attention.ps_split_steps``
+    with the bitmap chunk step): each chunk and each window tile of a slot
+    one split from a fresh softmax state, merged in split order."""
+    return qa.ps_split_steps(
+        q, kv_pool.shape[2], n_chunks, win_len, kv_pool.shape[1],
+        lambda hs: _sp_chunk_step(kv_pool[:, :, hs], None if kv_scales is None
+                                  else kv_scales[:, :, hs], li, kfmt, vfmt),
+        k_win, v_win, li)
 
 
 def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
@@ -318,6 +291,22 @@ def fused_sparse_segment_attention_plain(q_seg, kv_pool, n_chunks: int, li: int,
                             _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt))
 
 
+SEG_TILE_ROWS = 128          # query rows a CTA of the segment kernel takes
+MAX_CLUSTER = 8              # the portable thread block cluster size
+
+
+def segment_grid(T: int, G: int) -> tuple[int, int]:
+    """The segment kernel's grid along one kv head's T*G query rows:
+    (cluster, row tiles).  The rows go in tiles of 128, a CTA each; the
+    tiles form thread block clusters of the smallest power of two that
+    covers them, at most 8, each cluster expanding a chunk once; the tiles
+    are padded to a multiple of the cluster (a padding tile expands its
+    share and writes nothing)."""
+    tiles = -(-T * G // SEG_TILE_ROWS)
+    cluster = min(MAX_CLUSTER, 1 << (tiles - 1).bit_length())
+    return cluster, -(-tiles // cluster) * cluster
+
+
 def fused_sparse_segment_attention(q_seg, kv_pool, n_chunks: int, seg_start: int,
                                    li: int, kfmt: sf.ChunkFormat,
                                    vfmt: sf.ChunkFormat, *, kv_scales=None,
@@ -331,9 +320,11 @@ def fused_sparse_segment_attention(q_seg, kv_pool, n_chunks: int, seg_start: int
     as for ``fused_sparse_decode_attention``.
 
     CUDA tensors launch the kernel of ``csrc/sp_segment.cu`` (built at first
-    use; the instance of the formats' value width) on the current stream;
-    CPU tensors run the plain version.  A CUDA request the kernel cannot
-    serve raises; nothing falls back."""
+    use; the instance of the formats' value width) on the current stream,
+    as thread block clusters over each kv head's row tiles
+    (``segment_grid``); CPU tensors run the plain version.  A CUDA request
+    the kernel cannot serve, or a cluster launch the card refuses, raises;
+    nothing falls back."""
     _check_formats(kfmt, vfmt, kv_scales, window, "fused_sparse_segment_attention")
     if q_seg.dim() != 4 or q_seg.shape[3] != 128 or q_seg.shape[1] < 1:
         raise ValueError(f"q_seg must be [B, Tseg, Hq, 128], got {tuple(q_seg.shape)}")
@@ -354,7 +345,7 @@ def fused_sparse_segment_attention(q_seg, kv_pool, n_chunks: int, seg_start: int
                                                     kfmt, vfmt, kv_scales)
     stream = qa._stream(q_seg)
     qa._check_aligned((("q_seg", q_seg), ("kv_pool", kv_pool), *_scales(kv_scales)))
-    fn = qa._library("sp_segment", "sp_segment", 6, 13)
+    fn = qa._library("sp_segment", "sp_segment", 6, 15)
     dev = q_seg.device
     acc = torch.empty((B, T, Hq, 128), dtype=torch.float32, device=dev)
     m = torch.empty((B, T, Hq, 1), dtype=torch.float32, device=dev)
@@ -362,7 +353,8 @@ def fused_sparse_segment_attention(q_seg, kv_pool, n_chunks: int, seg_start: int
     qb = q_seg.to(torch.bfloat16)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), _ptr(kv_scales), acc.data_ptr(),
             m.data_ptr(), l.data_ptr(), dev.index or 0, kfmt.qbits, BH, Hkv, Hq // Hkv,
-            T, mc, n_chunks, li, *_segs(kfmt), *_segs(vfmt), stream)
+            T, mc, n_chunks, li, *_segs(kfmt), *_segs(vfmt),
+            *segment_grid(T, Hq // Hkv), stream)
     if rc != 0:
         raise RuntimeError(f"sp_segment launch failed: CUDA error {rc}")
     fused_sparse_segment_attention.launches += 1

@@ -5,12 +5,19 @@
     ``fused_q_segment_attention`` (chunked-prefill partials) against the
     JAX kernels run in Pallas interpret mode, on the same stacked int16
     pools, bf16 scales and windows, for the codecs q8, q8q4 and q4q4.
+(s) The per-slot CUDA kernel's split arithmetic
+    (``fused_q_decode_attention_ps_split_plain``: partials of single chunks
+    and single window tiles from fresh softmax states, merged in split
+    order) against the same JAX kernel and against the TPU-order plain
+    version, for q8, q8q4 and q4q4, groups 1 and 4, f32 and bf16 q, with
+    slots that have chunks but no window, a window but no chunks, and none.
 (j) The module imports and runs on the CPU with no ``nvcc``; the wrappers
     refuse what the CUDA kernels cannot serve instead of falling back.
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
 them against the plain versions there.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -241,6 +248,98 @@ def test_ps_plain_equals_uniform_per_slot():
                                             tk[:, hs].contiguous(), tv[:, hs].contiguous(),
                                             c, w, 1, TCODEC)
         np.testing.assert_array_equal(got[b:b + 1].float().numpy(), want.float().numpy())
+
+
+SPLIT_NC = [0, 1, 3, 2, 3, 0]
+SPLIT_WL = [1, 44, 288, 0, 1, 0]
+ULP = 2.0 ** -8
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(codec, G, q_dtype):
+    """Per-slot inputs (6 slots of one kv head, mc=3, layer 1) and the JAX
+    kernel's output on them, once a codec, group and q dtype."""
+    q, pool, scales, k_win, v_win = _inputs(80 + G, 2, 3, 6, 1, G, codec)
+    jo = jqa.fused_q_decode_attention_ps(
+        jnp.asarray(q, getattr(jnp, q_dtype)), jnp.asarray(pool),
+        jnp.asarray(scales[..., 0, :], jnp.bfloat16),
+        jnp.asarray(scales[..., 1, :], jnp.bfloat16),
+        jnp.asarray(k_win, jnp.bfloat16), jnp.asarray(v_win, jnp.bfloat16),
+        jnp.asarray(SPLIT_NC, jnp.int32), jnp.asarray(SPLIT_WL, jnp.int32),
+        JCODECS[codec], 3, li=jnp.int32(1))
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    targs = (torch.from_numpy(pool), bf(scales), bf(k_win), bf(v_win),
+             torch.tensor(SPLIT_NC, dtype=torch.int32),
+             torch.tensor(SPLIT_WL, dtype=torch.int32), 1, TCODECS[codec])
+    tq = torch.from_numpy(q).to(getattr(torch, q_dtype))
+    return tq, targs, np.asarray(jo).astype(np.float32)
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("codec", ["q8", "q8q4", "q4q4"])
+def test_ps_split_plain_matches_jax_kernel(codec, G, q_dtype):
+    """The kernel's splits: one a chunk (3 splits at 3 chunks, 2 at 2, 1 at
+    1), one a window tile (3 at 288 tokens, 1 at 44 and at 1); slots with
+    chunks and no window, a window and no chunks, both, and none.  Held to
+    the JAX kernel at the file's tolerance (f32 q; a bf16 output may also
+    round one ulp the other way: twice that) and to the TPU-order plain
+    version at 2 bf16 ulps, slot by slot; the idle slot comes out exactly
+    0, a bf16 q gives the f32 q's output rounded."""
+    tq, targs, jo = _split_case(codec, G, q_dtype)
+    got = tqa.fused_q_decode_attention_ps_split_plain(tq, *targs)
+    assert got.dtype == tq.dtype
+    tpu = tqa.fused_q_decode_attention_ps_plain(tq, *targs).float().numpy()
+    got32 = tqa.fused_q_decode_attention_ps_split_plain(tq.float(), *targs)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  got32.to(tq.dtype).float().numpy())
+    got = got.float().numpy()
+    jtol = ULP if q_dtype == "float32" else 2 * ULP
+    for b in range(6):
+        if not (SPLIT_NC[b] or SPLIT_WL[b]):
+            assert (got[b] == 0).all(), f"idle slot {b}"
+            continue
+        assert np.abs(got[b]).max() > 0, f"live slot {b} written as 0"
+        np.testing.assert_allclose(got[b], jo[b], rtol=0,
+                                   atol=jtol * np.abs(jo[b]).max(),
+                                   err_msg=f"slot {b} against JAX")
+        np.testing.assert_allclose(got[b], tpu[b], rtol=0,
+                                   atol=2 * ULP * np.abs(tpu[b]).max(),
+                                   err_msg=f"slot {b} against the TPU order")
+
+
+def test_ps_splits_of_the_grid():
+    """A row of the per-slot grid, one split a pool chunk, then one a window
+    tile (96 tokens at W=288, 40 at W=40 and at W=200, none at W=0): the
+    same for both codec families."""
+    from mustafar_tpu_torch.ops.kernels import sparse_attention as tska
+    for (mc, W), n in (((32, 288), 35), ((5, 40), 6), ((3, 200), 8), ((0, 288), 3),
+                       ((4, 0), 4), ((1, 1), 2)):
+        assert tqa.ps_splits(mc, W) == tska.ps_splits(mc, W) == n, (mc, W)
+
+
+def test_ps_wrapper_refuses_scratch_past_the_int_range():
+    """The C entry takes its scratch size as an int: a grid whose partials
+    would need more floats is refused before anything is allocated or
+    launched (here on meta tensors, which allocate nothing); at the
+    engine's shape the same call goes on to the device check."""
+    B, Hkv, G, W = 64, 8, 8, 288
+
+    def call(mc):
+        meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+        return tqa.fused_q_decode_attention_ps(
+            meta((B, 1, Hkv * G, 128), torch.bfloat16),
+            meta((1, mc, B * Hkv, TCODEC.stream_rows, 128), torch.int16),
+            meta((1, mc, B * Hkv, 2, 128), torch.bfloat16),
+            meta((1, B * Hkv, W, 128), torch.bfloat16),
+            meta((1, B * Hkv, W, 128), torch.bfloat16),
+            meta((B,), torch.int32), meta((B,), torch.int32), 0, TCODEC)
+
+    # 512 rows x 4,099 splits x 8 heads x 130 floats > 2^31 - 1
+    with pytest.raises(ValueError, match="int sizes"):
+        call(4096)
+    with pytest.raises(ValueError, match="unsupported device"):
+        call(32)
 
 
 def test_ps_wrapper_refuses_what_the_kernel_cannot_serve():

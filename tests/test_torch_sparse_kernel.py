@@ -212,6 +212,25 @@ def test_ps_splits_of_the_grid():
     assert tska.ps_splits(3, 200) == 3 + 5
 
 
+def test_segment_grid_pads_row_tiles_to_the_cluster():
+    """The segment kernel's grid along a kv head's T*G query rows: tiles of
+    128 rows in thread block clusters of a power of two up to 8 that
+    covers them (Llama-3-8B's T=256, G=4: one cluster of 8), the tiles
+    padded to a multiple of the cluster, no cluster wholly padding."""
+    assert tska.segment_grid(256, 4) == (8, 8)
+    assert tska.segment_grid(256, 1) == (2, 2)
+    assert tska.segment_grid(256, 2) == (4, 4)
+    assert tska.segment_grid(256, 8) == (8, 16)
+    assert tska.segment_grid(96, 4) == (4, 4)        # 3 tiles, one padding
+    assert tska.segment_grid(288, 4) == (8, 16)      # 9 tiles, 7 padding
+    assert tska.segment_grid(1, 1) == (1, 1)
+    for T in range(1, 700, 3):
+        for G in (1, 2, 4, 8):
+            cluster, tiles = tska.segment_grid(T, G)
+            assert cluster in (1, 2, 4, 8) and tiles % cluster == 0, (T, G)
+            assert tiles * 128 >= T * G > (tiles - cluster) * 128, (T, G)
+
+
 def test_ps_plain_equals_uniform_per_slot():
     """Slot b of the per-slot version is the uniform computation over its
     own counts; counts out of range are clamped as the kernel clamps them."""
