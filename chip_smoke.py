@@ -22,8 +22,11 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 (split-K, every codec) also against its split plain
                 version, and refusing short scratch
   kernel_seg    the segment kernel likewise: Tseg=256, G=4, B = 1 and 2,
-                n_chunks 0/1/4/31; timed at 31 chunks (the bitmap codecs'
-                with their cluster size and the clusters the card holds)
+                n_chunks 0/1/4/31, a second launch bit-equal to the first;
+                timed at 31 chunks (the bitmap codecs' with their cluster
+                size and the clusters the card holds), the quant codecs' also
+                at 1, 4 and 16 (the counts serve_cb launches it at), each
+                beside its bound
   kernel_q8, kernel_ps_q8, kernel_seg_q8, and the same for q4q4
                 the three phases above at the codecs q8 and q4q4
   kernel_sp, kernel_sp_ps, kernel_sp_seg
@@ -42,8 +45,10 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 bound and the plain chain
   kernel_w4     the W4 matmul kernel against its plain version at every
                 Llama-3-8B projection shape and the fused wqkv / w_gateup, T = 8
-                and 32 (and 1, 13, 100, 128 at one shape), timed beside its byte
-                bound, the W8 proj and a bf16 matmul of the same shape
+                and 32 (and 1, 13, 100, 128 at one shape), a second launch
+                bit-equal to the first, refusing a short workspace; timed
+                beside its byte bound (and its share of it), the W8 proj and
+                a bf16 matmul of the same shape
   kernel_dense  the dense flash-decode kernel (split-K) against its plain
                 version and its split plain version (a tighter gate: see
                 split_gate), refusing short scratch: B=8, S=1,312, pos 599
@@ -250,6 +255,28 @@ def refuses_short_scratch(call):
     finally:
         qa._split_scratch = kept
     return False
+
+
+def refuses_short_workspace(call):
+    """Whether the W4 kernel's C entry refuses a workspace one float short,
+    and counters one short, of what its grid needs (``call`` launches it
+    through its wrapper, the wrapper's own check bypassed)."""
+    from mustafar_tpu_torch.ops.kernels import w4_matmul as w4
+    kept, kept_check = w4._workspace, w4._check_workspace
+    refused = []
+    for cut in ((1, 0), (0, 1)):
+        def short(part, *a, cut=cut):
+            ws, counters = kept(part, *a)
+            return (ws[:part.ws_floats - cut[0]], counters[:part.n_counters - cut[1]])
+        w4._workspace, w4._check_workspace = short, lambda *a: None
+        try:
+            call()
+            refused.append(False)
+        except RuntimeError as e:
+            refused.append("CUDA error 1" in str(e))           # cudaErrorInvalidValue
+        finally:
+            w4._workspace, w4._check_workspace = kept, kept_check
+    return all(refused)
 
 
 def host_us(fn, reps):
@@ -728,18 +755,40 @@ def phase_kernel_seg(codec="q8q4"):
     B, nc = 1, 31
     kit = kits[(B, 0.7)]
     q = torch.randn((B, T, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+    # the same inputs launched twice give the same bits
+    first, again = kit.segment(q, nc, 0), kit.segment(q, nc, 0)
+    same_bits = all(torch.equal(a, b) for a, b in zip(first, again))
+    if not same_bits:
+        raise AssertionError("segment kernel: a second launch on the same inputs "
+                             "gave other bits")
+    BH, QR = B * Hkv, T * Hq // Hkv
+
+    def bounds(n):
+        flops = 4 * BH * QR * n * 256 * D                    # scores + p.v, mul + add
+        nbytes = (BH * n * kit.chunk_bytes                   # pools
+                  + q.numel() * 2 + B * T * Hq * (D + 2) * 4)   # q in; acc, m, l out
+        return flops, nbytes, nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+
+    # the quant codecs at the chunk counts serve_cb launches them at
+    by_chunks = {}
+    for n in ((1, 4, 16) if codec in QUANT_BITS else ()):
+        for _ in range(3):
+            kit.segment(q, n, 0)
+        torch.cuda.synchronize()
+        ms, _ = cuda_ms(lambda: kit.segment(q, n, 0), 20)
+        _, _, b_ms, f_ms = bounds(n)
+        by_chunks[n] = {"kernel_ms": ms, "bound_ms": max(b_ms, f_ms),
+                        "share_of_bound": max(b_ms, f_ms) / ms}
     for _ in range(3):
         kit.segment(q, nc, 0)
     torch.cuda.synchronize()
     kernel_ms, behind = cuda_ms(lambda: kit.segment(q, nc, 0), 20)
     plain_ms, _ = cuda_ms(lambda: kit.segment_plain(q, nc, 0), 3, spin=False)
     wrapper_us = host_us(lambda: kit.segment(q, nc, 0), 20)
-    BH, QR = B * Hkv, T * Hq // Hkv
-    flops = 4 * BH * QR * nc * 256 * D                       # scores + p.v, mul + add
-    nbytes = (BH * nc * kit.chunk_bytes                      # pools
-              + q.numel() * 2 + B * T * Hq * (D + 2) * 4)    # q in; acc, m, l out
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    flops_ms = flops / H100_BF16_FLOPS * 1e3
+    flops, nbytes, bytes_ms, flops_ms = bounds(nc)
+    if by_chunks:
+        by_chunks[nc] = {"kernel_ms": kernel_ms, "bound_ms": max(bytes_ms, flops_ms),
+                         "share_of_bound": max(bytes_ms, flops_ms) / kernel_ms}
     fn.launches = launches0
     clusters = (segment_clusters(kit.fmt, T, Hq // Hkv) if _family(codec) == "bitmap"
                 else None)
@@ -748,7 +797,8 @@ def phase_kernel_seg(codec="q8q4"):
          cases=results, worst_err_over_tol=worst, clusters=clusters,
          timed_at={"B": B, "n_chunks": nc, "sparsity": kit.sparsity},
          kernel_ms=kernel_ms, plain_ms=plain_ms, host_behind=behind,
-         wrapper_host_us=wrapper_us,
+         wrapper_host_us=wrapper_us, second_launch_same_bits=same_bits,
+         kernel_ms_by_chunks=by_chunks or None,
          flops=flops, bytes=nbytes,
          bound_ms=max(bytes_ms, flops_ms), library_ms=None)
     entry = _entry(codec, "segment", results, worst,
@@ -756,6 +806,8 @@ def phase_kernel_seg(codec="q8q4"):
                    kernel_ms, plain_ms, bytes_ms, flops_ms)
     if clusters is not None:
         entry["clusters"] = clusters
+    if by_chunks:
+        entry["kernel_ms_by_chunks"] = by_chunks
     return entry
 
 
@@ -883,7 +935,11 @@ def phase_kernel_w4():
 
     def check(label, x, c, s, T):
         got = w4.w4_matmul(x, c[1], s[1])
+        again = w4.w4_matmul(x, c[1], s[1])
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"w4_matmul: a second launch on the same inputs gave "
+                                 f"other bits ({label}, T={T})")
         want = w4.w4_matmul_plain(x, c[1], s[1])
         err = (got.float() - want.float()).abs().max().item()
         # f32 sums of the same exact products in another order; each rounds
@@ -906,6 +962,8 @@ def phase_kernel_w4():
             worst = max(worst, check(label, x, c, s, T))
             if label == "wq_wo" and T == 13:
                 worst = max(worst, check(label, x.float(), c, s, T))
+                if not refuses_short_workspace(lambda: w4.w4_matmul(x, c[1], s[1])):
+                    raise AssertionError("w4_matmul did not refuse a short workspace")
         # W8 and bf16 weights of the same shape, for context
         w8 = {"w": torch.randint(-127, 128, (din, dout), generator=g, device=dev,
                                  dtype=torch.int32).to(torch.int8),
@@ -927,13 +985,15 @@ def phase_kernel_w4():
             flops = 2 * T * din * dout                      # bf16 tensor-core products
             bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
             flops_ms = flops / H100_BF16_FLOPS * 1e3
+            part = w4.partition(T, din, dout, w4._sms(torch.cuda.current_device()))
             timed[f"{label}_T{T}"] = {
                 "din": din, "dout": dout, "T": T, "kernel_ms": kernel_ms,
                 "bound_ms": max(bytes_ms, flops_ms), "bytes_ms": bytes_ms,
-                "flops_ms": flops_ms, "bytes": nbytes, "plain_ms": plain_ms, "w8_proj_ms": w8_ms,
+                "flops_ms": flops_ms, "share_of_bound": bytes_ms / kernel_ms,
+                "bytes": nbytes, "plain_ms": plain_ms, "w8_proj_ms": w8_ms,
                 "bf16_matmul_ms": bf16_ms, "host_behind": behind,
                 "wrapper_host_us": host_us(lambda: w4.w4_matmul(x, c[1], s[1]), 50),
-                "split": w4.split(T, din, dout)}
+                "ctas": part.ctas, "units": part.units}
         del c, s, w8, wbf
     w4.w4_matmul.launches = launches0                    # comparisons do not count
     emit("kernel_w4", cases=results, worst_err_over_tol=worst, timed=timed,

@@ -17,15 +17,19 @@ nothing is padded (the TPU's 8-row and 1,024-lane padding is its tiling).
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from mustafar_tpu_torch.ops.kernels import quant_attention as qa
 
 BLOCK = 128            # in-rows per scale
 MAX_TOKENS = 128       # most tokens the kernel takes
-_COLS = 64             # out channels per CUDA block
-_WARPS = 4             # warps per CUDA block, each on its own scale blocks
-_TARGET_WARPS = 2048   # warps to spread over the card's 132 SMs (~16 each)
+COLS = 128             # out channels per column tile
+CTAS_PER_SM = 2        # persistent CTAs an SM (the kernel's launch bounds)
+SLOTS_PER_CTA = 2      # workspace partials a CTA may leave: its first and last tile
+MIN_UNITS = 4          # fewest scale blocks a CTA takes, where there are few
 
 
 def unpack_w4(carriers: torch.Tensor) -> torch.Tensor:
@@ -55,18 +59,90 @@ def w4_matmul_plain(x: torch.Tensor, carriers: torch.Tensor,
     return acc.to(x.dtype)
 
 
-def split(T: int, din: int, dout: int):
-    """The kernel's work split: (scale blocks per warp, CUDA blocks along
-    DIN).  A warp covers 64 out channels and 8, 16 or 32 tokens; DIN is cut
-    so that some ``_TARGET_WARPS`` warps cover the whole product (DOUT
-    1,024 alone would give 16 warps), and the CUDA blocks along DIN leave f32
-    partials that a second pass sums."""
-    nb = din // BLOCK
-    tile = 8 if T <= 8 else 16 if T <= 16 else 32
-    warps_out = (dout // _COLS) * -(-T // tile)
-    ns = max(1, min(nb, -(-_TARGET_WARPS // warps_out)))
-    bpw = -(-nb // ns)
-    return bpw, -(-nb // (_WARPS * bpw))
+@dataclasses.dataclass(frozen=True)
+class Partition:
+    """The kernel's work over a persistent grid (``csrc/w4_matmul.cu``): a
+    unit is one token tile x one column tile of ``COLS`` out channels x one
+    ``BLOCK``-row scale block, numbered with the block fastest (then the
+    column tile, then the token tile); CTA c takes units
+    ``[first(c), first(c + 1))``, the kernel's rule."""
+    T: int
+    din: int
+    dout: int
+    tok: int             # tokens a token tile: 8, 16 or 32
+    token_tiles: int
+    tiles: int           # column tiles
+    blocks: int          # scale blocks along DIN
+    ctas: int
+
+    @property
+    def units(self) -> int:
+        return self.token_tiles * self.tiles * self.blocks
+
+    def first(self, c: int) -> int:
+        return c * self.units // self.ctas
+
+    @property
+    def ws_floats(self) -> int:
+        """f32 workspace: a [tok, COLS] partial per slot, two slots a CTA."""
+        return self.ctas * SLOTS_PER_CTA * self.tok * COLS
+
+    @property
+    def n_counters(self) -> int:
+        """One arrival counter a (token tile, column tile)."""
+        return self.token_tiles * self.tiles
+
+
+@functools.lru_cache(maxsize=None)
+def partition(T: int, din: int, dout: int, sms: int) -> Partition:
+    """The kernel's grid for x [T, din] @ W4 [din, dout] on a card of ``sms``
+    SMs, at most ``CTAS_PER_SM`` CTAs an SM.  Where the (token tile, column
+    tile) pairs fit, each is split over the same number of CTAs (at least
+    ``MIN_UNITS`` blocks each), so that the ranges fall on tile boundaries
+    where the division is even and the CTAs stream the same block rows at
+    about the same time; else every CTA takes an even share of all units
+    (stream-K), never fewer than ``MIN_UNITS``."""
+    tok = 8 if T <= 8 else 16 if T <= 16 else 32
+    token_tiles, tiles, blocks = -(-T // tok), dout // COLS, din // BLOCK
+    pairs, cap = token_tiles * tiles, CTAS_PER_SM * sms
+    if pairs <= cap:
+        ctas = pairs * max(1, min(cap // pairs, blocks // MIN_UNITS))
+    else:
+        ctas = max(1, min(cap, pairs * blocks // MIN_UNITS))
+    return Partition(T, din, dout, tok, token_tiles, tiles, blocks, ctas)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_WORKSPACE: dict = {}
+
+
+def _workspace(part: Partition, device, stream):
+    """The kernel's f32 workspace and int32 counters for ``part``: one pair
+    per (device, stream), grown when a call needs more and kept.  The
+    counters start at zero and every launch leaves them so; the workspace
+    is not initialised (a tile's partials are all written before the last
+    CTA on it reads them).  Calls on one stream run in order."""
+    key = (device.index or 0, stream)
+    ws, counters = _WORKSPACE.get(key, (None, None))
+    if ws is None or ws.numel() < part.ws_floats:
+        ws = torch.empty(part.ws_floats, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < part.n_counters:
+        counters = torch.zeros(part.n_counters, dtype=torch.int32, device=device)
+    _WORKSPACE[key] = (ws, counters)
+    return ws, counters
+
+
+def _check_workspace(part: Partition, ws, counters):
+    """Refuses a workspace or counter array shorter than ``part`` needs (the
+    C entry refuses them too)."""
+    if ws.numel() < part.ws_floats or counters.numel() < part.n_counters:
+        raise ValueError(f"the W4 kernel's workspace is short: {ws.numel()} floats and "
+                         f"{counters.numel()} counters for {part.ws_floats} and "
+                         f"{part.n_counters}")
 
 
 def w4_matmul(x: torch.Tensor, carriers: torch.Tensor,
@@ -76,9 +152,10 @@ def w4_matmul(x: torch.Tensor, carriers: torch.Tensor,
     view where it lies, so no layer index is needed.
 
     CUDA tensors launch the kernel of ``csrc/w4_matmul.cu`` (built at first
-    use) on the current stream, for 1 to 128 tokens; CPU tensors run the
-    plain version.  A CUDA request the kernel cannot serve raises; nothing
-    falls back."""
+    use) on the current stream, for 1 to 128 tokens, over the persistent
+    grid of ``partition`` with the stream's workspace (``_workspace``); CPU
+    tensors run the plain version.  A CUDA request the kernel cannot serve
+    raises; nothing falls back."""
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] % BLOCK:
         raise ValueError(f"x must be [T, DIN] with DIN a multiple of {BLOCK}, "
                          f"got {tuple(x.shape)}")
@@ -98,14 +175,15 @@ def w4_matmul(x: torch.Tensor, carriers: torch.Tensor,
         raise ValueError(f"the W4 kernel takes at most {MAX_TOKENS} tokens, got {T}")
     xb = x.to(torch.bfloat16).contiguous()
     qa._check_aligned((("x", xb), ("carriers", carriers), ("scales", scales)))
-    bpw, nsc = split(T, din, dout)
+    dev = x.device.index or 0
+    part = partition(T, din, dout, _sms(dev))
+    ws, counters = _workspace(part, x.device, stream)
+    _check_workspace(part, ws, counters)
     out = torch.empty((T, dout), dtype=x.dtype, device=x.device)
-    ws = (torch.empty((nsc, T, dout), dtype=torch.float32, device=x.device)
-          if nsc > 1 else out)
-    fn = qa._library("w4_matmul", "w4_matmul", 5, 7)
+    fn = qa._library("w4_matmul", "w4_matmul", 6, 8)
     rc = fn(xb.data_ptr(), carriers.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), int(out.dtype == torch.float32), x.device.index or 0,
-            T, din, dout, bpw, nsc, stream)
+            ws.data_ptr(), counters.data_ptr(), ws.numel(), counters.numel(),
+            int(out.dtype == torch.float32), dev, T, din, dout, part.ctas, stream)
     if rc != 0:
         raise RuntimeError(f"w4_matmul launch failed: CUDA error {rc}")
     w4_matmul.launches += 1

@@ -11,7 +11,9 @@ scales) and ``fuse_projections``.
     JAX kernel in Pallas interpret mode, T in {1, 8, 13}, DOUT in {128,
     384}, stacked carriers at a layer; the wrapper refuses what the CUDA
     kernel cannot take, and ``_w4_dot`` sends at most 128 tokens off the
-    CPU to the kernel, more to the dequant route.
+    CPU to the kernel, more to the dequant route; the kernel's persistent
+    grid (``partition``) covers every work unit once, and the wrapper
+    refuses a short workspace.
 (v) The port's CPU ``proj`` on int16 weights against JAX's ``quant.proj``
     (both the off-TPU dequant route); fused and unfused params give the
     same logits, and the same as JAX's fused params.
@@ -241,6 +243,78 @@ def test_w4_dot_takes_the_kernel_up_to_128_tokens():
             tq._w4_dot(torch.empty(shape, device="meta"), w, s)
     out = tq._w4_dot(torch.empty((1, 129, 256), device="meta"), w, s)
     assert tuple(out.shape) == (1, 129, 128)
+
+
+# every Llama-3-8B projection (DIN, DOUT) and the fused wqkv / w_gateup, as
+# chip_smoke.W4_SHAPES
+W4_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 6144),
+             (4096, 28672))
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("T", [1, 8, 13, 32, 100, 128])
+@pytest.mark.parametrize("din,dout", W4_SHAPES)
+def test_w4_partition_covers_every_unit_once(din, dout, T):
+    """The kernel's persistent grid on an H100 (132 SMs): the CTAs' unit
+    ranges follow each other and cover every (token tile, column tile, scale
+    block) unit once, in order, each CTA at least one; at most two CTAs an
+    SM; a column tile split over CTAs is each one's first or last tile, so
+    two workspace slots a CTA hold every partial, and the workspace's floats
+    fit the C entry's int."""
+    part = tw.partition(T, din, dout, H100_SMS)
+    assert part.tok == (8 if T <= 8 else 16 if T <= 16 else 32)
+    assert part.token_tiles * part.tok >= T > (part.token_tiles - 1) * part.tok
+    assert (part.tiles, part.blocks) == (dout // 128, din // 128)
+    assert 1 <= part.ctas <= min(tw.CTAS_PER_SM * H100_SMS, part.units)
+    bounds = [part.first(c) for c in range(part.ctas + 1)]
+    assert bounds[0] == 0 and bounds[-1] == part.units
+    assert all(a < b for a, b in zip(bounds, bounds[1:]))
+    seen = [(tt, tile, blk) for u in range(part.units)
+            for tt, rem in [divmod(u, part.tiles * part.blocks)]
+            for tile, blk in [divmod(rem, part.blocks)]]
+    assert seen == [(tt, tile, blk) for tt in range(part.token_tiles)
+                    for tile in range(part.tiles) for blk in range(part.blocks)]
+    for c in range(part.ctas):
+        keys = range(bounds[c] // part.blocks, (bounds[c + 1] - 1) // part.blocks + 1)
+        partial = [k for k in keys
+                   if not (bounds[c] <= k * part.blocks
+                           and (k + 1) * part.blocks <= bounds[c + 1])]
+        assert set(partial) <= {keys[0], keys[-1]}
+    assert part.ws_floats == part.ctas * tw.SLOTS_PER_CTA * part.tok * 128 < 2 ** 31
+    assert part.n_counters == part.token_tiles * part.tiles
+
+
+def test_w4_wrapper_refuses_a_short_workspace(monkeypatch):
+    """Off the CPU the wrapper refuses a workspace or counter array shorter
+    than its grid needs before it launches (here on meta tensors, with the
+    stream and the card's SM count stood in); the C entry checks the sizes
+    too.  Buffers of the right size go on to the launch."""
+    x = torch.empty((8, 4096), dtype=torch.bfloat16, device="meta")
+    c = torch.empty((1024, 14336), dtype=torch.int16, device="meta")
+    s = torch.empty((32, 14336), dtype=torch.bfloat16, device="meta")
+    part = tw.partition(8, 4096, 14336, H100_SMS)
+    monkeypatch.setattr(tw.qa, "_stream", lambda t: 0)
+    monkeypatch.setattr(tw, "_sms", lambda index: H100_SMS)
+
+    def buffers(ws_cut, counters_cut):
+        return lambda p, device, stream: (
+            torch.empty(p.ws_floats - ws_cut, device="meta"),
+            torch.zeros(p.n_counters - counters_cut, dtype=torch.int32, device="meta"))
+
+    for cut in ((1, 0), (0, 1)):
+        monkeypatch.setattr(tw, "_workspace", buffers(*cut))
+        with pytest.raises(ValueError, match="workspace is short"):
+            tw.w4_matmul(x, c, s)
+    launched = []
+    monkeypatch.setattr(tw, "_workspace", buffers(0, 0))
+    monkeypatch.setattr(tw.qa, "_library",
+                        lambda *a: lambda *args: launched.append(args) or 1)
+    before = tw.w4_matmul.launches
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tw.w4_matmul(x, c, s)
+    assert tw.w4_matmul.launches == before
+    assert launched[0][6:8] == (part.ws_floats, part.n_counters)
+    assert launched[0][-2] == part.ctas
 
 
 # -- (v) proj, fused projections --------------------------------------------

@@ -11,12 +11,15 @@ phases of its ``chip_smoke.py`` (every codec's decode, per-slot and segment
 kernels, the pack, W4, dense and archive kernels; each prints its JSON
 line), then prints a ``kernel_ab`` line: the SHA-256 of the outputs of the
 uniform decode kernels 1 (q8q4, q8, q4q4) and 6 (bitmap, bitmap-q8; G=4,
-bf16 and f32 q, five (n_chunks, win_len) cases each) and of the segment
-kernel 8's acc, m and l (bitmap, bitmap-q8; ``phase_kernel_seg``'s cases),
-so that two checkouts' outputs can be compared bit for bit, and the host
-time of the kernel 2, 4, 6 and 7 wrappers (``wrapper_host_us``: the least
-and the median of means over many calls, steadier than the kernel phases'
-single mean).  With ``--engine`` it then makes the random W8 Llama-3-8B
+bf16 and f32 q, five (n_chunks, win_len) cases each), of the segment
+kernels 3 (q8q4, q8, q4q4) and 8 (bitmap, bitmap-q8): acc, m and l at
+``phase_kernel_seg``'s cases, and of the W4 kernel 5 at every
+``W4_SHAPES`` shape at T = 8 and 32, so that two checkouts' outputs can be
+compared bit for bit; the device time of kernels 3 (at 1, 4, 16 and 31
+chunks) and 5 (``k3_k5_ms``); and the host time of the kernel 2, 4, 5, 6
+and 7 wrappers (``wrapper_host_us``: the least and the median of means
+over many calls, steadier than the kernel phases' single mean).  With
+``--engine`` it then makes the random W8 Llama-3-8B
 weights (seed 0) and runs the ``serve_cb`` (q8q4) and ``host_split``
 phases of the ``chip_smoke.py`` next to this script on DIR's package, so
 both checkouts take the same engine measurements.  With ``--host-only`` it
@@ -25,7 +28,7 @@ builds and prints only the wrappers' host time, over batches of 40 calls
 processes a few times: the host's speed drifts from process to process).
 With ``--variants`` it builds each of ``VARIANTS`` (a kernel's source with
 a few substitutions) beside DIR's own build, prints their ptxas reports
-and times kernels 2 and 8 at ``chip_smoke.py``'s shapes with DIR's build
+and times kernels 3 and 5 at ``chip_smoke.py``'s shapes with DIR's build
 and each variant in turn, beside the digests of DIR's kernels.  Needs one
 CUDA card.
 """
@@ -52,9 +55,10 @@ def _sha(tensors):
 
 
 def digests(c):
-    """Output digests of kernels 1 and 6 (uniform decode, each codec) and 8
-    (segment partials acc, m, l, the bitmap codecs), from DIR's kernels on
-    inputs made from fixed seeds."""
+    """Output digests of kernels 1 and 6 (uniform decode, each codec), 3 and
+    8 (segment partials acc, m, l, each codec) and 5 (W4, every projection
+    shape at T = 8 and 32), from DIR's kernels on inputs made from fixed
+    seeds."""
     import torch
     dev = torch.device("cuda")
     out = {}
@@ -77,6 +81,28 @@ def digests(c):
                 for qq, li in ((qb, nc % 2), (qb.float(), (nc + 1) % 2)):
                     parts.extend(kit.segment(qq, nc, li))
         out[f"segment_{codec}"] = _sha(parts)
+    for codec in ("q8q4", "q8", "q4q4"):
+        g = torch.Generator(device=dev)
+        g.manual_seed(3)
+        parts = []
+        for B in (1, 2):
+            kit = c._Kit(codec, g, dev, 2, 32, B * 8, 8)
+            qb = torch.randn((B, 256, 32, 128), generator=g, device=dev).to(torch.bfloat16)
+            for nc in (0, 1, 4, 31):
+                for qq, li in ((qb, nc % 2), (qb.float(), (nc + 1) % 2)):
+                    parts.extend(kit.segment(qq, nc, li))
+        out[f"segment_{codec}"] = _sha(parts)
+    from mustafar_tpu_torch.ops.kernels import w4_matmul as w4
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    for label, (din, dout) in c.W4_SHAPES.items():
+        cw = torch.randint(-32768, 32768, (din // 4, dout), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.int16)
+        sw = (0.001 + 0.02 * torch.rand((din // 128, dout), generator=g,
+                                        device=dev)).to(torch.bfloat16)
+        out[f"w4_{label}"] = _sha(
+            w4.w4_matmul(torch.randn((T, din), generator=g, device=dev).to(torch.bfloat16),
+                         cw, sw) for T in (8, 32))
     return out
 
 
@@ -86,7 +112,8 @@ def wrapper_host_us(c, reps=7, calls=200):
     synchronised between (a shared host only adds time, so the least is the
     steadier), for kernel 4 (B=8, S=1,312, pos 599 and per slot at S=8,448),
     kernels 2 (q8q4) and 7 (bitmap) at chip_smoke's mixed slots at mc=32,
-    kernel 6 (bitmap, 1 chunk + 288 window) and, for scale, one
+    kernel 6 (bitmap, 1 chunk + 288 window), kernel 5 (W4) at
+    4096 x 14336 and 4096 x 1024, T=8 and, for scale, one
     ``torch.empty`` of the split scratch (4.7 MB) and one small
     ``torch.add`` (one launch)."""
     import statistics
@@ -126,6 +153,13 @@ def wrapper_host_us(c, reps=7, calls=200):
     out["k6"] = timed(lambda: kit.decode(q, 1, 288, 0))
     kit = c._Kit("q8q4", g, dev, 4, 32, B * Hkv, 288)
     out["k2_mixed"] = timed(lambda: kit.decode_ps(q, nc, wl, 0))
+    from mustafar_tpu_torch.ops.kernels import w4_matmul as w4
+    for label, (din, dout) in (("k5_w_gate_up_T8", (4096, 14336)),
+                               ("k5_wk_wv_T8", (4096, 1024))):
+        cw = torch.zeros((din // 4, dout), dtype=torch.int16, device=dev)
+        sw = torch.ones((din // 128, dout), dtype=torch.bfloat16, device=dev)
+        xw = torch.randn((8, din), generator=g, device=dev).to(torch.bfloat16)
+        out[label] = timed(lambda: w4.w4_matmul(xw, cw, sw))
     out["torch_empty_k7_scratch"] = timed(
         lambda: torch.empty(B * Hkv * 35 * 4 * 130, dtype=torch.float32, device=dev))
     x = torch.zeros(1024, device=dev)
@@ -133,66 +167,85 @@ def wrapper_host_us(c, reps=7, calls=200):
     return out
 
 
+# kernel 3's first pass in one m64n256k16 product a k-step (the chunk's
+# scores at once, 128 accumulators a thread) instead of four of m64n64
+_N256_HELPER = ("""__device__ __forceinline__ void wgmma_64x256_ss(float (&d)[128], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\\n.reg .pred p;\\nsetp.ne.b32 p, %130, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"""
+                + ", ".join(f"%{i}" for i in range(128))
+                + """}, %128, %129, p, 1, 1, 0, 0;\\n}\\n"
+      : """ + ", ".join(f'"+f"(d[{i}])' for i in range(128)) + """
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+""")
+_K3_PASS1_N64 = """#pragma unroll 1
+    for (int tok0 = 0; tok0 < CHUNK; tok0 += SUB) {
+      float s[32];
+      sub_scores(sb, tok0, s);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * nt], s[4 * nt + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * nt + 2], s[4 * nt + 3]));
+      }
+    }"""
+_K3_PASS1_N256 = """    {
+      float s[128];
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_64x256_ss(s, sw128_desc(sb + QK + (kk >> 2) * (BLOCK_ROWS * 128) + (kk & 3) * 32),
+                        sw128_desc(sb + KT + (kk >> 2) * (CHUNK * 128) + (kk & 3) * 32), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+#pragma unroll
+      for (int nt = 0; nt < 32; ++nt) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * nt], s[4 * nt + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * nt + 2], s[4 * nt + 3]));
+      }
+      mx0 *= SM_SCALE;               // the scale is positive: max commutes with it
+      mx1 *= SM_SCALE;
+    }"""
+
 # Variants for ``--variants``: (library, label, {file of csrc/: [(old, new),
 # ...]}), each built from a copy of DIR's csrc/ with the substitutions (a
 # variant whose text DIR lacks is skipped).  "Timed only": its outputs are
-# wrong by design.
-_K8_SCALAR_SCORES = (
-    """      uint32_t b[4];
-      ldmatrix_x4<false>(b, &sm.k[tok0 + 8 * nt + 8 * (lane >> 4) + (lane & 7)]
-                                 [16 * kk + 8 * ((lane >> 3) & 1)]);
-      mma_bf16(s[nt], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b[0], b[1]);
-      mma_bf16(s[nt + 1], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b[2], b[3]);""",
-    """      const int gid = lane >> 2, k0 = 16 * kk + 2 * (lane & 3);
-      for (int u = 0; u < 2; ++u) {
-        const __nv_bfloat16* kr = &sm.k[tok0 + 8 * (nt + u) + gid][0];
-        mma_bf16(s[nt + u], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], ld32(kr + k0),
-                 ld32(kr + k0 + 8));
-      }""")
-_K8_SCALAR_V16 = (
-    """            ldmatrix_x4<true>(b, &sm.v[tok0 + 16 * j + (lane & 15)][8 * (nt + (lane >> 4))]);""",
-    """            for (int u = 0; u < 2; ++u) {
-              const int tk = tok0 + 16 * j + 2 * tig, d = 8 * (nt + u) + gid;
-              b[2 * u] = (uint32_t)__bfloat16_as_ushort(sm.v[tk][d]) |
-                         ((uint32_t)__bfloat16_as_ushort(sm.v[tk + 1][d]) << 16);
-              b[2 * u + 1] = (uint32_t)__bfloat16_as_ushort(sm.v[tk + 8][d]) |
-                             ((uint32_t)__bfloat16_as_ushort(sm.v[tk + 9][d]) << 16);
-            }""")
-_K8_SCALAR_V8 = (
-    """            ldmatrix_x4<true>(b, &sm.v[tok0 + 16 * j + lane][8 * nt]);""",
-    """            for (int u = 0; u < 2; ++u) {
-              const int tk = tok0 + 16 * (j + u) + 2 * tig, d = 8 * nt + gid;
-              b[2 * u] = (uint32_t)__bfloat16_as_ushort(sm.v[tk][d]) |
-                         ((uint32_t)__bfloat16_as_ushort(sm.v[tk + 1][d]) << 16);
-              b[2 * u + 1] = (uint32_t)__bfloat16_as_ushort(sm.v[tk + 8][d]) |
-                             ((uint32_t)__bfloat16_as_ushort(sm.v[tk + 9][d]) << 16);
-            }""")
+# wrong by design.  Kernels 3 and 5 without one of their parts, to see what
+# each costs:
 VARIANTS = (
-    # kernel 2's split instance built for three, and for two, blocks an SM
-    ("q_decode_ps", "k2_3_blocks", {"quant_decode.cuh": [
-        ("return G <= 4 ? 4 : 2;", "return G <= 4 ? 3 : 2;")]}),
-    ("q_decode_ps", "k2_2_blocks", {"quant_decode.cuh": [
-        ("return G <= 4 ? 4 : 2;", "return G <= 4 ? 2 : 1;")]}),
-    # kernel 8's chunks split over two sets of clusters (grid z = 2), without
-    # the merge: both halves write the same outputs (timed only)
-    ("sp_segment", "k8_two_sets", {"sp_segment.cu": [
-        ("if (n_chunks > 0) bitmap::stage_rows_async(stage, chunk(0), rows, tid, THREADS);",
-         "const int cb = n_chunks * (int)blockIdx.z / (int)gridDim.z;\n"
-         "  const int ce = n_chunks * ((int)blockIdx.z + 1) / (int)gridDim.z;\n"
-         "  if (cb < ce) bitmap::stage_rows_async(stage, chunk(cb), rows, tid, THREADS);"),
-        ("for (int ci = 0; ci < n_chunks; ++ci) {", "for (int ci = cb; ci < ce; ++ci) {"),
-        ("if (ci + 1 < n_chunks)", "if (ci + 1 < ce)"),
-        ("cfg.gridDim = dim3(tiles, BH);", "cfg.gridDim = dim3(tiles, BH, 2);")]}),
-    # kernel 8 with its mma fragments loaded element by element from shared
-    # memory, not by ldmatrix (the same values: outputs unchanged)
-    ("sp_segment", "k8_scalar_loads", {"sp_segment.cu": [
-        _K8_SCALAR_SCORES, _K8_SCALAR_V16, _K8_SCALAR_V8]}),
-    # kernel 8's parts: without the mma passes, and without the copies to the
-    # peers' tiles (timed only)
-    ("sp_segment", "k8_no_passes", {"sp_segment.cu": [
-        ("    if (!computes) continue;", "    continue;")]}),
-    ("sp_segment", "k8_no_push", {"sp_segment.cu": [
-        ("    if (csize == 1) continue;", "    continue;")]}),
+    # kernel 3 without unpacking the codes (the tiles keep stale values),
+    # without the score products (both passes), without the value product
+    ("q_segment", "k3_no_unpack", {"q_segment.cu": [
+        ("i < K_ROWS * 16; i += THREADS", "i < 0; i += THREADS"),
+        ("it < V_ROWS * 16 / THREADS; ++it", "it < 0; ++it")]}),
+    ("q_segment", "k3_no_scores", {"q_segment.cu": [
+        ("    wgmma_64x64_ss(s, a, b, kk > 0);", "")]}),
+    ("q_segment", "k3_no_pv", {"q_segment.cu": [
+        ("for (int j = 0; j < SUB / 16; ++j) {", "for (int j = 0; j < 0; ++j) {")]}),
+    # kernel 3 with its unpack loops unrolled by 4, not 2; with its first
+    # pass as one product of the whole chunk a k-step (outputs as shipped
+    # within the gates: the same products, another grouping)
+    ("q_segment", "k3_unpack_unroll4", {"q_segment.cu": [
+        ("#pragma unroll 2\n    for (int i = tid; i < K_ROWS * 16; i += THREADS)",
+         "#pragma unroll 4\n    for (int i = tid; i < K_ROWS * 16; i += THREADS)"),
+        ("#pragma unroll 2\n    for (int it = 0; it < V_ROWS * 16 / THREADS; ++it)",
+         "#pragma unroll 4\n    for (int it = 0; it < V_ROWS * 16 / THREADS; ++it)")]}),
+    ("q_segment", "k3_pass1_n256", {"q_segment.cu": [
+        ("// Scores of the CTA's 64 rows against tokens tok0 .. tok0 + 63, scaled.",
+         _N256_HELPER + "// Scores of the CTA's 64 rows against tokens tok0 .. tok0 + 63, scaled."),
+        (_K3_PASS1_N64, _K3_PASS1_N256)]}),
+    # kernel 5 with every tile written by the CTA that ends it, unreduced;
+    # and without its products (the ring still streams every unit)
+    ("w4_matmul", "k5_no_reduce", {"w4_matmul.cu": [
+        ("const bool alone = kfirst >= u_begin && kfirst + gr.nb <= u_end;",
+         "const bool alone = true;")]}),
+    ("w4_matmul", "k5_no_compute", {"w4_matmul.cu": [
+        ("    for (int i = 0; i < 4; ++i)\n#pragma unroll\n      for (int jp = 0; jp < 2; ++jp) {",
+         "    for (int i = 0; i < 0; ++i)\n#pragma unroll\n      for (int jp = 0; jp < 2; ++jp) {")]}),
 )
 
 
@@ -224,41 +277,35 @@ def build_variant(lib, label, subs):
                      if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
 
-def variant_times(c):
-    """Device ms (L2 flushed) of kernel 2 (G=4; q8q4, q8, q4q4; the mixed
-    and the light slots of ``phase_kernel_ps``, with the split gate at the
-    mixed ones) and of kernel 8 (B=1, T=256, G=4, 31 chunks; bitmap and
-    bitmap-q8) with the libraries loaded now."""
+def k3_k5_ms(c):
+    """Device ms of kernel 3 (B=1, T=256, G=4 at 1, 4, 16 and 31 chunks, the
+    counts ``serve_cb`` launches it at; q8q4, q8, q4q4) and of kernel 5
+    (every ``W4_SHAPES`` shape at T=8, L2 flushed) with the libraries
+    loaded now."""
     import torch
+    from mustafar_tpu_torch.ops.kernels import w4_matmul as w4
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(2)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    mixed = [(0, 0), (0, 1), (1, 44), (2, 288), (5, 288), (5, 1), (1, 0), (31, 288)]
-    light = mixed[:-1] + [(2, 44)]
-    counts = {name: tuple(torch.tensor([x[i] for x in sl], dtype=torch.int32, device=dev)
-                          for i in (0, 1)) for name, sl in (("mixed", mixed), ("light", light))}
     out = {}
     for codec in ("q8q4", "q8", "q4q4"):
-        kit = c._Kit(codec, g, dev, 4, 32, 64, 288)
-        q = torch.randn((8, 1, 32, 128), generator=g, device=dev).to(torch.bfloat16)
-        nc, wl = counts["mixed"]
-        gate = (c.split_gate(kit.decode_ps(q, nc, wl, 0),
-                             kit.decode_ps_split_plain(q.float(), nc, wl, 0),
-                             (nc > 0) | (wl > 0))
-                if hasattr(kit, "decode_ps_split_plain") else None)
-        for name, (nc, wl) in counts.items():
-            for _ in range(5):
-                kit.decode_ps(q, nc, wl, 0)
-            out[f"k2_{codec}_{name}"] = c.cuda_ms(lambda: kit.decode_ps(q, nc, wl, 0), 100,
-                                                  flush=flush.zero_)[0]
-        out[f"k2_{codec}_split_gate"] = gate
-    for codec in ("bitmap", "bitmap-q8"):
         kit = c._Kit(codec, g, dev, 2, 32, 8, 8)
         q = torch.randn((1, 256, 32, 128), generator=g, device=dev).to(torch.bfloat16)
+        for n in (1, 4, 16, 31):
+            for _ in range(3):
+                kit.segment(q, n, 0)
+            out[f"k3_{codec}_{n}"] = c.cuda_ms(lambda: kit.segment(q, n, 0), 20)[0]
+    for label, (din, dout) in c.W4_SHAPES.items():
+        cw = torch.randint(-32768, 32768, (din // 4, dout), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.int16)
+        sw = (0.001 + 0.02 * torch.rand((din // 128, dout), generator=g,
+                                        device=dev)).to(torch.bfloat16)
+        x = torch.randn((8, din), generator=g, device=dev).to(torch.bfloat16)
         for _ in range(3):
-            kit.segment(q, 31, 0)
-        out[f"k8_{codec}"] = c.cuda_ms(lambda: kit.segment(q, 31, 0), 20)[0]
+            w4.w4_matmul(x, cw, sw)
+        out[f"k5_{label}_T8"] = c.cuda_ms(lambda: w4.w4_matmul(x, cw, sw), 30,
+                                          flush=flush.zero_)[0]
     return out
 
 
@@ -272,15 +319,15 @@ def run_variants(c, label, smi):
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         built = list(pool.map(lambda v: build_variant(*v), VARIANTS))
     own = dict(build._LIBS)
-    rows = [{"variant": label, "times": variant_times(c)}]
+    rows = [{"variant": label, "times": k3_k5_ms(c)}]
     for (lib, name, _), done in zip(VARIANTS, built):
         if done is None:
             continue
         build._LIBS[lib] = ctypes.CDLL(done[0])
         rows.append({"variant": name, "library": lib, "ptxas": done[1],
-                     "times": variant_times(c)})
+                     "times": k3_k5_ms(c)})
         build._LIBS[lib] = own[lib]
-    rows.append({"variant": label, "times": variant_times(c)})
+    rows.append({"variant": label, "times": k3_k5_ms(c)})
     print(json.dumps({"phase": "kernel_ab_variants", "label": label, "nvidia_smi": smi,
                       "sha256": digests(c), "rows": rows}), flush=True)
 
@@ -316,7 +363,7 @@ def main():
     c.phase_kernel_dense()
     c.phase_kernel_archive()
     line = {"phase": "kernel_ab", "label": args.label, "root": args.root,
-            "nvidia_smi": smi, "sha256": digests(c),
+            "nvidia_smi": smi, "sha256": digests(c), "k3_k5_ms": k3_k5_ms(c),
             "wrapper_host_us": wrapper_host_us(c)}
     if args.engine:
         import torch
