@@ -15,7 +15,10 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 csrc/sp_archive_stream.cu) and prints ptxas per instance
   kernel        the uniform decode kernel against its plain PyTorch version on
                 the card, at the flagship per-layer shapes (B=8, Hq=32, Hkv=8,
-                mc=5), with its time beside the plain version's and its bound
+                mc=5), groups 1/2/4/8, bf16 and f32 q, also against its split
+                plain version, a second launch bit-equal to the first and
+                refusing short scratch; timed at 1 chunk + 288 window and at
+                the full pool, beside the plain version's time and its bound
   kernel_ps     the per-slot decode kernel likewise, at the engine's pool
                 (mc=32): mixed slots (n_chunks 0/1/2/5/31, win_len
                 0/1/44/288, an idle slot), groups 1/2/4/8; the kernel
@@ -337,8 +340,8 @@ class _Kit:
     """One codec's kernels over one stacked state, as the kernel phases
     call them: ``decode(q, n_chunks, win_len, li)`` and ``decode_ps``,
     ``segment(q_seg, n_chunks, li)`` and the plain versions beside each
-    (and ``decode_ps_split_plain``, the per-slot kernel's split
-    arithmetic);
+    (and ``decode_split_plain`` and ``decode_ps_split_plain``, the decode
+    kernels' split arithmetic);
     ``chunk_bytes`` is what one pool chunk of one kv head holds (rows and,
     for the quant codecs and bitmap-q8, scales)."""
 
@@ -369,6 +372,9 @@ class _Kit:
                 q, pool, scales, kw, vw, nc, wl, li, qc)
             self.decode_plain = lambda q, nc, wl, li: qa.fused_q_decode_attention_plain(
                 q, pool, scales, kw, vw, nc, wl, li, qc)
+            self.decode_split_plain = lambda q, nc, wl, li: \
+                qa.fused_q_decode_attention_split_plain(q, pool, scales, kw, vw, nc, wl, li,
+                                                        qc)
             self.decode_ps = lambda q, nc, wl, li: qa.fused_q_decode_attention_ps(
                 q, pool, scales, kw, vw, nc, wl, li, qc)
             self.decode_ps_plain = lambda q, nc, wl, li: \
@@ -409,6 +415,9 @@ class _Kit:
             q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc)
         self.decode_plain = lambda q, nc, wl, li: ska.fused_sparse_decode_attention_plain(
             q, pool, kw, vw, nc, wl, li, fmt, fmt, scales)
+        self.decode_split_plain = lambda q, nc, wl, li: \
+            ska.fused_sparse_decode_attention_split_plain(q, pool, kw, vw, nc, wl, li, fmt,
+                                                          fmt, scales)
         self.decode_ps = lambda q, nc, wl, li: ska.fused_sparse_decode_attention_ps(
             q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc)
         self.decode_ps_plain = lambda q, nc, wl, li: \
@@ -495,7 +504,10 @@ def phase_kernel(codec="q8q4"):
     """Uniform decode kernel vs plain at the flagship per-layer shapes (B=8,
     Hq=32, Hkv=8, L=4, mc=5); returns the kernels-line entry (launches
     filled in by the serve phase).  The bitmap codec is checked at sparsity
-    0.7 and 0.5 and timed at 0.7."""
+    0.7 and 0.5 and timed at 0.7.  Each case is held to the TPU-order plain
+    version and to the kernel's split plain version (``split_gate``); a
+    second launch must give the same bits, and the C entry must refuse
+    short scratch.  Timed at 1 chunk + 288 window and at the full pool."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -512,35 +524,47 @@ def phase_kernel(codec="q8q4"):
                                 ).to(torch.bfloat16) for g_ in (1, 2, 8)]
     fn = kits[0].fns["decode"]
     launches0 = fn.launches
-    results, worst = [], 0.0
+    results, worst, worst_split = [], 0.0, 0.0
+    every_row = torch.ones(B, dtype=torch.bool, device=dev)
     for kit in kits:
         for nc, wl, li in cases:
-            qs = (q, q.float(), *other_groups) if (nc, wl) == (1, 288) else (q,)
-            for qq in qs:
+            for qq in (q, q.float(), *other_groups):
                 got = kit.decode(qq, nc, wl, li)
+                again = kit.decode(qq, nc, wl, li)
                 torch.cuda.synchronize()
                 want = kit.decode_plain(qq, nc, wl, li)
                 err = (got.float() - want.float()).abs().max().item()
                 scale = want.float().abs().max().item()
-                # same arithmetic, sums in another order: a bf16(p) or the bf16
-                # output may move by one ulp each
+                # the TPU's steps, f32 sums in another order and p rounded at
+                # each split's own max: a bf16(p) or the bf16 output may move
+                # by one ulp each
                 tol = KERNEL_TOL_ULPS * 2.0 ** -8 * scale
+                split = split_gate(got, kit.decode_split_plain(qq.float(), nc, wl, li),
+                                   every_row)
                 results.append({"sparsity": kit.sparsity, "n_chunks": nc, "win_len": wl,
                                 "li": li, "q_dtype": str(qq.dtype).split(".")[-1],
-                                "G": qq.shape[2] // Hkv, "max_abs_err": err, "tol": tol})
-                if not (got.isfinite().all() and err <= tol):
-                    raise AssertionError(f"kernel disagrees with its plain version: "
-                                         f"{results[-1]}")
+                                "G": qq.shape[2] // Hkv, "max_abs_err": err, "tol": tol,
+                                "worst_err_over_tol_split": split,
+                                "second_launch_equal": bool(torch.equal(got, again))})
+                if not (got.isfinite().all() and err <= tol and split <= 1.0
+                        and results[-1]["second_launch_equal"]):
+                    raise AssertionError(f"kernel disagrees with its plain versions or "
+                                         f"with itself: {results[-1]}")
                 worst = max(worst, err / max(tol, 1e-30))
+                worst_split = max(worst_split, split)
 
     # time at the main path's largest pre-compaction shape: one pool chunk
     # and a full 288-token window, L2 flushed before each launch
     kit = kits[0]
     nc, wl, li = 1, 288, 0
+    if not refuses_short_scratch(lambda: kit.decode(q, nc, wl, li)):
+        raise AssertionError("uniform kernel took scratch shorter than its grid needs")
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     for _ in range(10):
         kit.decode(q, nc, wl, li)
         kit.decode_plain(q, nc, wl, li)
+    for _ in range(200):                 # the kernel alone, a few ms, before timing it
+        kit.decode(q, nc, wl, li)
     torch.cuda.synchronize()
     kernel_ms, behind = cuda_ms(lambda: kit.decode(q, nc, wl, li), 100,
                                 flush=flush_buf.zero_)
@@ -558,14 +582,16 @@ def phase_kernel(codec="q8q4"):
     fn.launches = launches0                               # comparisons do not count
     emit(_phase_label("kernel", codec), codec=codec,
          shapes={"B": B, "Hq": Hq, "Hkv": Hkv, "L": L, "mc": mc, "W": W},
-         cases=results, kernel_ms=kernel_ms, kernel_ms_l2_hot=hot_ms,
+         cases=results, worst_err_over_tol=worst, worst_err_over_tol_split=worst_split,
+         kernel_ms=kernel_ms, kernel_ms_l2_hot=hot_ms,
          kernel_ms_full_pool=full_ms, plain_ms=plain_ms, host_behind=behind,
          wrapper_host_us=wrapper_us,
          timed_at={"sparsity": kit.sparsity, "n_chunks": nc, "win_len": wl},
          bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, flops_ms), library_ms=None)
     entry = _entry(codec, "decode", results, worst, max(r["tol"] for r in results),
                    kernel_ms, plain_ms, bytes_ms, flops_ms)
-    entry["max_err"] = entry["max_abs_err"]
+    entry.update(max_err=entry["max_abs_err"], worst_err_over_tol_split=worst_split,
+                 tol_split=SPLIT_TOL_NOTE)
     return entry
 
 

@@ -8,8 +8,8 @@
 // counts taken from int32 device arrays, so the continuous-batching decode
 // step never syncs with the host to size itself.  Counts are clamped into
 // [0, mc] and [0, W] in the kernel; an idle slot is passed as (0, 0) and
-// comes out 0.  Per chunk and window token the arithmetic is the uniform
-// kernel's (q_decode.cu).
+// comes out 0.  Per chunk and window token the arithmetic is that of
+// fused_q_decode_attention (q_decode.cu): the same casts and scaling.
 //
 // Softmax steps: the TPU kernel runs a block of up to 16 heads, and loops
 // every head to the largest chunk count and window length among them; the
@@ -35,8 +35,8 @@
 // H100 80GB HBM3, 700.00 W).  So the grid covers (b, kv head, split),
 // sized on the host from mc and W with no sync: split s < mc takes pool
 // chunk s, split mc + j window tile j (3 at W = 288).  Each split does the
-// uniform kernel's per-chunk (or per-tile) work and softmax step
-// (quant_decode.cuh) from a fresh state; a block past its slot's clamped
+// per-chunk (or per-tile) work and softmax step of quant_decode.cuh
+// from a fresh state; a block past its slot's clamped
 // counts exits at once and writes nothing.  Its partials go to scratch and
 // a second kernel merges each row's live splits in split order
 // (split_merge.cuh, split_merge::SlotLive); an idle slot comes out 0, a
@@ -68,6 +68,70 @@
 
 #include "quant_decode.cuh"
 
+namespace {
+
+using qdec::quant_decode_kernel;
+using qdec::THREADS;
+using qdec::TILE;
+
+// The launch parameters of the per-slot entry.
+struct Args {
+  const void *q, *pool, *scales, *k_win, *v_win;
+  void* out;
+  int out_f32, BH, max_chunks, W, wt, n_chunks, win_len, li;
+  const int *nc_slot, *wl_slot;
+  int hkv;
+  float* part;                    // scratch of n_splits splits a row
+  int n_splits;
+};
+
+template <int G, int KB, int VB>
+void launch(const Args& a, cudaStream_t stream) {
+  quant_decode_kernel<G, KB, VB><<<dim3(a.BH, a.n_splits), THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const int16_t*>(a.pool),
+      static_cast<const __nv_bfloat16*>(a.scales), static_cast<const __nv_bfloat16*>(a.k_win),
+      static_cast<const __nv_bfloat16*>(a.v_win), a.out, a.out_f32, a.BH, a.max_chunks, a.W,
+      a.wt, a.n_chunks, a.win_len, a.li, a.nc_slot, a.wl_slot, a.hkv, a.part, a.n_splits);
+}
+
+template <int KB, int VB>
+int launch_groups(int G, const Args& a, cudaStream_t s) {
+  switch (G) {
+    case 1: launch<1, KB, VB>(a, s); break;
+    case 2: launch<2, KB, VB>(a, s); break;
+    case 4: launch<4, KB, VB>(a, s); break;
+    case 8: launch<8, KB, VB>(a, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Checks the launch parameters, selects the instance for the codec's bit
+// widths (kbits, vbits) and the group size G: a grid of max_chunks chunk
+// splits and ceil(W / wt) window splits per row, its partials in `a.part`,
+// then the merge of each row's live splits (split_merge::SlotLive); returns
+// cudaGetLastError().
+inline int launch_decode(const Args& a, int device, int kbits, int vbits, int G,
+                         void* stream) {
+  if (a.wt < 1 || a.wt > TILE) return (int)cudaErrorInvalidValue;
+  if (a.nc_slot == nullptr || a.part == nullptr ||
+      a.n_splits != a.max_chunks + (a.W + a.wt - 1) / a.wt)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = (int)cudaErrorInvalidValue;
+  if (kbits == 8 && vbits == 8) err = launch_groups<8, 8>(G, a, s);
+  if (kbits == 8 && vbits == 4) err = launch_groups<8, 4>(G, a, s);
+  if (kbits == 4 && vbits == 4) err = launch_groups<4, 4>(G, a, s);
+  if (err != (int)cudaSuccess) return err;
+  return (int)split_merge::launch_merge(
+      a.part, a.out, a.out_f32, a.BH, G, a.n_splits,
+      split_merge::SlotLive{a.nc_slot, a.wl_slot, a.hkv, a.max_chunks, a.W, a.wt}, s);
+}
+
+}  // namespace
+
 // As q_decode_attention (q_decode.cu), with the counts in device arrays:
 // n_chunks[B], win_len[B] int32; `hkv` the kv heads per slot (BH = B*hkv);
 // scratch f32, `scratch_floats` of them, refused if fewer than
@@ -85,9 +149,9 @@ extern "C" int q_decode_attention_ps(const void* q, const void* pool,
       BH % hkv || G < 1 || n_splits < 1 || scratch_floats < 0 ||
       (size_t)scratch_floats < split_merge::scratch_floats(BH, G, n_splits))
     return (int)cudaErrorInvalidValue;
-  const qdec::Args a{q, pool, scales, k_win, v_win, out, out_f32, BH, max_chunks, W, wt,
+  const Args a{q, pool, scales, k_win, v_win, out, out_f32, BH, max_chunks, W, wt,
                      0, 0, li, static_cast<const int*>(n_chunks),
                      static_cast<const int*>(win_len), hkv, static_cast<float*>(scratch),
                      n_splits};
-  return qdec::launch_decode<true>(a, device, kbits, vbits, G, stream);
+  return launch_decode(a, device, kbits, vbits, G, stream);
 }

@@ -1,20 +1,15 @@
-// The quant-codec flash-decode kernel body shared by the uniform-batch
-// entry (q_decode.cu) and the per-slot entry (q_decode_ps.cu); their header
-// notes say what it computes and what bounds it.  It is templated on the
-// codec's bit widths (KB, VB) in {(8, 8), (8, 4), (4, 4)}: codecs q8, q8q4
-// and q4q4.  With `nc_slot` null the block takes the uniform counts
-// `n_chunks` and `win_len`; otherwise block bh reads slot bh / hkv's counts
-// from the device arrays.  And on SPLIT:
-//   false  one block per (b, kv head) over all its chunks and window tiles,
-//          normalised and written as the output (q_decode.cu);
-//   true   the grid's y dimension is the split: split s < mc takes pool
-//          chunk s, split mc + j window tile j; so each block takes one
-//          softmax step, from a fresh state, and its accumulator is that
-//          step's value product (acc * 0 + pv, bit for bit).  A block
-//          writes its unnormalised partials to scratch (split_merge.cuh),
-//          or nothing if its chunk or tile lies past the slot's counts, and
-//          merge_kernel combines them (q_decode_ps.cu).
-// Each library instantiates only the flag its entry launches.
+// The quant-codec flash-decode kernel body of the per-slot entry
+// (q_decode_ps.cu), whose header note says what it computes and what
+// bounds it.  It is templated on the codec's bit widths (KB, VB) in
+// {(8, 8), (8, 4), (4, 4)}: codecs q8, q8q4 and q4q4.  Block bh reads slot
+// bh / hkv's counts from the device arrays.  The grid's y dimension is the
+// split: split s < mc takes pool chunk s, split mc + j window tile j; so
+// each block takes one softmax step, from a fresh state, and its
+// accumulator is that step's value product (acc * 0 + pv, bit for bit).  A
+// block writes its unnormalised partials to scratch (split_merge.cuh), or
+// nothing if its chunk or tile lies past the slot's counts, and
+// merge_kernel combines them.  (The uniform entry, q_decode.cu, has its
+// own body, on decode_tile.cuh.)
 
 #pragma once
 
@@ -81,8 +76,8 @@ struct __align__(16) Smem {
 // 700.00 W; q_decode_ps.cu's note).  G = 8 keeps what it needs.
 constexpr int split_min_blocks(int G) { return G <= 4 ? 4 : 2; }
 
-template <int G, int KB, int VB, bool SPLIT>
-__global__ void __launch_bounds__(THREADS, SPLIT ? split_min_blocks(G) : 1)
+template <int G, int KB, int VB>
+__global__ void __launch_bounds__(THREADS, split_min_blocks(G))
 quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                    const int16_t* __restrict__ pool,         // [L, mc, BH, ROWS, D]
                    const __nv_bfloat16* __restrict__ scales, // [L, mc, BH, 2, D]
@@ -94,7 +89,7 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                    const int* __restrict__ nc_slot,          // [B] or null
                    const int* __restrict__ wl_slot,          // [B] or null
                    int hkv,
-                   float* __restrict__ part,                 // SPLIT: split_merge layout
+                   float* __restrict__ part,                 // split_merge layout
                    int n_splits) {
   static_assert(G <= WARPS, "one warp per query head in the softmax step");
   constexpr int KF = Stream<KB>::FIELDS;
@@ -115,19 +110,17 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   }
   // this block's chunks [c0, c1) and window tokens [w0, w1)
   int c0 = 0, c1 = n_chunks, w0 = 0, w1 = win_len;
-  const int split = SPLIT ? (int)blockIdx.y : 0;
-  if constexpr (SPLIT) {
-    if (split < max_chunks) {
-      c0 = split;
-      c1 = min(c0 + 1, n_chunks);
-      w1 = 0;
-    } else {
-      c1 = 0;
-      w0 = (split - max_chunks) * wt;
-      w1 = min(w0 + wt, win_len);
-    }
-    if (c0 >= c1 && w0 >= w1) return;   // not live: the merge skips it
+  const int split = (int)blockIdx.y;
+  if (split < max_chunks) {
+    c0 = split;
+    c1 = min(c0 + 1, n_chunks);
+    w1 = 0;
+  } else {
+    c1 = 0;
+    w0 = (split - max_chunks) * wt;
+    w1 = min(w0 + wt, win_len);
   }
+  if (c0 >= c1 && w0 >= w1) return;   // not live: the merge skips it
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -207,7 +200,7 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     // a split block takes one step: acc * corr is 0 and acc = pv * vsc
 #pragma unroll
     for (int g = 0; g < G; ++g)
-      acc[g] = SPLIT ? pv[g] * vsc : acc[g] * sm.corr[g] + pv[g] * vsc;
+      acc[g] = pv[g] * vsc;
     __syncthreads();   // the next step overwrites sm.s and sm.corr
   }
 
@@ -254,7 +247,7 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
       for (int g = 0; g < G; ++g) pv[g] += sm.s[g][t] * vv;
     }
 #pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] = SPLIT ? pv[g] : acc[g] * sm.corr[g] + pv[g];
+    for (int g = 0; g < G; ++g) acc[g] = pv[g];
     __syncthreads();
   }
 
@@ -264,90 +257,17 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     for (int g = 0; g < G; ++g) sm.acc[g][d] = acc[g];
   }
   __syncthreads();
-  if constexpr (SPLIT) {
-    // unnormalised partials: the halves' sum, the step's m and l
-    if (half == 0) {
-      float* pa = part + split_merge::acc_at(bh, split, G, n_splits);
-#pragma unroll
-      for (int g = 0; g < G; ++g) pa[g * D + d] = acc[g] + sm.acc[g][d];
-    }
-    if (tid < G) {
-      float* ml = part + split_merge::ml_at(bh, split, G, n_splits, BH) + 2 * tid;
-      ml[0] = sm.m[tid];
-      ml[1] = sm.l[tid];
-    }
-    return;
-  }
+  // unnormalised partials: the halves' sum, the step's m and l
   if (half == 0) {
+    float* pa = part + split_merge::acc_at(bh, split, G, n_splits);
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float o = (acc[g] + sm.acc[g][d]) / fmaxf(sm.l[g], 1e-30f);
-      const size_t at = ((size_t)bh * G + g) * D + d;
-      if (out_f32)
-        static_cast<float*>(out)[at] = o;
-      else
-        static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16(o);
-    }
+    for (int g = 0; g < G; ++g) pa[g * D + d] = acc[g] + sm.acc[g][d];
   }
-}
-
-// The launch parameters both entries share.
-struct Args {
-  const void *q, *pool, *scales, *k_win, *v_win;
-  void* out;
-  int out_f32, BH, max_chunks, W, wt, n_chunks, win_len, li;
-  const int *nc_slot, *wl_slot;   // null: uniform counts
-  int hkv;
-  float* part;                    // SPLIT: scratch of n_splits splits a row
-  int n_splits;
-};
-
-template <int G, int KB, int VB, bool SPLIT>
-void launch(const Args& a, cudaStream_t stream) {
-  quant_decode_kernel<G, KB, VB, SPLIT>
-      <<<dim3(a.BH, SPLIT ? a.n_splits : 1), THREADS, 0, stream>>>(
-          static_cast<const __nv_bfloat16*>(a.q), static_cast<const int16_t*>(a.pool),
-          static_cast<const __nv_bfloat16*>(a.scales),
-          static_cast<const __nv_bfloat16*>(a.k_win),
-          static_cast<const __nv_bfloat16*>(a.v_win), a.out, a.out_f32, a.BH,
-          a.max_chunks, a.W, a.wt, a.n_chunks, a.win_len, a.li, a.nc_slot, a.wl_slot,
-          a.hkv, a.part, a.n_splits);
-}
-
-template <bool SPLIT, int KB, int VB>
-int launch_groups(int G, const Args& a, cudaStream_t s) {
-  switch (G) {
-    case 1: launch<1, KB, VB, SPLIT>(a, s); break;
-    case 2: launch<2, KB, VB, SPLIT>(a, s); break;
-    case 4: launch<4, KB, VB, SPLIT>(a, s); break;
-    case 8: launch<8, KB, VB, SPLIT>(a, s); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (tid < G) {
+    float* ml = part + split_merge::ml_at(bh, split, G, n_splits, BH) + 2 * tid;
+    ml[0] = sm.m[tid];
+    ml[1] = sm.l[tid];
   }
-  return (int)cudaGetLastError();
-}
-
-// Checks the launch parameters, selects the instance for the codec's bit
-// widths (kbits, vbits) and the group size G, and returns
-// cudaGetLastError().  With SPLIT a grid of max_chunks chunk splits and
-// ceil(W / wt) window splits per row, its partials in `a.part`, then the
-// merge of each row's live splits (split_merge::SlotLive).
-template <bool SPLIT>
-int launch_decode(const Args& a, int device, int kbits, int vbits, int G, void* stream) {
-  if (a.wt < 1 || a.wt > TILE) return (int)cudaErrorInvalidValue;
-  if (SPLIT && (a.nc_slot == nullptr || a.part == nullptr ||
-                a.n_splits != a.max_chunks + (a.W + a.wt - 1) / a.wt))
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return (int)set;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = (int)cudaErrorInvalidValue;
-  if (kbits == 8 && vbits == 8) err = launch_groups<SPLIT, 8, 8>(G, a, s);
-  if (kbits == 8 && vbits == 4) err = launch_groups<SPLIT, 8, 4>(G, a, s);
-  if (kbits == 4 && vbits == 4) err = launch_groups<SPLIT, 4, 4>(G, a, s);
-  if (err != (int)cudaSuccess || !SPLIT) return err;
-  return (int)split_merge::launch_merge(
-      a.part, a.out, a.out_f32, a.BH, G, a.n_splits,
-      split_merge::SlotLive{a.nc_slot, a.wl_slot, a.hkv, a.max_chunks, a.W, a.wt}, s);
 }
 
 }  // namespace qdec

@@ -1,28 +1,23 @@
-// The bitmap flash-decode kernel body shared by the uniform-batch entry
-// sp_decode and the per-slot entry sp_decode_ps (both in sp_decode.cu);
-// their notes there say what it computes and what bounds it.  With
-// `nc_slot` null the block takes the uniform counts `n_chunks` and
-// `win_len`; otherwise block bh reads slot bh / hkv's counts from the
-// device arrays.  Templated on the value width QBITS (bitmap_expand.cuh):
-// at 8 bits the expanded values are int8 codes, and each chunk's scales
-// fold in as in the quant kernels (quant_decode.cuh): the scores' q is
-// bf16(q * kscale), and a warp's value product is multiplied by the V
-// scale before it joins the accumulator.  And on SPLIT:
-//   false  one block per (b, kv head) over all its chunks and window tiles,
-//          normalised and written as the output (sp_decode);
-//   true   the grid's y dimension is the split: split s < mc takes pool
-//          chunk s, split mc + j window tile j; so each block takes one
-//          softmax step, from a fresh state, and its accumulator is that
-//          step's value product (acc * 0 + pv, bit for bit).  A block
-//          writes its unnormalised partials to scratch (split_merge.cuh),
-//          or nothing if its chunk or tile lies past the slot's counts, and
-//          merge_kernel combines them (sp_decode_ps).
+// The bitmap flash-decode kernel body of the per-slot entry sp_decode_ps
+// (sp_decode.cu), whose note there says what it computes and what bounds
+// it.  Block bh reads slot bh / hkv's counts from the device arrays.
+// Templated on the value width QBITS (bitmap_expand.cuh): at 8 bits the
+// expanded values are int8 codes, and each chunk's scales fold in as in
+// the quant kernels (quant_decode.cuh): the scores' q is bf16(q * kscale),
+// and a warp's value product is multiplied by the V scale before it joins
+// the accumulator.  The grid's y dimension is the split: split s < mc
+// takes pool chunk s, split mc + j window tile j; so each block takes one
+// softmax step, from a fresh state, and its accumulator is that step's
+// value product (acc * 0 + pv, bit for bit).  A block writes its
+// unnormalised partials to scratch (split_merge.cuh), or nothing if its
+// chunk or tile lies past the slot's counts, and merge_kernel combines
+// them.  (The uniform entry sp_decode has its own body, on decode_tile.cuh.)
 //
 // Layout of the work: one block of 8 warps per (b, kv head) and split, all
 // G query heads of the kv head in the block, so each packed byte is read
 // once and serves G heads.  Each chunk's stream is copied into shared
-// memory (cp.async; with more than one chunk a block, double-buffered:
-// chunk ci + 1 is in flight while chunk ci is attended).  A warp takes
+// memory (cp.async; the loop would double-buffer a block of more than one
+// chunk, which a split never has).  A warp takes
 // token rows t = warp, warp + 8, ...; its lane l holds channels l + 32 i of
 // the row, expanded from the staged stream (bitmap_expand.cuh), so no
 // expanded tile exists in memory:
@@ -65,8 +60,8 @@ struct __align__(16) Smem {
 // (sp_decode.cu's note).  G = 8 keeps what it needs (142-168 registers).
 constexpr int split_min_blocks(int G) { return G <= 4 ? 3 : 1; }
 
-template <int G, int QBITS, bool SPLIT>
-__global__ void __launch_bounds__(THREADS, SPLIT ? split_min_blocks(G) : 1)
+template <int G, int QBITS>
+__global__ void __launch_bounds__(THREADS, split_min_blocks(G))
 sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                  const int16_t* __restrict__ pool,         // [L, mc, BH, KR+VR, D]
                  const __nv_bfloat16* __restrict__ scales, // [L, mc, BH, 2, D] (8 bits)
@@ -78,7 +73,7 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                  const int* __restrict__ nc_slot,          // [B] or null
                  const int* __restrict__ wl_slot,          // [B] or null
                  int hkv,
-                 float* __restrict__ part,                 // SPLIT: split_merge layout
+                 float* __restrict__ part,                 // split_merge layout
                  int n_splits) {
   static_assert(G <= WARPS, "one warp per query head in the softmax step");
   // dynamic shared memory: Smem, then one or two buffers of one chunk's
@@ -97,19 +92,17 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   }
   // this block's chunks [c0, c1) and window tokens [w0, w1)
   int c0 = 0, c1 = n_chunks, w0 = 0, w1 = win_len;
-  const int split = SPLIT ? (int)blockIdx.y : 0;
-  if constexpr (SPLIT) {
-    if (split < max_chunks) {
-      c0 = split;
-      c1 = min(c0 + 1, n_chunks);
-      w1 = 0;
-    } else {
-      c1 = 0;
-      w0 = (split - max_chunks) * wt;
-      w1 = min(w0 + wt, win_len);
-    }
-    if (c0 >= c1 && w0 >= w1) return;   // not live: the merge skips it
+  const int split = (int)blockIdx.y;
+  if (split < max_chunks) {
+    c0 = split;
+    c1 = min(c0 + 1, n_chunks);
+    w1 = 0;
+  } else {
+    c1 = 0;
+    w0 = (split - max_chunks) * wt;
+    w1 = min(w0 + wt, win_len);
   }
+  if (c0 >= c1 && w0 >= w1) return;   // not live: the merge skips it
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -148,7 +141,7 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        acc[g][i] = SPLIT ? pv[g][i] : acc[g][i] * sm.corr[g] + pv[g][i];
+        acc[g][i] = pv[g][i];
   };
 
   // ---- packed pool chunks -------------------------------------------------
@@ -260,31 +253,19 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     }
     __syncthreads();
   }
-  if constexpr (SPLIT) {
-    float* pa = part + split_merge::acc_at(bh, split, G, n_splits);
-    for (int i = tid; i < G * D; i += THREADS) pa[i] = sm.red[i / D][i % D];
-    if (tid < G) {
-      float* ml = part + split_merge::ml_at(bh, split, G, n_splits, BH) + 2 * tid;
-      ml[0] = sm.m[tid];
-      ml[1] = sm.l[tid];
-    }
-    return;
-  }
-  for (int i = tid; i < G * D; i += THREADS) {
-    const int g = i / D;
-    const float o = sm.red[g][i % D] / fmaxf(sm.l[g], 1e-30f);
-    const size_t at = (size_t)bh * G * D + i;
-    if (out_f32)
-      static_cast<float*>(out)[at] = o;
-    else
-      static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16(o);
+  float* pa = part + split_merge::acc_at(bh, split, G, n_splits);
+  for (int i = tid; i < G * D; i += THREADS) pa[i] = sm.red[i / D][i % D];
+  if (tid < G) {
+    float* ml = part + split_merge::ml_at(bh, split, G, n_splits, BH) + 2 * tid;
+    ml[0] = sm.m[tid];
+    ml[1] = sm.l[tid];
   }
 }
 
 // Checks the launch parameters, selects the instance for the group size G
-// and returns cudaGetLastError().  With `part` null one block per row,
-// normalised (SPLIT false); else a grid of max_chunks chunk splits and
-// ceil(W / wt) window splits per row, its partials in `part`, then the merge.
+// and returns cudaGetLastError(): a grid of max_chunks chunk splits and
+// ceil(W / wt) window splits per row, its partials in `part`, then the
+// merge.
 template <int QBITS>
 int launch_decode(const void* q, const void* pool, const void* scales,
                   const void* k_win, const void* v_win, void* out, int out_f32,
@@ -295,24 +276,21 @@ int launch_decode(const void* q, const void* pool, const void* scales,
   if (wt < 1 || wt > TILE || BH < 1 || max_chunks < 0 || W < 0 || li < 0 ||
       (QBITS == 8) != (scales != nullptr))
     return (int)cudaErrorInvalidValue;
-  const bool split = part != nullptr;
-  if (split && (nc_slot == nullptr || n_splits != max_chunks + (W + wt - 1) / wt))
+  if (part == nullptr || nc_slot == nullptr || n_splits != max_chunks + (W + wt - 1) / wt)
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int buffers = split ? 1 : 2;   // a split block stages one chunk
-  const size_t stage_bytes =
-      buffers * (size_t)(kf.rows() + vf.rows()) * D * sizeof(int16_t);
-  const dim3 grid(BH, split ? n_splits : 1);
+  // a split block stages one chunk
+  const size_t stage_bytes = (size_t)(kf.rows() + vf.rows()) * D * sizeof(int16_t);
+  const dim3 grid(BH, n_splits);
   cudaError_t err = cudaSuccess;
-#define SP_INSTANCE(g, sp)                                                    \
+#define SP_INSTANCE(g)                                                        \
   {                                                                           \
     const int bytes = (int)(sizeof(Smem<g>) + stage_bytes);                   \
-    err = smem::allow_dynamic_smem<sp_decode_kernel<g, QBITS, sp>>(bytes,     \
-                                                                  device);    \
+    err = smem::allow_dynamic_smem<sp_decode_kernel<g, QBITS>>(bytes, device);\
     if (err != cudaSuccess) return (int)err;                                  \
-    sp_decode_kernel<g, QBITS, sp><<<grid, THREADS, bytes, s>>>(              \
+    sp_decode_kernel<g, QBITS><<<grid, THREADS, bytes, s>>>(                  \
         static_cast<const __nv_bfloat16*>(q),                                 \
         static_cast<const int16_t*>(pool),                                    \
         static_cast<const __nv_bfloat16*>(scales),                            \
@@ -321,29 +299,23 @@ int launch_decode(const void* q, const void* pool, const void* scales,
         max_chunks, W, wt, n_chunks, win_len, li, kf, vf, nc_slot, wl_slot,   \
         hkv, part, n_splits);                                                 \
   }
-#define SP_LAUNCH(g)          \
-  if (split)                  \
-    SP_INSTANCE(g, true)      \
-  else                        \
-    SP_INSTANCE(g, false)
   switch (G) {
-    case 1: SP_LAUNCH(1); break;
-    case 2: SP_LAUNCH(2); break;
-    case 4: SP_LAUNCH(4); break;
-    case 8: SP_LAUNCH(8); break;
+    case 1: SP_INSTANCE(1); break;
+    case 2: SP_INSTANCE(2); break;
+    case 4: SP_INSTANCE(4); break;
+    case 8: SP_INSTANCE(8); break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef SP_LAUNCH
 #undef SP_INSTANCE
   err = cudaGetLastError();
-  if (err != cudaSuccess || !split) return (int)err;
+  if (err != cudaSuccess) return (int)err;
   return (int)split_merge::launch_merge(
       part, out, out_f32, BH, G, n_splits,
       split_merge::SlotLive{nc_slot, wl_slot, hkv, max_chunks, W, wt}, s);
 }
 
 // The formats (k0, k1) and (vk0, vk1) at `qbits` bits, checked, and the
-// instance of that width: the entries' common path.
+// instance of that width.
 inline int launch_bits(int qbits, int k0, int k1, int vk0, int vk1, const void* q,
                        const void* pool, const void* scales, const void* k_win,
                        const void* v_win, void* out, int out_f32, int device, int BH,

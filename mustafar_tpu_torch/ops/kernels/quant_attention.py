@@ -5,6 +5,7 @@ Ports of ``mustafar_tpu/ops/kernels/quant_attention.py`` for the codecs q8
 (int8 K, int8 V), q8q4 (int8 K, int4 V) and q4q4 (int4 K, int4 V) at
 256-token chunks, options off:
   fused_q_decode_attention     uniform-batch decode   csrc/q_decode.cu
+                               (one CTA a split, the merge fused)
   fused_q_decode_attention_ps  per-slot decode        csrc/q_decode_ps.cu
                                (split-K: a split kernel, then its merge)
   fused_q_segment_attention    chunked-prefill        csrc/q_segment.cu
@@ -12,10 +13,13 @@ Ports of ``mustafar_tpu/ops/kernels/quant_attention.py`` for the codecs q8
 Each kernel's header note says what it computes, what bounds it and how it
 is laid out.  The plain versions below repeat their arithmetic step by step
 (same casts, same order of scaling, the same online-softmax steps), so
-kernel and plain version agree to f32 rounding.  The per-slot kernel splits
-each slot's work (one chunk, or one window tile, a split) and merges the
-splits' partials: ``fused_q_decode_attention_ps_split_plain`` is its
-arithmetic, ``fused_q_decode_attention_ps_plain`` the TPU's.
+kernel and plain version agree to f32 rounding.  Both decode kernels split
+a row's work (one chunk, or one window tile, a split), each split one
+softmax step from a fresh state, and merge the splits' partials:
+``fused_q_decode_attention_split_plain`` and
+``fused_q_decode_attention_ps_split_plain`` are their arithmetic,
+``fused_q_decode_attention_plain`` and ``fused_q_decode_attention_ps_plain``
+the TPU's (one running softmax over the same steps; the CPU path).
 
 Layouts are the JAX package's stacked ones, indexed at layer ``li``:
   q          [B, 1, Hq, 128]              bf16 or f32 (read as bf16)
@@ -137,6 +141,25 @@ def window_tile(W: int) -> int:
     return max(cands) if cands else W
 
 
+def _scores(qf32, k, ordered: bool = False):
+    """q . k^T / sqrt(128) in f32 (q [..., R, D], k [..., n, D]): the f32
+    product, or with ``ordered`` summed as the uniform CUDA kernels sum:
+    each quarter of the channels (32 j .. 32 j + 31) in channel order, one
+    f32 rounding a product added, then (s0 + s1) + (s2 + s3).  Every
+    product of the decode kernels' operands is exact (bf16 times bf16 or a
+    code of 8 or fewer bits: at most 16 significant bits), so the ordered
+    scores are the kernels' bit for bit, and so is every bf16(p)."""
+    if not ordered:
+        return (qf32 @ k.transpose(-1, -2)) * SM_SCALE
+    q4 = qf32.reshape(*qf32.shape[:-1], 1, 4, 32)
+    k4 = k.reshape(*k.shape[:-2], 1, k.shape[-2], 4, 32)
+    s = torch.zeros((*qf32.shape[:-1], k.shape[-2], 4), dtype=torch.float32,
+                    device=qf32.device)
+    for c in range(32):
+        s = s + q4[..., c] * k4[..., c]
+    return ((s[..., 0] + s[..., 1]) + (s[..., 2] + s[..., 3])) * SM_SCALE
+
+
 def _softmax_step(m, l, acc, s, vmat, vscale):
     """One online-softmax step of the kernels: scores s [..., R, n] (f32)
     against values vmat [..., n, D]; p rounded to bf16 for the value
@@ -207,14 +230,16 @@ def ps_splits(mc: int, W: int) -> int:
 
 
 def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_win,
-                   li: int):
-    """The per-slot split kernels' arithmetic, shared by every codec's split
+                   li: int, cut: int = 1, ordered: bool = False):
+    """The split decode kernels' arithmetic, shared by every codec's split
     plain version: per slot (counts clamped, ``slots``), the partials (acc,
     m, l) of each of its chunks (``slot_step(hs)`` is the chunk step, as in
-    ``decode_steps``, of the slot's kv heads ``hs``) and of each window
-    tile, one softmax step each from a fresh state, merged in split order
-    (``merge_partials``).  A slot with nothing to attend comes out 0.  Out
-    is f32 -> q's dtype."""
+    ``decode_steps``, of the slot's kv heads ``hs``), each cut into ``cut``
+    runs of 256 / cut tokens, and of each window tile, one softmax step each
+    from a fresh state, merged in split order (``merge_partials``); the
+    window's scores summed in the kernels' order with ``ordered``
+    (``_scores``; the chunk step takes its own).  A slot with nothing to
+    attend comes out 0.  Out is f32 -> q's dtype."""
     B, _, Hq, D = q.shape
     Hkv = BH // B
     G = Hq // Hkv
@@ -228,12 +253,16 @@ def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_w
         fresh = (torch.full((Hkv, G, 1), NEG_INF, dtype=f32, device=q.device),
                  torch.zeros((Hkv, G, 1), dtype=f32, device=q.device),
                  torch.zeros((Hkv, G, D), dtype=f32, device=q.device))
-        parts = [_softmax_step(*fresh, *step(qf32, ci)) for ci in range(nc)]
+        run = 256 // cut
+        parts = []
+        for ci in range(nc):
+            sc, vc, vs = step(qf32, ci)
+            parts.extend(_softmax_step(*fresh, sc[..., t:t + run], vc[:, t:t + run], vs)
+                         for t in range(0, 256, run))
         for t0 in range(0, wl, wt):
             kw = k_win[li, hs, t0:min(wl, t0 + wt)].to(f32)
             vw = v_win[li, hs, t0:min(wl, t0 + wt)].to(f32)
-            parts.append(_softmax_step(*fresh, (qf32 @ kw.transpose(1, 2)) * SM_SCALE,
-                                       vw, None))
+            parts.append(_softmax_step(*fresh, _scores(qf32, kw, ordered), vw, None))
         out = merge_partials([(acc, m, l) for m, l, acc in parts]) if parts else fresh[2]
         outs.append(out.reshape(1, 1, Hq, D))
     return torch.cat(outs).to(q.dtype)
@@ -265,19 +294,20 @@ def segment_steps(q_seg, BH: int, n_chunks: int, chunk_step):
     return unfold(acc), unfold(m), unfold(l)
 
 
-def scaled_chunk_step(qf32, kc, vc, ks, vs):
+def scaled_chunk_step(qf32, kc, vc, ks, vs, ordered: bool = False):
     """One chunk of int codes with per-channel scales, as the kernels fold
-    them: scores bf16(q * kscale) . K codes / sqrt(128); the V scale ``vs``
+    them: scores bf16(q * kscale) . K codes / sqrt(128) (in the uniform
+    kernels' order with ``ordered``, ``_scores``); the V scale ``vs``
     multiplies the value product (``_softmax_step``).  Shared with the
     bitmap-q8 codec (``sparse_attention``)."""
     qk = (qf32 * ks[:, None, :]).to(torch.bfloat16).to(torch.float32)
-    return (qk @ kc.transpose(1, 2)) * SM_SCALE, vc, vs
+    return _scores(qk, kc, ordered), vc, vs
 
 
-def _q_chunk_step(kv_pool, kv_scales, li, codec):
+def _q_chunk_step(kv_pool, kv_scales, li, codec, ordered: bool = False):
     """Quant-codec chunk step (``scaled_chunk_step``)."""
     def step(qf32, ci):
-        return scaled_chunk_step(qf32, *_chunk(kv_pool, kv_scales, li, ci, codec))
+        return scaled_chunk_step(qf32, *_chunk(kv_pool, kv_scales, li, ci, codec), ordered)
     return step
 
 
@@ -291,7 +321,23 @@ def fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
                         win_len, li)
 
 
+def uniform_splits(n_chunks: int, win_len: int, W: int, cut: int = 1):
+    """The splits a row of a uniform decode kernel's grid takes, sized from
+    the call's counts: (chunk splits, window splits) = (n_chunks * cut,
+    ceil(win_len / window_tile(W))).  Every split has tokens: a chunk's
+    runs of 256 / cut, a window tile at least one."""
+    return n_chunks * cut, (-(-win_len // window_tile(W)) if win_len else 0)
+
+
+def uniform_counts(B: int, n_chunks: int, win_len: int, device):
+    """The per-slot count tensors of a uniform call: every slot at
+    (n_chunks, win_len)."""
+    return (torch.full((B,), n_chunks, dtype=torch.int32, device=device),
+            torch.full((B,), win_len, dtype=torch.int32, device=device))
+
+
 _SCRATCH: dict = {}
+_COUNTERS: dict = {}
 INT_MAX = 2 ** 31 - 1
 
 
@@ -319,12 +365,38 @@ def _split_scratch(BH: int, n_splits: int, G: int, device, stream):
     return buf
 
 
+def _split_counters(BH: int, device, stream):
+    """Arrival counters of the uniform decode kernels' fused merge, one
+    int32 a row: zero when allocated, and every launch leaves them zero
+    (the row's last CTA resets its own).  One buffer per (device, stream),
+    grown when a call needs more."""
+    key = (device.index or 0, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < BH:
+        buf = _COUNTERS[key] = torch.zeros(BH, dtype=torch.int32, device=device)
+    return buf
+
+
 def _library(name, fn_name, n_ptr, n_int):
     fn = getattr(build.load(name), fn_name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def fused_q_decode_attention_split_plain(q, kv_pool, kv_scales, k_win, v_win,
+                                         n_chunks: int, win_len: int, li: int,
+                                         codec: qf.QuantCodec):
+    """The uniform CUDA kernel's arithmetic: each chunk and each window tile
+    one split from a fresh softmax state, merged in split order, the scores
+    summed in the kernel's order (``_scores``): the per-slot kernel's split
+    steps (``ps_split_steps``) with every slot at the call's counts."""
+    nc, wl = uniform_counts(q.shape[0], n_chunks, win_len, q.device)
+    return ps_split_steps(
+        q, kv_pool.shape[2], nc, wl, kv_pool.shape[1],
+        lambda hs: _q_chunk_step(kv_pool[:, :, hs], kv_scales[:, :, hs], li, codec, True),
+        k_win, v_win, li, ordered=True)
 
 
 def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
@@ -337,8 +409,11 @@ def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
     read as bf16, the output is computed in f32, as on the TPU).
 
     CUDA tensors launch the kernel of ``csrc/q_decode.cu`` (built at first
-    use) on the current stream; CPU tensors run the plain version.  A CUDA
-    request the kernel cannot serve raises; nothing falls back."""
+    use) on the current stream, one CTA a split (``uniform_splits``), with
+    the stream's split scratch and merge counters (``_split_scratch``,
+    ``_split_counters``); with nothing to attend the output is 0 and
+    nothing launches.  CPU tensors run the plain version.  A CUDA request
+    the kernel cannot serve raises; nothing falls back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec,
                                  window, return_norm, return_win_probs,
                                  "fused_q_decode_attention")
@@ -347,14 +422,21 @@ def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
     if q.device.type == "cpu":
         return fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win,
                                               v_win, n_chunks, win_len, li, codec)
+    n_splits = sum(uniform_splits(n_chunks, win_len, W))
+    if n_splits == 0:
+        return torch.zeros_like(q)
+    split_scratch_floats(BH, n_splits, G)        # a grid too large: refused up front
     stream = _stream(q)
     _check_aligned((("q", q), ("kv_pool", kv_pool), ("kv_scales", kv_scales),
                     ("k_win", k_win), ("v_win", v_win)))
-    fn = _library("q_decode", "q_decode_attention", 6, 12)
+    fn = _library("q_decode", "q_decode_attention", 8, 14)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
+    scratch = _split_scratch(BH, n_splits, G, q.device, stream)
+    counters = _split_counters(BH, q.device, stream)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
-            k_win.data_ptr(), v_win.data_ptr(), out.data_ptr(),
+            k_win.data_ptr(), v_win.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            counters.data_ptr(), scratch.numel(), counters.numel(),
             int(out.dtype == torch.float32), q.device.index or 0, codec.kbits,
             codec.vbits, BH, G, mc, W, window_tile(W), n_chunks, win_len, li, stream)
     if rc != 0:

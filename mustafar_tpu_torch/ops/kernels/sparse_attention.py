@@ -6,7 +6,9 @@ Ports of ``mustafar_tpu/ops/kernels/sparse_attention.py`` for the codecs
 and "bitmap-q8" (int8 codes with per-channel scales, ``qbits=8``), options
 off:
   fused_sparse_decode_attention     uniform-batch decode  csrc/sp_decode.cu
-                                    (TPU kernel v7)
+                                    (TPU kernel v7)       (entry sp_decode: one
+                                                          CTA a split, the
+                                                          merge fused)
   fused_sparse_decode_attention_ps  per-slot decode       csrc/sp_decode.cu
                                     (TPU kernel v6ps)     (entry sp_decode_ps)
   fused_sparse_segment_attention    chunked-prefill       csrc/sp_segment.cu
@@ -26,7 +28,10 @@ those of the quant kernels (one per chunk, then window tiles of
 ``sparse_format.decode_stream``.  The per-slot kernel splits each slot's
 work (one chunk, or one window tile, a split) and merges the splits'
 partials; ``fused_sparse_decode_attention_ps_split_plain`` is its
-arithmetic, ``fused_sparse_decode_attention_ps_plain`` the TPU's.
+arithmetic, ``fused_sparse_decode_attention_ps_plain`` the TPU's.  The
+uniform kernel splits likewise, each chunk into ``CHUNK_CUT`` runs of 64
+tokens: ``fused_sparse_decode_attention_split_plain`` is its arithmetic,
+``fused_sparse_decode_attention_plain`` the TPU's.
 
 Layouts are the JAX package's stacked ones, indexed at layer ``li``:
   q           [B, 1, Hq, 128]              bf16 or f32 (read as bf16)
@@ -119,11 +124,12 @@ def _segs(fmt):
     return (*fmt.segs, 0)[:2]
 
 
-def _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt):
+def _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt, ordered: bool = False):
     """Bitmap chunk step: chunk ci's K and V expanded (``decode_stream``).
     bf16 values: scores bf16(q) . K / sqrt(128), no V scale.  int8 codes
     (``kv_scales`` given): the quant codecs' step on the codes
-    (``quant_attention.scaled_chunk_step``)."""
+    (``quant_attention.scaled_chunk_step``).  Scores summed in the uniform
+    kernels' order with ``ordered`` (``quant_attention._scores``)."""
     KR = kfmt.stream_rows
 
     def step(qf32, ci):
@@ -131,9 +137,9 @@ def _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt):
         kd = sf.decode_stream(rows[:, :KR], kfmt).to(torch.float32)
         vd = sf.decode_stream(rows[:, KR:], vfmt).to(torch.float32)
         if kv_scales is None:
-            return (qf32 @ kd.transpose(1, 2)) * qa.SM_SCALE, vd, None
+            return qa._scores(qf32, kd, ordered), vd, None
         sc = kv_scales[li, ci].to(torch.float32)                # [BH, 2, 128]
-        return qa.scaled_chunk_step(qf32, kd, vd, sc[:, 0], sc[:, 1])
+        return qa.scaled_chunk_step(qf32, kd, vd, sc[:, 0], sc[:, 1], ordered)
     return step
 
 
@@ -146,6 +152,25 @@ def fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win, n_chunks: int,
                            v_win, win_len, li)
 
 
+CHUNK_CUT = 4           # softmax steps the uniform kernel cuts a chunk into
+
+
+def fused_sparse_decode_attention_split_plain(q, kv_pool, k_win, v_win, n_chunks: int,
+                                              win_len: int, li: int, kfmt, vfmt,
+                                              kv_scales=None):
+    """The uniform CUDA kernel's arithmetic (``quant_attention.ps_split_steps``
+    with every slot at the call's counts and the bitmap chunk step): each
+    chunk's ``CHUNK_CUT`` runs of 64 tokens and each window tile one split
+    from a fresh softmax state, merged in split order, the scores summed in
+    the kernel's order (``quant_attention._scores``)."""
+    nc, wl = qa.uniform_counts(q.shape[0], n_chunks, win_len, q.device)
+    return qa.ps_split_steps(
+        q, kv_pool.shape[2], nc, wl, kv_pool.shape[1],
+        lambda hs: _sp_chunk_step(kv_pool[:, :, hs], None if kv_scales is None
+                                  else kv_scales[:, :, hs], li, kfmt, vfmt, True),
+        k_win, v_win, li, cut=CHUNK_CUT, ordered=True)
+
+
 def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
                                   win_len: int, li: int, kfmt: sf.ChunkFormat,
                                   vfmt: sf.ChunkFormat, *, kv_scales=None,
@@ -156,10 +181,13 @@ def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
     is read as bf16, the output is computed in f32, as on the TPU).
     ``kv_scales`` is required for ``qbits=8`` formats and refused otherwise.
 
-    CUDA tensors launch the kernel of ``csrc/sp_decode.cu`` (built at first
-    use; the instance of the formats' value width) on the current stream;
-    CPU tensors run the plain version.  A CUDA request the kernel cannot
-    serve raises; nothing falls back."""
+    CUDA tensors launch the kernel of ``csrc/sp_decode.cu`` (entry
+    ``sp_decode``, built at first use; the instance of the formats' value
+    width) on the current stream, one CTA a split
+    (``quant_attention.uniform_splits`` with ``CHUNK_CUT``), with the
+    stream's split scratch and merge counters; with nothing to attend the
+    output is 0 and nothing launches.  CPU tensors run the plain version.
+    A CUDA request the kernel cannot serve raises; nothing falls back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt,
                                  window, return_norm, return_win_probs,
                                  "fused_sparse_decode_attention")
@@ -168,14 +196,21 @@ def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
     if q.device.type == "cpu":
         return fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win, n_chunks,
                                                    win_len, li, kfmt, vfmt, kv_scales)
+    n_splits = sum(qa.uniform_splits(n_chunks, win_len, W, CHUNK_CUT))
+    if n_splits == 0:
+        return torch.zeros_like(q)
+    qa.split_scratch_floats(BH, n_splits, G)     # a grid too large: refused up front
     stream = qa._stream(q)
     qa._check_aligned((("q", q), ("kv_pool", kv_pool), ("k_win", k_win),
                        ("v_win", v_win), *_scales(kv_scales)))
-    fn = qa._library("sp_decode", "sp_decode", 6, 15)
+    fn = qa._library("sp_decode", "sp_decode", 8, 17)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
+    scratch = qa._split_scratch(BH, n_splits, G, q.device, stream)
+    counters = qa._split_counters(BH, q.device, stream)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), _ptr(kv_scales), k_win.data_ptr(),
-            v_win.data_ptr(), out.data_ptr(), int(out.dtype == torch.float32),
+            v_win.data_ptr(), out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+            scratch.numel(), counters.numel(), int(out.dtype == torch.float32),
             q.device.index or 0, kfmt.qbits, BH, G, mc, W, qa.window_tile(W), n_chunks,
             win_len, li, *_segs(kfmt), *_segs(vfmt), stream)
     if rc != 0:

@@ -11,6 +11,14 @@
     order) against the same JAX kernel and against the TPU-order plain
     version, for q8, q8q4 and q4q4, groups 1 and 4, f32 and bf16 q, with
     slots that have chunks but no window, a window but no chunks, and none.
+(u) The uniform CUDA kernel's split arithmetic
+    (``fused_q_decode_attention_split_plain``: each chunk and window tile
+    one step from a fresh softmax state, merged in split order, the scores
+    summed in the kernels' fixed order) against the same JAX kernel and the
+    TPU-order plain version, for q8, q8q4 and q4q4, groups 1, 2, 4 and 8,
+    f32 and bf16 q, at the (n_chunks, win_len) cases of ``chip_smoke.py``'s
+    ``phase_kernel``; the fixed score order itself; the host's grid rule
+    (``uniform_splits``).
 (j) The module imports and runs on the CPU with no ``nvcc``; the wrappers
     refuse what the CUDA kernels cannot serve instead of falling back.
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
@@ -423,3 +431,146 @@ def test_segment_wrapper_refuses_what_the_kernel_cannot_serve():
     meta = {k: (v.to("meta") if torch.is_tensor(v) else v) for k, v in ok.items()}
     with pytest.raises(ValueError):
         tqa.fused_q_segment_attention(**meta)
+
+
+# chip_smoke.phase_kernel's (n_chunks, win_len, li) cases, at mc = 3 here
+UNIFORM_CASES = ((0, 1, 0), (0, 44, 1), (0, 288, 0), (3, 288, 1), (3, 1, 0), (1, 44, 0),
+                 (1, 288, 1), (2, 88, 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _uniform_case(codec, G):
+    """Stacked inputs (B=2, one kv head, mc=3, L=2) and the JAX kernel's
+    output (f32 q) at each of ``UNIFORM_CASES``, once a codec and group."""
+    q, pool, scales, k_win, v_win = _inputs(90 + G, 2, 3, 2, 1, G, codec)
+    jos = [np.asarray(jqa.fused_q_decode_attention(
+        jnp.asarray(q), jnp.asarray(pool), jnp.asarray(scales[..., 0, :], jnp.bfloat16),
+        jnp.asarray(scales[..., 1, :], jnp.bfloat16), jnp.asarray(k_win, jnp.bfloat16),
+        jnp.asarray(v_win, jnp.bfloat16), jnp.int32(nc), jnp.int32(wl), JCODECS[codec], 3,
+        li=jnp.int32(li))).astype(np.float32) for nc, wl, li in UNIFORM_CASES]
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    return q, (torch.from_numpy(pool), bf(scales), bf(k_win), bf(v_win)), jos
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("codec", ["q8", "q8q4", "q4q4"])
+def test_uniform_split_plain_matches_jax_kernel(codec, G, q_dtype):
+    """The uniform kernel's splits (one a chunk, one a window tile of 96
+    tokens) at every case of ``phase_kernel``: held to the JAX kernel (f32
+    q) at the tolerance of ``test_ps_split_plain_matches_jax_kernel`` (a
+    bf16 output may also round one ulp the other way: twice that) and to the
+    TPU-order plain version at 2 bf16 ulps, row by row; a bf16 q gives the
+    f32 q's output rounded."""
+    q, targs, jos = _uniform_case(codec, G)
+    tq = torch.from_numpy(q).to(getattr(torch, q_dtype))
+    jtol = ULP if q_dtype == "float32" else 2 * ULP
+    for (nc, wl, li), jo in zip(UNIFORM_CASES, jos):
+        args = (*targs, nc, wl, li, TCODECS[codec])
+        got = tqa.fused_q_decode_attention_split_plain(tq, *args)
+        assert got.dtype == tq.dtype and got.shape == (2, 1, G, 128)
+        got32 = tqa.fused_q_decode_attention_split_plain(tq.float(), *args)
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      got32.to(tq.dtype).float().numpy())
+        tpu = tqa.fused_q_decode_attention_plain(tq, *args).float().numpy()
+        got = got.float().numpy()
+        for b in range(2):
+            where = f"row {b}, nc={nc} wl={wl} li={li}"
+            np.testing.assert_allclose(got[b], jo[b], rtol=0,
+                                       atol=jtol * np.abs(jo[b]).max(),
+                                       err_msg=f"{where} against JAX")
+            np.testing.assert_allclose(got[b], tpu[b], rtol=0,
+                                       atol=2 * ULP * np.abs(tpu[b]).max(),
+                                       err_msg=f"{where} against the TPU order")
+
+
+def test_uniform_split_plain_is_the_per_slot_steps_at_uniform_counts():
+    """The uniform kernel takes the per-slot kernel's steps: its split plain
+    version is ``ps_split_steps`` at count tensors of the call's counts, bit
+    for bit; with the scores as one f32 product (the per-slot kernel's split
+    plain version, ``fused_q_decode_attention_ps_split_plain``) only the
+    scores' rounding differs, within 2 bf16 ulps of the output."""
+    q, targs, _ = _uniform_case("q8q4", 4)
+    tq = torch.from_numpy(q)
+    pool, scales, k_win, v_win = targs
+    for nc, wl, li in UNIFORM_CASES:
+        got = tqa.fused_q_decode_attention_split_plain(tq, *targs, nc, wl, li, TCODEC)
+        ncs, wls = (torch.full((2,), x, dtype=torch.int32) for x in (nc, wl))
+        steps = tqa.ps_split_steps(
+            tq, 2, ncs, wls, 3, lambda hs: tqa._q_chunk_step(
+                pool[:, :, hs], scales[:, :, hs], li, TCODEC, True),
+            k_win, v_win, li, ordered=True)
+        np.testing.assert_array_equal(got.numpy(), steps.numpy())
+        per_slot = tqa.fused_q_decode_attention_ps_split_plain(tq, *targs[:4], ncs, wls,
+                                                               li, TCODEC).numpy()
+        np.testing.assert_allclose(got.numpy(), per_slot, rtol=0,
+                                   atol=2 * ULP * np.abs(per_slot).max(),
+                                   err_msg=f"nc={nc} wl={wl} li={li}")
+
+
+@pytest.mark.parametrize("codes", [False, True])
+def test_ordered_scores_are_the_documented_sum(codes):
+    """``_scores(..., ordered=True)`` is each quarter of the channels summed
+    in channel order with one f32 rounding a product, then (s0 + s1) + (s2 +
+    s3), times 1/sqrt(128): here against that sum written out in numpy f32,
+    for bf16 keys and for integer codes; it differs from the f32 product by
+    f32 rounding only."""
+    rs = np.random.RandomState(7)
+    q = _bf16(rs.randn(3, 4, 128))
+    k = (rs.randint(-128, 128, size=(3, 40, 128)).astype(np.float32) if codes
+         else _bf16(rs.randn(3, 40, 128)))
+    got = tqa._scores(torch.from_numpy(q), torch.from_numpy(k), ordered=True).numpy()
+    quarters = np.zeros((3, 4, 40, 4), np.float32)
+    for c in range(32):
+        quarters += (q[:, :, None, c::32] * k[:, None, :, c::32]).astype(np.float32)
+    want = (((quarters[..., 0] + quarters[..., 1]) + (quarters[..., 2] + quarters[..., 3]))
+            * np.float32(tqa.SM_SCALE))
+    np.testing.assert_array_equal(got, want)
+    flat = tqa._scores(torch.from_numpy(q), torch.from_numpy(k)).numpy()
+    np.testing.assert_allclose(got, flat, rtol=1e-5, atol=1e-5 * np.abs(flat).max())
+
+
+def test_uniform_splits_of_the_grid():
+    """The uniform kernels' grid, sized from the call's counts: one split a
+    chunk (cut in ``cut`` runs for the bitmap kernel), one a window tile
+    (96 tokens at W=288, 40 at W=40 and W=200); no split is empty, and
+    n_chunks = 0 takes no chunk split."""
+    from mustafar_tpu_torch.ops.kernels import sparse_attention as tska
+    cases = {(1, 288, 288, 1): (1, 3), (0, 1, 288, 1): (0, 1), (5, 288, 288, 1): (5, 3),
+             (5, 1, 288, 1): (5, 1), (0, 44, 288, 1): (0, 1), (2, 88, 288, 1): (2, 1),
+             (1, 97, 288, 1): (1, 2), (3, 200, 200, 1): (3, 5), (2, 41, 40, 1): (2, 2),
+             (1, 288, 288, 4): (4, 3), (0, 1, 288, 4): (0, 1), (5, 288, 288, 4): (20, 3),
+             (0, 0, 288, 1): (0, 0), (4, 0, 0, 4): (16, 0)}
+    for (nc, wl, W, cut), want in cases.items():
+        assert tqa.uniform_splits(nc, wl, W, cut) == want, (nc, wl, W, cut)
+        chunks, tiles = want
+        wt = tqa.window_tile(W) if W else 1
+        assert chunks == nc * cut and (tiles == 0 or 1 <= wl - (tiles - 1) * wt <= wt)
+    assert tska.CHUNK_CUT == 4 and 256 % tska.CHUNK_CUT == 0
+
+
+def test_uniform_wrapper_sizes_its_grid_before_the_device():
+    """On a device other than the CPU the wrapper sizes the grid from the
+    counts before anything is allocated or launched (meta tensors here,
+    which allocate nothing): nothing to attend comes out 0 with no launch; a
+    grid whose partials would pass the int range is refused; else the call
+    goes on to the device check."""
+    B, Hkv, G, W = 8, 8, 4, 288
+
+    def call(nc, wl, mc=5, Bq=B):
+        meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+        return tqa.fused_q_decode_attention(
+            meta((Bq, 1, Hkv * G, 128), torch.bfloat16),
+            meta((1, mc, Bq * Hkv, TCODEC.stream_rows, 128), torch.int16),
+            meta((1, mc, Bq * Hkv, 2, 128), torch.bfloat16),
+            meta((1, Bq * Hkv, W, 128), torch.bfloat16),
+            meta((1, Bq * Hkv, W, 128), torch.bfloat16), nc, wl, 0, TCODEC)
+
+    before = tqa.fused_q_decode_attention.launches
+    out = call(0, 0)
+    assert out.shape == (B, 1, Hkv * G, 128) and tqa.fused_q_decode_attention.launches == before
+    # 4,096 rows x 5,003 splits x 4 heads x 130 floats > 2^31 - 1
+    with pytest.raises(ValueError, match="int sizes"):
+        call(5000, 288, mc=5000, Bq=512)
+    with pytest.raises(ValueError, match="unsupported device"):
+        call(1, 288)

@@ -15,6 +15,13 @@
     split order) against the same JAX kernel and against the TPU-order
     plain version, at 16 and 8 bits, groups 1 and 4, f32 and bf16 q, with
     slots that have chunks but no window, a window but no chunks, and none.
+(u) The uniform CUDA kernel's split arithmetic
+    (``fused_sparse_decode_attention_split_plain``: each chunk cut into
+    ``CHUNK_CUT`` runs of 64 tokens and each window tile one step from a
+    fresh softmax state, merged in split order, the scores summed in the
+    kernels' fixed order) against JAX's v7 and the TPU-order plain version,
+    at 16 and 8 bits, groups 1, 2, 4 and 8, f32 and bf16 q, at the
+    (n_chunks, win_len) cases of ``chip_smoke.py``'s ``phase_kernel``.
 (q) The wrappers refuse what the CUDA kernels cannot serve (the sliding
     window, softmax stats and window probabilities, scales without
     ``qbits=8`` chunks or ``qbits=8`` chunks without scales, bad shapes,
@@ -43,6 +50,7 @@ import torch
 from mustafar_tpu.ops import sparse_format as jsf
 from mustafar_tpu.ops.kernels import sparse_attention as jska
 from mustafar_tpu_torch.ops import sparse_format as tsf
+from mustafar_tpu_torch.ops.kernels import quant_attention as tqa
 from mustafar_tpu_torch.ops.kernels import sparse_attention as tska
 
 torch.set_num_threads(2)
@@ -423,3 +431,82 @@ def test_module_imports_and_builds_nothing_without_nvcc(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=os.getcwd(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# chip_smoke.phase_kernel's (n_chunks, win_len, li) cases, at mc = 3 here
+UNIFORM_CASES = ((0, 1, 0), (0, 44, 1), (0, 288, 0), (3, 288, 1), (3, 1, 0), (1, 44, 0),
+                 (1, 288, 1), (2, 88, 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _uniform_case(qbits, G):
+    """Stacked inputs (B=2, one kv head, mc=3, L=2, sparsity 0.7) and JAX's
+    v7 output (f32 q) at each of ``UNIFORM_CASES``, once a value width and
+    group."""
+    jf, tf = _fmts(0.7, qbits)
+    ins = _inputs(60 + qbits + G, 2, 3, 2, 1, G, 0.7, qbits)
+    q, pool, k_win, v_win = ins[0], ins[1], ins[-2], ins[-1]
+    scales = ins[2] if qbits == 8 else None
+    jargs = (jnp.asarray(q), jnp.asarray(pool),
+             jnp.asarray(k_win, jnp.bfloat16), jnp.asarray(v_win, jnp.bfloat16))
+    jos = [np.asarray(jska.fused_sparse_decode_attention_v7(
+        *jargs, jnp.int32(nc), jnp.int32(wl), jf, jf, 3, li=jnp.int32(li),
+        **(_jscales(scales) if qbits == 8 else {}))).astype(np.float32)
+        for nc, wl, li in UNIFORM_CASES]
+    return q, (torch.from_numpy(pool), _t(k_win), _t(v_win)), tf, \
+        None if scales is None else _t(scales), jos
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("qbits", [16, 8])
+def test_uniform_split_plain_matches_jax_kernel(qbits, G, q_dtype):
+    """The uniform kernel's splits (four of 64 tokens a chunk, one a window
+    tile of 96) at every case of ``phase_kernel``: held to JAX's v7 (f32 q)
+    at the tolerance of ``test_ps_split_plain_matches_jax_kernel``
+    (twice that for a bf16 output, which may round one ulp the other way)
+    and to the TPU-order plain version at 2 bf16 ulps, row by row; a bf16 q
+    gives the f32 q's output rounded."""
+    q, targs, tf, scales, jos = _uniform_case(qbits, G)
+    tq = torch.from_numpy(q).to(getattr(torch, q_dtype))
+    jtol = ULP if q_dtype == "float32" else 2 * ULP
+    for (nc, wl, li), jo in zip(UNIFORM_CASES, jos):
+        args = (*targs, nc, wl, li, tf, tf, scales)
+        got = tska.fused_sparse_decode_attention_split_plain(tq, *args)
+        assert got.dtype == tq.dtype and got.shape == (2, 1, G, 128)
+        got32 = tska.fused_sparse_decode_attention_split_plain(tq.float(), *args)
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      got32.to(tq.dtype).float().numpy())
+        tpu = tska.fused_sparse_decode_attention_plain(tq, *args).float().numpy()
+        got = got.float().numpy()
+        for b in range(2):
+            where = f"row {b}, nc={nc} wl={wl} li={li}"
+            np.testing.assert_allclose(got[b], jo[b], rtol=0,
+                                       atol=jtol * np.abs(jo[b]).max(),
+                                       err_msg=f"{where} against JAX")
+            np.testing.assert_allclose(got[b], tpu[b], rtol=0,
+                                       atol=2 * ULP * np.abs(tpu[b]).max(),
+                                       err_msg=f"{where} against the TPU order")
+
+
+def test_uniform_split_plain_cuts_only_the_chunks():
+    """The bitmap uniform kernel's steps are the quant kernels' but for the
+    chunks, cut in ``CHUNK_CUT`` runs: with no chunk its split plain version
+    is the per-slot split steps at uniform counts and the kernels' score
+    order bit for bit; with chunks the cut moves p's rounding only, within 2
+    bf16 ulps of the output."""
+    q, targs, tf, scales, _ = _uniform_case(16, 4)
+    tq = torch.from_numpy(q)
+    pool, k_win, v_win = targs
+    for nc, wl, li in UNIFORM_CASES:
+        got = tska.fused_sparse_decode_attention_split_plain(tq, *targs, nc, wl, li, tf, tf)
+        ncs, wls = (torch.full((2,), x, dtype=torch.int32) for x in (nc, wl))
+        whole = tqa.ps_split_steps(
+            tq, 2, ncs, wls, 3,
+            lambda hs: tska._sp_chunk_step(pool[:, :, hs], None, li, tf, tf, True),
+            k_win, v_win, li, ordered=True).numpy()
+        if nc == 0:
+            np.testing.assert_array_equal(got.numpy(), whole)
+        np.testing.assert_allclose(got.numpy(), whole, rtol=0,
+                                   atol=2 * ULP * np.abs(whole).max(),
+                                   err_msg=f"nc={nc} wl={wl} li={li}")

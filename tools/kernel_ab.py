@@ -11,14 +11,16 @@ phases of its ``chip_smoke.py`` (every codec's decode, per-slot and segment
 kernels, the pack, W4, dense and archive kernels; each prints its JSON
 line), then prints a ``kernel_ab`` line: the SHA-256 of the outputs of the
 uniform decode kernels 1 (q8q4, q8, q4q4) and 6 (bitmap, bitmap-q8; G=4,
-bf16 and f32 q, five (n_chunks, win_len) cases each), of the segment
-kernels 3 (q8q4, q8, q4q4) and 8 (bitmap, bitmap-q8): acc, m and l at
-``phase_kernel_seg``'s cases, and of the W4 kernel 5 at every
+bf16 and f32 q, five (n_chunks, win_len) cases each), of the per-slot
+decode kernels 2 and 7 (each codec, at ``phase_kernel_ps``'s slots), of
+the segment kernels 3 (q8q4, q8, q4q4) and 8 (bitmap, bitmap-q8): acc, m
+and l at ``phase_kernel_seg``'s cases, and of the W4 kernel 5 at every
 ``W4_SHAPES`` shape at T = 8 and 32, so that two checkouts' outputs can be
-compared bit for bit; the device time of kernels 3 (at 1, 4, 16 and 31
-chunks) and 5 (``k3_k5_ms``); and the host time of the kernel 2, 4, 5, 6
-and 7 wrappers (``wrapper_host_us``: the least and the median of means
-over many calls, steadier than the kernel phases' single mean).  With
+compared bit for bit; the device time of kernels 1 and 6 (1 chunk + 288
+window and 5 chunks + 288, ``k1_k6_ms``), 3 (at 1, 4, 16 and 31 chunks)
+and 5 (``k3_k5_ms``); and the host time of the kernel 1, 2, 4, 5, 6 and 7
+wrappers (``wrapper_host_us``: the least and the median of means over many
+calls, steadier than the kernel phases' single mean).  With
 ``--engine`` it then makes the random W8 Llama-3-8B
 weights (seed 0) and runs the ``serve_cb`` (q8q4) and ``host_split``
 phases of the ``chip_smoke.py`` next to this script on DIR's package, so
@@ -26,11 +28,12 @@ both checkouts take the same engine measurements.  With ``--host-only`` it
 builds and prints only the wrappers' host time, over batches of 40 calls
 (the launch queue never fills) and of 400 (alternate the two checkouts'
 processes a few times: the host's speed drifts from process to process).
-With ``--variants`` it builds each of ``VARIANTS`` (a kernel's source with
-a few substitutions) beside DIR's own build, prints their ptxas reports
-and times kernels 3 and 5 at ``chip_smoke.py``'s shapes with DIR's build
-and each variant in turn, beside the digests of DIR's kernels.  Needs one
-CUDA card.
+With ``--variants [LIB ...]`` it builds each of ``VARIANTS`` (a kernel's
+source with a few substitutions; those of the named libraries only, if
+any) beside DIR's own build, prints their ptxas reports and times the
+variant's kernels (``VARIANT_TIMES``: kernels 1 and 6, or 3 and 5) with
+DIR's build and each variant in turn, beside the digests of DIR's
+kernels.  Needs one CUDA card.
 """
 
 import argparse
@@ -54,11 +57,15 @@ def _sha(tensors):
     return h.hexdigest()
 
 
+# chip_smoke.phase_kernel_ps's slots: (n_chunks, win_len) of 8 slots at mc = 32
+PS_SLOTS = ((0, 0), (0, 1), (1, 44), (2, 288), (5, 288), (5, 1), (1, 0), (31, 288))
+
+
 def digests(c):
-    """Output digests of kernels 1 and 6 (uniform decode, each codec), 3 and
-    8 (segment partials acc, m, l, each codec) and 5 (W4, every projection
-    shape at T = 8 and 32), from DIR's kernels on inputs made from fixed
-    seeds."""
+    """Output digests of kernels 1 and 6 (uniform decode, each codec), 2 and
+    7 (per-slot decode, each codec, at ``PS_SLOTS``), 3 and 8 (segment
+    partials acc, m, l, each codec) and 5 (W4, every projection shape at T =
+    8 and 32), from DIR's kernels on inputs made from fixed seeds."""
     import torch
     dev = torch.device("cuda")
     out = {}
@@ -70,6 +77,16 @@ def digests(c):
         out[f"decode_{codec}"] = _sha(
             kit.decode(qq, nc, wl, li) for qq in (q, q.float())
             for nc, wl, li in ((0, 44, 0), (1, 288, 1), (2, 1, 0), (5, 288, 1), (5, 0, 0)))
+    for codec in ("q8q4", "q8", "q4q4", "bitmap", "bitmap-q8"):
+        g = torch.Generator(device=dev)
+        g.manual_seed(12)
+        kit = c._Kit(codec, g, dev, 2, 32, 64, 288)
+        q = torch.randn((8, 1, 32, 128), generator=g, device=dev).to(torch.bfloat16)
+        nc = torch.tensor([n for n, _ in PS_SLOTS], dtype=torch.int32, device=dev)
+        wl = torch.tensor([w for _, w in PS_SLOTS], dtype=torch.int32, device=dev)
+        out[f"decode_ps_{codec}"] = _sha(kit.decode_ps(qq, nc, wl, li) for qq in (q, q.float())
+                                         for li in (0, 1))
+        del kit
     for codec in ("bitmap", "bitmap-q8"):
         g = torch.Generator(device=dev)
         g.manual_seed(3)
@@ -112,7 +129,7 @@ def wrapper_host_us(c, reps=7, calls=200):
     synchronised between (a shared host only adds time, so the least is the
     steadier), for kernel 4 (B=8, S=1,312, pos 599 and per slot at S=8,448),
     kernels 2 (q8q4) and 7 (bitmap) at chip_smoke's mixed slots at mc=32,
-    kernel 6 (bitmap, 1 chunk + 288 window), kernel 5 (W4) at
+    kernels 6 (bitmap) and 1 (q8q4) at 1 chunk + 288 window, kernel 5 (W4) at
     4096 x 14336 and 4096 x 1024, T=8 and, for scale, one
     ``torch.empty`` of the split scratch (4.7 MB) and one small
     ``torch.add`` (one launch)."""
@@ -153,6 +170,7 @@ def wrapper_host_us(c, reps=7, calls=200):
     out["k6"] = timed(lambda: kit.decode(q, 1, 288, 0))
     kit = c._Kit("q8q4", g, dev, 4, 32, B * Hkv, 288)
     out["k2_mixed"] = timed(lambda: kit.decode_ps(q, nc, wl, 0))
+    out["k1"] = timed(lambda: kit.decode(q, 1, 288, 0))
     from mustafar_tpu_torch.ops.kernels import w4_matmul as w4
     for label, (din, dout) in (("k5_w_gate_up_T8", (4096, 14336)),
                                ("k5_wk_wv_T8", (4096, 1024))):
@@ -246,6 +264,16 @@ VARIANTS = (
     ("w4_matmul", "k5_no_compute", {"w4_matmul.cu": [
         ("    for (int i = 0; i < 4; ++i)\n#pragma unroll\n      for (int jp = 0; jp < 2; ++jp) {",
          "    for (int i = 0; i < 0; ++i)\n#pragma unroll\n      for (int jp = 0; jp < 2; ++jp) {")]}),
+    # timed only: kernel 1 without its chunks' scores, kernel 6 without its
+    # expansion or its chunks' scores
+    ("q_decode", "k1_no_chunk_scores", {"q_decode.cu": [
+        ("for (int r0 = 8 * warp; r0 < K_ROWS; r0 += 8 * WARPS) {",
+         "for (int r0 = 8 * warp; r0 < 0; r0 += 8 * WARPS) {")]}),
+    ("sp_decode", "k6_no_expand", {"sp_decode.cu": [
+        ("for (int r0 = warp; r0 < STEP; r0 += NR * WARPS) {",
+         "for (int r0 = warp; r0 < 0; r0 += NR * WARPS) {")]}),
+    ("sp_decode", "k6_no_chunk_scores", {"sp_decode.cu": [
+        ("    tile_scores<G>(sm, kt, STEP, warp, lane);\n", "")]}),
 )
 
 
@@ -309,25 +337,59 @@ def k3_k5_ms(c):
     return out
 
 
-def run_variants(c, label, smi):
+def k1_k6_ms(c):
+    """Device ms of kernels 1 (q8q4, q8, q4q4) and 6 (bitmap, bitmap-q8) at
+    ``phase_kernel``'s shapes (B=8, Hkv=8, G=4, W=288, L2 flushed): 1 chunk
+    and the full 288-token window, and the full pool, 5 chunks + 288."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for codec in ("q8q4", "q8", "q4q4", "bitmap", "bitmap-q8"):
+        kit = c._Kit(codec, g, dev, 2, 5, 64, 288)
+        q = torch.randn((8, 1, 32, 128), generator=g, device=dev).to(torch.bfloat16)
+        k = 1 if codec in c.QUANT_BITS else 6
+        for nc in (1, 5):
+            for _ in range(3):
+                kit.decode(q, nc, 288, 0)
+            out[f"k{k}_{codec}_{nc}"] = c.cuda_ms(lambda: kit.decode(q, nc, 288, 0), 50,
+                                                  flush=flush.zero_)[0]
+    return out
+
+
+# the kernels each library's variants are timed on
+VARIANT_TIMES = {"q_segment": k3_k5_ms, "w4_matmul": k3_k5_ms, "q_decode": k1_k6_ms,
+                 "sp_decode": k1_k6_ms}
+
+
+def run_variants(c, label, smi, libs):
     """The ``--variants`` mode: builds, then DIR's build, each variant of
-    its library, and DIR's build again, timed in turn; with the digests of
-    DIR's kernels (``digests``)."""
+    its library (those of ``libs``, all if empty), and DIR's build again,
+    timed in turn on the variant's kernels (``VARIANT_TIMES``); with the
+    digests of DIR's kernels (``digests``)."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
     from mustafar_tpu_torch.ops.kernels import build
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = list(pool.map(lambda v: build_variant(*v), VARIANTS))
+    chosen = [v for v in VARIANTS if not libs or v[0] in libs]
+    with ThreadPoolExecutor(len(chosen)) as pool:
+        built = list(pool.map(lambda v: build_variant(*v), chosen))
+    timers = list(dict.fromkeys(VARIANT_TIMES[v[0]] for v in chosen))
+
+    def times():
+        return {k: v for timer in timers for k, v in timer(c).items()}
+
     own = dict(build._LIBS)
-    rows = [{"variant": label, "times": k3_k5_ms(c)}]
-    for (lib, name, _), done in zip(VARIANTS, built):
+    rows = [{"variant": label, "times": times()}]
+    for (lib, name, _), done in zip(chosen, built):
         if done is None:
             continue
         build._LIBS[lib] = ctypes.CDLL(done[0])
         rows.append({"variant": name, "library": lib, "ptxas": done[1],
-                     "times": k3_k5_ms(c)})
+                     "times": VARIANT_TIMES[lib](c)})
         build._LIBS[lib] = own[lib]
-    rows.append({"variant": label, "times": k3_k5_ms(c)})
+    rows.append({"variant": label, "times": times()})
     print(json.dumps({"phase": "kernel_ab_variants", "label": label, "nvidia_smi": smi,
                       "sha256": digests(c), "rows": rows}), flush=True)
 
@@ -338,7 +400,8 @@ def main():
     ap.add_argument("--label", required=True)
     ap.add_argument("--engine", action="store_true")
     ap.add_argument("--host-only", action="store_true")
-    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--variants", nargs="*", metavar="LIB",
+                    help="build and time the VARIANTS (of these libraries only, if named)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -346,8 +409,8 @@ def main():
     t0 = time.perf_counter()
     smi = c.phase_env()
     c.phase_build()
-    if args.variants:
-        run_variants(c, args.label, smi)
+    if args.variants is not None:
+        run_variants(c, args.label, smi, args.variants)
         return
     if args.host_only:
         print(json.dumps({"phase": "kernel_ab", "label": args.label, "root": args.root,
@@ -363,7 +426,8 @@ def main():
     c.phase_kernel_dense()
     c.phase_kernel_archive()
     line = {"phase": "kernel_ab", "label": args.label, "root": args.root,
-            "nvidia_smi": smi, "sha256": digests(c), "k3_k5_ms": k3_k5_ms(c),
+            "nvidia_smi": smi, "sha256": digests(c), "k1_k6_ms": k1_k6_ms(c),
+            "k3_k5_ms": k3_k5_ms(c),
             "wrapper_host_us": wrapper_host_us(c)}
     if args.engine:
         import torch
