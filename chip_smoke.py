@@ -44,8 +44,14 @@ Phases, each printing one flushed JSON line with its ``phase`` and
   kernel_pack   the prune + quantize + pack kernel (TPU kernel 9) against its
                 plain version, bit-equal: 64 and 8 head-chunks of 256 tokens,
                 bits 8 and 4, keep 40/14/128, ties, a zero row, the score
-                option and the cache's strided views; timed beside its byte
-                bound and the plain chain
+                option, C = 128, 384 and 512, every cluster size, the cache's
+                strided views; K and V in one launch (q8q4, q8, q4q4) in
+                prefill's chunk layout and a compaction's layer layout,
+                writing nothing outside their views; timed beside its byte
+                bound and the plain chain: K alone, K+V at 64 and 8
+                head-chunks, a 32-layer compaction in one launch and in the
+                2 x 32 launches it took before, each K+V shape at every
+                cluster size
   kernel_w4     the W4 matmul kernel against its plain version at every
                 Llama-3-8B projection shape and the fused wqkv / w_gateup, T = 8
                 and 32 (and 1, 13, 100, 128 at one shape), a second launch
@@ -88,8 +94,9 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 on the card: Generator.generate, B=8, prompt 300, 300 new
                 tokens, q8q4 compressed cache (one compaction on the way);
                 every decode step must launch the kernel once per layer, and
-                kernel 9 twice a layer (K and V) for prefill's chunk and the
-                compaction's: 128 launches
+                kernel 9 (K and V in one launch) once a layer for prefill's
+                chunk and once for the compaction of every layer: 33
+                launches
   serve_dense   the same prompts through the dense baseline cache
   kernel_archive_cache
                 the archive's main path on serve_dense's own cache: K and V
@@ -124,8 +131,9 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 serve_cb with the bitmap and bitmap-q8 codecs (peak memory
                 and pool bytes side by side)
   serve_cb_q4q4 serve_cb with the q4q4 codec on its first 8 requests
-                without the 8,000-token one; kernel 9 twice a layer for every
-                chunk a prompt packs and every compaction (q8q4 and q4q4)
+                without the 8,000-token one; kernel 9 (K and V in one
+                launch) once a layer for every chunk a prompt packs and once
+                for every compaction (q8q4 and q4q4)
   serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64
   host_split    one segment (B=1) at q8q4, bitmap and bitmap-q8, one K and V
                 pack of a chunk at each, one decode tick (8 slots, q8q4) and
@@ -196,7 +204,7 @@ def nvidia_smi_line():
 SPIN_CYCLES = 4_000_000   # ~2 ms of the card's clock: longer than a wrapper's host work
 
 
-def cuda_ms(fn, reps, flush=None, spin=True):
+def cuda_ms(fn, reps, flush=None, spin=True, spin_cycles=SPIN_CYCLES):
     """Mean ms of ``fn`` over ``reps`` calls between CUDA events, and how
     many of them the card waited on the host for.  Before each call
     ``flush`` runs (if given).  With ``spin`` a spin kernel then holds the
@@ -207,7 +215,8 @@ def cuda_ms(fn, reps, flush=None, spin=True):
     second value counts them (expected 0 with ``spin``).  Without ``spin``
     the events also hold the host's enqueue wherever the card waits for it,
     as for a plain version of many small launches: its time as a caller
-    sees it."""
+    sees it.  ``spin_cycles`` lengthens the spin for a call whose host work
+    takes longer than the default's ~2 ms."""
     import torch
     total, behind = 0.0, 0
     for _ in range(reps):
@@ -216,7 +225,7 @@ def cuda_ms(fn, reps, flush=None, spin=True):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if spin:
-            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda._sleep(spin_cycles)
         start.record()
         fn()
         behind += bool(start.query())
@@ -440,7 +449,7 @@ KERNEL_META = {
                              "quant_attention.py:516"),
     ("quant", "segment"): ("fused_q_segment_attention", "q_segment.cu",
                            "quant_attention.py:704"),
-    ("quant", "pack"): ("prune_quant_pack", "prune_quant_pack.cu", "pack_kernel.py:101"),
+    ("quant", "pack"): ("prune_quant_pack_kv", "prune_quant_pack.cu", "pack_kernel.py:101"),
     ("bitmap", "decode"): ("fused_sparse_decode_attention", "sp_decode.cu",
                            "sparse_attention.py:896"),
     ("bitmap", "decode_ps"): ("fused_sparse_decode_attention_ps", "sp_decode.cu",
@@ -844,47 +853,61 @@ PACK_NO_LIBRARY = ("no single PyTorch call computes an exact top-k with ties to 
 
 def phase_kernel_pack():
     """Kernel 9 against its plain version on the card, bit-equal (rows and
-    scales, zero tolerance): B*Hkv = 64 and 8 head-chunks of C = 256, bits 8
-    and 4, keep 40 (sparsity 0.7), 14 and 128, with injected ties (channel
-    10 = channel 90, a row of equal magnitudes, a row of two values), an
-    all-zero row and, at 64, the f32 score option; also the cache's strided
-    case (a [B, T, Hkv, 128] prompt slice in, the pool slot's K rows and the
-    scales' K column out).  Timed L2-flushed at the serving shapes (64
-    head-chunks, K at 8 bits and V at 4, keep 40; 8 head-chunks for the
-    engine's B=1 segment; and at keep 128, which skips the bisection) beside
-    the byte bound and the plain chain."""
+    scales, zero tolerance).  The one-tensor entry (``prune_quant_pack``):
+    B*Hkv = 64 and 8 head-chunks of C = 256, bits 8 and 4, keep 40
+    (sparsity 0.7), 14 and 128, with injected ties (channel 10 = channel
+    90, a row of equal magnitudes, a row of two values), an all-zero row
+    and, at 64, the f32 score option; C = 128, 384 and 512 at 8 head-chunks
+    (with a score too); the cache's strided case (a [B, T, Hkv, 128] prompt
+    slice in, the pool slot's K rows and the scales' K column out).  The
+    K+V entry (``prune_quant_pack_kv``, the cache's), each case into pool
+    views filled with sentinels that it must leave alone: q8q4, q8 and
+    q4q4, K and V keeps apart, in prefill's chunk layout (3 chunks of a
+    [8, 840, 8, 128] prompt into pool slots 0-2 of a layer) and a
+    compaction's layer layout (4 layers' windows into slot 2 of each); every
+    cluster size ``pack_grid`` picks on this card, at the largest even
+    head-chunk count up to two an SM that makes it pick that size; and
+    the timed calls' own inputs.  Timed L2-flushed beside the byte bound and
+    the plain chain: K alone at 64 head-chunks (8 and 4 bits, keep 40; keep
+    128, which skips the selection), 8 head-chunks (8 bits); K+V (q8q4) of
+    prefill's chunk at B=8 (the main path's call, the kernels line's
+    numbers), of the engine's batch-1 pack and of a compaction of 32 layers
+    at B=8, the first two beside a launch each for K and V, the last
+    beside the 2 x 32 one-tensor launches that packed it before."""
     import torch
     from mustafar_tpu_torch.ops.kernels import pack_kernel as pk
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(9)
     C, D = 256, 128
-    fn = pk.prune_quant_pack
-    launches0 = fn.launches
+    fn, kv = pk.prune_quant_pack, pk.prune_quant_pack_kv
+    launches0 = (fn.launches, kv.launches)
 
-    def chunk(BH):
-        x = (0.3 * torch.randn((BH, C, D), generator=g, device=dev)).to(torch.bfloat16)
-        x[:, :, 10] = x[:, :, 90]                    # ties across channels
-        x[:, 5, :] = 0                                # an all-zero row
-        x[:, 7, :] = 0.5                              # a row of equal magnitudes
-        x[:, 9, :] = torch.where(torch.arange(D, device=dev) % 2 == 0, 0.25, -0.75)
+    def chunk(*lead, C=C):
+        x = (0.3 * torch.randn((*lead, C, D), generator=g, device=dev)).to(torch.bfloat16)
+        x[..., 10] = x[..., 90]                       # ties across channels
+        x[..., 5, :] = 0                              # an all-zero row
+        x[..., 7, :] = 0.5                            # a row of equal magnitudes
+        x[..., 9, :] = torch.where(torch.arange(D, device=dev) % 2 == 0, 0.25, -0.75)
         return x
 
     results = []
 
-    def check(label, x, keep, bits, score=None, rows_out=None, scales_out=None):
-        got = fn(x, keep, bits, score, rows_out=rows_out, scales_out=scales_out)
-        torch.cuda.synchronize()
-        want = pk.prune_quant_pack_plain(x, keep, bits, score)
+    def same(label, got, want, **case):
         rows_eq = torch.equal(got[0], want[0])
         sc_eq = torch.equal(got[1].view(torch.int16), want[1].view(torch.int16))
         diff = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
-        results.append({"case": label, "keep": keep, "bits": bits,
-                        "score": score is not None, "rows_equal": rows_eq,
+        results.append({"case": label, **case, "rows_equal": rows_eq,
                         "scales_equal": sc_eq, "elements_differing": diff})
         if not (rows_eq and sc_eq):
             raise AssertionError(f"prune_quant_pack disagrees with its plain version: "
                                  f"{results[-1]}")
+
+    def check(label, x, keep, bits, score=None, rows_out=None, scales_out=None):
+        got = fn(x, keep, bits, score, rows_out=rows_out, scales_out=scales_out)
+        torch.cuda.synchronize()
+        same(label, got, pk.prune_quant_pack_plain(x, keep, bits, score), keep=keep,
+             bits=bits, score=score is not None)
 
     for BH in (64, 8):
         x = chunk(BH)
@@ -894,6 +917,12 @@ def phase_kernel_pack():
                 check(f"BH={BH}", x, keep, bits)
             if BH == 64:
                 check(f"BH={BH}", x, 40, bits, score)
+    for Ci in (128, 384, 512):
+        x = chunk(8, C=Ci)
+        score = torch.rand((8, Ci, D), generator=g, device=dev)
+        for bits in (8, 4):
+            check(f"C={Ci}", x, 40, bits)
+            check(f"C={Ci}", x, 40, bits, score)
     # the cache's layouts: a prompt slice [B, Hkv, C, D] (strides of
     # [B, T, Hkv, D]) into the pool slot's K rows and the scales' K column
     B, Hkv, T = 8, 8, 512
@@ -905,30 +934,139 @@ def phase_kernel_pack():
     if not ((pool[:, :, 128:] == 0).all() and (sc[:, :, 1] == 0).all()):
         raise AssertionError("prune_quant_pack wrote outside its output views")
 
+    def kv_views(pool, scales, at, KR):
+        """(K rows, K scales), (V rows, V scales) of pool[at] / scales[at]."""
+        return ((pool[at][..., :KR, :], scales[at][..., 0, :]),
+                (pool[at][..., KR:, :], scales[at][..., 1, :]))
+
+    def check_kv(label, k, v, pool, scales, at, keeps, bits, **case):
+        """K+V into pool[at] / scales[at] (K rows, then V rows); the rest of
+        pool and scales must keep their sentinels."""
+        KR = C * bits[0] // 16
+        pool.fill_(7)
+        scales.fill_(3.0)
+        k_out, v_out = kv_views(pool, scales, at, KR)
+        kv(k, v, *keeps, *bits, k_out=k_out, v_out=v_out)
+        torch.cuda.synchronize()
+        for name, x, keep, nb, out in (("K", k, keeps[0], bits[0], k_out),
+                                       ("V", v, keeps[1], bits[1], v_out)):
+            same(f"{label} {name}", out, pk.prune_quant_pack_plain(x, keep, nb), keep=keep,
+                 bits=nb, **case)
+        pool[at] = 7
+        scales[at] = 3.0
+        if not ((pool == 7).all() and (scales == 3.0).all()):
+            raise AssertionError(f"prune_quant_pack_kv ({label}) wrote outside its views")
+
+    def kv_pool(*lead, rows=192):
+        return (torch.empty((*lead, rows, D), dtype=torch.int16, device=dev),
+                torch.empty((*lead, 2, D), dtype=torch.bfloat16, device=dev))
+
+    for codec, keeps in (("q8q4", (40, 14)), ("q8", (40, 77)), ("q4q4", (14, 40))):
+        bits = QUANT_BITS[codec]
+        rows = C * (bits[0] + bits[1]) // 16
+        # prefill: the prompt's 3 chunks of layer 1 into pool slots 0-2
+        # (a [B, T, Hkv, D] prompt seen as [B, Hkv, T, D], as the cache sees it)
+        kp, vp = (chunk(B, Hkv, C=3 * C + 72).transpose(1, 2).contiguous().transpose(1, 2)
+                  [:, :, :3 * C].unflatten(2, (3, C)).movedim(2, 0) for _ in range(2))
+        check_kv(f"{codec} prefill", kp, vp, *kv_pool(2, 5, B, Hkv, rows=rows),
+                 (1, slice(0, 3)), keeps, bits)
+        # compaction: 4 layers' windows (r + C = 288 tokens) into slot 2
+        kw, vw = (chunk(4, B, Hkv, C=288)[..., :C, :] for _ in range(2))
+        check_kv(f"{codec} compaction", kw, vw, *kv_pool(4, 5, B, Hkv, rows=rows),
+                 (slice(None), 2), keeps, bits)
+
+    index = torch.cuda.current_device()
+
+    def capacity(cluster, threads):
+        return pk.max_clusters(index, C, cluster, threads, False)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # every cluster size the grid rule picks here (C = 256), K+V (q8q4) of
+    # the largest even head-chunk count up to 2 x SMs that picks it
+    picks = {}
+    for n in range(2, 2 * sms + 1, 2):
+        picks[pk.pack_grid(n, C, sms=sms, capacity=capacity)] = n
+    clusters = {}
+    for (cluster, threads), n in sorted(picks.items()):
+        check_kv(f"cluster {cluster}", chunk(n // 2), chunk(n // 2), *kv_pool(2, n // 2), 1,
+                 (40, 14), (8, 4), head_chunks=n, cluster=cluster)
+        clusters[cluster] = {"head_chunks": n, "threads": threads,
+                             "max_active_clusters": capacity(cluster, threads)}
+
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def timed_call(call, plain, nbytes, n_hc, plain_reps=5):
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+        kernel_ms, behind = cuda_ms(call, 50, flush=flush_buf.zero_)
+        plain_ms, _ = cuda_ms(plain, plain_reps, flush=flush_buf.zero_, spin=False)
+        cluster, threads = pk.pack_grid(n_hc, C, sms=sms, capacity=capacity)
+        return {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bytes": nbytes,
+                "head_chunks": n_hc, "cluster": cluster, "threads": threads,
+                "max_active_clusters": capacity(cluster, threads),
+                "host_behind": behind, "wrapper_host_us": host_us(call, 50)}
+
+    def chunk_bytes(bits):
+        return C * D * 2 + (C * bits // 16) * D * 2 + D * 2
+
     timed = {}
-    # keep 128 skips the bisection: the difference is its share
+    # one tensor; keep 128 skips the selection: the difference is its share
     for BH, bits, keep in ((64, 8, 40), (64, 4, 40), (8, 8, 40), (64, 8, 128)):
         x = chunk(BH)
-        for _ in range(5):
-            fn(x, keep, bits)
+        timed[f"BH{BH}_bits{bits}" + ("" if keep == 40 else f"_keep{keep}")] = timed_call(
+            lambda x=x, keep=keep, bits=bits: fn(x, keep, bits),
+            lambda x=x, keep=keep, bits=bits: pk.prune_quant_pack_plain(x, keep, bits),
+            BH * chunk_bytes(bits), BH)
+    # K+V (q8q4, keep 40 each) in one launch into pool views, held against
+    # the plain version first: prefill's chunk at B=8, the engine's batch-1
+    # pack, and a compaction of 32 layers at B=8 (every layer's window into
+    # its pool slot)
+    L = 32
+    cases = (("kv_BH64", (B, Hkv), C, 1), ("kv_BH8", (1, Hkv), C, 1),
+             ("kv_compaction_L32", (L, B, Hkv), 288, (slice(None), 1)))
+    for label, lead, W, at in cases:
+        k, v = (chunk(*lead, C=W)[..., :C, :] for _ in range(2))
+        pool, scales = kv_pool(*((L, 2, B, Hkv) if len(lead) == 3 else (2, *lead)))
+        check_kv(label, k, v, pool, scales, at, (40, 40), (8, 4))
+        outs = kv_views(pool, scales, at, 128)
+        n = k.numel() // (C * D)
+        timed[label] = timed_call(
+            lambda k=k, v=v, outs=outs: kv(k, v, 40, 40, 8, 4, k_out=outs[0],
+                                           v_out=outs[1]),
+            lambda k=k, v=v: (pk.prune_quant_pack_plain(k, 40, 8),
+                              pk.prune_quant_pack_plain(v, 40, 4)),
+            n * (chunk_bytes(8) + chunk_bytes(4)), 2 * n, plain_reps=2 if n > 64 else 5)
+        if len(lead) == 2:
+            timed[label]["two_launches_ms"] = cuda_ms(
+                lambda k=k, v=v: (fn(k, 40, 8), fn(v, 40, 4)), 50, flush=flush_buf.zero_)[0]
+            continue
+
+        def per_layer(k=k, v=v, outs=outs):
+            for li in range(L):
+                fn(k[li], 40, 8, rows_out=outs[0][0][li], scales_out=outs[0][1][li])
+                fn(v[li], 40, 4, rows_out=outs[1][0][li], scales_out=outs[1][1][li])
+
+        per_layer()
         torch.cuda.synchronize()
-        kernel_ms, behind = cuda_ms(lambda: fn(x, keep, bits), 50, flush=flush_buf.zero_)
-        plain_ms, _ = cuda_ms(lambda: pk.prune_quant_pack_plain(x, keep, bits), 5,
-                              flush=flush_buf.zero_, spin=False)
-        nbytes = BH * C * D * 2 + BH * (C * bits // 16) * D * 2 + BH * D * 2
-        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-        timed[f"BH{BH}_bits{bits}" + ("" if keep == 40 else f"_keep{keep}")] = {
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bytes_ms,
-            "bytes": nbytes, "host_behind": behind,
-            "wrapper_host_us": host_us(lambda: fn(x, keep, bits), 50)}
-    fn.launches = launches0                               # comparisons do not count
-    emit("kernel_pack", C=C, cases=results, timed=timed, library_ms=None,
-         library_note=PACK_NO_LIBRARY)
-    t = timed["BH64_bits8"]
+        # 64 wrapper calls take longer on the host than the default spin
+        ms, behind = cuda_ms(per_layer, 20, flush=flush_buf.zero_,
+                             spin_cycles=20 * SPIN_CYCLES)
+        timed[label].update(per_layer_launches_ms=ms, per_layer_host_behind=behind,
+                            per_layer_host_us=host_us(per_layer, 10))
+    fn.launches, kv.launches = launches0                   # comparisons do not count
+    emit("kernel_pack", C=C, cases=results, timed=timed, clusters_checked=clusters,
+         library_ms=None, library_note=PACK_NO_LIBRARY)
+    t = timed["kv_BH64"]
     entry = _entry("q8q4", "pack", results, 0.0, "bit-equal (rows and scales)",
                    t["kernel_ms"], t["plain_ms"], t["bound_ms"], 0.0)
-    entry.update(max_abs_err=0.0, timed_at="B*Hkv=64, C=256, K at 8 bits, keep 40",
+    entry.update(max_abs_err=0.0,
+                 timed_at="B=8, Hkv=8, C=256 (prefill's chunk of a layer): K at 8 bits "
+                          "and V at 4, keep 40, one launch",
+                 timed_other={key: {f: timed[key][f] for f in ("kernel_ms", "bound_ms",
+                                                               "plain_ms")}
+                              for key in ("BH64_bits8", "kv_BH8", "kv_compaction_L32")},
                  library_note=PACK_NO_LIBRARY)
     return entry
 
@@ -1533,7 +1671,8 @@ def _counters():
         qa.fused_q_decode_attention, qa.fused_q_decode_attention_ps,
         qa.fused_q_segment_attention, ska.fused_sparse_decode_attention,
         ska.fused_sparse_decode_attention_ps, ska.fused_sparse_segment_attention,
-        w4.w4_matmul, dd.flash_decode_attention, pk.prune_quant_pack)}
+        w4.w4_matmul, dd.flash_decode_attention, pk.prune_quant_pack,
+        pk.prune_quant_pack_kv)}
     # the archive's v2 has the production kernel's name: its keys are prefixed
     counters.update({f"archive.{fn.__name__}": fn for fn in (
         sar.sparse_key_scores, sar.sparse_value_combine,
@@ -1710,9 +1849,9 @@ def phase_reference_q():
     emit("reference_q", **{c: {"generator": gen, "engine": cb}
                            for c, (gen, cb) in runs.items()})
     for codec, (gen, cb) in runs.items():
-        if set(gen["launched"]) != {"fused_q_decode_attention", "prune_quant_pack"} or set(
+        if set(gen["launched"]) != {"fused_q_decode_attention", "prune_quant_pack_kv"} or set(
                 cb["launched"]) != {"fused_q_decode_attention_ps",
-                                    "fused_q_segment_attention", "prune_quant_pack"}:
+                                    "fused_q_segment_attention", "prune_quant_pack_kv"}:
             raise AssertionError(f"reference_q ({codec}): launched {gen['launched']} and "
                                  f"{cb['launched']}")
     return {codec: cb["launched"] for codec, (_, cb) in runs.items()}
@@ -1787,7 +1926,7 @@ def phase_reference_w4():
         attn = "flash_decode_attention" if mode == CacheMode.DENSE else "fused_q_decode_attention"
         want = {"w4_matmul": 7 * L * (29 + (B * Tpad <= 128)), attn: L * 29}
         if mode == CacheMode.COMPRESSED:
-            want["prune_quant_pack"] = 2 * L      # prefill's one chunk, K and V
+            want["prune_quant_pack_kv"] = L       # prefill: a layer's chunk, K and V
         results[label] = {"max_abs_err": err, "tol": REFERENCE_W4_TOL * scale,
                           "greedy_agreement": (a.argmax(-1) == b.argmax(-1)).float().mean().item(),
                           "launched": launched, "expected_launches": want,
@@ -1968,9 +2107,10 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None):
     the codec's per-slot kernel once a layer, every segment its segment
     kernel once a layer, and no other kernel may run; every request's first
     token must equal a batch-1 chunked Generator's on the same prompt.
-    A quant codec's engine packs through kernel 9: twice a layer (K and V)
-    for every chunk a prompt packs and every compaction (one
-    ``compact_slots`` call packs all the slots it names).  With ``first8``:
+    A quant codec's engine packs through kernel 9, K and V in one launch:
+    once a layer for every chunk a prompt packs (a segment packs its layer's
+    chunk) and once for every compaction (one ``compact_slots`` call packs
+    every layer of all the slots it names).  With ``first8``:
     the first 8 requests of that stream without the 8,000-token one.  With
     ``w4`` (W4 params; implies ``first8``): the W4 kernel 7 times a layer in
     every decode step (a segment's 256 tokens take the dequant route).
@@ -2040,7 +2180,7 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None):
     want[_meta(codec, "segment")[0]] = L * cb.segments
     prompt_chunks = sum(max(len(p) - 32, 0) // 256 for p, _ in reqs)
     if codec in QUANT_BITS:
-        want["prune_quant_pack"] = 2 * L * (prompt_chunks + compactions[0])
+        want["prune_quant_pack_kv"] = L * prompt_chunks + compactions[0]
     if w4:
         want["w4_matmul"] = 7 * L * cb.decode_steps
     seg_expected = sum(-(-len(p) // 256) for p, _ in reqs)
@@ -2245,7 +2385,7 @@ def serve_w4(entries, prompt, new):
             dense_toks = toks
         want = {"w4_matmul": 7 * L * steps, attn: L * steps}
         if mode == CacheMode.COMPRESSED and codec in QUANT_BITS:
-            want["prune_quant_pack"] = serve_packs()
+            want["prune_quant_pack_kv"] = serve_packs()
         first_equal = bool((toks[:, 0] == dense_toks[:, 0]).all())
         emit(label, model="llama-3-8b x32L, W4 (random, seed 0)",
              weights_gib=weight_bytes(params) / 2 ** 30, weights_init_s=init_s,
@@ -2269,11 +2409,12 @@ def serve_w4(entries, prompt, new):
 
 
 def serve_packs():
-    """Kernel 9 launches of a ``serve`` run of a quant codec: K and V of
-    every layer for prefill's one chunk (300 - 32 tokens) and the one
-    compaction (after decode step 244)."""
+    """Kernel 9 launches of a ``serve`` run of a quant codec: one a layer for
+    prefill's chunk (300 - 32 tokens; K and V of every chunk of the layer's
+    prompt in one launch) and one for the compaction (after decode step
+    244; every layer's K and V in one launch)."""
     from mustafar_tpu_torch.config import LLAMA3_8B
-    return 2 * LLAMA3_8B.num_layers * 2
+    return LLAMA3_8B.num_layers + 1
 
 
 QUANT_KINDS = ("decode", "decode_ps", "segment")
@@ -2333,7 +2474,7 @@ def main():
     sparse_toks, launches, fields = serve("serve_q8q4", CacheMode.COMPRESSED,
                                           params, prompt, new)
     q8q4_s = fields["seconds"]
-    want = {"fused_q_decode_attention": expected, "prune_quant_pack": serve_packs()}
+    want = {"fused_q_decode_attention": expected, "prune_quant_pack_kv": serve_packs()}
     emit("serve_q8q4", model="llama-3-8b x32L, W8 (random, seed 0)",
          weights_gib=weight_bytes(params) / 2 ** 30, weights_init_s=init_s,
          decode_steps=decode_steps, expected_launches=want, **fields)
@@ -2341,7 +2482,7 @@ def main():
         raise AssertionError(f"kernels launched {launches}, expected {want}: 32 layers x "
                              f"{decode_steps} steps of the decode kernel, and kernel 9")
     entries[("q8q4", "decode")]["launches"] = expected
-    entries[("q8q4", "pack")]["launches"] = launches["prune_quant_pack"]
+    entries[("q8q4", "pack")]["launches"] = launches["prune_quant_pack_kv"]
     kept = {}          # K and V rows 0-799 of the dense cache, for the archive
     dense_toks, dense_launches, fields = serve(
         "serve_dense", CacheMode.DENSE, params, prompt, new,
@@ -2403,7 +2544,7 @@ def main():
         label = f"serve_{codec}"
         toks, launches, fields = serve(label, CacheMode.COMPRESSED, params, prompt, new,
                                        codec=codec)
-        want = {"fused_q_decode_attention": expected, "prune_quant_pack": serve_packs()}
+        want = {"fused_q_decode_attention": expected, "prune_quant_pack_kv": serve_packs()}
         first_equal = bool((toks[:, 0] == dense_toks[:, 0]).all())
         emit(label, decode_steps=decode_steps, expected_launches=want,
              first_token_equal_dense=first_equal,

@@ -12,7 +12,8 @@ paths are, per codec family, the flash-decode kernels for a uniform batch
 (``csrc/q_decode_ps.cu``, the second entry of ``csrc/sp_decode.cu``) and
 the chunked-prefill segment kernels (``csrc/q_segment.cu``,
 ``csrc/sp_segment.cu``); the quant codecs' prune + quantize + pack
-(``csrc/prune_quant_pack.cu``, ``prune_quant_pack``); the W4 decode matmul
+(``csrc/prune_quant_pack.cu``, ``prune_quant_pack`` and, K and V in one
+launch, ``prune_quant_pack_kv``); the W4 decode matmul
 (``csrc/w4_matmul.cu``) and the dense cache's flash-decode
 (``csrc/dense_decode.cu``, with the cache's ``use_pallas``).
 
@@ -31,4 +32,7 @@ from mustafar_tpu_torch.config import (  # noqa: F401
     PruneMethod,
 )
 from mustafar_tpu_torch.device import resolve_device  # noqa: F401
-from mustafar_tpu_torch.ops.kernels.pack_kernel import prune_quant_pack  # noqa: F401
+from mustafar_tpu_torch.ops.kernels.pack_kernel import (  # noqa: F401
+    prune_quant_pack,
+    prune_quant_pack_kv,
+)

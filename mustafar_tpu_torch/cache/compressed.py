@@ -27,8 +27,10 @@ Semantics:
     ``((T - r) // C) * C`` tokens are pruned (exact top-|x| per token) and
     packed chunk by chunk, and the rest becomes the dense window.  The
     quant codecs prune, quantize and pack in one kernel on the card
-    (``ops/kernels/pack_kernel.py``), writing into the pool slot; the
-    bitmap codecs pack with eager torch ops (``sparse_format``).
+    (``ops/kernels/pack_kernel.py``), K and V of all a layer's prompt
+    chunks in one launch, writing into the pool slots; the bitmap codecs
+    pack with eager torch ops (``sparse_format``), all the chunks in one
+    pass.
   * chunked prefill (``segment_attend``): one C-token segment attends the
     packed pools (the segment kernel), the window and itself, merged; the
     window's oldest C tokens are packed as soon as the segment's tokens
@@ -42,7 +44,8 @@ Semantics:
   * compaction is a separate call between decode steps: when a window
     holds r + C tokens the oldest C are pruned and packed into the pool and
     the window shifts (``compact`` for a uniform batch, ``compact_slots``
-    for chosen slots).
+    for chosen slots), which packs every layer's chunk at once (the quant
+    codecs in one launch).
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ from mustafar_tpu_torch.ops.attention import (attention_partials, merge_partials
                                               prefill_attention)
 from mustafar_tpu_torch.ops.kernels import quant_attention as qa
 from mustafar_tpu_torch.ops.kernels import sparse_attention as ska
-from mustafar_tpu_torch.ops.kernels.pack_kernel import prune_quant_pack
+from mustafar_tpu_torch.ops.kernels.pack_kernel import prune_quant_pack_kv
 
 
 class CompressedKVCache:
@@ -115,67 +118,65 @@ class CompressedKVCache:
         return state
 
     # -- packing ----------------------------------------------------------
-    def _pack_chunk_q(self, dense_bhtd: torch.Tensor, kind: str, rows_out=None,
-                      scales_out=None):
-        """dense [B, Hkv, C, D] -> (rows [B, Hkv, R, 128] int16, scales
-        [B, Hkv, D] bf16): top-|x| keep per token, then quantize the
-        survivors, through ``prune_quant_pack`` (kernel 9 on the card, which
-        reads the chunk through its strides: a bf16 window or prompt slice
-        is not copied; an f32 one is cast to bf16 first), written into
-        ``rows_out`` / ``scales_out`` when given."""
-        keep, bits = ((self.k_keep, self.qcodec.kbits) if kind == "k"
-                      else (self.v_keep, self.qcodec.vbits))
-        return prune_quant_pack(dense_bhtd.to(torch.bfloat16), keep, bits,
-                                rows_out=rows_out, scales_out=scales_out)
-
-    def _pack_chunk_bitmap(self, dense_bhtd: torch.Tensor, fmt: sf.ChunkFormat):
-        """dense [B, Hkv, C, D] -> (fused-stream rows [BH, stream_rows, 128],
-        scales [BH, D] bf16 or None): top-|x| keep per token, then the
+    def _pack_chunk_bitmap(self, dense: torch.Tensor, fmt: sf.ChunkFormat):
+        """dense [.., C, D] -> (fused-stream rows [.., stream_rows, 128],
+        scales [.., D] bf16 or None): top-|x| keep per token, then the
         bitmap and the packed values; at ``qbits=8`` the survivors are
-        quantized first (codes from the f32 scales, stored as bf16)."""
-        B, H, C, D = dense_bhtd.shape
-        x = dense_bhtd.reshape(B * H, C, D).to(torch.bfloat16)
+        quantized first (codes from the f32 scales, stored as bf16).  Every
+        step works token row by token row (the scales head-chunk by
+        head-chunk), so any leading axes take one pass."""
+        x = dense.to(torch.bfloat16)
         if fmt.qbits == 16:
             return sf.prune_and_encode_stream(x, fmt), None
         rows, scales = sf.prune_and_encode_stream_q8(x, fmt)
         return rows, scales.to(torch.bfloat16)
 
     def _pack(self, k_chunk, v_chunk) -> dict:
-        """K and V chunks [B, Hkv, C, D] -> the pool entries of one chunk:
-        {"kv_pool": rows [B, Hkv, ROWS, 128]} and, for the quant codecs and
-        bitmap-q8, "kv_scales" [B, Hkv, 2, D]."""
-        B, H = k_chunk.shape[:2]
+        """Dense K and V chunks [.., C, D] (one to three leading axes: chunk
+        or layer, batch, kv head) -> their pool entries: {"kv_pool": rows
+        [.., ROWS, 128]} (K rows, then V rows) and, for the quant codecs and
+        bitmap-q8, "kv_scales" [.., 2, D]."""
         if self.qcodec is None:
             (k_rows, k_sc), (v_rows, v_sc) = (self._pack_chunk_bitmap(k_chunk, self.kfmt),
                                               self._pack_chunk_bitmap(v_chunk, self.vfmt))
-            rows = torch.cat([k_rows, v_rows], dim=-2)
-            entry = {"kv_pool": rows.reshape(B, H, *rows.shape[1:])}
+            entry = {"kv_pool": torch.cat([k_rows, v_rows], dim=-2)}
             if k_sc is not None:
-                entry["kv_scales"] = torch.stack([k_sc, v_sc], dim=1).reshape(B, H, 2, -1)
+                entry["kv_scales"] = torch.stack([k_sc, v_sc], dim=-2)
             return entry
-        entry = {"kv_pool": torch.empty((B, H, self.rows, 128), dtype=torch.int16,
+        lead = tuple(k_chunk.shape[:-2])
+        entry = {"kv_pool": torch.empty((*lead, self.rows, 128), dtype=torch.int16,
                                         device=k_chunk.device),
-                 "kv_scales": torch.empty((B, H, 2, 128), dtype=torch.bfloat16,
+                 "kv_scales": torch.empty((*lead, 2, 128), dtype=torch.bfloat16,
                                           device=k_chunk.device)}
         self._pack_q_into(entry["kv_pool"], entry["kv_scales"], k_chunk, v_chunk)
         return entry
 
     def _pack_q_into(self, rows, scales, k_chunk, v_chunk):
-        """Quant codecs: pack K and V chunks [B, Hkv, C, D] straight into
-        ``rows`` [B, Hkv, ROWS, 128] (K rows, then V rows) and ``scales``
-        [B, Hkv, 2, D]: one kernel launch each for K and V, no copy."""
-        KR = self.qcodec.k_rows
-        self._pack_chunk_q(k_chunk, "k", rows[:, :, :KR], scales[:, :, 0])
-        self._pack_chunk_q(v_chunk, "v", rows[:, :, KR:], scales[:, :, 1])
+        """Quant codecs: prune (top-|x| keep per token), quantize and pack
+        dense K and V chunks [.., C, D] straight into ``rows`` [.., ROWS,
+        128] (K rows, then V rows) and ``scales`` [.., 2, D], through
+        ``prune_quant_pack_kv``: one launch of kernel 9 on the card for every
+        head-chunk of both, reading the chunks through their strides (a bf16
+        window or prompt slice is not copied; an f32 one is cast to bf16
+        first), no copy out."""
+        qc = self.qcodec
+        KR = qc.k_rows
+        prune_quant_pack_kv(k_chunk.to(torch.bfloat16), v_chunk.to(torch.bfloat16),
+                            self.k_keep, self.v_keep, qc.kbits, qc.vbits,
+                            k_out=(rows[..., :KR, :], scales[..., 0, :]),
+                            v_out=(rows[..., KR:, :], scales[..., 1, :]))
 
-    def _append_chunk(self, state, li: int, chunk_idx: int, k_chunk, v_chunk):
-        """Prune and pack one dense chunk into pool slot ``chunk_idx`` of layer li."""
+    def _append(self, state, at, k_chunk, v_chunk):
+        """Prune and pack dense K and V chunks [.., C, D] into the pool slots
+        ``state[key][at]`` (``at`` a basic index: a layer's slot in a
+        segment, a layer's first slots in prefill, every layer's slot in a
+        compaction): the quant codecs straight into the slots, in one
+        launch; the bitmap codecs in one pass of eager ops, then a copy."""
         if self.qcodec is not None:
-            self._pack_q_into(state["kv_pool"][li, chunk_idx],
-                              state["kv_scales"][li, chunk_idx], k_chunk, v_chunk)
+            self._pack_q_into(state["kv_pool"][at], state["kv_scales"][at], k_chunk, v_chunk)
             return
         for key, val in self._pack(k_chunk, v_chunk).items():
-            state[key][li, chunk_idx] = val
+            state[key][at] = val
 
     # -- prefill ----------------------------------------------------------
     def prefill_attend(self, state, li: int, q, k, v, true_len: int):
@@ -188,9 +189,11 @@ class CompressedKVCache:
         n_pre = comp_len // C
         kh = k.transpose(1, 2)                                  # [B, Hkv, T, D]
         vh = v.transpose(1, 2)
-        for i in range(n_pre):
-            self._append_chunk(state, li, i, kh[:, :, i * C:(i + 1) * C],
-                               vh[:, :, i * C:(i + 1) * C])
+        if n_pre:
+            # the prompt's chunks as views [n_pre, B, Hkv, C, D]
+            kc, vc = (x[:, :, :comp_len].unflatten(2, (n_pre, C)).movedim(2, 0)
+                      for x in (kh, vh))
+            self._append(state, (li, slice(0, n_pre)), kc, vc)
         state["n_chunks"][li] = n_pre
         state["nc_host"] = n_pre
         # window <- tokens [comp_len, true_len), zero past true_len
@@ -296,13 +299,12 @@ class CompressedKVCache:
                              "compact it with compact_slots")
         if nc >= self.max_chunks:
             raise ValueError(f"pool full: {nc} of {self.max_chunks} chunks in use")
-        for li in range(self.model.num_layers):
-            self._append_chunk(state, li, nc, state["k_win"][li, :, :, :C],
-                               state["v_win"][li, :, :, :C])
-            for key in ("k_win", "v_win"):
-                w = state[key][li]
-                w[:, :, :self.wcap - C] = w[:, :, C:].clone()
-                w[:, :, self.wcap - C:] = 0
+        self._append(state, (slice(None), nc), state["k_win"][..., :C, :],
+                     state["v_win"][..., :C, :])
+        for key in ("k_win", "v_win"):
+            w = state[key]
+            w[..., :self.wcap - C, :] = w[..., C:, :].clone()
+            w[..., self.wcap - C:, :] = 0
         state["n_chunks"] += 1
         state["nc_host"] = nc + 1
         return state
@@ -325,15 +327,13 @@ class CompressedKVCache:
         used = int(ci.max())
         if used >= self.max_chunks:
             raise ValueError(f"pool full: {used} of {self.max_chunks} chunks in use")
-        for li in range(self.model.num_layers):
-            packed = self._pack(state["k_win"][li, b_sel, :, :C],
-                                state["v_win"][li, b_sel, :, :C])
-            for key, val in packed.items():
-                state[key][li, ci, b_sel] = val
-            for key in ("k_win", "v_win"):
-                win = state[key][li]
-                win[b_sel] = torch.cat([win[b_sel, :, C:],
-                                        torch.zeros_like(win[b_sel, :, :C])], dim=2)
+        packed = self._pack(state["k_win"][:, b_sel, :, :C], state["v_win"][:, b_sel, :, :C])
+        for key, val in packed.items():                  # every layer at once
+            state[key][:, ci, b_sel] = val
+        for key in ("k_win", "v_win"):
+            win = state[key]
+            win[:, b_sel] = torch.cat([win[:, b_sel, :, C:],
+                                       torch.zeros_like(win[:, b_sel, :, :C])], dim=3)
         state["n_chunks"][:, b_sel] += 1
         return state
 
@@ -404,7 +404,7 @@ class CompressedKVCache:
         out = merge_partials([p_pool, p_win, p_self]).to(q.dtype)
 
         if nc_after > nc:
-            self._append_chunk(state, li, nc, kwin[:, :, :C], vwin[:, :, :C])
+            self._append(state, (li, nc), kwin[:, :, :C], vwin[:, :, :C])
         shift = C if nc_after > nc else 0
         seg_rows = (torch.arange(C, device=dev) < seg_valid)[None, None, :, None]
         for win, seg_kv in ((kwin, k), (vwin, v)):

@@ -211,3 +211,43 @@ def test_make_cache_modes():
         # for bitmap and 112 for bitmap-q8 at sparsity 0.7
         assert shapes["kv_pool"] == (2, 3, 2, 2, rows[codec], 128)
         assert ("kv_scales" in shapes) == (codec != "bitmap")
+
+
+@pytest.mark.parametrize("codec", ["q8q4", "q4q4", "bitmap", "bitmap-q8"])
+def test_compressed_prefill_chunks_then_compact_bit_exact(codec):
+    """A prompt of three chunks prefilled into both layers (the port packs a
+    layer's chunks, K and V, in one call), then a compaction of both layers
+    (one call for every layer; the bitmap codecs' eager packs likewise take
+    every chunk or layer at once): pool, scales, windows and counts equal the
+    JAX cache's bit for bit after each.  The windows are filled to r + C
+    with the same tokens on both sides before the compaction."""
+    jimpl = j_make_cache(_engine(jc, "COMPRESSED", max_seq=1312, codec=codec))
+    timpl = t_make_cache(_engine(tc, "COMPRESSED", max_seq=1312, codec=codec),
+                         device="cpu")
+    B, true_len, T = 2, 3 * 256 + 32 + 50, 1024
+    rs = np.random.RandomState(31)
+    jstate, tstate = jimpl.init(B, jnp.bfloat16), timpl.init(B, torch.bfloat16)
+    prefill = jax.jit(jimpl.prefill_attend)
+    for li in range(2):
+        q, k, v = _qkv(rs, B, T, "bfloat16")
+        lc = {key: val[li] for key, val in jstate.items()}
+        _, lc = prefill(lc, jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+                        jnp.asarray(v, jnp.bfloat16), jnp.int32(true_len))
+        jstate = {key: jstate[key].at[li].set(lc[key]) for key in jstate}
+        timpl.prefill_attend(tstate, li, _to(q, "bfloat16"), _to(k, "bfloat16"),
+                             _to(v, "bfloat16"), true_len)
+    assert tstate["nc_host"] == 3
+    for li in range(2):
+        _assert_state_equal(tstate, {key: val[li] for key, val in jstate.items()}, li,
+                            _state_keys(timpl))
+    for key in ("k_win", "v_win"):
+        win = np.asarray(jnp.asarray(rs.randn(*tstate[key].shape).astype(np.float32),
+                                     jnp.bfloat16))
+        jstate[key] = jnp.asarray(win)
+        tstate[key].copy_(torch.from_numpy(win.astype(np.float32)))
+    jstate = jax.jit(jimpl.compact)(jstate, True)
+    timpl.compact(tstate)
+    assert tstate["nc_host"] == 4
+    for li in range(2):
+        _assert_state_equal(tstate, {key: val[li] for key, val in jstate.items()}, li,
+                            _state_keys(timpl))

@@ -15,12 +15,18 @@ bf16 and f32 q, five (n_chunks, win_len) cases each), of the per-slot
 decode kernels 2 and 7 (each codec, at ``phase_kernel_ps``'s slots), of
 the segment kernels 3 (q8q4, q8, q4q4) and 8 (bitmap, bitmap-q8): acc, m
 and l at ``phase_kernel_seg``'s cases, and of the W4 kernel 5 at every
-``W4_SHAPES`` shape at T = 8 and 32, so that two checkouts' outputs can be
-compared bit for bit; the device time of kernels 1 and 6 (1 chunk + 288
-window and 5 chunks + 288, ``k1_k6_ms``), 3 (at 1, 4, 16 and 31 chunks)
-and 5 (``k3_k5_ms``); and the host time of the kernel 1, 2, 4, 5, 6 and 7
-wrappers (``wrapper_host_us``: the least and the median of means over many
-calls, steadier than the kernel phases' single mean).  With
+``W4_SHAPES`` shape at T = 8 and 32, and of the pack kernel 9 (rows and
+scales at ``phase_kernel_pack``'s one-tensor cases), so that two
+checkouts' outputs can be compared bit for bit; the device time of
+kernels 1 and 6 (1 chunk + 288 window and 5 chunks + 288, ``k1_k6_ms``),
+3 (at 1, 4, 16 and 31 chunks) and 5 (``k3_k5_ms``) and 9 (``k9_ms``: K
+alone at 64 head-chunks, and K and V at 64 and 8 head-chunks and over a
+compaction's 32 layers, in one launch where the checkout has
+``prune_quant_pack_kv``, else as the cache packed them before it: a
+launch each for K and V, of each layer); and the host time of the kernel
+1, 2, 4, 5, 6, 7 and 9 wrappers (``wrapper_host_us``: the least and the
+median of means over many calls, steadier than the kernel phases' single
+mean).  With
 ``--engine`` it then makes the random W8 Llama-3-8B
 weights (seed 0) and runs the ``serve_cb`` (q8q4) and ``host_split``
 phases of the ``chip_smoke.py`` next to this script on DIR's package, so
@@ -120,6 +126,123 @@ def digests(c):
         out[f"w4_{label}"] = _sha(
             w4.w4_matmul(torch.randn((T, din), generator=g, device=dev).to(torch.bfloat16),
                          cw, sw) for T in (8, 32))
+    out["pack"] = _sha(pack_outputs(c))
+    return out
+
+
+def _pack_chunk(g, dev, lead, C=256):
+    """phase_kernel_pack's chunk: 0.3 randn in bf16 with ties, a zero row,
+    a row of equal magnitudes and a row of two values."""
+    import torch
+    x = (0.3 * torch.randn((*lead, C, 128), generator=g, device=dev)).to(torch.bfloat16)
+    x[..., 10] = x[..., 90]
+    x[..., 5, :] = 0
+    x[..., 7, :] = 0.5
+    x[..., 9, :] = torch.where(torch.arange(128, device=dev) % 2 == 0, 0.25, -0.75)
+    return x
+
+
+def pack_outputs(c):
+    """Kernel 9's rows and scales (the one-tensor wrapper, which both
+    checkouts have) at phase_kernel_pack's cases: 64 and 8 head-chunks of
+    256, bits 8 and 4, keep 40 / 14 / 128, the score at 64; C = 128, 384 and
+    512 at 8 head-chunks, with and without a score."""
+    import torch
+    from mustafar_tpu_torch.ops.kernels import pack_kernel as pk
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    outs = []
+    for BH in (64, 8):
+        x = _pack_chunk(g, dev, (BH,))
+        score = torch.rand((BH, 256, 128), generator=g, device=dev)
+        for bits in (8, 4):
+            for keep in (40, 14, 128):
+                outs.extend(pk.prune_quant_pack(x, keep, bits))
+            if BH == 64:
+                outs.extend(pk.prune_quant_pack(x, 40, bits, score))
+    for C in (128, 384, 512):
+        x = _pack_chunk(g, dev, (8,), C)
+        score = torch.rand((8, C, 128), generator=g, device=dev)
+        for bits in (8, 4):
+            outs.extend(pk.prune_quant_pack(x, 40, bits))
+            outs.extend(pk.prune_quant_pack(x, 40, bits, score))
+    return outs
+
+
+def _pack_calls(dev, g):
+    """Kernel 9's calls at the serving shapes (q8q4, keep 40): K alone at 64
+    head-chunks; K and V at 64 (B=8 prefill) and 8 (the engine's batch-1
+    segment); K and V of a 32-layer compaction at B=8 into pool views.  In
+    one launch each where the checkout has ``prune_quant_pack_kv``; else as
+    the cache packed them before it (K and V apart, a layer at a time)."""
+    import torch
+    from mustafar_tpu_torch.ops.kernels import pack_kernel as pk
+    fn, kv = pk.prune_quant_pack, getattr(pk, "prune_quant_pack_kv", None)
+    x64 = _pack_chunk(g, dev, (8, 8))
+    v64 = _pack_chunk(g, dev, (8, 8))
+    x8, v8 = _pack_chunk(g, dev, (1, 8)), _pack_chunk(g, dev, (1, 8))
+    L = 32
+    kw = _pack_chunk(g, dev, (L, 8, 8), 288)[..., :256, :]
+    vw = _pack_chunk(g, dev, (L, 8, 8), 288)[..., :256, :]
+    pool = torch.zeros((L, 2, 8, 8, 192, 128), dtype=torch.int16, device=dev)
+    scales = torch.zeros((L, 2, 8, 8, 2, 128), dtype=torch.bfloat16, device=dev)
+    ko = (pool[:, 1, ..., :128, :], scales[:, 1, ..., 0, :])
+    vo = (pool[:, 1, ..., 128:, :], scales[:, 1, ..., 1, :])
+
+    def pair(k, v):
+        return (lambda: kv(k, v, 40, 40, 8, 4)) if kv else \
+            (lambda: (fn(k, 40, 8), fn(v, 40, 4)))
+
+    def compaction_per_layer():
+        for li in range(L):
+            fn(kw[li], 40, 8, rows_out=ko[0][li], scales_out=ko[1][li])
+            fn(vw[li], 40, 4, rows_out=vo[0][li], scales_out=vo[1][li])
+
+    calls = {"k9_k_BH64": lambda: fn(x64, 40, 8), "k9_kv_BH64": pair(x64, v64),
+             "k9_kv_BH8": pair(x8, v8),
+             "k9_kv_compaction_L32": (lambda: kv(kw, vw, 40, 40, 8, 4, k_out=ko, v_out=vo))
+             if kv else compaction_per_layer}
+    if kv:
+        calls["k9_kv_compaction_L32_per_layer"] = compaction_per_layer
+    return calls
+
+
+def _long_spin_ms(call, reps, flush):
+    """``chip_smoke.cuda_ms`` with a spin of ~40 ms: the per-layer compaction's
+    64 wrapper calls take longer on the host than its ~2 ms spin."""
+    import torch
+    total = 0.0
+    for _ in range(reps):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(80_000_000)
+        start.record()
+        call()
+        if start.query():
+            raise RuntimeError("the card reached the start event before the host "
+                               "enqueued the call: lengthen the spin")
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def k9_ms(c):
+    """Device ms of kernel 9's calls (``_pack_calls``), L2 flushed; the
+    compaction's under a longer spin (``_long_spin_ms``)."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for label, call in _pack_calls(dev, g).items():
+        for _ in range(3):
+            call()
+        out[label] = (_long_spin_ms(call, 10, flush.zero_) if "compaction" in label
+                      else c.cuda_ms(call, 50, flush=flush.zero_)[0])
     return out
 
 
@@ -130,7 +253,8 @@ def wrapper_host_us(c, reps=7, calls=200):
     steadier), for kernel 4 (B=8, S=1,312, pos 599 and per slot at S=8,448),
     kernels 2 (q8q4) and 7 (bitmap) at chip_smoke's mixed slots at mc=32,
     kernels 6 (bitmap) and 1 (q8q4) at 1 chunk + 288 window, kernel 5 (W4) at
-    4096 x 14336 and 4096 x 1024, T=8 and, for scale, one
+    4096 x 14336 and 4096 x 1024, T=8, kernel 9 at ``_pack_calls``' shapes
+    but the compaction and, for scale, one
     ``torch.empty`` of the split scratch (4.7 MB) and one small
     ``torch.add`` (one launch)."""
     import statistics
@@ -178,6 +302,9 @@ def wrapper_host_us(c, reps=7, calls=200):
         sw = torch.ones((din // 128, dout), dtype=torch.bfloat16, device=dev)
         xw = torch.randn((8, din), generator=g, device=dev).to(torch.bfloat16)
         out[label] = timed(lambda: w4.w4_matmul(xw, cw, sw))
+    for label, call in _pack_calls(dev, g).items():
+        if "compaction" not in label:
+            out[label] = timed(call)
     out["torch_empty_k7_scratch"] = timed(
         lambda: torch.empty(B * Hkv * 35 * 4 * 130, dtype=torch.float32, device=dev))
     x = torch.zeros(1024, device=dev)
@@ -274,6 +401,28 @@ VARIANTS = (
          "for (int r0 = warp; r0 < 0; r0 += NR * WARPS) {")]}),
     ("sp_decode", "k6_no_chunk_scores", {"sp_decode.cu": [
         ("    tile_scores<G>(sm, kt, STEP, warp, lane);\n", "")]}),
+    # kernel 9 with every code divided (no reciprocal fast path): the same
+    # outputs.  Timed only: returning at once (the launch), without its
+    # staging copies, its selection (every entry kept), its cluster's amax
+    # exchange or its codes and stores
+    ("prune_quant_pack", "k9_divide_all", {"prune_quant_pack.cu": [
+        ("  if (fabsf(v - (tv - MAGIC)) < 0.5f - HALF_STEP_MARGIN) return __float_as_uint(tv);",
+         "")]}),
+    ("prune_quant_pack", "k9_empty", {"prune_quant_pack.cu": [
+        ("  extern __shared__ __align__(16) unsigned char smem_raw[];\n  cg::cluster_group",
+         "  if (p.C > 0) return;\n  extern __shared__ __align__(16) unsigned char smem_raw[];\n"
+         "  cg::cluster_group")]}),
+    ("prune_quant_pack", "k9_no_stage", {"prune_quant_pack.cu": [
+        ("for (int c = lane; c < RG * 16; c += 32) {", "for (int c = lane; c < 0; c += 32) {")]}),
+    ("prune_quant_pack", "k9_no_select", {"prune_quant_pack.cu": [
+        ("(warp + pass * warps) * RG, op.keep, lane, am);",
+         "(warp + pass * warps) * RG, D, lane, am);")]}),
+    ("prune_quant_pack", "k9_no_cluster", {"prune_quant_pack.cu": [
+        ("  if (S > 1) cluster_arrive_relaxed();", "  if (S > 1000) cluster_arrive_relaxed();"),
+        ("  if (S > 1) {\n    // push", "  if (S > 1000) {\n    // push")]}),
+    ("prune_quant_pack", "k9_no_codes", {"prune_quant_pack.cu": [
+        ("  if (op.bits == 8)\n    write_codes<8>", "  if (op.bits == 0)\n    write_codes<8>"),
+        ("  else\n    write_codes<4>", "  else if (op.bits == 0)\n    write_codes<4>")]}),
 )
 
 
@@ -361,7 +510,7 @@ def k1_k6_ms(c):
 
 # the kernels each library's variants are timed on
 VARIANT_TIMES = {"q_segment": k3_k5_ms, "w4_matmul": k3_k5_ms, "q_decode": k1_k6_ms,
-                 "sp_decode": k1_k6_ms}
+                 "sp_decode": k1_k6_ms, "prune_quant_pack": k9_ms}
 
 
 def run_variants(c, label, smi, libs):
@@ -427,7 +576,7 @@ def main():
     c.phase_kernel_archive()
     line = {"phase": "kernel_ab", "label": args.label, "root": args.root,
             "nvidia_smi": smi, "sha256": digests(c), "k1_k6_ms": k1_k6_ms(c),
-            "k3_k5_ms": k3_k5_ms(c),
+            "k3_k5_ms": k3_k5_ms(c), "k9_ms": k9_ms(c),
             "wrapper_host_us": wrapper_host_us(c)}
     if args.engine:
         import torch
