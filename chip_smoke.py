@@ -18,7 +18,10 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 mc=5), groups 1/2/4/8, bf16 and f32 q, also against its split
                 plain version, a second launch bit-equal to the first and
                 refusing short scratch; timed at 1 chunk + 288 window and at
-                the full pool, beside the plain version's time and its bound
+                the full pool, beside the plain version's time and its bound;
+                its window probabilities (return_win_probs) against the
+                split plain version's within 2^-18 absolute, the output
+                bit-equal with the option off, timed on and off in turns
   kernel_ps     the per-slot decode kernel likewise, at the engine's pool
                 (mc=32): mixed slots (n_chunks 0/1/2/5/31, win_len
                 0/1/44/288, an idle slot), groups 1/2/4/8; the kernel
@@ -47,11 +50,12 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 option, C = 128, 384 and 512, every cluster size, the cache's
                 strided views; K and V in one launch (q8q4, q8, q4q4) in
                 prefill's chunk layout and a compaction's layer layout,
-                writing nothing outside their views; timed beside its byte
+                writing nothing outside their views, and with a score on V,
+                on K or on both (the Opa packs); timed beside its byte
                 bound and the plain chain: K alone, K+V at 64 and 8
                 head-chunks, a 32-layer compaction in one launch and in the
                 2 x 32 launches it took before, each K+V shape at every
-                cluster size
+                cluster size, and K+V at 64 with V scored and not, in turns
   kernel_w4     the W4 matmul kernel against its plain version at every
                 Llama-3-8B projection shape and the fused wqkv / w_gateup, T = 8
                 and 32 (and 1, 13, 100, 128 at one shape), a second launch
@@ -62,7 +66,9 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 version and its split plain version (a tighter gate: see
                 split_gate), refusing short scratch: B=8, S=1,312, pos 599
                 and per slot at S=8,448 (a slot at 8,000, an idle one), both
-                timed beside scaled_dot_product_attention
+                timed beside scaled_dot_product_attention; its final (m, l)
+                (return_norm) against the split plain version's, the output
+                bit-equal with the option off, timed on and off in turns
   kernel_archive
                 the archive's generations (TPU kernels 10-16: over split
                 pools the v1 pair sparse_key_scores / sparse_value_combine,
@@ -90,6 +96,14 @@ Phases, each printing one flushed JSON line with its ``phase`` and
   reference_q   the two reference runs above with the codecs q8 and q4q4
   reference_w4  a tiny W4 model, card (kernel 5, and kernel 4 for the dense
                 cache with use_pallas, or the q8q4 kernel) against CPU
+  reference_masked
+                reference on the masked cache for all eight pruning
+                methods (the Opa ones through kernel 4, with its (m, l)
+                where V is scored)
+  reference_opa reference on the compressed cache under KT_OPA_VT_MAG and
+                KT_MAG_VT_OPA at every codec: a 543-token prompt packed by
+                its prefill scores, a compaction by the accumulated scores,
+                the window probabilities of kernels 1 and 6
   serve_q8q4    full-width, 32-layer Llama-3-8B with random W8 weights made
                 on the card: Generator.generate, B=8, prompt 300, 300 new
                 tokens, q8q4 compressed cache (one compaction on the way);
@@ -120,6 +134,13 @@ Phases, each printing one flushed JSON line with its ``phase`` and
   serve_q8, serve_q4q4
                 serve_q8q4 with the codecs q8 and q4q4 (the same launch
                 counts); first tokens = serve_dense's
+  serve_masked, serve_masked_opa, serve_opa_q8q4, serve_opa_bitmap
+                the masked cache, 100 new tokens (EngineConfig defaults:
+                KT_MAG_VT_MAG at 0.5, no kernel; KT_MAG_VC_OPA at 0.7
+                through kernel 4 with its (m, l), 32 x 99 launches) and Opa
+                in the compressed cache, 300 (KT_MAG_VT_OPA at 0.7: kernel
+                1 or 6 with its window probabilities 32 x 299, kernel 9
+                with V's scores 33 for q8q4); first tokens = serve_dense's
   decode_split  device time of a decode step's W8 projections, LM head and
                 attention kernel, each timed alone, beside the step's wall time
   serve_cb      the continuous-batching engine at full width: 8 slots, 17
@@ -384,6 +405,11 @@ class _Kit:
             self.decode_split_plain = lambda q, nc, wl, li: \
                 qa.fused_q_decode_attention_split_plain(q, pool, scales, kw, vw, nc, wl, li,
                                                         qc)
+            self.decode_wp = lambda q, nc, wl, li: qa.fused_q_decode_attention(
+                q, pool, scales, kw, vw, nc, wl, li, qc, return_win_probs=True)
+            self.decode_split_plain_wp = lambda q, nc, wl, li: \
+                qa.fused_q_decode_attention_split_plain(q, pool, scales, kw, vw, nc, wl, li,
+                                                        qc, win_probs=True)
             self.decode_ps = lambda q, nc, wl, li: qa.fused_q_decode_attention_ps(
                 q, pool, scales, kw, vw, nc, wl, li, qc)
             self.decode_ps_plain = lambda q, nc, wl, li: \
@@ -427,6 +453,11 @@ class _Kit:
         self.decode_split_plain = lambda q, nc, wl, li: \
             ska.fused_sparse_decode_attention_split_plain(q, pool, kw, vw, nc, wl, li, fmt,
                                                           fmt, scales)
+        self.decode_wp = lambda q, nc, wl, li: ska.fused_sparse_decode_attention(
+            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc, return_win_probs=True)
+        self.decode_split_plain_wp = lambda q, nc, wl, li: \
+            ska.fused_sparse_decode_attention_split_plain(q, pool, kw, vw, nc, wl, li, fmt,
+                                                          fmt, scales, win_probs=True)
         self.decode_ps = lambda q, nc, wl, li: ska.fused_sparse_decode_attention_ps(
             q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc)
         self.decode_ps_plain = lambda q, nc, wl, li: \
@@ -562,6 +593,10 @@ def phase_kernel(codec="q8q4"):
                 worst = max(worst, err / max(tol, 1e-30))
                 worst_split = max(worst_split, split)
 
+    probs_cases, probs_worst = _check_win_probs(kits[0], (q, q.float()), cases + [(0, 0, 0)])
+    more, worse = _check_win_probs(kits[0], other_groups, cases[:2])
+    probs_cases, probs_worst = probs_cases + more, max(probs_worst, worse)
+
     # time at the main path's largest pre-compaction shape: one pool chunk
     # and a full 288-token window, L2 flushed before each launch
     kit = kits[0]
@@ -581,6 +616,14 @@ def phase_kernel(codec="q8q4"):
                           flush=flush_buf.zero_, spin=False)
     hot_ms, _ = cuda_ms(lambda: kit.decode(q, nc, wl, li), 100)
     full_ms, _ = cuda_ms(lambda: kit.decode(q, mc, 288, li), 100, flush=flush_buf.zero_)
+    # the window probabilities on and off, in turns
+    probs_ms = [cuda_ms(call, 100, flush=flush_buf.zero_)[0]
+                for call in (lambda: kit.decode_wp(q, nc, wl, li),
+                             lambda: kit.decode(q, nc, wl, li),
+                             lambda: kit.decode(q, nc, wl, li),
+                             lambda: kit.decode_wp(q, nc, wl, li))]
+    probs_plain_ms, _ = cuda_ms(lambda: kit.decode_split_plain_wp(q, nc, wl, li), 5,
+                                flush=flush_buf.zero_, spin=False)
     wrapper_us = host_us(lambda: kit.decode(q, nc, wl, li), 100)
     G = Hq // Hkv
     nbytes = (BH * (nc * kit.chunk_bytes + 2 * wl * 128 * 2)   # pools, windows
@@ -594,14 +637,56 @@ def phase_kernel(codec="q8q4"):
          cases=results, worst_err_over_tol=worst, worst_err_over_tol_split=worst_split,
          kernel_ms=kernel_ms, kernel_ms_l2_hot=hot_ms,
          kernel_ms_full_pool=full_ms, plain_ms=plain_ms, host_behind=behind,
-         wrapper_host_us=wrapper_us,
+         wrapper_host_us=wrapper_us, win_probs_cases=probs_cases,
+         win_probs_ms={"on": (probs_ms[0] + probs_ms[3]) / 2,
+                       "off": (probs_ms[1] + probs_ms[2]) / 2, "in_turns": probs_ms,
+                       "split_plain": probs_plain_ms},
          timed_at={"sparsity": kit.sparsity, "n_chunks": nc, "win_len": wl},
          bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, flops_ms), library_ms=None)
     entry = _entry(codec, "decode", results, worst, max(r["tol"] for r in results),
                    kernel_ms, plain_ms, bytes_ms, flops_ms)
     entry.update(max_err=entry["max_abs_err"], worst_err_over_tol_split=worst_split,
                  tol_split=SPLIT_TOL_NOTE)
+    entry["options"] = {"return_win_probs": {
+        "max_abs_err": max(r["probs_max_abs_err"] for r in probs_cases),
+        "tol": WIN_PROBS_TOL, "worst_err_over_tol": probs_worst,
+        "ms": (probs_ms[0] + probs_ms[3]) / 2, "ms_off": (probs_ms[1] + probs_ms[2]) / 2,
+        "plain_ms": probs_plain_ms, "launches": None,
+        "timed_at": "as ms: 1 chunk + 288 window, in turns on, off, off, on"}}
     return entry
+
+
+WIN_PROBS_TOL = 2.0 ** -18   # absolute, of probabilities summed over <= 8 heads
+
+
+def _check_win_probs(kit, qs, cases):
+    """The uniform decode kernel's window probabilities (``return_win_probs``)
+    against its split plain version's, within WIN_PROBS_TOL absolute (the
+    scores and the merged (m, l) are the plain version's bit for bit; expf
+    and the division differ by an ulp or so), 0 at and past ``win_len``,
+    and the output with the option bit-equal to the output without it.
+    Returns (the cases, the worst error over the tolerance)."""
+    import torch
+    results, worst = [], 0.0
+    for nc, wl, li in cases:
+        for qq in qs:
+            out, probs = kit.decode_wp(qq, nc, wl, li)
+            plain = kit.decode(qq, nc, wl, li)
+            torch.cuda.synchronize()
+            _, want = kit.decode_split_plain_wp(qq.float(), nc, wl, li)
+            err = (probs - want).abs().max().item()
+            ok = (bool(torch.equal(out, plain)) and bool(probs.isfinite().all())
+                  and err <= WIN_PROBS_TOL and bool((probs[..., wl:] == 0).all()))
+            results.append({"n_chunks": nc, "win_len": wl, "li": li,
+                            "q_dtype": str(qq.dtype).split(".")[-1],
+                            "G": qq.shape[2] // probs.shape[1], "probs_max_abs_err": err,
+                            "out_equal_without": bool(torch.equal(out, plain))})
+            if not ok:
+                raise AssertionError(f"window probabilities disagree with the split plain "
+                                     f"version (tol {WIN_PROBS_TOL}) or change the "
+                                     f"output: {results[-1]}")
+            worst = max(worst, err / WIN_PROBS_TOL)
+    return results, worst
 
 
 def phase_kernel_ps(codec="q8q4"):
@@ -939,19 +1024,21 @@ def phase_kernel_pack():
         return ((pool[at][..., :KR, :], scales[at][..., 0, :]),
                 (pool[at][..., KR:, :], scales[at][..., 1, :]))
 
-    def check_kv(label, k, v, pool, scales, at, keeps, bits, **case):
-        """K+V into pool[at] / scales[at] (K rows, then V rows); the rest of
-        pool and scales must keep their sentinels."""
+    def check_kv(label, k, v, pool, scales, at, keeps, bits, scores=(None, None), **case):
+        """K+V into pool[at] / scales[at] (K rows, then V rows), each ranked
+        by its score if given; the rest of pool and scales must keep their
+        sentinels."""
         KR = C * bits[0] // 16
         pool.fill_(7)
         scales.fill_(3.0)
         k_out, v_out = kv_views(pool, scales, at, KR)
-        kv(k, v, *keeps, *bits, k_out=k_out, v_out=v_out)
+        kv(k, v, *keeps, *bits, k_out=k_out, v_out=v_out, k_score=scores[0],
+           v_score=scores[1])
         torch.cuda.synchronize()
-        for name, x, keep, nb, out in (("K", k, keeps[0], bits[0], k_out),
-                                       ("V", v, keeps[1], bits[1], v_out)):
-            same(f"{label} {name}", out, pk.prune_quant_pack_plain(x, keep, nb), keep=keep,
-                 bits=nb, **case)
+        for name, x, keep, nb, out, sc in (("K", k, keeps[0], bits[0], k_out, scores[0]),
+                                           ("V", v, keeps[1], bits[1], v_out, scores[1])):
+            same(f"{label} {name}", out, pk.prune_quant_pack_plain(x, keep, nb, sc),
+                 keep=keep, bits=nb, score=sc is not None, **case)
         pool[at] = 7
         scales[at] = 3.0
         if not ((pool == 7).all() and (scales == 3.0).all()):
@@ -974,6 +1061,18 @@ def phase_kernel_pack():
         kw, vw = (chunk(4, B, Hkv, C=288)[..., :C, :] for _ in range(2))
         check_kv(f"{codec} compaction", kw, vw, *kv_pool(4, 5, B, Hkv, rows=rows),
                  (slice(None), 2), keeps, bits)
+        # the Opa policies: a score on one operand (V for KT_MAG_VT_OPA, K
+        # for KT_OPA_VT_MAG) or both; the other keyed by |x| in the same launch
+        for scored in ((False, True), (True, False), (True, True)):
+            sk, sv = (torch.rand(x.shape, generator=g, device=dev) if on else None
+                      for x, on in zip((kp, vp), scored))
+            check_kv(f"{codec} prefill scored", kp, vp, *kv_pool(2, 5, B, Hkv, rows=rows),
+                     (1, slice(0, 3)), keeps, bits, (sk, sv), scored=scored)
+            sk, sv = (torch.rand(x.shape, generator=g, device=dev) if on else None
+                      for x, on in zip((kw, vw), scored))
+            check_kv(f"{codec} compaction scored", kw, vw,
+                     *kv_pool(4, 5, B, Hkv, rows=rows), (slice(None), 2), keeps, bits,
+                     (sk, sv), scored=scored)
 
     index = torch.cuda.current_device()
 
@@ -1041,6 +1140,19 @@ def phase_kernel_pack():
         if len(lead) == 2:
             timed[label]["two_launches_ms"] = cuda_ms(
                 lambda k=k, v=v: (fn(k, 40, 8), fn(v, 40, 4)), 50, flush=flush_buf.zero_)[0]
+            if label == "kv_BH64":
+                # V ranked by a score (KT_MAG_VT_OPA's pack) and not, in turns
+                sv = torch.rand(v.shape, generator=g, device=dev)
+                check_kv("kv_BH64 V scored", k, v, pool, scales, at, (40, 40), (8, 4),
+                         (None, sv))
+                timed["kv_BH64_v_score"] = [cuda_ms(call, 50, flush=flush_buf.zero_)[0]
+                                            for call in (
+                    lambda: kv(k, v, 40, 40, 8, 4, k_out=outs[0], v_out=outs[1],
+                               v_score=sv),
+                    lambda: kv(k, v, 40, 40, 8, 4, k_out=outs[0], v_out=outs[1]),
+                    lambda: kv(k, v, 40, 40, 8, 4, k_out=outs[0], v_out=outs[1]),
+                    lambda: kv(k, v, 40, 40, 8, 4, k_out=outs[0], v_out=outs[1],
+                               v_score=sv))]
             continue
 
         def per_layer(k=k, v=v, outs=outs):
@@ -1068,6 +1180,13 @@ def phase_kernel_pack():
                                                                "plain_ms")}
                               for key in ("BH64_bits8", "kv_BH8", "kv_compaction_L32")},
                  library_note=PACK_NO_LIBRARY)
+    on_off = timed["kv_BH64_v_score"]
+    entry["options"] = {"score": {
+        "max_abs_err": 0.0, "tol": "bit-equal (rows and scales)",
+        "ms": (on_off[0] + on_off[3]) / 2, "ms_off": (on_off[1] + on_off[2]) / 2,
+        "launches": None,
+        "timed_at": "as ms with V ranked by an f32 score and K by |x| in the same "
+                    "launch, in turns on, off, off, on"}}
     return entry
 
 
@@ -1212,7 +1331,7 @@ def phase_kernel_dense():
     fn = dd.flash_decode_attention
     launches0 = fn.launches
     B, Hkv, D = 8, 8, 128
-    shapes, results, worst, worst_split = {}, [], 0.0, 0.0
+    shapes, results, worst, worst_split, norm_worst = {}, [], 0.0, 0.0, 0.0
     cases = {"uniform": (1312, 599),
              "per_slot": (8448, [8000, 1210, 300, -1, 640, 1499, 45, 950])}
     for label, (S, pos) in cases.items():
@@ -1248,6 +1367,8 @@ def phase_kernel_dense():
                     raise AssertionError(f"dense decode kernel disagrees with its split "
                                          f"plain version: {results[-1]}")
                 worst_split = max(worst_split, ratio)
+                norm_worst = max(norm_worst, _check_norm(fn, dd, q, k, v, kpos, got,
+                                                         results[-1]))
         q = torch.randn((B, 1, Hkv * 4, D), generator=g, device=dev).to(torch.bfloat16)
         if not refuses_short_scratch(lambda: fn(q, k, v, kpos)):
             raise AssertionError(f"dense decode kernel took scratch shorter than its "
@@ -1256,6 +1377,11 @@ def phase_kernel_dense():
             fn(q, k, v, kpos)
         torch.cuda.synchronize()
         kernel_ms, behind = cuda_ms(lambda: fn(q, k, v, kpos), 50, flush=flush_buf.zero_)
+        # the final (m, l) on and off, in turns
+        norm_ms = [cuda_ms(call, 50, flush=flush_buf.zero_)[0]
+                   for call in (lambda: fn(q, k, v, kpos, return_norm=True),
+                                lambda: fn(q, k, v, kpos), lambda: fn(q, k, v, kpos),
+                                lambda: fn(q, k, v, kpos, return_norm=True))]
         plain_ms, _ = cuda_ms(lambda: dd.flash_decode_attention_plain(q, k, v, kpos), 3,
                               flush=flush_buf.zero_, spin=False)
         lib_ms, backend, lib_out = _sdpa_ms(q, k, v, slot_pos, flush_buf.zero_)
@@ -1273,11 +1399,15 @@ def phase_kernel_dense():
                          "library_max_abs_diff": lib_err, "tile": dd.decode_tile(S),
                          "split_len": dd.split_len(dd._covered(kpos, S), B * Hkv,
                                                    dd._sms(q.device)),
-                         "wrapper_host_us": host_us(lambda: fn(q, k, v, kpos), 50)}
+                         "wrapper_host_us": host_us(lambda: fn(q, k, v, kpos), 50),
+                         "return_norm_ms": {"on": (norm_ms[0] + norm_ms[3]) / 2,
+                                            "off": (norm_ms[1] + norm_ms[2]) / 2,
+                                            "in_turns": norm_ms}}
         del k, v
     fn.launches = launches0                                # comparisons do not count
     emit("kernel_dense", B=B, Hkv=Hkv, cases=results, worst_err_over_tol=worst,
-         worst_err_over_tol_split=worst_split, timed=shapes)
+         worst_err_over_tol_split=worst_split, return_norm_worst_err_over_tol=norm_worst,
+         timed=shapes)
     t = shapes["uniform"]
     entry = _entry("dense", "decode", results, worst,
                    "per slot: 2 bf16 ulps of the slot's largest output", t["kernel_ms"],
@@ -1291,7 +1421,39 @@ def phase_kernel_dense():
                                        "1499 / 45 / 950, Hkv=8, G=4",
                            **{k: p[k] for k in ("kernel_ms", "bound_ms", "plain_ms",
                                                 "library_ms")}})
+    entry["options"] = {"return_norm": {
+        "max_abs_err_m": max(r["m_max_abs_err"] for r in results),
+        "max_rel_err_l": max(r["l_max_rel_err"] for r in results),
+        "tol": NORM_TOL_NOTE, "worst_err_over_tol": norm_worst,
+        "ms": t["return_norm_ms"]["on"], "ms_off": t["return_norm_ms"]["off"],
+        "per_slot_ms": p["return_norm_ms"]["on"], "per_slot_ms_off": p["return_norm_ms"]["off"],
+        "launches": None, "timed_at": "as ms, in turns on, off, off, on"}}
     return entry
+
+
+NORM_TOL = 2.0 ** -18
+NORM_TOL_NOTE = ("m within 2^-18 absolute, l within 2^-18 of l (a sum of up to 128 "
+                 "exps a split, >= 1 for a live slot), of the split plain version's")
+
+
+def _check_norm(fn, dd, q, k, v, kpos, got, case):
+    """Kernel 4's final (m, l) (``return_norm``) against its split plain
+    version's (NORM_TOL_NOTE; an idle slot -1e30 and 0 exactly) and its
+    output bit-equal to ``got``, the call without the option.  Records into
+    ``case`` and returns the worst error over the tolerance."""
+    import torch
+    out, m, l = fn(q, k, v, kpos, return_norm=True)
+    torch.cuda.synchronize()
+    _, wm, wl = dd.flash_decode_attention_split_plain(q.float(), k, v, kpos,
+                                                       return_norm=True)
+    m_err = (m - wm).abs().max().item()
+    l_err = ((l - wl).abs() / wl.clamp_min(1.0)).max().item()
+    case.update(m_max_abs_err=m_err, l_max_rel_err=l_err,
+                norm_out_equal_without=bool(torch.equal(out, got)))
+    if not (case["norm_out_equal_without"] and m_err <= NORM_TOL and l_err <= NORM_TOL):
+        raise AssertionError(f"dense decode kernel's (m, l) disagree with its split plain "
+                             f"version's, or change the output: {case}")
+    return max(m_err, l_err) / NORM_TOL
 
 
 # ---------------------------------------------------------------------------
@@ -1646,14 +1808,14 @@ def phase_kernel_archive_cache(k, v):
     return launches
 
 
-def _tiny_engine(mode, codec="q8q4", **kw):
+def _tiny_engine(mode, codec="q8q4", method=None, **kw):
     import dataclasses
     from mustafar_tpu_torch import config as tc
     model = dataclasses.replace(tc.TINY_LLAMA, head_dim=128, num_heads=4,
                                 num_kv_heads=1, hidden_size=256)
     return tc.EngineConfig(
         model=model, cache_mode=mode,
-        prune=tc.PruneConfig(method=tc.PruneMethod.KT_MAG_VT_MAG,
+        prune=tc.PruneConfig(method=method or tc.PruneMethod.KT_MAG_VT_MAG,
                              k_sparsity=0.7, v_sparsity=0.7),
         max_seq_len=kw.pop("max_seq_len", 1024), prefill_bucket=256, chunk_size=256,
         codec=codec, **kw)
@@ -1715,41 +1877,51 @@ def _recording_engine():
     return Recording, np
 
 
-def phase_reference(codec="q8q4"):
+def phase_reference(codec="q8q4", mode=None, method=None, use_pallas=False, T=300,
+                    tol_frac=1e-2):
     """A tiny f32 model, same weights and token stream on the card and on
-    the CPU: the card runs the kernel, the CPU the plain path.  Returns the
-    phase's numbers (``reference_bitmap`` prints them for the bitmap
-    codec)."""
+    the CPU: the card runs the kernel, the CPU the plain path, a prompt of
+    ``T`` tokens and 39 decode steps (a compressed cache compacts when its
+    window fills, as the Generator does).  ``mode`` and ``method`` default
+    to the compressed cache and KT_MAG_VT_MAG; ``use_pallas`` sends a dense
+    or masked cache through kernel 4; ``tol_frac`` is the logits'
+    tolerance as a fraction of their range.  Returns the phase's numbers
+    (``reference_bitmap`` and the others print them)."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.cache import make_cache
     from mustafar_tpu_torch.config import CacheMode
     from mustafar_tpu_torch.models import llama
-    eng = _tiny_engine(CacheMode.COMPRESSED, codec)
+    eng = _tiny_engine(mode or CacheMode.COMPRESSED, codec, method)
     cpu_params = llama.init_params(eng.model, device="cpu", dtype=torch.float32, seed=1)
     gpu_params = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict)
                       else v.cuda()) for k, v in cpu_params.items()}
-    prompt = np.random.RandomState(1).randint(0, 512, (2, 300))
-    toks = torch.zeros((2, 512), dtype=torch.int64)
-    toks[:, :300] = torch.from_numpy(prompt)
+    prompt = np.random.RandomState(1).randint(0, 512, (2, T))
+    toks = torch.zeros((2, -(-T // 256) * 256), dtype=torch.int64)
+    toks[:, :T] = torch.from_numpy(prompt)
     launches0 = _launches()
     logs = {}
     stream = None
+    compactions = 0
     with torch.inference_mode():
         for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
             impl = make_cache(eng, device=dev)
+            impl.use_pallas = use_pallas
             cache = impl.init(2, torch.float32)
             logit, cache = llama.prefill(eng.model, params, toks.to(dev), cache,
-                                         impl, 300, last_only=True)
+                                         impl, T, last_only=True)
             out = [logit[:, 0].cpu()]
             tok = logit[:, 0].argmax(-1)
             for i in range(1, 40):
                 if stream is not None:
                     tok = stream[:, i - 1].to(dev)
                 logit, cache = llama.decode_step(eng.model, params, tok[:, None],
-                                                 cache, impl, 300 + i - 1)
+                                                 cache, impl, T + i - 1)
                 out.append(logit[:, 0].cpu())
                 tok = logit[:, 0].argmax(-1)
+                if hasattr(impl, "compact") and impl.window_full(cache, T + i):
+                    impl.compact(cache)
+                    compactions += dev == "cuda"
             logs[dev] = torch.stack(out, 1)
             if stream is None:
                 stream = logs[dev].argmax(-1)          # the CPU's greedy picks
@@ -1761,11 +1933,11 @@ def phase_reference(codec="q8q4"):
     # the kernel reads q and the window as bf16 and rounds p to bf16: last-bit
     # differences of f32 activations on the two devices can flip one of those
     # roundings (the CPU parity tests measure < 3e-3 of the logits' range)
-    tol = 1e-2 * scale
+    tol = tol_frac * scale
     agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
     fields = {"steps": 40, "max_abs_err": err, "tol": tol, "greedy_agreement": agree,
-              "launched": launched}
-    if codec == "q8q4":
+              "launched": launched, "compactions": compactions}
+    if codec == "q8q4" and mode is None and method is None:
         emit("reference", **fields)
     if not (b.isfinite().all() and err <= tol):
         raise AssertionError(f"card and CPU logits disagree on the tiny model: {fields}")
@@ -1855,6 +2027,59 @@ def phase_reference_q():
             raise AssertionError(f"reference_q ({codec}): launched {gen['launched']} and "
                                  f"{cb['launched']}")
     return {codec: cb["launched"] for codec, (_, cb) in runs.items()}
+
+
+CHANNEL_OPA_TOL = 5e-2   # of the logits' range (see phase_reference_masked)
+
+
+def phase_reference_masked():
+    """``reference`` on the masked cache (the EngineConfig default) for all
+    eight pruning methods, card against CPU, logits within 1e-2 of their
+    range: the plain route, and for the Opa methods the kernel route
+    (``use_pallas``: kernel 4, with its final (m, l) where V is scored,
+    2 layers x 39 steps).  KT_MAG_VC_OPA is held to CHANNEL_OPA_TOL and to
+    every greedy pick equal: it ranks each group's 32 tokens per channel
+    by w_t |v_td| (softmax weights summed in another order on the card),
+    so near-ties flip which entries survive, on the plain route as on the
+    kernel's, and each flip moves the logits."""
+    from mustafar_tpu_torch.config import CacheMode, PruneMethod
+    runs = {}
+    for method in PruneMethod:
+        kernel = "opa" in method.k_policy or "opa" in method.v_policy
+        channel_opa = method.v_policy == "channel_opa"
+        fields = phase_reference("q8q4", CacheMode.MASKED, method, use_pallas=kernel,
+                                 tol_frac=CHANNEL_OPA_TOL if channel_opa else 1e-2)
+        want = {"flash_decode_attention": 2 * 39} if kernel else {}
+        runs[method.value] = dict(fields, use_pallas=kernel, expected_launches=want)
+        if fields["launched"] != want or (channel_opa and fields["greedy_agreement"] < 1):
+            raise AssertionError(f"reference_masked ({method.value}): launched "
+                                 f"{fields['launched']}, expected {want}; {fields}")
+    emit("reference_masked", runs=runs)
+
+
+def phase_reference_opa():
+    """``reference`` on the compressed cache under the Opa methods
+    (KT_OPA_VT_MAG, KT_MAG_VT_OPA) at every codec, card against CPU: a
+    543-token prompt (one chunk packed by its prefill scores, kernel 9 with
+    a score on the card for the quant codecs), a compaction after the first
+    step (the oldest C tokens packed by their accumulated scores), the
+    uniform decode kernel with its window probabilities where V is scored;
+    logits within 1e-2 of their range."""
+    from mustafar_tpu_torch.config import CacheMode, PruneMethod
+    runs = {}
+    for method in (PruneMethod.KT_OPA_VT_MAG, PruneMethod.KT_MAG_VT_OPA):
+        for codec in ("q8q4", "q8", "q4q4", "bitmap", "bitmap-q8"):
+            fields = phase_reference(codec, CacheMode.COMPRESSED, method, T=543)
+            if codec in QUANT_BITS:
+                want = {"fused_q_decode_attention": 2 * 39, "prune_quant_pack_kv": 2 + 1}
+            else:
+                want = {"fused_sparse_decode_attention": 2 * 39}
+            runs[f"{method.value}/{codec}"] = dict(fields, expected_launches=want)
+            if fields["launched"] != want or fields["compactions"] != 1:
+                raise AssertionError(f"reference_opa ({method.value}, {codec}): launched "
+                                     f"{fields['launched']}, expected {want}, "
+                                     f"{fields['compactions']} compactions")
+    emit("reference_opa", runs=runs)
 
 
 REFERENCE_W4_TOL = 3e-2   # of the logits' range (see phase_reference_w4)
@@ -1973,19 +2198,21 @@ def _pool_bytes(cache):
 
 
 def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=False,
-          on_cache=None):
+          on_cache=None, prune=None):
     """One warm-up generation, then the measured one; returns its tokens,
     the launches of every kernel during the measured run (those launched)
-    and the phase's fields.  ``use_pallas`` decodes the dense cache through
-    its flash-decode kernel; ``on_cache`` is handed the cache state the
-    measured run left."""
+    and the phase's fields.  ``use_pallas`` decodes the dense or masked
+    cache through its flash-decode kernel; ``on_cache`` is handed the cache
+    state the measured run left; ``prune`` defaults to KT_MAG_VT_MAG at
+    sparsity 0.7."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import EngineConfig, LLAMA3_8B, PruneConfig, PruneMethod
     from mustafar_tpu_torch.runtime.generate import Generator
-    eng = EngineConfig(model=LLAMA3_8B, cache_mode=mode,
-                       prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG,
-                                         k_sparsity=0.7, v_sparsity=0.7),
+    if prune is None:
+        prune = PruneConfig(method=PruneMethod.KT_MAG_VT_MAG, k_sparsity=0.7,
+                            v_sparsity=0.7)
+    eng = EngineConfig(model=LLAMA3_8B, cache_mode=mode, prune=prune,
                        max_seq_len=1312, prefill_bucket=256, chunk_size=256,
                        codec=codec)
     gen = Generator(eng, params, dtype=torch.bfloat16)
@@ -2011,6 +2238,8 @@ def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=Fals
         fields["codec"] = codec
     else:
         fields["use_pallas"] = use_pallas
+    fields["prune"] = {"method": prune.method.value, "k_sparsity": prune.k_sparsity,
+                       "v_sparsity": prune.v_sparsity}
     cache = gen.last_cache
     if mode.value == "compressed":
         fields["n_chunks_end"] = cache["nc_host"]
@@ -2408,6 +2637,66 @@ def serve_w4(entries, prompt, new):
     torch.cuda.empty_cache()
 
 
+MASKED_NEW = 100   # new tokens of the masked serve phases (their exits cross 3 groups)
+
+
+def serve_opa(entries, params, prompt, new, dense_toks):
+    """The masked cache and Opa pruning at full width and depth (B=8, prompt
+    300, first tokens = serve_dense's): ``serve_masked`` (the EngineConfig
+    defaults: masked cache, KT_MAG_VT_MAG at 0.5, plain route: no kernel)
+    and ``serve_masked_opa`` (KT_MAG_VC_OPA at 0.7, use_pallas: kernel 4
+    with its (m, l) 32 x 99 times), MASKED_NEW new tokens each;
+    ``serve_opa_q8q4`` and ``serve_opa_bitmap`` (KT_MAG_VT_OPA at 0.7,
+    ``new`` tokens, a compaction by score on the way: kernel 1 or 6 with
+    its window probabilities 32 x 299 times; kernel 9 with V's scores 32 +
+    1 times, K and V in one launch).  Each run's V scores must be live at
+    its end (the options' results reached the cache).  Fills the options'
+    launches in the kernels line."""
+    from mustafar_tpu_torch.config import CacheMode, PruneConfig, PruneMethod
+    opa = PruneConfig(method=PruneMethod.KT_MAG_VC_OPA, k_sparsity=0.7, v_sparsity=0.7)
+    vt_opa = PruneConfig(method=PruneMethod.KT_MAG_VT_OPA, k_sparsity=0.7, v_sparsity=0.7)
+    masked_steps, steps = 32 * (MASKED_NEW - 1), 32 * (new - 1)
+    runs = (("serve_masked", CacheMode.MASKED, "q8q4", False, PruneConfig(), MASKED_NEW,
+             {}),
+            ("serve_masked_opa", CacheMode.MASKED, "q8q4", True, opa, MASKED_NEW,
+             {"flash_decode_attention": masked_steps}),
+            ("serve_opa_q8q4", CacheMode.COMPRESSED, "q8q4", False, vt_opa, new,
+             {"fused_q_decode_attention": steps, "prune_quant_pack_kv": serve_packs()}),
+            ("serve_opa_bitmap", CacheMode.COMPRESSED, "bitmap", False, vt_opa, new,
+             {"fused_sparse_decode_attention": steps}))
+    for label, mode, codec, use_pallas, prune, n_new, want in runs:
+        scores = {}
+        toks, launches, fields = serve(
+            label, mode, params, prompt, n_new, codec=codec, use_pallas=use_pallas,
+            prune=prune, on_cache=lambda c: scores.update(
+                {k: float(c[k].abs().sum()) for k in ("k_score", "v_score") if k in c}))
+        first_equal = bool((toks[:, 0] == dense_toks[:, 0]).all())
+        emit(label, decode_steps=n_new - 1, expected_launches=want,
+             first_token_equal_dense=first_equal,
+             token_agreement_with_dense=(toks == dense_toks[:, :n_new]).float().mean().item(),
+             score_sums=scores, **fields)
+        scored = prune.method.v_policy in ("token_opa", "channel_opa")
+        if launches != want or not first_equal or (scored and not scores.get("v_score")):
+            raise AssertionError(f"{label}: launched {launches} (expected {want}), first "
+                                 f"tokens equal the dense run's: {first_equal}, scores "
+                                 f"{scores}")
+        note = f"{label}: every launch with the option (V scored by {prune.method.value})"
+        if label == "serve_masked_opa":
+            opt = entries[("dense", "decode")]["options"]["return_norm"]
+            opt.update(launches=launches["flash_decode_attention"], launches_note=note)
+        elif label == "serve_opa_q8q4":
+            opt = entries[("q8q4", "decode")]["options"]["return_win_probs"]
+            opt.update(launches=launches["fused_q_decode_attention"], launches_note=note)
+            opt = entries[("q8q4", "pack")]["options"]["score"]
+            opt.update(launches=launches["prune_quant_pack_kv"],
+                       launches_note=f"{label}: V ranked by its scores, K by |x|, one "
+                                     f"launch a layer at prefill and one compaction")
+        elif label == "serve_opa_bitmap":
+            opt = entries[("bitmap", "decode")]["options"]["return_win_probs"]
+            opt.update(launches=launches["fused_sparse_decode_attention"],
+                       launches_note=note)
+
+
 def serve_packs():
     """Kernel 9 launches of a ``serve`` run of a quant codec: one a layer for
     prefill's chunk (300 - 32 tokens; K and V of every chunk of the layer's
@@ -2456,6 +2745,8 @@ def main():
     phase_reference_bitmap("bitmap-q8")
     q_engine_launches = phase_reference_q()
     phase_reference_w4()
+    phase_reference_masked()
+    phase_reference_opa()
 
     import numpy as np
     import torch
@@ -2555,6 +2846,7 @@ def main():
             raise AssertionError(f"{label}: launched {launches} (expected {want}), first "
                                  f"tokens equal the dense run's: {first_equal}")
         other[(codec, "decode")]["launches"] = expected
+    serve_opa(entries, params, prompt, new, dense_toks)
     phase_decode_split(params, entries[("q8q4", "decode")]["kernel_ms"], q8q4_s,
                        dense_s, new)
     cb_runs = {}

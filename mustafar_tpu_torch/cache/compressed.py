@@ -16,6 +16,9 @@ State (a dict, the JAX package's layouts, updated in place):
                                              (quant codecs and bitmap-q8)
   k_win / v_win [L, B, Hkv, r+C, 128]        dense residual window
   n_chunks  [L, B] int32                     active chunks (device)
+  k_score / v_score [L, B, Hkv, r+C, 128] f32  the output-aware (Opa)
+                                             policies' accumulated scores,
+                                             a column each window column
   nc_host   int or None                      host copy of n_chunks while the
                                              batch is uniform, so a uniform
                                              decode step never reads the
@@ -46,12 +49,22 @@ Semantics:
     the window shifts (``compact`` for a uniform batch, ``compact_slots``
     for chosen slots), which packs every layer's chunk at once (the quant
     codecs in one launch).
+  * the output-aware (Opa) policies KT_OPA_VT_MAG and KT_MAG_VT_OPA: the
+    packed prefix keeps the top entries by the prefill scores of the
+    masked cache (``prefill_k_opa_score``, ``prefill_v_opa_score``); each
+    uniform decode step adds its scores to the live window columns (K:
+    |mean_g |q| * k|; V: |p * v|, p the window probabilities that the
+    decode kernel returns, ``return_win_probs``); compaction packs the
+    oldest C tokens by their scores and shifts the scores with the window.
+    Opa in the per-slot decode (the engine) and in chunked prefill waits
+    for ROADMAP Queue A item 12.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mustafar_tpu_torch.cache.dense import prefill_k_opa_score, prefill_v_opa_score
 from mustafar_tpu_torch.config import EngineConfig
 from mustafar_tpu_torch.device import resolve_device
 from mustafar_tpu_torch.ops import quant_format as qf
@@ -70,10 +83,14 @@ class CompressedKVCache:
         self.model = m = engine.model
         p = engine.prune
         self.p = p
-        if p.method.k_policy != "token_mag" or p.method.v_policy != "token_mag":
-            raise NotImplementedError(
-                f"compressed cache serves KT_MAG_VT_MAG; {p.method} "
-                "(output-aware policies) is ROADMAP Queue A item 12")
+        if p.method.k_policy not in ("token_mag", "token_opa") or \
+                p.method.v_policy not in ("token_mag", "token_opa"):
+            raise ValueError(f"the compressed cache packs per-token policies, got "
+                             f"{p.method}: use the masked cache")
+        self.k_opa = p.method.k_policy == "token_opa"
+        self.v_opa = p.method.v_policy == "token_opa"
+        self.score_keys = (("k_score",) if self.k_opa else ()) + \
+            (("v_score",) if self.v_opa else ())
         if m.sliding_window is not None:
             raise NotImplementedError("sliding windows are ROADMAP Queue A item 14")
         assert m.head_dim == 128, (
@@ -115,30 +132,42 @@ class CompressedKVCache:
         if "kv_scales" in self.pool_keys:
             state["kv_scales"] = torch.zeros((L, mc, batch, H, 2, D),
                                              dtype=torch.bfloat16, device=dev)
+        for key in self.score_keys:
+            state[key] = torch.zeros((L, batch, H, self.wcap, D), dtype=torch.float32,
+                                     device=dev)
         return state
 
+    def _refuse_opa(self, what: str):
+        if self.score_keys:
+            raise NotImplementedError(
+                f"{self.p.method} in {what} is ROADMAP Queue A item 12 "
+                "(output-aware scores there)")
+
     # -- packing ----------------------------------------------------------
-    def _pack_chunk_bitmap(self, dense: torch.Tensor, fmt: sf.ChunkFormat):
+    def _pack_chunk_bitmap(self, dense: torch.Tensor, fmt: sf.ChunkFormat, score=None):
         """dense [.., C, D] -> (fused-stream rows [.., stream_rows, 128],
         scales [.., D] bf16 or None): top-|x| keep per token, then the
         bitmap and the packed values; at ``qbits=8`` the survivors are
-        quantized first (codes from the f32 scales, stored as bf16).  Every
+        quantized first (codes from the f32 scales, stored as bf16).  With
+        ``score`` (dense's shape, f32) the keep ranks by score.  Every
         step works token row by token row (the scales head-chunk by
         head-chunk), so any leading axes take one pass."""
         x = dense.to(torch.bfloat16)
         if fmt.qbits == 16:
-            return sf.prune_and_encode_stream(x, fmt), None
-        rows, scales = sf.prune_and_encode_stream_q8(x, fmt)
+            return sf.prune_and_encode_stream(x, fmt, score), None
+        rows, scales = sf.prune_and_encode_stream_q8(x, fmt, score)
         return rows, scales.to(torch.bfloat16)
 
-    def _pack(self, k_chunk, v_chunk) -> dict:
+    def _pack(self, k_chunk, v_chunk, k_score=None, v_score=None) -> dict:
         """Dense K and V chunks [.., C, D] (one to three leading axes: chunk
         or layer, batch, kv head) -> their pool entries: {"kv_pool": rows
         [.., ROWS, 128]} (K rows, then V rows) and, for the quant codecs and
-        bitmap-q8, "kv_scales" [.., 2, D]."""
+        bitmap-q8, "kv_scales" [.., 2, D].  ``k_score`` / ``v_score`` (the
+        chunks' shape, f32): the Opa ranking in place of |x|."""
         if self.qcodec is None:
-            (k_rows, k_sc), (v_rows, v_sc) = (self._pack_chunk_bitmap(k_chunk, self.kfmt),
-                                              self._pack_chunk_bitmap(v_chunk, self.vfmt))
+            (k_rows, k_sc), (v_rows, v_sc) = (
+                self._pack_chunk_bitmap(k_chunk, self.kfmt, k_score),
+                self._pack_chunk_bitmap(v_chunk, self.vfmt, v_score))
             entry = {"kv_pool": torch.cat([k_rows, v_rows], dim=-2)}
             if k_sc is not None:
                 entry["kv_scales"] = torch.stack([k_sc, v_sc], dim=-2)
@@ -148,34 +177,38 @@ class CompressedKVCache:
                                         device=k_chunk.device),
                  "kv_scales": torch.empty((*lead, 2, 128), dtype=torch.bfloat16,
                                           device=k_chunk.device)}
-        self._pack_q_into(entry["kv_pool"], entry["kv_scales"], k_chunk, v_chunk)
+        self._pack_q_into(entry["kv_pool"], entry["kv_scales"], k_chunk, v_chunk,
+                          k_score, v_score)
         return entry
 
-    def _pack_q_into(self, rows, scales, k_chunk, v_chunk):
+    def _pack_q_into(self, rows, scales, k_chunk, v_chunk, k_score=None, v_score=None):
         """Quant codecs: prune (top-|x| keep per token), quantize and pack
         dense K and V chunks [.., C, D] straight into ``rows`` [.., ROWS,
         128] (K rows, then V rows) and ``scales`` [.., 2, D], through
         ``prune_quant_pack_kv``: one launch of kernel 9 on the card for every
         head-chunk of both, reading the chunks through their strides (a bf16
         window or prompt slice is not copied; an f32 one is cast to bf16
-        first), no copy out."""
+        first), no copy out.  A score ranks its operand (the kernel takes
+        it contiguous: a strided one is copied)."""
         qc = self.qcodec
         KR = qc.k_rows
         prune_quant_pack_kv(k_chunk.to(torch.bfloat16), v_chunk.to(torch.bfloat16),
                             self.k_keep, self.v_keep, qc.kbits, qc.vbits,
                             k_out=(rows[..., :KR, :], scales[..., 0, :]),
-                            v_out=(rows[..., KR:, :], scales[..., 1, :]))
+                            v_out=(rows[..., KR:, :], scales[..., 1, :]),
+                            k_score=_contig(k_score), v_score=_contig(v_score))
 
-    def _append(self, state, at, k_chunk, v_chunk):
+    def _append(self, state, at, k_chunk, v_chunk, k_score=None, v_score=None):
         """Prune and pack dense K and V chunks [.., C, D] into the pool slots
         ``state[key][at]`` (``at`` a basic index: a layer's slot in a
         segment, a layer's first slots in prefill, every layer's slot in a
         compaction): the quant codecs straight into the slots, in one
         launch; the bitmap codecs in one pass of eager ops, then a copy."""
         if self.qcodec is not None:
-            self._pack_q_into(state["kv_pool"][at], state["kv_scales"][at], k_chunk, v_chunk)
+            self._pack_q_into(state["kv_pool"][at], state["kv_scales"][at], k_chunk, v_chunk,
+                              k_score, v_score)
             return
-        for key, val in self._pack(k_chunk, v_chunk).items():
+        for key, val in self._pack(k_chunk, v_chunk, k_score, v_score).items():
             state[key][at] = val
 
     # -- prefill ----------------------------------------------------------
@@ -190,10 +223,17 @@ class CompressedKVCache:
         kh = k.transpose(1, 2)                                  # [B, Hkv, T, D]
         vh = v.transpose(1, 2)
         if n_pre:
-            # the prompt's chunks as views [n_pre, B, Hkv, C, D]
-            kc, vc = (x[:, :, :comp_len].unflatten(2, (n_pre, C)).movedim(2, 0)
-                      for x in (kh, vh))
-            self._append(state, (li, slice(0, n_pre)), kc, vc)
+            # the prompt's chunks as views [n_pre, B, Hkv, C, D], and the Opa
+            # scores of the packed prefix, the masked cache's prefill scores
+            ks = (prefill_k_opa_score(q, k, true_len).transpose(1, 2)
+                  if self.k_opa else None)
+            vs = (prefill_v_opa_score(q, k, v, true_len, self.p.group_size).transpose(1, 2)
+                  if self.v_opa else None)
+            kc, vc, ksc, vsc = (
+                None if x is None else
+                x[:, :, :comp_len].unflatten(2, (n_pre, C)).movedim(2, 0)
+                for x in (kh, vh, ks, vs))
+            self._append(state, (li, slice(0, n_pre)), kc, vc, ksc, vsc)
         state["n_chunks"][li] = n_pre
         state["nc_host"] = n_pre
         # window <- tokens [comp_len, true_len), zero past true_len
@@ -243,11 +283,35 @@ class CompressedKVCache:
         state["v_win"][li, :, :, win_len - 1] = v[:, 0]
         pool, scales, kw, vw, lk = self._views(state, li)
         if self.qcodec is None:
-            return ska.fused_sparse_decode_attention(q, pool, kw, vw, nc, win_len, lk,
-                                                     self.kfmt, self.vfmt,
-                                                     kv_scales=scales)
-        return qa.fused_q_decode_attention(q, pool, scales, kw, vw, nc, win_len,
-                                           lk, self.qcodec)
+            out = ska.fused_sparse_decode_attention(q, pool, kw, vw, nc, win_len, lk,
+                                                    self.kfmt, self.vfmt,
+                                                    kv_scales=scales,
+                                                    return_win_probs=self.v_opa)
+        else:
+            out = qa.fused_q_decode_attention(q, pool, scales, kw, vw, nc, win_len,
+                                              lk, self.qcodec, return_win_probs=self.v_opa)
+        if not self.score_keys:
+            return out
+        p_win = None
+        if self.v_opa:
+            out, p_win = out
+        self._accumulate_scores(state, li, q, win_len, p_win)
+        return out
+
+    def _accumulate_scores(self, state, li: int, q, win_len: int, p_win):
+        """Add this step's Opa scores at layer li's live window columns [0,
+        win_len): K |mean_g |q| * k| per element, V |p * v| with p the
+        kernel's window probabilities [B, Hkv, W]."""
+        B, _, Hq, D = q.shape
+        Hkv = self.model.num_kv_heads
+        live = (torch.arange(self.wcap, device=q.device) < win_len)[None, None, :, None]
+        if self.k_opa:
+            qm = q[:, 0].to(torch.float32).abs().reshape(B, Hkv, Hq // Hkv, D).mean(dim=2)
+            step = (qm[:, :, None, :] * state["k_win"][li].to(torch.float32)).abs()
+            state["k_score"][li] += torch.where(live, step, 0.0)
+        if self.v_opa:
+            step = (p_win[..., None] * state["v_win"][li].to(torch.float32)).abs()
+            state["v_score"][li] += torch.where(live, step, 0.0)
 
     def _decode_attend_per_slot(self, state, li: int, q, k, v, pos):
         """Per-slot decode (``_decode_attend_per_slot`` of the JAX package):
@@ -257,6 +321,7 @@ class CompressedKVCache:
         (0 chunks, 0 window tokens): after a retire its n_chunks still holds
         the old request's count, and the window index it would give may lie
         far out of range."""
+        self._refuse_opa("the per-slot decode (the continuous-batching engine)")
         B = q.shape[0]
         nc = state["n_chunks"][li]
         active = pos >= 0
@@ -300,8 +365,10 @@ class CompressedKVCache:
         if nc >= self.max_chunks:
             raise ValueError(f"pool full: {nc} of {self.max_chunks} chunks in use")
         self._append(state, (slice(None), nc), state["k_win"][..., :C, :],
-                     state["v_win"][..., :C, :])
-        for key in ("k_win", "v_win"):
+                     state["v_win"][..., :C, :],
+                     *(state[key][..., :C, :] if key in state else None
+                       for key in ("k_score", "v_score")))
+        for key in ("k_win", "v_win") + self.score_keys:
             w = state[key]
             w[..., :self.wcap - C, :] = w[..., C:, :].clone()
             w[..., self.wcap - C:, :] = 0
@@ -316,6 +383,7 @@ class CompressedKVCache:
         their windows (in place).  The chunk index is slot b's n_chunks,
         read on the device as the JAX package reads it (layer 0's, the
         layers move in lockstep)."""
+        self._refuse_opa("compact_slots (the continuous-batching engine)")
         sel = [b for b, flag in enumerate(do) if flag]
         if not sel:
             return state
@@ -344,7 +412,7 @@ class CompressedKVCache:
         ``nc_host`` becomes None."""
         for key in self.pool_keys:
             state[key][:, :, slot] = sub[key][:, :, 0]
-        for key in ("k_win", "v_win"):
+        for key in ("k_win", "v_win") + self.score_keys:
             state[key][:, slot] = sub[key][:, 0].to(state[key].dtype)
         state["n_chunks"][:, slot] = sub["n_chunks"][:, 0]
         state["nc_host"] = None
@@ -377,6 +445,7 @@ class CompressedKVCache:
         pool slot n_chunks of layer li: a layer reads only its own pools and
         only chunks below n_chunks, so nothing reads the slot before the
         segment ends.  ``finalize_segment`` then moves the host count."""
+        self._refuse_opa("chunked prefill (segment_attend)")
         B, T, Hq, D = q.shape
         C, W = self.C, self.wcap
         if T != C:
@@ -424,3 +493,7 @@ class CompressedKVCache:
         state["nc_host"] = self._segment_counts(state["nc_host"], seg_start,
                                                 true_len)[2]
         return state
+
+
+def _contig(t):
+    return None if t is None else t.contiguous()

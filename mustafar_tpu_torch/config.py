@@ -17,8 +17,9 @@ from typing import Optional
 
 class PruneMethod(enum.Enum):
     """Pruning strategy (K/V cache, token-wise or channel-wise, magnitude or
-    output-aware).  The port serves ``KT_MAG_VT_MAG`` and ``DENSE``; the
-    other members exist so configs read the same as the JAX package's."""
+    output-aware).  The masked cache serves all eight; the compressed cache
+    the per-token ones (``KT_MAG_VT_MAG``, ``KT_OPA_VT_MAG``,
+    ``KT_MAG_VT_OPA``), as in the JAX package."""
 
     DENSE = "dense"
     KT_MAG_VT_MAG = "kt_mag_vt_mag"
@@ -70,6 +71,7 @@ class PruneConfig:
     method: PruneMethod = PruneMethod.KT_MAG_VT_MAG
     k_sparsity: float = 0.5
     v_sparsity: float = 0.5
+    group_size: int = 32           # channel-prune / Opa accumulation group
     residual_length: int = 32      # most recent tokens kept dense
     exact_keep: Optional[int] = None
 

@@ -9,6 +9,14 @@
 // into padded shared rows (stage_window) and attended by tile_scores and
 // tile_pv.
 //
+// Window probabilities (the TPU kernels' return_win_probs, for the Opa
+// policies): each window-tile CTA stores its raw f32 scores into scratch
+// beside the partials (store_win_scores), and the row's last CTA, once it
+// has merged the final (m, l), writes per window column c
+//   sum_g exp(s_g[c] - m_g) / max(l_g, 1e-30)   (0 at and past win_len),
+// the heads summed in order, l summed as the merge's plain version sums it
+// (products and sums rounded one by one).
+//
 // Scores are summed in one fixed order that the plain version repeats:
 // four lanes a token, each summing a quarter of the channels (32 j ..
 // 32 j + 31) in channel order with one f32 rounding a product added
@@ -196,6 +204,27 @@ __device__ __forceinline__ void stage_window(__nv_bfloat16* kt, __nv_bfloat16* v
   smem::cp_async_commit();
 }
 
+// The window probabilities' outputs: `out` f32 [BH, W] (null: off) and the
+// raw window scores in scratch, `ws` f32 [BH, G, W], right after the
+// partials (at split_merge::scratch_floats(BH, G, n_parts)).
+struct WinProbs {
+  float* out;
+  float* ws;
+  int W;
+  int win_len;
+};
+
+// A window-tile CTA's raw scores sm.s[g][0, n) to ws at columns w0 .. w0 +
+// n - 1; the caller syncs before softmax_step overwrites sm.s.
+template <int G>
+__device__ __forceinline__ void store_win_scores(const Smem<G>& sm, const WinProbs& wp,
+                                                 int bh, int w0, int n, int tid) {
+  for (int i = tid; i < G * n; i += THREADS) {
+    const int g = i / n, t = i % n;
+    wp.ws[((size_t)bh * G + g) * wp.W + w0 + t] = sm.s[g][t];
+  }
+}
+
 // A fresh state for one softmax step.
 template <int G>
 __device__ __forceinline__ void fresh_state(Smem<G>& sm, int tid) {
@@ -246,12 +275,14 @@ __device__ __forceinline__ void write_partial(float* __restrict__ part, int bh, 
 // 2.6 us more for the quant kernel and 1.2 us more for the bitmap one at
 // B=8, 1 chunk + 288 window, and as long at 5 chunks; NVIDIA H100 80GB
 // HBM3, 700.00 W, tools/kernel_ab.py.)  `ws` is shared
-// memory for 2 * n_parts * G floats that the CTA no longer needs.
+// memory for 2 * n_parts * G floats that the CTA no longer needs.  With
+// `wp.out` the last CTA writes the row's window probabilities too.
 template <int G>
 __device__ __forceinline__ void finish_row(const float* __restrict__ part,
                                            int* __restrict__ counters, void* __restrict__ out,
                                            int out_f32, int bh, int n_parts, int BH,
-                                           Smem<G>& sm, float* ws, int tid) {
+                                           Smem<G>& sm, float* ws, int tid,
+                                           const WinProbs& wp) {
   __syncthreads();
   if (tid == 0) {
     int done;
@@ -274,8 +305,26 @@ __device__ __forceinline__ void finish_row(const float* __restrict__ part,
     float M = NEG;
     for (int sp = 0; sp < n_parts; ++sp) M = fmaxf(M, w[sp * G + tid]);
     for (int sp = 0; sp < n_parts; ++sp) w[sp * G + tid] = expf(w[sp * G + tid] - M);
+    if (wp.out != nullptr) {   // the final (m, l), for the probabilities
+      float L = 0.f;
+      for (int sp = 0; sp < n_parts; ++sp)
+        L = __fadd_rn(L, __fmul_rn(l[sp * G + tid], w[sp * G + tid]));
+      sm.m[tid] = M;
+      sm.l[tid] = fmaxf(L, 1e-30f);
+    }
   }
   __syncthreads();
+  if (wp.out != nullptr) {
+    for (int c = tid; c < wp.W; c += THREADS) {
+      float pr = 0.f;
+      if (c < wp.win_len) {
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          pr += expf(__ldcg(wp.ws + ((size_t)bh * G + g) * wp.W + c) - sm.m[g]) / sm.l[g];
+      }
+      wp.out[(size_t)bh * wp.W + c] = pr;
+    }
+  }
   // each thread's PER outputs (channel-major i = tid + THREADS * e) together,
   // so that their loads are in flight at once
   constexpr int PER = (G * D + THREADS - 1) / THREADS;
@@ -306,15 +355,24 @@ __device__ __forceinline__ void finish_row(const float* __restrict__ part,
 }
 
 // The checks both entries share: counts in range, at least one split, the
-// scratch and the counters long enough.  n_parts is the row's splits.
+// scratch (with the window scores' room when `probs`) and the counters long
+// enough.  n_parts is the row's splits.
 inline bool args_ok(int BH, int G, int max_chunks, int W, int wt, int n_chunks, int win_len,
                     int li, int n_parts, const void* scratch, long long scratch_floats,
-                    const void* counters, int n_counters) {
+                    const void* counters, int n_counters, const void* probs) {
+  const size_t need = split_merge::scratch_floats(BH, G, n_parts) +
+                      (probs != nullptr ? (size_t)BH * G * W : 0);
   return BH >= 1 && G >= 1 && wt >= 1 && wt <= MAX_WT && li >= 0 && n_chunks >= 0 &&
          n_chunks <= max_chunks && win_len >= 0 && win_len <= W && n_parts >= 1 &&
          n_parts <= split_merge::MAX_SPLITS && scratch != nullptr && scratch_floats >= 0 &&
-         (size_t)scratch_floats >= split_merge::scratch_floats(BH, G, n_parts) &&
-         counters != nullptr && n_counters >= BH;
+         (size_t)scratch_floats >= need && counters != nullptr && n_counters >= BH;
+}
+
+// The WinProbs of a launch: `probs` (null: off) and the scores' scratch.
+inline WinProbs win_probs(void* probs, float* part, int BH, int G, int n_parts, int W,
+                          int win_len) {
+  return WinProbs{static_cast<float*>(probs),
+                  part + split_merge::scratch_floats(BH, G, n_parts), W, win_len};
 }
 
 }  // namespace uniform_decode

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel mustafar_tpu/ops/kernels/dense_decode.py
 // flash_decode_attention (Pallas body _flash_decode_kernel), with its
-// options (sliding window, final (m, l) stats) off.  For each (batch row b,
+// final (m, l) stats (return_norm: the merge writes them) and its sliding
+// window off.  For each (batch row b,
 // kv head h) the G = Hq / Hkv query heads of that kv head attend the
 // post-append cache rows [0, pos] (pos the newest token's index: one
 // scalar, or read per slot from a device array; a slot at -1 attends
@@ -227,9 +228,9 @@ dense_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B*Hkv, G, D]
 }
 
 template <int G>
-int launch(const void* q, const void* k, const void* v, void* out, const int* pos_slot,
-           float* part, int out_f32, int device, int BH, int hkv, int S, int split_len,
-           int n_splits, int pos, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* ml,
+           const int* pos_slot, float* part, int out_f32, int device, int BH, int hkv, int S,
+           int split_len, int n_splits, int pos, cudaStream_t stream) {
   const int bytes =
       (int)(sizeof(Smem<G>) + 2 * (size_t)split_len * D * sizeof(__nv_bfloat16));
   cudaError_t err = smem::allow_dynamic_smem<dense_split_kernel<G>>(bytes, device);
@@ -241,13 +242,15 @@ int launch(const void* q, const void* k, const void* v, void* out, const int* po
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)split_merge::launch_merge(part, out, out_f32, BH, G, n_splits,
-                                        Live{pos_slot, pos, hkv, S, split_len}, stream);
+                                        Live{pos_slot, pos, hkv, S, split_len}, stream,
+                                        ml);
 }
 
 }  // namespace dense
 
 // q [B, 1, Hkv*G, 128] bf16; k / v [B, S, Hkv, 128] bf16; out like q, f32 if
-// `out_f32`, else bf16; pos_slot [B] int32 on the card, or null for the
+// `out_f32`, else bf16; ml null, or f32 [2, B*Hkv*G] for the final (m, l)
+// (split_merge.cuh); pos_slot [B] int32 on the card, or null for the
 // scalar `pos`; scratch f32, `scratch_floats` of them, refused if fewer
 // than split_merge::scratch_floats(BH, G, n_splits).  All contiguous;
 // shapes checked by the caller.  `device` is the ordinal
@@ -255,7 +258,7 @@ int launch(const void* q, const void* k, const void* v, void* out, const int* po
 // (64..128); `n_splits` the grid's splits: at least ceil(S / split_len) per
 // slot, ceil((pos + 1) / split_len) (and 1) for a scalar pos.
 extern "C" int dense_decode(const void* q, const void* k, const void* v, void* out,
-                            const void* pos_slot, void* scratch, int scratch_floats,
+                            void* ml, const void* pos_slot, void* scratch, int scratch_floats,
                             int out_f32, int device, int BH, int hkv, int G, int S,
                             int split_len, int n_splits, int pos, void* stream) {
   using namespace dense;
@@ -271,7 +274,7 @@ extern "C" int dense_decode(const void* q, const void* k, const void* v, void* o
   const int* ps = static_cast<const int*>(pos_slot);
   float* part = static_cast<float*>(scratch);
 #define DENSE_LAUNCH(g) \
-  return launch<g>(q, k, v, out, ps, part, out_f32, device, BH, hkv, S, split_len, \
+  return launch<g>(q, k, v, out, static_cast<float*>(ml), ps, part, out_f32, device, BH, hkv, S, split_len, \
                    n_splits, pos, s)
   switch (G) {
     case 1: DENSE_LAUNCH(1);

@@ -5,7 +5,10 @@
 // head-chunk, one [C, 128] bf16 tile of one (job, b, kv head), it
 //   1. keys every entry by its magnitude: the 15-bit pattern of |x|
 //      (bf16 bits & 0x7fff), or with a score the 31-bit pattern of the
-//      f32 |score|; both order like the values;
+//      f32 |score|; both order like the values.  A launch where one
+//      operand has a score takes the score instance; an operand without
+//      one is keyed by |x| there too (the Opa policies score K or V, not
+//      always both);
 //   2. finds each token row's keep-th largest key by a bitwise bisection
 //      (15 or 31 rounds: the largest t with count(key >= t) >= keep);
 //   3. keeps exactly `keep` entries a row: those above that threshold,
@@ -124,7 +127,7 @@ constexpr float HALF_STEP_MARGIN = 0x1p-14f;
 // One operand: element (job, b, h, token, d) of x at
 // job*xs[0] + b*xs[1] + h*xs[2] + token*xs[3] + d; of the rows
 // (job, b, h, r, d) at rs[0..3] likewise; scales (job, b, h, d) at ss[0..2];
-// score null or f32 [J*B*H, C, 128] contiguous.
+// score null (keyed by |x|) or f32 [J*B*H, C, 128] contiguous.
 struct Op {
   const __nv_bfloat16* x;
   const float* score;
@@ -193,7 +196,7 @@ __device__ __forceinline__ void stage_rows(uint16_t* tile, uint32_t* stile,
     smem::cp_async16(smem::smem_addr(tile + u * D + (c & 15) * 8),
                      xb + t * xst + (c & 15) * 8);
   }
-  if constexpr (KEYBITS == 31) {
+  if (KEYBITS == 31 && sb != nullptr) {
 #pragma unroll
     for (int c = lane; c < RG * 32; c += 32) {
       const int u = u0 + (c >> 5);
@@ -342,7 +345,8 @@ struct ScoreKeys {
 
 // Prunes token rows u0 .. u0 + RG - 1 of the tile in place to `keep`
 // entries each (this lane: its CH channels of row u0 + lane / 8) and folds
-// the kept magnitudes into this lane's channel amaxes (bf16 pairs).
+// the kept magnitudes into this lane's channel amaxes (bf16 pairs).  The
+// keys are the score tile's, or |x|'s where `stile` is null.
 template <int KEYBITS>
 __device__ __forceinline__ void prune_rows(uint16_t* tile, const uint32_t* stile, int u0,
                                            int keep, int lane, uint32_t (&am)[CH / 2]) {
@@ -356,7 +360,7 @@ __device__ __forceinline__ void prune_rows(uint16_t* tile, const uint32_t* stile
   if (keep < D) {
     const RowLanes rl(lane);
     uint32_t above, tie;
-    if constexpr (KEYBITS == 15) planes_select(raw, keep, rl, above, tie);
+    if (KEYBITS == 15 || stile == nullptr) planes_select(raw, keep, rl, above, tie);
     else ScoreKeys(stile + off).select(keep, rl, above, tie);
     kept = above | tie;
     const int n_ge = (int)((rl.total(__popc(kept)) >> rl.shift) & 0xffu);
@@ -492,7 +496,8 @@ prune_quant_pack_kernel(const __grid_constant__ Params p) {
   // every copy of this warp's row groups in flight, a group each, then
   // each group pruned as it lands
   const __nv_bfloat16* xb = op.x + job * op.xs[0] + b * op.xs[1] + h * op.xs[2];
-  const float* sb = KEYBITS == 31 ? op.score + (size_t)hc * C * D : nullptr;
+  const float* sb = KEYBITS == 31 && op.score != nullptr ? op.score + (size_t)hc * C * D
+                                                         : nullptr;
   const int groups = TC / RG;
   const int passes = warp < groups ? (groups - 1 - warp) / warps + 1 : 0;
   for (int pass = 0; pass < passes; ++pass)
@@ -502,7 +507,8 @@ prune_quant_pack_kernel(const __grid_constant__ Params p) {
   for (int pass = 0; pass < passes; ++pass) {
     cp_async_wait_pending(passes - 1 - pass);
     __syncwarp();
-    prune_rows<KEYBITS>(tile, stile, (warp + pass * warps) * RG, op.keep, lane, am);
+    prune_rows<KEYBITS>(tile, sb != nullptr ? stile : nullptr, (warp + pass * warps) * RG,
+                        op.keep, lane, am);
   }
   // the warp's four rows' lanes of a channel range meet; row 0's lanes write
 #pragma unroll
@@ -607,14 +613,15 @@ bool valid(const Op* ops, int n_ops, int J, int B, int H, int C, int cluster, in
     return false;
   const int tokens = C / cluster;
   if (tokens % RG || tokens / RG > MAX_PASSES * (threads / 32)) return false;
-  const bool score = ops[0].score != nullptr;
+  bool score = false;
+  for (int i = 0; i < n_ops; ++i) score = score || ops[i].score != nullptr;
   if (score && tokens > MAX_SCORE_TOKENS) return false;
   for (int i = 0; i < n_ops; ++i) {
     const Op& o = ops[i];
-    if ((o.score != nullptr) != score || (o.bits != 8 && o.bits != 4) || o.keep < 1 ||
+    if ((o.bits != 8 && o.bits != 4) || o.keep < 1 ||
         (C * o.bits / 16) % cluster || o.x == nullptr || o.rows == nullptr ||
         o.scales == nullptr || !aligned16(o.x) || !aligned16(o.rows) ||
-        (score && !aligned16(o.score)))
+        (o.score != nullptr && !aligned16(o.score)))
       return false;
     for (int a = 0; a < 4; ++a)
       if (o.xs[a] % 8 || o.rs[a] % 8) return false;
@@ -640,11 +647,11 @@ int launch(const Params& p, int n_ops, int cluster, int threads, int device,
 // `n_ops` (1 or 2) operands `ops` (see Op) over J*B*H head-chunks of C
 // tokens each (C a multiple of 128 up to 512), in clusters of `cluster` CTAs
 // (a power of two up to 16 that divides every operand's C*bits/16 rows,
-// with C/cluster a multiple of 4, at most 256 with a score) of `threads`
-// threads (a multiple of 32 from 128 to 512, a warp to at most 8 groups of
-// 4 token rows).  x and the rows 16-byte aligned,
-// their strides multiples of 8 elements; every operand with a score or
-// none, a score 16-byte aligned.  `device` is the ordinal the tensors and
+// with C/cluster a multiple of 4, at most 256 where an operand has a
+// score) of `threads` threads (a multiple of 32 from 128 to 512, a warp to
+// at most 8 groups of 4 token rows).  x and the rows 16-byte aligned,
+// their strides multiples of 8 elements; a score (on any operand, each
+// operand without one keyed by |x|) 16-byte aligned.  `device` is the ordinal the tensors and
 // the stream belong to.
 extern "C" int prune_quant_pack_ops(const void* ops, int n_ops, int device, int J, int B,
                                     int H, int C, int cluster, int threads, void* stream) {
@@ -660,7 +667,9 @@ extern "C" int prune_quant_pack_ops(const void* ops, int n_ops, int device, int 
   p.C = C;
   p.n_hc = J * B * H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (o[0].score == nullptr) return launch<15>(p, n_ops, cluster, threads, device, s);
+  bool score = false;
+  for (int i = 0; i < n_ops; ++i) score = score || o[i].score != nullptr;
+  if (!score) return launch<15>(p, n_ops, cluster, threads, device, s);
   return launch<31>(p, n_ops, cluster, threads, device, s);
 }
 

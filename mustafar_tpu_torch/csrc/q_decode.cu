@@ -3,8 +3,8 @@
 // Replaces the TPU kernel mustafar_tpu/ops/kernels/quant_attention.py
 // fused_q_decode_attention (Pallas body _q_decode_kernel) for the codecs
 // q8 (int8 K, int8 V), q8q4 (int8 K, int4 V) and q4q4 (int4 K, int4 V),
-// with its options (sliding window, (m, l) stats, window probabilities)
-// off.  For one layer `li` of the stacked cache and each (batch row b, kv
+// with its window probabilities (return_win_probs, decode_tile.cuh) and
+// its other options (sliding window, (m, l) stats) off.  For one layer `li` of the stacked cache and each (batch row b, kv
 // head h) it attends the G = Hq / Hkv query heads of that kv head over
 //   1. `n_chunks` packed pool chunks of 256 tokens: K, then V, as codes of
 //      `kbits` / `vbits` bits, 16/bits tokens per int16 row (at 8 bits
@@ -113,7 +113,7 @@ q_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                  float* __restrict__ part,                 // split_merge layout
                  int* __restrict__ counters,               // [BH], zero between launches
                  int out_f32, int BH, int max_chunks, int W, int wt, int n_chunks,
-                 int win_len, int li, int n_parts) {
+                 int win_len, int li, int n_parts, WinProbs wp) {
   constexpr int KF = Stream<KB>::FIELDS;
   constexpr int K_ROWS = Stream<KB>::ROWS;
   constexpr int V_ROWS = Stream<VB>::ROWS;
@@ -227,12 +227,16 @@ q_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     __syncthreads();
     tile_scores<G>(sm, kt, n, warp, lane);
     __syncthreads();
+    if (wp.out != nullptr) {
+      store_win_scores<G>(sm, wp, bh, w0, n, tid);
+      __syncthreads();
+    }
     online_softmax::softmax_step<G>(sm, n, warp, lane);
     tile_pv<G>(acc, sm, vt, n, warp, lane);
   }
   write_partial<G>(part, bh, sp, n_parts, BH, acc, vscale, sm, warp, lane, tid);
   finish_row<G>(part, counters, out, out_f32, bh, n_parts, BH, sm,
-                reinterpret_cast<float*>(region), tid);
+                reinterpret_cast<float*>(region), tid, wp);
 }
 
 struct Args {
@@ -241,6 +245,7 @@ struct Args {
   float* part;
   int* counters;
   int out_f32, BH, max_chunks, W, wt, n_chunks, win_len, li, n_parts;
+  void* probs;
 };
 
 template <int G, int KB, int VB>
@@ -254,7 +259,8 @@ int launch(const Args& a, int device, cudaStream_t s) {
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const int16_t*>(a.pool),
       static_cast<const __nv_bfloat16*>(a.scales), static_cast<const __nv_bfloat16*>(a.k_win),
       static_cast<const __nv_bfloat16*>(a.v_win), a.out, a.part, a.counters, a.out_f32, a.BH,
-      a.max_chunks, a.W, a.wt, a.n_chunks, a.win_len, a.li, a.n_parts);
+      a.max_chunks, a.W, a.wt, a.n_chunks, a.win_len, a.li, a.n_parts,
+      win_probs(a.probs, a.part, a.BH, G, a.n_parts, a.W, a.win_len));
   return (int)cudaGetLastError();
 }
 
@@ -281,23 +287,25 @@ int launch_groups(int G, const Args& a, int device, cudaStream_t s) {
 // f32, `scratch_floats` of them, refused if fewer than
 // split_merge::scratch_floats(BH, G, n_chunks + ceil(win_len / wt)); int32
 // counters, `n_counters` of them, at least BH, zero before the launch and
-// left so.
+// left so.  `probs` null, or f32 [B*Hkv, W] for the window probabilities;
+// the scratch then holds B*Hkv*G*W floats more, for the window scores.
 extern "C" int q_decode_attention(const void* q, const void* pool, const void* scales,
                                   const void* k_win, const void* v_win, void* out,
-                                  void* scratch, void* counters, int scratch_floats,
+                                  void* probs, void* scratch, void* counters,
+                                  int scratch_floats,
                                   int n_counters, int out_f32, int device, int kbits,
                                   int vbits, int BH, int G, int max_chunks, int W, int wt,
                                   int n_chunks, int win_len, int li, void* stream) {
   if (wt < 1) return (int)cudaErrorInvalidValue;
   const int n_parts = n_chunks + (win_len + wt - 1) / wt;
   if (!args_ok(BH, G, max_chunks, W, wt, n_chunks, win_len, li, n_parts, scratch,
-               scratch_floats, counters, n_counters))
+               scratch_floats, counters, n_counters, probs))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const Args a{q, pool, scales, k_win, v_win, out, static_cast<float*>(scratch),
                static_cast<int*>(counters), out_f32, BH, max_chunks, W, wt, n_chunks,
-               win_len, li, n_parts};
+               win_len, li, n_parts, probs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kbits == 8 && vbits == 8) return launch_groups<8, 8>(G, a, device, s);
   if (kbits == 8 && vbits == 4) return launch_groups<8, 4>(G, a, device, s);

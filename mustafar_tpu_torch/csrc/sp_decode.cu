@@ -5,8 +5,9 @@
 // sp_decode replaces the TPU kernel
 // mustafar_tpu/ops/kernels/sparse_attention.py fused_sparse_decode_attention_v7
 // (Pallas body _fused_v7_kernel) for the codecs bitmap (bf16 values, 16
-// bits) and bitmap-q8 (int8 codes, 8 bits), with its options (sliding
-// window, (m, l) stats, window probabilities) off.  For one layer `li` of
+// bits) and bitmap-q8 (int8 codes, 8 bits), with its window probabilities
+// (return_win_probs, decode_tile.cuh) and its other options (sliding
+// window, (m, l) stats) off.  For one layer `li` of
 // the stacked cache and each (batch row b, kv head h) it attends the
 // G = Hq / Hkv query heads of that kv head over
 //   1. `n_chunks` packed pool chunks of 256 tokens, each a K stream then a
@@ -252,7 +253,8 @@ sp_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                   float* __restrict__ part,                 // split_merge layout
                   int* __restrict__ counters,               // [BH], zero between launches
                   int out_f32, int BH, int max_chunks, int W, int wt, int n_chunks,
-                  int win_len, int li, Fmt<QBITS> kf, Fmt<QBITS> vf, int n_parts) {
+                  int win_len, int li, Fmt<QBITS> kf, Fmt<QBITS> vf, int n_parts,
+                  WinProbs wp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<G>& sm = *reinterpret_cast<Smem<G>*>(smem_raw);
   unsigned char* region = smem_raw + sizeof(Smem<G>);
@@ -300,12 +302,16 @@ sp_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     __syncthreads();
     tile_scores<G>(sm, kt, n, warp, lane);
     __syncthreads();
+    if (wp.out != nullptr) {
+      store_win_scores<G>(sm, wp, bh, w0, n, tid);
+      __syncthreads();
+    }
     online_softmax::softmax_step<G>(sm, n, warp, lane);
     tile_pv<G>(acc, sm, vt, n, warp, lane);
   }
   write_partial<G>(part, bh, sp, n_parts, BH, acc, vscale, sm, warp, lane, tid);
   finish_row<G>(part, counters, out, out_f32, bh, n_parts, BH, sm,
-                reinterpret_cast<float*>(region), tid);
+                reinterpret_cast<float*>(region), tid, wp);
 }
 
 struct Args {
@@ -314,6 +320,7 @@ struct Args {
   float* part;
   int* counters;
   int out_f32, BH, max_chunks, W, wt, n_chunks, win_len, li, n_parts;
+  void* probs;
 };
 
 template <int G, int QBITS>
@@ -328,7 +335,8 @@ int launch(const Args& a, const Fmt<QBITS>& kf, const Fmt<QBITS>& vf, int device
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const int16_t*>(a.pool),
       static_cast<const __nv_bfloat16*>(a.scales), static_cast<const __nv_bfloat16*>(a.k_win),
       static_cast<const __nv_bfloat16*>(a.v_win), a.out, a.part, a.counters, a.out_f32, a.BH,
-      a.max_chunks, a.W, a.wt, a.n_chunks, a.win_len, a.li, kf, vf, a.n_parts);
+      a.max_chunks, a.W, a.wt, a.n_chunks, a.win_len, a.li, kf, vf, a.n_parts,
+      win_probs(a.probs, a.part, a.BH, G, a.n_parts, a.W, a.win_len));
   return (int)cudaGetLastError();
 }
 
@@ -360,23 +368,25 @@ int launch_width(int G, const Args& a, int k0, int k1, int vk0, int vk1, int dev
 // attend (n_chunks + win_len > 0).  Scratch: f32, `scratch_floats` of
 // them, refused if fewer than split_merge::scratch_floats(BH, G, n_chunks
 // * 4 + ceil(win_len / wt)); int32 counters, `n_counters` of them, at
-// least BH, zero before the launch and left so.
+// least BH, zero before the launch and left so.  `probs` null, or f32
+// [B*Hkv, W] for the window probabilities (decode_tile.cuh); the scratch
+// then holds B*Hkv*G*W floats more, for the window scores.
 extern "C" int sp_decode(const void* q, const void* pool, const void* scales,
-                         const void* k_win, const void* v_win, void* out, void* scratch,
-                         void* counters, int scratch_floats, int n_counters, int out_f32,
+                         const void* k_win, const void* v_win, void* out, void* probs,
+                         void* scratch, void* counters, int scratch_floats, int n_counters, int out_f32,
                          int device, int qbits, int BH, int G, int max_chunks, int W,
                          int wt, int n_chunks, int win_len, int li, int k0, int k1,
                          int vk0, int vk1, void* stream) {
   if (wt < 1 || (qbits == 8) != (scales != nullptr)) return (int)cudaErrorInvalidValue;
   const int n_parts = n_chunks * CUT + (win_len + wt - 1) / wt;
   if (!args_ok(BH, G, max_chunks, W, wt, n_chunks, win_len, li, n_parts, scratch,
-               scratch_floats, counters, n_counters))
+               scratch_floats, counters, n_counters, probs))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const Args a{q, pool, scales, k_win, v_win, out, static_cast<float*>(scratch),
                static_cast<int*>(counters), out_f32, BH, max_chunks, W, wt, n_chunks,
-               win_len, li, n_parts};
+               win_len, li, n_parts, probs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (qbits == 16) return launch_width<16>(G, a, k0, k1, vk0, vk1, device, s);
   if (qbits == 8) return launch_width<8>(G, a, k0, k1, vk0, vk1, device, s);

@@ -15,7 +15,10 @@
 //   M = max_s m_s,  w_s = exp(m_s - M),
 //   out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30)
 // in f32, written in the caller's dtype.  A row with no live split comes
-// out exactly 0 (M = -1e30, both sums 0).
+// out exactly 0 (M = -1e30, both sums 0).  Given `ml_out` (f32 [2][BH*G]),
+// the row's final softmax stats go there too: m = M at [bh*G + g] and l =
+// sum_s w_s l_s (unclamped) at [BH*G + bh*G + g], the TPU kernel's
+// return_norm (a row with no live split: -1e30 and 0).
 //
 // Layout: one block of 128 threads per (bh, g), one thread a channel.  The
 // live splits' m and l go to shared memory first (all loads in flight at
@@ -50,7 +53,7 @@ inline size_t scratch_floats(int BH, int G, int n_splits) {
 template <class Live>
 __global__ void __launch_bounds__(D)
 merge_kernel(const float* __restrict__ part, void* __restrict__ out, int out_f32,
-             int BH, int G, int n_splits, Live live) {
+             int BH, int G, int n_splits, Live live, float* __restrict__ ml_out) {
   extern __shared__ float w_l[];      // [2][n_splits]: m_s, then exp(m_s - M); l_s
   __shared__ float warp_mx[D / 32];
   const int bh = blockIdx.x;
@@ -85,6 +88,10 @@ merge_kernel(const float* __restrict__ part, void* __restrict__ out, int out_f32
     den += w_l[n_splits + i] * w;
   }
   const float o = num / fmaxf(den, 1e-30f);
+  if (ml_out != nullptr && d == 0) {
+    ml_out[(size_t)bh * G + g] = M;
+    ml_out[(size_t)BH * G + (size_t)bh * G + g] = den;
+  }
   const size_t at = ((size_t)bh * G + g) * D + d;
   if (out_f32)
     static_cast<float*>(out)[at] = o;
@@ -109,14 +116,16 @@ struct SlotLive {
   }
 };
 
-// Launches merge_kernel over BH rows of G heads on `stream`.
+// Launches merge_kernel over BH rows of G heads on `stream` (with the final
+// stats into `ml_out` when it is not null).
 template <class Live>
 cudaError_t launch_merge(const float* part, void* out, int out_f32, int BH, int G,
-                         int n_splits, Live live, cudaStream_t stream) {
+                         int n_splits, Live live, cudaStream_t stream,
+                         float* ml_out = nullptr) {
   if (n_splits < 1 || n_splits > MAX_SPLITS) return cudaErrorInvalidValue;
   const int smem = (int)(2 * sizeof(float) * n_splits);
   merge_kernel<Live><<<dim3(BH, G), D, smem, stream>>>(part, out, out_f32, BH, G,
-                                                       n_splits, live);
+                                                       n_splits, live, ml_out);
   return cudaGetLastError();
 }
 

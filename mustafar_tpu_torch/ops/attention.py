@@ -28,11 +28,13 @@ def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, valid_len) -> torch.Te
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        mask: torch.Tensor) -> torch.Tensor:
+        mask: torch.Tensor, return_weights: bool = False):
     """Masked GQA attention.  q [B, Tq, Hq, D]; k/v [B, S, Hkv, D]; mask
     [Tq, S] or [B, Tq, S] bool.  Products in f32 (bf16 inputs multiply
     exactly in f32), the probabilities rounded to v's dtype before the
-    value product, as the JAX package does."""
+    value product, as the JAX package does.  With ``return_weights`` also
+    the f32 post-softmax weights [B, Tq, Hq, S] (the masked cache's Opa
+    scoring reads them)."""
     B, Tq, Hq, D = q.shape
     Hkv = k.shape[2]
     qg = _fold_gqa(q, Hkv).to(torch.float32)                 # [B,Tq,Hkv,G,D]
@@ -43,7 +45,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bthgs,bshd->bthgd",
                        w.to(v.dtype).to(torch.float32), v.to(torch.float32))
-    return out.reshape(B, Tq, Hq, D).to(q.dtype)
+    out = out.reshape(B, Tq, Hq, D).to(q.dtype)
+    if return_weights:
+        return out, w.reshape(B, Tq, Hq, w.shape[-1])
+    return out
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,8 +84,10 @@ def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             l.reshape(B, Tq, Hq, 1))
 
 
-def merge_partials(parts):
-    """Merge flash partials [(acc, m, l), ...] into the normalised f32 output."""
+def merge_partials(parts, return_stats: bool = False):
+    """Merge flash partials [(acc, m, l), ...] into the normalised f32 output;
+    with ``return_stats`` also the merged softmax stats (M, l) (l
+    unclamped), in the order the kernels' merges take them."""
     M = parts[0][1]
     for _, m, _ in parts[1:]:
         M = torch.maximum(M, m)
@@ -90,4 +97,5 @@ def merge_partials(parts):
         a = torch.exp(m - M)
         num = num + acc * a
         den = den + l * a
-    return num / torch.clamp_min(den, 1e-30)
+    out = num / torch.clamp_min(den, 1e-30)
+    return (out, M, den) if return_stats else out

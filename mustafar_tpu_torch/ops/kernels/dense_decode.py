@@ -3,12 +3,16 @@ and the wrapper that picks between them by device.
 
 Port of ``mustafar_tpu/ops/kernels/dense_decode.py`` ``flash_decode_attention``
 (Pallas body ``_flash_decode_kernel``), kernel ``csrc/dense_decode.cu``,
-with its options (sliding window, final (m, l)) off.  Each query head
+with its final (m, l) (``return_norm``) and its sliding window off.  Each query head
 attends its kv head's cached rows [0, pos] inclusive: the newest token is
 already written.  q, K and V are read as bf16; scores q . k / sqrt(D) in f32;
 p rounded to bf16 for the value product, accumulated in f32, out = acc /
 max(l, 1e-30) in q's dtype.  A slot at pos -1 attends nothing and comes out
-0.  Layouts: q [B, 1, Hq, D], k/v [B, S, Hkv, D].
+0.  Layouts: q [B, 1, Hq, D], k/v [B, S, Hkv, D].  With ``return_norm``
+the final online-softmax stats (m, l) come too, each [B, Hkv, G, 1] f32 (l
+unclamped; a slot with nothing to attend -1e30 and 0): the probability of
+any cached token is exp(s - m) / l, which the masked cache's Opa scoring
+reads at its window's columns.
 
 Two plain versions:
   flash_decode_attention_plain        the TPU kernel's arithmetic: one
@@ -74,16 +78,25 @@ def _covered(pos, S: int) -> int:
     return S if torch.is_tensor(pos) else max(pos + 1, 0)
 
 
-def flash_decode_attention_plain(q, k_cache, v_cache, pos):
-    """The kernel's arithmetic in PyTorch, slot by slot and tile by tile
-    (``quant_attention._softmax_step``)."""
+def _with_norm(outs, ms, ls, q, Hkv, return_norm):
+    out = torch.cat(outs).to(q.dtype)
+    if not return_norm:
+        return out
+    B, G = q.shape[0], q.shape[2] // Hkv
+    return out, torch.stack(ms).reshape(B, Hkv, G, 1), torch.stack(ls).reshape(B, Hkv, G, 1)
+
+
+def flash_decode_attention_plain(q, k_cache, v_cache, pos, return_norm: bool = False):
+    """The TPU kernel's arithmetic in PyTorch, slot by slot and tile by tile
+    (``quant_attention._softmax_step``); with ``return_norm`` also the
+    final (m, l)."""
     B, _, Hq, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
     f32 = torch.float32
     ts = decode_tile(S)
     scale = 1.0 / math.sqrt(D)
-    outs = []
+    outs, ms, ls = [], [], []
     for b, p in enumerate([pos] * B if isinstance(pos, int) else pos.tolist()):
         qf = q[b, 0].to(torch.bfloat16).to(f32).reshape(Hkv, G, D)
         m = torch.full((Hkv, G, 1), qa.NEG_INF, dtype=f32, device=q.device)
@@ -97,16 +110,20 @@ def flash_decode_attention_plain(q, k_cache, v_cache, pos):
             m, l, acc = qa._softmax_step(m, l, acc, (qf @ k.transpose(1, 2)) * scale,
                                          v, None)
         outs.append((acc / torch.clamp_min(l, 1e-30)).reshape(1, 1, Hq, D))
-    return torch.cat(outs).to(q.dtype)
+        ms.append(m)
+        ls.append(l)
+    return _with_norm(outs, ms, ls, q, Hkv, return_norm)
 
 
-def flash_decode_attention_split_plain(q, k_cache, v_cache, pos, split=None):
+def flash_decode_attention_split_plain(q, k_cache, v_cache, pos, split=None,
+                                       return_norm: bool = False):
     """The CUDA kernel's arithmetic in PyTorch: per slot, the partials
     (acc, m, l) of each split of ``split`` tokens (default: ``split_len``'s
     rule for the card the tensors lie on; the kernel takes 64 to 128), one
     softmax step each from a fresh state (``quant_attention._softmax_step``),
     merged in split order (``merge_partials``).  A slot with nothing to
-    attend comes out 0."""
+    attend comes out 0.  With ``return_norm`` also the merge's final (m,
+    l), as the kernel's merge writes them."""
     B, _, Hq, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
@@ -117,7 +134,7 @@ def flash_decode_attention_split_plain(q, k_cache, v_cache, pos, split=None):
         raise ValueError(f"the kernel takes {MIN_SPLIT} to {MAX_SPLIT} tokens a split, "
                          f"got {split}")
     scale = 1.0 / math.sqrt(D)
-    outs = []
+    outs, ms, ls = [], [], []
     for b, p in enumerate([pos] * B if isinstance(pos, int) else pos.tolist()):
         qf = q[b, 0].to(torch.bfloat16).to(f32).reshape(Hkv, G, D)
         fresh = (torch.full((Hkv, G, 1), qa.NEG_INF, dtype=f32, device=q.device),
@@ -131,15 +148,18 @@ def flash_decode_attention_split_plain(q, k_cache, v_cache, pos, split=None):
             v = v_cache[b, t0:t1].to(torch.bfloat16).to(f32).transpose(0, 1)
             m, l, acc = qa._softmax_step(*fresh, (qf @ k.transpose(1, 2)) * scale, v, None)
             parts.append((acc, m, l))
-        out = merge_partials(parts) if parts else fresh[2]
+        out, m, l = (merge_partials(parts, return_stats=True) if parts
+                     else (fresh[2], fresh[0], fresh[1]))
         outs.append(out.reshape(1, 1, Hq, D))
-    return torch.cat(outs).to(q.dtype)
+        ms.append(m)
+        ls.append(l)
+    return _with_norm(outs, ms, ls, q, Hkv, return_norm)
 
 
 def flash_decode_attention(q, k_cache, v_cache, pos, *, window=None,
                            return_norm: bool = False):
     """Dense flash-decode over the post-append cache -> [B, 1, Hq, D] in q's
-    dtype (module note).  ``pos`` is the newest token's index: a host int
+    dtype, and with ``return_norm`` the final (m, l) (module note).  ``pos`` is the newest token's index: a host int
     (uniform batch, -1..S-1) or an int32 tensor [B] on q's device (per
     slot, read by the kernel, -1 for an idle slot).
 
@@ -152,9 +172,6 @@ def flash_decode_attention(q, k_cache, v_cache, pos, *, window=None,
     cannot serve raises; nothing falls back."""
     if window is not None:
         raise NotImplementedError("sliding-window attention is ROADMAP Queue A item 14")
-    if return_norm:
-        raise NotImplementedError("the final softmax stats (m, l) for Opa scoring are "
-                                  "ROADMAP Queue A item 12")
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be [B, 1, Hq, D], got {tuple(q.shape)}")
     B, _, Hq, D = q.shape
@@ -178,7 +195,7 @@ def flash_decode_attention(q, k_cache, v_cache, pos, *, window=None,
     else:
         qa._check_int("pos", pos, -1, S - 1)
     if q.device.type == "cpu":
-        return flash_decode_attention_plain(q, k_cache, v_cache, pos)
+        return flash_decode_attention_plain(q, k_cache, v_cache, pos, return_norm)
     stream = qa._stream(q)
     G = Hq // Hkv
     if D != 128 or G not in qa._GROUPS:
@@ -191,21 +208,23 @@ def flash_decode_attention(q, k_cache, v_cache, pos, *, window=None,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     qa._check_aligned((("q", qb), ("k_cache", kb), ("v_cache", vb)))
-    fn = qa._library("dense_decode", "dense_decode", 6, 10)
+    fn = qa._library("dense_decode", "dense_decode", 7, 10)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    ml = (torch.empty((2, B, Hkv, G, 1), dtype=torch.float32, device=q.device)
+          if return_norm else None)
     per_slot = torch.is_tensor(pos)
     n = _covered(pos, S)
     split = split_len(n, B * Hkv, _sms(q.device))
     n_splits = max(1, -(-n // split))
     scratch = qa._split_scratch(B * Hkv, n_splits, G, q.device, stream)
     rc = fn(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
-            pos.data_ptr() if per_slot else None, scratch.data_ptr(), scratch.numel(),
+            None if ml is None else ml.data_ptr(), pos.data_ptr() if per_slot else None, scratch.data_ptr(), scratch.numel(),
             int(out.dtype == torch.float32), q.device.index or 0, B * Hkv, Hkv, G, S,
             split, n_splits, 0 if per_slot else pos, stream)
     if rc != 0:
         raise RuntimeError(f"dense_decode launch failed: CUDA error {rc}")
     flash_decode_attention.launches += 1
-    return out
+    return (out, ml[0], ml[1]) if return_norm else out
 
 
 flash_decode_attention.launches = 0

@@ -16,8 +16,9 @@ The plain version is the cache's chain (``sparse_format.topk_mask`` then
 bit-exact with; kernel and plain version are held bit-equal on the card.
 
 Two wrappers launch the one kernel: ``prune_quant_pack`` packs one tensor,
-``prune_quant_pack_kv`` the cache's K and V (each with its own keep and
-bits) in one launch.  Layouts: x [.., C, 128] bf16 with one to three
+``prune_quant_pack_kv`` the cache's K and V (each with its own keep, bits
+and, for the Opa policies, score: one of the two may rank by score and the
+other by |x|) in one launch.  Layouts: x [.., C, 128] bf16 with one to three
 leading axes (job, batch, head; the job is the prompt's chunk in prefill
 and the layer in a compaction), any strides that keep the channel axis
 contiguous, 16-byte aligned with strides in multiples of 8 elements (the
@@ -210,7 +211,9 @@ def _launch(ops):
     lead = x.dim() - 2
     J, B, H = (1,) * (3 - lead) + tuple(x.shape[:-2])
     C = x.shape[-2]
-    index, score = x.device.index or 0, ops[0][3] is not None
+    # a score on any operand takes the score instance: at most
+    # MAX_SCORE_TOKENS rows a CTA, every operand's
+    index, score = x.device.index or 0, any(op[3] is not None for op in ops)
     cluster, threads = _grid(index, len(ops) * J * B * H, C, score)
     arr = (_Op * len(ops))()
     for op, (xi, keep, bits, score, rows, scales) in zip(arr, ops):
@@ -268,29 +271,31 @@ prune_quant_pack.launches = 0
 
 
 def prune_quant_pack_kv(k, v, k_keep: int, v_keep: int, k_bits: int, v_bits: int, *,
-                        k_out=None, v_out=None):
+                        k_out=None, v_out=None, k_score=None, v_score=None):
     """``prune_quant_pack`` of K and V, each with its own keep and bits, in
     one launch: k and v [.., C, 128] bf16 of one shape (1-3 leading axes)
     -> ((k rows, k scales), (v rows, v scales)), written into ``k_out`` /
-    ``v_out`` ((rows, scales) views) when given.  CUDA tensors launch the
+    ``v_out`` ((rows, scales) views) when given.  ``k_score`` / ``v_score``
+    (float32 of x's shape, contiguous) rank that operand's entries in place
+    of |x|; either, both or neither may be given.  CUDA tensors launch the
     kernel once for both; CPU tensors run the plain version on each."""
     k_rows, k_scales = k_out if k_out is not None else (None, None)
     v_rows, v_scales = v_out if v_out is not None else (None, None)
-    _check(k, k_keep, k_bits, None, k_rows, k_scales)
-    _check(v, v_keep, v_bits, None, v_rows, v_scales)
+    _check(k, k_keep, k_bits, k_score, k_rows, k_scales)
+    _check(v, v_keep, v_bits, v_score, v_rows, v_scales)
     if k.shape != v.shape or k.device != v.device:
         raise ValueError(f"K and V must share a shape and device, got "
                          f"{tuple(k.shape)} on {k.device} and {tuple(v.shape)} on "
                          f"{v.device}")
-    _check_layout(k, None, k_rows)
-    _check_layout(v, None, v_rows)
+    _check_layout(k, k_score, k_rows)
+    _check_layout(v, v_score, v_rows)
     if k.device.type == "cpu":
-        return (prune_quant_pack_plain(k, k_keep, k_bits, None, k_rows, k_scales),
-                prune_quant_pack_plain(v, v_keep, v_bits, None, v_rows, v_scales))
+        return (prune_quant_pack_plain(k, k_keep, k_bits, k_score, k_rows, k_scales),
+                prune_quant_pack_plain(v, v_keep, v_bits, v_score, v_rows, v_scales))
     k_rows, k_scales = _outputs(k, k_bits, k_rows, k_scales)
     v_rows, v_scales = _outputs(v, v_bits, v_rows, v_scales)
-    _launch([(k, k_keep, k_bits, None, k_rows, k_scales),
-             (v, v_keep, v_bits, None, v_rows, v_scales)])
+    _launch([(k, k_keep, k_bits, k_score, k_rows, k_scales),
+             (v, v_keep, v_bits, v_score, v_rows, v_scales)])
     prune_quant_pack_kv.launches += 1
     return (k_rows, k_scales), (v_rows, v_scales)
 

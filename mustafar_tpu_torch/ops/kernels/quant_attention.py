@@ -3,7 +3,8 @@ PyTorch versions and the wrappers that pick between them by device.
 
 Ports of ``mustafar_tpu/ops/kernels/quant_attention.py`` for the codecs q8
 (int8 K, int8 V), q8q4 (int8 K, int4 V) and q4q4 (int4 K, int4 V) at
-256-token chunks, options off:
+256-token chunks, options off but the uniform decode's window
+probabilities (``return_win_probs``, for the Opa policies):
   fused_q_decode_attention     uniform-batch decode   csrc/q_decode.cu
                                (one CTA a split, the merge fused)
   fused_q_decode_attention_ps  per-slot decode        csrc/q_decode_ps.cu
@@ -97,9 +98,7 @@ def _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec, window,
     """Shapes, types and devices both decode kernels share; returns
     (BH, G, mc, W)."""
     _check_codec(codec, window, name)
-    if return_norm or return_win_probs:
-        raise NotImplementedError(
-            "softmax stats and window probabilities (Opa) are ROADMAP Queue A item 12")
+    _check_options(return_norm, return_win_probs, name)
     if q.dim() != 4 or q.shape[1] != 1 or q.shape[3] != 128:
         raise ValueError(f"q must be [B, 1, Hq, 128], got {tuple(q.shape)}")
     B, _, Hq, _ = q.shape
@@ -117,6 +116,19 @@ def _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec, window,
                        ("v_win", v_win, torch.bfloat16)))
     _check_int("li", li, 0, L - 1)
     return BH, Hq // Hkv, mc, k_win.shape[2]
+
+
+def _check_options(return_norm, return_win_probs, name):
+    """The Opa options the decode kernels take: window probabilities on the
+    uniform kernels (1 and 6) only; no (m, l) stats."""
+    if return_norm:
+        raise NotImplementedError(
+            f"{name}: the final softmax stats (m, l), which no JAX path reads, "
+            "are ROADMAP Queue A item 12")
+    if return_win_probs and name.endswith("_ps"):
+        raise NotImplementedError(
+            f"{name}: window probabilities of the per-slot kernels (Opa in the "
+            "continuous-batching engine) are ROADMAP Queue A item 12")
 
 
 def _check_aligned(named):
@@ -185,15 +197,28 @@ def _chunk(kv_pool, kv_scales, li, ci, codec):
             kv_scales[li, ci, :, 1].to(torch.float32))
 
 
+def win_probs_of(ws, m, l, W: int):
+    """Window probabilities from the window's raw scores ws [..., G, n] and
+    the final softmax stats m, l [..., G, 1]: per column the sum over the
+    G query heads, in head order, of exp(s - m) / max(l, 1e-30); zero past
+    the n live columns up to W -> [..., W] f32."""
+    p = torch.exp(ws - m) / torch.clamp_min(l, 1e-30)
+    out = p[..., 0, :]
+    for g in range(1, p.shape[-2]):
+        out = out + p[..., g, :]
+    return torch.nn.functional.pad(out, (0, W - out.shape[-1]))
+
+
 def decode_steps(q, BH: int, n_chunks: int, chunk_step, k_win, v_win,
-                 win_len: int, li: int):
+                 win_len: int, li: int, win_probs: bool = False):
     """The decode kernels' softmax steps, shared by every codec's plain
     version.  Per (b, kv head) and query head: ``chunk_step(qf32, ci)``
     gives chunk ci's scores [BH, G, 256], its values [BH, 256, D] (f32) and
     its V scale [BH, D] or None; then window scores q . k / sqrt(128).  One
     online softmax in steps of one chunk or one window tile
     (``window_tile``); p rounded to bf16 for the value product.  Out is f32
-    -> q's dtype."""
+    -> q's dtype; with ``win_probs`` also the window probabilities [B, Hkv,
+    W] (``win_probs_of`` on the final stats)."""
     B, _, Hq, D = q.shape
     G = Hq // (BH // B)
     f32 = torch.float32
@@ -203,15 +228,19 @@ def decode_steps(q, BH: int, n_chunks: int, chunk_step, k_win, v_win,
     acc = torch.zeros((BH, G, D), dtype=f32, device=q.device)
     for ci in range(n_chunks):
         m, l, acc = _softmax_step(m, l, acc, *chunk_step(qf32, ci))
-    wt = window_tile(k_win.shape[2])
+    W = k_win.shape[2]
+    wt = window_tile(W)
+    ws = [torch.zeros((BH, G, 0), dtype=f32, device=q.device)]
     for t0 in range(0, win_len, wt):
         t1 = min(win_len, t0 + wt)
         kw = k_win[li, :, t0:t1].to(f32)
         vw = v_win[li, :, t0:t1].to(f32)
-        m, l, acc = _softmax_step(m, l, acc, (qf32 @ kw.transpose(1, 2)) * SM_SCALE,
-                                  vw, None)
-    out = acc / torch.clamp_min(l, 1e-30)
-    return out.reshape(B, 1, Hq, D).to(q.dtype)
+        ws.append((qf32 @ kw.transpose(1, 2)) * SM_SCALE)
+        m, l, acc = _softmax_step(m, l, acc, ws[-1], vw, None)
+    out = (acc / torch.clamp_min(l, 1e-30)).reshape(B, 1, Hq, D).to(q.dtype)
+    if not win_probs:
+        return out
+    return out, win_probs_of(torch.cat(ws, dim=-1), m, l, W).reshape(B, BH // B, W)
 
 
 def slots(B: int, BH: int, n_chunks, win_len, mc: int, W: int):
@@ -230,7 +259,7 @@ def ps_splits(mc: int, W: int) -> int:
 
 
 def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_win,
-                   li: int, cut: int = 1, ordered: bool = False):
+                   li: int, cut: int = 1, ordered: bool = False, win_probs: bool = False):
     """The split decode kernels' arithmetic, shared by every codec's split
     plain version: per slot (counts clamped, ``slots``), the partials (acc,
     m, l) of each of its chunks (``slot_step(hs)`` is the chunk step, as in
@@ -239,14 +268,16 @@ def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_w
     from a fresh state, merged in split order (``merge_partials``); the
     window's scores summed in the kernels' order with ``ordered``
     (``_scores``; the chunk step takes its own).  A slot with nothing to
-    attend comes out 0.  Out is f32 -> q's dtype."""
+    attend comes out 0.  Out is f32 -> q's dtype; with ``win_probs`` also
+    the window probabilities [B, Hkv, W] on the merge's final stats (the
+    uniform kernels' epilogue)."""
     B, _, Hq, D = q.shape
     Hkv = BH // B
     G = Hq // Hkv
     f32 = torch.float32
     W = k_win.shape[2]
     wt = window_tile(W)
-    outs = []
+    outs, probs = [], []
     for b, hs, nc, wl in slots(B, BH, n_chunks, win_len, mc, W):
         step = slot_step(hs)
         qf32 = q[b].to(torch.bfloat16).to(f32).reshape(Hkv, G, D)
@@ -259,13 +290,21 @@ def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_w
             sc, vc, vs = step(qf32, ci)
             parts.extend(_softmax_step(*fresh, sc[..., t:t + run], vc[:, t:t + run], vs)
                          for t in range(0, 256, run))
+        ws = [torch.zeros((Hkv, G, 0), dtype=f32, device=q.device)]
         for t0 in range(0, wl, wt):
             kw = k_win[li, hs, t0:min(wl, t0 + wt)].to(f32)
             vw = v_win[li, hs, t0:min(wl, t0 + wt)].to(f32)
-            parts.append(_softmax_step(*fresh, _scores(qf32, kw, ordered), vw, None))
-        out = merge_partials([(acc, m, l) for m, l, acc in parts]) if parts else fresh[2]
+            ws.append(_scores(qf32, kw, ordered))
+            parts.append(_softmax_step(*fresh, ws[-1], vw, None))
+        if parts:
+            out, m, l = merge_partials([(acc, m, l) for m, l, acc in parts],
+                                       return_stats=True)
+        else:
+            out, m, l = fresh[2], fresh[0], fresh[1]
         outs.append(out.reshape(1, 1, Hq, D))
-    return torch.cat(outs).to(q.dtype)
+        probs.append(win_probs_of(torch.cat(ws, dim=-1), m, l, W)[None])
+    out = torch.cat(outs).to(q.dtype)
+    return (out, torch.cat(probs)) if win_probs else out
 
 
 def segment_steps(q_seg, BH: int, n_chunks: int, chunk_step):
@@ -313,12 +352,12 @@ def _q_chunk_step(kv_pool, kv_scales, li, codec, ordered: bool = False):
 
 def fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
                                    n_chunks: int, win_len: int, li: int,
-                                   codec: qf.QuantCodec):
-    """The uniform decode kernel's arithmetic in PyTorch (``decode_steps``
+                                   codec: qf.QuantCodec, win_probs: bool = False):
+    """The uniform decode TPU kernel's arithmetic in PyTorch (``decode_steps``
     with the codec's chunk step)."""
     return decode_steps(q, kv_pool.shape[2], n_chunks,
                         _q_chunk_step(kv_pool, kv_scales, li, codec), k_win, v_win,
-                        win_len, li)
+                        win_len, li, win_probs)
 
 
 def uniform_splits(n_chunks: int, win_len: int, W: int, cut: int = 1):
@@ -327,6 +366,18 @@ def uniform_splits(n_chunks: int, win_len: int, W: int, cut: int = 1):
     ceil(win_len / window_tile(W))).  Every split has tokens: a chunk's
     runs of 256 / cut, a window tile at least one."""
     return n_chunks * cut, (-(-win_len // window_tile(W)) if win_len else 0)
+
+
+def win_probs_out(q, BH: int, W: int, want: bool, n_splits: int):
+    """The window probabilities' output [B, Hkv, W] f32 of a uniform kernel
+    call (every column written by the kernel; zeros when nothing launches),
+    or None."""
+    if not want:
+        return None
+    shape = (q.shape[0], BH // q.shape[0], W)
+    if n_splits == 0:
+        return torch.zeros(shape, dtype=torch.float32, device=q.device)
+    return torch.empty(shape, dtype=torch.float32, device=q.device)
 
 
 def uniform_counts(B: int, n_chunks: int, win_len: int, device):
@@ -351,13 +402,16 @@ def split_scratch_floats(BH: int, n_splits: int, G: int) -> int:
     return n
 
 
-def _split_scratch(BH: int, n_splits: int, G: int, device, stream):
+def _split_scratch(BH: int, n_splits: int, G: int, device, stream, extra: int = 0):
     """Scratch for a split kernel's partials, ``split_scratch_floats`` of
-    them; the C entry is given its size and refuses a short one.  One
+    them, and ``extra`` floats after them (the uniform kernels' window
+    scores); the C entry is given its size and refuses a short one.  One
     buffer per (device, stream), grown when a call needs more and kept, not
     initialised: calls on one stream run in order, and the merge reads only
     the splits that were written.  Pass its ``numel()`` as the size."""
-    n = split_scratch_floats(BH, n_splits, G)
+    n = split_scratch_floats(BH, n_splits, G) + extra
+    if n > INT_MAX:
+        raise ValueError(f"split scratch of {n} floats exceeds the kernels' int sizes")
     key = (device.index or 0, stream)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < n:
@@ -387,7 +441,7 @@ def _library(name, fn_name, n_ptr, n_int):
 
 def fused_q_decode_attention_split_plain(q, kv_pool, kv_scales, k_win, v_win,
                                          n_chunks: int, win_len: int, li: int,
-                                         codec: qf.QuantCodec):
+                                         codec: qf.QuantCodec, win_probs: bool = False):
     """The uniform CUDA kernel's arithmetic: each chunk and each window tile
     one split from a fresh softmax state, merged in split order, the scores
     summed in the kernel's order (``_scores``): the per-slot kernel's split
@@ -396,7 +450,7 @@ def fused_q_decode_attention_split_plain(q, kv_pool, kv_scales, k_win, v_win,
     return ps_split_steps(
         q, kv_pool.shape[2], nc, wl, kv_pool.shape[1],
         lambda hs: _q_chunk_step(kv_pool[:, :, hs], kv_scales[:, :, hs], li, codec, True),
-        k_win, v_win, li, ordered=True)
+        k_win, v_win, li, ordered=True, win_probs=win_probs)
 
 
 def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
@@ -406,43 +460,52 @@ def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
                              return_win_probs: bool = False):
     """Quant-codec flash-decode of layer ``li`` over ``n_chunks`` pool chunks and the
     first ``win_len`` window tokens -> [B, 1, Hq, 128] in q's dtype (q is
-    read as bf16, the output is computed in f32, as on the TPU).
+    read as bf16, the output is computed in f32, as on the TPU); with
+    ``return_win_probs`` also the post-softmax weights of the window columns
+    summed over each kv head's query heads, [B, Hkv, W] f32, 0 at and past
+    ``win_len`` (the Opa policies score V with them).
 
     CUDA tensors launch the kernel of ``csrc/q_decode.cu`` (built at first
     use) on the current stream, one CTA a split (``uniform_splits``), with
     the stream's split scratch and merge counters (``_split_scratch``,
-    ``_split_counters``); with nothing to attend the output is 0 and
-    nothing launches.  CPU tensors run the plain version.  A CUDA request
-    the kernel cannot serve raises; nothing falls back."""
+    ``_split_counters``; the window probabilities' raw scores go in the
+    scratch too); with nothing to attend the output (and the
+    probabilities) are 0 and nothing launches.  CPU tensors run the plain
+    version.  A CUDA request the kernel cannot serve raises; nothing falls
+    back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec,
                                  window, return_norm, return_win_probs,
                                  "fused_q_decode_attention")
     _check_int("n_chunks", n_chunks, 0, mc)
     _check_int("win_len", win_len, 0, W)
     if q.device.type == "cpu":
-        return fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win,
-                                              v_win, n_chunks, win_len, li, codec)
+        return fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
+                                              n_chunks, win_len, li, codec,
+                                              return_win_probs)
     n_splits = sum(uniform_splits(n_chunks, win_len, W))
+    probs = win_probs_out(q, BH, W, return_win_probs, n_splits)
     if n_splits == 0:
-        return torch.zeros_like(q)
+        return (torch.zeros_like(q), probs) if return_win_probs else torch.zeros_like(q)
     split_scratch_floats(BH, n_splits, G)        # a grid too large: refused up front
     stream = _stream(q)
     _check_aligned((("q", q), ("kv_pool", kv_pool), ("kv_scales", kv_scales),
                     ("k_win", k_win), ("v_win", v_win)))
-    fn = _library("q_decode", "q_decode_attention", 8, 14)
+    fn = _library("q_decode", "q_decode_attention", 9, 14)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
-    scratch = _split_scratch(BH, n_splits, G, q.device, stream)
+    scratch = _split_scratch(BH, n_splits, G, q.device, stream,
+                             BH * G * W if return_win_probs else 0)
     counters = _split_counters(BH, q.device, stream)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
-            k_win.data_ptr(), v_win.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            k_win.data_ptr(), v_win.data_ptr(), out.data_ptr(),
+            None if probs is None else probs.data_ptr(), scratch.data_ptr(),
             counters.data_ptr(), scratch.numel(), counters.numel(),
             int(out.dtype == torch.float32), q.device.index or 0, codec.kbits,
             codec.vbits, BH, G, mc, W, window_tile(W), n_chunks, win_len, li, stream)
     if rc != 0:
         raise RuntimeError(f"q_decode_attention launch failed: CUDA error {rc}")
     fused_q_decode_attention.launches += 1
-    return out
+    return (out, probs) if return_win_probs else out
 
 
 fused_q_decode_attention.launches = 0

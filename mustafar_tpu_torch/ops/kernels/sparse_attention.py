@@ -4,7 +4,8 @@ PyTorch versions and the wrappers that pick between them by device.
 Ports of ``mustafar_tpu/ops/kernels/sparse_attention.py`` for the codecs
 "bitmap" (bf16 values, ``ops/sparse_format.ChunkFormat`` at ``qbits=16``)
 and "bitmap-q8" (int8 codes with per-channel scales, ``qbits=8``), options
-off:
+off but the uniform decode's window probabilities (``return_win_probs``,
+for the Opa policies; ``quant_attention.decode_steps``):
   fused_sparse_decode_attention     uniform-batch decode  csrc/sp_decode.cu
                                     (TPU kernel v7)       (entry sp_decode: one
                                                           CTA a split, the
@@ -97,9 +98,7 @@ def _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt, window,
     """Shapes, types and devices both decode kernels share; returns
     (BH, G, mc, W)."""
     _check_formats(kfmt, vfmt, kv_scales, window, name)
-    if return_norm or return_win_probs:
-        raise NotImplementedError(
-            "softmax stats and window probabilities (Opa) are ROADMAP Queue A item 12")
+    qa._check_options(return_norm, return_win_probs, name)
     if q.dim() != 4 or q.shape[1] != 1 or q.shape[3] != 128:
         raise ValueError(f"q must be [B, 1, Hq, 128], got {tuple(q.shape)}")
     B, _, Hq, _ = q.shape
@@ -145,11 +144,11 @@ def _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt, ordered: bool = False):
 
 def fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win, n_chunks: int,
                                         win_len: int, li: int, kfmt, vfmt,
-                                        kv_scales=None):
-    """The uniform bitmap decode kernel's arithmetic in PyTorch."""
+                                        kv_scales=None, win_probs: bool = False):
+    """The uniform bitmap decode TPU kernel's arithmetic in PyTorch."""
     return qa.decode_steps(q, kv_pool.shape[2], n_chunks,
                            _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt), k_win,
-                           v_win, win_len, li)
+                           v_win, win_len, li, win_probs)
 
 
 CHUNK_CUT = 4           # softmax steps the uniform kernel cuts a chunk into
@@ -157,7 +156,7 @@ CHUNK_CUT = 4           # softmax steps the uniform kernel cuts a chunk into
 
 def fused_sparse_decode_attention_split_plain(q, kv_pool, k_win, v_win, n_chunks: int,
                                               win_len: int, li: int, kfmt, vfmt,
-                                              kv_scales=None):
+                                              kv_scales=None, win_probs: bool = False):
     """The uniform CUDA kernel's arithmetic (``quant_attention.ps_split_steps``
     with every slot at the call's counts and the bitmap chunk step): each
     chunk's ``CHUNK_CUT`` runs of 64 tokens and each window tile one split
@@ -168,7 +167,7 @@ def fused_sparse_decode_attention_split_plain(q, kv_pool, k_win, v_win, n_chunks
         q, kv_pool.shape[2], nc, wl, kv_pool.shape[1],
         lambda hs: _sp_chunk_step(kv_pool[:, :, hs], None if kv_scales is None
                                   else kv_scales[:, :, hs], li, kfmt, vfmt, True),
-        k_win, v_win, li, cut=CHUNK_CUT, ordered=True)
+        k_win, v_win, li, cut=CHUNK_CUT, ordered=True, win_probs=win_probs)
 
 
 def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
@@ -178,8 +177,10 @@ def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
                                   return_win_probs: bool = False):
     """Bitmap flash-decode of layer ``li`` over ``n_chunks`` pool chunks and
     the first ``win_len`` window tokens -> [B, 1, Hq, 128] in q's dtype (q
-    is read as bf16, the output is computed in f32, as on the TPU).
-    ``kv_scales`` is required for ``qbits=8`` formats and refused otherwise.
+    is read as bf16, the output is computed in f32, as on the TPU); with
+    ``return_win_probs`` also the window probabilities [B, Hkv, W] f32
+    (``quant_attention.fused_q_decode_attention``).  ``kv_scales`` is
+    required for ``qbits=8`` formats and refused otherwise.
 
     CUDA tensors launch the kernel of ``csrc/sp_decode.cu`` (entry
     ``sp_decode``, built at first use; the instance of the formats' value
@@ -195,28 +196,31 @@ def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
     qa._check_int("win_len", win_len, 0, W)
     if q.device.type == "cpu":
         return fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win, n_chunks,
-                                                   win_len, li, kfmt, vfmt, kv_scales)
+                                                   win_len, li, kfmt, vfmt, kv_scales,
+                                                   return_win_probs)
     n_splits = sum(qa.uniform_splits(n_chunks, win_len, W, CHUNK_CUT))
+    probs = qa.win_probs_out(q, BH, W, return_win_probs, n_splits)
     if n_splits == 0:
-        return torch.zeros_like(q)
+        return (torch.zeros_like(q), probs) if return_win_probs else torch.zeros_like(q)
     qa.split_scratch_floats(BH, n_splits, G)     # a grid too large: refused up front
     stream = qa._stream(q)
     qa._check_aligned((("q", q), ("kv_pool", kv_pool), ("k_win", k_win),
                        ("v_win", v_win), *_scales(kv_scales)))
-    fn = qa._library("sp_decode", "sp_decode", 8, 17)
+    fn = qa._library("sp_decode", "sp_decode", 9, 17)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
-    scratch = qa._split_scratch(BH, n_splits, G, q.device, stream)
+    scratch = qa._split_scratch(BH, n_splits, G, q.device, stream,
+                                BH * G * W if return_win_probs else 0)
     counters = qa._split_counters(BH, q.device, stream)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), _ptr(kv_scales), k_win.data_ptr(),
-            v_win.data_ptr(), out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
-            scratch.numel(), counters.numel(), int(out.dtype == torch.float32),
-            q.device.index or 0, kfmt.qbits, BH, G, mc, W, qa.window_tile(W), n_chunks,
+            v_win.data_ptr(), out.data_ptr(), _ptr(probs), scratch.data_ptr(),
+            counters.data_ptr(), scratch.numel(), counters.numel(),
+            int(out.dtype == torch.float32), q.device.index or 0, kfmt.qbits, BH, G, mc, W, qa.window_tile(W), n_chunks,
             win_len, li, *_segs(kfmt), *_segs(vfmt), stream)
     if rc != 0:
         raise RuntimeError(f"sp_decode launch failed: CUDA error {rc}")
     fused_sparse_decode_attention.launches += 1
-    return out
+    return (out, probs) if return_win_probs else out
 
 
 fused_sparse_decode_attention.launches = 0

@@ -274,9 +274,12 @@ def decode_stream(rows: torch.Tensor, fmt: ChunkFormat) -> torch.Tensor:
     return torch.where(bits > 0, dense, torch.zeros_like(dense))
 
 
-def prune_and_encode_stream(dense: torch.Tensor, fmt: ChunkFormat) -> torch.Tensor:
-    """Keep the ``fmt.keep`` largest |x| of each token row, then pack."""
-    mask = topk_mask(dense, fmt.keep)
+def prune_and_encode_stream(dense: torch.Tensor, fmt: ChunkFormat,
+                            score: torch.Tensor | None = None) -> torch.Tensor:
+    """Keep the ``fmt.keep`` largest |x| of each token row (or, given
+    ``score`` of dense's shape, non-negative f32, the largest scores: the
+    Opa policies' ranking, with the same tie rule), then pack."""
+    mask = topk_mask(dense if score is None else score, fmt.keep)
     return encode_stream(torch.where(mask, dense, torch.zeros_like(dense)), fmt)
 
 
@@ -335,10 +338,12 @@ def decode_stream_q8(rows: torch.Tensor, scales: torch.Tensor,
     return (codes * scales.to(torch.float32)[..., None, :]).to(torch.bfloat16)
 
 
-def prune_and_encode_stream_q8(dense: torch.Tensor, fmt: ChunkFormat):
-    """Keep the ``fmt.keep`` largest |x| of each token row, then quantize
-    and pack -> (rows, f32 scales)."""
-    mask = topk_mask(dense, fmt.keep)
+def prune_and_encode_stream_q8(dense: torch.Tensor, fmt: ChunkFormat,
+                               score: torch.Tensor | None = None):
+    """Keep the ``fmt.keep`` largest |x| of each token row (or the largest
+    ``score``, as ``prune_and_encode_stream``), then quantize and pack ->
+    (rows, f32 scales)."""
+    mask = topk_mask(dense if score is None else score, fmt.keep)
     return encode_stream_q8(torch.where(mask, dense, torch.zeros_like(dense)), fmt)
 
 

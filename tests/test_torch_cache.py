@@ -195,9 +195,14 @@ def test_dense_cache_matches():
 
 
 def test_make_cache_modes():
-    with pytest.raises(NotImplementedError):
-        t_make_cache(dataclasses.replace(_engine(tc, "DENSE"),
-                                         cache_mode=tc.CacheMode.MASKED), device="cpu")
+    # the masked cache (the EngineConfig default) is served: its state has
+    # the JAX package's keys and shapes
+    masked = dataclasses.replace(_engine(tc, "DENSE"), cache_mode=tc.CacheMode.MASKED)
+    impl = t_make_cache(masked, device="cpu")
+    jmasked = dataclasses.replace(_engine(jc, "DENSE"), cache_mode=jc.CacheMode.MASKED)
+    assert type(impl).__name__ == type(j_make_cache(jmasked)).__name__ == "MaskedKVCache"
+    assert {k: tuple(v.shape) for k, v in impl.init(2).items()} == \
+        {k: tuple(v.shape) for k, v in j_make_cache(jmasked).init(2).items()}
     rows = {"q8": 256, "q8q4": 192, "q4q4": 128, "bitmap": 192, "bitmap-q8": 112}
     for codec in ("q8", "q8q4", "q4q4", "bitmap", "bitmap-q8"):
         impl = t_make_cache(_engine(tc, "COMPRESSED", codec=codec), device="cpu")

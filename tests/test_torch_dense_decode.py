@@ -170,8 +170,11 @@ def test_wrapper_refuses_what_the_kernel_cannot_serve():
     tdd.flash_decode_attention(**ok)
     with pytest.raises(NotImplementedError, match="item 14"):
         tdd.flash_decode_attention(**ok, window=32)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tdd.flash_decode_attention(**ok, return_norm=True)
+    # the final (m, l) are served: the output is the call's without them
+    out, m, l = tdd.flash_decode_attention(**ok, return_norm=True)
+    assert torch.equal(out, tdd.flash_decode_attention(**ok))
+    assert m.shape == l.shape == (q.shape[0], k.shape[2], q.shape[2] // k.shape[2], 1)
+    assert (l >= 1).all()
     bad = [
         dict(pos=64), dict(pos=-2), dict(pos=3.0),
         dict(pos=torch.tensor([1, 2])),                          # int64

@@ -154,9 +154,13 @@ def test_wrapper_refuses_what_the_kernel_cannot_serve():
     for change in bad:
         with pytest.raises((ValueError, TypeError, NotImplementedError)):
             tqa.fused_q_decode_attention(**dict(ok, **change))
-    for opt in (dict(window=512), dict(return_norm=True), dict(return_win_probs=True)):
+    for opt in (dict(window=512), dict(return_norm=True)):
         with pytest.raises(NotImplementedError):
             tqa.fused_q_decode_attention(**ok, **opt)
+    # the window probabilities are served: the output is the call's without them
+    out, probs = tqa.fused_q_decode_attention(**ok, return_win_probs=True)
+    assert torch.equal(out, tqa.fused_q_decode_attention(**ok))
+    assert probs.shape == (1, 2, W) and (probs[..., 10:] == 0).all() and (probs[..., :10] > 0).all()
     # a device the kernel does not run on is refused, never computed on the CPU
     meta = {k: (v.to("meta") if torch.is_tensor(v) else v) for k, v in ok.items()}
     with pytest.raises(ValueError):

@@ -384,9 +384,12 @@ def test_wrappers_refuse_what_the_kernels_cannot_serve():
         meta = {k: (v.to("meta") if torch.is_tensor(v) else v) for k, v in ok.items()}
         with pytest.raises(ValueError):
             fn(**meta)
-    for opt in (dict(return_norm=True), dict(return_win_probs=True)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tska.fused_sparse_decode_attention(**dec, **opt)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tska.fused_sparse_decode_attention(**dec, return_norm=True)
+    # the window probabilities are served: the output is the call's without them
+    out, probs = tska.fused_sparse_decode_attention(**dec, return_win_probs=True)
+    assert torch.equal(out, tska.fused_sparse_decode_attention(**dec))
+    assert probs.dtype == torch.float32 and probs.shape[-1] == dec["k_win"].shape[2]
     with pytest.raises(NotImplementedError, match="item 12"):
         tska.fused_sparse_decode_attention_ps(**ps, return_win_probs=True)
     # bitmap-q8: qbits=8 chunks take the scales, bf16 chunks refuse them
