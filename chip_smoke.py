@@ -20,13 +20,19 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 refusing short scratch; timed at 1 chunk + 288 window and at
                 the full pool, beside the plain version's time and its bound;
                 its window probabilities (return_win_probs) against the
-                split plain version's within 2^-18 absolute, the output
-                bit-equal with the option off, timed on and off in turns
+                split plain version's within 2^-18 absolute, and its final
+                (m, l) (return_norm) as kernel_dense holds kernel 4's, the
+                output bit-equal with either option off, each timed on and
+                off in turns
   kernel_ps     the per-slot decode kernel likewise, at the engine's pool
                 (mc=32): mixed slots (n_chunks 0/1/2/5/31, win_len
                 0/1/44/288, an idle slot), groups 1/2/4/8; the kernel
                 (split-K, every codec) also against its split plain
-                version, and refusing short scratch
+                version, and refusing short scratch; its window
+                probabilities against the split plain version's within
+                2^-18 absolute (0 past each slot's window, an idle slot's
+                all 0), the output bit-equal with the option off, timed on
+                and off in turns
   kernel_seg    the segment kernel likewise: Tseg=256, G=4, B = 1 and 2,
                 n_chunks 0/1/4/31, a second launch bit-equal to the first;
                 timed at 31 chunks (the bitmap codecs' with their cluster
@@ -104,6 +110,12 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 KT_MAG_VT_OPA at every codec: a 543-token prompt packed by
                 its prefill scores, a compaction by the accumulated scores,
                 the window probabilities of kernels 1 and 6
+  reference_opa_cb
+                reference_cb under KT_OPA_VT_MAG and KT_MAG_VT_OPA at q8q4
+                and bitmap: per-slot decode scoring each slot's window
+                (kernels 2 and 7 with their window probabilities),
+                compactions by score and chunked prefill's streamed scores;
+                every greedy pick equal or at a near-tie (OPA_CB_NOTE)
   serve_q8q4    full-width, 32-layer Llama-3-8B with random W8 weights made
                 on the card: Generator.generate, B=8, prompt 300, 300 new
                 tokens, q8q4 compressed cache (one compaction on the way);
@@ -155,6 +167,12 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 without the 8,000-token one; kernel 9 (K and V in one
                 launch) once a layer for every chunk a prompt packs and once
                 for every compaction (q8q4 and q4q4)
+  serve_cb_opa  serve_cb's first 8 requests (q8q4) under KT_MAG_VT_OPA at
+                0.7: kernel 2 with its window probabilities 32 x decode
+                steps, kernel 3 32 x segments, kernel 9 at the same packing
+                counts (V ranked by its scores); first tokens = a batch-1
+                chunked Generator's under the same method; V's scores live
+                at the end
   serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64
   host_split    one segment (B=1) at q8q4, bitmap and bitmap-q8, one K and V
                 pack of a chunk at each, one decode tick (8 slots, q8q4) and
@@ -254,6 +272,13 @@ def cuda_ms(fn, reps, flush=None, spin=True, spin_cycles=SPIN_CYCLES):
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps, behind
+
+
+def in_turns(ms):
+    """An option's times taken in turns on, off, off, on -> the least of
+    each pair (one slow repetition, a host hiccup, moves a mean of 100 by
+    several us) and the four."""
+    return {"on": min(ms[0], ms[3]), "off": min(ms[1], ms[2]), "in_turns": ms}
 
 
 def split_gate(got, want32, live):
@@ -371,7 +396,8 @@ class _Kit:
     call them: ``decode(q, n_chunks, win_len, li)`` and ``decode_ps``,
     ``segment(q_seg, n_chunks, li)`` and the plain versions beside each
     (and ``decode_split_plain`` and ``decode_ps_split_plain``, the decode
-    kernels' split arithmetic);
+    kernels' split arithmetic), each decode with its options (``_wp``:
+    window probabilities, ``_norm``: the final (m, l));
     ``chunk_bytes`` is what one pool chunk of one kv head holds (rows and,
     for the quant codecs and bitmap-q8, scales)."""
 
@@ -410,14 +436,24 @@ class _Kit:
             self.decode_split_plain_wp = lambda q, nc, wl, li: \
                 qa.fused_q_decode_attention_split_plain(q, pool, scales, kw, vw, nc, wl, li,
                                                         qc, win_probs=True)
+            self.decode_norm = lambda q, nc, wl, li: qa.fused_q_decode_attention(
+                q, pool, scales, kw, vw, nc, wl, li, qc, return_norm=True)
+            self.decode_split_plain_norm = lambda q, nc, wl, li: \
+                qa.fused_q_decode_attention_split_plain(q, pool, scales, kw, vw, nc, wl, li,
+                                                        qc, norm=True)
             self.decode_ps = lambda q, nc, wl, li: qa.fused_q_decode_attention_ps(
                 q, pool, scales, kw, vw, nc, wl, li, qc)
+            self.decode_ps_wp = lambda q, nc, wl, li: qa.fused_q_decode_attention_ps(
+                q, pool, scales, kw, vw, nc, wl, li, qc, return_win_probs=True)
             self.decode_ps_plain = lambda q, nc, wl, li: \
                 qa.fused_q_decode_attention_ps_plain(q, pool, scales, kw, vw, nc, wl, li,
                                                      qc)
             self.decode_ps_split_plain = lambda q, nc, wl, li: \
                 qa.fused_q_decode_attention_ps_split_plain(q, pool, scales, kw, vw, nc, wl,
                                                            li, qc)
+            self.decode_ps_split_plain_wp = lambda q, nc, wl, li: \
+                qa.fused_q_decode_attention_ps_split_plain(q, pool, scales, kw, vw, nc, wl,
+                                                           li, qc, win_probs=True)
             self.segment = lambda q, nc, li: qa.fused_q_segment_attention(
                 q, pool, scales, nc, nc * 256, li, qc)
             self.segment_plain = lambda q, nc, li: qa.fused_q_segment_attention_plain(
@@ -458,14 +494,24 @@ class _Kit:
         self.decode_split_plain_wp = lambda q, nc, wl, li: \
             ska.fused_sparse_decode_attention_split_plain(q, pool, kw, vw, nc, wl, li, fmt,
                                                           fmt, scales, win_probs=True)
+        self.decode_norm = lambda q, nc, wl, li: ska.fused_sparse_decode_attention(
+            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc, return_norm=True)
+        self.decode_split_plain_norm = lambda q, nc, wl, li: \
+            ska.fused_sparse_decode_attention_split_plain(q, pool, kw, vw, nc, wl, li, fmt,
+                                                          fmt, scales, norm=True)
         self.decode_ps = lambda q, nc, wl, li: ska.fused_sparse_decode_attention_ps(
             q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc)
+        self.decode_ps_wp = lambda q, nc, wl, li: ska.fused_sparse_decode_attention_ps(
+            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc, return_win_probs=True)
         self.decode_ps_plain = lambda q, nc, wl, li: \
             ska.fused_sparse_decode_attention_ps_plain(q, pool, kw, vw, nc, wl, li, fmt,
                                                        fmt, scales)
         self.decode_ps_split_plain = lambda q, nc, wl, li: \
             ska.fused_sparse_decode_attention_ps_split_plain(q, pool, kw, vw, nc, wl, li,
                                                              fmt, fmt, scales)
+        self.decode_ps_split_plain_wp = lambda q, nc, wl, li: \
+            ska.fused_sparse_decode_attention_ps_split_plain(q, pool, kw, vw, nc, wl, li,
+                                                             fmt, fmt, scales, win_probs=True)
         self.segment = lambda q, nc, li: ska.fused_sparse_segment_attention(
             q, pool, nc, nc * 256, li, fmt, fmt, **sc)
         self.segment_plain = lambda q, nc, li: ska.fused_sparse_segment_attention_plain(
@@ -596,6 +642,10 @@ def phase_kernel(codec="q8q4"):
     probs_cases, probs_worst = _check_win_probs(kits[0], (q, q.float()), cases + [(0, 0, 0)])
     more, worse = _check_win_probs(kits[0], other_groups, cases[:2])
     probs_cases, probs_worst = probs_cases + more, max(probs_worst, worse)
+    norm_cases, norm_worst = _check_uniform_norm(kits[0], (q, q.float()),
+                                                 cases + [(0, 0, 0)])
+    more, worse = _check_uniform_norm(kits[0], other_groups, cases[:2])
+    norm_cases, norm_worst = norm_cases + more, max(norm_worst, worse)
 
     # time at the main path's largest pre-compaction shape: one pool chunk
     # and a full 288-token window, L2 flushed before each launch
@@ -624,6 +674,14 @@ def phase_kernel(codec="q8q4"):
                              lambda: kit.decode_wp(q, nc, wl, li))]
     probs_plain_ms, _ = cuda_ms(lambda: kit.decode_split_plain_wp(q, nc, wl, li), 5,
                                 flush=flush_buf.zero_, spin=False)
+    # the final (m, l) on and off, in turns
+    norm_ms = [cuda_ms(call, 100, flush=flush_buf.zero_)[0]
+               for call in (lambda: kit.decode_norm(q, nc, wl, li),
+                            lambda: kit.decode(q, nc, wl, li),
+                            lambda: kit.decode(q, nc, wl, li),
+                            lambda: kit.decode_norm(q, nc, wl, li))]
+    norm_plain_ms, _ = cuda_ms(lambda: kit.decode_split_plain_norm(q, nc, wl, li), 5,
+                               flush=flush_buf.zero_, spin=False)
     wrapper_us = host_us(lambda: kit.decode(q, nc, wl, li), 100)
     G = Hq // Hkv
     nbytes = (BH * (nc * kit.chunk_bytes + 2 * wl * 128 * 2)   # pools, windows
@@ -638,9 +696,9 @@ def phase_kernel(codec="q8q4"):
          kernel_ms=kernel_ms, kernel_ms_l2_hot=hot_ms,
          kernel_ms_full_pool=full_ms, plain_ms=plain_ms, host_behind=behind,
          wrapper_host_us=wrapper_us, win_probs_cases=probs_cases,
-         win_probs_ms={"on": (probs_ms[0] + probs_ms[3]) / 2,
-                       "off": (probs_ms[1] + probs_ms[2]) / 2, "in_turns": probs_ms,
-                       "split_plain": probs_plain_ms},
+         win_probs_ms=dict(in_turns(probs_ms), split_plain=probs_plain_ms),
+         return_norm_cases=norm_cases,
+         return_norm_ms=dict(in_turns(norm_ms), split_plain=norm_plain_ms),
          timed_at={"sparsity": kit.sparsity, "n_chunks": nc, "win_len": wl},
          bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, flops_ms), library_ms=None)
     entry = _entry(codec, "decode", results, worst, max(r["tol"] for r in results),
@@ -650,10 +708,48 @@ def phase_kernel(codec="q8q4"):
     entry["options"] = {"return_win_probs": {
         "max_abs_err": max(r["probs_max_abs_err"] for r in probs_cases),
         "tol": WIN_PROBS_TOL, "worst_err_over_tol": probs_worst,
-        "ms": (probs_ms[0] + probs_ms[3]) / 2, "ms_off": (probs_ms[1] + probs_ms[2]) / 2,
+        "ms": in_turns(probs_ms)["on"], "ms_off": in_turns(probs_ms)["off"],
         "plain_ms": probs_plain_ms, "launches": None,
-        "timed_at": "as ms: 1 chunk + 288 window, in turns on, off, off, on"}}
+        "timed_at": "as ms: 1 chunk + 288 window, in turns on, off, off, on (the least "
+                    "of each pair)"},
+        "return_norm": {
+        "max_abs_err_m": max(r["m_max_abs_err"] for r in norm_cases),
+        "max_rel_err_l": max(r["l_max_rel_err"] for r in norm_cases),
+        "tol": NORM_TOL_NOTE, "worst_err_over_tol": norm_worst,
+        "ms": in_turns(norm_ms)["on"], "ms_off": in_turns(norm_ms)["off"],
+        "plain_ms": norm_plain_ms, "launches": 0,
+        "launches_note": "no serving path asks for it (the JAX package's paths do not)",
+        "timed_at": "as ms: 1 chunk + 288 window, in turns on, off, off, on (the least "
+                    "of each pair)"}}
     return entry
+
+
+def _check_uniform_norm(kit, qs, cases):
+    """The uniform decode kernel's final (m, l) (``return_norm``) against its
+    split plain version's (NORM_TOL_NOTE; nothing to attend: -1e30 and 0
+    from both), and the output with the option bit-equal to the output
+    without it.  Returns (the cases, the worst error over the tolerance)."""
+    import torch
+    results, worst = [], 0.0
+    for nc, wl, li in cases:
+        for qq in qs:
+            out, m, l = kit.decode_norm(qq, nc, wl, li)
+            plain = kit.decode(qq, nc, wl, li)
+            torch.cuda.synchronize()
+            _, want_m, want_l = kit.decode_split_plain_norm(qq.float(), nc, wl, li)
+            m_err = (m - want_m).abs().max().item()
+            l_err = ((l - want_l).abs() / want_l.clamp_min(1.0)).max().item()
+            results.append({"n_chunks": nc, "win_len": wl, "li": li,
+                            "q_dtype": str(qq.dtype).split(".")[-1], "G": m.shape[2],
+                            "m_max_abs_err": m_err, "l_max_rel_err": l_err,
+                            "out_equal_without": bool(torch.equal(out, plain))})
+            if not (results[-1]["out_equal_without"] and m_err <= NORM_TOL
+                    and l_err <= NORM_TOL):
+                raise AssertionError(f"uniform decode kernel's (m, l) disagree with its "
+                                     f"split plain version's, or change the output: "
+                                     f"{results[-1]}")
+            worst = max(worst, max(m_err, l_err) / NORM_TOL)
+    return results, worst
 
 
 WIN_PROBS_TOL = 2.0 ** -18   # absolute, of probabilities summed over <= 8 heads
@@ -757,11 +853,20 @@ def phase_kernel_ps(codec="q8q4"):
                                              f"split plain version: {results[-1]}")
                     worst_split = max(worst_split, ratio)
 
-    # time at the serving shape (G=4), the mixed slots above, L2 flushed
+    # the window probabilities (return_win_probs) at every group size
     kit = kits[0]
+    qs = [torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(torch.bfloat16)
+          for G in (4, 1, 2, 8)]
+    probs_cases, probs_worst = _check_ps_win_probs(kit, [qs[0], qs[0].float(), *qs[1:]],
+                                                   nc, wl, W)
+
+    # time at the serving shape (G=4), the mixed slots above, L2 flushed
     q = torch.randn((B, 1, Hkv * 4, D), generator=g, device=dev).to(torch.bfloat16)
     if not refuses_short_scratch(lambda: kit.decode_ps(q, nc, wl, 0)):
         raise AssertionError("per-slot kernel took scratch shorter than its grid needs")
+    if not refuses_short_scratch(lambda: kit.decode_ps_wp(q, nc, wl, 0)):
+        raise AssertionError("per-slot kernel took scratch shorter than its grid needs "
+                             "(with the window probabilities)")
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     for _ in range(10):
         kit.decode_ps(q, nc, wl, 0)
@@ -774,6 +879,14 @@ def phase_kernel_ps(codec="q8q4"):
     light_ms, _ = cuda_ms(lambda: kit.decode_ps(q, lnc, lwl, 0), 100,
                           flush=flush_buf.zero_)
     wrapper_us = host_us(lambda: kit.decode_ps(q, nc, wl, 0), 100)
+    # the window probabilities on and off, in turns
+    probs_ms = [cuda_ms(call, 100, flush=flush_buf.zero_)[0]
+                for call in (lambda: kit.decode_ps_wp(q, nc, wl, 0),
+                             lambda: kit.decode_ps(q, nc, wl, 0),
+                             lambda: kit.decode_ps(q, nc, wl, 0),
+                             lambda: kit.decode_ps_wp(q, nc, wl, 0))]
+    probs_plain_ms, _ = cuda_ms(lambda: kit.decode_ps_split_plain_wp(q, nc, wl, 0), 3,
+                                flush=flush_buf.zero_, spin=False)
     n_tok = sum(c * 256 + w for c, w in slots)
     nbytes = (Hkv * sum(c * kit.chunk_bytes + 2 * w * 128 * 2
                         for c, w in slots)                  # pools, windows
@@ -788,12 +901,50 @@ def phase_kernel_ps(codec="q8q4"):
          worst_err_over_tol_split=worst_split, kernel_ms=kernel_ms,
          kernel_ms_light_slots=light_ms, light_slots=light, plain_ms=plain_ms,
          host_behind=behind, wrapper_host_us=wrapper_us, timed_at={"sparsity": kit.sparsity}, bytes=nbytes,
-         flops=flops, bound_ms=max(bytes_ms, flops_ms), library_ms=None)
+         flops=flops, bound_ms=max(bytes_ms, flops_ms), library_ms=None,
+         win_probs_cases=probs_cases,
+         win_probs_ms=dict(in_turns(probs_ms), split_plain=probs_plain_ms))
     entry = _entry(codec, "decode_ps", results, worst,
                    "per slot: 2 bf16 ulps of the slot's largest output",
                    kernel_ms, plain_ms, bytes_ms, flops_ms)
     entry.update(worst_err_over_tol_split=worst_split, tol_split=SPLIT_TOL_NOTE)
+    entry["options"] = {"return_win_probs": {
+        "max_abs_err": max(r["probs_max_abs_err"] for r in probs_cases),
+        "tol": WIN_PROBS_TOL, "worst_err_over_tol": probs_worst,
+        "ms": in_turns(probs_ms)["on"], "ms_off": in_turns(probs_ms)["off"],
+        "plain_ms": probs_plain_ms, "launches": None,
+        "timed_at": "as ms: the mixed slots, G=4, in turns on, off, off, on (the least of "
+                    "each pair)"}}
     return entry
+
+
+def _check_ps_win_probs(kit, qs, nc, wl, W):
+    """The per-slot kernel's window probabilities (``return_win_probs``)
+    against its split plain version's, within WIN_PROBS_TOL absolute, each
+    slot's 0 at and past its ``win_len`` (an idle slot's all 0), and the
+    output with the option bit-equal to the output without it.  Returns
+    (the cases, the worst error over the tolerance)."""
+    import torch
+    results, worst = [], 0.0
+    past = (torch.arange(W, device=wl.device)[None, :] >= wl.clamp(0, W)[:, None])
+    for qq in qs:
+        out, probs = kit.decode_ps_wp(qq, nc, wl, 0)
+        plain = kit.decode_ps(qq, nc, wl, 0)
+        torch.cuda.synchronize()
+        _, want = kit.decode_ps_split_plain_wp(qq.float(), nc, wl, 0)
+        err = (probs - want).abs().max().item()
+        zero_past = bool((probs.masked_select(past[:, None, :]) == 0).all())
+        results.append({"q_dtype": str(qq.dtype).split(".")[-1],
+                        "G": qq.shape[2] // probs.shape[1], "probs_max_abs_err": err,
+                        "zero_past_win_len": zero_past,
+                        "out_equal_without": bool(torch.equal(out, plain))})
+        if not (results[-1]["out_equal_without"] and zero_past and err <= WIN_PROBS_TOL
+                and bool(probs.isfinite().all())):
+            raise AssertionError(f"per-slot window probabilities disagree with the split "
+                                 f"plain version (tol {WIN_PROBS_TOL}) or change the "
+                                 f"output: {results[-1]}")
+        worst = max(worst, err / WIN_PROBS_TOL)
+    return results, worst
 
 
 def segment_clusters(fmt, T, G):
@@ -1944,18 +2095,19 @@ def phase_reference(codec="q8q4", mode=None, method=None, use_pallas=False, T=30
     return fields
 
 
-def phase_reference_cb(codec="q8q4"):
+def phase_reference_cb(codec="q8q4", method=None):
     """The tiny f32 continuous-batching engine, chunked prefill with
     interleaved admission, on the CPU (plain versions) and on the card
     (kernels), fed the CPU's tokens: the card's logits within 1e-2 of their
     range, its own greedy picks equal to the CPU's.  The requests make a
     slot retire while the other decodes (its n_chunks still the old
-    request's) and reuse it.  Returns the phase's numbers."""
+    request's) and reuse it.  ``method`` defaults to KT_MAG_VT_MAG.
+    Returns the phase's numbers."""
     import torch
     from mustafar_tpu_torch.config import CacheMode
     from mustafar_tpu_torch.models import llama
     Recording, np = _recording_engine()
-    eng = _tiny_engine(CacheMode.COMPRESSED, codec, max_seq_len=2048, batch_size=2,
+    eng = _tiny_engine(CacheMode.COMPRESSED, codec, method, max_seq_len=2048, batch_size=2,
                        chunked_prefill=True)
     cpu_params = llama.init_params(eng.model, device="cpu", dtype=torch.float32, seed=2)
     gpu_params = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict)
@@ -1975,20 +2127,26 @@ def phase_reference_cb(codec="q8q4"):
     _set_launches(counts0)
     toks, lc, ticks, segments, steps = runs["cpu"]
     _, lg, *_ = runs["cuda"]
-    err, scale, agree, n = 0.0, 0.0, 0, 0
+    err, scale, agree, n, flips = 0.0, 0.0, 0, 0, []
     for uid in toks:
         a, b = torch.stack(lc[uid]), torch.stack(lg[uid])
         err = max(err, (a - b).abs().max().item())
         scale = max(scale, a.abs().max().item())
-        agree += int((b.argmax(-1) == torch.as_tensor(toks[uid])).sum())
+        want, pick = torch.as_tensor(toks[uid]), b.argmax(-1)
+        agree += int((pick == want).sum())
         n += len(toks[uid])
+        flips += [{"uid": uid, "step": t, "cpu_margin": (a[t, want[t]] - a[t, pick[t]]).item()}
+                  for t in torch.nonzero(pick != want).flatten().tolist()]
     tol = 1e-2 * scale
     fields = {"requests": len(reqs), "tokens": n, "ticks": ticks, "segments": segments,
               "decode_steps": steps, "max_abs_err": err, "tol": tol,
-              "greedy_agreement": agree / n, "launched": launched}
-    if codec == "q8q4":
+              "greedy_agreement": agree / n, "flips": flips, "launched": launched}
+    if codec == "q8q4" and method is None:
         emit("reference_cb", **fields)
-    if not (err <= tol and agree == n):
+    # under Opa (OPA_CB_NOTE) a differing pick must be a near-tie on the CPU
+    picks_ok = agree == n if method is None else all(
+        f["cpu_margin"] <= 2 * err for f in flips)
+    if not (err <= tol and picks_ok):
         raise AssertionError(f"card and CPU disagree on the tiny continuous-batching "
                              f"run: {fields}")
     return fields
@@ -2080,6 +2238,41 @@ def phase_reference_opa():
                                      f"{fields['launched']}, expected {want}, "
                                      f"{fields['compactions']} compactions")
     emit("reference_opa", runs=runs)
+
+
+OPA_CB_NOTE = ("every greedy pick equal, or at a near-tie: the CPU's margin between its "
+               "token and the card's pick at most twice the largest logit difference. "
+               "The Opa packs keep each row's top entries by accumulated scores whose "
+               "float sums differ between card and CPU by ~1e-7, so a near-tie of the "
+               "scores can flip a kept entry and move the logits by ~1e-3 of their range, "
+               "and with it a pick whose top-2 logits lie closer")
+
+
+def phase_reference_opa_cb():
+    """``reference_cb`` under the Opa methods (KT_OPA_VT_MAG, KT_MAG_VT_OPA)
+    at q8q4 and bitmap: the engine's per-slot decode scoring each slot's
+    window (kernel 2 or 7 with its window probabilities where V is scored),
+    compactions by score (``compact_slots``; kernel 9 with a score for
+    q8q4) and chunked prefill's streamed scores (the segment kernel's
+    partials), card against CPU: logits within 1e-2 of their range, every
+    greedy pick equal or at a near-tie (OPA_CB_NOTE); each run launched its
+    codec's kernels and no other.  Returns the runs' launches by (method,
+    codec)."""
+    from mustafar_tpu_torch.config import PruneMethod
+    runs = {}
+    for method in (PruneMethod.KT_OPA_VT_MAG, PruneMethod.KT_MAG_VT_OPA):
+        for codec in ("q8q4", "bitmap"):
+            fields = phase_reference_cb(codec, method)
+            want = ({"fused_q_decode_attention_ps", "fused_q_segment_attention",
+                     "prune_quant_pack_kv"} if codec in QUANT_BITS
+                    else {"fused_sparse_decode_attention_ps", "fused_sparse_segment_attention"})
+            runs[f"{method.value}/{codec}"] = dict(fields, expected_kernels=sorted(want),
+                                                   picks=OPA_CB_NOTE)
+            if set(fields["launched"]) != want:
+                raise AssertionError(f"reference_opa_cb ({method.value}, {codec}): launched "
+                                     f"{fields['launched']}, expected {sorted(want)}")
+    emit("reference_opa_cb", runs=runs)
+    return {key: run["launched"] for key, run in runs.items()}
 
 
 REFERENCE_W4_TOL = 3e-2   # of the logits' range (see phase_reference_w4)
@@ -2328,7 +2521,7 @@ def phase_decode_split_w4(params, attn_ms, wall_s, new_tokens):
          wall_ms_per_token={c: t / new_tokens * 1e3 for c, t in wall_s.items()})
 
 
-def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None):
+def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, prune=None):
     """Continuous batching at full Llama-3-8B width and depth: 8 slots, 17
     requests (16 with prompts of 200-1,500 tokens and 32-96 new tokens,
     plus one of 8,000 prompt tokens submitted third), chunked prefill with
@@ -2343,17 +2536,22 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None):
     the first 8 requests of that stream without the 8,000-token one.  With
     ``w4`` (W4 params; implies ``first8``): the W4 kernel 7 times a layer in
     every decode step (a segment's 256 tokens take the dequant route).
-    ``beside``: fields of another run printed with this one.  Returns the
-    launches and the run's peak memory and pool bytes."""
+    ``beside``: fields of another run printed with this one.  ``prune``
+    (default KT_MAG_VT_MAG at 0.7): with an Opa method the run is
+    ``serve_cb_opa``, and the scored buffers must be live at its end (the
+    per-slot kernel's window probabilities, or K's scores, reached the
+    cache).  Returns the launches and the run's peak memory and pool
+    bytes."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
                                            PruneConfig, PruneMethod)
     from mustafar_tpu_torch.runtime.generate import Generator
     from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
-    eng = EngineConfig(model=LLAMA3_8B, cache_mode=CacheMode.COMPRESSED,
-                       prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG,
-                                         k_sparsity=0.7, v_sparsity=0.7),
+    if prune is None:
+        prune = PruneConfig(method=PruneMethod.KT_MAG_VT_MAG, k_sparsity=0.7,
+                            v_sparsity=0.7)
+    eng = EngineConfig(model=LLAMA3_8B, cache_mode=CacheMode.COMPRESSED, prune=prune,
                        max_seq_len=8448, prefill_bucket=256, chunk_size=256,
                        codec=codec, batch_size=8, chunked_prefill=True)
     rs = np.random.RandomState(1)
@@ -2424,17 +2622,23 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None):
               "compactions": compactions[0],
               "tick_ms": {k: {"n": len(v), "mean": 1e3 * sum(v) / max(len(v), 1),
                               "total_s": sum(v)} for k, v in Timed.split.items()}}
+    scores = {k: float(cb.cache[k].abs().sum()) for k in cb.impl.score_keys}
     del gen, cb
     torch.cuda.empty_cache()
-    label = ("serve_cb_w4" if w4 else "serve_cb" if codec == "q8q4"
-             else "serve_cb_" + codec.replace("-", "_"))
+    label = ("serve_cb_w4" if w4 else "serve_cb_opa" if scores else "serve_cb"
+             if codec == "q8q4" else "serve_cb_" + codec.replace("-", "_"))
     emit(label, model=f"llama-3-8b x32L, {'W4' if w4 else 'W8'} (random, seed 0)",
          codec=codec, slots=8,
          requests=len(reqs), prompt_tokens=sum(len(p) for p, _ in reqs),
          generated_tokens=generated, seconds=dt, tok_s=generated / dt,
          peak_mem_gib=peak, mem_before_gib=mem_before, pool_bytes=pool_bytes, **counts,
-         launches=launches,
+         launches=launches, prune={"method": prune.method.value,
+                                   "k_sparsity": prune.k_sparsity,
+                                   "v_sparsity": prune.v_sparsity},
+         score_sums=scores,
          expected_launches=want, first_token_equal=sum(first_equal), **(beside or {}))
+    if scores and not all(scores.values()):
+        raise AssertionError(f"{label}: the scored buffers are empty at the end: {scores}")
     if bad or launches != want or counts["segments"] != seg_expected:
         raise AssertionError(f"{label}: bad outputs {bad}, launches {launches} "
                              f"(expected {want}), segments {counts['segments']} "
@@ -2697,6 +2901,30 @@ def serve_opa(entries, params, prompt, new, dense_toks):
                        launches_note=note)
 
 
+def serve_cb_opa(entries, params, reference_launches):
+    """``serve_cb_opa``: the engine at full Llama-3-8B width and depth under
+    KT_MAG_VT_OPA at 0.7 (q8q4, ``serve_cb``'s first 8 requests): kernel 2
+    with its window probabilities 32 x decode steps, kernel 3 32 x
+    segments, kernel 9 at serve_cb's packing counts (V ranked by its
+    scores), first tokens equal to a batch-1 chunked Generator's under the
+    same method, V's scores live at the end.  Fills the per-slot kernels'
+    option launches in the kernels line (kernel 7's from
+    ``reference_opa_cb``'s bitmap engine on the card)."""
+    from mustafar_tpu_torch.config import PruneConfig, PruneMethod
+    vt_opa = PruneConfig(method=PruneMethod.KT_MAG_VT_OPA, k_sparsity=0.7, v_sparsity=0.7)
+    launches, _ = phase_serve_cb(params, "q8q4", first8=True, prune=vt_opa)
+    name = "fused_q_decode_attention_ps"
+    entries[("q8q4", "decode_ps")]["options"]["return_win_probs"].update(
+        launches=launches[name],
+        launches_note="serve_cb_opa: every launch with the option (V scored by "
+                      "kt_mag_vt_opa)")
+    name = "fused_sparse_decode_attention_ps"
+    entries[("bitmap", "decode_ps")]["options"]["return_win_probs"].update(
+        launches=reference_launches["kt_mag_vt_opa/bitmap"][name],
+        launches_note="reference_opa_cb's bitmap engine under kt_mag_vt_opa on the card "
+                      "(tiny model): every launch with the option")
+
+
 def serve_packs():
     """Kernel 9 launches of a ``serve`` run of a quant codec: one a layer for
     prefill's chunk (300 - 32 tokens; K and V of every chunk of the layer's
@@ -2747,6 +2975,7 @@ def main():
     phase_reference_w4()
     phase_reference_masked()
     phase_reference_opa()
+    opa_cb_launches = phase_reference_opa_cb()
 
     import numpy as np
     import torch
@@ -2863,6 +3092,7 @@ def main():
         name = _meta("q4q4", kind)[0]
         other[("q4q4", kind)]["launches"] = cb_launches[name]
         other[("q8", kind)]["launches"] = q_engine_launches["q8"][name]
+    serve_cb_opa(entries, params, opa_cb_launches)
     _merge_codecs(entries, other, "q8q4", ("q8", "q4q4"),
                   "q8q4 and q4q4 from serve_q8q4 / serve_q4q4 and "
                   "serve_cb / serve_cb_q4q4; q8's per-slot and segment launches from "

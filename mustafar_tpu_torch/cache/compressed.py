@@ -52,15 +52,23 @@ Semantics:
   * the output-aware (Opa) policies KT_OPA_VT_MAG and KT_MAG_VT_OPA: the
     packed prefix keeps the top entries by the prefill scores of the
     masked cache (``prefill_k_opa_score``, ``prefill_v_opa_score``); each
-    uniform decode step adds its scores to the live window columns (K:
-    |mean_g |q| * k|; V: |p * v|, p the window probabilities that the
-    decode kernel returns, ``return_win_probs``); compaction packs the
-    oldest C tokens by their scores and shifts the scores with the window.
-    Opa in the per-slot decode (the engine) and in chunked prefill waits
-    for ROADMAP Queue A item 12.
+    decode step, uniform or per slot, adds its scores to each slot's live
+    window columns (K: |mean_g |q| * k|; V: |p * v|, p the window
+    probabilities that the decode kernel returns, ``return_win_probs``);
+    compaction (``compact``, ``compact_slots``) packs the oldest C tokens by
+    their scores and shifts the scores with the window.  Chunked prefill
+    scores as it streams (``segment_attend``, the JAX package's rule): a
+    segment adds, to the window's columns and to its own, what its valid
+    queries give each key (K: the sum of |mean_g |q|| over the queries
+    that see the key, times |k|; V: the sum over those queries and the
+    group of the post-softmax p, rebuilt from the merged (m, l) of the
+    pool, window and self partials, times |v|), before the window's oldest
+    C tokens are packed by those scores.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -136,12 +144,6 @@ class CompressedKVCache:
             state[key] = torch.zeros((L, batch, H, self.wcap, D), dtype=torch.float32,
                                      device=dev)
         return state
-
-    def _refuse_opa(self, what: str):
-        if self.score_keys:
-            raise NotImplementedError(
-                f"{self.p.method} in {what} is ROADMAP Queue A item 12 "
-                "(output-aware scores there)")
 
     # -- packing ----------------------------------------------------------
     def _pack_chunk_bitmap(self, dense: torch.Tensor, fmt: sf.ChunkFormat, score=None):
@@ -290,21 +292,29 @@ class CompressedKVCache:
         else:
             out = qa.fused_q_decode_attention(q, pool, scales, kw, vw, nc, win_len,
                                               lk, self.qcodec, return_win_probs=self.v_opa)
+        return self._with_scores(state, li, q, out, win_len)
+
+    def _with_scores(self, state, li: int, q, out, win_len):
+        """The decode kernel's result ``out`` (with the window probabilities
+        when V is scored) -> its output, after this step's Opa scores are
+        added (``_accumulate_scores``) at each slot's live window columns
+        [0, win_len) (a host int, or a [B] tensor: an idle slot's 0)."""
         if not self.score_keys:
             return out
         p_win = None
         if self.v_opa:
             out, p_win = out
-        self._accumulate_scores(state, li, q, win_len, p_win)
+        cols = torch.arange(self.wcap, device=q.device)
+        wl = win_len[:, None] if torch.is_tensor(win_len) else win_len
+        self._accumulate_scores(state, li, q, (cols[None, :] < wl)[:, None, :, None], p_win)
         return out
 
-    def _accumulate_scores(self, state, li: int, q, win_len: int, p_win):
-        """Add this step's Opa scores at layer li's live window columns [0,
-        win_len): K |mean_g |q| * k| per element, V |p * v| with p the
-        kernel's window probabilities [B, Hkv, W]."""
+    def _accumulate_scores(self, state, li: int, q, live, p_win):
+        """Add this step's Opa scores at layer li's live window columns
+        (``live`` [B or 1, 1, W, 1] bool): K |mean_g |q| * k| per element, V
+        |p * v| with p the kernel's window probabilities [B, Hkv, W]."""
         B, _, Hq, D = q.shape
         Hkv = self.model.num_kv_heads
-        live = (torch.arange(self.wcap, device=q.device) < win_len)[None, None, :, None]
         if self.k_opa:
             qm = q[:, 0].to(torch.float32).abs().reshape(B, Hkv, Hq // Hkv, D).mean(dim=2)
             step = (qm[:, :, None, :] * state["k_win"][li].to(torch.float32)).abs()
@@ -321,7 +331,6 @@ class CompressedKVCache:
         (0 chunks, 0 window tokens): after a retire its n_chunks still holds
         the old request's count, and the window index it would give may lie
         far out of range."""
-        self._refuse_opa("the per-slot decode (the continuous-batching engine)")
         B = q.shape[0]
         nc = state["n_chunks"][li]
         active = pos >= 0
@@ -338,11 +347,15 @@ class CompressedKVCache:
                                             win[bidx, :, col])
         pool, scales, kw, vw, lk = self._views(state, li)
         if self.qcodec is None:
-            return ska.fused_sparse_decode_attention_ps(q, pool, kw, vw, nc, win_len,
-                                                        lk, self.kfmt, self.vfmt,
-                                                        kv_scales=scales)
-        return qa.fused_q_decode_attention_ps(q, pool, scales, kw, vw, nc, win_len,
-                                              lk, self.qcodec)
+            out = ska.fused_sparse_decode_attention_ps(q, pool, kw, vw, nc, win_len, lk,
+                                                       self.kfmt, self.vfmt,
+                                                       kv_scales=scales,
+                                                       return_win_probs=self.v_opa)
+        else:
+            out = qa.fused_q_decode_attention_ps(q, pool, scales, kw, vw, nc, win_len,
+                                                 lk, self.qcodec,
+                                                 return_win_probs=self.v_opa)
+        return self._with_scores(state, li, q, out, win_len)
 
     # -- compaction -------------------------------------------------------
     def needs_compact(self, total: int) -> bool:
@@ -382,8 +395,8 @@ class CompressedKVCache:
         scheduler knows on the host which windows just filled), and shift
         their windows (in place).  The chunk index is slot b's n_chunks,
         read on the device as the JAX package reads it (layer 0's, the
-        layers move in lockstep)."""
-        self._refuse_opa("compact_slots (the continuous-batching engine)")
+        layers move in lockstep).  Under Opa the chunk keeps the top entries
+        by the slots' scores, which shift with their windows."""
         sel = [b for b, flag in enumerate(do) if flag]
         if not sel:
             return state
@@ -395,10 +408,11 @@ class CompressedKVCache:
         used = int(ci.max())
         if used >= self.max_chunks:
             raise ValueError(f"pool full: {used} of {self.max_chunks} chunks in use")
-        packed = self._pack(state["k_win"][:, b_sel, :, :C], state["v_win"][:, b_sel, :, :C])
+        packed = self._pack(*(state[key][:, b_sel, :, :C] if key in state else None
+                              for key in ("k_win", "v_win", "k_score", "v_score")))
         for key, val in packed.items():                  # every layer at once
             state[key][:, ci, b_sel] = val
-        for key in ("k_win", "v_win"):
+        for key in ("k_win", "v_win") + self.score_keys:
             win = state[key]
             win[:, b_sel] = torch.cat([win[:, b_sel, :, C:],
                                        torch.zeros_like(win[:, b_sel, :, :C])], dim=3)
@@ -437,7 +451,10 @@ class CompressedKVCache:
         host ``nc_host``, uniform across the batch) and the window holds
         tokens [n_chunks*C, seg_start) (0 or C of them); on exit they take
         the same form for s+1, and the last segment leaves the window
-        [comp_len, true_len) exactly as monolithic prefill.
+        [comp_len, true_len) exactly as monolithic prefill.  Under Opa the
+        score buffers stream too (``_segment_scores``) and shift with the
+        window; the chunk packed here ranks by the scores after this
+        segment's are added.
 
         Where the JAX package stages the pack of the window's first C tokens
         and applies it to every layer after the layer scan
@@ -445,7 +462,6 @@ class CompressedKVCache:
         pool slot n_chunks of layer li: a layer reads only its own pools and
         only chunks below n_chunks, so nothing reads the slot before the
         segment ends.  ``finalize_segment`` then moves the host count."""
-        self._refuse_opa("chunked prefill (segment_attend)")
         B, T, Hq, D = q.shape
         C, W = self.C, self.wcap
         if T != C:
@@ -472,20 +488,84 @@ class CompressedKVCache:
         p_self = attention_partials(q, k, v, smask)
         out = merge_partials([p_pool, p_win, p_self]).to(q.dtype)
 
-        if nc_after > nc:
-            self._append(state, (li, nc), kwin[:, :, :C], vwin[:, :, :C])
-        shift = C if nc_after > nc else 0
         seg_rows = (torch.arange(C, device=dev) < seg_valid)[None, None, :, None]
-        for win, seg_kv in ((kwin, k), (vwin, v)):
-            # [old window ++ segment] shifted by the pack, C + W rows so the
+        # the Opa scores: the window's columns (zero past wl) and the segment's
+        sc = (self._segment_scores(state, li, q, k, v, (p_pool, p_win, p_self), wmask,
+                                   smask, wl, seg_valid, seg_rows)
+              if self.score_keys else {})
+        if nc_after > nc:
+            self._append(state, (li, nc), kwin[:, :, :C], vwin[:, :, :C],
+                         *(sc[key][0][:, :, :C] if key in sc else None
+                           for key in ("k_score", "v_score")))
+        shift = C if nc_after > nc else 0
+        rebuilt = [(kwin, kwin[:, :, :wl], k.transpose(1, 2)),
+                   (vwin, vwin[:, :, :wl], v.transpose(1, 2))]
+        rebuilt += [(state[key][li], *sc[key]) for key in self.score_keys]
+        for buf, old, seg in rebuilt:
+            # [old columns ++ segment] shifted by the pack, C + W rows so the
             # slice [shift, shift + W) never runs off the end
-            tmp = torch.zeros((B, win.shape[1], C + W, D), dtype=win.dtype, device=dev)
-            tmp[:, :, :wl] = win[:, :, :wl]
-            tmp[:, :, wl:wl + C] = torch.where(seg_rows, seg_kv.transpose(1, 2),
-                                               0).to(win.dtype)
-            win.copy_(tmp[:, :, shift:shift + W])
+            tmp = torch.zeros((B, buf.shape[1], C + W, D), dtype=buf.dtype, device=dev)
+            tmp[:, :, :wl] = old[:, :, :wl]
+            tmp[:, :, wl:wl + C] = torch.where(seg_rows, seg, 0).to(buf.dtype)
+            buf.copy_(tmp[:, :, shift:shift + W])
         state["n_chunks"][li] = nc_after
         return out
+
+    def _segment_scores(self, state, li: int, q, k, v, partials, wmask, smask,
+                        wl: int, seg_valid: int, seg_rows):
+        """A segment's streaming Opa scores (the JAX package's rule,
+        ``segment_attend`` there): {key: (window columns [B, Hkv, W, D], the
+        segment's own [B, Hkv, C, D])} f32, the window's the buffer on entry
+        plus this segment's, zero at and past ``wl``, the segment's zero at
+        its pad rows.  Only the ``seg_valid`` valid queries count, each for
+        the keys it sees (``wmask`` [T, W] the window's, ``smask`` [T, T]
+        the causal self mask).  K: the sum over those queries of
+        |mean_g |q||, times |k|.  V: p = exp(s - M) / L, M and L the merged
+        stats of the pool, window and self partials (``partials``, the
+        (acc, m, l) triples that ``merge_partials`` merged for the output,
+        m and l [B, T, Hq, 1] with the query heads kv head by kv head; the
+        segment kernels give theirs in ``attention_partials``' layout),
+        summed over the group's heads and the queries, times |v|.  f32
+        products of the operands as given (bf16 windows and segments on the
+        card, as the JAX package's bf16 x bf16 -> f32 dots)."""
+        B, T, Hq, D = q.shape
+        Hkv = self.model.num_kv_heads
+        G = Hq // Hkv
+        f32 = torch.float32
+        dev = q.device
+        qvalid = torch.arange(T, device=dev) < seg_valid
+        wmask_q = wmask & qvalid[:, None]                       # [T, W]
+        smask_q = smask & qvalid[:, None] & qvalid[None, :]     # [T, T]
+        # the window's and the segment's K and V [B, Hkv, W or C, D], the
+        # operands each key's score multiplies
+        kx = (state["k_win"][li], k.transpose(1, 2))
+        operand = {"k_score": kx, "v_score": (state["v_win"][li], v.transpose(1, 2))}
+        contrib = {}
+        if self.k_opa:
+            qa_ = q.to(f32).abs().reshape(B, T, Hkv, G, D).mean(dim=3)      # [B,T,Hkv,D]
+            contrib["k_score"] = tuple(torch.einsum("bthd,ts->bhsd", qa_, mask.to(f32))
+                                       for mask in (wmask_q, smask_q))
+        if self.v_opa:
+            (_, m0, l0), (_, m1, l1), (_, m2, l2) = partials
+            M = torch.maximum(torch.maximum(m0, m1), m2)
+            L = l0 * torch.exp(m0 - M) + l1 * torch.exp(m1 - M) + l2 * torch.exp(m2 - M)
+            Mg = M.reshape(B, T, Hkv, G, 1)
+            Lg = torch.clamp_min(L.reshape(B, T, Hkv, G, 1), 1e-30)
+            qg = q.to(f32).reshape(B, T, Hkv, G, D)
+            scale = 1.0 / math.sqrt(D)
+
+            def probs(kx, mask):                                # kx [B, Hkv, S, D]
+                s = torch.einsum("bthgd,bhsd->bthgs", qg, kx.to(f32)) * scale
+                p = torch.where(mask[None, :, None, None, :], torch.exp(s - Mg) / Lg, 0.0)
+                return p.sum(dim=3).sum(dim=1)[..., None]       # [B, Hkv, S, 1]
+            contrib["v_score"] = (probs(kx[0], wmask_q), probs(kx[1], smask_q))
+        win_cols = (torch.arange(self.wcap, device=dev) < wl)[None, None, :, None]
+        sc = {}
+        for key in self.score_keys:
+            (cw, cs), (xw, xs) = contrib[key], operand[key]
+            sc[key] = (torch.where(win_cols, state[key][li] + cw * xw.to(f32).abs(), 0.0),
+                       torch.where(seg_rows, cs * xs.to(f32).abs(), 0.0))
+        return sc
 
     def finalize_segment(self, state, seg_start: int, true_len: int) -> dict:
         """After every layer's ``segment_attend``: the host count follows

@@ -15,7 +15,9 @@
 // has merged the final (m, l), writes per window column c
 //   sum_g exp(s_g[c] - m_g) / max(l_g, 1e-30)   (0 at and past win_len),
 // the heads summed in order, l summed as the merge's plain version sums it
-// (products and sums rounded one by one).
+// (products and sums rounded one by one).  The final (m, l) themselves (the
+// TPU kernels' return_norm): the same CTA writes M and that l (unclamped)
+// for each query head.
 //
 // Scores are summed in one fixed order that the plain version repeats:
 // four lanes a token, each summing a quarter of the channels (32 j ..
@@ -206,12 +208,14 @@ __device__ __forceinline__ void stage_window(__nv_bfloat16* kt, __nv_bfloat16* v
 
 // The window probabilities' outputs: `out` f32 [BH, W] (null: off) and the
 // raw window scores in scratch, `ws` f32 [BH, G, W], right after the
-// partials (at split_merge::scratch_floats(BH, G, n_parts)).
+// partials (at split_merge::scratch_floats(BH, G, n_parts)); and the final
+// stats' output `ml` f32 [2][BH*G] (m, then l; null: off).
 struct WinProbs {
   float* out;
   float* ws;
   int W;
   int win_len;
+  float* ml;
 };
 
 // A window-tile CTA's raw scores sm.s[g][0, n) to ws at columns w0 .. w0 +
@@ -276,7 +280,8 @@ __device__ __forceinline__ void write_partial(float* __restrict__ part, int bh, 
 // B=8, 1 chunk + 288 window, and as long at 5 chunks; NVIDIA H100 80GB
 // HBM3, 700.00 W, tools/kernel_ab.py.)  `ws` is shared
 // memory for 2 * n_parts * G floats that the CTA no longer needs.  With
-// `wp.out` the last CTA writes the row's window probabilities too.
+// `wp.out` the last CTA writes the row's window probabilities too, with
+// `wp.ml` its final (m, l).
 template <int G>
 __device__ __forceinline__ void finish_row(const float* __restrict__ part,
                                            int* __restrict__ counters, void* __restrict__ out,
@@ -305,12 +310,16 @@ __device__ __forceinline__ void finish_row(const float* __restrict__ part,
     float M = NEG;
     for (int sp = 0; sp < n_parts; ++sp) M = fmaxf(M, w[sp * G + tid]);
     for (int sp = 0; sp < n_parts; ++sp) w[sp * G + tid] = expf(w[sp * G + tid] - M);
-    if (wp.out != nullptr) {   // the final (m, l), for the probabilities
+    if (wp.out != nullptr || wp.ml != nullptr) {   // the final (m, l)
       float L = 0.f;
       for (int sp = 0; sp < n_parts; ++sp)
         L = __fadd_rn(L, __fmul_rn(l[sp * G + tid], w[sp * G + tid]));
       sm.m[tid] = M;
       sm.l[tid] = fmaxf(L, 1e-30f);
+      if (wp.ml != nullptr) {
+        wp.ml[(size_t)bh * G + tid] = M;
+        wp.ml[(size_t)BH * G + (size_t)bh * G + tid] = L;
+      }
     }
   }
   __syncthreads();
@@ -368,11 +377,13 @@ inline bool args_ok(int BH, int G, int max_chunks, int W, int wt, int n_chunks, 
          (size_t)scratch_floats >= need && counters != nullptr && n_counters >= BH;
 }
 
-// The WinProbs of a launch: `probs` (null: off) and the scores' scratch.
-inline WinProbs win_probs(void* probs, float* part, int BH, int G, int n_parts, int W,
-                          int win_len) {
+// The WinProbs of a launch: `probs` (null: off) and the scores' scratch,
+// and `ml` (null: off).
+inline WinProbs win_probs(void* probs, void* ml, float* part, int BH, int G, int n_parts,
+                          int W, int win_len) {
   return WinProbs{static_cast<float*>(probs),
-                  part + split_merge::scratch_floats(BH, G, n_parts), W, win_len};
+                  part + split_merge::scratch_floats(BH, G, n_parts), W, win_len,
+                  static_cast<float*>(ml)};
 }
 
 }  // namespace uniform_decode

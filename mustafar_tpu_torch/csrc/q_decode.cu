@@ -3,9 +3,10 @@
 // Replaces the TPU kernel mustafar_tpu/ops/kernels/quant_attention.py
 // fused_q_decode_attention (Pallas body _q_decode_kernel) for the codecs
 // q8 (int8 K, int8 V), q8q4 (int8 K, int4 V) and q4q4 (int4 K, int4 V),
-// with its window probabilities (return_win_probs, decode_tile.cuh) and
-// its other options (sliding window, (m, l) stats) off.  For one layer `li` of the stacked cache and each (batch row b, kv
-// head h) it attends the G = Hq / Hkv query heads of that kv head over
+// with its window probabilities (return_win_probs) and final (m, l)
+// (return_norm), both decode_tile.cuh, and its sliding window off.  For
+// one layer `li` of the stacked cache and each (batch row b, kv head h) it
+// attends the G = Hq / Hkv query heads of that kv head over
 //   1. `n_chunks` packed pool chunks of 256 tokens: K, then V, as codes of
 //      `kbits` / `vbits` bits, 16/bits tokens per int16 row (at 8 bits
 //      token t in the low byte of row t and token t+128 in the high byte;
@@ -246,6 +247,7 @@ struct Args {
   int* counters;
   int out_f32, BH, max_chunks, W, wt, n_chunks, win_len, li, n_parts;
   void* probs;
+  void* ml;
 };
 
 template <int G, int KB, int VB>
@@ -260,7 +262,7 @@ int launch(const Args& a, int device, cudaStream_t s) {
       static_cast<const __nv_bfloat16*>(a.scales), static_cast<const __nv_bfloat16*>(a.k_win),
       static_cast<const __nv_bfloat16*>(a.v_win), a.out, a.part, a.counters, a.out_f32, a.BH,
       a.max_chunks, a.W, a.wt, a.n_chunks, a.win_len, a.li, a.n_parts,
-      win_probs(a.probs, a.part, a.BH, G, a.n_parts, a.W, a.win_len));
+      win_probs(a.probs, a.ml, a.part, a.BH, G, a.n_parts, a.W, a.win_len));
   return (int)cudaGetLastError();
 }
 
@@ -289,9 +291,10 @@ int launch_groups(int G, const Args& a, int device, cudaStream_t s) {
 // counters, `n_counters` of them, at least BH, zero before the launch and
 // left so.  `probs` null, or f32 [B*Hkv, W] for the window probabilities;
 // the scratch then holds B*Hkv*G*W floats more, for the window scores.
+// `ml` null, or f32 [2][B*Hkv*G] for the final (m, l).
 extern "C" int q_decode_attention(const void* q, const void* pool, const void* scales,
                                   const void* k_win, const void* v_win, void* out,
-                                  void* probs, void* scratch, void* counters,
+                                  void* probs, void* ml, void* scratch, void* counters,
                                   int scratch_floats,
                                   int n_counters, int out_f32, int device, int kbits,
                                   int vbits, int BH, int G, int max_chunks, int W, int wt,
@@ -305,7 +308,7 @@ extern "C" int q_decode_attention(const void* q, const void* pool, const void* s
   if (set != cudaSuccess) return (int)set;
   const Args a{q, pool, scales, k_win, v_win, out, static_cast<float*>(scratch),
                static_cast<int*>(counters), out_f32, BH, max_chunks, W, wt, n_chunks,
-               win_len, li, n_parts, probs};
+               win_len, li, n_parts, probs, ml};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kbits == 8 && vbits == 8) return launch_groups<8, 8>(G, a, device, s);
   if (kbits == 8 && vbits == 4) return launch_groups<8, 4>(G, a, device, s);

@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel mustafar_tpu/ops/kernels/quant_attention.py
 // fused_q_decode_attention_ps (Pallas body _q_ps_kernel) for the codecs
-// q8, q8q4 and q4q4, with its options (sliding window, window
-// probabilities) off.  The G query heads of (slot b, kv head h) attend
+// q8, q8q4 and q4q4, with its window probabilities (return_win_probs,
+// split_merge.cuh: a third launch after the merge) and its sliding window
+// off.  The G query heads of (slot b, kv head h) attend
 // slot b's first n_chunks[b] pool chunks and win_len[b] window tokens, the
 // counts taken from int32 device arrays, so the continuous-batching decode
 // step never syncs with the host to size itself.  Counts are clamped into
@@ -83,6 +84,7 @@ struct Args {
   int hkv;
   float* part;                    // scratch of n_splits splits a row
   int n_splits;
+  split_merge::SlotProbs sp;      // window probabilities (sp.out null: off)
 };
 
 template <int G, int KB, int VB>
@@ -91,7 +93,8 @@ void launch(const Args& a, cudaStream_t stream) {
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const int16_t*>(a.pool),
       static_cast<const __nv_bfloat16*>(a.scales), static_cast<const __nv_bfloat16*>(a.k_win),
       static_cast<const __nv_bfloat16*>(a.v_win), a.out, a.out_f32, a.BH, a.max_chunks, a.W,
-      a.wt, a.n_chunks, a.win_len, a.li, a.nc_slot, a.wl_slot, a.hkv, a.part, a.n_splits);
+      a.wt, a.n_chunks, a.win_len, a.li, a.nc_slot, a.wl_slot, a.hkv, a.part, a.n_splits,
+      a.sp);
 }
 
 template <int KB, int VB>
@@ -125,9 +128,9 @@ inline int launch_decode(const Args& a, int device, int kbits, int vbits, int G,
   if (kbits == 8 && vbits == 4) err = launch_groups<8, 4>(G, a, s);
   if (kbits == 4 && vbits == 4) err = launch_groups<4, 4>(G, a, s);
   if (err != (int)cudaSuccess) return err;
-  return (int)split_merge::launch_merge(
+  return (int)split_merge::launch_merge_probs(
       a.part, a.out, a.out_f32, a.BH, G, a.n_splits,
-      split_merge::SlotLive{a.nc_slot, a.wl_slot, a.hkv, a.max_chunks, a.W, a.wt}, s);
+      split_merge::SlotLive{a.nc_slot, a.wl_slot, a.hkv, a.max_chunks, a.W, a.wt}, s, a.sp);
 }
 
 }  // namespace
@@ -136,22 +139,27 @@ inline int launch_decode(const Args& a, int device, int kbits, int vbits, int G,
 // n_chunks[B], win_len[B] int32; `hkv` the kv heads per slot (BH = B*hkv);
 // scratch f32, `scratch_floats` of them, refused if fewer than
 // split_merge::scratch_floats(BH, G, n_splits), with n_splits = max_chunks +
-// ceil(W / wt).
+// ceil(W / wt).  `probs` null, or f32 [B*Hkv, W] for the window
+// probabilities; the scratch then holds split_merge::slot_probs_floats(BH,
+// G, W) floats more, for the window scores and the final stats.
 extern "C" int q_decode_attention_ps(const void* q, const void* pool,
                                      const void* scales, const void* k_win,
                                      const void* v_win, const void* n_chunks,
-                                     const void* win_len, void* out, void* scratch,
-                                     int scratch_floats, int out_f32, int device,
-                                     int kbits, int vbits, int BH, int hkv, int G,
-                                     int max_chunks, int W, int wt, int li, int n_splits,
-                                     void* stream) {
+                                     const void* win_len, void* out, void* probs,
+                                     void* scratch, int scratch_floats, int out_f32,
+                                     int device, int kbits, int vbits, int BH, int hkv,
+                                     int G, int max_chunks, int W, int wt, int li,
+                                     int n_splits, void* stream) {
   if (n_chunks == nullptr || win_len == nullptr || scratch == nullptr || hkv < 1 ||
-      BH % hkv || G < 1 || n_splits < 1 || scratch_floats < 0 ||
-      (size_t)scratch_floats < split_merge::scratch_floats(BH, G, n_splits))
+      BH % hkv || G < 1 || n_splits < 1 || scratch_floats < 0 || W < 0 ||
+      (size_t)scratch_floats < split_merge::scratch_floats(BH, G, n_splits) +
+                                   (probs != nullptr ? split_merge::slot_probs_floats(BH, G, W)
+                                                     : 0))
     return (int)cudaErrorInvalidValue;
+  float* part = static_cast<float*>(scratch);
   const Args a{q, pool, scales, k_win, v_win, out, out_f32, BH, max_chunks, W, wt,
                      0, 0, li, static_cast<const int*>(n_chunks),
-                     static_cast<const int*>(win_len), hkv, static_cast<float*>(scratch),
-                     n_splits};
+                     static_cast<const int*>(win_len), hkv, part, n_splits,
+                     split_merge::slot_probs(probs, part, BH, G, n_splits, W)};
   return launch_decode(a, device, kbits, vbits, G, stream);
 }

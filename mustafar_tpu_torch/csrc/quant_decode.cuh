@@ -8,7 +8,8 @@
 // accumulator is that step's value product (acc * 0 + pv, bit for bit).  A
 // block writes its unnormalised partials to scratch (split_merge.cuh), or
 // nothing if its chunk or tile lies past the slot's counts, and
-// merge_kernel combines them.  (The uniform entry, q_decode.cu, has its
+// merge_kernel combines them.  With window probabilities asked for, a
+// window split also stores its raw scores (split_merge.cuh).  (The uniform entry, q_decode.cu, has its
 // own body, on decode_tile.cuh.)
 
 #pragma once
@@ -90,7 +91,9 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                    const int* __restrict__ wl_slot,          // [B] or null
                    int hkv,
                    float* __restrict__ part,                 // split_merge layout
-                   int n_splits) {
+                   int n_splits,
+                   split_merge::SlotProbs sp) {              // window probabilities
+                                                             // (sp.out null: off)
   static_assert(G <= WARPS, "one warp per query head in the softmax step");
   constexpr int KF = Stream<KB>::FIELDS;
   constexpr int K_ROWS = Stream<KB>::ROWS;
@@ -233,6 +236,10 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
       }
     }
     __syncthreads();
+    if (sp.out != nullptr) {   // the raw scores, for the window probabilities
+      split_merge::store_win_scores<G>(sm.s, sp, bh, t0, nt, tid, THREADS);
+      __syncthreads();
+    }
     softmax_step<G>(sm, nt, warp, lane);
 
     float pv[G];

@@ -6,8 +6,8 @@
 // mustafar_tpu/ops/kernels/sparse_attention.py fused_sparse_decode_attention_v7
 // (Pallas body _fused_v7_kernel) for the codecs bitmap (bf16 values, 16
 // bits) and bitmap-q8 (int8 codes, 8 bits), with its window probabilities
-// (return_win_probs, decode_tile.cuh) and its other options (sliding
-// window, (m, l) stats) off.  For one layer `li` of
+// (return_win_probs) and final (m, l) (return_norm), both decode_tile.cuh,
+// and its sliding window off.  For one layer `li` of
 // the stacked cache and each (batch row b, kv head h) it attends the
 // G = Hq / Hkv query heads of that kv head over
 //   1. `n_chunks` packed pool chunks of 256 tokens, each a K stream then a
@@ -321,6 +321,7 @@ struct Args {
   int* counters;
   int out_f32, BH, max_chunks, W, wt, n_chunks, win_len, li, n_parts;
   void* probs;
+  void* ml;
 };
 
 template <int G, int QBITS>
@@ -336,7 +337,7 @@ int launch(const Args& a, const Fmt<QBITS>& kf, const Fmt<QBITS>& vf, int device
       static_cast<const __nv_bfloat16*>(a.scales), static_cast<const __nv_bfloat16*>(a.k_win),
       static_cast<const __nv_bfloat16*>(a.v_win), a.out, a.part, a.counters, a.out_f32, a.BH,
       a.max_chunks, a.W, a.wt, a.n_chunks, a.win_len, a.li, kf, vf, a.n_parts,
-      win_probs(a.probs, a.part, a.BH, G, a.n_parts, a.W, a.win_len));
+      win_probs(a.probs, a.ml, a.part, a.BH, G, a.n_parts, a.W, a.win_len));
   return (int)cudaGetLastError();
 }
 
@@ -370,10 +371,11 @@ int launch_width(int G, const Args& a, int k0, int k1, int vk0, int vk1, int dev
 // * 4 + ceil(win_len / wt)); int32 counters, `n_counters` of them, at
 // least BH, zero before the launch and left so.  `probs` null, or f32
 // [B*Hkv, W] for the window probabilities (decode_tile.cuh); the scratch
-// then holds B*Hkv*G*W floats more, for the window scores.
+// then holds B*Hkv*G*W floats more, for the window scores.  `ml` null, or
+// f32 [2][B*Hkv*G] for the final (m, l).
 extern "C" int sp_decode(const void* q, const void* pool, const void* scales,
                          const void* k_win, const void* v_win, void* out, void* probs,
-                         void* scratch, void* counters, int scratch_floats, int n_counters, int out_f32,
+                         void* ml, void* scratch, void* counters, int scratch_floats, int n_counters, int out_f32,
                          int device, int qbits, int BH, int G, int max_chunks, int W,
                          int wt, int n_chunks, int win_len, int li, int k0, int k1,
                          int vk0, int vk1, void* stream) {
@@ -386,7 +388,7 @@ extern "C" int sp_decode(const void* q, const void* pool, const void* scales,
   if (set != cudaSuccess) return (int)set;
   const Args a{q, pool, scales, k_win, v_win, out, static_cast<float*>(scratch),
                static_cast<int*>(counters), out_f32, BH, max_chunks, W, wt, n_chunks,
-               win_len, li, n_parts, probs};
+               win_len, li, n_parts, probs, ml};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (qbits == 16) return launch_width<16>(G, a, k0, k1, vk0, vk1, device, s);
   if (qbits == 8) return launch_width<8>(G, a, k0, k1, vk0, vk1, device, s);
@@ -399,8 +401,9 @@ extern "C" int sp_decode(const void* q, const void* pool, const void* scales,
 // sp_decode_ps replaces the TPU kernel
 // mustafar_tpu/ops/kernels/sparse_attention.py
 // fused_sparse_decode_attention_v6ps (Pallas body _fused_v6ps_kernel) for
-// the codecs bitmap and bitmap-q8, with its options (sliding window, window
-// probabilities) off.  It is sp_decode with the counts read per slot: the
+// the codecs bitmap and bitmap-q8, with its window probabilities
+// (return_win_probs, split_merge.cuh: a third launch after the merge) and
+// its sliding window off.  It is sp_decode with the counts read per slot: the
 // G query heads of (b, kv head h) attend slot b's first n_chunks[b] pool
 // chunks and win_len[b] window tokens, taken from int32 device arrays, so
 // the continuous-batching decode step never syncs with the host to size
@@ -461,18 +464,20 @@ extern "C" int sp_decode(const void* q, const void* pool, const void* scales,
 // ceil(W / wt).
 extern "C" int sp_decode_ps(const void* q, const void* pool, const void* scales,
                             const void* k_win, const void* v_win, const void* n_chunks,
-                            const void* win_len, void* out, void* scratch,
+                            const void* win_len, void* out, void* probs, void* scratch,
                             int scratch_floats, int out_f32, int device, int qbits,
                             int BH, int hkv, int G,
                             int max_chunks, int W, int wt, int li, int k0, int k1,
                             int vk0, int vk1, int n_splits, void* stream) {
   if (n_chunks == nullptr || win_len == nullptr || scratch == nullptr || hkv < 1 ||
-      BH % hkv || G < 1 || n_splits < 1 || scratch_floats < 0 ||
-      (size_t)scratch_floats < split_merge::scratch_floats(BH, G, n_splits))
+      BH % hkv || G < 1 || n_splits < 1 || scratch_floats < 0 || W < 0 ||
+      (size_t)scratch_floats < split_merge::scratch_floats(BH, G, n_splits) +
+                                   (probs != nullptr ? split_merge::slot_probs_floats(BH, G, W)
+                                                     : 0))
     return (int)cudaErrorInvalidValue;
   return bitmap_decode::launch_bits(qbits, k0, k1, vk0, vk1, q, pool, scales, k_win,
                                     v_win, out, out_f32, device, BH, G, max_chunks, W,
                                     wt, 0, 0, li, static_cast<const int*>(n_chunks),
                                     static_cast<const int*>(win_len), hkv,
-                                    static_cast<float*>(scratch), n_splits, stream);
+                                    static_cast<float*>(scratch), n_splits, probs, stream);
 }

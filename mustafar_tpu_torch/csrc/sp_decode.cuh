@@ -11,7 +11,8 @@
 // value product (acc * 0 + pv, bit for bit).  A block writes its
 // unnormalised partials to scratch (split_merge.cuh), or nothing if its
 // chunk or tile lies past the slot's counts, and merge_kernel combines
-// them.  (The uniform entry sp_decode has its own body, on decode_tile.cuh.)
+// them; with window probabilities asked for, a window split also stores
+// its raw scores (split_merge.cuh).  (The uniform entry sp_decode has its own body, on decode_tile.cuh.)
 //
 // Layout of the work: one block of 8 warps per (b, kv head) and split, all
 // G query heads of the kv head in the block, so each packed byte is read
@@ -74,7 +75,9 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                  const int* __restrict__ wl_slot,          // [B] or null
                  int hkv,
                  float* __restrict__ part,                 // split_merge layout
-                 int n_splits) {
+                 int n_splits,
+                 split_merge::SlotProbs sp) {              // window probabilities
+                                                           // (sp.out null: off)
   static_assert(G <= WARPS, "one warp per query head in the softmax step");
   // dynamic shared memory: Smem, then one or two buffers of one chunk's
   // stream (two where a block attends more than one chunk)
@@ -225,6 +228,10 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
       score_row(qr, v, t);
     }
     __syncthreads();
+    if (sp.out != nullptr) {   // the raw scores, for the window probabilities
+      split_merge::store_win_scores<G>(sm.s, sp, bh, t0, nt, tid, THREADS);
+      __syncthreads();
+    }
     online_softmax::softmax_step<G>(sm, nt, warp, lane);
 
     float pv[G][4];
@@ -272,7 +279,7 @@ int launch_decode(const void* q, const void* pool, const void* scales,
                   int device, int BH, int G, int max_chunks, int W, int wt,
                   int n_chunks, int win_len, int li, Fmt<QBITS> kf, Fmt<QBITS> vf,
                   const int* nc_slot, const int* wl_slot, int hkv, float* part,
-                  int n_splits, void* stream) {
+                  int n_splits, void* probs, void* stream) {
   if (wt < 1 || wt > TILE || BH < 1 || max_chunks < 0 || W < 0 || li < 0 ||
       (QBITS == 8) != (scales != nullptr))
     return (int)cudaErrorInvalidValue;
@@ -284,6 +291,7 @@ int launch_decode(const void* q, const void* pool, const void* scales,
   // a split block stages one chunk
   const size_t stage_bytes = (size_t)(kf.rows() + vf.rows()) * D * sizeof(int16_t);
   const dim3 grid(BH, n_splits);
+  const split_merge::SlotProbs sp = split_merge::slot_probs(probs, part, BH, G, n_splits, W);
   cudaError_t err = cudaSuccess;
 #define SP_INSTANCE(g)                                                        \
   {                                                                           \
@@ -297,7 +305,7 @@ int launch_decode(const void* q, const void* pool, const void* scales,
         static_cast<const __nv_bfloat16*>(k_win),                             \
         static_cast<const __nv_bfloat16*>(v_win), out, out_f32, BH,           \
         max_chunks, W, wt, n_chunks, win_len, li, kf, vf, nc_slot, wl_slot,   \
-        hkv, part, n_splits);                                                 \
+        hkv, part, n_splits, sp);                                             \
   }
   switch (G) {
     case 1: SP_INSTANCE(1); break;
@@ -309,9 +317,9 @@ int launch_decode(const void* q, const void* pool, const void* scales,
 #undef SP_INSTANCE
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)split_merge::launch_merge(
+  return (int)split_merge::launch_merge_probs(
       part, out, out_f32, BH, G, n_splits,
-      split_merge::SlotLive{nc_slot, wl_slot, hkv, max_chunks, W, wt}, s);
+      split_merge::SlotLive{nc_slot, wl_slot, hkv, max_chunks, W, wt}, s, sp);
 }
 
 // The formats (k0, k1) and (vk0, vk1) at `qbits` bits, checked, and the
@@ -321,7 +329,8 @@ inline int launch_bits(int qbits, int k0, int k1, int vk0, int vk1, const void* 
                        const void* v_win, void* out, int out_f32, int device, int BH,
                        int G, int max_chunks, int W, int wt, int n_chunks,
                        int win_len, int li, const int* nc_slot, const int* wl_slot,
-                       int hkv, float* part, int n_splits, void* stream) {
+                       int hkv, float* part, int n_splits, void* probs,
+                       void* stream) {
 #define SP_BITS(b)                                                                 \
   {                                                                                \
     bool k_ok, v_ok;                                                               \
@@ -330,7 +339,7 @@ inline int launch_bits(int qbits, int k0, int k1, int vk0, int vk1, const void* 
     if (!k_ok || !v_ok) return (int)cudaErrorInvalidValue;                         \
     return launch_decode<b>(q, pool, scales, k_win, v_win, out, out_f32, device,  \
                             BH, G, max_chunks, W, wt, n_chunks, win_len, li, kf,  \
-                            vf, nc_slot, wl_slot, hkv, part, n_splits,            \
+                            vf, nc_slot, wl_slot, hkv, part, n_splits, probs,     \
                             stream);                                               \
   }
   if (qbits == 16) SP_BITS(16);

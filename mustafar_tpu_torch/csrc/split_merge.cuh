@@ -24,6 +24,17 @@
 // live splits' m and l go to shared memory first (all loads in flight at
 // once), so each thread's pass over the splits waits only on its own acc
 // loads, which the unrolled loop keeps several of in flight.
+//
+// Window probabilities of the per-slot kernels (the TPU kernels'
+// return_win_probs, for the Opa policies): each window split stores its
+// raw f32 scores into scratch after the partials (store_win_scores; `ws`
+// [BH, G, W]), the merge writes the rows' final (m, l) there too (`ml`
+// [2][BH*G]), and a third launch, probs_kernel, writes per row bh and
+// window column c
+//   sum_g exp(ws[bh, g, c] - m_g) / max(l_g, 1e-30)   (0 at and past win_len),
+// one block a row, the heads summed in order g = 0, 1, ...: the merge's
+// grid is one block per (bh, g), so a sum over g there would cross blocks
+// and need atomics, whose order varies from launch to launch.
 
 #pragma once
 
@@ -99,6 +110,38 @@ merge_kernel(const float* __restrict__ part, void* __restrict__ out, int out_f32
     static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16(o);
 }
 
+// The outputs of the per-slot window probabilities: `out` f32 [BH, W]
+// (null: off), and in the scratch after the partials the raw window scores
+// `ws` [BH, G, W] and the final stats `ml` [2][BH*G].
+struct SlotProbs {
+  float* out;
+  float* ws;
+  float* ml;
+  int W;
+};
+
+// Floats the window probabilities add to a per-slot call's scratch.
+inline size_t slot_probs_floats(int BH, int G, int W) {
+  return (size_t)BH * G * W + 2 * (size_t)BH * G;
+}
+
+// The SlotProbs of a launch: `probs` (null: off) and its scratch.
+inline SlotProbs slot_probs(void* probs, float* part, int BH, int G, int n_splits, int W) {
+  float* ws = part + scratch_floats(BH, G, n_splits);
+  return SlotProbs{static_cast<float*>(probs), ws, ws + (size_t)BH * G * W, W};
+}
+
+// A window split's raw scores s[g][0, n) to ws at columns w0 .. w0 + n - 1
+// (`threads` threads); the caller syncs before anything overwrites s.
+template <int G, int TS>
+__device__ __forceinline__ void store_win_scores(const float (&s)[G][TS], const SlotProbs& sp,
+                                                 int bh, int w0, int n, int tid, int threads) {
+  for (int i = tid; i < G * n; i += threads) {
+    const int g = i / n, t = i % n;
+    sp.ws[((size_t)bh * G + g) * sp.W + w0 + t] = s[g][t];
+  }
+}
+
 // Which splits row bh of a per-slot call attends, for the per-slot decode
 // kernels (one split a pool chunk, then one a window tile of `wt` tokens):
 // the chunk splits [0, n_chunks) and the window splits
@@ -112,9 +155,30 @@ struct SlotLive {
     const int b = bh / hkv;
     a = min(max(nc_slot[b], 0), max_chunks);
     c = max_chunks;
-    n = (min(max(wl_slot[b], 0), W) + wt - 1) / wt;
+    n = (win_len(bh) + wt - 1) / wt;
   }
+  // row bh's window tokens, clamped
+  __device__ int win_len(int bh) const { return min(max(wl_slot[bh / hkv], 0), W); }
 };
+
+// The window probabilities of each row (one block of D threads a row, a
+// thread a column at a time) from the scores and stats in `sp`.
+template <class Live>
+__global__ void __launch_bounds__(D)
+probs_kernel(SlotProbs sp, int BH, int G, Live live) {
+  const int bh = blockIdx.x;
+  const int wl = live.win_len(bh);
+  const float* m = sp.ml + (size_t)bh * G;
+  const float* l = sp.ml + (size_t)BH * G + (size_t)bh * G;
+  for (int c = threadIdx.x; c < sp.W; c += D) {
+    float pr = 0.f;
+    if (c < wl) {
+      for (int g = 0; g < G; ++g)
+        pr += expf(sp.ws[((size_t)bh * G + g) * sp.W + c] - m[g]) / fmaxf(l[g], 1e-30f);
+    }
+    sp.out[(size_t)bh * sp.W + c] = pr;
+  }
+}
 
 // Launches merge_kernel over BH rows of G heads on `stream` (with the final
 // stats into `ml_out` when it is not null).
@@ -126,6 +190,19 @@ cudaError_t launch_merge(const float* part, void* out, int out_f32, int BH, int 
   const int smem = (int)(2 * sizeof(float) * n_splits);
   merge_kernel<Live><<<dim3(BH, G), D, smem, stream>>>(part, out, out_f32, BH, G,
                                                        n_splits, live, ml_out);
+  return cudaGetLastError();
+}
+
+// The merge, and with `sp.out` the window probabilities after it (the
+// final stats into sp.ml, then probs_kernel).
+template <class Live>
+cudaError_t launch_merge_probs(const float* part, void* out, int out_f32, int BH, int G,
+                               int n_splits, Live live, cudaStream_t stream,
+                               const SlotProbs& sp) {
+  cudaError_t err = launch_merge(part, out, out_f32, BH, G, n_splits, live, stream,
+                                 sp.out != nullptr ? sp.ml : nullptr);
+  if (err != cudaSuccess || sp.out == nullptr) return err;
+  probs_kernel<Live><<<BH, D, 0, stream>>>(sp, BH, G, live);
   return cudaGetLastError();
 }
 

@@ -3,8 +3,10 @@ PyTorch versions and the wrappers that pick between them by device.
 
 Ports of ``mustafar_tpu/ops/kernels/quant_attention.py`` for the codecs q8
 (int8 K, int8 V), q8q4 (int8 K, int4 V) and q4q4 (int4 K, int4 V) at
-256-token chunks, options off but the uniform decode's window
-probabilities (``return_win_probs``, for the Opa policies):
+256-token chunks, with the options the output-aware (Opa) policies read:
+the decode kernels' window probabilities (``return_win_probs``) and the
+uniform decode's final softmax stats (``return_norm``); the sliding window
+stays off:
   fused_q_decode_attention     uniform-batch decode   csrc/q_decode.cu
                                (one CTA a split, the merge fused)
   fused_q_decode_attention_ps  per-slot decode        csrc/q_decode_ps.cu
@@ -93,12 +95,10 @@ def _check_int(name, val, lo, hi):
         raise ValueError(f"{name} must be an int in [{lo}, {hi}], got {val!r}")
 
 
-def _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec, window,
-                  return_norm, return_win_probs, name):
+def _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec, window, name):
     """Shapes, types and devices both decode kernels share; returns
     (BH, G, mc, W)."""
     _check_codec(codec, window, name)
-    _check_options(return_norm, return_win_probs, name)
     if q.dim() != 4 or q.shape[1] != 1 or q.shape[3] != 128:
         raise ValueError(f"q must be [B, 1, Hq, 128], got {tuple(q.shape)}")
     B, _, Hq, _ = q.shape
@@ -116,19 +116,6 @@ def _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec, window,
                        ("v_win", v_win, torch.bfloat16)))
     _check_int("li", li, 0, L - 1)
     return BH, Hq // Hkv, mc, k_win.shape[2]
-
-
-def _check_options(return_norm, return_win_probs, name):
-    """The Opa options the decode kernels take: window probabilities on the
-    uniform kernels (1 and 6) only; no (m, l) stats."""
-    if return_norm:
-        raise NotImplementedError(
-            f"{name}: the final softmax stats (m, l), which no JAX path reads, "
-            "are ROADMAP Queue A item 12")
-    if return_win_probs and name.endswith("_ps"):
-        raise NotImplementedError(
-            f"{name}: window probabilities of the per-slot kernels (Opa in the "
-            "continuous-batching engine) are ROADMAP Queue A item 12")
 
 
 def _check_aligned(named):
@@ -209,16 +196,25 @@ def win_probs_of(ws, m, l, W: int):
     return torch.nn.functional.pad(out, (0, W - out.shape[-1]))
 
 
+def with_options(out, m, l, probs, norm: bool, win_probs: bool):
+    """A decode call's result: ``out``, then with ``norm`` the final stats
+    m and l [B, Hkv, G, 1] f32, then with ``win_probs`` the window
+    probabilities [B, Hkv, W] (the TPU kernels' order)."""
+    extras = ((m, l) if norm else ()) + ((probs,) if win_probs else ())
+    return (out, *extras) if extras else out
+
+
 def decode_steps(q, BH: int, n_chunks: int, chunk_step, k_win, v_win,
-                 win_len: int, li: int, win_probs: bool = False):
+                 win_len: int, li: int, win_probs: bool = False, norm: bool = False):
     """The decode kernels' softmax steps, shared by every codec's plain
     version.  Per (b, kv head) and query head: ``chunk_step(qf32, ci)``
     gives chunk ci's scores [BH, G, 256], its values [BH, 256, D] (f32) and
     its V scale [BH, D] or None; then window scores q . k / sqrt(128).  One
     online softmax in steps of one chunk or one window tile
     (``window_tile``); p rounded to bf16 for the value product.  Out is f32
-    -> q's dtype; with ``win_probs`` also the window probabilities [B, Hkv,
-    W] (``win_probs_of`` on the final stats)."""
+    -> q's dtype; with ``norm`` also the final (m, l) [B, Hkv, G, 1], with
+    ``win_probs`` the window probabilities [B, Hkv, W] (``win_probs_of`` on
+    the final stats), in that order (``with_options``)."""
     B, _, Hq, D = q.shape
     G = Hq // (BH // B)
     f32 = torch.float32
@@ -238,9 +234,11 @@ def decode_steps(q, BH: int, n_chunks: int, chunk_step, k_win, v_win,
         ws.append((qf32 @ kw.transpose(1, 2)) * SM_SCALE)
         m, l, acc = _softmax_step(m, l, acc, ws[-1], vw, None)
     out = (acc / torch.clamp_min(l, 1e-30)).reshape(B, 1, Hq, D).to(q.dtype)
-    if not win_probs:
-        return out
-    return out, win_probs_of(torch.cat(ws, dim=-1), m, l, W).reshape(B, BH // B, W)
+    probs = (win_probs_of(torch.cat(ws, dim=-1), m, l, W).reshape(B, BH // B, W)
+             if win_probs else None)
+    Hkv = BH // B
+    return with_options(out, m.reshape(B, Hkv, G, 1), l.reshape(B, Hkv, G, 1), probs,
+                        norm, win_probs)
 
 
 def slots(B: int, BH: int, n_chunks, win_len, mc: int, W: int):
@@ -259,7 +257,8 @@ def ps_splits(mc: int, W: int) -> int:
 
 
 def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_win,
-                   li: int, cut: int = 1, ordered: bool = False, win_probs: bool = False):
+                   li: int, cut: int = 1, ordered: bool = False, win_probs: bool = False,
+                   norm: bool = False):
     """The split decode kernels' arithmetic, shared by every codec's split
     plain version: per slot (counts clamped, ``slots``), the partials (acc,
     m, l) of each of its chunks (``slot_step(hs)`` is the chunk step, as in
@@ -268,16 +267,18 @@ def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_w
     from a fresh state, merged in split order (``merge_partials``); the
     window's scores summed in the kernels' order with ``ordered``
     (``_scores``; the chunk step takes its own).  A slot with nothing to
-    attend comes out 0.  Out is f32 -> q's dtype; with ``win_probs`` also
-    the window probabilities [B, Hkv, W] on the merge's final stats (the
-    uniform kernels' epilogue)."""
+    attend comes out 0.  Out is f32 -> q's dtype; with ``norm`` also the
+    merge's final (m, l) [B, Hkv, G, 1] (l unclamped; m = -1e30, l = 0 for
+    a slot with nothing to attend), with ``win_probs`` the window
+    probabilities [B, Hkv, W] on those stats (the kernels' epilogue), in
+    that order (``with_options``)."""
     B, _, Hq, D = q.shape
     Hkv = BH // B
     G = Hq // Hkv
     f32 = torch.float32
     W = k_win.shape[2]
     wt = window_tile(W)
-    outs, probs = [], []
+    outs, probs, ms, ls = [], [], [], []
     for b, hs, nc, wl in slots(B, BH, n_chunks, win_len, mc, W):
         step = slot_step(hs)
         qf32 = q[b].to(torch.bfloat16).to(f32).reshape(Hkv, G, D)
@@ -302,9 +303,11 @@ def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_w
         else:
             out, m, l = fresh[2], fresh[0], fresh[1]
         outs.append(out.reshape(1, 1, Hq, D))
+        ms.append(m)
+        ls.append(l)
         probs.append(win_probs_of(torch.cat(ws, dim=-1), m, l, W)[None])
-    out = torch.cat(outs).to(q.dtype)
-    return (out, torch.cat(probs)) if win_probs else out
+    return with_options(torch.cat(outs).to(q.dtype), torch.stack(ms), torch.stack(ls),
+                        torch.cat(probs), norm, win_probs)
 
 
 def segment_steps(q_seg, BH: int, n_chunks: int, chunk_step):
@@ -352,12 +355,13 @@ def _q_chunk_step(kv_pool, kv_scales, li, codec, ordered: bool = False):
 
 def fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
                                    n_chunks: int, win_len: int, li: int,
-                                   codec: qf.QuantCodec, win_probs: bool = False):
+                                   codec: qf.QuantCodec, win_probs: bool = False,
+                                   norm: bool = False):
     """The uniform decode TPU kernel's arithmetic in PyTorch (``decode_steps``
     with the codec's chunk step)."""
     return decode_steps(q, kv_pool.shape[2], n_chunks,
                         _q_chunk_step(kv_pool, kv_scales, li, codec), k_win, v_win,
-                        win_len, li, win_probs)
+                        win_len, li, win_probs, norm)
 
 
 def uniform_splits(n_chunks: int, win_len: int, W: int, cut: int = 1):
@@ -369,7 +373,7 @@ def uniform_splits(n_chunks: int, win_len: int, W: int, cut: int = 1):
 
 
 def win_probs_out(q, BH: int, W: int, want: bool, n_splits: int):
-    """The window probabilities' output [B, Hkv, W] f32 of a uniform kernel
+    """The window probabilities' output [B, Hkv, W] f32 of a decode kernel
     call (every column written by the kernel; zeros when nothing launches),
     or None."""
     if not want:
@@ -378,6 +382,33 @@ def win_probs_out(q, BH: int, W: int, want: bool, n_splits: int):
     if n_splits == 0:
         return torch.zeros(shape, dtype=torch.float32, device=q.device)
     return torch.empty(shape, dtype=torch.float32, device=q.device)
+
+
+def norm_out(q, BH: int, want: bool, n_splits: int):
+    """The final stats' output [2, B, Hkv, G, 1] f32 (m, then l) of a uniform
+    kernel call (written by the kernel; -1e30 and 0 when nothing launches),
+    or None."""
+    if not want:
+        return None
+    B = q.shape[0]
+    shape = (2, B, BH // B, q.shape[2] // (BH // B), 1)
+    if n_splits == 0:
+        ml = torch.zeros(shape, dtype=torch.float32, device=q.device)
+        ml[0] = NEG_INF
+        return ml
+    return torch.empty(shape, dtype=torch.float32, device=q.device)
+
+
+def uniform_result(out, ml, probs, norm: bool, win_probs: bool):
+    """A uniform kernel call's result from its outputs (``with_options``;
+    ``ml`` from ``norm_out``)."""
+    m, l = (None, None) if ml is None else (ml[0], ml[1])
+    return with_options(out, m, l, probs, norm, win_probs)
+
+
+def _ptr(t):
+    """A tensor's address for ctypes, None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def uniform_counts(B: int, n_chunks: int, win_len: int, device):
@@ -441,7 +472,8 @@ def _library(name, fn_name, n_ptr, n_int):
 
 def fused_q_decode_attention_split_plain(q, kv_pool, kv_scales, k_win, v_win,
                                          n_chunks: int, win_len: int, li: int,
-                                         codec: qf.QuantCodec, win_probs: bool = False):
+                                         codec: qf.QuantCodec, win_probs: bool = False,
+                                         norm: bool = False):
     """The uniform CUDA kernel's arithmetic: each chunk and each window tile
     one split from a fresh softmax state, merged in split order, the scores
     summed in the kernel's order (``_scores``): the per-slot kernel's split
@@ -450,7 +482,7 @@ def fused_q_decode_attention_split_plain(q, kv_pool, kv_scales, k_win, v_win,
     return ps_split_steps(
         q, kv_pool.shape[2], nc, wl, kv_pool.shape[1],
         lambda hs: _q_chunk_step(kv_pool[:, :, hs], kv_scales[:, :, hs], li, codec, True),
-        k_win, v_win, li, ordered=True, win_probs=win_probs)
+        k_win, v_win, li, ordered=True, win_probs=win_probs, norm=norm)
 
 
 def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
@@ -461,51 +493,53 @@ def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
     """Quant-codec flash-decode of layer ``li`` over ``n_chunks`` pool chunks and the
     first ``win_len`` window tokens -> [B, 1, Hq, 128] in q's dtype (q is
     read as bf16, the output is computed in f32, as on the TPU); with
-    ``return_win_probs`` also the post-softmax weights of the window columns
+    ``return_norm`` also the final online-softmax stats m and l, each [B,
+    Hkv, G, 1] f32 (the weight of a column of score s is exp(s - m) / l);
+    with ``return_win_probs`` the post-softmax weights of the window columns
     summed over each kv head's query heads, [B, Hkv, W] f32, 0 at and past
-    ``win_len`` (the Opa policies score V with them).
+    ``win_len`` (the Opa policies score V with them); in that order
+    (``with_options``).
 
     CUDA tensors launch the kernel of ``csrc/q_decode.cu`` (built at first
     use) on the current stream, one CTA a split (``uniform_splits``), with
     the stream's split scratch and merge counters (``_split_scratch``,
     ``_split_counters``; the window probabilities' raw scores go in the
     scratch too); with nothing to attend the output (and the
-    probabilities) are 0 and nothing launches.  CPU tensors run the plain
-    version.  A CUDA request the kernel cannot serve raises; nothing falls
-    back."""
+    probabilities) are 0, m is -1e30 and l 0, and nothing launches.  CPU
+    tensors run the plain version.  A CUDA request the kernel cannot serve
+    raises; nothing falls back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec,
-                                 window, return_norm, return_win_probs,
-                                 "fused_q_decode_attention")
+                                 window, "fused_q_decode_attention")
     _check_int("n_chunks", n_chunks, 0, mc)
     _check_int("win_len", win_len, 0, W)
     if q.device.type == "cpu":
         return fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
                                               n_chunks, win_len, li, codec,
-                                              return_win_probs)
+                                              return_win_probs, return_norm)
     n_splits = sum(uniform_splits(n_chunks, win_len, W))
     probs = win_probs_out(q, BH, W, return_win_probs, n_splits)
+    ml = norm_out(q, BH, return_norm, n_splits)
     if n_splits == 0:
-        return (torch.zeros_like(q), probs) if return_win_probs else torch.zeros_like(q)
+        return uniform_result(torch.zeros_like(q), ml, probs, return_norm, return_win_probs)
     split_scratch_floats(BH, n_splits, G)        # a grid too large: refused up front
     stream = _stream(q)
     _check_aligned((("q", q), ("kv_pool", kv_pool), ("kv_scales", kv_scales),
                     ("k_win", k_win), ("v_win", v_win)))
-    fn = _library("q_decode", "q_decode_attention", 9, 14)
+    fn = _library("q_decode", "q_decode_attention", 10, 14)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
     scratch = _split_scratch(BH, n_splits, G, q.device, stream,
                              BH * G * W if return_win_probs else 0)
     counters = _split_counters(BH, q.device, stream)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
-            k_win.data_ptr(), v_win.data_ptr(), out.data_ptr(),
-            None if probs is None else probs.data_ptr(), scratch.data_ptr(),
-            counters.data_ptr(), scratch.numel(), counters.numel(),
+            k_win.data_ptr(), v_win.data_ptr(), out.data_ptr(), _ptr(probs), _ptr(ml),
+            scratch.data_ptr(), counters.data_ptr(), scratch.numel(), counters.numel(),
             int(out.dtype == torch.float32), q.device.index or 0, codec.kbits,
             codec.vbits, BH, G, mc, W, window_tile(W), n_chunks, win_len, li, stream)
     if rc != 0:
         raise RuntimeError(f"q_decode_attention launch failed: CUDA error {rc}")
     fused_q_decode_attention.launches += 1
-    return (out, probs) if return_win_probs else out
+    return uniform_result(out, ml, probs, return_norm, return_win_probs)
 
 
 fused_q_decode_attention.launches = 0
@@ -515,34 +549,55 @@ fused_q_decode_attention.launches = 0
 # Per-slot decode (continuous batching)
 # ---------------------------------------------------------------------------
 
+def per_slot_plain(uniform, q, BH: int, n_chunks, win_len, mc: int, W: int,
+                   win_probs: bool):
+    """A per-slot plain version from the uniform one: ``uniform(b, hs, nc,
+    wl)`` runs slot b (its kv heads ``hs``) at its own clamped counts
+    (``slots``) with ``win_probs``; the slots' outputs (and window
+    probabilities) concatenated."""
+    res = [uniform(b, hs, nc, wl) for b, hs, nc, wl in
+           slots(q.shape[0], BH, n_chunks, win_len, mc, W)]
+    if not win_probs:
+        return torch.cat(res)
+    return torch.cat([r[0] for r in res]), torch.cat([r[1] for r in res])
+
+
 def fused_q_decode_attention_ps_plain(q, kv_pool, kv_scales, k_win, v_win,
                                       n_chunks, win_len, li: int,
-                                      codec: qf.QuantCodec):
+                                      codec: qf.QuantCodec, win_probs: bool = False):
     """The per-slot kernel's arithmetic: slot b is the uniform computation
     over its own ``n_chunks[b]`` chunks and ``win_len[b]`` window tokens
     (clamped, ``slots``).  (The TPU kernel loops a block of heads to the
     largest counts among them; the extra steps are fully masked and add
     exactly zero to a head with something to attend, so looping over a
     slot's own counts is the same.)  A slot with nothing to attend comes
-    out 0."""
-    return torch.cat([
-        fused_q_decode_attention_plain(q[b:b + 1], kv_pool[:, :, hs],
-                                       kv_scales[:, :, hs], k_win[:, hs],
-                                       v_win[:, hs], nc, wl, li, codec)
-        for b, hs, nc, wl in slots(q.shape[0], kv_pool.shape[2], n_chunks,
-                                   win_len, kv_pool.shape[1], k_win.shape[2])])
+    out 0, and so do its window probabilities (``win_probs``)."""
+    return per_slot_plain(
+        lambda b, hs, nc, wl: fused_q_decode_attention_plain(
+            q[b:b + 1], kv_pool[:, :, hs], kv_scales[:, :, hs], k_win[:, hs],
+            v_win[:, hs], nc, wl, li, codec, win_probs),
+        q, kv_pool.shape[2], n_chunks, win_len, kv_pool.shape[1], k_win.shape[2],
+        win_probs)
 
 
 def fused_q_decode_attention_ps_split_plain(q, kv_pool, kv_scales, k_win, v_win,
                                             n_chunks, win_len, li: int,
-                                            codec: qf.QuantCodec):
+                                            codec: qf.QuantCodec, win_probs: bool = False):
     """The per-slot CUDA kernel's arithmetic (``ps_split_steps`` with the
     codec's chunk step): each chunk and each window tile of a slot one
-    split from a fresh softmax state, merged in split order."""
+    split from a fresh softmax state, merged in split order; with
+    ``win_probs`` also the window probabilities on the merge's stats."""
     return ps_split_steps(
         q, kv_pool.shape[2], n_chunks, win_len, kv_pool.shape[1],
         lambda hs: _q_chunk_step(kv_pool[:, :, hs], kv_scales[:, :, hs], li, codec),
-        k_win, v_win, li)
+        k_win, v_win, li, win_probs=win_probs)
+
+
+def per_slot_probs_scratch(BH: int, G: int, W: int, want: bool) -> int:
+    """Floats a per-slot call's window probabilities add to its split
+    scratch (``csrc/split_merge.cuh`` ``slot_probs_floats``): the raw window
+    scores [BH, G, W] and the merge's final stats [2, BH*G]."""
+    return BH * G * W + 2 * BH * G if want else 0
 
 
 def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
@@ -557,16 +612,19 @@ def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
     kernel reads its own slot's counts, so a decode step never syncs with
     the host to size itself.  Counts it cannot check without a sync are
     clamped in the kernel to [0, mc] and [0, W]; an idle slot is passed as
-    (0, 0) and comes out 0.
+    (0, 0) and comes out 0.  With ``return_win_probs`` also the window
+    probabilities [B, Hkv, W] f32 (``fused_q_decode_attention``), each slot's
+    zero at and past its own ``win_len``, an idle slot's all zero.
 
     CUDA tensors launch the kernels of ``csrc/q_decode_ps.cu`` (built at
-    first use: the split kernel, then its merge) on the current stream,
-    with the stream's split scratch (``_split_scratch``); CPU tensors run
-    the plain version.  A CUDA request the kernel cannot serve raises;
-    nothing falls back."""
+    first use: the split kernel, then its merge, then with
+    ``return_win_probs`` the probabilities from the merge's stats) on the
+    current stream, with the stream's split scratch (``_split_scratch``;
+    the window scores and stats after the partials); CPU tensors run the
+    plain version.  A CUDA request the kernel cannot serve raises; nothing
+    falls back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec,
-                                 window, False, return_win_probs,
-                                 "fused_q_decode_attention_ps")
+                                 window, "fused_q_decode_attention_ps")
     B = q.shape[0]
     for name, t in (("n_chunks", n_chunks), ("win_len", win_len)):
         if not torch.is_tensor(t) or tuple(t.shape) != (B,):
@@ -574,26 +632,30 @@ def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
     _check_tensors(q, (("n_chunks", n_chunks, torch.int32),
                        ("win_len", win_len, torch.int32)))
     if q.device.type == "cpu":
-        return fused_q_decode_attention_ps_plain(q, kv_pool, kv_scales, k_win,
-                                                 v_win, n_chunks, win_len, li, codec)
+        return fused_q_decode_attention_ps_plain(q, kv_pool, kv_scales, k_win, v_win,
+                                                 n_chunks, win_len, li, codec,
+                                                 return_win_probs)
     n_splits = ps_splits(mc, W)
     split_scratch_floats(BH, n_splits, G)        # a grid too large: refused up front
     stream = _stream(q)
     _check_aligned((("q", q), ("kv_pool", kv_pool), ("kv_scales", kv_scales),
                     ("k_win", k_win), ("v_win", v_win)))
-    fn = _library("q_decode_ps", "q_decode_attention_ps", 9, 13)
+    fn = _library("q_decode_ps", "q_decode_attention_ps", 10, 13)
     out = torch.empty_like(q)
+    probs = win_probs_out(q, BH, W, return_win_probs, n_splits)
     qb = q.to(torch.bfloat16)
-    scratch = _split_scratch(BH, n_splits, G, q.device, stream)
+    scratch = _split_scratch(BH, n_splits, G, q.device, stream,
+                             per_slot_probs_scratch(BH, G, W, return_win_probs))
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
             k_win.data_ptr(), v_win.data_ptr(), n_chunks.data_ptr(),
-            win_len.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.numel(),
-            int(out.dtype == torch.float32), q.device.index or 0, codec.kbits,
-            codec.vbits, BH, BH // B, G, mc, W, window_tile(W), li, n_splits, stream)
+            win_len.data_ptr(), out.data_ptr(), _ptr(probs), scratch.data_ptr(),
+            scratch.numel(), int(out.dtype == torch.float32), q.device.index or 0,
+            codec.kbits, codec.vbits, BH, BH // B, G, mc, W, window_tile(W), li, n_splits,
+            stream)
     if rc != 0:
         raise RuntimeError(f"q_decode_attention_ps launch failed: CUDA error {rc}")
     fused_q_decode_attention_ps.launches += 1
-    return out
+    return (out, probs) if return_win_probs else out
 
 
 fused_q_decode_attention_ps.launches = 0

@@ -3,9 +3,11 @@ PyTorch versions and the wrappers that pick between them by device.
 
 Ports of ``mustafar_tpu/ops/kernels/sparse_attention.py`` for the codecs
 "bitmap" (bf16 values, ``ops/sparse_format.ChunkFormat`` at ``qbits=16``)
-and "bitmap-q8" (int8 codes with per-channel scales, ``qbits=8``), options
-off but the uniform decode's window probabilities (``return_win_probs``,
-for the Opa policies; ``quant_attention.decode_steps``):
+and "bitmap-q8" (int8 codes with per-channel scales, ``qbits=8``), with the
+options the output-aware (Opa) policies read, as the quant kernels take
+them (``quant_attention``): the decode kernels' window probabilities
+(``return_win_probs``) and the uniform decode's final (m, l)
+(``return_norm``); the sliding window stays off:
   fused_sparse_decode_attention     uniform-batch decode  csrc/sp_decode.cu
                                     (TPU kernel v7)       (entry sp_decode: one
                                                           CTA a split, the
@@ -88,17 +90,13 @@ def _scales(kv_scales):
     return () if kv_scales is None else (("kv_scales", kv_scales),)
 
 
-def _ptr(t):
-    """A tensor's address for ctypes, None (NULL) for no tensor."""
-    return None if t is None else t.data_ptr()
+_ptr = qa._ptr
 
 
-def _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt, window,
-                  return_norm, return_win_probs, name):
+def _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt, window, name):
     """Shapes, types and devices both decode kernels share; returns
     (BH, G, mc, W)."""
     _check_formats(kfmt, vfmt, kv_scales, window, name)
-    qa._check_options(return_norm, return_win_probs, name)
     if q.dim() != 4 or q.shape[1] != 1 or q.shape[3] != 128:
         raise ValueError(f"q must be [B, 1, Hq, 128], got {tuple(q.shape)}")
     B, _, Hq, _ = q.shape
@@ -144,11 +142,12 @@ def _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt, ordered: bool = False):
 
 def fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win, n_chunks: int,
                                         win_len: int, li: int, kfmt, vfmt,
-                                        kv_scales=None, win_probs: bool = False):
+                                        kv_scales=None, win_probs: bool = False,
+                                        norm: bool = False):
     """The uniform bitmap decode TPU kernel's arithmetic in PyTorch."""
     return qa.decode_steps(q, kv_pool.shape[2], n_chunks,
                            _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt), k_win,
-                           v_win, win_len, li, win_probs)
+                           v_win, win_len, li, win_probs, norm)
 
 
 CHUNK_CUT = 4           # softmax steps the uniform kernel cuts a chunk into
@@ -156,7 +155,8 @@ CHUNK_CUT = 4           # softmax steps the uniform kernel cuts a chunk into
 
 def fused_sparse_decode_attention_split_plain(q, kv_pool, k_win, v_win, n_chunks: int,
                                               win_len: int, li: int, kfmt, vfmt,
-                                              kv_scales=None, win_probs: bool = False):
+                                              kv_scales=None, win_probs: bool = False,
+                                              norm: bool = False):
     """The uniform CUDA kernel's arithmetic (``quant_attention.ps_split_steps``
     with every slot at the call's counts and the bitmap chunk step): each
     chunk's ``CHUNK_CUT`` runs of 64 tokens and each window tile one split
@@ -167,7 +167,7 @@ def fused_sparse_decode_attention_split_plain(q, kv_pool, k_win, v_win, n_chunks
         q, kv_pool.shape[2], nc, wl, kv_pool.shape[1],
         lambda hs: _sp_chunk_step(kv_pool[:, :, hs], None if kv_scales is None
                                   else kv_scales[:, :, hs], li, kfmt, vfmt, True),
-        k_win, v_win, li, cut=CHUNK_CUT, ordered=True, win_probs=win_probs)
+        k_win, v_win, li, cut=CHUNK_CUT, ordered=True, win_probs=win_probs, norm=norm)
 
 
 def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
@@ -178,7 +178,8 @@ def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
     """Bitmap flash-decode of layer ``li`` over ``n_chunks`` pool chunks and
     the first ``win_len`` window tokens -> [B, 1, Hq, 128] in q's dtype (q
     is read as bf16, the output is computed in f32, as on the TPU); with
-    ``return_win_probs`` also the window probabilities [B, Hkv, W] f32
+    ``return_norm`` also the final (m, l), with ``return_win_probs`` the
+    window probabilities [B, Hkv, W] f32
     (``quant_attention.fused_q_decode_attention``).  ``kv_scales`` is
     required for ``qbits=8`` formats and refused otherwise.
 
@@ -187,40 +188,42 @@ def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
     width) on the current stream, one CTA a split
     (``quant_attention.uniform_splits`` with ``CHUNK_CUT``), with the
     stream's split scratch and merge counters; with nothing to attend the
-    output is 0 and nothing launches.  CPU tensors run the plain version.
-    A CUDA request the kernel cannot serve raises; nothing falls back."""
+    output is 0 (m -1e30, l 0) and nothing launches.  CPU tensors run the
+    plain version.  A CUDA request the kernel cannot serve raises; nothing
+    falls back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt,
-                                 window, return_norm, return_win_probs,
-                                 "fused_sparse_decode_attention")
+                                 window, "fused_sparse_decode_attention")
     qa._check_int("n_chunks", n_chunks, 0, mc)
     qa._check_int("win_len", win_len, 0, W)
     if q.device.type == "cpu":
         return fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win, n_chunks,
                                                    win_len, li, kfmt, vfmt, kv_scales,
-                                                   return_win_probs)
+                                                   return_win_probs, return_norm)
     n_splits = sum(qa.uniform_splits(n_chunks, win_len, W, CHUNK_CUT))
     probs = qa.win_probs_out(q, BH, W, return_win_probs, n_splits)
+    ml = qa.norm_out(q, BH, return_norm, n_splits)
     if n_splits == 0:
-        return (torch.zeros_like(q), probs) if return_win_probs else torch.zeros_like(q)
+        return qa.uniform_result(torch.zeros_like(q), ml, probs, return_norm,
+                                 return_win_probs)
     qa.split_scratch_floats(BH, n_splits, G)     # a grid too large: refused up front
     stream = qa._stream(q)
     qa._check_aligned((("q", q), ("kv_pool", kv_pool), ("k_win", k_win),
                        ("v_win", v_win), *_scales(kv_scales)))
-    fn = qa._library("sp_decode", "sp_decode", 9, 17)
+    fn = qa._library("sp_decode", "sp_decode", 10, 17)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
     scratch = qa._split_scratch(BH, n_splits, G, q.device, stream,
                                 BH * G * W if return_win_probs else 0)
     counters = qa._split_counters(BH, q.device, stream)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), _ptr(kv_scales), k_win.data_ptr(),
-            v_win.data_ptr(), out.data_ptr(), _ptr(probs), scratch.data_ptr(),
+            v_win.data_ptr(), out.data_ptr(), _ptr(probs), _ptr(ml), scratch.data_ptr(),
             counters.data_ptr(), scratch.numel(), counters.numel(),
             int(out.dtype == torch.float32), q.device.index or 0, kfmt.qbits, BH, G, mc, W, qa.window_tile(W), n_chunks,
             win_len, li, *_segs(kfmt), *_segs(vfmt), stream)
     if rc != 0:
         raise RuntimeError(f"sp_decode launch failed: CUDA error {rc}")
     fused_sparse_decode_attention.launches += 1
-    return (out, probs) if return_win_probs else out
+    return qa.uniform_result(out, ml, probs, return_norm, return_win_probs)
 
 
 fused_sparse_decode_attention.launches = 0
@@ -232,19 +235,20 @@ fused_sparse_decode_attention.launches = 0
 
 def fused_sparse_decode_attention_ps_plain(q, kv_pool, k_win, v_win, n_chunks,
                                            win_len, li: int, kfmt, vfmt,
-                                           kv_scales=None):
+                                           kv_scales=None, win_probs: bool = False):
     """The per-slot kernel's arithmetic: slot b is the uniform computation
     over its own clamped counts (``quant_attention.slots``).  The TPU
     kernel loops a block of 16 heads to the largest counts among them and
     masks each head's columns; those steps add exactly zero to a head with
     something to attend, so looping over a slot's own counts is the same.
-    A slot with nothing to attend comes out 0."""
-    return torch.cat([
-        fused_sparse_decode_attention_plain(
+    A slot with nothing to attend comes out 0, and so do its window
+    probabilities (``win_probs``)."""
+    return qa.per_slot_plain(
+        lambda b, hs, nc, wl: fused_sparse_decode_attention_plain(
             q[b:b + 1], kv_pool[:, :, hs], k_win[:, hs], v_win[:, hs], nc, wl, li,
-            kfmt, vfmt, None if kv_scales is None else kv_scales[:, :, hs])
-        for b, hs, nc, wl in qa.slots(q.shape[0], kv_pool.shape[2], n_chunks,
-                                      win_len, kv_pool.shape[1], k_win.shape[2])])
+            kfmt, vfmt, None if kv_scales is None else kv_scales[:, :, hs], win_probs),
+        q, kv_pool.shape[2], n_chunks, win_len, kv_pool.shape[1], k_win.shape[2],
+        win_probs)
 
 
 ps_splits = qa.ps_splits
@@ -252,15 +256,16 @@ ps_splits = qa.ps_splits
 
 def fused_sparse_decode_attention_ps_split_plain(q, kv_pool, k_win, v_win, n_chunks,
                                                  win_len, li: int, kfmt, vfmt,
-                                                 kv_scales=None):
+                                                 kv_scales=None, win_probs: bool = False):
     """The per-slot CUDA kernel's arithmetic (``quant_attention.ps_split_steps``
     with the bitmap chunk step): each chunk and each window tile of a slot
-    one split from a fresh softmax state, merged in split order."""
+    one split from a fresh softmax state, merged in split order; with
+    ``win_probs`` also the window probabilities on the merge's stats."""
     return qa.ps_split_steps(
         q, kv_pool.shape[2], n_chunks, win_len, kv_pool.shape[1],
         lambda hs: _sp_chunk_step(kv_pool[:, :, hs], None if kv_scales is None
                                   else kv_scales[:, :, hs], li, kfmt, vfmt),
-        k_win, v_win, li)
+        k_win, v_win, li, win_probs=win_probs)
 
 
 def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
@@ -275,17 +280,18 @@ def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
 
     ``n_chunks`` and ``win_len`` are int32 tensors [B] on q's device, read
     per slot by the kernel (no host sync) and clamped there to [0, mc] and
-    [0, W]; an idle slot is passed as (0, 0) and comes out 0.
+    [0, W]; an idle slot is passed as (0, 0) and comes out 0.  With
+    ``return_win_probs`` also the window probabilities [B, Hkv, W] f32
+    (``quant_attention.fused_q_decode_attention_ps``).
 
     CUDA tensors launch the kernels of ``csrc/sp_decode.cu`` (entry
-    ``sp_decode_ps``, built at first use: the split kernel, then its merge)
-    on the current stream, with the stream's split scratch
-    (``quant_attention._split_scratch``); CPU
-    tensors run the plain version.  A CUDA request the kernel cannot serve
-    raises; nothing falls back."""
+    ``sp_decode_ps``, built at first use: the split kernel, then its merge,
+    then with ``return_win_probs`` the probabilities from the merge's
+    stats) on the current stream, with the stream's split scratch
+    (``quant_attention._split_scratch``); CPU tensors run the plain version.
+    A CUDA request the kernel cannot serve raises; nothing falls back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt,
-                                 window, False, return_win_probs,
-                                 "fused_sparse_decode_attention_ps")
+                                 window, "fused_sparse_decode_attention_ps")
     B = q.shape[0]
     for name, t in (("n_chunks", n_chunks), ("win_len", win_len)):
         if not torch.is_tensor(t) or tuple(t.shape) != (B,):
@@ -295,24 +301,26 @@ def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
     if q.device.type == "cpu":
         return fused_sparse_decode_attention_ps_plain(q, kv_pool, k_win, v_win,
                                                       n_chunks, win_len, li, kfmt,
-                                                      vfmt, kv_scales)
+                                                      vfmt, kv_scales, return_win_probs)
     stream = qa._stream(q)
     qa._check_aligned((("q", q), ("kv_pool", kv_pool), ("k_win", k_win),
                        ("v_win", v_win), *_scales(kv_scales)))
-    fn = qa._library("sp_decode", "sp_decode_ps", 9, 16)
+    fn = qa._library("sp_decode", "sp_decode_ps", 10, 16)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
     n_splits = ps_splits(mc, W)
-    scratch = qa._split_scratch(BH, n_splits, G, q.device, stream)
+    probs = qa.win_probs_out(q, BH, W, return_win_probs, n_splits)
+    scratch = qa._split_scratch(BH, n_splits, G, q.device, stream,
+                                qa.per_slot_probs_scratch(BH, G, W, return_win_probs))
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), _ptr(kv_scales), k_win.data_ptr(),
             v_win.data_ptr(), n_chunks.data_ptr(), win_len.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), scratch.numel(), int(out.dtype == torch.float32),
+            _ptr(probs), scratch.data_ptr(), scratch.numel(), int(out.dtype == torch.float32),
             q.device.index or 0, kfmt.qbits, BH, BH // B, G, mc, W, qa.window_tile(W), li,
             *_segs(kfmt), *_segs(vfmt), n_splits, stream)
     if rc != 0:
         raise RuntimeError(f"sp_decode_ps launch failed: CUDA error {rc}")
     fused_sparse_decode_attention_ps.launches += 1
-    return out
+    return (out, probs) if return_win_probs else out
 
 
 fused_sparse_decode_attention_ps.launches = 0

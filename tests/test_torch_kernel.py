@@ -154,13 +154,17 @@ def test_wrapper_refuses_what_the_kernel_cannot_serve():
     for change in bad:
         with pytest.raises((ValueError, TypeError, NotImplementedError)):
             tqa.fused_q_decode_attention(**dict(ok, **change))
-    for opt in (dict(window=512), dict(return_norm=True)):
-        with pytest.raises(NotImplementedError):
-            tqa.fused_q_decode_attention(**ok, **opt)
-    # the window probabilities are served: the output is the call's without them
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tqa.fused_q_decode_attention(**ok, window=512)
+    # the window probabilities and the final (m, l) are served: the output is
+    # the call's without them
     out, probs = tqa.fused_q_decode_attention(**ok, return_win_probs=True)
     assert torch.equal(out, tqa.fused_q_decode_attention(**ok))
     assert probs.shape == (1, 2, W) and (probs[..., 10:] == 0).all() and (probs[..., :10] > 0).all()
+    out, m, l, both = tqa.fused_q_decode_attention(**ok, return_norm=True,
+                                                   return_win_probs=True)
+    assert torch.equal(out, tqa.fused_q_decode_attention(**ok)) and torch.equal(both, probs)
+    assert m.shape == l.shape == (1, 2, 4, 1) and (l >= 1).all()
     # a device the kernel does not run on is refused, never computed on the CPU
     meta = {k: (v.to("meta") if torch.is_tensor(v) else v) for k, v in ok.items()}
     with pytest.raises(ValueError):
@@ -373,9 +377,13 @@ def test_ps_wrapper_refuses_what_the_kernel_cannot_serve():
     for change in bad:
         with pytest.raises((ValueError, TypeError, NotImplementedError)):
             tqa.fused_q_decode_attention_ps(**dict(ok, **change))
-    for opt in (dict(window=512), dict(return_win_probs=True)):
-        with pytest.raises(NotImplementedError):
-            tqa.fused_q_decode_attention_ps(**ok, **opt)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tqa.fused_q_decode_attention_ps(**ok, window=512)
+    # the window probabilities are served: the output is the call's without them
+    out, probs = tqa.fused_q_decode_attention_ps(**ok, return_win_probs=True)
+    assert torch.equal(out, tqa.fused_q_decode_attention_ps(**ok))
+    assert probs.shape == (2, 2, W) and (probs[0, :, 10:] == 0).all()
+    assert (probs[1, :, 3:] == 0).all() and (probs[:, :, :3] > 0).all()
     meta = {k: (v.to("meta") if torch.is_tensor(v) else v) for k, v in ok.items()}
     with pytest.raises(ValueError):
         tqa.fused_q_decode_attention_ps(**meta)

@@ -8,9 +8,15 @@ compressed cache reads (``test_torch_opa.py`` holds the cache).
     interpret mode, within 1e-4 absolute, at window lengths short of the
     capacity, with no pool chunk, and zero past the window length; the
     output is the same with the option on.
-(r) What stays out is refused with ROADMAP citations: window probabilities
-    of the per-slot kernels (2 and 7), the (m, l) of kernels 1 and 6, Opa in
-    the compressed engine's per-slot decode and in chunked prefill.
+(s) The same for the per-slot kernels, kernel 2 (quant codecs) and kernel 7
+    (bitmap codecs): slots with their own chunk counts and window lengths,
+    one with no chunk, one idle (all zero).
+(n) The final (m, l) (``return_norm``) of kernels 1 and 6, both plain
+    versions against the JAX kernels': m within 1e-6 relative, l 1e-5.
+(r) The options and paths that once were refused now run (the per-slot
+    probabilities, (m, l), Opa in the per-slot decode, ``compact_slots``
+    and ``segment_attend``); the sliding window stays refused (ROADMAP item
+    14), and so do the channel policies in the compressed cache.
 (p) Packing by score: kernel 9's K+V entry with a score on one operand (the
     other keyed by |x|) equals its plain version on each, and sizes its grid
     from any operand's score (ROADMAP Queue C: the grid once read only the
@@ -64,13 +70,14 @@ def _engine(mod, method, codec):
 
 
 class _Decode:
-    """One codec's uniform decode over a random stacked state (L=2, mc=3,
-    B=2, Hkv=2): the JAX kernel, the port's wrapper (the TPU-order plain
-    version on the CPU) and its split plain version."""
+    """One codec's decode over a random stacked state (L=2, mc=3, B=2 and
+    Hkv=2 unless given): the JAX kernels, the port's wrappers (the TPU-order
+    plain versions on the CPU) and their split plain versions, uniform and
+    per slot (``jax_ps``, ``port_ps``)."""
 
-    def __init__(self, codec, G, seed):
+    def __init__(self, codec, G, seed, B=2, Hkv=2):
         rs = np.random.RandomState(seed)
-        L, mc, B, Hkv = 2, 3, 2, 2
+        L, mc = 2, 3
         BH = B * Hkv
         self.q = _bf(rs.randn(B, 1, Hkv * G, 128))
         self.k_win, self.v_win = (_bf(rs.randn(L, BH, W, 128)) for _ in range(2))
@@ -96,22 +103,51 @@ class _Decode:
         rows = np.asarray(rows)
         self.pool = np.concatenate([rows[:, :, 0], rows[:, :, 1]], axis=-2)
 
-    def jax(self, nc, wl, li):
+    def _jcall(self, nc, wl, li, per_slot, **opts):
         q, kw, vw = (jnp.asarray(a, jnp.bfloat16) for a in (self.q, self.k_win, self.v_win))
-        args = (jnp.int32(nc), jnp.int32(wl))
+        args = ((jnp.asarray(nc, jnp.int32), jnp.asarray(wl, jnp.int32)) if per_slot
+                else (jnp.int32(nc), jnp.int32(wl)))
         if hasattr(self, "jcodec"):
-            _, p = jqa.fused_q_decode_attention(
-                q, jnp.asarray(self.pool), jnp.asarray(self.scales[..., 0, :], jnp.bfloat16),
-                jnp.asarray(self.scales[..., 1, :], jnp.bfloat16), kw, vw, *args,
-                self.jcodec, self.mc, li=jnp.int32(li), return_win_probs=True)
+            fn = jqa.fused_q_decode_attention_ps if per_slot else jqa.fused_q_decode_attention
+            res = fn(q, jnp.asarray(self.pool),
+                     jnp.asarray(self.scales[..., 0, :], jnp.bfloat16),
+                     jnp.asarray(self.scales[..., 1, :], jnp.bfloat16), kw, vw, *args,
+                     self.jcodec, self.mc, li=jnp.int32(li), **opts)
         else:
             sc = {} if self.scales is None else {
                 "kscales": jnp.asarray(self.scales[..., 0, :], jnp.bfloat16),
                 "vscales": jnp.asarray(self.scales[..., 1, :], jnp.bfloat16)}
-            _, p = jska.fused_sparse_decode_attention_v7(
-                q, jnp.asarray(self.pool), kw, vw, *args, self.jfmt, self.jfmt, self.mc,
-                li=jnp.int32(li), return_win_probs=True, **sc)
-        return np.asarray(p)
+            fn = (jska.fused_sparse_decode_attention_v6ps if per_slot
+                  else jska.fused_sparse_decode_attention_v7)
+            res = fn(q, jnp.asarray(self.pool), kw, vw, *args, self.jfmt, self.jfmt,
+                     self.mc, li=jnp.int32(li), **opts, **sc)
+        return [np.asarray(x) for x in res[1:]]
+
+    def jax(self, nc, wl, li):
+        return self._jcall(nc, wl, li, False, return_win_probs=True)[0]
+
+    def jax_norm(self, nc, wl, li):
+        return self._jcall(nc, wl, li, False, return_norm=True)
+
+    def jax_ps(self, nc, wl, li):
+        return self._jcall(nc, wl, li, True, return_win_probs=True)[0]
+
+    def port_ps(self, nc, wl, li, fn="wrapper", **kw):
+        nc, wl = (torch.tensor(x, dtype=torch.int32) for x in (nc, wl))
+        args = (_t(self.q), torch.from_numpy(self.pool))
+        if hasattr(self, "tcodec"):
+            call = {"wrapper": tqa.fused_q_decode_attention_ps,
+                    "split": tqa.fused_q_decode_attention_ps_split_plain}[fn]
+            return call(*args, _t(self.scales), _t(self.k_win), _t(self.v_win), nc, wl, li,
+                        self.tcodec, **kw)
+        call = {"wrapper": tska.fused_sparse_decode_attention_ps,
+                "split": tska.fused_sparse_decode_attention_ps_split_plain}[fn]
+        sc = None if self.scales is None else _t(self.scales)
+        if fn == "wrapper":
+            return call(*args, _t(self.k_win), _t(self.v_win), nc, wl, li, self.tfmt,
+                        self.tfmt, kv_scales=sc, **kw)
+        return call(*args, _t(self.k_win), _t(self.v_win), nc, wl, li, self.tfmt, self.tfmt,
+                    sc, **kw)
 
     def port(self, nc, wl, li, fn="wrapper", **kw):
         args = (_t(self.q), torch.from_numpy(self.pool))
@@ -128,6 +164,58 @@ class _Decode:
                         self.tfmt, kv_scales=sc, **kw)
         return call(*args, _t(self.k_win), _t(self.v_win), nc, wl, li, self.tfmt, self.tfmt,
                     sc, **kw)
+
+
+# per-slot cases: (n_chunks, win_len) of slots with no chunk, a full window,
+# one window token, an idle slot
+SLOTS = ((0, 44), (2, W), (1, 1), (0, 0))
+
+
+@pytest.mark.parametrize("codec", ["q8q4", "q4q4", "bitmap", "bitmap-q8"])
+def test_per_slot_window_probs_match_jax(codec):
+    """Kernels 2 and 7: each live slot's window probabilities against the
+    JAX per-slot kernel's (interpret mode), from both plain versions;
+    zero past each slot's window length, an idle slot all zero; the output
+    the same with the option on."""
+    dec = _Decode(codec, 4, 40, B=len(SLOTS), Hkv=1)
+    nc, wl = ([s[i] for s in SLOTS] for i in (0, 1))
+    before = (tqa.fused_q_decode_attention_ps.launches,
+              tska.fused_sparse_decode_attention_ps.launches)
+    want = dec.jax_ps(nc, wl, 1)                                      # [B, Hkv, W]
+    out, got = dec.port_ps(nc, wl, 1, return_win_probs=True)
+    split_out, split = dec.port_ps(nc, wl, 1, fn="split", win_probs=True)
+    assert got.dtype == split.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(out, dec.port_ps(nc, wl, 1))                   # the option adds only
+    assert torch.equal(split_out, dec.port_ps(nc, wl, 1, fn="split"))
+    for b, (n, w) in enumerate(SLOTS):
+        for p in (got, split):
+            np.testing.assert_allclose(p.numpy()[b, :, :w], want[b, :, :w], rtol=0,
+                                       atol=PROBS_TOL, err_msg=f"{codec} slot {b}")
+            assert (p.numpy()[b, :, w:] == 0).all()
+    assert (out[3] == 0).all() and (got[3] == 0).all() and (split[3] == 0).all()
+    assert (got.numpy().sum(-1) <= 4 + 1e-4).all()
+    assert before == (tqa.fused_q_decode_attention_ps.launches,
+                      tska.fused_sparse_decode_attention_ps.launches)   # CPU: no launch
+
+
+@pytest.mark.parametrize("codec", ["q8q4", "bitmap"])
+def test_uniform_norm_matches_jax(codec):
+    """Kernels 1 and 6's final (m, l): both plain versions against the JAX
+    kernels' (interpret mode); the output the same with the option on, and
+    the probabilities beside the stats the option's alone."""
+    dec = _Decode(codec, 4, 50)
+    for nc, wl, li in ((0, 44, 1), (2, 200, 0), (3, W, 1)):
+        jm, jl = dec.jax_norm(nc, wl, li)                             # [B, Hkv, G, 1]
+        out, m, l = dec.port(nc, wl, li, return_norm=True)
+        assert torch.equal(out, dec.port(nc, wl, li))
+        _, sm, sl = dec.port(nc, wl, li, fn="split", norm=True)
+        for tm, tl in ((m, l), (sm, sl)):
+            assert tm.shape == tl.shape == jm.shape == (2, 2, 4, 1)
+            np.testing.assert_allclose(tm.numpy(), jm, rtol=1e-6, atol=0)
+            np.testing.assert_allclose(tl.numpy(), jl, rtol=1e-5, atol=0)
+        _, m2, l2, probs = dec.port(nc, wl, li, return_norm=True, return_win_probs=True)
+        assert torch.equal(m2, m) and torch.equal(l2, l)
+        assert torch.equal(probs, dec.port(nc, wl, li, return_win_probs=True)[1])
 
 
 @pytest.mark.parametrize("codec,G", [(c, 4) for c in CODECS] + [("q8q4", 1), ("bitmap", 1)])
@@ -157,35 +245,44 @@ def test_window_probs_match_jax(codec, G):
 
 
 def test_options_still_out_are_refused():
+    """What ROADMAP item 12 held back now runs: kernels 1 and 6's (m, l),
+    kernels 2 and 7's window probabilities, and Opa in the compressed
+    cache's per-slot decode, ``compact_slots`` and ``segment_attend``.  The
+    sliding window stays refused (item 14), and so do the channel policies
+    and ThinK in the compressed cache, as in JAX."""
     dec = _Decode("q8q4", 4, 1)
     bdec = _Decode("bitmap", 4, 2)
     for d in (dec, bdec):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
-            d.port(1, 10, 0, return_norm=True)
-    nc = torch.tensor([1, 0], dtype=torch.int32)
-    wl = torch.tensor([10, 3], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
-        tqa.fused_q_decode_attention_ps(_t(dec.q), torch.from_numpy(dec.pool),
-                                        _t(dec.scales), _t(dec.k_win), _t(dec.v_win), nc, wl,
-                                        0, dec.tcodec, return_win_probs=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
-        tska.fused_sparse_decode_attention_ps(_t(bdec.q), torch.from_numpy(bdec.pool),
-                                              _t(bdec.k_win), _t(bdec.v_win), nc, wl, 0,
-                                              bdec.tfmt, bdec.tfmt, return_win_probs=True)
+        out, m, l = d.port(1, 10, 0, return_norm=True)
+        assert torch.equal(out, d.port(1, 10, 0)) and (l >= 1).all()
+        out, probs = d.port_ps([1, 0], [10, 3], 0, return_win_probs=True)
+        assert torch.equal(out, d.port_ps([1, 0], [10, 3], 0))
+        assert (probs[0, :, 10:] == 0).all() and (probs[1, :, 3:] == 0).all()
+        with pytest.raises(NotImplementedError, match="item 14"):
+            d.port(1, 10, 0, window=512)
+        with pytest.raises(NotImplementedError, match="item 14"):
+            d.port_ps([1, 0], [10, 3], 0, window=512)
+    rs = np.random.RandomState(3)
     for codec in ("q8q4", "bitmap"):
         teng = dataclasses.replace(_engine(tc, "KT_MAG_VT_OPA", codec), batch_size=2)
         impl = TCompressed(teng, device="cpu")
         st = impl.init(2, torch.float32)
-        q = torch.zeros((2, 1, 4, 128))
-        kv = torch.zeros((2, 1, 1, 128))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
-            impl.decode_attend(st, 0, q, kv, kv, torch.tensor([0, 0]))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
-            impl.compact_slots(st, [True, False])
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
-            impl.segment_attend(st, 0, torch.zeros((2, 256, 4, 128)),
-                                torch.zeros((2, 256, 1, 128)), torch.zeros((2, 256, 1, 128)),
-                                0, 256)
+        seg = [torch.from_numpy(rs.randn(2, 256, h, 128).astype(np.float32))
+               for h in (4, 1, 1)]
+        impl.segment_attend(st, 0, *seg, 0, 256)             # a full segment: 256 scored
+        impl.finalize_segment(st, 0, 256)
+        assert (st["v_score"][0, :, :, :256] > 0).all() and (st["v_score"][0, :, :, 256:] == 0).all()
+        q = torch.from_numpy(rs.randn(2, 1, 4, 128).astype(np.float32))
+        kv = torch.from_numpy(rs.randn(2, 1, 1, 128).astype(np.float32))
+        before = st["v_score"].clone()
+        impl.decode_attend(st, 0, q, kv, kv, torch.tensor([256, -1]))   # slot 1 idle
+        assert (st["v_score"][0, 0, :, :257] > before[0, 0, :, :257]).any()
+        assert torch.equal(st["v_score"][:, 1], before[:, 1])
+        before = st["v_score"].clone()
+        impl.compact_slots(st, [True, False])
+        assert torch.equal(st["v_score"][0, 0, :, :W - 256], before[0, 0, :, 256:W])
+        assert (st["v_score"][0, 0, :, W - 256:] == 0).all()
+        assert torch.equal(st["v_score"][:, 1], before[:, 1])
     # the channel policies and ThinK stay in the masked cache, as in JAX
     with pytest.raises(ValueError):
         TCompressed(_engine(tc, "KT_MAG_VC_OPA", "q8q4"), device="cpu")

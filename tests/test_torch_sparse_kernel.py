@@ -384,14 +384,17 @@ def test_wrappers_refuse_what_the_kernels_cannot_serve():
         meta = {k: (v.to("meta") if torch.is_tensor(v) else v) for k, v in ok.items()}
         with pytest.raises(ValueError):
             fn(**meta)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tska.fused_sparse_decode_attention(**dec, return_norm=True)
-    # the window probabilities are served: the output is the call's without them
+    # the final (m, l) and the window probabilities are served: the output is
+    # the call's without them
+    out, m, l = tska.fused_sparse_decode_attention(**dec, return_norm=True)
+    assert torch.equal(out, tska.fused_sparse_decode_attention(**dec))
+    assert m.dtype == l.dtype == torch.float32 and m.shape == l.shape
     out, probs = tska.fused_sparse_decode_attention(**dec, return_win_probs=True)
     assert torch.equal(out, tska.fused_sparse_decode_attention(**dec))
     assert probs.dtype == torch.float32 and probs.shape[-1] == dec["k_win"].shape[2]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tska.fused_sparse_decode_attention_ps(**ps, return_win_probs=True)
+    out, probs = tska.fused_sparse_decode_attention_ps(**ps, return_win_probs=True)
+    assert torch.equal(out, tska.fused_sparse_decode_attention_ps(**ps))
+    assert probs.dtype == torch.float32 and probs.shape[-1] == ps["k_win"].shape[2]
     # bitmap-q8: qbits=8 chunks take the scales, bf16 chunks refuse them
     _, tf8 = _fmts(0.7, 8)
     q8, pool8, scales8, kw8, vw8 = _inputs(4, 1, 2, 2, 2, 4, 0.7, 8)
