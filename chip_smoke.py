@@ -23,7 +23,14 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 split plain version's within 2^-18 absolute, and its final
                 (m, l) (return_norm) as kernel_dense holds kernel 4's, the
                 output bit-equal with either option off, each timed on and
-                off in turns
+                off in turns; its sliding window (WINDOW_CASES: the edge
+                inside a chunk, on a chunk and on a 64-token boundary,
+                chunks wholly below it, vacuous) against both plain
+                versions, and again at serve_swa's own decode shapes
+                (SWA_SERVED: B=4, 17 chunks + 49..288 window tokens and 18
+                after the compaction, window 4,096; bf16 and f32 q), timed
+                on and off in turns at the serve_swa shape (SWA_TIMED)
+                beside each's byte bound (live chunks only)
   kernel_ps     the per-slot decode kernel likewise, at the engine's pool
                 (mc=32): mixed slots (n_chunks 0/1/2/5/31, win_len
                 0/1/44/288, an idle slot), groups 1/2/4/8; the kernel
@@ -74,7 +81,11 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 and per slot at S=8,448 (a slot at 8,000, an idle one), both
                 timed beside scaled_dot_product_attention; its final (m, l)
                 (return_norm) against the split plain version's, the output
-                bit-equal with the option off, timed on and off in turns
+                bit-equal with the option off, timed on and off in turns;
+                its sliding window (DENSE_WINDOWS: serve_swa's cache at pos
+                4,500 and the per-slot cache) against both plain versions,
+                timed on and off in turns beside each's byte bound and
+                scaled_dot_product_attention with the band as its mask
   kernel_archive
                 the archive's generations (TPU kernels 10-16: over split
                 pools the v1 pair sparse_key_scores / sparse_value_combine,
@@ -116,6 +127,13 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 (kernels 2 and 7 with their window probabilities),
                 compactions by score and chunked prefill's streamed scores;
                 every greedy pick equal or at a near-tie (OPA_CB_NOTE)
+  reference_swa reference on a tiny model with a sliding window of 320: a
+                600-token prompt (banded prefill), decode steps that leave
+                pool chunk 0 below the window, every codec (kernels 1 and 6
+                with the window), the dense cache through kernel 4 and the
+                masked cache; every greedy pick equal, or a flip at a
+                near-tie within SWA_TIE_TOL (a fixed bound; see
+                SWA_PICKS_NOTE)
   serve_q8q4    full-width, 32-layer Llama-3-8B with random W8 weights made
                 on the card: Generator.generate, B=8, prompt 300, 300 new
                 tokens, q8q4 compressed cache (one compaction on the way);
@@ -174,6 +192,14 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 chunked Generator's under the same method; V's scores live
                 at the end
   serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64
+  serve_swa_dense, serve_swa_dense_kernel, serve_swa_q8q4, serve_swa_bitmap
+                Mistral-7B with its 4,096 window (MISTRAL_7B_SWA), 32 layers,
+                W8 (random, seed 0), B=4, prompt 4,400 (banded prefill), 300
+                new tokens (chunk 0 below the window from the first step;
+                one compaction): the dense cache plain and through kernel 4,
+                q8q4 (kernel 1, kernel 9) and bitmap (kernel 6) with the
+                window, 32 x 299 decode launches; first tokens =
+                serve_swa_dense's; tok/s, prefill seconds, peak memory
   host_split    one segment (B=1) at q8q4, bitmap and bitmap-q8, one K and V
                 pack of a chunk at each, one decode tick (8 slots, q8q4) and
                 one each of q8q4 and bitmap with an 8,000-token slot: host
@@ -424,23 +450,23 @@ class _Kit:
             self.fns = {"decode": qa.fused_q_decode_attention,
                         "decode_ps": qa.fused_q_decode_attention_ps,
                         "segment": qa.fused_q_segment_attention}
-            self.decode = lambda q, nc, wl, li: qa.fused_q_decode_attention(
-                q, pool, scales, kw, vw, nc, wl, li, qc)
-            self.decode_plain = lambda q, nc, wl, li: qa.fused_q_decode_attention_plain(
-                q, pool, scales, kw, vw, nc, wl, li, qc)
-            self.decode_split_plain = lambda q, nc, wl, li: \
+            self.decode = lambda q, nc, wl, li, **o: qa.fused_q_decode_attention(
+                q, pool, scales, kw, vw, nc, wl, li, qc, **o)
+            self.decode_plain = lambda q, nc, wl, li, **o: qa.fused_q_decode_attention_plain(
+                q, pool, scales, kw, vw, nc, wl, li, qc, **o)
+            self.decode_split_plain = lambda q, nc, wl, li, **o: \
                 qa.fused_q_decode_attention_split_plain(q, pool, scales, kw, vw, nc, wl, li,
-                                                        qc)
-            self.decode_wp = lambda q, nc, wl, li: qa.fused_q_decode_attention(
-                q, pool, scales, kw, vw, nc, wl, li, qc, return_win_probs=True)
-            self.decode_split_plain_wp = lambda q, nc, wl, li: \
+                                                        qc, **o)
+            self.decode_wp = lambda q, nc, wl, li, **o: qa.fused_q_decode_attention(
+                q, pool, scales, kw, vw, nc, wl, li, qc, return_win_probs=True, **o)
+            self.decode_split_plain_wp = lambda q, nc, wl, li, **o: \
                 qa.fused_q_decode_attention_split_plain(q, pool, scales, kw, vw, nc, wl, li,
-                                                        qc, win_probs=True)
-            self.decode_norm = lambda q, nc, wl, li: qa.fused_q_decode_attention(
-                q, pool, scales, kw, vw, nc, wl, li, qc, return_norm=True)
-            self.decode_split_plain_norm = lambda q, nc, wl, li: \
+                                                        qc, win_probs=True, **o)
+            self.decode_norm = lambda q, nc, wl, li, **o: qa.fused_q_decode_attention(
+                q, pool, scales, kw, vw, nc, wl, li, qc, return_norm=True, **o)
+            self.decode_split_plain_norm = lambda q, nc, wl, li, **o: \
                 qa.fused_q_decode_attention_split_plain(q, pool, scales, kw, vw, nc, wl, li,
-                                                        qc, norm=True)
+                                                        qc, norm=True, **o)
             self.decode_ps = lambda q, nc, wl, li: qa.fused_q_decode_attention_ps(
                 q, pool, scales, kw, vw, nc, wl, li, qc)
             self.decode_ps_wp = lambda q, nc, wl, li: qa.fused_q_decode_attention_ps(
@@ -482,23 +508,23 @@ class _Kit:
                     "decode_ps": ska.fused_sparse_decode_attention_ps,
                     "segment": ska.fused_sparse_segment_attention}
         sc = {"kv_scales": scales}
-        self.decode = lambda q, nc, wl, li: ska.fused_sparse_decode_attention(
-            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc)
-        self.decode_plain = lambda q, nc, wl, li: ska.fused_sparse_decode_attention_plain(
-            q, pool, kw, vw, nc, wl, li, fmt, fmt, scales)
-        self.decode_split_plain = lambda q, nc, wl, li: \
+        self.decode = lambda q, nc, wl, li, **o: ska.fused_sparse_decode_attention(
+            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc, **o)
+        self.decode_plain = lambda q, nc, wl, li, **o: ska.fused_sparse_decode_attention_plain(
+            q, pool, kw, vw, nc, wl, li, fmt, fmt, scales, **o)
+        self.decode_split_plain = lambda q, nc, wl, li, **o: \
             ska.fused_sparse_decode_attention_split_plain(q, pool, kw, vw, nc, wl, li, fmt,
-                                                          fmt, scales)
-        self.decode_wp = lambda q, nc, wl, li: ska.fused_sparse_decode_attention(
-            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc, return_win_probs=True)
-        self.decode_split_plain_wp = lambda q, nc, wl, li: \
+                                                          fmt, scales, **o)
+        self.decode_wp = lambda q, nc, wl, li, **o: ska.fused_sparse_decode_attention(
+            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc, return_win_probs=True, **o)
+        self.decode_split_plain_wp = lambda q, nc, wl, li, **o: \
             ska.fused_sparse_decode_attention_split_plain(q, pool, kw, vw, nc, wl, li, fmt,
-                                                          fmt, scales, win_probs=True)
-        self.decode_norm = lambda q, nc, wl, li: ska.fused_sparse_decode_attention(
-            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc, return_norm=True)
-        self.decode_split_plain_norm = lambda q, nc, wl, li: \
+                                                          fmt, scales, win_probs=True, **o)
+        self.decode_norm = lambda q, nc, wl, li, **o: ska.fused_sparse_decode_attention(
+            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc, return_norm=True, **o)
+        self.decode_split_plain_norm = lambda q, nc, wl, li, **o: \
             ska.fused_sparse_decode_attention_split_plain(q, pool, kw, vw, nc, wl, li, fmt,
-                                                          fmt, scales, norm=True)
+                                                          fmt, scales, norm=True, **o)
         self.decode_ps = lambda q, nc, wl, li: ska.fused_sparse_decode_attention_ps(
             q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc)
         self.decode_ps_wp = lambda q, nc, wl, li: ska.fused_sparse_decode_attention_ps(
@@ -646,6 +672,7 @@ def phase_kernel(codec="q8q4"):
                                                  cases + [(0, 0, 0)])
     more, worse = _check_uniform_norm(kits[0], other_groups, cases[:2])
     norm_cases, norm_worst = norm_cases + more, max(norm_worst, worse)
+    window = _check_windows(kits, q, other_groups, L)
 
     # time at the main path's largest pre-compaction shape: one pool chunk
     # and a full 288-token window, L2 flushed before each launch
@@ -699,6 +726,7 @@ def phase_kernel(codec="q8q4"):
          win_probs_ms=dict(in_turns(probs_ms), split_plain=probs_plain_ms),
          return_norm_cases=norm_cases,
          return_norm_ms=dict(in_turns(norm_ms), split_plain=norm_plain_ms),
+         window=window,
          timed_at={"sparsity": kit.sparsity, "n_chunks": nc, "win_len": wl},
          bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, flops_ms), library_ms=None)
     entry = _entry(codec, "decode", results, worst, max(r["tol"] for r in results),
@@ -720,26 +748,182 @@ def phase_kernel(codec="q8q4"):
         "plain_ms": norm_plain_ms, "launches": 0,
         "launches_note": "no serving path asks for it (the JAX package's paths do not)",
         "timed_at": "as ms: 1 chunk + 288 window, in turns on, off, off, on (the least "
-                    "of each pair)"}}
+                    "of each pair)"},
+        "window": _window_option(window)}
     return entry
+
+
+def _window_option(w):
+    """The kernels line's record of a kernel's sliding window, from the
+    phase's window results (``launches`` filled by its serve_swa phase)."""
+    t = w["timed"]
+    return {"max_abs_err": w["max_abs_err"], "tol": w["tol"],
+            "worst_err_over_tol": w["worst_err_over_tol"],
+            "worst_err_over_tol_split": w["worst_err_over_tol_split"],
+            "ms": t["ms_on"], "ms_off": t["ms_off"], "bound_ms": t["bound_ms"],
+            "bound_ms_off": t["bound_ms_off"], "bound_by": "bytes",
+            "plain_ms": t["plain_ms"], "library_ms": t.get("library_ms"),
+            "launches": None, "timed_at": t["timed_at"]}
+
+
+# sliding-window cases of the uniform decode kernels at the flagship kit's
+# shape (mc = 5, W = 288): (n_chunks, win_len, li, window); the decoded token
+# is at n_chunks * 256 + win_len - 1 and the window keeps columns past
+# low = that - window
+WINDOW_CASES = (
+    (5, 288, 3, 1000),     # low 567: chunks 0-1 left out, chunk 2 cut mid-run
+    (5, 100, 0, 612),      # low 767: a chunk boundary, chunks 0-2 left out
+    (5, 100, 0, 548),      # low 831: a 64-token step boundary inside chunk 3
+    (3, 288, 3, 500),      # low 555: chunk 2 cut
+    (1, 288, 0, 300),      # low 243: the only chunk cut
+    (5, 288, 0, 288),      # low 1279: every chunk left out, the window alone
+    (5, 1, 0, 4096))       # vacuous: nothing masked
+# the serve_swa shape the window is timed at: Mistral-7B's B=4, 8 kv heads,
+# G=4; 17 chunks (a 4,400-token prompt) and 160 window tokens: position
+# 4,511, window 4,096, low 415
+SWA_TIMED = {"B": 4, "Hkv": 8, "G": 4, "mc": 19, "n_chunks": 17, "win_len": 160,
+             "window": 4096}
+# (n_chunks, win_len) of serve_swa's decode steps the kernels are held at
+# there: its decodes run at 17 chunks + 49..288 window tokens, then (after
+# the compaction) 18 + 33..91.  The first step (low 304: chunk 0 left out,
+# chunk 1 cut), the timed one (low 415), a chunk boundary (low 511: chunks
+# 0-1 left out), the last before the compaction (low 543), the first and
+# the last after it (low 544, 602)
+SWA_SERVED = ((17, 49), (17, 160), (17, 256), (17, 288), (18, 33), (18, 91))
+
+
+def _hold_windows(kit, cases, qs_of):
+    """The uniform decode kernel with a sliding window at each case
+    (n_chunks, win_len, li, window), for each q of ``qs_of(case index)``:
+    held to the TPU-order plain version at 2 bf16 ulps of the output's
+    scale and to its split plain version by ``split_gate``, a second launch
+    bit-equal.  Returns (the cases, the worst error over each tolerance)."""
+    import torch
+    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
+    results, worst, worst_split = [], 0.0, 0.0
+    for i, (nc, wl, li, window) in enumerate(cases):
+        for qq in qs_of(i):
+            B = qq.shape[0]
+            got = kit.decode(qq, nc, wl, li, window=window)
+            again = kit.decode(qq, nc, wl, li, window=window)
+            torch.cuda.synchronize()
+            want = kit.decode_plain(qq, nc, wl, li, window=window)
+            err = (got.float() - want.float()).abs().max().item()
+            tol = KERNEL_TOL_ULPS * 2.0 ** -8 * want.float().abs().max().item()
+            split = split_gate(got, kit.decode_split_plain(qq.float(), nc, wl, li,
+                                                           window=window),
+                               torch.ones(B, dtype=torch.bool, device=qq.device))
+            results.append({"sparsity": kit.sparsity, "B": B, "n_chunks": nc,
+                            "win_len": wl, "li": li, "window": window,
+                            "low": qa.window_low(nc, wl, window),
+                            "q_dtype": str(qq.dtype).split(".")[-1],
+                            "G": qq.shape[2] // (kit.k_win.shape[1] // B),
+                            "max_abs_err": err, "tol": tol,
+                            "worst_err_over_tol_split": split,
+                            "second_launch_equal": bool(torch.equal(got, again))})
+            if not (got.isfinite().all() and err <= tol and split <= 1.0
+                    and results[-1]["second_launch_equal"]):
+                raise AssertionError(f"windowed kernel disagrees with its plain "
+                                     f"versions or with itself: {results[-1]}")
+            worst = max(worst, err / max(tol, 1e-30))
+            worst_split = max(worst_split, split)
+    return results, worst, worst_split
+
+
+def _check_windows(kits, q, other_groups, L):
+    """The uniform decode kernel with a sliding window (``_hold_windows``):
+    at WINDOW_CASES with f32 and bf16 q, and the other groups at the first
+    two cases; the window probabilities and (m, l) with a window at the
+    first case.  Then, at SWA_TIMED, held at serve_swa's own shapes and
+    timed with the window on and off, in turns (``_time_window``)."""
+    results, worst, worst_split = [], 0.0, 0.0
+    for kit in kits:
+        got = _hold_windows(kit, WINDOW_CASES,
+                            lambda i: (q, q.float(), *(other_groups if i < 2 else ())))
+        results += got[0]
+        worst, worst_split = max(worst, got[1]), max(worst_split, got[2])
+    probs, probs_worst = _check_win_probs(kits[0], (q, q.float()), WINDOW_CASES[:1])
+    norm, norm_worst = _check_uniform_norm(kits[0], (q, q.float()), WINDOW_CASES[:1])
+    timed = _time_window(kits[0].codec, kits[0].sparsity)
+    results += timed.pop("cases")
+    worst = max(worst, timed.pop("worst_err_over_tol"))
+    worst_split = max(worst_split, timed.pop("worst_err_over_tol_split"))
+    return {"cases": results, "max_abs_err": max(r["max_abs_err"] for r in results),
+            "tol": "2 bf16 ulps of the output's scale (TPU order); " + SPLIT_TOL_NOTE,
+            "worst_err_over_tol": worst, "worst_err_over_tol_split": worst_split,
+            "win_probs_cases": probs, "win_probs_worst": probs_worst,
+            "return_norm_cases": norm, "return_norm_worst": norm_worst,
+            "timed": timed}
+
+
+def _time_window(codec, sparsity):
+    """The uniform decode kernel at SWA_TIMED's B, heads and window: first
+    held (``_hold_windows``, bf16 and f32 q) at the serve_swa phases' own
+    counts (SWA_SERVED), then timed at SWA_TIMED's with the window on and
+    off, in turns on, off, off, on (the least of each pair), L2 flushed;
+    the byte bounds count the chunks each reads (with the window, those
+    with a live column)."""
+    import torch
+    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    s = SWA_TIMED
+    B, Hkv, G, nc, wl, window = (s[k] for k in ("B", "Hkv", "G", "n_chunks", "win_len",
+                                                "window"))
+    BH = B * Hkv
+    kit = _Kit(codec, g, dev, 1, s["mc"], BH, 288, sparsity)
+    q = torch.randn((B, 1, Hkv * G, 128), generator=g, device=dev).to(torch.bfloat16)
+    fn = kit.fns["decode"]
+    launches0 = fn.launches
+    held, worst, worst_split = _hold_windows(
+        kit, [(c, w, 0, window) for c, w in SWA_SERVED], lambda i: (q, q.float()))
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for _ in range(20):
+        kit.decode(q, nc, wl, 0, window=window)
+        kit.decode(q, nc, wl, 0)
+    torch.cuda.synchronize()
+    ms = [cuda_ms(call, 100, flush=flush_buf.zero_)[0]
+          for call in (lambda: kit.decode(q, nc, wl, 0, window=window),
+                       lambda: kit.decode(q, nc, wl, 0), lambda: kit.decode(q, nc, wl, 0),
+                       lambda: kit.decode(q, nc, wl, 0, window=window))]
+    plain_ms, _ = cuda_ms(lambda: kit.decode_plain(q, nc, wl, 0, window=window), 3,
+                          flush=flush_buf.zero_, spin=False)
+    fn.launches = launches0
+    live = nc - qa.masked_steps(nc, wl, window, 256)        # chunks with a live column
+
+    def bound(chunks):
+        nbytes = BH * (chunks * kit.chunk_bytes + 2 * wl * 128 * 2) + 2 * q.numel() * 2
+        flops = BH * G * (chunks * 256 + wl) * 128 * 2 * 2
+        return max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
+    turns = in_turns(ms)
+    return {"timed_at": f"B={B}, Hkv={Hkv}, G={G}, {nc} chunks + {wl} window, window "
+                        f"{window} (low {qa.window_low(nc, wl, window)}: {nc - live} chunk "
+                        f"left out), in turns on, off, off, on (the least of each pair)",
+            "ms_on": turns["on"], "ms_off": turns["off"], "in_turns": ms,
+            "live_chunks": live, "bound_ms": bound(live), "bound_ms_off": bound(nc),
+            "plain_ms": plain_ms, "cases": held, "worst_err_over_tol": worst,
+            "worst_err_over_tol_split": worst_split}
 
 
 def _check_uniform_norm(kit, qs, cases):
     """The uniform decode kernel's final (m, l) (``return_norm``) against its
     split plain version's (NORM_TOL_NOTE; nothing to attend: -1e30 and 0
     from both), and the output with the option bit-equal to the output
-    without it.  Returns (the cases, the worst error over the tolerance)."""
+    without it.  A case (n_chunks, win_len, li) may add a sliding window.
+    Returns (the cases, the worst error over the tolerance)."""
     import torch
     results, worst = [], 0.0
-    for nc, wl, li in cases:
+    for nc, wl, li, *window in cases:
+        o = {"window": window[0]} if window else {}
         for qq in qs:
-            out, m, l = kit.decode_norm(qq, nc, wl, li)
-            plain = kit.decode(qq, nc, wl, li)
+            out, m, l = kit.decode_norm(qq, nc, wl, li, **o)
+            plain = kit.decode(qq, nc, wl, li, **o)
             torch.cuda.synchronize()
-            _, want_m, want_l = kit.decode_split_plain_norm(qq.float(), nc, wl, li)
+            _, want_m, want_l = kit.decode_split_plain_norm(qq.float(), nc, wl, li, **o)
             m_err = (m - want_m).abs().max().item()
             l_err = ((l - want_l).abs() / want_l.clamp_min(1.0)).max().item()
-            results.append({"n_chunks": nc, "win_len": wl, "li": li,
+            results.append({"n_chunks": nc, "win_len": wl, "li": li, **o,
                             "q_dtype": str(qq.dtype).split(".")[-1], "G": m.shape[2],
                             "m_max_abs_err": m_err, "l_max_rel_err": l_err,
                             "out_equal_without": bool(torch.equal(out, plain))})
@@ -760,20 +944,22 @@ def _check_win_probs(kit, qs, cases):
     against its split plain version's, within WIN_PROBS_TOL absolute (the
     scores and the merged (m, l) are the plain version's bit for bit; expf
     and the division differ by an ulp or so), 0 at and past ``win_len``,
-    and the output with the option bit-equal to the output without it.
-    Returns (the cases, the worst error over the tolerance)."""
+    and the output with the option bit-equal to the output without it.  A
+    case (n_chunks, win_len, li) may add a sliding window.  Returns (the
+    cases, the worst error over the tolerance)."""
     import torch
     results, worst = [], 0.0
-    for nc, wl, li in cases:
+    for nc, wl, li, *window in cases:
+        o = {"window": window[0]} if window else {}
         for qq in qs:
-            out, probs = kit.decode_wp(qq, nc, wl, li)
-            plain = kit.decode(qq, nc, wl, li)
+            out, probs = kit.decode_wp(qq, nc, wl, li, **o)
+            plain = kit.decode(qq, nc, wl, li, **o)
             torch.cuda.synchronize()
-            _, want = kit.decode_split_plain_wp(qq.float(), nc, wl, li)
+            _, want = kit.decode_split_plain_wp(qq.float(), nc, wl, li, **o)
             err = (probs - want).abs().max().item()
             ok = (bool(torch.equal(out, plain)) and bool(probs.isfinite().all())
                   and err <= WIN_PROBS_TOL and bool((probs[..., wl:] == 0).all()))
-            results.append({"n_chunks": nc, "win_len": wl, "li": li,
+            results.append({"n_chunks": nc, "win_len": wl, "li": li, **o,
                             "q_dtype": str(qq.dtype).split(".")[-1],
                             "G": qq.shape[2] // probs.shape[1], "probs_max_abs_err": err,
                             "out_equal_without": bool(torch.equal(out, plain))})
@@ -1440,15 +1626,20 @@ def phase_kernel_w4():
     return entry
 
 
-def _sdpa_ms(q, k, v, pos, flush):
+def _sdpa_ms(q, k, v, pos, flush, window=None):
     """The library call for the same function: ``scaled_dot_product_attention``
-    with GQA and a boolean mask of each slot's rows [0, pos[b]]; returns
-    (its device ms, the backend PyTorch picked, its output)."""
+    with GQA and a boolean mask of each slot's rows [0, pos[b]] (with a
+    sliding ``window``, the band (pos[b] - window, pos[b]]); returns (its
+    device ms, the backend PyTorch picked, its output)."""
     import torch
     import torch.nn.functional as F
     B, S = k.shape[:2]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    mask = (torch.arange(S, device=q.device)[None, :] <= pos[:, None])[:, None, None, :]
+    rows = torch.arange(S, device=q.device)[None, :]
+    mask = rows <= pos[:, None]
+    if window is not None:
+        mask &= rows > pos[:, None] - window
+    mask = mask[:, None, None, :]
     backend = "unknown"
     if hasattr(torch, "_fused_sdp_choice"):
         from torch.nn.attention import SDPBackend
@@ -1555,10 +1746,11 @@ def phase_kernel_dense():
                                             "off": (norm_ms[1] + norm_ms[2]) / 2,
                                             "in_turns": norm_ms}}
         del k, v
+    window = _dense_windows(fn, dd, g, dev, flush_buf)
     fn.launches = launches0                                # comparisons do not count
     emit("kernel_dense", B=B, Hkv=Hkv, cases=results, worst_err_over_tol=worst,
          worst_err_over_tol_split=worst_split, return_norm_worst_err_over_tol=norm_worst,
-         timed=shapes)
+         timed=shapes, window=window)
     t = shapes["uniform"]
     entry = _entry("dense", "decode", results, worst,
                    "per slot: 2 bf16 ulps of the slot's largest output", t["kernel_ms"],
@@ -1578,8 +1770,96 @@ def phase_kernel_dense():
         "tol": NORM_TOL_NOTE, "worst_err_over_tol": norm_worst,
         "ms": t["return_norm_ms"]["on"], "ms_off": t["return_norm_ms"]["off"],
         "per_slot_ms": p["return_norm_ms"]["on"], "per_slot_ms_off": p["return_norm_ms"]["off"],
-        "launches": None, "timed_at": "as ms, in turns on, off, off, on"}}
+        "launches": None, "timed_at": "as ms, in turns on, off, off, on"},
+        "window": _window_option(window)}
     return entry
+
+
+# kernel 4's sliding-window cases: serve_swa's cache (B=4, 8 kv heads, G=4,
+# S=4,928) at pos 4,500 with Mistral's 4,096 (first live row 405, inside a
+# split) and 3,989 (512, a split boundary); serve_cb's per-slot cache (B=8,
+# S=8,448) with 4,096 (the long slot cut) and 1,000 (four slots cut)
+DENSE_WINDOWS = (("uniform", 4, 4928, 4500, 4096), ("uniform", 4, 4928, 4500, 3989),
+                 ("per_slot", 8, 8448, [8000, 1210, 300, -1, 640, 1499, 45, 950], 4096),
+                 ("per_slot", 8, 8448, [8000, 1210, 300, -1, 640, 1499, 45, 950], 1000))
+
+
+def _dense_windows(fn, dd, g, dev, flush_buf):
+    """Kernel 4 with a sliding window (DENSE_WINDOWS; G = 4 at bf16 and f32
+    q, G = 1 and 8 at the first case): each slot held to the TPU-order plain
+    version at 2 bf16 ulps of its scale and to the split plain version by
+    ``split_gate``, its (m, l) by ``_check_norm``, an idle slot 0.  Timed at
+    the first case with the window on and off, in turns, beside each's byte
+    bound (the rows each attends), the plain version and
+    ``scaled_dot_product_attention`` with the band as its mask."""
+    import torch
+    Hkv, D = 8, 128
+    results, worst, worst_split, timed = [], 0.0, 0.0, None
+    for i, (label, B, S, pos, window) in enumerate(DENSE_WINDOWS):
+        k = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(torch.bfloat16)
+        kpos = torch.tensor(pos, dtype=torch.int32, device=dev) if label == "per_slot" else pos
+        slot_pos = kpos if torch.is_tensor(kpos) else torch.full((B,), pos, device=dev)
+        live = slot_pos >= 0
+        dims = (1, 2, 3)
+        for G in ((4, 1, 8) if i == 0 else (4,)):
+            qb = torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(torch.bfloat16)
+            for q in ((qb, qb.float()) if G == 4 else (qb,)):
+                got = fn(q, k, v, kpos, window=window)
+                torch.cuda.synchronize()
+                want = dd.flash_decode_attention_plain(q, k, v, kpos, window=window)
+                errs = (got.float() - want.float()).abs().amax(dim=dims)
+                tols = KERNEL_TOL_ULPS * 2.0 ** -8 * want.float().abs().amax(dim=dims)
+                ratio = (errs[live] / tols[live].clamp_min(1e-30)).max().item()
+                split = split_gate(got, dd.flash_decode_attention_split_plain(
+                    q.float(), k, v, kpos, window=window), live)
+                case = {"case": label, "S": S, "pos": pos, "window": window, "G": G,
+                        "q_dtype": str(q.dtype).split(".")[-1],
+                        "max_abs_err": errs.max().item(), "worst_err_over_tol": ratio,
+                        "worst_err_over_tol_split": split,
+                        "idle_slots_zero": bool((got[~live] == 0).all())}
+                results.append(case)
+                if not (got.isfinite().all() and ratio <= 1.0 and split <= 1.0
+                        and case["idle_slots_zero"]):
+                    raise AssertionError(f"dense decode kernel with a window disagrees with "
+                                         f"its plain versions: {case}")
+                _check_norm(fn, dd, q, k, v, kpos, got, case, window)
+                worst, worst_split = max(worst, ratio), max(worst_split, split)
+        if i == 0:
+            q = torch.randn((B, 1, Hkv * 4, D), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(5):
+                fn(q, k, v, kpos, window=window)
+                fn(q, k, v, kpos)
+            torch.cuda.synchronize()
+            ms = [cuda_ms(call, 50, flush=flush_buf.zero_)[0]
+                  for call in (lambda: fn(q, k, v, kpos, window=window),
+                               lambda: fn(q, k, v, kpos), lambda: fn(q, k, v, kpos),
+                               lambda: fn(q, k, v, kpos, window=window))]
+            plain_ms, _ = cuda_ms(lambda: dd.flash_decode_attention_plain(
+                q, k, v, kpos, window=window), 3, flush=flush_buf.zero_, spin=False)
+            lib_ms, backend, lib_out = _sdpa_ms(q, k, v, slot_pos, flush_buf.zero_, window)
+            lib_off_ms = _sdpa_ms(q, k, v, slot_pos, flush_buf.zero_)[0]
+            lib_err = (lib_out.float() - fn(q, k, v, kpos, window=window).float()
+                       ).abs().max().item()
+
+            def bound(rows):
+                nbytes = rows * Hkv * D * 2 * 2 + 2 * q.numel() * 2
+                flops = rows * Hkv * 4 * D * 2 * 2
+                return max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
+            turns = in_turns(ms)
+            timed = {"timed_at": f"B={B}, S={S}, pos {pos}, Hkv={Hkv}, G=4, window {window} "
+                                 f"(rows {pos - window + 1}-{pos}), in turns on, off, off, on "
+                                 f"(the least of each pair)",
+                     "ms_on": turns["on"], "ms_off": turns["off"], "in_turns": ms,
+                     "bound_ms": bound(B * window), "bound_ms_off": bound(B * (pos + 1)),
+                     "plain_ms": plain_ms, "library_ms": lib_ms, "library_ms_off": lib_off_ms,
+                     "library_backend": backend, "library_max_abs_diff": lib_err}
+        del k, v
+    return {"cases": results, "max_abs_err": max(r["max_abs_err"] for r in results),
+            "tol": "per slot: 2 bf16 ulps of the slot's largest output (TPU order); "
+                   + SPLIT_TOL_NOTE,
+            "worst_err_over_tol": worst, "worst_err_over_tol_split": worst_split,
+            "timed": timed}
 
 
 NORM_TOL = 2.0 ** -18
@@ -1587,16 +1867,17 @@ NORM_TOL_NOTE = ("m within 2^-18 absolute, l within 2^-18 of l (a sum of up to 1
                  "exps a split, >= 1 for a live slot), of the split plain version's")
 
 
-def _check_norm(fn, dd, q, k, v, kpos, got, case):
+def _check_norm(fn, dd, q, k, v, kpos, got, case, window=None):
     """Kernel 4's final (m, l) (``return_norm``) against its split plain
     version's (NORM_TOL_NOTE; an idle slot -1e30 and 0 exactly) and its
-    output bit-equal to ``got``, the call without the option.  Records into
-    ``case`` and returns the worst error over the tolerance."""
+    output bit-equal to ``got``, the call without the option (with the
+    sliding ``window``, if given, in both).  Records into ``case`` and
+    returns the worst error over the tolerance."""
     import torch
-    out, m, l = fn(q, k, v, kpos, return_norm=True)
+    out, m, l = fn(q, k, v, kpos, window=window, return_norm=True)
     torch.cuda.synchronize()
     _, wm, wl = dd.flash_decode_attention_split_plain(q.float(), k, v, kpos,
-                                                       return_norm=True)
+                                                       return_norm=True, window=window)
     m_err = (m - wm).abs().max().item()
     l_err = ((l - wl).abs() / wl.clamp_min(1.0)).max().item()
     case.update(m_max_abs_err=m_err, l_max_rel_err=l_err,
@@ -1959,11 +2240,11 @@ def phase_kernel_archive_cache(k, v):
     return launches
 
 
-def _tiny_engine(mode, codec="q8q4", method=None, **kw):
+def _tiny_engine(mode, codec="q8q4", method=None, window=None, **kw):
     import dataclasses
     from mustafar_tpu_torch import config as tc
     model = dataclasses.replace(tc.TINY_LLAMA, head_dim=128, num_heads=4,
-                                num_kv_heads=1, hidden_size=256)
+                                num_kv_heads=1, hidden_size=256, sliding_window=window)
     return tc.EngineConfig(
         model=model, cache_mode=mode,
         prune=tc.PruneConfig(method=method or tc.PruneMethod.KT_MAG_VT_MAG,
@@ -2029,21 +2310,22 @@ def _recording_engine():
 
 
 def phase_reference(codec="q8q4", mode=None, method=None, use_pallas=False, T=300,
-                    tol_frac=1e-2):
+                    tol_frac=1e-2, window=None):
     """A tiny f32 model, same weights and token stream on the card and on
     the CPU: the card runs the kernel, the CPU the plain path, a prompt of
     ``T`` tokens and 39 decode steps (a compressed cache compacts when its
     window fills, as the Generator does).  ``mode`` and ``method`` default
     to the compressed cache and KT_MAG_VT_MAG; ``use_pallas`` sends a dense
     or masked cache through kernel 4; ``tol_frac`` is the logits'
-    tolerance as a fraction of their range.  Returns the phase's numbers
-    (``reference_bitmap`` and the others print them)."""
+    tolerance as a fraction of their range; ``window`` gives the model a
+    sliding window.  Returns the phase's numbers (``reference_bitmap`` and
+    the others print them)."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.cache import make_cache
     from mustafar_tpu_torch.config import CacheMode
     from mustafar_tpu_torch.models import llama
-    eng = _tiny_engine(mode or CacheMode.COMPRESSED, codec, method)
+    eng = _tiny_engine(mode or CacheMode.COMPRESSED, codec, method, window)
     cpu_params = llama.init_params(eng.model, device="cpu", dtype=torch.float32, seed=1)
     gpu_params = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict)
                       else v.cuda()) for k, v in cpu_params.items()}
@@ -2085,9 +2367,14 @@ def phase_reference(codec="q8q4", mode=None, method=None, use_pallas=False, T=30
     # differences of f32 activations on the two devices can flip one of those
     # roundings (the CPU parity tests measure < 3e-3 of the logits' range)
     tol = tol_frac * scale
-    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    want, pick = a.argmax(-1), b.argmax(-1)
+    agree = (want == pick).float().mean().item()
+    # each differing pick with the CPU's margin between its token and the card's
+    flips = [{"row": r, "step": t,
+              "cpu_margin": (a[r, t, want[r, t]] - a[r, t, pick[r, t]]).item()}
+             for r, t in torch.nonzero(pick != want).tolist()]
     fields = {"steps": 40, "max_abs_err": err, "tol": tol, "greedy_agreement": agree,
-              "launched": launched, "compactions": compactions}
+              "flips": flips, "launched": launched, "compactions": compactions}
     if codec == "q8q4" and mode is None and method is None:
         emit("reference", **fields)
     if not (b.isfinite().all() and err <= tol):
@@ -2185,6 +2472,57 @@ def phase_reference_q():
             raise AssertionError(f"reference_q ({codec}): launched {gen['launched']} and "
                                  f"{cb['launched']}")
     return {codec: cb["launched"] for codec, (_, cb) in runs.items()}
+
+
+SWA_TINY_WINDOW, SWA_TINY_T = 320, 600
+SWA_TIE_TOL = 1e-2   # absolute: the CPU tests' TIE_TOL for a kernel's route
+SWA_PICKS_NOTE = ("every greedy pick equal, or at a near-tie: the CPU's margin between its "
+                  "token and the card's pick at most SWA_TIE_TOL = 1e-2, the tie "
+                  "tolerance the CPU tests hold a kernel's route to against the JAX "
+                  "package (tests/test_torch_generate.py, tests/test_torch_w4.py), a "
+                  "fixed bound that no run's error sets. The kernels round q, the "
+                  "window and p to bf16 and the f32 activations differ in their last "
+                  "bits between card and CPU, so a pick whose top-2 logits lie that "
+                  "close may flip (on an H100: one of 80 at q4q4 at a CPU margin of "
+                  "3.6e-5, one of 80 through kernel 4 at 1.4e-3)")
+
+
+def phase_reference_swa():
+    """``reference`` on a tiny f32 model with a sliding window of 320, card
+    against CPU: a 600-token prompt (banded prefill; 2 chunks packed, 88
+    window tokens) and 39 decode steps from position 600 (first live pool
+    column 281: chunk 0 wholly below the window, chunk 1 cut), as the
+    Generator runs them, at every codec (kernels 1 and 6 with ``window``,
+    kernel 9 at prefill), the dense cache through kernel 4 with ``window``,
+    and the masked cache (plain route, KT_MAG_VT_MAG at 0.7); logits within
+    1e-2 of their range and every greedy pick equal or at a near-tie
+    within SWA_TIE_TOL (SWA_PICKS_NOTE); each run launched its kernels and
+    no other."""
+    from mustafar_tpu_torch.config import CacheMode
+    steps = 2 * 39
+    runs = {}
+    cases = [(CacheMode.COMPRESSED, c, False,
+              {"fused_q_decode_attention": steps, "prune_quant_pack_kv": 2}
+              if c in QUANT_BITS else {"fused_sparse_decode_attention": steps})
+             for c in ("q8q4", "q8", "q4q4", "bitmap", "bitmap-q8")]
+    cases += [(CacheMode.DENSE, "q8q4", True, {"flash_decode_attention": steps}),
+              (CacheMode.MASKED, "q8q4", False, {})]
+    for mode, codec, use_pallas, want in cases:
+        label = f"{mode.value}/{codec}" if mode == CacheMode.COMPRESSED else (
+            f"{mode.value}" + ("/kernel4" if use_pallas else ""))
+        fields = phase_reference(codec, mode, None, use_pallas, T=SWA_TINY_T,
+                                 window=SWA_TINY_WINDOW)
+        runs[label] = dict(fields, expected_launches=want)
+        runs[label]["picks"] = SWA_PICKS_NOTE
+        if fields["launched"] != want:
+            raise AssertionError(f"reference_swa ({label}): launched {fields['launched']}, "
+                                 f"expected {want}")
+        wide = [f for f in fields["flips"] if f["cpu_margin"] > SWA_TIE_TOL]
+        if wide:
+            raise AssertionError(f"reference_swa ({label}): greedy picks flipped at a CPU "
+                                 f"margin past SWA_TIE_TOL ({SWA_TIE_TOL}): {wide}")
+    emit("reference_swa", window=SWA_TINY_WINDOW, prompt=SWA_TINY_T, runs=runs)
+    return runs
 
 
 CHANNEL_OPA_TOL = 5e-2   # of the logits' range (see phase_reference_masked)
@@ -2391,22 +2729,26 @@ def _pool_bytes(cache):
 
 
 def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=False,
-          on_cache=None, prune=None):
+          on_cache=None, prune=None, model=None, max_seq_len=1312, chunks_end=2,
+          time_prefill=False):
     """One warm-up generation, then the measured one; returns its tokens,
     the launches of every kernel during the measured run (those launched)
     and the phase's fields.  ``use_pallas`` decodes the dense or masked
     cache through its flash-decode kernel; ``on_cache`` is handed the cache
     state the measured run left; ``prune`` defaults to KT_MAG_VT_MAG at
-    sparsity 0.7."""
+    sparsity 0.7; ``model`` to Llama-3-8B, whose compressed runs end with
+    ``chunks_end`` pool chunks.  With ``time_prefill`` a prefill of the
+    prompt alone is timed after the run (``prefill_s``)."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import EngineConfig, LLAMA3_8B, PruneConfig, PruneMethod
     from mustafar_tpu_torch.runtime.generate import Generator
+    model = model or LLAMA3_8B
     if prune is None:
         prune = PruneConfig(method=PruneMethod.KT_MAG_VT_MAG, k_sparsity=0.7,
                             v_sparsity=0.7)
-    eng = EngineConfig(model=LLAMA3_8B, cache_mode=mode, prune=prune,
-                       max_seq_len=1312, prefill_bucket=256, chunk_size=256,
+    eng = EngineConfig(model=model, cache_mode=mode, prune=prune,
+                       max_seq_len=max_seq_len, prefill_bucket=256, chunk_size=256,
                        codec=codec)
     gen = Generator(eng, params, dtype=torch.bfloat16)
     gen.cache_impl.use_pallas = use_pallas
@@ -2421,7 +2763,7 @@ def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=Fals
     launches = {k: v for k, v in _launches().items() if v}
     toks = torch.as_tensor(np.stack(out))
     B = toks.shape[0]
-    if toks.shape != (B, new_tokens) or toks.min() < 0 or toks.max() >= LLAMA3_8B.vocab_size:
+    if toks.shape != (B, new_tokens) or toks.min() < 0 or toks.max() >= model.vocab_size:
         raise AssertionError(f"{label}: bad tokens {tuple(toks.shape)}")
     fields = {"batch": B, "prompt": prompt.shape[1], "new_tokens": new_tokens,
               "seconds": dt, "tok_s": B * new_tokens / dt,
@@ -2437,14 +2779,31 @@ def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=Fals
     if mode.value == "compressed":
         fields["n_chunks_end"] = cache["nc_host"]
         fields["pool_bytes"] = _pool_bytes(cache)
-        if not (cache["nc_host"] == 2 and bool((cache["n_chunks"] == 2).all())):
-            raise AssertionError(f"{label}: expected 2 pool chunks at the end, "
+        if not (cache["nc_host"] == chunks_end
+                and bool((cache["n_chunks"] == chunks_end).all())):
+            raise AssertionError(f"{label}: expected {chunks_end} pool chunks at the end, "
                                  f"got {cache['nc_host']}")
-    # finite logits on a small prefill through the same engine
     from mustafar_tpu_torch.models import llama
+    if time_prefill:
+        del cache
+        gen.last_cache = None
+        T = prompt.shape[1]
+        toks_in = torch.zeros((B, gen._bucket(T)), dtype=torch.int64)
+        toks_in[:, :T] = torch.as_tensor(prompt)
+        toks_in = toks_in.cuda()
+        with torch.inference_mode():
+            fresh = gen.cache_impl.init(B)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            llama.prefill(model, params, toks_in, fresh, gen.cache_impl, T, last_only=True)
+            torch.cuda.synchronize()
+            fields["prefill_s"] = time.perf_counter() - t
+        del fresh
+        cache = None
+    # finite logits on a small prefill through the same engine
     with torch.inference_mode():
         small = torch.as_tensor(prompt[:1, :256]).cuda()
-        logits, _ = llama.prefill(LLAMA3_8B, params, small, gen.cache_impl.init(1),
+        logits, _ = llama.prefill(model, params, small, gen.cache_impl.init(1),
                                   gen.cache_impl, 256, last_only=True)
     if not bool(logits.isfinite().all()):
         raise AssertionError(f"{label}: non-finite logits")
@@ -2934,6 +3293,77 @@ def serve_packs():
     return LLAMA3_8B.num_layers + 1
 
 
+SWA_B, SWA_PROMPT, SWA_NEW = 4, 4400, 300
+
+
+def serve_swa(entries, other, reference_runs):
+    """Mistral-7B with its sliding window (``MISTRAL_7B_SWA``: 32 layers,
+    hidden 4,096, 32 query and 8 kv heads, window 4,096) at full width and
+    depth, W8 random weights from seed 0, through the ``Generator``: B=4, a
+    4,400-token prompt (past the window: banded prefill; 17 chunks packed)
+    and 300 new tokens (from the first step the window leaves chunk 0 out;
+    one compaction after step 240).  ``serve_swa_dense`` (plain route, no
+    kernel), ``serve_swa_dense_kernel`` (kernel 4 with ``window``),
+    ``serve_swa_q8q4`` (kernel 1; kernel 9 at prefill and the compaction),
+    ``serve_swa_bitmap`` (kernel 6): each decode kernel 32 x 299 launches,
+    every first token equal to ``serve_swa_dense``'s; tok/s, prefill
+    seconds (a prefill of the prompt alone) and peak memory.  Fills the
+    window's launches in the kernels line (q8, q4q4 and bitmap-q8 from
+    ``reference_swa``'s runs on the card, tiny model)."""
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.config import CacheMode, MISTRAL_7B_SWA as m
+    from mustafar_tpu_torch.models.quant import init_params_w8, weight_bytes
+    t = time.perf_counter()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    params = init_params_w8(m, g, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    prompt = np.random.RandomState(0).randint(1, m.vocab_size, (SWA_B, SWA_PROMPT))
+    steps = SWA_NEW - 1
+    expected = m.num_layers * steps
+    common = dict(model=m, max_seq_len=-(-SWA_PROMPT // 256) * 256 + SWA_NEW,
+                  chunks_end=SWA_PROMPT // 256 + 1, time_prefill=True)
+    model_note = (f"{m.name} x{m.num_layers}L, window {m.sliding_window}, W8 (random, "
+                  f"seed 0)")
+    dense_toks, launches, fields = serve("serve_swa_dense", CacheMode.DENSE, params, prompt,
+                                         SWA_NEW, **common)
+    emit("serve_swa_dense", model=model_note, weights_gib=weight_bytes(params) / 2 ** 30,
+         weights_init_s=init_s, decode_steps=steps, **fields)
+    if launches:
+        raise AssertionError(f"serve_swa_dense launched {launches}")
+    runs = (("serve_swa_dense_kernel", CacheMode.DENSE, "q8q4", True,
+             {"flash_decode_attention": expected}, ("dense", "decode")),
+            ("serve_swa_q8q4", CacheMode.COMPRESSED, "q8q4", False,
+             {"fused_q_decode_attention": expected, "prune_quant_pack_kv": m.num_layers + 1},
+             ("q8q4", "decode")),
+            ("serve_swa_bitmap", CacheMode.COMPRESSED, "bitmap", False,
+             {"fused_sparse_decode_attention": expected}, ("bitmap", "decode")))
+    for label, mode, codec, use_pallas, want, key in runs:
+        toks, launches, fields = serve(label, mode, params, prompt, SWA_NEW, codec=codec,
+                                       use_pallas=use_pallas, **common)
+        first_equal = bool((toks[:, 0] == dense_toks[:, 0]).all())
+        emit(label, model=model_note, decode_steps=steps, expected_launches=want,
+             first_token_equal_dense=first_equal,
+             token_agreement_with_dense=(toks == dense_toks).float().mean().item(), **fields)
+        if launches != want or not first_equal:
+            raise AssertionError(f"{label}: launched {launches} (expected {want}), first "
+                                 f"tokens equal serve_swa_dense's: {first_equal}")
+        name = _meta(codec if mode == CacheMode.COMPRESSED else "dense", "decode")[0]
+        entries[key]["options"]["window"].update(
+            launches=launches[name],
+            launches_note=f"{label}: every decode launch with the window "
+                          f"({m.sliding_window})")
+    for codec in ("q8", "q4q4", "bitmap-q8"):
+        name = _meta(codec, "decode")[0]
+        other[(codec, "decode")]["options"]["window"].update(
+            launches=reference_runs[f"compressed/{codec}"]["launched"][name],
+            launches_note="reference_swa's run on the card (tiny model, window 320)")
+    del params
+    torch.cuda.empty_cache()
+
+
 QUANT_KINDS = ("decode", "decode_ps", "segment")
 
 
@@ -2947,6 +3377,9 @@ def _merge_codecs(entries, other, top, rest, note):
         e = entries[(top, kind)]
         e["codecs"] = {c: {k: x[k] for k in keys}
                        for c, x in ((top, e), *((c, other[(c, kind)]) for c in rest))}
+        if kind == "decode":          # each codec's sliding window
+            for c in rest:
+                e["codecs"][c]["window"] = other[(c, kind)]["options"]["window"]
         e["max_abs_err"] = max(v["max_abs_err"] for v in e["codecs"].values())
         e["worst_err_over_tol"] = max(v["worst_err_over_tol"] for v in e["codecs"].values())
         e["timed_at"] = f"{top} at the top; each codec under codecs"
@@ -2976,6 +3409,7 @@ def main():
     phase_reference_masked()
     phase_reference_opa()
     opa_cb_launches = phase_reference_opa_cb()
+    swa_runs = phase_reference_swa()
 
     import numpy as np
     import torch
@@ -3104,6 +3538,7 @@ def main():
     phase_host_split(params)
     del params
     torch.cuda.empty_cache()
+    serve_swa(entries, other, swa_runs)
     serve_w4(entries, prompt, new)
 
     print(smi, flush=True)

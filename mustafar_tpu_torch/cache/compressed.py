@@ -64,6 +64,14 @@ Semantics:
     group of the post-softmax p, rebuilt from the merged (m, l) of the
     pool, window and self partials, times |v|), before the window's oldest
     C tokens are packed by those scores.
+  * a sliding window (Mistral, ``ModelConfig.sliding_window``, at least the
+    window's capacity r + C): prefill attends through
+    ``prefill_attention``'s banded path, and the uniform decode's kernels
+    take ``window``, so a token at position p attends only pool columns
+    past p - window (the window's own columns are all inside it).  The
+    per-slot decode, ``compact_slots`` and chunked prefill
+    (``segment_attend``) refuse a window: their kernels take it in the next
+    slice of ROADMAP Queue A item 14.
 """
 
 from __future__ import annotations
@@ -99,8 +107,6 @@ class CompressedKVCache:
         self.v_opa = p.method.v_policy == "token_opa"
         self.score_keys = (("k_score",) if self.k_opa else ()) + \
             (("v_score",) if self.v_opa else ())
-        if m.sliding_window is not None:
-            raise NotImplementedError("sliding windows are ROADMAP Queue A item 14")
         assert m.head_dim == 128, (
             f"the compressed format packs 128-wide rows; head_dim must be 128 "
             f"(got {m.head_dim})")
@@ -108,6 +114,11 @@ class CompressedKVCache:
         self.C = C
         self.r = p.residual_length
         self.wcap = self.r + C
+        self.window = m.sliding_window
+        if self.window is not None:
+            assert self.window >= self.wcap, (
+                f"sliding window ({self.window}) must cover the dense residual "
+                f"window capacity ({self.wcap})")
         self.max_chunks = max(1, (engine.max_seq_len - self.r) // C)
         self.k_keep = p.kept_per_row(m.head_dim, p.k_sparsity)
         self.v_keep = p.kept_per_row(m.head_dim, p.v_sparsity)
@@ -124,6 +135,12 @@ class CompressedKVCache:
             self.vfmt = sf.ChunkFormat(C, m.head_dim, self.v_keep, qbits=qbits)
             self.rows = self.kfmt.stream_rows + self.vfmt.stream_rows
             self.pool_keys = ("kv_pool", "kv_scales") if qbits == 8 else ("kv_pool",)
+
+    def _refuse_window(self, what: str):
+        if self.window is not None:
+            raise NotImplementedError(
+                f"the compressed cache's {what} with a sliding window (the engine and "
+                f"chunked prefill over it) is the next slice of ROADMAP Queue A item 14")
 
     # -- state ------------------------------------------------------------
     def init(self, batch: int, dtype=torch.bfloat16) -> dict:
@@ -218,7 +235,7 @@ class CompressedKVCache:
         """q [B,T,Hq,D], k/v [B,T,Hkv,D] (roped) -> out [B,T,Hq,D]; fills
         layer li's pool and window."""
         T = q.shape[1]
-        out = prefill_attention(q, k, v, true_len)
+        out = prefill_attention(q, k, v, true_len, self.window)
         C = self.C
         comp_len = max(true_len - self.r, 0) // C * C
         n_pre = comp_len // C
@@ -229,7 +246,8 @@ class CompressedKVCache:
             # scores of the packed prefix, the masked cache's prefill scores
             ks = (prefill_k_opa_score(q, k, true_len).transpose(1, 2)
                   if self.k_opa else None)
-            vs = (prefill_v_opa_score(q, k, v, true_len, self.p.group_size).transpose(1, 2)
+            vs = (prefill_v_opa_score(q, k, v, true_len, self.p.group_size,
+                                      self.window).transpose(1, 2)
                   if self.v_opa else None)
             kc, vc, ksc, vsc = (
                 None if x is None else
@@ -287,26 +305,32 @@ class CompressedKVCache:
         if self.qcodec is None:
             out = ska.fused_sparse_decode_attention(q, pool, kw, vw, nc, win_len, lk,
                                                     self.kfmt, self.vfmt,
-                                                    kv_scales=scales,
+                                                    kv_scales=scales, window=self.window,
                                                     return_win_probs=self.v_opa)
         else:
             out = qa.fused_q_decode_attention(q, pool, scales, kw, vw, nc, win_len,
-                                              lk, self.qcodec, return_win_probs=self.v_opa)
+                                              lk, self.qcodec, window=self.window,
+                                              return_win_probs=self.v_opa)
         return self._with_scores(state, li, q, out, win_len)
 
     def _with_scores(self, state, li: int, q, out, win_len):
         """The decode kernel's result ``out`` (with the window probabilities
         when V is scored) -> its output, after this step's Opa scores are
         added (``_accumulate_scores``) at each slot's live window columns
-        [0, win_len) (a host int, or a [B] tensor: an idle slot's 0)."""
+        [0, win_len) (a host int, or a [B] tensor: an idle slot's 0), those
+        inside the sliding window (all of them, as the window covers the
+        capacity)."""
         if not self.score_keys:
             return out
         p_win = None
         if self.v_opa:
             out, p_win = out
-        cols = torch.arange(self.wcap, device=q.device)
+        cols = torch.arange(self.wcap, device=q.device)[None, :]
         wl = win_len[:, None] if torch.is_tensor(win_len) else win_len
-        self._accumulate_scores(state, li, q, (cols[None, :] < wl)[:, None, :, None], p_win)
+        live = cols < wl
+        if self.window is not None:
+            live &= cols > wl - 1 - self.window
+        self._accumulate_scores(state, li, q, live[:, None, :, None], p_win)
         return out
 
     def _accumulate_scores(self, state, li: int, q, live, p_win):
@@ -331,6 +355,7 @@ class CompressedKVCache:
         (0 chunks, 0 window tokens): after a retire its n_chunks still holds
         the old request's count, and the window index it would give may lie
         far out of range."""
+        self._refuse_window("per-slot decode")
         B = q.shape[0]
         nc = state["n_chunks"][li]
         active = pos >= 0
@@ -397,6 +422,7 @@ class CompressedKVCache:
         read on the device as the JAX package reads it (layer 0's, the
         layers move in lockstep).  Under Opa the chunk keeps the top entries
         by the slots' scores, which shift with their windows."""
+        self._refuse_window("compact_slots")
         sel = [b for b, flag in enumerate(do) if flag]
         if not sel:
             return state
@@ -462,6 +488,7 @@ class CompressedKVCache:
         pool slot n_chunks of layer li: a layer reads only its own pools and
         only chunks below n_chunks, so nothing reads the slot before the
         segment ends.  ``finalize_segment`` then moves the host count."""
+        self._refuse_window("chunked prefill (segment_attend)")
         B, T, Hq, D = q.shape
         C, W = self.C, self.wcap
         if T != C:

@@ -14,6 +14,12 @@ Hkv, D] f32).  Decode, as in the JAX package, takes one of two routes:
     CUDA kernel on the card, its plain version on the CPU.  The name is the
     JAX package's; here it selects the hand-written CUDA kernel.
 
+With a sliding window (Mistral, ``ModelConfig.sliding_window``) a token at
+position p attends keys k with p - window < k <= p, in prefill
+(``prefill_attention``, banded past the window) and in decode, on every
+route: the plain one slices or masks the cached rows, the kernel takes
+``window``.
+
 The masked cache keeps the dense layout and zeroes pruned entries in place,
 with the reference's semantics:
   * prefill attends the dense prompt, then prunes every token but the most
@@ -43,7 +49,7 @@ import torch
 from mustafar_tpu_torch.config import EngineConfig, PruneMethod
 from mustafar_tpu_torch.device import resolve_device
 from mustafar_tpu_torch.ops import pruning
-from mustafar_tpu_torch.ops.kernels.dense_decode import flash_decode_attention
+from mustafar_tpu_torch.ops.kernels.dense_decode import first_row, flash_decode_attention
 from mustafar_tpu_torch.ops.attention import (attention_partials, causal_mask,
                                               merge_partials, mha, prefill_attention)
 
@@ -55,8 +61,7 @@ class DenseKVCache:
         self.engine = engine
         self.model = engine.model
         self.use_pallas = False if use_pallas is None else use_pallas
-        if self.model.sliding_window is not None:
-            raise NotImplementedError("sliding windows are ROADMAP Queue A item 14")
+        self.window = self.model.sliding_window
 
     def init(self, batch: int, dtype=torch.bfloat16) -> dict:
         m, S = self.model, self.engine.max_seq_len
@@ -72,7 +77,7 @@ class DenseKVCache:
     def prefill_attend(self, state, li: int, q, k, v, true_len: int):
         """q [B,T,Hq,D], k/v [B,T,Hkv,D] (roped) -> out; stores all T rows
         (after ``prefill_prune``)."""
-        out = prefill_attention(q, k, v, true_len)
+        out = prefill_attention(q, k, v, true_len, self.window)
         k_store, v_store = self.prefill_prune(q, k, v, true_len)
         T = k.shape[1]
         state["k"][li, :, :T] = k_store
@@ -94,7 +99,7 @@ class DenseKVCache:
         host int, uniform batch) or ``pos[b]`` (a [B] device tensor,
         per-slot).  Attention over rows [0, pos) and the token itself,
         merged; with ``use_pallas``, over the post-append rows [0, pos] in
-        one kernel call."""
+        one kernel call.  A sliding window keeps rows past pos - window."""
         if self.use_pallas and self.model.head_dim % 128 == 0:
             return self._decode_attend_kernel(state, li, q, k, v, pos)
         if torch.is_tensor(pos):
@@ -102,22 +107,29 @@ class DenseKVCache:
         if pos < 1:
             raise ValueError(f"decode needs a prefilled cache, got pos {pos}")
         k_l, v_l = state["k"][li], state["v"][li]
-        ones = torch.ones((1, pos), dtype=torch.bool, device=q.device)
-        p_cached = attention_partials(q, k_l[:, :pos], v_l[:, :pos], ones)
+        lo = first_row(pos, self.window)
+        parts = []
+        if lo < pos:                         # the cached rows in the window
+            ones = torch.ones((1, pos - lo), dtype=torch.bool, device=q.device)
+            parts.append(attention_partials(q, k_l[:, lo:pos], v_l[:, lo:pos], ones))
         k_l[:, pos] = k[:, 0]
         v_l[:, pos] = v[:, 0]
-        p_self = attention_partials(q, k.to(k_l.dtype), v.to(v_l.dtype),
-                                    torch.ones((1, 1), dtype=torch.bool,
-                                               device=q.device))
-        return merge_partials([p_cached, p_self]).to(q.dtype)
+        parts.append(attention_partials(q, k.to(k_l.dtype), v.to(v_l.dtype),
+                                        torch.ones((1, 1), dtype=torch.bool,
+                                                   device=q.device)))
+        return merge_partials(parts).to(q.dtype)
 
     def _decode_attend_per_slot(self, state, li: int, q, k, v, pos):
-        """Per-slot positions: slot b attends its rows [0, pos[b]) and its
-        token; an idle slot (pos -1) writes nothing (``_write_rows``)."""
+        """Per-slot positions: slot b attends its rows [0, pos[b]) (past
+        pos[b] - window with a sliding window) and its token; an idle slot
+        (pos -1) writes nothing (``_write_rows``)."""
         k_l, v_l = state["k"][li], state["v"][li]
         S = k_l.shape[1]
         dev = q.device
-        cached = torch.arange(S, device=dev)[None, None, :] < pos[:, None, None]
+        kp = torch.arange(S, device=dev)[None, None, :]
+        cached = kp < pos[:, None, None]
+        if self.window is not None:
+            cached &= kp > pos[:, None, None] - self.window
         p_cached = attention_partials(q, k_l, v_l, cached)          # [B, 1, S] mask
         _write_rows(k_l, v_l, k, v, pos)
         p_self = attention_partials(q, k.to(k_l.dtype), v.to(v_l.dtype),
@@ -138,11 +150,12 @@ class DenseKVCache:
 
     def _decode_attend_kernel(self, state, li: int, q, k, v, pos):
         """Write the token's row, then attend rows [0, pos] (per slot
-        [0, pos[b]]; an idle slot at -1 writes nothing and comes out 0)
-        through the dense flash-decode kernel, as the JAX package's stacked
-        path does with ``use_pallas``."""
+        [0, pos[b]]; an idle slot at -1 writes nothing and comes out 0;
+        past pos - window with a sliding window) through the dense
+        flash-decode kernel, as the JAX package's stacked path does with
+        ``use_pallas``."""
         k_l, v_l, kpos = self._append(state, li, k, v, pos)
-        return flash_decode_attention(q, k_l, v_l, kpos)
+        return flash_decode_attention(q, k_l, v_l, kpos, window=self.window)
 
 
 def _write_rows(k_l, v_l, k, v, pos):
@@ -212,17 +225,18 @@ def prefill_k_opa_score(q, k, true_len: int) -> torch.Tensor:
     return (q_mean[:, None] * k.to(torch.float32)).abs()
 
 
-def prefill_v_opa_score(q, k, v, true_len: int, group_size: int) -> torch.Tensor:
+def prefill_v_opa_score(q, k, v, true_len: int, group_size: int,
+                        window=None) -> torch.Tensor:
     """Output-aware prefill V score |attn_weight * v|, the weights the
-    softmaxed attention of the last ``group_size`` queries summed over them
-    and the query group -> [B,T,Hkv,D] f32.  Shared by the masked and
-    compressed caches."""
+    softmaxed attention of the last ``group_size`` queries (under the
+    sliding ``window``, if any) summed over them and the query group ->
+    [B,T,Hkv,D] f32.  Shared by the masked and compressed caches."""
     B, T, Hq, D = q.shape
     Hkv = v.shape[2]
     gs = group_size
     start = min(max(true_len - gs, 0), T - gs)          # JAX's dynamic_slice clamp
     pos = torch.arange(T, device=q.device)
-    mask = causal_mask(start + torch.arange(gs, device=q.device), pos, true_len)
+    mask = causal_mask(start + torch.arange(gs, device=q.device), pos, true_len, window)
     _, w = mha(q[:, start:start + gs], k, v, mask, return_weights=True)
     w_kv = w.reshape(B, gs, Hkv, Hq // Hkv, T).sum(dim=(1, 3))     # [B, Hkv, T]
     return (w_kv[..., None] * v.transpose(1, 2).to(torch.float32)).abs().transpose(1, 2)
@@ -274,11 +288,13 @@ class MaskedKVCache(DenseKVCache):
             v_store = self._prefill_prune_v_channel(v, true_len, None)
         elif method.v_policy == "token_opa":
             v_pruned = pruning.prune_by_score_lastdim(
-                v, prefill_v_opa_score(q, k, v, true_len, p.group_size), p.v_sparsity)
+                v, prefill_v_opa_score(q, k, v, true_len, p.group_size, self.window),
+                p.v_sparsity)
             v_store = torch.where(in_prefix, v_pruned, v)
         elif method.v_policy == "channel_opa":
             v_store = self._prefill_prune_v_channel(
-                v, true_len, prefill_v_opa_score(q, k, v, true_len, p.group_size))
+                v, true_len, prefill_v_opa_score(q, k, v, true_len, p.group_size,
+                                                 self.window))
         else:
             v_store = v
         return k_store, v_store
@@ -313,16 +329,20 @@ class MaskedKVCache(DenseKVCache):
         k_l, v_l, kpos = self._append(state, li, k, v, pos)
         if self.use_pallas and self.model.head_dim % 128 == 0:
             if self._needs_weights():
-                out, m, l = flash_decode_attention(q, k_l, v_l, kpos, return_norm=True)
+                out, m, l = flash_decode_attention(q, k_l, v_l, kpos, window=self.window,
+                                                   return_norm=True)
                 w = ("win", self._window_probs(q, k_l, pos, m, l))
             else:
-                out, w = flash_decode_attention(q, k_l, v_l, kpos), None
+                out, w = flash_decode_attention(q, k_l, v_l, kpos, window=self.window), None
         else:
             kp = torch.arange(k_l.shape[1], device=q.device)
             if torch.is_tensor(pos):
                 mask = kp[None, None, :] <= pos[:, None, None]
+                if self.window is not None:
+                    mask &= kp[None, None, :] > pos[:, None, None] - self.window
             else:
-                mask = (kp <= pos)[None, :]
+                mask = causal_mask(torch.tensor([pos], device=q.device), kp, pos + 1,
+                                   self.window)
             out, w = mha(q, k_l, v_l, mask, return_weights=True)
         self.decode_prune(state, li, q, w, pos)
         return out
@@ -412,10 +432,13 @@ class MaskedKVCache(DenseKVCache):
         """Post-softmax weights at the r window columns from the dense
         kernel's final stats: p = exp(bf16(q) . bf16(k) / sqrt(D) - m) / l
         (l clamped at 1e-30), summed over the query group -> [B, Hkv, r],
-        0 at invalid columns."""
+        0 at invalid columns (before the sequence, or at or below pos -
+        window)."""
         B, _, Hq, D = q.shape
         Hkv = kbuf.shape[2]
         abs_idx, _, valid = self._window_geometry(pos, B, q.device)
+        if self.window is not None:
+            valid = valid & (abs_idx > _per_slot(pos, B, q.device)[:, None] - self.window)
         rows = self._window_rows(kbuf, abs_idx).to(torch.bfloat16).to(torch.float32)
         qg = q[:, 0].reshape(B, Hkv, Hq // Hkv, D).to(torch.bfloat16).to(torch.float32)
         s = torch.einsum("bhgd,brhd->bhgr", qg, rows) * (1.0 / math.sqrt(D))

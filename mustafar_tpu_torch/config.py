@@ -4,8 +4,9 @@ The port keeps its own copy of the JAX package's config (``mustafar_tpu/
 config.py``): it imports nothing of that package.  Only what the served path
 reads is carried over: the Llama geometry, the pruning policies, the cache
 modes, and the engine settings of the compressed cache, continuous batching
-and chunked prefill.  Fields of the JAX config that select paths the port
-does not have yet (MoE, sharding axes) are left out until those paths land.
+and chunked prefill, and the named architectures (``MODEL_REGISTRY``).
+Fields of the JAX config that select paths the port does not have yet (MoE,
+sharding axes) are left out until those paths land.
 """
 
 from __future__ import annotations
@@ -88,7 +89,10 @@ class PruneConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Llama architecture hyperparameters."""
+    """Llama / Mistral architecture hyperparameters.  ``sliding_window``
+    (Mistral): a query at position p attends keys k with p - window < k <=
+    p.  ``dtype`` names the checkpoint's parameter type, as the JAX
+    package's config records it; the caller picks the type it runs in."""
 
     name: str = "llama"
     vocab_size: int = 32000
@@ -104,6 +108,7 @@ class ModelConfig:
     max_position_embeddings: int = 4096
     sliding_window: Optional[int] = None
     tie_word_embeddings: bool = False
+    dtype: str = "bfloat16"
 
     @property
     def q_dim(self) -> int:
@@ -114,17 +119,36 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
 
+LLAMA2_7B = ModelConfig(
+    name="llama-2-7b", vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+    num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128,
+    rms_norm_eps=1e-5, rope_theta=10000.0, max_position_embeddings=4096,
+)
+
 LLAMA3_8B = ModelConfig(
     name="llama-3-8b", vocab_size=128256, hidden_size=4096, intermediate_size=14336,
     num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
     rms_norm_eps=1e-5, rope_theta=500000.0, max_position_embeddings=8192,
 )
 
+MISTRAL_7B = ModelConfig(
+    name="mistral-7b", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
+    rms_norm_eps=1e-5, rope_theta=1000000.0, max_position_embeddings=32768,
+    sliding_window=None,  # v0.2 removed the sliding window; v0.1 used 4096
+)
+
+MISTRAL_7B_SWA = dataclasses.replace(MISTRAL_7B, name="mistral-7b-swa", sliding_window=4096)
+
 TINY_LLAMA = ModelConfig(
     name="tiny-llama", vocab_size=512, hidden_size=128, intermediate_size=256,
     num_layers=2, num_heads=4, num_kv_heads=2, head_dim=32,
     rope_theta=10000.0, max_position_embeddings=1024,
 )
+
+MODEL_REGISTRY = {
+    m.name: m for m in [LLAMA2_7B, LLAMA3_8B, MISTRAL_7B, MISTRAL_7B_SWA, TINY_LLAMA]
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -36,6 +36,19 @@
 // row gid (a query head; rows G..15 are zero), columns 2 tig, 2 tig + 1
 // and 2 tig + 8, 2 tig + 9; B column gid, rows likewise; C row gid,
 // columns 2 tig, 2 tig + 1.
+//
+// The sliding window (the TPU kernels' `window`, Mistral): a call at
+// n_chunks chunks and win_len window tokens decodes the token at position
+// n_chunks * 256 + win_len - 1, which attends pool column c iff c > low =
+// n_chunks * 256 + win_len - 1 - window.  The TPU runs every chunk with
+// the masked scores at -1e30 (a chunk wholly masked comes first and the
+// next live step's correction exp(-1e30 - m) = 0 wipes it).  Here the grid
+// leaves out the pool steps wholly at or below low (Window::first): no CTA
+// for them and none of their bytes read.  The step that holds low + 1 sets
+// its masked scores to -1e30 before its softmax step (mask_scores), so
+// every pool step the merge reads has a live column and a real max, and a
+// masked column's p is exp(-1e30 - m) = 0.  The window tiles are never
+// masked: the cache keeps the window at least its capacity (as on the TPU).
 
 #pragma once
 
@@ -361,6 +374,31 @@ __device__ __forceinline__ void finish_row(const float* __restrict__ part,
     else
       static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16(o);
   }
+}
+
+// A call's sliding window: `low` the newest masked pool column (-1: none)
+// and `first` the first pool step, of `step` tokens, that the grid takes
+// (quant_attention.masked_steps).  `window` 0 is none.
+struct Window {
+  int low;
+  int first;
+};
+
+inline Window window_of(int n_chunks, int win_len, int window, int step) {
+  if (window <= 0) return Window{-1, 0};
+  const int low = n_chunks * 256 + win_len - 1 - window;
+  const int first = (low + 1 > 0 ? low + 1 : 0) / step;
+  const int steps = n_chunks * (256 / step);
+  return Window{low, first < steps ? first : steps};
+}
+
+// The scores of a pool step's columns at or below `low` (its first low + 1
+// - c0 tokens, c0 the step's first pool column, c0 <= low) set to -1e30;
+// the caller syncs before the softmax step reads them.
+template <int G>
+__device__ __forceinline__ void mask_scores(Smem<G>& sm, int c0, int low, int tid) {
+  const int n = low + 1 - c0;
+  for (int i = tid; i < G * n; i += THREADS) sm.s[i / n][i % n] = NEG;
 }
 
 // The checks both entries share: counts in range, at least one split, the

@@ -3,13 +3,15 @@
 // Replaces the TPU kernel mustafar_tpu/ops/kernels/dense_decode.py
 // flash_decode_attention (Pallas body _flash_decode_kernel), with its
 // final (m, l) stats (return_norm: the merge writes them) and its sliding
-// window off.  For each (batch row b,
+// window.  For each (batch row b,
 // kv head h) the G = Hq / Hkv query heads of that kv head attend the
 // post-append cache rows [0, pos] (pos the newest token's index: one
 // scalar, or read per slot from a device array; a slot at -1 attends
-// nothing and comes out 0).  Scores q . k / sqrt(128) in f32 from bf16 q
-// and K; softmax in f32 (mask value -1e30, final l clamped at 1e-30), p
-// rounded to bf16 before the value product, accumulated in f32.
+// nothing and comes out 0); with a sliding window (window > 0) only the
+// rows past pos - window: [lo, pos] with lo = max(pos - window + 1, 0).
+// Scores q . k / sqrt(128) in f32 from bf16 q and K; softmax in f32 (mask
+// value -1e30, final l clamped at 1e-30), p rounded to bf16 before the
+// value product, accumulated in f32.
 //
 // What bounds it on this card: bytes.  It must read (pos + 1) * Hkv * 128
 // * 2 bytes of K and as many of V for each batch row: 19.7 MB at B=8,
@@ -50,6 +52,16 @@
 // flash_decode_attention_split_plain is its plain version.  TMA and
 // programmatic dependent launch of the merge are later work.
 //
+// The sliding window.  The TPU masks the scores of rows at or below pos -
+// window to -1e30 in every tile it walks; a tile wholly below the window
+// runs masked (p = exp(0) = 1 from m = -1e30) and the next live tile's
+// correction exp(-1e30 - m) = 0 wipes it.  Here a split wholly below the
+// window exits before it reads anything, and the merge skips it (Live); the
+// split that holds lo stages and attends only its rows [lo, ...), so every
+// split the merge reads has a live row and no step of -1e30 scores exists
+// (an -inf there would give -inf - -inf = NaN).  A window costs the bytes
+// of the rows it keeps.
+//
 // Interface: plain C, no PyTorch headers, bound with ctypes.  Launches on
 // the caller's stream, synchronises nothing and returns cudaGetLastError().
 
@@ -85,16 +97,26 @@ struct __align__(16) Smem {
   float corr[G];
 };
 
-// Which splits row bh attends: [0, ceil(n_tok / split_len)), for the merge.
+// The rows a slot at `pos` attends: [lo, n_tok), n_tok = min(pos + 1, S)
+// (0 for an idle slot), lo = max(pos - window + 1, 0) with a sliding
+// window (window > 0), else 0.
+__device__ __forceinline__ void slot_rows(int pos, int window, int S, int& lo, int& n_tok) {
+  n_tok = min(max(pos + 1, 0), S);
+  lo = window > 0 ? max(pos - window + 1, 0) : 0;
+}
+
+// Which splits row bh attends, for the merge: those that hold a row of
+// [lo, n_tok), [lo / split_len, ceil(n_tok / split_len)).
 struct Live {
   const int* pos_slot;
-  int pos, hkv, S, split_len;
+  int pos, hkv, S, split_len, window;
   __device__ void operator()(int bh, int& a, int& c, int& n) const {
     const int p = pos_slot != nullptr ? pos_slot[bh / hkv] : pos;
-    const int n_tok = min(max(p + 1, 0), S);
-    a = (n_tok + split_len - 1) / split_len;
-    c = 0;
-    n = 0;
+    int lo, n_tok;
+    slot_rows(p, window, S, lo, n_tok);
+    a = 0;
+    c = n_tok > 0 ? lo / split_len : 0;
+    n = (n_tok + split_len - 1) / split_len - c;
   }
 };
 
@@ -117,7 +139,8 @@ dense_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B*Hkv, G, D]
                    const __nv_bfloat16* __restrict__ v,   // [B, S, Hkv, D]
                    float* __restrict__ part,              // split_merge layout
                    const int* __restrict__ pos_slot,      // [B] or null
-                   int BH, int hkv, int S, int split_len, int n_splits, int pos) {
+                   int BH, int hkv, int S, int split_len, int n_splits, int pos,
+                   int window) {
   static_assert(G <= WARPS, "one warp per query head in the softmax step");
   // dynamic shared memory: Smem, then the K tile and the V tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -129,10 +152,12 @@ dense_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B*Hkv, G, D]
   const int b = bh / hkv;
   const int h = bh % hkv;
   if (pos_slot != nullptr) pos = pos_slot[b];
-  const int n_tok = min(max(pos + 1, 0), S);   // rows [0, pos]; an idle slot none
-  const int t0 = split * split_len;
-  if (t0 >= n_tok) return;                     // not live: the merge skips it
-  const int nt = min(split_len, n_tok - t0);
+  int lo, n_tok;                               // rows [lo, pos]; an idle slot none
+  slot_rows(pos, window, S, lo, n_tok);
+  const int t_end = min((split + 1) * split_len, n_tok);
+  const int t0 = max(split * split_len, lo);   // the window's edge may cut a split
+  if (t0 >= t_end) return;                     // not live: the merge skips it
+  const int nt = t_end - t0;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -230,7 +255,7 @@ dense_split_kernel(const __nv_bfloat16* __restrict__ q,   // [B*Hkv, G, D]
 template <int G>
 int launch(const void* q, const void* k, const void* v, void* out, float* ml,
            const int* pos_slot, float* part, int out_f32, int device, int BH, int hkv, int S,
-           int split_len, int n_splits, int pos, cudaStream_t stream) {
+           int split_len, int n_splits, int pos, int window, cudaStream_t stream) {
   const int bytes =
       (int)(sizeof(Smem<G>) + 2 * (size_t)split_len * D * sizeof(__nv_bfloat16));
   cudaError_t err = smem::allow_dynamic_smem<dense_split_kernel<G>>(bytes, device);
@@ -238,11 +263,11 @@ int launch(const void* q, const void* k, const void* v, void* out, float* ml,
   dense_split_kernel<G><<<dim3(BH, n_splits), THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), part, pos_slot, BH, hkv, S, split_len,
-      n_splits, pos);
+      n_splits, pos, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)split_merge::launch_merge(part, out, out_f32, BH, G, n_splits,
-                                        Live{pos_slot, pos, hkv, S, split_len}, stream,
+                                        Live{pos_slot, pos, hkv, S, split_len, window}, stream,
                                         ml);
 }
 
@@ -256,16 +281,18 @@ int launch(const void* q, const void* k, const void* v, void* out, float* ml,
 // shapes checked by the caller.  `device` is the ordinal
 // the tensors and the stream belong to; `split_len` the tokens a split
 // (64..128); `n_splits` the grid's splits: at least ceil(S / split_len) per
-// slot, ceil((pos + 1) / split_len) (and 1) for a scalar pos.
+// slot, ceil((pos + 1) / split_len) (and 1) for a scalar pos.  `window`
+// the sliding window (rows past pos - window), or 0 for none.
 extern "C" int dense_decode(const void* q, const void* k, const void* v, void* out,
                             void* ml, const void* pos_slot, void* scratch, int scratch_floats,
                             int out_f32, int device, int BH, int hkv, int G, int S,
-                            int split_len, int n_splits, int pos, void* stream) {
+                            int split_len, int n_splits, int pos, int window,
+                            void* stream) {
   using namespace dense;
   const int covered = pos_slot != nullptr ? S : pos + 1 < 0 ? 0 : pos + 1 > S ? S : pos + 1;
   if (split_len < MIN_SPLIT || split_len > MAX_SPLIT || hkv < 1 || BH % hkv ||
       n_splits < 1 || (long long)n_splits * split_len < covered || scratch == nullptr ||
-      G < 1 || scratch_floats < 0 ||
+      G < 1 || scratch_floats < 0 || window < 0 ||
       (size_t)scratch_floats < split_merge::scratch_floats(BH, G, n_splits))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
@@ -275,7 +302,7 @@ extern "C" int dense_decode(const void* q, const void* k, const void* v, void* o
   float* part = static_cast<float*>(scratch);
 #define DENSE_LAUNCH(g) \
   return launch<g>(q, k, v, out, static_cast<float*>(ml), ps, part, out_f32, device, BH, hkv, S, split_len, \
-                   n_splits, pos, s)
+                   n_splits, pos, window, s)
   switch (G) {
     case 1: DENSE_LAUNCH(1);
     case 2: DENSE_LAUNCH(2);

@@ -3,11 +3,13 @@
 // Replaces the TPU kernel mustafar_tpu/ops/kernels/quant_attention.py
 // fused_q_decode_attention (Pallas body _q_decode_kernel) for the codecs
 // q8 (int8 K, int8 V), q8q4 (int8 K, int4 V) and q4q4 (int4 K, int4 V),
-// with its window probabilities (return_win_probs) and final (m, l)
-// (return_norm), both decode_tile.cuh, and its sliding window off.  For
+// with its window probabilities (return_win_probs), final (m, l)
+// (return_norm) and sliding window (window), all decode_tile.cuh.  For
 // one layer `li` of the stacked cache and each (batch row b, kv head h) it
 // attends the G = Hq / Hkv query heads of that kv head over
-//   1. `n_chunks` packed pool chunks of 256 tokens: K, then V, as codes of
+//   1. `n_chunks` packed pool chunks of 256 tokens (with a sliding window
+//      only the columns past its edge: the chunks wholly below it take no
+//      CTA), K, then V, as codes of
 //      `kbits` / `vbits` bits, 16/bits tokens per int16 row (at 8 bits
 //      token t in the low byte of row t and token t+128 in the high byte;
 //      at 4 bits token t + 64 j in nibble j), each with a bf16 scale per
@@ -114,7 +116,7 @@ q_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                  float* __restrict__ part,                 // split_merge layout
                  int* __restrict__ counters,               // [BH], zero between launches
                  int out_f32, int BH, int max_chunks, int W, int wt, int n_chunks,
-                 int win_len, int li, int n_parts, WinProbs wp) {
+                 int win_len, int li, int n_parts, WinProbs wp, Window wn) {
   constexpr int KF = Stream<KB>::FIELDS;
   constexpr int K_ROWS = Stream<KB>::ROWS;
   constexpr int V_ROWS = Stream<VB>::ROWS;
@@ -123,8 +125,9 @@ q_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<G>& sm = *reinterpret_cast<Smem<G>*>(smem_raw);
   unsigned char* region = smem_raw + sizeof(Smem<G>);
-  const int sp = blockIdx.x;      // the step: a chunk, then a window tile
+  const int sp = blockIdx.x;      // the step: a chunk past the window's edge, then a tile
   const int bh = blockIdx.y;
+  const int n_live = n_chunks - wn.first;   // the chunk steps of the grid
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -135,8 +138,9 @@ q_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   const __nv_bfloat16* vscale = nullptr;
   auto p = [&](int t) { return gid < G ? sm.s[gid][t] : 0.f; };
 
-  if (sp < n_chunks) {
-    const size_t slot = ((size_t)li * max_chunks + sp) * BH + bh;
+  if (sp < n_live) {
+    const int ci = wn.first + sp;
+    const size_t slot = ((size_t)li * max_chunks + ci) * BH + bh;
     const int16_t* rows = pool + slot * ROWS * D;
     const __nv_bfloat16* ks = scales + slot * 2 * D;
     vscale = ks + D;
@@ -188,6 +192,10 @@ q_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
       for (int f = 0; f < KF; ++f) put_scores<G>(sm, sacc[f], r + K_ROWS * f, CHUNK, tig);
     }
     __syncthreads();
+    if (ci * CHUNK <= wn.low) {   // the chunk that holds the window's edge
+      mask_scores<G>(sm, ci * CHUNK, wn.low, tid);
+      __syncthreads();
+    }
     online_softmax::softmax_step<G>(sm, CHUNK, warp, lane);
 
     // values: this warp's 16 channels over the chunk's 256 tokens, 16 a
@@ -217,7 +225,7 @@ q_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
       }
     }
   } else {
-    const int w0 = (sp - n_chunks) * wt;
+    const int w0 = (sp - n_live) * wt;
     const int n = min(wt, win_len - w0);
     __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(region);
     __nv_bfloat16* vt = kt + round8(wt) * LD;
@@ -248,6 +256,7 @@ struct Args {
   int out_f32, BH, max_chunks, W, wt, n_chunks, win_len, li, n_parts;
   void* probs;
   void* ml;
+  Window wn;
 };
 
 template <int G, int KB, int VB>
@@ -262,7 +271,7 @@ int launch(const Args& a, int device, cudaStream_t s) {
       static_cast<const __nv_bfloat16*>(a.scales), static_cast<const __nv_bfloat16*>(a.k_win),
       static_cast<const __nv_bfloat16*>(a.v_win), a.out, a.part, a.counters, a.out_f32, a.BH,
       a.max_chunks, a.W, a.wt, a.n_chunks, a.win_len, a.li, a.n_parts,
-      win_probs(a.probs, a.ml, a.part, a.BH, G, a.n_parts, a.W, a.win_len));
+      win_probs(a.probs, a.ml, a.part, a.BH, G, a.n_parts, a.W, a.win_len), a.wn);
   return (int)cudaGetLastError();
 }
 
@@ -291,16 +300,21 @@ int launch_groups(int G, const Args& a, int device, cudaStream_t s) {
 // counters, `n_counters` of them, at least BH, zero before the launch and
 // left so.  `probs` null, or f32 [B*Hkv, W] for the window probabilities;
 // the scratch then holds B*Hkv*G*W floats more, for the window scores.
-// `ml` null, or f32 [2][B*Hkv*G] for the final (m, l).
+// `ml` null, or f32 [2][B*Hkv*G] for the final (m, l).  `window` the
+// sliding window (0: none); the chunks wholly at or below its edge are left
+// out of the grid (decode_tile.cuh Window), so n_parts counts n_chunks -
+// Window::first chunk steps.
 extern "C" int q_decode_attention(const void* q, const void* pool, const void* scales,
                                   const void* k_win, const void* v_win, void* out,
                                   void* probs, void* ml, void* scratch, void* counters,
                                   int scratch_floats,
                                   int n_counters, int out_f32, int device, int kbits,
                                   int vbits, int BH, int G, int max_chunks, int W, int wt,
-                                  int n_chunks, int win_len, int li, void* stream) {
-  if (wt < 1) return (int)cudaErrorInvalidValue;
-  const int n_parts = n_chunks + (win_len + wt - 1) / wt;
+                                  int n_chunks, int win_len, int li, int window,
+                                  void* stream) {
+  if (wt < 1 || window < 0) return (int)cudaErrorInvalidValue;
+  const Window wn = window_of(n_chunks, win_len, window, CHUNK);
+  const int n_parts = n_chunks - wn.first + (win_len + wt - 1) / wt;
   if (!args_ok(BH, G, max_chunks, W, wt, n_chunks, win_len, li, n_parts, scratch,
                scratch_floats, counters, n_counters, probs))
     return (int)cudaErrorInvalidValue;
@@ -308,7 +322,7 @@ extern "C" int q_decode_attention(const void* q, const void* pool, const void* s
   if (set != cudaSuccess) return (int)set;
   const Args a{q, pool, scales, k_win, v_win, out, static_cast<float*>(scratch),
                static_cast<int*>(counters), out_f32, BH, max_chunks, W, wt, n_chunks,
-               win_len, li, n_parts, probs, ml};
+               win_len, li, n_parts, probs, ml, wn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kbits == 8 && vbits == 8) return launch_groups<8, 8>(G, a, device, s);
   if (kbits == 8 && vbits == 4) return launch_groups<8, 4>(G, a, device, s);

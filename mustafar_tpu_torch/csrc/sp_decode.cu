@@ -6,8 +6,9 @@
 // mustafar_tpu/ops/kernels/sparse_attention.py fused_sparse_decode_attention_v7
 // (Pallas body _fused_v7_kernel) for the codecs bitmap (bf16 values, 16
 // bits) and bitmap-q8 (int8 codes, 8 bits), with its window probabilities
-// (return_win_probs) and final (m, l) (return_norm), both decode_tile.cuh,
-// and its sliding window off.  For one layer `li` of
+// (return_win_probs), final (m, l) (return_norm) and sliding window
+// (window: the runs of 64 tokens wholly below its edge take no CTA), all
+// decode_tile.cuh.  For one layer `li` of
 // the stacked cache and each (batch row b, kv head h) it attends the
 // G = Hq / Hkv query heads of that kv head over
 //   1. `n_chunks` packed pool chunks of 256 tokens, each a K stream then a
@@ -254,12 +255,13 @@ sp_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                   int* __restrict__ counters,               // [BH], zero between launches
                   int out_f32, int BH, int max_chunks, int W, int wt, int n_chunks,
                   int win_len, int li, Fmt<QBITS> kf, Fmt<QBITS> vf, int n_parts,
-                  WinProbs wp) {
+                  WinProbs wp, Window wn) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<G>& sm = *reinterpret_cast<Smem<G>*>(smem_raw);
   unsigned char* region = smem_raw + sizeof(Smem<G>);
-  const int sp = blockIdx.x;      // the step: a chunk's run of tokens, then a window tile
-  const int bh = blockIdx.y;
+  const int sp = blockIdx.x;      // the step: a chunk's run of tokens past the window's
+  const int bh = blockIdx.y;      // edge, then a window tile
+  const int n_live = n_chunks * CUT - wn.first;   // the pool steps of the grid
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -269,9 +271,9 @@ sp_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   const __nv_bfloat16* vscale = nullptr;
   __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(region);
 
-  if (sp < n_chunks * CUT) {
-    const int ci = sp / CUT;
-    const int t0 = (sp % CUT) * STEP;
+  if (sp < n_live) {
+    const int ci = (wn.first + sp) / CUT;
+    const int t0 = ((wn.first + sp) % CUT) * STEP;
     const size_t slot = ((size_t)li * max_chunks + ci) * BH + bh;
     const int16_t* stream = pool + slot * (kf.rows() + vf.rows()) * D;
     __nv_bfloat16* vt = kt + STEP * LD;
@@ -289,10 +291,14 @@ sp_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     __syncthreads();
     tile_scores<G>(sm, kt, STEP, warp, lane);
     __syncthreads();
+    if (ci * CHUNK + t0 <= wn.low) {   // the run that holds the window's edge
+      mask_scores<G>(sm, ci * CHUNK + t0, wn.low, tid);
+      __syncthreads();
+    }
     online_softmax::softmax_step<G>(sm, STEP, warp, lane);
     tile_pv<G>(acc, sm, vt, STEP, warp, lane);
   } else {
-    const int w0 = (sp - n_chunks * CUT) * wt;
+    const int w0 = (sp - n_live) * wt;
     const int n = min(wt, win_len - w0);
     __nv_bfloat16* vt = kt + round8(wt) * LD;
     const size_t at = ((size_t)li * BH + bh) * W * D + (size_t)w0 * D;
@@ -322,6 +328,7 @@ struct Args {
   int out_f32, BH, max_chunks, W, wt, n_chunks, win_len, li, n_parts;
   void* probs;
   void* ml;
+  Window wn;
 };
 
 template <int G, int QBITS>
@@ -337,7 +344,7 @@ int launch(const Args& a, const Fmt<QBITS>& kf, const Fmt<QBITS>& vf, int device
       static_cast<const __nv_bfloat16*>(a.scales), static_cast<const __nv_bfloat16*>(a.k_win),
       static_cast<const __nv_bfloat16*>(a.v_win), a.out, a.part, a.counters, a.out_f32, a.BH,
       a.max_chunks, a.W, a.wt, a.n_chunks, a.win_len, a.li, kf, vf, a.n_parts,
-      win_probs(a.probs, a.ml, a.part, a.BH, G, a.n_parts, a.W, a.win_len));
+      win_probs(a.probs, a.ml, a.part, a.BH, G, a.n_parts, a.W, a.win_len), a.wn);
   return (int)cudaGetLastError();
 }
 
@@ -372,15 +379,20 @@ int launch_width(int G, const Args& a, int k0, int k1, int vk0, int vk1, int dev
 // least BH, zero before the launch and left so.  `probs` null, or f32
 // [B*Hkv, W] for the window probabilities (decode_tile.cuh); the scratch
 // then holds B*Hkv*G*W floats more, for the window scores.  `ml` null, or
-// f32 [2][B*Hkv*G] for the final (m, l).
+// f32 [2][B*Hkv*G] for the final (m, l).  `window` the sliding window (0:
+// none); the runs of 64 tokens wholly at or below its edge are left out of
+// the grid (decode_tile.cuh Window), so n_parts counts n_chunks * 4 -
+// Window::first pool steps.
 extern "C" int sp_decode(const void* q, const void* pool, const void* scales,
                          const void* k_win, const void* v_win, void* out, void* probs,
-                         void* ml, void* scratch, void* counters, int scratch_floats, int n_counters, int out_f32,
-                         int device, int qbits, int BH, int G, int max_chunks, int W,
-                         int wt, int n_chunks, int win_len, int li, int k0, int k1,
-                         int vk0, int vk1, void* stream) {
-  if (wt < 1 || (qbits == 8) != (scales != nullptr)) return (int)cudaErrorInvalidValue;
-  const int n_parts = n_chunks * CUT + (win_len + wt - 1) / wt;
+                         void* ml, void* scratch, void* counters, int scratch_floats,
+                         int n_counters, int out_f32, int device, int qbits, int BH, int G,
+                         int max_chunks, int W, int wt, int n_chunks, int win_len, int li,
+                         int window, int k0, int k1, int vk0, int vk1, void* stream) {
+  if (wt < 1 || window < 0 || (qbits == 8) != (scales != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Window wn = window_of(n_chunks, win_len, window, STEP);
+  const int n_parts = n_chunks * CUT - wn.first + (win_len + wt - 1) / wt;
   if (!args_ok(BH, G, max_chunks, W, wt, n_chunks, win_len, li, n_parts, scratch,
                scratch_floats, counters, n_counters, probs))
     return (int)cudaErrorInvalidValue;
@@ -388,7 +400,7 @@ extern "C" int sp_decode(const void* q, const void* pool, const void* scales,
   if (set != cudaSuccess) return (int)set;
   const Args a{q, pool, scales, k_win, v_win, out, static_cast<float*>(scratch),
                static_cast<int*>(counters), out_f32, BH, max_chunks, W, wt, n_chunks,
-               win_len, li, n_parts, probs, ml};
+               win_len, li, n_parts, probs, ml, wn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (qbits == 16) return launch_width<16>(G, a, k0, k1, vk0, vk1, device, s);
   if (qbits == 8) return launch_width<8>(G, a, k0, k1, vk0, vk1, device, s);

@@ -1,10 +1,12 @@
-"""Llama-2/3 forward pass, port of ``mustafar_tpu/models/llama.py``.
+"""Llama-2/3 and Mistral forward pass, port of ``mustafar_tpu/models/llama.py``.
 
 Params are a plain dict with the JAX package's layout: per-layer leaves
 stacked on axis 0 ([L, in, out] weights, [L, H] norms).  The JAX package
 scans over layers; here a Python loop takes layer ``li``'s leaves as views
 (no copy).  Attention and the KV cache are delegated to a cache impl
-(``mustafar_tpu_torch.cache``), which updates its state dict IN PLACE: one
+(``mustafar_tpu_torch.cache``), which takes Mistral's sliding window from
+the model's ``sliding_window`` in prefill and decode, as the JAX package's
+caches do, and updates its state dict IN PLACE: one
 cache buffer lives for the whole generation, where JAX threads immutable
 state through the scan.
 """

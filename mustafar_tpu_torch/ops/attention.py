@@ -1,10 +1,12 @@
-"""Plain attention math: causal prefill and decode partials, port of
-``mustafar_tpu/ops/attention.py``.
+"""Plain attention math: causal prefill (with Mistral's sliding window),
+and decode partials, port of ``mustafar_tpu/ops/attention.py``.
 
 On the TPU the JAX package's prefill reaches a flash kernel that ships with
 JAX, not one of its own; off the TPU it runs this masked attention, and so
-does the port.  Softmax is taken in float32.  Layouts: q [B, T, Hq, D];
-k/v [B, S, Hkv, D]; GQA folds the query heads into kv groups.
+does the port.  A sliding-window prompt longer than the window goes through
+``banded_window_prefill``, whose memory grows with T, not T^2.  Softmax is
+taken in float32.  Layouts: q [B, T, Hq, D]; k/v [B, S, Hkv, D]; GQA folds
+the query heads into kv groups.
 """
 
 from __future__ import annotations
@@ -21,10 +23,15 @@ def _fold_gqa(q: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
     return q.reshape(B, T, num_kv_heads, Hq // num_kv_heads, D)
 
 
-def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, valid_len) -> torch.Tensor:
-    """[Tq, Tk] bool: k attends iff k_pos <= q_pos and k_pos < valid_len.
-    (The JAX package's sliding-window term waits for the Mistral slice.)"""
-    return (k_pos[None, :] <= q_pos[:, None]) & (k_pos[None, :] < valid_len)
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, valid_len,
+                window=None) -> torch.Tensor:
+    """[Tq, Tk] bool: k attends iff k_pos <= q_pos, k_pos < valid_len and,
+    with a sliding ``window``, k_pos > q_pos - window (``window`` keys, the
+    query's own included)."""
+    m = (k_pos[None, :] <= q_pos[:, None]) & (k_pos[None, :] < valid_len)
+    if window is not None:
+        m &= k_pos[None, :] > q_pos[:, None] - window
+    return m
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,12 +59,61 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      true_len: int) -> torch.Tensor:
+                      true_len: int, window=None) -> torch.Tensor:
     """Causal prefill attention, q [B,T,Hq,D], k/v [B,T,Hkv,D] -> [B,T,Hq,D].
-    Rows at or past ``true_len`` are garbage that no caller reads."""
+    Rows at or past ``true_len`` are garbage that no caller reads.  With a
+    sliding ``window`` shorter than the prompt, the banded path
+    (``banded_window_prefill``); a window that covers the prompt masks
+    nothing (k > q - window holds for every causal pair) and runs causal."""
     T = q.shape[1]
+    if window is not None and T > window:
+        return banded_window_prefill(q, k, v, true_len, int(window))
     pos = torch.arange(T, device=q.device)
     return mha(q, k, v, causal_mask(pos, pos, true_len))
+
+
+BAND_LOGIT_BYTES = 256 * 2 ** 20     # most f32 logits one band may hold
+
+
+def band_block(B: int, Hq: int, W: int) -> int:
+    """The query block of ``banded_window_prefill``: the largest of 512 and
+    256 whose f32 band logits B * Bq * Hq * (W + Bq) * 4 fit in 256 MiB,
+    else 128 (the JAX package's rule; 128 even where it does not fit)."""
+    for cand in (512, 256):
+        if B * cand * Hq * (W + cand) * 4 <= BAND_LOGIT_BYTES:
+            return cand
+    return 128
+
+
+def banded_window_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          true_len: int, window: int, block=None) -> torch.Tensor:
+    """Sliding-window prefill at O(T) memory and O(T (W + Bq)) work: query
+    block i of Bq rows attends only its band of W + Bq keys (positions
+    i Bq - W .. i Bq + Bq - 1, K and V left-padded by W zeros), which holds
+    every key its queries see, so each band's softmax is the whole softmax
+    and no merge is needed.  Blocks run one at a time, so the largest
+    temporary is one band's f32 logits [B, Bq, Hq, W + Bq] (``band_block``
+    picks Bq).  Keys at or past ``true_len`` and the padding are masked; rows
+    at or past ``true_len`` are garbage that no caller reads."""
+    B, T, Hq, D = q.shape
+    W = int(window)
+    Bq = band_block(B, Hq, W) if block is None else int(block)
+    n = -(-T // Bq)
+    Tp = n * Bq
+    pad = torch.nn.functional.pad
+    qp = pad(q, (0, 0, 0, 0, 0, Tp - T))
+    kp = pad(k, (0, 0, 0, 0, W, Tp - T))
+    vp = pad(v, (0, 0, 0, 0, W, Tp - T))
+    out = torch.empty((B, Tp, Hq, D), dtype=q.dtype, device=q.device)
+    ar_q = torch.arange(Bq, device=q.device)
+    ar_k = torch.arange(W + Bq, device=q.device)
+    for i in range(n):
+        s = i * Bq
+        kpos = s - W + ar_k
+        mask = causal_mask(s + ar_q, kpos, true_len, W) & (kpos >= 0)[None, :]
+        out[:, s:s + Bq] = mha(qp[:, s:s + Bq], kp[:, s:s + W + Bq],
+                               vp[:, s:s + W + Bq], mask)
+    return out[:, :T]
 
 
 def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

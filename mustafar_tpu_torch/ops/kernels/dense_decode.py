@@ -3,11 +3,12 @@ and the wrapper that picks between them by device.
 
 Port of ``mustafar_tpu/ops/kernels/dense_decode.py`` ``flash_decode_attention``
 (Pallas body ``_flash_decode_kernel``), kernel ``csrc/dense_decode.cu``,
-with its final (m, l) (``return_norm``) and its sliding window off.  Each query head
-attends its kv head's cached rows [0, pos] inclusive: the newest token is
-already written.  q, K and V are read as bf16; scores q . k / sqrt(D) in f32;
-p rounded to bf16 for the value product, accumulated in f32, out = acc /
-max(l, 1e-30) in q's dtype.  A slot at pos -1 attends nothing and comes out
+with its final (m, l) (``return_norm``) and its sliding window
+(``window``).  Each query head attends its kv head's cached rows [0, pos]
+inclusive (the newest token is already written), with a window only rows
+k > pos - window: ``window`` rows, the newest included.  q, K and V are
+read as bf16; scores q . k / sqrt(D) in f32; p rounded to bf16 for the
+value product, accumulated in f32, out = acc / max(l, 1e-30) in q's dtype.  A slot at pos -1 attends nothing and comes out
 0.  Layouts: q [B, 1, Hq, D], k/v [B, S, Hkv, D].  With ``return_norm``
 the final online-softmax stats (m, l) come too, each [B, Hkv, G, 1] f32 (l
 unclamped; a slot with nothing to attend -1e30 and 0): the probability of
@@ -18,10 +19,14 @@ Two plain versions:
   flash_decode_attention_plain        the TPU kernel's arithmetic: one
       online softmax in steps of ``decode_tile(S)`` tokens, so the running
       max, and with it the bf16 rounding of p, is the TPU's at every step;
-      the CPU path, held against JAX;
+      the window masks scores to -1e30 (a step wholly below the window
+      still runs, and the next live step's correction exp(-1e30 - m) = 0
+      wipes it, as on the TPU); the CPU path, held against JAX;
   flash_decode_attention_split_plain  the CUDA kernel's: the tokens cut
       into splits of ``split_len`` (the rule below), one softmax step per
-      split from a fresh state, the partials merged in split order with
+      split from a fresh state over the split's rows inside the window (a
+      split wholly below it takes no step, as the kernel's block reads
+      nothing), the partials merged in split order with
       ``ops.attention.merge_partials``.
 The two differ only in where p is rounded, well within 2 bf16 ulps of the
 output's scale.
@@ -78,6 +83,12 @@ def _covered(pos, S: int) -> int:
     return S if torch.is_tensor(pos) else max(pos + 1, 0)
 
 
+def first_row(p: int, window) -> int:
+    """The first row a slot at ``p`` attends: p - window + 1 with a sliding
+    window (at least 0), else 0."""
+    return 0 if window is None else max(p - window + 1, 0)
+
+
 def _with_norm(outs, ms, ls, q, Hkv, return_norm):
     out = torch.cat(outs).to(q.dtype)
     if not return_norm:
@@ -86,10 +97,11 @@ def _with_norm(outs, ms, ls, q, Hkv, return_norm):
     return out, torch.stack(ms).reshape(B, Hkv, G, 1), torch.stack(ls).reshape(B, Hkv, G, 1)
 
 
-def flash_decode_attention_plain(q, k_cache, v_cache, pos, return_norm: bool = False):
+def flash_decode_attention_plain(q, k_cache, v_cache, pos, return_norm: bool = False,
+                                 window=None):
     """The TPU kernel's arithmetic in PyTorch, slot by slot and tile by tile
-    (``quant_attention._softmax_step``); with ``return_norm`` also the
-    final (m, l)."""
+    (``quant_attention._softmax_step``), scores of rows at or below p -
+    window set to -1e30; with ``return_norm`` also the final (m, l)."""
     B, _, Hq, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
@@ -103,12 +115,15 @@ def flash_decode_attention_plain(q, k_cache, v_cache, pos, return_norm: bool = F
         l = torch.zeros((Hkv, G, 1), dtype=f32, device=q.device)
         acc = torch.zeros((Hkv, G, D), dtype=f32, device=q.device)
         n = min(p + 1, S)
+        lo = first_row(p, window)
         for t0 in range(0, n, ts):
             t1 = min(t0 + ts, n)
             k = k_cache[b, t0:t1].to(torch.bfloat16).to(f32).transpose(0, 1)
             v = v_cache[b, t0:t1].to(torch.bfloat16).to(f32).transpose(0, 1)
-            m, l, acc = qa._softmax_step(m, l, acc, (qf @ k.transpose(1, 2)) * scale,
-                                         v, None)
+            s = (qf @ k.transpose(1, 2)) * scale
+            if t0 < lo:
+                s = s.masked_fill(torch.arange(t0, t1, device=q.device) < lo, qa.NEG_INF)
+            m, l, acc = qa._softmax_step(m, l, acc, s, v, None)
         outs.append((acc / torch.clamp_min(l, 1e-30)).reshape(1, 1, Hq, D))
         ms.append(m)
         ls.append(l)
@@ -116,14 +131,15 @@ def flash_decode_attention_plain(q, k_cache, v_cache, pos, return_norm: bool = F
 
 
 def flash_decode_attention_split_plain(q, k_cache, v_cache, pos, split=None,
-                                       return_norm: bool = False):
+                                       return_norm: bool = False, window=None):
     """The CUDA kernel's arithmetic in PyTorch: per slot, the partials
     (acc, m, l) of each split of ``split`` tokens (default: ``split_len``'s
     rule for the card the tensors lie on; the kernel takes 64 to 128), one
-    softmax step each from a fresh state (``quant_attention._softmax_step``),
-    merged in split order (``merge_partials``).  A slot with nothing to
-    attend comes out 0.  With ``return_norm`` also the merge's final (m,
-    l), as the kernel's merge writes them."""
+    softmax step each from a fresh state (``quant_attention._softmax_step``)
+    over the split's rows past p - window (a split wholly at or below it
+    takes none), merged in split order (``merge_partials``).  A slot with
+    nothing to attend comes out 0.  With ``return_norm`` also the merge's
+    final (m, l), as the kernel's merge writes them."""
     B, _, Hq, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
@@ -142,8 +158,12 @@ def flash_decode_attention_split_plain(q, k_cache, v_cache, pos, split=None,
                  torch.zeros((Hkv, G, D), dtype=f32, device=q.device))
         parts = []
         n = min(p + 1, S)
+        lo = first_row(p, window)
         for t0 in range(0, n, split):
             t1 = min(t0 + split, n)
+            t0 = max(t0, lo)
+            if t0 >= t1:
+                continue
             k = k_cache[b, t0:t1].to(torch.bfloat16).to(f32).transpose(0, 1)
             v = v_cache[b, t0:t1].to(torch.bfloat16).to(f32).transpose(0, 1)
             m, l, acc = qa._softmax_step(*fresh, (qf @ k.transpose(1, 2)) * scale, v, None)
@@ -159,9 +179,11 @@ def flash_decode_attention_split_plain(q, k_cache, v_cache, pos, split=None,
 def flash_decode_attention(q, k_cache, v_cache, pos, *, window=None,
                            return_norm: bool = False):
     """Dense flash-decode over the post-append cache -> [B, 1, Hq, D] in q's
-    dtype, and with ``return_norm`` the final (m, l) (module note).  ``pos`` is the newest token's index: a host int
-    (uniform batch, -1..S-1) or an int32 tensor [B] on q's device (per
-    slot, read by the kernel, -1 for an idle slot).
+    dtype, and with ``return_norm`` the final (m, l) (module note).
+    ``pos`` is the newest token's index: a host int (uniform batch,
+    -1..S-1) or an int32 tensor [B] on q's device (per slot, read by the
+    kernel, -1 for an idle slot).  ``window`` (an int >= 1, or None): the
+    sliding window, rows k > pos - window.
 
     CUDA tensors launch the kernels of ``csrc/dense_decode.cu`` (built at
     first use; the split kernel, then its merge, from one C call) on the
@@ -170,8 +192,7 @@ def flash_decode_attention(q, k_cache, v_cache, pos, *, window=None,
     K and V that are not bf16 are cast first, as the TPU wrapper casts
     them.  CPU tensors run the plain version.  A CUDA request the kernel
     cannot serve raises; nothing falls back."""
-    if window is not None:
-        raise NotImplementedError("sliding-window attention is ROADMAP Queue A item 14")
+    qa.check_window(window)
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be [B, 1, Hq, D], got {tuple(q.shape)}")
     B, _, Hq, D = q.shape
@@ -195,7 +216,7 @@ def flash_decode_attention(q, k_cache, v_cache, pos, *, window=None,
     else:
         qa._check_int("pos", pos, -1, S - 1)
     if q.device.type == "cpu":
-        return flash_decode_attention_plain(q, k_cache, v_cache, pos, return_norm)
+        return flash_decode_attention_plain(q, k_cache, v_cache, pos, return_norm, window)
     stream = qa._stream(q)
     G = Hq // Hkv
     if D != 128 or G not in qa._GROUPS:
@@ -208,7 +229,7 @@ def flash_decode_attention(q, k_cache, v_cache, pos, *, window=None,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     qa._check_aligned((("q", qb), ("k_cache", kb), ("v_cache", vb)))
-    fn = qa._library("dense_decode", "dense_decode", 7, 10)
+    fn = qa._library("dense_decode", "dense_decode", 7, 11)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ml = (torch.empty((2, B, Hkv, G, 1), dtype=torch.float32, device=q.device)
           if return_norm else None)
@@ -220,7 +241,7 @@ def flash_decode_attention(q, k_cache, v_cache, pos, *, window=None,
     rc = fn(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
             None if ml is None else ml.data_ptr(), pos.data_ptr() if per_slot else None, scratch.data_ptr(), scratch.numel(),
             int(out.dtype == torch.float32), q.device.index or 0, B * Hkv, Hkv, G, S,
-            split, n_splits, 0 if per_slot else pos, stream)
+            split, n_splits, 0 if per_slot else pos, window or 0, stream)
     if rc != 0:
         raise RuntimeError(f"dense_decode launch failed: CUDA error {rc}")
     flash_decode_attention.launches += 1

@@ -5,8 +5,9 @@ Ports of ``mustafar_tpu/ops/kernels/quant_attention.py`` for the codecs q8
 (int8 K, int8 V), q8q4 (int8 K, int4 V) and q4q4 (int4 K, int4 V) at
 256-token chunks, with the options the output-aware (Opa) policies read:
 the decode kernels' window probabilities (``return_win_probs``) and the
-uniform decode's final softmax stats (``return_norm``); the sliding window
-stays off:
+uniform decode's final softmax stats (``return_norm``), and Mistral's
+sliding window (``window``) in the uniform decode (the per-slot and segment
+kernels refuse it: ROADMAP Queue A item 14's second slice):
   fused_q_decode_attention     uniform-batch decode   csrc/q_decode.cu
                                (one CTA a split, the merge fused)
   fused_q_decode_attention_ps  per-slot decode        csrc/q_decode_ps.cu
@@ -23,6 +24,18 @@ softmax step from a fresh state, and merge the splits' partials:
 ``fused_q_decode_attention_ps_split_plain`` are their arithmetic,
 ``fused_q_decode_attention_plain`` and ``fused_q_decode_attention_ps_plain``
 the TPU's (one running softmax over the same steps; the CPU path).
+
+The sliding window (the TPU kernels' rule): a call at ``n_chunks`` chunks
+and ``win_len`` window tokens decodes the token at position n_chunks * 256
++ win_len - 1, and pool column c is live iff c > low = n_chunks * 256 +
+win_len - 1 - window (``window_low``).  The dense window's columns are never
+masked: the cache keeps the window at least its capacity.  The TPU runs
+every chunk and masks scores to -1e30 (``decode_steps``: a chunk wholly
+masked is wiped by the next live step's correction exp(-1e30 - m) = 0).
+The CUDA kernel's grid leaves out the steps wholly at or below low
+(``uniform_splits``): it reads none of their bytes, launches no CTA for
+them, and masks only the columns of the step that holds the edge; its split
+plain version takes the same steps.
 
 Layouts are the JAX package's stacked ones, indexed at layer ``li``:
   q          [B, 1, Hq, 128]              bf16 or f32 (read as bf16)
@@ -53,14 +66,26 @@ WINDOW_TILE = 96                    # most window tokens per softmax step
 _GROUPS = (1, 2, 4, 8)              # query heads per kv head the decode kernels take
 
 
-def _check_codec(codec, window, name):
+def _check_codec(codec, name):
     if ((codec.kbits, codec.vbits) not in qf.CODECS.values()
             or (codec.chunk, codec.dim) != (256, 128)):
         raise NotImplementedError(
             f"{name} serves the codecs q8, q8q4 and q4q4 with 256-token chunks, "
             f"got {codec!r}")
+
+
+def refuse_window(window, name):
+    """The per-slot and segment kernels take no sliding window yet."""
     if window is not None:
-        raise NotImplementedError("sliding-window attention is ROADMAP Queue A item 14")
+        raise NotImplementedError(
+            f"{name}: the sliding window of the per-slot decode and segment kernels "
+            f"(and so of the engine and chunked prefill over the compressed cache) "
+            f"is the next slice of ROADMAP Queue A item 14")
+
+
+def check_window(window):
+    if window is not None and (not isinstance(window, int) or window < 1):
+        raise ValueError(f"window must be an int >= 1 or None, got {window!r}")
 
 
 def _check_tensors(q, named):
@@ -95,10 +120,10 @@ def _check_int(name, val, lo, hi):
         raise ValueError(f"{name} must be an int in [{lo}, {hi}], got {val!r}")
 
 
-def _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec, window, name):
+def _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec, name):
     """Shapes, types and devices both decode kernels share; returns
     (BH, G, mc, W)."""
-    _check_codec(codec, window, name)
+    _check_codec(codec, name)
     if q.dim() != 4 or q.shape[1] != 1 or q.shape[3] != 128:
         raise ValueError(f"q must be [B, 1, Hq, 128], got {tuple(q.shape)}")
     B, _, Hq, _ = q.shape
@@ -204,17 +229,44 @@ def with_options(out, m, l, probs, norm: bool, win_probs: bool):
     return (out, *extras) if extras else out
 
 
+def window_low(n_chunks: int, win_len: int, window, chunk: int = 256) -> int:
+    """The newest pool column a sliding ``window`` masks at a call's counts:
+    n_chunks * chunk + win_len - 1 - window (a column c is live iff c > it);
+    -1 (nothing masked) with no window or one that covers the sequence."""
+    return -1 if window is None else max(-1, n_chunks * chunk + win_len - 1 - window)
+
+
+def masked_steps(n_chunks: int, win_len: int, window, step: int) -> int:
+    """Pool steps of ``step`` tokens wholly at or below the window's lower
+    edge (``window_low``): the ones the uniform CUDA kernels' grid leaves
+    out."""
+    return min((window_low(n_chunks, win_len, window) + 1) // step,
+               n_chunks * (256 // step))
+
+
+def _mask_cols(s, c0: int, low: int):
+    """Scores s [..., n] of pool columns c0 .. c0 + n - 1 with the columns
+    at or below ``low`` set to -1e30."""
+    if c0 > low:
+        return s
+    cols = c0 + torch.arange(s.shape[-1], device=s.device)
+    return s.masked_fill(cols <= low, NEG_INF)
+
+
 def decode_steps(q, BH: int, n_chunks: int, chunk_step, k_win, v_win,
-                 win_len: int, li: int, win_probs: bool = False, norm: bool = False):
+                 win_len: int, li: int, win_probs: bool = False, norm: bool = False,
+                 window=None):
     """The decode kernels' softmax steps, shared by every codec's plain
     version.  Per (b, kv head) and query head: ``chunk_step(qf32, ci)``
     gives chunk ci's scores [BH, G, 256], its values [BH, 256, D] (f32) and
     its V scale [BH, D] or None; then window scores q . k / sqrt(128).  One
     online softmax in steps of one chunk or one window tile
-    (``window_tile``); p rounded to bf16 for the value product.  Out is f32
-    -> q's dtype; with ``norm`` also the final (m, l) [B, Hkv, G, 1], with
-    ``win_probs`` the window probabilities [B, Hkv, W] (``win_probs_of`` on
-    the final stats), in that order (``with_options``)."""
+    (``window_tile``); p rounded to bf16 for the value product; with a
+    sliding ``window`` the pool columns at or below ``window_low`` scored
+    -1e30, every chunk run, as on the TPU.  Out is f32 -> q's dtype; with
+    ``norm`` also the final (m, l) [B, Hkv, G, 1], with ``win_probs`` the
+    window probabilities [B, Hkv, W] (``win_probs_of`` on the final stats),
+    in that order (``with_options``)."""
     B, _, Hq, D = q.shape
     G = Hq // (BH // B)
     f32 = torch.float32
@@ -222,8 +274,10 @@ def decode_steps(q, BH: int, n_chunks: int, chunk_step, k_win, v_win,
     m = torch.full((BH, G, 1), NEG_INF, dtype=f32, device=q.device)
     l = torch.zeros((BH, G, 1), dtype=f32, device=q.device)
     acc = torch.zeros((BH, G, D), dtype=f32, device=q.device)
+    low = window_low(n_chunks, win_len, window)
     for ci in range(n_chunks):
-        m, l, acc = _softmax_step(m, l, acc, *chunk_step(qf32, ci))
+        sc, vc, vs = chunk_step(qf32, ci)
+        m, l, acc = _softmax_step(m, l, acc, _mask_cols(sc, ci * 256, low), vc, vs)
     W = k_win.shape[2]
     wt = window_tile(W)
     ws = [torch.zeros((BH, G, 0), dtype=f32, device=q.device)]
@@ -258,7 +312,7 @@ def ps_splits(mc: int, W: int) -> int:
 
 def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_win,
                    li: int, cut: int = 1, ordered: bool = False, win_probs: bool = False,
-                   norm: bool = False):
+                   norm: bool = False, window=None):
     """The split decode kernels' arithmetic, shared by every codec's split
     plain version: per slot (counts clamped, ``slots``), the partials (acc,
     m, l) of each of its chunks (``slot_step(hs)`` is the chunk step, as in
@@ -266,7 +320,10 @@ def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_w
     runs of 256 / cut tokens, and of each window tile, one softmax step each
     from a fresh state, merged in split order (``merge_partials``); the
     window's scores summed in the kernels' order with ``ordered``
-    (``_scores``; the chunk step takes its own).  A slot with nothing to
+    (``_scores``; the chunk step takes its own).  With a sliding ``window``
+    (the uniform kernels' option) the runs wholly at or below the window's
+    lower edge take no step (``masked_steps``) and the run that holds it
+    scores its masked columns -1e30.  A slot with nothing to
     attend comes out 0.  Out is f32 -> q's dtype; with ``norm`` also the
     merge's final (m, l) [B, Hkv, G, 1] (l unclamped; m = -1e30, l = 0 for
     a slot with nothing to attend), with ``win_probs`` the window
@@ -286,11 +343,14 @@ def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_w
                  torch.zeros((Hkv, G, 1), dtype=f32, device=q.device),
                  torch.zeros((Hkv, G, D), dtype=f32, device=q.device))
         run = 256 // cut
+        low = window_low(nc, wl, window)
+        first = masked_steps(nc, wl, window, run)      # runs left out of the grid
         parts = []
-        for ci in range(nc):
+        for ci in range(first // cut, nc):
             sc, vc, vs = step(qf32, ci)
-            parts.extend(_softmax_step(*fresh, sc[..., t:t + run], vc[:, t:t + run], vs)
-                         for t in range(0, 256, run))
+            parts.extend(_softmax_step(*fresh, _mask_cols(sc[..., t:t + run], ci * 256 + t, low),
+                                       vc[:, t:t + run], vs)
+                         for t in range(0, 256, run) if ci * cut + t // run >= first)
         ws = [torch.zeros((Hkv, G, 0), dtype=f32, device=q.device)]
         for t0 in range(0, wl, wt):
             kw = k_win[li, hs, t0:min(wl, t0 + wt)].to(f32)
@@ -356,20 +416,23 @@ def _q_chunk_step(kv_pool, kv_scales, li, codec, ordered: bool = False):
 def fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
                                    n_chunks: int, win_len: int, li: int,
                                    codec: qf.QuantCodec, win_probs: bool = False,
-                                   norm: bool = False):
+                                   norm: bool = False, window=None):
     """The uniform decode TPU kernel's arithmetic in PyTorch (``decode_steps``
     with the codec's chunk step)."""
     return decode_steps(q, kv_pool.shape[2], n_chunks,
                         _q_chunk_step(kv_pool, kv_scales, li, codec), k_win, v_win,
-                        win_len, li, win_probs, norm)
+                        win_len, li, win_probs, norm, window)
 
 
-def uniform_splits(n_chunks: int, win_len: int, W: int, cut: int = 1):
+def uniform_splits(n_chunks: int, win_len: int, W: int, cut: int = 1, window=None):
     """The splits a row of a uniform decode kernel's grid takes, sized from
-    the call's counts: (chunk splits, window splits) = (n_chunks * cut,
+    the call's counts: (chunk splits, window splits) = (n_chunks * cut less
+    the runs wholly below a sliding window's edge (``masked_steps``),
     ceil(win_len / window_tile(W))).  Every split has tokens: a chunk's
-    runs of 256 / cut, a window tile at least one."""
-    return n_chunks * cut, (-(-win_len // window_tile(W)) if win_len else 0)
+    runs of 256 / cut, a window tile at least one; every chunk split has a
+    live column."""
+    return (n_chunks * cut - masked_steps(n_chunks, win_len, window, 256 // cut),
+            -(-win_len // window_tile(W)) if win_len else 0)
 
 
 def win_probs_out(q, BH: int, W: int, want: bool, n_splits: int):
@@ -473,16 +536,17 @@ def _library(name, fn_name, n_ptr, n_int):
 def fused_q_decode_attention_split_plain(q, kv_pool, kv_scales, k_win, v_win,
                                          n_chunks: int, win_len: int, li: int,
                                          codec: qf.QuantCodec, win_probs: bool = False,
-                                         norm: bool = False):
-    """The uniform CUDA kernel's arithmetic: each chunk and each window tile
-    one split from a fresh softmax state, merged in split order, the scores
-    summed in the kernel's order (``_scores``): the per-slot kernel's split
-    steps (``ps_split_steps``) with every slot at the call's counts."""
+                                         norm: bool = False, window=None):
+    """The uniform CUDA kernel's arithmetic: each chunk (past the window's
+    edge) and each window tile one split from a fresh softmax state, merged
+    in split order, the scores summed in the kernel's order (``_scores``):
+    the per-slot kernel's split steps (``ps_split_steps``) with every slot
+    at the call's counts."""
     nc, wl = uniform_counts(q.shape[0], n_chunks, win_len, q.device)
     return ps_split_steps(
         q, kv_pool.shape[2], nc, wl, kv_pool.shape[1],
         lambda hs: _q_chunk_step(kv_pool[:, :, hs], kv_scales[:, :, hs], li, codec, True),
-        k_win, v_win, li, ordered=True, win_probs=win_probs, norm=norm)
+        k_win, v_win, li, ordered=True, win_probs=win_probs, norm=norm, window=window)
 
 
 def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
@@ -492,7 +556,9 @@ def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
                              return_win_probs: bool = False):
     """Quant-codec flash-decode of layer ``li`` over ``n_chunks`` pool chunks and the
     first ``win_len`` window tokens -> [B, 1, Hq, 128] in q's dtype (q is
-    read as bf16, the output is computed in f32, as on the TPU); with
+    read as bf16, the output is computed in f32, as on the TPU); with a
+    sliding ``window`` (an int >= 1) only the pool columns past
+    ``window_low`` (module note); with
     ``return_norm`` also the final online-softmax stats m and l, each [B,
     Hkv, G, 1] f32 (the weight of a column of score s is exp(s - m) / l);
     with ``return_win_probs`` the post-softmax weights of the window columns
@@ -504,19 +570,22 @@ def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
     use) on the current stream, one CTA a split (``uniform_splits``), with
     the stream's split scratch and merge counters (``_split_scratch``,
     ``_split_counters``; the window probabilities' raw scores go in the
-    scratch too); with nothing to attend the output (and the
-    probabilities) are 0, m is -1e30 and l 0, and nothing launches.  CPU
-    tensors run the plain version.  A CUDA request the kernel cannot serve
-    raises; nothing falls back."""
+    scratch too); with nothing to attend (no window token and no chunk past
+    the sliding window's edge) the output (and the probabilities) are 0, m
+    is -1e30 and l 0, and nothing launches (the TPU kernel would average
+    masked columns there; the cache never asks it).  CPU tensors run the
+    plain version.  A CUDA request the kernel cannot serve raises; nothing
+    falls back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec,
-                                 window, "fused_q_decode_attention")
+                                 "fused_q_decode_attention")
+    check_window(window)
     _check_int("n_chunks", n_chunks, 0, mc)
     _check_int("win_len", win_len, 0, W)
     if q.device.type == "cpu":
         return fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
                                               n_chunks, win_len, li, codec,
-                                              return_win_probs, return_norm)
-    n_splits = sum(uniform_splits(n_chunks, win_len, W))
+                                              return_win_probs, return_norm, window)
+    n_splits = sum(uniform_splits(n_chunks, win_len, W, window=window))
     probs = win_probs_out(q, BH, W, return_win_probs, n_splits)
     ml = norm_out(q, BH, return_norm, n_splits)
     if n_splits == 0:
@@ -525,7 +594,7 @@ def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
     stream = _stream(q)
     _check_aligned((("q", q), ("kv_pool", kv_pool), ("kv_scales", kv_scales),
                     ("k_win", k_win), ("v_win", v_win)))
-    fn = _library("q_decode", "q_decode_attention", 10, 14)
+    fn = _library("q_decode", "q_decode_attention", 10, 15)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
     scratch = _split_scratch(BH, n_splits, G, q.device, stream,
@@ -535,7 +604,8 @@ def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
             k_win.data_ptr(), v_win.data_ptr(), out.data_ptr(), _ptr(probs), _ptr(ml),
             scratch.data_ptr(), counters.data_ptr(), scratch.numel(), counters.numel(),
             int(out.dtype == torch.float32), q.device.index or 0, codec.kbits,
-            codec.vbits, BH, G, mc, W, window_tile(W), n_chunks, win_len, li, stream)
+            codec.vbits, BH, G, mc, W, window_tile(W), n_chunks, win_len, li, window or 0,
+            stream)
     if rc != 0:
         raise RuntimeError(f"q_decode_attention launch failed: CUDA error {rc}")
     fused_q_decode_attention.launches += 1
@@ -623,8 +693,9 @@ def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
     the window scores and stats after the partials); CPU tensors run the
     plain version.  A CUDA request the kernel cannot serve raises; nothing
     falls back."""
+    refuse_window(window, "fused_q_decode_attention_ps")
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec,
-                                 window, "fused_q_decode_attention_ps")
+                                 "fused_q_decode_attention_ps")
     B = q.shape[0]
     for name, t in (("n_chunks", n_chunks), ("win_len", win_len)):
         if not torch.is_tensor(t) or tuple(t.shape) != (B,):
@@ -688,7 +759,8 @@ def fused_q_segment_attention(q_seg, kv_pool, kv_scales, n_chunks: int,
     CUDA tensors launch the kernel of ``csrc/q_segment.cu`` (built at first
     use) on the current stream; CPU tensors run the plain version.  A CUDA
     request the kernel cannot serve raises; nothing falls back."""
-    _check_codec(codec, window, "fused_q_segment_attention")
+    refuse_window(window, "fused_q_segment_attention")
+    _check_codec(codec, "fused_q_segment_attention")
     if q_seg.dim() != 4 or q_seg.shape[3] != 128 or q_seg.shape[1] < 1:
         raise ValueError(f"q_seg must be [B, Tseg, Hq, 128], got {tuple(q_seg.shape)}")
     B, T, Hq, _ = q_seg.shape

@@ -7,7 +7,9 @@ and "bitmap-q8" (int8 codes with per-channel scales, ``qbits=8``), with the
 options the output-aware (Opa) policies read, as the quant kernels take
 them (``quant_attention``): the decode kernels' window probabilities
 (``return_win_probs``) and the uniform decode's final (m, l)
-(``return_norm``); the sliding window stays off:
+(``return_norm``), and the uniform decode's sliding window (``window``, the
+quant kernels' rule, ``quant_attention`` module note; the per-slot and
+segment kernels refuse it):
   fused_sparse_decode_attention     uniform-batch decode  csrc/sp_decode.cu
                                     (TPU kernel v7)       (entry sp_decode: one
                                                           CTA a split, the
@@ -34,7 +36,9 @@ partials; ``fused_sparse_decode_attention_ps_split_plain`` is its
 arithmetic, ``fused_sparse_decode_attention_ps_plain`` the TPU's.  The
 uniform kernel splits likewise, each chunk into ``CHUNK_CUT`` runs of 64
 tokens: ``fused_sparse_decode_attention_split_plain`` is its arithmetic,
-``fused_sparse_decode_attention_plain`` the TPU's.
+``fused_sparse_decode_attention_plain`` the TPU's.  With a sliding window
+its grid leaves out the runs of 64 tokens wholly at or below the window's
+lower edge, so the edge falls inside at most one run a row.
 
 Layouts are the JAX package's stacked ones, indexed at layer ``li``:
   q           [B, 1, Hq, 128]              bf16 or f32 (read as bf16)
@@ -55,7 +59,7 @@ from mustafar_tpu_torch.ops import sparse_format as sf
 from mustafar_tpu_torch.ops.kernels import quant_attention as qa
 
 
-def _check_formats(kfmt, vfmt, kv_scales, window, name):
+def _check_formats(kfmt, vfmt, kv_scales, name):
     for fmt in (kfmt, vfmt):
         if not isinstance(fmt, sf.ChunkFormat) or (fmt.chunk, fmt.dim) != (256, 128):
             raise NotImplementedError(
@@ -66,8 +70,6 @@ def _check_formats(kfmt, vfmt, kv_scales, window, name):
         raise ValueError("kv_scales go with qbits=8 chunks (bitmap-q8) and only "
                          f"with them; got qbits={kfmt.qbits} and "
                          f"kv_scales={'None' if kv_scales is None else 'a tensor'}")
-    if window is not None:
-        raise NotImplementedError("sliding-window attention is ROADMAP Queue A item 14")
 
 
 def _check_pool(kv_pool, kv_scales, kfmt, vfmt, B):
@@ -93,10 +95,10 @@ def _scales(kv_scales):
 _ptr = qa._ptr
 
 
-def _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt, window, name):
+def _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt, name):
     """Shapes, types and devices both decode kernels share; returns
     (BH, G, mc, W)."""
-    _check_formats(kfmt, vfmt, kv_scales, window, name)
+    _check_formats(kfmt, vfmt, kv_scales, name)
     if q.dim() != 4 or q.shape[1] != 1 or q.shape[3] != 128:
         raise ValueError(f"q must be [B, 1, Hq, 128], got {tuple(q.shape)}")
     B, _, Hq, _ = q.shape
@@ -143,11 +145,11 @@ def _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt, ordered: bool = False):
 def fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win, n_chunks: int,
                                         win_len: int, li: int, kfmt, vfmt,
                                         kv_scales=None, win_probs: bool = False,
-                                        norm: bool = False):
+                                        norm: bool = False, window=None):
     """The uniform bitmap decode TPU kernel's arithmetic in PyTorch."""
     return qa.decode_steps(q, kv_pool.shape[2], n_chunks,
                            _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt), k_win,
-                           v_win, win_len, li, win_probs, norm)
+                           v_win, win_len, li, win_probs, norm, window)
 
 
 CHUNK_CUT = 4           # softmax steps the uniform kernel cuts a chunk into
@@ -156,18 +158,20 @@ CHUNK_CUT = 4           # softmax steps the uniform kernel cuts a chunk into
 def fused_sparse_decode_attention_split_plain(q, kv_pool, k_win, v_win, n_chunks: int,
                                               win_len: int, li: int, kfmt, vfmt,
                                               kv_scales=None, win_probs: bool = False,
-                                              norm: bool = False):
+                                              norm: bool = False, window=None):
     """The uniform CUDA kernel's arithmetic (``quant_attention.ps_split_steps``
     with every slot at the call's counts and the bitmap chunk step): each
-    chunk's ``CHUNK_CUT`` runs of 64 tokens and each window tile one split
-    from a fresh softmax state, merged in split order, the scores summed in
-    the kernel's order (``quant_attention._scores``)."""
+    chunk's ``CHUNK_CUT`` runs of 64 tokens (past a sliding window's edge)
+    and each window tile one split from a fresh softmax state, merged in
+    split order, the scores summed in the kernel's order
+    (``quant_attention._scores``)."""
     nc, wl = qa.uniform_counts(q.shape[0], n_chunks, win_len, q.device)
     return qa.ps_split_steps(
         q, kv_pool.shape[2], nc, wl, kv_pool.shape[1],
         lambda hs: _sp_chunk_step(kv_pool[:, :, hs], None if kv_scales is None
                                   else kv_scales[:, :, hs], li, kfmt, vfmt, True),
-        k_win, v_win, li, cut=CHUNK_CUT, ordered=True, win_probs=win_probs, norm=norm)
+        k_win, v_win, li, cut=CHUNK_CUT, ordered=True, win_probs=win_probs, norm=norm,
+        window=window)
 
 
 def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
@@ -177,7 +181,8 @@ def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
                                   return_win_probs: bool = False):
     """Bitmap flash-decode of layer ``li`` over ``n_chunks`` pool chunks and
     the first ``win_len`` window tokens -> [B, 1, Hq, 128] in q's dtype (q
-    is read as bf16, the output is computed in f32, as on the TPU); with
+    is read as bf16, the output is computed in f32, as on the TPU); with a
+    sliding ``window`` only the pool columns past its edge; with
     ``return_norm`` also the final (m, l), with ``return_win_probs`` the
     window probabilities [B, Hkv, W] f32
     (``quant_attention.fused_q_decode_attention``).  ``kv_scales`` is
@@ -192,14 +197,15 @@ def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
     plain version.  A CUDA request the kernel cannot serve raises; nothing
     falls back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt,
-                                 window, "fused_sparse_decode_attention")
+                                 "fused_sparse_decode_attention")
+    qa.check_window(window)
     qa._check_int("n_chunks", n_chunks, 0, mc)
     qa._check_int("win_len", win_len, 0, W)
     if q.device.type == "cpu":
         return fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win, n_chunks,
                                                    win_len, li, kfmt, vfmt, kv_scales,
-                                                   return_win_probs, return_norm)
-    n_splits = sum(qa.uniform_splits(n_chunks, win_len, W, CHUNK_CUT))
+                                                   return_win_probs, return_norm, window)
+    n_splits = sum(qa.uniform_splits(n_chunks, win_len, W, CHUNK_CUT, window))
     probs = qa.win_probs_out(q, BH, W, return_win_probs, n_splits)
     ml = qa.norm_out(q, BH, return_norm, n_splits)
     if n_splits == 0:
@@ -209,7 +215,7 @@ def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
     stream = qa._stream(q)
     qa._check_aligned((("q", q), ("kv_pool", kv_pool), ("k_win", k_win),
                        ("v_win", v_win), *_scales(kv_scales)))
-    fn = qa._library("sp_decode", "sp_decode", 10, 17)
+    fn = qa._library("sp_decode", "sp_decode", 10, 18)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
     scratch = qa._split_scratch(BH, n_splits, G, q.device, stream,
@@ -218,8 +224,9 @@ def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), _ptr(kv_scales), k_win.data_ptr(),
             v_win.data_ptr(), out.data_ptr(), _ptr(probs), _ptr(ml), scratch.data_ptr(),
             counters.data_ptr(), scratch.numel(), counters.numel(),
-            int(out.dtype == torch.float32), q.device.index or 0, kfmt.qbits, BH, G, mc, W, qa.window_tile(W), n_chunks,
-            win_len, li, *_segs(kfmt), *_segs(vfmt), stream)
+            int(out.dtype == torch.float32), q.device.index or 0, kfmt.qbits, BH, G, mc, W,
+            qa.window_tile(W), n_chunks, win_len, li, window or 0, *_segs(kfmt),
+            *_segs(vfmt), stream)
     if rc != 0:
         raise RuntimeError(f"sp_decode launch failed: CUDA error {rc}")
     fused_sparse_decode_attention.launches += 1
@@ -290,8 +297,9 @@ def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
     stats) on the current stream, with the stream's split scratch
     (``quant_attention._split_scratch``); CPU tensors run the plain version.
     A CUDA request the kernel cannot serve raises; nothing falls back."""
+    qa.refuse_window(window, "fused_sparse_decode_attention_ps")
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt,
-                                 window, "fused_sparse_decode_attention_ps")
+                                 "fused_sparse_decode_attention_ps")
     B = q.shape[0]
     for name, t in (("n_chunks", n_chunks), ("win_len", win_len)):
         if not torch.is_tensor(t) or tuple(t.shape) != (B,):
@@ -372,7 +380,8 @@ def fused_sparse_segment_attention(q_seg, kv_pool, n_chunks: int, seg_start: int
     (``segment_grid``); CPU tensors run the plain version.  A CUDA request
     the kernel cannot serve, or a cluster launch the card refuses, raises;
     nothing falls back."""
-    _check_formats(kfmt, vfmt, kv_scales, window, "fused_sparse_segment_attention")
+    qa.refuse_window(window, "fused_sparse_segment_attention")
+    _check_formats(kfmt, vfmt, kv_scales, "fused_sparse_segment_attention")
     if q_seg.dim() != 4 or q_seg.shape[3] != 128 or q_seg.shape[1] < 1:
         raise ValueError(f"q_seg must be [B, Tseg, Hq, 128], got {tuple(q_seg.shape)}")
     B, T, Hq, _ = q_seg.shape

@@ -592,10 +592,7 @@ def fused_sparse_decode_attention_v5_plain(q, kv_pool, k_win, v_win, n_chunks: i
                                                   win_len, kfmt, vfmt, max_chunks)
 
 
-def _window_low(n_chunks, win_len, window, C=256):
-    """v6's sliding window: chunk columns at or below this are masked (the
-    newest position is n_chunks*C + win_len - 1); -1 for none."""
-    return -1 if window is None else max(-1, n_chunks * C + win_len - 1 - window)
+_window_low = qa.window_low     # v6's sliding window: the newest masked pool column
 
 
 def fused_sparse_decode_attention_v6_partials_plain(q, kv_pool, n_chunks: int,

@@ -168,8 +168,16 @@ def test_wrapper_refuses_what_the_kernel_cannot_serve():
     ok = dict(q=torch.from_numpy(q), k_cache=torch.from_numpy(k),
               v_cache=torch.from_numpy(v), pos=10)
     tdd.flash_decode_attention(**ok)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tdd.flash_decode_attention(**ok, window=32)
+    # the sliding window is served: 8 keeps rows 3-10 of the 11
+    windowed = tdd.flash_decode_attention(**ok, window=8)
+    assert torch.equal(windowed, tdd.flash_decode_attention_plain(
+        ok["q"], ok["k_cache"], ok["v_cache"], 10, window=8))
+    assert not torch.equal(windowed, tdd.flash_decode_attention(**ok))
+    assert torch.equal(tdd.flash_decode_attention(**ok, window=32),
+                       tdd.flash_decode_attention(**ok))
+    for window in (0, 8.0):
+        with pytest.raises(ValueError, match="window"):
+            tdd.flash_decode_attention(**ok, window=window)
     # the final (m, l) are served: the output is the call's without them
     out, m, l = tdd.flash_decode_attention(**ok, return_norm=True)
     assert torch.equal(out, tdd.flash_decode_attention(**ok))

@@ -154,8 +154,18 @@ def test_wrapper_refuses_what_the_kernel_cannot_serve():
     for change in bad:
         with pytest.raises((ValueError, TypeError, NotImplementedError)):
             tqa.fused_q_decode_attention(**dict(ok, **change))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tqa.fused_q_decode_attention(**ok, window=512)
+    # the sliding window is served: 100 keeps columns 166-265 of the 266, so
+    # the chunk's first 166 drop out; 512 covers them all
+    windowed = tqa.fused_q_decode_attention(**ok, window=100)
+    assert torch.equal(windowed, tqa.fused_q_decode_attention_plain(
+        *(ok[k] for k in ("q", "kv_pool", "kv_scales", "k_win", "v_win", "n_chunks",
+                          "win_len", "li", "codec")), window=100))
+    assert not torch.equal(windowed, tqa.fused_q_decode_attention(**ok))
+    assert torch.equal(tqa.fused_q_decode_attention(**ok, window=512),
+                       tqa.fused_q_decode_attention(**ok))
+    for window in (0, 100.0):
+        with pytest.raises(ValueError, match="window"):
+            tqa.fused_q_decode_attention(**ok, window=window)
     # the window probabilities and the final (m, l) are served: the output is
     # the call's without them
     out, probs = tqa.fused_q_decode_attention(**ok, return_win_probs=True)

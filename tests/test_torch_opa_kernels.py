@@ -258,8 +258,11 @@ def test_options_still_out_are_refused():
         out, probs = d.port_ps([1, 0], [10, 3], 0, return_win_probs=True)
         assert torch.equal(out, d.port_ps([1, 0], [10, 3], 0))
         assert (probs[0, :, 10:] == 0).all() and (probs[1, :, 3:] == 0).all()
-        with pytest.raises(NotImplementedError, match="item 14"):
-            d.port(1, 10, 0, window=512)
+        # the uniform kernels serve the sliding window now; per slot it stays
+        # refused (the next slice of item 14)
+        out, probs = d.port(1, 10, 0, window=100, return_win_probs=True)
+        assert torch.isfinite(out).all() and (probs[..., 10:] == 0).all()
+        assert not torch.equal(out, d.port(1, 10, 0))
         with pytest.raises(NotImplementedError, match="item 14"):
             d.port_ps([1, 0], [10, 3], 0, window=512)
     rs = np.random.RandomState(3)
