@@ -39,13 +39,28 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 probabilities against the split plain version's within
                 2^-18 absolute (0 past each slot's window, an idle slot's
                 all 0), the output bit-equal with the option off, timed on
-                and off in turns
+                and off in turns; its sliding window (PS_WINDOW_CASES:
+                Mistral's 4,096 at the engine's slots, 31 chunks with 15 or
+                16 below the edge, and 288 / 320 at the kit's: edges inside
+                a chunk, on a boundary, every chunk below, vacuous, idle
+                slots, different edges in one call), G 1/2/4/8, bf16 and f32
+                q, against both plain versions, a second launch bit-equal,
+                the window probabilities within 2^-18; timed with the window
+                on and off in turns at the mixed slots with the 8,000-token
+                one at 31 chunks + 160, beside each's byte bound (live
+                chunks)
   kernel_seg    the segment kernel likewise: Tseg=256, G=4, B = 1 and 2,
                 n_chunks 0/1/4/31, a second launch bit-equal to the first;
                 timed at 31 chunks (the bitmap codecs' with their cluster
                 size and the clusters the card holds), the quant codecs' also
                 at 1, 4 and 16 (the counts serve_cb launches it at), each
-                beside its bound
+                beside its bound; its sliding window (SEG_WINDOW_CASES:
+                window 4,096 at seg_start 7,936 over 30 chunks, 288 and 320
+                over 1 and 4, rows with no live pool column), B = 1 and 2:
+                the live rows' partials against the plain version, every
+                row merged with a self partial, no NaN, a second launch
+                bit-equal; timed on and off in turns at 31 chunks beside
+                each's bound (live rows and columns)
   kernel_q8, kernel_ps_q8, kernel_seg_q8, and the same for q4q4
                 the three phases above at the codecs q8 and q4q4
   kernel_sp, kernel_sp_ps, kernel_sp_seg
@@ -134,6 +149,19 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 masked cache; every greedy pick equal, or a flip at a
                 near-tie within SWA_TIE_TOL (a fixed bound; see
                 SWA_PICKS_NOTE)
+  reference_swa_cb
+                the window (320) through the engine over the compressed
+                cache at every codec (kernels 2 and 7, 3 and 8 with the
+                window) and the chunked Generator at q8q4 and bitmap, card
+                against CPU; picks as reference_swa's; the per-slot and
+                segment kernels 2 x steps and 2 x segments (the tiny model's
+                2 layers)
+  reference_sample
+                sampled decoding (temperature 0.9, top-k 50, top-p 0.95,
+                seed 7) through the Generator and the engine on the card:
+                every drawn token in the kept set of the CPU's filter on
+                the card's logits, the same seed the same tokens, top-k 1
+                the greedy tokens
   serve_q8q4    full-width, 32-layer Llama-3-8B with random W8 weights made
                 on the card: Generator.generate, B=8, prompt 300, 300 new
                 tokens, q8q4 compressed cache (one compaction on the way);
@@ -180,14 +208,17 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 Generator's
   serve_cb_bitmap, serve_cb_bitmap_q8
                 serve_cb with the bitmap and bitmap-q8 codecs (peak memory
-                and pool bytes side by side)
-  serve_cb_q4q4 serve_cb with the q4q4 codec on its first 8 requests
+                and pool bytes side by side), at 8 of the 32 layers
+                (CUT_LAYERS: 8 x steps and segments)
+  serve_cb_q4q4 serve_cb with the q4q4 codec on its first 8 requests (8 of
+                the 32 layers, CUT_LAYERS)
                 without the 8,000-token one; kernel 9 (K and V in one
                 launch) once a layer for every chunk a prompt packs and once
                 for every compaction (q8q4 and q4q4)
   serve_cb_opa  serve_cb's first 8 requests (q8q4) under KT_MAG_VT_OPA at
-                0.7: kernel 2 with its window probabilities 32 x decode
-                steps, kernel 3 32 x segments, kernel 9 at the same packing
+                0.7, 8 of the 32 layers (CUT_LAYERS): kernel 2 with its window
+                probabilities 8 x decode steps, kernel 3 8 x segments, kernel
+                9 at the same packing
                 counts (V ranked by its scores); first tokens = a batch-1
                 chunked Generator's under the same method; V's scores live
                 at the end
@@ -200,10 +231,22 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 q8q4 (kernel 1, kernel 9) and bitmap (kernel 6) with the
                 window, 32 x 299 decode launches; first tokens =
                 serve_swa_dense's; tok/s, prefill seconds, peak memory
+  serve_cb_swa_q8q4, serve_cb_swa_bitmap
+                serve_cb's requests (17, one of 8,000 tokens) through the
+                engine on Mistral-7B with its window, full width and depth:
+                the per-slot and segment kernels with the window 32 x steps
+                and 32 x segments (kernel 9 for q8q4), first tokens = a
+                batch-1 chunked Generator's; tok/s, peak memory, tick times
+  serve_swa_chunked
+                the chunked Generator on Mistral-7B, B=4, serve_swa's
+                4,400-token prompt (18 segments) + 64: kernel 3 32 a
+                segment, kernel 1 32 a step, kernel 9 32 a packed chunk;
+                token agreement with serve_swa_q8q4
   host_split    one segment (B=1) at q8q4, bitmap and bitmap-q8, one K and V
                 pack of a chunk at each, one decode tick (8 slots, q8q4) and
                 one each of q8q4 and bitmap with an 8,000-token slot: host
-                enqueue time, wall time, device time and kernels launched
+                enqueue time, wall time, device time and kernels launched;
+                at 8 of the 32 layers (CUT_LAYERS)
   serve_w4_dense, serve_w4_q8q4, serve_w4_bitmap
                 the Generator at full width and depth with W4 weights
                 (init_params_w4, seed 0), B=8, 300 + 300: W4 kernel 7 x 32 and
@@ -212,7 +255,8 @@ Phases, each printing one flushed JSON line with its ``phase`` and
   decode_split_w4
                 decode_split for the W4 step, per cache
   serve_cb_w4   serve_cb with W4 weights on the bitmap codec: its first 8
-                requests without the 8,000-token one
+                requests without the 8,000-token one, at 8 of the 32 layers
+                (CUT_LAYERS)
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 nothing is caught.  With no CUDA card, or run from a directory that holds
@@ -467,23 +511,27 @@ class _Kit:
             self.decode_split_plain_norm = lambda q, nc, wl, li, **o: \
                 qa.fused_q_decode_attention_split_plain(q, pool, scales, kw, vw, nc, wl, li,
                                                         qc, norm=True, **o)
-            self.decode_ps = lambda q, nc, wl, li: qa.fused_q_decode_attention_ps(
-                q, pool, scales, kw, vw, nc, wl, li, qc)
-            self.decode_ps_wp = lambda q, nc, wl, li: qa.fused_q_decode_attention_ps(
-                q, pool, scales, kw, vw, nc, wl, li, qc, return_win_probs=True)
-            self.decode_ps_plain = lambda q, nc, wl, li: \
+            self.decode_ps = lambda q, nc, wl, li, **o: qa.fused_q_decode_attention_ps(
+                q, pool, scales, kw, vw, nc, wl, li, qc, **o)
+            self.decode_ps_wp = lambda q, nc, wl, li, **o: qa.fused_q_decode_attention_ps(
+                q, pool, scales, kw, vw, nc, wl, li, qc, return_win_probs=True, **o)
+            self.decode_ps_plain = lambda q, nc, wl, li, **o: \
                 qa.fused_q_decode_attention_ps_plain(q, pool, scales, kw, vw, nc, wl, li,
-                                                     qc)
-            self.decode_ps_split_plain = lambda q, nc, wl, li: \
+                                                     qc, **o)
+            self.decode_ps_split_plain = lambda q, nc, wl, li, **o: \
                 qa.fused_q_decode_attention_ps_split_plain(q, pool, scales, kw, vw, nc, wl,
-                                                           li, qc)
-            self.decode_ps_split_plain_wp = lambda q, nc, wl, li: \
+                                                           li, qc, **o)
+            self.decode_ps_split_plain_wp = lambda q, nc, wl, li, **o: \
                 qa.fused_q_decode_attention_ps_split_plain(q, pool, scales, kw, vw, nc, wl,
-                                                           li, qc, win_probs=True)
-            self.segment = lambda q, nc, li: qa.fused_q_segment_attention(
-                q, pool, scales, nc, nc * 256, li, qc)
-            self.segment_plain = lambda q, nc, li: qa.fused_q_segment_attention_plain(
-                q, pool, scales, nc, li, qc)
+                                                           li, qc, win_probs=True, **o)
+            self.segment = lambda q, nc, li, seg_start=None, window=None: \
+                qa.fused_q_segment_attention(q, pool, scales, nc,
+                                             nc * 256 if seg_start is None else seg_start,
+                                             li, qc, window=window)
+            self.segment_plain = lambda q, nc, li, seg_start=None, window=None: \
+                qa.fused_q_segment_attention_plain(
+                    q, pool, scales, nc, li, qc, nc * 256 if seg_start is None else seg_start,
+                    window)
             return
         # bitmap codecs: real packed chunks, random bf16 K and V pruned to
         # the format's keep (and quantized, bitmap-q8) and encoded on the
@@ -525,23 +573,28 @@ class _Kit:
         self.decode_split_plain_norm = lambda q, nc, wl, li, **o: \
             ska.fused_sparse_decode_attention_split_plain(q, pool, kw, vw, nc, wl, li, fmt,
                                                           fmt, scales, norm=True, **o)
-        self.decode_ps = lambda q, nc, wl, li: ska.fused_sparse_decode_attention_ps(
-            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc)
-        self.decode_ps_wp = lambda q, nc, wl, li: ska.fused_sparse_decode_attention_ps(
-            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc, return_win_probs=True)
-        self.decode_ps_plain = lambda q, nc, wl, li: \
+        self.decode_ps = lambda q, nc, wl, li, **o: ska.fused_sparse_decode_attention_ps(
+            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc, **o)
+        self.decode_ps_wp = lambda q, nc, wl, li, **o: ska.fused_sparse_decode_attention_ps(
+            q, pool, kw, vw, nc, wl, li, fmt, fmt, **sc, return_win_probs=True, **o)
+        self.decode_ps_plain = lambda q, nc, wl, li, **o: \
             ska.fused_sparse_decode_attention_ps_plain(q, pool, kw, vw, nc, wl, li, fmt,
-                                                       fmt, scales)
-        self.decode_ps_split_plain = lambda q, nc, wl, li: \
+                                                       fmt, scales, **o)
+        self.decode_ps_split_plain = lambda q, nc, wl, li, **o: \
             ska.fused_sparse_decode_attention_ps_split_plain(q, pool, kw, vw, nc, wl, li,
-                                                             fmt, fmt, scales)
-        self.decode_ps_split_plain_wp = lambda q, nc, wl, li: \
+                                                             fmt, fmt, scales, **o)
+        self.decode_ps_split_plain_wp = lambda q, nc, wl, li, **o: \
             ska.fused_sparse_decode_attention_ps_split_plain(q, pool, kw, vw, nc, wl, li,
-                                                             fmt, fmt, scales, win_probs=True)
-        self.segment = lambda q, nc, li: ska.fused_sparse_segment_attention(
-            q, pool, nc, nc * 256, li, fmt, fmt, **sc)
-        self.segment_plain = lambda q, nc, li: ska.fused_sparse_segment_attention_plain(
-            q, pool, nc, li, fmt, fmt, scales)
+                                                             fmt, fmt, scales, win_probs=True,
+                                                             **o)
+        self.segment = lambda q, nc, li, seg_start=None, window=None: \
+            ska.fused_sparse_segment_attention(
+                q, pool, nc, nc * 256 if seg_start is None else seg_start, li, fmt, fmt,
+                **sc, window=window)
+        self.segment_plain = lambda q, nc, li, seg_start=None, window=None: \
+            ska.fused_sparse_segment_attention_plain(
+                q, pool, nc, li, fmt, fmt, scales,
+                nc * 256 if seg_start is None else seg_start, window)
 
 
 # the kernels line's fixed fields, by codec family and kernel
@@ -755,7 +808,8 @@ def phase_kernel(codec="q8q4"):
 
 def _window_option(w):
     """The kernels line's record of a kernel's sliding window, from the
-    phase's window results (``launches`` filled by its serve_swa phase)."""
+    phase's window results (``launches`` filled by its serve_swa or
+    serve_cb_swa phase)."""
     t = w["timed"]
     return {"max_abs_err": w["max_abs_err"], "tol": w["tol"],
             "worst_err_over_tol": w["worst_err_over_tol"],
@@ -1005,39 +1059,9 @@ def phase_kernel_ps(codec="q8q4"):
             qb = torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(torch.bfloat16)
             for qq in (qb, qb.float()):
                 for li in (0, L - 1):
-                    got = kit.decode_ps(qq, nc, wl, li)
-                    torch.cuda.synchronize()
-                    want = kit.decode_ps_plain(qq, nc, wl, li)
-                    # each slot is held to its own output scale, so a slot of
-                    # small outputs (many chunks) is held as tightly as a
-                    # one-token slot
-                    dims = (1, 2, 3)
-                    errs = (got.float() - want.float()).abs().amax(dim=dims)
-                    tols = KERNEL_TOL_ULPS * 2.0 ** -8 * want.float().abs().amax(dim=dims)
-                    live = (nc > 0) | (wl > 0)
-                    idle_zero = bool((got[~live] == 0).all())
-                    live_nonzero = bool((got.float().abs().amax(dim=dims)[live] > 0).all())
-                    ratio = (errs[live] / tols[live].clamp_min(1e-30)).max().item()
-                    results.append({"sparsity": kit.sparsity, "G": G,
-                                    "q_dtype": str(qq.dtype).split(".")[-1],
-                                    "li": li, "max_abs_err": errs.max().item(),
-                                    "slot_err": errs.tolist(), "slot_tol": tols.tolist(),
-                                    "worst_err_over_tol": ratio,
-                                    "idle_slots_zero": idle_zero,
-                                    "live_slots_nonzero": live_nonzero})
-                    if not (got.isfinite().all() and ratio <= 1.0 and idle_zero
-                            and live_nonzero):
-                        raise AssertionError(f"per-slot kernel disagrees with its "
-                                             f"plain version: {results[-1]}")
-                    worst = max(worst, ratio)
-                    # the kernel's own arithmetic: splits merged
-                    ratio = split_gate(got, kit.decode_ps_split_plain(
-                        qq.float(), nc, wl, li), live)
-                    results[-1]["worst_err_over_tol_split"] = ratio
-                    if not ratio <= 1.0:
-                        raise AssertionError(f"per-slot kernel disagrees with its "
-                                             f"split plain version: {results[-1]}")
-                    worst_split = max(worst_split, ratio)
+                    results.append(_hold_ps(kit, qq, nc, wl, li))
+                    worst = max(worst, results[-1]["worst_err_over_tol"])
+                    worst_split = max(worst_split, results[-1]["worst_err_over_tol_split"])
 
     # the window probabilities (return_win_probs) at every group size
     kit = kits[0]
@@ -1045,6 +1069,7 @@ def phase_kernel_ps(codec="q8q4"):
           for G in (4, 1, 2, 8)]
     probs_cases, probs_worst = _check_ps_win_probs(kit, [qs[0], qs[0].float(), *qs[1:]],
                                                    nc, wl, W)
+    window = _check_ps_windows(kit, qs, counts, slots)
 
     # time at the serving shape (G=4), the mixed slots above, L2 flushed
     q = torch.randn((B, 1, Hkv * 4, D), generator=g, device=dev).to(torch.bfloat16)
@@ -1089,7 +1114,7 @@ def phase_kernel_ps(codec="q8q4"):
          host_behind=behind, wrapper_host_us=wrapper_us, timed_at={"sparsity": kit.sparsity}, bytes=nbytes,
          flops=flops, bound_ms=max(bytes_ms, flops_ms), library_ms=None,
          win_probs_cases=probs_cases,
-         win_probs_ms=dict(in_turns(probs_ms), split_plain=probs_plain_ms))
+         win_probs_ms=dict(in_turns(probs_ms), split_plain=probs_plain_ms), window=window)
     entry = _entry(codec, "decode_ps", results, worst,
                    "per slot: 2 bf16 ulps of the slot's largest output",
                    kernel_ms, plain_ms, bytes_ms, flops_ms)
@@ -1100,8 +1125,143 @@ def phase_kernel_ps(codec="q8q4"):
         "ms": in_turns(probs_ms)["on"], "ms_off": in_turns(probs_ms)["off"],
         "plain_ms": probs_plain_ms, "launches": None,
         "timed_at": "as ms: the mixed slots, G=4, in turns on, off, off, on (the least of "
-                    "each pair)"}}
+                    "each pair)"},
+        "window": _window_option(window)}
     return entry
+
+
+def _hold_ps(kit, qq, nc, wl, li, **o):
+    """The per-slot kernel at counts ``nc``, ``wl`` (and a sliding window in
+    ``o``) against its TPU-order plain version, each slot within 2 bf16 ulps
+    of its own output scale (so a slot of small outputs, many chunks, is
+    held as tightly as a one-token slot), an idle slot 0 and a live one
+    not, and against its split plain version by ``split_gate``; a second
+    launch bit-equal.  Returns the case; raises on a miss."""
+    import torch
+    got = kit.decode_ps(qq, nc, wl, li, **o)
+    again = kit.decode_ps(qq, nc, wl, li, **o)
+    torch.cuda.synchronize()
+    want = kit.decode_ps_plain(qq, nc, wl, li, **o)
+    dims = (1, 2, 3)
+    errs = (got.float() - want.float()).abs().amax(dim=dims)
+    tols = KERNEL_TOL_ULPS * 2.0 ** -8 * want.float().abs().amax(dim=dims)
+    live = (nc > 0) | (wl > 0)
+    idle_zero = bool((got[~live] == 0).all())
+    live_nonzero = bool((got.float().abs().amax(dim=dims)[live] > 0).all())
+    ratio = (errs[live] / tols[live].clamp_min(1e-30)).max().item()
+    case = {"sparsity": kit.sparsity, "G": qq.shape[2] // (kit.k_win.shape[1] // qq.shape[0]),
+            "q_dtype": str(qq.dtype).split(".")[-1], "li": li, **o,
+            "max_abs_err": errs.max().item(), "slot_err": errs.tolist(),
+            "slot_tol": tols.tolist(), "worst_err_over_tol": ratio,
+            "idle_slots_zero": idle_zero, "live_slots_nonzero": live_nonzero,
+            "second_launch_equal": bool(torch.equal(got, again))}
+    if not (got.isfinite().all() and ratio <= 1.0 and idle_zero and live_nonzero
+            and case["second_launch_equal"]):
+        raise AssertionError(f"per-slot kernel disagrees with its plain version or with "
+                             f"itself: {case}")
+    # the kernel's own arithmetic: splits merged
+    case["worst_err_over_tol_split"] = split_gate(
+        got, kit.decode_ps_split_plain(qq.float(), nc, wl, li, **o), live)
+    if not case["worst_err_over_tol_split"] <= 1.0:
+        raise AssertionError(f"per-slot kernel disagrees with its split plain version: "
+                             f"{case}")
+    return case
+
+
+# per-slot sliding-window cases at kernel_ps's pool (mc = 32, W = 288):
+# window -> the 8 slots' (n_chunks, win_len); slot b's edge is low =
+# n_chunks * 256 + win_len - 1 - window, its first live chunk (low + 1) // 256
+PS_WINDOW_CASES = {
+    # Mistral's window at the engine's shape: the 8,000-token slot at 31
+    # chunks + 160 (low 3,999: 15 chunks wholly below, chunk 15 cut) and at
+    # 31 + 256 (low 4,095: 16 below, on a chunk boundary), 16 + 256 (low
+    # 255: chunk 0 below), 17 + 160 (low 415: chunk 1 cut), an idle slot and
+    # three the window covers
+    4096: ((31, 160), (0, 0), (16, 256), (17, 160), (1, 44), (5, 288), (31, 256), (2, 1)),
+    # test-size windows: low 479 (chunk 1 cut), 511 (chunks 0-1 below, on a
+    # boundary), 960 (chunk 3 cut), idle, vacuous, 7,903 (30 below), 1,247
+    # (chunk 4 cut), a slot with no chunk
+    320: ((2, 288), (3, 64), (5, 1), (0, 0), (1, 44), (31, 288), (5, 288), (0, 232)),
+    # low 511 (every chunk below: the window alone), 11 (chunk 0 cut), 992,
+    # idle, 7,807, 835, 255 (the only chunk below), one token and no chunk
+    288: ((2, 288), (1, 44), (5, 1), (0, 0), (31, 160), (4, 100), (1, 288), (0, 1)),
+}
+# the 8,000-token slot as serve_cb_swa decodes it: 31 chunks + 160 (15 of
+# them wholly below Mistral's window), beside kernel_ps's other slots
+PS_WINDOW_TIMED = 4096
+
+
+def _check_ps_windows(kit, qs, counts, slots):
+    """The per-slot kernel with a sliding window (``_hold_ps``) at each
+    PS_WINDOW_CASES window, bf16 and f32 q at G=4 and bf16 at G=1/2/8 (qs:
+    G = 4, 1, 2, 8), with its window probabilities within WIN_PROBS_TOL of
+    the split plain version's; then timed with Mistral's window on and off,
+    in turns, at kernel_ps's slots with the 8,000-token one at 31 chunks +
+    160, beside each's byte bound (live chunks only)."""
+    import torch
+    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
+    results, probs, worst, worst_split, probs_worst = [], [], 0.0, 0.0, 0.0
+    for window, sl in PS_WINDOW_CASES.items():
+        nc, wl = counts(sl)
+        for qq in (qs[0], qs[0].float(), *(qs[1:] if window == 4096 else ())):
+            results.append(dict(_hold_ps(kit, qq, nc, wl, 0, window=window),
+                                slots=list(sl),
+                                lows=[qa.window_low(c, w, window) for c, w in sl]))
+            worst = max(worst, results[-1]["worst_err_over_tol"])
+            worst_split = max(worst_split, results[-1]["worst_err_over_tol_split"])
+        for qq in (qs[0], qs[0].float()):
+            out, pr = kit.decode_ps_wp(qq, nc, wl, 0, window=window)
+            plain = kit.decode_ps(qq, nc, wl, 0, window=window)
+            torch.cuda.synchronize()
+            _, want = kit.decode_ps_split_plain_wp(qq.float(), nc, wl, 0, window=window)
+            err = (pr - want).abs().max().item()
+            probs.append({"window": window, "q_dtype": str(qq.dtype).split(".")[-1],
+                          "probs_max_abs_err": err,
+                          "out_equal_without": bool(torch.equal(out, plain))})
+            if not (probs[-1]["out_equal_without"] and err <= WIN_PROBS_TOL
+                    and bool(pr.isfinite().all())):
+                raise AssertionError(f"per-slot window probabilities with the window "
+                                     f"disagree with the split plain version: {probs[-1]}")
+            probs_worst = max(probs_worst, err / WIN_PROBS_TOL)
+    q = qs[0]
+    window = PS_WINDOW_TIMED
+    timed_slots = [(c, 160) if c == 31 else (c, w) for c, w in slots]
+    nc, wl = counts(timed_slots)
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=q.device)
+    for _ in range(10):
+        kit.decode_ps(q, nc, wl, 0, window=window)
+    torch.cuda.synchronize()
+    ms = [cuda_ms(call, 100, flush=flush_buf.zero_)[0]
+          for call in (lambda: kit.decode_ps(q, nc, wl, 0, window=window),
+                       lambda: kit.decode_ps(q, nc, wl, 0), lambda: kit.decode_ps(q, nc, wl, 0),
+                       lambda: kit.decode_ps(q, nc, wl, 0, window=window))]
+    plain_ms, _ = cuda_ms(lambda: kit.decode_ps_plain(q, nc, wl, 0, window=window), 3,
+                          flush=flush_buf.zero_, spin=False)
+    Hkv = kit.k_win.shape[1] // q.shape[0]
+    G = q.shape[2] // Hkv
+    live = [c - qa.masked_steps(c, w, window, 256) for c, w in timed_slots]
+
+    def bound(chunks):
+        n_tok = sum(c * 256 + w for c, (_, w) in zip(chunks, timed_slots))
+        nbytes = (Hkv * sum(c * kit.chunk_bytes + 2 * w * 128 * 2
+                            for c, (_, w) in zip(chunks, timed_slots))
+                  + 2 * q.numel() * 2 + 2 * q.shape[0] * 4)
+        flops = Hkv * G * n_tok * 128 * 2 * 2
+        return max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
+    turns = in_turns(ms)
+    timed = {"timed_at": f"the slots {timed_slots}, G={G}, window {window} (the 31-chunk "
+                         f"slot's low {qa.window_low(31, 160, window)}: "
+                         f"{31 - live[timed_slots.index((31, 160))]} chunks left out), "
+                         f"in turns on, off, off, on (the least of each pair)",
+             "ms_on": turns["on"], "ms_off": turns["off"], "in_turns": ms,
+             "live_chunks": sum(live), "chunks": sum(c for c, _ in timed_slots),
+             "bound_ms": bound(live), "bound_ms_off": bound([c for c, _ in timed_slots]),
+             "plain_ms": plain_ms}
+    return {"cases": results, "max_abs_err": max(r["max_abs_err"] for r in results),
+            "tol": "per slot: 2 bf16 ulps of the slot's largest output (TPU order); "
+                   + SPLIT_TOL_NOTE,
+            "worst_err_over_tol": worst, "worst_err_over_tol_split": worst_split,
+            "win_probs_cases": probs, "win_probs_worst": probs_worst, "timed": timed}
 
 
 def _check_ps_win_probs(kit, qs, nc, wl, W):
@@ -1209,6 +1369,7 @@ def phase_kernel_seg(codec="q8q4"):
                 worst = max(worst, err / max(tol, 1e-30), m_err / max(m_tol, 1e-30),
                             l_err / l_tol)
 
+    window = _check_seg_windows(kits, g, Hq, Hkv, T, L)
     B, nc = 1, 31
     kit = kits[(B, 0.7)]
     q = torch.randn((B, T, Hq, D), generator=g, device=dev).to(torch.bfloat16)
@@ -1257,7 +1418,7 @@ def phase_kernel_seg(codec="q8q4"):
          wrapper_host_us=wrapper_us, second_launch_same_bits=same_bits,
          kernel_ms_by_chunks=by_chunks or None,
          flops=flops, bytes=nbytes,
-         bound_ms=max(bytes_ms, flops_ms), library_ms=None)
+         bound_ms=max(bytes_ms, flops_ms), library_ms=None, window=window)
     entry = _entry(codec, "segment", results, worst,
                    max(r.get("tol", 0.0) for r in results),
                    kernel_ms, plain_ms, bytes_ms, flops_ms)
@@ -1265,7 +1426,125 @@ def phase_kernel_seg(codec="q8q4"):
         entry["clusters"] = clusters
     if by_chunks:
         entry["kernel_ms_by_chunks"] = by_chunks
+    entry["options"] = {"window": dict(_window_option(window), bound_by=window["bound_by"])}
     return entry
+
+
+# sliding-window cases of the segment kernels: (n_chunks, seg_start, window);
+# query row t*G + g sees the pool columns past seg_start + t - window
+SEG_WINDOW_CASES = (
+    (30, 7936, 4096),   # chunks 0-14 dead for every row, the edge through chunk 15
+    (1, 512, 288),      # the edge through chunk 0; rows of tokens 31 on see no pool column
+    (1, 512, 320),      # tokens 63 on see none
+    (4, 1280, 320),     # chunks 0-2 dead for every row; the edge through chunk 3
+    (4, 1280, 288),     # chunks 0-2 dead; tokens 31 on see no pool column
+)
+# timed at the longest prompt's last segment: 31 chunks, seg_start 7,936,
+# Mistral's window (chunks 0-14 dead for every row)
+SEG_WINDOW_TIMED = (31, 7936, 4096)
+
+
+def _check_seg_windows(kits, g, Hq, Hkv, T, L):
+    """The segment kernel with a sliding window at each SEG_WINDOW_CASES
+    case, B = 1 and 2 (``kits`` by (B, sparsity)), bf16 q: the rows with a
+    live pool column held to the plain version (normalised output within 2
+    bf16 ulps of its scale, m within 1e-5 of its scale, l within 1e-4
+    relative), the rows with none m = -1e30 in both; every row after
+    ``merge_partials`` with a causal self partial within 2 bf16 ulps of the
+    plain version's merge; no NaN in any partial; a second launch
+    bit-equal.  Then timed at SEG_WINDOW_TIMED, B=1, window on and off in
+    turns, beside each's bound (on: the live (row, column) pairs' products
+    and the chunks with a live column)."""
+    import torch
+    from mustafar_tpu_torch.ops.attention import attention_partials, merge_partials
+    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
+    D = 128
+    G = Hq // Hkv
+    results, worst = [], 0.0
+    for nc, seg_start, window in SEG_WINDOW_CASES:
+        for B in (1, 2):
+            kit = kits[(B, 0.7)]
+            dev = kit.k_win.device
+            qq = torch.randn((B, T, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+            k, v = (torch.randn((B, T, Hkv, D), generator=g, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            li = nc % L
+            got = kit.segment(qq, nc, li, seg_start, window)
+            again = kit.segment(qq, nc, li, seg_start, window)
+            torch.cuda.synchronize()
+            want = kit.segment_plain(qq, nc, li, seg_start, window)
+            acc, m, l = got
+            pa, pm, pl = want
+            t = torch.arange(T, device=dev)
+            live = seg_start + t - window < nc * 256 - 1            # tokens with a live column
+            out, pout = acc[:, live] / l[:, live], pa[:, live] / pl[:, live]
+            err = (out - pout).abs().max().item()
+            tol = KERNEL_TOL_ULPS * 2.0 ** -8 * pout.abs().max().item()
+            m_err = (m[:, live] - pm[:, live]).abs().max().item()
+            m_tol = 1e-5 * pm[:, live].abs().max().item()
+            l_err = ((l[:, live] - pl[:, live]).abs() / pl[:, live]).max().item()
+            dead_m = bool((m[:, ~live] == -1e30).all() and (pm[:, ~live] == -1e30).all())
+            p_self = attention_partials(qq, k, v, torch.ones((T, T), dtype=torch.bool,
+                                                             device=dev).tril())
+            merged = merge_partials([got, p_self])
+            merged_want = merge_partials([want, p_self])
+            merged_err = (merged - merged_want).abs().max().item()
+            merged_tol = KERNEL_TOL_ULPS * 2.0 ** -8 * merged_want.abs().max().item()
+            finite = all(bool(x.isfinite().all()) for x in (*got, merged))
+            case = {"B": B, "n_chunks": nc, "seg_start": seg_start, "window": window,
+                    "li": li, "live_tokens": int(live.sum()),
+                    "first_chunk_of_oldest_row": qa.segment_first_chunk(seg_start, 0,
+                                                                        window, nc),
+                    "max_abs_err": err, "tol": tol, "m_err": m_err, "m_tol": m_tol,
+                    "l_rel_err": l_err, "l_tol": 1e-4, "dead_rows_m_neg": dead_m,
+                    "merged_max_abs_err": merged_err, "merged_tol": merged_tol,
+                    "finite": finite,
+                    "second_launch_equal": all(torch.equal(a, b) for a, b in zip(got, again))}
+            results.append(case)
+            if not (finite and err <= tol and m_err <= m_tol and l_err <= 1e-4 and dead_m
+                    and merged_err <= merged_tol and case["second_launch_equal"]):
+                raise AssertionError(f"windowed segment kernel disagrees with its plain "
+                                     f"version or with itself: {case}")
+            worst = max(worst, err / max(tol, 1e-30), m_err / max(m_tol, 1e-30),
+                        l_err / 1e-4, merged_err / max(merged_tol, 1e-30))
+    nc, seg_start, window = SEG_WINDOW_TIMED
+    kit = kits[(1, 0.7)]
+    q = torch.randn((1, T, Hq, D), generator=g, device=kit.k_win.device).to(torch.bfloat16)
+    for _ in range(3):
+        kit.segment(q, nc, 0, seg_start, window)
+        kit.segment(q, nc, 0, seg_start)
+    torch.cuda.synchronize()
+    ms = [cuda_ms(call, 20)[0]
+          for call in (lambda: kit.segment(q, nc, 0, seg_start, window),
+                       lambda: kit.segment(q, nc, 0, seg_start),
+                       lambda: kit.segment(q, nc, 0, seg_start),
+                       lambda: kit.segment(q, nc, 0, seg_start, window))]
+    plain_ms, _ = cuda_ms(lambda: kit.segment_plain(q, nc, 0, seg_start, window), 3,
+                          spin=False)
+    BH = Hkv
+    first = qa.segment_first_chunk(seg_start, 0, window, nc)
+    lows = [seg_start + t - window for t in range(T)]
+    live_cols = sum(max(nc * 256 - 1 - max(lo, -1), 0) for lo in lows)
+
+    def bound(cols, chunks):
+        flops = 4 * BH * G * cols * D
+        nbytes = BH * chunks * kit.chunk_bytes + q.numel() * 2 + T * Hq * (D + 2) * 4
+        return nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+    on, off = bound(live_cols, nc - first), bound(T * nc * 256, nc)
+    turns = in_turns(ms)
+    return {"cases": results, "max_abs_err": max(r["max_abs_err"] for r in results),
+            "tol": ("live rows: the output (acc / l) within 2 bf16 ulps of its scale, m "
+                    "within 1e-5 of its scale, l within 1e-4 relative; rows with no live "
+                    "pool column m = -1e30; every row merged with a self partial within "
+                    "2 bf16 ulps"),
+            "worst_err_over_tol": worst, "worst_err_over_tol_split": None,
+            "timed": {"timed_at": f"B=1, {nc} chunks, seg_start {seg_start}, window "
+                                  f"{window} (chunks 0-{first - 1} dead for every row), in "
+                                  f"turns on, off, off, on (the least of each pair)",
+                      "ms_on": turns["on"], "ms_off": turns["off"], "in_turns": ms,
+                      "live_chunks": nc - first, "bound_ms": max(on), "bound_ms_off": max(off),
+                      "plain_ms": plain_ms},
+            "bound_by": "operations" if on[1] >= on[0] else "bytes"}
 
 
 PACK_NO_LIBRARY = ("no single PyTorch call computes an exact top-k with ties to the "
@@ -2310,7 +2589,7 @@ def _recording_engine():
 
 
 def phase_reference(codec="q8q4", mode=None, method=None, use_pallas=False, T=300,
-                    tol_frac=1e-2, window=None):
+                    tol_frac=1e-2, window=None, chunked=False):
     """A tiny f32 model, same weights and token stream on the card and on
     the CPU: the card runs the kernel, the CPU the plain path, a prompt of
     ``T`` tokens and 39 decode steps (a compressed cache compacts when its
@@ -2318,8 +2597,9 @@ def phase_reference(codec="q8q4", mode=None, method=None, use_pallas=False, T=30
     to the compressed cache and KT_MAG_VT_MAG; ``use_pallas`` sends a dense
     or masked cache through kernel 4; ``tol_frac`` is the logits'
     tolerance as a fraction of their range; ``window`` gives the model a
-    sliding window.  Returns the phase's numbers (``reference_bitmap`` and
-    the others print them)."""
+    sliding window; ``chunked`` prefills the prompt segment by segment
+    (chunked prefill, the segment kernel).  Returns the phase's numbers
+    (``reference_bitmap`` and the others print them)."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.cache import make_cache
@@ -2341,8 +2621,12 @@ def phase_reference(codec="q8q4", mode=None, method=None, use_pallas=False, T=30
             impl = make_cache(eng, device=dev)
             impl.use_pallas = use_pallas
             cache = impl.init(2, torch.float32)
-            logit, cache = llama.prefill(eng.model, params, toks.to(dev), cache,
-                                         impl, T, last_only=True)
+            if chunked:
+                logit, cache = llama.prefill_chunked(eng.model, params, toks.to(dev), cache,
+                                                     impl, T)
+            else:
+                logit, cache = llama.prefill(eng.model, params, toks.to(dev), cache,
+                                             impl, T, last_only=True)
             out = [logit[:, 0].cpu()]
             tok = logit[:, 0].argmax(-1)
             for i in range(1, 40):
@@ -2382,20 +2666,22 @@ def phase_reference(codec="q8q4", mode=None, method=None, use_pallas=False, T=30
     return fields
 
 
-def phase_reference_cb(codec="q8q4", method=None):
+def phase_reference_cb(codec="q8q4", method=None, window=None):
     """The tiny f32 continuous-batching engine, chunked prefill with
     interleaved admission, on the CPU (plain versions) and on the card
     (kernels), fed the CPU's tokens: the card's logits within 1e-2 of their
     range, its own greedy picks equal to the CPU's.  The requests make a
     slot retire while the other decodes (its n_chunks still the old
-    request's) and reuse it.  ``method`` defaults to KT_MAG_VT_MAG.
-    Returns the phase's numbers."""
+    request's) and reuse it.  ``method`` defaults to KT_MAG_VT_MAG;
+    ``window`` gives the model a sliding window, and then (as under Opa) a
+    pick may differ at a near-tie, within SWA_TIE_TOL.  Returns the phase's
+    numbers."""
     import torch
     from mustafar_tpu_torch.config import CacheMode
     from mustafar_tpu_torch.models import llama
     Recording, np = _recording_engine()
-    eng = _tiny_engine(CacheMode.COMPRESSED, codec, method, max_seq_len=2048, batch_size=2,
-                       chunked_prefill=True)
+    eng = _tiny_engine(CacheMode.COMPRESSED, codec, method, window, max_seq_len=2048,
+                       batch_size=2, chunked_prefill=True)
     cpu_params = llama.init_params(eng.model, device="cpu", dtype=torch.float32, seed=2)
     gpu_params = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict)
                       else v.cuda()) for k, v in cpu_params.items()}
@@ -2428,11 +2714,12 @@ def phase_reference_cb(codec="q8q4", method=None):
     fields = {"requests": len(reqs), "tokens": n, "ticks": ticks, "segments": segments,
               "decode_steps": steps, "max_abs_err": err, "tol": tol,
               "greedy_agreement": agree / n, "flips": flips, "launched": launched}
-    if codec == "q8q4" and method is None:
+    if codec == "q8q4" and method is None and window is None:
         emit("reference_cb", **fields)
-    # under Opa (OPA_CB_NOTE) a differing pick must be a near-tie on the CPU
-    picks_ok = agree == n if method is None else all(
-        f["cpu_margin"] <= 2 * err for f in flips)
+    # under Opa (OPA_CB_NOTE) a differing pick must be a near-tie on the CPU,
+    # with the window one within SWA_TIE_TOL (SWA_PICKS_NOTE)
+    picks_ok = agree == n if method is None and window is None else all(
+        f["cpu_margin"] <= (SWA_TIE_TOL if window else 2 * err) for f in flips)
     if not (err <= tol and picks_ok):
         raise AssertionError(f"card and CPU disagree on the tiny continuous-batching "
                              f"run: {fields}")
@@ -2523,6 +2810,138 @@ def phase_reference_swa():
                                  f"margin past SWA_TIE_TOL ({SWA_TIE_TOL}): {wide}")
     emit("reference_swa", window=SWA_TINY_WINDOW, prompt=SWA_TINY_T, runs=runs)
     return runs
+
+
+def phase_reference_swa_cb():
+    """The sliding window through the engine and chunked prefill over the
+    compressed cache, tiny f32 model (window 320), card against CPU: the
+    engine (``reference_cb``'s requests: segments whose rows see part of a
+    chunk or none of the pool, per-slot decode with chunks below a slot's
+    edge, compactions) at every codec (kernels 2 and 7, 3 and 8 with the
+    window; kernel 9 at the quant codecs), and the chunked Generator
+    (``reference`` with chunked prefill, 600 tokens: 3 segments, then 39
+    decode steps through kernels 1 and 6) at q8q4 and bitmap; logits within
+    1e-2 of their range, picks equal or at a near-tie within SWA_TIE_TOL
+    (SWA_PICKS_NOTE); the per-slot and segment kernels launched once a layer
+    a step and a segment, and no kernel of another codec.  Returns the
+    runs."""
+    from mustafar_tpu_torch.config import CacheMode, TINY_LLAMA
+    from mustafar_tpu_torch.models.llama import n_segments
+    L = TINY_LLAMA.num_layers
+    runs = {}
+    for codec in ("q8q4", "q8", "q4q4", "bitmap", "bitmap-q8"):
+        fields = phase_reference_cb(codec, window=SWA_TINY_WINDOW)
+        want = {_meta(codec, "decode_ps")[0]: L * fields["decode_steps"],
+                _meta(codec, "segment")[0]: L * fields["segments"]}
+        got = {k: v for k, v in fields["launched"].items() if k in want}
+        names = set(want) | ({"prune_quant_pack_kv"} if codec in QUANT_BITS else set())
+        runs[f"engine/{codec}"] = dict(fields, expected_launches=want, picks=SWA_PICKS_NOTE)
+        if got != want or set(fields["launched"]) != names:
+            raise AssertionError(f"reference_swa_cb (engine, {codec}): launched "
+                                 f"{fields['launched']}, expected {want} (and kernel 9 at "
+                                 f"the quant codecs)")
+    for codec in ("q8q4", "bitmap"):
+        fields = phase_reference(codec, CacheMode.COMPRESSED, None, False, T=SWA_TINY_T,
+                                 window=SWA_TINY_WINDOW, chunked=True)
+        want = {_meta(codec, "decode")[0]: L * 39,
+                _meta(codec, "segment")[0]: L * n_segments(SWA_TINY_T, 256)}
+        if codec in QUANT_BITS:          # the chunks segments 2 and 3 pack
+            want["prune_quant_pack_kv"] = L * ((SWA_TINY_T - 32) // 256)
+        runs[f"chunked_generator/{codec}"] = dict(fields, expected_launches=want,
+                                                  picks=SWA_PICKS_NOTE)
+        wide = [f for f in fields["flips"] if f["cpu_margin"] > SWA_TIE_TOL]
+        if fields["launched"] != want or wide:
+            raise AssertionError(f"reference_swa_cb (chunked Generator, {codec}): launched "
+                                 f"{fields['launched']} (expected {want}); flips past "
+                                 f"SWA_TIE_TOL: {wide}")
+    emit("reference_swa_cb", window=SWA_TINY_WINDOW, runs=runs)
+    return runs
+
+
+SAMPLE = {"temperature": 0.9, "top_k": 50, "top_p": 0.95, "seed": 7}
+
+
+def phase_reference_sample():
+    """Sampled decoding on the card (tiny f32 model, q8q4 compressed cache):
+    the Generator (B=2, 300 + 40) and the engine (reference_cb's requests)
+    with temperature 0.9, top-k 50, top-p 0.95, seed 7.  Every drawn token
+    lies in the kept set of the CPU's filter (``filter_logits``) on the
+    card's logits of that pick; the same seed draws the same tokens again;
+    with top-k 1 the tokens are the greedy ones."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.config import CacheMode
+    from mustafar_tpu_torch.models import llama
+    from mustafar_tpu_torch.runtime import generate as tg
+    from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
+    hot = tg.SamplingParams(**SAMPLE)
+    one = dataclasses.replace(hot, top_k=1)
+    eng = _tiny_engine(CacheMode.COMPRESSED, "q8q4", max_seq_len=2048, batch_size=2,
+                       chunked_prefill=True)
+    params = llama.init_params(eng.model, device="cuda", dtype=torch.float32, seed=3)
+    picks = []                       # (logits on the CPU, tokens, rows of a request)
+
+    def filtered_out(rows_logits, toks, sp):
+        kept = torch.isfinite(tg.filter_logits(rows_logits, sp))
+        return int((~kept[torch.arange(len(toks)), toks]).sum())
+
+    choose = tg.choose
+
+    def recorded(logits2d, sp, step):
+        tok = choose(logits2d, sp, step)
+        picks.append((logits2d.float().cpu(), tok.cpu(), sp))
+        return tok
+
+    class Recording(ContinuousBatchingEngine):
+        def _choose(self, logits2d, reqs):
+            toks = super()._choose(logits2d, reqs)
+            rows = [i for i, r in enumerate(reqs) if r is not None]
+            picks.append((logits2d[rows].float().cpu(), torch.as_tensor(toks[rows]),
+                          self.sampling))
+            return toks
+
+    prompt = np.random.RandomState(3).randint(0, 512, (2, 300))
+    rs = np.random.RandomState(2)
+    reqs = [(rs.randint(0, 512, size=n), m)
+            for n, m in ((100, 12), (1000, 6), (280, 30), (530, 20))]
+    counts0 = _launches()
+    tg.choose = recorded
+    try:
+        gen = tg.Generator(eng, params, dtype=torch.float32)
+        runs = {name: np.stack(gen.generate(prompt, 40, sampling=sp))
+                for name, sp in (("hot", hot), ("hot_again", hot), ("top_k_1", one))}
+        runs["greedy"] = np.stack(gen.generate(prompt, 40))
+    finally:
+        tg.choose = choose
+    gen_picks = len(picks)
+
+    def engine(sp):
+        cb = Recording(eng, params, dtype=torch.float32, sampling=sp)
+        uids = [cb.submit(p, m) for p, m in reqs]
+        out = cb.run()
+        return [np.asarray(out[u]) for u in uids]
+    cb_runs = {name: engine(sp) for name, sp in (("hot", hot), ("hot_again", hot),
+                                                   ("top_k_1", one), ("greedy", tg.GREEDY))}
+    engine_picks = len(picks) - gen_picks
+    _set_launches(counts0)
+    outside = sum(filtered_out(lg, tk, sp) for lg, tk, sp in picks if not sp.greedy)
+    fields = {"sampling": SAMPLE, "generator_picks": gen_picks, "engine_picks": engine_picks,
+              "drawn_outside_kept_set": outside,
+              "generator": {"same_seed_equal": bool((runs["hot"] == runs["hot_again"]).all()),
+                            "top_k_1_equal_greedy": bool((runs["top_k_1"]
+                                                          == runs["greedy"]).all()),
+                            "agreement_with_greedy": float((runs["hot"]
+                                                            == runs["greedy"]).mean())},
+              "engine": {"same_seed_equal": all((a == b).all() for a, b in
+                                                zip(cb_runs["hot"], cb_runs["hot_again"])),
+                         "top_k_1_equal_greedy": all((a == b).all() for a, b in
+                                                     zip(cb_runs["top_k_1"],
+                                                         cb_runs["greedy"]))}}
+    emit("reference_sample", **fields)
+    if outside or not all(v for part in ("generator", "engine")
+                          for k, v in fields[part].items() if k != "agreement_with_greedy"):
+        raise AssertionError(f"reference_sample: {fields}")
 
 
 CHANNEL_OPA_TOL = 5e-2   # of the logits' range (see phase_reference_masked)
@@ -2722,6 +3141,22 @@ def phase_reference_w4():
                              f"not launched as expected: {results}")
 
 
+# Layers of the earlier host-bound engine phases: host_split,
+# serve_cb_bitmap, serve_cb_bitmap_q8, serve_cb_q4q4, serve_cb_opa and
+# serve_cb_w4 run Llama-3-8B at full width and this depth, so that the
+# whole run keeps well inside BUDGET_S on a slower host (serve_cb and the
+# new paths stay at full depth).
+CUT_LAYERS = 8
+
+
+def cut_depth(model, params, n=CUT_LAYERS):
+    """``model`` and ``params`` (either weight format) cut to their first
+    ``n`` layers, full width: views of the stacked layer leaves."""
+    import dataclasses
+    cut = dict(params, layers={k: v[:n] for k, v in params["layers"].items()})
+    return dataclasses.replace(model, num_layers=n), cut
+
+
 def _pool_bytes(cache):
     """Bytes of a compressed cache's pool and scales (allocated at
     ``max_seq_len``'s chunks)."""
@@ -2880,8 +3315,11 @@ def phase_decode_split_w4(params, attn_ms, wall_s, new_tokens):
          wall_ms_per_token={c: t / new_tokens * 1e3 for c, t in wall_s.items()})
 
 
-def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, prune=None):
-    """Continuous batching at full Llama-3-8B width and depth: 8 slots, 17
+def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, prune=None,
+                   model=None):
+    """Continuous batching at full Llama-3-8B width and depth (or
+    ``model``'s: Llama-3-8B cut in depth by ``cut_depth``, or Mistral-7B with
+    its window as ``serve_cb_swa_<codec>``): 8 slots, 17
     requests (16 with prompts of 200-1,500 tokens and 32-96 new tokens,
     plus one of 8,000 prompt tokens submitted third), chunked prefill with
     interleaved admission, ``codec`` at 0.7.  Every decode step must launch
@@ -2907,16 +3345,17 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
                                            PruneConfig, PruneMethod)
     from mustafar_tpu_torch.runtime.generate import Generator
     from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
+    model = model or LLAMA3_8B
     if prune is None:
         prune = PruneConfig(method=PruneMethod.KT_MAG_VT_MAG, k_sparsity=0.7,
                             v_sparsity=0.7)
-    eng = EngineConfig(model=LLAMA3_8B, cache_mode=CacheMode.COMPRESSED, prune=prune,
+    eng = EngineConfig(model=model, cache_mode=CacheMode.COMPRESSED, prune=prune,
                        max_seq_len=8448, prefill_bucket=256, chunk_size=256,
                        codec=codec, batch_size=8, chunked_prefill=True)
     rs = np.random.RandomState(1)
-    reqs = [(rs.randint(1, LLAMA3_8B.vocab_size, size=rs.randint(200, 1501)),
+    reqs = [(rs.randint(1, model.vocab_size, size=rs.randint(200, 1501)),
              int(rs.randint(32, 97))) for _ in range(16)]
-    reqs.insert(2, (rs.randint(1, LLAMA3_8B.vocab_size, size=8000), 64))
+    reqs.insert(2, (rs.randint(1, model.vocab_size, size=8000), 64))
     if w4 or first8:
         reqs = [r for r in reqs if len(r[0]) != 8000][:8]
     warm = ContinuousBatchingEngine(eng, params)
@@ -2959,7 +3398,7 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
     launches = _launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     pool_bytes = _pool_bytes(cb.cache)
-    L = LLAMA3_8B.num_layers
+    L = model.num_layers
     generated = sum(len(outs[u]) for u in uids)
     want = dict.fromkeys(launches, 0)
     want[_meta(codec, "decode_ps")[0]] = L * cb.decode_steps
@@ -2971,7 +3410,7 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
         want["w4_matmul"] = 7 * L * cb.decode_steps
     seg_expected = sum(-(-len(p) // 256) for p, _ in reqs)
     bad = [u for u, (p, m) in zip(uids, reqs)
-           if len(outs[u]) != m or min(outs[u]) < 0 or max(outs[u]) >= LLAMA3_8B.vocab_size]
+           if len(outs[u]) != m or min(outs[u]) < 0 or max(outs[u]) >= model.vocab_size]
     # first tokens against a batch-1 chunked Generator (not counted above)
     gen = Generator(eng, params)
     first_equal = [int(gen.generate(p[None], 1)[0][0]) == int(outs[u][0])
@@ -2984,9 +3423,11 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
     scores = {k: float(cb.cache[k].abs().sum()) for k in cb.impl.score_keys}
     del gen, cb
     torch.cuda.empty_cache()
-    label = ("serve_cb_w4" if w4 else "serve_cb_opa" if scores else "serve_cb"
-             if codec == "q8q4" else "serve_cb_" + codec.replace("-", "_"))
-    emit(label, model=f"llama-3-8b x32L, {'W4' if w4 else 'W8'} (random, seed 0)",
+    label = ("serve_cb_w4" if w4 else "serve_cb_opa" if scores
+             else "serve_cb_swa_" + codec.replace("-", "_") if model.sliding_window
+             else "serve_cb" if codec == "q8q4" else "serve_cb_" + codec.replace("-", "_"))
+    window = f", window {model.sliding_window}" if model.sliding_window else ""
+    emit(label, model=f"{model.name} x{L}L{window}, {'W4' if w4 else 'W8'} (random, seed 0)",
          codec=codec, slots=8,
          requests=len(reqs), prompt_tokens=sum(len(p) for p, _ in reqs),
          generated_tokens=generated, seconds=dt, tok_s=generated / dt,
@@ -3052,7 +3493,7 @@ def phase_serve_chunked(params):
     torch.cuda.empty_cache()
 
 
-def phase_host_split(params):
+def phase_host_split(params, model=None):
     """Host or device: one chunked-prefill segment (B=1 after 4 packed
     chunks; it packs a fifth) at q8q4, bitmap and bitmap-q8, one pack of a
     chunk's K and V (B=1, 8 kv heads: what a segment does per layer) at
@@ -3061,7 +3502,9 @@ def phase_host_split(params):
     8,000 tokens long (31 pool chunks: the per-slot kernels' longest slot),
     each timed three ways: the host's time to enqueue it, the wall time
     until the card is done, and the device time of its kernels with the
-    number of kernels launched (torch.profiler)."""
+    number of kernels launched (torch.profiler).  ``model`` (default
+    Llama-3-8B) may be cut in depth (``cut_depth``): every number is then
+    that depth's."""
     import dataclasses
     import numpy as np
     import torch
@@ -3072,7 +3515,8 @@ def phase_host_split(params):
                                            PruneConfig, PruneMethod)
     from mustafar_tpu_torch.models import llama
     from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
-    eng = EngineConfig(model=LLAMA3_8B, cache_mode=CacheMode.COMPRESSED,
+    model = model or LLAMA3_8B
+    eng = EngineConfig(model=model, cache_mode=CacheMode.COMPRESSED,
                        prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG,
                                          k_sparsity=0.7, v_sparsity=0.7),
                        max_seq_len=2304, prefill_bucket=256, chunk_size=256,
@@ -3099,7 +3543,7 @@ def phase_host_split(params):
 
     toks = torch.as_tensor(np.random.RandomState(4).randint(1, 500, (1, 2048)),
                            device="cuda")
-    kv = torch.randn((1, LLAMA3_8B.num_kv_heads, 256, 128), device="cuda",
+    kv = torch.randn((1, model.num_kv_heads, 256, 128), device="cuda",
                      generator=torch.Generator(device="cuda").manual_seed(4))
     kv = kv.to(torch.bfloat16)
     segments, packs = {}, {}
@@ -3111,7 +3555,7 @@ def phase_host_split(params):
 
             def segment():
                 s = seg[0]
-                llama.prefill_segment(LLAMA3_8B, params, toks[:, s * 256:(s + 1) * 256],
+                llama.prefill_segment(model, params, toks[:, s * 256:(s + 1) * 256],
                                       sub, impl, s * 256, 2000)
                 seg[0] += 1
 
@@ -3141,7 +3585,8 @@ def phase_host_split(params):
             ticks_long[codec] = measure(cb.tick)
             del cb
     torch.cuda.empty_cache()
-    emit("host_split", segment_b1=segments["q8q4"], segment_b1_bitmap=segments["bitmap"],
+    emit("host_split", model=f"{model.name} x{model.num_layers}L, W8 (random, seed 0)",
+         segment_b1=segments["q8q4"], segment_b1_bitmap=segments["bitmap"],
          segment_b1_bitmap_q8=segments["bitmap-q8"], pack_kv_b1=packs,
          decode_tick_b8=tick_split, decode_tick_b8_long=ticks_long["q8q4"],
          decode_tick_b8_bitmap_long=ticks_long["bitmap"])
@@ -3195,7 +3640,9 @@ def serve_w4(entries, prompt, new):
                                    "bitmap": entries[("bitmap", "decode")]["kernel_ms"],
                                    "dense": entries[("dense", "decode")]["kernel_ms"]},
                           wall, new)
-    phase_serve_cb(params, "bitmap", w4=True)
+    cut_model, cut_params = cut_depth(LLAMA3_8B, params)
+    phase_serve_cb(cut_params, "bitmap", w4=True, model=cut_model)
+    del cut_params
     del params
     torch.cuda.empty_cache()
 
@@ -3260,18 +3707,19 @@ def serve_opa(entries, params, prompt, new, dense_toks):
                        launches_note=note)
 
 
-def serve_cb_opa(entries, params, reference_launches):
-    """``serve_cb_opa``: the engine at full Llama-3-8B width and depth under
-    KT_MAG_VT_OPA at 0.7 (q8q4, ``serve_cb``'s first 8 requests): kernel 2
-    with its window probabilities 32 x decode steps, kernel 3 32 x
-    segments, kernel 9 at serve_cb's packing counts (V ranked by its
+def serve_cb_opa(entries, params, model, reference_launches):
+    """``serve_cb_opa``: the engine at full Llama-3-8B width (``model``, cut
+    in depth by ``cut_depth``) under KT_MAG_VT_OPA at 0.7 (q8q4,
+    ``serve_cb``'s first 8 requests): kernel 2 with its window
+    probabilities a layer a decode step, kernel 3 a layer a segment,
+    kernel 9 at serve_cb's packing counts (V ranked by its
     scores), first tokens equal to a batch-1 chunked Generator's under the
     same method, V's scores live at the end.  Fills the per-slot kernels'
     option launches in the kernels line (kernel 7's from
     ``reference_opa_cb``'s bitmap engine on the card)."""
     from mustafar_tpu_torch.config import PruneConfig, PruneMethod
     vt_opa = PruneConfig(method=PruneMethod.KT_MAG_VT_OPA, k_sparsity=0.7, v_sparsity=0.7)
-    launches, _ = phase_serve_cb(params, "q8q4", first8=True, prune=vt_opa)
+    launches, _ = phase_serve_cb(params, "q8q4", first8=True, prune=vt_opa, model=model)
     name = "fused_q_decode_attention_ps"
     entries[("q8q4", "decode_ps")]["options"]["return_win_probs"].update(
         launches=launches[name],
@@ -3296,7 +3744,55 @@ def serve_packs():
 SWA_B, SWA_PROMPT, SWA_NEW = 4, 4400, 300
 
 
-def serve_swa(entries, other, reference_runs):
+def phase_serve_swa_chunked(params, m, prompt, q8q4_toks, new=64):
+    """The chunked Generator on Mistral-7B with its window at full width and
+    depth: B=4, serve_swa's 4,400-token prompt in 18 segments (segment 17's
+    rows see chunk 0 none and chunk 1 past their own edge), ``new`` tokens;
+    q8q4.  Kernel 3 with the window 32 a segment, kernel 1 32 a decode step,
+    kernel 9 32 a packed chunk (17) and nothing else; tokens beside
+    serve_swa_q8q4's (monolithic banded prefill)."""
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.config import CacheMode, EngineConfig, PruneConfig, PruneMethod
+    from mustafar_tpu_torch.models.llama import n_segments
+    from mustafar_tpu_torch.runtime.generate import Generator
+    T = prompt.shape[1]
+    eng = EngineConfig(model=m, cache_mode=CacheMode.COMPRESSED,
+                       prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG, k_sparsity=0.7,
+                                         v_sparsity=0.7),
+                       max_seq_len=-(-T // 256) * 256 + new, prefill_bucket=256,
+                       chunk_size=256, codec="q8q4", chunked_prefill=True)
+    gen = Generator(eng, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _set_launches(dict.fromkeys(_counters(), 0))
+    t = time.perf_counter()
+    toks = np.stack(gen.generate(prompt, new))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = {k: v for k, v in _launches().items() if v}
+    L = m.num_layers
+    want = {"fused_q_decode_attention": L * (new - 1),
+            "fused_q_segment_attention": L * n_segments(T, 256),
+            "prune_quant_pack_kv": L * ((T - 32) // 256)}
+    agree = float((toks == q8q4_toks[:, :new].numpy()).mean())
+    emit("serve_swa_chunked", model=f"{m.name} x{L}L, window {m.sliding_window}, W8 "
+                                    f"(random, seed 0)",
+         batch=prompt.shape[0], prompt=T, new_tokens=new, segments=n_segments(T, 256),
+         seconds=dt, tok_s=toks.size / dt,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         n_chunks_end=gen.last_cache["nc_host"], launches=launches, expected_launches=want,
+         token_agreement_with_serve_swa_q8q4=agree,
+         first_token_equal_serve_swa_q8q4=bool((toks[:, 0]
+                                                == q8q4_toks[:, 0].numpy()).all()))
+    if toks.shape != (prompt.shape[0], new) or launches != want:
+        raise AssertionError(f"serve_swa_chunked: tokens {toks.shape}, launches {launches} "
+                             f"(expected {want})")
+    del gen
+    torch.cuda.empty_cache()
+
+
+def serve_swa(entries, other, reference_runs, cb_runs):
     """Mistral-7B with its sliding window (``MISTRAL_7B_SWA``: 32 layers,
     hidden 4,096, 32 query and 8 kv heads, window 4,096) at full width and
     depth, W8 random weights from seed 0, through the ``Generator``: B=4, a
@@ -3307,9 +3803,13 @@ def serve_swa(entries, other, reference_runs):
     ``serve_swa_q8q4`` (kernel 1; kernel 9 at prefill and the compaction),
     ``serve_swa_bitmap`` (kernel 6): each decode kernel 32 x 299 launches,
     every first token equal to ``serve_swa_dense``'s; tok/s, prefill
-    seconds (a prefill of the prompt alone) and peak memory.  Fills the
+    seconds (a prefill of the prompt alone) and peak memory.  Then the same
+    weights through the engine (``serve_cb_swa_q8q4``, ``serve_cb_swa_bitmap``:
+    ``phase_serve_cb``'s requests, kernels 2 and 3, or 7 and 8, with the
+    window) and the chunked Generator (``serve_swa_chunked``).  Fills the
     window's launches in the kernels line (q8, q4q4 and bitmap-q8 from
-    ``reference_swa``'s runs on the card, tiny model)."""
+    ``reference_swa``'s and ``reference_swa_cb``'s runs on the card, tiny
+    model)."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import CacheMode, MISTRAL_7B_SWA as m
@@ -3340,9 +3840,11 @@ def serve_swa(entries, other, reference_runs):
              ("q8q4", "decode")),
             ("serve_swa_bitmap", CacheMode.COMPRESSED, "bitmap", False,
              {"fused_sparse_decode_attention": expected}, ("bitmap", "decode")))
+    served = {}
     for label, mode, codec, use_pallas, want, key in runs:
         toks, launches, fields = serve(label, mode, params, prompt, SWA_NEW, codec=codec,
                                        use_pallas=use_pallas, **common)
+        served[label] = toks
         first_equal = bool((toks[:, 0] == dense_toks[:, 0]).all())
         emit(label, model=model_note, decode_steps=steps, expected_launches=want,
              first_token_equal_dense=first_equal,
@@ -3360,6 +3862,20 @@ def serve_swa(entries, other, reference_runs):
         other[(codec, "decode")]["options"]["window"].update(
             launches=reference_runs[f"compressed/{codec}"]["launched"][name],
             launches_note="reference_swa's run on the card (tiny model, window 320)")
+    for codec in ("q8q4", "bitmap"):
+        launches, _ = phase_serve_cb(params, codec, model=m)
+        for kind in ("decode_ps", "segment"):
+            entries[(codec, kind)]["options"]["window"].update(
+                launches=launches[_meta(codec, kind)[0]],
+                launches_note=f"serve_cb_swa_{codec}: every launch with the window "
+                              f"({m.sliding_window})")
+    for codec in ("q8", "q4q4", "bitmap-q8"):
+        for kind in ("decode_ps", "segment"):
+            other[(codec, kind)]["options"]["window"].update(
+                launches=cb_runs[f"engine/{codec}"]["launched"][_meta(codec, kind)[0]],
+                launches_note="reference_swa_cb's engine on the card (tiny model, window "
+                              "320)")
+    phase_serve_swa_chunked(params, m, prompt, served["serve_swa_q8q4"])
     del params
     torch.cuda.empty_cache()
 
@@ -3377,9 +3893,8 @@ def _merge_codecs(entries, other, top, rest, note):
         e = entries[(top, kind)]
         e["codecs"] = {c: {k: x[k] for k in keys}
                        for c, x in ((top, e), *((c, other[(c, kind)]) for c in rest))}
-        if kind == "decode":          # each codec's sliding window
-            for c in rest:
-                e["codecs"][c]["window"] = other[(c, kind)]["options"]["window"]
+        for c in rest:                # each codec's sliding window
+            e["codecs"][c]["window"] = other[(c, kind)]["options"]["window"]
         e["max_abs_err"] = max(v["max_abs_err"] for v in e["codecs"].values())
         e["worst_err_over_tol"] = max(v["worst_err_over_tol"] for v in e["codecs"].values())
         e["timed_at"] = f"{top} at the top; each codec under codecs"
@@ -3410,6 +3925,8 @@ def main():
     phase_reference_opa()
     opa_cb_launches = phase_reference_opa_cb()
     swa_runs = phase_reference_swa()
+    swa_cb_runs = phase_reference_swa_cb()
+    phase_reference_sample()
 
     import numpy as np
     import torch
@@ -3513,20 +4030,22 @@ def main():
     phase_decode_split(params, entries[("q8q4", "decode")]["kernel_ms"], q8q4_s,
                        dense_s, new)
     cb_runs = {}
+    cut_model, cut_params = cut_depth(LLAMA3_8B, params)
     for codec in ("q8q4", "bitmap"):
-        cb_launches, cb_runs[codec] = phase_serve_cb(params, codec)
+        cb_launches, cb_runs[codec] = (phase_serve_cb(params, codec) if codec == "q8q4" else
+                                       phase_serve_cb(cut_params, codec, model=cut_model))
         for kind in ("decode_ps", "segment"):
             entries[(codec, kind)]["launches"] = cb_launches[_meta(codec, kind)[0]]
-    cb_launches, _ = phase_serve_cb(params, "bitmap-q8",
+    cb_launches, _ = phase_serve_cb(cut_params, "bitmap-q8", model=cut_model,
                                     beside={"serve_cb_bitmap": cb_runs["bitmap"]})
     for kind in ("decode_ps", "segment"):
         other[("bitmap-q8", kind)]["launches"] = cb_launches[_meta("bitmap-q8", kind)[0]]
-    cb_launches, _ = phase_serve_cb(params, "q4q4", first8=True)
+    cb_launches, _ = phase_serve_cb(cut_params, "q4q4", first8=True, model=cut_model)
     for kind in ("decode_ps", "segment"):
         name = _meta("q4q4", kind)[0]
         other[("q4q4", kind)]["launches"] = cb_launches[name]
         other[("q8", kind)]["launches"] = q_engine_launches["q8"][name]
-    serve_cb_opa(entries, params, opa_cb_launches)
+    serve_cb_opa(entries, cut_params, cut_model, opa_cb_launches)
     _merge_codecs(entries, other, "q8q4", ("q8", "q4q4"),
                   "q8q4 and q4q4 from serve_q8q4 / serve_q4q4 and "
                   "serve_cb / serve_cb_q4q4; q8's per-slot and segment launches from "
@@ -3535,10 +4054,10 @@ def main():
                   "bitmap and bitmap-q8 from serve_bitmap / serve_bitmap_q8 and "
                   "serve_cb_bitmap / serve_cb_bitmap_q8")
     phase_serve_chunked(params)
-    phase_host_split(params)
-    del params
+    phase_host_split(cut_params, cut_model)
+    del params, cut_params
     torch.cuda.empty_cache()
-    serve_swa(entries, other, swa_runs)
+    serve_swa(entries, other, swa_runs, swa_cb_runs)
     serve_w4(entries, prompt, new)
 
     print(smi, flush=True)

@@ -66,12 +66,14 @@ Semantics:
     C tokens are packed by those scores.
   * a sliding window (Mistral, ``ModelConfig.sliding_window``, at least the
     window's capacity r + C): prefill attends through
-    ``prefill_attention``'s banded path, and the uniform decode's kernels
-    take ``window``, so a token at position p attends only pool columns
-    past p - window (the window's own columns are all inside it).  The
-    per-slot decode, ``compact_slots`` and chunked prefill
-    (``segment_attend``) refuse a window: their kernels take it in the next
-    slice of ROADMAP Queue A item 14.
+    ``prefill_attention``'s banded path, and every decode and segment kernel
+    takes ``window``, so a token at position p attends only pool columns
+    past p - window (the window's own columns are all inside it at decode).
+    The per-slot decode passes it to kernels 2 and 7 (each slot's edge at
+    its own counts); chunked prefill (``segment_attend``) to kernels 3 and 8
+    (each segment row's edge at its own position) and masks the window and
+    self partials, and the streamed Opa scores, as the JAX package does;
+    ``compact_slots`` packs the same chunks with or without a window.
 """
 
 from __future__ import annotations
@@ -135,12 +137,6 @@ class CompressedKVCache:
             self.vfmt = sf.ChunkFormat(C, m.head_dim, self.v_keep, qbits=qbits)
             self.rows = self.kfmt.stream_rows + self.vfmt.stream_rows
             self.pool_keys = ("kv_pool", "kv_scales") if qbits == 8 else ("kv_pool",)
-
-    def _refuse_window(self, what: str):
-        if self.window is not None:
-            raise NotImplementedError(
-                f"the compressed cache's {what} with a sliding window (the engine and "
-                f"chunked prefill over it) is the next slice of ROADMAP Queue A item 14")
 
     # -- state ------------------------------------------------------------
     def init(self, batch: int, dtype=torch.bfloat16) -> dict:
@@ -355,7 +351,6 @@ class CompressedKVCache:
         (0 chunks, 0 window tokens): after a retire its n_chunks still holds
         the old request's count, and the window index it would give may lie
         far out of range."""
-        self._refuse_window("per-slot decode")
         B = q.shape[0]
         nc = state["n_chunks"][li]
         active = pos >= 0
@@ -374,11 +369,11 @@ class CompressedKVCache:
         if self.qcodec is None:
             out = ska.fused_sparse_decode_attention_ps(q, pool, kw, vw, nc, win_len, lk,
                                                        self.kfmt, self.vfmt,
-                                                       kv_scales=scales,
+                                                       kv_scales=scales, window=self.window,
                                                        return_win_probs=self.v_opa)
         else:
             out = qa.fused_q_decode_attention_ps(q, pool, scales, kw, vw, nc, win_len,
-                                                 lk, self.qcodec,
+                                                 lk, self.qcodec, window=self.window,
                                                  return_win_probs=self.v_opa)
         return self._with_scores(state, li, q, out, win_len)
 
@@ -422,7 +417,6 @@ class CompressedKVCache:
         read on the device as the JAX package reads it (layer 0's, the
         layers move in lockstep).  Under Opa the chunk keeps the top entries
         by the slots' scores, which shift with their windows."""
-        self._refuse_window("compact_slots")
         sel = [b for b, flag in enumerate(do) if flag]
         if not sel:
             return state
@@ -487,8 +481,14 @@ class CompressedKVCache:
         (``finalize_segment``), the port writes it in place right away, into
         pool slot n_chunks of layer li: a layer reads only its own pools and
         only chunks below n_chunks, so nothing reads the slot before the
-        segment ends.  ``finalize_segment`` then moves the host count."""
-        self._refuse_window("chunked prefill (segment_attend)")
+        segment ends.  ``finalize_segment`` then moves the host count.
+
+        With a sliding window the segment row at position qpos sees the pool
+        columns (the kernels' ``window``), the window columns and its own
+        segment's columns past qpos - window.  The window mask cuts real
+        columns where the window is narrower than C plus the window's length
+        (a test window of 288-320; never at Mistral's 4,096); the self mask,
+        as the window covers r + C > C, cuts none."""
         B, T, Hq, D = q.shape
         C, W = self.C, self.wcap
         if T != C:
@@ -503,15 +503,22 @@ class CompressedKVCache:
         if self.qcodec is None:
             p_pool = ska.fused_sparse_segment_attention(q, pool, nc, seg_start, lk,
                                                         self.kfmt, self.vfmt,
-                                                        kv_scales=scales)
+                                                        kv_scales=scales, window=self.window)
         else:
             p_pool = qa.fused_q_segment_attention(q, pool, scales, nc, seg_start, lk,
-                                                  self.qcodec)
+                                                  self.qcodec, window=self.window)
         dev = q.device
-        wmask = (torch.arange(W, device=dev) < wl)[None, :].expand(T, W)
+        cols, rows = torch.arange(W, device=dev), torch.arange(T, device=dev)
+        wmask = (cols < wl)[None, :].expand(T, W)
+        smask = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
+        if self.window is not None:
+            # window column c holds position nc*C + c, segment row t sits at
+            # seg_start + t
+            low = (seg_start + rows)[:, None] - self.window
+            wmask = wmask & ((nc * C + cols)[None, :] > low)
+            smask = smask & (rows[None, :] > rows[:, None] - self.window)
         p_win = attention_partials(q, kwin.transpose(1, 2), vwin.transpose(1, 2),
                                    wmask)
-        smask = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
         p_self = attention_partials(q, k, v, smask)
         out = merge_partials([p_pool, p_win, p_self]).to(q.dtype)
 

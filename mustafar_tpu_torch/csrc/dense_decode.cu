@@ -110,11 +110,11 @@ __device__ __forceinline__ void slot_rows(int pos, int window, int S, int& lo, i
 struct Live {
   const int* pos_slot;
   int pos, hkv, S, split_len, window;
-  __device__ void operator()(int bh, int& a, int& c, int& n) const {
+  __device__ void operator()(int bh, int& f, int& a, int& c, int& n) const {
     const int p = pos_slot != nullptr ? pos_slot[bh / hkv] : pos;
     int lo, n_tok;
     slot_rows(p, window, S, lo, n_tok);
-    a = 0;
+    f = a = 0;
     c = n_tok > 0 ? lo / split_len : 0;
     n = (n_tok + split_len - 1) / split_len - c;
   }

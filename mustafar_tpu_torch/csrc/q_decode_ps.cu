@@ -4,7 +4,9 @@
 // fused_q_decode_attention_ps (Pallas body _q_ps_kernel) for the codecs
 // q8, q8q4 and q4q4, with its window probabilities (return_win_probs,
 // split_merge.cuh: a third launch after the merge) and its sliding window
-// off.  The G query heads of (slot b, kv head h) attend
+// (window > 0: slot b attends its pool columns past n_chunks[b] * 256 +
+// win_len[b] - 1 - window; quant_decode.cuh).  The G query heads of (slot
+// b, kv head h) attend
 // slot b's first n_chunks[b] pool chunks and win_len[b] window tokens, the
 // counts taken from int32 device arrays, so the continuous-batching decode
 // step never syncs with the host to size itself.  Counts are clamped into
@@ -22,7 +24,16 @@
 // exp(-1e30 - m) = 0.)  So the TPU takes one step per chunk of the slot,
 // then window tiles of `wt` tokens (fused_q_decode_attention_ps_plain);
 // the splits below take the same steps' ranges, each from its own running
-// max.
+// max.  With a sliding window the TPU also runs the chunks wholly below a
+// slot's edge, masked, and relies on the next live step's correction
+// exp(-1e30 - m) = 0; here their splits exit unread (the grid is still
+// sized from mc and W on the host: nothing syncs), the edge's split masks
+// its dead columns, and the merge reads the live splits only
+// (split_merge::SlotLive): a split merged at its own max must have a live
+// column.  At the engine's slots with the 8,000-token one at 31 chunks +
+// 160 and Mistral's window of 4,096 (15 of its chunk splits exit) the
+// call took 0.0419 ms against 0.0446 without the window at q8q4 (NVIDIA
+// H100 80GB HBM3, 700.00 W; chip_smoke.py kernel_ps, PERF.md §6).
 //
 // What bounds it on this card: bytes.  Per layer it must read the sum over
 // slots of Hkv*(n_chunks[b]*(ROWS*128*2 + 512) + 2*win_len[b]*128*2) bytes
@@ -85,6 +96,7 @@ struct Args {
   float* part;                    // scratch of n_splits splits a row
   int n_splits;
   split_merge::SlotProbs sp;      // window probabilities (sp.out null: off)
+  int window;                     // sliding window, 0: none
 };
 
 template <int G, int KB, int VB>
@@ -94,7 +106,7 @@ void launch(const Args& a, cudaStream_t stream) {
       static_cast<const __nv_bfloat16*>(a.scales), static_cast<const __nv_bfloat16*>(a.k_win),
       static_cast<const __nv_bfloat16*>(a.v_win), a.out, a.out_f32, a.BH, a.max_chunks, a.W,
       a.wt, a.n_chunks, a.win_len, a.li, a.nc_slot, a.wl_slot, a.hkv, a.part, a.n_splits,
-      a.sp);
+      a.sp, a.window);
 }
 
 template <int KB, int VB>
@@ -116,7 +128,7 @@ int launch_groups(int G, const Args& a, cudaStream_t s) {
 // cudaGetLastError().
 inline int launch_decode(const Args& a, int device, int kbits, int vbits, int G,
                          void* stream) {
-  if (a.wt < 1 || a.wt > TILE) return (int)cudaErrorInvalidValue;
+  if (a.wt < 1 || a.wt > TILE || a.window < 0) return (int)cudaErrorInvalidValue;
   if (a.nc_slot == nullptr || a.part == nullptr ||
       a.n_splits != a.max_chunks + (a.W + a.wt - 1) / a.wt)
     return (int)cudaErrorInvalidValue;
@@ -130,7 +142,8 @@ inline int launch_decode(const Args& a, int device, int kbits, int vbits, int G,
   if (err != (int)cudaSuccess) return err;
   return (int)split_merge::launch_merge_probs(
       a.part, a.out, a.out_f32, a.BH, G, a.n_splits,
-      split_merge::SlotLive{a.nc_slot, a.wl_slot, a.hkv, a.max_chunks, a.W, a.wt}, s, a.sp);
+      split_merge::SlotLive{a.nc_slot, a.wl_slot, a.hkv, a.max_chunks, a.W, a.wt, a.window}, s,
+      a.sp);
 }
 
 }  // namespace
@@ -141,7 +154,8 @@ inline int launch_decode(const Args& a, int device, int kbits, int vbits, int G,
 // split_merge::scratch_floats(BH, G, n_splits), with n_splits = max_chunks +
 // ceil(W / wt).  `probs` null, or f32 [B*Hkv, W] for the window
 // probabilities; the scratch then holds split_merge::slot_probs_floats(BH,
-// G, W) floats more, for the window scores and the final stats.
+// G, W) floats more, for the window scores and the final stats.  `window`
+// the sliding window, 0 for none.
 extern "C" int q_decode_attention_ps(const void* q, const void* pool,
                                      const void* scales, const void* k_win,
                                      const void* v_win, const void* n_chunks,
@@ -149,7 +163,7 @@ extern "C" int q_decode_attention_ps(const void* q, const void* pool,
                                      void* scratch, int scratch_floats, int out_f32,
                                      int device, int kbits, int vbits, int BH, int hkv,
                                      int G, int max_chunks, int W, int wt, int li,
-                                     int n_splits, void* stream) {
+                                     int n_splits, int window, void* stream) {
   if (n_chunks == nullptr || win_len == nullptr || scratch == nullptr || hkv < 1 ||
       BH % hkv || G < 1 || n_splits < 1 || scratch_floats < 0 || W < 0 ||
       (size_t)scratch_floats < split_merge::scratch_floats(BH, G, n_splits) +
@@ -160,6 +174,6 @@ extern "C" int q_decode_attention_ps(const void* q, const void* pool,
   const Args a{q, pool, scales, k_win, v_win, out, out_f32, BH, max_chunks, W, wt,
                      0, 0, li, static_cast<const int*>(n_chunks),
                      static_cast<const int*>(win_len), hkv, part, n_splits,
-                     split_merge::slot_probs(probs, part, BH, G, n_splits, W)};
+                     split_merge::slot_probs(probs, part, BH, G, n_splits, W), window};
   return launch_decode(a, device, kbits, vbits, G, stream);
 }

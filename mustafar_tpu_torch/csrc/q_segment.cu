@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel mustafar_tpu/ops/kernels/quant_attention.py
 // fused_q_segment_attention (Pallas body _q_seg_kernel) for the codecs q8,
-// q8q4 and q4q4, without its sliding-window option.  For one layer `li` of the stacked
+// q8q4 and q4q4, with its sliding window.  For one layer `li` of the stacked
 // cache and each (batch row b, kv head h) it attends the QR = T*G query
 // rows of that kv head (segment token t, query head h*G + g; row t*G + g)
 // over the first `n_chunks` packed pool chunks of 256 tokens:
@@ -19,6 +19,24 @@
 // with the window and causal-self partials.  One step per chunk is the TPU
 // kernel's: its grouping of chunk DMAs (fdepth) does not change the steps.
 // No pool chunk at or past n_chunks is read.
+//
+// The sliding window (window > 0): query row t*G + g sits at position
+// seg_start + t and sees the pool columns past seg_start + t - window, so
+// the edge moves along the segment's rows.  The TPU runs every chunk and
+// scores the dead columns -1e30; a chunk dead for a row before its first
+// live one is wiped by that step's correction exp(-1e30 - m) = 0.  Here a
+// CTA leaves out the chunks dead for its oldest row (and so for all of
+// them): it never copies or unpacks them.  In the one or two chunks that
+// straddle its rows' edges the score accumulator is masked per element, in
+// both score passes, to -1e30 (never -inf: -inf - -inf = NaN).  A row with
+// no live column keeps m = -1e30, and its l and acc are finite sums over
+// masked columns (exp(-1e30 - -1e30) = 1), as the TPU's: the merge with
+// the window and self partials weighs it exp(-1e30 - M) = 0.  For a row
+// with a live column the steps are the TPU's, bit for bit, but for the
+// skipped chunks, which the correction wipes exactly.  At 31 chunks,
+// seg_start 7,936 and Mistral's window of 4,096 (chunks 0-14 dead for
+// every row) the q8q4 launch took 0.121 ms against 0.224 without the
+// window (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py kernel_seg).
 //
 // What bounds it on this card: operations.  A segment of a layer does
 // 4 * B*Hkv * QR * n_chunks * 256 * 128 operations (scores and values,
@@ -288,7 +306,8 @@ q_segment_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, Hq, D]
                  float* __restrict__ acc_out,              // [B, T, Hq, D]
                  float* __restrict__ m_out,                // [B, T, Hq]
                  float* __restrict__ l_out,                // [B, T, Hq]
-                 int BH, int hkv, int G, int T, int max_chunks, int n_chunks, int li) {
+                 int BH, int hkv, int G, int T, int max_chunks, int n_chunks, int li,
+                 int seg_start, int window) {
   constexpr int K_ROWS = ROWS_OF<KB>;
   constexpr int V_ROWS = ROWS_OF<VB>;
   constexpr int ROWS = K_ROWS + V_ROWS;
@@ -322,12 +341,33 @@ q_segment_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, Hq, D]
     smem::bulk_copy(sb + L::RSC, scales + slot * 2 * D, 2 * D * 2, bar);
   };
 
+  // the sliding window: the chunks before c_first are dead for the CTA's
+  // oldest row and so for all its rows; a chunk at or below lo_last (the
+  // newest row's edge) holds a dead column for some row, masked per element
+  // by the edges lo_a, lo_b of this thread's rows gid and gid + 8
+  int c_first = 0, lo_last = -1, lo_a = -1, lo_b = -1;
+  if (window > 0) {
+    c_first = min(max(seg_start + row0 / G - window + 1, 0) / CHUNK, n_chunks);
+    lo_last = seg_start + (min(row0 + BLOCK_ROWS, QR) - 1) / G - window;
+    lo_a = seg_start + (row0 + 16 * warp + gid) / G - window;
+    lo_b = seg_start + (row0 + 16 * warp + gid + 8) / G - window;
+  }
+  // scores s (sub_scores' layout) of tokens tok0 .. tok0 + 63 of chunk ci
+  // at or below their row's edge set to -1e30
+  auto mask_edge = [&](float(&s)[32], int ci, int tok0) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = ci * CHUNK + tok0 + 8 * (i >> 2) + 2 * tig + (i & 1);
+      if (col <= ((i & 2) ? lo_b : lo_a)) s[i] = NEG;
+    }
+  };
+
   if (tid == 0) {
     smem::mbar_init(bar, 1);
     smem::fence_barrier_init();
   }
   __syncthreads();
-  if (tid == 0 && n_chunks > 0) issue(0);
+  if (tid == 0 && c_first < n_chunks) issue(c_first);
 
   // the CTA's q rows (zeros past QR), in the operand layout; thread tid
   // keeps the 16-byte chunk (tid % 16) of rows tid / 16 + 8 i, here and
@@ -346,8 +386,9 @@ q_segment_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, Hq, D]
   for (int i = 0; i < 64; ++i) o[i] = 0.f;
   float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;   // rows gid, gid + 8
 
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    smem::mbar_wait(bar, ci & 1);
+  for (int ci = c_first; ci < n_chunks; ++ci) {
+    smem::mbar_wait(bar, (ci - c_first) & 1);
+    const bool edge = ci * CHUNK <= lo_last;
 
     // ---- unpack the chunk: K [token][channel], V^T [channel][token] --------
     // K: 16 bytes (8 channels) of one row a thread, a field's 8 codes to one
@@ -403,6 +444,7 @@ q_segment_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, Hq, D]
     for (int tok0 = 0; tok0 < CHUNK; tok0 += SUB) {
       float s[32];
       sub_scores(sb, tok0, s);
+      if (edge) mask_edge(s, ci, tok0);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         mx0 = fmaxf(mx0, fmaxf(s[4 * nt], s[4 * nt + 1]));
@@ -421,6 +463,7 @@ q_segment_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, Hq, D]
     for (int tok0 = 0; tok0 < CHUNK; tok0 += SUB) {
       float s[32];
       sub_scores(sb, tok0, s);
+      if (edge) mask_edge(s, ci, tok0);
       uint32_t p[16];                // bf16(p) pairs: p[2 nt] row gid, p[2 nt + 1] row gid + 8
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
@@ -488,7 +531,7 @@ q_segment_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, Hq, D]
 template <int KB, int VB>
 int launch(const void* q, const void* pool, const void* scales, void* acc, void* m,
            void* l, int BH, int hkv, int G, int T, int max_chunks, int n_chunks,
-           int li, int device, cudaStream_t stream) {
+           int li, int seg_start, int window, int device, cudaStream_t stream) {
   const int smem = (int)Tail<ROWS_OF<KB> + ROWS_OF<VB>>::BYTES;
   const cudaError_t err =
       smem::allow_dynamic_smem<q_segment_kernel<KB, VB>>(smem, device);
@@ -498,7 +541,7 @@ int launch(const void* q, const void* pool, const void* scales, void* acc, void*
       static_cast<const __nv_bfloat16*>(q), static_cast<const int16_t*>(pool),
       static_cast<const __nv_bfloat16*>(scales), static_cast<float*>(acc),
       static_cast<float*>(m), static_cast<float*>(l), BH, hkv, G, T, max_chunks,
-      n_chunks, li);
+      n_chunks, li, seg_start, window);
   return (int)cudaGetLastError();
 }
 
@@ -509,25 +552,27 @@ int launch(const void* q, const void* pool, const void* scales, void* acc, void*
 // scales [L, mc, B*Hkv, 2, 128] bf16; acc [B, T, Hkv*G, 128] f32; m, l
 // [B, T, Hkv*G, 1] f32.  All contiguous and 16-byte aligned; shapes checked
 // by the caller.  `device` is the ordinal the tensors and the stream belong
-// to; BH = B * hkv.
+// to; BH = B * hkv.  `seg_start` the segment's first position; `window`
+// the sliding window, 0 for none.
 extern "C" int q_segment_attention(const void* q, const void* pool, const void* scales,
                                    void* acc, void* m, void* l, int device, int kbits,
                                    int vbits, int BH, int hkv, int G, int T,
-                                   int max_chunks, int n_chunks, int li, void* stream) {
+                                   int max_chunks, int n_chunks, int li, int seg_start,
+                                   int window, void* stream) {
   if (hkv < 1 || BH % hkv || G < 1 || T < 1 || n_chunks < 0 ||
-      n_chunks > max_chunks || li < 0)
+      n_chunks > max_chunks || li < 0 || seg_start < 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kbits == 8 && vbits == 8)
     return launch<8, 8>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks,
-                        n_chunks, li, device, s);
+                        n_chunks, li, seg_start, window, device, s);
   if (kbits == 8 && vbits == 4)
     return launch<8, 4>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks,
-                        n_chunks, li, device, s);
+                        n_chunks, li, seg_start, window, device, s);
   if (kbits == 4 && vbits == 4)
     return launch<4, 4>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks,
-                        n_chunks, li, device, s);
+                        n_chunks, li, seg_start, window, device, s);
   return (int)cudaErrorInvalidValue;
 }

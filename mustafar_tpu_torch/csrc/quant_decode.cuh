@@ -9,8 +9,14 @@
 // block writes its unnormalised partials to scratch (split_merge.cuh), or
 // nothing if its chunk or tile lies past the slot's counts, and
 // merge_kernel combines them.  With window probabilities asked for, a
-// window split also stores its raw scores (split_merge.cuh).  (The uniform entry, q_decode.cu, has its
-// own body, on decode_tile.cuh.)
+// window split also stores its raw scores (split_merge.cuh).  With a
+// sliding window (window > 0) a chunk split wholly at or below its slot's
+// edge (split_merge::window_low at the slot's counts) exits before it
+// reads anything, and the split that holds the edge scores its columns at
+// or below it -1e30 (never -inf: a step's max of -inf would give
+// -inf - -inf = NaN); the merge skips the dead splits (SlotLive).  The
+// window's own columns are never masked.  (The uniform entry, q_decode.cu,
+// has its own body, on decode_tile.cuh.)
 
 #pragma once
 
@@ -92,8 +98,9 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                    int hkv,
                    float* __restrict__ part,                 // split_merge layout
                    int n_splits,
-                   split_merge::SlotProbs sp) {              // window probabilities
+                   split_merge::SlotProbs sp,                // window probabilities
                                                              // (sp.out null: off)
+                   int window) {                             // sliding window, 0: none
   static_assert(G <= WARPS, "one warp per query head in the softmax step");
   constexpr int KF = Stream<KB>::FIELDS;
   constexpr int K_ROWS = Stream<KB>::ROWS;
@@ -114,9 +121,11 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   // this block's chunks [c0, c1) and window tokens [w0, w1)
   int c0 = 0, c1 = n_chunks, w0 = 0, w1 = win_len;
   const int split = (int)blockIdx.y;
+  const int low = split_merge::window_low(n_chunks, win_len, window);
   if (split < max_chunks) {
     c0 = split;
-    c1 = min(c0 + 1, n_chunks);
+    c1 = c0 < split_merge::first_live_chunk(n_chunks, win_len, window) ? c0
+                                                                        : min(c0 + 1, n_chunks);
     w1 = 0;
   } else {
     c1 = 0;
@@ -184,6 +193,11 @@ quant_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
       }
     }
     __syncthreads();
+    const int lowc = low - ci * CHUNK;   // the edge's split: columns 0 .. lowc masked
+    if (lowc >= 0) {
+      for (int i = tid; i < G * (lowc + 1); i += THREADS) sm.s[i / (lowc + 1)][i % (lowc + 1)] = NEG;
+      __syncthreads();
+    }
     softmax_step<G>(sm, CHUNK, warp, lane);
 
     const int16_t* vrows = rows + K_ROWS * D;

@@ -415,7 +415,12 @@ extern "C" int sp_decode(const void* q, const void* pool, const void* scales,
 // fused_sparse_decode_attention_v6ps (Pallas body _fused_v6ps_kernel) for
 // the codecs bitmap and bitmap-q8, with its window probabilities
 // (return_win_probs, split_merge.cuh: a third launch after the merge) and
-// its sliding window off.  It is sp_decode with the counts read per slot: the
+// its sliding window (window > 0: a slot's chunk splits wholly below its
+// edge exit unread, the edge's split masks its dead columns, the merge
+// reads the live splits; sp_decode.cuh, split_merge.cuh: at q_decode_ps.cu's
+// windowed slots 0.0688 ms against 0.0728 without the window at 16 bits,
+// NVIDIA H100 80GB HBM3, 700.00 W).  It is sp_decode
+// with the counts read per slot: the
 // G query heads of (b, kv head h) attend slot b's first n_chunks[b] pool
 // chunks and win_len[b] window tokens, taken from int32 device arrays, so
 // the continuous-batching decode step never syncs with the host to size
@@ -473,14 +478,14 @@ extern "C" int sp_decode(const void* q, const void* pool, const void* scales,
 // n_chunks[B], win_len[B] int32; `hkv` the kv heads per slot (BH = B*hkv);
 // scratch f32, `scratch_floats` of them, refused if fewer than
 // split_merge::scratch_floats(BH, G, n_splits), with n_splits = max_chunks +
-// ceil(W / wt).
+// ceil(W / wt); `window` the sliding window, 0 for none.
 extern "C" int sp_decode_ps(const void* q, const void* pool, const void* scales,
                             const void* k_win, const void* v_win, const void* n_chunks,
                             const void* win_len, void* out, void* probs, void* scratch,
                             int scratch_floats, int out_f32, int device, int qbits,
                             int BH, int hkv, int G,
                             int max_chunks, int W, int wt, int li, int k0, int k1,
-                            int vk0, int vk1, int n_splits, void* stream) {
+                            int vk0, int vk1, int n_splits, int window, void* stream) {
   if (n_chunks == nullptr || win_len == nullptr || scratch == nullptr || hkv < 1 ||
       BH % hkv || G < 1 || n_splits < 1 || scratch_floats < 0 || W < 0 ||
       (size_t)scratch_floats < split_merge::scratch_floats(BH, G, n_splits) +
@@ -491,5 +496,6 @@ extern "C" int sp_decode_ps(const void* q, const void* pool, const void* scales,
                                     v_win, out, out_f32, device, BH, G, max_chunks, W,
                                     wt, 0, 0, li, static_cast<const int*>(n_chunks),
                                     static_cast<const int*>(win_len), hkv,
-                                    static_cast<float*>(scratch), n_splits, probs, stream);
+                                    static_cast<float*>(scratch), n_splits, probs, window,
+                                    stream);
 }

@@ -12,7 +12,11 @@
 // unnormalised partials to scratch (split_merge.cuh), or nothing if its
 // chunk or tile lies past the slot's counts, and merge_kernel combines
 // them; with window probabilities asked for, a window split also stores
-// its raw scores (split_merge.cuh).  (The uniform entry sp_decode has its own body, on decode_tile.cuh.)
+// its raw scores (split_merge.cuh).  A sliding window (window > 0) as in
+// quant_decode.cuh: a chunk split wholly at or below its slot's edge exits
+// before it stages anything, the edge's split scores its dead columns
+// -1e30.  (The uniform entry sp_decode has its own body, on
+// decode_tile.cuh.)
 //
 // Layout of the work: one block of 8 warps per (b, kv head) and split, all
 // G query heads of the kv head in the block, so each packed byte is read
@@ -76,8 +80,9 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                  int hkv,
                  float* __restrict__ part,                 // split_merge layout
                  int n_splits,
-                 split_merge::SlotProbs sp) {              // window probabilities
+                 split_merge::SlotProbs sp,                // window probabilities
                                                            // (sp.out null: off)
+                 int window) {                             // sliding window, 0: none
   static_assert(G <= WARPS, "one warp per query head in the softmax step");
   // dynamic shared memory: Smem, then one or two buffers of one chunk's
   // stream (two where a block attends more than one chunk)
@@ -96,9 +101,11 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   // this block's chunks [c0, c1) and window tokens [w0, w1)
   int c0 = 0, c1 = n_chunks, w0 = 0, w1 = win_len;
   const int split = (int)blockIdx.y;
+  const int low = split_merge::window_low(n_chunks, win_len, window);
   if (split < max_chunks) {
     c0 = split;
-    c1 = min(c0 + 1, n_chunks);
+    c1 = c0 < split_merge::first_live_chunk(n_chunks, win_len, window) ? c0
+                                                                        : min(c0 + 1, n_chunks);
     w1 = 0;
   } else {
     c1 = 0;
@@ -187,6 +194,11 @@ sp_decode_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
       for (int j = 0; j < NR; ++j) score_row(QBITS == 8 ? qk : qr, v[j], t0 + j * WARPS);
     }
     __syncthreads();
+    const int lowc = low - ci * CHUNK;   // the edge's split: columns 0 .. lowc masked
+    if (lowc >= 0) {
+      for (int i = tid; i < G * (lowc + 1); i += THREADS) sm.s[i / (lowc + 1)][i % (lowc + 1)] = NEG;
+      __syncthreads();
+    }
     online_softmax::softmax_step<G>(sm, CHUNK, warp, lane);
 
     float pv[G][4];
@@ -279,8 +291,8 @@ int launch_decode(const void* q, const void* pool, const void* scales,
                   int device, int BH, int G, int max_chunks, int W, int wt,
                   int n_chunks, int win_len, int li, Fmt<QBITS> kf, Fmt<QBITS> vf,
                   const int* nc_slot, const int* wl_slot, int hkv, float* part,
-                  int n_splits, void* probs, void* stream) {
-  if (wt < 1 || wt > TILE || BH < 1 || max_chunks < 0 || W < 0 || li < 0 ||
+                  int n_splits, void* probs, int window, void* stream) {
+  if (wt < 1 || wt > TILE || BH < 1 || max_chunks < 0 || W < 0 || li < 0 || window < 0 ||
       (QBITS == 8) != (scales != nullptr))
     return (int)cudaErrorInvalidValue;
   if (part == nullptr || nc_slot == nullptr || n_splits != max_chunks + (W + wt - 1) / wt)
@@ -305,7 +317,7 @@ int launch_decode(const void* q, const void* pool, const void* scales,
         static_cast<const __nv_bfloat16*>(k_win),                             \
         static_cast<const __nv_bfloat16*>(v_win), out, out_f32, BH,           \
         max_chunks, W, wt, n_chunks, win_len, li, kf, vf, nc_slot, wl_slot,   \
-        hkv, part, n_splits, sp);                                             \
+        hkv, part, n_splits, sp, window);                                     \
   }
   switch (G) {
     case 1: SP_INSTANCE(1); break;
@@ -319,7 +331,7 @@ int launch_decode(const void* q, const void* pool, const void* scales,
   if (err != cudaSuccess) return (int)err;
   return (int)split_merge::launch_merge_probs(
       part, out, out_f32, BH, G, n_splits,
-      split_merge::SlotLive{nc_slot, wl_slot, hkv, max_chunks, W, wt}, s, sp);
+      split_merge::SlotLive{nc_slot, wl_slot, hkv, max_chunks, W, wt, window}, s, sp);
 }
 
 // The formats (k0, k1) and (vk0, vk1) at `qbits` bits, checked, and the
@@ -329,7 +341,7 @@ inline int launch_bits(int qbits, int k0, int k1, int vk0, int vk1, const void* 
                        const void* v_win, void* out, int out_f32, int device, int BH,
                        int G, int max_chunks, int W, int wt, int n_chunks,
                        int win_len, int li, const int* nc_slot, const int* wl_slot,
-                       int hkv, float* part, int n_splits, void* probs,
+                       int hkv, float* part, int n_splits, void* probs, int window,
                        void* stream) {
 #define SP_BITS(b)                                                                 \
   {                                                                                \
@@ -340,7 +352,7 @@ inline int launch_bits(int qbits, int k0, int k1, int vk0, int vk1, const void* 
     return launch_decode<b>(q, pool, scales, k_win, v_win, out, out_f32, device,  \
                             BH, G, max_chunks, W, wt, n_chunks, win_len, li, kf,  \
                             vf, nc_slot, wl_slot, hkv, part, n_splits, probs,     \
-                            stream);                                               \
+                            window, stream);                                       \
   }
   if (qbits == 16) SP_BITS(16);
   if (qbits == 8) SP_BITS(8);

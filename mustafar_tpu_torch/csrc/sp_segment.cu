@@ -4,7 +4,7 @@
 // Replaces the TPU kernel mustafar_tpu/ops/kernels/sparse_attention.py
 // fused_sparse_segment_attention (Pallas body _fused_seg_kernel) for the
 // codecs bitmap (bf16 values, 16 bits) and bitmap-q8 (int8 codes with
-// per-channel scales, 8 bits), without its sliding-window option.  For one
+// per-channel scales, 8 bits), with its sliding window.  For one
 // layer `li` of the stacked cache and each (batch row b, kv head h) it
 // attends the QR = T*G query rows of that kv head (segment token t, query
 // head h*G + g; row t*G + g) over the first `n_chunks` packed pool chunks
@@ -23,6 +23,20 @@
 // partials.  The TPU fetches chunks `fdepth` at a time and masks the ones
 // at or past n_chunks in the last fetch; those steps are exactly zero, so
 // here they are skipped, and no pool chunk at or past n_chunks is read.
+//
+// The sliding window (window > 0), the TPU's rule: query row t*G + g sits
+// at position seg_start + t and sees the pool columns past seg_start + t -
+// window.  The CTAs of a cluster share each chunk's expansion, so a
+// cluster leaves out the chunks dead for its oldest row (and so for all
+// its rows): none of its CTAs copies or expands them.  A warp whose rows'
+// edges cut a chunk masks those scores per element, in both passes, to
+// -1e30 (never -inf).  A row with no live column keeps m = -1e30 and
+// finite l and acc, which the merge weighs 0 (q_segment.cu's note).  The
+// mask costs the 8-bit instance its register budget: 255 registers and 52
+// bytes spilled (177 without it; every form of the mask tried spilled).
+// At q_segment.cu's windowed shape 0.314 ms against 0.598 without the
+// window at 16 bits, 0.307 against 0.582 at 8 (NVIDIA H100 80GB HBM3,
+// 700.00 W; chip_smoke.py kernel_sp_seg, _q8).
 //
 // What bounds it on this card: operations.  A segment of a layer does
 // 4 * B*Hkv * QR * n_chunks * 256 * 128 multiply-adds' worth of operations
@@ -207,7 +221,7 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
                   float* __restrict__ m_out,             // [B, T, Hq]
                   float* __restrict__ l_out,             // [B, T, Hq]
                   int BH, int hkv, int G, int T, int max_chunks, int n_chunks,
-                  int li, Fmt<QBITS> kf, Fmt<QBITS> vf) {
+                  int li, int seg_start, int window, Fmt<QBITS> kf, Fmt<QBITS> vf) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<QBITS>& sm = *reinterpret_cast<Smem<QBITS>*>(smem_raw);
   int16_t* stage = reinterpret_cast<int16_t*>(smem_raw + sizeof(Smem<QBITS>));
@@ -265,6 +279,30 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
     }
   }
 
+  // the sliding window: the chunks before c_first are dead for the
+  // cluster's oldest row (its first tile's first); a chunk at or below
+  // lo_w (the warp's newest row's edge) holds a dead column for some of
+  // the warp's rows, masked by the edges lo_a, lo_b of rows gid, gid + 8
+  int c_first = 0, lo_w = -1, lo_a = -1, lo_b = -1;
+  if (window > 0) {
+    const int crow0 = (int)(blockIdx.x - rank) * BLOCK_ROWS;
+    c_first = min(max(seg_start + crow0 / G - window + 1, 0) / CHUNK, n_chunks);
+    lo_w = seg_start + (row0 + wr + 15) / G - window;
+    lo_a = seg_start + (row0 + wr + gid) / G - window;
+    lo_b = seg_start + (row0 + wr + gid + 8) / G - window;
+  }
+  // scores s (sub_scores' layout) of tokens tok0 .. tok0 + 63 of chunk ci
+  // at or below their row's edge set to -1e30
+  auto mask_edge = [&](float (&s)[8][4], int ci, int tok0) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = ci * CHUNK + tok0 + 8 * nt + 2 * tig + (e & 1);
+        if (col <= (e >= 2 ? lo_b : lo_a)) s[nt][e] = NEG;
+      }
+  };
+
   float o[16][4];                    // acc, d = 8 nt + 2 tig (+1)
 #pragma unroll
   for (int nt = 0; nt < 16; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
@@ -274,11 +312,11 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
   auto chunk = [&](int ci) {
     return pool + (((size_t)li * max_chunks + ci) * BH + bh) * rows * D;
   };
-  if (n_chunks > 0) bitmap::stage_rows_async(stage, chunk(0), rows, tid, THREADS);
-  for (int ci = 0; ci < n_chunks; ++ci) {
+  if (c_first < n_chunks) bitmap::stage_rows_async(stage, chunk(c_first), rows, tid, THREADS);
+  for (int ci = c_first; ci < n_chunks; ++ci) {
     bitmap::cp_async_wait<0>();
     // chunk ci staged in every CTA; every CTA's tiles free (the last
-    // chunk's passes done), and at ci = 0 every CTA of the cluster running
+    // chunk's passes done), and at the first every CTA of the cluster running
     cluster.sync();
     expand_share(stage, kf, sm.k, cluster, csize, rank, warp, lane);
     expand_share(stage + (size_t)kf.rows() * D, vf, sm.v, cluster, csize, rank, warp, lane);
@@ -296,6 +334,7 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
     if (ci + 1 < n_chunks)
       bitmap::stage_rows_async(stage, chunk(ci + 1), rows, tid, THREADS);
     if (!computes) continue;
+    const bool edge = ci * CHUNK <= lo_w;
     if constexpr (QBITS == 8) {      // scale_q: this chunk's bf16(q * kscale)
       const __nv_bfloat16* q0 = &sm.q[wr + gid][0];
       const __nv_bfloat16* q1 = &sm.q[wr + gid + 8][0];
@@ -315,6 +354,7 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
     for (int tok0 = 0; tok0 < CHUNK; tok0 += SUB) {
       float s[8][4];
       sub_scores(sm, qa, lane, tok0, s);
+      if (edge) mask_edge(s, ci, tok0);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
@@ -339,6 +379,7 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
     for (int tok0 = 0; tok0 < CHUNK; tok0 += SUB) {
       float s[8][4];
       sub_scores(sm, qa, lane, tok0, s);
+      if (edge) mask_edge(s, ci, tok0);
       uint32_t p[8][2];              // bf16(p) pairs: row gid, row gid + 8
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
@@ -419,8 +460,8 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
 template <int QBITS>
 cudaError_t launch(const void* q, const void* pool, const void* scales, void* acc, void* m,
                    void* l, int BH, int hkv, int G, int T, int max_chunks, int n_chunks,
-                   int li, int k0, int k1, int vk0, int vk1, int cluster, int tiles,
-                   int device, cudaStream_t stream) {
+                   int li, int seg_start, int window, int k0, int k1, int vk0, int vk1,
+                   int cluster, int tiles, int device, cudaStream_t stream) {
   bool k_ok, v_ok;
   const Fmt<QBITS> kf = bitmap::make_fmt<QBITS>(k0, k1, &k_ok);
   const Fmt<QBITS> vf = bitmap::make_fmt<QBITS>(vk0, vk1, &v_ok);
@@ -446,7 +487,7 @@ cudaError_t launch(const void* q, const void* pool, const void* scales, void* ac
                            static_cast<const __nv_bfloat16*>(scales),
                            static_cast<float*>(acc), static_cast<float*>(m),
                            static_cast<float*>(l), BH, hkv, G, T, max_chunks, n_chunks, li,
-                           kf, vf);
+                           seg_start, window, kf, vf);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -488,14 +529,17 @@ cudaError_t max_clusters(int k0, int k1, int vk0, int vk1, int cluster, int devi
 // (vk0, vk1) the K and V streams' segment widths (k1 = 0: one segment);
 // `tiles` row tiles of 128 query rows a kv head in clusters of `cluster`
 // (1, 2, 4 or 8; `tiles` a multiple of it), covering the T*G rows with no
-// cluster wholly past them.  A cluster launch the card refuses returns its
-// error.
+// cluster wholly past them.  `seg_start` the segment's first position;
+// `window` the sliding window, 0 for none.  A cluster launch the card
+// refuses returns its error.
 extern "C" int sp_segment(const void* q, const void* pool, const void* scales, void* acc,
                           void* m, void* l, int device, int qbits, int BH, int hkv, int G,
-                          int T, int max_chunks, int n_chunks, int li, int k0, int k1,
-                          int vk0, int vk1, int cluster, int tiles, void* stream) {
+                          int T, int max_chunks, int n_chunks, int li, int seg_start,
+                          int window, int k0, int k1, int vk0, int vk1, int cluster,
+                          int tiles, void* stream) {
   if (hkv < 1 || BH % hkv || G < 1 || T < 1 || n_chunks < 0 ||
-      n_chunks > max_chunks || li < 0 || cluster < 1 || cluster > MAX_CLUSTER ||
+      n_chunks > max_chunks || li < 0 || seg_start < 0 || window < 0 || cluster < 1 ||
+      cluster > MAX_CLUSTER ||
       (cluster & (cluster - 1)) || tiles < cluster || tiles % cluster ||
       (long long)tiles * BLOCK_ROWS < (long long)T * G ||
       (long long)(tiles - cluster) * BLOCK_ROWS >= (long long)T * G)
@@ -505,10 +549,10 @@ extern "C" int sp_segment(const void* q, const void* pool, const void* scales, v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (qbits == 16)
     err = launch<16>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks, n_chunks, li,
-                     k0, k1, vk0, vk1, cluster, tiles, device, s);
+                     seg_start, window, k0, k1, vk0, vk1, cluster, tiles, device, s);
   else if (qbits == 8)
     err = launch<8>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks, n_chunks, li,
-                    k0, k1, vk0, vk1, cluster, tiles, device, s);
+                    seg_start, window, k0, k1, vk0, vk1, cluster, tiles, device, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

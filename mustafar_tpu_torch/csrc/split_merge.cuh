@@ -10,7 +10,7 @@
 // and the scratch is not initialised (the wrappers keep one buffer from
 // call to call), so merge_kernel reads only the splits its row attends:
 // the caller's Live functor names them as two runs of split indices,
-// [0, a) and [c, c + n).  For each (bh, g) it combines them in split
+// [f, a) and [c, c + n).  For each (bh, g) it combines them in split
 // order as ops/attention.py merge_partials does:
 //   M = max_s m_s,  w_s = exp(m_s - M),
 //   out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30)
@@ -47,6 +47,7 @@
 namespace split_merge {
 
 constexpr int D = 128;
+constexpr int CHUNK = 256;         // tokens of a pool chunk (the per-slot kernels' chunk split)
 constexpr float NEG = -1e30f;
 constexpr int MAX_SPLITS = 4096;   // 32 KB of m and l in shared memory
 
@@ -70,10 +71,11 @@ merge_kernel(const float* __restrict__ part, void* __restrict__ out, int out_f32
   const int bh = blockIdx.x;
   const int g = blockIdx.y;
   const int d = threadIdx.x;
-  int a, c, n;
-  live(bh, a, c, n);
-  const int n_live = a + n;
-  auto split = [&](int i) { return i < a ? i : c + i - a; };
+  int f, a, c, n;
+  live(bh, f, a, c, n);
+  const int n_first = a - f;
+  const int n_live = n_first + n;
+  auto split = [&](int i) { return i < n_first ? f + i : c + i - n_first; };
 
   float mx = NEG;
   for (int i = d; i < n_live; i += D) {
@@ -142,20 +144,38 @@ __device__ __forceinline__ void store_win_scores(const float (&s)[G][TS], const 
   }
 }
 
+// The sliding window of the per-slot decode kernels (the TPU kernels'
+// rule): a slot at n_chunks chunks and win_len window tokens decodes the
+// token at n_chunks * CHUNK + win_len - 1, and its pool column c is live
+// iff c > window_low (-1: nothing masked; window 0 is no window).  The
+// window's own columns are never masked: the cache keeps the sliding
+// window at least the window's capacity.
+__host__ __device__ inline int window_low(int n_chunks, int win_len, int window) {
+  return window > 0 ? max(n_chunks * CHUNK + win_len - 1 - window, -1) : -1;
+}
+
+// The first chunk with a live column: the chunks before it lie wholly at or
+// below the window's edge, and their splits exit before they read anything.
+__host__ __device__ inline int first_live_chunk(int n_chunks, int win_len, int window) {
+  return min(n_chunks, (window_low(n_chunks, win_len, window) + 1) / CHUNK);
+}
+
 // Which splits row bh of a per-slot call attends, for the per-slot decode
 // kernels (one split a pool chunk, then one a window tile of `wt` tokens):
-// the chunk splits [0, n_chunks) and the window splits
+// the chunk splits [first_live_chunk, n_chunks) and the window splits
 // [mc, mc + ceil(win_len / wt)), the slot's counts clamped as the kernels
-// clamp them.
+// clamp them (`window` 0: no sliding window, every chunk split live).
 struct SlotLive {
   const int* nc_slot;
   const int* wl_slot;
-  int hkv, max_chunks, W, wt;
-  __device__ void operator()(int bh, int& a, int& c, int& n) const {
+  int hkv, max_chunks, W, wt, window;
+  __device__ void operator()(int bh, int& f, int& a, int& c, int& n) const {
     const int b = bh / hkv;
     a = min(max(nc_slot[b], 0), max_chunks);
+    const int wl = win_len(bh);
+    f = first_live_chunk(a, wl, window);
     c = max_chunks;
-    n = (win_len(bh) + wt - 1) / wt;
+    n = (wl + wt - 1) / wt;
   }
   // row bh's window tokens, clamped
   __device__ int win_len(int bh) const { return min(max(wl_slot[bh / hkv], 0), W); }

@@ -6,8 +6,7 @@ Ports of ``mustafar_tpu/ops/kernels/quant_attention.py`` for the codecs q8
 256-token chunks, with the options the output-aware (Opa) policies read:
 the decode kernels' window probabilities (``return_win_probs``) and the
 uniform decode's final softmax stats (``return_norm``), and Mistral's
-sliding window (``window``) in the uniform decode (the per-slot and segment
-kernels refuse it: ROADMAP Queue A item 14's second slice):
+sliding window (``window``) in every kernel:
   fused_q_decode_attention     uniform-batch decode   csrc/q_decode.cu
                                (one CTA a split, the merge fused)
   fused_q_decode_attention_ps  per-slot decode        csrc/q_decode_ps.cu
@@ -28,14 +27,19 @@ the TPU's (one running softmax over the same steps; the CPU path).
 The sliding window (the TPU kernels' rule): a call at ``n_chunks`` chunks
 and ``win_len`` window tokens decodes the token at position n_chunks * 256
 + win_len - 1, and pool column c is live iff c > low = n_chunks * 256 +
-win_len - 1 - window (``window_low``).  The dense window's columns are never
-masked: the cache keeps the window at least its capacity.  The TPU runs
-every chunk and masks scores to -1e30 (``decode_steps``: a chunk wholly
-masked is wiped by the next live step's correction exp(-1e30 - m) = 0).
-The CUDA kernel's grid leaves out the steps wholly at or below low
-(``uniform_splits``): it reads none of their bytes, launches no CTA for
-them, and masks only the columns of the step that holds the edge; its split
-plain version takes the same steps.
+win_len - 1 - window (``window_low``; per slot, each slot at its own
+counts).  The dense window's columns are never masked: the cache keeps the
+window at least its capacity.  The TPU runs every chunk and masks scores
+to -1e30 (``decode_steps``: a chunk wholly masked is wiped by the next live
+step's correction exp(-1e30 - m) = 0).  The CUDA kernels leave out the
+steps wholly at or below low: the uniform kernel's grid has no CTA for
+them (``uniform_splits``), a per-slot split below its slot's edge exits
+before it reads anything and the merge skips it; only the columns of the
+step that holds the edge are masked.  Their split plain versions take the
+same steps.  A segment (chunked prefill) query row of token t sits at
+position seg_start + t and sees the pool columns past seg_start + t -
+window (``segment_steps``), so the edge moves along the segment's rows;
+the CUDA kernel leaves out the chunks dead for the oldest row it holds.
 
 Layouts are the JAX package's stacked ones, indexed at layer ``li``:
   q          [B, 1, Hq, 128]              bf16 or f32 (read as bf16)
@@ -72,15 +76,6 @@ def _check_codec(codec, name):
         raise NotImplementedError(
             f"{name} serves the codecs q8, q8q4 and q4q4 with 256-token chunks, "
             f"got {codec!r}")
-
-
-def refuse_window(window, name):
-    """The per-slot and segment kernels take no sliding window yet."""
-    if window is not None:
-        raise NotImplementedError(
-            f"{name}: the sliding window of the per-slot decode and segment kernels "
-            f"(and so of the engine and chunked prefill over the compressed cache) "
-            f"is the next slice of ROADMAP Queue A item 14")
 
 
 def check_window(window):
@@ -321,9 +316,9 @@ def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_w
     from a fresh state, merged in split order (``merge_partials``); the
     window's scores summed in the kernels' order with ``ordered``
     (``_scores``; the chunk step takes its own).  With a sliding ``window``
-    (the uniform kernels' option) the runs wholly at or below the window's
-    lower edge take no step (``masked_steps``) and the run that holds it
-    scores its masked columns -1e30.  A slot with nothing to
+    the runs wholly at or below the slot's lower edge (``window_low`` at
+    its own counts) take no step (``masked_steps``) and the run that holds
+    it scores its masked columns -1e30.  A slot with nothing to
     attend comes out 0.  Out is f32 -> q's dtype; with ``norm`` also the
     merge's final (m, l) [B, Hkv, G, 1] (l unclamped; m = -1e30, l = 0 for
     a slot with nothing to attend), with ``win_probs`` the window
@@ -370,13 +365,39 @@ def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_w
                         torch.cat(probs), norm, win_probs)
 
 
-def segment_steps(q_seg, BH: int, n_chunks: int, chunk_step):
+def segment_row_lows(T: int, G: int, seg_start: int, window, device=None):
+    """The newest pool column a sliding ``window`` masks for each of a kv
+    head's T*G segment query rows (row t*G + g sits at position seg_start +
+    t and sees the columns past seg_start + t - window) -> [T*G] int64, or
+    None without a window."""
+    if window is None:
+        return None
+    t = torch.arange(T * G, device=device) // G
+    return seg_start + t - window
+
+
+def segment_first_chunk(seg_start: int, t_first: int, window, n_chunks: int) -> int:
+    """The first pool chunk with a live column for segment token ``t_first``
+    (and so for every later token): the chunks before it are dead for all
+    of them, and a segment kernel's CTA (or cluster) whose oldest token is
+    ``t_first`` leaves them out."""
+    if window is None:
+        return 0
+    return min(max(seg_start + t_first - window + 1, 0) // 256, n_chunks)
+
+
+def segment_steps(q_seg, BH: int, n_chunks: int, chunk_step, seg_start: int = 0,
+                  window=None):
     """The segment kernels' steps, shared by every codec's plain version:
     every query row (token t, head of kv head h; row t*G + g) attends the
     first ``n_chunks`` pool chunks of its (b, h), one online-softmax step a
-    chunk (``chunk_step`` as in ``decode_steps``), p rounded to bf16.
+    chunk (``chunk_step`` as in ``decode_steps``), p rounded to bf16; with a
+    sliding ``window`` the row's columns at or below seg_start + t - window
+    scored -1e30 (``segment_row_lows``), every chunk run, as on the TPU.
     Returns the unnormalised partials (acc [B,T,Hq,D] f32, m [B,T,Hq,1],
-    l [B,T,Hq,1]); with no chunk, m = -1e30, l = 0."""
+    l [B,T,Hq,1]); with no chunk, m = -1e30, l = 0.  A row with no live
+    column keeps m = -1e30 (its l and acc are finite sums over masked
+    columns, which ``merge_partials`` weighs 0 beside a live partial)."""
     B, T, Hq, D = q_seg.shape
     Hkv = BH // B
     G = Hq // Hkv
@@ -386,8 +407,13 @@ def segment_steps(q_seg, BH: int, n_chunks: int, chunk_step):
     m = torch.full((BH, T * G, 1), NEG_INF, dtype=f32, device=q_seg.device)
     l = torch.zeros((BH, T * G, 1), dtype=f32, device=q_seg.device)
     acc = torch.zeros((BH, T * G, D), dtype=f32, device=q_seg.device)
+    lows = segment_row_lows(T, G, seg_start, window, q_seg.device)
     for ci in range(n_chunks):
-        m, l, acc = _softmax_step(m, l, acc, *chunk_step(qf32, ci))
+        sc, vc, vs = chunk_step(qf32, ci)
+        if lows is not None and ci * 256 <= int(lows.max()):
+            cols = ci * 256 + torch.arange(256, device=q_seg.device)
+            sc = sc.masked_fill(cols[None, :] <= lows[:, None], NEG_INF)
+        m, l, acc = _softmax_step(m, l, acc, sc, vc, vs)
 
     def unfold(x):
         return (x.reshape(B, Hkv, T, G, x.shape[-1]).permute(0, 2, 1, 3, 4)
@@ -623,8 +649,8 @@ def per_slot_plain(uniform, q, BH: int, n_chunks, win_len, mc: int, W: int,
                    win_probs: bool):
     """A per-slot plain version from the uniform one: ``uniform(b, hs, nc,
     wl)`` runs slot b (its kv heads ``hs``) at its own clamped counts
-    (``slots``) with ``win_probs``; the slots' outputs (and window
-    probabilities) concatenated."""
+    (``slots``) with ``win_probs`` (and a sliding window's edge at those
+    counts); the slots' outputs (and window probabilities) concatenated."""
     res = [uniform(b, hs, nc, wl) for b, hs, nc, wl in
            slots(q.shape[0], BH, n_chunks, win_len, mc, W)]
     if not win_probs:
@@ -634,33 +660,37 @@ def per_slot_plain(uniform, q, BH: int, n_chunks, win_len, mc: int, W: int,
 
 def fused_q_decode_attention_ps_plain(q, kv_pool, kv_scales, k_win, v_win,
                                       n_chunks, win_len, li: int,
-                                      codec: qf.QuantCodec, win_probs: bool = False):
+                                      codec: qf.QuantCodec, win_probs: bool = False,
+                                      window=None):
     """The per-slot kernel's arithmetic: slot b is the uniform computation
     over its own ``n_chunks[b]`` chunks and ``win_len[b]`` window tokens
-    (clamped, ``slots``).  (The TPU kernel loops a block of heads to the
-    largest counts among them; the extra steps are fully masked and add
-    exactly zero to a head with something to attend, so looping over a
-    slot's own counts is the same.)  A slot with nothing to attend comes
-    out 0, and so do its window probabilities (``win_probs``)."""
+    (clamped, ``slots``), with a sliding ``window``'s edge at those counts.
+    (The TPU kernel loops a block of heads to the largest counts among
+    them; the extra steps are fully masked and add exactly zero to a head
+    with something to attend, so looping over a slot's own counts is the
+    same.)  A slot with nothing to attend comes out 0, and so do its window
+    probabilities (``win_probs``)."""
     return per_slot_plain(
         lambda b, hs, nc, wl: fused_q_decode_attention_plain(
             q[b:b + 1], kv_pool[:, :, hs], kv_scales[:, :, hs], k_win[:, hs],
-            v_win[:, hs], nc, wl, li, codec, win_probs),
+            v_win[:, hs], nc, wl, li, codec, win_probs, window=window),
         q, kv_pool.shape[2], n_chunks, win_len, kv_pool.shape[1], k_win.shape[2],
         win_probs)
 
 
 def fused_q_decode_attention_ps_split_plain(q, kv_pool, kv_scales, k_win, v_win,
                                             n_chunks, win_len, li: int,
-                                            codec: qf.QuantCodec, win_probs: bool = False):
+                                            codec: qf.QuantCodec, win_probs: bool = False,
+                                            window=None):
     """The per-slot CUDA kernel's arithmetic (``ps_split_steps`` with the
-    codec's chunk step): each chunk and each window tile of a slot one
-    split from a fresh softmax state, merged in split order; with
-    ``win_probs`` also the window probabilities on the merge's stats."""
+    codec's chunk step): each chunk (past its slot's window edge) and each
+    window tile of a slot one split from a fresh softmax state, merged in
+    split order; with ``win_probs`` also the window probabilities on the
+    merge's stats."""
     return ps_split_steps(
         q, kv_pool.shape[2], n_chunks, win_len, kv_pool.shape[1],
         lambda hs: _q_chunk_step(kv_pool[:, :, hs], kv_scales[:, :, hs], li, codec),
-        k_win, v_win, li, win_probs=win_probs)
+        k_win, v_win, li, win_probs=win_probs, window=window)
 
 
 def per_slot_probs_scratch(BH: int, G: int, W: int, want: bool) -> int:
@@ -682,20 +712,23 @@ def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
     kernel reads its own slot's counts, so a decode step never syncs with
     the host to size itself.  Counts it cannot check without a sync are
     clamped in the kernel to [0, mc] and [0, W]; an idle slot is passed as
-    (0, 0) and comes out 0.  With ``return_win_probs`` also the window
-    probabilities [B, Hkv, W] f32 (``fused_q_decode_attention``), each slot's
-    zero at and past its own ``win_len``, an idle slot's all zero.
+    (0, 0) and comes out 0.  With a sliding ``window`` (an int >= 1) slot b
+    attends only the pool columns past its own ``window_low`` (module
+    note).  With ``return_win_probs`` also the window probabilities [B,
+    Hkv, W] f32 (``fused_q_decode_attention``), each slot's zero at and
+    past its own ``win_len``, an idle slot's all zero.
 
     CUDA tensors launch the kernels of ``csrc/q_decode_ps.cu`` (built at
     first use: the split kernel, then its merge, then with
     ``return_win_probs`` the probabilities from the merge's stats) on the
     current stream, with the stream's split scratch (``_split_scratch``;
-    the window scores and stats after the partials); CPU tensors run the
-    plain version.  A CUDA request the kernel cannot serve raises; nothing
-    falls back."""
-    refuse_window(window, "fused_q_decode_attention_ps")
+    the window scores and stats after the partials); the grid is sized from
+    mc and W, and a split below its slot's window edge exits unread.  CPU
+    tensors run the plain version.  A CUDA request the kernel cannot serve
+    raises; nothing falls back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec,
                                  "fused_q_decode_attention_ps")
+    check_window(window)
     B = q.shape[0]
     for name, t in (("n_chunks", n_chunks), ("win_len", win_len)):
         if not torch.is_tensor(t) or tuple(t.shape) != (B,):
@@ -705,13 +738,13 @@ def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
     if q.device.type == "cpu":
         return fused_q_decode_attention_ps_plain(q, kv_pool, kv_scales, k_win, v_win,
                                                  n_chunks, win_len, li, codec,
-                                                 return_win_probs)
+                                                 return_win_probs, window)
     n_splits = ps_splits(mc, W)
     split_scratch_floats(BH, n_splits, G)        # a grid too large: refused up front
     stream = _stream(q)
     _check_aligned((("q", q), ("kv_pool", kv_pool), ("kv_scales", kv_scales),
                     ("k_win", k_win), ("v_win", v_win)))
-    fn = _library("q_decode_ps", "q_decode_attention_ps", 10, 13)
+    fn = _library("q_decode_ps", "q_decode_attention_ps", 10, 14)
     out = torch.empty_like(q)
     probs = win_probs_out(q, BH, W, return_win_probs, n_splits)
     qb = q.to(torch.bfloat16)
@@ -722,7 +755,7 @@ def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
             win_len.data_ptr(), out.data_ptr(), _ptr(probs), scratch.data_ptr(),
             scratch.numel(), int(out.dtype == torch.float32), q.device.index or 0,
             codec.kbits, codec.vbits, BH, BH // B, G, mc, W, window_tile(W), li, n_splits,
-            stream)
+            window or 0, stream)
     if rc != 0:
         raise RuntimeError(f"q_decode_attention_ps launch failed: CUDA error {rc}")
     fused_q_decode_attention_ps.launches += 1
@@ -737,12 +770,13 @@ fused_q_decode_attention_ps.launches = 0
 # ---------------------------------------------------------------------------
 
 def fused_q_segment_attention_plain(q_seg, kv_pool, kv_scales, n_chunks: int,
-                                    li: int, codec: qf.QuantCodec):
+                                    li: int, codec: qf.QuantCodec, seg_start: int = 0,
+                                    window=None):
     """The segment kernel's arithmetic (``segment_steps`` with the codec's
     chunk step: scores bf16(bf16(q) * kscale) . codes / sqrt(128), the V
     scale after the value product)."""
     return segment_steps(q_seg, kv_pool.shape[2], n_chunks,
-                         _q_chunk_step(kv_pool, kv_scales, li, codec))
+                         _q_chunk_step(kv_pool, kv_scales, li, codec), seg_start, window)
 
 
 def fused_q_segment_attention(q_seg, kv_pool, kv_scales, n_chunks: int,
@@ -754,13 +788,18 @@ def fused_q_segment_attention(q_seg, kv_pool, kv_scales, n_chunks: int,
     the window and causal-self partials.  ``n_chunks`` is uniform across the
     batch and known on the host (chunked prefill advances every row in
     lockstep); ``seg_start`` is the segment's first position, at or past
-    the packed chunks.
+    the packed chunks.  With a sliding ``window`` (an int >= 1) the row of
+    token t sees only the pool columns past seg_start + t - window
+    (``segment_steps``); a row with none comes out with m = -1e30 and
+    finite l and acc, weighed 0 by the merge.
 
     CUDA tensors launch the kernel of ``csrc/q_segment.cu`` (built at first
-    use) on the current stream; CPU tensors run the plain version.  A CUDA
-    request the kernel cannot serve raises; nothing falls back."""
-    refuse_window(window, "fused_q_segment_attention")
+    use) on the current stream, whose CTAs leave out the chunks dead for
+    their oldest row (``segment_first_chunk``); CPU tensors run the plain
+    version.  A CUDA request the kernel cannot serve raises; nothing falls
+    back."""
     _check_codec(codec, "fused_q_segment_attention")
+    check_window(window)
     if q_seg.dim() != 4 or q_seg.shape[3] != 128 or q_seg.shape[1] < 1:
         raise ValueError(f"q_seg must be [B, Tseg, Hq, 128], got {tuple(q_seg.shape)}")
     B, T, Hq, _ = q_seg.shape
@@ -777,10 +816,10 @@ def fused_q_segment_attention(q_seg, kv_pool, kv_scales, n_chunks: int,
                          f"packed chunks, got {seg_start!r}")
     if q_seg.device.type == "cpu":
         return fused_q_segment_attention_plain(q_seg, kv_pool, kv_scales,
-                                               n_chunks, li, codec)
+                                               n_chunks, li, codec, seg_start, window)
     stream = _stream(q_seg)
     _check_aligned((("q_seg", q_seg), ("kv_pool", kv_pool), ("kv_scales", kv_scales)))
-    fn = _library("q_segment", "q_segment_attention", 6, 10)
+    fn = _library("q_segment", "q_segment_attention", 6, 12)
     dev = q_seg.device
     acc = torch.empty((B, T, Hq, 128), dtype=torch.float32, device=dev)
     m = torch.empty((B, T, Hq, 1), dtype=torch.float32, device=dev)
@@ -788,7 +827,8 @@ def fused_q_segment_attention(q_seg, kv_pool, kv_scales, n_chunks: int,
     qb = q_seg.to(torch.bfloat16)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
             acc.data_ptr(), m.data_ptr(), l.data_ptr(), dev.index or 0, codec.kbits,
-            codec.vbits, BH, Hkv, Hq // Hkv, T, mc, n_chunks, li, stream)
+            codec.vbits, BH, Hkv, Hq // Hkv, T, mc, n_chunks, li, seg_start, window or 0,
+            stream)
     if rc != 0:
         raise RuntimeError(f"q_segment_attention launch failed: CUDA error {rc}")
     fused_q_segment_attention.launches += 1

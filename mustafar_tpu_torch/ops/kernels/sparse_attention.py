@@ -7,9 +7,8 @@ and "bitmap-q8" (int8 codes with per-channel scales, ``qbits=8``), with the
 options the output-aware (Opa) policies read, as the quant kernels take
 them (``quant_attention``): the decode kernels' window probabilities
 (``return_win_probs``) and the uniform decode's final (m, l)
-(``return_norm``), and the uniform decode's sliding window (``window``, the
-quant kernels' rule, ``quant_attention`` module note; the per-slot and
-segment kernels refuse it):
+(``return_norm``), and the sliding window (``window``) of every kernel, the
+quant kernels' rule (``quant_attention`` module note):
   fused_sparse_decode_attention     uniform-batch decode  csrc/sp_decode.cu
                                     (TPU kernel v7)       (entry sp_decode: one
                                                           CTA a split, the
@@ -38,7 +37,9 @@ uniform kernel splits likewise, each chunk into ``CHUNK_CUT`` runs of 64
 tokens: ``fused_sparse_decode_attention_split_plain`` is its arithmetic,
 ``fused_sparse_decode_attention_plain`` the TPU's.  With a sliding window
 its grid leaves out the runs of 64 tokens wholly at or below the window's
-lower edge, so the edge falls inside at most one run a row.
+lower edge, so the edge falls inside at most one run a row; the per-slot
+kernel's chunk splits below a slot's edge exit unread, and the segment
+kernel's clusters leave out the chunks dead for their oldest row.
 
 Layouts are the JAX package's stacked ones, indexed at layer ``li``:
   q           [B, 1, Hq, 128]              bf16 or f32 (read as bf16)
@@ -242,9 +243,11 @@ fused_sparse_decode_attention.launches = 0
 
 def fused_sparse_decode_attention_ps_plain(q, kv_pool, k_win, v_win, n_chunks,
                                            win_len, li: int, kfmt, vfmt,
-                                           kv_scales=None, win_probs: bool = False):
+                                           kv_scales=None, win_probs: bool = False,
+                                           window=None):
     """The per-slot kernel's arithmetic: slot b is the uniform computation
-    over its own clamped counts (``quant_attention.slots``).  The TPU
+    over its own clamped counts (``quant_attention.slots``), with a sliding
+    ``window``'s edge at those counts.  The TPU
     kernel loops a block of 16 heads to the largest counts among them and
     masks each head's columns; those steps add exactly zero to a head with
     something to attend, so looping over a slot's own counts is the same.
@@ -253,7 +256,8 @@ def fused_sparse_decode_attention_ps_plain(q, kv_pool, k_win, v_win, n_chunks,
     return qa.per_slot_plain(
         lambda b, hs, nc, wl: fused_sparse_decode_attention_plain(
             q[b:b + 1], kv_pool[:, :, hs], k_win[:, hs], v_win[:, hs], nc, wl, li,
-            kfmt, vfmt, None if kv_scales is None else kv_scales[:, :, hs], win_probs),
+            kfmt, vfmt, None if kv_scales is None else kv_scales[:, :, hs], win_probs,
+            window=window),
         q, kv_pool.shape[2], n_chunks, win_len, kv_pool.shape[1], k_win.shape[2],
         win_probs)
 
@@ -263,16 +267,18 @@ ps_splits = qa.ps_splits
 
 def fused_sparse_decode_attention_ps_split_plain(q, kv_pool, k_win, v_win, n_chunks,
                                                  win_len, li: int, kfmt, vfmt,
-                                                 kv_scales=None, win_probs: bool = False):
+                                                 kv_scales=None, win_probs: bool = False,
+                                                 window=None):
     """The per-slot CUDA kernel's arithmetic (``quant_attention.ps_split_steps``
-    with the bitmap chunk step): each chunk and each window tile of a slot
-    one split from a fresh softmax state, merged in split order; with
-    ``win_probs`` also the window probabilities on the merge's stats."""
+    with the bitmap chunk step): each chunk (past its slot's window edge)
+    and each window tile of a slot one split from a fresh softmax state,
+    merged in split order; with ``win_probs`` also the window probabilities
+    on the merge's stats."""
     return qa.ps_split_steps(
         q, kv_pool.shape[2], n_chunks, win_len, kv_pool.shape[1],
         lambda hs: _sp_chunk_step(kv_pool[:, :, hs], None if kv_scales is None
                                   else kv_scales[:, :, hs], li, kfmt, vfmt),
-        k_win, v_win, li, win_probs=win_probs)
+        k_win, v_win, li, win_probs=win_probs, window=window)
 
 
 def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
@@ -287,19 +293,22 @@ def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
 
     ``n_chunks`` and ``win_len`` are int32 tensors [B] on q's device, read
     per slot by the kernel (no host sync) and clamped there to [0, mc] and
-    [0, W]; an idle slot is passed as (0, 0) and comes out 0.  With
-    ``return_win_probs`` also the window probabilities [B, Hkv, W] f32
+    [0, W]; an idle slot is passed as (0, 0) and comes out 0.  With a
+    sliding ``window`` slot b attends only the pool columns past its own
+    edge (``quant_attention.window_low``).  With ``return_win_probs`` also
+    the window probabilities [B, Hkv, W] f32
     (``quant_attention.fused_q_decode_attention_ps``).
 
     CUDA tensors launch the kernels of ``csrc/sp_decode.cu`` (entry
     ``sp_decode_ps``, built at first use: the split kernel, then its merge,
     then with ``return_win_probs`` the probabilities from the merge's
     stats) on the current stream, with the stream's split scratch
-    (``quant_attention._split_scratch``); CPU tensors run the plain version.
-    A CUDA request the kernel cannot serve raises; nothing falls back."""
-    qa.refuse_window(window, "fused_sparse_decode_attention_ps")
+    (``quant_attention._split_scratch``); a split below its slot's window
+    edge exits unread.  CPU tensors run the plain version.  A CUDA request
+    the kernel cannot serve raises; nothing falls back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt,
                                  "fused_sparse_decode_attention_ps")
+    qa.check_window(window)
     B = q.shape[0]
     for name, t in (("n_chunks", n_chunks), ("win_len", win_len)):
         if not torch.is_tensor(t) or tuple(t.shape) != (B,):
@@ -309,11 +318,12 @@ def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
     if q.device.type == "cpu":
         return fused_sparse_decode_attention_ps_plain(q, kv_pool, k_win, v_win,
                                                       n_chunks, win_len, li, kfmt,
-                                                      vfmt, kv_scales, return_win_probs)
+                                                      vfmt, kv_scales, return_win_probs,
+                                                      window)
     stream = qa._stream(q)
     qa._check_aligned((("q", q), ("kv_pool", kv_pool), ("k_win", k_win),
                        ("v_win", v_win), *_scales(kv_scales)))
-    fn = qa._library("sp_decode", "sp_decode_ps", 10, 16)
+    fn = qa._library("sp_decode", "sp_decode_ps", 10, 17)
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
     n_splits = ps_splits(mc, W)
@@ -324,7 +334,7 @@ def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
             v_win.data_ptr(), n_chunks.data_ptr(), win_len.data_ptr(), out.data_ptr(),
             _ptr(probs), scratch.data_ptr(), scratch.numel(), int(out.dtype == torch.float32),
             q.device.index or 0, kfmt.qbits, BH, BH // B, G, mc, W, qa.window_tile(W), li,
-            *_segs(kfmt), *_segs(vfmt), n_splits, stream)
+            *_segs(kfmt), *_segs(vfmt), n_splits, window or 0, stream)
     if rc != 0:
         raise RuntimeError(f"sp_decode_ps launch failed: CUDA error {rc}")
     fused_sparse_decode_attention_ps.launches += 1
@@ -339,11 +349,15 @@ fused_sparse_decode_attention_ps.launches = 0
 # ---------------------------------------------------------------------------
 
 def fused_sparse_segment_attention_plain(q_seg, kv_pool, n_chunks: int, li: int,
-                                         kfmt, vfmt, kv_scales=None):
+                                         kfmt, vfmt, kv_scales=None, seg_start: int = 0,
+                                         window=None):
     """The bitmap segment kernel's arithmetic: one online-softmax step a
-    chunk over the expanded K and V (``quant_attention.segment_steps``)."""
+    chunk over the expanded K and V, with a sliding ``window`` each row's
+    columns at or below its edge scored -1e30
+    (``quant_attention.segment_steps``)."""
     return qa.segment_steps(q_seg, kv_pool.shape[2], n_chunks,
-                            _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt))
+                            _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt),
+                            seg_start, window)
 
 
 SEG_TILE_ROWS = 128          # query rows a CTA of the segment kernel takes
@@ -372,16 +386,19 @@ def fused_sparse_segment_attention(q_seg, kv_pool, n_chunks: int, seg_start: int
     ``n_chunks`` is uniform across the batch and known on the host;
     ``seg_start`` is the segment's first position, at or past the packed
     chunks.  Chunks at or past ``n_chunks`` are never read.  ``kv_scales``
-    as for ``fused_sparse_decode_attention``.
+    as for ``fused_sparse_decode_attention``.  With a sliding ``window`` the
+    row of token t sees only the pool columns past seg_start + t - window
+    (``quant_attention.fused_q_segment_attention``).
 
     CUDA tensors launch the kernel of ``csrc/sp_segment.cu`` (built at first
     use; the instance of the formats' value width) on the current stream,
     as thread block clusters over each kv head's row tiles
-    (``segment_grid``); CPU tensors run the plain version.  A CUDA request
-    the kernel cannot serve, or a cluster launch the card refuses, raises;
+    (``segment_grid``), each cluster leaving out the chunks dead for its
+    oldest row; CPU tensors run the plain version.  A CUDA request the
+    kernel cannot serve, or a cluster launch the card refuses, raises;
     nothing falls back."""
-    qa.refuse_window(window, "fused_sparse_segment_attention")
     _check_formats(kfmt, vfmt, kv_scales, "fused_sparse_segment_attention")
+    qa.check_window(window)
     if q_seg.dim() != 4 or q_seg.shape[3] != 128 or q_seg.shape[1] < 1:
         raise ValueError(f"q_seg must be [B, Tseg, Hq, 128], got {tuple(q_seg.shape)}")
     B, T, Hq, _ = q_seg.shape
@@ -398,10 +415,11 @@ def fused_sparse_segment_attention(q_seg, kv_pool, n_chunks: int, seg_start: int
                          f"packed chunks, got {seg_start!r}")
     if q_seg.device.type == "cpu":
         return fused_sparse_segment_attention_plain(q_seg, kv_pool, n_chunks, li,
-                                                    kfmt, vfmt, kv_scales)
+                                                    kfmt, vfmt, kv_scales, seg_start,
+                                                    window)
     stream = qa._stream(q_seg)
     qa._check_aligned((("q_seg", q_seg), ("kv_pool", kv_pool), *_scales(kv_scales)))
-    fn = qa._library("sp_segment", "sp_segment", 6, 15)
+    fn = qa._library("sp_segment", "sp_segment", 6, 17)
     dev = q_seg.device
     acc = torch.empty((B, T, Hq, 128), dtype=torch.float32, device=dev)
     m = torch.empty((B, T, Hq, 1), dtype=torch.float32, device=dev)
@@ -409,7 +427,7 @@ def fused_sparse_segment_attention(q_seg, kv_pool, n_chunks: int, seg_start: int
     qb = q_seg.to(torch.bfloat16)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), _ptr(kv_scales), acc.data_ptr(),
             m.data_ptr(), l.data_ptr(), dev.index or 0, kfmt.qbits, BH, Hkv, Hq // Hkv,
-            T, mc, n_chunks, li, *_segs(kfmt), *_segs(vfmt),
+            T, mc, n_chunks, li, seg_start, window or 0, *_segs(kfmt), *_segs(vfmt),
             *segment_grid(T, Hq // Hkv), stream)
     if rc != 0:
         raise RuntimeError(f"sp_segment launch failed: CUDA error {rc}")

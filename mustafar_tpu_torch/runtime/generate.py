@@ -1,5 +1,5 @@
-"""Greedy generation: port of the greedy path of
-``mustafar_tpu/runtime/generate.py``, with monolithic or chunked prefill.
+"""Generation: port of ``mustafar_tpu/runtime/generate.py``, with
+monolithic or chunked prefill, greedy or sampled token choice.
 
 The JAX package runs prefill and the decode loop on the device in one jit;
 here a host loop drives one decode step at a time.  Compaction happens
@@ -11,6 +11,17 @@ suppressed for the first ``min_new_tokens`` tokens.  With
 ``EngineConfig.chunked_prefill`` the prompt goes in one C-token segment at a
 time (a host loop over segments, as the JAX package drives it), then the
 same decode loop runs.
+
+Sampling (``SamplingParams`` with a temperature above 0) is the JAX
+package's ``_sample``: the logits over the temperature, then top-k (the
+tokens below the k-th largest logit dropped, so ties at the k-th are kept),
+then top-p (sorted, a token kept while the probability before it sums
+below p; the first always kept), then one categorical draw.  The draw is
+a Gumbel-max over uniforms from a ``torch.Generator`` on the logits'
+device seeded from (seed, pick step), as the JAX package folds the step
+into its key: the same (seed, step, logits) give the same tokens on one
+device.  The tokens are not the JAX package's (its PRNG is threefry), but
+the kept set is.
 """
 
 from __future__ import annotations
@@ -29,7 +40,8 @@ from mustafar_tpu_torch.models import llama
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
     """The JAX package's token-choice settings.  temperature == 0 is greedy
-    argmax, the only choice the port makes so far."""
+    argmax (top_k and top_p ignored); top_k == 0 no top-k cutoff; top_p ==
+    1.0 no nucleus cutoff."""
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
@@ -43,16 +55,61 @@ class SamplingParams:
 GREEDY = SamplingParams()
 
 
-def check_greedy(sampling: SamplingParams) -> None:
-    if not sampling.greedy:
-        raise NotImplementedError(
-            "sampled decoding (temperature, top-k, top-p: generate._sample) is "
-            "ROADMAP Queue A item 10; the port decodes greedily")
+def filter_logits(logits2d: torch.Tensor, sp: SamplingParams) -> torch.Tensor:
+    """The JAX package's sampling filter on logits [B, V]: f32 logits over
+    the temperature, -inf outside the kept set (top-k, then top-p; module
+    note)."""
+    l = logits2d.to(torch.float32) / sp.temperature
+    if sp.top_k and sp.top_k < l.shape[-1]:
+        kth = torch.topk(l, sp.top_k, dim=-1).values[:, -1:]
+        l = torch.where(l < kth, float("-inf"), l)
+    if sp.top_p < 1.0:
+        srt = torch.sort(l, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        keep = (torch.cumsum(probs, dim=-1) - probs) < sp.top_p
+        keep[:, 0] = True
+        cutoff = torch.where(keep, srt, float("inf")).amin(dim=-1, keepdim=True)
+        l = torch.where(l < cutoff, float("-inf"), l)
+    return l
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def pick_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one pick: on ``device``, seeded with splitmix64 of
+    (seed, step), so that every bit of the seed depends on both (the CPU
+    generator reads only the low 32)."""
+    z = ((((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
+         + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    g = torch.Generator(device=device)
+    g.manual_seed((z ^ (z >> 31)) >> 1)             # a non-negative int64
+    return g
+
+
+def sample(logits2d: torch.Tensor, sp: SamplingParams, step: int) -> torch.Tensor:
+    """One filtered categorical draw a row of logits [B, V] -> [B] int64
+    (``filter_logits``, then the Gumbel-max of ``pick_generator(sp.seed,
+    step)``'s uniforms)."""
+    l = filter_logits(logits2d, sp)
+    u = torch.rand(l.shape, generator=pick_generator(sp.seed, step, l.device),
+                   device=l.device, dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.argmax(l + gumbel, dim=-1)
+
+
+def choose(logits2d: torch.Tensor, sp: SamplingParams, step: int) -> torch.Tensor:
+    """Token choice per ``sp``: greedy argmax, or ``sample`` at pick ``step``."""
+    if sp.greedy:
+        return torch.argmax(logits2d, dim=-1)
+    return sample(logits2d, sp, step)
 
 
 class Generator:
-    """Greedy-decode engine for a fixed EngineConfig, on ``device``
-    (default ``cuda``; params must already live there)."""
+    """Decode engine for a fixed EngineConfig, on ``device`` (default
+    ``cuda``; params must already live there)."""
 
     def __init__(self, engine: EngineConfig, params: dict, dtype=torch.bfloat16,
                  device=None):
@@ -75,8 +132,9 @@ class Generator:
 
         eos_id: an int or a sequence of ints, any of which ends a row.
         Returns a list of B 1-D numpy arrays of generated ids (EOS excluded).
+        ``sampling``: greedy by default; otherwise pick ``step`` (1 for the
+        first token, i + 1 for token i) seeds the draw (module note).
         """
-        check_greedy(sampling)
         ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.int64)
         B, T = ids.shape
         Tpad = self._bucket(T)
@@ -106,7 +164,7 @@ class Generator:
             if eos_ids and min_new_tokens > 0 and step <= min_new_tokens:
                 logits2d = logits2d.clone()
                 logits2d[:, list(eos_ids)] = float("-inf")
-            return torch.argmax(logits2d, dim=-1)
+            return choose(logits2d, sampling, step)
 
         def is_eos(tok):
             hit = torch.zeros_like(tok, dtype=torch.bool)

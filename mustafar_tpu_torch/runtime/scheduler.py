@@ -1,6 +1,6 @@
 """Continuous-batching decode scheduler (slot-based): port of
 ``ContinuousBatchingEngine`` in ``mustafar_tpu/runtime/scheduler.py``,
-greedy, on one device, with the slot bookkeeping in Python.
+greedy or sampled, on one device, with the slot bookkeeping in Python.
 
   * a fixed pool of B slots (``EngineConfig.batch_size``); the KV cache is
     allocated once for B sequences and updated in place;
@@ -12,6 +12,9 @@ greedy, on one device, with the slot bookkeeping in Python.
     attended; a finished request frees its slot for the next;
   * compressed caches compact, between steps, the slots whose window just
     filled (``compact_slots``);
+  * sampled token choice (``SamplingParams``; ``generate.sample``) draws at
+    a pick step that every choice advances, a request's first token and
+    every decode step, as the JAX package's ``_next_pick_step``;
   * with ``chunked_prefill`` the prompt goes in one C-token segment at a
     time; with ``interleave`` (the default then) each engine tick advances
     the admitting prompt by ONE segment and then runs the decode step, so
@@ -39,7 +42,7 @@ from mustafar_tpu_torch.cache import make_cache
 from mustafar_tpu_torch.config import EngineConfig
 from mustafar_tpu_torch.device import resolve_device
 from mustafar_tpu_torch.models import llama
-from mustafar_tpu_torch.runtime.generate import GREEDY, SamplingParams, check_greedy
+from mustafar_tpu_torch.runtime.generate import GREEDY, SamplingParams, choose
 
 
 @dataclasses.dataclass
@@ -71,13 +74,14 @@ class ContinuousBatchingEngine:
     def __init__(self, engine: EngineConfig, params: dict, dtype=torch.bfloat16,
                  eos_id: Optional[int] = None, sampling: SamplingParams = GREEDY,
                  interleave: bool = True, device=None):
-        check_greedy(sampling)
         self.device = resolve_device(device)
         self.engine = engine
         self.cfg = engine.model
         self.params = params
         self.dtype = dtype
         self.eos_id = eos_id
+        self.sampling = sampling
+        self._pick_step = 0          # the draw's step: advanced by every choice
         # interleaved admission needs segment-streamed prefill state
         self.interleave = bool(interleave and engine.chunked_prefill)
         self.B = engine.batch_size
@@ -132,10 +136,15 @@ class ContinuousBatchingEngine:
         return np.array([r is not None for r in self.slot_req])
 
     # -- token choice -------------------------------------------------------
+    def _next_pick_step(self) -> int:
+        self._pick_step += 1
+        return self._pick_step
+
     def _choose(self, logits2d: torch.Tensor, reqs: list) -> np.ndarray:
-        """Greedy pick for the rows of ``logits2d`` [n, V]; ``reqs`` names
-        the request of each row (None for an idle slot).  One device read."""
-        return torch.argmax(logits2d, dim=-1).cpu().numpy()
+        """Token choice (``generate.choose``, at the next pick step) for the
+        rows of ``logits2d`` [n, V]; ``reqs`` names the request of each row
+        (None for an idle slot, whose token is dropped).  One device read."""
+        return choose(logits2d, self.sampling, self._next_pick_step()).cpu().numpy()
 
     # -- internals --------------------------------------------------------
     def _bucket(self, n: int) -> int:

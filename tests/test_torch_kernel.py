@@ -387,8 +387,17 @@ def test_ps_wrapper_refuses_what_the_kernel_cannot_serve():
     for change in bad:
         with pytest.raises((ValueError, TypeError, NotImplementedError)):
             tqa.fused_q_decode_attention_ps(**dict(ok, **change))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tqa.fused_q_decode_attention_ps(**ok, window=512)
+    # the sliding window is served: 512 covers both slots' positions (265 and
+    # 2), 100 cuts slot 0's chunk at column 165 and leaves slot 1 (no chunk)
+    assert torch.equal(tqa.fused_q_decode_attention_ps(**ok, window=512),
+                       tqa.fused_q_decode_attention_ps(**ok))
+    windowed = tqa.fused_q_decode_attention_ps(**ok, window=100)
+    full = tqa.fused_q_decode_attention_ps(**ok)
+    assert torch.isfinite(windowed).all() and not torch.equal(windowed[0], full[0])
+    assert torch.equal(windowed[1], full[1])
+    for bad_window in (0, 512.0):
+        with pytest.raises(ValueError, match="window"):
+            tqa.fused_q_decode_attention_ps(**ok, window=bad_window)
     # the window probabilities are served: the output is the call's without them
     out, probs = tqa.fused_q_decode_attention_ps(**ok, return_win_probs=True)
     assert torch.equal(out, tqa.fused_q_decode_attention_ps(**ok))
@@ -448,8 +457,14 @@ def test_segment_wrapper_refuses_what_the_kernel_cannot_serve():
     for change in bad:
         with pytest.raises((ValueError, TypeError, NotImplementedError)):
             tqa.fused_q_segment_attention(**dict(ok, **change))
-    with pytest.raises(NotImplementedError):
-        tqa.fused_q_segment_attention(**ok, window=512)
+    # the sliding window is served: 768 covers the pool's 256 columns from
+    # every row (positions 512-767), 300 leaves none from row 43 on
+    assert all(torch.equal(a, b) for a, b in zip(
+        tqa.fused_q_segment_attention(**ok, window=768), tqa.fused_q_segment_attention(**ok)))
+    m_win = tqa.fused_q_segment_attention(**ok, window=300)[1]
+    assert (m_win[:, 43:] == -1e30).all() and (m_win[:, :43] > -1e30).all()
+    with pytest.raises(ValueError, match="window"):
+        tqa.fused_q_segment_attention(**ok, window=0)
     meta = {k: (v.to("meta") if torch.is_tensor(v) else v) for k, v in ok.items()}
     with pytest.raises(ValueError):
         tqa.fused_q_segment_attention(**meta)

@@ -247,9 +247,10 @@ def test_window_probs_match_jax(codec, G):
 def test_options_still_out_are_refused():
     """What ROADMAP item 12 held back now runs: kernels 1 and 6's (m, l),
     kernels 2 and 7's window probabilities, and Opa in the compressed
-    cache's per-slot decode, ``compact_slots`` and ``segment_attend``.  The
-    sliding window stays refused (item 14), and so do the channel policies
-    and ThinK in the compressed cache, as in JAX."""
+    cache's per-slot decode, ``compact_slots`` and ``segment_attend``; the
+    sliding window (item 14) runs with the options in every decode kernel.
+    The channel policies and ThinK stay refused in the compressed cache, as
+    in JAX."""
     dec = _Decode("q8q4", 4, 1)
     bdec = _Decode("bitmap", 4, 2)
     for d in (dec, bdec):
@@ -258,13 +259,16 @@ def test_options_still_out_are_refused():
         out, probs = d.port_ps([1, 0], [10, 3], 0, return_win_probs=True)
         assert torch.equal(out, d.port_ps([1, 0], [10, 3], 0))
         assert (probs[0, :, 10:] == 0).all() and (probs[1, :, 3:] == 0).all()
-        # the uniform kernels serve the sliding window now; per slot it stays
-        # refused (the next slice of item 14)
+        # the uniform and per-slot kernels serve the sliding window with the
+        # window probabilities
         out, probs = d.port(1, 10, 0, window=100, return_win_probs=True)
         assert torch.isfinite(out).all() and (probs[..., 10:] == 0).all()
         assert not torch.equal(out, d.port(1, 10, 0))
-        with pytest.raises(NotImplementedError, match="item 14"):
-            d.port_ps([1, 0], [10, 3], 0, window=512)
+        out, probs = d.port_ps([1, 0], [10, 3], 0, window=100, return_win_probs=True)
+        assert torch.isfinite(out).all() and (probs[0, :, 10:] == 0).all()
+        assert (probs[1, :, 3:] == 0).all() and (probs[:, :, :3] > 0).all()
+        assert not torch.equal(out[0], d.port_ps([1, 0], [10, 3], 0)[0])
+        assert torch.equal(out, d.port_ps([1, 0], [10, 3], 0, window=100))
     rs = np.random.RandomState(3)
     for codec in ("q8q4", "bitmap"):
         teng = dataclasses.replace(_engine(tc, "KT_MAG_VT_OPA", codec), batch_size=2)

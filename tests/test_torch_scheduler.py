@@ -46,7 +46,7 @@ from mustafar_tpu.runtime.scheduler import ContinuousBatchingEngine as JEngine
 from mustafar_tpu_torch import config as tc
 from mustafar_tpu_torch.models import llama as tl
 from mustafar_tpu_torch.runtime.generate import (Generator as TGenerator,
-                                                 SamplingParams)
+                                                 SamplingParams, filter_logits)
 from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine as TEngine
 from mustafar_tpu_torch.weights import params_from_jax
 
@@ -280,7 +280,8 @@ def _chunked_generator(codec):
 
 def test_entry_points_need_a_device_and_greedy():
     """Without a card the engine raises unless asked for the CPU; sampled
-    decoding is refused by both entry points."""
+    decoding, once refused by both entry points, is served
+    (``test_torch_sampling.py`` holds it against JAX's filter)."""
     teng = _engine(tc, "COMPRESSED")
     params = {"final_norm": torch.ones(256)}
     if not torch.cuda.is_available():
@@ -289,11 +290,12 @@ def test_entry_points_need_a_device_and_greedy():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             TGenerator(teng, params)
     hot = SamplingParams(temperature=0.9, top_p=0.95, seed=7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(teng, params, device="cpu", sampling=hot)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TGenerator(teng, params, device="cpu").generate(np.zeros((1, 10)), 2,
-                                                        sampling=hot)
+    hot_cb = TEngine(teng, params, device="cpu", sampling=hot)
+    assert hot_cb.sampling == hot and hot_cb._pick_step == 0
+    logits = torch.from_numpy(np.random.RandomState(0).randn(3, 512).astype(np.float32))
+    kept = torch.isfinite(filter_logits(logits, hot))
+    picks = hot_cb._choose(logits, [None] * 3)
+    assert hot_cb._pick_step == 1 and kept[torch.arange(3), picks].all()
     cb = TEngine(teng, params, device="cpu")
     assert cb.device.type == "cpu" and cb.cache["kv_pool"].device.type == "cpu"
     with pytest.raises(ValueError):

@@ -378,16 +378,24 @@ def test_wrappers_refuse_what_the_kernels_cannot_serve():
         for change in bad:
             with pytest.raises((ValueError, TypeError, NotImplementedError)):
                 fn(**dict(ok, **change))
-        if fn is tska.fused_sparse_decode_attention:
-            # the uniform kernel serves the sliding window (its CPU path the
-            # plain version; 512 covers the 266 columns, 100 drops 166); the
-            # per-slot and segment kernels still refuse it
+        # every kernel serves the sliding window (its CPU path the plain
+        # version): 512 (768 at the segment's positions 512-767) covers every
+        # column; at the decodes 100 drops 166 of
+        # slot 0's (the per-slot call's slot 1 has no chunk), at the segment
+        # 300 leaves no pool column to the rows of tokens 43 on
+        if fn is tska.fused_sparse_segment_attention:
+            assert all(torch.equal(a, b) for a, b in zip(fn(**ok, window=768), fn(**ok)))
+            m_win = fn(**ok, window=300)[1]
+            assert (m_win[:, 43:] == -1e30).all() and (m_win[:, :43] > -1e30).all()
+        else:
             assert torch.equal(fn(**ok, window=512), fn(**ok))
             windowed = fn(**ok, window=100)
-            assert torch.isfinite(windowed).all() and not torch.equal(windowed, fn(**ok))
-        else:
-            with pytest.raises(NotImplementedError, match="item 14"):
-                fn(**ok, window=512)
+            assert torch.isfinite(windowed).all()
+            assert not torch.equal(windowed[0], fn(**ok)[0])
+            if fn is tska.fused_sparse_decode_attention_ps:
+                assert torch.equal(windowed[1], fn(**ok)[1])
+        with pytest.raises(ValueError, match="window"):
+            fn(**ok, window=0)
         # a device the kernel does not run on is refused, never computed on the CPU
         meta = {k: (v.to("meta") if torch.is_tensor(v) else v) for k, v in ok.items()}
         with pytest.raises(ValueError):

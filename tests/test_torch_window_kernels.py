@@ -17,9 +17,9 @@
     uniform and per slot (an idle slot, a slot whose window covers all its
     rows), and its split plain version (splits wholly below the edge take no
     step) against both.
-(r) What stays refused, naming the next slice: the window of kernels 2, 3,
-    7 and 8, and the compressed cache's per-slot decode, ``compact_slots``
-    and chunked prefill on a windowed model.
+(r) What was refused until the next slice ported it: the window of
+    kernels 2, 3, 7 and 8, and the compressed cache's per-slot decode,
+    ``compact_slots`` and chunked prefill on a windowed model, now served.
 
 Tolerances are those of the kernels' own parity tests: one bf16 ulp of the
 output's scale against JAX (2 for a bf16 q against an f32 one), 2 between
@@ -332,49 +332,64 @@ def test_dense_split_plain_reads_no_row_below_the_window():
         assert torch.equal(got, want)
 
 
-# -- what stays refused -------------------------------------------------------
+# -- what was refused ----------------------------------------------------------
 
 def test_per_slot_and_segment_kernels_refuse_the_window():
     """Kernels 2, 3, 7 and 8 and the compressed cache's per-slot decode,
-    ``compact_slots`` and chunked prefill refuse a window, naming the next
-    slice, and return nothing."""
+    ``compact_slots`` and chunked prefill, once refused on a windowed model,
+    now serve the window (``test_torch_window_ps.py``,
+    ``test_torch_window_segment.py`` and ``test_torch_window_engine.py``
+    hold them against JAX): a window that covers every position gives the
+    unwindowed result bit for bit, a narrower one a finite other one, and
+    the cache's steps on a windowed model leave the state the unwindowed
+    model's leaves while the window covers every position."""
     i32 = lambda x: torch.tensor(x, dtype=torch.int32)
     for codec in ("q8q4", "bitmap"):
         q, pool, scales, kw, vw = _state(codec)
         pool, sc, kw, vw = torch.from_numpy(pool), _t(scales), _t(kw), _t(vw)
-        qs = torch.zeros((2, 256, 8, 128), dtype=torch.bfloat16)
+        qs = torch.from_numpy(np.random.RandomState(1).randn(2, 256, 8, 128)
+                              .astype(np.float32)).to(torch.bfloat16)
         if codec in BITS:
             cd = tqf.QuantCodec(256, 128, *BITS[codec])
-            calls = [lambda: tqa.fused_q_decode_attention_ps(
-                        _t(q), pool, sc, kw, vw, i32([1, 0]), i32([10, 3]), 0, cd,
-                        window=512),
-                     lambda: tqa.fused_q_segment_attention(qs, pool, sc, 1, 512, 0, cd,
-                                                           window=512)]
+            ps = lambda window: tqa.fused_q_decode_attention_ps(
+                _t(q), pool, sc, kw, vw, i32([1, 0]), i32([10, 3]), 0, cd, window=window)
+            seg = lambda window: tqa.fused_q_segment_attention(qs, pool, sc, 1, 512, 0, cd,
+                                                               window=window)
         else:
             tf = _fmt(codec)[1]
-            calls = [lambda: tska.fused_sparse_decode_attention_ps(
-                        _t(q), pool, kw, vw, i32([1, 0]), i32([10, 3]), 0, tf, tf,
-                        window=512),
-                     lambda: tska.fused_sparse_segment_attention(qs, pool, 1, 512, 0, tf,
-                                                                 tf, window=512)]
-        for call in calls:
-            with pytest.raises(NotImplementedError, match="next slice.*item 14"):
-                call()
+            ps = lambda window: tska.fused_sparse_decode_attention_ps(
+                _t(q), pool, kw, vw, i32([1, 0]), i32([10, 3]), 0, tf, tf, window=window)
+            seg = lambda window: tska.fused_sparse_segment_attention(
+                qs, pool, 1, 512, 0, tf, tf, window=window)
+        assert torch.equal(ps(512), ps(None))
+        assert torch.isfinite(ps(100)).all() and not torch.equal(ps(100)[0], ps(None)[0])
+        assert all(torch.equal(a, b) for a, b in zip(seg(768), seg(None)))
+        acc, m, _ = seg(288)
+        assert torch.isfinite(acc).all() and (m[:, 31:] == -1e30).all()
     model = dataclasses.replace(tc.TINY_LLAMA, head_dim=128, num_heads=4, num_kv_heads=1,
                                 hidden_size=256, num_layers=1, sliding_window=320)
     for codec in ("q8q4", "bitmap"):
-        eng = tc.EngineConfig(model=model, cache_mode=tc.CacheMode.COMPRESSED, codec=codec,
-                              max_seq_len=1024, batch_size=2)
-        impl = CompressedKVCache(eng, device="cpu")
-        st = impl.init(2, torch.float32)
-        one = [torch.zeros((2, 1, h, 128)) for h in (4, 1, 1)]
-        seg = [torch.zeros((2, 256, h, 128)) for h in (4, 1, 1)]
-        for call in (lambda: impl.decode_attend(st, 0, *one, i32([5, -1])),
-                     lambda: impl.compact_slots(st, [True, False]),
-                     lambda: impl.segment_attend(st, 0, *seg, 0, 256)):
-            with pytest.raises(NotImplementedError, match="next slice.*item 14"):
-                call()
-        assert (st["n_chunks"] == 0).all() and (st["k_win"] == 0).all()
+        states = []
+        for m in (model, dataclasses.replace(model, sliding_window=None)):
+            eng = tc.EngineConfig(model=m, cache_mode=tc.CacheMode.COMPRESSED, codec=codec,
+                                  max_seq_len=1024, batch_size=2)
+            impl = CompressedKVCache(eng, device="cpu")
+            st = impl.init(2, torch.float32)
+            rs = np.random.RandomState(2)
+            seg = [torch.from_numpy(rs.randn(2, 256, h, 128).astype(np.float32))
+                   for h in (4, 1, 1)]
+            out_seg = impl.segment_attend(st, 0, *seg, 0, 300)
+            impl.finalize_segment(st, 0, 300)
+            st["nc_host"] = None
+            one = [torch.from_numpy(rs.randn(2, 1, h, 128).astype(np.float32))
+                   for h in (4, 1, 1)]
+            out_one = impl.decode_attend(st, 0, *one, i32([256, -1]))
+            impl.compact_slots(st, [True, False])
+            states.append((out_seg, out_one, st))
+        (s1, d1, st1), (s2, d2, st2) = states
+        assert torch.equal(s1, s2) and torch.equal(d1, d2)
+        assert all(torch.equal(st1[k], st2[k]) for k in ("kv_pool", "k_win", "n_chunks"))
+        assert st1["n_chunks"].tolist() == [[1, 0]]
     # a window narrower than the cache's window capacity is refused, as in JAX
     with pytest.raises(AssertionError, match="sliding window"):
         CompressedKVCache(tc.EngineConfig(
