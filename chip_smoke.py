@@ -161,7 +161,18 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 seed 7) through the Generator and the engine on the card:
                 every drawn token in the kept set of the CPU's filter on
                 the card's logits, the same seed the same tokens, top-k 1
-                the greedy tokens
+                the greedy tokens; at top-p 0 and -0.5 token 0 every draw
+  reference_w8a8
+                W8A8: torch._int_mm's int32 accumulators bit-equal to the
+                CPU's at the projection shapes (weights row- and
+                column-major; 8 and 300 rows), timed beside the W8
+                projection; a tiny f32 Llama in W8A8 through the dense,
+                masked and q8q4 caches card against CPU (A8_SPREAD_NOTE)
+  reference_moe a tiny f32 model with Mixtral's MLP (4 experts, top-2,
+                capacity factor 1) card against CPU: prefill logits in
+                f32, W8 experts, W8A8, W4 attention with W8 experts
+                (kernel 5); greedy decoding through the q8q4, bitmap and
+                dense (kernel 4) Generator and the q8q4 engine
   serve_q8q4    full-width, 32-layer Llama-3-8B with random W8 weights made
                 on the card: Generator.generate, B=8, prompt 300, 300 new
                 tokens, q8q4 compressed cache (one compaction on the way);
@@ -233,9 +244,10 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 serve_swa_dense's; tok/s, prefill seconds, peak memory
   serve_cb_swa_q8q4, serve_cb_swa_bitmap
                 serve_cb's requests (17, one of 8,000 tokens) through the
-                engine on Mistral-7B with its window, full width and depth:
-                the per-slot and segment kernels with the window 32 x steps
-                and 32 x segments (kernel 9 for q8q4), first tokens = a
+                engine on Mistral-7B with its window, full width, at q8q4
+                full depth, at bitmap 8 of the 32 layers (CUT_LAYERS): the
+                per-slot and segment kernels with the window layers x steps
+                and layers x segments (kernel 9 for q8q4), first tokens = a
                 batch-1 chunked Generator's; tok/s, peak memory, tick times
   serve_swa_chunked
                 the chunked Generator on Mistral-7B, B=4, serve_swa's
@@ -257,6 +269,24 @@ Phases, each printing one flushed JSON line with its ``phase`` and
   serve_cb_w4   serve_cb with W4 weights on the bitmap codec: its first 8
                 requests without the 8,000-token one, at 8 of the 32 layers
                 (CUT_LAYERS)
+  serve_w8a8_dense, serve_w8a8_q8q4
+                Llama-3-8B in W8A8 (serve_q8q4's W8 weights with
+                enable_act_quant), B=8, 300 + 100: kernel 1 32 x 99 and
+                kernel 9 32 at q8q4, first tokens equal; the W8A8 step's
+                projections and LM head, device ms
+  serve_moe_dense, serve_moe_q8q4, serve_moe_bitmap
+                Mixtral-8x7B (MIXTRAL_8X7B) at full width and 32 layers, W8
+                (init_params_w8, seed 0, 43.5 GiB, made after every other
+                model is freed), B=8, 300 + 100: kernel 1 / kernel 6 32 x
+                99, kernel 9 32 at q8q4, first tokens = serve_moe_dense's;
+                tok/s, prefill seconds, peak memory, and a decode step's
+                MoE MLP device ms beside its byte bound and the attention
+                projections' ms
+  serve_cb_moe  serve_cb's 17 requests through the engine at q8q4 on
+                Mixtral-8x7B at full width and 8 of its 32 layers
+                (CUT_LAYERS): kernels 2 and 3 8 x steps and segments,
+                kernel 9 at the packing counts, first tokens = a batch-1
+                chunked Generator's
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 nothing is caught.  With no CUDA card, or run from a directory that holds
@@ -2519,11 +2549,16 @@ def phase_kernel_archive_cache(k, v):
     return launches
 
 
-def _tiny_engine(mode, codec="q8q4", method=None, window=None, **kw):
+def _tiny_engine(mode, codec="q8q4", method=None, window=None, moe=False, **kw):
+    """The tiny model's engine; ``moe``: its MLP Mixtral's (4 experts, top-2,
+    capacity factor 1: a prefill drops tokens)."""
     import dataclasses
     from mustafar_tpu_torch import config as tc
     model = dataclasses.replace(tc.TINY_LLAMA, head_dim=128, num_heads=4,
                                 num_kv_heads=1, hidden_size=256, sliding_window=window)
+    if moe:
+        model = dataclasses.replace(model, num_experts=4, num_experts_per_tok=2,
+                                    expert_capacity_factor=1.0)
     return tc.EngineConfig(
         model=model, cache_mode=mode,
         prune=tc.PruneConfig(method=method or tc.PruneMethod.KT_MAG_VT_MAG,
@@ -2588,8 +2623,45 @@ def _recording_engine():
     return Recording, np
 
 
+def _to_card(params):
+    """A params dict's leaves copied to the card (their strides kept)."""
+    return {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict)
+                else v.cuda()) for k, v in params.items()}
+
+
+def _ulp_up(params):
+    """``params`` with every int8 weight's scales one ulp up: a last-bit
+    change of every projection's output, as another device's sums make."""
+    import torch
+
+    def up(leaves):
+        return {k: torch.nextafter(v, torch.full_like(v, float("inf")))
+                if k.endswith("_scale") else v for k, v in leaves.items()}
+
+    return dict(up({k: v for k, v in params.items() if k != "layers"}),
+                layers=up(params["layers"]))
+
+
+# W8A8 turns last-bit differences of the activations into a step of an int8
+# code wherever a value sits at a rounding edge, so card and CPU part by about
+# as much as the CPU parts from itself when every weight scale moves one ulp
+# (the CPU tests hold the port to JAX by the same rule): a W8A8 run is held
+# to 1e-2 of the logits' range or 3x that spread, whichever is larger
+A8_SPREAD_NOTE = ("W8A8: within max(1e-2 of the logits' range, 3x the CPU's own spread "
+                  "when every weight scale moves one ulp)")
+A8_PICKS_NOTE = ("every greedy pick equal, or at a near-tie: the CPU's margin between its "
+                 "token and the card's within SWA_TIE_TOL or, under W8A8, within twice "
+                 "the run's largest logit difference (itself within A8_SPREAD_NOTE's bound)")
+
+
+def _wide_flips(fields, a8=False):
+    """The run's differing picks that A8_PICKS_NOTE does not allow."""
+    tie = max(SWA_TIE_TOL, 2 * fields["max_abs_err"]) if a8 else SWA_TIE_TOL
+    return [f for f in fields["flips"] if f["cpu_margin"] > tie]
+
+
 def phase_reference(codec="q8q4", mode=None, method=None, use_pallas=False, T=300,
-                    tol_frac=1e-2, window=None, chunked=False):
+                    tol_frac=1e-2, window=None, chunked=False, moe=False, quant=None):
     """A tiny f32 model, same weights and token stream on the card and on
     the CPU: the card runs the kernel, the CPU the plain path, a prompt of
     ``T`` tokens and 39 decode steps (a compressed cache compacts when its
@@ -2598,17 +2670,22 @@ def phase_reference(codec="q8q4", mode=None, method=None, use_pallas=False, T=30
     or masked cache through kernel 4; ``tol_frac`` is the logits'
     tolerance as a fraction of their range; ``window`` gives the model a
     sliding window; ``chunked`` prefills the prompt segment by segment
-    (chunked prefill, the segment kernel).  Returns the phase's numbers
-    (``reference_bitmap`` and the others print them)."""
+    (chunked prefill, the segment kernel); ``moe`` gives it Mixtral's MLP;
+    ``quant`` maps the CPU's params to a weight format before they are
+    copied to the card (with the W8A8 markers the tolerance widens to
+    A8_SPREAD_NOTE's, from a third, CPU run).  Returns the phase's
+    numbers (``reference_bitmap`` and the others print them)."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.cache import make_cache
     from mustafar_tpu_torch.config import CacheMode
     from mustafar_tpu_torch.models import llama
-    eng = _tiny_engine(mode or CacheMode.COMPRESSED, codec, method, window)
+    eng = _tiny_engine(mode or CacheMode.COMPRESSED, codec, method, window, moe)
     cpu_params = llama.init_params(eng.model, device="cpu", dtype=torch.float32, seed=1)
-    gpu_params = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict)
-                      else v.cuda()) for k, v in cpu_params.items()}
+    if quant is not None:
+        cpu_params = quant(cpu_params)
+    gpu_params = _to_card(cpu_params)
+    a8 = "act_quant" in cpu_params
     prompt = np.random.RandomState(1).randint(0, 512, (2, T))
     toks = torch.zeros((2, -(-T // 256) * 256), dtype=torch.int64)
     toks[:, :T] = torch.from_numpy(prompt)
@@ -2616,8 +2693,11 @@ def phase_reference(codec="q8q4", mode=None, method=None, use_pallas=False, T=30
     logs = {}
     stream = None
     compactions = 0
+    runs = [("cpu", "cpu", cpu_params), ("cuda", "cuda", gpu_params)]
+    if a8:
+        runs.append(("cpu_ulp", "cpu", _ulp_up(cpu_params)))
     with torch.inference_mode():
-        for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+        for run, dev, params in runs:
             impl = make_cache(eng, device=dev)
             impl.use_pallas = use_pallas
             cache = impl.init(2, torch.float32)
@@ -2639,9 +2719,9 @@ def phase_reference(codec="q8q4", mode=None, method=None, use_pallas=False, T=30
                 if hasattr(impl, "compact") and impl.window_full(cache, T + i):
                     impl.compact(cache)
                     compactions += dev == "cuda"
-            logs[dev] = torch.stack(out, 1)
+            logs[run] = torch.stack(out, 1)
             if stream is None:
-                stream = logs[dev].argmax(-1)          # the CPU's greedy picks
+                stream = logs[run].argmax(-1)          # the CPU's greedy picks
     launched = {k: v - launches0[k] for k, v in _launches().items() if v > launches0[k]}
     _set_launches(launches0)
     a, b = logs["cpu"], logs["cuda"]
@@ -2651,6 +2731,9 @@ def phase_reference(codec="q8q4", mode=None, method=None, use_pallas=False, T=30
     # differences of f32 activations on the two devices can flip one of those
     # roundings (the CPU parity tests measure < 3e-3 of the logits' range)
     tol = tol_frac * scale
+    spread = (logs["cpu_ulp"] - a).abs().max().item() if a8 else None
+    if a8:
+        tol = max(tol, 3 * spread)
     want, pick = a.argmax(-1), b.argmax(-1)
     agree = (want == pick).float().mean().item()
     # each differing pick with the CPU's margin between its token and the card's
@@ -2659,14 +2742,16 @@ def phase_reference(codec="q8q4", mode=None, method=None, use_pallas=False, T=30
              for r, t in torch.nonzero(pick != want).tolist()]
     fields = {"steps": 40, "max_abs_err": err, "tol": tol, "greedy_agreement": agree,
               "flips": flips, "launched": launched, "compactions": compactions}
-    if codec == "q8q4" and mode is None and method is None:
+    if a8:
+        fields.update(logits_range=scale, cpu_ulp_spread=spread, tol_rule=A8_SPREAD_NOTE)
+    if codec == "q8q4" and mode is None and method is None and not moe and quant is None:
         emit("reference", **fields)
     if not (b.isfinite().all() and err <= tol):
         raise AssertionError(f"card and CPU logits disagree on the tiny model: {fields}")
     return fields
 
 
-def phase_reference_cb(codec="q8q4", method=None, window=None):
+def phase_reference_cb(codec="q8q4", method=None, window=None, moe=False):
     """The tiny f32 continuous-batching engine, chunked prefill with
     interleaved admission, on the CPU (plain versions) and on the card
     (kernels), fed the CPU's tokens: the card's logits within 1e-2 of their
@@ -2675,16 +2760,15 @@ def phase_reference_cb(codec="q8q4", method=None, window=None):
     request's) and reuse it.  ``method`` defaults to KT_MAG_VT_MAG;
     ``window`` gives the model a sliding window, and then (as under Opa) a
     pick may differ at a near-tie, within SWA_TIE_TOL.  Returns the phase's
-    numbers."""
+    numbers.  ``moe`` gives the model Mixtral's MLP."""
     import torch
     from mustafar_tpu_torch.config import CacheMode
     from mustafar_tpu_torch.models import llama
     Recording, np = _recording_engine()
-    eng = _tiny_engine(CacheMode.COMPRESSED, codec, method, window, max_seq_len=2048,
+    eng = _tiny_engine(CacheMode.COMPRESSED, codec, method, window, moe, max_seq_len=2048,
                        batch_size=2, chunked_prefill=True)
     cpu_params = llama.init_params(eng.model, device="cpu", dtype=torch.float32, seed=2)
-    gpu_params = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict)
-                      else v.cuda()) for k, v in cpu_params.items()}
+    gpu_params = _to_card(cpu_params)
     rs = np.random.RandomState(2)
     reqs = [(rs.randint(0, 512, size=n), m)
             for n, m in ((100, 12), (1000, 6), (280, 30), (530, 20))]
@@ -2714,12 +2798,12 @@ def phase_reference_cb(codec="q8q4", method=None, window=None):
     fields = {"requests": len(reqs), "tokens": n, "ticks": ticks, "segments": segments,
               "decode_steps": steps, "max_abs_err": err, "tol": tol,
               "greedy_agreement": agree / n, "flips": flips, "launched": launched}
-    if codec == "q8q4" and method is None and window is None:
+    if codec == "q8q4" and method is None and window is None and not moe:
         emit("reference_cb", **fields)
     # under Opa (OPA_CB_NOTE) a differing pick must be a near-tie on the CPU,
-    # with the window one within SWA_TIE_TOL (SWA_PICKS_NOTE)
-    picks_ok = agree == n if method is None and window is None else all(
-        f["cpu_margin"] <= (SWA_TIE_TOL if window else 2 * err) for f in flips)
+    # with the window or the MoE MLP one within SWA_TIE_TOL (SWA_PICKS_NOTE)
+    picks_ok = agree == n if method is None and window is None and not moe else all(
+        f["cpu_margin"] <= (SWA_TIE_TOL if window or moe else 2 * err) for f in flips)
     if not (err <= tol and picks_ok):
         raise AssertionError(f"card and CPU disagree on the tiny continuous-batching "
                              f"run: {fields}")
@@ -2867,7 +2951,8 @@ def phase_reference_sample():
     with temperature 0.9, top-k 50, top-p 0.95, seed 7.  Every drawn token
     lies in the kept set of the CPU's filter (``filter_logits``) on the
     card's logits of that pick; the same seed draws the same tokens again;
-    with top-k 1 the tokens are the greedy ones."""
+    with top-k 1 the tokens are the greedy ones; at top-p 0 and -0.5 every
+    draw is token 0 (the Generator's, and one on each recorded row)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2924,6 +3009,17 @@ def phase_reference_sample():
     cb_runs = {name: engine(sp) for name, sp in (("hot", hot), ("hot_again", hot),
                                                    ("top_k_1", one), ("greedy", tg.GREEDY))}
     engine_picks = len(picks) - gen_picks
+    # at top_p <= 0 the filter keeps no token and the draw is token 0 (the
+    # JAX package's categorical over all -inf): the Generator's, and one
+    # draw on each recorded row of card logits
+    zero_p = {}
+    rows = torch.cat([lg for lg, _, _ in picks]).cuda()
+    for p in (0.0, -0.5):
+        sp = tg.SamplingParams(temperature=0.9, top_p=p, seed=7)
+        toks = np.stack(gen.generate(prompt, 8, sampling=sp))
+        drawn = tg.sample(rows, sp, 3)
+        zero_p[str(p)] = {"generator_all_0": bool((toks == 0).all()),
+                          "rows_all_0": bool((drawn == 0).all()), "rows": len(rows)}
     _set_launches(counts0)
     outside = sum(filtered_out(lg, tk, sp) for lg, tk, sp in picks if not sp.greedy)
     fields = {"sampling": SAMPLE, "generator_picks": gen_picks, "engine_picks": engine_picks,
@@ -2937,10 +3033,12 @@ def phase_reference_sample():
                                                 zip(cb_runs["hot"], cb_runs["hot_again"])),
                          "top_k_1_equal_greedy": all((a == b).all() for a, b in
                                                      zip(cb_runs["top_k_1"],
-                                                         cb_runs["greedy"]))}}
+                                                         cb_runs["greedy"]))},
+              "top_p_at_or_below_0": zero_p}
     emit("reference_sample", **fields)
     if outside or not all(v for part in ("generator", "engine")
-                          for k, v in fields[part].items() if k != "agreement_with_greedy"):
+                          for k, v in fields[part].items() if k != "agreement_with_greedy") \
+            or not all(z["generator_all_0"] and z["rows_all_0"] for z in zero_p.values()):
         raise AssertionError(f"reference_sample: {fields}")
 
 
@@ -3059,8 +3157,7 @@ def phase_reference_w4():
     base = _tiny_engine(CacheMode.DENSE)
     cpu_params = quantize_params_w4(llama.init_params(base.model, device="cpu",
                                                       dtype=torch.float32, seed=3))
-    gpu_params = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict)
-                      else v.cuda()) for k, v in cpu_params.items()}
+    gpu_params = _to_card(cpu_params)
     runs = {"dense_b1_prompt100": (CacheMode.DENSE, 1, 100, 128),
             "dense_b2_prompt300": (CacheMode.DENSE, 2, 300, 128),
             "q8q4_b2_prompt300": (CacheMode.COMPRESSED, 2, 300, 256)}
@@ -3141,11 +3238,160 @@ def phase_reference_w4():
                              f"not launched as expected: {results}")
 
 
-# Layers of the earlier host-bound engine phases: host_split,
-# serve_cb_bitmap, serve_cb_bitmap_q8, serve_cb_q4q4, serve_cb_opa and
-# serve_cb_w4 run Llama-3-8B at full width and this depth, so that the
-# whole run keeps well inside BUDGET_S on a slower host (serve_cb and the
-# new paths stay at full depth).
+INT8_MM_SHAPES = ((8, 4096, 14336), (8, 14336, 4096), (8, 4096, 1024), (300, 4096, 1024),
+                  (8, 4096, 32000))   # (rows, in, out): decode and prefill, the head
+
+
+def phase_reference_w8a8():
+    """W8A8 on the card against the CPU.  ``int8_matmul`` (``torch._int_mm``,
+    rows padded past 16) on the same int8 codes at Llama-3-8B's and
+    Mixtral's projection shapes (decode's 8 rows, a prefill's 300, the
+    Mixtral head), the weights row- and column-major: int32 accumulators bit
+    for bit with the CPU's int32 matmul; timed at 8 rows beside the W8
+    projection (int8 widened to bf16, matmul, scale) of the same shape.
+    Then ``reference`` on a tiny f32 Llama in W8A8 (``enable_act_quant(
+    quantize_params(...))``) through the dense, masked and q8q4 caches:
+    logits within A8_SPREAD_NOTE's bound, the greedy picks as
+    A8_PICKS_NOTE allows, each run launching its cache's kernels and no
+    other."""
+    import torch
+    from mustafar_tpu_torch.config import CacheMode
+    from mustafar_tpu_torch.models.quant import (_col_major, enable_act_quant, int8_matmul,
+                                                 quantize_params)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(5)
+    acc, times = {}, {}
+    for M, K, N in INT8_MM_SHAPES:
+        a = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+        want = int8_matmul(a, w)
+        ac, wc = a.cuda(), w.cuda()
+        for layout, wl in (("row", wc), ("col", _col_major(wc))):
+            got = int8_matmul(ac, wl)
+            acc[f"{M}x{K}x{N}/{layout}"] = bool(torch.equal(got.cpu(), want))
+        if M == 8:
+            x = torch.randn((M, K), generator=g).to(torch.bfloat16).cuda()
+            sc = torch.rand((N,), generator=g).cuda()
+            wcol = _col_major(wc)
+            calls = {"int8_matmul_col_ms": lambda: int8_matmul(ac, wcol),
+                     "int8_matmul_row_ms": lambda: int8_matmul(ac, wc),
+                     "w8_proj_ms": lambda: (x @ wc.to(torch.bfloat16)) * sc.to(torch.bfloat16)}
+            for fn in calls.values():         # the first call loads cuBLAS's kernels
+                fn()
+            times[f"{K}x{N}"] = {k: cuda_ms(fn, 20)[0] for k, fn in calls.items()}
+    runs, bad = {}, []
+    w8a8 = lambda p: enable_act_quant(quantize_params(p))
+    cases = ((CacheMode.DENSE, {}), (CacheMode.MASKED, {}),
+             (CacheMode.COMPRESSED, {"fused_q_decode_attention": 2 * 39,
+                                     "prune_quant_pack_kv": 2}))
+    for mode, want in cases:
+        fields = phase_reference("q8q4", mode, quant=w8a8)
+        runs[mode.value] = dict(fields, expected_launches=want, picks=A8_PICKS_NOTE)
+        if fields["launched"] != want or _wide_flips(fields, a8=True):
+            bad.append(mode.value)
+    emit("reference_w8a8", int32_bit_equal=acc, times_8_rows=times, runs=runs)
+    if not all(acc.values()) or bad:
+        raise AssertionError(f"reference_w8a8: int32 accumulators {acc}; runs that launched "
+                             f"other kernels or flipped picks past the rule: {bad}")
+
+
+def phase_reference_moe():
+    """Mixtral's MLP on a tiny f32 model (4 experts, top-2, capacity factor
+    1), card against CPU.  Prefill logits (B=1, a 100-token prompt in a
+    128-token bucket, dense cache, every position) within 1e-2 of their
+    range: f32, W8 experts (``quantize_params``), W8A8 (A8_SPREAD_NOTE's
+    bound) and W4 attention with W8 experts (``quantize_params_w4``: kernel
+    5 for the 4 attention projections of each layer, REFERENCE_W4_TOL).
+    Then ``reference`` through the q8q4 and bitmap caches (kernels 1 / 9
+    and 6) and the dense cache with ``use_pallas`` (kernel 4), and
+    ``reference_cb``'s engine at q8q4 (kernels 2, 3 and 9):
+    logits within 1e-2 of their range, every greedy pick equal or at a
+    near-tie within SWA_TIE_TOL (a routing decision near a tie can move
+    between devices), each run launching its kernels and no other (the
+    engine kernel 9 at least once a layer for each of its 4 packed prompt
+    chunks)."""
+    import torch
+    from mustafar_tpu_torch.cache import make_cache
+    from mustafar_tpu_torch.config import CacheMode
+    from mustafar_tpu_torch.models import llama
+    from mustafar_tpu_torch.models.quant import (enable_act_quant, quantize_params,
+                                                 quantize_params_w4)
+    import numpy as np
+    eng = _tiny_engine(CacheMode.DENSE, moe=True)
+    base = llama.init_params(eng.model, device="cpu", dtype=torch.float32, seed=4)
+    T, Tpad = 100, 128
+    toks = torch.zeros((1, Tpad), dtype=torch.int64)
+    toks[0, :T] = torch.from_numpy(np.random.RandomState(4).randint(0, 512, T))
+    L = eng.model.num_layers
+    formats = {"f32": (lambda p: p, 1e-2, {}),
+               "w8_experts": (quantize_params, 1e-2, {}),
+               "w8a8": (lambda p: enable_act_quant(quantize_params(p)), 1e-2, {}),
+               "w4_attention_w8_experts": (quantize_params_w4, REFERENCE_W4_TOL,
+                                           {"w4_matmul": 4 * L})}
+    prefill = {}
+    ok = True
+    with torch.inference_mode():
+        for label, (fn, tol_frac, want) in formats.items():
+            cpu = fn(base)
+            runs = [("cpu", cpu), ("cuda", _to_card(cpu))]
+            if "act_quant" in cpu:
+                runs.append(("cpu", _ulp_up(cpu)))
+            counts0 = _launches()
+            out = []
+            for dev, params in runs:
+                impl = make_cache(eng, device=dev)
+                logits, _ = llama.prefill(eng.model, params, toks.to(dev),
+                                          impl.init(1, torch.float32), impl, T)
+                out.append(logits[0, :T].cpu())
+            launched = {k: v - counts0[k] for k, v in _launches().items() if v > counts0[k]}
+            _set_launches(counts0)
+            err, scale = (out[1] - out[0]).abs().max().item(), out[0].abs().max().item()
+            tol = tol_frac * scale
+            fields = {"max_abs_err": err, "tol": tol, "logits_range": scale,
+                      "launched": launched,
+                      "expected_launches": want,
+                      "argmax_agreement": (out[0].argmax(-1)
+                                           == out[1].argmax(-1)).float().mean().item()}
+            if len(out) == 3:
+                spread = (out[2] - out[0]).abs().max().item()
+                tol = max(tol, 3 * spread)
+                fields.update(tol=tol, cpu_ulp_spread=spread, tol_rule=A8_SPREAD_NOTE)
+            prefill[label] = fields
+            ok &= bool(out[1].isfinite().all()) and err <= tol and launched == want
+    runs = {}
+    cases = (("generator/q8q4", lambda: phase_reference("q8q4", moe=True),
+              {"fused_q_decode_attention": 2 * 39, "prune_quant_pack_kv": 2}),
+             ("generator/bitmap", lambda: phase_reference("bitmap", moe=True),
+              {"fused_sparse_decode_attention": 2 * 39}),
+             ("generator/dense_kernel4",
+              lambda: phase_reference("q8q4", CacheMode.DENSE, use_pallas=True, moe=True),
+              {"flash_decode_attention": 2 * 39}),
+             ("engine/q8q4", lambda: phase_reference_cb("q8q4", moe=True), None))
+    for label, run, want in cases:
+        fields = dict(run(), picks=A8_PICKS_NOTE)
+        launched = dict(fields["launched"])
+        if want is None:
+            # the engine: 2 x its steps and segments; kernel 9 once a layer a
+            # packed prompt chunk (4) and once a compaction
+            want = {"fused_q_decode_attention_ps": 2 * fields["decode_steps"],
+                    "fused_q_segment_attention": 2 * fields["segments"]}
+            ok &= launched.pop("prune_quant_pack_kv", 0) >= 2 * 4
+        runs[label] = dict(fields, expected_launches=want)
+        ok &= launched == want and not _wide_flips(fields)
+    emit("reference_moe", experts=4, top_k=2, capacity_factor=1.0, prefill=prefill,
+         runs=runs)
+    if not ok:
+        raise AssertionError(f"reference_moe: card and CPU disagree or the kernels were "
+                             f"not launched as expected: {prefill}, {runs}")
+
+
+# Layers of the host-bound engine phases: host_split, serve_cb_bitmap,
+# serve_cb_bitmap_q8, serve_cb_q4q4, serve_cb_opa and serve_cb_w4 run
+# Llama-3-8B, serve_cb_swa_bitmap Mistral-7B and serve_cb_moe Mixtral-8x7B
+# at full width and this depth, so that the whole run keeps well inside
+# BUDGET_S on a slower host (serve_cb and serve_cb_swa_q8q4 stay at full
+# depth; at full depth serve_cb_swa_bitmap took 65.7 s and serve_cb_moe
+# 74.5 s of an 891.5 s run on one host).
 CUT_LAYERS = 8
 
 
@@ -3318,8 +3564,9 @@ def phase_decode_split_w4(params, attn_ms, wall_s, new_tokens):
 def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, prune=None,
                    model=None):
     """Continuous batching at full Llama-3-8B width and depth (or
-    ``model``'s: Llama-3-8B cut in depth by ``cut_depth``, or Mistral-7B with
-    its window as ``serve_cb_swa_<codec>``): 8 slots, 17
+    ``model``'s: Llama-3-8B cut in depth by ``cut_depth``, Mistral-7B with
+    its window as ``serve_cb_swa_<codec>``, Mixtral-8x7B as
+    ``serve_cb_moe``): 8 slots, 17
     requests (16 with prompts of 200-1,500 tokens and 32-96 new tokens,
     plus one of 8,000 prompt tokens submitted third), chunked prefill with
     interleaved admission, ``codec`` at 0.7.  Every decode step must launch
@@ -3424,6 +3671,7 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
     del gen, cb
     torch.cuda.empty_cache()
     label = ("serve_cb_w4" if w4 else "serve_cb_opa" if scores
+             else "serve_cb_moe" if model.num_experts
              else "serve_cb_swa_" + codec.replace("-", "_") if model.sliding_window
              else "serve_cb" if codec == "q8q4" else "serve_cb_" + codec.replace("-", "_"))
     window = f", window {model.sliding_window}" if model.sliding_window else ""
@@ -3804,9 +4052,10 @@ def serve_swa(entries, other, reference_runs, cb_runs):
     ``serve_swa_bitmap`` (kernel 6): each decode kernel 32 x 299 launches,
     every first token equal to ``serve_swa_dense``'s; tok/s, prefill
     seconds (a prefill of the prompt alone) and peak memory.  Then the same
-    weights through the engine (``serve_cb_swa_q8q4``, ``serve_cb_swa_bitmap``:
-    ``phase_serve_cb``'s requests, kernels 2 and 3, or 7 and 8, with the
-    window) and the chunked Generator (``serve_swa_chunked``).  Fills the
+    weights through the engine (``serve_cb_swa_q8q4``, ``serve_cb_swa_bitmap``
+    at 8 of the 32 layers, CUT_LAYERS: ``phase_serve_cb``'s requests,
+    kernels 2 and 3, or 7 and 8, with the window) and the chunked Generator
+    (``serve_swa_chunked``).  Fills the
     window's launches in the kernels line (q8, q4q4 and bitmap-q8 from
     ``reference_swa``'s and ``reference_swa_cb``'s runs on the card, tiny
     model)."""
@@ -3862,13 +4111,17 @@ def serve_swa(entries, other, reference_runs, cb_runs):
         other[(codec, "decode")]["options"]["window"].update(
             launches=reference_runs[f"compressed/{codec}"]["launched"][name],
             launches_note="reference_swa's run on the card (tiny model, window 320)")
+    cut_model, cut_params = cut_depth(m, params)
     for codec in ("q8q4", "bitmap"):
-        launches, _ = phase_serve_cb(params, codec, model=m)
+        launches, _ = (phase_serve_cb(params, codec, model=m) if codec == "q8q4" else
+                       phase_serve_cb(cut_params, codec, model=cut_model))
+        layers = m.num_layers if codec == "q8q4" else CUT_LAYERS
         for kind in ("decode_ps", "segment"):
             entries[(codec, kind)]["options"]["window"].update(
                 launches=launches[_meta(codec, kind)[0]],
                 launches_note=f"serve_cb_swa_{codec}: every launch with the window "
-                              f"({m.sliding_window})")
+                              f"({m.sliding_window}), {layers} layers")
+    del cut_params
     for codec in ("q8", "q4q4", "bitmap-q8"):
         for kind in ("decode_ps", "segment"):
             other[(codec, kind)]["options"]["window"].update(
@@ -3877,6 +4130,150 @@ def serve_swa(entries, other, reference_runs, cb_runs):
                               "320)")
     phase_serve_swa_chunked(params, m, prompt, served["serve_swa_q8q4"])
     del params
+    torch.cuda.empty_cache()
+
+
+W8A8_NEW = 100   # new tokens of the W8A8 and Mixtral serve phases
+
+
+def serve_w8a8(params, prompt):
+    """Llama-3-8B in W8A8 at full width and depth (the W8 weights of seed 0,
+    ``enable_act_quant``: the int8 weights copied column-major, markers
+    added) through the ``Generator``, B=8, prompt 300, W8A8_NEW new tokens:
+    ``serve_w8a8_dense`` (no kernel) and ``serve_w8a8_q8q4`` (kernel 1 32 x
+    99, kernel 9 32 for prefill's chunk), first tokens equal between the
+    two; tok/s, prefill seconds, peak memory; and ``decode_split``'s parts
+    for the W8A8 step (a layer's seven projections and the LM head through
+    ``w8a8_dot``, device ms)."""
+    import torch
+    from mustafar_tpu_torch.config import CacheMode, LLAMA3_8B as m
+    from mustafar_tpu_torch.models.quant import enable_act_quant, weight_bytes
+    t = time.perf_counter()
+    a8 = enable_act_quant(params)
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t
+    steps = W8A8_NEW - 1
+    dense_toks = None
+    for label, mode, want in (("serve_w8a8_dense", CacheMode.DENSE, {}),
+                              ("serve_w8a8_q8q4", CacheMode.COMPRESSED,
+                               {"fused_q_decode_attention": m.num_layers * steps,
+                                "prune_quant_pack_kv": m.num_layers})):
+        toks, launches, fields = serve(label, mode, a8, prompt, W8A8_NEW, chunks_end=1,
+                                       time_prefill=True)
+        if dense_toks is None:
+            dense_toks = toks
+        first_equal = bool((toks[:, 0] == dense_toks[:, 0]).all())
+        parts = {}
+        if mode == CacheMode.COMPRESSED:
+            layer_ms, layer_host_us, head_ms = _step_parts(a8)
+            parts = {"w8a8_layer_ms": layer_ms, "w8a8_layer_host_us": layer_host_us,
+                     "w8a8_lm_head_ms": head_ms}
+        emit(label, model="llama-3-8b x32L, W8A8 (random W8, seed 0; enable_act_quant)",
+             weights_gib=weight_bytes(a8) / 2 ** 30, act_quant_layout_s=layout_s,
+             decode_steps=steps, expected_launches=want, first_token_equal_dense=first_equal,
+             token_agreement_with_dense=(toks == dense_toks).float().mean().item(),
+             **parts, **fields)
+        if launches != want or not first_equal:
+            raise AssertionError(f"{label}: launched {launches} (expected {want}), first "
+                                 f"tokens equal serve_w8a8_dense's: {first_equal}")
+    del a8
+    torch.cuda.empty_cache()
+
+
+def _moe_parts(params, m):
+    """At B=8, one decode step's parts on Mixtral: a layer's MoE MLP
+    (router, dispatch, the three expert products over all E experts,
+    combine), device ms averaged over every fourth layer, beside its bound
+    (the experts' int8 weights and scales and the router, read once, over
+    the card's memory rate) and its host us; a layer's four attention
+    projections (W8), device ms."""
+    import torch
+    from mustafar_tpu_torch.models.moe import moe_mlp
+    from mustafar_tpu_torch.models.quant import proj
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    h = torch.randn((8, 1, m.hidden_size), generator=g, device="cuda").to(torch.bfloat16)
+    hq = torch.randn((8, 1, m.q_dim), generator=g, device="cuda").to(torch.bfloat16)
+    layers = params["layers"]
+
+    def lp(li):
+        return {name: leaf[li] for name, leaf in layers.items()}
+
+    def attn(li):
+        p = lp(li)
+        for name in ("wq", "wk", "wv"):
+            proj(h, p, name)
+        proj(hq, p, "wo")
+
+    sampled = range(0, m.num_layers, 4)
+    with torch.inference_mode():
+        moe_mlp(m, lp(0), h)
+        attn(0)
+        torch.cuda.synchronize()
+        moe = [cuda_ms(lambda li=li: moe_mlp(m, lp(li), h), 3, spin_cycles=4 * SPIN_CYCLES)
+               for li in sampled]
+        attn_ms = sum(cuda_ms(lambda li=li: attn(li), 3)[0] for li in sampled) / len(sampled)
+        host = host_us(lambda: moe_mlp(m, lp(0), h), 5)
+    nbytes = sum(layers[k][0].numel() * layers[k].element_size()
+                 for k in layers if k.startswith("we_") or k == "w_router")
+    moe_ms = sum(t for t, _ in moe) / len(moe)
+    return {"moe_mlp_ms": moe_ms, "moe_mlp_bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+            "moe_mlp_bound_by": "bytes", "moe_mlp_bytes": nbytes,
+            "moe_mlp_share_of_bound": nbytes / H100_BYTES_PER_S * 1e3 / moe_ms,
+            "moe_mlp_host_us": host, "moe_mlp_waited_on_host": sum(b for _, b in moe),
+            "attention_projections_ms": attn_ms}
+
+
+def serve_moe():
+    """Mixtral-8x7B (``MIXTRAL_8X7B``: Mistral-7B's attention, 8 experts of
+    14,336, top-2) at full width and 32 layers, W8 random weights from seed
+    0 (``init_params_w8``: the experts drawn one (layer, expert) at a time
+    into int8), made after every other model is freed.  The ``Generator``,
+    B=8, prompt 300, W8A8_NEW new tokens: ``serve_moe_dense`` (no kernel),
+    ``serve_moe_q8q4`` (kernel 1 32 x 99, kernel 9 32), ``serve_moe_bitmap``
+    (kernel 6 32 x 99), first tokens equal to the dense run's; tok/s,
+    prefill seconds, peak memory, weights GiB, and one decode step's MoE
+    MLP and attention projections (``_moe_parts``).  Then the engine on
+    ``phase_serve_cb``'s 17 requests at q8q4 (``serve_cb_moe``), at 8 of
+    the 32 layers (CUT_LAYERS)."""
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.config import CacheMode, MIXTRAL_8X7B as m
+    from mustafar_tpu_torch.models.quant import init_params_w8, weight_bytes
+    t = time.perf_counter()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    params = init_params_w8(m, g, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    L, steps = m.num_layers, W8A8_NEW - 1
+    prompt = np.random.RandomState(0).randint(1, m.vocab_size, (8, 300))
+    note = (f"{m.name} x{L}L, {m.num_experts} experts top-{m.num_experts_per_tok}, W8 "
+            f"(random, seed 0)")
+    parts = _moe_parts(params, m)
+    dense_toks = None
+    for label, mode, codec, want in (
+            ("serve_moe_dense", CacheMode.DENSE, "q8q4", {}),
+            ("serve_moe_q8q4", CacheMode.COMPRESSED, "q8q4",
+             {"fused_q_decode_attention": L * steps, "prune_quant_pack_kv": L}),
+            ("serve_moe_bitmap", CacheMode.COMPRESSED, "bitmap",
+             {"fused_sparse_decode_attention": L * steps})):
+        toks, launches, fields = serve(label, mode, params, prompt, W8A8_NEW, codec=codec,
+                                       model=m, chunks_end=1, time_prefill=True)
+        if dense_toks is None:
+            dense_toks = toks
+        first_equal = bool((toks[:, 0] == dense_toks[:, 0]).all())
+        emit(label, model=note, weights_gib=weight_bytes(params) / 2 ** 30,
+             weights_init_s=init_s, decode_steps=steps, expected_launches=want,
+             first_token_equal_dense=first_equal,
+             token_agreement_with_dense=(toks == dense_toks).float().mean().item(),
+             **(parts if mode == CacheMode.DENSE else {}), **fields)
+        if launches != want or not first_equal:
+            raise AssertionError(f"{label}: launched {launches} (expected {want}), first "
+                                 f"tokens equal serve_moe_dense's: {first_equal}")
+    cut_model, cut_params = cut_depth(m, params)
+    phase_serve_cb(cut_params, "q8q4", model=cut_model)
+    del params, cut_params
     torch.cuda.empty_cache()
 
 
@@ -3927,6 +4324,8 @@ def main():
     swa_runs = phase_reference_swa()
     swa_cb_runs = phase_reference_swa_cb()
     phase_reference_sample()
+    phase_reference_w8a8()
+    phase_reference_moe()
 
     import numpy as np
     import torch
@@ -4055,10 +4454,12 @@ def main():
                   "serve_cb_bitmap / serve_cb_bitmap_q8")
     phase_serve_chunked(params)
     phase_host_split(cut_params, cut_model)
+    serve_w8a8(params, prompt)
     del params, cut_params
     torch.cuda.empty_cache()
     serve_swa(entries, other, swa_runs, swa_cb_runs)
     serve_w4(entries, prompt, new)
+    serve_moe()
 
     print(smi, flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)

@@ -2,11 +2,12 @@
 
 The port keeps its own copy of the JAX package's config (``mustafar_tpu/
 config.py``): it imports nothing of that package.  Only what the served path
-reads is carried over: the Llama geometry, the pruning policies, the cache
-modes, and the engine settings of the compressed cache, continuous batching
-and chunked prefill, and the named architectures (``MODEL_REGISTRY``).
-Fields of the JAX config that select paths the port does not have yet (MoE,
-sharding axes) are left out until those paths land.
+reads is carried over: the Llama geometry with Mixtral's sparse-MoE MLP,
+the pruning policies, the cache modes, and the engine settings of the
+compressed cache, continuous batching and chunked prefill, and the named
+architectures (``MODEL_REGISTRY``; ``MIXTRAL_8X7B`` stays out of it, as in
+the JAX package).  Fields of the JAX config that select paths the port does
+not have yet (sharding axes) are left out until those paths land.
 """
 
 from __future__ import annotations
@@ -89,10 +90,14 @@ class PruneConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Llama / Mistral architecture hyperparameters.  ``sliding_window``
-    (Mistral): a query at position p attends keys k with p - window < k <=
-    p.  ``dtype`` names the checkpoint's parameter type, as the JAX
-    package's config records it; the caller picks the type it runs in."""
+    """Llama / Mistral / Mixtral architecture hyperparameters.
+    ``sliding_window`` (Mistral): a query at position p attends keys k with
+    p - window < k <= p.  ``dtype`` names the checkpoint's parameter type,
+    as the JAX package's config records it; the caller picks the type it
+    runs in.  ``num_experts`` > 0 replaces the dense MLP by Mixtral's
+    sparse MoE (``models/moe.py``): each token's top
+    ``num_experts_per_tok`` experts, each expert taking at most its
+    capacity (``expert_capacity_factor``) of a token group."""
 
     name: str = "llama"
     vocab_size: int = 32000
@@ -109,6 +114,9 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     tie_word_embeddings: bool = False
     dtype: str = "bfloat16"
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    expert_capacity_factor: float = 2.0
 
     @property
     def q_dim(self) -> int:
@@ -139,6 +147,10 @@ MISTRAL_7B = ModelConfig(
 )
 
 MISTRAL_7B_SWA = dataclasses.replace(MISTRAL_7B, name="mistral-7b-swa", sliding_window=4096)
+
+# Mistral-7B's attention with 8 experts, top-2 (not in MODEL_REGISTRY)
+MIXTRAL_8X7B = dataclasses.replace(
+    MISTRAL_7B, name="mixtral-8x7b", num_experts=8, num_experts_per_tok=2)
 
 TINY_LLAMA = ModelConfig(
     name="tiny-llama", vocab_size=512, hidden_size=128, intermediate_size=256,

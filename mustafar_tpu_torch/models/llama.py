@@ -1,4 +1,5 @@
-"""Llama-2/3 and Mistral forward pass, port of ``mustafar_tpu/models/llama.py``.
+"""Llama-2/3, Mistral and Mixtral forward pass, port of
+``mustafar_tpu/models/llama.py``.
 
 Params are a plain dict with the JAX package's layout: per-layer leaves
 stacked on axis 0 ([L, in, out] weights, [L, H] norms).  The JAX package
@@ -8,7 +9,8 @@ scans over layers; here a Python loop takes layer ``li``'s leaves as views
 the model's ``sliding_window`` in prefill and decode, as the JAX package's
 caches do, and updates its state dict IN PLACE: one
 cache buffer lives for the whole generation, where JAX threads immutable
-state through the scan.
+state through the scan.  A layer whose leaves hold ``w_router`` runs
+Mixtral's sparse-MoE MLP (``models/moe.py``) in place of the dense one.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch.nn.functional as F
 
 from mustafar_tpu_torch.config import ModelConfig
 from mustafar_tpu_torch.device import resolve_device
-from mustafar_tpu_torch.models.quant import embed_lookup, proj
+from mustafar_tpu_torch.models.moe import init_moe_params, moe_mlp
+from mustafar_tpu_torch.models.quant import embed_lookup, proj, w8a8_dot
 from mustafar_tpu_torch.models.rope import apply_rope, rope_cos_sin
 
 
@@ -35,7 +38,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     """Random params in ``dtype`` on ``device`` (default ``cuda``), drawn one
     layer at a time from ``generator``.  Same structure and scales as the
     JAX package's ``init_params``; the random bits differ (parity tests carry
-    JAX weights across with ``weights.params_from_jax``)."""
+    JAX weights across with ``weights.params_from_jax``).  With
+    ``num_experts`` the dense MLP's leaves give way to the MoE leaves
+    (``moe.init_moe_params``)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
@@ -64,12 +69,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
             "wv": w(H, Dkv, stacked=True),
             "wo": w(Dq, H, stacked=True),
             "mlp_norm": torch.ones((L, H), dtype=dtype, device=dev),
-            "w_gate": w(H, I, stacked=True),
-            "w_up": w(H, I, stacked=True),
-            "w_down": w(I, H, stacked=True),
         },
         "final_norm": torch.ones((H,), dtype=dtype, device=dev),
     }
+    if cfg.num_experts:
+        params["layers"].update(init_moe_params(cfg, generator, dev, dtype))
+    else:
+        params["layers"].update(w_gate=w(H, I, stacked=True), w_up=w(H, I, stacked=True),
+                                w_down=w(I, H, stacked=True))
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w(H, cfg.vocab_size, scale=0.02)
     return params
@@ -103,15 +110,20 @@ def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin, attend):
     attn = attend(q, k, v)
     x = x + proj(attn.reshape(B, T, cfg.q_dim), lp, "wo")
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    if "w_router" in lp:
+        return x + moe_mlp(cfg, lp, h)
     return x + _mlp(lp, h)
 
 
 def _lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """f32 logits; an int8 head is scaled per vocab column after the dot."""
+    """f32 logits; an int8 head is scaled per vocab column after the dot, or
+    with the ``act_quant`` marker goes through ``w8a8_dot``."""
     if cfg.tie_word_embeddings:
         head, scale = params["embed"].T, params.get("embed_scale")
     else:
         head, scale = params["lm_head"], params.get("lm_head_scale")
+    if head.dtype == torch.int8 and "act_quant" in params:
+        return w8a8_dot(x, head, scale, out_dtype=torch.float32)
     logits = (x @ head.to(x.dtype)).to(torch.float32)
     if head.dtype == torch.int8:
         logits = logits * scale

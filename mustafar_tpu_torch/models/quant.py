@@ -1,5 +1,5 @@
-"""Weight-only int8 (W8) and int4 (W4) serving, port of
-``mustafar_tpu/models/quant.py`` (``fuse_projections`` included).
+"""Int8 (W8, and W8A8 with int8 activations) and int4 (W4) weights, port
+of ``mustafar_tpu/models/quant.py`` (``fuse_projections`` included).
 
 W8: each 2-D weight w [in, out] (stacked: [L, in, out]) becomes
   w_q  int8   same shape            round(w / s), clipped to +-127
@@ -16,7 +16,21 @@ them, byte for byte:
             128-row block b, carrier row b*32 + r holds in-rows
             b*128 + 32 j + r in nibble j (j = 0..3, two's complement)
   scales    bf16   [in/128, out] ([L, in/128, out])
-The embedding and the LM head stay W8.  ``proj`` sends an int16 weight to
+The embedding and the LM head stay W8, and so do Mixtral's experts
+(``_MOE_KEYS``, [L, E, in, out], one scale per (expert, out-channel)); the
+router keeps its dtype under every format.
+
+W8A8 (``enable_act_quant``: marker leaves ``layers["a8"]`` [L, 1] and
+``act_quant`` [1], int8): every int8 projection, the int8 LM head and the
+int8 experts quantize their input per row (per token) to int8 over the
+contraction axis (``act_quant``: scale max|x| / 127, codes by division,
+rounded half to even) and multiply int8 x int8 with int32 accumulation
+(``int8_matmul``: ``torch._int_mm`` on the card, whose cuBLASLt route
+takes more than 16 rows, so fewer are padded with zero rows; an int32
+matmul on the CPU; both exact), then scale by the two scales in f32.
+The weights are W8's, stored column-major for the card's int8 route.
+
+``proj`` sends an int16 weight to
 ``_w4_dot``: on the card, at most 128 tokens go through the hand-written
 kernel (``ops/kernels/w4_matmul.py``), which unpacks the nibbles in
 registers; more tokens, and everything on the CPU, take the JAX package's
@@ -38,6 +52,9 @@ from mustafar_tpu_torch.ops.kernels.w4_matmul import MAX_TOKENS, unpack_w4, w4_m
 from mustafar_tpu_torch.ops.quant_format import recip_f32
 
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# Mixtral's expert leaves [L, E, in, out]: int8 per (expert, out-channel)
+# under W8 and W4 alike (the JAX package has no W4 expert product)
+_MOE_KEYS = ("we_gate", "we_up", "we_down")
 
 
 def _quant_last(w: torch.Tensor):
@@ -100,11 +117,12 @@ def _quant_pack_w4(w: torch.Tensor):
 
 
 def quantize_params(params: dict) -> dict:
-    """Quantize a llama params dict to W8 (idempotent on int8 leaves).
-    Norm weights keep their dtype."""
+    """Quantize a llama params dict to W8 (idempotent on int8 leaves): the
+    projections and experts per out-channel, the embedding per row.  Norm
+    weights and the router keep their dtype."""
     out = dict(params)
     layers = dict(params["layers"])
-    for name in _LAYER_KEYS:
+    for name in _LAYER_KEYS + _MOE_KEYS:
         w = layers.get(name)
         if w is None or w.dtype == torch.int8:
             continue
@@ -121,7 +139,8 @@ def quantize_params_w4(params: dict) -> dict:
     """Quantize a llama params dict to W4 (idempotent on int16 and int8
     leaves): the layer projections to int16 carriers with bf16 block scales,
     the embedding and the LM head to W8.  Every projection's ``in`` must be
-    a multiple of 128.  Norm weights keep their dtype."""
+    a multiple of 128.  Experts go to W8 (``_MOE_KEYS``); norm weights and
+    the router keep their dtype."""
     out = dict(params)
     layers = dict(params["layers"])
     for name in _LAYER_KEYS:
@@ -132,6 +151,10 @@ def quantize_params_w4(params: dict) -> dict:
             raise ValueError(f"W4 needs {name}'s in-dim to be a multiple of 128, "
                              f"got {tuple(w.shape)}")
         layers[name], layers[name + "_scale"] = _quant_pack_w4(w)
+    for name in _MOE_KEYS:
+        w = layers.get(name)
+        if w is not None and w.dtype != torch.int8:
+            layers[name], layers[name + "_scale"] = _quant_last(w)
     out["layers"] = layers
     if params["embed"].dtype != torch.int8:
         out["embed"], out["embed_scale"] = _quant_rows(params["embed"])
@@ -140,12 +163,79 @@ def quantize_params_w4(params: dict) -> dict:
     return out
 
 
+def enable_act_quant(params: dict) -> dict:
+    """Mark a W8 params dict for W8A8 serving: ``layers["a8"]`` [L, 1] and
+    ``act_quant`` [1], int8 zeros, whose presence sends the int8
+    projections, experts and LM head through ``w8a8_dot`` (module note).
+
+    The int8 weights it multiplies (each leaf with a ``_scale``, and the
+    LM head) are copied into column-major storage: the same [in, out]
+    values with the ``in`` axis contiguous, the layout in which
+    ``torch._int_mm`` takes its fast cuBLASLt route (on an H100 at decode's
+    shapes 4-10x the row-major one's speed; ``chip_smoke.py``
+    ``reference_w8a8``)."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for name, w in params["layers"].items():
+        if w.dtype == torch.int8 and name + "_scale" in layers:
+            layers[name] = _col_major(w)
+    if out.get("lm_head") is not None and out["lm_head"].dtype == torch.int8:
+        out["lm_head"] = _col_major(out["lm_head"])
+    norm = layers["attn_norm"]
+    layers["a8"] = torch.zeros((norm.shape[0], 1), dtype=torch.int8, device=norm.device)
+    out["layers"] = layers
+    out["act_quant"] = torch.zeros((1,), dtype=torch.int8, device=norm.device)
+    return out
+
+
+def _col_major(w: torch.Tensor) -> torch.Tensor:
+    """w's values with its last two axes stored transposed."""
+    return w.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def act_quant(x: torch.Tensor):
+    """Per-row symmetric int8 over the last axis: (codes int8, scales f32
+    [..., 1]) with scale max(max|x|, 1e-30) / 127 (a row of zeros gives
+    codes 0)."""
+    xf = x.to(torch.float32)
+    sx = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-30) * recip_f32(127.0)
+    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    return xq, sx
+
+
+_INT_MM_MIN_ROWS = 17   # torch._int_mm on the card takes more than 16 rows
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] int8 @ b [K, N] int8 -> int32 [M, N], exact: ``torch._int_mm``
+    on the card (rows padded with zeros to ``_INT_MM_MIN_ROWS``; K and N
+    multiples of 8; b best column-major, see ``enable_act_quant``), an
+    int32 matmul on the CPU."""
+    if a.device.type == "cpu":
+        return a.to(torch.int32) @ b.to(torch.int32)
+    M = a.shape[0]
+    if M >= _INT_MM_MIN_ROWS:
+        return torch._int_mm(a, b)
+    pad = a.new_zeros((_INT_MM_MIN_ROWS, a.shape[1]))
+    pad[:M] = a
+    return torch._int_mm(pad, b)[:M]
+
+
+def w8a8_dot(h: torch.Tensor, w: torch.Tensor, s: torch.Tensor, out_dtype=None):
+    """h [..., in] @ int8 w [in, out] with per-out scales s: h quantized per
+    row (``act_quant``), int8 x int8 -> int32, then acc * sx * s in f32,
+    cast to ``out_dtype`` (h's by default)."""
+    xq, sx = act_quant(h)
+    acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), w).reshape(*h.shape[:-1], w.shape[-1])
+    return (acc.to(torch.float32) * sx * s.to(torch.float32)).to(out_dtype or h.dtype)
+
+
 def fuse_projections(params: dict) -> dict:
     """Concatenate wq, wk, wv into ``wqkv`` and w_gate, w_up into
     ``w_gateup`` along the out-channel axis, with their scales (bf16, W8 and
-    W4 alike: every format keeps out-channels last).  A layout change only:
-    ``models/llama.py`` splits the fused products, and the logits are those
-    of the unfused params."""
+    W4 alike: every format keeps out-channels last; the W8A8 markers stay).
+    A layout change only: ``models/llama.py`` splits the fused products,
+    and the logits are those of the unfused params."""
     out = dict(params)
     layers = dict(params["layers"])
 
@@ -167,12 +257,15 @@ def fuse_projections(params: dict) -> dict:
 
 
 def proj(h: torch.Tensor, lp: dict, name: str) -> torch.Tensor:
-    """h @ lp[name]: int8 weights dequantized with their per-out scale, int16
-    (W4) carriers through ``_w4_dot``."""
+    """h @ lp[name]: int8 weights dequantized with their per-out scale, or
+    with the ``"a8"`` marker through ``w8a8_dot``; int16 (W4) carriers
+    through ``_w4_dot``."""
     w = lp[name]
     if w.dtype == torch.int16:
         return _w4_dot(h, w, lp[name + "_scale"])
     if w.dtype == torch.int8:
+        if "a8" in lp:
+            return w8a8_dot(h, w, lp[name + "_scale"])
         return (h @ w.to(h.dtype)) * lp[name + "_scale"].to(h.dtype)
     return h @ w
 
@@ -226,7 +319,13 @@ def init_params_w8(cfg, generator: torch.Generator | None = None,
     whole-model f32 or bf16 copy ever exists.  The embedding and LM head are
     drawn in blocks of rows (columns for the head).  Same structure and
     scales of randomness as the JAX package's ``init_params_w8``; the random
-    bits differ."""
+    bits differ.  For a MoE config (``num_experts``) the dense MLP is
+    replaced by the router (bf16) and the experts, drawn one (layer,
+    expert) at a time into int8 stacks with per-(expert, out-channel)
+    scales: the structure of the JAX package's
+    ``quantize_params(init_params(cfg))``.  (The JAX ``init_params_w8``
+    builds a dense MLP even for a MoE config; a bf16 Mixtral-8x7B, ~93 GB,
+    cannot be made on one 80 GB card to be quantized afterwards.)"""
     return _init_params_quantized(cfg, generator, device, seed, w4=False)
 
 
@@ -236,7 +335,10 @@ def init_params_w4(cfg, generator: torch.Generator | None = None,
     the embedding and the LM head in W8), drawn as ``init_params_w8`` draws
     them: one layer at a time, from the same stream of random numbers, so a
     seed gives the same underlying weights in both formats.  Same structure
-    as the JAX package's ``init_params_w4``; the random bits differ."""
+    as the JAX package's ``init_params_w4``; the random bits differ.  A MoE
+    config's experts are W8 (``_MOE_KEYS``), as ``init_params_w8`` makes
+    them: the structure of the JAX package's
+    ``quantize_params_w4(init_params(cfg))``."""
     return _init_params_quantized(cfg, generator, device, seed, w4=True)
 
 
@@ -255,9 +357,9 @@ def _init_params_quantized(cfg, generator, device, seed: int, w4: bool) -> dict:
 
     layers = {"attn_norm": torch.ones((L, H), dtype=torch.bfloat16, device=dev),
               "mlp_norm": torch.ones((L, H), dtype=torch.bfloat16, device=dev)}
+    mlp = [("w_gate", H, I), ("w_up", H, I), ("w_down", I, H)]
     for name, din, dout in [("wq", H, Dq), ("wk", H, Dkv), ("wv", H, Dkv),
-                            ("wo", Dq, H), ("w_gate", H, I), ("w_up", H, I),
-                            ("w_down", I, H)]:
+                            ("wo", Dq, H)] + ([] if cfg.num_experts else mlp):
         if w4:
             q = torch.empty((L, din // 4, dout), dtype=torch.int16, device=dev)
             s = torch.empty((L, din // 128, dout), dtype=torch.bfloat16, device=dev)
@@ -269,6 +371,22 @@ def _init_params_quantized(cfg, generator, device, seed: int, w4: bool) -> dict:
             q[li], s[li] = quant(randn(din, dout, scale=1.0 / math.sqrt(din)))
         layers[name] = q
         layers[name + "_scale"] = s
+    if cfg.num_experts:
+        E = cfg.num_experts
+        router = torch.empty((L, H, E), dtype=torch.bfloat16, device=dev)
+        for li in range(L):
+            router[li] = randn(H, E, scale=0.02)
+        layers["w_router"] = router
+        for name, din, dout in mlp:
+            name = "we" + name[1:]
+            q = torch.empty((L, E, din, dout), dtype=torch.int8, device=dev)
+            s = torch.empty((L, E, dout), dtype=torch.float32, device=dev)
+            for li in range(L):
+                for e in range(E):
+                    q[li, e], s[li, e] = _quant_last(randn(din, dout,
+                                                           scale=1.0 / math.sqrt(din)))
+            layers[name] = q
+            layers[name + "_scale"] = s
 
     emb = torch.empty((V, H), dtype=torch.int8, device=dev)
     emb_s = torch.empty((V,), dtype=torch.float32, device=dev)

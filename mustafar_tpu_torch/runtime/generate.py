@@ -16,7 +16,9 @@ Sampling (``SamplingParams`` with a temperature above 0) is the JAX
 package's ``_sample``: the logits over the temperature, then top-k (the
 tokens below the k-th largest logit dropped, so ties at the k-th are kept),
 then top-p (sorted, a token kept while the probability before it sums
-below p; the first always kept), then one categorical draw.  The draw is
+below p: so at p > 0 the first is kept, its sum being 0, and at p <= 0
+none is, every logit is -inf and the draw returns token 0, as JAX's
+categorical does), then one categorical draw.  The draw is
 a Gumbel-max over uniforms from a ``torch.Generator`` on the logits'
 device seeded from (seed, pick step), as the JAX package folds the step
 into its key: the same (seed, step, logits) give the same tokens on one
@@ -67,7 +69,6 @@ def filter_logits(logits2d: torch.Tensor, sp: SamplingParams) -> torch.Tensor:
         srt = torch.sort(l, dim=-1, descending=True).values
         probs = torch.softmax(srt, dim=-1)
         keep = (torch.cumsum(probs, dim=-1) - probs) < sp.top_p
-        keep[:, 0] = True
         cutoff = torch.where(keep, srt, float("inf")).amin(dim=-1, keepdim=True)
         l = torch.where(l < cutoff, float("-inf"), l)
     return l

@@ -24,9 +24,6 @@ import torch
 from mustafar_tpu_torch.config import ModelConfig
 from mustafar_tpu_torch.device import resolve_device
 
-# config.json keys of the JAX config's MoE MLP, which the port has not got yet
-_MOE_KEYS = ("num_experts", "num_experts_per_tok", "expert_capacity_factor")
-
 
 def _leaf(a, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
@@ -51,19 +48,16 @@ def params_from_jax(np_tree: dict, device=None) -> dict:
 
 def load_ckpt(ckpt_dir: str, device=None):
     """(ModelConfig, params) of a checkpoint directory, the params f32 (as
-    ``params.npz`` holds them) on ``device`` (default ``cuda``).  A config with MoE experts
-    is refused (the port has no MoE MLP yet); the MoE keys of a dense
-    model's config are dropped."""
+    ``params.npz`` holds them) on ``device`` (default ``cuda``).  A MoE
+    model's config keeps its expert fields and its params their MoE leaves;
+    a config key the port's ``ModelConfig`` does not have is refused."""
     with open(os.path.join(ckpt_dir, "config.json")) as f:
         raw = json.load(f)
-    if raw.get("num_experts", 0):
-        raise NotImplementedError(f"{ckpt_dir}: a MoE model ({raw['num_experts']} experts); "
-                                  f"the port's MoE MLP is ROADMAP Queue A item 14")
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
-    unknown = set(raw) - fields - set(_MOE_KEYS)
+    unknown = set(raw) - fields
     if unknown:
         raise ValueError(f"{ckpt_dir}: unknown config keys {sorted(unknown)}")
-    cfg = ModelConfig(**{k: v for k, v in raw.items() if k in fields})
+    cfg = ModelConfig(**raw)
     dev = resolve_device(device)
     params: dict = {"layers": {}}
     with np.load(os.path.join(ckpt_dir, "params.npz")) as data:

@@ -1,9 +1,9 @@
 """Port guards (h): no module of ``mustafar_tpu_torch`` and not
-``chip_smoke.py`` imports ``jax`` or anything of ``mustafar_tpu``; the
-machine with the card has no JAX, and one stray import would stop the port
-there.  Checked twice: an AST scan of every import statement, and importing
-every module in a fresh interpreter where ``jax`` and ``mustafar_tpu``
-cannot be imported.
+``chip_smoke.py`` imports ``jax``, anything of ``mustafar_tpu`` or
+``transformers``; the machine with the card has none of them, and one
+stray import would stop the port there.  Checked twice: an AST scan of
+every import statement, and importing every module in a fresh interpreter
+where none of them can be imported.
 """
 
 import ast
@@ -16,7 +16,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "mustafar_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "mustafar_tpu")
+FORBIDDEN = ("jax", "jaxlib", "mustafar_tpu", "transformers")
 
 
 def _imported_modules(path: Path):
@@ -45,7 +45,7 @@ def test_port_imports_with_jax_unavailable():
         for p in (ROOT / "mustafar_tpu_torch").rglob("*.py"))
     code = (
         "import sys, importlib, runpy\n"
-        "for name in ('jax', 'jaxlib', 'mustafar_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'mustafar_tpu', 'transformers'):\n"
         "    sys.modules[name] = None\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"

@@ -7,7 +7,8 @@ draws the ``Generator`` and the engine make with it.
     kept set, and every kept token of probability at least 1/200 under the
     filtered softmax appears among them (a miss has probability
     (1 - 1/200)^4000 < 3e-9).  Top-k keeps the ties at the k-th logit
-    (JAX's rule, ``l < kth`` dropped); top-p keeps the first token always.
+    (JAX's rule, ``l < kth`` dropped); top-p keeps the first token at any
+    p > 0 and no token at p <= 0, where both packages draw token 0.
 (d) The port's draws: reproducible per (seed, step), in the kept set, spread
     over it; top-k 1 is greedy.  The ``Generator`` and the engine sample
     with it (dense cache, CPU): the same seed gives the same tokens, top-k 1
@@ -107,6 +108,21 @@ def test_top_p_keeps_the_first_token():
         assert (draws == logits.argmax(-1)[None]).all()
         got = tg.sample(torch.from_numpy(logits), tg.SamplingParams(**sp), 5)
         assert (got.numpy() == logits.argmax(-1)).all()
+
+
+@pytest.mark.parametrize("top_p", [0.0, -0.5])
+def test_top_p_at_or_below_zero_draws_token_0(top_p):
+    """At top_p <= 0 JAX's filter keeps no token: every logit is -inf and
+    its categorical draw returns index 0 in every row.  The port keeps none
+    either, and its Gumbel-max draw returns 0 too (the Generator's draws
+    included)."""
+    logits = _logits()
+    sp = dict(temperature=1.0, top_p=top_p)
+    assert (_jax_draws(logits, sp)[:50] == 0).all()
+    kept = tg.filter_logits(torch.from_numpy(logits), tg.SamplingParams(**sp))
+    assert torch.isneginf(kept).all()
+    for step in range(1, 20):
+        assert (tg.sample(torch.from_numpy(logits), tg.SamplingParams(**sp), step) == 0).all()
 
 
 def test_draws_reproducible_per_seed_and_step():

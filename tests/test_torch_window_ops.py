@@ -10,9 +10,10 @@ the named configs and the checkpoint reader.
     banded; a window that covers the prompt is vacuous and gives the causal
     output bit for bit; no window is causal.
 (c) ``MODEL_REGISTRY`` and its configs hold the JAX package's values in
-    every field the port has (MoE, which the port has not got, aside).
+    every field the port has (the MoE fields included).
 (l) ``load_ckpt`` reads a checkpoint directory (config and stacked params)
-    as the JAX harness's ``load_ckpt`` does, and refuses a MoE one.
+    as the JAX harness's ``load_ckpt`` does, a MoE one too, and refuses a
+    config key it does not know.
 """
 
 import dataclasses
@@ -119,8 +120,9 @@ def test_registry_matches_jax():
 
 def test_load_ckpt_matches_the_jax_reader(tmp_path):
     """A small checkpoint written by the JAX harness's ``save_ckpt`` reads
-    back with the same config and the same arrays; the MoE keys of a dense
-    config are dropped; a MoE config is refused."""
+    back with the same config and the same arrays, a dense one and a MoE
+    one (its expert fields and leaves kept); an unknown config key is
+    refused."""
     from mustafar_tpu.models.llama import init_params
     import jax
     cfg = dataclasses.replace(jc.TINY_LLAMA, sliding_window=96, num_layers=1)
@@ -135,10 +137,21 @@ def test_load_ckpt_matches_the_jax_reader(tmp_path):
         np.testing.assert_array_equal(tparams["layers"][key].numpy(), np.asarray(val))
     np.testing.assert_array_equal(tparams["embed"].numpy(), np.asarray(jparams["embed"]))
     assert tparams["embed"].dtype == torch.float32
+    moe = dataclasses.replace(cfg, num_experts=4, num_experts_per_tok=2,
+                              expert_capacity_factor=1.5)
+    moe_dir = tmp_path / "moe"
+    jtl.save_ckpt(str(moe_dir), moe, init_params(moe, jax.random.PRNGKey(1),
+                                                 dtype=jnp.float32))
+    jcfg, jparams = jtl.load_ckpt(str(moe_dir))
+    tcfg, tparams = load_ckpt(str(moe_dir), device="cpu")
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert (tcfg.num_experts, tcfg.num_experts_per_tok, tcfg.expert_capacity_factor) == (
+        4, 2, 1.5)
+    assert tparams["layers"].keys() == jparams["layers"].keys()
+    assert "we_gate" in tparams["layers"] and "w_gate" not in tparams["layers"]
+    for key, val in jparams["layers"].items():
+        np.testing.assert_array_equal(tparams["layers"][key].numpy(), np.asarray(val))
     raw = json.loads((tmp_path / "config.json").read_text())
-    (tmp_path / "config.json").write_text(json.dumps(dict(raw, num_experts=8)))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        load_ckpt(str(tmp_path), device="cpu")
     (tmp_path / "config.json").write_text(json.dumps(dict(raw, bogus=1)))
     with pytest.raises(ValueError, match="bogus"):
         load_ckpt(str(tmp_path), device="cpu")
