@@ -4,7 +4,11 @@
 
 Phases, each printing one flushed JSON line with its ``phase`` and
 ``elapsed_s``:
-  env           torch / CUDA versions, the card's name and power limit
+  env           torch / CUDA versions, the card's name and power limit, which
+                of the harness's optional packages import (safetensors,
+                tokenizers, jinja2, rouge, jieba) and which corpus roots of
+                the harness exist (none: the interpreter's standard library
+                is read instead, and the line says so)
   build         nvcc builds the eleven kernel libraries at once (csrc/q_decode.cu,
                 csrc/q_decode_ps.cu, csrc/q_segment.cu, csrc/sp_decode.cu: the
                 bitmap uniform and per-slot entries, csrc/sp_segment.cu, both
@@ -216,7 +220,10 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 requests (one of 8,000 prompt tokens), chunked interleaved
                 admission; per-slot and segment kernel launches = 32 x decode
                 steps and 32 x segments; first tokens = a batch-1 chunked
-                Generator's
+                Generator's; the slot bookkeeping in the native core
+                (native/scheduler.cpp, built with g++), whose stats must
+                show every request admitted and finished and none refused
+                (every serve_cb* phase)
   serve_cb_bitmap, serve_cb_bitmap_q8
                 serve_cb with the bitmap and bitmap-q8 codecs (peak memory
                 and pool bytes side by side), at 8 of the 32 layers
@@ -235,30 +242,36 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 at the end
   serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64
   serve_swa_dense, serve_swa_dense_kernel, serve_swa_q8q4, serve_swa_bitmap
-                Mistral-7B with its 4,096 window (MISTRAL_7B_SWA), 32 layers,
-                W8 (random, seed 0), B=4, prompt 4,400 (banded prefill), 300
-                new tokens (chunk 0 below the window from the first step;
-                one compaction): the dense cache plain and through kernel 4,
-                q8q4 (kernel 1, kernel 9) and bitmap (kernel 6) with the
-                window, 32 x 299 decode launches; first tokens =
+                Mistral-7B with its 4,096 window (MISTRAL_7B_SWA), full
+                width, 8 of its 32 layers (CUT_LAYERS), W8 (random, seed 0),
+                B=4, prompt 4,400 (banded prefill), 300 new tokens (chunk 0
+                below the window from the first step; one compaction): the
+                dense cache plain and through kernel 4, q8q4 (kernel 1,
+                kernel 9) and bitmap (kernel 6) with the window, 8 x 299
+                decode launches; first tokens =
                 serve_swa_dense's; tok/s, prefill seconds, peak memory
   serve_cb_swa_q8q4, serve_cb_swa_bitmap
                 serve_cb's requests (17, one of 8,000 tokens) through the
-                engine on Mistral-7B with its window, full width, at q8q4
-                full depth, at bitmap 8 of the 32 layers (CUT_LAYERS): the
-                per-slot and segment kernels with the window layers x steps
-                and layers x segments (kernel 9 for q8q4), first tokens = a
+                engine on Mistral-7B with its window, full width, at 8 of
+                the 32 layers (CUT_LAYERS): the per-slot and segment kernels
+                with the window 8 x steps and 8 x segments (kernel 9 for
+                q8q4), first tokens = a
                 batch-1 chunked Generator's; tok/s, peak memory, tick times
   serve_swa_chunked
-                the chunked Generator on Mistral-7B, B=4, serve_swa's
-                4,400-token prompt (18 segments) + 64: kernel 3 32 a
-                segment, kernel 1 32 a step, kernel 9 32 a packed chunk;
+                the chunked Generator on Mistral-7B (serve_swa's 8 layers),
+                B=4, serve_swa's 4,400-token prompt (18 segments) + 64:
+                kernel 3 8 a segment, kernel 1 8 a step, kernel 9 8 a packed
+                chunk;
                 token agreement with serve_swa_q8q4
   host_split    one segment (B=1) at q8q4, bitmap and bitmap-q8, one K and V
                 pack of a chunk at each, one decode tick (8 slots, q8q4) and
                 one each of q8q4 and bitmap with an 8,000-token slot: host
                 enqueue time, wall time, device time and kernels launched;
                 at 8 of the 32 layers (CUT_LAYERS)
+  slot_core     the engine's slot bookkeeping alone, host us a tick (one
+                fill, a commit a busy slot; 8 slots, 64 requests of 300 +
+                64), the native core against the Python rule kept for a
+                host without g++; both admit and retire all 64
   serve_w4_dense, serve_w4_q8q4, serve_w4_bitmap
                 the Generator at full width and depth with W4 weights
                 (init_params_w4, seed 0), B=8, 300 + 300: W4 kernel 7 x 32 and
@@ -287,6 +300,30 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 (CUT_LAYERS): kernels 2 and 3 8 x steps and segments,
                 kernel 9 at the packing counts, first tokens = a batch-1
                 chunked Generator's
+  harness_predict
+                the LongBench harness (predict_dataset, evaluate_dir) on
+                Llama-3-8B at full width and depth, W8 (this run's params),
+                synthetic passkey / passage_retrieval_en / trec rows (2 each,
+                ~3,000 bytes of context), byte tokenizer, model name
+                Meta-Llama-3-8B, one row a generate call, q8q4 at 0.7 and
+                the dense twin: kernel 1 32 x the rows' decode steps, kernel
+                9 32 a packing prefill and 1 a compaction, first tokens =
+                the dense twin's, all three tasks scored; tok/s and the
+                longest prompt's prefill seconds
+  harness_accuracy
+                ``python -m mustafar_tpu_torch accuracy`` (a subprocess on
+                the card) on the trained ckpt/tiny-acc: 16 passkey rows of
+                1,600 bytes, dense, masked, bitmap, q8q4, q8q4 chunked and
+                q8q4 with W4 weights at 0.7 (kernels 1, 3, 5, 6, 9, each
+                at least at ACCURACY_FLOOR a layer), then ``eval`` on the
+                dense variant; each variant's passkey accuracy, NLL and KL
+                beside the JAX package's recorded rows; dense passkey
+                accuracy at least 90 %
+  reference_harness
+                run_accuracy in process on the card and on the CPU (4 rows,
+                384 NLL tokens, bitmap and q8q4 at 0.7): passkey accuracy
+                equal, NLL and KL within 1e-3, predictions equal or parted
+                at a near-tie (SWA_PICKS_NOTE)
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 nothing is caught.  With no CUDA card, or run from a directory that holds
@@ -465,8 +502,40 @@ def phase_env():
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), nvidia_smi=smi,
-         tf32=False)
+         tf32=False, harness_imports=_optional_imports(), corpus=_corpus_roots())
     return smi
+
+
+def _optional_imports():
+    """Which of the harness's optional packages import here (``predict``
+    from an HF directory reads safetensors with ``safetensors``, the
+    tokenizer with ``tokenizers``, a chat template with ``jinja2``), with
+    their versions."""
+    import importlib
+    found = {}
+    for name in ("safetensors", "tokenizers", "jinja2", "rouge", "jieba"):
+        try:
+            found[name] = getattr(importlib.import_module(name), "__version__", "?")
+        except ImportError:
+            found[name] = None
+    return found
+
+
+def _corpus_roots():
+    """The harness's corpus roots (``tinylm._CORPUS_ROOTS``, the JAX
+    package's) that exist here; where none does, the roots become this
+    interpreter's standard library, and the line says so."""
+    import sysconfig
+    from mustafar_tpu_torch.harness import tinylm
+    roots = list(tinylm._CORPUS_ROOTS)
+    found = [r for r in roots if os.path.isdir(r)]
+    if found:
+        return {"roots": roots, "found": found, "replaced": False}
+    tinylm._CORPUS_ROOTS = [sysconfig.get_paths()["stdlib"]]
+    return {"roots": roots, "found": [], "replaced": True,
+            "now": tinylm._CORPUS_ROOTS,
+            "note": "none of the harness's corpus roots exists here: the corpus is read "
+                    "from this interpreter's standard library instead"}
 
 
 KERNEL_LIBS = ("q_decode", "q_decode_ps", "q_segment", "sp_decode", "sp_segment",
@@ -3387,11 +3456,13 @@ def phase_reference_moe():
 
 # Layers of the host-bound engine phases: host_split, serve_cb_bitmap,
 # serve_cb_bitmap_q8, serve_cb_q4q4, serve_cb_opa and serve_cb_w4 run
-# Llama-3-8B, serve_cb_swa_bitmap Mistral-7B and serve_cb_moe Mixtral-8x7B
-# at full width and this depth, so that the whole run keeps well inside
-# BUDGET_S on a slower host (serve_cb and serve_cb_swa_q8q4 stay at full
-# depth; at full depth serve_cb_swa_bitmap took 65.7 s and serve_cb_moe
-# 74.5 s of an 891.5 s run on one host).
+# Llama-3-8B, the serve_swa* and serve_cb_swa* phases Mistral-7B and
+# serve_cb_moe Mixtral-8x7B at full width and this depth, so that the whole
+# run keeps well inside BUDGET_S on a slower host (serve_cb stays at full
+# depth; at full depth serve_cb_swa_bitmap took 65.7 s, serve_cb_moe 74.5 s
+# of an 891.5 s run on one host, serve_cb_swa_q8q4 38.2 s of a 902.2 s run
+# on another, and the four serve_swa Generator phases 130.9 s of a 1,019 s
+# run on a third).
 CUT_LAYERS = 8
 
 
@@ -3645,6 +3716,11 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
     launches = _launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     pool_bytes = _pool_bytes(cb.cache)
+    # the slot bookkeeping ran in the native core, which admitted and retired
+    # every request and refused none
+    from mustafar_tpu_torch.native import NativeSlotScheduler
+    native = cb.core.stats() if isinstance(cb.core, NativeSlotScheduler) else None
+    native_want = {"admitted": len(reqs), "finished": len(reqs), "rejected": 0}
     L = model.num_layers
     generated = sum(len(outs[u]) for u in uids)
     want = dict.fromkeys(launches, 0)
@@ -3683,8 +3759,11 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
          launches=launches, prune={"method": prune.method.value,
                                    "k_sparsity": prune.k_sparsity,
                                    "v_sparsity": prune.v_sparsity},
-         score_sums=scores,
+         score_sums=scores, native_core=native,
          expected_launches=want, first_token_equal=sum(first_equal), **(beside or {}))
+    if native != native_want:
+        raise AssertionError(f"{label}: the native slot core's stats {native}, expected "
+                             f"{native_want} (None: the core was not built)")
     if scores and not all(scores.values()):
         raise AssertionError(f"{label}: the scored buffers are empty at the end: {scores}")
     if bad or launches != want or counts["segments"] != seg_expected:
@@ -3739,6 +3818,33 @@ def phase_serve_chunked(params):
                              f"{launches} (expected {want})")
     del gen
     torch.cuda.empty_cache()
+
+
+def phase_slot_core():
+    """The slot bookkeeping's host cost a tick, the native core against
+    ``PySlotScheduler``, on the engine's calls (one ``fill`` a tick, a
+    ``commit`` a busy slot): 8 slots, 64 requests of 300 + 64 (the least
+    of 3 runs)."""
+    from mustafar_tpu_torch.native import NativeSlotScheduler, PySlotScheduler
+    us, stats = {}, {}
+    for cls in (NativeSlotScheduler, PySlotScheduler):
+        best = float("inf")
+        for _ in range(3):
+            core = cls(8, 1312)
+            for uid in range(1, 65):
+                core.submit(uid, 300, 64)
+            live, ticks = set(), 0
+            t = time.perf_counter()
+            while core.num_queued or live:
+                live.update(slot for slot, *_ in core.fill())
+                live -= {slot for slot in list(live) if core.commit(slot, False) == 1}
+                ticks += 1
+            best = min(best, (time.perf_counter() - t) / ticks * 1e6)
+        us[cls.__name__], stats[cls.__name__] = best, core.stats()
+    emit("slot_core", slots=8, requests=64, ticks=ticks, us_per_tick=us, stats=stats)
+    want = {"admitted": 64, "finished": 64, "rejected": 0}
+    if any(v != want for v in stats.values()):
+        raise AssertionError(f"slot_core: stats {stats}, expected {want} in each")
 
 
 def phase_host_split(params, model=None):
@@ -3816,7 +3922,7 @@ def phase_host_split(params, model=None):
         rs = np.random.RandomState(5)
         for _ in range(8):
             cb.submit(rs.randint(1, 500, size=300), 64)
-        while cb._admissions or cb.queue:
+        while cb._admissions or cb.core.num_queued:
             cb.tick()
         tick_split = measure(cb.tick)
         del cb
@@ -3827,7 +3933,7 @@ def phase_host_split(params, model=None):
             rs = np.random.RandomState(6)
             for n in (8000, 300, 700, 1500, 450, 1000, 1200, 600):
                 cb.submit(rs.randint(1, 500, size=n), 200)
-            while cb._admissions or cb.queue:
+            while cb._admissions or cb.core.num_queued:
                 cb.tick()
             cb.tick()
             ticks_long[codec] = measure(cb.tick)
@@ -3993,11 +4099,12 @@ SWA_B, SWA_PROMPT, SWA_NEW = 4, 4400, 300
 
 
 def phase_serve_swa_chunked(params, m, prompt, q8q4_toks, new=64):
-    """The chunked Generator on Mistral-7B with its window at full width and
-    depth: B=4, serve_swa's 4,400-token prompt in 18 segments (segment 17's
-    rows see chunk 0 none and chunk 1 past their own edge), ``new`` tokens;
-    q8q4.  Kernel 3 with the window 32 a segment, kernel 1 32 a decode step,
-    kernel 9 32 a packed chunk (17) and nothing else; tokens beside
+    """The chunked Generator on Mistral-7B with its window at serve_swa's
+    width and depth: B=4, serve_swa's 4,400-token prompt in 18 segments
+    (segment 17's rows see chunk 0 none and chunk 1 past their own edge),
+    ``new`` tokens; q8q4.  Kernel 3 with the window once a layer a segment,
+    kernel 1 once a layer a decode step, kernel 9 once a layer a packed
+    chunk (17) and nothing else; tokens beside
     serve_swa_q8q4's (monolithic banded prefill)."""
     import numpy as np
     import torch
@@ -4042,19 +4149,21 @@ def phase_serve_swa_chunked(params, m, prompt, q8q4_toks, new=64):
 
 def serve_swa(entries, other, reference_runs, cb_runs):
     """Mistral-7B with its sliding window (``MISTRAL_7B_SWA``: 32 layers,
-    hidden 4,096, 32 query and 8 kv heads, window 4,096) at full width and
-    depth, W8 random weights from seed 0, through the ``Generator``: B=4, a
+    hidden 4,096, 32 query and 8 kv heads, window 4,096) at full width and 8
+    of its 32 layers (CUT_LAYERS; the run is host-bound), W8 random weights
+    from seed 0 (the full model's first 8 layers), through the
+    ``Generator``: B=4, a
     4,400-token prompt (past the window: banded prefill; 17 chunks packed)
     and 300 new tokens (from the first step the window leaves chunk 0 out;
     one compaction after step 240).  ``serve_swa_dense`` (plain route, no
     kernel), ``serve_swa_dense_kernel`` (kernel 4 with ``window``),
     ``serve_swa_q8q4`` (kernel 1; kernel 9 at prefill and the compaction),
-    ``serve_swa_bitmap`` (kernel 6): each decode kernel 32 x 299 launches,
+    ``serve_swa_bitmap`` (kernel 6): each decode kernel 8 x 299 launches,
     every first token equal to ``serve_swa_dense``'s; tok/s, prefill
     seconds (a prefill of the prompt alone) and peak memory.  Then the same
-    weights through the engine (``serve_cb_swa_q8q4``, ``serve_cb_swa_bitmap``
-    at 8 of the 32 layers, CUT_LAYERS: ``phase_serve_cb``'s requests,
-    kernels 2 and 3, or 7 and 8, with the window) and the chunked Generator
+    weights through the engine (``serve_cb_swa_q8q4``, ``serve_cb_swa_bitmap``:
+    ``phase_serve_cb``'s requests, kernels 2 and 3, or 7 and 8, with the
+    window) and the chunked Generator
     (``serve_swa_chunked``).  Fills the
     window's launches in the kernels line (q8, q4q4 and bitmap-q8 from
     ``reference_swa``'s and ``reference_swa_cb``'s runs on the card, tiny
@@ -4066,7 +4175,7 @@ def serve_swa(entries, other, reference_runs, cb_runs):
     t = time.perf_counter()
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    params = init_params_w8(m, g, device="cuda")
+    m, params = cut_depth(m, init_params_w8(m, g, device="cuda"))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     prompt = np.random.RandomState(0).randint(1, m.vocab_size, (SWA_B, SWA_PROMPT))
@@ -4105,23 +4214,19 @@ def serve_swa(entries, other, reference_runs, cb_runs):
         entries[key]["options"]["window"].update(
             launches=launches[name],
             launches_note=f"{label}: every decode launch with the window "
-                          f"({m.sliding_window})")
+                          f"({m.sliding_window}), {m.num_layers} layers")
     for codec in ("q8", "q4q4", "bitmap-q8"):
         name = _meta(codec, "decode")[0]
         other[(codec, "decode")]["options"]["window"].update(
             launches=reference_runs[f"compressed/{codec}"]["launched"][name],
             launches_note="reference_swa's run on the card (tiny model, window 320)")
-    cut_model, cut_params = cut_depth(m, params)
     for codec in ("q8q4", "bitmap"):
-        launches, _ = (phase_serve_cb(params, codec, model=m) if codec == "q8q4" else
-                       phase_serve_cb(cut_params, codec, model=cut_model))
-        layers = m.num_layers if codec == "q8q4" else CUT_LAYERS
+        launches, _ = phase_serve_cb(params, codec, model=m)
         for kind in ("decode_ps", "segment"):
             entries[(codec, kind)]["options"]["window"].update(
                 launches=launches[_meta(codec, kind)[0]],
                 launches_note=f"serve_cb_swa_{codec}: every launch with the window "
-                              f"({m.sliding_window}), {layers} layers")
-    del cut_params
+                              f"({m.sliding_window}), {m.num_layers} layers")
     for codec in ("q8", "q4q4", "bitmap-q8"):
         for kind in ("decode_ps", "segment"):
             other[(codec, kind)]["options"]["window"].update(
@@ -4178,6 +4283,345 @@ def serve_w8a8(params, prompt):
                                  f"tokens equal serve_w8a8_dense's: {first_equal}")
     del a8
     torch.cuda.empty_cache()
+
+
+HARNESS_TASKS = ("passkey", "passage_retrieval_en", "trec")
+HARNESS_MODEL = "Meta-Llama-3-8B"     # no chat template; MODEL2MAXLEN's default 4,096
+
+
+def phase_harness_predict(params):
+    """The LongBench harness at full width and depth: Llama-3-8B, W8 (the
+    run's params, seed 0), ``make_task_rows`` for HARNESS_TASKS, 2 rows
+    each of about 3,000 bytes of context (trec's few-shot rows are shorter),
+    through ``predict_dataset`` with ``ByteTokenizer`` (its ids, < 258, lie
+    inside Llama-3's vocabulary) and model name HARNESS_MODEL, one row a
+    ``Generator.generate`` (B=1), on the q8q4 cache at K=V 0.7 and on its
+    dense twin; then ``evaluate_dir`` on the q8q4 predictions.  Kernel 1
+    must launch 32 times a decode step summed over the rows, kernel 9 once
+    a layer for every prefill that packs a chunk and once a compaction, no
+    other kernel; every row's first token must equal the dense twin's; the
+    result must score all three tasks.  Prints tok/s and the prefill
+    seconds of the longest prompt."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
+                                           PruneConfig, PruneMethod)
+    from mustafar_tpu_torch.harness import configs
+    from mustafar_tpu_torch.harness.longbench import (PredictConfig, evaluate_dir,
+                                                      predict_dataset)
+    from mustafar_tpu_torch.harness.longbench_synth import make_task_rows
+    from mustafar_tpu_torch.harness.tinylm import EOS_ID, ByteTokenizer, load_corpus
+    from mustafar_tpu_torch.models import llama
+    from mustafar_tpu_torch.runtime.generate import Generator
+
+    class Counting(Generator):
+        """The Generator with every call's prompt length, new-token budget
+        and tokens kept (decode steps: min(len(out), budget - 1), EOS
+        excluded from out)."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.calls, self.compactions = [], 0
+            compact = self.cache_impl.compact if hasattr(self.cache_impl, "compact") else None
+            if compact is not None:
+                def counted(state):
+                    self.compactions += 1
+                    return compact(state)
+                self.cache_impl.compact = counted
+
+        def generate(self, input_ids, max_new_tokens, eos_id=None, **kw):
+            out = super().generate(input_ids, max_new_tokens, eos_id=eos_id, **kw)
+            self.calls.append((np.asarray(input_ids).shape[1], max_new_tokens,
+                               np.asarray(out[0])))
+            return out
+
+    m = LLAMA3_8B
+    max_length = configs.model_max_len(HARNESS_MODEL)
+    corpus = load_corpus(seed=1)
+    rs = np.random.RandomState(0)
+    rows = {t: make_task_rows(corpus, rs, t, 2, ctx_bytes=3000) for t in HARNESS_TASKS}
+    tok = ByteTokenizer()
+    prune = PruneConfig(method=PruneMethod.KT_MAG_VT_MAG, k_sparsity=0.7, v_sparsity=0.7)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, mode in (("q8q4", CacheMode.COMPRESSED), ("dense", CacheMode.DENSE)):
+            eng = EngineConfig(model=m, cache_mode=mode, prune=prune,
+                               max_seq_len=max_length + 256, prefill_bucket=256,
+                               chunk_size=256, codec="q8q4")
+            gen = Counting(eng, params)
+            gen.generate(np.asarray([tok.encode("warm-up " * 40)]), 2)     # not counted
+            gen.calls, gen.compactions = [], 0
+            pc = PredictConfig(model_name=HARNESS_MODEL, max_length=max_length,
+                               out_dir=os.path.join(tmp, label))
+            torch.cuda.synchronize()
+            _set_launches(dict.fromkeys(_counters(), 0))
+            t = time.perf_counter()
+            for task in HARNESS_TASKS:
+                predict_dataset(gen, tok, task, rows[task], pc, eos_id=EOS_ID,
+                                progress=False)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            launches = {k: v for k, v in _launches().items() if v}
+            runs[label] = dict(gen=gen, seconds=seconds, launches=launches,
+                               out_dir=pc.out_dir)
+        scores = evaluate_dir(runs["q8q4"]["out_dir"])
+        q, d = runs["q8q4"]["gen"], runs["dense"]["gen"]
+        steps = sum(min(len(out), budget - 1) for _, budget, out in q.calls)
+        packing = sum(T - 32 >= 256 for T, _, _ in q.calls)
+        want = {"fused_q_decode_attention": m.num_layers * steps,
+                "prune_quant_pack_kv": m.num_layers * packing + q.compactions}
+        first_equal = [int(a[2][0]) == int(b[2][0]) for a, b in zip(q.calls, d.calls)]
+        generated = sum(len(out) for _, _, out in q.calls)
+        # the prefill of the longest prompt alone, on the q8q4 engine
+        T = max(c[0] for c in q.calls)
+        toks = torch.zeros((1, q._bucket(T)), dtype=torch.int64, device="cuda")
+        toks[0, :T] = torch.randint(0, 256, (T,), device="cuda")
+        with torch.inference_mode():
+            fresh = q.cache_impl.init(1)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            llama.prefill(m, params, toks, fresh, q.cache_impl, T, last_only=True)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t
+        del fresh
+    emit("harness_predict", model=f"{m.name} x{m.num_layers}L, W8 (random, seed 0)",
+         model_name=HARNESS_MODEL, max_length=max_length, tasks=list(HARNESS_TASKS),
+         rows=len(q.calls), prompt_tokens=[c[0] for c in q.calls],
+         max_new=[c[1] for c in q.calls], generated_tokens=generated, decode_steps=steps,
+         packing_prefills=packing, compactions=q.compactions,
+         seconds={k: r["seconds"] for k, r in runs.items()},
+         tok_s={k: sum(len(c[2]) for c in r["gen"].calls) / r["seconds"]
+                for k, r in runs.items()},
+         prefill_s=prefill_s, prefill_tokens=T, launches=runs["q8q4"]["launches"],
+         dense_launches=runs["dense"]["launches"], expected_launches=want,
+         first_token_equal=sum(first_equal), scores=scores, nvidia_smi=nvidia_smi_line())
+    if runs["q8q4"]["launches"] != want or runs["dense"]["launches"]:
+        raise AssertionError(f"harness_predict: launched {runs['q8q4']['launches']} "
+                             f"(expected {want}), dense {runs['dense']['launches']}")
+    if not all(first_equal) or len(first_equal) != 2 * len(HARNESS_TASKS):
+        raise AssertionError(f"harness_predict: first tokens differ from the dense twin's: "
+                             f"{first_equal}")
+    if sorted(scores) != sorted(HARNESS_TASKS):
+        raise AssertionError(f"harness_predict: result.json holds {sorted(scores)}")
+    del runs, q, d, gen
+    torch.cuda.empty_cache()
+    return want
+
+
+ACCURACY_MODES = ("masked", "compressed", "compressed-q8q4", "compressed-q8q4+chunked",
+                  "compressed-q8q4+w4")
+# the least launches a layer of each kernel in harness_accuracy's grid: 768
+# teacher-forced NLL steps a variant (nll_tokens 1024, prefill 256) on kernel
+# 1 in the three q8q4 variants, on kernel 6 in the bitmap one, 7 W4
+# projections a step in the W4 one; kernels 3 and 9 at least once (the
+# passkey rows' decode steps and the packing counts hang on the data)
+NLL_STEPS = 1024 - 256
+ACCURACY_FLOOR = {"fused_q_decode_attention": 3 * NLL_STEPS,
+                  "fused_sparse_decode_attention": NLL_STEPS,
+                  "w4_matmul": 7 * NLL_STEPS,
+                  "fused_q_segment_attention": 1, "prune_quant_pack_kv": 1}
+# runs ``python -m mustafar_tpu_torch`` (runpy, as -m does) with the corpus
+# roots chip_smoke chose, and writes the kernels' launch counts at its end
+ACCURACY_LAUNCHER = """
+import json, runpy, sys
+roots, launches_file = json.loads(sys.argv[1]), sys.argv[2]
+if roots is not None:
+    from mustafar_tpu_torch.harness import tinylm
+    tinylm._CORPUS_ROOTS = roots
+sys.argv = ["mustafar_tpu_torch"] + sys.argv[3:]
+runpy.run_module("mustafar_tpu_torch", run_name="__main__", alter_sys=True)
+import chip_smoke
+with open(launches_file, "w") as f:
+    json.dump({k: v for k, v in chip_smoke._launches().items() if v}, f)
+"""
+
+
+def _recorded_grids():
+    """The JAX package's recorded grids on ckpt/tiny-acc (40 rows), by
+    variant name: ``accuracy/`` and, for the W4 rows, ``accuracy_w4/``."""
+    rec = {}
+    for d in ("accuracy_w4", "accuracy"):
+        path = os.path.join(ROOT, d, "result.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                rec.update({k: dict(v, source=f"{d}/result.json")
+                            for k, v in json.load(f).items()})
+    return rec
+
+
+def phase_harness_accuracy():
+    """The accuracy grid through the entry point on the trained weights:
+    ``python -m mustafar_tpu_torch accuracy --ckpt ckpt/tiny-acc --rows 16
+    --ctx 1600 --sparsities 0.7 --modes`` ACCURACY_MODES in a subprocess on
+    the card (dense, masked, bitmap, q8q4, q8q4 with chunked prefill and with
+    W4 weights: kernels 1, 3, 5, 6, 9), then ``python -m mustafar_tpu_torch
+    eval`` on the dense variant's directory.  Each variant's passkey
+    accuracy, NLL and KL against dense beside the JAX package's recorded row
+    of the same name (another machine's corpus: numbers, not tokens); dense
+    passkey accuracy must reach 90 %.  The subprocess runs on the card (its
+    environment without MUSTAFAR_CPU) and must launch each of the grid's
+    kernels, the decode kernels at least once a layer for each of the
+    teacher-forced NLL steps of their variants (ACCURACY_FLOOR)."""
+    import tempfile
+    from mustafar_tpu_torch.harness import tinylm
+    roots = tinylm._CORPUS_ROOTS
+    env = {k: v for k, v in os.environ.items() if k != "MUSTAFAR_CPU"}
+    with tempfile.TemporaryDirectory() as tmp:
+        out, launches_file = os.path.join(tmp, "grid"), os.path.join(tmp, "launches.json")
+        cmd = [sys.executable, "-c", ACCURACY_LAUNCHER, json.dumps(roots), launches_file,
+               "accuracy", "--ckpt", os.path.join("ckpt", "tiny-acc"), "--out", out,
+               "--rows", "16", "--ctx", "1600", "--sparsities", "0.7",
+               "--modes", *ACCURACY_MODES]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=600)
+        seconds = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"harness_accuracy: the accuracy subcommand failed "
+                                 f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+        with open(os.path.join(out, "result.json")) as f:
+            grid = json.load(f)
+        with open(launches_file) as f:
+            launches = json.load(f)
+        ev = subprocess.run([sys.executable, "-m", "mustafar_tpu_torch", "eval",
+                             "--pred_dir", os.path.join(out, "dense")], cwd=ROOT,
+                            env=env, capture_output=True, text=True, timeout=300)
+        if ev.returncode != 0:
+            raise AssertionError(f"harness_accuracy: eval failed:\n{ev.stderr[-4000:]}")
+        evaluated = json.loads(ev.stdout)
+    recorded = _recorded_grids()
+    keys = ("passkey_acc", "nll", "kl_vs_dense")
+    table = {name: {"card": {k: row.get(k) for k in keys},
+                    "recorded": ({k: recorded[name].get(k) for k in keys + ("source",)}
+                                 if name in recorded else None)}
+             for name, row in grid.items()}
+    with open(os.path.join(ROOT, "ckpt", "tiny-acc", "config.json")) as f:
+        layers = json.load(f)["num_layers"]
+    floor = {k: layers * v for k, v in ACCURACY_FLOOR.items()}
+    emit("harness_accuracy", ckpt="ckpt/tiny-acc", rows=16, ctx_bytes=1600,
+         sparsity=0.7, modes=list(ACCURACY_MODES), seconds=seconds, corpus_roots=roots,
+         grid=table, eval_dense=evaluated, launches=launches, launch_floor=floor,
+         nvidia_smi=nvidia_smi_line())
+    short = {k: launches.get(k, 0) for k, v in floor.items() if launches.get(k, 0) < v}
+    if short:
+        raise AssertionError(f"harness_accuracy: kernels launched below their floor "
+                             f"{floor}: {short}")
+    want = ["dense"] + [f"{mm.replace('+w4', '')}@0.7" + ("+w4" if "+w4" in mm else "")
+                        for mm in ACCURACY_MODES]
+    if sorted(grid) != sorted(want):
+        raise AssertionError(f"harness_accuracy: variants {sorted(grid)}, expected {want}")
+    if grid["dense"]["passkey_acc"] < 90 or evaluated.get("passkey") != grid["dense"][
+            "passkey_acc"]:
+        raise AssertionError(f"harness_accuracy: dense passkey accuracy "
+                             f"{grid['dense']['passkey_acc']} (eval {evaluated}); "
+                             f"at least 90 expected")
+    return launches
+
+
+# absolute, NLL and KL card against CPU: a tenth of the pruned variants' KL
+# against dense (~1e-2), 25x the widest spread of the sound runs (KL 4e-5)
+HARNESS_TOL = 1e-3
+
+
+def _tie_margin(gen, prompt_ids, ref_pred, other_pred):
+    """Where two passkey predictions part: ``gen``'s margin between its own
+    pick and ``other_pred``'s byte, fed ``ref_pred``'s bytes up to there
+    (EOS where ``ref_pred`` ends first).  0 where they agree."""
+    import torch
+    from mustafar_tpu_torch.harness.tinylm import EOS_ID
+    from mustafar_tpu_torch.models import llama
+    a, b = list(ref_pred.encode("utf-8")), list(other_pred.encode("utf-8"))
+    k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    if a == b:
+        return 0.0
+    other = b[k] if k < len(b) else EOS_ID
+    impl, T = gen.cache_impl, prompt_ids.shape[1]
+    toks = torch.zeros((1, gen._bucket(T)), dtype=torch.int64, device=gen.device)
+    toks[0, :T] = torch.as_tensor(prompt_ids[0])
+    with torch.inference_mode():
+        cache = impl.init(1, gen.dtype)
+        logits, cache = llama.prefill(gen.cfg, gen.params, toks, cache, impl, T,
+                                      last_only=True)
+        for i, t in enumerate(a[:k]):
+            logits, cache = llama.decode_step(
+                gen.cfg, gen.params, torch.tensor([[t]], device=gen.device), cache, impl,
+                T + i)
+            if hasattr(impl, "compact") and impl.window_full(cache, T + i + 1):
+                impl.compact(cache)
+    row = logits[0, 0].float()
+    return float(row.max() - row[other])
+
+
+def phase_reference_harness():
+    """``run_accuracy`` in process twice with the same arguments, on the card
+    and on the CPU: ckpt/tiny-acc, 4 rows of 1,600 bytes, ``nll_tokens``
+    384, modes ``compressed`` and ``compressed-q8q4`` at 0.7.  Passkey
+    accuracy equal, NLL and KL against dense within HARNESS_TOL, every
+    row's prediction equal or parted at a near-tie (the CPU's margin
+    between its byte and the card's within SWA_TIE_TOL)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.harness import tinylm
+    from mustafar_tpu_torch.harness.configs import DATASET2PROMPT
+    from mustafar_tpu_torch.harness.longbench import truncate_middle
+    from mustafar_tpu_torch.runtime.generate import Generator
+    from mustafar_tpu_torch.weights import load_ckpt
+    kw = dict(n_rows=4, ctx_bytes=1600, sparsities=(0.7,),
+              modes=("compressed", "compressed-q8q4"), nll_tokens=384,
+              log=lambda *a: None)
+    ckpt = os.path.join(ROOT, "ckpt", "tiny-acc")
+    launches0 = _launches()
+    grids, preds, seconds = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            t = time.perf_counter()
+            grids[dev] = tinylm.run_accuracy(ckpt, os.path.join(tmp, dev), device=dev, **kw)
+            seconds[dev] = time.perf_counter() - t
+            for name in grids[dev]:
+                with open(os.path.join(tmp, dev, name, "passkey.jsonl")) as f:
+                    preds[dev, name] = [json.loads(line)["pred"] for line in f]
+    launched = {k: v - launches0[k] for k, v in _launches().items() if v > launches0[k]}
+    _set_launches(launches0)
+    # the rows run_accuracy made (its corpus and generator seeds)
+    corpus = tinylm.load_corpus(seed=1235)
+    rng = np.random.RandomState(1234)
+    rows = [tinylm.make_passkey_row(corpus, rng, 1600) for _ in range(4)]
+    max_seq = ((1600 + len(tinylm.PASSKEY_QUESTION) + 256) // 256 + 1) * 256 + 256
+    tok = tinylm.ByteTokenizer()
+    _, cpu_params = load_ckpt(ckpt, device="cpu")
+    flips, bad = [], []
+    for name, row in grids["cpu"].items():
+        card = grids["cuda"][name]
+        if card["passkey_acc"] != row["passkey_acc"]:
+            bad.append((name, "passkey_acc", card["passkey_acc"], row["passkey_acc"]))
+        for k in ("nll", "kl_vs_dense"):
+            if k in row and abs(card[k] - row[k]) > HARNESS_TOL:
+                bad.append((name, k, card[k], row[k]))
+        mode = "dense" if name == "dense" else name.split("@")[0]
+        gen = None
+        for i, (a, b) in enumerate(zip(preds["cpu", name], preds["cuda", name])):
+            if a == b:
+                continue
+            if gen is None:
+                gen = Generator(tinylm._engine(tinylm.TINY_ACC, mode, 0.7, max_seq),
+                                cpu_params, dtype=torch.float32, device="cpu")
+            prompt = truncate_middle(tok, DATASET2PROMPT["passkey"].format(
+                context=rows[i]["context"], input=""), max_seq - 64)
+            margin = _tie_margin(gen, tok(prompt, return_tensors="np").input_ids, a, b)
+            flips.append({"variant": name, "row": i, "cpu": a, "card": b,
+                          "cpu_margin": margin})
+    wide = [f for f in flips if f["cpu_margin"] > SWA_TIE_TOL]
+    emit("reference_harness", ckpt="ckpt/tiny-acc", rows=4, nll_tokens=384,
+         grids=grids, seconds=seconds, flips=flips, launched=launched, tol=HARNESS_TOL,
+         picks_note=SWA_PICKS_NOTE)
+    if bad or wide:
+        raise AssertionError(f"reference_harness: card and CPU disagree: {bad}, "
+                             f"flips beyond SWA_TIE_TOL {wide}")
+    return launched
 
 
 def _moe_parts(params, m):
@@ -4454,9 +4898,13 @@ def main():
                   "serve_cb_bitmap / serve_cb_bitmap_q8")
     phase_serve_chunked(params)
     phase_host_split(cut_params, cut_model)
+    phase_slot_core()
     serve_w8a8(params, prompt)
+    phase_harness_predict(params)
     del params, cut_params
     torch.cuda.empty_cache()
+    phase_harness_accuracy()
+    phase_reference_harness()
     serve_swa(entries, other, swa_runs, swa_cb_runs)
     serve_w4(entries, prompt, new)
     serve_moe()

@@ -17,9 +17,16 @@ launch, ``prune_quant_pack_kv``); the W4 decode matmul
 (``csrc/w4_matmul.cu``) and the dense cache's flash-decode
 (``csrc/dense_decode.cu``, with the cache's ``use_pallas``).
 
+The engine's slot bookkeeping runs in a native C++ core
+(``native/scheduler.cpp``, built with g++ at first use).  The LongBench and
+accuracy harness (``harness/``) and the command line (``python -m
+mustafar_tpu_torch predict|eval|synth-ckpt|accuracy``, ``cli.py``) run the
+port's engine on trained or synthetic checkpoints.
+
 The port imports ``torch``, never ``jax``, and nothing of ``mustafar_tpu``.
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-with no card they raise.  Importing the package builds nothing.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"`` (the
+command line: ``MUSTAFAR_CPU=1``); with no card they raise.  Importing the
+package builds nothing.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Continuous-batching decode scheduler (slot-based): port of
 ``ContinuousBatchingEngine`` in ``mustafar_tpu/runtime/scheduler.py``,
-greedy or sampled, on one device, with the slot bookkeeping in Python.
+greedy or sampled, on one device.
 
   * a fixed pool of B slots (``EngineConfig.batch_size``); the KV cache is
     allocated once for B sequences and updated in place;
@@ -23,10 +23,17 @@ greedy or sampled, on one device, with the slot bookkeeping in Python.
     the decode slots do not read the admission's cache until it is
     inserted.
 
-The JAX package keeps the slot bookkeeping in a native C++ core when it
-can load one and in Python otherwise; the port has the Python rule only
-(retire on EOS, on an exhausted budget or at full capacity).  The device
-runs the model; the host reads back one token per slot per step.
+The slot bookkeeping lives in the native C++ core (``native/``, built with
+g++ at the engine's first use), as in the JAX package: it refuses a request
+with no prompt, no new tokens or more than ``max_seq_len`` tokens in all
+(``submit`` raises ValueError, the request's uid spent), hands queued
+requests to free slots (``fill``: a slot is held from then until its
+request retires, across a multi-tick admission) and decides each
+retirement (``commit``: on EOS, an exhausted budget or a full sequence).
+Where the core cannot be built, ``native.PySlotScheduler`` keeps the same
+rule in Python behind the same calls.  The positions live on the host in
+numpy too, as in the JAX package.  The device runs the model; the host
+reads back one token per slot per step.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from mustafar_tpu_torch.cache import make_cache
 from mustafar_tpu_torch.config import EngineConfig
 from mustafar_tpu_torch.device import resolve_device
 from mustafar_tpu_torch.models import llama
+from mustafar_tpu_torch.native import slot_scheduler
 from mustafar_tpu_torch.runtime.generate import GREEDY, SamplingParams, choose
 
 
@@ -69,7 +77,8 @@ class _Admission:
 
 class ContinuousBatchingEngine:
     """FCFS slot scheduler over a batched decode step, on ``device``
-    (default ``cuda``; params must already live there)."""
+    (default ``cuda``; params must already live there).  ``core`` keeps the
+    queue and the slots (``native.slot_scheduler``)."""
 
     def __init__(self, engine: EngineConfig, params: dict, dtype=torch.bfloat16,
                  eos_id: Optional[int] = None, sampling: SamplingParams = GREEDY,
@@ -87,11 +96,10 @@ class ContinuousBatchingEngine:
         self.B = engine.batch_size
         self.impl = make_cache(engine, device=self.device)
         self.cache = self.impl.init(self.B, dtype)
+        self.core = slot_scheduler(self.B, engine.max_seq_len)
         self.slot_req: list[Optional[Request]] = [None] * self.B
         self.slot_pos = np.zeros(self.B, np.int64)      # next write index
-        self.slot_budget = np.zeros(self.B, np.int64)
         self.slot_last = np.zeros(self.B, np.int64)
-        self.queue: deque[Request] = deque()
         self.requests: dict[int, Request] = {}
         self.finished: dict[int, Request] = {}
         self._admissions: deque[_Admission] = deque()
@@ -102,14 +110,17 @@ class ContinuousBatchingEngine:
 
     # -- public API -------------------------------------------------------
     def submit(self, tokens, max_new_tokens: int) -> int:
+        """Queue a request; returns its uid.  A request with no prompt, no
+        new tokens or more than ``max_seq_len`` tokens in all raises
+        ValueError, and its uid stays spent (the next request's is one
+        higher), as in the JAX package."""
         tokens = np.asarray(tokens, np.int64)
-        if len(tokens) + max_new_tokens > self.engine.max_seq_len:
-            raise ValueError(f"request of {len(tokens)} + {max_new_tokens} tokens "
-                             f"exceeds max_seq_len {self.engine.max_seq_len}")
         self._uid += 1
-        req = Request(self._uid, tokens, max_new_tokens)
-        self.requests[self._uid] = req
-        self.queue.append(req)
+        self.requests[self._uid] = Request(self._uid, tokens, max_new_tokens)
+        if not self.core.submit(self._uid, len(tokens), max_new_tokens):
+            raise ValueError(f"request {self._uid} refused: a prompt of {len(tokens)} "
+                             f"tokens and {max_new_tokens} new ones (each must be at "
+                             f"least 1) in max_seq_len {self.engine.max_seq_len}")
         return self._uid
 
     def run(self, max_steps: int = 100000) -> dict[int, np.ndarray]:
@@ -120,7 +131,7 @@ class ContinuousBatchingEngine:
         return {uid: np.asarray(r.out) for uid, r in self.finished.items()}
 
     def busy(self) -> bool:
-        return bool(self.queue or self._admissions
+        return bool(self.core.num_queued or self._admissions
                     or any(r is not None for r in self.slot_req))
 
     @torch.inference_mode()
@@ -165,7 +176,6 @@ class ContinuousBatchingEngine:
         self.impl.insert_slot(self.cache, sub, slot)
         self.slot_req[slot] = req
         self.slot_pos[slot] = true_len + 1
-        self.slot_budget[slot] = req.max_new_tokens - 1
         self.slot_last[slot] = nxt
         req.out.append(nxt)
         if self._commit(slot, nxt):
@@ -187,11 +197,10 @@ class ContinuousBatchingEngine:
 
     def _fill_slots(self):
         admit = self._start_admission if self.interleave else self._prefill_into_slot
-        reserved = {a.slot for a in self._admissions}
-        for slot in range(self.B):
-            if self.slot_req[slot] is None and slot not in reserved and self.queue:
-                admit(self.queue.popleft(), slot)
-                reserved.add(slot)
+        # the core marks a slot busy at fill(), so a multi-tick admission
+        # holds it until its request retires
+        for slot, uid, _, _ in self.core.fill():
+            admit(self.requests[uid], slot)
         if self._admissions:
             self._admission_tick()
 
@@ -241,16 +250,14 @@ class ContinuousBatchingEngine:
             req.out.append(t)
             self.slot_last[slot] = t
             self.slot_pos[slot] += 1
-            self.slot_budget[slot] -= 1
             if self._commit(slot, t):
                 self._retire(slot)
         self._maybe_compact()
 
     def _commit(self, slot: int, tok: int) -> bool:
-        """Retire on EOS, an exhausted budget or a full sequence."""
-        is_eos = self.eos_id is not None and tok == self.eos_id
-        return bool(is_eos or self.slot_budget[slot] <= 0
-                    or self.slot_pos[slot] >= self.engine.max_seq_len)
+        """Retire on EOS, an exhausted budget or a full sequence, as the core
+        decides."""
+        return self.core.commit(slot, self.eos_id is not None and tok == self.eos_id) == 1
 
     def _maybe_compact(self):
         """Compressed caches: compact the active slots whose window just
