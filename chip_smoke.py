@@ -177,6 +177,28 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 f32, W8 experts, W8A8, W4 attention with W8 experts
                 (kernel 5); greedy decoding through the q8q4, bitmap and
                 dense (kernel 4) Generator and the q8q4 engine
+  reference_sharded
+                the trained ckpt/tiny-acc (f32, 2 kv heads) through the engine
+                at dp=2 x tp=2: four processes on this card over gloo, the
+                requests of tests/test_torch_scheduler_sharded.py on the
+                q8q4, masked and bitmap-q8 caches; and reference_moe's tiny
+                MoE (2 kv heads) at dp=1 x tp=2, experts over "model", and
+                at dp=2 x tp=2 with 32 slots (every data group routing the
+                whole batch, whose rows overflow an expert's slots): every
+                rank's tokens equal one card rank's and the CPU's; each
+                rank's per-slot kernel 4 times (the layers) a decode step of
+                its own, the data groups' kernel 9 launches summing to one
+                rank's; on a
+                host with four cards, the engine again over nccl, one card a
+                rank (else a line says it was not run)
+  dist_recovery ``python -m mustafar_tpu_torch.parallel.distributed`` on this
+                card, two processes over gloo at tp=2: the q8q4 step
+                program's timed decode (16 steps; kernel 1 2 x 16 and
+                kernel 9 2 a rank) and, side by side with it, the failure
+                drill (a snapshot a step; process 1 exits at step 4, the
+                survivor reports the loss within its 3 s barrier deadline);
+                recovery from the drill's snapshot at tp=1 in this
+                process, token for token the timed run's
   serve_q8q4    full-width, 32-layer Llama-3-8B with random W8 weights made
                 on the card: Generator.generate, B=8, prompt 300, 300 new
                 tokens, q8q4 compressed cache (one compaction on the way);
@@ -240,6 +262,18 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 counts (V ranked by its scores); first tokens = a batch-1
                 chunked Generator's under the same method; V's scores live
                 at the end
+  serve_cb_tp   serve_cb's first 8 requests through the engine on Llama-3-8B
+                at full width and 8 of its 32 layers (CUT_LAYERS), W8
+                (random, seed 0), q8q4 at 0.7, tp=2: two processes on this
+                card over gloo, each making the weights and cutting its
+                shard; first tokens equal one rank's, the first decode
+                step's logits within TP_BF16_TOL of their range, each rank's
+                kernels 2 and 3 8 x steps and segments, kernel 9 at the
+                packing counts; an untimed tick's wall ms beside the
+                collective ms of the timed ticks (every other tick, each
+                all-reduce bracketed by synchronizes); over nccl,
+                one card a rank, where the host has two cards (else a line
+                says it was not run)
   serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64
   serve_swa_dense, serve_swa_dense_kernel, serve_swa_q8q4, serve_swa_bitmap
                 Mistral-7B with its 4,096 window (MISTRAL_7B_SWA), full
@@ -3632,6 +3666,20 @@ def phase_decode_split_w4(params, attn_ms, wall_s, new_tokens):
          wall_ms_per_token={c: t / new_tokens * 1e3 for c, t in wall_s.items()})
 
 
+def serve_cb_requests(model, first8=False):
+    """serve_cb's stream: 16 requests of 200-1,500 prompt tokens and 32-96
+    new ones (``RandomState(1)``), one of 8,000 + 64 submitted third; with
+    ``first8`` the first 8 without the 8,000-token one."""
+    import numpy as np
+    rs = np.random.RandomState(1)
+    reqs = [(rs.randint(1, model.vocab_size, size=rs.randint(200, 1501)),
+             int(rs.randint(32, 97))) for _ in range(16)]
+    reqs.insert(2, (rs.randint(1, model.vocab_size, size=8000), 64))
+    if first8:
+        reqs = [r for r in reqs if len(r[0]) != 8000][:8]
+    return reqs
+
+
 def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, prune=None,
                    model=None):
     """Continuous batching at full Llama-3-8B width and depth (or
@@ -3670,12 +3718,7 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
     eng = EngineConfig(model=model, cache_mode=CacheMode.COMPRESSED, prune=prune,
                        max_seq_len=8448, prefill_bucket=256, chunk_size=256,
                        codec=codec, batch_size=8, chunked_prefill=True)
-    rs = np.random.RandomState(1)
-    reqs = [(rs.randint(1, model.vocab_size, size=rs.randint(200, 1501)),
-             int(rs.randint(32, 97))) for _ in range(16)]
-    reqs.insert(2, (rs.randint(1, model.vocab_size, size=8000), 64))
-    if w4 or first8:
-        reqs = [r for r in reqs if len(r[0]) != 8000][:8]
+    reqs = serve_cb_requests(model, first8=w4 or first8)
     warm = ContinuousBatchingEngine(eng, params)
     for p, _ in reqs[:2]:
         warm.submit(p[:300], 4)
@@ -4721,6 +4764,331 @@ def serve_moe():
     torch.cuda.empty_cache()
 
 
+# -- parallelism: ranks as processes on this card over gloo ---------------------
+
+SHARDED_REQS = ((120, 10), (280, 30), (530, 25), (64, 12), (300, 20))
+SHARDED_CODECS = (("COMPRESSED", "q8q4"), ("MASKED", "bitmap"), ("COMPRESSED", "bitmap-q8"))
+RANK_TIMEOUT_S = 300
+# the bf16 bound of a tensor-parallel run's logits against one rank's: the
+# row-parallel sums round once more (in f32, then to bf16) and the order
+# differs, a few bf16 ulps of the activations a layer; the CPU tests' bound
+# for a bf16 model against another framework's (tests/test_torch_model.py)
+TP_BF16_TOL = 6e-2
+
+
+def _spawned(target, dp, tp, kwargs, **kw):
+    """``parallel.distributed.spawn`` of a rank body (every rank on this
+    card over gloo unless ``backend`` and ``device`` say otherwise), and
+    the wall seconds it took (the processes' start included)."""
+    from mustafar_tpu_torch.parallel import distributed as dr
+    t = time.perf_counter()
+    out = dr.spawn("mustafar_tpu_torch.parallel.distributed:" + target, dp, tp, kwargs,
+                   backend=kw.pop("backend", "gloo"), device=kw.pop("device", "cuda"),
+                   timeout_s=RANK_TIMEOUT_S, **kw)
+    return out, time.perf_counter() - t
+
+
+def _rank_gate(label, res, L, codec, chunks=None):
+    """A rank's launches as serve_cb gates them: the codec's per-slot
+    kernel L x its decode steps, its segment kernel L x its segments, and
+    with ``chunks`` (the prompt chunks this rank packed) kernel 9 L x chunks
+    plus its compactions; no other kernel."""
+    if codec is None:
+        want = {}
+    else:
+        want = {_meta(codec, "decode_ps")[0]: L * res["decode_steps"]}
+        if res["segments"]:
+            want[_meta(codec, "segment")[0]] = L * res["segments"]
+        if chunks is not None:
+            want["prune_quant_pack_kv"] = L * chunks + res["compactions"]
+    got = {k: v for k, v in res["launches"].items() if v}
+    if chunks is None:
+        got.pop("prune_quant_pack_kv", None)
+    if got != want:
+        raise AssertionError(f"{label}: a rank launched {got}, expected {want}")
+    return got
+
+
+def phase_reference_sharded():
+    """The trained ckpt/tiny-acc (f32, Hkv 2) through the continuous-batching
+    engine at dp=2 x tp=2: four processes on this card over gloo (the
+    ``parallel.distributed.engine_cases`` rank body, one spawn), the
+    requests of tests/test_torch_scheduler_sharded.py (``RandomState(3)``)
+    on the q8q4 compressed, masked and bitmap-q8 compressed caches: every
+    rank's tokens equal the single-rank card run's and the CPU run's; each
+    rank launches the per-slot kernel 4 times (the layers) a decode step of
+    its own (none on the masked cache) and the two data groups' kernel 9 launches sum to the
+    single rank's.  Then Mixtral's MLP (reference_moe's tiny MoE with 2 kv
+    heads, W8 experts' f32 originals, 4 experts over 2 ranks) at dp=1 x
+    tp=2 through the q8q4 engine, experts and heads over "model", and at
+    dp=2 x tp=2 in the four ranks' spawn with 32 slots and 20 requests (a
+    decode step's 32 rows overflow an expert's 16 slots: every data group
+    routes the whole batch): tokens equal one rank's on the card and the
+    CPU's."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from mustafar_tpu_torch import config as tc
+    from mustafar_tpu_torch.parallel import distributed as dr
+    counts0 = _launches()
+    params = dr.load_params_npz(os.path.join(ROOT, "ckpt", "tiny-acc", "params.npz"))
+    with open(os.path.join(ROOT, "ckpt", "tiny-acc", "config.json")) as f:
+        model = tc.ModelConfig(**json.load(f))
+
+    def engine(mode, codec, m=model):
+        return tc.EngineConfig(model=m, cache_mode=getattr(tc.CacheMode, mode),
+                               prune=tc.PruneConfig(method=tc.PruneMethod.KT_MAG_VT_MAG,
+                                                    k_sparsity=0.5, v_sparsity=0.5),
+                               max_seq_len=1024, prefill_bucket=256, chunk_size=256,
+                               codec=codec, batch_size=4)
+
+    rs = np.random.RandomState(3)
+    reqs = [(rs.randint(0, 256, size=n), m) for n, m in SHARDED_REQS]
+    cases = [dict(engine=engine(mode, codec), params=params, requests=reqs, device="cuda")
+             for mode, codec in SHARDED_CODECS]
+    moe = dataclasses.replace(_tiny_engine(tc.CacheMode.COMPRESSED, moe=True).model,
+                              num_kv_heads=2)
+    rs = np.random.RandomState(4)
+    moe_case = dict(engine=engine("COMPRESSED", "q8q4", moe),
+                    params=dr.init_params_np(moe, 4),
+                    requests=[(rs.randint(0, 512, size=n), m)
+                              for n, m in ((300, 12), (90, 16), (530, 8))], device="cuda")
+    rs = np.random.RandomState(8)
+    moe_dp_case = dict(moe_case, engine=dataclasses.replace(moe_case["engine"],
+                                                            batch_size=32),
+                       requests=[(rs.randint(0, 512, size=30 + 11 * i), 6 + i % 3)
+                                 for i in range(20)])
+    # the six ranks run while this process runs one rank on the card and the CPU
+    with ThreadPoolExecutor(2) as ex:
+        spawns = (ex.submit(_spawned, "engine_cases", 2, 2,
+                            {"cases": cases + [moe_dp_case]}),
+                  ex.submit(_spawned, "engine_case", 1, 2, moe_case))
+        singles = [(dr.engine_case(None, **case),
+                    dr.engine_case(None, **dict(case, device="cpu")))
+                   for case in cases + [moe_dp_case, moe_case]]
+        (sharded, sharded_s), (moe_ranks, moe_s) = (f.result() for f in spawns)
+    fields, bad = {}, []
+    labels = SHARDED_CODECS + (("MOE_DP2", "q8q4"), ("MOE", "q8q4"))
+    for i, ((mode, codec), case) in enumerate(zip(labels,
+                                                  cases + [moe_dp_case, moe_case])):
+        ranks = [r[i] for r in sharded] if i <= len(cases) else moe_ranks
+        tp = 2
+        card, cpu = singles[i]
+        L = case["engine"].model.num_layers
+        kcodec = codec if mode != "MASKED" else None
+        gates = [_rank_gate(f"reference_sharded {mode} {codec}", r, L, kcodec)
+                 for r in ranks]
+        packs = [r["launches"]["prune_quant_pack_kv"] for r in ranks]
+        if codec in QUANT_BITS and sum(packs[::tp]) != card["launches"]["prune_quant_pack_kv"]:
+            bad.append(f"{mode} {codec}: the data groups packed {packs}, one rank "
+                       f"{card['launches']['prune_quant_pack_kv']}")
+        equal = [r["outs"] == card["outs"] for r in ranks]
+        if not (all(equal) and card["outs"] == cpu["outs"]):
+            bad.append(f"{mode} {codec}: ranks equal to one card rank {equal}, card equal "
+                       f"to CPU {card['outs'] == cpu['outs']}")
+        fields[f"{mode.lower()}_{codec}"] = {
+            "ranks": len(ranks), "tokens": sum(len(t) for t in card["outs"].values()),
+            "rank_decode_steps": [r["decode_steps"] for r in ranks],
+            "one_rank_decode_steps": card["decode_steps"], "rank_launches": gates,
+            "rank_packs": packs, "equal_to_one_rank": equal,
+            "card_equal_cpu": card["outs"] == cpu["outs"]}
+    import torch
+    nccl = ("not run: dp=2 x tp=2 over nccl needs four cards, this host has "
+            f"{torch.cuda.device_count()}")
+    if torch.cuda.device_count() >= 4:
+        nranks, nccl_s = _spawned("engine_cases", 2, 2, {"cases": cases},
+                                  backend="nccl", device="cuda:{rank}")
+        nccl = {"seconds": nccl_s, "equal_to_one_rank": [
+            [r[i]["outs"] == singles[i][0]["outs"] for r in nranks]
+            for i in range(len(cases))]}
+        if not all(all(e) for e in nccl["equal_to_one_rank"]):
+            bad.append(f"over nccl: {nccl}")
+    _set_launches(counts0)
+    emit("reference_sharded", mesh="dp=2 x tp=2 (MoE also dp=1 x tp=2)", backend="gloo",
+         processes_on_one_card=4, spawn_s=sharded_s, moe_spawn_s=moe_s, nccl=nccl,
+         **fields)
+    if bad:
+        raise AssertionError(f"reference_sharded: {bad}")
+    return fields
+
+
+def _tick_split(res):
+    """A rank's ticks from ``engine_case(..., time_collectives=True)``: the
+    untimed ticks' mean wall ms, the timed ticks' mean wall ms, their
+    collectives' mean ms and count a tick, and that ms over the untimed
+    tick's."""
+    import numpy as np
+    ticks = np.asarray(res["tick_s"])
+    timed = np.asarray(res["timed"], bool)
+    coll = np.asarray(res["collective_s"])
+    untimed_ms = 1e3 * float(ticks[~timed].mean())
+    coll_ms = 1e3 * float(coll.mean())
+    return {"ticks": len(ticks), "timed_ticks": int(timed.sum()),
+            "tick_ms_untimed_mean": untimed_ms,
+            "tick_ms_timed_mean": 1e3 * float(ticks[timed].mean()),
+            "collective_ms_per_tick": coll_ms,
+            "collectives_per_tick": float(np.mean(res["collective_n"])),
+            "collective_share_of_untimed_tick": coll_ms / untimed_ms}
+
+
+def phase_serve_cb_tp(model):
+    """Llama-3-8B at full width (32 heads, 8 kv heads, hidden 4,096) and
+    ``model``'s depth (CUT_LAYERS), W8 random weights (init_params_w8, seed
+    0), q8q4 at 0.7, chunked interleaved admission, serve_cb's first 8
+    requests, through the engine at tp=2: two processes on this card over
+    gloo, each making the weights and cutting its shard (heads, kv heads
+    and the MLP over "model"; the LM head over the vocabulary).  First
+    tokens equal the single-rank engine's; the first decode step's logits
+    within TP_BF16_TOL of their range; each rank's launches gated as
+    serve_cb's (kernel 2 L x decode steps, kernel 3 L x segments, kernel 9
+    L x prompt chunks + compactions).  Every other tick's all-reduces are
+    timed, each bracketed by synchronizes (``engine_case``'s
+    ``time_collectives``): the untimed ticks give the wall ms of a tick,
+    the timed ones its collectives' ms (and their own wall ms, which shows
+    what the brackets cost).  On a host with two cards or more, the same run over nccl, one
+    card a rank; otherwise a line says nccl across cards was not run."""
+    import functools
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.config import (CacheMode, EngineConfig, PruneConfig,
+                                           PruneMethod)
+    from mustafar_tpu_torch.models.quant import init_params_w8
+    from mustafar_tpu_torch.parallel import distributed as dr
+    counts0 = _launches()
+    eng = EngineConfig(model=model, cache_mode=CacheMode.COMPRESSED,
+                       prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG, k_sparsity=0.7,
+                                         v_sparsity=0.7),
+                       max_seq_len=8448, prefill_bucket=256, chunk_size=256, codec="q8q4",
+                       batch_size=8, chunked_prefill=True)
+    reqs = serve_cb_requests(model, first8=True)
+    case = dict(engine=eng, params=functools.partial(init_params_w8, model, None, None, 0),
+                requests=reqs, dtype=torch.bfloat16, device="cuda", record_steps=1)
+    t = time.perf_counter()
+    one = dr.engine_case(None, **case)
+    one_s = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    ranks, tp_s = _spawned("engine_case", 1, 2, dict(case, time_collectives=True))
+    L = model.num_layers
+    chunks = sum(max(len(p) - 32, 0) // 256 for p, _ in reqs)
+    gates = [_rank_gate("serve_cb_tp", r, L, "q8q4", chunks) for r in ranks]
+    first = [[r["outs"][u][0] for u in sorted(r["outs"])] for r in ranks]
+    want_first = [one["outs"][u][0] for u in sorted(one["outs"])]
+    ref = one["logits"][0]
+    scale = float(np.abs(ref).max())
+    errs = [float(np.abs(r["logits"][0] - ref).max()) for r in ranks]
+    agreement = [float(np.mean([a == b for u in one["outs"]
+                                for a, b in zip(r["outs"][u], one["outs"][u])]))
+                 for r in ranks]
+    per_rank = [dict(_tick_split(r), decode_steps=r["decode_steps"],
+                     segments=r["segments"], compactions=r["compactions"])
+                for r in ranks]
+    nccl = "not run: nccl across cards needs two cards, this host has " \
+        f"{torch.cuda.device_count()}"
+    if torch.cuda.device_count() >= 2:
+        nranks, nccl_s = _spawned("engine_case", 1, 2, dict(case, time_collectives=True),
+                                  backend="nccl", device="cuda:{rank}")
+        nccl = {"seconds": nccl_s, "first_equal": [
+            [r["outs"][u][0] for u in sorted(r["outs"])] == want_first for r in nranks],
+            "tokens_equal_gloo": [r["outs"] == ranks[0]["outs"] for r in nranks],
+            "per_rank": [_tick_split(r) for r in nranks]}
+    _set_launches(counts0)
+    emit("serve_cb_tp", model=f"{model.name} x{L}L (CUT_LAYERS), W8 (random, seed 0)",
+         mesh="dp=1 x tp=2", backend="gloo", processes_on_one_card=2, codec="q8q4",
+         requests=len(reqs), one_rank_s=one_s, tp_s=tp_s,
+         one_rank_tick_ms_mean=1e3 * sum(one["tick_s"]) / len(one["tick_s"]),
+         timing="untimed ticks: wall time; every other tick: all-reduces "
+                "synchronize-bracketed",
+         first_token_equal=[f == want_first for f in first],
+         first_step_logits_max_abs_err=errs, logits_scale=scale,
+         tol=TP_BF16_TOL * scale, token_agreement_with_one_rank=agreement,
+         rank_launches=gates, per_rank=per_rank, nccl=nccl)
+    if not all(f == want_first for f in first) or max(errs) > TP_BF16_TOL * scale:
+        raise AssertionError(f"serve_cb_tp: first tokens {first} against {want_first}, "
+                             f"first step's logits {errs} against {TP_BF16_TOL * scale}")
+    if isinstance(nccl, dict) and not all(nccl["first_equal"]):
+        raise AssertionError(f"serve_cb_tp over nccl: {nccl}")
+    return gates
+
+
+def phase_dist_recovery():
+    """``python -m mustafar_tpu_torch.parallel.distributed`` on this card:
+    two processes over gloo (tp=2) run the q8q4 step program's timed decode
+    (16 steps; kernel 1 2 x 16, kernel 9 2 a rank) and, beside them, two
+    more the failure drill with a snapshot each step: process 1 exits at
+    step 4 and the survivor must report ``peer_loss_detected`` within its
+    3 s barrier deadline (plus 5 s); its snapshot (4 steps) recovers at
+    tp=1 in this process
+    (``run_recovery``: prefill, checked replay, the rest) to the timed run's
+    stream, token for token."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from mustafar_tpu_torch.parallel import distributed as dr
+    counts0 = _launches()
+    tmp = tempfile.mkdtemp(prefix="dist_recovery_")
+    steps, die_at, barrier_ms = 16, 4, 3000
+
+    def launch(tag, extra):
+        t = time.perf_counter()
+        outs = [os.path.join(tmp, f"{tag}{i}.json") for i in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "mustafar_tpu_torch.parallel.distributed",
+             "--coordinator", f"file://{tmp}/{tag}.store", "--num-processes", "2",
+             "--process-id", str(i), "--backend", "gloo", "--device", "cuda",
+             "--tp", "2", "--program", "q8q4", "--steps", str(steps),
+             "--timeout-s", "120", "--out", outs[i], *extra],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for i in range(2)]
+        logs = []
+        try:
+            logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0].decode()[-2000:]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        res = [json.load(open(o)) if os.path.exists(o) else None for o in outs]
+        return res, [p.returncode for p in procs], logs, time.perf_counter() - t
+
+    snap = os.path.join(tmp, "snap.json")
+    # the two runs side by side: four processes on the card
+    with ThreadPoolExecutor(2) as ex:
+        runs = (ex.submit(launch, "timed", []),
+                ex.submit(launch, "died", ["--die-after", str(die_at), "--barrier-ms",
+                                           str(barrier_ms), "--snapshot", snap]))
+        (timed, codes, logs, timed_s), (died, dcodes, dlogs, died_s) = (
+            f.result() for f in runs)
+    if codes != [0, 0]:
+        raise AssertionError(f"dist_recovery: the timed run exited {codes}: {logs}")
+    want = {"fused_q_decode_attention": 2 * steps, "prune_quant_pack_kv": 2}
+    got = [{k: v for k, v in r["launches"].items() if v} for r in timed]
+    survivor = died[0] or {}
+    t = time.perf_counter()
+    rec = dr.run_recovery(snap, None, device="cuda")
+    rec_s = time.perf_counter() - t
+    ref = timed[0]["stream"]
+    _set_launches(counts0)
+    emit("dist_recovery", backend="gloo", processes_on_one_card=2, program="q8q4",
+         steps=steps, timed_s=timed_s, step_ms=[r["step_ms"] for r in timed],
+         rank_launches=got, died_exit_codes=dcodes, died_s=died_s,
+         peer_loss_detected=survivor.get("peer_loss_detected"),
+         error_type=survivor.get("error_type"), error=survivor.get("error"),
+         detected_after_s=survivor.get("detected_after_s"), barrier_ms=barrier_ms,
+         recovered_from_step=rec["recovered_from_step"], recovery_tp=rec["tp"],
+         recovery_s=rec_s, replay_s=rec["replay_s"],
+         token_exact=rec["stream"] == ref, ranks_agree=timed[1]["stream"] == ref)
+    if got != [want, want] or timed[1]["stream"] != ref:
+        raise AssertionError(f"dist_recovery: launches {got} (expected {want}), streams "
+                             f"equal {timed[1]['stream'] == ref}")
+    if dcodes != [0, 17] or not survivor.get("peer_loss_detected") or \
+            survivor["detected_after_s"] > barrier_ms / 1e3 + 5:
+        raise AssertionError(f"dist_recovery: the drill exited {dcodes}, survivor "
+                             f"{survivor}: {dlogs}")
+    if rec["stream"] != ref or rec["recovered_from_step"] != die_at:
+        raise AssertionError(f"dist_recovery: recovery from step "
+                             f"{rec['recovered_from_step']} is not token-exact")
+
+
 QUANT_KINDS = ("decode", "decode_ps", "segment")
 
 
@@ -4770,6 +5138,8 @@ def main():
     phase_reference_sample()
     phase_reference_w8a8()
     phase_reference_moe()
+    phase_reference_sharded()
+    phase_dist_recovery()
 
     import numpy as np
     import torch
@@ -4889,6 +5259,7 @@ def main():
         other[("q4q4", kind)]["launches"] = cb_launches[name]
         other[("q8", kind)]["launches"] = q_engine_launches["q8"][name]
     serve_cb_opa(entries, cut_params, cut_model, opa_cb_launches)
+    phase_serve_cb_tp(cut_model)
     _merge_codecs(entries, other, "q8q4", ("q8", "q4q4"),
                   "q8q4 and q4q4 from serve_q8q4 / serve_q4q4 and "
                   "serve_cb / serve_cb_q4q4; q8's per-slot and segment launches from "

@@ -11,6 +11,13 @@ caches do, and updates its state dict IN PLACE: one
 cache buffer lives for the whole generation, where JAX threads immutable
 state through the scan.  A layer whose leaves hold ``w_router`` runs
 Mixtral's sparse-MoE MLP (``models/moe.py``) in place of the dense one.
+
+Under tensor parallelism (``tp``, a ``parallel.sharding.ModelShard``) the
+params are one rank's shard and ``cfg`` its local config: ``wo`` and
+``w_down`` reduce their partial products over the "model" group
+(``quant.proj``), the MoE sums its experts' partial combine, and a
+vocabulary-parallel LM head gathers the full logits, where GSPMD inserts
+the same collectives in the JAX package.  ``tp=None`` is one device.
 """
 
 from __future__ import annotations
@@ -82,7 +89,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     return params
 
 
-def _mlp(lp: dict, h: torch.Tensor) -> torch.Tensor:
+def _mlp(lp: dict, h: torch.Tensor, tp=None) -> torch.Tensor:
     """SwiGLU MLP, on the fused ``w_gateup`` when ``quant.fuse_projections``
     made one.  (The JAX package cuts long prefills into 512-token segments
     to bound XLA temporaries; the math is per token, so one pass gives the
@@ -91,10 +98,10 @@ def _mlp(lp: dict, h: torch.Tensor) -> torch.Tensor:
         gate, up = proj(h, lp, "w_gateup").chunk(2, dim=-1)
     else:
         gate, up = proj(h, lp, "w_gate"), proj(h, lp, "w_up")
-    return proj(F.silu(gate) * up, lp, "w_down")
+    return proj(F.silu(gate) * up, lp, "w_down", tp)
 
 
-def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin, attend):
+def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin, attend, tp=None):
     """One decoder layer.  x [B, T, H]; attend(q, k, v) -> out [B, T, Hq, D]."""
     B, T, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
@@ -108,31 +115,35 @@ def _layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, cos, sin, attend):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = attend(q, k, v)
-    x = x + proj(attn.reshape(B, T, cfg.q_dim), lp, "wo")
+    x = x + proj(attn.reshape(B, T, cfg.q_dim), lp, "wo", tp)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
     if "w_router" in lp:
-        return x + moe_mlp(cfg, lp, h)
-    return x + _mlp(lp, h)
+        return x + moe_mlp(cfg, lp, h, tp)
+    return x + _mlp(lp, h, tp)
 
 
-def _lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def _lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     """f32 logits; an int8 head is scaled per vocab column after the dot, or
-    with the ``act_quant`` marker goes through ``w8a8_dot``."""
+    with the ``act_quant`` marker goes through ``w8a8_dot``.  A head cut on
+    the vocabulary (``tp``, untied) gathers the whole row."""
     if cfg.tie_word_embeddings:
         head, scale = params["embed"].T, params.get("embed_scale")
     else:
         head, scale = params["lm_head"], params.get("lm_head_scale")
     if head.dtype == torch.int8 and "act_quant" in params:
-        return w8a8_dot(x, head, scale, out_dtype=torch.float32)
-    logits = (x @ head.to(x.dtype)).to(torch.float32)
-    if head.dtype == torch.int8:
-        logits = logits * scale
+        logits = w8a8_dot(x, head, scale, out_dtype=torch.float32)
+    else:
+        logits = (x @ head.to(x.dtype)).to(torch.float32)
+        if head.dtype == torch.int8:
+            logits = logits * scale
+    if tp is not None and not cfg.tie_word_embeddings:
+        logits = tp.gather_last(logits, cfg.vocab_size)
     return logits
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
             cache_impl, positions: torch.Tensor, mode: str, aux,
-            last_only: bool = False):
+            last_only: bool = False, tp=None):
     """Shared forward, ``mode`` in {"prefill", "prefill_segment", "decode"}.
 
     tokens [B, T] int64; positions [T] (or [B, 1], per-slot decode).
@@ -141,7 +152,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
     a host int, or a [B] device tensor of per-slot positions).  ``last_only``
     computes the LM head at the prompt's last position only ([B, 1, V]):
     ``true_len - 1``, or ``true_len - 1 - seg_start`` within a segment.  The
-    cache is updated in place and returned with the f32 logits."""
+    cache is updated in place and returned with the f32 logits.  ``tp``:
+    the rank's ``ModelShard`` under tensor parallelism (module note)."""
     if mode == "prefill":
         def attend_at(li):
             return lambda q, k, v: cache_impl.prefill_attend(cache, li, q, k, v, aux)
@@ -162,7 +174,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
     layers = params["layers"]
     for li in range(cfg.num_layers):
         lp = {name: leaf[li] for name, leaf in layers.items()}
-        x = _layer(cfg, lp, x, cos, sin, attend_at(li))
+        x = _layer(cfg, lp, x, cos, sin, attend_at(li), tp)
     if mode == "prefill_segment":
         cache_impl.finalize_segment(cache, seg_start, true_len)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -172,25 +184,25 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
         else:
             idx = max(aux - 1, 0)
         x = x[:, idx:idx + 1]
-    return _lm_head(cfg, params, x), cache
+    return _lm_head(cfg, params, x, tp), cache
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, cache_impl, true_len: int,
-            last_only: bool = False):
+            last_only: bool = False, tp=None):
     """tokens [B, Tpad]; true_len the uniform valid length (left-aligned)."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     return forward(cfg, params, tokens, cache, cache_impl, positions, "prefill",
-                   true_len, last_only=last_only)
+                   true_len, last_only=last_only, tp=tp)
 
 
 def prefill_segment(cfg: ModelConfig, params, seg_tokens, cache, cache_impl,
-                    seg_start: int, true_len: int):
+                    seg_start: int, true_len: int, tp=None):
     """One chunked-prefill segment: seg_tokens [B, C] at positions
     [seg_start, seg_start + C) -> (logits at the prompt's last position
     within the segment [B, 1, V], cache)."""
     positions = seg_start + torch.arange(seg_tokens.shape[1], device=seg_tokens.device)
     return forward(cfg, params, seg_tokens, cache, cache_impl, positions,
-                   "prefill_segment", (seg_start, true_len), last_only=True)
+                   "prefill_segment", (seg_start, true_len), last_only=True, tp=tp)
 
 
 def n_segments(true_len: int, C: int) -> int:
@@ -199,7 +211,7 @@ def n_segments(true_len: int, C: int) -> int:
 
 
 def prefill_chunked(cfg: ModelConfig, params, tokens, cache, cache_impl,
-                    true_len: int):
+                    true_len: int, tp=None):
     """Chunked (segment-streamed) prefill over the compressed cache.
 
     tokens [B, T] with T a multiple of the cache chunk C: the prompt goes
@@ -220,11 +232,11 @@ def prefill_chunked(cfg: ModelConfig, params, tokens, cache, cache_impl,
     logits = None
     for seg_start in range(0, n_segments(true_len, C) * C, C):
         logits, cache = prefill_segment(cfg, params, tokens[:, seg_start:seg_start + C],
-                                        cache, cache_impl, seg_start, true_len)
+                                        cache, cache_impl, seg_start, true_len, tp)
     return logits, cache
 
 
-def decode_step(cfg: ModelConfig, params, token, cache, cache_impl, pos):
+def decode_step(cfg: ModelConfig, params, token, cache, cache_impl, pos, tp=None):
     """token [B, 1]; pos the host int index of this token (uniform batch) or
     a [B] device tensor of per-slot indices (continuous batching: RoPE then
     rotates each row at its own position)."""
@@ -232,4 +244,4 @@ def decode_step(cfg: ModelConfig, params, token, cache, cache_impl, pos):
         positions = pos[:, None]
     else:
         positions = torch.full((1,), pos, dtype=torch.int64, device=token.device)
-    return forward(cfg, params, token, cache, cache_impl, positions, "decode", pos)
+    return forward(cfg, params, token, cache, cache_impl, positions, "decode", pos, tp=tp)

@@ -25,6 +25,16 @@ With the ``"a8"`` marker (``quant.enable_act_quant``) each slot row is
 quantized to int8 over the contraction axis (an empty slot to 0) and the
 products run int8 x int8 -> int32 (``quant.int8_matmul``), both scales
 applied after.
+
+Expert parallelism (``tp``, a ``parallel.sharding.ModelShard``): a rank
+holds experts [rank E/tp, (rank + 1) E/tp) of every layer.  Routing, the
+capacity (from the global E) and each pair's rank are computed from the
+replicated router on every rank alike; a rank fills and runs only its
+experts' slots, and the f32 partial combines are summed over "model" (the
+other ranks' terms are 0, so with K = 2 the sum is one device's).  Where
+the batch is spread over "data" (``tp.data``) the groups, capacities and
+ranks are the whole batch's, as on one device: every rank routes the
+gathered batch and keeps its own rows' combine.
 """
 
 from __future__ import annotations
@@ -50,21 +60,32 @@ def expert_capacity(n_tokens: int, num_experts: int, top_k: int,
     return max(8, -(-c // 8) * 8)
 
 
-def moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
-    """x [B, T, H] -> [B, T, H]; ``lp`` holds one layer's MoE leaves."""
+def moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """x [B, T, H] -> [B, T, H]; ``lp`` holds one layer's MoE leaves (a
+    rank's experts under ``tp``)."""
     B, T, H = x.shape
-    N = B * T
-    xf = x.reshape(N, H)
+    xf = x.reshape(B * T, H)
+    lo = 0
+    if tp is not None:
+        xf, lo = tp.batch_rows(xf)
+    N = xf.shape[0]
     if N > _MOE_GROUP and N % _MOE_GROUP == 0:
-        out = torch.cat([_moe_group(cfg, lp, g) for g in xf.split(_MOE_GROUP)])
-        return out.reshape(B, T, H)
-    return _moe_group(cfg, lp, xf).reshape(B, T, H)
+        out = torch.cat([_moe_group(cfg, lp, g, tp) for g in xf.split(_MOE_GROUP)])
+    else:
+        out = _moe_group(cfg, lp, xf, tp)
+    out = out[lo:lo + B * T]
+    if tp is not None:
+        tp.sum_(out)
+    return out.to(x.dtype).reshape(B, T, H)
 
 
-def _moe_group(cfg: ModelConfig, lp: dict, xf: torch.Tensor) -> torch.Tensor:
-    """Route, dispatch, expert SwiGLU and combine for one group [N, H]."""
+def _moe_group(cfg: ModelConfig, lp: dict, xf: torch.Tensor, tp=None) -> torch.Tensor:
+    """Route, dispatch, expert SwiGLU and the f32 combine of the experts
+    held here for one group [N, H]."""
     N, H = xf.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
+    El = lp["we_gate"].shape[0]                  # the experts held here
+    e0 = 0 if tp is None else tp.rank * El
     logits = (xf @ lp["w_router"].to(xf.dtype)).to(torch.float32)      # [N, E]
     top, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
     gates = torch.softmax(top[:, :K], dim=-1)                            # [N, K]
@@ -72,17 +93,18 @@ def _moe_group(cfg: ModelConfig, lp: dict, xf: torch.Tensor) -> torch.Tensor:
     C = expert_capacity(N, E, K, cfg.expert_capacity_factor)
     sel = torch.zeros((N, E), dtype=torch.int64, device=xf.device).scatter_(1, idx, 1)
     rank = (torch.cumsum(sel, dim=0) - sel).gather(1, idx)              # [N, K]
-    # a kept pair's slot e*C + rank; a dropped one's the spare row E*C
-    slot = torch.where(rank < C, idx * C + rank, E * C).reshape(N * K)
-    xe = xf.new_zeros((E * C + 1, H))
+    # a kept pair's slot (e - e0)*C + rank among the experts held here; a
+    # dropped pair's, or another rank's, the spare row El*C
+    mine = (rank < C) & (idx >= e0) & (idx < e0 + El)
+    slot = torch.where(mine, (idx - e0) * C + rank, El * C).reshape(N * K)
+    xe = xf.new_zeros((El * C + 1, H))
     xe.index_copy_(0, slot, xf.repeat_interleave(K, dim=0))
-    xe = xe[:E * C].view(E, C, H)
+    xe = xe[:El * C].view(El, C, H)
     hg = F.silu(_edot(lp, "we_gate", xe))
     hu = _edot(lp, "we_up", xe)
-    ye = _edot(lp, "we_down", hg * hu).reshape(E * C, H).to(torch.float32)
+    ye = _edot(lp, "we_down", hg * hu).reshape(El * C, H).to(torch.float32)
     ye = torch.cat([ye, ye.new_zeros((1, H))])                           # the spare row: 0
-    out = (ye[slot].view(N, K, H) * gates[..., None]).sum(dim=1)
-    return out.to(xf.dtype)
+    return (ye[slot].view(N, K, H) * gates[..., None]).sum(dim=1)
 
 
 def _edot(lp: dict, name: str, v: torch.Tensor) -> torch.Tensor:

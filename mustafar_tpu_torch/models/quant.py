@@ -193,12 +193,16 @@ def _col_major(w: torch.Tensor) -> torch.Tensor:
     return w.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 
-def act_quant(x: torch.Tensor):
+def act_quant(x: torch.Tensor, tp=None):
     """Per-row symmetric int8 over the last axis: (codes int8, scales f32
     [..., 1]) with scale max(max|x|, 1e-30) / 127 (a row of zeros gives
-    codes 0)."""
+    codes 0).  ``tp``: the last axis is cut over "model"; the whole row's
+    amax is taken."""
     xf = x.to(torch.float32)
-    sx = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-30) * recip_f32(127.0)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if tp is not None:
+        tp.max_(amax)
+    sx = torch.clamp_min(amax, 1e-30) * recip_f32(127.0)
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return xq, sx
 
@@ -221,12 +225,18 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(pad, b)[:M]
 
 
-def w8a8_dot(h: torch.Tensor, w: torch.Tensor, s: torch.Tensor, out_dtype=None):
+def w8a8_dot(h: torch.Tensor, w: torch.Tensor, s: torch.Tensor, out_dtype=None,
+             tp=None):
     """h [..., in] @ int8 w [in, out] with per-out scales s: h quantized per
     row (``act_quant``), int8 x int8 -> int32, then acc * sx * s in f32,
-    cast to ``out_dtype`` (h's by default)."""
-    xq, sx = act_quant(h)
+    cast to ``out_dtype`` (h's by default).  ``tp``: h and w are a rank's
+    share of a row-parallel ``in`` (``parallel.sharding``); the row amax is
+    reduced with MAX before quantizing and the int32 accumulators are
+    summed, so the codes and the sum are one device's."""
+    xq, sx = act_quant(h, tp)
     acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), w).reshape(*h.shape[:-1], w.shape[-1])
+    if tp is not None:
+        tp.sum_(acc)
     return (acc.to(torch.float32) * sx * s.to(torch.float32)).to(out_dtype or h.dtype)
 
 
@@ -256,18 +266,25 @@ def fuse_projections(params: dict) -> dict:
     return out
 
 
-def proj(h: torch.Tensor, lp: dict, name: str) -> torch.Tensor:
+def proj(h: torch.Tensor, lp: dict, name: str, tp=None) -> torch.Tensor:
     """h @ lp[name]: int8 weights dequantized with their per-out scale, or
     with the ``"a8"`` marker through ``w8a8_dot``; int16 (W4) carriers
-    through ``_w4_dot``."""
+    through ``_w4_dot``.  ``tp`` (a row-parallel projection under tensor
+    parallelism, ``parallel.sharding.ModelShard``): h and the weight's rows
+    are the rank's share, and the partial products are summed over the
+    "model" group before a replicated per-out scale is applied."""
     w = lp[name]
     if w.dtype == torch.int16:
-        return _w4_dot(h, w, lp[name + "_scale"])
+        return _reduced(_w4_dot(h, w, lp[name + "_scale"]), tp)
     if w.dtype == torch.int8:
         if "a8" in lp:
-            return w8a8_dot(h, w, lp[name + "_scale"])
-        return (h @ w.to(h.dtype)) * lp[name + "_scale"].to(h.dtype)
-    return h @ w
+            return w8a8_dot(h, w, lp[name + "_scale"], tp=tp)
+        return _reduced(h @ w.to(h.dtype), tp) * lp[name + "_scale"].to(h.dtype)
+    return _reduced(h @ w, tp)
+
+
+def _reduced(y: torch.Tensor, tp) -> torch.Tensor:
+    return y if tp is None else tp.sum_(y)
 
 
 def _w4_dot(h: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

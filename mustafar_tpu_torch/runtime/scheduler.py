@@ -34,6 +34,21 @@ Where the core cannot be built, ``native.PySlotScheduler`` keeps the same
 rule in Python behind the same calls.  The positions live on the host in
 numpy too, as in the JAX package.  The device runs the model; the host
 reads back one token per slot per step.
+
+With a ``mesh`` (``parallel.sharding.make_mesh``, one process a rank) the
+slots go over "data" and the heads over "model": each rank holds B/dp
+slots of Hkv/tp kv heads and its shard of the params (cut here from the
+full params), and runs the same scheduler on the same ``submit`` calls, so
+the core's bookkeeping is the same on every rank.  A request's prefill
+runs on the data group that owns its slot (its tp ranks together) and is
+inserted into that group's local cache; each decode step runs every group
+that holds an active slot on its own slots (under a MoE every group, whose
+routing is the whole batch's: ``models/moe.py``).  Every token, a first token or a decode step's, is
+handed to every rank by a zero-padded ``all_reduce`` over "data" before it
+is committed, and the pick step advances alike on every rank (a sampled
+decode draw sees the whole batch's shape, so a slot's draw is one
+device's).  Decode, segments, packing and compaction run on the local
+slots and heads unchanged.  ``mesh=None`` is one device.
 """
 
 from __future__ import annotations
@@ -50,6 +65,7 @@ from mustafar_tpu_torch.config import EngineConfig
 from mustafar_tpu_torch.device import resolve_device
 from mustafar_tpu_torch.models import llama
 from mustafar_tpu_torch.native import slot_scheduler
+from mustafar_tpu_torch.parallel import sharding
 from mustafar_tpu_torch.runtime.generate import GREEDY, SamplingParams, choose
 
 
@@ -67,7 +83,7 @@ class _Admission:
     """A request whose chunked prefill is streaming into a reserved slot."""
     req: Request
     slot: int
-    toks: torch.Tensor           # [1, Tpad] padded prompt, on the device
+    toks: Optional[torch.Tensor]  # [1, Tpad] padded prompt, on the device
     true_len: int
     n_seg: int
     s: int = 0                   # next segment index
@@ -78,24 +94,42 @@ class _Admission:
 class ContinuousBatchingEngine:
     """FCFS slot scheduler over a batched decode step, on ``device``
     (default ``cuda``; params must already live there).  ``core`` keeps the
-    queue and the slots (``native.slot_scheduler``)."""
+    queue and the slots (``native.slot_scheduler``).  ``mesh``: a
+    ("data", "model") ``DeviceMesh`` this process is one rank of (module
+    note); ``params`` are then the full params, which the engine cuts."""
 
     def __init__(self, engine: EngineConfig, params: dict, dtype=torch.bfloat16,
                  eos_id: Optional[int] = None, sampling: SamplingParams = GREEDY,
-                 interleave: bool = True, device=None):
+                 interleave: bool = True, device=None, mesh=None):
         self.device = resolve_device(device)
         self.engine = engine
-        self.cfg = engine.model
-        self.params = params
+        self.mesh = mesh
+        dp, tp = sharding.mesh_dims(mesh)
+        # a prefill runs on the slot's data group alone; a decode step on
+        # every group together, each on its own slots of the one batch
+        self.tp = sharding.model_shard(mesh, whole_batch=False)
+        self.tp_batch = sharding.model_shard(mesh)
+        # a MoE routes the whole batch (models/moe.py): every group steps
+        self._groups_step_together = bool(dp > 1 and engine.model.num_experts)
+        local = engine if mesh is None else sharding.local_engine(engine, dp, tp)
+        self.cfg = local.model
+        self.B = engine.batch_size
+        self.Bl = local.batch_size          # the slots this rank holds
+        if mesh is None:
+            self.lo = 0
+            self.params = params
+        else:
+            self.lo = mesh.get_local_rank("data") * self.Bl
+            self._data_group = mesh.get_group("data")
+            self.params = sharding.shard_params(engine.model, params, tp, self.tp.rank)
         self.dtype = dtype
         self.eos_id = eos_id
         self.sampling = sampling
         self._pick_step = 0          # the draw's step: advanced by every choice
         # interleaved admission needs segment-streamed prefill state
         self.interleave = bool(interleave and engine.chunked_prefill)
-        self.B = engine.batch_size
-        self.impl = make_cache(engine, device=self.device)
-        self.cache = self.impl.init(self.B, dtype)
+        self.impl = make_cache(local, device=self.device)
+        self.cache = self.impl.init(self.Bl, dtype)
         self.core = slot_scheduler(self.B, engine.max_seq_len)
         self.slot_req: list[Optional[Request]] = [None] * self.B
         self.slot_pos = np.zeros(self.B, np.int64)      # next write index
@@ -105,8 +139,8 @@ class ContinuousBatchingEngine:
         self._admissions: deque[_Admission] = deque()
         self._uid = 0
         self.ticks = 0               # engine ticks run (admission + decode)
-        self.decode_steps = 0        # batched decode steps run
-        self.segments = 0            # chunked-prefill segments run
+        self.decode_steps = 0        # batched decode steps run on this rank
+        self.segments = 0            # chunked-prefill segments run on this rank
 
     # -- public API -------------------------------------------------------
     def submit(self, tokens, max_new_tokens: int) -> int:
@@ -157,13 +191,29 @@ class ContinuousBatchingEngine:
         (None for an idle slot, whose token is dropped).  One device read."""
         return choose(logits2d, self.sampling, self._next_pick_step()).cpu().numpy()
 
+    # -- data parallelism -----------------------------------------------------
+    def _owns(self, slot: int) -> bool:
+        return self.lo <= slot < self.lo + self.Bl
+
+    def _share(self, toks: np.ndarray) -> np.ndarray:
+        """Tokens known on their owners' ranks (0 elsewhere) -> on every
+        rank: a SUM over "data", one owner a slot."""
+        if self.mesh is None:
+            return toks
+        t = torch.from_numpy(np.ascontiguousarray(toks, np.int64)).to(self.device)
+        return sharding.all_reduce(t, self._data_group).cpu().numpy()
+
     # -- internals --------------------------------------------------------
     def _bucket(self, n: int) -> int:
         b = self.engine.prefill_bucket
         return max(b, (n + b - 1) // b * b)
 
-    def _padded(self, req: Request):
+    def _padded(self, req: Request, slot: int):
+        """The padded prompt on the device (None on a rank that does not
+        own ``slot``) and its length."""
         T = len(req.tokens)
+        if not self._owns(slot):
+            return None, T
         Tpad = self._bucket(T)
         toks = torch.zeros((1, Tpad), dtype=torch.int64)
         toks[0, :T] = torch.from_numpy(req.tokens)
@@ -171,9 +221,16 @@ class ContinuousBatchingEngine:
 
     def _start_slot(self, req: Request, slot: int, true_len: int, logits, sub):
         """Pick the first token from prefill logits, insert the request's
-        cache into its slot and commit the token."""
-        nxt = int(self._choose(logits[:, 0], [req])[0])
-        self.impl.insert_slot(self.cache, sub, slot)
+        cache into its slot and commit the token.  A rank that does not own
+        the slot has no logits: it advances the pick step and is handed the
+        token."""
+        if self._owns(slot):
+            nxt = self._choose(logits[:, 0], [req])
+            self.impl.insert_slot(self.cache, sub, slot - self.lo)
+        else:
+            self._next_pick_step()
+            nxt = np.zeros(1, np.int64)
+        nxt = int(self._share(nxt)[0])
         self.slot_req[slot] = req
         self.slot_pos[slot] = true_len + 1
         self.slot_last[slot] = nxt
@@ -184,15 +241,17 @@ class ContinuousBatchingEngine:
     def _prefill_into_slot(self, req: Request, slot: int):
         """Blocking admission: the whole prefill (monolithic, or every
         segment when chunked) runs now."""
-        toks, T = self._padded(req)
-        sub = self.impl.init(1, self.dtype)
-        if self.engine.chunked_prefill:
-            logits, sub = llama.prefill_chunked(self.cfg, self.params, toks, sub,
-                                                self.impl, T)
-            self.segments += llama.n_segments(T, self.impl.C)
-        else:
-            logits, sub = llama.prefill(self.cfg, self.params, toks, sub, self.impl,
-                                        T, last_only=True)
+        toks, T = self._padded(req, slot)
+        logits = sub = None
+        if toks is not None:
+            sub = self.impl.init(1, self.dtype)
+            if self.engine.chunked_prefill:
+                logits, sub = llama.prefill_chunked(self.cfg, self.params, toks, sub,
+                                                    self.impl, T, tp=self.tp)
+                self.segments += llama.n_segments(T, self.impl.C)
+            else:
+                logits, sub = llama.prefill(self.cfg, self.params, toks, sub, self.impl,
+                                            T, last_only=True, tp=self.tp)
         self._start_slot(req, slot, T, logits, sub)
 
     def _fill_slots(self):
@@ -208,10 +267,11 @@ class ContinuousBatchingEngine:
     def _start_admission(self, req: Request, slot: int):
         """Reserve ``slot`` for ``req``; its prompt's segments (those that
         hold prompt tokens, ``llama.n_segments``) then run one a tick."""
-        toks, T = self._padded(req)
+        toks, T = self._padded(req, slot)
         self._admissions.append(_Admission(
             req=req, slot=slot, toks=toks, true_len=T,
-            n_seg=llama.n_segments(T, self.impl.C), sub=self.impl.init(1, self.dtype)))
+            n_seg=llama.n_segments(T, self.impl.C),
+            sub=None if toks is None else self.impl.init(1, self.dtype)))
 
     def _admission_tick(self):
         """Advance the head admission by one C-token segment; once its
@@ -220,10 +280,11 @@ class ContinuousBatchingEngine:
         adm = self._admissions[0]
         C = self.impl.C
         s = adm.s
-        adm.logits, adm.sub = llama.prefill_segment(
-            self.cfg, self.params, adm.toks[:, s * C:(s + 1) * C], adm.sub,
-            self.impl, s * C, adm.true_len)
-        self.segments += 1
+        if adm.toks is not None:
+            adm.logits, adm.sub = llama.prefill_segment(
+                self.cfg, self.params, adm.toks[:, s * C:(s + 1) * C], adm.sub,
+                self.impl, s * C, adm.true_len, tp=self.tp)
+            self.segments += 1
         adm.s += 1
         if adm.s < adm.n_seg:
             return
@@ -234,14 +295,29 @@ class ContinuousBatchingEngine:
         active = self.active_mask
         if not active.any():
             return
-        # idle slots ride along at position -1 (slot_pos 0) and keep their
-        # last token; the caches neither write nor attend them
-        tok = torch.from_numpy(self.slot_last[:, None]).to(self.device)
-        pos = torch.from_numpy(self.slot_pos - 1).to(self.device)
-        logits, self.cache = llama.decode_step(self.cfg, self.params, tok, self.cache,
-                                               self.impl, pos)
-        nxt = self._choose(logits[:, 0], list(self.slot_req))
-        self.decode_steps += 1
+        lo, hi = self.lo, self.lo + self.Bl
+        nxt = np.zeros(self.B, np.int64)
+        if active[lo:hi].any() or self._groups_step_together:
+            # idle slots ride along at position -1 (slot_pos 0) and keep
+            # their last token; the caches neither write nor attend them
+            tok = torch.from_numpy(self.slot_last[lo:hi, None]).to(self.device)
+            pos = torch.from_numpy(self.slot_pos[lo:hi] - 1).to(self.device)
+            logits, self.cache = llama.decode_step(self.cfg, self.params, tok,
+                                                   self.cache, self.impl, pos,
+                                                   tp=self.tp_batch)
+            logits = logits[:, 0]
+            reqs = list(self.slot_req)
+            if self.mesh is not None:
+                # the whole batch's shape, this rank's rows in place
+                logits = torch.cat([logits.new_zeros((lo, logits.shape[-1])), logits,
+                                    logits.new_zeros((self.B - hi, logits.shape[-1]))])
+                reqs = [r if self._owns(b) else None for b, r in enumerate(reqs)]
+            nxt[lo:hi] = self._choose(logits, reqs)[lo:hi]
+            self.decode_steps += 1
+        else:
+            # no slot of this rank's: its data group skips the model
+            self._next_pick_step()
+        nxt = self._share(nxt)
         for slot in range(self.B):
             req = self.slot_req[slot]
             if req is None:
@@ -260,14 +336,14 @@ class ContinuousBatchingEngine:
         return self.core.commit(slot, self.eos_id is not None and tok == self.eos_id) == 1
 
     def _maybe_compact(self):
-        """Compressed caches: compact the active slots whose window just
-        filled.  The cache holds slot_pos - 1 tokens here (slot_pos already
-        counts the token the step just committed)."""
+        """Compressed caches: compact the active slots (of this rank) whose
+        window just filled.  The cache holds slot_pos - 1 tokens here
+        (slot_pos already counts the token the step just committed)."""
         if not hasattr(self.impl, "compact_slots"):
             return
         flags = [self.slot_req[b] is not None
                  and self.impl.needs_compact(int(self.slot_pos[b]) - 1)
-                 for b in range(self.B)]
+                 for b in range(self.lo, self.lo + self.Bl)]
         if any(flags):
             self.impl.compact_slots(self.cache, flags)
 

@@ -7,6 +7,7 @@ where none of them can be imported.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -58,3 +59,21 @@ def test_port_imports_with_jax_unavailable():
                           env=dict(os.environ, PYTHONPATH=str(ROOT)))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")
+
+
+def test_distributed_entry_point_runs_with_jax_unavailable(tmp_path):
+    """The spawned entry point (``python -m mustafar_tpu_torch.parallel.
+    distributed``): one process of the masked step program runs to its result
+    in an interpreter where ``jax`` and ``mustafar_tpu`` cannot be imported."""
+    out = tmp_path / "step.json"
+    code = (
+        "import sys, runpy\n"
+        "for name in ('jax', 'jaxlib', 'mustafar_tpu', 'transformers'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.argv = ['distributed', '--device', 'cpu', '--out', {str(out)!r}]\n"
+        "runpy.run_module('mustafar_tpu_torch.parallel.distributed', run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert len(json.loads(out.read_text())["tokens"]) == 8
