@@ -199,6 +199,16 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 survivor reports the loss within its 3 s barrier deadline);
                 recovery from the drill's snapshot at tp=1 in this
                 process, token for token the timed run's
+  reference_ring
+                the SP prefill on the tiny f32 model (2 kv heads): four
+                processes on this card over gloo, sp=2 x tp=2 and sp=2, the
+                dense cache and the masked cache under every prune family
+                (RING_METHODS), 512 tokens (true length 500), then 4 decode
+                steps through kernel 4: every rank's logits within SP_TOL of
+                one card rank's (RANGE_TOL of their range where tp cuts the
+                heads) and its picks equal, that rank's within RANGE_TOL of
+                the range of the CPU's, kernel 4 2 x 4 a rank; over nccl on a
+                host with four cards (else a line says it was not run)
   serve_q8q4    full-width, 32-layer Llama-3-8B with random W8 weights made
                 on the card: Generator.generate, B=8, prompt 300, 300 new
                 tokens, q8q4 compressed cache (one compaction on the way);
@@ -238,10 +248,11 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 with V's scores 33 for q8q4); first tokens = serve_dense's
   decode_split  device time of a decode step's W8 projections, LM head and
                 attention kernel, each timed alone, beside the step's wall time
-  serve_cb      the continuous-batching engine at full width: 8 slots, 17
-                requests (one of 8,000 prompt tokens), chunked interleaved
-                admission; per-slot and segment kernel launches = 32 x decode
-                steps and 32 x segments; first tokens = a batch-1 chunked
+  serve_cb      the continuous-batching engine at full width and 8 of the 32
+                layers (CUT_LAYERS): 8 slots, 17 requests (one
+                of 8,000 prompt tokens), chunked interleaved admission;
+                per-slot and segment kernel launches = 8 x decode steps and
+                8 x segments; first tokens = a batch-1 chunked
                 Generator's; the slot bookkeeping in the native core
                 (native/scheduler.cpp, built with g++), whose stats must
                 show every request admitted and finished and none refused
@@ -274,6 +285,24 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 all-reduce bracketed by synchronizes); over nccl,
                 one card a rank, where the host has two cards (else a line
                 says it was not run)
+  serve_sp_prefill
+                Llama-3-8B at full width and 8 of its 32 layers (CUT_LAYERS),
+                W8 (random, seed 0), B=2 prompts of 8,192 tokens, the dense
+                cache: the SP prefill at sp=2 (two processes on this card
+                over gloo), then 16 decode steps through kernel 4 (8 x 16 a
+                rank); first tokens equal one rank's monolithic prefill, the
+                prefill's and first step's logits within TP_BF16_TOL of
+                their range; a rank's prefill ms, its hops' ms and share,
+                each rank's peak memory; over nccl where the host has two
+                cards
+  serve_pp      Llama-3-8B at full width and depth, W8 (random, seed 0), two
+                pipeline stages (two processes over gloo), B=8, 300 + 32, 2
+                microbatches, the dense cache with kernel 4 (16 x 31 x 2 a
+                stage): every token and the logits equal to one rank running
+                the same schedule; a decode step's wall ms and its hops'
+                share; then PP x TP on the tiny model (four processes, pp=2 x
+                tp=2, dense and masked Opa); over nccl where the host has
+                two (four) cards
   serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64
   serve_swa_dense, serve_swa_dense_kernel, serve_swa_q8q4, serve_swa_bitmap
                 Mistral-7B with its 4,096 window (MISTRAL_7B_SWA), full
@@ -307,10 +336,11 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 64), the native core against the Python rule kept for a
                 host without g++; both admit and retire all 64
   serve_w4_dense, serve_w4_q8q4, serve_w4_bitmap
-                the Generator at full width and depth with W4 weights
-                (init_params_w4, seed 0), B=8, 300 + 300: W4 kernel 7 x 32 and
-                the cache's decode kernel 32 a step (the dense cache through
-                its kernel); first tokens = serve_w4_dense's
+                the Generator at full width and 8 of the 32 layers
+                (CUT_LAYERS) with W4 weights (init_params_w4,
+                seed 0), B=8, 300 + 300: W4 kernel 7 x 8 and the cache's
+                decode kernel 8 a step (the dense cache through its kernel);
+                first tokens = serve_w4_dense's
   decode_split_w4
                 decode_split for the W4 step, per cache
   serve_cb_w4   serve_cb with W4 weights on the bitmap codec: its first 8
@@ -318,14 +348,16 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 (CUT_LAYERS)
   serve_w8a8_dense, serve_w8a8_q8q4
                 Llama-3-8B in W8A8 (serve_q8q4's W8 weights with
-                enable_act_quant), B=8, 300 + 100: kernel 1 32 x 99 and
-                kernel 9 32 at q8q4, first tokens equal; the W8A8 step's
-                projections and LM head, device ms
+                enable_act_quant) at 8 of its 32 layers (CUT_LAYERS), B=8,
+                300 + 100: kernel 1 8 x 99 and kernel 9 8 at q8q4, first
+                tokens equal; the W8A8 step's projections and LM head,
+                device ms
   serve_moe_dense, serve_moe_q8q4, serve_moe_bitmap
-                Mixtral-8x7B (MIXTRAL_8X7B) at full width and 32 layers, W8
-                (init_params_w8, seed 0, 43.5 GiB, made after every other
-                model is freed), B=8, 300 + 100: kernel 1 / kernel 6 32 x
-                99, kernel 9 32 at q8q4, first tokens = serve_moe_dense's;
+                Mixtral-8x7B (MIXTRAL_8X7B) at full width, W8 (init_params_w8,
+                seed 0, 43.5 GiB for the 32 layers, made after every other
+                model is freed), the Generator at 8 of the 32 layers
+                (CUT_LAYERS), B=8, 300 + 100: kernel 1 / kernel 6 8 x 99,
+                kernel 9 8 at q8q4, first tokens = serve_moe_dense's;
                 tok/s, prefill seconds, peak memory, and a decode step's
                 MoE MLP device ms beside its byte bound and the attention
                 projections' ms
@@ -336,12 +368,13 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 chunked Generator's
   harness_predict
                 the LongBench harness (predict_dataset, evaluate_dir) on
-                Llama-3-8B at full width and depth, W8 (this run's params),
-                synthetic passkey / passage_retrieval_en / trec rows (2 each,
-                ~3,000 bytes of context), byte tokenizer, model name
-                Meta-Llama-3-8B, one row a generate call, q8q4 at 0.7 and
-                the dense twin: kernel 1 32 x the rows' decode steps, kernel
-                9 32 a packing prefill and 1 a compaction, first tokens =
+                Llama-3-8B at full width and 8 of its 32 layers
+                (CUT_LAYERS), W8 (this run's params), synthetic passkey /
+                passage_retrieval_en / trec rows (2 each, ~3,000 bytes of
+                context), byte tokenizer, model name Meta-Llama-3-8B, one row
+                a generate call, q8q4 at 0.7 and the dense twin: kernel 1 8
+                x the rows' decode steps, kernel 9 8 a packing prefill and 1
+                a compaction, first tokens =
                 the dense twin's, all three tasks scored; tok/s and the
                 longest prompt's prefill seconds
   harness_accuracy
@@ -358,6 +391,11 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 384 NLL tokens, bitmap and q8q4 at 0.7): passkey accuracy
                 equal, NLL and KL within 1e-3, predictions equal or parted
                 at a near-tie (SWA_PICKS_NOTE)
+  train_tiny    training on the card: step 1 of TINY_ACC at 8 x 2,048 (remat)
+                from the same weights on the card and the CPU (loss and
+                gradient norm within TRAIN_TOL), then ``train`` for 20 steps
+                (the loss falls), its checkpoint read back on the card and
+                the CPU and a passkey row greedy-decoded to the same tokens
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 nothing is caught.  With no CUDA card, or run from a directory that holds
@@ -3488,15 +3526,17 @@ def phase_reference_moe():
                              f"not launched as expected: {prefill}, {runs}")
 
 
-# Layers of the host-bound engine phases: host_split, serve_cb_bitmap,
-# serve_cb_bitmap_q8, serve_cb_q4q4, serve_cb_opa and serve_cb_w4 run
+# Layers of the host-bound phases: host_split, every serve_cb* phase,
+# serve_sp_prefill, serve_w4_*, serve_w8a8_* and harness_predict run
 # Llama-3-8B, the serve_swa* and serve_cb_swa* phases Mistral-7B and
-# serve_cb_moe Mixtral-8x7B at full width and this depth, so that the whole
-# run keeps well inside BUDGET_S on a slower host (serve_cb stays at full
-# depth; at full depth serve_cb_swa_bitmap took 65.7 s, serve_cb_moe 74.5 s
-# of an 891.5 s run on one host, serve_cb_swa_q8q4 38.2 s of a 902.2 s run
-# on another, and the four serve_swa Generator phases 130.9 s of a 1,019 s
-# run on a third).
+# serve_moe_* and serve_cb_moe Mixtral-8x7B at full width and this depth, so
+# that the whole run keeps well inside BUDGET_S on a slower host (at full
+# depth serve_cb_swa_bitmap took 65.7 s, serve_cb_moe 74.5 s of an 891.5 s
+# run on one host, serve_cb_swa_q8q4 38.2 s of a 902.2 s run on another,
+# the four serve_swa Generator phases 130.9 s of a 1,019 s run on a third;
+# with the SP, PP and training phases serve_cb took 43.0 s, the serve_w4_*
+# 47.4 s, the serve_moe_* 62 s, serve_w8a8_* 25.6 s and harness_predict
+# 34.0 s of runs of 981-1,014 s).
 CUT_LAYERS = 8
 
 
@@ -3604,9 +3644,9 @@ def _step_parts(params):
     """At B=8: the device ms of one layer's seven projections (``proj``: W8
     widened to bf16, then matmul and scale; W4 through its kernel), each
     layer timed alone under the spin kernel (a layer's launches enqueue
-    within it, so the events read device time) and averaged over the 32
-    layers; the host us to enqueue one layer's projections; the LM head's
-    device ms."""
+    within it, so the events read device time) and averaged over the
+    params' layers (32, or CUT_LAYERS); the host us to enqueue one layer's
+    projections; the LM head's device ms."""
     import torch
     from mustafar_tpu_torch.config import LLAMA3_8B as cfg
     from mustafar_tpu_torch.models.llama import _lm_head
@@ -3630,8 +3670,8 @@ def _step_parts(params):
         layer(0)
         _lm_head(cfg, params, h)
         torch.cuda.synchronize()
-        layer_ms = sum(cuda_ms(lambda li=li: layer(li), 2)[0]
-                       for li in range(cfg.num_layers)) / cfg.num_layers
+        n = len(next(iter(layers.values())))
+        layer_ms = sum(cuda_ms(lambda li=li: layer(li), 2)[0] for li in range(n)) / n
         layer_host_us = host_us(lambda: layer(0), 10)
         head_ms = cuda_ms(lambda: _lm_head(cfg, params, h), 5)[0]
     return layer_ms, layer_host_us, head_ms
@@ -3651,13 +3691,15 @@ def phase_decode_split(params, kernel_ms, q8q4_s, dense_s, new_tokens):
          dense_wall_ms_per_token=dense_s / new_tokens * 1e3)
 
 
-def phase_decode_split_w4(params, attn_ms, wall_s, new_tokens):
+def phase_decode_split_w4(params, attn_ms, wall_s, new_tokens, model=None):
     """The W4 decode step's parts, as ``decode_split``: a layer's seven W4
     projections through kernel 5, the W8 LM head, and per cache its
     attention kernel (q8q4 kernel 1 and bitmap kernel 6 at one chunk and a
     full window; the dense twin's kernel 4 at pos 599, the run's last
-    step), beside each ``serve_w4_*`` run's wall time per token."""
-    from mustafar_tpu_torch.config import LLAMA3_8B as cfg
+    step), at ``model``'s depth (default Llama-3-8B's), beside each
+    ``serve_w4_*`` run's wall time per token."""
+    from mustafar_tpu_torch.config import LLAMA3_8B
+    cfg = model or LLAMA3_8B
     w4_layer_ms, layer_host_us, head_ms = _step_parts(params)
     parts = {c: cfg.num_layers * (w4_layer_ms + ms) + head_ms for c, ms in attn_ms.items()}
     emit("decode_split_w4", w4_layer_ms=w4_layer_ms, w4_layer_host_us=layer_host_us,
@@ -3683,7 +3725,8 @@ def serve_cb_requests(model, first8=False):
 def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, prune=None,
                    model=None):
     """Continuous batching at full Llama-3-8B width and depth (or
-    ``model``'s: Llama-3-8B cut in depth by ``cut_depth``, Mistral-7B with
+    ``model``'s: Llama-3-8B cut in depth by ``cut_depth``, as ``serve_cb``
+    runs, Mistral-7B with
     its window as ``serve_cb_swa_<codec>``, Mixtral-8x7B as
     ``serve_cb_moe``): 8 slots, 17
     requests (16 with prompts of 200-1,500 tokens and 32-96 new tokens,
@@ -3990,13 +4033,14 @@ def phase_host_split(params, model=None):
 
 
 def serve_w4(entries, prompt, new):
-    """The W4 path at full Llama-3-8B width and depth (``init_params_w4``,
-    seed 0): ``serve_w4_dense`` (the dense cache through kernel 4),
-    ``serve_w4_q8q4`` and ``serve_w4_bitmap``, B=8, 300 + 300 tokens; every
-    decode step launches kernel 5 seven times a layer and the cache's
-    decode kernel once a layer, prefill (4,096 tokens) takes the dequant
-    route; first tokens equal the dense run's.  Then ``decode_split_w4`` and
-    ``serve_cb_w4``."""
+    """The W4 path at full Llama-3-8B width (``init_params_w4``, seed 0, its
+    32 layers made), run at 8 of them (CUT_LAYERS; host-bound):
+    ``serve_w4_dense`` (the dense cache through kernel 4), ``serve_w4_q8q4``
+    and ``serve_w4_bitmap``, B=8, 300 + 300 tokens; every decode step
+    launches kernel 5 seven times a layer and the cache's decode kernel
+    once a layer, prefill (4,096 tokens) takes the dequant route; first
+    tokens equal the dense run's.  Then ``decode_split_w4`` and
+    ``serve_cb_w4`` at the same depth."""
     import torch
     from mustafar_tpu_torch.config import CacheMode, LLAMA3_8B
     from mustafar_tpu_torch.models.quant import init_params_w4, weight_bytes
@@ -4006,7 +4050,9 @@ def serve_w4(entries, prompt, new):
     params = init_params_w4(LLAMA3_8B, g, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
-    L = LLAMA3_8B.num_layers
+    weights_gib = weight_bytes(params) / 2 ** 30
+    m, params = cut_depth(LLAMA3_8B, params)
+    L = m.num_layers
     steps = new - 1
     runs = (("serve_w4_dense", CacheMode.DENSE, "q8q4", "flash_decode_attention"),
             ("serve_w4_q8q4", CacheMode.COMPRESSED, "q8q4", "fused_q_decode_attention"),
@@ -4014,15 +4060,16 @@ def serve_w4(entries, prompt, new):
     dense_toks, wall = None, {}
     for label, mode, codec, attn in runs:
         toks, launches, fields = serve(label, mode, params, prompt, new, codec=codec,
-                                       use_pallas=mode == CacheMode.DENSE)
+                                       use_pallas=mode == CacheMode.DENSE, model=m)
         if dense_toks is None:
             dense_toks = toks
         want = {"w4_matmul": 7 * L * steps, attn: L * steps}
         if mode == CacheMode.COMPRESSED and codec in QUANT_BITS:
-            want["prune_quant_pack_kv"] = serve_packs()
+            want["prune_quant_pack_kv"] = serve_packs(m)
         first_equal = bool((toks[:, 0] == dense_toks[:, 0]).all())
-        emit(label, model="llama-3-8b x32L, W4 (random, seed 0)",
-             weights_gib=weight_bytes(params) / 2 ** 30, weights_init_s=init_s,
+        emit(label, model=f"{m.name} x{L}L (CUT_LAYERS), W4 (random, seed 0; 32 layers "
+                          "made)",
+             weights_gib=weights_gib, weights_init_s=init_s,
              decode_steps=steps, expected_launches=want, first_token_equal_dense=first_equal,
              token_agreement_with_dense=(toks == dense_toks).float().mean().item(), **fields)
         if launches != want or not first_equal:
@@ -4036,10 +4083,8 @@ def serve_w4(entries, prompt, new):
     phase_decode_split_w4(params, {"q8q4": entries[("q8q4", "decode")]["kernel_ms"],
                                    "bitmap": entries[("bitmap", "decode")]["kernel_ms"],
                                    "dense": entries[("dense", "decode")]["kernel_ms"]},
-                          wall, new)
-    cut_model, cut_params = cut_depth(LLAMA3_8B, params)
-    phase_serve_cb(cut_params, "bitmap", w4=True, model=cut_model)
-    del cut_params
+                          wall, new, m)
+    phase_serve_cb(params, "bitmap", w4=True, model=m)
     del params
     torch.cuda.empty_cache()
 
@@ -4129,13 +4174,14 @@ def serve_cb_opa(entries, params, model, reference_launches):
                       "(tiny model): every launch with the option")
 
 
-def serve_packs():
-    """Kernel 9 launches of a ``serve`` run of a quant codec: one a layer for
-    prefill's chunk (300 - 32 tokens; K and V of every chunk of the layer's
-    prompt in one launch) and one for the compaction (after decode step
-    244; every layer's K and V in one launch)."""
+def serve_packs(model=None):
+    """Kernel 9 launches of a ``serve`` run of a quant codec on ``model``
+    (default Llama-3-8B): one a layer for prefill's chunk (300 - 32 tokens;
+    K and V of every chunk of the layer's prompt in one launch) and one for
+    the compaction (after decode step 244; every layer's K and V in one
+    launch)."""
     from mustafar_tpu_torch.config import LLAMA3_8B
-    return LLAMA3_8B.num_layers + 1
+    return (model or LLAMA3_8B).num_layers + 1
 
 
 SWA_B, SWA_PROMPT, SWA_NEW = 4, 4400, 300
@@ -4284,18 +4330,20 @@ def serve_swa(entries, other, reference_runs, cb_runs):
 W8A8_NEW = 100   # new tokens of the W8A8 and Mixtral serve phases
 
 
-def serve_w8a8(params, prompt):
-    """Llama-3-8B in W8A8 at full width and depth (the W8 weights of seed 0,
+def serve_w8a8(params, prompt, model=None):
+    """Llama-3-8B in W8A8 at full width and ``model``'s depth (8 of the 32
+    layers, CUT_LAYERS; host-bound) (the W8 weights of seed 0,
     ``enable_act_quant``: the int8 weights copied column-major, markers
     added) through the ``Generator``, B=8, prompt 300, W8A8_NEW new tokens:
-    ``serve_w8a8_dense`` (no kernel) and ``serve_w8a8_q8q4`` (kernel 1 32 x
-    99, kernel 9 32 for prefill's chunk), first tokens equal between the
+    ``serve_w8a8_dense`` (no kernel) and ``serve_w8a8_q8q4`` (kernel 1 L x
+    99, kernel 9 L for prefill's chunk), first tokens equal between the
     two; tok/s, prefill seconds, peak memory; and ``decode_split``'s parts
     for the W8A8 step (a layer's seven projections and the LM head through
     ``w8a8_dot``, device ms)."""
     import torch
-    from mustafar_tpu_torch.config import CacheMode, LLAMA3_8B as m
+    from mustafar_tpu_torch.config import CacheMode, LLAMA3_8B
     from mustafar_tpu_torch.models.quant import enable_act_quant, weight_bytes
+    m = model or LLAMA3_8B
     t = time.perf_counter()
     a8 = enable_act_quant(params)
     torch.cuda.synchronize()
@@ -4307,7 +4355,7 @@ def serve_w8a8(params, prompt):
                                {"fused_q_decode_attention": m.num_layers * steps,
                                 "prune_quant_pack_kv": m.num_layers})):
         toks, launches, fields = serve(label, mode, a8, prompt, W8A8_NEW, chunks_end=1,
-                                       time_prefill=True)
+                                       time_prefill=True, model=m)
         if dense_toks is None:
             dense_toks = toks
         first_equal = bool((toks[:, 0] == dense_toks[:, 0]).all())
@@ -4316,7 +4364,8 @@ def serve_w8a8(params, prompt):
             layer_ms, layer_host_us, head_ms = _step_parts(a8)
             parts = {"w8a8_layer_ms": layer_ms, "w8a8_layer_host_us": layer_host_us,
                      "w8a8_lm_head_ms": head_ms}
-        emit(label, model="llama-3-8b x32L, W8A8 (random W8, seed 0; enable_act_quant)",
+        emit(label, model=f"{m.name} x{m.num_layers}L, W8A8 (random W8, seed 0; "
+                          "enable_act_quant)",
              weights_gib=weight_bytes(a8) / 2 ** 30, act_quant_layout_s=layout_s,
              decode_steps=steps, expected_launches=want, first_token_equal_dense=first_equal,
              token_agreement_with_dense=(toks == dense_toks).float().mean().item(),
@@ -4332,15 +4381,16 @@ HARNESS_TASKS = ("passkey", "passage_retrieval_en", "trec")
 HARNESS_MODEL = "Meta-Llama-3-8B"     # no chat template; MODEL2MAXLEN's default 4,096
 
 
-def phase_harness_predict(params):
-    """The LongBench harness at full width and depth: Llama-3-8B, W8 (the
+def phase_harness_predict(params, model=None):
+    """The LongBench harness at full width: Llama-3-8B at ``model``'s depth
+    (8 of the 32 layers, CUT_LAYERS; host-bound), W8 (the
     run's params, seed 0), ``make_task_rows`` for HARNESS_TASKS, 2 rows
     each of about 3,000 bytes of context (trec's few-shot rows are shorter),
     through ``predict_dataset`` with ``ByteTokenizer`` (its ids, < 258, lie
     inside Llama-3's vocabulary) and model name HARNESS_MODEL, one row a
     ``Generator.generate`` (B=1), on the q8q4 cache at K=V 0.7 and on its
     dense twin; then ``evaluate_dir`` on the q8q4 predictions.  Kernel 1
-    must launch 32 times a decode step summed over the rows, kernel 9 once
+    must launch once a layer a decode step summed over the rows, kernel 9 once
     a layer for every prefill that packs a chunk and once a compaction, no
     other kernel; every row's first token must equal the dense twin's; the
     result must score all three tasks.  Prints tok/s and the prefill
@@ -4380,7 +4430,7 @@ def phase_harness_predict(params):
                                np.asarray(out[0])))
             return out
 
-    m = LLAMA3_8B
+    m = model or LLAMA3_8B
     max_length = configs.model_max_len(HARNESS_MODEL)
     corpus = load_corpus(seed=1)
     rs = np.random.RandomState(0)
@@ -4713,16 +4763,18 @@ def _moe_parts(params, m):
 
 def serve_moe():
     """Mixtral-8x7B (``MIXTRAL_8X7B``: Mistral-7B's attention, 8 experts of
-    14,336, top-2) at full width and 32 layers, W8 random weights from seed
-    0 (``init_params_w8``: the experts drawn one (layer, expert) at a time
-    into int8), made after every other model is freed.  The ``Generator``,
-    B=8, prompt 300, W8A8_NEW new tokens: ``serve_moe_dense`` (no kernel),
-    ``serve_moe_q8q4`` (kernel 1 32 x 99, kernel 9 32), ``serve_moe_bitmap``
-    (kernel 6 32 x 99), first tokens equal to the dense run's; tok/s,
+    14,336, top-2) at full width, W8 random weights from seed 0 for its 32
+    layers (``init_params_w8``: the experts drawn one (layer, expert) at a
+    time into int8), made after every other model is freed.  The
+    ``Generator`` at 8 of the 32 layers (CUT_LAYERS;
+    host-bound), B=8, prompt 300, W8A8_NEW new tokens: ``serve_moe_dense``
+    (no kernel), ``serve_moe_q8q4`` (kernel 1 8 x 99, kernel 9 8),
+    ``serve_moe_bitmap`` (kernel 6 8 x 99), first tokens equal to the dense
+    run's; tok/s,
     prefill seconds, peak memory, weights GiB, and one decode step's MoE
     MLP and attention projections (``_moe_parts``).  Then the engine on
-    ``phase_serve_cb``'s 17 requests at q8q4 (``serve_cb_moe``), at 8 of
-    the 32 layers (CUT_LAYERS)."""
+    ``phase_serve_cb``'s 17 requests at q8q4 (``serve_cb_moe``), at the same
+    8 layers."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import CacheMode, MIXTRAL_8X7B as m
@@ -4733,11 +4785,13 @@ def serve_moe():
     params = init_params_w8(m, g, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
+    parts = _moe_parts(params, m)
+    weights_gib = weight_bytes(params) / 2 ** 30
+    m, params = cut_depth(m, params)
     L, steps = m.num_layers, W8A8_NEW - 1
     prompt = np.random.RandomState(0).randint(1, m.vocab_size, (8, 300))
-    note = (f"{m.name} x{L}L, {m.num_experts} experts top-{m.num_experts_per_tok}, W8 "
-            f"(random, seed 0)")
-    parts = _moe_parts(params, m)
+    note = (f"{m.name} x{L}L (CUT_LAYERS), {m.num_experts} experts "
+            f"top-{m.num_experts_per_tok}, W8 (random, seed 0; 32 layers made)")
     dense_toks = None
     for label, mode, codec, want in (
             ("serve_moe_dense", CacheMode.DENSE, "q8q4", {}),
@@ -4750,7 +4804,7 @@ def serve_moe():
         if dense_toks is None:
             dense_toks = toks
         first_equal = bool((toks[:, 0] == dense_toks[:, 0]).all())
-        emit(label, model=note, weights_gib=weight_bytes(params) / 2 ** 30,
+        emit(label, model=note, weights_gib=weights_gib,
              weights_init_s=init_s, decode_steps=steps, expected_launches=want,
              first_token_equal_dense=first_equal,
              token_agreement_with_dense=(toks == dense_toks).float().mean().item(),
@@ -4758,9 +4812,8 @@ def serve_moe():
         if launches != want or not first_equal:
             raise AssertionError(f"{label}: launched {launches} (expected {want}), first "
                                  f"tokens equal serve_moe_dense's: {first_equal}")
-    cut_model, cut_params = cut_depth(m, params)
-    phase_serve_cb(cut_params, "q8q4", model=cut_model)
-    del params, cut_params
+    phase_serve_cb(params, "q8q4", model=m)
+    del params
     torch.cuda.empty_cache()
 
 
@@ -4777,12 +4830,15 @@ TP_BF16_TOL = 6e-2
 
 
 def _spawned(target, dp, tp, kwargs, **kw):
-    """``parallel.distributed.spawn`` of a rank body (every rank on this
+    """``parallel.distributed.spawn`` of a rank body (``distributed``'s by
+    its name, another module's as ``module:function``; every rank on this
     card over gloo unless ``backend`` and ``device`` say otherwise), and
     the wall seconds it took (the processes' start included)."""
     from mustafar_tpu_torch.parallel import distributed as dr
     t = time.perf_counter()
-    out = dr.spawn("mustafar_tpu_torch.parallel.distributed:" + target, dp, tp, kwargs,
+    if ":" not in target:
+        target = "mustafar_tpu_torch.parallel.distributed:" + target
+    out = dr.spawn(target, dp, tp, kwargs,
                    backend=kw.pop("backend", "gloo"), device=kw.pop("device", "cuda"),
                    timeout_s=RANK_TIMEOUT_S, **kw)
     return out, time.perf_counter() - t
@@ -5089,6 +5145,463 @@ def phase_dist_recovery():
                              f"{rec['recovered_from_step']} is not token-exact")
 
 
+# -- sequence-parallel prefill, the pipeline, training -------------------------
+
+RING = "mustafar_tpu_torch.parallel.ring:"
+PIPE = "mustafar_tpu_torch.parallel.pipeline:"
+SP_TOL = 5e-4            # the CPU tests' bound for SP and PP runs (tests/test_torch_ring.py)
+# of the logits' range: card against CPU (the CPU tests' tie tolerance for a
+# kernel's route), and ranks that cut the heads against one rank: there
+# kernel 4 reads q in bf16 after the row-parallel sums ran in another order,
+# so last-bit differences flip bf16 roundings (2.2e-4 to 8.6e-4 of a ~1.5
+# range on the tiny model, NVIDIA H100 80GB HBM3)
+RANGE_TOL = 1e-2
+TRAIN_TOL = 1e-4         # relative: step 1's loss and gradient norm, card against CPU
+# every method family of the SP prefill prune: per token, ThinK, channels by
+# magnitude and by Opa scores, Opa keys; the dense cache
+RING_METHODS = (("DENSE", "KT_MAG_VT_MAG"), ("MASKED", "KT_MAG_VT_MAG"), ("MASKED", "THINK"),
+                ("MASKED", "KT_MAG_VC_MAG"), ("MASKED", "KT_MAG_VC_OPA"),
+                ("MASKED", "KT_OPA_VT_MAG"))
+
+
+def _tiny_parallel_engine(mode, method, sparsity=0.5):
+    """reference_sharded's tiny model (head_dim 128, 4 heads, hidden 256)
+    with 2 kv heads, so tp=2 cuts them."""
+    import dataclasses
+    from mustafar_tpu_torch import config as tc
+    model = dataclasses.replace(_tiny_engine(tc.CacheMode.MASKED).model, num_kv_heads=2)
+    sp = 0.0 if mode == "DENSE" else sparsity
+    return tc.EngineConfig(model=model, cache_mode=getattr(tc.CacheMode, mode),
+                           prune=tc.PruneConfig(method=getattr(tc.PruneMethod, method),
+                                                k_sparsity=sp, v_sparsity=sp),
+                           max_seq_len=1024)
+
+
+def _steps(out):
+    import numpy as np
+    return np.stack([out["prefill"]] + out["decode"])
+
+
+def _hold_ranks(label, ranks, card, cpu, want_launches, bad, card_launches=None,
+                cut_heads=False):
+    """Every rank's greedy picks equal to one card rank's and its logits
+    (prefill and each step) within SP_TOL of them (RANGE_TOL of their range
+    where the ranks cut the heads, ``cut_heads``), the card's within
+    RANGE_TOL of the logits' range of the CPU's, every rank's launches
+    ``want_launches`` and the card rank's ``card_launches`` (default the
+    same); returns the errors."""
+    import numpy as np
+    ref = _steps(card)
+    errs = [float(np.abs(_steps(r) - ref).max()) for r in ranks]
+    scale = float(np.abs(_steps(cpu)).max())
+    cpu_err = float(np.abs(ref - _steps(cpu)).max())
+    launches = [r["launches"] for r in ranks]
+    tol = RANGE_TOL * scale if cut_heads else SP_TOL
+    picks = [bool((np.argmax(_steps(r), -1) == np.argmax(ref, -1)).all()) for r in ranks]
+    if max(errs) > tol or not all(picks):
+        bad.append(f"{label}: ranks {errs} from one card rank (tol {tol}), picks equal "
+                   f"{picks}")
+    if cpu_err > RANGE_TOL * scale:
+        bad.append(f"{label}: card {cpu_err} from the CPU (tol {RANGE_TOL * scale})")
+    card_launches = want_launches if card_launches is None else card_launches
+    if any(x != want_launches for x in launches) or card["launches"] != card_launches:
+        bad.append(f"{label}: launches {launches}, one rank {card['launches']}, "
+                   f"want {want_launches}, one rank {card_launches}")
+    return {"rank_err": errs, "rank_tol": tol, "picks_equal": picks, "card_vs_cpu": cpu_err,
+            "logits_scale": scale, "rank_launches": launches}
+
+
+def phase_reference_ring(gloo=True):
+    """The SP prefill on the tiny f32 model (2 layers, 2 kv heads, head_dim
+    128): four processes on this card over gloo as a 2 x 2 ("data",
+    "model") mesh (one spawn), each case at sp=2 x tp=2 and at sp=2 (each
+    "model" index a replica), the dense cache and the masked cache under
+    every method family of the prune (RING_METHODS), a prompt of 512 (true
+    length 500) over B=4, then 4 decode steps through kernel 4
+    (``use_pallas``; with ``return_norm`` for the Opa values): every rank's
+    logits within SP_TOL of one card rank's (``sp_case`` without a mesh;
+    RANGE_TOL of their range at tp=2, ``_hold_ranks``) and its greedy picks
+    equal, that rank's within RANGE_TOL of the CPU's (kernel 4's plain
+    version), and kernel 4 launched 2 layers x 4 steps by every rank.  On a
+    host with four cards the same cases run over nccl, one card a rank
+    (``gloo`` False: that leg alone)."""
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.parallel import distributed as dr
+    from mustafar_tpu_torch.parallel import ring
+    counts0 = _launches()
+    tokens = np.random.RandomState(6).randint(0, 512, (4, 512))
+    cases = []
+    for mode, method in RING_METHODS:
+        eng = _tiny_parallel_engine(mode, method)
+        for use_tp in (True, False):
+            cases.append(dict(engine=eng, params=dr.init_params_np(eng.model, 6),
+                              tokens=tokens, true_len=500, decode_steps=4, device="cuda",
+                              use_pallas=True, use_tp=use_tp))
+    legs = {}
+    if gloo:
+        legs["gloo"] = _spawned(RING + "sp_cases", 2, 2, {"cases": cases})
+    if torch.cuda.device_count() >= 4:
+        legs["nccl"] = _spawned(RING + "sp_cases", 2, 2, {"cases": cases}, backend="nccl",
+                                device="cuda:{rank}")
+    fields, bad = {}, []
+    for i, case in enumerate(cases):
+        if case["use_tp"]:
+            one = dict(case, use_tp=False)
+            card, cpu = ring.sp_case(None, **one), ring.sp_case(None, **dict(one, device="cpu"))
+        label = "{}_{}{}".format(case["engine"].cache_mode.value,
+                                 case["engine"].prune.method.value,
+                                 "_tp2" if case["use_tp"] else "")
+        for leg, (ranks, _) in legs.items():
+            fields.setdefault(leg, {})[label] = _hold_ranks(
+                f"{leg} {label}", [r[i] for r in ranks], card, cpu,
+                {"flash_decode_attention": 2 * 4}, bad, cut_heads=case["use_tp"])
+    _set_launches(counts0)
+    nccl = fields.get("nccl", "not run: sp=2 x tp=2 over nccl needs four cards, this host "
+                              f"has {torch.cuda.device_count()}")
+    emit("reference_ring", mesh="sp=2 x tp=2 and sp=2", backend="gloo",
+         processes_on_one_card=4, spawn_s={k: v[1] for k, v in legs.items()}, tol=SP_TOL,
+         cpu_tol_of_range=RANGE_TOL, gloo_leg=fields.get("gloo"), nccl=nccl)
+    if bad:
+        raise AssertionError(f"reference_ring: {bad}")
+
+
+SP_PROMPT = 8192
+SP_STEPS = 16
+
+
+def phase_serve_sp_prefill(model, gloo=True):
+    """Llama-3-8B at full width and ``model``'s depth (CUT_LAYERS), W8
+    random weights (init_params_w8, seed 0), B=2 prompts of SP_PROMPT
+    tokens, the dense cache: the SP prefill at sp=2 (two processes on this
+    card over gloo, each rank its 4,096-token block of both rows, the ring
+    and the handoff), then SP_STEPS decode steps through kernel 4, each rank
+    its row.  One rank's monolithic prefill (``llama.prefill`` one row at a
+    time: its causal attention over 8,192 tokens at once) and decode on
+    the same weights is the reference: first tokens equal, the prefill's
+    and the first step's logits within TP_BF16_TOL of their range (the
+    bound of a bf16 parallel run against one rank; on an H100 they sat
+    1.6-1.7e-2 of their range from the monolithic prefill's), kernel 4 launched
+    layers x steps by each rank.  One rank's ring prefill (``sp_case``
+    without a mesh: the same flash arithmetic, one block) shows the spread
+    of these bf16 logits under a reordering of the attention's sums alone:
+    its distance from the monolithic prefill and from the SP ranks is
+    printed beside theirs.  Each rank's prefill is run three times: to warm
+    up, for its wall time, and with its hops and the handoff
+    synchronize-bracketed (``p2p`` clock) for their ms and share.  On a
+    host with two cards the same run over nccl, one card a rank (``gloo``
+    False: that leg alone)."""
+    import functools
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.cache import make_cache
+    from mustafar_tpu_torch.config import CacheMode, EngineConfig, PruneConfig, PruneMethod
+    from mustafar_tpu_torch.models import llama
+    from mustafar_tpu_torch.models.quant import init_params_w8
+    from mustafar_tpu_torch.parallel import ring
+    counts0 = _launches()
+    eng = EngineConfig(model=model, cache_mode=CacheMode.DENSE,
+                       prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG, k_sparsity=0.0,
+                                         v_sparsity=0.0),
+                       max_seq_len=8448, batch_size=2)
+    tokens = np.random.RandomState(0).randint(1, model.vocab_size, (2, SP_PROMPT))
+    case = dict(engine=eng, params=functools.partial(init_params_w8, model, None, None, 0),
+                tokens=tokens, decode_steps=SP_STEPS, dtype=torch.bfloat16, device="cuda",
+                use_pallas=True, time_hops=True, use_tp=False)
+    legs = {}
+    if gloo:
+        legs["gloo"] = _spawned(RING + "sp_case", 2, 1, case)
+    if torch.cuda.device_count() >= 2:
+        legs["nccl"] = _spawned(RING + "sp_case", 2, 1, case, backend="nccl",
+                                device="cuda:{rank}")
+    # one rank's monolithic prefill, a row at a time, then the same decode
+    t = time.perf_counter()
+    params = init_params_w8(model, None, None, 0)
+    impl = make_cache(eng, device="cuda")
+    impl.use_pallas = True
+    cache = impl.init(2, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    first, prefill_s = [], []
+    _set_launches({k: 0 for k in counts0})
+    with torch.inference_mode():
+        for b in range(2):
+            sub = impl.init(1, torch.bfloat16)
+            torch.cuda.synchronize()
+            tb = time.perf_counter()
+            lg, sub = llama.prefill(model, params, torch.as_tensor(tokens[b:b + 1]).cuda(), sub,
+                                    impl, SP_PROMPT, last_only=True)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - tb)
+            impl.insert_slot(cache, sub, b)
+            first.append(lg[0, 0].float())
+            del sub
+        steps = [torch.stack(first).cpu().numpy()]
+        tok = torch.argmax(torch.stack(first), -1)
+        for i in range(SP_STEPS):
+            lg, cache = llama.decode_step(model, params, tok[:, None], cache, impl,
+                                          SP_PROMPT + i)
+            steps.append(lg[:, 0].float().cpu().numpy())
+            tok = torch.argmax(lg[:, 0], -1)
+    one_launches = {k: v for k, v in _launches().items() if v}
+    one_peak = torch.cuda.max_memory_allocated()
+    one_s = time.perf_counter() - t
+    del cache, impl
+    torch.cuda.empty_cache()
+    ring1 = ring.sp_case(None, **dict(case, params=lambda: params, decode_steps=1,
+                                      time_hops=False))
+    del params
+    torch.cuda.empty_cache()
+    L = model.num_layers
+    want = {"flash_decode_attention": L * SP_STEPS}
+    scale = float(np.abs(steps[1]).max())
+    fields, bad = {}, []
+    for leg, (ranks, spawn_s) in legs.items():
+        first_equal = [bool((np.argmax(r["prefill"], -1) == np.argmax(steps[0], -1)).all())
+                       for r in ranks]
+        prefill_err = [float(np.abs(r["prefill"] - steps[0]).max()) for r in ranks]
+        step_err = [float(np.abs(r["decode"][0] - steps[1]).max()) for r in ranks]
+        fields[leg] = dict(
+            spawn_s=spawn_s, prefill_ms=[1e3 * r["prefill_s"] for r in ranks],
+            hop_ms=[1e3 * r["hop_s"] for r in ranks], hops=[r["hops"] for r in ranks],
+            hop_share_of_prefill=[r["hop_s"] / r["prefill_s"] for r in ranks],
+            rank_peak_gib=[r["peak_bytes"] / 2 ** 30 for r in ranks],
+            first_token_equal=first_equal, prefill_logits_max_abs_err=prefill_err,
+            first_step_logits_max_abs_err=step_err,
+            ranks_vs_one_rank_ring=[
+                [float(np.abs(r["prefill"] - ring1["prefill"]).max()),
+                 float(np.abs(r["decode"][0] - ring1["decode"][0]).max())] for r in ranks],
+            token_agreement_with_one_rank=[
+                float(np.mean([(np.argmax(a, -1) == np.argmax(b, -1)).mean()
+                               for a, b in zip(_steps(r), steps)])) for r in ranks],
+            rank_launches=[r["launches"] for r in ranks])
+        if not all(first_equal) or max(prefill_err + step_err) > TP_BF16_TOL * scale:
+            bad.append(f"{leg}: first tokens equal {first_equal}, logits {prefill_err} / "
+                       f"{step_err} against {TP_BF16_TOL * scale}")
+        if any(r["launches"] != want for r in ranks):
+            bad.append(f"{leg}: launches {[r['launches'] for r in ranks]}, want {want}")
+    if one_launches != want:
+        bad.append(f"one rank launched {one_launches}, want {want}")
+    _set_launches(counts0)
+    emit("serve_sp_prefill", model=f"{model.name} x{L}L (CUT_LAYERS), W8 (random, seed 0)",
+         mesh="sp=2", backend="gloo", processes_on_one_card=2, B=2, prompt=SP_PROMPT,
+         decode_steps=SP_STEPS, cache="dense, kernel 4",
+         timing="prefill_ms: a rank's second prefill (the first warms up); hop_ms: a "
+                "third's ring hops and handoff, each synchronize-bracketed",
+         one_rank_prefill_ms=[1e3 * x for x in prefill_s], one_rank_s=one_s,
+         one_rank_peak_gib=one_peak / 2 ** 30, logits_scale=scale, tol=TP_BF16_TOL * scale,
+         one_rank_ring_vs_monolithic=[float(np.abs(ring1["prefill"] - steps[0]).max()),
+                                      float(np.abs(ring1["decode"][0] - steps[1]).max())],
+         one_rank_launches=one_launches, gloo_leg=fields.get("gloo"),
+         nccl=fields.get("nccl", "not run: sp=2 over nccl needs two cards, this host has "
+                                 f"{torch.cuda.device_count()}"))
+    if bad:
+        raise AssertionError(f"serve_sp_prefill: {bad}")
+
+
+PP_PROMPT, PP_NEW, PP_MICRO = 300, 32, 2
+
+
+def phase_serve_pp(model, params, gloo=True):
+    """Llama-3-8B at full width and ``model``'s depth, W8 random weights
+    (init_params_w8, seed 0; ``params`` the same weights in this process),
+    B=8 prompts of PP_PROMPT tokens, PP_NEW new tokens (the prefill's and
+    PP_NEW - 1 decode steps), the dense cache with kernel 4: two pipeline
+    stages (two processes on this card over gloo, each making the weights
+    and keeping its half of the layers), PP_MICRO microbatches.  One rank
+    running the same schedule as one stage is the reference: every token
+    equal, the prefill's and first step's logits within RANGE_TOL of their
+    range; kernel 4 launched (its layers x steps x microbatches) by each
+    stage.  A decode step's wall ms (the even steps) and its hops' share
+    (the odd steps, each hop synchronize-bracketed).  Then PP x TP on the
+    tiny model: four processes as a 2 x 2 ("stage", "model") mesh, the
+    dense and masked (KT_MAG_VT_OPA, kernel 4 with ``return_norm``)
+    caches, every rank's picks equal to one card rank's and its logits
+    within RANGE_TOL of their range (the heads are cut, ``_hold_ranks``),
+    that rank's within RANGE_TOL of the CPU's.  On a host with two cards
+    (four for PP x TP) the same runs over nccl, one card a rank (``gloo``
+    False: those legs alone)."""
+    import functools
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.config import CacheMode, EngineConfig, PruneConfig, PruneMethod
+    from mustafar_tpu_torch.models.quant import init_params_w8
+    from mustafar_tpu_torch.parallel import distributed as dr
+    from mustafar_tpu_torch.parallel import pipeline as pp
+    counts0 = _launches()
+    eng = EngineConfig(model=model, cache_mode=CacheMode.DENSE,
+                       prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG, k_sparsity=0.0,
+                                         v_sparsity=0.0),
+                       max_seq_len=384, batch_size=8)
+    tokens = np.random.RandomState(0).randint(1, model.vocab_size, (8, PP_PROMPT))
+    case = dict(engine=eng, params=functools.partial(init_params_w8, model, None, None, 0),
+                tokens=tokens, decode_steps=PP_NEW - 1, n_micro=PP_MICRO,
+                dtype=torch.bfloat16, device="cuda", use_pallas=True, use_tp=False,
+                time_hops=True)
+    legs = {}
+    if gloo:
+        legs["gloo"] = _spawned(PIPE + "pp_case", 2, 1, case, axes=pp.STAGE_AXES)
+    if torch.cuda.device_count() >= 2:
+        legs["nccl"] = _spawned(PIPE + "pp_case", 2, 1, case, axes=pp.STAGE_AXES,
+                                backend="nccl", device="cuda:{rank}")
+    t = time.perf_counter()
+    one = pp.pp_case(None, **dict(case, params=lambda: params))
+    one_s = time.perf_counter() - t
+    L, steps = model.num_layers, PP_NEW - 1
+    ref = _steps(one)
+    scale = float(np.abs(ref[1]).max())
+    want = {"flash_decode_attention": L // 2 * steps * PP_MICRO}
+
+    def step_split(r):
+        d = np.asarray(r["decode_s"][1:])           # the first step warms up
+        even, odd = d[1::2], d[0::2]                # steps 2, 4, ... untimed
+        hop = r["decode_hop_s"] / max(1, len(r["decode_s"]) // 2)
+        return {"step_ms_untimed_mean": 1e3 * float(even.mean()),
+                "step_ms_timed_mean": 1e3 * float(odd.mean()),
+                "hop_ms_per_step": 1e3 * hop, "hops_per_step":
+                    r["decode_hops"] / max(1, len(r["decode_s"]) // 2),
+                "hop_share_of_untimed_step": 1e3 * hop / (1e3 * float(even.mean())),
+                "prefill_ms": 1e3 * r["prefill_s"],
+                "prefill_hop_ms": 1e3 * r["prefill_hop_s"],
+                "peak_gib": r["peak_bytes"] / 2 ** 30}
+
+    fields, bad = {}, []
+    for leg, (stages, spawn_s) in legs.items():
+        tokens_equal = [bool((np.argmax(_steps(r), -1) == np.argmax(ref, -1)).all())
+                        for r in stages]
+        errs = [float(np.abs(_steps(r)[:2] - ref[:2]).max()) for r in stages]
+        launches = [r["launches"] for r in stages]
+        fields[leg] = dict(spawn_s=spawn_s, per_stage=[step_split(r) for r in stages],
+                           tokens_equal_one_rank=tokens_equal, logits_max_abs_err=errs,
+                           stage_launches=launches)
+        if not all(tokens_equal) or max(errs) > RANGE_TOL * scale:
+            bad.append(f"{leg}: tokens equal {tokens_equal}, logits {errs} against "
+                       f"{RANGE_TOL * scale}")
+        if any(x != want for x in launches):
+            bad.append(f"{leg}: stage launches {launches}, want {want}")
+    if one["launches"] != {"flash_decode_attention": L * steps * PP_MICRO}:
+        bad.append(f"one rank launched {one['launches']}")
+
+    # PP x TP on the tiny model: one spawn of four ranks a leg
+    tiny_tokens = np.random.RandomState(7).randint(0, 512, (4, 200))
+    tiny = [dict(engine=_tiny_parallel_engine(mode, method), tokens=tiny_tokens,
+                 params=dr.init_params_np(_tiny_parallel_engine(mode, method).model, 7),
+                 decode_steps=4, n_micro=2, device="cuda", use_pallas=True, use_tp=True)
+            for mode, method in (("DENSE", "KT_MAG_VT_MAG"), ("MASKED", "KT_MAG_VT_OPA"))]
+    tiny_legs = {}
+    if gloo:
+        tiny_legs["gloo"] = _spawned(PIPE + "pp_cases", 2, 2, {"cases": tiny},
+                                     axes=pp.STAGE_AXES)
+    if torch.cuda.device_count() >= 4:
+        tiny_legs["nccl"] = _spawned(PIPE + "pp_cases", 2, 2, {"cases": tiny},
+                                     axes=pp.STAGE_AXES, backend="nccl", device="cuda:{rank}")
+    tiny_fields = {}
+    for i, c in enumerate(tiny):
+        one_c = dict(c, use_tp=False)
+        card, cpu = pp.pp_case(None, **one_c), pp.pp_case(None, **dict(one_c, device="cpu"))
+        mode = c["engine"].cache_mode.value
+        for leg, (ranks, _) in tiny_legs.items():
+            # a stage one layer, the card rank both, 4 steps of 2 microbatches
+            tiny_fields.setdefault(leg, {})[mode] = _hold_ranks(
+                f"tiny {leg} {mode}", [r[i] for r in ranks], card, cpu,
+                {"flash_decode_attention": 1 * 4 * 2}, bad,
+                {"flash_decode_attention": 2 * 4 * 2}, cut_heads=True)
+    _set_launches(counts0)
+    emit("serve_pp", model=f"{model.name} x{L}L, W8 (random, seed 0)", mesh="pp=2",
+         backend="gloo", processes_on_one_card=2, B=8, prompt=PP_PROMPT, new_tokens=PP_NEW,
+         n_micro=PP_MICRO, cache="dense, kernel 4", one_rank_s=one_s,
+         one_rank=step_split(one), logits_scale=scale, tol=RANGE_TOL * scale,
+         want_launches=want,
+         timing="decode steps after the first: even ones wall time, odd ones with every "
+                "hop synchronize-bracketed",
+         gloo_leg=fields.get("gloo"),
+         nccl=fields.get("nccl", "not run: pp=2 over nccl needs two cards, this host has "
+                                 f"{torch.cuda.device_count()}"),
+         pp_x_tp={"mesh": "pp=2 x tp=2", "processes_on_one_card": 4,
+                  "spawn_s": {k: v[1] for k, v in tiny_legs.items()},
+                  "gloo_leg": tiny_fields.get("gloo"),
+                  "nccl": tiny_fields.get("nccl", "not run: needs four cards, this host "
+                                                  f"has {torch.cuda.device_count()}")})
+    if bad:
+        raise AssertionError(f"serve_pp: {bad}")
+
+
+TRAIN_STEPS = 20
+
+
+def phase_train_tiny():
+    """Training on the card: step 1 of TINY_ACC (4 layers, hidden 256) on a
+    batch of 8 x 2,048 (``make_training_batch``, seed 0), ``remat`` on,
+    from the same f32 weights on the card and on the CPU in this process:
+    the loss and the global gradient norm within TRAIN_TOL (relative).
+    Then ``train`` on the card, TRAIN_STEPS steps at batch 8, seq 2,048:
+    the mean loss of the last 5 steps under that of the first 5; its
+    checkpoint read back by ``weights.load_ckpt`` on the card and on the
+    CPU, where the ``Generator`` (dense cache) greedy-decodes a passkey row
+    to the same 16 tokens."""
+    import tempfile
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.config import CacheMode, EngineConfig, PruneConfig, PruneMethod
+    from mustafar_tpu_torch.harness import tinylm
+    from mustafar_tpu_torch.models.llama import init_params
+    from mustafar_tpu_torch.runtime.generate import Generator
+    from mustafar_tpu_torch.weights import load_ckpt
+    counts0 = _launches()
+    cfg = tinylm.TINY_ACC
+    corpus = tinylm.load_corpus(seed=0)
+    toks, wts = tinylm.make_training_batch(corpus, np.random.RandomState(0), 8, 2048)
+    cpu_params = init_params(cfg, device="cpu", dtype=torch.float32, seed=0)
+    step1 = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: ({kk: vv.to(dev).requires_grad_(True) for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.to(dev).requires_grad_(True))
+                  for k, v in cpu_params.items()}
+        t = time.perf_counter()
+        loss = tinylm.training_loss(cfg, params, torch.as_tensor(toks, device=dev).long(),
+                                    torch.as_tensor(wts, device=dev), remat=True)
+        loss.backward()
+        grads = [p.grad for p in tinylm._leaves(params)]
+        gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+        step1[dev] = {"loss": float(loss.detach()), "grad_norm": gnorm,
+                      "seconds": time.perf_counter() - t}
+    rel = {k: abs(step1["cuda"][k] - step1["cpu"][k]) / abs(step1["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        res = tinylm.train(tmp, steps=TRAIN_STEPS, batch=8, seq=2048, inner=5,
+                           device="cuda", log=lambda *a: None)
+        train_s = time.perf_counter() - t
+        outs = {}
+        row = tinylm.make_passkey_row(corpus, np.random.RandomState(1), 1000)
+        ids = tinylm.ByteTokenizer().encode(row["context"] + tinylm.PASSKEY_QUESTION,
+                                            add_special_tokens=True)
+        for dev in ("cuda", "cpu"):
+            mcfg, p = load_ckpt(tmp, device=dev)
+            eng = EngineConfig(model=mcfg, cache_mode=CacheMode.DENSE,
+                               prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG,
+                                                 k_sparsity=0.0, v_sparsity=0.0),
+                               max_seq_len=1536)
+            outs[dev] = Generator(eng, p, dtype=torch.float32, device=dev).generate(
+                np.asarray([ids]), 16)[0].tolist()
+    losses = res["losses"]
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    launched = {k: v - counts0[k] for k, v in _launches().items() if v > counts0[k]}
+    _set_launches(counts0)
+    emit("train_tiny", model="tiny-acc (4 layers, hidden 256, f32)", batch=8, seq=2048,
+         remat=True, step1=step1, step1_rel_err=rel, tol=TRAIN_TOL, steps=TRAIN_STEPS,
+         losses=losses, first5_mean=first5, last5_mean=last5,
+         step_ms=[1e3 * s for s in res["step_s"]],
+         step_ms_median_after_first=1e3 * float(np.median(res["step_s"][1:])),
+         train_s=train_s, passkey_prompt=len(ids), decoded_card=outs["cuda"],
+         decoded_cpu=outs["cpu"], launched=launched)
+    if max(rel.values()) > TRAIN_TOL or not last5 < first5:
+        raise AssertionError(f"train_tiny: step 1 card/CPU {rel} (tol {TRAIN_TOL}), loss "
+                             f"{first5} -> {last5}")
+    if outs["cuda"] != outs["cpu"]:
+        raise AssertionError(f"train_tiny: the card decoded {outs['cuda']}, the CPU "
+                             f"{outs['cpu']}")
+
+
 QUANT_KINDS = ("decode", "decode_ps", "segment")
 
 
@@ -5140,6 +5653,7 @@ def main():
     phase_reference_moe()
     phase_reference_sharded()
     phase_dist_recovery()
+    phase_reference_ring()
 
     import numpy as np
     import torch
@@ -5245,8 +5759,7 @@ def main():
     cb_runs = {}
     cut_model, cut_params = cut_depth(LLAMA3_8B, params)
     for codec in ("q8q4", "bitmap"):
-        cb_launches, cb_runs[codec] = (phase_serve_cb(params, codec) if codec == "q8q4" else
-                                       phase_serve_cb(cut_params, codec, model=cut_model))
+        cb_launches, cb_runs[codec] = phase_serve_cb(cut_params, codec, model=cut_model)
         for kind in ("decode_ps", "segment"):
             entries[(codec, kind)]["launches"] = cb_launches[_meta(codec, kind)[0]]
     cb_launches, _ = phase_serve_cb(cut_params, "bitmap-q8", model=cut_model,
@@ -5260,6 +5773,8 @@ def main():
         other[("q8", kind)]["launches"] = q_engine_launches["q8"][name]
     serve_cb_opa(entries, cut_params, cut_model, opa_cb_launches)
     phase_serve_cb_tp(cut_model)
+    phase_serve_sp_prefill(cut_model)
+    phase_serve_pp(LLAMA3_8B, params)
     _merge_codecs(entries, other, "q8q4", ("q8", "q4q4"),
                   "q8q4 and q4q4 from serve_q8q4 / serve_q4q4 and "
                   "serve_cb / serve_cb_q4q4; q8's per-slot and segment launches from "
@@ -5270,12 +5785,13 @@ def main():
     phase_serve_chunked(params)
     phase_host_split(cut_params, cut_model)
     phase_slot_core()
-    serve_w8a8(params, prompt)
-    phase_harness_predict(params)
+    serve_w8a8(cut_params, prompt, cut_model)
+    phase_harness_predict(cut_params, cut_model)
     del params, cut_params
     torch.cuda.empty_cache()
     phase_harness_accuracy()
     phase_reference_harness()
+    phase_train_tiny()
     serve_swa(entries, other, swa_runs, swa_cb_runs)
     serve_w4(entries, prompt, new)
     serve_moe()

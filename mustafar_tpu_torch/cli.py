@@ -10,11 +10,13 @@ and ``accuracy/`` as they are:
   python -m mustafar_tpu_torch eval --pred_dir pred_torch/<run>
   python -m mustafar_tpu_torch synth-ckpt --out <dir> [--small] [--rows N]
   python -m mustafar_tpu_torch accuracy --ckpt ckpt/tiny-acc --out <dir>
+  python -m mustafar_tpu_torch train-tiny --out ckpt_torch/tiny-acc --steps 3000
 
 Every subcommand that runs a model runs it on ``cuda`` and raises without a
 card; ``MUSTAFAR_CPU=1`` selects the CPU (the plain versions of the
-kernels).  ``bench`` and ``train-tiny`` are not ported yet: the bench waits
-for the port's bench entry point, training for a training path.
+kernels).  ``train-tiny`` writes ``ckpt_torch/tiny-acc`` by default, not the
+JAX package's recorded ``ckpt/tiny-acc``.  ``bench`` is not ported yet: it
+waits for the port's bench entry point.
 """
 
 from __future__ import annotations
@@ -160,11 +162,20 @@ def cmd_accuracy(args):
     print(json.dumps(res, indent=2))
 
 
+def cmd_train_tiny(args):
+    from mustafar_tpu_torch.harness import tinylm
+    tinylm.train(args.out, steps=args.steps, batch=args.batch, seq=args.seq,
+                 lr=args.lr, seed=args.seed, hidden=args.hidden,
+                 layers=args.layers, window=args.window,
+                 rope_theta=args.rope_theta, device=_device())
+    print(f"checkpoint written to {args.out}")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="mustafar_tpu_torch",
         epilog="MUSTAFAR_CPU=1 runs on the CPU (default: the CUDA card).  The JAX "
-               "package's bench and train-tiny subcommands are not ported yet.")
+               "package's bench subcommand is not ported yet.")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("predict", help="LongBench prediction run")
@@ -199,6 +210,23 @@ def main(argv=None):
     p.add_argument("--ctx", type=int, default=4000,
                    help="passkey row context bytes")
     p.set_defaults(fn=cmd_synth_ckpt)
+
+    p = sub.add_parser("train-tiny",
+                       help="train the tiny accuracy-evidence model")
+    p.add_argument("--out", default="ckpt_torch/tiny-acc",
+                   help="the checkpoint's directory (the JAX package's recorded "
+                        "ckpt/tiny-acc stays as it is)")
+    p.add_argument("--steps", type=int, default=3000)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=2048)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--hidden", type=int, default=None)
+    p.add_argument("--layers", type=int, default=None)
+    p.add_argument("--rope_theta", type=float, default=None)
+    p.add_argument("--window", type=int, default=None,
+                   help="sliding-window attention (Mistral semantics)")
+    p.set_defaults(fn=cmd_train_tiny)
 
     p = sub.add_parser("accuracy",
                        help="dense-vs-pruned accuracy grid on a checkpoint")

@@ -1,5 +1,5 @@
-"""Tiny byte-level LM: accuracy evidence on trained weights, the serving half
-of the JAX package's ``harness/tinylm.py``.
+"""Tiny byte-level LM: accuracy evidence on trained weights, port of the JAX
+package's ``harness/tinylm.py``.
 
 The reference's claim is about accuracy: unstructured KV pruning at 50-70 %
 sparsity keeps long-context task quality (pred_long_bench.py:49-86,
@@ -13,21 +13,28 @@ Components:
                            harness calls)
   * load_corpus          — local text (installed Python sources)
   * make_passkey_row     — a needle in a haystack, as a LongBench row
+  * make_training_batch  — text windows and passkey documents, weighted
+  * train, save_ckpt     — AdamW training and the checkpoint's files
   * score_nll            — teacher-forced NLL through prefill and decode
   * run_accuracy         — the dense vs pruned grid -> result dict
 
-Checkpoints load through ``weights.load_ckpt``.  Training (``train``,
-``make_training_batch``, ``save_ckpt``) is not ported yet.  The functions
-that touch a device take ``device`` (None: ``cuda``, raising without a
-card), as ``Generator`` does.
+Checkpoints load through ``weights.load_ckpt``.  Training (``train``:
+``make_training_batch``, ``llama.lm_forward``'s weighted loss, AdamW on
+optax's warmup-cosine schedule, ``save_ckpt``) writes the checkpoints the
+JAX package's ``train`` writes.  The functions that touch a device take
+``device`` (None: ``cuda``, raising without a card), as ``Generator``
+does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
+import math
 import os
 import re
+import time
 from typing import Optional
 
 import numpy as np
@@ -135,6 +142,171 @@ def make_passkey_row(corpus: str, rng: np.random.RandomState,
     context = pre + needle + post
     return {"context": context, "input": "", "answers": [key],
             "all_classes": None, "length": len(context)}
+
+
+def make_training_batch(corpus: str, rng: np.random.RandomState,
+                        batch: int, seq: int, passkey_frac: float = 0.5):
+    """Returns (tokens [B, seq] int32, weights [B, seq] f32), the JAX
+    package's draws from ``rng`` bit for bit.
+
+    Mixture of plain text windows and passkey documents; the passkey answer
+    span gets upweighted loss so the copy behaviour trains quickly."""
+    toks = np.zeros((batch, seq), np.int32)
+    wts = np.ones((batch, seq), np.float32)
+    for b in range(batch):
+        if rng.rand() < passkey_frac:
+            ctx_bytes = rng.randint(seq // 4, seq - 64)
+            row = make_passkey_row(corpus, rng, ctx_bytes)
+            doc = row["context"] + PASSKEY_QUESTION + " " + row["answers"][0]
+            ids = [BOS_ID] + list(doc.encode("utf-8", errors="replace"))[:seq - 2] + [EOS_ID]
+            # answer span = last 6 bytes (" " + 5 digits) + EOS
+            ids = ids[:seq]
+            toks[b, :len(ids)] = ids
+            span = min(7, len(ids) - 1)
+            wts[b, len(ids) - span:len(ids)] = 8.0
+            if len(ids) < seq:  # tail: more text, ordinary LM loss
+                tail = _filler(corpus, rng, seq - len(ids))
+                tids = list(tail.encode("utf-8", errors="replace"))[: seq - len(ids)]
+                toks[b, len(ids):len(ids) + len(tids)] = tids
+        else:
+            window = _filler(corpus, rng, seq + 8)
+            ids = ([BOS_ID] + list(window.encode("utf-8", errors="replace")))[:seq]
+            toks[b, :len(ids)] = ids
+    return toks, wts
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def train_config(seq: int, hidden: int = None, layers: int = None, window: int = None,
+                 rope_theta: float = None) -> ModelConfig:
+    """The JAX package's ``train`` config rules on ``TINY_ACC``: hidden (with
+    an intermediate of 3 x hidden) and layers, positions at least 2 x seq,
+    ``rope_theta``, a sliding ``window``."""
+    cfg = TINY_ACC
+    if hidden or layers:
+        cfg = dataclasses.replace(
+            cfg, hidden_size=hidden or cfg.hidden_size,
+            intermediate_size=3 * (hidden or cfg.hidden_size),
+            num_layers=layers or cfg.num_layers,
+            name=f"tiny-acc-h{hidden or cfg.hidden_size}L{layers or cfg.num_layers}")
+    if seq * 2 > cfg.max_position_embeddings:
+        cfg = dataclasses.replace(cfg, max_position_embeddings=2 * seq)
+    if rope_theta:
+        cfg = dataclasses.replace(cfg, rope_theta=float(rope_theta))
+    if window:
+        cfg = dataclasses.replace(cfg, sliding_window=window, name=f"{cfg.name}-sw{window}")
+    return cfg
+
+
+def lr_schedule(lr: float, steps: int):
+    """optax's ``warmup_cosine_decay_schedule(0, lr, warmup, max(steps,
+    warmup + 1), 0.05 lr)`` with the JAX package's warmup of min(100,
+    max(1, steps // 10)) steps, as a function of the update's index (0 for
+    the first, whose rate is 0)."""
+    warmup = min(100, max(1, steps // 10))
+    decay = max(steps, warmup + 1) - warmup
+    end = 0.05 * lr
+
+    def rate(k: int) -> float:
+        if k < warmup:
+            return lr * k / warmup
+        cosine = 0.5 * (1.0 + math.cos(math.pi * min(k - warmup, decay) / decay))
+        return lr * ((1.0 - end / lr) * cosine + end / lr)
+
+    return rate
+
+
+def make_optimizer(leaves: list, lr: float, steps: int):
+    """(``torch.optim.AdamW``, its ``LambdaLR``): optax's ``adamw(schedule,
+    b1=0.9, b2=0.95, weight_decay=0.01)`` (eps 1e-8; every leaf decayed, as
+    optax decays without a mask) on ``lr_schedule``.  Call the scheduler's
+    ``step`` after each optimizer step."""
+    opt = torch.optim.AdamW(leaves, lr=1.0, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.01)
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_schedule(lr, steps))
+
+
+def training_loss(cfg: ModelConfig, params: dict, toks: torch.Tensor, wts: torch.Tensor,
+                  remat: bool = True) -> torch.Tensor:
+    """Weighted next-token cross-entropy of ``llama.lm_forward``'s f32
+    logits: sum(ce * w[:, 1:]) / sum(w[:, 1:])."""
+    from mustafar_tpu_torch.models import llama
+
+    logits = llama.lm_forward(cfg, params, toks, remat=remat)
+    V = logits.shape[-1]
+    ce = torch.nn.functional.cross_entropy(logits[:, :-1].reshape(-1, V),
+                                           toks[:, 1:].reshape(-1), reduction="none")
+    w = wts[:, 1:].reshape(-1)
+    return (ce * w).sum() / w.sum()
+
+
+def train(out_dir: str, steps: int = 3000, batch: int = 8, seq: int = 2048,
+          lr: float = 1e-3, seed: int = 0, inner: int = 25,
+          hidden: int = None, layers: int = None, window: int = None,
+          rope_theta: float = None, log=print, device=None, remat: bool = True) -> dict:
+    """Train the tiny byte-level model (``train_config``) on
+    ``make_training_batch`` draws from the corpus, ``steps`` AdamW steps
+    (``make_optimizer``) of the weighted loss (``training_loss``), on
+    ``device`` (default ``cuda``), and write the checkpoint (``save_ckpt``).
+    Logs the mean and last loss every ``inner`` steps, as the JAX package's
+    ``train`` does after each scanned chunk; the weights start from the
+    port's ``init_params`` (seed ``seed``; the JAX package's random bits
+    differ).  Returns the final loss and the steps, as the JAX package's
+    does, and every step's loss and wall seconds (the batch's draw left
+    out)."""
+    from mustafar_tpu_torch.models import llama
+
+    dev = resolve_device(device)
+    cfg = train_config(seq, hidden, layers, window, rope_theta)
+    corpus = load_corpus(seed=seed)
+    rng = np.random.RandomState(seed)
+    params = llama.init_params(cfg, device=dev, dtype=torch.float32, seed=seed)
+    leaves = _leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    opt, sched = make_optimizer(leaves, lr, steps)
+    losses, step_s = [], []
+    for done in range(1, steps + 1):
+        toks, wts = make_training_batch(corpus, rng, batch, seq)
+        t = time.perf_counter()
+        loss = training_loss(cfg, params, torch.as_tensor(toks, device=dev).long(),
+                             torch.as_tensor(wts, device=dev), remat)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        sched.step()
+        losses.append(float(loss.detach()))      # waits for the step
+        step_s.append(time.perf_counter() - t)
+        if done % inner == 0 or done == steps:
+            chunk = losses[-((done - 1) % inner + 1):]
+            log(f"step {done}/{steps}  loss {np.mean(chunk):.4f} (last {losses[-1]:.4f})")
+    save_ckpt(out_dir, cfg, params)
+    return {"final_loss": losses[-1] if losses else None, "steps": steps,
+            "losses": losses, "step_s": step_s}
+
+
+def _leaves(params: dict) -> list:
+    return [v for k in sorted(params) for v in (
+        _leaves(params[k]) if isinstance(params[k], dict) else [params[k]])]
+
+
+def save_ckpt(out_dir: str, cfg: ModelConfig, params: dict) -> None:
+    """``params.npz`` (one f32 array a leaf, keys ``embed``, ``layers/wq``,
+    ..., in JAX's sorted order) and ``config.json`` (the config's fields,
+    indent 2), the files the JAX package's ``save_ckpt`` writes: both
+    packages' ``load_ckpt`` read them."""
+    os.makedirs(out_dir, exist_ok=True)
+    flat = {}
+    for k in sorted(params):
+        if isinstance(params[k], dict):
+            flat.update({f"{k}/{kk}": params[k][kk] for kk in sorted(params[k])})
+        else:
+            flat[k] = params[k]
+    np.savez(os.path.join(out_dir, "params.npz"),
+             **{k: v.detach().cpu().numpy() for k, v in flat.items()})
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)
 
 
 # ---------------------------------------------------------------------------

@@ -141,6 +141,18 @@ def _lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor, tp=None) -> torch.
     return logits
 
 
+def run_layers(cfg: ModelConfig, layers: dict, x: torch.Tensor, cos, sin, attend_at,
+               tp=None) -> torch.Tensor:
+    """The decoder stack over x [B, T, H]: layer ``li`` of the stacked
+    ``layers`` leaves (views, no copy) with ``attend_at(li)`` as its
+    attention, for the ``cfg.num_layers`` layers.  A pipeline stage passes
+    its own config and its layers' leaves."""
+    for li in range(cfg.num_layers):
+        lp = {name: leaf[li] for name, leaf in layers.items()}
+        x = _layer(cfg, lp, x, cos, sin, attend_at(li), tp)
+    return x
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
             cache_impl, positions: torch.Tensor, mode: str, aux,
             last_only: bool = False, tp=None):
@@ -171,10 +183,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
     x = embed_lookup(params, tokens, params["final_norm"].dtype)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
-    layers = params["layers"]
-    for li in range(cfg.num_layers):
-        lp = {name: leaf[li] for name, leaf in layers.items()}
-        x = _layer(cfg, lp, x, cos, sin, attend_at(li), tp)
+    x = run_layers(cfg, params["layers"], x, cos, sin, attend_at, tp)
     if mode == "prefill_segment":
         cache_impl.finalize_segment(cache, seg_start, true_len)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -185,6 +194,40 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
             idx = max(aux - 1, 0)
         x = x[:, idx:idx + 1]
     return _lm_head(cfg, params, x, tp), cache
+
+
+def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, true_len=None,
+               remat: bool = False) -> torch.Tensor:
+    """Cache-free causal LM forward, the training entry point: tokens [B, T]
+    -> f32 logits [B, T, V], differentiable end to end.  Attention is the
+    plain causal ``prefill_attention`` (Mistral's ``sliding_window`` from
+    ``cfg``, banded past it; keys at or past ``true_len`` masked): no
+    kernel, as the JAX package's training reaches none of its own.
+    ``remat`` recomputes each layer on the backward pass
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` over
+    the layer body), keeping one [B, T, H] residual a layer."""
+    from torch.utils.checkpoint import checkpoint
+
+    from mustafar_tpu_torch.ops.attention import prefill_attention
+
+    T = tokens.shape[1]
+    x = embed_lookup(params, tokens, params["final_norm"].dtype)
+    cos, sin = rope_cos_sin(torch.arange(T, device=tokens.device), cfg.head_dim,
+                            cfg.rope_theta, cfg.rope_scaling)
+    tl = T if true_len is None else true_len
+    layers = params["layers"]
+
+    def attend(q, k, v):
+        return prefill_attention(q, k, v, tl, cfg.sliding_window)
+
+    def layer(x, li):
+        return _layer(cfg, {name: leaf[li] for name, leaf in layers.items()}, x, cos, sin,
+                      attend)
+
+    for li in range(cfg.num_layers):
+        x = checkpoint(layer, x, li, use_reentrant=False) if remat else layer(x, li)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return _lm_head(cfg, params, x)
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, cache_impl, true_len: int,

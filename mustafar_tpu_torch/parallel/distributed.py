@@ -22,8 +22,9 @@ backend or a device on its own.
     (prefill, then a checked replay of the emitted tokens, then the rest),
     token for token the uninterrupted run.
   * ``spawn``: run a rank body (``"module:function"``) in dp x tp processes
-    over one mesh; the rank bodies (``forward_case``, ``engine_case``) live
-    here, where a spawned process imports them by name.
+    over one mesh, ("data", "model") or the pipeline's ("stage", "model");
+    the rank bodies (``forward_case``, ``engine_case``; the ring's and the
+    pipeline's beside their code) are imported by name in each process.
 
 Weights come from a seed through numpy (``init_params_np``: the JAX
 package's structure and scales), or from an ``.npz`` of params (``--params``,
@@ -542,7 +543,8 @@ def _rank_main(job_path: str):
         initialize(job["init"], job["dp"] * job["tp"], job["rank"], job["backend"],
                    job["timeout_s"])
         mesh = sharding.make_mesh(job["dp"], job["tp"], dev.type,
-                                  datetime.timedelta(seconds=job["timeout_s"]))
+                                  datetime.timedelta(seconds=job["timeout_s"]),
+                                  job["axes"])
         mod, name = job["target"].split(":")
         result = getattr(importlib.import_module(mod), name)(mesh, **job["kwargs"])
         payload = {"ok": result}
@@ -558,11 +560,13 @@ def _rank_main(job_path: str):
 
 def spawn(target: str, dp: int, tp: int, kwargs: dict, backend: str = "gloo",
           device: str | None = None, workdir: str | None = None,
-          timeout_s: float = 300) -> list:
+          timeout_s: float = 300, axes: tuple = sharding.MESH_AXES) -> list:
     """Run ``target`` (``"module:function"``, called as ``fn(mesh,
     **kwargs)``) in dp x tp new processes, one rank each, over a
     ``file://`` store in ``workdir`` (a fresh temporary directory when
-    None).  ``device``: ``cuda`` (None; every rank on the current card, as
+    None).  The mesh is dp x tp named ``axes``: ("data", "model"), or
+    ("stage", "model") for a pipeline of dp stages.  ``device``: ``cuda``
+    (None; every rank on the current card, as
     ranks that share one card over gloo; raises without a card), a pattern
     such as ``cuda:{rank}`` (a card a rank, for nccl), or ``cpu``.  The
     ``device`` of ``kwargs`` is the rank body's own.  On the CPU each rank runs
@@ -586,7 +590,7 @@ def spawn(target: str, dp: int, tp: int, kwargs: dict, backend: str = "gloo",
         job = os.path.join(workdir, f"rank{rank}.job")
         outs.append(os.path.join(workdir, f"rank{rank}.result"))
         with open(job, "wb") as f:
-            pickle.dump({"target": target, "rank": rank, "dp": dp, "tp": tp,
+            pickle.dump({"target": target, "rank": rank, "dp": dp, "tp": tp, "axes": axes,
                          "backend": backend, "device": device, "init": f"file://{store}",
                          "timeout_s": timeout_s, "kwargs": kwargs, "out": outs[-1]}, f)
         procs.append(subprocess.Popen(

@@ -60,11 +60,12 @@ GROUP_TIMEOUT = datetime.timedelta(minutes=10)
 
 
 def make_mesh(dp: int, tp: int, device_type: str = "cuda",
-              timeout: datetime.timedelta = GROUP_TIMEOUT):
-    """A ``DeviceMesh`` of shape (dp, tp) named ("data", "model") over the
-    initialized default group (world size dp * tp; rank r is data index
-    r // tp, model index r % tp).  Every rank must call it; a collective of
-    its sub-groups raises after ``timeout``."""
+              timeout: datetime.timedelta = GROUP_TIMEOUT, axes: tuple = MESH_AXES):
+    """A ``DeviceMesh`` of shape (dp, tp) named ``axes`` (("data", "model");
+    ("stage", "model") for the pipeline, ``pipeline.STAGE_AXES``) over the
+    initialized default group (world size dp * tp; rank r is index r // tp
+    on the first axis, model index r % tp).  Every rank must call it; a
+    collective of its sub-groups raises after ``timeout``."""
     from torch.distributed.device_mesh import DeviceMesh
 
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -78,7 +79,7 @@ def make_mesh(dp: int, tp: int, device_type: str = "cuda",
             g = dist.new_group(ranks, timeout=timeout)
             if rank in ranks:
                 mine.append(g)
-    return DeviceMesh.from_group(mine, device_type, mesh=grid, mesh_dim_names=MESH_AXES)
+    return DeviceMesh.from_group(mine, device_type, mesh=grid, mesh_dim_names=tuple(axes))
 
 
 def mesh_dims(mesh) -> tuple[int, int]:
@@ -168,7 +169,7 @@ def model_shard(mesh, whole_batch: bool = True) -> ModelShard | None:
     if mesh is None:
         return None
     data = None
-    if whole_batch and mesh.size(0) > 1:
+    if whole_batch and mesh.size(0) > 1 and mesh.mesh_dim_names[0] == "data":
         data = (mesh.get_group("data"), mesh.get_local_rank("data"), mesh.size(0))
     return ModelShard(mesh.get_group("model"), mesh.get_local_rank("model"), mesh.size(1),
                       data)

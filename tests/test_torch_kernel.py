@@ -26,11 +26,13 @@ them against the plain versions there.
 """
 
 import functools
+import inspect
 import os
 import subprocess
 import sys
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -49,6 +51,25 @@ JCODECS = {c: jqf.QuantCodec(256, 128, *b) for c, b in BITS.items()}
 TCODECS = {c: tqf.QuantCodec(256, 128, *b) for c, b in BITS.items()}
 JCODEC, TCODEC = JCODECS["q8q4"], TCODECS["q8q4"]
 W = 288                                   # residual 32 + chunk 256
+
+# The JAX kernels, run in Pallas interpret mode as the JAX package's tests
+# run them, under one jit each: their interpretation compiles once a shape
+# and static argument set (the codec, max_chunks, the options) and then
+# runs in milliseconds, where each eager call took ~2 s; the outputs are
+# the eager call's bit for bit.
+STATIC = ("codec", "max_chunks", "hpb", "wt", "fdepth", "nslots", "window",
+          "return_norm", "return_win_probs")
+
+
+def _jit(fn):
+    """``fn`` under ``jax.jit``, the arguments of ``STATIC`` that it takes static."""
+    params = inspect.signature(fn).parameters
+    return jax.jit(fn, static_argnames=[name for name in STATIC if name in params])
+
+
+J_DECODE = _jit(jqa.fused_q_decode_attention)
+J_DECODE_PS = _jit(jqa.fused_q_decode_attention_ps)
+J_SEGMENT = _jit(jqa.fused_q_segment_attention)
 
 
 def _bf16(x):
@@ -82,7 +103,7 @@ def _inputs(seed, L, mc, B, Hkv, G, codec="q8q4"):
 
 def _run_both(q, pool, scales, k_win, v_win, nc, wl, li, codec="q8q4"):
     mc = pool.shape[1]
-    jo = jqa.fused_q_decode_attention(
+    jo = J_DECODE(
         jnp.asarray(q, jnp.bfloat16), jnp.asarray(pool),
         jnp.asarray(scales[..., 0, :], jnp.bfloat16),
         jnp.asarray(scales[..., 1, :], jnp.bfloat16),
@@ -212,7 +233,7 @@ def test_module_imports_and_builds_nothing_without_nvcc(tmp_path):
 
 def _run_both_ps(q, pool, scales, k_win, v_win, nc, wl, li, q_dtype, codec="q8q4"):
     mc = pool.shape[1]
-    jo = jqa.fused_q_decode_attention_ps(
+    jo = J_DECODE_PS(
         jnp.asarray(q, q_dtype), jnp.asarray(pool),
         jnp.asarray(scales[..., 0, :], jnp.bfloat16),
         jnp.asarray(scales[..., 1, :], jnp.bfloat16),
@@ -286,7 +307,7 @@ def _split_case(codec, G, q_dtype):
     """Per-slot inputs (6 slots of one kv head, mc=3, layer 1) and the JAX
     kernel's output on them, once a codec, group and q dtype."""
     q, pool, scales, k_win, v_win = _inputs(80 + G, 2, 3, 6, 1, G, codec)
-    jo = jqa.fused_q_decode_attention_ps(
+    jo = J_DECODE_PS(
         jnp.asarray(q, getattr(jnp, q_dtype)), jnp.asarray(pool),
         jnp.asarray(scales[..., 0, :], jnp.bfloat16),
         jnp.asarray(scales[..., 1, :], jnp.bfloat16),
@@ -418,7 +439,7 @@ def test_segment_plain_matches_jax_kernel(nc, seg_start, codec):
     layer 1; with no chunk, m is exactly -1e30 and l exactly 0."""
     _, pool, scales, _, _ = _inputs(30 + nc, 2, 3, 2, 2, 2, codec)
     qs = _bf16(np.random.RandomState(nc + seg_start).randn(2, 256, 4, 128))
-    ja, jm, jl = (np.asarray(x) for x in jqa.fused_q_segment_attention(
+    ja, jm, jl = (np.asarray(x) for x in J_SEGMENT(
         jnp.asarray(qs, jnp.bfloat16), jnp.asarray(pool),
         jnp.asarray(scales[..., 0, :], jnp.bfloat16),
         jnp.asarray(scales[..., 1, :], jnp.bfloat16), jnp.int32(nc),
@@ -480,7 +501,7 @@ def _uniform_case(codec, G):
     """Stacked inputs (B=2, one kv head, mc=3, L=2) and the JAX kernel's
     output (f32 q) at each of ``UNIFORM_CASES``, once a codec and group."""
     q, pool, scales, k_win, v_win = _inputs(90 + G, 2, 3, 2, 1, G, codec)
-    jos = [np.asarray(jqa.fused_q_decode_attention(
+    jos = [np.asarray(J_DECODE(
         jnp.asarray(q), jnp.asarray(pool), jnp.asarray(scales[..., 0, :], jnp.bfloat16),
         jnp.asarray(scales[..., 1, :], jnp.bfloat16), jnp.asarray(k_win, jnp.bfloat16),
         jnp.asarray(v_win, jnp.bfloat16), jnp.int32(nc), jnp.int32(wl), JCODECS[codec], 3,
@@ -611,3 +632,20 @@ def test_uniform_wrapper_sizes_its_grid_before_the_device():
         call(5000, 288, mc=5000, Bq=512)
     with pytest.raises(ValueError, match="unsupported device"):
         call(1, 288)
+
+
+def test_jitted_jax_kernels_are_the_eager_calls():
+    """The JAX kernels under ``jax.jit`` (``_jit``, as every test here calls
+    them) give the eager calls' outputs bit for bit: kernel 1 with chunks
+    and a full window, kernel 2 at two slots' counts."""
+    q, pool, scales, k_win, v_win = _inputs(94, 2, 3, 2, 1, 4)
+    args = (jnp.asarray(q), jnp.asarray(pool), jnp.asarray(scales[..., 0, :], jnp.bfloat16),
+            jnp.asarray(scales[..., 1, :], jnp.bfloat16), jnp.asarray(k_win, jnp.bfloat16),
+            jnp.asarray(v_win, jnp.bfloat16))
+    for eager, jitted, nc, wl in (
+            (jqa.fused_q_decode_attention, J_DECODE, jnp.int32(3), jnp.int32(288)),
+            (jqa.fused_q_decode_attention_ps, J_DECODE_PS, jnp.asarray([1, 3], jnp.int32),
+             jnp.asarray([44, 288], jnp.int32))):
+        want = np.asarray(eager(*args, nc, wl, JCODEC, 3, li=jnp.int32(1)))
+        got = np.asarray(jitted(*args, nc, wl, JCODEC, 3, li=jnp.int32(1)))
+        np.testing.assert_array_equal(got, want)

@@ -37,6 +37,7 @@ the per-slot kernel); the segment partials m to rtol 1e-6, l to 1e-5.
 """
 
 import functools
+import inspect
 import os
 import subprocess
 import sys
@@ -57,6 +58,25 @@ torch.set_num_threads(2)
 
 W = 288                                   # residual 32 + chunk 256
 ULP = 2.0 ** -8
+
+# The JAX kernels, run in Pallas interpret mode as the JAX package's tests
+# run them, under one jit each: their interpretation compiles once a shape
+# and static argument set (the formats, max_chunks, the options) and then
+# runs in milliseconds, where each eager call took ~2 s; the outputs are
+# the eager call's bit for bit.
+STATIC = ("kfmt", "vfmt", "max_chunks", "hpb", "wt", "fdepth", "window", "return_norm",
+          "return_win_probs")
+
+
+def _jit(fn):
+    """``fn`` under ``jax.jit``, the arguments of ``STATIC`` that it takes static."""
+    params = inspect.signature(fn).parameters
+    return jax.jit(fn, static_argnames=[name for name in STATIC if name in params])
+
+
+J_V7 = _jit(jska.fused_sparse_decode_attention_v7)
+J_V6PS = _jit(jska.fused_sparse_decode_attention_v6ps)
+J_SEGMENT = _jit(jska.fused_sparse_segment_attention)
 
 
 def _fmts(sparsity, qbits=16):
@@ -109,7 +129,7 @@ def test_decode_plain_matches_jax_kernel(G, sparsity):
     targs = (_t(q), torch.from_numpy(pool), _t(k_win), _t(v_win))
     before = tska.fused_sparse_decode_attention.launches
     for nc, wl, li in [(0, 44, 1), (1, 0, 0), (1, 288, 1), (3, 1, 0), (3, 288, 1)]:
-        jo = np.asarray(jska.fused_sparse_decode_attention_v7(
+        jo = np.asarray(J_V7(
             *jargs, jnp.int32(nc), jnp.int32(wl), jf, jf, 3,
             li=jnp.int32(li))).astype(np.float32)
         to = tska.fused_sparse_decode_attention(*targs, nc, wl, li, tf, tf)
@@ -136,7 +156,7 @@ def test_ps_plain_matches_jax_kernel(G, q_dtype, sparsity):
     tq = torch.from_numpy(q) if q_dtype == "float32" else _t(q)
     before = tska.fused_sparse_decode_attention_ps.launches
     for li in (0, 1):
-        jo = np.asarray(jska.fused_sparse_decode_attention_v6ps(
+        jo = np.asarray(J_V6PS(
             jnp.asarray(q, getattr(jnp, q_dtype)), jnp.asarray(pool),
             jnp.asarray(k_win, jnp.bfloat16), jnp.asarray(v_win, jnp.bfloat16),
             jnp.asarray(nc, jnp.int32), jnp.asarray(wl, jnp.int32), jf, jf, 3,
@@ -170,7 +190,7 @@ def _split_case(qbits, G):
     ins = _inputs(70 + qbits + G, 2, 3, 6, 1, G, 0.7, qbits)
     q, pool, k_win, v_win = ins[0], ins[1], ins[-2], ins[-1]
     scales = ins[2] if qbits == 8 else None
-    jo = np.asarray(jska.fused_sparse_decode_attention_v6ps(
+    jo = np.asarray(J_V6PS(
         jnp.asarray(q), jnp.asarray(pool), jnp.asarray(k_win, jnp.bfloat16),
         jnp.asarray(v_win, jnp.bfloat16), jnp.asarray(SPLIT_NC, jnp.int32),
         jnp.asarray(SPLIT_WL, jnp.int32), jf, jf, 3, li=jnp.int32(1),
@@ -265,7 +285,7 @@ def test_segment_plain_matches_jax_kernel(nc, seg_start, sparsity):
     _, pool, _, _ = _inputs(30 + nc, 2, 3, 2, 2, 2, sparsity)
     qs = np.asarray(jnp.asarray(np.random.RandomState(nc + seg_start)
                                 .randn(2, 256, 4, 128), jnp.bfloat16)).astype(np.float32)
-    ja, jm, jl = (np.asarray(x) for x in jska.fused_sparse_segment_attention(
+    ja, jm, jl = (np.asarray(x) for x in J_SEGMENT(
         jnp.asarray(qs, jnp.bfloat16), jnp.asarray(pool), jnp.int32(nc),
         jnp.int32(seg_start), jf, jf, 3, li=jnp.int32(1)))
     before = tska.fused_sparse_segment_attention.launches
@@ -292,7 +312,7 @@ def test_decode_plain_matches_jax_kernel_q8(G, sparsity):
              jnp.asarray(k_win, jnp.bfloat16), jnp.asarray(v_win, jnp.bfloat16))
     targs = (_t(q), torch.from_numpy(pool), _t(k_win), _t(v_win))
     for nc, wl, li in [(0, 44, 1), (1, 0, 0), (3, 1, 0), (3, 288, 1)]:
-        jo = np.asarray(jska.fused_sparse_decode_attention_v7(
+        jo = np.asarray(J_V7(
             *jargs, jnp.int32(nc), jnp.int32(wl), jf, jf, 3, li=jnp.int32(li),
             **_jscales(scales))).astype(np.float32)
         to = tska.fused_sparse_decode_attention(*targs, nc, wl, li, tf, tf,
@@ -311,7 +331,7 @@ def test_ps_plain_matches_jax_kernel_q8():
     q, pool, scales, k_win, v_win = _inputs(50, 2, 3, 6, 1, 2, 0.7, 8)
     nc = [0, 1, 3, 1, 3, 0]
     wl = [1, 44, 288, 0, 1, 0]
-    jo = np.asarray(jska.fused_sparse_decode_attention_v6ps(
+    jo = np.asarray(J_V6PS(
         jnp.asarray(q), jnp.asarray(pool), jnp.asarray(k_win, jnp.bfloat16),
         jnp.asarray(v_win, jnp.bfloat16), jnp.asarray(nc, jnp.int32),
         jnp.asarray(wl, jnp.int32), jf, jf, 3, li=jnp.int32(1), **_jscales(scales)))
@@ -336,7 +356,7 @@ def test_segment_plain_matches_jax_kernel_q8(nc, seg_start, sparsity):
     _, pool, scales, _, _ = _inputs(60 + nc, 2, 3, 2, 2, 2, sparsity, 8)
     qs = np.asarray(jnp.asarray(np.random.RandomState(nc).randn(2, 256, 4, 128),
                                 jnp.bfloat16)).astype(np.float32)
-    ja, jm, jl = (np.asarray(x) for x in jska.fused_sparse_segment_attention(
+    ja, jm, jl = (np.asarray(x) for x in J_SEGMENT(
         jnp.asarray(qs, jnp.bfloat16), jnp.asarray(pool), jnp.int32(nc),
         jnp.int32(seg_start), jf, jf, 3, li=jnp.int32(1), **_jscales(scales)))
     ta, tm, tl = (x.numpy() for x in tska.fused_sparse_segment_attention(
@@ -471,7 +491,7 @@ def _uniform_case(qbits, G):
     scales = ins[2] if qbits == 8 else None
     jargs = (jnp.asarray(q), jnp.asarray(pool),
              jnp.asarray(k_win, jnp.bfloat16), jnp.asarray(v_win, jnp.bfloat16))
-    jos = [np.asarray(jska.fused_sparse_decode_attention_v7(
+    jos = [np.asarray(J_V7(
         *jargs, jnp.int32(nc), jnp.int32(wl), jf, jf, 3, li=jnp.int32(li),
         **(_jscales(scales) if qbits == 8 else {}))).astype(np.float32)
         for nc, wl, li in UNIFORM_CASES]
@@ -532,3 +552,20 @@ def test_uniform_split_plain_cuts_only_the_chunks():
         np.testing.assert_allclose(got.numpy(), whole, rtol=0,
                                    atol=2 * ULP * np.abs(whole).max(),
                                    err_msg=f"nc={nc} wl={wl} li={li}")
+
+
+def test_jitted_jax_kernels_are_the_eager_calls():
+    """The JAX kernels under ``jax.jit`` (``_jit``, as every test here calls
+    them) give the eager calls' outputs bit for bit: v7 with chunks and a
+    full window, v6ps at two slots' counts."""
+    jf, _ = _fmts(0.7)
+    q, pool, k_win, v_win = _inputs(71, 2, 3, 2, 1, 4, 0.7)
+    args = (jnp.asarray(q), jnp.asarray(pool), jnp.asarray(k_win, jnp.bfloat16),
+            jnp.asarray(v_win, jnp.bfloat16))
+    for eager, jitted, nc, wl in (
+            (jska.fused_sparse_decode_attention_v7, J_V7, jnp.int32(3), jnp.int32(288)),
+            (jska.fused_sparse_decode_attention_v6ps, J_V6PS,
+             jnp.asarray([1, 3], jnp.int32), jnp.asarray([44, 288], jnp.int32))):
+        want = np.asarray(eager(*args, nc, wl, jf, jf, 3, li=jnp.int32(1)))
+        got = np.asarray(jitted(*args, nc, wl, jf, jf, 3, li=jnp.int32(1)))
+        np.testing.assert_array_equal(got, want)
