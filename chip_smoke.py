@@ -34,7 +34,14 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 (SWA_SERVED: B=4, 17 chunks + 49..288 window tokens and 18
                 after the compaction, window 4,096; bf16 and f32 q), timed
                 on and off in turns at the serve_swa shape (SWA_TIMED)
-                beside each's byte bound (live chunks only)
+                beside each's byte bound (live chunks only); its counts
+                int32 tensors on the card that the kernel reads, and one
+                CUDA graph of it replayed across changing counts
+                (GRAPH_COUNTS: a new window length, a new chunk, nothing to
+                attend; GRAPH_WINDOW_COUNTS: a window's edge moving through
+                chunk 0 and past it), each replay bit-equal to an eager
+                launch and within 2 bf16 ulps of the plain version
+                (graph_replays)
   kernel_ps     the per-slot decode kernel likewise, at the engine's pool
                 (mc=32): mixed slots (n_chunks 0/1/2/5/31, win_len
                 0/1/44/288, an idle slot), groups 1/2/4/8; the kernel
@@ -215,7 +222,10 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 every decode step must launch the kernel once per layer, and
                 kernel 9 (K and V in one launch) once a layer for prefill's
                 chunk and once for the compaction of every layer: 33
-                launches
+                launches.  Every Generator and engine of the run decodes
+                through its CUDA graph (the card's default: the graph's
+                captured launches x replays count with the eager ones,
+                ``_launches``), unless a phase says it runs eagerly
   serve_dense   the same prompts through the dense baseline cache
   kernel_archive_cache
                 the archive's main path on serve_dense's own cache: K and V
@@ -246,6 +256,16 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 in the compressed cache, 300 (KT_MAG_VT_OPA at 0.7: kernel
                 1 or 6 with its window probabilities 32 x 299, kernel 9
                 with V's scores 33 for q8q4); first tokens = serve_dense's
+  serve_graph   the compiled decode against the eager loop, Llama-3-8B W8
+                at full width and depth, B=8, 300 + 300: serve_q8q4's,
+                serve_bitmap's and serve_dense's graphed runs beside the
+                same runs through the eager loop (graph=False): tokens
+                equal, the graph's captured launches x 299 replays = the
+                gate (32 x 299) and the eager run's launches; wall ms a
+                token, a step's device ms (a replay between CUDA events;
+                an eager step under a long spin), replays, peak memory.
+                serve_graph_w4 (in serve_w4, before its cut): the same for
+                W4 q8q4 at 32 layers
   decode_split  device time of a decode step's W8 projections, LM head and
                 attention kernel, each timed alone, beside the step's wall time
   serve_cb      the continuous-batching engine at full width and 8 of the 32
@@ -256,7 +276,9 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 Generator's; the slot bookkeeping in the native core
                 (native/scheduler.cpp, built with g++), whose stats must
                 show every request admitted and finished and none refused
-                (every serve_cb* phase)
+                (every serve_cb* phase); the engine's tick a CUDA graph, and
+                the same requests again through the eager tick: tokens and
+                launches equal, both ticks' times printed
   serve_cb_bitmap, serve_cb_bitmap_q8
                 serve_cb with the bitmap and bitmap-q8 codecs (peak memory
                 and pool bytes side by side), at 8 of the 32 layers
@@ -640,7 +662,30 @@ class _Kit:
     kernels' split arithmetic), each decode with its options (``_wp``:
     window probabilities, ``_norm``: the final (m, l));
     ``chunk_bytes`` is what one pool chunk of one kv head holds (rows and,
-    for the quant codecs and bitmap-q8, scales)."""
+    for the quant codecs and bitmap-q8, scales).  The uniform decode and its
+    plain versions take their counts as the kernel reads them, int32
+    tensors on the card (``count``: one per value, made once, so a timed
+    call launches the kernel alone); callers pass ints or such tensors."""
+
+    UNIFORM = ("decode", "decode_plain", "decode_split_plain", "decode_wp",
+               "decode_split_plain_wp", "decode_norm", "decode_split_plain_norm")
+
+    def count(self, n):
+        """A count as the uniform kernels read it: a one-element int32
+        tensor on the card, one per value."""
+        import torch
+        if torch.is_tensor(n):
+            return n
+        if n not in self._counts:
+            self._counts[n] = torch.full((1,), n, dtype=torch.int32, device=self.k_win.device)
+        return self._counts[n]
+
+    def _device_counted(self):
+        self._counts = {}
+        for name in self.UNIFORM:
+            fn = getattr(self, name)
+            setattr(self, name, lambda q, nc, wl, li, _fn=fn, **o:
+                    _fn(q, self.count(nc), self.count(wl), li, **o))
 
     def __init__(self, codec, g, dev, L, mc, BH, W, sparsity=0.7):
         import torch
@@ -703,6 +748,7 @@ class _Kit:
                 qa.fused_q_segment_attention_plain(
                     q, pool, scales, nc, li, qc, nc * 256 if seg_start is None else seg_start,
                     window)
+            self._device_counted()
             return
         # bitmap codecs: real packed chunks, random bf16 K and V pruned to
         # the format's keep (and quantized, bitmap-q8) and encoded on the
@@ -766,6 +812,7 @@ class _Kit:
             ska.fused_sparse_segment_attention_plain(
                 q, pool, nc, li, fmt, fmt, scales,
                 nc * 256 if seg_start is None else seg_start, window)
+        self._device_counted()
 
 
 # the kernels line's fixed fields, by codec family and kernel
@@ -897,6 +944,7 @@ def phase_kernel(codec="q8q4"):
     more, worse = _check_uniform_norm(kits[0], other_groups, cases[:2])
     norm_cases, norm_worst = norm_cases + more, max(norm_worst, worse)
     window = _check_windows(kits, q, other_groups, L)
+    graph_cases = _check_graph_counts(kits[0], q, L - 1)
 
     # time at the main path's largest pre-compaction shape: one pool chunk
     # and a full 288-token window, L2 flushed before each launch
@@ -950,11 +998,16 @@ def phase_kernel(codec="q8q4"):
          win_probs_ms=dict(in_turns(probs_ms), split_plain=probs_plain_ms),
          return_norm_cases=norm_cases,
          return_norm_ms=dict(in_turns(norm_ms), split_plain=norm_plain_ms),
-         window=window,
+         window=window, graph_replays=graph_cases,
          timed_at={"sparsity": kit.sparsity, "n_chunks": nc, "win_len": wl},
+         counts_on_device=True,
          bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, flops_ms), library_ms=None)
     entry = _entry(codec, "decode", results, worst, max(r["tol"] for r in results),
                    kernel_ms, plain_ms, bytes_ms, flops_ms)
+    entry["counts"] = ("int32 tensors on the card, read by the kernel (one entry for the "
+                       "eager and the graphed decode); held in one CUDA graph across "
+                       f"{sum(len(c['replays']) for c in graph_cases)} replays at changing "
+                       "counts: graph_replays")
     entry.update(max_err=entry["max_abs_err"], worst_err_over_tol_split=worst_split,
                  tol_split=SPLIT_TOL_NOTE)
     entry["options"] = {"return_win_probs": {
@@ -975,6 +1028,56 @@ def phase_kernel(codec="q8q4"):
                     "of each pair)"},
         "window": _window_option(window)}
     return entry
+
+
+GRAPH_COUNTS = ((1, 100), (1, 101), (1, 288), (2, 1), (2, 200), (0, 0), (3, 44), (5, 288))
+GRAPH_WINDOW = 400
+# at window 400: nothing below the edge; the edge inside chunk 0 (twice);
+# chunk 0 wholly below it and the edge in chunk 1; chunks 0-1 below, edge in 2
+GRAPH_WINDOW_COUNTS = ((1, 100), (1, 200), (2, 100), (2, 288), (4, 17))
+
+
+def _check_graph_counts(kit, q, li):
+    """The uniform kernel in one CUDA graph, captured once over two count
+    tensors on the card and replayed after each new pair of counts is
+    written into them (a new window length, a new chunk, nothing to attend,
+    the full pool; and with a sliding window of ``GRAPH_WINDOW`` its edge
+    moving through chunk 0 and past it): every replay's output bit-equal
+    to an eager launch at the same counts and within 2 bf16 ulps of the
+    output's scale of the plain version.  Returns the cases."""
+    import torch
+    cases = []
+    for window, seq in ((None, GRAPH_COUNTS), (GRAPH_WINDOW, GRAPH_WINDOW_COUNTS)):
+        nc_t = torch.full((1,), seq[0][0], dtype=torch.int32, device="cuda")
+        wl_t = torch.full((1,), seq[0][1], dtype=torch.int32, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kit.decode(q, nc_t, wl_t, li, window=window)      # scratch for this stream
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            res = kit.decode(q, nc_t, wl_t, li, window=window)
+        replays = []
+        for nc, wl in seq:
+            nc_t.fill_(nc)
+            wl_t.fill_(wl)
+            graph.replay()
+            got = res.clone()
+            eager = kit.decode(q, nc, wl, li, window=window)
+            want = kit.decode_plain(q, nc, wl, li, window=window)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = KERNEL_TOL_ULPS * 2.0 ** -8 * max(want.float().abs().max().item(), 1e-30)
+            replays.append({"n_chunks": nc, "win_len": wl, "max_abs_err": err, "tol": tol,
+                            "equal_to_eager_launch": bool(torch.equal(got, eager))})
+            if not (replays[-1]["equal_to_eager_launch"] and err <= tol
+                    and bool(got.isfinite().all())):
+                raise AssertionError(f"the graphed uniform kernel at new counts: "
+                                     f"{replays[-1]} (window {window})")
+        cases.append({"window": window, "li": li, "replays": replays})
+        del graph
+    return cases
 
 
 def _window_option(w):
@@ -2709,19 +2812,11 @@ def _tiny_engine(mode, codec="q8q4", method=None, window=None, moe=False, **kw):
 
 
 def _counters():
-    """The launch count of every kernel wrapper, by name."""
-    from mustafar_tpu_torch.ops.kernels import dense_decode as dd
-    from mustafar_tpu_torch.ops.kernels import pack_kernel as pk
-    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
-    from mustafar_tpu_torch.ops.kernels import sparse_attention as ska
+    """The launch count of every kernel wrapper, by name: the serving ones
+    (``runtime.graphs.kernel_wrappers``) and the archive's."""
     from mustafar_tpu_torch.ops.kernels import sparse_attention_archive as sar
-    from mustafar_tpu_torch.ops.kernels import w4_matmul as w4
-    counters = {fn.__name__: fn for fn in (
-        qa.fused_q_decode_attention, qa.fused_q_decode_attention_ps,
-        qa.fused_q_segment_attention, ska.fused_sparse_decode_attention,
-        ska.fused_sparse_decode_attention_ps, ska.fused_sparse_segment_attention,
-        w4.w4_matmul, dd.flash_decode_attention, pk.prune_quant_pack,
-        pk.prune_quant_pack_kv)}
+    from mustafar_tpu_torch.runtime.graphs import kernel_wrappers
+    counters = kernel_wrappers()
     # the archive's v2 has the production kernel's name: its keys are prefixed
     counters.update({f"archive.{fn.__name__}": fn for fn in (
         sar.sparse_key_scores, sar.sparse_value_combine,
@@ -2732,10 +2827,18 @@ def _counters():
 
 
 def _launches():
-    return {name: fn.launches for name, fn in _counters().items()}
+    """Each wrapper's launches: those it counted itself, plus those the
+    CUDA graphs of the decode step launched by replays (captured launches x
+    replays, ``runtime.graphs.REPLAYED``)."""
+    from mustafar_tpu_torch.runtime.graphs import REPLAYED
+    return {name: fn.launches + REPLAYED[name] for name, fn in _counters().items()}
 
 
 def _set_launches(counts):
+    """Every wrapper's count set to ``counts`` (a ``_launches`` reading),
+    the replayed launches folded in."""
+    from mustafar_tpu_torch.runtime.graphs import REPLAYED
+    REPLAYED.clear()
     for name, fn in _counters().items():
         fn.launches = counts[name]
 
@@ -3556,10 +3659,14 @@ def _pool_bytes(cache):
 
 def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=False,
           on_cache=None, prune=None, model=None, max_seq_len=1312, chunks_end=2,
-          time_prefill=False):
+          time_prefill=False, graph=None, step_ms=False):
     """One warm-up generation, then the measured one; returns its tokens,
-    the launches of every kernel during the measured run (those launched)
-    and the phase's fields.  ``use_pallas`` decodes the dense or masked
+    the launches of every kernel during the measured run (those launched,
+    the graph's replays included) and the phase's fields, with the decode's
+    path (``graph``: the Generator's choice, the compiled decode on the card
+    by default; False the eager loop), its replays and the graph's captured
+    launches a replay.  With ``step_ms`` also the device ms of one decode
+    step after the run (``_step_device_ms``).  ``use_pallas`` decodes the dense or masked
     cache through its flash-decode kernel; ``on_cache`` is handed the cache
     state the measured run left; ``prune`` defaults to KT_MAG_VT_MAG at
     sparsity 0.7; ``model`` to Llama-3-8B, whose compressed runs end with
@@ -3576,7 +3683,7 @@ def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=Fals
     eng = EngineConfig(model=model, cache_mode=mode, prune=prune,
                        max_seq_len=max_seq_len, prefill_bucket=256, chunk_size=256,
                        codec=codec)
-    gen = Generator(eng, params, dtype=torch.bfloat16)
+    gen = Generator(eng, params, dtype=torch.bfloat16, graph=graph)
     gen.cache_impl.use_pallas = use_pallas
     gen.generate(prompt, 4)                                   # warm-up
     gen.last_cache = None
@@ -3594,7 +3701,10 @@ def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=Fals
     fields = {"batch": B, "prompt": prompt.shape[1], "new_tokens": new_tokens,
               "seconds": dt, "tok_s": B * new_tokens / dt,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-              "kernel_launches": launches}
+              "kernel_launches": launches, "decode_path": gen.last_path,
+              "replays": gen.last_replays, "captured_launches": gen.last_captured}
+    if step_ms:
+        fields["step_device_ms"] = _step_device_ms(gen, prompt.shape[1] + new_tokens - 2)
     if mode.value == "compressed":
         fields["codec"] = codec
     else:
@@ -3638,6 +3748,40 @@ def serve(label, mode, params, prompt, new_tokens, codec="q8q4", use_pallas=Fals
     del gen, cache
     torch.cuda.empty_cache()
     return toks, launches, fields
+
+
+def _step_device_ms(gen, pos):
+    """Device ms of one decode step of ``gen`` at position ``pos`` over the
+    cache its last run left (the step's token column rewritten in place):
+    a replay of its graph timed between CUDA events (a replay enqueues in
+    microseconds, so the events bracket the card's work), or an eager step
+    under a spin kernel long enough to cover its enqueue (``cuda_ms``).
+    The replayed and eager launches are taken back out of the counts."""
+    import torch
+    from mustafar_tpu_torch.models import llama
+    counts = _launches()
+    with torch.inference_mode():
+        if gen.last_path == "graph":
+            st = next(iter(gen._static.values()))
+            st.pos.fill_(pos)
+            ms = cuda_ms(st.graph.run, 20, spin=False)[0]
+        else:
+            cache = gen.last_cache
+            tok = torch.zeros((cache_batch(cache), 1), dtype=torch.int64, device="cuda")
+            ms = cuda_ms(lambda: llama.decode_step(gen.cfg, gen.params, tok, cache,
+                                                   gen.cache_impl, pos),
+                         5, spin_cycles=EAGER_STEP_SPIN)[0]
+    torch.cuda.synchronize()
+    _set_launches(counts)
+    return ms
+
+
+EAGER_STEP_SPIN = 200_000_000   # ~100 ms of the card's clock: an eager 32-layer step's enqueue
+
+
+def cache_batch(cache):
+    """The batch of a cache state."""
+    return (cache["k_win"] if "k_win" in cache else cache["k"]).shape[1]
 
 
 def _step_parts(params):
@@ -3708,6 +3852,57 @@ def phase_decode_split_w4(params, attn_ms, wall_s, new_tokens, model=None):
          wall_ms_per_token={c: t / new_tokens * 1e3 for c, t in wall_s.items()})
 
 
+GRAPH_CASES = {"q8q4": ("COMPRESSED", "q8q4", "fused_q_decode_attention"),
+               "bitmap": ("COMPRESSED", "bitmap", "fused_sparse_decode_attention"),
+               "dense": ("DENSE", "q8q4", None)}
+
+
+def phase_serve_graph(label, params, prompt, new, graphed, model_note):
+    """The compiled decode against the eager loop on Llama-3-8B at full
+    width and depth, B=8, ``prompt`` (300) + ``new`` (300): for each case of
+    ``graphed`` (its graphed run: ``serve``'s tokens, launches and fields,
+    with the step's device ms) the same run again through the eager loop
+    (``graph=False``).  The tokens must be equal; the graphed run's decode
+    kernel launches must be its graph's captured launches x replays and the
+    gate (layers x steps), the eager run's the same counts.  Prints each
+    case's wall ms per token, a step's device ms, replays and captured
+    launches, graphed and eager.  The dense twin's graphed step attends all
+    max_seq_len (1,312) rows masked by the position, as the JAX package's
+    static-shape decode does; its eager step the rows before it."""
+    import torch
+    from mustafar_tpu_torch.config import CacheMode, LLAMA3_8B
+    steps = new - 1
+    gate = LLAMA3_8B.num_layers * steps
+    cases = {}
+    for case, (toks, launches, fields) in graphed.items():
+        mode, codec, attn = GRAPH_CASES[case]
+        etoks, elaunches, efields = serve(f"{label}_{case}_eager", getattr(CacheMode, mode),
+                                          params, prompt, new, codec=codec, graph=False,
+                                          step_ms=True)
+        replayed = {k: n * fields["replays"] for k, n in fields["captured_launches"].items()}
+        want = {attn: gate} if attn else {}
+        got = {attn: launches.get(attn, 0)} if attn else {}
+        cases[case] = {
+            "tokens_equal": bool(torch.equal(toks, etoks)),
+            "wall_ms_per_token": {"graph": fields["seconds"] / new * 1e3,
+                                  "eager": efields["seconds"] / new * 1e3},
+            "step_device_ms": {"graph": fields["step_device_ms"],
+                               "eager": efields["step_device_ms"]},
+            "decode_path": {"graph": fields["decode_path"], "eager": efields["decode_path"]},
+            "replays": fields["replays"], "captured_launches": fields["captured_launches"],
+            "replayed_launches": replayed, "launches": {"graph": launches, "eager": elaunches},
+            "gate": want, "peak_mem_gib": {"graph": fields["peak_mem_gib"],
+                                           "eager": efields["peak_mem_gib"]}}
+        c = cases[case]
+        if not (c["tokens_equal"] and fields["decode_path"] == "graph"
+                and efields["decode_path"] == "eager" and got == want
+                and (not attn or replayed.get(attn) == gate)
+                and launches == elaunches and fields["replays"] == steps):
+            raise AssertionError(f"{label} {case}: graphed and eager runs differ: {c}")
+    emit(label, model=model_note, batch=prompt.shape[0], prompt=prompt.shape[1],
+         new_tokens=new, cases=cases)
+
+
 def serve_cb_requests(model, first8=False):
     """serve_cb's stream: 16 requests of 200-1,500 prompt tokens and 32-96
     new ones (``RandomState(1)``), one of 8,000 + 64 submitted third; with
@@ -3723,7 +3918,7 @@ def serve_cb_requests(model, first8=False):
 
 
 def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, prune=None,
-                   model=None):
+                   model=None, eager_too=False):
     """Continuous batching at full Llama-3-8B width and depth (or
     ``model``'s: Llama-3-8B cut in depth by ``cut_depth``, as ``serve_cb``
     runs, Mistral-7B with
@@ -3746,8 +3941,11 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
     (default KT_MAG_VT_MAG at 0.7): with an Opa method the run is
     ``serve_cb_opa``, and the scored buffers must be live at its end (the
     per-slot kernel's window probabilities, or K's scores, reached the
-    cache).  Returns the launches and the run's peak memory and pool
-    bytes."""
+    cache).  The engine decodes through its CUDA graph (the card's
+    default); with ``eager_too`` the same requests run again through the
+    eager tick (``graph=False``), whose tokens and launches must equal the
+    graphed run's, its tick times printed beside.  Returns the launches and
+    the run's peak memory and pool bytes."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
@@ -3830,8 +4028,31 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
               "tick_ms": {k: {"n": len(v), "mean": 1e3 * sum(v) / max(len(v), 1),
                               "total_s": sum(v)} for k, v in Timed.split.items()}}
     scores = {k: float(cb.cache[k].abs().sum()) for k in cb.impl.score_keys}
+    counts["decode_path"], counts["replays"] = cb.decode_path, cb.replays
     del gen, cb
     torch.cuda.empty_cache()
+    eager = None
+    if eager_too:
+        class TimedEager(Timed):
+            split = {"segment+decode": [], "decode": [], "segment": []}
+
+        ecb = TimedEager(eng, params, graph=False)
+        euids = [ecb.submit(p, m) for p, m in reqs]
+        _set_launches(dict.fromkeys(_counters(), 0))
+        t = time.perf_counter()
+        eouts = ecb.run()
+        torch.cuda.synchronize()
+        edt = time.perf_counter() - t
+        elaunches = _launches()
+        eager = {"decode_path": ecb.decode_path, "seconds": edt,
+                 "tokens_equal": all(np.array_equal(outs[u], eouts[e])
+                                     for u, e in zip(uids, euids)),
+                 "launches_equal": elaunches == launches,
+                 "tick_ms": {k: {"n": len(v), "mean": 1e3 * sum(v) / max(len(v), 1),
+                                 "total_s": sum(v)} for k, v in TimedEager.split.items()}}
+        _set_launches(launches)
+        del ecb
+        torch.cuda.empty_cache()
     label = ("serve_cb_w4" if w4 else "serve_cb_opa" if scores
              else "serve_cb_moe" if model.num_experts
              else "serve_cb_swa_" + codec.replace("-", "_") if model.sliding_window
@@ -3846,7 +4067,12 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
                                    "k_sparsity": prune.k_sparsity,
                                    "v_sparsity": prune.v_sparsity},
          score_sums=scores, native_core=native,
-         expected_launches=want, first_token_equal=sum(first_equal), **(beside or {}))
+         expected_launches=want, first_token_equal=sum(first_equal), eager=eager,
+         **(beside or {}))
+    if eager is not None and not (eager["tokens_equal"] and eager["launches_equal"]
+                                  and counts["decode_path"] == "graph"):
+        raise AssertionError(f"{label}: the graphed engine ({counts['decode_path']}) and "
+                             f"the eager one disagree: {eager}")
     if native != native_want:
         raise AssertionError(f"{label}: the native slot core's stats {native}, expected "
                              f"{native_want} (None: the core was not built)")
@@ -3871,7 +4097,6 @@ def phase_serve_chunked(params):
     import torch
     from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
                                            PruneConfig, PruneMethod)
-    from mustafar_tpu_torch.ops.kernels import quant_attention as qa
     from mustafar_tpu_torch.runtime.generate import Generator
     eng = EngineConfig(model=LLAMA3_8B, cache_mode=CacheMode.COMPRESSED,
                        prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG,
@@ -3883,14 +4108,16 @@ def phase_serve_chunked(params):
     gen = Generator(eng, params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    qa.fused_q_decode_attention.launches = 0
-    qa.fused_q_segment_attention.launches = 0
+    counts0 = _launches()
+    _set_launches(dict.fromkeys(_counters(), 0))
     t = time.perf_counter()
     out = gen.generate(prompt, new)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
-    launches = {"fused_q_decode_attention": qa.fused_q_decode_attention.launches,
-                "fused_q_segment_attention": qa.fused_q_segment_attention.launches}
+    counts = _launches()
+    launches = {name: counts[name] for name in ("fused_q_decode_attention",
+                                                 "fused_q_segment_attention")}
+    _set_launches(counts0)
     L = LLAMA3_8B.num_layers
     want = {"fused_q_decode_attention": L * (new - 1),
             "fused_q_segment_attention": L * 2048 // 256}
@@ -3898,7 +4125,7 @@ def phase_serve_chunked(params):
     emit("serve_chunked", batch=4, prompt=2000, new_tokens=new, seconds=dt,
          tok_s=toks.size / dt, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          n_chunks_end=gen.last_cache["nc_host"], launches=launches,
-         expected_launches=want)
+         expected_launches=want, decode_path=gen.last_path, replays=gen.last_replays)
     if toks.shape != (4, new) or launches != want or gen.last_cache["nc_host"] != 7:
         raise AssertionError(f"serve_chunked: tokens {toks.shape}, launches "
                              f"{launches} (expected {want})")
@@ -4010,7 +4237,7 @@ def phase_host_split(params, model=None):
             cb.submit(rs.randint(1, 500, size=300), 64)
         while cb._admissions or cb.core.num_queued:
             cb.tick()
-        tick_split = measure(cb.tick)
+        tick_split = dict(measure(cb.tick), decode_path=cb.decode_path)
         del cb
         ticks_long = {}
         for codec in ("q8q4", "bitmap"):
@@ -4022,7 +4249,7 @@ def phase_host_split(params, model=None):
             while cb._admissions or cb.core.num_queued:
                 cb.tick()
             cb.tick()
-            ticks_long[codec] = measure(cb.tick)
+            ticks_long[codec] = dict(measure(cb.tick), decode_path=cb.decode_path)
             del cb
     torch.cuda.empty_cache()
     emit("host_split", model=f"{model.name} x{model.num_layers}L, W8 (random, seed 0)",
@@ -4051,6 +4278,10 @@ def serve_w4(entries, prompt, new):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     weights_gib = weight_bytes(params) / 2 ** 30
+    graphed = {"q8q4": serve("serve_graph_w4_q8q4", CacheMode.COMPRESSED, params, prompt,
+                             new, step_ms=True)}
+    phase_serve_graph("serve_graph_w4", params, prompt, new, graphed,
+                      "llama-3-8b x32L, W4 (random, seed 0)")
     m, params = cut_depth(LLAMA3_8B, params)
     L = m.num_layers
     steps = new - 1
@@ -5670,7 +5901,8 @@ def main():
     decode_steps = new - 1
     expected = LLAMA3_8B.num_layers * decode_steps
     sparse_toks, launches, fields = serve("serve_q8q4", CacheMode.COMPRESSED,
-                                          params, prompt, new)
+                                          params, prompt, new, step_ms=True)
+    graphed = {"q8q4": (sparse_toks, launches, fields)}
     q8q4_s = fields["seconds"]
     want = {"fused_q_decode_attention": expected, "prune_quant_pack_kv": serve_packs()}
     emit("serve_q8q4", model="llama-3-8b x32L, W8 (random, seed 0)",
@@ -5683,9 +5915,10 @@ def main():
     entries[("q8q4", "pack")]["launches"] = launches["prune_quant_pack_kv"]
     kept = {}          # K and V rows 0-799 of the dense cache, for the archive
     dense_toks, dense_launches, fields = serve(
-        "serve_dense", CacheMode.DENSE, params, prompt, new,
+        "serve_dense", CacheMode.DENSE, params, prompt, new, step_ms=True,
         on_cache=lambda c: kept.update(k=c["k"][:, :, :800].clone(),
                                        v=c["v"][:, :, :800].clone()))
+    graphed["dense"] = (dense_toks, dense_launches, fields)
     if dense_launches:
         raise AssertionError(f"the dense engine launched {dense_launches}")
     # the first token comes from prefill logits, the same in both engines
@@ -5700,7 +5933,8 @@ def main():
     for kind in ARCHIVE_KINDS:
         entries[("archive", kind)]["launches"] = archive_launches[_meta("archive", kind)[0]]
     bitmap_toks, launches, fields = serve("serve_bitmap", CacheMode.COMPRESSED, params,
-                                          prompt, new, codec="bitmap")
+                                          prompt, new, codec="bitmap", step_ms=True)
+    graphed["bitmap"] = (bitmap_toks, launches, fields)
     first_equal = bool((bitmap_toks[:, 0] == dense_toks[:, 0]).all())
     emit("serve_bitmap", decode_steps=decode_steps, expected_launches=expected,
          first_token_equal_dense=first_equal,
@@ -5754,12 +5988,15 @@ def main():
                                  f"tokens equal the dense run's: {first_equal}")
         other[(codec, "decode")]["launches"] = expected
     serve_opa(entries, params, prompt, new, dense_toks)
+    phase_serve_graph("serve_graph", params, prompt, new, graphed,
+                      "llama-3-8b x32L, W8 (random, seed 0)")
     phase_decode_split(params, entries[("q8q4", "decode")]["kernel_ms"], q8q4_s,
                        dense_s, new)
     cb_runs = {}
     cut_model, cut_params = cut_depth(LLAMA3_8B, params)
     for codec in ("q8q4", "bitmap"):
-        cb_launches, cb_runs[codec] = phase_serve_cb(cut_params, codec, model=cut_model)
+        cb_launches, cb_runs[codec] = phase_serve_cb(cut_params, codec, model=cut_model,
+                                                     eager_too=codec == "q8q4")
         for kind in ("decode_ps", "segment"):
             entries[(codec, kind)]["launches"] = cb_launches[_meta(codec, kind)[0]]
     cb_launches, _ = phase_serve_cb(cut_params, "bitmap-q8", model=cut_model,

@@ -20,9 +20,9 @@ State (a dict, the JAX package's layouts, updated in place):
                                              policies' accumulated scores,
                                              a column each window column
   nc_host   int or None                      host copy of n_chunks while the
-                                             batch is uniform, so a uniform
-                                             decode step never reads the
-                                             device to size itself; None
+                                             batch is uniform, which the
+                                             eager loop checks each step and
+                                             compaction indexes by; None
                                              once slots hold their own
                                              counts (``insert_slot``)
 Semantics:
@@ -41,14 +41,20 @@ Semantics:
   * decode: the new token goes into the window; attention covers the pool
     chunks and the window in one online softmax (the codec's kernels on
     the card, their plain versions on the CPU).  ``pos`` is a host int for a
-    uniform batch, or a [B] device tensor with per-slot positions
-    (continuous batching; an idle slot has pos -1 and is neither written
-    nor attended).
+    uniform batch (the eager loop), a 0-d device tensor for a uniform batch
+    (the static step a CUDA graph replays: the window column, the counts and
+    the kernels' inputs all come from device tensors, kernels 1 and 6 read
+    ``n_chunks`` and ``win_len`` on the device), or a [B] device tensor with
+    per-slot positions (continuous batching; an idle slot has pos -1 and is
+    neither written nor attended).
   * compaction is a separate call between decode steps: when a window
     holds r + C tokens the oldest C are pruned and packed into the pool and
     the window shifts (``compact`` for a uniform batch, ``compact_slots``
     for chosen slots), which packs every layer's chunk at once (the quant
-    codecs in one launch).
+    codecs in one launch).  It writes the pool, the windows and the counts
+    in place, so a graph of the decode step, which holds their addresses,
+    replays on after it.  No step, prefill or compaction rebinds a state
+    tensor; ``reset`` zeroes them in place for the next generation.
   * the output-aware (Opa) policies KT_OPA_VT_MAG and KT_MAG_VT_OPA: the
     packed prefix keeps the top entries by the prefill scores of the
     masked cache (``prefill_k_opa_score``, ``prefill_v_opa_score``); each
@@ -156,6 +162,16 @@ class CompressedKVCache:
         for key in self.score_keys:
             state[key] = torch.zeros((L, batch, H, self.wcap, D), dtype=torch.float32,
                                      device=dev)
+        return state
+
+    def reset(self, state: dict) -> dict:
+        """``init``'s state again, in place: every tensor zeroed where it
+        lies (a graph of the decode step holds their addresses), the host
+        count 0."""
+        for key, val in state.items():
+            if torch.is_tensor(val):
+                val.zero_()
+        state["nc_host"] = 0
         return state
 
     # -- packing ----------------------------------------------------------
@@ -281,33 +297,54 @@ class CompressedKVCache:
 
     def decode_attend(self, state, li: int, q, k, v, pos):
         """q [B,1,Hq,D], k/v [B,1,Hkv,D]; appends the token to layer li's
-        window and attends pools + window.  ``pos`` is the host index of the
-        token (uniform batch) or a [B] device tensor of per-slot indices.
-        Compaction is not done here (see ``compact``, ``compact_slots``)."""
-        if torch.is_tensor(pos):
+        window and attends pools + window.  ``pos`` is the index of the
+        token: a host int (uniform batch), a 0-d device tensor (uniform
+        batch, every count on the device: ``_device_window``) or a [B] device
+        tensor of per-slot indices.  The uniform kernels take layer li's
+        device ``n_chunks`` (the batch's first row: the batch moves in
+        lockstep).  Compaction is not done here (see ``compact``,
+        ``compact_slots``)."""
+        if torch.is_tensor(pos) and pos.dim() == 1:
             return self._decode_attend_per_slot(state, li, q, k, v, pos)
         nc = state["nc_host"]
         if nc is None:
             raise ValueError("the slots of this cache hold their own counts: "
                              "decode it with per-slot positions")
-        win_len = pos + 1 - nc * self.C
-        if not 1 <= win_len <= self.wcap:
-            raise ValueError(
-                f"token {pos} leaves a window of {win_len} beside {nc} chunks "
-                f"(capacity {self.wcap}): compact() was not called when due")
-        state["k_win"][li, :, :, win_len - 1] = k[:, 0]
-        state["v_win"][li, :, :, win_len - 1] = v[:, 0]
+        n_chunks = state["n_chunks"][li, :1]
+        if torch.is_tensor(pos):
+            win_len = self._device_window(state, li, k, v, pos, n_chunks)
+        else:
+            win_len = pos + 1 - nc * self.C
+            if not 1 <= win_len <= self.wcap:
+                raise ValueError(
+                    f"token {pos} leaves a window of {win_len} beside {nc} chunks "
+                    f"(capacity {self.wcap}): compact() was not called when due")
+            state["k_win"][li, :, :, win_len - 1] = k[:, 0]
+            state["v_win"][li, :, :, win_len - 1] = v[:, 0]
         pool, scales, kw, vw, lk = self._views(state, li)
         if self.qcodec is None:
-            out = ska.fused_sparse_decode_attention(q, pool, kw, vw, nc, win_len, lk,
+            out = ska.fused_sparse_decode_attention(q, pool, kw, vw, n_chunks, win_len, lk,
                                                     self.kfmt, self.vfmt,
                                                     kv_scales=scales, window=self.window,
                                                     return_win_probs=self.v_opa)
         else:
-            out = qa.fused_q_decode_attention(q, pool, scales, kw, vw, nc, win_len,
+            out = qa.fused_q_decode_attention(q, pool, scales, kw, vw, n_chunks, win_len,
                                               lk, self.qcodec, window=self.window,
                                               return_win_probs=self.v_opa)
         return self._with_scores(state, li, q, out, win_len)
+
+    def _device_window(self, state, li: int, k, v, pos, n_chunks):
+        """The uniform token at the 0-d device position ``pos`` into layer
+        li's window, at column pos - n_chunks * C (clamped into the window:
+        the clamp bites only where a compaction was missed, which the host
+        loop never lets happen); returns its window length, an int32 tensor
+        [1].  Nothing is read on the host."""
+        win_len = (pos + 1 - n_chunks * self.C).to(torch.int32)
+        col = (win_len - 1).clamp(0, self.wcap - 1).long()
+        for key, tok in (("k_win", k), ("v_win", v)):
+            win = state[key][li]                                   # [B, Hkv, W, D]
+            win.index_copy_(2, col, tok.transpose(1, 2).to(win.dtype))
+        return win_len
 
     def _with_scores(self, state, li: int, q, out, win_len):
         """The decode kernel's result ``out`` (with the window probabilities
@@ -322,7 +359,7 @@ class CompressedKVCache:
         if self.v_opa:
             out, p_win = out
         cols = torch.arange(self.wcap, device=q.device)[None, :]
-        wl = win_len[:, None] if torch.is_tensor(win_len) else win_len
+        wl = win_len[:, None] if torch.is_tensor(win_len) else win_len   # [B or 1, 1]
         live = cols < wl
         if self.window is not None:
             live &= cols > wl - 1 - self.window

@@ -6,8 +6,9 @@ State: k / v [L, B, S, Hkv, D], updated in place (and, for the masked
 cache's output-aware methods, the score rings k_score / v_score [L, B, r,
 Hkv, D] f32).  Decode, as in the JAX package, takes one of two routes:
   * by default (``use_pallas`` False, the JAX package's default), plain
-    PyTorch: attention over the cached tokens and the new token as two
-    flash partials, merged, as the JAX package's stacked decode does;
+    PyTorch: attention over the cached tokens (all max_seq_len rows, masked
+    by each row's position) and the new token as two flash partials,
+    merged, as the JAX package's stacked decode does;
   * with ``use_pallas`` (and head_dim a multiple of 128), the new row is
     written first and the post-append cache [0, pos] is attended in one call
     of the dense flash-decode kernel (``ops/kernels/dense_decode.py``): its
@@ -17,8 +18,7 @@ Hkv, D] f32).  Decode, as in the JAX package, takes one of two routes:
 With a sliding window (Mistral, ``ModelConfig.sliding_window``) a token at
 position p attends keys k with p - window < k <= p, in prefill
 (``prefill_attention``, banded past the window) and in decode, on every
-route: the plain one slices or masks the cached rows, the kernel takes
-``window``.
+route: the plain one masks the cached rows, the kernel takes ``window``.
 
 The masked cache keeps the dense layout and zeroes pruned entries in place,
 with the reference's semantics:
@@ -49,7 +49,7 @@ import torch
 from mustafar_tpu_torch.config import EngineConfig, PruneMethod
 from mustafar_tpu_torch.device import resolve_device
 from mustafar_tpu_torch.ops import pruning
-from mustafar_tpu_torch.ops.kernels.dense_decode import first_row, flash_decode_attention
+from mustafar_tpu_torch.ops.kernels.dense_decode import flash_decode_attention
 from mustafar_tpu_torch.ops.attention import (attention_partials, causal_mask,
                                               merge_partials, mha, prefill_attention)
 
@@ -94,35 +94,37 @@ class DenseKVCache:
             state[key][:, slot] = val[:, 0].to(state[key].dtype)
         return state
 
+    def reset(self, state: dict) -> dict:
+        """``init``'s state again, in place: every tensor zeroed where it
+        lies (a graph of the decode step holds their addresses)."""
+        for val in state.values():
+            val.zero_()
+        return state
+
     def decode_attend(self, state, li: int, q, k, v, pos):
         """q [B,1,Hq,D], k/v [B,1,Hkv,D]; the token lands at row ``pos`` (a
         host int, uniform batch) or ``pos[b]`` (a [B] device tensor,
-        per-slot).  Attention over rows [0, pos) and the token itself,
-        merged; with ``use_pallas``, over the post-append rows [0, pos] in
-        one kernel call.  A sliding window keeps rows past pos - window."""
+        per-slot; a 0-d device tensor is the uniform batch's position, taken
+        as every slot's: ``slot_positions``).  Attention over the cache's
+        rows before the token (past pos - window with a sliding window) and
+        the token itself, merged: the plain route attends all max_seq_len
+        rows masked by the position, as the JAX package's static-shape decode
+        does, so a host position and a device one (the compiled decode) give
+        the same bits; with ``use_pallas``, the post-append rows [0, pos] in
+        one kernel call."""
+        pos = slot_positions(pos, q.shape[0])
         if self.use_pallas and self.model.head_dim % 128 == 0:
             return self._decode_attend_kernel(state, li, q, k, v, pos)
-        if torch.is_tensor(pos):
-            return self._decode_attend_per_slot(state, li, q, k, v, pos)
-        if pos < 1:
-            raise ValueError(f"decode needs a prefilled cache, got pos {pos}")
-        k_l, v_l = state["k"][li], state["v"][li]
-        lo = first_row(pos, self.window)
-        parts = []
-        if lo < pos:                         # the cached rows in the window
-            ones = torch.ones((1, pos - lo), dtype=torch.bool, device=q.device)
-            parts.append(attention_partials(q, k_l[:, lo:pos], v_l[:, lo:pos], ones))
-        k_l[:, pos] = k[:, 0]
-        v_l[:, pos] = v[:, 0]
-        parts.append(attention_partials(q, k.to(k_l.dtype), v.to(v_l.dtype),
-                                        torch.ones((1, 1), dtype=torch.bool,
-                                                   device=q.device)))
-        return merge_partials(parts).to(q.dtype)
+        if not torch.is_tensor(pos):
+            if pos < 1:
+                raise ValueError(f"decode needs a prefilled cache, got pos {pos}")
+            pos = torch.full((q.shape[0],), pos, dtype=torch.int64, device=q.device)
+        return self._decode_attend_per_slot(state, li, q, k, v, pos)
 
     def _decode_attend_per_slot(self, state, li: int, q, k, v, pos):
         """Per-slot positions: slot b attends its rows [0, pos[b]) (past
-        pos[b] - window with a sliding window) and its token; an idle slot
-        (pos -1) writes nothing (``_write_rows``)."""
+        pos[b] - window with a sliding window) of all S rows, masked, and its
+        token; an idle slot (pos -1) writes nothing (``_write_rows``)."""
         k_l, v_l = state["k"][li], state["v"][li]
         S = k_l.shape[1]
         dev = q.device
@@ -156,6 +158,15 @@ class DenseKVCache:
         ``use_pallas``."""
         k_l, v_l, kpos = self._append(state, li, k, v, pos)
         return flash_decode_attention(q, k_l, v_l, kpos, window=self.window)
+
+
+def slot_positions(pos, B: int):
+    """A 0-d device position (a uniform batch's, the static decode step's)
+    as the per-slot positions [B] it stands for; a host int or a [B] tensor
+    as it is."""
+    if torch.is_tensor(pos) and pos.dim() == 0:
+        return pos.reshape(1).repeat(B)
+    return pos
 
 
 def _write_rows(k_l, v_l, k, v, pos):
@@ -322,6 +333,7 @@ class MaskedKVCache(DenseKVCache):
         attend the post-append rows in one softmax: ``mha`` with weights
         (plain), or the dense kernel, with its final (m, l) when V is
         scored (``use_pallas``)."""
+        pos = slot_positions(pos, q.shape[0])
         if not self.score_keys:
             out = super().decode_attend(state, li, q, k, v, pos)
             self.decode_prune(state, li, q, None, pos)

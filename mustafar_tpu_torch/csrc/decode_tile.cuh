@@ -9,6 +9,22 @@
 // into padded shared rows (stage_window) and attended by tile_scores and
 // tile_pv.
 //
+// The counts on the device (the TPU kernels' scalar prefetch of n_chunks
+// and win_len): every CTA reads the call's two int32 counts from device
+// memory (read_counts, clamped into [0, mc] and [0, W]), so one launch,
+// and a CUDA graph that holds it, serves every step of a decode.  The grid
+// is sized on the host from mc and W alone (grid_steps): per row, every
+// pool step the pool can hold, then every window tile the window can hold.
+// CTA y of a row takes the row's y-th live step (the pool steps past a
+// sliding window's edge, then the window tiles that hold tokens) and
+// writes its partials at index y; a CTA past the live steps exits at once,
+// having read the two counts and nothing else, and takes no part in the
+// merge: each live CTA counts itself in on the row's counter, and the one
+// that brings it to the row's live steps merges them (finish_row) and
+// resets it.  With nothing to attend (no live step) the row's first CTA
+// writes what the merge of no split gives: the output 0, the window
+// probabilities 0, m = -1e30 and l = 0 (empty_row).
+//
 // Window probabilities (the TPU kernels' return_win_probs, for the Opa
 // policies): each window-tile CTA stores its raw f32 scores into scratch
 // beside the partials (store_win_scores), and the row's last CTA, once it
@@ -42,9 +58,9 @@
 // n_chunks * 256 + win_len - 1, which attends pool column c iff c > low =
 // n_chunks * 256 + win_len - 1 - window.  The TPU runs every chunk with
 // the masked scores at -1e30 (a chunk wholly masked comes first and the
-// next live step's correction exp(-1e30 - m) = 0 wipes it).  Here the grid
-// leaves out the pool steps wholly at or below low (Window::first): no CTA
-// for them and none of their bytes read.  The step that holds low + 1 sets
+// next live step's correction exp(-1e30 - m) = 0 wipes it).  Here the live
+// steps leave out the pool steps wholly at or below low (Window::first):
+// none of their bytes are read.  The step that holds low + 1 sets
 // its masked scores to -1e30 before its softmax step (mask_scores), so
 // every pool step the merge reads has a live column and a real max, and a
 // masked column's p is exp(-1e30 - m) = 0.  The window tiles are never
@@ -251,9 +267,9 @@ __device__ __forceinline__ void fresh_state(Smem<G>& sm, int tid) {
   }
 }
 
-// Writes this CTA's partials as split `sp` of row bh (n_parts splits a
-// row): acc (times the V scale `vscale` [128] bf16, if given) and the
-// step's m and l.
+// Writes this CTA's partials as split `sp` of row bh (the scratch laid
+// out for n_parts splits a row, the grid's): acc (times the V scale
+// `vscale` [128] bf16, if given) and the step's m and l.
 template <int G>
 __device__ __forceinline__ void write_partial(float* __restrict__ part, int bh, int sp,
                                               int n_parts, int BH, const float (&acc)[2][4],
@@ -281,39 +297,40 @@ __device__ __forceinline__ void write_partial(float* __restrict__ part, int bh, 
   }
 }
 
-// The fused merge: after write_partial, each CTA of row bh counts itself
-// in on counters[bh] (one acq_rel atomic a CTA by thread 0, after a block
-// barrier: it releases the CTA's partials at gpu scope and acquires the
-// other CTAs'); the last of the row's n_parts CTAs resets the counter for
-// the next launch and merges the row's partials in split order as
+// The fused merge: after write_partial, each live CTA of row bh counts
+// itself in on counters[bh] (one acq_rel atomic a CTA by thread 0, after a
+// block barrier: it releases the CTA's partials at gpu scope and acquires
+// the other CTAs'); the last of the row's n_live live CTAs (splits 0 ..
+// n_live - 1 of a scratch laid out for n_parts a row) resets the counter
+// for the next launch and merges the row's partials in split order as
 // split_merge::merge_kernel does (M = max m, w = exp(m - M), out = sum w
 // acc / max(sum w l, 1e-30)), so the result is the same bits whichever CTA
 // ends last.  (Merging in a second launch of merge_kernel instead took
 // 2.6 us more for the quant kernel and 1.2 us more for the bitmap one at
 // B=8, 1 chunk + 288 window, and as long at 5 chunks; NVIDIA H100 80GB
 // HBM3, 700.00 W, tools/kernel_ab.py.)  `ws` is shared
-// memory for 2 * n_parts * G floats that the CTA no longer needs.  With
+// memory for 2 * n_live * G floats that the CTA no longer needs.  With
 // `wp.out` the last CTA writes the row's window probabilities too, with
 // `wp.ml` its final (m, l).
 template <int G>
 __device__ __forceinline__ void finish_row(const float* __restrict__ part,
                                            int* __restrict__ counters, void* __restrict__ out,
-                                           int out_f32, int bh, int n_parts, int BH,
-                                           Smem<G>& sm, float* ws, int tid,
+                                           int out_f32, int bh, int n_live, int n_parts,
+                                           int BH, Smem<G>& sm, float* ws, int tid,
                                            const WinProbs& wp) {
   __syncthreads();
   if (tid == 0) {
     int done;
     asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
                  : "=r"(done) : "l"(counters + bh) : "memory");
-    sm.last = done == n_parts - 1;
+    sm.last = done == n_live - 1;
     if (sm.last) counters[bh] = 0;
   }
   __syncthreads();
   if (!sm.last) return;
-  float* w = ws;                    // [n_parts][G]: m, then exp(m - M)
-  float* l = ws + n_parts * G;      // [n_parts][G]
-  for (int i = tid; i < n_parts * G; i += THREADS) {
+  float* w = ws;                    // [n_live][G]: m, then exp(m - M)
+  float* l = ws + n_live * G;       // [n_live][G]
+  for (int i = tid; i < n_live * G; i += THREADS) {
     const float* ml = part + split_merge::ml_at(bh, i / G, G, n_parts, BH) + 2 * (i % G);
     w[i] = __ldcg(ml);
     l[i] = __ldcg(ml + 1);
@@ -321,11 +338,11 @@ __device__ __forceinline__ void finish_row(const float* __restrict__ part,
   __syncthreads();
   if (tid < G) {
     float M = NEG;
-    for (int sp = 0; sp < n_parts; ++sp) M = fmaxf(M, w[sp * G + tid]);
-    for (int sp = 0; sp < n_parts; ++sp) w[sp * G + tid] = expf(w[sp * G + tid] - M);
+    for (int sp = 0; sp < n_live; ++sp) M = fmaxf(M, w[sp * G + tid]);
+    for (int sp = 0; sp < n_live; ++sp) w[sp * G + tid] = expf(w[sp * G + tid] - M);
     if (wp.out != nullptr || wp.ml != nullptr) {   // the final (m, l)
       float L = 0.f;
-      for (int sp = 0; sp < n_parts; ++sp)
+      for (int sp = 0; sp < n_live; ++sp)
         L = __fadd_rn(L, __fmul_rn(l[sp * G + tid], w[sp * G + tid]));
       sm.m[tid] = M;
       sm.l[tid] = fmaxf(L, 1e-30f);
@@ -356,7 +373,7 @@ __device__ __forceinline__ void finish_row(const float* __restrict__ part,
   for (int e = 0; e < PER; ++e) num[e] = den[e] = 0.f;
   const float* acc0 = part + split_merge::acc_at(bh, 0, G, n_parts) + tid;
 #pragma unroll 4
-  for (int sp = 0; sp < n_parts; ++sp) {
+  for (int sp = 0; sp < n_live; ++sp) {
 #pragma unroll
     for (int e = 0; e < PER; ++e) {
       const int g = (tid + THREADS * e) / D;
@@ -384,12 +401,64 @@ struct Window {
   int first;
 };
 
-inline Window window_of(int n_chunks, int win_len, int window, int step) {
+__host__ __device__ inline Window window_of(int n_chunks, int win_len, int window, int step) {
   if (window <= 0) return Window{-1, 0};
   const int low = n_chunks * 256 + win_len - 1 - window;
   const int first = (low + 1 > 0 ? low + 1 : 0) / step;
   const int steps = n_chunks * (256 / step);
   return Window{low, first < steps ? first : steps};
+}
+
+// Splits a row of the grid: every pool step of `step` tokens that
+// max_chunks chunks hold, then every window tile of `wt` tokens that W
+// holds (quant_attention.uniform_grid).
+__host__ __device__ inline int grid_steps(int max_chunks, int W, int wt, int step) {
+  return max_chunks * (256 / step) + (W + wt - 1) / wt;
+}
+
+// A call's counts as every CTA reads them: n_chunks and win_len from
+// device memory, clamped into [0, max_chunks] and [0, W]; the sliding
+// window's edge at them; the live pool steps (those past the edge) and
+// the live steps in all, window tiles with tokens included.
+struct Counts {
+  int n_chunks;
+  int win_len;
+  Window wn;
+  int pool_steps;
+  int n_live;
+};
+
+__device__ __forceinline__ Counts read_counts(const int* __restrict__ n_chunks,
+                                              const int* __restrict__ win_len, int max_chunks,
+                                              int W, int wt, int window, int step) {
+  Counts c;
+  c.n_chunks = min(max(*n_chunks, 0), max_chunks);
+  c.win_len = min(max(*win_len, 0), W);
+  c.wn = window_of(c.n_chunks, c.win_len, window, step);
+  c.pool_steps = c.n_chunks * (256 / step) - c.wn.first;
+  c.n_live = c.pool_steps + (c.win_len + wt - 1) / wt;
+  return c;
+}
+
+// A row with nothing to attend: what the merge of no split gives, written
+// by the row's first CTA (the others exit unread): the output 0, the
+// window probabilities 0 and the final (m, l) = (-1e30, 0).
+template <int G>
+__device__ __forceinline__ void empty_row(void* __restrict__ out, int out_f32, int bh, int BH,
+                                          const WinProbs& wp, int tid) {
+  for (int i = tid; i < G * D; i += THREADS) {
+    const size_t at = (size_t)bh * G * D + i;
+    if (out_f32)
+      static_cast<float*>(out)[at] = 0.f;
+    else
+      static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16(0.f);
+  }
+  if (wp.out != nullptr)
+    for (int c = tid; c < wp.W; c += THREADS) wp.out[(size_t)bh * wp.W + c] = 0.f;
+  if (wp.ml != nullptr && tid < G) {
+    wp.ml[(size_t)bh * G + tid] = NEG;
+    wp.ml[(size_t)BH * G + (size_t)bh * G + tid] = 0.f;
+  }
 }
 
 // The scores of a pool step's columns at or below `low` (its first low + 1
@@ -401,26 +470,28 @@ __device__ __forceinline__ void mask_scores(Smem<G>& sm, int c0, int low, int ti
   for (int i = tid; i < G * n; i += THREADS) sm.s[i / n][i % n] = NEG;
 }
 
-// The checks both entries share: counts in range, at least one split, the
-// scratch (with the window scores' room when `probs`) and the counters long
-// enough.  n_parts is the row's splits.
-inline bool args_ok(int BH, int G, int max_chunks, int W, int wt, int n_chunks, int win_len,
-                    int li, int n_parts, const void* scratch, long long scratch_floats,
+// The checks both entries share: the count pointers given, a grid of at
+// most split_merge::MAX_SPLITS splits a row, the scratch (with the window
+// scores' room when `probs`) and the counters long enough.  n_parts is the
+// grid's splits a row (grid_steps); the counts themselves are read and
+// clamped on the device.
+inline bool args_ok(int BH, int G, int W, int wt, int li, int n_parts, const void* n_chunks,
+                    const void* win_len, const void* scratch, long long scratch_floats,
                     const void* counters, int n_counters, const void* probs) {
   const size_t need = split_merge::scratch_floats(BH, G, n_parts) +
                       (probs != nullptr ? (size_t)BH * G * W : 0);
-  return BH >= 1 && G >= 1 && wt >= 1 && wt <= MAX_WT && li >= 0 && n_chunks >= 0 &&
-         n_chunks <= max_chunks && win_len >= 0 && win_len <= W && n_parts >= 1 &&
-         n_parts <= split_merge::MAX_SPLITS && scratch != nullptr && scratch_floats >= 0 &&
+  return BH >= 1 && G >= 1 && W >= 0 && wt >= 1 && wt <= MAX_WT && li >= 0 &&
+         n_parts >= 1 && n_parts <= split_merge::MAX_SPLITS && n_chunks != nullptr &&
+         win_len != nullptr && scratch != nullptr && scratch_floats >= 0 &&
          (size_t)scratch_floats >= need && counters != nullptr && n_counters >= BH;
 }
 
 // The WinProbs of a launch: `probs` (null: off) and the scores' scratch,
-// and `ml` (null: off).
+// and `ml` (null: off); the kernel sets win_len from the counts it reads.
 inline WinProbs win_probs(void* probs, void* ml, float* part, int BH, int G, int n_parts,
-                          int W, int win_len) {
+                          int W) {
   return WinProbs{static_cast<float*>(probs),
-                  part + split_merge::scratch_floats(BH, G, n_parts), W, win_len,
+                  part + split_merge::scratch_floats(BH, G, n_parts), W, 0,
                   static_cast<float*>(ml)};
 }
 

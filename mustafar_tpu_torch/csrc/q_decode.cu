@@ -8,8 +8,8 @@
 // one layer `li` of the stacked cache and each (batch row b, kv head h) it
 // attends the G = Hq / Hkv query heads of that kv head over
 //   1. `n_chunks` packed pool chunks of 256 tokens (with a sliding window
-//      only the columns past its edge: the chunks wholly below it take no
-//      CTA), K, then V, as codes of
+//      only the columns past its edge: the chunks wholly below it are not
+//      read), K, then V, as codes of
 //      `kbits` / `vbits` bits, 16/bits tokens per int16 row (at 8 bits
 //      token t in the low byte of row t and token t+128 in the high byte;
 //      at 4 bits token t + 64 j in nibble j), each with a bf16 scale per
@@ -25,6 +25,10 @@
 // steps' partials are merged in step order, so p is rounded at its own
 // step's max: the arithmetic of the per-slot kernel (q_decode_ps.cu) with
 // every slot at the call's counts, fused_q_decode_attention_split_plain.
+// n_chunks and win_len are int32 scalars in device memory, read by every
+// CTA (decode_tile.cuh read_counts), as the TPU kernel takes them by
+// scalar prefetch: a CUDA graph of the decode step replays this launch at
+// every position.
 //
 // What bounds it on this card: bytes.  Per layer it must read
 //   B*Hkv*(n_chunks*(ROWS*128*2 + 512) + 2*win_len*128*2) bytes (+ q, out),
@@ -39,10 +43,12 @@
 // row, head, field) and its values 2-byte loads from device memory.  It
 // took 0.0548 ms at q8q4 (q8 0.0541, q4q4 0.0514) at B=8, 1 chunk + 288
 // window, G=4 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6).  Now:
-//   - the grid is exact, sized on the host from the call's counts:
-//     (n_chunks + ceil(win_len / wt)) steps x B*Hkv rows, one CTA of 8
-//     warps a step (256 CTAs at that shape), built for three CTAs an SM
-//     (two at G = 8);
+//   - one CTA of 8 warps a step, built for three CTAs an SM (two at G =
+//     8): B*Hkv rows x (mc + ceil(W / wt)) steps, the grid sized from the
+//     pool's and the window's capacity; CTA y of a row takes the row's
+//     y-th live step (n_chunks + ceil(win_len / wt) of them: 256 live CTAs
+//     at that shape), the others read the counts and exit
+//     (decode_tile.cuh);
 //   - a CTA copies its step's bytes into shared memory first, 16 bytes a
 //     thread with cp.async, every copy in flight before the first
 //     product: a chunk's int16 rows with 16 bytes of padding a row, or a
@@ -112,11 +118,13 @@ q_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                  const __nv_bfloat16* __restrict__ scales, // [L, mc, BH, 2, D]
                  const __nv_bfloat16* __restrict__ k_win,  // [L, BH, W, D]
                  const __nv_bfloat16* __restrict__ v_win,  // [L, BH, W, D]
+                 const int* __restrict__ nc_in,            // n_chunks, one int32
+                 const int* __restrict__ wl_in,            // win_len, one int32
                  void* __restrict__ out,                   // [B*Hkv, G, D]
                  float* __restrict__ part,                 // split_merge layout
                  int* __restrict__ counters,               // [BH], zero between launches
-                 int out_f32, int BH, int max_chunks, int W, int wt, int n_chunks,
-                 int win_len, int li, int n_parts, WinProbs wp, Window wn) {
+                 int out_f32, int BH, int max_chunks, int W, int wt, int li, int n_parts,
+                 int window, WinProbs wp) {
   constexpr int KF = Stream<KB>::FIELDS;
   constexpr int K_ROWS = Stream<KB>::ROWS;
   constexpr int V_ROWS = Stream<VB>::ROWS;
@@ -125,10 +133,16 @@ q_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<G>& sm = *reinterpret_cast<Smem<G>*>(smem_raw);
   unsigned char* region = smem_raw + sizeof(Smem<G>);
-  const int sp = blockIdx.x;      // the step: a chunk past the window's edge, then a tile
-  const int bh = blockIdx.y;
-  const int n_live = n_chunks - wn.first;   // the chunk steps of the grid
+  const int bh = blockIdx.x;
+  const int sp = blockIdx.y;      // the live step: a chunk past the window's edge, then a tile
   const int tid = threadIdx.x;
+  const Counts c = read_counts(nc_in, wl_in, max_chunks, W, wt, window, CHUNK);
+  wp.win_len = c.win_len;
+  if (sp >= c.n_live) {           // past the live steps: nothing read, no merge
+    if (sp == 0) empty_row<G>(out, out_f32, bh, BH, wp, tid);
+    return;
+  }
+  const Window wn = c.wn;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -138,7 +152,7 @@ q_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   const __nv_bfloat16* vscale = nullptr;
   auto p = [&](int t) { return gid < G ? sm.s[gid][t] : 0.f; };
 
-  if (sp < n_live) {
+  if (sp < c.pool_steps) {
     const int ci = wn.first + sp;
     const size_t slot = ((size_t)li * max_chunks + ci) * BH + bh;
     const int16_t* rows = pool + slot * ROWS * D;
@@ -225,8 +239,8 @@ q_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
       }
     }
   } else {
-    const int w0 = (sp - n_live) * wt;
-    const int n = min(wt, win_len - w0);
+    const int w0 = (sp - c.pool_steps) * wt;
+    const int n = min(wt, c.win_len - w0);
     __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(region);
     __nv_bfloat16* vt = kt + round8(wt) * LD;
     const size_t at = ((size_t)li * BH + bh) * W * D + (size_t)w0 * D;
@@ -244,19 +258,18 @@ q_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     tile_pv<G>(acc, sm, vt, n, warp, lane);
   }
   write_partial<G>(part, bh, sp, n_parts, BH, acc, vscale, sm, warp, lane, tid);
-  finish_row<G>(part, counters, out, out_f32, bh, n_parts, BH, sm,
+  finish_row<G>(part, counters, out, out_f32, bh, c.n_live, n_parts, BH, sm,
                 reinterpret_cast<float*>(region), tid, wp);
 }
 
 struct Args {
-  const void *q, *pool, *scales, *k_win, *v_win;
+  const void *q, *pool, *scales, *k_win, *v_win, *n_chunks, *win_len;
   void* out;
   float* part;
   int* counters;
-  int out_f32, BH, max_chunks, W, wt, n_chunks, win_len, li, n_parts;
+  int out_f32, BH, max_chunks, W, wt, li, n_parts, window;
   void* probs;
   void* ml;
-  Window wn;
 };
 
 template <int G, int KB, int VB>
@@ -266,12 +279,13 @@ int launch(const Args& a, int device, cudaStream_t s) {
   const int bytes = (int)sizeof(Smem<G>) + region;
   cudaError_t err = smem::allow_dynamic_smem<q_uniform_kernel<G, KB, VB>>(bytes, device);
   if (err != cudaSuccess) return (int)err;
-  q_uniform_kernel<G, KB, VB><<<dim3(a.n_parts, a.BH), THREADS, bytes, s>>>(
+  q_uniform_kernel<G, KB, VB><<<dim3(a.BH, a.n_parts), THREADS, bytes, s>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const int16_t*>(a.pool),
       static_cast<const __nv_bfloat16*>(a.scales), static_cast<const __nv_bfloat16*>(a.k_win),
-      static_cast<const __nv_bfloat16*>(a.v_win), a.out, a.part, a.counters, a.out_f32, a.BH,
-      a.max_chunks, a.W, a.wt, a.n_chunks, a.win_len, a.li, a.n_parts,
-      win_probs(a.probs, a.ml, a.part, a.BH, G, a.n_parts, a.W, a.win_len), a.wn);
+      static_cast<const __nv_bfloat16*>(a.v_win), static_cast<const int*>(a.n_chunks),
+      static_cast<const int*>(a.win_len), a.out, a.part, a.counters, a.out_f32, a.BH,
+      a.max_chunks, a.W, a.wt, a.li, a.n_parts, a.window,
+      win_probs(a.probs, a.ml, a.part, a.BH, G, a.n_parts, a.W));
   return (int)cudaGetLastError();
 }
 
@@ -291,38 +305,38 @@ int launch_groups(int G, const Args& a, int device, cudaStream_t s) {
 // q [B, 1, Hkv*G, 128] bf16; pool [L, mc, B*Hkv, ROWS, 128] int16 (ROWS
 // = 256 * (kbits + vbits) / 16; (kbits, vbits) one of (8, 8), (8, 4), (4, 4));
 // scales [L, mc, B*Hkv, 2, 128] bf16; k_win / v_win [L, B*Hkv, W, 128] bf16;
-// out [B, 1, Hkv*G, 128] f32 if `out_f32`, else bf16.  All contiguous;
-// shapes checked by the caller.  `device` is the ordinal the tensors and the
-// stream belong to; `wt` the window tokens per softmax step (1..256).
-// There must be something to attend (n_chunks + win_len > 0).  Scratch:
-// f32, `scratch_floats` of them, refused if fewer than
-// split_merge::scratch_floats(BH, G, n_chunks + ceil(win_len / wt)); int32
+// n_chunks, win_len one int32 each in device memory, read by the kernel
+// and clamped into [0, max_chunks] and [0, W]; out [B, 1, Hkv*G, 128] f32
+// if `out_f32`, else bf16.  All contiguous; shapes checked by the caller.
+// `device` is the ordinal the tensors and the stream belong to; `wt` the
+// window tokens per softmax step (1..256).  The grid takes max_chunks +
+// ceil(W / wt) steps a row (decode_tile.cuh grid_steps), the live ones at
+// the counts attended; nothing to attend writes 0 (m -1e30, l 0).
+// Scratch: f32, `scratch_floats` of them, refused if fewer than
+// split_merge::scratch_floats(BH, G, max_chunks + ceil(W / wt)); int32
 // counters, `n_counters` of them, at least BH, zero before the launch and
 // left so.  `probs` null, or f32 [B*Hkv, W] for the window probabilities;
 // the scratch then holds B*Hkv*G*W floats more, for the window scores.
 // `ml` null, or f32 [2][B*Hkv*G] for the final (m, l).  `window` the
-// sliding window (0: none); the chunks wholly at or below its edge are left
-// out of the grid (decode_tile.cuh Window), so n_parts counts n_chunks -
-// Window::first chunk steps.
+// sliding window (0: none); the chunks wholly at or below its edge are not
+// live steps (decode_tile.cuh Window).
 extern "C" int q_decode_attention(const void* q, const void* pool, const void* scales,
-                                  const void* k_win, const void* v_win, void* out,
-                                  void* probs, void* ml, void* scratch, void* counters,
-                                  int scratch_floats,
+                                  const void* k_win, const void* v_win, const void* n_chunks,
+                                  const void* win_len, void* out, void* probs, void* ml,
+                                  void* scratch, void* counters, int scratch_floats,
                                   int n_counters, int out_f32, int device, int kbits,
                                   int vbits, int BH, int G, int max_chunks, int W, int wt,
-                                  int n_chunks, int win_len, int li, int window,
-                                  void* stream) {
-  if (wt < 1 || window < 0) return (int)cudaErrorInvalidValue;
-  const Window wn = window_of(n_chunks, win_len, window, CHUNK);
-  const int n_parts = n_chunks - wn.first + (win_len + wt - 1) / wt;
-  if (!args_ok(BH, G, max_chunks, W, wt, n_chunks, win_len, li, n_parts, scratch,
-               scratch_floats, counters, n_counters, probs))
+                                  int li, int window, void* stream) {
+  if (wt < 1 || window < 0 || max_chunks < 0) return (int)cudaErrorInvalidValue;
+  const int n_parts = grid_steps(max_chunks, W, wt, CHUNK);
+  if (!args_ok(BH, G, W, wt, li, n_parts, n_chunks, win_len, scratch, scratch_floats,
+               counters, n_counters, probs))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  const Args a{q, pool, scales, k_win, v_win, out, static_cast<float*>(scratch),
-               static_cast<int*>(counters), out_f32, BH, max_chunks, W, wt, n_chunks,
-               win_len, li, n_parts, probs, ml, wn};
+  const Args a{q, pool, scales, k_win, v_win, n_chunks, win_len, out,
+               static_cast<float*>(scratch), static_cast<int*>(counters), out_f32, BH,
+               max_chunks, W, wt, li, n_parts, window, probs, ml};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kbits == 8 && vbits == 8) return launch_groups<8, 8>(G, a, device, s);
   if (kbits == 8 && vbits == 4) return launch_groups<8, 4>(G, a, device, s);

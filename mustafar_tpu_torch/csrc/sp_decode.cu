@@ -7,8 +7,11 @@
 // (Pallas body _fused_v7_kernel) for the codecs bitmap (bf16 values, 16
 // bits) and bitmap-q8 (int8 codes, 8 bits), with its window probabilities
 // (return_win_probs), final (m, l) (return_norm) and sliding window
-// (window: the runs of 64 tokens wholly below its edge take no CTA), all
-// decode_tile.cuh.  For one layer `li` of
+// (window: the runs of 64 tokens wholly below its edge are not read), all
+// decode_tile.cuh.  n_chunks and win_len are int32 scalars in device
+// memory, read by every CTA (decode_tile.cuh read_counts), as the TPU
+// kernel takes them by scalar prefetch, so a CUDA graph of the decode step
+// replays the launch at every position.  For one layer `li` of
 // the stacked cache and each (batch row b, kv head h) it attends the
 // G = Hq / Hkv query heads of that kv head over
 //   1. `n_chunks` packed pool chunks of 256 tokens, each a K stream then a
@@ -43,10 +46,12 @@
 // took 0.0713 ms at 16 bits and 0.0733 at 8 at B=8, 1 chunk + 288 window,
 // G=4 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6); the per-slot kernel's
 // one-chunk blocks, the same work, took ~0.055 ms each.  Now:
-//   - the grid is exact, sized on the host from the call's counts:
-//     (n_chunks * CUT + ceil(win_len / wt)) steps x B*Hkv rows, one CTA of
-//     8 warps a step (448 CTAs at that shape), built for three CTAs an SM
-//     (two at G = 8), so a chunk's expansion is spread over four CTAs;
+//   - one CTA of 8 warps a step, built for three CTAs an SM (two at G =
+//     8), so a chunk's expansion is spread over four CTAs: B*Hkv rows x
+//     (mc * CUT + ceil(W / wt)) steps, the grid sized from the pool's and
+//     the window's capacity; CTA y of a row takes the row's y-th live step
+//     (n_chunks * CUT + ceil(win_len / wt) of them: 448 live CTAs at that
+//     shape), the others read the counts and exit (decode_tile.cuh);
 //   - a chunk CTA copies only what its 64 tokens need into shared memory,
 //     16 bytes a thread with cp.async, every copy in flight before the
 //     first expansion: the 16 word planes of each stream and, of each
@@ -250,19 +255,26 @@ sp_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
                   const __nv_bfloat16* __restrict__ scales, // [L, mc, BH, 2, D] (8 bits)
                   const __nv_bfloat16* __restrict__ k_win,  // [L, BH, W, D]
                   const __nv_bfloat16* __restrict__ v_win,  // [L, BH, W, D]
+                  const int* __restrict__ nc_in,            // n_chunks, one int32
+                  const int* __restrict__ wl_in,            // win_len, one int32
                   void* __restrict__ out,                   // [B*Hkv, G, D]
                   float* __restrict__ part,                 // split_merge layout
                   int* __restrict__ counters,               // [BH], zero between launches
-                  int out_f32, int BH, int max_chunks, int W, int wt, int n_chunks,
-                  int win_len, int li, Fmt<QBITS> kf, Fmt<QBITS> vf, int n_parts,
-                  WinProbs wp, Window wn) {
+                  int out_f32, int BH, int max_chunks, int W, int wt, int li,
+                  Fmt<QBITS> kf, Fmt<QBITS> vf, int n_parts, int window, WinProbs wp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<G>& sm = *reinterpret_cast<Smem<G>*>(smem_raw);
   unsigned char* region = smem_raw + sizeof(Smem<G>);
-  const int sp = blockIdx.x;      // the step: a chunk's run of tokens past the window's
-  const int bh = blockIdx.y;      // edge, then a window tile
-  const int n_live = n_chunks * CUT - wn.first;   // the pool steps of the grid
-  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int sp = blockIdx.y;      // the live step: a chunk's run of tokens past the
+  const int tid = threadIdx.x;    // window's edge, then a window tile
+  const Counts c = read_counts(nc_in, wl_in, max_chunks, W, wt, window, STEP);
+  wp.win_len = c.win_len;
+  if (sp >= c.n_live) {           // past the live steps: nothing read, no merge
+    if (sp == 0) empty_row<G>(out, out_f32, bh, BH, wp, tid);
+    return;
+  }
+  const Window wn = c.wn;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const __nv_bfloat16* q_row = q + (size_t)bh * G * D;
@@ -271,7 +283,7 @@ sp_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
   const __nv_bfloat16* vscale = nullptr;
   __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(region);
 
-  if (sp < n_live) {
+  if (sp < c.pool_steps) {
     const int ci = (wn.first + sp) / CUT;
     const int t0 = ((wn.first + sp) % CUT) * STEP;
     const size_t slot = ((size_t)li * max_chunks + ci) * BH + bh;
@@ -298,8 +310,8 @@ sp_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     online_softmax::softmax_step<G>(sm, STEP, warp, lane);
     tile_pv<G>(acc, sm, vt, STEP, warp, lane);
   } else {
-    const int w0 = (sp - n_live) * wt;
-    const int n = min(wt, win_len - w0);
+    const int w0 = (sp - c.pool_steps) * wt;
+    const int n = min(wt, c.win_len - w0);
     __nv_bfloat16* vt = kt + round8(wt) * LD;
     const size_t at = ((size_t)li * BH + bh) * W * D + (size_t)w0 * D;
     stage_window(kt, vt, k_win + at, v_win + at, n, tid);
@@ -316,19 +328,18 @@ sp_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     tile_pv<G>(acc, sm, vt, n, warp, lane);
   }
   write_partial<G>(part, bh, sp, n_parts, BH, acc, vscale, sm, warp, lane, tid);
-  finish_row<G>(part, counters, out, out_f32, bh, n_parts, BH, sm,
+  finish_row<G>(part, counters, out, out_f32, bh, c.n_live, n_parts, BH, sm,
                 reinterpret_cast<float*>(region), tid, wp);
 }
 
 struct Args {
-  const void *q, *pool, *scales, *k_win, *v_win;
+  const void *q, *pool, *scales, *k_win, *v_win, *n_chunks, *win_len;
   void* out;
   float* part;
   int* counters;
-  int out_f32, BH, max_chunks, W, wt, n_chunks, win_len, li, n_parts;
+  int out_f32, BH, max_chunks, W, wt, li, n_parts, window;
   void* probs;
   void* ml;
-  Window wn;
 };
 
 template <int G, int QBITS>
@@ -339,12 +350,13 @@ int launch(const Args& a, const Fmt<QBITS>& kf, const Fmt<QBITS>& vf, int device
   const int bytes = (int)sizeof(Smem<G>) + region;
   cudaError_t err = smem::allow_dynamic_smem<sp_uniform_kernel<G, QBITS>>(bytes, device);
   if (err != cudaSuccess) return (int)err;
-  sp_uniform_kernel<G, QBITS><<<dim3(a.n_parts, a.BH), THREADS, bytes, s>>>(
+  sp_uniform_kernel<G, QBITS><<<dim3(a.BH, a.n_parts), THREADS, bytes, s>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const int16_t*>(a.pool),
       static_cast<const __nv_bfloat16*>(a.scales), static_cast<const __nv_bfloat16*>(a.k_win),
-      static_cast<const __nv_bfloat16*>(a.v_win), a.out, a.part, a.counters, a.out_f32, a.BH,
-      a.max_chunks, a.W, a.wt, a.n_chunks, a.win_len, a.li, kf, vf, a.n_parts,
-      win_probs(a.probs, a.ml, a.part, a.BH, G, a.n_parts, a.W, a.win_len), a.wn);
+      static_cast<const __nv_bfloat16*>(a.v_win), static_cast<const int*>(a.n_chunks),
+      static_cast<const int*>(a.win_len), a.out, a.part, a.counters, a.out_f32, a.BH,
+      a.max_chunks, a.W, a.wt, a.li, kf, vf, a.n_parts, a.window,
+      win_probs(a.probs, a.ml, a.part, a.BH, G, a.n_parts, a.W));
   return (int)cudaGetLastError();
 }
 
@@ -368,39 +380,41 @@ int launch_width(int G, const Args& a, int k0, int k1, int vk0, int vk1, int dev
 
 // q [B, 1, Hkv*G, 128] bf16; pool [L, mc, B*Hkv, KR+VR, 128] int16; scales
 // [L, mc, B*Hkv, 2, 128] bf16 at `qbits` 8, null at 16; k_win / v_win
-// [L, B*Hkv, W, 128] bf16; out [B, 1, Hkv*G, 128] f32 if `out_f32`, else
-// bf16.  All contiguous; shapes checked by the caller.  `device` is the
-// ordinal the tensors and the stream belong to; `wt` the window tokens per
-// softmax step (1..256); (k0, k1) and (vk0, vk1) the K and V streams'
-// segment widths (k1 = 0: one segment).  There must be something to
-// attend (n_chunks + win_len > 0).  Scratch: f32, `scratch_floats` of
-// them, refused if fewer than split_merge::scratch_floats(BH, G, n_chunks
-// * 4 + ceil(win_len / wt)); int32 counters, `n_counters` of them, at
-// least BH, zero before the launch and left so.  `probs` null, or f32
-// [B*Hkv, W] for the window probabilities (decode_tile.cuh); the scratch
-// then holds B*Hkv*G*W floats more, for the window scores.  `ml` null, or
-// f32 [2][B*Hkv*G] for the final (m, l).  `window` the sliding window (0:
-// none); the runs of 64 tokens wholly at or below its edge are left out of
-// the grid (decode_tile.cuh Window), so n_parts counts n_chunks * 4 -
-// Window::first pool steps.
+// [L, B*Hkv, W, 128] bf16; n_chunks, win_len one int32 each in device
+// memory, read by the kernel and clamped into [0, max_chunks] and [0, W];
+// out [B, 1, Hkv*G, 128] f32 if `out_f32`, else bf16.  All contiguous;
+// shapes checked by the caller.  `device` is the ordinal the tensors and
+// the stream belong to; `wt` the window tokens per softmax step (1..256);
+// (k0, k1) and (vk0, vk1) the K and V streams' segment widths (k1 = 0: one
+// segment).  The grid takes max_chunks * 4 + ceil(W / wt) steps a row
+// (decode_tile.cuh grid_steps), the live ones at the counts attended;
+// nothing to attend writes 0 (m -1e30, l 0).  Scratch: f32,
+// `scratch_floats` of them, refused if fewer than
+// split_merge::scratch_floats(BH, G, max_chunks * 4 + ceil(W / wt)); int32
+// counters, `n_counters` of them, at least BH, zero before the launch and
+// left so.  `probs` null, or f32 [B*Hkv, W] for the window probabilities
+// (decode_tile.cuh); the scratch then holds B*Hkv*G*W floats more, for the
+// window scores.  `ml` null, or f32 [2][B*Hkv*G] for the final (m, l).
+// `window` the sliding window (0: none); the runs of 64 tokens wholly at
+// or below its edge are not live steps (decode_tile.cuh Window).
 extern "C" int sp_decode(const void* q, const void* pool, const void* scales,
-                         const void* k_win, const void* v_win, void* out, void* probs,
-                         void* ml, void* scratch, void* counters, int scratch_floats,
-                         int n_counters, int out_f32, int device, int qbits, int BH, int G,
-                         int max_chunks, int W, int wt, int n_chunks, int win_len, int li,
-                         int window, int k0, int k1, int vk0, int vk1, void* stream) {
-  if (wt < 1 || window < 0 || (qbits == 8) != (scales != nullptr))
+                         const void* k_win, const void* v_win, const void* n_chunks,
+                         const void* win_len, void* out, void* probs, void* ml,
+                         void* scratch, void* counters, int scratch_floats, int n_counters,
+                         int out_f32, int device, int qbits, int BH, int G, int max_chunks,
+                         int W, int wt, int li, int window, int k0, int k1, int vk0, int vk1,
+                         void* stream) {
+  if (wt < 1 || window < 0 || max_chunks < 0 || (qbits == 8) != (scales != nullptr))
     return (int)cudaErrorInvalidValue;
-  const Window wn = window_of(n_chunks, win_len, window, STEP);
-  const int n_parts = n_chunks * CUT - wn.first + (win_len + wt - 1) / wt;
-  if (!args_ok(BH, G, max_chunks, W, wt, n_chunks, win_len, li, n_parts, scratch,
-               scratch_floats, counters, n_counters, probs))
+  const int n_parts = grid_steps(max_chunks, W, wt, STEP);
+  if (!args_ok(BH, G, W, wt, li, n_parts, n_chunks, win_len, scratch, scratch_floats,
+               counters, n_counters, probs))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  const Args a{q, pool, scales, k_win, v_win, out, static_cast<float*>(scratch),
-               static_cast<int*>(counters), out_f32, BH, max_chunks, W, wt, n_chunks,
-               win_len, li, n_parts, probs, ml, wn};
+  const Args a{q, pool, scales, k_win, v_win, n_chunks, win_len, out,
+               static_cast<float*>(scratch), static_cast<int*>(counters), out_f32, BH,
+               max_chunks, W, wt, li, n_parts, window, probs, ml};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (qbits == 16) return launch_width<16>(G, a, k0, k1, vk0, vk1, device, s);
   if (qbits == 8) return launch_width<8>(G, a, k0, k1, vk0, vk1, device, s);

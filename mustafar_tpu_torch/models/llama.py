@@ -280,11 +280,14 @@ def prefill_chunked(cfg: ModelConfig, params, tokens, cache, cache_impl,
 
 
 def decode_step(cfg: ModelConfig, params, token, cache, cache_impl, pos, tp=None):
-    """token [B, 1]; pos the host int index of this token (uniform batch) or
-    a [B] device tensor of per-slot indices (continuous batching: RoPE then
-    rotates each row at its own position)."""
+    """token [B, 1]; pos the index of this token: a host int (uniform batch,
+    the eager loop), a 0-d int64 device tensor (uniform batch, the static
+    step: the position and every count the caches and kernels take are read
+    on the device, so one CUDA graph of the step replays at every position)
+    or a [B] device tensor of per-slot indices (continuous batching: RoPE
+    then rotates each row at its own position)."""
     if torch.is_tensor(pos):
-        positions = pos[:, None]
+        positions = pos.reshape(1) if pos.dim() == 0 else pos[:, None]
     else:
         positions = torch.full((1,), pos, dtype=torch.int64, device=token.device)
     return forward(cfg, params, token, cache, cache_impl, positions, "decode", pos, tp=tp)

@@ -32,8 +32,8 @@ counts).  The dense window's columns are never masked: the cache keeps the
 window at least its capacity.  The TPU runs every chunk and masks scores
 to -1e30 (``decode_steps``: a chunk wholly masked is wiped by the next live
 step's correction exp(-1e30 - m) = 0).  The CUDA kernels leave out the
-steps wholly at or below low: the uniform kernel's grid has no CTA for
-them (``uniform_splits``), a per-slot split below its slot's edge exits
+steps wholly at or below low: they are not among the uniform kernel's live
+steps (``uniform_splits``), a per-slot split below its slot's edge exits
 before it reads anything and the merge skips it; only the columns of the
 step that holds the edge are masked.  Their split plain versions take the
 same steps.  A segment (chunked prefill) query row of token t sits at
@@ -51,6 +51,14 @@ Layouts are the JAX package's stacked ones, indexed at layer ``li``:
   k_win/v_win [L, B*Hkv, W, 128]          bf16
 The cache keeps [L, mc, B, Hkv, ...] and [L, B, Hkv, W, D]; both flatten to
 these views for free.
+
+The uniform decode takes its counts (``n_chunks``, ``win_len``) as the TPU
+kernel takes them by scalar prefetch: int32 scalars in device memory (a
+host int is put there first), read by the kernel, whose grid is sized from
+the pool's and the window's capacity alone (``uniform_grid``).  So the
+decode step that calls it holds no host value, and a CUDA graph of the step
+replays at every position; the CPU's plain versions read the counts from
+the tensors they are given.
 """
 
 from __future__ import annotations
@@ -440,20 +448,22 @@ def _q_chunk_step(kv_pool, kv_scales, li, codec, ordered: bool = False):
 
 
 def fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
-                                   n_chunks: int, win_len: int, li: int,
+                                   n_chunks, win_len, li: int,
                                    codec: qf.QuantCodec, win_probs: bool = False,
                                    norm: bool = False, window=None):
     """The uniform decode TPU kernel's arithmetic in PyTorch (``decode_steps``
-    with the codec's chunk step)."""
-    return decode_steps(q, kv_pool.shape[2], n_chunks,
+    with the codec's chunk step), at counts given as the kernel takes them
+    (one-element tensors) or as host ints (``host_count``)."""
+    return decode_steps(q, kv_pool.shape[2], host_count(n_chunks, kv_pool.shape[1]),
                         _q_chunk_step(kv_pool, kv_scales, li, codec), k_win, v_win,
-                        win_len, li, win_probs, norm, window)
+                        host_count(win_len, k_win.shape[2]), li, win_probs, norm, window)
 
 
 def uniform_splits(n_chunks: int, win_len: int, W: int, cut: int = 1, window=None):
-    """The splits a row of a uniform decode kernel's grid takes, sized from
-    the call's counts: (chunk splits, window splits) = (n_chunks * cut less
-    the runs wholly below a sliding window's edge (``masked_steps``),
+    """The live splits of a row of a uniform decode kernel at the call's
+    counts, as its CTAs count them on the device (``csrc/decode_tile.cuh``
+    read_counts): (chunk splits, window splits) = (n_chunks * cut less the
+    runs wholly below a sliding window's edge (``masked_steps``),
     ceil(win_len / window_tile(W))).  Every split has tokens: a chunk's
     runs of 256 / cut, a window tile at least one; every chunk split has a
     live column."""
@@ -461,31 +471,59 @@ def uniform_splits(n_chunks: int, win_len: int, W: int, cut: int = 1, window=Non
             -(-win_len // window_tile(W)) if win_len else 0)
 
 
-def win_probs_out(q, BH: int, W: int, want: bool, n_splits: int):
+def uniform_grid(mc: int, W: int, cut: int = 1) -> int:
+    """Splits a row of a uniform decode kernel's grid, sized from the
+    pool's and the window's capacity: every run of 256 / cut tokens of the
+    mc chunks, then every window tile of W (``csrc/decode_tile.cuh``
+    grid_steps).  The CTAs past a call's live splits (``uniform_splits``)
+    exit unread."""
+    return mc * cut + (-(-W // window_tile(W)) if W else 0)
+
+
+def win_probs_out(q, BH: int, W: int, want: bool):
     """The window probabilities' output [B, Hkv, W] f32 of a decode kernel
-    call (every column written by the kernel; zeros when nothing launches),
-    or None."""
+    call (every column written by the kernel), or None."""
     if not want:
         return None
-    shape = (q.shape[0], BH // q.shape[0], W)
-    if n_splits == 0:
-        return torch.zeros(shape, dtype=torch.float32, device=q.device)
-    return torch.empty(shape, dtype=torch.float32, device=q.device)
+    return torch.empty((q.shape[0], BH // q.shape[0], W), dtype=torch.float32,
+                       device=q.device)
 
 
-def norm_out(q, BH: int, want: bool, n_splits: int):
+def norm_out(q, BH: int, want: bool):
     """The final stats' output [2, B, Hkv, G, 1] f32 (m, then l) of a uniform
-    kernel call (written by the kernel; -1e30 and 0 when nothing launches),
-    or None."""
+    kernel call (written by the kernel), or None."""
     if not want:
         return None
     B = q.shape[0]
-    shape = (2, B, BH // B, q.shape[2] // (BH // B), 1)
-    if n_splits == 0:
-        ml = torch.zeros(shape, dtype=torch.float32, device=q.device)
-        ml[0] = NEG_INF
-        return ml
-    return torch.empty(shape, dtype=torch.float32, device=q.device)
+    return torch.empty((2, B, BH // B, q.shape[2] // (BH // B), 1), dtype=torch.float32,
+                       device=q.device)
+
+
+def host_count(n, hi: int) -> int:
+    """A count as the plain versions take it: a host int, or the value of
+    a one-element tensor (read, which on the CPU costs nothing), clamped
+    into [0, hi] as the kernels clamp what they read."""
+    return min(max(int(n), 0), hi)
+
+
+def device_counts(q, n_chunks, win_len, mc: int, W: int):
+    """The uniform kernels' counts as they read them: int32 tensors of one
+    element on q's device.  A host int is range-checked ([0, mc], [0, W])
+    and filled into one; a tensor is taken as it is (the kernel clamps
+    it)."""
+    out = []
+    for name, n, hi in (("n_chunks", n_chunks, mc), ("win_len", win_len, W)):
+        if torch.is_tensor(n):
+            if n.numel() != 1 or n.dtype != torch.int32 or not n.is_contiguous():
+                raise ValueError(f"{name} must be an int or a contiguous int32 tensor of "
+                                 f"one element, got {n.dtype} {tuple(n.shape)}")
+            if n.device != q.device:
+                raise ValueError(f"{name} is on {n.device}, q on {q.device}")
+        else:
+            _check_int(name, n, 0, hi)
+            n = torch.full((1,), n, dtype=torch.int32, device=q.device)
+        out.append(n)
+    return out
 
 
 def uniform_result(out, ml, probs, norm: bool, win_probs: bool):
@@ -500,11 +538,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def uniform_counts(B: int, n_chunks: int, win_len: int, device):
+def uniform_counts(B: int, n_chunks, win_len, device):
     """The per-slot count tensors of a uniform call: every slot at
-    (n_chunks, win_len)."""
-    return (torch.full((B,), n_chunks, dtype=torch.int32, device=device),
-            torch.full((B,), win_len, dtype=torch.int32, device=device))
+    (n_chunks, win_len) (host ints or one-element tensors)."""
+    return (torch.full((B,), int(n_chunks), dtype=torch.int32, device=device),
+            torch.full((B,), int(win_len), dtype=torch.int32, device=device))
 
 
 _SCRATCH: dict = {}
@@ -560,7 +598,7 @@ def _library(name, fn_name, n_ptr, n_int):
 
 
 def fused_q_decode_attention_split_plain(q, kv_pool, kv_scales, k_win, v_win,
-                                         n_chunks: int, win_len: int, li: int,
+                                         n_chunks, win_len, li: int,
                                          codec: qf.QuantCodec, win_probs: bool = False,
                                          norm: bool = False, window=None):
     """The uniform CUDA kernel's arithmetic: each chunk (past the window's
@@ -576,7 +614,7 @@ def fused_q_decode_attention_split_plain(q, kv_pool, kv_scales, k_win, v_win,
 
 
 def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
-                             n_chunks: int, win_len: int, li: int,
+                             n_chunks, win_len, li: int,
                              codec: qf.QuantCodec, *, window=None,
                              return_norm: bool = False,
                              return_win_probs: bool = False):
@@ -590,48 +628,52 @@ def fused_q_decode_attention(q, kv_pool, kv_scales, k_win, v_win,
     with ``return_win_probs`` the post-softmax weights of the window columns
     summed over each kv head's query heads, [B, Hkv, W] f32, 0 at and past
     ``win_len`` (the Opa policies score V with them); in that order
-    (``with_options``).
+    (``with_options``).  With nothing to attend (no window token and no
+    chunk past the sliding window's edge) the output (and the
+    probabilities) are 0, m is -1e30 and l 0 (the TPU kernel would average
+    masked columns there; the cache never asks it).
+
+    ``n_chunks`` and ``win_len`` are the TPU kernel's scalar-prefetch
+    counts: int32 tensors of one element on q's device, which the kernel
+    reads (clamped into [0, mc] and [0, W]), or host ints (checked, and
+    filled into such tensors: ``device_counts``).  Nothing here reads them,
+    so a call holds no host value and a CUDA graph replays it at any
+    counts.
 
     CUDA tensors launch the kernel of ``csrc/q_decode.cu`` (built at first
-    use) on the current stream, one CTA a split (``uniform_splits``), with
-    the stream's split scratch and merge counters (``_split_scratch``,
-    ``_split_counters``; the window probabilities' raw scores go in the
-    scratch too); with nothing to attend (no window token and no chunk past
-    the sliding window's edge) the output (and the probabilities) are 0, m
-    is -1e30 and l 0, and nothing launches (the TPU kernel would average
-    masked columns there; the cache never asks it).  CPU tensors run the
-    plain version.  A CUDA request the kernel cannot serve raises; nothing
-    falls back."""
+    use) on the current stream, one CTA a split of ``uniform_grid`` (the
+    pool's and the window's capacity), those past the live splits exiting
+    unread, with the stream's split scratch and merge counters
+    (``_split_scratch``, ``_split_counters``; the window probabilities' raw
+    scores go in the scratch too).  CPU tensors run the plain version.  A
+    CUDA request the kernel cannot serve raises; nothing falls back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, codec,
                                  "fused_q_decode_attention")
     check_window(window)
-    _check_int("n_chunks", n_chunks, 0, mc)
-    _check_int("win_len", win_len, 0, W)
+    nc_t, wl_t = device_counts(q, n_chunks, win_len, mc, W)
     if q.device.type == "cpu":
         return fused_q_decode_attention_plain(q, kv_pool, kv_scales, k_win, v_win,
-                                              n_chunks, win_len, li, codec,
+                                              nc_t, wl_t, li, codec,
                                               return_win_probs, return_norm, window)
-    n_splits = sum(uniform_splits(n_chunks, win_len, W, window=window))
-    probs = win_probs_out(q, BH, W, return_win_probs, n_splits)
-    ml = norm_out(q, BH, return_norm, n_splits)
-    if n_splits == 0:
-        return uniform_result(torch.zeros_like(q), ml, probs, return_norm, return_win_probs)
+    n_splits = uniform_grid(mc, W)
     split_scratch_floats(BH, n_splits, G)        # a grid too large: refused up front
     stream = _stream(q)
     _check_aligned((("q", q), ("kv_pool", kv_pool), ("kv_scales", kv_scales),
                     ("k_win", k_win), ("v_win", v_win)))
-    fn = _library("q_decode", "q_decode_attention", 10, 15)
+    fn = _library("q_decode", "q_decode_attention", 12, 13)
     out = torch.empty_like(q)
+    probs = win_probs_out(q, BH, W, return_win_probs)
+    ml = norm_out(q, BH, return_norm)
     qb = q.to(torch.bfloat16)
     scratch = _split_scratch(BH, n_splits, G, q.device, stream,
                              BH * G * W if return_win_probs else 0)
     counters = _split_counters(BH, q.device, stream)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
-            k_win.data_ptr(), v_win.data_ptr(), out.data_ptr(), _ptr(probs), _ptr(ml),
-            scratch.data_ptr(), counters.data_ptr(), scratch.numel(), counters.numel(),
-            int(out.dtype == torch.float32), q.device.index or 0, codec.kbits,
-            codec.vbits, BH, G, mc, W, window_tile(W), n_chunks, win_len, li, window or 0,
-            stream)
+            k_win.data_ptr(), v_win.data_ptr(), nc_t.data_ptr(), wl_t.data_ptr(),
+            out.data_ptr(), _ptr(probs), _ptr(ml), scratch.data_ptr(), counters.data_ptr(),
+            scratch.numel(), counters.numel(), int(out.dtype == torch.float32),
+            q.device.index or 0, codec.kbits, codec.vbits, BH, G, mc, W, window_tile(W), li,
+            window or 0, stream)
     if rc != 0:
         raise RuntimeError(f"q_decode_attention launch failed: CUDA error {rc}")
     fused_q_decode_attention.launches += 1
@@ -746,7 +788,7 @@ def fused_q_decode_attention_ps(q, kv_pool, kv_scales, k_win, v_win,
                     ("k_win", k_win), ("v_win", v_win)))
     fn = _library("q_decode_ps", "q_decode_attention_ps", 10, 14)
     out = torch.empty_like(q)
-    probs = win_probs_out(q, BH, W, return_win_probs, n_splits)
+    probs = win_probs_out(q, BH, W, return_win_probs)
     qb = q.to(torch.bfloat16)
     scratch = _split_scratch(BH, n_splits, G, q.device, stream,
                              per_slot_probs_scratch(BH, G, W, return_win_probs))

@@ -143,21 +143,24 @@ def _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt, ordered: bool = False):
     return step
 
 
-def fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win, n_chunks: int,
-                                        win_len: int, li: int, kfmt, vfmt,
+def fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win, n_chunks,
+                                        win_len, li: int, kfmt, vfmt,
                                         kv_scales=None, win_probs: bool = False,
                                         norm: bool = False, window=None):
-    """The uniform bitmap decode TPU kernel's arithmetic in PyTorch."""
-    return qa.decode_steps(q, kv_pool.shape[2], n_chunks,
+    """The uniform bitmap decode TPU kernel's arithmetic in PyTorch, at
+    counts given as the kernel takes them (one-element tensors) or as host
+    ints (``quant_attention.host_count``)."""
+    return qa.decode_steps(q, kv_pool.shape[2], qa.host_count(n_chunks, kv_pool.shape[1]),
                            _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt), k_win,
-                           v_win, win_len, li, win_probs, norm, window)
+                           v_win, qa.host_count(win_len, k_win.shape[2]), li, win_probs,
+                           norm, window)
 
 
 CHUNK_CUT = 4           # softmax steps the uniform kernel cuts a chunk into
 
 
-def fused_sparse_decode_attention_split_plain(q, kv_pool, k_win, v_win, n_chunks: int,
-                                              win_len: int, li: int, kfmt, vfmt,
+def fused_sparse_decode_attention_split_plain(q, kv_pool, k_win, v_win, n_chunks,
+                                              win_len, li: int, kfmt, vfmt,
                                               kv_scales=None, win_probs: bool = False,
                                               norm: bool = False, window=None):
     """The uniform CUDA kernel's arithmetic (``quant_attention.ps_split_steps``
@@ -175,8 +178,8 @@ def fused_sparse_decode_attention_split_plain(q, kv_pool, k_win, v_win, n_chunks
         window=window)
 
 
-def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
-                                  win_len: int, li: int, kfmt: sf.ChunkFormat,
+def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks,
+                                  win_len, li: int, kfmt: sf.ChunkFormat,
                                   vfmt: sf.ChunkFormat, *, kv_scales=None,
                                   window=None, return_norm: bool = False,
                                   return_win_probs: bool = False):
@@ -187,47 +190,45 @@ def fused_sparse_decode_attention(q, kv_pool, k_win, v_win, n_chunks: int,
     ``return_norm`` also the final (m, l), with ``return_win_probs`` the
     window probabilities [B, Hkv, W] f32
     (``quant_attention.fused_q_decode_attention``).  ``kv_scales`` is
-    required for ``qbits=8`` formats and refused otherwise.
+    required for ``qbits=8`` formats and refused otherwise.  ``n_chunks``
+    and ``win_len``: one-element int32 tensors on q's device, read by the
+    kernel, or host ints (``quant_attention.device_counts``); with nothing
+    to attend the output is 0 (m -1e30, l 0).
 
     CUDA tensors launch the kernel of ``csrc/sp_decode.cu`` (entry
     ``sp_decode``, built at first use; the instance of the formats' value
-    width) on the current stream, one CTA a split
-    (``quant_attention.uniform_splits`` with ``CHUNK_CUT``), with the
-    stream's split scratch and merge counters; with nothing to attend the
-    output is 0 (m -1e30, l 0) and nothing launches.  CPU tensors run the
-    plain version.  A CUDA request the kernel cannot serve raises; nothing
-    falls back."""
+    width) on the current stream, one CTA a split of
+    ``quant_attention.uniform_grid`` with ``CHUNK_CUT`` (those past the live
+    splits exit unread), with the stream's split scratch and merge
+    counters.  CPU tensors run the plain version.  A CUDA request the
+    kernel cannot serve raises; nothing falls back."""
     BH, G, mc, W = _check_decode(q, kv_pool, kv_scales, k_win, v_win, li, kfmt, vfmt,
                                  "fused_sparse_decode_attention")
     qa.check_window(window)
-    qa._check_int("n_chunks", n_chunks, 0, mc)
-    qa._check_int("win_len", win_len, 0, W)
+    nc_t, wl_t = qa.device_counts(q, n_chunks, win_len, mc, W)
     if q.device.type == "cpu":
-        return fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win, n_chunks,
-                                                   win_len, li, kfmt, vfmt, kv_scales,
+        return fused_sparse_decode_attention_plain(q, kv_pool, k_win, v_win, nc_t,
+                                                   wl_t, li, kfmt, vfmt, kv_scales,
                                                    return_win_probs, return_norm, window)
-    n_splits = sum(qa.uniform_splits(n_chunks, win_len, W, CHUNK_CUT, window))
-    probs = qa.win_probs_out(q, BH, W, return_win_probs, n_splits)
-    ml = qa.norm_out(q, BH, return_norm, n_splits)
-    if n_splits == 0:
-        return qa.uniform_result(torch.zeros_like(q), ml, probs, return_norm,
-                                 return_win_probs)
+    n_splits = qa.uniform_grid(mc, W, CHUNK_CUT)
     qa.split_scratch_floats(BH, n_splits, G)     # a grid too large: refused up front
     stream = qa._stream(q)
     qa._check_aligned((("q", q), ("kv_pool", kv_pool), ("k_win", k_win),
                        ("v_win", v_win), *_scales(kv_scales)))
-    fn = qa._library("sp_decode", "sp_decode", 10, 18)
+    fn = qa._library("sp_decode", "sp_decode", 12, 16)
     out = torch.empty_like(q)
+    probs = qa.win_probs_out(q, BH, W, return_win_probs)
+    ml = qa.norm_out(q, BH, return_norm)
     qb = q.to(torch.bfloat16)
     scratch = qa._split_scratch(BH, n_splits, G, q.device, stream,
                                 BH * G * W if return_win_probs else 0)
     counters = qa._split_counters(BH, q.device, stream)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), _ptr(kv_scales), k_win.data_ptr(),
-            v_win.data_ptr(), out.data_ptr(), _ptr(probs), _ptr(ml), scratch.data_ptr(),
-            counters.data_ptr(), scratch.numel(), counters.numel(),
-            int(out.dtype == torch.float32), q.device.index or 0, kfmt.qbits, BH, G, mc, W,
-            qa.window_tile(W), n_chunks, win_len, li, window or 0, *_segs(kfmt),
-            *_segs(vfmt), stream)
+            v_win.data_ptr(), nc_t.data_ptr(), wl_t.data_ptr(), out.data_ptr(),
+            _ptr(probs), _ptr(ml), scratch.data_ptr(), counters.data_ptr(),
+            scratch.numel(), counters.numel(), int(out.dtype == torch.float32),
+            q.device.index or 0, kfmt.qbits, BH, G, mc, W, qa.window_tile(W), li,
+            window or 0, *_segs(kfmt), *_segs(vfmt), stream)
     if rc != 0:
         raise RuntimeError(f"sp_decode launch failed: CUDA error {rc}")
     fused_sparse_decode_attention.launches += 1
@@ -327,7 +328,7 @@ def fused_sparse_decode_attention_ps(q, kv_pool, k_win, v_win,
     out = torch.empty_like(q)
     qb = q.to(torch.bfloat16)
     n_splits = ps_splits(mc, W)
-    probs = qa.win_probs_out(q, BH, W, return_win_probs, n_splits)
+    probs = qa.win_probs_out(q, BH, W, return_win_probs)
     scratch = qa._split_scratch(BH, n_splits, G, q.device, stream,
                                 qa.per_slot_probs_scratch(BH, G, W, return_win_probs))
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), _ptr(kv_scales), k_win.data_ptr(),

@@ -59,6 +59,7 @@ import torch.distributed as dist
 
 from mustafar_tpu_torch.device import resolve_device
 from mustafar_tpu_torch.parallel import sharding
+from mustafar_tpu_torch.runtime import graphs
 
 PROGRAM_TOKENS = 8           # the step program's batch
 DEFAULT_TIMEOUT_S = 600
@@ -375,32 +376,15 @@ def run_recovery(snapshot_path: str, mesh, params_np: dict | None = None,
 
 # -- spawned rank bodies ------------------------------------------------------
 
-SERVING_KERNELS = (
-    ("mustafar_tpu_torch.ops.kernels.quant_attention", "fused_q_decode_attention"),
-    ("mustafar_tpu_torch.ops.kernels.quant_attention", "fused_q_decode_attention_ps"),
-    ("mustafar_tpu_torch.ops.kernels.quant_attention", "fused_q_segment_attention"),
-    ("mustafar_tpu_torch.ops.kernels.sparse_attention", "fused_sparse_decode_attention"),
-    ("mustafar_tpu_torch.ops.kernels.sparse_attention", "fused_sparse_decode_attention_ps"),
-    ("mustafar_tpu_torch.ops.kernels.sparse_attention", "fused_sparse_segment_attention"),
-    ("mustafar_tpu_torch.ops.kernels.w4_matmul", "w4_matmul"),
-    ("mustafar_tpu_torch.ops.kernels.dense_decode", "flash_decode_attention"),
-    ("mustafar_tpu_torch.ops.kernels.pack_kernel", "prune_quant_pack"),
-    ("mustafar_tpu_torch.ops.kernels.pack_kernel", "prune_quant_pack_kv"),
-)
-
-
-def _kernel_wrappers():
-    return {name: getattr(importlib.import_module(mod), name)
-            for mod, name in SERVING_KERNELS}
-
-
 def kernel_launches() -> dict:
-    """The launch count of each serving kernel's wrapper in this process."""
-    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
+    """The launch count of each serving kernel's wrapper in this process,
+    CUDA graph replays included (``runtime.graphs.launches``)."""
+    return graphs.launches()
 
 
 def _reset_launches():
-    for fn in _kernel_wrappers().values():
+    graphs.REPLAYED.clear()
+    for fn in graphs.kernel_wrappers().values():
         fn.launches = 0
 
 

@@ -1,11 +1,35 @@
 """Generation: port of ``mustafar_tpu/runtime/generate.py``, with
 monolithic or chunked prefill, greedy or sampled token choice.
 
-The JAX package runs prefill and the decode loop on the device in one jit;
-here a host loop drives one decode step at a time.  Compaction happens
-between steps, never inside one: after exactly the step at which the JAX
-loop's ``window_full`` fires (the window holds ``total - n_chunks*C`` tokens
-and is full at r + C).  EOS handling follows HF greedy: a finished row keeps
+The JAX package runs prefill and the decode loop on the device in one jit.
+Here prefill runs eagerly and a host loop steps the decode, in one of two
+ways (``Generator(graph=...)``, chosen from the device before anything is
+captured, never from an error):
+  * the compiled decode (the default on the card): one decode step, from a
+    static token buffer and a 0-d device position to the logits, runs as a
+    ``runtime.graphs.StepGraph``: captured once as a CUDA graph and
+    replayed every step.  The step reads every count on the device (the
+    position, each layer's ``n_chunks`` and window length; kernels 1 and 6
+    take them as the TPU kernels take their scalar prefetch), and the dense
+    and masked caches attend all max_seq_len rows masked by the position, as
+    the JAX package's static-shape loop does.  The cache state, the buffers
+    and the graph are kept per (batch size, cache settings), as JAX keeps
+    one compile per key, and the state is zeroed in place for the next
+    ``generate``: the graph holds its addresses.  What the key holds: the
+    cache at max_seq_len for the batch, and the graph's pool of one step's
+    intermediates.  On the CPU ``graph=True`` runs the same static program,
+    the same callable rerun on the same buffers, which is what the CPU
+    tests hold against the eager loop and the JAX package;
+  * the eager loop (the default on the CPU, ``graph=False`` on the card):
+    every op of every step enqueued from Python at the host's position.
+The token choice, the EOS bookkeeping and the output write run eagerly on
+the step's logits in both, so greedy and sampled decoding share either
+path.  ``last_path`` ("graph", "static" or "eager") and ``last_replays``
+say what the last ``generate`` ran.  Compaction happens between steps,
+eagerly, never inside one: after exactly the step at which the JAX loop's
+``window_full`` fires (the window holds ``total - n_chunks*C`` tokens and
+is full at r + C); it updates the device counts and the host copy in
+place.  EOS handling follows HF greedy: a finished row keeps
 emitting its EOS and the loop stops once every row is done; EOS is
 suppressed for the first ``min_new_tokens`` tokens.  With
 ``EngineConfig.chunked_prefill`` the prompt goes in one C-token segment at a
@@ -37,6 +61,7 @@ from mustafar_tpu_torch.cache import make_cache
 from mustafar_tpu_torch.config import EngineConfig
 from mustafar_tpu_torch.device import resolve_device
 from mustafar_tpu_torch.models import llama
+from mustafar_tpu_torch.runtime.graphs import StepGraph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,19 +133,44 @@ def choose(logits2d: torch.Tensor, sp: SamplingParams, step: int) -> torch.Tenso
     return sample(logits2d, sp, step)
 
 
+class _StaticDecode:
+    """The compiled decode's state for one key: the cache, the static token
+    buffer [B, 1] and position (0-d), and the ``StepGraph`` of the step
+    between them and the logits [B, 1, V]."""
+
+    def __init__(self, gen, B: int, graph: bool):
+        cfg, params, impl = gen.cfg, gen.params, gen.cache_impl
+        self.cache = impl.init(B, gen.dtype)
+        self.tok = torch.zeros((B, 1), dtype=torch.int64, device=gen.device)
+        self.pos = torch.zeros((), dtype=torch.int64, device=gen.device)
+        cache, tok, pos = self.cache, self.tok, self.pos
+
+        def step():
+            return llama.decode_step(cfg, params, tok, cache, impl, pos)[0]
+
+        self.graph = StepGraph(step, gen.device, graph)
+
+
 class Generator:
     """Decode engine for a fixed EngineConfig, on ``device`` (default
-    ``cuda``; params must already live there)."""
+    ``cuda``; params must already live there).  ``graph``: the compiled
+    decode (module note); None takes it on the card and the eager loop on
+    the CPU."""
 
     def __init__(self, engine: EngineConfig, params: dict, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, graph: bool | None = None):
         self.device = resolve_device(device)
         self.engine = engine
         self.cfg = engine.model
         self.params = params
         self.dtype = dtype
         self.cache_impl = make_cache(engine, device=self.device)
+        self.graph = self.device.type == "cuda" if graph is None else graph
+        self._static: dict = {}     # (B, cache settings) -> _StaticDecode
         self.last_cache = None      # the cache state the last generate left
+        self.last_path = None       # "graph", "static" or "eager"
+        self.last_replays = 0
+        self.last_captured = {}     # the step graph's launches a replay, by wrapper
 
     def _bucket(self, n: int) -> int:
         b = self.engine.prefill_bucket
@@ -154,7 +204,17 @@ class Generator:
 
         impl, cfg, params = self.cache_impl, self.cfg, self.params
         self.last_cache = None
-        cache = impl.init(B, self.dtype)
+        static = None
+        if self.graph:
+            key = (B, getattr(impl, "use_pallas", None))
+            static = self._static.get(key)
+            if static is None:
+                static = self._static[key] = _StaticDecode(
+                    self, B, self.device.type == "cuda")
+            cache = impl.reset(static.cache)
+            replays0 = static.graph.replays
+        else:
+            cache = impl.init(B, self.dtype)
         if self.engine.chunked_prefill:
             logits, cache = llama.prefill_chunked(cfg, params, toks, cache, impl, T)
         else:
@@ -182,8 +242,13 @@ class Generator:
         # with EOS ids the loop reads `done` from the device once a step
         while i < max_new_tokens and not (eos_ids and bool(done.all())):
             pos = T + i - 1
-            logits, cache = llama.decode_step(cfg, params, tok[:, None], cache,
-                                              impl, pos)
+            if static is not None:
+                static.tok.copy_(tok[:, None])
+                static.pos.fill_(pos)
+                logits = static.graph.run()
+            else:
+                logits, cache = llama.decode_step(cfg, params, tok[:, None], cache,
+                                                  impl, pos)
             nxt = pick(logits[:, 0], i + 1)
             if eos_ids:
                 nxt = torch.where(done, torch.full_like(nxt, eos_ids[0]), nxt)
@@ -194,6 +259,12 @@ class Generator:
             if has_compact and impl.window_full(cache, T + i - 1):
                 impl.compact(cache)
         self.last_cache = cache
+        if static is None:
+            self.last_path, self.last_replays, self.last_captured = "eager", 0, {}
+        else:
+            self.last_path = "graph" if static.graph.graph else "static"
+            self.last_replays = static.graph.replays - replays0
+            self.last_captured = dict(static.graph.captured)
         result = []
         for row in out.cpu().numpy():
             if eos_ids:

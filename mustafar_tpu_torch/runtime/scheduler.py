@@ -23,6 +23,18 @@ greedy or sampled, on one device.
     the decode slots do not read the admission's cache until it is
     inserted.
 
+The decode step runs as a CUDA graph on the card (``graph``, the default
+there with no mesh: ``runtime.graphs.StepGraph``, as the JAX package jits
+its ``step``): each tick copies the slots' last tokens and positions (an
+idle slot's -1, which is the active mask) into one static buffer on the
+device, replays the captured per-slot step (kernels 2 and 7, the dense
+cache's per-slot attention or kernel 4) and reads the tokens back once;
+``_choose`` runs eagerly on the graph's logits.  Admission (prefill,
+chunked segments), insertion and compaction stay eager between replays,
+writing the cache in place.  On the CPU ``graph=True`` reruns the same
+static step (what the CPU tests hold against the eager tick); with a mesh
+the tick stays eager.  ``decode_path`` and ``replays`` say which ran.
+
 The slot bookkeeping lives in the native C++ core (``native/``, built with
 g++ at the engine's first use), as in the JAX package: it refuses a request
 with no prompt, no new tokens or more than ``max_seq_len`` tokens in all
@@ -67,6 +79,7 @@ from mustafar_tpu_torch.models import llama
 from mustafar_tpu_torch.native import slot_scheduler
 from mustafar_tpu_torch.parallel import sharding
 from mustafar_tpu_torch.runtime.generate import GREEDY, SamplingParams, choose
+from mustafar_tpu_torch.runtime.graphs import StepGraph
 
 
 @dataclasses.dataclass
@@ -96,12 +109,19 @@ class ContinuousBatchingEngine:
     (default ``cuda``; params must already live there).  ``core`` keeps the
     queue and the slots (``native.slot_scheduler``).  ``mesh``: a
     ("data", "model") ``DeviceMesh`` this process is one rank of (module
-    note); ``params`` are then the full params, which the engine cuts."""
+    note); ``params`` are then the full params, which the engine cuts.
+    ``graph``: the decode tick as a CUDA graph (module note); None takes it
+    on the card without a mesh, else the eager tick."""
 
     def __init__(self, engine: EngineConfig, params: dict, dtype=torch.bfloat16,
                  eos_id: Optional[int] = None, sampling: SamplingParams = GREEDY,
-                 interleave: bool = True, device=None, mesh=None):
+                 interleave: bool = True, device=None, mesh=None,
+                 graph: Optional[bool] = None):
         self.device = resolve_device(device)
+        if graph and mesh is not None:
+            raise ValueError("the decode tick of a mesh stays eager: pass graph=False")
+        self.graph = (self.device.type == "cuda" and mesh is None) if graph is None \
+            else graph
         self.engine = engine
         self.mesh = mesh
         dp, tp = sharding.mesh_dims(mesh)
@@ -141,6 +161,8 @@ class ContinuousBatchingEngine:
         self.ticks = 0               # engine ticks run (admission + decode)
         self.decode_steps = 0        # batched decode steps run on this rank
         self.segments = 0            # chunked-prefill segments run on this rank
+        self._step_graph = None      # the static decode step (graph), built at first use
+        self._step_io = None         # its input buffer [2, Bl]: last tokens, positions
 
     # -- public API -------------------------------------------------------
     def submit(self, tokens, max_new_tokens: int) -> int:
@@ -203,7 +225,37 @@ class ContinuousBatchingEngine:
         t = torch.from_numpy(np.ascontiguousarray(toks, np.int64)).to(self.device)
         return sharding.all_reduce(t, self._data_group).cpu().numpy()
 
+    @property
+    def decode_path(self) -> str:
+        """"graph" (CUDA graph replays), "static" (the CPU's reruns of the
+        static step) or "eager"."""
+        if not self.graph:
+            return "eager"
+        return "graph" if self.device.type == "cuda" else "static"
+
+    @property
+    def replays(self) -> int:
+        """Decode ticks run by replaying the captured step (after its first,
+        which captures)."""
+        return 0 if self._step_graph is None else self._step_graph.replays
+
     # -- internals --------------------------------------------------------
+    def _static_step(self, last: np.ndarray, pos: np.ndarray) -> torch.Tensor:
+        """The per-slot decode step through the static buffer and the
+        ``StepGraph``: this tick's last tokens and positions copied in (one
+        host-to-device copy), the step replayed -> logits [Bl, 1, V]."""
+        if self._step_graph is None:
+            self._step_io = torch.zeros((2, self.Bl), dtype=torch.int64, device=self.device)
+            tok, slot_pos = self._step_io[0][:, None], self._step_io[1]
+            cfg, params, cache, impl = self.cfg, self.params, self.cache, self.impl
+
+            def step():
+                return llama.decode_step(cfg, params, tok, cache, impl, slot_pos)[0]
+
+            self._step_graph = StepGraph(step, self.device, self.device.type == "cuda")
+        self._step_io.copy_(torch.from_numpy(np.stack([last, pos])))
+        return self._step_graph.run()
+
     def _bucket(self, n: int) -> int:
         b = self.engine.prefill_bucket
         return max(b, (n + b - 1) // b * b)
@@ -300,11 +352,14 @@ class ContinuousBatchingEngine:
         if active[lo:hi].any() or self._groups_step_together:
             # idle slots ride along at position -1 (slot_pos 0) and keep
             # their last token; the caches neither write nor attend them
-            tok = torch.from_numpy(self.slot_last[lo:hi, None]).to(self.device)
-            pos = torch.from_numpy(self.slot_pos[lo:hi] - 1).to(self.device)
-            logits, self.cache = llama.decode_step(self.cfg, self.params, tok,
-                                                   self.cache, self.impl, pos,
-                                                   tp=self.tp_batch)
+            if self.graph:
+                logits = self._static_step(self.slot_last[lo:hi], self.slot_pos[lo:hi] - 1)
+            else:
+                tok = torch.from_numpy(self.slot_last[lo:hi, None]).to(self.device)
+                pos = torch.from_numpy(self.slot_pos[lo:hi] - 1).to(self.device)
+                logits, self.cache = llama.decode_step(self.cfg, self.params, tok,
+                                                       self.cache, self.impl, pos,
+                                                       tp=self.tp_batch)
             logits = logits[:, 0]
             reqs = list(self.slot_req)
             if self.mesh is not None:

@@ -609,10 +609,13 @@ def test_uniform_splits_of_the_grid():
 
 def test_uniform_wrapper_sizes_its_grid_before_the_device():
     """On a device other than the CPU the wrapper sizes the grid from the
-    counts before anything is allocated or launched (meta tensors here,
-    which allocate nothing): nothing to attend comes out 0 with no launch; a
-    grid whose partials would pass the int range is refused; else the call
-    goes on to the device check."""
+    pool's and the window's capacity (``uniform_grid``), never from the
+    counts, which the kernel reads on the device, before anything is
+    allocated or launched (meta tensors here, which allocate nothing): a
+    grid whose partials would pass the int range is refused whatever the
+    counts; else every call goes on to the device check, nothing to attend
+    included (decided by the kernel now), and so do counts given as device
+    tensors."""
     B, Hkv, G, W = 8, 8, 4, 288
 
     def call(nc, wl, mc=5, Bq=B):
@@ -625,13 +628,18 @@ def test_uniform_wrapper_sizes_its_grid_before_the_device():
             meta((1, Bq * Hkv, W, 128), torch.bfloat16), nc, wl, 0, TCODEC)
 
     before = tqa.fused_q_decode_attention.launches
-    out = call(0, 0)
-    assert out.shape == (B, 1, Hkv * G, 128) and tqa.fused_q_decode_attention.launches == before
     # 4,096 rows x 5,003 splits x 4 heads x 130 floats > 2^31 - 1
     with pytest.raises(ValueError, match="int sizes"):
-        call(5000, 288, mc=5000, Bq=512)
-    with pytest.raises(ValueError, match="unsupported device"):
-        call(1, 288)
+        call(0, 0, mc=5000, Bq=512)
+    count = lambda x: torch.full((1,), x, dtype=torch.int32, device="meta")
+    for nc, wl in ((0, 0), (1, 288), (count(1), count(288))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call(nc, wl)
+    assert tqa.fused_q_decode_attention.launches == before
+    assert tqa.uniform_grid(5, 288) == 8 and tqa.uniform_grid(5, 288, 4) == 23
+    for bad in (torch.zeros(2, dtype=torch.int32, device="meta"), count(1).long()):
+        with pytest.raises(ValueError, match="n_chunks"):
+            call(bad, 288)
 
 
 def test_jitted_jax_kernels_are_the_eager_calls():
