@@ -71,7 +71,12 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 the live rows' partials against the plain version, every
                 row merged with a self partial, no NaN, a second launch
                 bit-equal; timed on and off in turns at 31 chunks beside
-                each's bound (live rows and columns)
+                each's bound (live rows and columns).  n_chunks and seg_start
+                are int32 tensors on the card, which the kernel reads; one
+                CUDA graph of the kernel, captured once over them, replayed
+                across 9 (n_chunks, seg_start) pairs and 8 more with a
+                window of 1,024 (SEG_GRAPH_*), B = 1 and 2: every replay's
+                partials bit-equal to an eager launch at those counts
   kernel_q8, kernel_ps_q8, kernel_seg_q8, and the same for q4q4
                 the three phases above at the codecs q8 and q4q4
   kernel_sp, kernel_sp_ps, kernel_sp_seg
@@ -276,9 +281,13 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 Generator's; the slot bookkeeping in the native core
                 (native/scheduler.cpp, built with g++), whose stats must
                 show every request admitted and finished and none refused
-                (every serve_cb* phase); the engine's tick a CUDA graph, and
-                the same requests again through the eager tick: tokens and
-                launches equal, both ticks' times printed
+                (every serve_cb* phase); the engine's tick a CUDA graph and
+                its admission segments replays of one captured segment, and
+                the same requests again through the eager engine: tokens and
+                launches equal, both engines' tick times printed (a segment
+                + decode tick's among them; every serve_cb* phase but
+                serve_cb_bitmap_q8, whose program serve_cb_bitmap's rerun
+                holds at the other value width and host_split bit for bit)
   serve_cb_bitmap, serve_cb_bitmap_q8
                 serve_cb with the bitmap and bitmap-q8 codecs (peak memory
                 and pool bytes side by side), at 8 of the 32 layers
@@ -286,7 +295,7 @@ Phases, each printing one flushed JSON line with its ``phase`` and
   serve_cb_q4q4 serve_cb with the q4q4 codec on its first 8 requests (8 of
                 the 32 layers, CUT_LAYERS)
                 without the 8,000-token one; kernel 9 (K and V in one
-                launch) once a layer for every chunk a prompt packs and once
+                launch) once a layer a segment (its staged pack) and once
                 for every compaction (q8q4 and q4q4)
   serve_cb_opa  serve_cb's first 8 requests (q8q4) under KT_MAG_VT_OPA at
                 0.7, 8 of the 32 layers (CUT_LAYERS): kernel 2 with its window
@@ -325,7 +334,11 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 share; then PP x TP on the tiny model (four processes, pp=2 x
                 tp=2, dense and masked Opa); over nccl where the host has
                 two (four) cards
-  serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64
+  serve_chunked Generator with chunked prefill at full width, B=4, 2,000 + 64,
+                graphed (one segment captured, 7 replays) against eager:
+                tokens equal, launches 32 x 8 segments and 32 x 63 steps in
+                each; the prefill alone timed (enqueue, wall, device ms,
+                kernels); the segment graph's capture time and pool
   serve_swa_dense, serve_swa_dense_kernel, serve_swa_q8q4, serve_swa_bitmap
                 Mistral-7B with its 4,096 window (MISTRAL_7B_SWA), full
                 width, 8 of its 32 layers (CUT_LAYERS), W8 (random, seed 0),
@@ -344,12 +357,15 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 batch-1 chunked Generator's; tok/s, peak memory, tick times
   serve_swa_chunked
                 the chunked Generator on Mistral-7B (serve_swa's 8 layers),
-                B=4, serve_swa's 4,400-token prompt (18 segments) + 64:
-                kernel 3 8 a segment, kernel 1 8 a step, kernel 9 8 a packed
-                chunk;
+                B=4, serve_swa's 4,400-token prompt (18 segments) + 64,
+                graphed (the windowed segment captured, 17 replays) and
+                eager: tokens equal; kernel 3 8 a segment, kernel 1 8 a
+                step, kernel 9 8 a segment (its staged pack) in each;
                 token agreement with serve_swa_q8q4
-  host_split    one segment (B=1) at q8q4, bitmap and bitmap-q8, one K and V
-                pack of a chunk at each, one decode tick (8 slots, q8q4) and
+  host_split    one segment (B=1) at q8q4, bitmap and bitmap-q8, eager and
+                as a replay of its segment graph (capture time and pool
+                beside; cache state bit-equal), one K and V pack of a chunk
+                at each, one decode tick (8 slots, q8q4) and
                 one each of q8q4 and bitmap with an 8,000-token slot: host
                 enqueue time, wall time, device time and kernels launched;
                 at 8 of the 32 layers (CUT_LAYERS)
@@ -367,7 +383,7 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 decode_split for the W4 step, per cache
   serve_cb_w4   serve_cb with W4 weights on the bitmap codec: its first 8
                 requests without the 8,000-token one, at 8 of the 32 layers
-                (CUT_LAYERS)
+                (CUT_LAYERS); the eager engine's tokens equal
   serve_w8a8_dense, serve_w8a8_q8q4
                 Llama-3-8B in W8A8 (serve_q8q4's W8 weights with
                 enable_act_quant) at 8 of its 32 layers (CUT_LAYERS), B=8,
@@ -387,7 +403,7 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 Mixtral-8x7B at full width and 8 of its 32 layers
                 (CUT_LAYERS): kernels 2 and 3 8 x steps and segments,
                 kernel 9 at the packing counts, first tokens = a batch-1
-                chunked Generator's
+                chunked Generator's; the eager engine's tokens equal
   harness_predict
                 the LongBench harness (predict_dataset, evaluate_dir) on
                 Llama-3-8B at full width and 8 of its 32 layers
@@ -662,10 +678,12 @@ class _Kit:
     kernels' split arithmetic), each decode with its options (``_wp``:
     window probabilities, ``_norm``: the final (m, l));
     ``chunk_bytes`` is what one pool chunk of one kv head holds (rows and,
-    for the quant codecs and bitmap-q8, scales).  The uniform decode and its
-    plain versions take their counts as the kernel reads them, int32
-    tensors on the card (``count``: one per value, made once, so a timed
-    call launches the kernel alone); callers pass ints or such tensors."""
+    for the quant codecs and bitmap-q8, scales).  The uniform decode, the
+    segment kernels (``segment(q_seg, n_chunks, li, seg_start, window)``,
+    seg_start n_chunks * 256 by default) and their plain versions take their
+    counts as the kernels read them, int32 tensors on the card (``count``:
+    one per value, made once, so a timed call launches the kernel alone);
+    callers pass ints or such tensors."""
 
     UNIFORM = ("decode", "decode_plain", "decode_split_plain", "decode_wp",
                "decode_split_plain_wp", "decode_norm", "decode_split_plain_norm")
@@ -686,6 +704,13 @@ class _Kit:
             fn = getattr(self, name)
             setattr(self, name, lambda q, nc, wl, li, _fn=fn, **o:
                     _fn(q, self.count(nc), self.count(wl), li, **o))
+        # the segment kernels and their plain versions: n_chunks and
+        # seg_start (n_chunks * 256 by default) as card tensors too
+        for name in ("segment", "segment_plain"):
+            fn = getattr(self, name)
+            setattr(self, name, lambda q, nc, li, seg_start=None, window=None, _fn=fn:
+                    _fn(q, self.count(nc), li,
+                        self.count(nc * 256 if seg_start is None else seg_start), window))
 
     def __init__(self, codec, g, dev, L, mc, BH, W, sparsity=0.7):
         import torch
@@ -740,14 +765,12 @@ class _Kit:
             self.decode_ps_split_plain_wp = lambda q, nc, wl, li, **o: \
                 qa.fused_q_decode_attention_ps_split_plain(q, pool, scales, kw, vw, nc, wl,
                                                            li, qc, win_probs=True, **o)
-            self.segment = lambda q, nc, li, seg_start=None, window=None: \
-                qa.fused_q_segment_attention(q, pool, scales, nc,
-                                             nc * 256 if seg_start is None else seg_start,
-                                             li, qc, window=window)
-            self.segment_plain = lambda q, nc, li, seg_start=None, window=None: \
-                qa.fused_q_segment_attention_plain(
-                    q, pool, scales, nc, li, qc, nc * 256 if seg_start is None else seg_start,
-                    window)
+            self.segment = lambda q, nc, li, seg_start, window: \
+                qa.fused_q_segment_attention(q, pool, scales, nc, seg_start, li, qc,
+                                             window=window)
+            self.segment_plain = lambda q, nc, li, seg_start, window: \
+                qa.fused_q_segment_attention_plain(q, pool, scales, nc, li, qc, seg_start,
+                                                   window)
             self._device_counted()
             return
         # bitmap codecs: real packed chunks, random bf16 K and V pruned to
@@ -804,14 +827,12 @@ class _Kit:
             ska.fused_sparse_decode_attention_ps_split_plain(q, pool, kw, vw, nc, wl, li,
                                                              fmt, fmt, scales, win_probs=True,
                                                              **o)
-        self.segment = lambda q, nc, li, seg_start=None, window=None: \
-            ska.fused_sparse_segment_attention(
-                q, pool, nc, nc * 256 if seg_start is None else seg_start, li, fmt, fmt,
-                **sc, window=window)
-        self.segment_plain = lambda q, nc, li, seg_start=None, window=None: \
-            ska.fused_sparse_segment_attention_plain(
-                q, pool, nc, li, fmt, fmt, scales,
-                nc * 256 if seg_start is None else seg_start, window)
+        self.segment = lambda q, nc, li, seg_start, window: \
+            ska.fused_sparse_segment_attention(q, pool, nc, seg_start, li, fmt, fmt, **sc,
+                                               window=window)
+        self.segment_plain = lambda q, nc, li, seg_start, window: \
+            ska.fused_sparse_segment_attention_plain(q, pool, nc, li, fmt, fmt, scales,
+                                                     seg_start, window)
         self._device_counted()
 
 
@@ -1647,6 +1668,9 @@ def phase_kernel_seg(codec="q8q4"):
     B, nc = 1, 31
     kit = kits[(B, 0.7)]
     q = torch.randn((B, T, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+    graph_replays = {f"B{b}": _check_seg_graph(kits[(b, 0.7)], qq, 1)
+                     for b, qq in ((1, q), (2, torch.randn((2, T, Hq, D), generator=g,
+                                                           device=dev).to(torch.bfloat16)))}
     # the same inputs launched twice give the same bits
     first, again = kit.segment(q, nc, 0), kit.segment(q, nc, 0)
     same_bits = all(torch.equal(a, b) for a, b in zip(first, again))
@@ -1692,7 +1716,9 @@ def phase_kernel_seg(codec="q8q4"):
          wrapper_host_us=wrapper_us, second_launch_same_bits=same_bits,
          kernel_ms_by_chunks=by_chunks or None,
          flops=flops, bytes=nbytes,
-         bound_ms=max(bytes_ms, flops_ms), library_ms=None, window=window)
+         bound_ms=max(bytes_ms, flops_ms), library_ms=None, window=window,
+         counts="n_chunks and seg_start read on the card from int32 tensors",
+         graph_replays=graph_replays)
     entry = _entry(codec, "segment", results, worst,
                    max(r.get("tol", 0.0) for r in results),
                    kernel_ms, plain_ms, bytes_ms, flops_ms)
@@ -1701,7 +1727,60 @@ def phase_kernel_seg(codec="q8q4"):
     if by_chunks:
         entry["kernel_ms_by_chunks"] = by_chunks
     entry["options"] = {"window": dict(_window_option(window), bound_by=window["bound_by"])}
+    entry["graph_replays"] = sum(len(c["replays"]) for cases in graph_replays.values()
+                                 for c in cases)
     return entry
+
+
+# the segment kernels in one CUDA graph: (n_chunks, seg_start) written into
+# the captured count tensors before each replay, without a window and with
+# SEG_GRAPH_WINDOW (chunk 0 dead at (4, 1280) and the edge through chunk 1;
+# chunks 0-26 dead at (31, 7936), the edge in chunk 27; no pool column left
+# to the later rows at (1, 1280))
+SEG_GRAPH_COUNTS = ((1, 256), (4, 1024), (0, 0), (31, 7936), (2, 768), (16, 4096),
+                    (0, 256), (8, 2304), (31, 8192))
+SEG_GRAPH_WINDOW = 1024
+SEG_GRAPH_WINDOW_COUNTS = ((4, 1280), (8, 2304), (31, 7936), (1, 1280), (0, 0),
+                           (16, 4352), (2, 768), (30, 7936))
+
+
+def _check_seg_graph(kit, q, li):
+    """The segment kernel in one CUDA graph, captured once over two count
+    tensors on the card (n_chunks, seg_start) and replayed after each new
+    pair is written into them (SEG_GRAPH_COUNTS, then with a sliding
+    window SEG_GRAPH_WINDOW_COUNTS): every replay's acc, m and l bit-equal
+    to an eager launch at the same counts, and finite.  Returns the cases."""
+    import torch
+    cases = []
+    for window, seq in ((None, SEG_GRAPH_COUNTS), (SEG_GRAPH_WINDOW, SEG_GRAPH_WINDOW_COUNTS)):
+        nc_t = torch.full((1,), seq[0][0], dtype=torch.int32, device="cuda")
+        ss_t = torch.full((1,), seq[0][1], dtype=torch.int32, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kit.segment(q, nc_t, li, ss_t, window)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            res = kit.segment(q, nc_t, li, ss_t, window)
+        replays = []
+        for nc, start in seq:
+            nc_t.fill_(nc)
+            ss_t.fill_(start)
+            graph.replay()
+            got = [x.clone() for x in res]
+            eager = kit.segment(q, nc, li, start, window)
+            torch.cuda.synchronize()
+            replays.append({"n_chunks": nc, "seg_start": start,
+                            "equal_to_eager_launch": all(torch.equal(a, b)
+                                                         for a, b in zip(got, eager)),
+                            "finite": all(bool(x.isfinite().all()) for x in got)})
+            if not (replays[-1]["equal_to_eager_launch"] and replays[-1]["finite"]):
+                raise AssertionError(f"the graphed segment kernel at new counts: "
+                                     f"{replays[-1]} (window {window})")
+        cases.append({"window": window, "li": li, "replays": replays})
+        del graph
+    return cases
 
 
 # sliding-window cases of the segment kernels: (n_chunks, seg_start, window);
@@ -3173,8 +3252,8 @@ def phase_reference_swa_cb():
                                  window=SWA_TINY_WINDOW, chunked=True)
         want = {_meta(codec, "decode")[0]: L * 39,
                 _meta(codec, "segment")[0]: L * n_segments(SWA_TINY_T, 256)}
-        if codec in QUANT_BITS:          # the chunks segments 2 and 3 pack
-            want["prune_quant_pack_kv"] = L * ((SWA_TINY_T - 32) // 256)
+        if codec in QUANT_BITS:          # every segment stages its layer's pack
+            want["prune_quant_pack_kv"] = L * n_segments(SWA_TINY_T, 256)
         runs[f"chunked_generator/{codec}"] = dict(fields, expected_launches=want,
                                                   picks=SWA_PICKS_NOTE)
         wide = [f for f in fields["flips"] if f["cpu_margin"] > SWA_TIE_TOL]
@@ -3941,11 +4020,13 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
     (default KT_MAG_VT_MAG at 0.7): with an Opa method the run is
     ``serve_cb_opa``, and the scored buffers must be live at its end (the
     per-slot kernel's window probabilities, or K's scores, reached the
-    cache).  The engine decodes through its CUDA graph (the card's
-    default); with ``eager_too`` the same requests run again through the
-    eager tick (``graph=False``), whose tokens and launches must equal the
-    graphed run's, its tick times printed beside.  Returns the launches and
-    the run's peak memory and pool bytes."""
+    cache).  The engine decodes and admits through its CUDA graphs (the
+    card's default: the per-slot tick, and one captured segment replayed
+    for every admission segment); with ``eager_too`` the same requests run
+    again through the eager engine (``graph=False``), whose tokens and
+    launches must equal the graphed run's, its tick times (a segment +
+    decode tick's among them) printed beside.  Returns the launches and the
+    run's peak memory and pool bytes."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
@@ -4011,8 +4092,8 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
     want[_meta(codec, "decode_ps")[0]] = L * cb.decode_steps
     want[_meta(codec, "segment")[0]] = L * cb.segments
     prompt_chunks = sum(max(len(p) - 32, 0) // 256 for p, _ in reqs)
-    if codec in QUANT_BITS:
-        want["prune_quant_pack_kv"] = L * prompt_chunks + compactions[0]
+    if codec in QUANT_BITS:          # every segment stages its layer's pack
+        want["prune_quant_pack_kv"] = L * cb.segments + compactions[0]
     if w4:
         want["w4_matmul"] = 7 * L * cb.decode_steps
     seg_expected = sum(-(-len(p) // 256) for p, _ in reqs)
@@ -4029,6 +4110,7 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
                               "total_s": sum(v)} for k, v in Timed.split.items()}}
     scores = {k: float(cb.cache[k].abs().sum()) for k in cb.impl.score_keys}
     counts["decode_path"], counts["replays"] = cb.decode_path, cb.replays
+    counts["segment_replays"] = cb.segment_replays
     del gen, cb
     torch.cuda.empty_cache()
     eager = None
@@ -4070,7 +4152,8 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
          expected_launches=want, first_token_equal=sum(first_equal), eager=eager,
          **(beside or {}))
     if eager is not None and not (eager["tokens_equal"] and eager["launches_equal"]
-                                  and counts["decode_path"] == "graph"):
+                                  and counts["decode_path"] == "graph"
+                                  and counts["segment_replays"] == counts["segments"] - 1):
         raise AssertionError(f"{label}: the graphed engine ({counts['decode_path']}) and "
                              f"the eager one disagree: {eager}")
     if native != native_want:
@@ -4092,9 +4175,17 @@ def phase_serve_cb(params, codec="q8q4", w4=False, first8=False, beside=None, pr
 def phase_serve_chunked(params):
     """Generator with chunked prefill at full width: B=4, prompt 2,000 (8
     segments), 64 new tokens; prefill through the segment kernel, decode
-    through the uniform kernel."""
+    through the uniform kernel.  Graphed (the card's default: one captured
+    segment replayed for every segment, and the decode step's graph)
+    against eager (``graph=False``): tokens equal; each one's prefill alone
+    (``generate(prompt, 1)``: the segments and the first pick) timed on the
+    wall and on the device (torch.profiler), with the kernels it ran; the
+    segment graph's capture time and the memory its pool took; launch gates
+    as captured x replays."""
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
                                            PruneConfig, PruneMethod)
     from mustafar_tpu_torch.runtime.generate import Generator
@@ -4105,32 +4196,66 @@ def phase_serve_chunked(params):
                        codec="q8q4", chunked_prefill=True)
     prompt = np.random.RandomState(3).randint(1, LLAMA3_8B.vocab_size, (4, 2000))
     new = 64
-    gen = Generator(eng, params)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    counts0 = _launches()
-    _set_launches(dict.fromkeys(_counters(), 0))
-    t = time.perf_counter()
-    out = gen.generate(prompt, new)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t
-    counts = _launches()
-    launches = {name: counts[name] for name in ("fused_q_decode_attention",
-                                                 "fused_q_segment_attention")}
-    _set_launches(counts0)
     L = LLAMA3_8B.num_layers
     want = {"fused_q_decode_attention": L * (new - 1),
             "fused_q_segment_attention": L * 2048 // 256}
-    toks = np.stack(out)
-    emit("serve_chunked", batch=4, prompt=2000, new_tokens=new, seconds=dt,
-         tok_s=toks.size / dt, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-         n_chunks_end=gen.last_cache["nc_host"], launches=launches,
-         expected_launches=want, decode_path=gen.last_path, replays=gen.last_replays)
-    if toks.shape != (4, new) or launches != want or gen.last_cache["nc_host"] != 7:
-        raise AssertionError(f"serve_chunked: tokens {toks.shape}, launches "
-                             f"{launches} (expected {want})")
-    del gen
-    torch.cuda.empty_cache()
+    counts0 = _launches()
+    runs, toks = {}, {}
+    for graph in (True, False):
+        gen = Generator(eng, params, graph=graph)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _set_launches(dict.fromkeys(_counters(), 0))
+        t = time.perf_counter()
+        out = gen.generate(prompt, new)          # graphed: both graphs captured here
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = _launches()
+        launches = {name: counts[name] for name in want}
+        toks[graph] = np.stack(out)
+        run = {"path": gen.last_path, "seconds": dt, "tok_s": toks[graph].size / dt,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "n_chunks_end": gen.last_cache["nc_host"], "launches": launches,
+               "replays": gen.last_replays, "prefill_replays": gen.last_prefill_replays}
+        if graph:
+            (static,) = gen._static.values()
+            run["segment_graph"] = {"capture_s": static.segment.graph.capture_s,
+                                    "capture_mib": static.segment.graph.capture_bytes / 2 ** 20,
+                                    "captured_launches": static.segment.graph.captured}
+        # the prefill alone (the run above warmed it), every segment
+        # replayed on the graphed path
+        t = time.perf_counter()
+        gen.generate(prompt, 1)
+        enqueue = time.perf_counter() - t
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        # the card's activity alone: ~46,500 kernels, whose host ops the
+        # eager path's trace would add ~100,000 more of
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            gen.generate(prompt, 1)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        run["prefill"] = {
+            "enqueue_ms": 1e3 * enqueue, "wall_ms": 1e3 * wall,
+            "device_ms": sum(e.self_device_time_total for e in events
+                             if e.device_type == DeviceType.CUDA) / 1e3,
+            "device_kernels": sum(e.count for e in events
+                                  if e.device_type == DeviceType.CUDA),
+            "graph_launches": sum(e.count for e in events
+                                  if e.key.startswith("cudaGraphLaunch"))}
+        runs["graph" if graph else "eager"] = run
+        del gen
+        torch.cuda.empty_cache()
+    _set_launches(counts0)
+    equal = bool(np.array_equal(toks[True], toks[False]))
+    emit("serve_chunked", batch=4, prompt=2000, new_tokens=new, expected_launches=want,
+         tokens_equal_eager=equal, **runs)
+    bad = [k for k, r in runs.items() if r["launches"] != want or r["n_chunks_end"] != 7]
+    if toks[True].shape != (4, new) or bad or not equal \
+            or runs["graph"]["path"] != "graph" or runs["graph"]["prefill_replays"] != 7:
+        raise AssertionError(f"serve_chunked: tokens {toks[True].shape}, equal to the "
+                             f"eager run's {equal}; runs {bad} launched other than "
+                             f"{want}: {runs}")
 
 
 def phase_slot_core():
@@ -4162,7 +4287,10 @@ def phase_slot_core():
 
 def phase_host_split(params, model=None):
     """Host or device: one chunked-prefill segment (B=1 after 4 packed
-    chunks; it packs a fifth) at q8q4, bitmap and bitmap-q8, one pack of a
+    chunks; it packs a fifth) at q8q4, bitmap and bitmap-q8, eager and as a
+    replay of the segment graph (``StaticSegment``; its capture time and
+    pool beside, and its cache state after the segments bit-equal to the
+    eager one's), one pack of a
     chunk's K and V (B=1, 8 kv heads: what a segment does per layer) at
     each, one decode tick of the engine with 8 active slots (q8q4), and one
     of the q8q4 and of the bitmap engine with 8 active slots, one of them
@@ -4181,6 +4309,7 @@ def phase_host_split(params, model=None):
     from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
                                            PruneConfig, PruneMethod)
     from mustafar_tpu_torch.models import llama
+    from mustafar_tpu_torch.runtime.generate import StaticSegment
     from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
     model = model or LLAMA3_8B
     eng = EngineConfig(model=model, cache_mode=CacheMode.COMPRESSED,
@@ -4203,17 +4332,22 @@ def phase_host_split(params, model=None):
         # device rows only: an op's row also counts the kernels it launched
         device_us = sum(e.self_device_time_total for e in events
                         if e.device_type == DeviceType.CUDA)
-        # cudaLaunchKernel, and cudaLaunchKernelExC for cluster launches
+        # cudaLaunchKernel, and cudaLaunchKernelExC for cluster launches; a
+        # graph's kernels go in one cudaGraphLaunch, and show on the device
         launches = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
         return {"enqueue_ms": 1e3 * enqueue, "wall_ms": 1e3 * wall,
-                "device_ms": device_us / 1e3, "kernels_launched": launches}
+                "device_ms": device_us / 1e3, "kernels_launched": launches,
+                "graph_launches": sum(e.count for e in events
+                                      if e.key.startswith("cudaGraphLaunch")),
+                "device_kernels": sum(e.count for e in events
+                                      if e.device_type == DeviceType.CUDA)}
 
     toks = torch.as_tensor(np.random.RandomState(4).randint(1, 500, (1, 2048)),
                            device="cuda")
     kv = torch.randn((1, model.num_kv_heads, 256, 128), device="cuda",
                      generator=torch.Generator(device="cuda").manual_seed(4))
     kv = kv.to(torch.bfloat16)
-    segments, packs = {}, {}
+    segments, graphed, packs = {}, {}, {}
     with torch.inference_mode():
         for codec in ("q8q4", "bitmap", "bitmap-q8"):
             impl = make_cache(dataclasses.replace(eng, codec=codec))
@@ -4229,8 +4363,28 @@ def phase_host_split(params, model=None):
             for _ in range(4):
                 segment()
             segments[codec] = measure(segment)   # segment 4; the profiled one is 5
+            # the same segments through the segment graph (StaticSegment: the
+            # first captures it, every later one replays it)
+            st = StaticSegment(model, params, impl.init(1), impl, 1, torch.device("cuda"),
+                               True)
+            gseg = [0]
+
+            def graphed_segment():
+                s = gseg[0]
+                st.step(toks[:, s * 256:(s + 1) * 256], s * 256, 2000)
+                gseg[0] += 1
+
+            for _ in range(4):
+                graphed_segment()
+            graphed[codec] = dict(measure(graphed_segment),
+                                  capture_s=st.graph.capture_s,
+                                  capture_mib=st.graph.capture_bytes / 2 ** 20,
+                                  captured_launches=st.graph.captured,
+                                  state_equal_eager=all(
+                                      torch.equal(v, st.cache[k]) for k, v in sub.items()
+                                      if torch.is_tensor(v)))
             packs[codec] = measure(lambda: impl._pack(kv, kv))
-            del sub
+            del sub, st
         cb = ContinuousBatchingEngine(eng, params)
         rs = np.random.RandomState(5)
         for _ in range(8):
@@ -4254,9 +4408,14 @@ def phase_host_split(params, model=None):
     torch.cuda.empty_cache()
     emit("host_split", model=f"{model.name} x{model.num_layers}L, W8 (random, seed 0)",
          segment_b1=segments["q8q4"], segment_b1_bitmap=segments["bitmap"],
-         segment_b1_bitmap_q8=segments["bitmap-q8"], pack_kv_b1=packs,
+         segment_b1_bitmap_q8=segments["bitmap-q8"], segment_b1_graph=graphed,
+         pack_kv_b1=packs,
          decode_tick_b8=tick_split, decode_tick_b8_long=ticks_long["q8q4"],
          decode_tick_b8_bitmap_long=ticks_long["bitmap"])
+    bad = [codec for codec, r in graphed.items() if not r["state_equal_eager"]]
+    if bad:
+        raise AssertionError(f"host_split: the graphed segments left another cache state "
+                             f"than the eager ones at {bad}")
 
 
 def serve_w4(entries, prompt, new):
@@ -4315,7 +4474,7 @@ def serve_w4(entries, prompt, new):
                                    "bitmap": entries[("bitmap", "decode")]["kernel_ms"],
                                    "dense": entries[("dense", "decode")]["kernel_ms"]},
                           wall, new, m)
-    phase_serve_cb(params, "bitmap", w4=True, model=m)
+    phase_serve_cb(params, "bitmap", w4=True, model=m, eager_too=True)
     del params
     torch.cuda.empty_cache()
 
@@ -4392,7 +4551,8 @@ def serve_cb_opa(entries, params, model, reference_launches):
     ``reference_opa_cb``'s bitmap engine on the card)."""
     from mustafar_tpu_torch.config import PruneConfig, PruneMethod
     vt_opa = PruneConfig(method=PruneMethod.KT_MAG_VT_OPA, k_sparsity=0.7, v_sparsity=0.7)
-    launches, _ = phase_serve_cb(params, "q8q4", first8=True, prune=vt_opa, model=model)
+    launches, _ = phase_serve_cb(params, "q8q4", first8=True, prune=vt_opa, model=model,
+                                 eager_too=True)
     name = "fused_q_decode_attention_ps"
     entries[("q8q4", "decode_ps")]["options"]["return_win_probs"].update(
         launches=launches[name],
@@ -4422,10 +4582,11 @@ def phase_serve_swa_chunked(params, m, prompt, q8q4_toks, new=64):
     """The chunked Generator on Mistral-7B with its window at serve_swa's
     width and depth: B=4, serve_swa's 4,400-token prompt in 18 segments
     (segment 17's rows see chunk 0 none and chunk 1 past their own edge),
-    ``new`` tokens; q8q4.  Kernel 3 with the window once a layer a segment,
-    kernel 1 once a layer a decode step, kernel 9 once a layer a packed
-    chunk (17) and nothing else; tokens beside
-    serve_swa_q8q4's (monolithic banded prefill)."""
+    ``new`` tokens; q8q4.  Graphed (the windowed segment captured once and
+    replayed for the other 17) and eager: tokens equal.  Kernel 3 with the
+    window once a layer a segment, kernel 1 once a layer a decode step,
+    kernel 9 once a layer a segment (its staged pack) and nothing else, in
+    each; tokens beside serve_swa_q8q4's (monolithic banded prefill)."""
     import numpy as np
     import torch
     from mustafar_tpu_torch.config import CacheMode, EngineConfig, PruneConfig, PruneMethod
@@ -4437,34 +4598,44 @@ def phase_serve_swa_chunked(params, m, prompt, q8q4_toks, new=64):
                                          v_sparsity=0.7),
                        max_seq_len=-(-T // 256) * 256 + new, prefill_bucket=256,
                        chunk_size=256, codec="q8q4", chunked_prefill=True)
-    gen = Generator(eng, params)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _set_launches(dict.fromkeys(_counters(), 0))
-    t = time.perf_counter()
-    toks = np.stack(gen.generate(prompt, new))
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t
-    launches = {k: v for k, v in _launches().items() if v}
     L = m.num_layers
     want = {"fused_q_decode_attention": L * (new - 1),
             "fused_q_segment_attention": L * n_segments(T, 256),
-            "prune_quant_pack_kv": L * ((T - 32) // 256)}
-    agree = float((toks == q8q4_toks[:, :new].numpy()).mean())
+            "prune_quant_pack_kv": L * n_segments(T, 256)}
+    runs, toks = {}, {}
+    for graph in (True, False):
+        gen = Generator(eng, params, graph=graph)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _set_launches(dict.fromkeys(_counters(), 0))
+        t = time.perf_counter()
+        toks[graph] = np.stack(gen.generate(prompt, new))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        runs["graph" if graph else "eager"] = {
+            "path": gen.last_path, "prefill_replays": gen.last_prefill_replays,
+            "seconds": dt, "tok_s": toks[graph].size / dt,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "n_chunks_end": gen.last_cache["nc_host"],
+            "launches": {k: v for k, v in _launches().items() if v}}
+        del gen
+        torch.cuda.empty_cache()
+    agree = float((toks[True] == q8q4_toks[:, :new].numpy()).mean())
+    equal = bool(np.array_equal(toks[True], toks[False]))
     emit("serve_swa_chunked", model=f"{m.name} x{L}L, window {m.sliding_window}, W8 "
                                     f"(random, seed 0)",
          batch=prompt.shape[0], prompt=T, new_tokens=new, segments=n_segments(T, 256),
-         seconds=dt, tok_s=toks.size / dt,
-         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-         n_chunks_end=gen.last_cache["nc_host"], launches=launches, expected_launches=want,
+         expected_launches=want, tokens_equal_eager=equal,
          token_agreement_with_serve_swa_q8q4=agree,
-         first_token_equal_serve_swa_q8q4=bool((toks[:, 0]
-                                                == q8q4_toks[:, 0].numpy()).all()))
-    if toks.shape != (prompt.shape[0], new) or launches != want:
-        raise AssertionError(f"serve_swa_chunked: tokens {toks.shape}, launches {launches} "
-                             f"(expected {want})")
-    del gen
-    torch.cuda.empty_cache()
+         first_token_equal_serve_swa_q8q4=bool((toks[True][:, 0]
+                                                == q8q4_toks[:, 0].numpy()).all()),
+         **runs)
+    bad = [k for k, r in runs.items() if r["launches"] != want]
+    if toks[True].shape != (prompt.shape[0], new) or bad or not equal \
+            or runs["graph"]["prefill_replays"] != n_segments(T, 256) - 1:
+        raise AssertionError(f"serve_swa_chunked: tokens {toks[True].shape}, equal to the "
+                             f"eager run's {equal}; runs {bad} launched other than "
+                             f"{want}: {runs}")
 
 
 def serve_swa(entries, other, reference_runs, cb_runs):
@@ -4541,7 +4712,7 @@ def serve_swa(entries, other, reference_runs, cb_runs):
             launches=reference_runs[f"compressed/{codec}"]["launched"][name],
             launches_note="reference_swa's run on the card (tiny model, window 320)")
     for codec in ("q8q4", "bitmap"):
-        launches, _ = phase_serve_cb(params, codec, model=m)
+        launches, _ = phase_serve_cb(params, codec, model=m, eager_too=True)
         for kind in ("decode_ps", "segment"):
             entries[(codec, kind)]["options"]["window"].update(
                 launches=launches[_meta(codec, kind)[0]],
@@ -5043,7 +5214,7 @@ def serve_moe():
         if launches != want or not first_equal:
             raise AssertionError(f"{label}: launched {launches} (expected {want}), first "
                                  f"tokens equal serve_moe_dense's: {first_equal}")
-    phase_serve_cb(params, "q8q4", model=m)
+    phase_serve_cb(params, "q8q4", model=m, eager_too=True)
     del params
     torch.cuda.empty_cache()
 
@@ -5075,10 +5246,10 @@ def _spawned(target, dp, tp, kwargs, **kw):
     return out, time.perf_counter() - t
 
 
-def _rank_gate(label, res, L, codec, chunks=None):
+def _rank_gate(label, res, L, codec, packs=False):
     """A rank's launches as serve_cb gates them: the codec's per-slot
     kernel L x its decode steps, its segment kernel L x its segments, and
-    with ``chunks`` (the prompt chunks this rank packed) kernel 9 L x chunks
+    with ``packs`` kernel 9 L x its segments (each stages its layer's pack)
     plus its compactions; no other kernel."""
     if codec is None:
         want = {}
@@ -5086,10 +5257,10 @@ def _rank_gate(label, res, L, codec, chunks=None):
         want = {_meta(codec, "decode_ps")[0]: L * res["decode_steps"]}
         if res["segments"]:
             want[_meta(codec, "segment")[0]] = L * res["segments"]
-        if chunks is not None:
-            want["prune_quant_pack_kv"] = L * chunks + res["compactions"]
+        if packs:
+            want["prune_quant_pack_kv"] = L * res["segments"] + res["compactions"]
     got = {k: v for k, v in res["launches"].items() if v}
-    if chunks is None:
+    if not packs:
         got.pop("prune_quant_pack_kv", None)
     if got != want:
         raise AssertionError(f"{label}: a rank launched {got}, expected {want}")
@@ -5256,8 +5427,7 @@ def phase_serve_cb_tp(model):
     torch.cuda.empty_cache()
     ranks, tp_s = _spawned("engine_case", 1, 2, dict(case, time_collectives=True))
     L = model.num_layers
-    chunks = sum(max(len(p) - 32, 0) // 256 for p, _ in reqs)
-    gates = [_rank_gate("serve_cb_tp", r, L, "q8q4", chunks) for r in ranks]
+    gates = [_rank_gate("serve_cb_tp", r, L, "q8q4", packs=True) for r in ranks]
     first = [[r["outs"][u][0] for u in sorted(r["outs"])] for r in ranks]
     want_first = [one["outs"][u][0] for u in sorted(one["outs"])]
     ref = one["logits"][0]
@@ -5996,14 +6166,18 @@ def main():
     cut_model, cut_params = cut_depth(LLAMA3_8B, params)
     for codec in ("q8q4", "bitmap"):
         cb_launches, cb_runs[codec] = phase_serve_cb(cut_params, codec, model=cut_model,
-                                                     eager_too=codec == "q8q4")
+                                                     eager_too=True)
         for kind in ("decode_ps", "segment"):
             entries[(codec, kind)]["launches"] = cb_launches[_meta(codec, kind)[0]]
+    # bitmap-q8's graphed admission is held against the eager one by
+    # serve_cb_bitmap's eager rerun (the same program at the other value
+    # width) and host_split's (its cache state after segments, bit for bit)
     cb_launches, _ = phase_serve_cb(cut_params, "bitmap-q8", model=cut_model,
                                     beside={"serve_cb_bitmap": cb_runs["bitmap"]})
     for kind in ("decode_ps", "segment"):
         other[("bitmap-q8", kind)]["launches"] = cb_launches[_meta("bitmap-q8", kind)[0]]
-    cb_launches, _ = phase_serve_cb(cut_params, "q4q4", first8=True, model=cut_model)
+    cb_launches, _ = phase_serve_cb(cut_params, "q4q4", first8=True, model=cut_model,
+                                    eager_too=True)
     for kind in ("decode_ps", "segment"):
         name = _meta("q4q4", kind)[0]
         other[("q4q4", kind)]["launches"] = cb_launches[name]

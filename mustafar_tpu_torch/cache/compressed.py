@@ -25,6 +25,10 @@ State (a dict, the JAX package's layouts, updated in place):
                                              compaction indexes by; None
                                              once slots hold their own
                                              counts (``insert_slot``)
+  _seg_rows / _seg_scales [L, B, Hkv, ...]   a chunked-prefill segment's
+                                             staged pack (one chunk a
+                                             layer), made at the first
+                                             segment (``_stage``)
 Semantics:
   * prefill: attention over the dense prompt; then the first
     ``((T - r) // C) * C`` tokens are pruned (exact top-|x| per token) and
@@ -34,10 +38,15 @@ Semantics:
     chunks in one launch, writing into the pool slots; the bitmap codecs
     pack with eager torch ops (``sparse_format``), all the chunks in one
     pass.
-  * chunked prefill (``segment_attend``): one C-token segment attends the
-    packed pools (the segment kernel), the window and itself, merged; the
-    window's oldest C tokens are packed as soon as the segment's tokens
-    leave it more than r + C, and the window is rebuilt.
+  * chunked prefill (``segment_attend``, then ``finalize_segment``): one
+    C-token segment attends the packed pools (the segment kernel), the
+    window and itself, merged; the window's oldest C tokens are packed into
+    a staging buffer every segment and written into the pool as soon as the
+    segment's tokens leave the window more than r + C, and the window is
+    rebuilt.  Every count comes from the device (``n_chunks``, and
+    ``seg_start`` / ``true_len`` as tensors), so one CUDA graph of a segment
+    replays at every segment; the host count ``nc_host`` follows on the
+    host.
   * decode: the new token goes into the window; attention covers the pool
     chunks and the window in one online softmax (the codec's kernels on
     the card, their plain versions on the CPU).  ``pos`` is a host int for a
@@ -90,7 +99,7 @@ import torch
 
 from mustafar_tpu_torch.cache.dense import prefill_k_opa_score, prefill_v_opa_score
 from mustafar_tpu_torch.config import EngineConfig
-from mustafar_tpu_torch.device import resolve_device
+from mustafar_tpu_torch.device import device_int, resolve_device
 from mustafar_tpu_torch.ops import quant_format as qf
 from mustafar_tpu_torch.ops import sparse_format as sf
 from mustafar_tpu_torch.ops.attention import (attention_partials, merge_partials,
@@ -490,35 +499,107 @@ class CompressedKVCache:
         return state
 
     # -- chunked prefill --------------------------------------------------
-    def _segment_counts(self, nc: int, seg_start: int, true_len: int):
+    STAGE = {"kv_pool": "_seg_rows", "kv_scales": "_seg_scales"}
+
+    def _segment_counts(self, nc, seg_start, true_len):
         """(window length on entry, segment's valid rows, chunks after) of a
-        segment at ``seg_start`` over ``nc`` packed chunks (host ints)."""
-        seg_valid = min(max(true_len - seg_start, 0), self.C)
-        nc_after = max(seg_start + seg_valid - self.r, 0) // self.C
+        segment at ``seg_start`` over ``nc`` packed chunks: int64 tensors [1]
+        from tensors [1], or host ints from host ints (the same rule)."""
+        if torch.is_tensor(seg_start):
+            seg_valid = (true_len - seg_start).clamp(0, self.C)
+            nc_after = (seg_start + seg_valid - self.r).clamp_min(0) // self.C
+        else:
+            seg_valid = min(max(true_len - seg_start, 0), self.C)
+            nc_after = max(seg_start + seg_valid - self.r, 0) // self.C
         return seg_start - nc * self.C, seg_valid, nc_after
 
-    def segment_attend(self, state, li: int, q, k, v, seg_start: int,
-                       true_len: int):
+    def _stage(self, state) -> dict:
+        """The staging buffers of a segment's pack, {pool key: [L, B, Hkv, ...]}
+        beside the pool (``_seg_rows``, ``_seg_scales``: one chunk a layer),
+        made at a state's first segment and written in place after."""
+        for key, name in self.STAGE.items():
+            if key in state and name not in state:
+                pool = state[key]
+                state[name] = torch.zeros((pool.shape[0], *pool.shape[2:]),
+                                          dtype=pool.dtype, device=pool.device)
+        return {key: state[name] for key, name in self.STAGE.items() if key in state}
+
+    def segment_context(self, state, seg_start, true_len, li: int = 0) -> dict:
+        """The part of a segment's step that no layer changes, from layer
+        ``li``'s chunk count (every layer's moves with it in chunked
+        prefill), all on the device: the counts (``nc``, the window's length
+        ``wl``, the valid rows ``seg_valid``, ``nc_after`` and ``do_pack``),
+        the kernels' int32 counts, the masks, and the window rebuild's
+        selects and indices (``segment_attend``)."""
+        C, W = self.C, self.wcap
+        dev = state["n_chunks"].device
+        start, tlen = (device_int(x, dev).reshape(1) for x in (seg_start, true_len))
+        nc_k = state["n_chunks"][li, :1]                        # the kernels' int32 [1]
+        nc = nc_k.to(torch.int64)
+        wl, seg_valid, nc_after = self._segment_counts(nc, start, tlen)
+        do_pack = nc_after > nc
+        cols, rows = torch.arange(W, device=dev), torch.arange(C, device=dev)
+        wmask = (cols < wl)[None, :].expand(C, W)
+        smask = torch.ones((C, C), dtype=torch.bool, device=dev).tril()
+        if self.window is not None:
+            # window column c holds position nc*C + c, segment row t sits at
+            # seg_start + t
+            low = (start + rows)[:, None] - self.window
+            wmask = wmask & ((nc * C + cols)[None, :] > low)
+            smask = smask & (rows[None, :] > rows[:, None] - self.window)
+        # [old columns ++ segment] shifted by C when a chunk is due: output
+        # column c takes source column j = c + shift, an old column below wl,
+        # a segment row in [wl, wl + C), else 0
+        j = cols + do_pack.to(torch.int64) * C
+        ctx = {"nc": nc, "nc_k": nc_k, "start_k": start.to(torch.int32), "wl": wl,
+               "seg_valid": seg_valid, "nc_after": nc_after, "do_pack": do_pack,
+               "wmask": wmask, "smask": smask,
+               "seg_rows": (rows < seg_valid)[None, None, :, None],
+               "from_old": (j < wl)[None, None, :, None],
+               "from_seg": ((j >= wl) & (j < wl + C))[None, None, :, None],
+               "i_old": j.clamp_max(W - 1), "i_seg": (j - wl).clamp(0, C - 1)}
+        if self.score_keys:
+            # the Opa scores count the valid queries alone (_segment_scores)
+            qvalid = rows < seg_valid
+            ctx["wmask_q"] = wmask & qvalid[:, None]            # [C, W]
+            ctx["smask_q"] = smask & qvalid[:, None] & qvalid[None, :]
+            ctx["win_cols"] = (cols < wl)[None, None, :, None]
+        return ctx
+
+    def segment_attend(self, state, li: int, q, k, v, seg_start, true_len, ctx=None):
         """Chunked-prefill step of layer ``li``: the segment q/k/v
         [B, C, H*, D] (roped) attends the packed pools (the segment kernel),
         the window and itself (causal), merged -> out [B, C, Hq, D]; then it
-        is absorbed into layer li's state.
+        is absorbed into layer li's window, and the pack of the window's
+        oldest C tokens is staged.
 
-        Invariants with seg_start = s*C: on entry n_chunks = max(0, s-1) (the
-        host ``nc_host``, uniform across the batch) and the window holds
-        tokens [n_chunks*C, seg_start) (0 or C of them); on exit they take
-        the same form for s+1, and the last segment leaves the window
-        [comp_len, true_len) exactly as monolithic prefill.  Under Opa the
-        score buffers stream too (``_segment_scores``) and shift with the
-        window; the chunk packed here ranks by the scores after this
-        segment's are added.
+        ``seg_start`` and ``true_len`` are 0-d (or one-element) int64 device
+        tensors, or host ints; the chunk count is ``state["n_chunks"]``'s,
+        read on the device (the batch's first row: chunked prefill moves in
+        lockstep).  Every count, mask, slice and kernel count below comes
+        from those on the device, with no host read, so one CUDA graph of a
+        whole segment replays at every segment (kernels 3 and 8 read
+        ``n_chunks`` and ``seg_start`` as the TPU kernels read their scalar
+        prefetch); the eager path runs the same program.  Those that no
+        layer changes come from ``ctx`` (``segment_context``, which
+        ``forward`` makes once a segment; made here when it is None).
 
-        Where the JAX package stages the pack of the window's first C tokens
-        and applies it to every layer after the layer scan
-        (``finalize_segment``), the port writes it in place right away, into
-        pool slot n_chunks of layer li: a layer reads only its own pools and
-        only chunks below n_chunks, so nothing reads the slot before the
-        segment ends.  ``finalize_segment`` then moves the host count.
+        Invariants with seg_start = s*C: on entry n_chunks = max(0, s-1)
+        and the window holds tokens [n_chunks*C, seg_start) (0 or C of
+        them); on exit they take the same form for s+1, and the last segment
+        leaves the window [comp_len, true_len) exactly as monolithic
+        prefill.  Under Opa the score buffers stream too
+        (``_segment_scores``) and shift with the window; the chunk packed
+        here ranks by the scores after this segment's are added.
+
+        The JAX package's staged pack: every segment packs layer li's
+        window's first C tokens into the staging buffers (``_stage``), and
+        ``finalize_segment``, after every layer, writes them into pool slot
+        n_chunks under the device predicate that a chunk is due (a graph
+        holds the pool's address, not a slot's); a slot not packed keeps
+        its bytes.  The window rebuild ([old columns ++ segment] shifted by
+        C when a chunk is due) is index arithmetic on device offsets, the
+        JAX package's ``dynamic_update_slice`` / ``dynamic_slice``.
 
         With a sliding window the segment row at position qpos sees the pool
         columns (the kernels' ``window``), the window columns and its own
@@ -527,70 +608,54 @@ class CompressedKVCache:
         (a test window of 288-320; never at Mistral's 4,096); the self mask,
         as the window covers r + C > C, cuts none."""
         B, T, Hq, D = q.shape
-        C, W = self.C, self.wcap
-        if T != C:
-            raise ValueError(f"a segment has {C} tokens, got {T}")
-        nc = state["nc_host"]
-        if nc is None:
+        if T != self.C:
+            raise ValueError(f"a segment has {self.C} tokens, got {T}")
+        if state["nc_host"] is None:
             raise ValueError("chunked prefill needs a uniform batch cache")
-        wl, seg_valid, nc_after = self._segment_counts(nc, seg_start, true_len)
+        if ctx is None:
+            ctx = self.segment_context(state, seg_start, true_len, li)
         kwin = state["k_win"][li]                               # [B, Hkv, W, D]
         vwin = state["v_win"][li]
         pool, scales, _, _, lk = self._views(state, li)
+        nc_k, start_k = ctx["nc_k"], ctx["start_k"]
         if self.qcodec is None:
-            p_pool = ska.fused_sparse_segment_attention(q, pool, nc, seg_start, lk,
+            p_pool = ska.fused_sparse_segment_attention(q, pool, nc_k, start_k, lk,
                                                         self.kfmt, self.vfmt,
                                                         kv_scales=scales, window=self.window)
         else:
-            p_pool = qa.fused_q_segment_attention(q, pool, scales, nc, seg_start, lk,
+            p_pool = qa.fused_q_segment_attention(q, pool, scales, nc_k, start_k, lk,
                                                   self.qcodec, window=self.window)
-        dev = q.device
-        cols, rows = torch.arange(W, device=dev), torch.arange(T, device=dev)
-        wmask = (cols < wl)[None, :].expand(T, W)
-        smask = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
-        if self.window is not None:
-            # window column c holds position nc*C + c, segment row t sits at
-            # seg_start + t
-            low = (seg_start + rows)[:, None] - self.window
-            wmask = wmask & ((nc * C + cols)[None, :] > low)
-            smask = smask & (rows[None, :] > rows[:, None] - self.window)
         p_win = attention_partials(q, kwin.transpose(1, 2), vwin.transpose(1, 2),
-                                   wmask)
-        p_self = attention_partials(q, k, v, smask)
+                                   ctx["wmask"])
+        p_self = attention_partials(q, k, v, ctx["smask"])
         out = merge_partials([p_pool, p_win, p_self]).to(q.dtype)
 
-        seg_rows = (torch.arange(C, device=dev) < seg_valid)[None, None, :, None]
+        seg_rows = ctx["seg_rows"]
         # the Opa scores: the window's columns (zero past wl) and the segment's
-        sc = (self._segment_scores(state, li, q, k, v, (p_pool, p_win, p_self), wmask,
-                                   smask, wl, seg_valid, seg_rows)
+        sc = (self._segment_scores(state, li, q, k, v, (p_pool, p_win, p_self), ctx)
               if self.score_keys else {})
-        if nc_after > nc:
-            self._append(state, (li, nc), kwin[:, :, :C], vwin[:, :, :C],
-                         *(sc[key][0][:, :, :C] if key in sc else None
-                           for key in ("k_score", "v_score")))
-        shift = C if nc_after > nc else 0
-        rebuilt = [(kwin, kwin[:, :, :wl], k.transpose(1, 2)),
-                   (vwin, vwin[:, :, :wl], v.transpose(1, 2))]
+        self._append(self._stage(state), (li,), kwin[:, :, :self.C], vwin[:, :, :self.C],
+                     *(sc[key][0][:, :, :self.C] if key in sc else None
+                       for key in ("k_score", "v_score")))
+        rebuilt = [(kwin, kwin, k.transpose(1, 2)), (vwin, vwin, v.transpose(1, 2))]
         rebuilt += [(state[key][li], *sc[key]) for key in self.score_keys]
         for buf, old, seg in rebuilt:
-            # [old columns ++ segment] shifted by the pack, C + W rows so the
-            # slice [shift, shift + W) never runs off the end
-            tmp = torch.zeros((B, buf.shape[1], C + W, D), dtype=buf.dtype, device=dev)
-            tmp[:, :, :wl] = old[:, :, :wl]
-            tmp[:, :, wl:wl + C] = torch.where(seg_rows, seg, 0).to(buf.dtype)
-            buf.copy_(tmp[:, :, shift:shift + W])
-        state["n_chunks"][li] = nc_after
+            seg = torch.where(seg_rows, seg, 0).to(buf.dtype)
+            buf.copy_(torch.where(ctx["from_old"], old.index_select(2, ctx["i_old"]),
+                                  torch.where(ctx["from_seg"],
+                                              seg.index_select(2, ctx["i_seg"]), 0)
+                                  .to(buf.dtype)))
         return out
 
-    def _segment_scores(self, state, li: int, q, k, v, partials, wmask, smask,
-                        wl: int, seg_valid: int, seg_rows):
+    def _segment_scores(self, state, li: int, q, k, v, partials, ctx):
         """A segment's streaming Opa scores (the JAX package's rule,
         ``segment_attend`` there): {key: (window columns [B, Hkv, W, D], the
         segment's own [B, Hkv, C, D])} f32, the window's the buffer on entry
         plus this segment's, zero at and past ``wl``, the segment's zero at
-        its pad rows.  Only the ``seg_valid`` valid queries count, each for
-        the keys it sees (``wmask`` [T, W] the window's, ``smask`` [T, T]
-        the causal self mask).  K: the sum over those queries of
+        its pad rows (``ctx``: ``segment_context``'s, whose ``wmask_q``
+        [T, W] and ``smask_q`` [T, T] are the window's and the causal self
+        masks cut to the ``seg_valid`` valid queries).  Only those queries
+        count, each for the keys it sees.  K: the sum over those queries of
         |mean_g |q||, times |k|.  V: p = exp(s - M) / L, M and L the merged
         stats of the pool, window and self partials (``partials``, the
         (acc, m, l) triples that ``merge_partials`` merged for the output,
@@ -603,10 +668,7 @@ class CompressedKVCache:
         Hkv = self.model.num_kv_heads
         G = Hq // Hkv
         f32 = torch.float32
-        dev = q.device
-        qvalid = torch.arange(T, device=dev) < seg_valid
-        wmask_q = wmask & qvalid[:, None]                       # [T, W]
-        smask_q = smask & qvalid[:, None] & qvalid[None, :]     # [T, T]
+        wmask_q, smask_q = ctx["wmask_q"], ctx["smask_q"]
         # the window's and the segment's K and V [B, Hkv, W or C, D], the
         # operands each key's score multiplies
         kx = (state["k_win"][li], k.transpose(1, 2))
@@ -630,7 +692,7 @@ class CompressedKVCache:
                 p = torch.where(mask[None, :, None, None, :], torch.exp(s - Mg) / Lg, 0.0)
                 return p.sum(dim=3).sum(dim=1)[..., None]       # [B, Hkv, S, 1]
             contrib["v_score"] = (probs(kx[0], wmask_q), probs(kx[1], smask_q))
-        win_cols = (torch.arange(self.wcap, device=dev) < wl)[None, None, :, None]
+        win_cols, seg_rows = ctx["win_cols"], ctx["seg_rows"]
         sc = {}
         for key in self.score_keys:
             (cw, cs), (xw, xs) = contrib[key], operand[key]
@@ -638,12 +700,33 @@ class CompressedKVCache:
                        torch.where(seg_rows, cs * xs.to(f32).abs(), 0.0))
         return sc
 
-    def finalize_segment(self, state, seg_start: int, true_len: int) -> dict:
-        """After every layer's ``segment_attend``: the host count follows
-        the chunk the layers packed (if any)."""
-        state["nc_host"] = self._segment_counts(state["nc_host"], seg_start,
-                                                true_len)[2]
+    def finalize_segment(self, state, seg_start, true_len, ctx=None) -> dict:
+        """After every layer's ``segment_attend``: the staged chunk goes into
+        pool slot n_chunks (clipped into the pool) of every layer where a
+        chunk is due (``torch.where`` through a device index: a slot not
+        packed keeps its bytes), and the counts move to the chunks after the
+        segment, all on the device.  With host ints the host count follows
+        (``segment_host_count``); a caller that passes device counts (the
+        graphed segment) moves it itself.  ``ctx``: the segment's
+        ``segment_context``, made before the layers (here when None)."""
+        n_chunks = state["n_chunks"]
+        if ctx is None:
+            ctx = self.segment_context(state, seg_start, true_len)
+        nc, nc_after, do_pack = ctx["nc"], ctx["nc_after"], ctx["do_pack"]
+        slot = nc.clamp(0, self.max_chunks - 1)
+        for key, staged in self._stage(state).items():
+            pool = state[key]                                   # [L, mc, ...]
+            cur = pool.index_select(1, slot)
+            pool.index_copy_(1, slot, torch.where(do_pack, staged.unsqueeze(1), cur))
+        n_chunks.copy_(nc_after.to(n_chunks.dtype).expand_as(n_chunks))
+        if not torch.is_tensor(seg_start):
+            state["nc_host"] = self.segment_host_count(state["nc_host"], seg_start,
+                                                       true_len)
         return state
+
+    def segment_host_count(self, nc: int, seg_start: int, true_len: int) -> int:
+        """The host copy of n_chunks after a segment at ``seg_start``."""
+        return self._segment_counts(nc, seg_start, true_len)[2]
 
 
 def _contig(t):

@@ -18,7 +18,13 @@
 // [B,T,Hq,1] f32 (no chunk: acc 0, m -1e30, l 0); the caller merges them
 // with the window and causal-self partials.  One step per chunk is the TPU
 // kernel's: its grouping of chunk DMAs (fdepth) does not change the steps.
-// No pool chunk at or past n_chunks is read.
+// No pool chunk at or past n_chunks is read.  The TPU kernel takes
+// n_chunks and seg_start by scalar prefetch, so one compile serves every
+// segment; here each CTA reads them from int32 device memory and clamps
+// them (n_chunks into [0, mc], seg_start to 0 up), and the grid depends on
+// T, G and B*Hkv alone, so one launch, captured in a CUDA graph, replays at
+// every segment.  At n_chunks 0 the kernel still launches and writes what
+// no chunk gives (acc 0, m -1e30, l 0).
 //
 // The sliding window (window > 0): query row t*G + g sits at position
 // seg_start + t and sees the pool columns past seg_start + t - window, so
@@ -306,8 +312,13 @@ q_segment_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, Hq, D]
                  float* __restrict__ acc_out,              // [B, T, Hq, D]
                  float* __restrict__ m_out,                // [B, T, Hq]
                  float* __restrict__ l_out,                // [B, T, Hq]
-                 int BH, int hkv, int G, int T, int max_chunks, int n_chunks, int li,
-                 int seg_start, int window) {
+                 const int* __restrict__ n_chunks_at,      // [1] int32
+                 const int* __restrict__ seg_start_at,     // [1] int32
+                 int BH, int hkv, int G, int T, int max_chunks, int li, int window) {
+  // the counts, read on the device as the TPU kernel reads its scalar
+  // prefetch, and clamped: n_chunks into [0, max_chunks], seg_start to 0 up
+  const int n_chunks = min(max(*n_chunks_at, 0), max_chunks);
+  const int seg_start = max(*seg_start_at, 0);
   constexpr int K_ROWS = ROWS_OF<KB>;
   constexpr int V_ROWS = ROWS_OF<VB>;
   constexpr int ROWS = K_ROWS + V_ROWS;
@@ -530,8 +541,8 @@ q_segment_kernel(const __nv_bfloat16* __restrict__ q,      // [B, T, Hq, D]
 
 template <int KB, int VB>
 int launch(const void* q, const void* pool, const void* scales, void* acc, void* m,
-           void* l, int BH, int hkv, int G, int T, int max_chunks, int n_chunks,
-           int li, int seg_start, int window, int device, cudaStream_t stream) {
+           void* l, const void* n_chunks, const void* seg_start, int BH, int hkv, int G,
+           int T, int max_chunks, int li, int window, int device, cudaStream_t stream) {
   const int smem = (int)Tail<ROWS_OF<KB> + ROWS_OF<VB>>::BYTES;
   const cudaError_t err =
       smem::allow_dynamic_smem<q_segment_kernel<KB, VB>>(smem, device);
@@ -540,8 +551,8 @@ int launch(const void* q, const void* pool, const void* scales, void* acc, void*
   q_segment_kernel<KB, VB><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const int16_t*>(pool),
       static_cast<const __nv_bfloat16*>(scales), static_cast<float*>(acc),
-      static_cast<float*>(m), static_cast<float*>(l), BH, hkv, G, T, max_chunks,
-      n_chunks, li, seg_start, window);
+      static_cast<float*>(m), static_cast<float*>(l), static_cast<const int*>(n_chunks),
+      static_cast<const int*>(seg_start), BH, hkv, G, T, max_chunks, li, window);
   return (int)cudaGetLastError();
 }
 
@@ -551,28 +562,30 @@ int launch(const void* q, const void* pool, const void* scales, void* acc, void*
 // 256 * (kbits + vbits) / 16; (kbits, vbits) one of (8, 8), (8, 4), (4, 4));
 // scales [L, mc, B*Hkv, 2, 128] bf16; acc [B, T, Hkv*G, 128] f32; m, l
 // [B, T, Hkv*G, 1] f32.  All contiguous and 16-byte aligned; shapes checked
-// by the caller.  `device` is the ordinal the tensors and the stream belong
-// to; BH = B * hkv.  `seg_start` the segment's first position; `window`
-// the sliding window, 0 for none.
+// by the caller.  `n_chunks` and `seg_start` are int32 scalars in device
+// memory (the segment's packed chunks and first position), which the
+// kernel reads and clamps, so one launch (and a CUDA graph that holds it)
+// serves every segment.  `device` is the ordinal the tensors and the
+// stream belong to; BH = B * hkv; `window` the sliding window, 0 for none.
 extern "C" int q_segment_attention(const void* q, const void* pool, const void* scales,
-                                   void* acc, void* m, void* l, int device, int kbits,
-                                   int vbits, int BH, int hkv, int G, int T,
-                                   int max_chunks, int n_chunks, int li, int seg_start,
+                                   void* acc, void* m, void* l, const void* n_chunks,
+                                   const void* seg_start, int device, int kbits, int vbits,
+                                   int BH, int hkv, int G, int T, int max_chunks, int li,
                                    int window, void* stream) {
-  if (hkv < 1 || BH % hkv || G < 1 || T < 1 || n_chunks < 0 ||
-      n_chunks > max_chunks || li < 0 || seg_start < 0 || window < 0)
+  if (hkv < 1 || BH % hkv || G < 1 || T < 1 || max_chunks < 1 || li < 0 || window < 0 ||
+      n_chunks == nullptr || seg_start == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kbits == 8 && vbits == 8)
-    return launch<8, 8>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks,
-                        n_chunks, li, seg_start, window, device, s);
+    return launch<8, 8>(q, pool, scales, acc, m, l, n_chunks, seg_start, BH, hkv, G, T,
+                        max_chunks, li, window, device, s);
   if (kbits == 8 && vbits == 4)
-    return launch<8, 4>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks,
-                        n_chunks, li, seg_start, window, device, s);
+    return launch<8, 4>(q, pool, scales, acc, m, l, n_chunks, seg_start, BH, hkv, G, T,
+                        max_chunks, li, window, device, s);
   if (kbits == 4 && vbits == 4)
-    return launch<4, 4>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks,
-                        n_chunks, li, seg_start, window, device, s);
+    return launch<4, 4>(q, pool, scales, acc, m, l, n_chunks, seg_start, BH, hkv, G, T,
+                        max_chunks, li, window, device, s);
   return (int)cudaErrorInvalidValue;
 }

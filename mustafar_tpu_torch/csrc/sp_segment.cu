@@ -23,6 +23,11 @@
 // partials.  The TPU fetches chunks `fdepth` at a time and masks the ones
 // at or past n_chunks in the last fetch; those steps are exactly zero, so
 // here they are skipped, and no pool chunk at or past n_chunks is read.
+// The TPU kernel takes n_chunks and seg_start by scalar prefetch; here
+// every CTA reads them from int32 device memory and clamps them (n_chunks
+// into [0, mc], seg_start to 0 up), and the grid depends on T, G and
+// B*Hkv alone, so one launch, captured in a CUDA graph, replays at every
+// segment.  At n_chunks 0 it still launches and writes what no chunk gives.
 //
 // The sliding window (window > 0), the TPU's rule: query row t*G + g sits
 // at position seg_start + t and sees the pool columns past seg_start + t -
@@ -220,8 +225,15 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
                   float* __restrict__ acc_out,           // [B, T, Hq, D]
                   float* __restrict__ m_out,             // [B, T, Hq]
                   float* __restrict__ l_out,             // [B, T, Hq]
-                  int BH, int hkv, int G, int T, int max_chunks, int n_chunks,
-                  int li, int seg_start, int window, Fmt<QBITS> kf, Fmt<QBITS> vf) {
+                  const int* __restrict__ n_chunks_at,  // [1] int32
+                  const int* __restrict__ seg_start_at, // [1] int32
+                  int BH, int hkv, int G, int T, int max_chunks, int li, int window,
+                  Fmt<QBITS> kf, Fmt<QBITS> vf) {
+  // the counts, read on the device as the TPU kernel reads its scalar
+  // prefetch, and clamped: every CTA of a cluster reads the same values, so
+  // all run the same chunk loop and meet at every cluster.sync()
+  const int n_chunks = min(max(*n_chunks_at, 0), max_chunks);
+  const int seg_start = max(*seg_start_at, 0);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<QBITS>& sm = *reinterpret_cast<Smem<QBITS>*>(smem_raw);
   int16_t* stage = reinterpret_cast<int16_t*>(smem_raw + sizeof(Smem<QBITS>));
@@ -459,9 +471,10 @@ sp_segment_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
 
 template <int QBITS>
 cudaError_t launch(const void* q, const void* pool, const void* scales, void* acc, void* m,
-                   void* l, int BH, int hkv, int G, int T, int max_chunks, int n_chunks,
-                   int li, int seg_start, int window, int k0, int k1, int vk0, int vk1,
-                   int cluster, int tiles, int device, cudaStream_t stream) {
+                   void* l, const void* n_chunks, const void* seg_start, int BH, int hkv,
+                   int G, int T, int max_chunks, int li, int window, int k0, int k1,
+                   int vk0, int vk1, int cluster, int tiles, int device,
+                   cudaStream_t stream) {
   bool k_ok, v_ok;
   const Fmt<QBITS> kf = bitmap::make_fmt<QBITS>(k0, k1, &k_ok);
   const Fmt<QBITS> vf = bitmap::make_fmt<QBITS>(vk0, vk1, &v_ok);
@@ -486,8 +499,9 @@ cudaError_t launch(const void* q, const void* pool, const void* scales, void* ac
                            static_cast<const int16_t*>(pool),
                            static_cast<const __nv_bfloat16*>(scales),
                            static_cast<float*>(acc), static_cast<float*>(m),
-                           static_cast<float*>(l), BH, hkv, G, T, max_chunks, n_chunks, li,
-                           seg_start, window, kf, vf);
+                           static_cast<float*>(l), static_cast<const int*>(n_chunks),
+                           static_cast<const int*>(seg_start), BH, hkv, G, T, max_chunks, li,
+                           window, kf, vf);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -529,16 +543,18 @@ cudaError_t max_clusters(int k0, int k1, int vk0, int vk1, int cluster, int devi
 // (vk0, vk1) the K and V streams' segment widths (k1 = 0: one segment);
 // `tiles` row tiles of 128 query rows a kv head in clusters of `cluster`
 // (1, 2, 4 or 8; `tiles` a multiple of it), covering the T*G rows with no
-// cluster wholly past them.  `seg_start` the segment's first position;
-// `window` the sliding window, 0 for none.  A cluster launch the card
-// refuses returns its error.
+// cluster wholly past them.  `n_chunks` and `seg_start` are int32 scalars
+// in device memory (the segment's packed chunks and first position), which
+// the kernel reads and clamps, so one launch (and a CUDA graph that holds
+// it) serves every segment; `window` the sliding window, 0 for none.  A
+// cluster launch the card refuses returns its error.
 extern "C" int sp_segment(const void* q, const void* pool, const void* scales, void* acc,
-                          void* m, void* l, int device, int qbits, int BH, int hkv, int G,
-                          int T, int max_chunks, int n_chunks, int li, int seg_start,
-                          int window, int k0, int k1, int vk0, int vk1, int cluster,
-                          int tiles, void* stream) {
-  if (hkv < 1 || BH % hkv || G < 1 || T < 1 || n_chunks < 0 ||
-      n_chunks > max_chunks || li < 0 || seg_start < 0 || window < 0 || cluster < 1 ||
+                          void* m, void* l, const void* n_chunks, const void* seg_start,
+                          int device, int qbits, int BH, int hkv, int G, int T,
+                          int max_chunks, int li, int window, int k0, int k1, int vk0,
+                          int vk1, int cluster, int tiles, void* stream) {
+  if (hkv < 1 || BH % hkv || G < 1 || T < 1 || max_chunks < 1 || n_chunks == nullptr ||
+      seg_start == nullptr || li < 0 || window < 0 || cluster < 1 ||
       cluster > MAX_CLUSTER ||
       (cluster & (cluster - 1)) || tiles < cluster || tiles % cluster ||
       (long long)tiles * BLOCK_ROWS < (long long)T * G ||
@@ -548,11 +564,11 @@ extern "C" int sp_segment(const void* q, const void* pool, const void* scales, v
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (qbits == 16)
-    err = launch<16>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks, n_chunks, li,
-                     seg_start, window, k0, k1, vk0, vk1, cluster, tiles, device, s);
+    err = launch<16>(q, pool, scales, acc, m, l, n_chunks, seg_start, BH, hkv, G, T,
+                     max_chunks, li, window, k0, k1, vk0, vk1, cluster, tiles, device, s);
   else if (qbits == 8)
-    err = launch<8>(q, pool, scales, acc, m, l, BH, hkv, G, T, max_chunks, n_chunks, li,
-                    seg_start, window, k0, k1, vk0, vk1, cluster, tiles, device, s);
+    err = launch<8>(q, pool, scales, acc, m, l, n_chunks, seg_start, BH, hkv, G, T,
+                    max_chunks, li, window, k0, k1, vk0, vk1, cluster, tiles, device, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

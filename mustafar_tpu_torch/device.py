@@ -16,3 +16,13 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def device_int(x, device) -> torch.Tensor:
+    """A count as a 0-d int64 tensor on ``device``: a tensor as it is
+    (reshaped, cast), a host int filled in by a kernel, with no
+    host-to-device copy (a copy from pageable memory waits for the
+    stream)."""
+    if torch.is_tensor(x):
+        return x.reshape(()).to(torch.int64)
+    return torch.full((), int(x), dtype=torch.int64, device=device)

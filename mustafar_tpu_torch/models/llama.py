@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from mustafar_tpu_torch.config import ModelConfig
-from mustafar_tpu_torch.device import resolve_device
+from mustafar_tpu_torch.device import device_int, resolve_device
 from mustafar_tpu_torch.models.moe import init_moe_params, moe_mlp
 from mustafar_tpu_torch.models.quant import embed_lookup, proj, w8a8_dot
 from mustafar_tpu_torch.models.rope import apply_rope, rope_cos_sin
@@ -159,22 +159,29 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
     """Shared forward, ``mode`` in {"prefill", "prefill_segment", "decode"}.
 
     tokens [B, T] int64; positions [T] (or [B, 1], per-slot decode).
-    ``aux`` is the host int ``true_len`` (prefill), the host ints
-    ``(seg_start, true_len)`` (a chunked-prefill segment) or ``pos`` (decode:
-    a host int, or a [B] device tensor of per-slot positions).  ``last_only``
-    computes the LM head at the prompt's last position only ([B, 1, V]):
-    ``true_len - 1``, or ``true_len - 1 - seg_start`` within a segment.  The
-    cache is updated in place and returned with the f32 logits.  ``tp``:
-    the rank's ``ModelShard`` under tensor parallelism (module note)."""
+    ``aux`` is the host int ``true_len`` (prefill), ``(seg_start,
+    true_len)`` (a chunked-prefill segment: host ints, or 0-d int64 device
+    tensors, as the graphed segment reads them) or ``pos`` (decode: a host
+    int, a 0-d device tensor, or a [B] device tensor of per-slot
+    positions).  ``last_only`` computes the LM head at the prompt's last
+    position only ([B, 1, V]): ``true_len - 1``, or ``true_len - 1 -
+    seg_start`` within a segment (clipped into it; a device index there).
+    The cache is updated in place and returned with the f32 logits.
+    ``tp``: the rank's ``ModelShard`` under tensor parallelism (module
+    note)."""
     if mode == "prefill":
         def attend_at(li):
             return lambda q, k, v: cache_impl.prefill_attend(cache, li, q, k, v, aux)
     elif mode == "prefill_segment":
-        seg_start, true_len = aux
+        # one segment program: host counts go to the device once, and every
+        # layer reads them there
+        seg_start, true_len = (device_int(x, tokens.device) for x in aux)
+        # and what no layer changes (counts, masks) is made once a segment
+        ctx = cache_impl.segment_context(cache, seg_start, true_len)
 
         def attend_at(li):
             return lambda q, k, v: cache_impl.segment_attend(
-                cache, li, q, k, v, seg_start, true_len)
+                cache, li, q, k, v, seg_start, true_len, ctx=ctx)
     elif mode == "decode":
         def attend_at(li):
             return lambda q, k, v: cache_impl.decode_attend(cache, li, q, k, v, aux)
@@ -185,14 +192,15 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
                             cfg.rope_scaling)
     x = run_layers(cfg, params["layers"], x, cos, sin, attend_at, tp)
     if mode == "prefill_segment":
-        cache_impl.finalize_segment(cache, seg_start, true_len)
+        cache_impl.finalize_segment(cache, *aux, ctx=ctx)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if last_only:
         if mode == "prefill_segment":
-            idx = min(max(true_len - 1 - seg_start, 0), tokens.shape[1] - 1)
+            idx = (true_len - 1 - seg_start).clamp(0, tokens.shape[1] - 1)
+            x = x.index_select(1, idx.reshape(1))
         else:
             idx = max(aux - 1, 0)
-        x = x[:, idx:idx + 1]
+            x = x[:, idx:idx + 1]
     return _lm_head(cfg, params, x, tp), cache
 
 
@@ -239,10 +247,13 @@ def prefill(cfg: ModelConfig, params, tokens, cache, cache_impl, true_len: int,
 
 
 def prefill_segment(cfg: ModelConfig, params, seg_tokens, cache, cache_impl,
-                    seg_start: int, true_len: int, tp=None):
+                    seg_start, true_len, tp=None):
     """One chunked-prefill segment: seg_tokens [B, C] at positions
     [seg_start, seg_start + C) -> (logits at the prompt's last position
-    within the segment [B, 1, V], cache)."""
+    within the segment [B, 1, V], cache).  ``seg_start`` and ``true_len``:
+    host ints (the cache's host count follows), or 0-d int64 device tensors
+    (the static segment a CUDA graph replays: nothing is read on the host,
+    and the caller moves the host count, ``segment_host_count``)."""
     positions = seg_start + torch.arange(seg_tokens.shape[1], device=seg_tokens.device)
     return forward(cfg, params, seg_tokens, cache, cache_impl, positions,
                    "prefill_segment", (seg_start, true_len), last_only=True, tp=tp)
@@ -251,6 +262,15 @@ def prefill_segment(cfg: ModelConfig, params, seg_tokens, cache, cache_impl,
 def n_segments(true_len: int, C: int) -> int:
     """Chunked-prefill segments of a prompt of ``true_len`` tokens."""
     return -(-true_len // C)
+
+
+def check_chunked(T: int, true_len: int, C: int):
+    """Refuses a chunked prefill of ``true_len`` of T padded tokens that is
+    not made of C-token segments."""
+    if T % C:
+        raise ValueError(f"chunked prefill takes a multiple of {C} tokens, got {T}")
+    if not 1 <= true_len <= T:
+        raise ValueError(f"true_len {true_len} outside the {T} prompt tokens")
 
 
 def prefill_chunked(cfg: ModelConfig, params, tokens, cache, cache_impl,
@@ -267,11 +287,7 @@ def prefill_chunked(cfg: ModelConfig, params, tokens, cache, cache_impl,
     window longer than the cache's.  (The JAX package runs every segment of
     the bucket, and so differs from this at a bucket past C.)"""
     C = cache_impl.C
-    T = tokens.shape[1]
-    if T % C:
-        raise ValueError(f"chunked prefill takes a multiple of {C} tokens, got {T}")
-    if not 1 <= true_len <= T:
-        raise ValueError(f"true_len {true_len} outside the {T} prompt tokens")
+    check_chunked(tokens.shape[1], true_len, C)
     logits = None
     for seg_start in range(0, n_segments(true_len, C) * C, C):
         logits, cache = prefill_segment(cfg, params, tokens[:, seg_start:seg_start + C],

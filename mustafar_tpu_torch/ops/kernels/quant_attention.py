@@ -58,7 +58,11 @@ host int is put there first), read by the kernel, whose grid is sized from
 the pool's and the window's capacity alone (``uniform_grid``).  So the
 decode step that calls it holds no host value, and a CUDA graph of the step
 replays at every position; the CPU's plain versions read the counts from
-the tensors they are given.
+the tensors they are given.  The segment kernel takes ``n_chunks`` and
+``seg_start`` the same way (``segment_device_counts``), on a grid of T, G
+and B*Hkv alone, so a graph of a chunked-prefill segment replays at every
+segment; its plain version reads nothing on the host (a static loop over
+the pool's chunks, masked past n_chunks: ``segment_steps``).
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ import functools
 
 import torch
 
+from mustafar_tpu_torch.device import device_int
 from mustafar_tpu_torch.ops import quant_format as qf
 from mustafar_tpu_torch.ops.attention import merge_partials
 from mustafar_tpu_torch.ops.kernels import build
@@ -373,11 +378,12 @@ def ps_split_steps(q, BH: int, n_chunks, win_len, mc: int, slot_step, k_win, v_w
                         torch.cat(probs), norm, win_probs)
 
 
-def segment_row_lows(T: int, G: int, seg_start: int, window, device=None):
+def segment_row_lows(T: int, G: int, seg_start, window, device=None):
     """The newest pool column a sliding ``window`` masks for each of a kv
     head's T*G segment query rows (row t*G + g sits at position seg_start +
     t and sees the columns past seg_start + t - window) -> [T*G] int64, or
-    None without a window."""
+    None without a window.  ``seg_start`` a host int or a one-element
+    tensor."""
     if window is None:
         return None
     t = torch.arange(T * G, device=device) // G
@@ -394,7 +400,7 @@ def segment_first_chunk(seg_start: int, t_first: int, window, n_chunks: int) -> 
     return min(max(seg_start + t_first - window + 1, 0) // 256, n_chunks)
 
 
-def segment_steps(q_seg, BH: int, n_chunks: int, chunk_step, seg_start: int = 0,
+def segment_steps(q_seg, BH: int, mc: int, n_chunks, chunk_step, seg_start=0,
                   window=None):
     """The segment kernels' steps, shared by every codec's plain version:
     every query row (token t, head of kv head h; row t*G + g) attends the
@@ -405,23 +411,35 @@ def segment_steps(q_seg, BH: int, n_chunks: int, chunk_step, seg_start: int = 0,
     Returns the unnormalised partials (acc [B,T,Hq,D] f32, m [B,T,Hq,1],
     l [B,T,Hq,1]); with no chunk, m = -1e30, l = 0.  A row with no live
     column keeps m = -1e30 (its l and acc are finite sums over masked
-    columns, which ``merge_partials`` weighs 0 beside a live partial)."""
+    columns, which ``merge_partials`` weighs 0 beside a live partial).
+
+    ``n_chunks`` and ``seg_start`` are the kernels' counts: one-element
+    tensors (or host ints), read with no host read, as the kernels read
+    them (``segment_counts``: clamped into [0, mc] and to 0 up).  The loop
+    runs over all ``mc`` chunks the pool holds, and a chunk at or past
+    n_chunks leaves the state as it was (a select, so the result is the
+    loop's over n_chunks bit for bit): the static program a CUDA graph of
+    the segment holds."""
     B, T, Hq, D = q_seg.shape
     Hkv = BH // B
     G = Hq // Hkv
     f32 = torch.float32
+    dev = q_seg.device
+    nc, start = segment_counts(n_chunks, seg_start, mc, dev)
     qf32 = (q_seg.to(torch.bfloat16).to(f32).reshape(B, T, Hkv, G, D)
             .permute(0, 2, 1, 3, 4).reshape(BH, T * G, D))
-    m = torch.full((BH, T * G, 1), NEG_INF, dtype=f32, device=q_seg.device)
-    l = torch.zeros((BH, T * G, 1), dtype=f32, device=q_seg.device)
-    acc = torch.zeros((BH, T * G, D), dtype=f32, device=q_seg.device)
-    lows = segment_row_lows(T, G, seg_start, window, q_seg.device)
-    for ci in range(n_chunks):
+    m = torch.full((BH, T * G, 1), NEG_INF, dtype=f32, device=dev)
+    l = torch.zeros((BH, T * G, 1), dtype=f32, device=dev)
+    acc = torch.zeros((BH, T * G, D), dtype=f32, device=dev)
+    lows = segment_row_lows(T, G, start, window, dev)
+    for ci in range(mc):
         sc, vc, vs = chunk_step(qf32, ci)
-        if lows is not None and ci * 256 <= int(lows.max()):
-            cols = ci * 256 + torch.arange(256, device=q_seg.device)
+        if lows is not None:
+            cols = ci * 256 + torch.arange(256, device=dev)
             sc = sc.masked_fill(cols[None, :] <= lows[:, None], NEG_INF)
-        m, l, acc = _softmax_step(m, l, acc, sc, vc, vs)
+        live = ci < nc
+        m, l, acc = (torch.where(live, new, old) for new, old in
+                     zip(_softmax_step(m, l, acc, sc, vc, vs), (m, l, acc)))
 
     def unfold(x):
         return (x.reshape(B, Hkv, T, G, x.shape[-1]).permute(0, 2, 1, 3, 4)
@@ -811,35 +829,73 @@ fused_q_decode_attention_ps.launches = 0
 # Segment partials over the pools (chunked prefill)
 # ---------------------------------------------------------------------------
 
-def fused_q_segment_attention_plain(q_seg, kv_pool, kv_scales, n_chunks: int,
-                                    li: int, codec: qf.QuantCodec, seg_start: int = 0,
-                                    window=None):
+def segment_counts(n_chunks, seg_start, mc: int, device):
+    """A segment's counts as the plain versions read them: int64 tensors
+    [1] on ``device``, n_chunks clamped into [0, mc] and seg_start to 0 up,
+    as the kernels clamp what they read; no host read."""
+    nc, start = (device_int(x, device).reshape(1) for x in (n_chunks, seg_start))
+    return nc.clamp(0, mc), start.clamp_min(0)
+
+
+def segment_device_counts(q_seg, n_chunks, seg_start, mc: int, chunk: int = 256):
+    """The segment kernels' counts as they read them: int32 tensors of one
+    element on q_seg's device (``device_counts``).  A tensor is taken as it
+    is (the kernel clamps it); a host int is checked (n_chunks in [0, mc],
+    seg_start at or past the n_chunks packed chunks where both are host
+    ints) and filled into one."""
+    out = []
+    for name, n in (("n_chunks", n_chunks), ("seg_start", seg_start)):
+        if torch.is_tensor(n):
+            if n.numel() != 1 or n.dtype != torch.int32 or not n.is_contiguous():
+                raise ValueError(f"{name} must be an int or a contiguous int32 tensor of "
+                                 f"one element, got {n.dtype} {tuple(n.shape)}")
+            if n.device != q_seg.device:
+                raise ValueError(f"{name} is on {n.device}, q_seg on {q_seg.device}")
+        else:
+            _check_int(name, n, 0, mc if name == "n_chunks" else INT_MAX)
+            n = torch.full((1,), n, dtype=torch.int32, device=q_seg.device)
+        out.append(n)
+    if not torch.is_tensor(n_chunks) and not torch.is_tensor(seg_start) \
+            and seg_start < n_chunks * chunk:
+        raise ValueError(f"seg_start must be at or past the {n_chunks} packed chunks, "
+                         f"got {seg_start}")
+    return out
+
+
+def fused_q_segment_attention_plain(q_seg, kv_pool, kv_scales, n_chunks, li: int,
+                                    codec: qf.QuantCodec, seg_start=0, window=None):
     """The segment kernel's arithmetic (``segment_steps`` with the codec's
     chunk step: scores bf16(bf16(q) * kscale) . codes / sqrt(128), the V
-    scale after the value product)."""
-    return segment_steps(q_seg, kv_pool.shape[2], n_chunks,
+    scale after the value product), over the pool's mc chunks, at counts
+    given as the kernel takes them or as host ints."""
+    return segment_steps(q_seg, kv_pool.shape[2], kv_pool.shape[1], n_chunks,
                          _q_chunk_step(kv_pool, kv_scales, li, codec), seg_start, window)
 
 
-def fused_q_segment_attention(q_seg, kv_pool, kv_scales, n_chunks: int,
-                              seg_start: int, li: int, codec: qf.QuantCodec, *,
-                              window=None):
+def fused_q_segment_attention(q_seg, kv_pool, kv_scales, n_chunks, seg_start, li: int,
+                              codec: qf.QuantCodec, *, window=None):
     """Flash partials of a chunked-prefill segment over layer ``li``'s first
     ``n_chunks`` pool chunks: (acc [B,Tseg,Hq,128] f32, m, l [B,Tseg,Hq,1]
     f32), unnormalised; ``ops.attention.merge_partials`` merges them with
     the window and causal-self partials.  ``n_chunks`` is uniform across the
-    batch and known on the host (chunked prefill advances every row in
-    lockstep); ``seg_start`` is the segment's first position, at or past
-    the packed chunks.  With a sliding ``window`` (an int >= 1) the row of
-    token t sees only the pool columns past seg_start + t - window
-    (``segment_steps``); a row with none comes out with m = -1e30 and
-    finite l and acc, weighed 0 by the merge.
+    batch (chunked prefill advances every row in lockstep); ``seg_start`` is
+    the segment's first position, at or past the packed chunks.  With a
+    sliding ``window`` (an int >= 1) the row of token t sees only the pool
+    columns past seg_start + t - window (``segment_steps``); a row with none
+    comes out with m = -1e30 and finite l and acc, weighed 0 by the merge.
+
+    ``n_chunks`` and ``seg_start`` are the TPU kernel's scalar-prefetch
+    counts: int32 tensors of one element on q_seg's device, which the kernel
+    reads (clamped into [0, mc] and to 0 up), or host ints (checked, and
+    filled into such tensors: ``segment_device_counts``).  Nothing here
+    reads them, so a call holds no host value and a CUDA graph replays it at
+    every segment.
 
     CUDA tensors launch the kernel of ``csrc/q_segment.cu`` (built at first
     use) on the current stream, whose CTAs leave out the chunks dead for
-    their oldest row (``segment_first_chunk``); CPU tensors run the plain
-    version.  A CUDA request the kernel cannot serve raises; nothing falls
-    back."""
+    their oldest row (``segment_first_chunk``); at no chunk it still
+    launches.  CPU tensors run the plain version.  A CUDA request the
+    kernel cannot serve raises; nothing falls back."""
     _check_codec(codec, "fused_q_segment_attention")
     check_window(window)
     if q_seg.dim() != 4 or q_seg.shape[3] != 128 or q_seg.shape[1] < 1:
@@ -852,25 +908,22 @@ def fused_q_segment_attention(q_seg, kv_pool, kv_scales, n_chunks: int,
                            ("kv_pool", kv_pool, torch.int16),
                            ("kv_scales", kv_scales, torch.bfloat16)))
     _check_int("li", li, 0, L - 1)
-    _check_int("n_chunks", n_chunks, 0, mc)
-    if not isinstance(seg_start, int) or seg_start < n_chunks * codec.chunk:
-        raise ValueError(f"seg_start must be an int at or past the {n_chunks} "
-                         f"packed chunks, got {seg_start!r}")
+    nc_t, start_t = segment_device_counts(q_seg, n_chunks, seg_start, mc, codec.chunk)
     if q_seg.device.type == "cpu":
-        return fused_q_segment_attention_plain(q_seg, kv_pool, kv_scales,
-                                               n_chunks, li, codec, seg_start, window)
+        return fused_q_segment_attention_plain(q_seg, kv_pool, kv_scales, nc_t, li, codec,
+                                               start_t, window)
     stream = _stream(q_seg)
     _check_aligned((("q_seg", q_seg), ("kv_pool", kv_pool), ("kv_scales", kv_scales)))
-    fn = _library("q_segment", "q_segment_attention", 6, 12)
+    fn = _library("q_segment", "q_segment_attention", 8, 10)
     dev = q_seg.device
     acc = torch.empty((B, T, Hq, 128), dtype=torch.float32, device=dev)
     m = torch.empty((B, T, Hq, 1), dtype=torch.float32, device=dev)
     l = torch.empty((B, T, Hq, 1), dtype=torch.float32, device=dev)
     qb = q_seg.to(torch.bfloat16)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), kv_scales.data_ptr(),
-            acc.data_ptr(), m.data_ptr(), l.data_ptr(), dev.index or 0, codec.kbits,
-            codec.vbits, BH, Hkv, Hq // Hkv, T, mc, n_chunks, li, seg_start, window or 0,
-            stream)
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), nc_t.data_ptr(), start_t.data_ptr(),
+            dev.index or 0, codec.kbits, codec.vbits, BH, Hkv, Hq // Hkv, T, mc, li,
+            window or 0, stream)
     if rc != 0:
         raise RuntimeError(f"q_segment_attention launch failed: CUDA error {rc}")
     fused_q_segment_attention.launches += 1

@@ -349,14 +349,14 @@ fused_sparse_decode_attention_ps.launches = 0
 # Segment partials over the pools (chunked prefill)
 # ---------------------------------------------------------------------------
 
-def fused_sparse_segment_attention_plain(q_seg, kv_pool, n_chunks: int, li: int,
-                                         kfmt, vfmt, kv_scales=None, seg_start: int = 0,
-                                         window=None):
+def fused_sparse_segment_attention_plain(q_seg, kv_pool, n_chunks, li: int, kfmt, vfmt,
+                                         kv_scales=None, seg_start=0, window=None):
     """The bitmap segment kernel's arithmetic: one online-softmax step a
     chunk over the expanded K and V, with a sliding ``window`` each row's
     columns at or below its edge scored -1e30
-    (``quant_attention.segment_steps``)."""
-    return qa.segment_steps(q_seg, kv_pool.shape[2], n_chunks,
+    (``quant_attention.segment_steps``: over the pool's mc chunks, at counts
+    given as the kernel takes them or as host ints)."""
+    return qa.segment_steps(q_seg, kv_pool.shape[2], kv_pool.shape[1], n_chunks,
                             _sp_chunk_step(kv_pool, kv_scales, li, kfmt, vfmt),
                             seg_start, window)
 
@@ -377,27 +377,30 @@ def segment_grid(T: int, G: int) -> tuple[int, int]:
     return cluster, -(-tiles // cluster) * cluster
 
 
-def fused_sparse_segment_attention(q_seg, kv_pool, n_chunks: int, seg_start: int,
-                                   li: int, kfmt: sf.ChunkFormat,
-                                   vfmt: sf.ChunkFormat, *, kv_scales=None,
-                                   window=None):
+def fused_sparse_segment_attention(q_seg, kv_pool, n_chunks, seg_start, li: int,
+                                   kfmt: sf.ChunkFormat, vfmt: sf.ChunkFormat, *,
+                                   kv_scales=None, window=None):
     """Flash partials of a chunked-prefill segment over layer ``li``'s first
     ``n_chunks`` bitmap pool chunks: (acc [B,Tseg,Hq,128] f32, m, l
     [B,Tseg,Hq,1] f32), unnormalised, for ``ops.attention.merge_partials``.
-    ``n_chunks`` is uniform across the batch and known on the host;
-    ``seg_start`` is the segment's first position, at or past the packed
-    chunks.  Chunks at or past ``n_chunks`` are never read.  ``kv_scales``
-    as for ``fused_sparse_decode_attention``.  With a sliding ``window`` the
-    row of token t sees only the pool columns past seg_start + t - window
-    (``quant_attention.fused_q_segment_attention``).
+    ``n_chunks`` is uniform across the batch; ``seg_start`` is the segment's
+    first position, at or past the packed chunks.  Both are the TPU
+    kernel's scalar-prefetch counts, taken as
+    ``quant_attention.fused_q_segment_attention`` takes them: int32 tensors
+    of one element on q_seg's device, read by the kernel, or host ints
+    (checked and filled into such tensors), so a CUDA graph replays a call
+    at every segment.  Chunks at or past ``n_chunks`` are never read.
+    ``kv_scales`` as for ``fused_sparse_decode_attention``.  With a sliding
+    ``window`` the row of token t sees only the pool columns past seg_start
+    + t - window.
 
     CUDA tensors launch the kernel of ``csrc/sp_segment.cu`` (built at first
     use; the instance of the formats' value width) on the current stream,
     as thread block clusters over each kv head's row tiles
     (``segment_grid``), each cluster leaving out the chunks dead for its
-    oldest row; CPU tensors run the plain version.  A CUDA request the
-    kernel cannot serve, or a cluster launch the card refuses, raises;
-    nothing falls back."""
+    oldest row; at no chunk it still launches.  CPU tensors run the plain
+    version.  A CUDA request the kernel cannot serve, or a cluster launch the
+    card refuses, raises; nothing falls back."""
     _check_formats(kfmt, vfmt, kv_scales, "fused_sparse_segment_attention")
     qa.check_window(window)
     if q_seg.dim() != 4 or q_seg.shape[3] != 128 or q_seg.shape[1] < 1:
@@ -410,26 +413,22 @@ def fused_sparse_segment_attention(q_seg, kv_pool, n_chunks: int, seg_start: int
                               ("kv_pool", kv_pool, torch.int16),
                               *((n, t, torch.bfloat16) for n, t in _scales(kv_scales))))
     qa._check_int("li", li, 0, L - 1)
-    qa._check_int("n_chunks", n_chunks, 0, mc)
-    if not isinstance(seg_start, int) or seg_start < n_chunks * kfmt.chunk:
-        raise ValueError(f"seg_start must be an int at or past the {n_chunks} "
-                         f"packed chunks, got {seg_start!r}")
+    nc_t, start_t = qa.segment_device_counts(q_seg, n_chunks, seg_start, mc, kfmt.chunk)
     if q_seg.device.type == "cpu":
-        return fused_sparse_segment_attention_plain(q_seg, kv_pool, n_chunks, li,
-                                                    kfmt, vfmt, kv_scales, seg_start,
-                                                    window)
+        return fused_sparse_segment_attention_plain(q_seg, kv_pool, nc_t, li, kfmt, vfmt,
+                                                    kv_scales, start_t, window)
     stream = qa._stream(q_seg)
     qa._check_aligned((("q_seg", q_seg), ("kv_pool", kv_pool), *_scales(kv_scales)))
-    fn = qa._library("sp_segment", "sp_segment", 6, 17)
+    fn = qa._library("sp_segment", "sp_segment", 8, 15)
     dev = q_seg.device
     acc = torch.empty((B, T, Hq, 128), dtype=torch.float32, device=dev)
     m = torch.empty((B, T, Hq, 1), dtype=torch.float32, device=dev)
     l = torch.empty((B, T, Hq, 1), dtype=torch.float32, device=dev)
     qb = q_seg.to(torch.bfloat16)
     rc = fn(qb.data_ptr(), kv_pool.data_ptr(), _ptr(kv_scales), acc.data_ptr(),
-            m.data_ptr(), l.data_ptr(), dev.index or 0, kfmt.qbits, BH, Hkv, Hq // Hkv,
-            T, mc, n_chunks, li, seg_start, window or 0, *_segs(kfmt), *_segs(vfmt),
-            *segment_grid(T, Hq // Hkv), stream)
+            m.data_ptr(), l.data_ptr(), nc_t.data_ptr(), start_t.data_ptr(), dev.index or 0,
+            kfmt.qbits, BH, Hkv, Hq // Hkv, T, mc, li, window or 0, *_segs(kfmt),
+            *_segs(vfmt), *segment_grid(T, Hq // Hkv), stream)
     if rc != 0:
         raise RuntimeError(f"sp_segment launch failed: CUDA error {rc}")
     fused_sparse_segment_attention.launches += 1

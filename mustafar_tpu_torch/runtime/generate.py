@@ -2,9 +2,9 @@
 monolithic or chunked prefill, greedy or sampled token choice.
 
 The JAX package runs prefill and the decode loop on the device in one jit.
-Here prefill runs eagerly and a host loop steps the decode, in one of two
-ways (``Generator(graph=...)``, chosen from the device before anything is
-captured, never from an error):
+Here a host loop steps the decode (and the chunked prefill's segments), in
+one of two ways (``Generator(graph=...)``, chosen from the device before
+anything is captured, never from an error):
   * the compiled decode (the default on the card): one decode step, from a
     static token buffer and a 0-d device position to the logits, runs as a
     ``runtime.graphs.StepGraph``: captured once as a CUDA graph and
@@ -17,11 +17,21 @@ captured, never from an error):
     one compile per key, and the state is zeroed in place for the next
     ``generate``: the graph holds its addresses.  What the key holds: the
     cache at max_seq_len for the batch, and the graph's pool of one step's
-    intermediates.  On the CPU ``graph=True`` runs the same static program,
-    the same callable rerun on the same buffers, which is what the CPU
-    tests hold against the eager loop and the JAX package;
+    intermediates.  With ``EngineConfig.chunked_prefill`` the key also
+    holds the compiled chunked prefill (``StaticSegment``): one whole-model
+    segment, from a static token buffer [B, C] and 0-d ``seg_start`` and
+    ``true_len`` to the last-position logits, writing the same static
+    cache, captured once and replayed for every segment (kernels 3 and 8
+    read ``n_chunks`` and ``seg_start`` on the device; the segment's pack is
+    staged and written under a device predicate); ``last_prefill_replays``
+    says how many segments replayed it.  On the CPU ``graph=True`` runs the
+    same static programs, the same callables rerun on the same buffers,
+    which is what the CPU tests hold against the eager loop and the JAX
+    package;
   * the eager loop (the default on the CPU, ``graph=False`` on the card):
-    every op of every step enqueued from Python at the host's position.
+    every op of every step enqueued from Python at the host's position;
+    the segments run the same segment program (host counts put on the
+    device once a segment), op by op.
 The token choice, the EOS bookkeeping and the output write run eagerly on
 the step's logits in both, so greedy and sampled decoding share either
 path.  ``last_path`` ("graph", "static" or "eager") and ``last_replays``
@@ -33,8 +43,8 @@ place.  EOS handling follows HF greedy: a finished row keeps
 emitting its EOS and the loop stops once every row is done; EOS is
 suppressed for the first ``min_new_tokens`` tokens.  With
 ``EngineConfig.chunked_prefill`` the prompt goes in one C-token segment at a
-time (a host loop over segments, as the JAX package drives it), then the
-same decode loop runs.
+time (a host loop over the ``llama.n_segments(true_len, C)`` segments, as
+the JAX package drives it), then the same decode loop runs.
 
 Sampling (``SamplingParams`` with a temperature above 0) is the JAX
 package's ``_sample``: the logits over the temperature, then top-k (the
@@ -133,10 +143,62 @@ def choose(logits2d: torch.Tensor, sp: SamplingParams, step: int) -> torch.Tenso
     return sample(logits2d, sp, step)
 
 
+class StaticSegment:
+    """The compiled chunked prefill over one cache: the static segment
+    buffers (tokens [B, C], 0-d int64 ``seg_start`` and ``true_len``) and
+    the ``StepGraph`` of one whole-model segment between them, the cache
+    (written in place, ``n_chunks`` read on the device) and the
+    last-position logits [B, 1, V].  ``prefill`` runs a prompt's segments
+    through it, one replay a segment, as the JAX package replays its one
+    jitted segment program from a host loop.  Without ``graph`` the same
+    program reruns eagerly; ``tp``: the rank's ``ModelShard`` (an engine's
+    on a mesh, which stays eager)."""
+
+    def __init__(self, cfg, params, cache: dict, impl, B: int, device, graph: bool,
+                 tp=None):
+        self.cache, self.impl = cache, impl
+        self.tok = torch.zeros((B, impl.C), dtype=torch.int64, device=device)
+        self.seg_start = torch.zeros((), dtype=torch.int64, device=device)
+        self.true_len = torch.zeros((), dtype=torch.int64, device=device)
+        tok, seg_start, true_len = self.tok, self.seg_start, self.true_len
+
+        def segment():
+            return llama.prefill_segment(cfg, params, tok, cache, impl, seg_start, true_len,
+                                         tp)[0]
+
+        self.graph = StepGraph(segment, device, graph)
+
+    def step(self, seg_tokens: torch.Tensor, seg_start: int, true_len: int) -> torch.Tensor:
+        """One segment: seg_tokens [B, C] (on the device), its start and the
+        prompt's length copied into the buffers, the graph replayed; the
+        cache's host count follows on the host (``segment_host_count``).
+        Returns the logits [B, 1, V] (the graph's static output, which the
+        next replay overwrites)."""
+        self.tok.copy_(seg_tokens)
+        self.seg_start.fill_(seg_start)
+        self.true_len.fill_(true_len)
+        logits = self.graph.run()
+        self.cache["nc_host"] = self.impl.segment_host_count(self.cache["nc_host"],
+                                                             seg_start, true_len)
+        return logits
+
+    def prefill(self, toks: torch.Tensor, true_len: int) -> torch.Tensor:
+        """``llama.prefill_chunked`` of toks [B, T] (on the device) into the
+        cache, one ``step`` a segment, over the host count of segments
+        ``llama.n_segments(true_len, C)``.  Returns the last segment's
+        logits [B, 1, V]."""
+        C = self.impl.C
+        llama.check_chunked(toks.shape[1], true_len, C)
+        for seg_start in range(0, llama.n_segments(true_len, C) * C, C):
+            logits = self.step(toks[:, seg_start:seg_start + C], seg_start, true_len)
+        return logits
+
+
 class _StaticDecode:
     """The compiled decode's state for one key: the cache, the static token
     buffer [B, 1] and position (0-d), and the ``StepGraph`` of the step
-    between them and the logits [B, 1, V]."""
+    between them and the logits [B, 1, V]; with chunked prefill also the
+    ``StaticSegment`` over the same cache."""
 
     def __init__(self, gen, B: int, graph: bool):
         cfg, params, impl = gen.cfg, gen.params, gen.cache_impl
@@ -149,6 +211,8 @@ class _StaticDecode:
             return llama.decode_step(cfg, params, tok, cache, impl, pos)[0]
 
         self.graph = StepGraph(step, gen.device, graph)
+        self.segment = (StaticSegment(cfg, params, cache, impl, B, gen.device, graph)
+                        if gen.engine.chunked_prefill else None)
 
 
 class Generator:
@@ -171,6 +235,7 @@ class Generator:
         self.last_path = None       # "graph", "static" or "eager"
         self.last_replays = 0
         self.last_captured = {}     # the step graph's launches a replay, by wrapper
+        self.last_prefill_replays = 0     # the segment graph's (chunked prefill)
 
     def _bucket(self, n: int) -> int:
         b = self.engine.prefill_bucket
@@ -213,9 +278,12 @@ class Generator:
                     self, B, self.device.type == "cuda")
             cache = impl.reset(static.cache)
             replays0 = static.graph.replays
+            seg_replays0 = static.segment.graph.replays if static.segment else 0
         else:
             cache = impl.init(B, self.dtype)
-        if self.engine.chunked_prefill:
+        if static is not None and static.segment is not None:
+            logits = static.segment.prefill(toks, T)
+        elif self.engine.chunked_prefill:
             logits, cache = llama.prefill_chunked(cfg, params, toks, cache, impl, T)
         else:
             logits, cache = llama.prefill(cfg, params, toks, cache, impl, T,
@@ -259,12 +327,15 @@ class Generator:
             if has_compact and impl.window_full(cache, T + i - 1):
                 impl.compact(cache)
         self.last_cache = cache
+        self.last_prefill_replays = 0
         if static is None:
             self.last_path, self.last_replays, self.last_captured = "eager", 0, {}
         else:
             self.last_path = "graph" if static.graph.graph else "static"
             self.last_replays = static.graph.replays - replays0
             self.last_captured = dict(static.graph.captured)
+            if static.segment is not None:
+                self.last_prefill_replays = static.segment.graph.replays - seg_replays0
         result = []
         for row in out.cpu().numpy():
             if eos_ids:

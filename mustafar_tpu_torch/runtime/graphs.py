@@ -1,7 +1,9 @@
-"""The compiled decode: one decode step, from static input buffers to its
-logits, captured once as a CUDA graph and replayed, the port's counterpart
-of the JAX package's jitted decode (the ``Generator``'s ``lax.while_loop``,
-the engine's jitted ``step``).
+"""The compiled decode and chunked prefill: one decode step, or one
+chunked-prefill segment of the whole model, from static input buffers to
+its logits, captured once as a CUDA graph and replayed, the port's
+counterpart of the JAX package's jitted decode (the ``Generator``'s
+``lax.while_loop``, the engine's jitted ``step``) and of its jitted segment
+program (``runtime/generate.py`` ``StaticSegment``).
 
 ``StepGraph(fn, device, graph)`` holds a callable ``fn`` of no arguments
 that reads its inputs from static buffers (a token buffer, a device
@@ -34,6 +36,8 @@ run made of wrapper f are ``f.launches + REPLAYED[f.__name__]``
 from __future__ import annotations
 
 import collections
+import gc
+import time
 
 import torch
 
@@ -72,9 +76,13 @@ def _stream_buffers(device, stream) -> list:
 
 
 class StepGraph:
-    """A decode step from static buffers to its logits, captured and
-    replayed on the card, rerun on the CPU (module note).  ``replays``
-    counts the calls after the first (replays of the graph, or reruns)."""
+    """A step (a decode step, or a chunked-prefill segment) from static
+    buffers to its logits, captured and replayed on the card, rerun on the
+    CPU (module note).  ``replays`` counts the calls after the first
+    (replays of the graph, or reruns).  After a capture, ``capture_s`` is
+    its host time (the capture and the graph's instantiation) and
+    ``capture_bytes`` what the card's memory pool reserved for it (the
+    graph's intermediates)."""
 
     def __init__(self, fn, device, graph: bool):
         self.fn = fn
@@ -86,6 +94,8 @@ class StepGraph:
         self._out = None
         self._held = []
         self._stream = torch.cuda.Stream(self.device) if graph else None
+        self.capture_s = None
+        self.capture_bytes = None
 
     def run(self) -> torch.Tensor:
         if not self.graph:
@@ -108,9 +118,18 @@ class StepGraph:
         with torch.cuda.stream(s):
             out = self.fn()                       # this step, eagerly
         before = {name: fn.launches for name, fn in wrappers.items()}
+        # what the capture itself starts with (it collects and empties the
+        # cache too), so that the pool it reserves is the difference
+        gc.collect()
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=s):
             self._out = self.fn()
+        self.capture_s = time.perf_counter() - t
+        self.capture_bytes = torch.cuda.memory_reserved(self.device) - reserved
         for name, fn in wrappers.items():
             if fn.launches != before[name]:
                 self.captured[name] = fn.launches - before[name]

@@ -29,11 +29,18 @@ its ``step``): each tick copies the slots' last tokens and positions (an
 idle slot's -1, which is the active mask) into one static buffer on the
 device, replays the captured per-slot step (kernels 2 and 7, the dense
 cache's per-slot attention or kernel 4) and reads the tokens back once;
-``_choose`` runs eagerly on the graph's logits.  Admission (prefill,
-chunked segments), insertion and compaction stay eager between replays,
-writing the cache in place.  On the CPU ``graph=True`` reruns the same
-static step (what the CPU tests hold against the eager tick); with a mesh
-the tick stays eager.  ``decode_path`` and ``replays`` say which ran.
+``_choose`` runs eagerly on the graph's logits.  A chunked admission's
+segments (interleaved or blocking) run one whole-model segment program
+(``generate.StaticSegment``) over the engine's one static batch-1
+sub-cache, which is reset in place when an admission starts (admissions
+advance one at a time, at the head): with ``graph`` on the card it is
+captured once and replayed, otherwise (the CPU, ``graph=False``, a mesh)
+the same program reruns eagerly.  The monolithic
+batch-1 prefill, the slot insert, the first token's pick and compaction
+stay eager between replays, writing the cache in place.  On the CPU
+``graph=True`` reruns the same static step and segment (what the CPU tests
+hold against the eager engine); with a mesh the engine stays eager.
+``decode_path``, ``replays`` and ``segment_replays`` say which ran.
 
 The slot bookkeeping lives in the native C++ core (``native/``, built with
 g++ at the engine's first use), as in the JAX package: it refuses a request
@@ -78,7 +85,7 @@ from mustafar_tpu_torch.device import resolve_device
 from mustafar_tpu_torch.models import llama
 from mustafar_tpu_torch.native import slot_scheduler
 from mustafar_tpu_torch.parallel import sharding
-from mustafar_tpu_torch.runtime.generate import GREEDY, SamplingParams, choose
+from mustafar_tpu_torch.runtime.generate import GREEDY, SamplingParams, StaticSegment, choose
 from mustafar_tpu_torch.runtime.graphs import StepGraph
 
 
@@ -163,6 +170,7 @@ class ContinuousBatchingEngine:
         self.segments = 0            # chunked-prefill segments run on this rank
         self._step_graph = None      # the static decode step (graph), built at first use
         self._step_io = None         # its input buffer [2, Bl]: last tokens, positions
+        self._segment = None         # the static admission segment, made at first use
 
     # -- public API -------------------------------------------------------
     def submit(self, tokens, max_new_tokens: int) -> int:
@@ -239,6 +247,12 @@ class ContinuousBatchingEngine:
         which captures)."""
         return 0 if self._step_graph is None else self._step_graph.replays
 
+    @property
+    def segment_replays(self) -> int:
+        """Admission segments run by replaying the captured segment (after
+        its first, which captures); 0 on the eager path."""
+        return 0 if self._segment is None or not self.graph else self._segment.graph.replays
+
     # -- internals --------------------------------------------------------
     def _static_step(self, last: np.ndarray, pos: np.ndarray) -> torch.Tensor:
         """The per-slot decode step through the static buffer and the
@@ -290,18 +304,32 @@ class ContinuousBatchingEngine:
         if self._commit(slot, nxt):
             self._retire(slot)
 
+    def _admission_segment(self) -> StaticSegment:
+        """The static segment of the next chunked admission, over the
+        engine's one batch-1 sub-cache (admissions advance one at a time, at
+        the head), reset in place: with ``graph`` on the card its graph
+        replays, else its program reruns eagerly (with the mesh's ``tp``)."""
+        if self._segment is None:
+            self._segment = StaticSegment(self.cfg, self.params,
+                                          self.impl.init(1, self.dtype), self.impl, 1,
+                                          self.device,
+                                          self.graph and self.device.type == "cuda",
+                                          tp=self.tp)
+        self.impl.reset(self._segment.cache)
+        return self._segment
+
     def _prefill_into_slot(self, req: Request, slot: int):
         """Blocking admission: the whole prefill (monolithic, or every
-        segment when chunked) runs now."""
+        segment of the static segment when chunked) runs now."""
         toks, T = self._padded(req, slot)
         logits = sub = None
         if toks is not None:
-            sub = self.impl.init(1, self.dtype)
             if self.engine.chunked_prefill:
-                logits, sub = llama.prefill_chunked(self.cfg, self.params, toks, sub,
-                                                    self.impl, T, tp=self.tp)
+                seg = self._admission_segment()
+                logits, sub = seg.prefill(toks, T), seg.cache
                 self.segments += llama.n_segments(T, self.impl.C)
             else:
+                sub = self.impl.init(1, self.dtype)
                 logits, sub = llama.prefill(self.cfg, self.params, toks, sub, self.impl,
                                             T, last_only=True, tp=self.tp)
         self._start_slot(req, slot, T, logits, sub)
@@ -322,20 +350,21 @@ class ContinuousBatchingEngine:
         toks, T = self._padded(req, slot)
         self._admissions.append(_Admission(
             req=req, slot=slot, toks=toks, true_len=T,
-            n_seg=llama.n_segments(T, self.impl.C),
-            sub=None if toks is None else self.impl.init(1, self.dtype)))
+            n_seg=llama.n_segments(T, self.impl.C)))
 
     def _admission_tick(self):
-        """Advance the head admission by one C-token segment; once its
-        prompt is absorbed, hand the slot to decode.  The decode step that
-        follows in the same tick keeps every active slot emitting."""
+        """Advance the head admission by one C-token segment (one run of the
+        static segment, ``_admission_segment``, taken when it starts); once
+        its prompt is absorbed, hand the slot to decode.  The decode step
+        that follows in the same tick keeps every active slot emitting."""
         adm = self._admissions[0]
         C = self.impl.C
         s = adm.s
         if adm.toks is not None:
-            adm.logits, adm.sub = llama.prefill_segment(
-                self.cfg, self.params, adm.toks[:, s * C:(s + 1) * C], adm.sub,
-                self.impl, s * C, adm.true_len, tp=self.tp)
+            if s == 0:
+                adm.sub = self._admission_segment().cache
+            adm.logits = self._segment.step(adm.toks[:, s * C:(s + 1) * C], s * C,
+                                            adm.true_len)
             self.segments += 1
         adm.s += 1
         if adm.s < adm.n_seg:

@@ -30,6 +30,8 @@ Tolerances, each with its reason:
            bf16 p) by one ulp.
 """
 
+import functools
+import inspect
 import os
 import subprocess
 import sys
@@ -45,7 +47,23 @@ from mustafar_tpu.ops.kernels import sparse_attention_archive as jar
 from mustafar_tpu_torch.ops import sparse_format as tsf
 from mustafar_tpu_torch.ops.kernels import sparse_attention_archive as tar
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
+
+# The JAX kernels, run in Pallas interpret mode as the JAX package's tests
+# run them, under ``jax.jit`` (as ``tests/test_torch_kernel.py`` calls
+# them): their interpretation compiles once a shape and static argument set
+# (the codec or formats, max_chunks, the window, the options) and then runs
+# in milliseconds, where each eager call took seconds.
+JIT_STATIC = ("codec", "fmt", "kfmt", "vfmt", "max_chunks", "hpb", "ts", "window",
+              "return_norm", "return_win_probs")
+
+
+@functools.cache
+def _jit(fn):
+    """``fn`` under ``jax.jit``, the arguments of ``JIT_STATIC`` that it takes
+    static."""
+    params = inspect.signature(fn).parameters
+    return jax.jit(fn, static_argnames=[name for name in JIT_STATIC if name in params])
 
 W = 288                                   # residual 32 + chunk 256
 ULP = 2.0 ** -8
@@ -102,7 +120,7 @@ def test_key_scores_plain_matches_jax_kernel(G, sparsity):
     BH, mc, nc = 2, 3, 2
     (jk, _), (tk, _) = _pools(G, BH, mc, sparsity)
     q = _rows(np.random.RandomState(100 + G), BH, G, 128)
-    js = np.asarray(jar.sparse_key_scores(jnp.asarray(q, jnp.bfloat16), *jk, jnp.int32(nc),
+    js = np.asarray(_jit(jar.sparse_key_scores)(jnp.asarray(q, jnp.bfloat16), *jk, jnp.int32(nc),
                                           jf, mc))
     ts = tar.sparse_key_scores(torch.from_numpy(q).to(torch.bfloat16), *tk, nc, tf, mc)
     assert ts.dtype == torch.float32 and ts.shape == (BH, 8, mc * 256)
@@ -120,7 +138,7 @@ def test_value_combine_plain_matches_jax_kernel(G, sparsity):
     (_, jv), (_, tv) = _pools(10 + G, BH, mc, sparsity)
     w = np.abs(_rows(np.random.RandomState(200 + G), BH, G, mc * 256)) * 0.01
     w[:, :, nc * 256:] = 0                   # zeros past n_chunks, as v1 feeds it
-    jo = np.asarray(jar.sparse_value_combine(jnp.asarray(w, jnp.bfloat16), *jv,
+    jo = np.asarray(_jit(jar.sparse_value_combine)(jnp.asarray(w, jnp.bfloat16), *jv,
                                              jnp.int32(nc), jf, mc))
     to = tar.sparse_value_combine(torch.from_numpy(w).to(torch.bfloat16), *tv, nc, tf, mc)
     assert to.dtype == torch.float32 and to.shape == (BH, 8, 128)
@@ -150,7 +168,7 @@ def _run_both(gen, jpools, tpools, q, k_win, v_win, nc, wl, jf, tf, mc, q_dtype)
            3: jar.fused_sparse_decode_attention_v3}[gen]
     tfn = {1: tar.sparse_decode_attention, 2: tar.fused_sparse_decode_attention,
            3: tar.fused_sparse_decode_attention_v3}[gen]
-    jo = np.asarray(jfn(jnp.asarray(q, getattr(jnp, q_dtype)), *jk, *jv,
+    jo = np.asarray(_jit(jfn)(jnp.asarray(q, getattr(jnp, q_dtype)), *jk, *jv,
                         jnp.asarray(k_win, jnp.bfloat16), jnp.asarray(v_win, jnp.bfloat16),
                         jnp.int32(nc), jnp.int32(wl), jf, jf, mc)).astype(np.float32)
     to = tfn(torch.from_numpy(q).to(getattr(torch, q_dtype)), *tk, *tv,

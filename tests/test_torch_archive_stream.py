@@ -38,6 +38,8 @@ Tolerances, each with its reason:
               so bf16(p) rounds at other places.
 """
 
+import functools
+import inspect
 import os
 import subprocess
 import sys
@@ -54,7 +56,23 @@ from mustafar_tpu_torch.ops import sparse_format as tsf
 from mustafar_tpu_torch.ops.kernels import sparse_attention as tska
 from mustafar_tpu_torch.ops.kernels import sparse_attention_archive as tar
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
+
+# The JAX kernels, run in Pallas interpret mode as the JAX package's tests
+# run them, under ``jax.jit`` (as ``tests/test_torch_kernel.py`` calls
+# them): their interpretation compiles once a shape and static argument set
+# (the codec or formats, max_chunks, the window, the options) and then runs
+# in milliseconds, where each eager call took seconds.
+JIT_STATIC = ("codec", "fmt", "kfmt", "vfmt", "max_chunks", "hpb", "ts", "window",
+              "return_norm", "return_win_probs")
+
+
+@functools.cache
+def _jit(fn):
+    """``fn`` under ``jax.jit``, the arguments of ``JIT_STATIC`` that it takes
+    static."""
+    params = inspect.signature(fn).parameters
+    return jax.jit(fn, static_argnames=[name for name in JIT_STATIC if name in params])
 
 B, HKV, MC, W = 2, 2, 3, 288              # W: residual 32 + chunk 256
 ULP = 2.0 ** -8
@@ -123,7 +141,7 @@ def run(pools, port):
             jf, _ = _fmts(sparsity)
             q, k_win, v_win = _inputs(G)
             jfn = getattr(jar, f"fused_sparse_decode_attention_{gen}")
-            cache[key] = np.asarray(jfn(
+            cache[key] = np.asarray(_jit(jfn)(
                 jnp.asarray(q, getattr(jnp, q_dtype)), jnp.asarray(pools[sparsity]),
                 jnp.asarray(k_win, jnp.bfloat16), jnp.asarray(v_win, jnp.bfloat16),
                 jnp.int32(nc), jnp.int32(wl), jf, jf, MC, **opts)).astype(np.float32)
@@ -233,7 +251,7 @@ def test_v5_nothing_to_attend_halves_hpb():
     v_win = _bf(rs.randn(Bb, 16, Hk, 128))
     k_win = _bf(rs.randn(Bb, 16, Hk, 128))
     pool = np.zeros((1, Bb * Hk, 2 * jf.stream_rows, 128), np.int16)
-    jo = np.asarray(jar.fused_sparse_decode_attention_v5(
+    jo = np.asarray(_jit(jar.fused_sparse_decode_attention_v5)(
         jnp.asarray(q, jnp.bfloat16), jnp.asarray(pool), jnp.asarray(k_win, jnp.bfloat16),
         jnp.asarray(v_win, jnp.bfloat16), jnp.int32(0), jnp.int32(0), jf, jf, 1)
     ).astype(np.float32)

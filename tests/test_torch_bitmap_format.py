@@ -27,7 +27,7 @@ import torch
 from mustafar_tpu.ops import sparse_format as jsf
 from mustafar_tpu_torch.ops import sparse_format as tsf
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 C, D = 256, 128
 

@@ -24,7 +24,7 @@ from mustafar_tpu.cache import make_cache as j_make_cache
 from mustafar_tpu_torch import config as tc
 from mustafar_tpu_torch.cache import make_cache as t_make_cache
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _engine(mod, mode, max_seq=1024, codec="q8q4"):
@@ -87,8 +87,10 @@ def test_compressed_prefill_state_bit_exact(dtype, true_len, T, codec):
     jstate = jimpl.init(B, jdt)
     tstate = timpl.init(B, getattr(torch, dtype))
     lc = {key: val[1] for key, val in jstate.items()}
-    jout, lc = jimpl.prefill_attend(lc, jnp.asarray(q, jdt), jnp.asarray(k, jdt),
-                                    jnp.asarray(v, jdt), jnp.int32(true_len))
+    # the JAX cache's steps under jit: one compile, where an eager call
+    # dispatches op by op
+    jout, lc = jax.jit(jimpl.prefill_attend)(lc, jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                                             jnp.asarray(v, jdt), jnp.int32(true_len))
     tout = timpl.prefill_attend(tstate, 1, _to(q, dtype), _to(k, dtype),
                                 _to(v, dtype), true_len)
     assert set(tstate) - {"nc_host"} == set(lc)
@@ -135,9 +137,9 @@ def _decode_and_compact(codec):
     jstate = jimpl.init(B, jnp.bfloat16)
     tstate = timpl.init(B, torch.bfloat16)
     lc = {key: val[0] for key, val in jstate.items()}
-    _, lc = jimpl.prefill_attend(lc, jnp.asarray(q, jnp.bfloat16),
-                                 jnp.asarray(k, jnp.bfloat16),
-                                 jnp.asarray(v, jnp.bfloat16), jnp.int32(true_len))
+    _, lc = jax.jit(jimpl.prefill_attend)(lc, jnp.asarray(q, jnp.bfloat16),
+                                          jnp.asarray(k, jnp.bfloat16),
+                                          jnp.asarray(v, jnp.bfloat16), jnp.int32(true_len))
     timpl.prefill_attend(tstate, 0, _to(q, "bfloat16"), _to(k, "bfloat16"),
                          _to(v, "bfloat16"), true_len)
     jdecode = jax.jit(jimpl.decode_attend)
@@ -158,7 +160,7 @@ def _decode_and_compact(codec):
     assert pos == 256 + 32 + 256 and timpl.needs_compact(pos)
     _assert_state_equal(tstate, lc, 0, ("k_win", "v_win"))
     jfull = {key: val[None] for key, val in lc.items()}
-    jfull = jimpl.compact(jfull, True)
+    jfull = jax.jit(jimpl.compact, static_argnums=1)(jfull, True)
     timpl.compact(tstate)              # layer 1 holds an all-zero window
     _assert_state_equal(tstate, {key: val[0] for key, val in jfull.items()}, 0,
                         _state_keys(timpl))

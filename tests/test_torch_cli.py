@@ -38,7 +38,7 @@ from mustafar_tpu_torch.harness.tokenizer import LocalTokenizer
 
 from test_torch_tinylm import TIE_TOL, _teacher_forced_gap
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHAT_TEMPLATE = (

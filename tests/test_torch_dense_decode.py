@@ -47,7 +47,7 @@ from mustafar_tpu_torch.ops.kernels import quant_attention as qa
 from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine as TEngine
 from mustafar_tpu_torch.weights import params_from_jax
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 TOL = 2 * 2.0 ** -8          # 2 bf16 ulps of the output's scale
 S = 1312

@@ -29,7 +29,7 @@ import torch
 
 from mustafar_tpu_torch.parallel import distributed as dist_rt
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROC_TIMEOUT_S = 240
 STEPS, DIE_AT, BARRIER_MS = 12, 4, 3000

@@ -27,6 +27,7 @@ and the free-running streams must agree up to the first such near-tie
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -43,7 +44,7 @@ from mustafar_tpu_torch.models.llama import init_params as t_init_params
 from mustafar_tpu_torch.runtime.generate import Generator as TGenerator
 from mustafar_tpu_torch.weights import params_from_jax
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 PROMPT, NEW, MAX_SEQ = 300, 260, 1024
 # logit noise allowed at a near-tie: compressed, the bf16 roundings above;
@@ -59,6 +60,14 @@ def _engine(mod, mode, codec="q8q4"):
         prune=mod.PruneConfig(method=mod.PruneMethod.KT_MAG_VT_MAG,
                               k_sparsity=0.7, v_sparsity=0.7),
         max_seq_len=MAX_SEQ, prefill_bucket=256, chunk_size=256, codec=codec)
+
+
+@functools.cache
+def _params(model, seed):
+    """A model's weights from ``seed``, made once a module for every case
+    that uses them (JAX's eager init takes seconds)."""
+    jp = j_init_params(model, jax.random.PRNGKey(seed), dtype=jnp.float32)
+    return jp, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def _teacher_forced_logits(gen, prompt, stream):
@@ -93,8 +102,7 @@ def _teacher_forced_logits(gen, prompt, stream):
     pytest.param("COMPRESSED", "bitmap-q8", id="COMPRESSED-bitmap-q8")])
 def test_greedy_tokens_match_jax_across_compaction(mode, codec):
     jeng, teng = _engine(jc, mode, codec), _engine(tc, mode, codec)
-    jp = j_init_params(jeng.model, jax.random.PRNGKey(0), dtype=jnp.float32)
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    jp, tp = _params(jeng.model, 0)
     prompt = np.random.RandomState(0).randint(0, 512, size=(2, PROMPT))
 
     jgen = JGenerator(jeng, jp, dtype=jnp.float32)
@@ -130,8 +138,7 @@ def test_eos_and_min_new_tokens_match_jax():
     """EOS ends a row (and is suppressed for the first ``min_new_tokens``),
     as in the JAX Generator; dense cache, 40 new tokens."""
     jeng, teng = _engine(jc, "DENSE"), _engine(tc, "DENSE")
-    jp = j_init_params(jeng.model, jax.random.PRNGKey(1), dtype=jnp.float32)
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    jp, tp = _params(jeng.model, 1)
     prompt = np.random.RandomState(2).randint(0, 512, size=(2, 40))
     jgen = JGenerator(jeng, jp, dtype=jnp.float32)
     tgen = TGenerator(teng, tp, dtype=torch.float32, device="cpu")

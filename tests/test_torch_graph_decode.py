@@ -60,7 +60,7 @@ from mustafar_tpu_torch.runtime.generate import Generator as TGenerator
 from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine as TEngine
 from mustafar_tpu_torch.weights import params_from_jax
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 PROMPT, NEW = 300, 260
 

@@ -44,7 +44,7 @@ from mustafar_tpu_torch.ops import quant_format as tqf
 from mustafar_tpu_torch.ops.kernels import build
 from mustafar_tpu_torch.ops.kernels import quant_attention as tqa
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 BITS = {"q8": (8, 8), "q8q4": (8, 4), "q4q4": (4, 4)}
 JCODECS = {c: jqf.QuantCodec(256, 128, *b) for c, b in BITS.items()}

@@ -19,6 +19,7 @@
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -39,7 +40,7 @@ from mustafar_tpu_torch.runtime.generate import Generator as TGenerator
 from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine as TEngine
 from mustafar_tpu_torch.weights import params_from_jax
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 METHODS = ["DENSE", "KT_MAG_VT_MAG", "KT_MAG_VC_MAG", "KT_MAG_VT_OPA", "KT_OPA_VT_MAG",
            "KT_MAG_VC_OPA", "THINK", "THINV"]
@@ -95,8 +96,12 @@ def _drive(method, per_slot, use_pallas, head_dim, steps, scale=(1.0, 1.0, 1.0))
     B, T, true_len = 2, 48, 37
     q, k, v = _qkv(rs, B, T, head_dim, scale)
     lc = {key: val[0] for key, val in jimpl.init(B, jnp.float32).items()}
-    _, lc = jimpl.prefill_attend(lc, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                 jnp.int32(true_len))
+    # the JAX cache's steps under jit: each compiles once (its kernel's
+    # interpretation with it), where an eager call interprets op by op
+    prefill_attend, decode_attend = (jax.jit(fn) for fn in (jimpl.prefill_attend,
+                                                            jimpl.decode_attend))
+    _, lc = prefill_attend(lc, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           jnp.int32(true_len))
     st = timpl.init(B, torch.float32)
     timpl.prefill_attend(st, 0, torch.from_numpy(q), torch.from_numpy(k),
                          torch.from_numpy(v), true_len)
@@ -107,14 +112,14 @@ def _drive(method, per_slot, use_pallas, head_dim, steps, scale=(1.0, 1.0, 1.0))
         qd, kd, vd = _qkv(rs, B, 1, head_dim, scale)
         if per_slot:
             pv = np.array([pos, pos - 3 if step % 4 else -1], np.int32)
-            jo, lc = jimpl.decode_attend(lc, jnp.asarray(qd), jnp.asarray(kd),
-                                         jnp.asarray(vd), jnp.asarray(pv))
+            jo, lc = decode_attend(lc, jnp.asarray(qd), jnp.asarray(kd), jnp.asarray(vd),
+                                   jnp.asarray(pv))
             to = timpl.decode_attend(st, 0, torch.from_numpy(qd), torch.from_numpy(kd),
                                      torch.from_numpy(vd), torch.from_numpy(pv).long())
             live = pv >= 0
         else:
-            jo, lc = jimpl.decode_attend(lc, jnp.asarray(qd), jnp.asarray(kd),
-                                         jnp.asarray(vd), jnp.int32(pos))
+            jo, lc = decode_attend(lc, jnp.asarray(qd), jnp.asarray(kd), jnp.asarray(vd),
+                                   jnp.int32(pos))
             to = timpl.decode_attend(st, 0, torch.from_numpy(qd), torch.from_numpy(kd),
                                      torch.from_numpy(vd), pos)
             live = np.ones(B, bool)
@@ -192,7 +197,14 @@ def _gen_engine(mod, method, B=1, bucket=128):
 
 
 def _params(jeng, seed):
-    jp = j_init_params(jeng.model, jax.random.PRNGKey(seed), dtype=jnp.float32)
+    return _model_params(jeng.model, seed)
+
+
+@functools.cache
+def _model_params(model, seed):
+    """A model's weights from ``seed``, made once a module for every case
+    that uses them (JAX's eager init takes seconds)."""
+    jp = j_init_params(model, jax.random.PRNGKey(seed), dtype=jnp.float32)
     return jp, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
 
 

@@ -4,6 +4,7 @@ entry points (i).  JAX weights reach the port through ``params_from_jax``.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -22,7 +23,7 @@ from mustafar_tpu_torch.models import quant as tq
 from mustafar_tpu_torch.runtime.generate import Generator as TGenerator
 from mustafar_tpu_torch.weights import params_from_jax
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _model(mod):
@@ -38,7 +39,10 @@ def _engine(mod, mode):
         max_seq_len=1024, prefill_bucket=256, chunk_size=256, codec="q8q4")
 
 
+@functools.cache
 def _params(dtype, w8):
+    """The model's weights (seed 0) in ``dtype``, W8 or not, made once a
+    module for every case that uses them."""
     jp = jl.init_params(_model(jc), jax.random.PRNGKey(0), dtype=dtype)
     if w8:
         jp = j_quantize_params(jp)
@@ -63,8 +67,11 @@ def test_prefill_and_decode_logits_match(dtype, w8, mode):
     toks[:, :true_len] = np.random.RandomState(1).randint(0, 512, (B, true_len))
     jcache = jimpl.init(B, jdt)
     tcache = timpl.init(B, tdt)
-    jlog, jcache = jl.prefill(_model(jc), jp, jnp.asarray(toks), jcache, jimpl,
-                              jnp.int32(true_len), last_only=True)
+    # the JAX prefill under jit: one compile, where an eager call
+    # dispatches (and interprets the kernel) op by op
+    jprefill = jax.jit(lambda p, t, c, n: jl.prefill(_model(jc), p, t, c, jimpl, n,
+                                                     last_only=True))
+    jlog, jcache = jprefill(jp, jnp.asarray(toks), jcache, jnp.int32(true_len))
     tlog, tcache = tl.prefill(_model(tc), tp, torch.from_numpy(toks).long(), tcache,
                               timpl, true_len, last_only=True)
     logs = [(np.asarray(jlog), tlog.numpy())]

@@ -61,7 +61,7 @@ from mustafar_tpu_torch.weights import params_from_jax
 from tests.test_torch_scheduler import TIE_TOL, _check_streams, _Forced
 from tests.test_torch_w8a8 import _forced_logits
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 LAYER = dict(name="moe-test", vocab_size=256, hidden_size=64, intermediate_size=128,
              num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,

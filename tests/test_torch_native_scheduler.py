@@ -33,7 +33,7 @@ from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine as TEn
 
 from test_torch_scheduler import MIXES, _Forced, _check_streams, _engine, _params
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

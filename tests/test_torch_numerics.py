@@ -25,7 +25,7 @@ from mustafar_tpu_torch.models import rope as tr
 from mustafar_tpu_torch.ops import quant_format as tqf
 from mustafar_tpu_torch.ops import sparse_format as tsf
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 j_quantize_chunk = jax.jit(jqf.quantize_chunk, static_argnums=1)
 j_encode_chunk = jax.jit(jqf.encode_chunk, static_argnums=(1, 2))

@@ -12,6 +12,7 @@
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -29,7 +30,7 @@ from mustafar_tpu_torch.models import llama as tl
 from mustafar_tpu_torch.runtime.generate import Generator as TGenerator
 from mustafar_tpu_torch.weights import params_from_jax
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 W = 288
 CODECS = ("q8", "q8q4", "q4q4", "bitmap", "bitmap-q8")
@@ -44,6 +45,15 @@ def _engine(mod, method, codec, layers=1, max_seq=1024):
         prune=mod.PruneConfig(method=getattr(mod.PruneMethod, method), k_sparsity=0.7,
                               v_sparsity=0.7),
         max_seq_len=max_seq, prefill_bucket=256, chunk_size=256, codec=codec)
+
+
+@functools.cache
+def _params():
+    """The two-layer model's weights (seed 0), made once for the module's
+    Generator cases (every case has the same model)."""
+    jp = j_init_params(_engine(jc, "KT_OPA_VT_MAG", "q8q4", 2).model, jax.random.PRNGKey(0),
+                       dtype=jnp.float32)
+    return jp, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def _np(x):
@@ -78,8 +88,10 @@ def test_compressed_opa_state_matches_jax(method, codec):
     q = rs.randn(B, T, 4, 128).astype(np.float32) * 0.5
     k, v = (rs.randn(B, T, 1, 128).astype(np.float32) * 0.5 for _ in range(2))
     lc = {key: val[0] for key, val in jimpl.init(B, jnp.float32).items()}
-    _, lc = jimpl.prefill_attend(lc, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                 jnp.int32(true_len))
+    # the JAX cache's steps under jit (its kernels' interpretation compiles
+    # once, where an eager call interprets op by op)
+    _, lc = jax.jit(jimpl.prefill_attend)(lc, jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), jnp.int32(true_len))
     st = timpl.init(B, torch.float32)
     timpl.prefill_attend(st, 0, torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                          true_len)
@@ -87,8 +99,8 @@ def test_compressed_opa_state_matches_jax(method, codec):
     _assert_state(st, lc, keys, "prefill")
     qd = rs.randn(B, 1, 4, 128).astype(np.float32) * 0.5
     kd, vd = (rs.randn(B, 1, 1, 128).astype(np.float32) * 0.5 for _ in range(2))
-    jo, lc = jimpl.decode_attend(lc, jnp.asarray(qd), jnp.asarray(kd), jnp.asarray(vd),
-                                 jnp.int32(true_len))
+    jo, lc = jax.jit(jimpl.decode_attend)(lc, jnp.asarray(qd), jnp.asarray(kd),
+                                          jnp.asarray(vd), jnp.int32(true_len))
     to = timpl.decode_attend(st, 0, torch.from_numpy(qd), torch.from_numpy(kd),
                              torch.from_numpy(vd), true_len)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0, atol=1e-5)
@@ -114,8 +126,7 @@ def test_compressed_opa_generator_matches_jax(method, codec):
     roundings' noise (1e-2), and the free streams part only after such a
     near-tie (on these seeds they agree throughout)."""
     jeng, teng = _engine(jc, method, codec, 2), _engine(tc, method, codec, 2)
-    jp = j_init_params(jeng.model, jax.random.PRNGKey(0), dtype=jnp.float32)
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    jp, tp = _params()
     prompt = np.random.RandomState(0).randint(0, 512, size=(2, 543))
     jgen = JGenerator(jeng, jp, dtype=jnp.float32)
     jgen.cache_impl.use_pallas = True

@@ -30,7 +30,7 @@ from mustafar_tpu_torch.runtime.generate import Generator as TGenerator
 from mustafar_tpu_torch.weights import params_from_jax
 from tests.test_torch_scheduler import TIE_TOL, _check_streams
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 TRUE_LEN, NEW = 543, 10
 CODECS = ("q8", "q8q4", "q4q4", "bitmap", "bitmap-q8")

@@ -36,7 +36,7 @@ from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine as TEn
 from mustafar_tpu_torch.weights import params_from_jax
 from tests.test_torch_scheduler import TIE_TOL, _check_streams, _Forced
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CODECS = ("q8", "q8q4", "q4q4", "bitmap", "bitmap-q8")
 MIX = [(280, 14), (543, 8), (100, 6)]

@@ -25,6 +25,7 @@ compressed cache reads (``test_torch_opa.py`` holds the cache).
 """
 
 import dataclasses
+import inspect
 
 import numpy as np
 import jax
@@ -43,12 +44,31 @@ from mustafar_tpu_torch.ops.kernels import pack_kernel as pk
 from mustafar_tpu_torch.ops.kernels import quant_attention as tqa
 from mustafar_tpu_torch.ops.kernels import sparse_attention as tska
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 W = 288
 CODECS = ("q8", "q8q4", "q4q4", "bitmap", "bitmap-q8")
 BITS = {"q8": (8, 8), "q8q4": (8, 4), "q4q4": (4, 4)}
 PROBS_TOL = 1e-4
+
+# The JAX kernels, run in Pallas interpret mode as the JAX package's tests
+# run them, under one jit each (as tests/test_torch_kernel.py calls them):
+# their interpretation compiles once a shape and static argument set (the
+# codec or formats, max_chunks, the options) and then runs in milliseconds,
+# where each eager call took seconds.
+STATIC = ("codec", "kfmt", "vfmt", "max_chunks", "return_norm", "return_win_probs")
+
+
+def _jit(fn):
+    """``fn`` under ``jax.jit``, the arguments of ``STATIC`` that it takes static."""
+    params = inspect.signature(fn).parameters
+    return jax.jit(fn, static_argnames=[name for name in STATIC if name in params])
+
+
+J_DECODE = _jit(jqa.fused_q_decode_attention)
+J_DECODE_PS = _jit(jqa.fused_q_decode_attention_ps)
+J_V7 = _jit(jska.fused_sparse_decode_attention_v7)
+J_V6PS = _jit(jska.fused_sparse_decode_attention_v6ps)
 
 
 def _bf(a):
@@ -108,7 +128,7 @@ class _Decode:
         args = ((jnp.asarray(nc, jnp.int32), jnp.asarray(wl, jnp.int32)) if per_slot
                 else (jnp.int32(nc), jnp.int32(wl)))
         if hasattr(self, "jcodec"):
-            fn = jqa.fused_q_decode_attention_ps if per_slot else jqa.fused_q_decode_attention
+            fn = J_DECODE_PS if per_slot else J_DECODE
             res = fn(q, jnp.asarray(self.pool),
                      jnp.asarray(self.scales[..., 0, :], jnp.bfloat16),
                      jnp.asarray(self.scales[..., 1, :], jnp.bfloat16), kw, vw, *args,
@@ -117,8 +137,7 @@ class _Decode:
             sc = {} if self.scales is None else {
                 "kscales": jnp.asarray(self.scales[..., 0, :], jnp.bfloat16),
                 "vscales": jnp.asarray(self.scales[..., 1, :], jnp.bfloat16)}
-            fn = (jska.fused_sparse_decode_attention_v6ps if per_slot
-                  else jska.fused_sparse_decode_attention_v7)
+            fn = J_V6PS if per_slot else J_V7
             res = fn(q, jnp.asarray(self.pool), kw, vw, *args, self.jfmt, self.jfmt,
                      self.mc, li=jnp.int32(li), **opts, **sc)
         return [np.asarray(x) for x in res[1:]]

@@ -35,7 +35,7 @@ from mustafar_tpu_torch.ops import quant_format as tqf
 from mustafar_tpu_torch.ops import sparse_format as tsf
 from mustafar_tpu_torch.ops.kernels import pack_kernel as tpk
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 BH, C, D = 4, 256, 128
 

@@ -37,7 +37,7 @@ from mustafar_tpu_torch.models import llama as tl
 from mustafar_tpu_torch.parallel import distributed as dist_rt
 from mustafar_tpu_torch.parallel import pipeline as pp
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 SPAWN_TIMEOUT_S = 240
 TOL = 2e-4
 

@@ -18,7 +18,7 @@ import torch
 from mustafar_tpu.ops import pruning as jp
 from mustafar_tpu_torch.ops import pruning as tp
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _x(seed, *shape, dtype=np.float32):

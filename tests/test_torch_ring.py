@@ -42,7 +42,7 @@ from mustafar_tpu_torch.cache import make_cache as t_make_cache
 from mustafar_tpu_torch.parallel import distributed as dist_rt
 from mustafar_tpu_torch.parallel import ring
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 SPAWN_TIMEOUT_S = 240
 RING_TOL = 2e-5
 SP_TOL = 5e-4

@@ -34,7 +34,7 @@ from mustafar_tpu_torch.models.llama import init_params
 from mustafar_tpu_torch.runtime import generate as tg
 from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine as TEngine
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 V, DRAWS = 64, 4000
 SETTINGS = {

@@ -32,6 +32,7 @@ such near-tie.  Tiny geometry: head_dim 128, 4 query heads over 1 kv head,
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -50,7 +51,7 @@ from mustafar_tpu_torch.runtime.generate import (Generator as TGenerator,
 from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine as TEngine
 from mustafar_tpu_torch.weights import params_from_jax
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 TIE_TOL = {"COMPRESSED": 1e-2, "DENSE": 1e-4}
 MIXES = {
@@ -77,7 +78,14 @@ def _engine(mod, mode, chunked=True, max_seq=2048, B=2, codec="q8q4", bucket=256
 
 
 def _params(jeng, seed):
-    jp = j_init_params(jeng.model, jax.random.PRNGKey(seed), dtype=jnp.float32)
+    return _model_params(jeng.model, seed)
+
+
+@functools.cache
+def _model_params(model, seed):
+    """A model's weights from ``seed``, made once a module for every case
+    that uses them (JAX's eager init takes seconds)."""
+    jp = j_init_params(model, jax.random.PRNGKey(seed), dtype=jnp.float32)
     return jp, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
 
 

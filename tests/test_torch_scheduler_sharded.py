@@ -45,7 +45,7 @@ from mustafar_tpu_torch.parallel import distributed as dist_rt
 from mustafar_tpu_torch.runtime.generate import SamplingParams
 from tests.test_torch_scheduler import TIE_TOL, _check_streams, _Forced
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "ckpt", "tiny-acc")
 SPAWN_TIMEOUT_S = 300

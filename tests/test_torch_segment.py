@@ -32,7 +32,7 @@ from mustafar_tpu.cache import make_cache as j_make_cache
 from mustafar_tpu_torch import config as tc
 from mustafar_tpu_torch.cache import make_cache as t_make_cache
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 L, HQ, HKV, D = 2, 4, 2, 128
 STATE_KEYS = ("kv_pool", "kv_scales", "k_win", "v_win", "n_chunks")

@@ -61,7 +61,7 @@ from mustafar_tpu_torch.parallel import sharding as sh
 from mustafar_tpu_torch.weights import params_from_jax
 from tests.test_torch_scheduler import TIE_TOL
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 TOL = 2e-4
 SPAWN_TIMEOUT_S = 240
 

@@ -30,7 +30,7 @@ from mustafar_tpu_torch.harness import tinylm as ttiny
 from mustafar_tpu_torch.models import llama as tl
 from mustafar_tpu_torch.weights import load_ckpt
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "ckpt", "tiny-acc")

@@ -41,7 +41,7 @@ from mustafar_tpu_torch.harness import tinylm as ttiny
 from mustafar_tpu_torch.parallel.distributed import init_params_np
 from mustafar_tpu_torch.weights import load_ckpt
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 TOL = 1e-5
 SEQ = 128
 CORPUS_ROOT = os.path.dirname(np.__file__)

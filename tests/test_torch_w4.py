@@ -27,6 +27,7 @@ intermediate 256, 2 layers (every projection's DIN a multiple of 128).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -48,7 +49,7 @@ from mustafar_tpu_torch.runtime.generate import Generator as TGenerator
 from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine as TEngine
 from mustafar_tpu_torch.weights import params_from_jax
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 # logit noise allowed at a near-tie (as test_torch_generate.py): the
 # compressed kernels round q, the window and p to bf16; dense is f32
@@ -71,9 +72,10 @@ def _np(t):
     return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
 
 
+@functools.cache
 def _j_w4_params(seed, fuse=False):
     """JAX W4 params of an f32 model (quantized jitted per leaf; norms f32)
-    and the port's copy of them."""
+    and the port's copy of them, made once a module for each (seed, fuse)."""
     jp = jq.quantize_params_w4(jl.init_params(_model(jc), jax.random.PRNGKey(seed),
                                               dtype=jnp.float32))
     if fuse:

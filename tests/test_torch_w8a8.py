@@ -48,7 +48,7 @@ from mustafar_tpu_torch.runtime.generate import Generator as TGenerator
 from mustafar_tpu_torch.weights import params_from_jax
 from tests.test_torch_scheduler import TIE_TOL
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _model(mod):

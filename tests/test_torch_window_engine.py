@@ -55,7 +55,7 @@ from tests.test_torch_scheduler import TIE_TOL, _check_streams, _Forced
 from tests.test_torch_segment import (HKV, HQ, L, _assert_equal, _j_decode_per_slot,
                                       _j_segment, _np, _qkv, _state_keys, _t, _tnp)
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CODECS = ("q8", "q8q4", "q4q4", "bitmap", "bitmap-q8")
 # window -> (the prompts' RandomState seed, [(prompt length, new tokens)])

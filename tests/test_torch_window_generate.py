@@ -26,6 +26,7 @@ chunk 1 partly; the window fills at total length 800, so one compaction
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -43,7 +44,7 @@ from mustafar_tpu_torch.runtime.generate import Generator as TGenerator
 from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine as TEngine
 from mustafar_tpu_torch.weights import params_from_jax
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 WINDOW, PROMPT, NEW, MAX_SEQ = 320, 600, 210, 1024
 
@@ -62,7 +63,14 @@ def _engine(mod, mode="COMPRESSED", codec="bitmap", method="KT_MAG_VT_MAG", spar
 
 
 def _params(jeng, seed=0):
-    jp = j_init_params(jeng.model, jax.random.PRNGKey(seed), dtype=jnp.float32)
+    return _model_params(jeng.model, seed)
+
+
+@functools.cache
+def _model_params(model, seed):
+    """A model's weights from ``seed``, made once a module for every case
+    that uses them (JAX's eager init takes seconds)."""
+    jp = j_init_params(model, jax.random.PRNGKey(seed), dtype=jnp.float32)
     return jp, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
 
 

@@ -31,7 +31,7 @@ from mustafar_tpu_torch import config as tc
 from mustafar_tpu_torch.ops import attention as ta
 from mustafar_tpu_torch.weights import load_ckpt
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("window", [None, 1, 5, 64])

@@ -39,7 +39,7 @@ from mustafar_tpu_torch.ops import sparse_format as tsf
 from mustafar_tpu_torch.ops.kernels import quant_attention as tqa
 from mustafar_tpu_torch.ops.kernels import sparse_attention as tska
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ULP = 2.0 ** -8
 W = 288                      # residual 32 + chunk 256

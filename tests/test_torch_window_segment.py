@@ -35,7 +35,7 @@ from mustafar_tpu_torch.ops.kernels import quant_attention as tqa
 from mustafar_tpu_torch.ops.kernels import sparse_attention as tska
 from tests.test_torch_window_ps import BITS, W, _fmt, _t, pool_state
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ULP = 2.0 ** -8
 MC = 6

@@ -2,7 +2,7 @@
 checkout in one call (parent, change, change, parent) and compare the lines.
 
     python3 tools/kernel_ab.py --root DIR --label NAME \
-        [--engine | --host-only | --variants]
+        [--engine | --host-only | --variants | --eager-engine]
 
 ``DIR`` is the root of a checkout of this repository (its ``chip_smoke.py``
 and ``mustafar_tpu_torch/``; an unpacked ``git archive`` of another commit
@@ -39,10 +39,19 @@ source with a few substitutions; those of the named libraries only, if
 any) beside DIR's own build, prints their ptxas reports and times the
 variant's kernels (``VARIANT_TIMES``: kernels 1 and 6, or 3 and 5) with
 DIR's build and each variant in turn, beside the digests of DIR's
-kernels.  Needs one CUDA card.
+kernels.  With ``--eager-engine`` it builds the kernels and times only
+the eager paths (``graph=False``) of DIR's package at ``serve_cb``'s depth
+(DIR's ``chip_smoke.cut_depth`` of the random W8 Llama-3-8B, seed 0),
+q8q4: the engine on ``serve_cb``'s 17 requests (the wall time of its ticks
+by what they ran, as ``serve_cb`` splits them, and the SHA-256 of the
+tokens), a batch-1 chunked ``Generator`` prefill of 1,280 tokens (5
+segments: enqueue and wall ms, the least of 5), and DIR's
+``phase_serve_cb_tp`` (the engine at tp=2, two processes on the card over
+gloo).  Needs one CUDA card.
 """
 
 import argparse
+import dataclasses
 import hashlib
 import importlib.util
 import json
@@ -543,23 +552,93 @@ def run_variants(c, label, smi, libs):
                       "sha256": digests(c), "rows": rows}), flush=True)
 
 
+def eager_engine(c, label, smi):
+    """``--eager-engine``'s line (module note), then DIR's serve_cb_tp."""
+    import numpy as np
+    import torch
+    from mustafar_tpu_torch.config import (CacheMode, EngineConfig, LLAMA3_8B,
+                                           PruneConfig, PruneMethod)
+    from mustafar_tpu_torch.models.quant import init_params_w8
+    from mustafar_tpu_torch.runtime.generate import Generator
+    from mustafar_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    model, params = c.cut_depth(LLAMA3_8B, init_params_w8(LLAMA3_8B, g, device="cuda"))
+    eng = EngineConfig(model=model, cache_mode=CacheMode.COMPRESSED,
+                       prune=PruneConfig(method=PruneMethod.KT_MAG_VT_MAG, k_sparsity=0.7,
+                                         v_sparsity=0.7),
+                       max_seq_len=8448, prefill_bucket=256, chunk_size=256, codec="q8q4",
+                       batch_size=8, chunked_prefill=True)
+    reqs = c.serve_cb_requests(model)
+    warm = ContinuousBatchingEngine(eng, params, graph=False)
+    for p, _ in reqs[:2]:
+        warm.submit(p[:300], 4)
+    warm.run()
+    del warm
+    split = {"segment+decode": [], "decode": [], "segment": []}
+    cb = ContinuousBatchingEngine(eng, params, graph=False)
+    uids = [cb.submit(p, m) for p, m in reqs]
+    t = time.perf_counter()
+    with torch.inference_mode():
+        while cb.busy():
+            seg0, dec0, t0 = cb.segments, cb.decode_steps, time.perf_counter()
+            cb.tick()
+            kind = ("segment+" if cb.segments > seg0 else "") + \
+                ("decode" if cb.decode_steps > dec0 else "")
+            split[kind.rstrip("+")].append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    outs = [np.asarray(cb.finished[u].out, np.int64) for u in uids]
+    tokens = hashlib.sha256(b"".join(o.tobytes() for o in outs)).hexdigest()
+    del cb
+    gen = Generator(dataclasses.replace(eng, batch_size=1), params, graph=False)
+    prompt = np.random.RandomState(5).randint(1, model.vocab_size, (1, 1280))
+    gen.generate(prompt, 1)
+    enqueue, wall = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen.generate(prompt, 1)
+        enqueue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    del gen, params
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": "kernel_ab_eager_engine", "label": label, "nvidia_smi": smi,
+        "model": f"{model.name} x{model.num_layers}L, W8 (random, seed 0), q8q4",
+        "serve_cb_eager": {"seconds": seconds, "tokens_sha256": tokens,
+                           "tick_ms": {k: {"n": len(v), "mean": 1e3 * sum(v) / max(len(v), 1)}
+                                       for k, v in split.items()}},
+        "generator_eager_prefill_1280": {"segments": 5, "enqueue_ms": 1e3 * min(enqueue),
+                                         "wall_ms": 1e3 * min(wall)}}), flush=True)
+    c.phase_serve_cb_tp(model)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
     ap.add_argument("--label", required=True)
     ap.add_argument("--engine", action="store_true")
     ap.add_argument("--host-only", action="store_true")
+    ap.add_argument("--eager-engine", action="store_true")
     ap.add_argument("--variants", nargs="*", metavar="LIB",
                     help="build and time the VARIANTS (of these libraries only, if named)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    # from DIR, so that what the phases spawn (``python -c``, which puts the
+    # working directory first on its path) imports DIR's package too
+    os.chdir(root)
     import chip_smoke as c
     t0 = time.perf_counter()
     smi = c.phase_env()
     c.phase_build()
     if args.variants is not None:
         run_variants(c, args.label, smi, args.variants)
+        return
+    if args.eager_engine:
+        eager_engine(c, args.label, smi)
         return
     if args.host_only:
         print(json.dumps({"phase": "kernel_ab", "label": args.label, "root": args.root,
