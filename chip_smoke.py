@@ -130,10 +130,16 @@ Phases, each printing one flushed JSON line with its ``phase`` and
                 window 300 and 600 at 5 chunks, v5 at hpb 8 and 2; nothing
                 to attend (v1 and v6 NaN, v2-v4 the head's window mean, v5
                 the mean over its TPU grid step's hpb heads, at hpb 8 and
-                2); then the ladder: device ms of kernels 10 and 11, the v1
-                chain, v2-v5, kernel 16 alone, the whole v6 and kernel 6
-                beside their bounds and plain versions at (a) B=8, 1 chunk +
-                288 window and (b) B=32, 3 chunks + 132 window (G=4)
+                2); v2 and v3 (kernels 12 and 13, one CTA a softmax step)
+                also against their split plain versions (split_gate), the
+                window mean included, at G=4 with an f32 q too (its output
+                rounded the bf16 q's), and each in one CUDA graph replayed
+                across ARCHIVE_GRAPH_COUNTS written into its count tensors,
+                every replay the eager launch's bits; then the ladder:
+                device ms of kernels 10 and 11, the v1 chain, v2-v5, kernel
+                16 alone, the whole v6 and kernel 6 beside their bounds and
+                plain versions at (a) B=8, 1 chunk + 288 window and (b)
+                B=32, 3 chunks + 132 window (G=4); the phase's seconds
   reference     a tiny f32 model decoded on the card (kernel) and on the CPU
                 (plain path) with the same token stream: logits must agree
   reference_cb  the tiny f32 continuous-batching engine (chunked, interleaved
@@ -2582,6 +2588,60 @@ def _archive_calls(pools, q, kw, vw, nc, wl, fmt, mc):
     }
 
 
+# (n_chunks, win_len) written into the count tensors of one CUDA graph of
+# kernels 12 and 13 (mc=5, W=288): a new window length, a new chunk, no
+# window, no chunk, nothing to attend, the full pool
+ARCHIVE_GRAPH_COUNTS = ((1, 288), (1, 95), (2, 1), (0, 44), (5, 0), (0, 0), (3, 200),
+                        (0, 288), (5, 288))
+
+
+def _archive_split_plains(pools, q, kw, vw, nc, wl, fmt, mc):
+    """Kernels 12 and 13's split plain versions (their own arithmetic) on
+    ``_archive_calls``'s inputs, f32 q (the kernels' bf16 q, exactly): the
+    f32 result that ``split_gate`` rounds."""
+    from mustafar_tpu_torch.ops.kernels import sparse_attention_archive as sar
+    (ks, kb), (vs, vb) = pools["head"]
+    (cks, ckb), (cvs, cvb) = pools["chunk"]
+    qf = q.float()
+    return {"v2": lambda: sar.fused_sparse_decode_attention_split_plain(
+                qf, ks, kb, vs, vb, kw, vw, nc, wl, fmt, fmt, mc),
+            "v3": lambda: sar.fused_sparse_decode_attention_v3_split_plain(
+                qf, cks, ckb, cvs, cvb, kw, vw, nc, wl, fmt, fmt, mc)}
+
+
+def _archive_graph_replays(call):
+    """``call(n_chunks, win_len)`` (kernel 12 or 13's wrapper) in one CUDA
+    graph, captured over two count tensors on the card and replayed after
+    each pair of ``ARCHIVE_GRAPH_COUNTS`` is written into them: every
+    replay's output must be an eager launch's at the same counts, bit for
+    bit.  Returns the replays."""
+    import torch
+    nc_t = torch.full((1,), ARCHIVE_GRAPH_COUNTS[0][0], dtype=torch.int32, device="cuda")
+    wl_t = torch.full((1,), ARCHIVE_GRAPH_COUNTS[0][1], dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(nc_t, wl_t)                               # scratch for this stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        res = call(nc_t, wl_t)
+    replays = []
+    for nc, wl in ARCHIVE_GRAPH_COUNTS:
+        nc_t.fill_(nc)
+        wl_t.fill_(wl)
+        graph.replay()
+        got = res.clone()
+        eager = call(nc, wl)
+        torch.cuda.synchronize()
+        replays.append({"n_chunks": nc, "win_len": wl,
+                        "equal_to_eager_launch": bool(torch.equal(got, eager))})
+        if not (replays[-1]["equal_to_eager_launch"] and bool(got.isfinite().all())):
+            raise AssertionError(f"the graphed archive kernel at new counts: {replays[-1]}")
+    del graph
+    return replays
+
+
 def _check(results, worst, kind, got, want, tol, **case):
     """Record one kernel-against-plain comparison; raise past ``tol``."""
     err = (got.float() - want.float()).abs().max().item()
@@ -2677,12 +2737,16 @@ def phase_kernel_archive():
     G 1/2/4/8; (n_chunks, win_len) of ``ARCHIVE_CASES``), the v1 chain
     against its plain chain, v6's partials, v6's sliding windows at 5
     chunks, v5 at hpb 8 and 2, nothing to attend (v1 and v6 NaN, v2-v4 the
-    head's window mean, v5 its grid step's), then the ladder at kernel 6's
-    phase shape and at docs/PERFORMANCE.md's.  Returns the kernels-line
+    head's window mean, v5 its grid step's); kernels 12 and 13 also against
+    their split plain versions (``split_gate``) in every case (at G = 4
+    with an f32 q too), and each in
+    one CUDA graph across ``ARCHIVE_GRAPH_COUNTS``; then the ladder at
+    kernel 6's phase shape and at docs/PERFORMANCE.md's.  Returns the kernels-line
     entries (launches filled in by ``phase_kernel_archive_cache``)."""
     import torch
     from mustafar_tpu_torch.ops import sparse_format as sf
     from mustafar_tpu_torch.ops.kernels import sparse_attention_archive as sar
+    t_phase = time.perf_counter()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(10)
@@ -2694,6 +2758,10 @@ def phase_kernel_archive():
     results = []
     worst = dict.fromkeys(("key_scores", "value_combine", "v1", "v2", "v3", "v4", "v5", "v6",
                            "v6_partials"), 0.0)
+    worst_split = {"v2": 0.0, "v3": 0.0}
+    f32_q_cases = {"v2": 0, "v3": 0}
+    mean_bits = {}          # v2 / v3 at nothing to attend: bit-equal to the split plain
+    graphs = {}
     for sparsity in (0.7, 0.5):
         fmt = sf.ChunkFormat(256, 128, 128 - int(sparsity * 128) + 1)
         pools = _archive_pools(
@@ -2724,6 +2792,10 @@ def phase_kernel_archive():
                 want = sar.sparse_value_combine_plain(w, vs, vb, nc, fmt, mc)
                 _check(results, worst, "value_combine", got, want,
                        ulps * want.abs().max().item(), **case)
+                splits = _archive_split_plains(pools, q, kw, vw, nc, wl, fmt, mc)
+                # at G = 4 kernels 12 and 13 also take an f32 q (an f32 output)
+                calls32 = (_archive_calls(pools, q.float(), kw, vw, nc, wl, fmt, mc)
+                           if G == 4 else {})
                 for gen, (fn, plain) in _archive_calls(pools, q, kw, vw, nc, wl, fmt,
                                                        mc).items():
                     if gen == "kernel6":
@@ -2731,10 +2803,26 @@ def phase_kernel_archive():
                     got = fn()
                     torch.cuda.synchronize()
                     want = plain()
-                    # same arithmetic, sums in another order: a bf16(p) or the
-                    # bf16 output may move by one ulp each
+                    # v4-v6: same arithmetic, sums in another order, a bf16(p) or
+                    # the bf16 output may move by one ulp each; v2, v3: steps of
+                    # 64 tokens and window tiles round p at their own maxima
                     _check(results, worst, gen, got, want,
                            ulps * want.float().abs().max().item(), **case)
+                    if gen in splits:
+                        want32 = splits[gen]()
+                        outs = [got] + ([calls32[gen][0]()] if calls32 else [])
+                        for out in outs:
+                            r = split_gate(out, want32, slice(None))
+                            worst_split[gen] = max(worst_split[gen], r)
+                            if r > 1.0:
+                                raise AssertionError(f"{gen} ({out.dtype} q) against its "
+                                                     f"split plain version: {r} of the "
+                                                     f"gate, {case}")
+                        if calls32:
+                            f32_q_cases[gen] += 1
+                            if not torch.equal(outs[1].to(got.dtype), got):
+                                raise AssertionError(f"{gen}: the f32 q's output rounded "
+                                                     f"is not the bf16 q's, {case}")
                 got = sar.fused_sparse_decode_attention_v5(q, sp, kw, vw, nc, wl, fmt, fmt,
                                                            mc, hpb=2)
                 want = sar.fused_sparse_decode_attention_v5_plain(q, sp, kw, vw, nc, wl, fmt,
@@ -2760,6 +2848,29 @@ def phase_kernel_archive():
         q = torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(bf)
         calls = _archive_calls(pools, q, kw, vw, 0, 0, fmt, mc)
         heads = vw.float().permute(0, 2, 1, 3).reshape(BH, W, D)
+        splits = _archive_split_plains(pools, q, kw, vw, 0, 0, fmt, mc)
+        calls32 = _archive_calls(pools, q.float(), kw, vw, 0, 0, fmt, mc)
+        for gen in ("v2", "v3"):
+            want32 = splits[gen]()
+            got, got32 = calls[gen][0](), calls32[gen][0]()
+            for out in (got, got32):
+                r = split_gate(out, want32, slice(None))
+                worst_split[gen] = max(worst_split[gen], r)
+                if r > 1.0:
+                    raise AssertionError(f"{gen} ({out.dtype} q) with nothing to attend "
+                                         f"against its split plain version (the window "
+                                         f"mean): {r} of the gate")
+            mean_bits[f"{gen}_{sparsity}"] = bool(torch.equal(got, want32.to(got.dtype))
+                                                  and torch.equal(got32, want32))
+        if sparsity == 0.7:          # one CUDA graph of each across count changes
+            (ks, kb), (vs, vb) = pools["head"]
+            (cks, ckb), (cvs, cvb) = pools["chunk"]
+            graphs["v2"] = _archive_graph_replays(
+                lambda nc, wl: sar.fused_sparse_decode_attention(q, ks, kb, vs, vb, kw, vw, nc,
+                                                                 wl, fmt, fmt, mc))
+            graphs["v3"] = _archive_graph_replays(
+                lambda nc, wl: sar.fused_sparse_decode_attention_v3(
+                    q, cks, ckb, cvs, cvb, kw, vw, nc, wl, fmt, fmt, mc))
         for gen, hpb in (("v2", 1), ("v3", 1), ("v4", 1), ("v5", 8), ("v5", 2)):
             # the mean over groups of hpb heads (one head: v2-v4)
             mean = heads.reshape(BH // hpb, hpb * W, D).mean(dim=1).repeat_interleave(
@@ -2778,8 +2889,9 @@ def phase_kernel_archive():
         if not all(bool(x.isnan().all()) for x in nan):
             raise AssertionError("v1 or v6 with nothing to attend is not NaN")
     nothing = ("v1 and v6 NaN (kernels and plain); v2, v3 and v4 the mean of the head's 288 "
-               "window rows; v5 the mean of the windows of the 8 (hpb 8) or 2 (hpb 2) "
-               "heads of its grid step")
+               "window rows (v2 and v3 also against their split plain versions' mean, "
+               "summed in row order); v5 the mean of the windows of the 8 (hpb 8) or 2 "
+               "(hpb 2) heads of its grid step")
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     ladder = {"a": _archive_ladder(g, dev, flush_buf.zero_, 8, 5, 1, 288, 288, 4),
               "b": _archive_ladder(g, dev, flush_buf.zero_, 32, 3, 3, 288, 132, 4)}
@@ -2790,7 +2902,12 @@ def phase_kernel_archive():
                 "v6_windows_at_5_chunks": ARCHIVE_WINDOWS, "v5_hpb": (8, 2)},
          n_cases={k: len(v) for k, v in by_kind.items()},
          max_abs_err={k: max(r["max_abs_err"] for r in v) for k, v in by_kind.items()},
-         worst_err_over_tol=worst, nothing_to_attend=nothing, ladder=ladder)
+         worst_err_over_tol=worst, worst_err_over_tol_split=worst_split,
+         tol_split=SPLIT_TOL_NOTE, window_mean_bit_equal_to_split_plain=mean_bits,
+         f32_q_cases=f32_q_cases,
+         graph_replays={gen: len(r) for gen, r in graphs.items()},
+         nothing_to_attend=nothing, ladder=ladder,
+         seconds=time.perf_counter() - t_phase)
     entries = {}
     for kind in ARCHIVE_KINDS:
         # v6's kernel is kernel 16 alone (the partials); the whole function
@@ -2804,6 +2921,9 @@ def phase_kernel_archive():
                    t["bytes_ms"], t["flops_ms"])
         e.update(timed_at="ladder (a): B=8, Hkv=8, G=4, mc=5, 1 chunk + 288 window",
                  ladder={s: ladder[s]["timed"][kind] for s in ladder})
+        if kind in worst_split:
+            e.update(worst_err_over_tol_split=worst_split[kind], tol_split=SPLIT_TOL_NOTE,
+                     graph_replays=graphs[kind])
         if kind == "v6":
             e.update(partials_max_abs_err=max(r["max_abs_err"] for r in by_kind["v6_partials"]),
                      partials_worst_err_over_tol=worst["v6_partials"],

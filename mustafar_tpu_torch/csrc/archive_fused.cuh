@@ -1,6 +1,6 @@
-// The fused body of the archive's decode generations v2, v3, v4 and v6
-// (sp_archive_fused.cu, sp_archive_stream.cu): one kernel, templated on the
-// pool layout and on what it returns.
+// The fused body of the archive's decode generations v4 and v6
+// (sp_archive_stream.cu): one kernel over the fused stream pool, templated
+// on what it returns.
 //
 // For each (batch row b, kv head h) one block of 8 warps attends the G =
 // Hq / Hkv query heads of that kv head over
@@ -14,19 +14,10 @@
 // with PARTIALS (v6), the unnormalised acc [B*Hkv, G, 128] f32 and m, l
 // [B*Hkv, G] f32 (no chunk: acc 0, m -1e30, l 0).
 //
-// Layouts (Layout):
-//   kHeadMajor   split pools, segments [B*Hkv, mc*R_i, 128] and uint32 words
-//                [B*Hkv, mc*8, 128] (v2): each chunk's pieces loaded with
-//                plain 16-byte loads, then attended;
-//   kChunkMajor  split pools [mc, B*Hkv, R_i, 128], [mc, B*Hkv, 8, 128]
-//                (v3): the next chunk's pieces in flight with cp.async
-//                while this one is attended (two buffers);
-//   kStream      the fused int16 stream [mc, B*Hkv, KR + VR, 128]
-//                (ops/sparse_format.py encode_stream: K's value segments and
-//                16 uint16 word planes, then V's; v4, v6): a chunk's whole
-//                row-block is ONE cp.async copy, double-buffered.
-// Split-pool chunks are staged in the stream's order, so the expansion reads
-// both alike but for the word width (32 or 16 bits).
+// The pool is the fused int16 stream [mc, B*Hkv, KR + VR, 128]
+// (ops/sparse_format.py encode_stream: K's value segments and 16 uint16
+// word planes, then V's): a chunk's whole row-block is ONE cp.async copy,
+// double-buffered.
 //
 // A masked column adds exactly 0 once a live column has set the running max
 // (p = exp(-1e30 - m) = 0, and no max moves), so the kernel leaves masked
@@ -64,20 +55,6 @@ constexpr float NEG = -1e30f;
 constexpr float SM_SCALE = 0.08838834764831845f;   // 1 / sqrt(128)
 constexpr size_t SMEM_MAX = 232448;                 // a block's shared memory
 
-enum class Layout { kHeadMajor, kChunkMajor, kStream };
-
-// The pools of one call: split (segments, words per stream; the second
-// segment null when a stream has one) or the fused stream.
-struct Pools {
-  const int16_t* ks0;
-  const int16_t* ks1;
-  const uint32_t* kb;
-  const int16_t* vs0;
-  const int16_t* vs1;
-  const uint32_t* vb;
-  const int16_t* stream;
-};
-
 // The scores of one softmax step, `ns` columns a head, as softmax_step
 // (softmax_step.cuh) indexes them: s[g][t].
 struct Rows {
@@ -99,10 +76,10 @@ __host__ __device__ inline size_t head_bytes(int G, int ns) {
   return ((size_t)G * ns * 4 + (size_t)G * D * 4 + 3 * (size_t)G * 4 + 15) / 16 * 16;
 }
 
-template <int G, Layout LAYOUT, bool PARTIALS>
+template <int G, bool PARTIALS>
 __global__ void __launch_bounds__(THREADS)
 fused_kernel(const __nv_bfloat16* __restrict__ q,       // [B*Hkv, G, D]
-             const Pools pools,
+             const int16_t* __restrict__ pool,          // [mc, B*Hkv, KR + VR, D]
              const __nv_bfloat16* __restrict__ k_win,   // [B, W, Hkv, D] (not PARTIALS)
              const __nv_bfloat16* __restrict__ v_win,
              void* __restrict__ out,                    // [B*Hkv, G, D]; acc f32 if PARTIALS
@@ -111,8 +88,6 @@ fused_kernel(const __nv_bfloat16* __restrict__ q,       // [B*Hkv, G, D]
              int out_f32, int BH, int Hkv, int mc, int W, int n_chunks, int win_len,
              int low, int ns, Fmt<16> kf, Fmt<16> vf) {
   static_assert(G <= WARPS, "one warp per query head in the softmax step");
-  constexpr bool ASYNC = LAYOUT != Layout::kHeadMajor;
-  constexpr int WORD_BITS = LAYOUT == Layout::kStream ? 16 : 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* base = reinterpret_cast<float*>(smem_raw);
   Smem sm{Rows{base, ns}, base + (size_t)G * ns + G * D, nullptr, nullptr};
@@ -157,44 +132,30 @@ fused_kernel(const __nv_bfloat16* __restrict__ q,       // [B*Hkv, G, D]
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[g][i] = acc[g][i] * sm.corr[g] + pv[g][i];
   };
-  // chunk ci of both streams into `dst`: K, then V, in the stream's order
+  // chunk ci of both streams into `dst`: K, then V
   auto fetch = [&](int16_t* dst, int ci) {
-    if constexpr (LAYOUT == Layout::kStream) {
-      bitmap::stage_rows_async(dst, pools.stream + ((size_t)ci * BH + bh) * rows * D,
-                               (int)rows, tid, THREADS);
-    } else {
-      constexpr bool CM = LAYOUT == Layout::kChunkMajor;
-      const size_t piece = CM ? (size_t)ci * BH + bh : (size_t)bh * mc + ci;
-      bitmap::stage_split<CM>(dst, pools.ks0, pools.ks1, pools.kb, kf, piece, tid, THREADS);
-      bitmap::stage_split<CM>(dst + (size_t)kf.rows() * D, pools.vs0, pools.vs1, pools.vb,
-                              vf, piece, tid, THREADS);
-      if (CM) bitmap::cp_async_commit();
-    }
+    bitmap::stage_rows_async(dst, pool + ((size_t)ci * BH + bh) * rows * D, (int)rows, tid,
+                             THREADS);
   };
 
   // ---- pool chunks (PARTIALS: from the first with a column above `low`) ------
   const int ci0 = PARTIALS ? (low + 1) / CHUNK : 0;
-  if (ASYNC && ci0 < n_chunks) fetch(stage + (ci0 & 1) * rows * D, ci0);
+  if (ci0 < n_chunks) fetch(stage + (ci0 & 1) * rows * D, ci0);
   for (int ci = ci0; ci < n_chunks; ++ci) {
-    const int16_t* kst = stage;
-    if (ASYNC) {
-      if (ci + 1 < n_chunks) {
-        fetch(stage + ((ci + 1) & 1) * rows * D, ci + 1);
-        bitmap::cp_async_wait<1>();
-      } else {
-        bitmap::cp_async_wait<0>();
-      }
-      kst = stage + (ci & 1) * rows * D;
+    if (ci + 1 < n_chunks) {
+      fetch(stage + ((ci + 1) & 1) * rows * D, ci + 1);
+      bitmap::cp_async_wait<1>();
     } else {
-      fetch(stage, ci);
+      bitmap::cp_async_wait<0>();
     }
+    const int16_t* kst = stage + (ci & 1) * rows * D;
     __syncthreads();   // chunk ci is in shared memory for every thread
     const int16_t* vst = kst + (size_t)kf.rows() * D;
     for (int t0 = warp; t0 < CHUNK; t0 += NR * WARPS) {
       float v[NR][4];
 #pragma unroll
       for (int j = 0; j < NR; ++j)
-        bitmap::expand_row<16, WORD_BITS>(kst, kf, t0 + j * WARPS, lane, v[j]);
+        bitmap::expand_row<16>(kst, kf, t0 + j * WARPS, lane, v[j]);
 #pragma unroll
       for (int j = 0; j < NR; ++j) {
         const int t = t0 + j * WARPS;
@@ -211,7 +172,7 @@ fused_kernel(const __nv_bfloat16* __restrict__ q,       // [B*Hkv, G, D]
       float v[NR][4];
 #pragma unroll
       for (int j = 0; j < NR; ++j)
-        bitmap::expand_row<16, WORD_BITS>(vst, vf, t0 + j * WARPS, lane, v[j]);
+        bitmap::expand_row<16>(vst, vf, t0 + j * WARPS, lane, v[j]);
 #pragma unroll
       for (int j = 0; j < NR; ++j)
 #pragma unroll
@@ -297,23 +258,20 @@ fused_kernel(const __nv_bfloat16* __restrict__ q,       // [B*Hkv, G, D]
 
 // Checks the launch, sizes shared memory and launches the instance for G.
 // (k0, k1) and (vk0, vk1) are the streams' segment widths.
-template <Layout LAYOUT, bool PARTIALS>
-int launch(const void* q, const Pools& pools, const void* k_win, const void* v_win,
+template <bool PARTIALS>
+int launch(const void* q, const void* pool, const void* k_win, const void* v_win,
            void* out, float* m_out, float* l_out, int out_f32, int device, int B, int Hkv,
            int G, int mc, int W, int n_chunks, int win_len, int low, int k0, int k1,
            int vk0, int vk1, void* stream) {
   bool k_ok, v_ok;
   const Fmt<16> kf = bitmap::make_fmt<16>(k0, k1, &k_ok);
   const Fmt<16> vf = bitmap::make_fmt<16>(vk0, vk1, &v_ok);
-  const bool split_ok = LAYOUT == Layout::kStream ||
-                        ((k1 > 0) == (pools.ks1 != nullptr) && (vk1 > 0) == (pools.vs1 != nullptr));
-  if (!k_ok || !v_ok || !split_ok || B < 1 || Hkv < 1 || mc < 1 || W < 1 || n_chunks < 0 ||
+  if (!k_ok || !v_ok || B < 1 || Hkv < 1 || mc < 1 || W < 1 || n_chunks < 0 ||
       n_chunks > mc || win_len < 0 || win_len > W || low < -1 ||
       (PARTIALS && (m_out == nullptr || l_out == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int ns = PARTIALS ? CHUNK : ((W > CHUNK ? W : CHUNK) + 3) / 4 * 4;
-  const size_t nbuf = LAYOUT == Layout::kHeadMajor ? 1 : 2;
-  const size_t smem = head_bytes(G, ns) + nbuf * ((size_t)kf.rows() + vf.rows()) * D * 2;
+  const size_t smem = head_bytes(G, ns) + 2 * ((size_t)kf.rows() + vf.rows()) * D * 2;
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;   // a window too long
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -321,11 +279,11 @@ int launch(const void* q, const Pools& pools, const void* k_win, const void* v_w
   const int BH = B * Hkv;
 #define FUSED_LAUNCH(g)                                                                 \
   {                                                                                     \
-    err = cudaFuncSetAttribute(fused_kernel<g, LAYOUT, PARTIALS>,                       \
+    err = cudaFuncSetAttribute(fused_kernel<g, PARTIALS>,                               \
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem); \
     if (err != cudaSuccess) return (int)err;                                            \
-    fused_kernel<g, LAYOUT, PARTIALS><<<BH, THREADS, smem, s>>>(                        \
-        static_cast<const __nv_bfloat16*>(q), pools,                                    \
+    fused_kernel<g, PARTIALS><<<BH, THREADS, smem, s>>>(                                \
+        static_cast<const __nv_bfloat16*>(q), static_cast<const int16_t*>(pool),        \
         static_cast<const __nv_bfloat16*>(k_win), static_cast<const __nv_bfloat16*>(v_win), \
         out, m_out, l_out, out_f32, BH, Hkv, mc, W, n_chunks, win_len, low, ns, kf, vf); \
   }

@@ -1,8 +1,10 @@
 // Expansion of one bitmap-coded chunk row, shared by the bitmap attention
-// kernels (sp_decode.cu, sp_segment.cu) and the archived generations over
-// split pools (sp_archive_spmv.cu, sp_archive_fused.cu), templated on the
-// value width QBITS: 16 (codec bitmap, bf16 values) or 8 (codec bitmap-q8,
-// int8 codes), and on the bitmap's word width WORD_BITS (16 or 32).
+// kernels (sp_decode.cu, sp_segment.cu) and the archived generations
+// (sp_archive_spmv.cu over split pools, sp_archive_stream.cu), templated on
+// the value width QBITS: 16 (codec bitmap, bf16 values) or 8 (codec
+// bitmap-q8, int8 codes), and on the bitmap's word width WORD_BITS (16 or
+// 32).  The uniform decodes expand from a run of a chunk's tokens
+// (chunk_share.cuh), on this format.
 //
 // A chunk's fused stream (ops/sparse_format.py encode_stream and
 // encode_stream_q8) is, for C=256 tokens and D=128 channels, int16 rows of
@@ -26,8 +28,8 @@
 //
 // The archive's split pools (ops/sparse_format.py encode_chunk) keep the
 // same segments apart from a bitmap of C/32 = 8 uint32 word planes [8, 128]:
-// the bit of (token t, channel d) is bit t / 8 of word [t % 8, d].  Its
-// kernels stage a chunk's pieces into shared memory in the stream's order,
+// the bit of (token t, channel d) is bit t / 8 of word [t % 8, d].  The
+// SpMV kernels stage a chunk's pieces into shared memory in the stream's order,
 // segment 0 rows, segment 1 rows, then the words (8 planes of 512 bytes
 // take the 16 rows of the uint16 planes), so stored_value addresses the
 // values as in a stream and only the word read differs (WORD_BITS = 32).
@@ -197,21 +199,10 @@ __device__ __forceinline__ void stage_rows_async(int16_t* dst, const int16_t* sr
   cp_async_commit();
 }
 
-// Copies `rows` rows of 256 bytes from device memory to shared memory with
-// plain 16-byte loads and stores; the caller syncs before reading them.
-__device__ __forceinline__ void copy_rows(void* dst, const void* src, int rows, int tid,
-                                          int nthreads) {
-  const int n = rows * (D * 2 / 16);
-  uint4* to = reinterpret_cast<uint4*>(dst);
-  const uint4* from = reinterpret_cast<const uint4*>(src);
-  for (int i = tid; i < n; i += nthreads) to[i] = from[i];
-}
-
 // Stages chunk `piece` of one stream's split pools (segments [p0 | p1, 128]
 // bf16 and words [8, 128] uint32, each pool a run of such pieces) into
-// `dst` in the stream's order, for expand_row<16, 32>: with ASYNC as
-// cp.async copies of the caller's open group, else with plain loads.
-template <bool ASYNC>
+// `dst` in the stream's order, for expand_row<16, 32>: cp.async copies of
+// the caller's open group.
 __device__ __forceinline__ void stage_split(int16_t* dst, const int16_t* seg0,
                                             const int16_t* seg1, const uint32_t* words,
                                             const Fmt<16> f, size_t piece, int tid,
@@ -222,10 +213,7 @@ __device__ __forceinline__ void stage_split(int16_t* dst, const int16_t* seg0,
   int16_t* to = dst;
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    if (ASYNC)
-      copy_rows_async(to, from[j], rows[j], tid, nthreads);
-    else
-      copy_rows(to, from[j], rows[j], tid, nthreads);
+    copy_rows_async(to, from[j], rows[j], tid, nthreads);
     to += (size_t)rows[j] * D;
   }
 }

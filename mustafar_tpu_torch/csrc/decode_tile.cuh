@@ -219,16 +219,18 @@ __device__ __forceinline__ void tile_pv(float (&acc)[2][4], const Smem<G>& sm,
 }
 
 // Issues the cp.async copies of window tokens [0, n) of one row's K and V
-// (k_win / v_win at the row's first token, [.., 128] bf16) into the tiles
-// kt and vt (rows of LD), 16 bytes a thread, as one group.
+// (k_win / v_win at the row's first token, [.., 128] bf16, a token every
+// `stride` elements) into the tiles kt and vt (rows of LD), 16 bytes a
+// thread, as one group.
 __device__ __forceinline__ void stage_window(__nv_bfloat16* kt, __nv_bfloat16* vt,
                                              const __nv_bfloat16* kw,
-                                             const __nv_bfloat16* vw, int n, int tid) {
+                                             const __nv_bfloat16* vw, int n, int tid,
+                                             size_t stride = D) {
   const int units = n * (D / 8);   // 16-byte pieces of one tile
   for (int i = tid; i < 2 * units; i += THREADS) {
     const int j = i < units ? i : i - units;
     const int r = j / (D / 8), u = j % (D / 8);
-    const __nv_bfloat16* src = (i < units ? kw : vw) + (size_t)r * D + 8 * u;
+    const __nv_bfloat16* src = (i < units ? kw : vw) + (size_t)r * stride + 8 * u;
     __nv_bfloat16* dst = (i < units ? kt : vt) + r * LD + 8 * u;
     smem::cp_async16(smem::smem_addr(dst), src);
   }

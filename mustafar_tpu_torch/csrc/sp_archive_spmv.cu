@@ -76,7 +76,7 @@ key_scores_kernel(const __nv_bfloat16* __restrict__ q,    // [BH, 8, D]
     for (int i = tid; i < G8 * CHUNK; i += THREADS) o[(size_t)(i / CHUNK) * mc * CHUNK + i % CHUNK] = 0.f;
     return;
   }
-  bitmap::stage_split<true>(stage, seg0, seg1, words, f, (size_t)bh * mc + ci, tid, THREADS);
+  bitmap::stage_split(stage, seg0, seg1, words, f, (size_t)bh * mc + ci, tid, THREADS);
   bitmap::cp_async_commit();
   float qr[G8][4];
 #pragma unroll
@@ -126,7 +126,7 @@ value_combine_kernel(const __nv_bfloat16* __restrict__ w,  // [BH, 8, mc*256]
   const int lane = tid & 31;
   const int warp = tid >> 5;
   auto fetch = [&](int16_t* dst, int ci) {
-    bitmap::stage_split<true>(dst, seg0, seg1, words, f, (size_t)bh * mc + ci, tid, THREADS);
+    bitmap::stage_split(dst, seg0, seg1, words, f, (size_t)bh * mc + ci, tid, THREADS);
     int16_t* wdst = dst + (size_t)f.rows() * D;
     for (int g = 0; g < G8; ++g)   // one row's chunk: 512 bytes, two rows of 256
       bitmap::copy_rows_async(wdst + g * CHUNK,

@@ -22,7 +22,7 @@
 // pools alone: at B=8, Hkv=8, one chunk and a 288-token window 12.7 MB
 // (3.8 us at 3.35 TB/s), the pools 3.1 MB (0.94 us).  The products are a
 // few flops a byte.  The expansion's instructions, one block per kv head
-// and launch latency bind first, as for v2 and v3 (sp_archive_fused.cu).
+// and launch latency bind first.
 //
 // Design (first, simple version), one block of 8 warps per (b, kv head):
 //   v4: archive_fused.cuh's body over the stream layout: a chunk's whole
@@ -53,8 +53,8 @@
 //       one's V is expanded: with a whole-chunk tile and two buffers a
 //       block took 177 KB, one block an SM, and at B=32 (256 blocks) v5
 //       took 1.6x v4's time; half the tile and one buffer take 93 KB at
-//       sparsity 0.7, two blocks an SM (v3's second buffer gains 1-3 %
-//       over v2's plain loads).  The window is one step, its rows copied
+//       sparsity 0.7, two blocks an SM (a second buffer gained 1-3 % in
+//       the split-pool kernels' first form).  The window is one step, its rows copied
 //       into the tile 128 at a time.  With nothing to attend (n_chunks =
 //       win_len = 0) every one of the grid step's hpb*W window columns has
 //       p = 1 on the TPU, so the block writes the mean of the hpb heads'
@@ -68,7 +68,6 @@
 
 namespace {
 
-using archive_fused::Layout;
 using archive_fused::NEG;
 using archive_fused::NR;
 using archive_fused::SM_SCALE;
@@ -81,11 +80,6 @@ using bitmap::Fmt;
 
 constexpr int LD = D + 8;                 // padded tile row: no bank conflicts
 constexpr int TILE = CHUNK / 2;           // rows of v5's tile: half a chunk
-
-archive_fused::Pools stream_pools(const void* pool) {
-  return archive_fused::Pools{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                              static_cast<const int16_t*>(pool)};
-}
 
 // Bytes of v5's tile [TILE][LD] bf16 and its scores [G][ns], m, l, corr,
 // rounded to 16; the stage buffer follows.
@@ -361,8 +355,8 @@ extern "C" int sp_fused_v4(const void* q, const void* pool, const void* k_win,
                            const void* v_win, void* out, int out_f32, int device, int B,
                            int Hkv, int G, int mc, int W, int n_chunks, int win_len, int k0,
                            int k1, int vk0, int vk1, void* stream) {
-  return archive_fused::launch<Layout::kStream, false>(
-      q, stream_pools(pool), k_win, v_win, out, nullptr, nullptr, out_f32, device, B, Hkv,
+  return archive_fused::launch<false>(
+      q, pool, k_win, v_win, out, nullptr, nullptr, out_f32, device, B, Hkv,
       G, mc, W, n_chunks, win_len, -1, k0, k1, vk0, vk1, stream);
 }
 
@@ -382,8 +376,8 @@ extern "C" int sp_fused_v5(const void* q, const void* pool, const void* k_win,
 extern "C" int sp_fused_v6(const void* q, const void* pool, void* acc, void* m, void* l,
                            int device, int B, int Hkv, int G, int mc, int n_chunks, int low,
                            int k0, int k1, int vk0, int vk1, void* stream) {
-  return archive_fused::launch<Layout::kStream, true>(
-      q, stream_pools(pool), nullptr, nullptr, acc, static_cast<float*>(m),
+  return archive_fused::launch<true>(
+      q, pool, nullptr, nullptr, acc, static_cast<float*>(m),
       static_cast<float*>(l), 1, device, B, Hkv, G, mc, 1, n_chunks, 0, low, k0, k1, vk0,
       vk1, stream);
 }

@@ -52,7 +52,8 @@
 //     the window's capacity; CTA y of a row takes the row's y-th live step
 //     (n_chunks * CUT + ceil(win_len / wt) of them: 448 live CTAs at that
 //     shape), the others read the counts and exit (decode_tile.cuh);
-//   - a chunk CTA copies only what its 64 tokens need into shared memory,
+//   - a chunk CTA copies only what its 64 tokens need into shared memory
+//     (chunk_share.cuh, shared with the archive's split-pool decodes),
 //     16 bytes a thread with cp.async, every copy in flight before the
 //     first expansion: the 16 word planes of each stream and, of each
 //     value segment, the rows' one run of lanes that holds these tokens
@@ -86,167 +87,17 @@
 
 #include <algorithm>
 
+#include "chunk_share.cuh"
 #include "decode_tile.cuh"
 #include "sp_decode.cuh"
 
 namespace {
 
 using namespace uniform_decode;
+using namespace chunk_share;
 using bitmap::CHUNK;
 using bitmap::Fmt;
-using bitmap::WORD_ROWS;
 
-constexpr int CUT = 4;                // steps a chunk
-constexpr int STEP = CHUNK / CUT;     // tokens a chunk step
-static_assert(STEP % 16 == 0 && STEP <= MAX_STEP, "whole k-steps of the value product");
-
-// Three CTAs an SM (at most 85 registers a thread); G = 8, two.
-constexpr int min_blocks(int G) { return G <= 4 ? 3 : 2; }
-
-// The lanes [lo, lo + w) of every row of a value segment of width k (2^lr
-// logical rows) that tokens [t0, t0 + STEP) take, in whole 16-byte
-// pieces: token t's values lie at lanes (t >> lr) * k .. + k.
-__host__ __device__ inline void share_lanes(int k, int lr, int t0, int& lo, int& w) {
-  const int a = ((t0 >> lr) * k) & ~7;
-  const int b = (((((t0 + STEP - 1) >> lr) + 1) * k + 7) & ~7);
-  lo = a;
-  w = (b < D ? b : D) - a;
-}
-
-// One stream's staged share: its word planes [16][128], then each value
-// segment's rows [p][w], lanes [lo, lo + w) of the stream's (fields, not
-// arrays, so that the expansion indexes no local memory).
-struct Share {
-  const uint16_t* words;
-  const uint16_t *seg0, *seg1;
-  int lo0, w0, lo1, w1;
-};
-
-// 16-bit elements of a stream's share at the widest lane runs over the
-// chunk's steps (the shared-memory size the host reserves).
-template <int QBITS>
-int share_elems(const Fmt<QBITS>& f) {
-  int n = WORD_ROWS * D;
-  const int p[2] = {f.p0(), f.p1()}, k[2] = {f.k0, f.k1}, lr[2] = {f.lr0, f.lr1};
-  for (int j = 0; j < 2; ++j) {
-    if (!k[j]) continue;
-    int widest = 0;
-    for (int c = 0; c < CUT; ++c) {
-      int lo, w;
-      share_lanes(k[j], lr[j], c * STEP, lo, w);
-      widest = std::max(widest, w);
-    }
-    n += p[j] * widest;
-  }
-  return n;
-}
-
-// Issues the cp.async copies of the share of tokens [t0, t0 + STEP) of the
-// stream at `src` into `dst`; returns the share and moves dst past it.
-template <int QBITS>
-__device__ Share stage_share(uint16_t*& dst, const int16_t* src, const Fmt<QBITS>& f, int t0,
-                             int tid) {
-  auto copy = [&](const int16_t* from, int rows, int lo, int w) {
-    const int per_row = w / 8;
-    for (int i = tid; i < rows * per_row; i += THREADS)
-      smem::cp_async16(smem::smem_addr(dst + (i / per_row) * w + 8 * (i % per_row)),
-                       from + (size_t)(i / per_row) * D + lo + 8 * (i % per_row));
-    const uint16_t* at = dst;
-    dst += rows * w;
-    return at;
-  };
-  Share sh{};
-  sh.words = copy(src + (size_t)f.val_rows() * D, WORD_ROWS, 0, D);
-  share_lanes(f.k0, f.lr0, t0, sh.lo0, sh.w0);
-  sh.seg0 = copy(src, f.p0(), sh.lo0, sh.w0);
-  sh.seg1 = dst;
-  if (f.k1) {
-    share_lanes(f.k1, f.lr1, t0, sh.lo1, sh.w1);
-    sh.seg1 = copy(src + (size_t)f.p0() * D, f.p1(), sh.lo1, sh.w1);
-  }
-  return sh;
-}
-
-// Where token row t's stored values lie in a share: its run of k0 values
-// in segment 0 and of k1 in segment 1, each indexed by rank (run1 offset by
-// -k0), and at 8 bits the byte of the 16-bit lane that holds each (the
-// logical row's half of its stream row).
-struct Runs {
-  const uint16_t *run0, *run1;
-  int byte0, byte1;
-};
-
-template <int QBITS>
-__device__ __forceinline__ Runs token_runs(const Share& sh, const Fmt<QBITS>& f, int t) {
-  auto run = [&](const uint16_t* seg, int k, int lr, int lo, int w, int skip, int& byte) {
-    const int row = t & ((1 << lr) - 1);
-    int srow = row;
-    byte = 0;
-    if constexpr (QBITS == 8) {   // logical row `row` in stream row row % (r/2): low, then high
-      srow = row & ((1 << (lr - 1)) - 1);
-      byte = (row >> (lr - 1)) ? 8 : 0;
-    }
-    return seg + srow * w + (t >> lr) * k - lo - skip;
-  };
-  Runs r;
-  r.run0 = run(sh.seg0, f.k0, f.lr0, sh.lo0, sh.w0, 0, r.byte0);
-  r.run1 = f.k1 ? run(sh.seg1, f.k1, f.lr1, sh.lo1, sh.w1, f.k0, r.byte1) : r.run0;
-  if (!f.k1) r.byte1 = r.byte0;
-  return r;
-}
-
-// Token row t expanded by the calling warp into the bf16 bits of lane's
-// channels lane + 32 i (0 where the bit is unset), as bitmap::expand_row
-// does from a whole staged stream: a bf16 value's bits, or an int8 code's
-// as a bf16 number.
-template <int QBITS>
-__device__ __forceinline__ void expand_share_row(const Share& sh, const Fmt<QBITS>& f, int t,
-                                                 int lane, uint16_t (&v)[4]) {
-  const uint16_t* words = sh.words + (t % WORD_ROWS) * D;
-  const int shift = t / WORD_ROWS;
-  const Runs runs = token_runs<QBITS>(sh, f, t);
-  const unsigned below = (1u << lane) - 1u;
-  const int keep = f.k0 + f.k1;
-  int base = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int bit = (words[lane + 32 * i] >> shift) & 1;
-    const unsigned set = __ballot_sync(0xffffffffu, bit);
-    const int rank = min(base + __popc(set & below), keep - 1);
-    base += __popc(set);
-    uint16_t x = 0;
-    if (bit) {
-      const bool first = rank < f.k0;
-      x = (first ? runs.run0 : runs.run1)[rank];
-      if constexpr (QBITS == 8) {
-        const int byte = (x >> (first ? runs.byte0 : runs.byte1)) & 0xff;
-        x = (uint16_t)(__float_as_uint(small_int_f32((byte ^ 0x80) - 0x80)) >> 16);
-      }
-    }
-    v[i] = x;
-  }
-}
-
-// Tokens [t0, t0 + STEP) of a stream's share expanded into the bf16 tile
-// `tile` (rows of LD): warp w takes local rows w + 8 j, ROWS_IN_FLIGHT at
-// a time.
-template <int QBITS>
-__device__ __forceinline__ void expand_share(__nv_bfloat16* tile, const Share& sh,
-                                             const Fmt<QBITS>& f, int t0, int warp,
-                                             int lane) {
-  constexpr int NR = bitmap::ROWS_IN_FLIGHT;
-  uint16_t* tile16 = reinterpret_cast<uint16_t*>(tile);
-  for (int r0 = warp; r0 < STEP; r0 += NR * WARPS) {
-    uint16_t v[NR][4];
-#pragma unroll
-    for (int j = 0; j < NR; ++j) expand_share_row<QBITS>(sh, f, t0 + r0 + j * WARPS, lane, v[j]);
-#pragma unroll
-    for (int j = 0; j < NR; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) tile16[(r0 + j * WARPS) * LD + lane + 32 * i] = v[j][i];
-  }
-}
-static_assert(STEP % (bitmap::ROWS_IN_FLIGHT * WARPS) == 0, "whole runs of rows a warp");
 
 template <int G, int QBITS>
 __global__ void __launch_bounds__(THREADS, min_blocks(G))
@@ -290,16 +141,17 @@ sp_uniform_kernel(const __nv_bfloat16* __restrict__ q,      // [B*Hkv, G, D]
     const int16_t* stream = pool + slot * (kf.rows() + vf.rows()) * D;
     __nv_bfloat16* vt = kt + STEP * LD;
     uint16_t* dst = reinterpret_cast<uint16_t*>(vt + STEP * LD);
-    const Share ksh = stage_share<QBITS>(dst, stream, kf, t0, tid);
-    const Share vsh = stage_share<QBITS>(dst, stream + (size_t)kf.rows() * D, vf, t0, tid);
+    const Share ksh = stage_share<QBITS>(dst, stream_sources(stream, kf), kf, t0, tid);
+    const Share vsh =
+        stage_share<QBITS>(dst, stream_sources(stream + (size_t)kf.rows() * D, vf), vf, t0, tid);
     smem::cp_async_commit();
     const __nv_bfloat16* ks = QBITS == 8 ? scales + slot * 2 * D : nullptr;
     if (ks != nullptr) vscale = ks + D;
     stage_q<G>(sm, q_row, ks, tid);
     smem::cp_async_wait<0>();
     __syncthreads();
-    expand_share<QBITS>(kt, ksh, kf, t0, warp, lane);
-    expand_share<QBITS>(vt, vsh, vf, t0, warp, lane);
+    expand_share<QBITS, 16>(kt, ksh, kf, t0, warp, lane);
+    expand_share<QBITS, 16>(vt, vsh, vf, t0, warp, lane);
     __syncthreads();
     tile_scores<G>(sm, kt, STEP, warp, lane);
     __syncthreads();
@@ -345,7 +197,7 @@ struct Args {
 template <int G, int QBITS>
 int launch(const Args& a, const Fmt<QBITS>& kf, const Fmt<QBITS>& vf, int device,
            cudaStream_t s) {
-  const int chunk = 2 * STEP * LD * 2 + 2 * (share_elems(kf) + share_elems(vf));
+  const int chunk = chunk_region_bytes(kf, vf);
   const int region = std::max({chunk, window_bytes(a.wt), 2 * a.n_parts * G * 4});
   const int bytes = (int)sizeof(Smem<G>) + region;
   cudaError_t err = smem::allow_dynamic_smem<sp_uniform_kernel<G, QBITS>>(bytes, device);

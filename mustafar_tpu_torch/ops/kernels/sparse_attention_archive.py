@@ -42,7 +42,14 @@ f32 with 1/sqrt(128) scaling.  The archive takes no scales: chunks must be
 other formats are refused with ``NotImplementedError``.
 
 v2-v5 take one online-softmax step a chunk, then the whole window in one
-step, masked with -1e30 (not the production kernel's window tiles).  With
+step, masked with -1e30 (not the production kernel's window tiles): the
+plain versions repeat these steps.  On the card v2 and v3 (kernels 12 and
+13) run as the production bitmap decode does, one CTA a softmax step of 64
+chunk tokens or of a window tile, merged in step order; a step rounds p to
+bf16 at its own max, which their split plain versions repeat
+(``fused_sparse_decode_attention_split_plain``, ``..._v3_split_plain``).
+v2 and v3 take their counts as host ints or as one-element int32 tensors
+on the card, read there (a CUDA graph replays a call at any counts).  With
 nothing to attend (n_chunks = win_len = 0) every masked column gets
 p = exp(0) = 1: v2-v4 give the mean of the head's W window rows, v5 (whose
 window step also masks the other heads of its TPU grid step) the mean of
@@ -268,10 +275,10 @@ sparse_value_combine.launches = 0
 # Decode attention: the checks the three generations share
 # ---------------------------------------------------------------------------
 
-def _check_decode(q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win, n_chunks, win_len,
-                  kfmt, vfmt, max_chunks, chunk_major, name):
+def _check_decode(q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win, kfmt, vfmt, max_chunks,
+                  chunk_major, name):
     """Returns (B, Hkv, G, W, k_bmp, v_bmp), the head-major bitmaps as
-    [BH, mc*P, 128]."""
+    [BH, mc*P, 128]; the counts are each caller's to check."""
     _check_format(kfmt, name)
     _check_format(vfmt, name)
     qa._check_int("max_chunks", max_chunks, 1, 1 << 20)
@@ -294,8 +301,6 @@ def _check_decode(q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win, n_chunks, win_l
     qa._check_tensors(q, [("q", q, q.dtype), ("k_win", k_win, k_win.dtype),
                           ("v_win", v_win, k_win.dtype)]
                       + _stream_named("k", k_segs, k_bmp) + _stream_named("v", v_segs, v_bmp))
-    qa._check_int("n_chunks", n_chunks, 0, max_chunks)
-    qa._check_int("win_len", win_len, 0, W)
     return B, Hkv, Hq // Hkv, W, k_bmp, v_bmp
 
 
@@ -358,9 +363,11 @@ def sparse_decode_attention(q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win,
 
     CUDA tensors launch kernels 10 and 11 (``sparse_key_scores``,
     ``sparse_value_combine``); CPU tensors run their plain versions."""
-    _, _, _, _, k_bmp, v_bmp = _check_decode(
-        q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win, n_chunks, win_len, kfmt, vfmt,
-        max_chunks, False, "sparse_decode_attention")
+    _, _, _, W, k_bmp, v_bmp = _check_decode(
+        q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win, kfmt, vfmt, max_chunks, False,
+        "sparse_decode_attention")
+    qa._check_int("n_chunks", n_chunks, 0, max_chunks)
+    qa._check_int("win_len", win_len, 0, W)
     return _v1(q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win, n_chunks, win_len, kfmt,
                vfmt, max_chunks, sparse_key_scores, sparse_value_combine)
 
@@ -368,6 +375,10 @@ def sparse_decode_attention(q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win,
 # ---------------------------------------------------------------------------
 # v2 and v3: fused expansion, online softmax and combine
 # ---------------------------------------------------------------------------
+
+CHUNK_CUT = 4          # softmax steps the kernels cut a chunk into (runs of 64 tokens)
+MAX_SPLITS = 2048      # most steps a row of the kernels' grid takes (4 mc + window tiles)
+
 
 def _fused_plain(q, chunk, k_win, v_win, n_chunks, win_len):
     """v2's and v3's arithmetic: one online-softmax step a chunk
@@ -397,7 +408,8 @@ def _fused_plain(q, chunk, k_win, v_win, n_chunks, win_len):
 def fused_sparse_decode_attention_plain(q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win,
                                         n_chunks: int, win_len: int, kfmt, vfmt,
                                         max_chunks: int):
-    """v2 (kernel 12) over head-major pools, in PyTorch."""
+    """v2 (kernel 12) over head-major pools, in PyTorch, in the TPU
+    kernel's steps (the CPU path)."""
     BH = k_win.shape[0] * k_win.shape[2]
     k_bmp, v_bmp = k_bmp.reshape(BH, -1, 128), v_bmp.reshape(BH, -1, 128)
 
@@ -417,16 +429,102 @@ def fused_sparse_decode_attention_v3_plain(q, k_segs, k_bmp, v_segs, v_bmp, k_wi
     return _fused_plain(q, chunk, k_win, v_win, n_chunks, win_len)
 
 
+def window_mean(v_win):
+    """The mean of each head's W window rows [B, W, Hkv, 128] -> [B*Hkv,
+    128] f32: the rows (as bf16) summed in row order in f32, then divided
+    by W, as kernels 12 and 13 write it where there is nothing to attend."""
+    vw = _heads(v_win).to(torch.bfloat16).to(torch.float32)
+    acc = torch.zeros_like(vw[:, 0])
+    for t in range(vw.shape[1]):
+        acc = acc + vw[:, t]
+    # a true division (a CUDA tensor over a host scalar is a product by its
+    # reciprocal)
+    return acc / torch.full_like(acc, float(vw.shape[1]))
+
+
+def _split_plain(q, chunk, k_win, v_win, n_chunks, win_len, max_chunks):
+    """Kernels 12 and 13's arithmetic (``quant_attention.ps_split_steps``
+    with every slot at the call's counts): each chunk's ``CHUNK_CUT`` runs
+    of 64 tokens and each window tile of live tokens one softmax step from a
+    fresh state, merged in step order, the scores summed in the kernels'
+    order (``quant_attention._scores``); ``chunk(ci)`` -> expanded K, V
+    [BH, 256, 128] f32 of every head.  With nothing to attend the window
+    mean (``window_mean``)."""
+    B, _, Hq, D = q.shape
+    W, Hkv = k_win.shape[1], k_win.shape[2]
+    BH = B * Hkv
+    nc, wl = qa.host_count(n_chunks, max_chunks), qa.host_count(win_len, W)
+    if nc == 0 and wl == 0:
+        return (window_mean(v_win)[:, None].expand(BH, Hq // Hkv, D)
+                .reshape(B, 1, Hq, D).to(q.dtype))
+    chunks = [chunk(ci) for ci in range(nc)]
+    qf32 = q.to(torch.bfloat16).to(torch.float32).reshape(BH, Hq // Hkv, D)
+    scores = [qa._scores(qf32, kd, True) for kd, _ in chunks]
+
+    def slot_step(hs):
+        return lambda _, ci: (scores[ci][hs], chunks[ci][1][hs], None)
+    nc_t, wl_t = qa.uniform_counts(B, nc, wl, q.device)
+    kw, vw = (_heads(w).to(torch.bfloat16)[None] for w in (k_win, v_win))
+    return qa.ps_split_steps(q, BH, nc_t, wl_t, max_chunks, slot_step, kw, vw, 0,
+                             cut=CHUNK_CUT, ordered=True)
+
+
+def fused_sparse_decode_attention_split_plain(q, k_segs, k_bmp, v_segs, v_bmp, k_win,
+                                              v_win, n_chunks, win_len, kfmt, vfmt,
+                                              max_chunks: int):
+    """Kernel 12's arithmetic over head-major pools (``_split_plain``), at
+    counts given as host ints or one-element tensors."""
+    BH = k_win.shape[0] * k_win.shape[2]
+    k_bmp, v_bmp = k_bmp.reshape(BH, -1, 128), v_bmp.reshape(BH, -1, 128)
+
+    def chunk(ci):
+        return (_head_major_chunk(k_segs, k_bmp, kfmt, max_chunks, ci),
+                _head_major_chunk(v_segs, v_bmp, vfmt, max_chunks, ci))
+    return _split_plain(q, chunk, k_win, v_win, n_chunks, win_len, max_chunks)
+
+
+def fused_sparse_decode_attention_v3_split_plain(q, k_segs, k_bmp, v_segs, v_bmp, k_win,
+                                                 v_win, n_chunks, win_len, kfmt, vfmt,
+                                                 max_chunks: int):
+    """Kernel 13's arithmetic over chunk-major pools: kernel 12's."""
+    def chunk(ci):
+        return (_chunk_major_chunk(k_segs, k_bmp, kfmt, ci),
+                _chunk_major_chunk(v_segs, v_bmp, vfmt, ci))
+    return _split_plain(q, chunk, k_win, v_win, n_chunks, win_len, max_chunks)
+
+
+def split_grid(max_chunks: int, W: int) -> int:
+    """Steps a row of kernels 12 and 13's grid takes (``CHUNK_CUT`` a pool
+    chunk, then a window tile of ``quant_attention.window_tile(W)``),
+    sized from the capacities alone; refused past ``MAX_SPLITS``, and where
+    a window tile would exceed 256 tokens (a W over 256 that no multiple of
+    8 of at most 96 divides is one tile of W)."""
+    wt = qa.window_tile(W)
+    if wt > 256:
+        raise ValueError(f"a window of {W} rows is one tile of {wt} tokens; the kernels "
+                         f"take at most 256 a tile")
+    n = qa.uniform_grid(max_chunks, W, CHUNK_CUT)
+    if n > MAX_SPLITS:
+        raise ValueError(f"{max_chunks} chunks and a window of {W} rows make {n} steps a "
+                         f"row; the kernels take at most {MAX_SPLITS}")
+    return n
+
+
 def _fused(entry, fn_self, q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win, n_chunks,
            win_len, kfmt, vfmt, max_chunks, hpb, chunk_major, plain):
     name = fn_self.__name__
     _check_hpb(hpb)
     B, Hkv, G, W, k_bmp, v_bmp = _check_decode(
-        q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win, n_chunks, win_len, kfmt, vfmt,
-        max_chunks, chunk_major, name)
+        q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win, kfmt, vfmt, max_chunks, chunk_major,
+        name)
+    nc_t, wl_t = qa.device_counts(q, n_chunks, win_len, max_chunks, W)
+    BH = B * Hkv
+    n_splits = split_grid(max_chunks, W)         # the kernels' limits, on every device
+    qa.split_scratch_floats(BH, n_splits, G)
     if q.device.type == "cpu":
-        return plain(q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win, n_chunks, win_len,
-                     kfmt, vfmt, max_chunks)
+        return plain(q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win,
+                     qa.host_count(nc_t, max_chunks), qa.host_count(wl_t, W), kfmt, vfmt,
+                     max_chunks)
     stream = qa._stream(q)
     ks, kp = _seg_ptrs(k_segs)
     vs, vp = _seg_ptrs(v_segs)
@@ -434,12 +532,15 @@ def _fused(entry, fn_self, q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win, n_chun
     kw, vw = k_win.to(torch.bfloat16), v_win.to(torch.bfloat16)
     qa._check_aligned((("q", qb), ("k_bmp", k_bmp), ("v_bmp", v_bmp), ("k_win", kw),
                        ("v_win", vw), *(("segs", s) for s in ks + vs)))
-    fn = qa._library("sp_archive_fused", entry, 10, 13)
+    fn = qa._library("sp_archive_fused", entry, 14, 14)
     out = torch.empty_like(q)
+    scratch = qa._split_scratch(BH, n_splits, G, q.device, stream)
+    counters = qa._split_counters(BH, q.device, stream)
     rc = fn(qb.data_ptr(), *kp, k_bmp.data_ptr(), *vp, v_bmp.data_ptr(), kw.data_ptr(),
-            vw.data_ptr(), out.data_ptr(), int(out.dtype == torch.float32),
-            q.device.index or 0, B, Hkv, G, max_chunks, W, n_chunks, win_len,
-            *_segs(kfmt), *_segs(vfmt), stream)
+            vw.data_ptr(), nc_t.data_ptr(), wl_t.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), counters.data_ptr(), scratch.numel(), counters.numel(),
+            int(out.dtype == torch.float32), q.device.index or 0, B, Hkv, G, max_chunks, W,
+            qa.window_tile(W), *_segs(kfmt), *_segs(vfmt), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     fn_self.launches += 1
@@ -447,18 +548,31 @@ def _fused(entry, fn_self, q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win, n_chun
 
 
 def fused_sparse_decode_attention(q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win,
-                                  n_chunks: int, win_len: int, kfmt: sf.ChunkFormat,
+                                  n_chunks, win_len, kfmt: sf.ChunkFormat,
                                   vfmt: sf.ChunkFormat, max_chunks: int, hpb: int = 8):
     """v2: fused decode attention over ``n_chunks`` chunks of the head-major
-    split pools and the window -> [B, 1, Hq, 128] in q's dtype (q read as
-    bf16, the window as bf16).  ``hpb`` is the TPU kernel's heads per grid
-    step; it does not change the result, and a CUDA block takes one kv
-    head whatever it is.
+    split pools and the first ``win_len`` window rows -> [B, 1, Hq, 128] in
+    q's dtype (q read as bf16, the window as bf16); with nothing to attend
+    the mean of each head's W window rows, as on the TPU.  ``hpb`` is the
+    TPU kernel's heads per grid step; it does not change the result.
+    ``n_chunks`` and ``win_len`` are the TPU kernel's scalar-prefetch
+    counts: host ints (checked, then filled into int32 tensors on q's
+    device) or int32 tensors of one element on q's device, which the kernel
+    reads with no host sync (clamped into [0, max_chunks] and [0, W]), so a
+    CUDA graph of a call replays at any counts
+    (``quant_attention.device_counts``).
 
     CUDA tensors launch the kernel of ``csrc/sp_archive_fused.cu`` (entry
-    ``sp_fused_v2``, built at first use) on the current stream; CPU tensors
-    run the plain version.  A CUDA request the kernel cannot serve raises;
-    nothing falls back."""
+    ``sp_fused_v2``, built at first use) on the current stream: one CTA a
+    softmax step of 64 chunk tokens or of a window tile, ``split_grid``
+    steps a row (those past the live ones exit), the row's last CTA merging
+    with the stream's split scratch and counters
+    (``quant_attention._split_scratch``, ``_split_counters``); its
+    arithmetic is ``fused_sparse_decode_attention_split_plain``.  Refused
+    there: more than ``MAX_SPLITS`` steps a row, a window tile over 256
+    tokens (``split_grid``).  CPU tensors run the plain version in the TPU
+    kernel's steps.  A CUDA request the kernel cannot serve raises; nothing
+    falls back; the limits hold on the CPU too."""
     return _fused("sp_fused_v2", fused_sparse_decode_attention, q, k_segs, k_bmp,
                   v_segs, v_bmp, k_win, v_win, n_chunks, win_len, kfmt, vfmt,
                   max_chunks, hpb, False, fused_sparse_decode_attention_plain)
@@ -468,16 +582,23 @@ fused_sparse_decode_attention.launches = 0
 
 
 def fused_sparse_decode_attention_v3(q, k_segs, k_bmp, v_segs, v_bmp, k_win, v_win,
-                                     n_chunks: int, win_len: int,
-                                     kfmt: sf.ChunkFormat, vfmt: sf.ChunkFormat,
-                                     max_chunks: int, hpb: int = 8):
+                                     n_chunks, win_len, kfmt: sf.ChunkFormat,
+                                     vfmt: sf.ChunkFormat, max_chunks: int, hpb: int = 8):
     """v3: v2's function over chunk-major split pools (k_segs[i]
     [mc, BH, R_i, 128], k_bmp [mc, BH, P, 128]).
+    ``n_chunks`` and ``win_len`` are the TPU kernel's scalar-prefetch
+    counts: host ints (checked, then filled into int32 tensors on q's
+    device) or int32 tensors of one element on q's device, which the kernel
+    reads with no host sync (clamped into [0, max_chunks] and [0, W]), so a
+    CUDA graph of a call replays at any counts
+    (``quant_attention.device_counts``).
 
     CUDA tensors launch the kernel of ``csrc/sp_archive_fused.cu`` (entry
-    ``sp_fused_v3``: the next chunk copied with cp.async while this one is
-    attended) on the current stream; CPU tensors run the plain version.  A
-    CUDA request the kernel cannot serve raises; nothing falls back."""
+    ``sp_fused_v3``: v2's kernel body over this layout) on the current
+    stream; its arithmetic is
+    ``fused_sparse_decode_attention_v3_split_plain``, its limits v2's.  CPU
+    tensors run the plain version in the TPU kernel's steps.  A CUDA
+    request the kernel cannot serve raises; nothing falls back."""
     return _fused("sp_fused_v3", fused_sparse_decode_attention_v3, q, k_segs, k_bmp,
                   v_segs, v_bmp, k_win, v_win, n_chunks, win_len, kfmt, vfmt,
                   max_chunks, hpb, True, fused_sparse_decode_attention_v3_plain)

@@ -102,16 +102,11 @@ def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
 
 def unpack_rows(rows: torch.Tensor, bits: int) -> torch.Tensor:
     """int16 rows [..., R, 128] -> codes int32 [..., R*(16/bits), 128],
-    each field sign-extended."""
+    each field sign-extended: field j shifted to the top of an int32, then
+    arithmetically back down."""
     n = 16 // bits
-    w = rows.to(torch.int32) & 0xFFFF
-    mask = (1 << bits) - 1
-    half = 1 << (bits - 1)
-    blocks = []
-    for j in range(n):
-        f = (w >> (bits * j)) & mask
-        blocks.append(torch.where(f >= half, f - (1 << bits), f))
-    return torch.cat(blocks, dim=-2)
+    w = rows.to(torch.int32)
+    return torch.cat([(w << (32 - bits * (j + 1))) >> (32 - bits) for j in range(n)], dim=-2)
 
 
 def encode_chunk(x: torch.Tensor, codec: QuantCodec, kind: str):

@@ -231,15 +231,30 @@ def test_module_imports_and_builds_nothing_without_nvcc(tmp_path):
 
 # -- per-slot decode (kernel 2) ---------------------------------------------
 
-def _run_both_ps(q, pool, scales, k_win, v_win, nc, wl, li, q_dtype, codec="q8q4"):
-    mc = pool.shape[1]
-    jo = J_DECODE_PS(
-        jnp.asarray(q, q_dtype), jnp.asarray(pool),
-        jnp.asarray(scales[..., 0, :], jnp.bfloat16),
-        jnp.asarray(scales[..., 1, :], jnp.bfloat16),
-        jnp.asarray(k_win, jnp.bfloat16), jnp.asarray(v_win, jnp.bfloat16),
-        jnp.asarray(nc, jnp.int32), jnp.asarray(wl, jnp.int32), JCODECS[codec], mc,
-        li=jnp.int32(li))
+PS_NC = [0, 1, 3, 1, 3, 0]
+PS_WL = [1, 44, 288, 0, 1, 0]
+
+
+@functools.lru_cache(maxsize=None)
+def _ps_case(G, codec):
+    """Per-slot inputs (6 slots of one kv head, mc=3, L=2) and the JAX
+    kernel's output on them at layers 0 and 1 (f32 q), once a group and
+    codec.  The kernel reads q as bf16 and casts only its f32 result to q's
+    dtype, so a bf16 q's output is this one cast to bf16, bit for bit."""
+    q, pool, scales, k_win, v_win = _inputs(20 + G, 2, 3, 6, 1, G, codec)
+    jos = [np.asarray(J_DECODE_PS(
+        jnp.asarray(q), jnp.asarray(pool), jnp.asarray(scales[..., 0, :], jnp.bfloat16),
+        jnp.asarray(scales[..., 1, :], jnp.bfloat16), jnp.asarray(k_win, jnp.bfloat16),
+        jnp.asarray(v_win, jnp.bfloat16), jnp.asarray(PS_NC, jnp.int32),
+        jnp.asarray(PS_WL, jnp.int32), JCODECS[codec], pool.shape[1], li=jnp.int32(li)))
+        for li in (0, 1)]
+    return (q, pool, scales, k_win, v_win), jos
+
+
+def _run_both_ps(G, li, q_dtype, codec="q8q4"):
+    (q, pool, scales, k_win, v_win), jos = _ps_case(G, codec)
+    nc, wl = PS_NC, PS_WL
+    jo = jos[li].astype(q_dtype)
     bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
     tq = torch.from_numpy(q) if q_dtype == jnp.float32 else bf(q)
     before = tqa.fused_q_decode_attention_ps.launches
@@ -260,12 +275,9 @@ def test_ps_plain_matches_jax_kernel(G, q_dtype, codec):
     idle slot (0, 0), which the port writes as 0; the TPU kernel's block
     loops every head to the largest counts, and parity is owed on slots with
     something to attend."""
-    q, pool, scales, k_win, v_win = _inputs(20 + G, 2, 3, 6, 1, G, codec)
-    nc = [0, 1, 3, 1, 3, 0]
-    wl = [1, 44, 288, 0, 1, 0]
+    nc, wl = PS_NC, PS_WL
     for li in (0, 1):
-        jo, to = _run_both_ps(q, pool, scales, k_win, v_win, nc, wl, li,
-                              getattr(jnp, q_dtype), codec)
+        jo, to = _run_both_ps(G, li, getattr(jnp, q_dtype), codec)
         for b in range(6):
             if not (nc[b] or wl[b]):
                 assert (to[b] == 0).all(), f"idle slot {b}, li={li}"
@@ -305,7 +317,14 @@ ULP = 2.0 ** -8
 @functools.lru_cache(maxsize=None)
 def _split_case(codec, G, q_dtype):
     """Per-slot inputs (6 slots of one kv head, mc=3, layer 1) and the JAX
-    kernel's output on them, once a codec, group and q dtype."""
+    kernel's output on them, once a codec, group and q dtype.  The kernel
+    reads q as bf16 and casts only its f32 result to q's dtype, so with a
+    bf16 q its output is the f32 q's (q on the bf16 grid) cast to bf16, bit
+    for bit: one JAX program serves both dtypes."""
+    if q_dtype == "bfloat16":
+        tq, targs, jo = _split_case(codec, G, "float32")
+        return (tq.to(torch.bfloat16), targs,
+                np.asarray(jnp.asarray(jo).astype(jnp.bfloat16)).astype(np.float32))
     q, pool, scales, k_win, v_win = _inputs(80 + G, 2, 3, 6, 1, G, codec)
     jo = J_DECODE_PS(
         jnp.asarray(q, getattr(jnp, q_dtype)), jnp.asarray(pool),

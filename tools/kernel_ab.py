@@ -2,7 +2,7 @@
 checkout in one call (parent, change, change, parent) and compare the lines.
 
     python3 tools/kernel_ab.py --root DIR --label NAME \
-        [--engine | --host-only | --variants | --eager-engine]
+        [--engine | --host-only | --variants | --eager-engine | --archive]
 
 ``DIR`` is the root of a checkout of this repository (its ``chip_smoke.py``
 and ``mustafar_tpu_torch/``; an unpacked ``git archive`` of another commit
@@ -47,7 +47,11 @@ by what they ran, as ``serve_cb`` splits them, and the SHA-256 of the
 tokens), a batch-1 chunked ``Generator`` prefill of 1,280 tokens (5
 segments: enqueue and wall ms, the least of 5), and DIR's
 ``phase_serve_cb_tp`` (the engine at tp=2, two processes on the card over
-gloo).  Needs one CUDA card.
+gloo).  With ``--archive`` it builds the kernels and prints only the
+device time of the archive's kernels 12 and 13 (v2, v3) and of kernel 6
+at the ``kernel_archive`` ladder's shapes (``archive_ms``), the SHA-256 of
+kernels 14 and 16's outputs there (v4, v6's partials) and the digests of
+kernels 1-9 above.  Needs one CUDA card.
 """
 
 import argparse
@@ -405,7 +409,7 @@ VARIANTS = (
     ("q_decode", "k1_no_chunk_scores", {"q_decode.cu": [
         ("for (int r0 = 8 * warp; r0 < K_ROWS; r0 += 8 * WARPS) {",
          "for (int r0 = 8 * warp; r0 < 0; r0 += 8 * WARPS) {")]}),
-    ("sp_decode", "k6_no_expand", {"sp_decode.cu": [
+    ("sp_decode", "k6_no_expand", {"chunk_share.cuh": [
         ("for (int r0 = warp; r0 < STEP; r0 += NR * WARPS) {",
          "for (int r0 = warp; r0 < 0; r0 += NR * WARPS) {")]}),
     ("sp_decode", "k6_no_chunk_scores", {"sp_decode.cu": [
@@ -517,6 +521,47 @@ def k1_k6_ms(c):
     return out
 
 
+ARCHIVE_SHAPES = {"a": (8, 5, 1, 288, 288), "b": (32, 3, 3, 288, 132)}   # B, mc, nc, W, wl
+
+
+def archive_ms(c, rounds=3, reps=100):
+    """Device ms (L2 flushed, the mean of ``reps`` launches; ``rounds``
+    rounds in turns) of kernels 12 and 13 (v2, v3) and kernel 6 at the
+    ``kernel_archive`` ladder's shapes (Hkv=8, G=4, sparsity 0.7): (a) B=8,
+    1 chunk + 288 window, (b) B=32, 3 chunks + 132; and the SHA-256 of
+    kernels 14 and 16's outputs there (v4's output, v6's partials), through
+    the wrappers DIR's checkout has in common with its parent."""
+    import torch
+    from mustafar_tpu_torch.ops import sparse_format as sf
+    from mustafar_tpu_torch.ops.kernels import sparse_attention_archive as sar
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    bf = torch.bfloat16
+    fmt = sf.ChunkFormat(256, 128, 40)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    times, kept = {}, []
+    for label, (B, mc, nc, W, wl) in ARCHIVE_SHAPES.items():
+        pools = c._archive_pools(
+            torch.randn((2, B * 8, mc, 256, 128), generator=g, device=dev).to(bf), fmt)
+        q = torch.randn((B, 1, 32, 128), generator=g, device=dev).to(bf)
+        kw = torch.randn((B, W, 8, 128), generator=g, device=dev).to(bf)
+        vw = torch.randn((B, W, 8, 128), generator=g, device=dev).to(bf)
+        calls = c._archive_calls(pools, q, kw, vw, nc, wl, fmt, mc)
+        kept.append(calls["v4"][0]())
+        kept.extend(sar.fused_sparse_decode_attention_v6_partials(
+            q, pools["stream"][0], nc, wl, fmt, fmt, mc))
+        for name in ("v2", "v3", "kernel6"):
+            for _ in range(5):
+                calls[name][0]()
+        torch.cuda.synchronize()
+        for _ in range(rounds):
+            for name in ("v2", "v3", "kernel6"):
+                times.setdefault(f"{name}_{label}", []).append(
+                    c.cuda_ms(calls[name][0], reps, flush=flush.zero_)[0])
+    return times, _sha(kept)
+
+
 # the kernels each library's variants are timed on
 VARIANT_TIMES = {"q_segment": k3_k5_ms, "w4_matmul": k3_k5_ms, "q_decode": k1_k6_ms,
                  "sp_decode": k1_k6_ms, "prune_quant_pack": k9_ms}
@@ -622,6 +667,7 @@ def main():
     ap.add_argument("--engine", action="store_true")
     ap.add_argument("--host-only", action="store_true")
     ap.add_argument("--eager-engine", action="store_true")
+    ap.add_argument("--archive", action="store_true")
     ap.add_argument("--variants", nargs="*", metavar="LIB",
                     help="build and time the VARIANTS (of these libraries only, if named)")
     args = ap.parse_args()
@@ -639,6 +685,13 @@ def main():
         return
     if args.eager_engine:
         eager_engine(c, args.label, smi)
+        return
+    if args.archive:
+        times, sha = archive_ms(c)
+        print(json.dumps({"phase": "kernel_ab_archive", "label": args.label,
+                          "root": args.root, "nvidia_smi": smi, "archive_ms": times,
+                          "v4_v6_sha256": sha, "sha256": digests(c),
+                          "seconds": time.perf_counter() - t0}), flush=True)
         return
     if args.host_only:
         print(json.dumps({"phase": "kernel_ab", "label": args.label, "root": args.root,
